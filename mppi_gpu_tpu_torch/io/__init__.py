@@ -1,0 +1,5 @@
+"""CSV/trajectory IO matching the reference's outputs (src/main.cu:32-156)."""
+
+from mppi_gpu_tpu_torch.io.csvio import write_step_dump_csv, write_traj_csv
+
+__all__ = ["write_traj_csv", "write_step_dump_csv"]
