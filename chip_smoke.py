@@ -7,16 +7,19 @@ Run from the root of a checkout, with no arguments:
 
 It builds the CUDA kernels from ``mppi_gpu_tpu_torch/csrc``, holds each one
 against its plain PyTorch version and the float64 NumPy oracle, times them,
-and drives the port's main path — ``MPPIController`` and the closed-loop CLI
-— on the card. Every phase prints one line (or a few); any failure raises
+and drives the port's two paths on the card: the single robot
+(``MPPIController`` and the closed-loop CLI, phases 3-7) and the fleet
+(``BatchedMPPIController``, ``run_fleet_episode`` and the fleet example,
+phases 8-10). Every phase prints one line (or a few); any failure raises
 and the script exits non-zero without the final line. Without a CUDA device
 it exits 1 at once. The last two lines are a JSON object describing every
-kernel (route, source, the TPU kernel it replaces, launches on the main path,
+kernel (route, source, the TPU kernels it replaces, launches on each path,
 max abs error against its plain version, ms on the card next to the plain
-version's) and ``{"ok": true, "device": {...}}``.
+version's, for one robot and for a fleet) and ``{"ok": true, "device": {...}}``.
 
 The ``check_*`` functions are also called by the GPU tests
-(``tests/test_torch_fused.py``) at small shapes.
+(``tests/test_torch_fused.py``, ``tests/test_torch_fleet.py``) at small
+shapes.
 """
 
 from __future__ import annotations
@@ -37,11 +40,23 @@ SOURCE = "mppi_gpu_tpu_torch/csrc/mppi_lti.cu"
 PALLAS = "mppi_gpu_tpu/ops/pallas_rollout.py"
 # steady-state goal-distance tripwire of the lti family (bench.QUALITY_THRESHOLDS)
 LTI_QUALITY_THRESHOLD_M = 0.35
+# bar of the fleet's mean final goal distance (point_mass2d, R=8 on the circle
+# of examples/fleet.py, full episode): the JAX package's own fleet ends that
+# episode at 0.364 m on the CPU, so the bar is that figure + 0.05 m
+FLEET_DISTANCE_BAR_M = 0.414
 # tolerances of tests/test_parity_scale.py at K=10⁴, T=200
 TOL = dict(
     S_rel=2e-4, beta=1e-6, eta=2e-3, u=dict(rtol=1e-4, atol=2e-5),
     dU=dict(rtol=2e-3, atol=2e-5),
 )
+
+
+# β against the float64 oracle across a fleet's random robots: β is the least
+# rollout cost, and f32 rollouts of T=200 steps carry up to ~2e-6 relative
+# error in S against the oracle (the plain version on the CPU: 2.1e-6 at most
+# over 8 robots × 10⁴ rollouts), beyond the 1e-6 that TOL holds one fixed
+# instance to; against the plain version β stays at TOL's 1e-6
+FLEET_ORACLE_BETA_RTOL = 5e-6
 
 
 class SmokeFailure(AssertionError):
@@ -168,29 +183,33 @@ def compare_solves(name: str, p: dict, got, want, *, S_rtol: float) -> dict:
 # checks (also called by tests/test_torch_fused.py on the card)
 
 
+def check_oracle(name: str, p: dict, got, beta_rtol: float = TOL["beta"]) -> None:
+    """An injected-ε solve core (S, β, η, ΔU) and its controller result
+    against the float64 oracle (tests/oracle.py) on the same inputs."""
+    n = p["np"]
+    S_o, _, action_o, shift_o, _, beta_o, eta_o = _oracle().oracle_solve(
+        n["x0"], n["U"], n["eps"], p["dt"], n["w"], n["goal"], p["lam_cost"], n["inv_s"],
+        max_a=np.ones(p["A"]),
+    )
+    rel = np.abs(_np(got[0]) - S_o) / np.abs(S_o)
+    expect(rel.max() < TOL["S_rel"], f"{name}: worst S relative error {rel.max():.2e}")
+    close(f"{name} beta", _np(got[1]), beta_o, beta_rtol)
+    close(f"{name} eta", _np(got[2]), eta_o, TOL["eta"])
+    res = finish(p, *got)
+    close(f"{name} action", _np(res.action), action_o, **TOL["u"])
+    close(f"{name} u_next", _np(res.u_next), shift_o, **TOL["u"])
+
+
 def check_injected(A: int, K: int, T: int, device: str = "cuda") -> dict:
     """K1 + K2 in the injected-ε mode against the plain version on the card
     and against the float64 oracle (tests/oracle.py)."""
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
 
-    oracle_solve = _oracle().oracle_solve
     p = make_problem(A, K, T, device=device)
     got = fs.fused_solve(*solve_args(p, eps=p["eps"]))
     want = fs.fused_solve_reference(*solve_args(p, eps=p["eps"]))
     errs = compare_solves(f"injected A={A} K={K} T={T} vs plain", p, got, want, S_rtol=1e-5)
-    n = p["np"]
-    S_o, _, action_o, shift_o, _, beta_o, eta_o = oracle_solve(
-        n["x0"], n["U"], n["eps"], p["dt"], n["w"], n["goal"], p["lam_cost"], n["inv_s"],
-        max_a=np.ones(A),
-    )
-    name = f"injected A={A} K={K} T={T} vs oracle"
-    rel = np.abs(_np(got[0]) - S_o) / np.abs(S_o)
-    expect(rel.max() < TOL["S_rel"], f"{name}: worst S relative error {rel.max():.2e}")
-    close(f"{name} beta", _np(got[1]), beta_o, TOL["beta"])
-    close(f"{name} eta", _np(got[2]), eta_o, TOL["eta"])
-    res = finish(p, *got)
-    close(f"{name} action", _np(res.action), action_o, **TOL["u"])
-    close(f"{name} u_next", _np(res.u_next), shift_o, **TOL["u"])
+    check_oracle(f"injected A={A} K={K} T={T} vs oracle", p, got)
     return errs
 
 
@@ -287,6 +306,134 @@ def check_edge_cases(device: str = "cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
+# fleet checks (also called by tests/test_torch_fleet.py on the card)
+
+
+def make_fleet(A: int, R: int, K: int, T: int, seed: int = 0, device: str = "cuda") -> dict:
+    """R point-mass problems with make_problem's shared widths (σ, Σ⁻¹, w, dt,
+    λ) and per-robot x0, U, goal and injected noise, all from `seed`."""
+    import torch
+
+    p = make_problem(A, 1, T, seed=seed, device=device)
+    rng = np.random.default_rng(seed + 1)
+    xs = np.concatenate([rng.uniform(-0.2, 0.2, (R, A)), rng.uniform(-0.1, 0.1, (R, A))], 1)
+    phase = rng.uniform(0.0, 2 * np.pi, (R, 1))
+    Us = 0.2 * np.sin(0.05 * np.arange(T * A)[None] + phase).reshape(R, T, A)
+    goals = np.tile(p["np"]["goal"], (R, 1))
+    goals[:, :A] += rng.uniform(-0.3, 0.3, (R, A))
+    eps = np.empty((R, T, K, A), np.float32)
+    for r in range(R):
+        eps[r] = rng.standard_normal((T, K, A), np.float32) * p["np"]["sigma"]
+    fleet = dict(xs=xs.astype(np.float32), Us=Us.astype(np.float32),
+                 goals=goals.astype(np.float32), eps=eps)
+    p.update({k: torch.as_tensor(v, device=device) for k, v in fleet.items()})
+    p["np"].update(fleet)
+    p.update(K=K, R=R)
+    return p
+
+
+def fleet_args(p: dict, *, seeds=7, step=3, it=0, antithetic=False, ou_beta=0.0, eps=None):
+    return (
+        p["xs"], p["Us"], p["sigma"], p["inv_s"], p["w"], p["goals"], p["lam_cost"],
+        p["lam"], p["dt"], p["K"], seeds, step, it, antithetic, ou_beta, eps,
+    )
+
+
+def robot(p: dict, r: int) -> dict:
+    """Robot r of a make_fleet problem as a make_problem one (views)."""
+    n = p["np"]
+    q = dict(p, x0=p["xs"][r], U=p["Us"][r], goal=p["goals"][r], eps=p["eps"][r])
+    q["np"] = dict(n, x0=n["xs"][r], U=n["Us"][r], goal=n["goals"][r], eps=n["eps"][r])
+    return q
+
+
+def check_fleet_injected(A: int, R: int, K: int, T: int, device: str = "cuda") -> dict:
+    """The fleet's K1 + K2 (one launch each) in the injected-ε mode against
+    the plain fleet on the card and, robot by robot, against the float64
+    oracle."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    p = make_fleet(A, R, K, T, device=device)
+    got = fs.fleet_fused_solve(*fleet_args(p, eps=p["eps"]))
+    want = fs.fleet_fused_solve_reference(*fleet_args(p, eps=p["eps"]))
+    errs: dict = {}
+    for r in range(R):
+        name = f"fleet injected A={A} R={R} K={K} T={T} robot {r}"
+        e = compare_solves(f"{name} vs plain", robot(p, r), [v[r] for v in got],
+                           [v[r] for v in want], S_rtol=1e-5)
+        check_oracle(f"{name} vs oracle", robot(p, r), [v[r] for v in got],
+                     beta_rtol=FLEET_ORACLE_BETA_RTOL)
+        errs = {k: max(errs.get(k, 0.0), v) for k, v in e.items()}
+    return errs
+
+
+def check_fleet_philox(A: int, R: int, K: int, T: int, *, antithetic=False, ou_beta=0.0,
+                       device: str = "cuda") -> dict:
+    """Philox mode, per-robot seeds (ops/philox.fleet_seeds): the fleet's K1
+    and K2 against their plain versions, and every robot's (S, β, η, ΔU)
+    bit-equal to the R = 1 launch with its seed, x0, U and goal."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import philox
+
+    p = make_fleet(A, R, K, T, device=device)
+    seeds = philox.fleet_seeds(7, R).to(device)
+    args = fleet_args(p, seeds=seeds, step=3, it=1, antithetic=antithetic, ou_beta=ou_beta)
+    name = f"fleet philox A={A} R={R} K={K} T={T} anti={antithetic} ou={ou_beta}"
+    S, part = fs.fleet_solve_partials(*args)
+    S_r, part_r = fs.fleet_solve_partials_reference(*args)
+    e1 = close(f"{name} K1 S", _np(S), _np(S_r), 1e-5)
+    close(f"{name} K1 beta_b", _np(part[..., 0]), _np(part_r[..., 0]), 1e-5)
+    close(f"{name} K1 eta_b", _np(part[..., 1]), _np(part_r[..., 1]), TOL["eta"])
+    scale = float(part_r[..., 2:].abs().max())
+    close(f"{name} K1 dU_b", _np(part[..., 2:]), _np(part_r[..., 2:]), TOL["dU"]["rtol"],
+          TOL["dU"]["atol"] * max(scale, 1.0))
+    b, e, dU = fs.fleet_softmin_combine(part, p["lam"], T, A)
+    b_r, e_r, dU_r = fs.fleet_softmin_combine_reference(part, p["lam"], T, A)
+    close(f"{name} K2 beta", _np(b), _np(b_r), 1e-7)
+    close(f"{name} K2 eta", _np(e), _np(e_r), 1e-5)
+    e2 = close(f"{name} K2 dU", _np(dU), _np(dU_r), 1e-4, 1e-6)
+    fleet = fs.fleet_fused_solve(*args)
+    for r, seed in enumerate(seeds.tolist()):
+        q = robot(p, r)
+        solo = fs.fused_solve(*solve_args(q, seed=seed, step=3, it=1, antithetic=antithetic,
+                                          ou_beta=ou_beta))
+        for label, a, want in zip(("S", "beta", "eta", "dU"), (v[r] for v in fleet), solo):
+            expect(torch.equal(a, want), f"{name} robot {r}: {label} differs from its solo solve")
+    return dict(lti_solve_partials=e1, softmin_combine=e2)
+
+
+def check_fleet_diverged(K: int = 1000, T: int = 50, device: str = "cuda") -> None:
+    """One robot whose every rollout diverges (its goal at 1e30: every state
+    cost is +inf): its β is +inf and its action NaN, while the other robots
+    stay finite and equal to their solo solves."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import _finish_fused
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import philox
+
+    R, bad = 4, 1
+    p = make_fleet(2, R, K, T, device=device)
+    p["goals"][bad] = 1e30
+    seeds = philox.fleet_seeds(3, R).to(device)
+    args = fleet_args(p, seeds=seeds)
+    S, beta, eta, dU = fs.fleet_fused_solve(*args)
+    res = _finish_fused(p["Us"], dU, S, beta, eta, p["lam"], p["max_a"], True)
+    expect(bool(torch.isinf(S[bad]).all()) and float(beta[bad]) == float("inf"),
+           "diverged robot: expected S = β = +inf")
+    expect(bool(torch.isnan(res.action[bad]).all()), "diverged robot: action is not NaN")
+    for r, seed in enumerate(seeds.tolist()):
+        if r == bad:
+            continue
+        expect(bool(torch.isfinite(res.action[r]).all()), f"robot {r}: action not finite")
+        solo = fs.fused_solve(*solve_args(robot(p, r), seed=seed))
+        for label, a, want in zip(("S", "beta", "eta", "dU"), (S[r], beta[r], eta[r], dU[r]), solo):
+            expect(torch.equal(a, want), f"robot {r} beside a diverged robot: {label} differs")
+
+
+# ---------------------------------------------------------------------------
 # timing
 
 
@@ -376,7 +523,7 @@ def main() -> int:
         print(f"    ptxas {line}")
 
     # [3] injected ε vs plain and oracle
-    err = {k.__name__: 0.0 for k in fs.KERNELS}
+    err = {name: 0.0 for name in fs.KERNELS}
     for A, K, T in ((2, 3000, 50), (3, 10_000, 200)):
         e = check_injected(A, K, T)
         print(f"[3] injected A={A} K={K} T={T}: ok vs plain and oracle; max abs err "
@@ -409,12 +556,12 @@ def main() -> int:
         expect(ctrl.rollout_backend == "fused", f"auto picked {ctrl.rollout_backend} on cuda")
         x = torch.zeros(cfg.state_dim, device="cuda")
         U = ctrl.init_action_seq()
-        before = fs.lti_solve_partials.launches
+        before = fs.launch_counts()["lti_solve_partials"]
         k_ms, p_ms = paired_median_ms(
             lambda: ctrl.solve_auto(x, U, 1), lambda: plain.solve_auto(x, U, 1),
             reps=20, plain_reps=3 if K >= 100_000 else 5,
         )
-        expect(fs.lti_solve_partials.launches > before, "K1 launch count did not go up")
+        expect(fs.launch_counts()["lti_solve_partials"] > before, "K1 launch count did not go up")
         a_k, a_p = _np(ctrl.solve_auto(x, U, 1).action), _np(plain.solve_auto(x, U, 1).action)
         close(f"controller {cfg_name} K={K} action", a_k, a_p, **TOL["u"])
         timing[f"{cfg_name} K={K} T={T}"] = (k_ms, p_ms)
@@ -459,15 +606,131 @@ def main() -> int:
     for name, n in launches.items():
         expect(n > 0, f"kernel {name} was not launched on the main path")
 
+    # [8] the fleet kernels: injected ε vs plain and oracle; Philox mode vs
+    # plain and bit-equal to each robot's solo launch; a diverged robot
+    for A, R, K, T in ((2, 4, 3000, 50), (3, 8, 10_000, 200)):
+        e = check_fleet_injected(A, R, K, T)
+        print(f"[8] fleet injected A={A} R={R} K={K} T={T}: ok vs plain and oracle (every "
+              "robot); max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+    for anti, ou in ((False, 0.0), (True, 0.5)):
+        e = check_fleet_philox(3, 8, 10_000, 200, antithetic=anti, ou_beta=ou)
+        for k in e:
+            err[k] = max(err[k], e[k])
+        print(f"[8] fleet philox A=3 R=8 K=10000 T=200 anti={anti} ou={ou}: K1 S err "
+              f"{e['lti_solve_partials']:.3g}, K2 dU err {e['softmin_combine']:.3g}; every "
+              "robot's (S, beta, eta, dU) bit-equal to its R=1 launch")
+    check_fleet_diverged()
+    print("[8] fleet edges: a diverged robot -> +inf beta, NaN action; the others finite "
+          "and bit-equal to their solo solves")
+
+    # [9] fleet solve timings: one fleet solve vs a loop of R solo solves
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
+    from mppi_gpu_tpu_torch.examples.fleet import circle_goals
+
+    for cfg_name, R, K, T, anti in (("point_mass2d", 8, 3000, 50, False),
+                                    ("point_mass3d", 8, 100_000, 200, False),
+                                    ("point_mass3d", 8, 100_000, 200, True),
+                                    ("point_mass3d", 64, 10_000, 200, False)):
+        cfg = _config(cfg_name).replace(samples=K, horizon=T, antithetic=anti)
+        fleet = BatchedMPPIController(cfg, R, goals=torch.from_numpy(circle_goals(R, cfg.state_dim)),
+                                      device="cuda", rollout_backend="auto")
+        expect(fleet.rollout_backend == "fused", f"auto picked {fleet.rollout_backend} on cuda")
+        solos = [MPPIController(cfg, device="cuda", cost=fleet._robot_cost(r)) for r in range(R)]
+        xs = 0.05 * torch.randn(R, cfg.state_dim, generator=torch.Generator().manual_seed(R)).cuda()
+        Us, seeds = fleet.init_action_seqs(), fleet.init_seeds()
+        seed_list = seeds.tolist()
+        before = fs.launch_counts()
+        res = fleet.solve_batch(xs, Us, seeds, 1)
+        after = fs.launch_counts()
+        for name in ("lti_solve_partials", "softmin_combine"):
+            expect(after[name] - before[name] == cfg.opt_iters,
+                   f"{name}: {after[name] - before[name]} launches for one fleet solve")
+        for r in range(R):
+            solo = solos[r].solve(xs[r], Us[r], seed_list[r], 1)
+            expect(torch.equal(res.action[r], solo.action) and torch.equal(res.u_next[r], solo.u_next),
+                   f"fleet {cfg_name} R={R}: robot {r} differs from its solo solve")
+
+        def loop():
+            for r in range(R):
+                solos[r].solve(xs[r], Us[r], seed_list[r], 1)
+
+        f_ms, l_ms = paired_median_ms(lambda: fleet.solve_batch(xs, Us, seeds, 1), loop, 20, 5)
+        label = f"{cfg_name} R={R} K={K} T={T}{' anti' if anti else ''}"
+        line = (f"[9] fleet solve {label}: fused {f_ms:.4f} ms/fleet-solve, loop of {R} solo "
+                f"fused solves {l_ms:.4f} ms")
+        if R == 8 and K == 3000:
+            eager = BatchedMPPIController(cfg, R, goals=fleet.cost.goal, device="cuda",
+                                          rollout_backend="eager")
+            e_ms = float(np.median(time_ms(lambda: eager.solve_batch(xs, Us, seeds, 1), 3, 1)))
+            line += f", eager fleet {e_ms:.4f} ms"
+        print(f"{line} (CUDA events, warm median; {smi})")
+
+    # per-kernel fleet times at R=8, point_mass3d K=10⁴, T=200
+    p = make_fleet(3, 8, 10_000, 200)
+    seeds = philox.fleet_seeds(7, 8).cuda()
+    fargs = fleet_args(p, seeds=seeds)
+    _, fpart = fs.fleet_solve_partials(*fargs)
+    seed_list = seeds.tolist()
+    fleet_kernel_ms = {
+        "lti_solve_partials": paired_median_ms(
+            lambda: fs.fleet_solve_partials(*fargs),
+            lambda: fs.fleet_solve_partials_reference(*fargs), 20, 2),
+        "softmin_combine": paired_median_ms(
+            lambda: fs.fleet_softmin_combine(fpart, 1.0, 200, 3),
+            lambda: fs.fleet_softmin_combine_reference(fpart, 1.0, 200, 3), 20, 10),
+        # a fleet's debug dump: K3 once per robot stream
+        "noise_dump": paired_median_ms(
+            lambda: [fs.noise_dump(p["sigma"], 200, 10_000, s_, 3, 0, False, 0.0) for s_ in seed_list],
+            lambda: [philox.sample_eps(s_, 3, 0, 200, 10_000, p["sigma"]) for s_ in seed_list], 10, 2),
+    }
+    for name, (k_ms, p_ms) in fleet_kernel_ms.items():
+        print(f"[9] fleet kernel {name} R=8 A=3 K=10000 T=200: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
+    del p, fargs, fpart
+
+    # [10] the fleet path: the fleet example in both modes and a full-length
+    # episode, launches counted
+    from mppi_gpu_tpu_torch.examples import fleet as fleet_example
+    from mppi_gpu_tpu_torch.runner import run_fleet_episode
+
+    fs.reset_launch_counts()
+    steps = 120
+    for mode in ([], ["--episode"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fleet_example.main(["-c", os.path.join("configs", "point_mass2d.yaml"), "-n", "8",
+                                     "--steps", str(steps), "--device", "cuda", *mode])
+        out = buf.getvalue()
+        print("\n".join("    " + line for line in out.strip().splitlines()))
+        expect(rc == 0, f"fleet example {mode} exited {rc}")
+    cfg2 = _config("point_mass2d")
+    goals = circle_goals(8, cfg2.state_dim)
+    fleet = BatchedMPPIController(cfg2, 8, goals=torch.from_numpy(goals), device="cuda")
+    t0 = time.perf_counter()
+    ep = run_fleet_episode(fleet)
+    ep_s = time.perf_counter() - t0
+    fleet_launches = fs.launch_counts()
+    n_solves = (2 * steps + len(ep.us)) * cfg2.opt_iters
+    dist = np.linalg.norm(ep.xs[-1][:, :2] - goals[:, :2], axis=1)
+    print(f"[10] fleet closed loop: example host loop and --episode exited 0; full episode "
+          f"point_mass2d R=8, {len(ep.us)} steps in {ep_s:.2f} s, mean final goal distance "
+          f"{dist.mean():.4f} m (bar {FLEET_DISTANCE_BAR_M}); fleet-path launches {fleet_launches}")
+    expect(np.isfinite(ep.xs).all() and ep.xs.shape == (len(ep.us) + 1, 8, 4), "episode states")
+    expect(dist.mean() < FLEET_DISTANCE_BAR_M, f"fleet mean final distance {dist.mean()} m")
+    for name in ("lti_solve_partials", "softmin_combine"):
+        expect(fleet_launches[name] == n_solves,
+               f"{name}: {fleet_launches[name]} launches on the fleet path, {n_solves} fleet solves")
+
+    k12 = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
     replaces = {
-        "lti_solve_partials": f"{PALLAS}:2342",
-        "softmin_combine": f"{PALLAS}:1847",
-        "noise_dump": f"{PALLAS}:2140",
+        "lti_solve_partials": k12,
+        "softmin_combine": k12,
+        "noise_dump": f"{PALLAS}:2140, {PALLAS}:2872",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
-         "launches": launches[name], "max_abs_err": err[name],
-         "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1]}
+         "launches": launches[name], "fleet_launches": fleet_launches[name],
+         "max_abs_err": err[name], "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1],
+         "fleet_ms": fleet_kernel_ms[name][0], "fleet_plain_ms": fleet_kernel_ms[name][1]}
         for name in replaces
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,171 @@
+"""Batched multi-robot MPPI: one call solves R independent control problems
+(torch counterpart of ``mppi_gpu_tpu.batched``).
+
+Each robot has its own state, nominal sequence, goal and seed; the dynamics,
+the cost's weights, σ, λ, K and T are shared. Two backends:
+
+* ``fused`` — one launch of K1 and one of K2 for the whole fleet
+  (``ops.fused_solve.fleet_fused_solve``): the robot is a grid axis of the
+  kernels, as it is of the TPU's fleet kernels (``pallas_fleet_solve_core``);
+* ``eager`` — the single-robot plain solve, robot by robot (the CPU and the
+  tests).
+
+Robot r's solve is the single-robot solve under its seed and goal, bit for
+bit on the eager backend and on the fused one (the fleet's decomposability
+invariant, ``mppi_gpu_tpu/batched.py:92-103``): its noise is the port's
+stream under ``seeds[r]`` (``ops.philox.fleet_seeds``), counter
+(k, t, step, it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from mppi_gpu_tpu_torch.config import MPPIConfig
+from mppi_gpu_tpu_torch.controller import (
+    MPPIController,
+    SolveInfo,
+    SolveResult,
+    _finish_fused,
+    mppi_solve_deterministic,
+    solve_from_costs,
+)
+from mppi_gpu_tpu_torch.models.base import Dynamics
+from mppi_gpu_tpu_torch.ops import fused_solve as fs
+from mppi_gpu_tpu_torch.ops import philox
+from mppi_gpu_tpu_torch.ops.cost import Cost, batch_goals
+from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
+
+
+def _stack_results(results: list[SolveResult]) -> SolveResult:
+    """R single-robot results → one whose every leaf has a leading R axis."""
+    return SolveResult(
+        action=torch.stack([r.action for r in results]),
+        u_next=torch.stack([r.u_next for r in results]),
+        info=SolveInfo(*(torch.stack(v) for v in zip(*(r.info for r in results)))),
+    )
+
+
+class BatchedMPPIController(MPPIController):
+    """Solves R problems per call: states (R, s), sequences (R, T, a), seeds
+    (R,) int64. Every leaf of the returned ``SolveResult`` carries a leading
+    R axis: action (R, a), u_next (R, T, a), costs (R, K), beta and eta (R,),
+    weights (R, K), u_seq (R, T, a).
+
+    Usage:
+        fleet = BatchedMPPIController(cfg, 8, goals=goals, device="cuda")
+        Us, seeds = fleet.init_action_seqs(), fleet.init_seeds()
+        res = fleet.solve_batch(xs, Us, seeds, step)
+    """
+
+    def __init__(
+        self,
+        cfg: MPPIConfig,
+        n_robots: int,
+        *,
+        device: torch.device | str,
+        goals: torch.Tensor | None = None,  # (R, s) per-robot goals
+        rollout_backend: str = "auto",
+        dynamics: Dynamics | None = None,
+        cost: Cost | None = None,
+    ) -> None:
+        if n_robots < 1:
+            raise ValueError(f"a fleet has n_robots >= 1, got {n_robots}")
+        super().__init__(
+            cfg, device=device, rollout_backend=rollout_backend, dynamics=dynamics, cost=cost
+        )
+        self.n_robots = n_robots
+        # a cost with a goal carries one goal row per robot, shared ones
+        # repeated: the fused kernels read robot r's row
+        goal = getattr(self.cost, "goal", None)
+        if goals is None and goal is not None:
+            goals = goal if goal.dim() == 2 else goal.expand(n_robots, -1)
+        if goals is not None:
+            goals = torch.as_tensor(goals, dtype=torch.float32, device=self.device)
+            self.cost = batch_goals(self.cost, goals.contiguous(), n_robots)
+
+    # -- batched state helpers --------------------------------------------
+    def init_action_seqs(self) -> torch.Tensor:
+        """(R, T, a): every robot starts from U[t] = init-act."""
+        return self.init_action_seq().expand(self.n_robots, -1, -1).contiguous()
+
+    def init_seeds(self) -> torch.Tensor:
+        """(R,) int64 per-robot seeds under the config's seed, on the
+        controller's device (``ops.philox.fleet_seeds``)."""
+        return philox.fleet_seeds(self.cfg.seed, self.n_robots).to(self.device)
+
+    def _seeds(self, seeds) -> torch.Tensor:
+        seeds = torch.as_tensor(seeds, dtype=torch.int64, device=self.device)
+        if tuple(seeds.shape) != (self.n_robots,):
+            raise ValueError(
+                f"a fleet solve takes ({self.n_robots},) per-robot seeds (init_seeds()), "
+                f"got shape {tuple(seeds.shape)}"
+            )
+        return seeds
+
+    def _robot_cost(self, r: int) -> Cost:
+        """Robot r's single-robot cost (its own goal)."""
+        if getattr(self.cost, "goal", None) is None:
+            return self.cost
+        return dataclasses.replace(self.cost, goal=self.cost.goal[r])
+
+    # -- solves ------------------------------------------------------------
+    def _fused(self, xs, Us, seeds, step: int, it: int, eps=None) -> SolveResult:
+        """One launch of K1 and one of K2 for the fleet (Philox mode, or
+        injected-ε mode with `eps` (R, T, K, a)), then the tail."""
+        cfg, c = self.cfg, self.cost
+        K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[2], False)
+        S, beta, eta, dU = fs.fleet_fused_solve(
+            xs, Us, self.sigma, c.inv_s, c.w, c.goal, self._lam_cost, cfg.lambda_,
+            self._dt, K, seeds, step, it, anti, cfg.noise_beta, eps=eps,
+        )
+        return _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)
+
+    def _solve_once(self, xs, Us, seeds, step: int, it: int) -> SolveResult:
+        if self.rollout_backend == "fused":
+            return self._fused(xs, Us, seeds, step, it)
+        cfg, out = self.cfg, []
+        for r, seed in enumerate(seeds.tolist()):
+            eps = self._eps(seed, step, it)
+            S = rollout_costs(self.dynamics, self._robot_cost(r), xs[r], Us[r], eps)
+            out.append(solve_from_costs(S, eps, Us[r], self.lambda_, self.max_a, clamp=cfg.clamp_action))
+        return _stack_results(out)
+
+    def solve(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step: int = 0) -> SolveResult:
+        """One MPPI solve per robot for noise streams (seeds[r], step), with
+        ``opt_iters`` updates (iteration j on counter word it = j) as in
+        :meth:`MPPIController.solve`. On the fused backend every iteration
+        is one launch of K1 and one of K2, whatever R is."""
+        return super().solve(xs, Us, self._seeds(seeds), step)
+
+    solve_batch = solve
+
+    def solve_batch_auto(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step: int) -> SolveResult:
+        """:meth:`solve_batch` at control step `step` (the JAX fleet folds
+        the step into its keys; here it is the counter word)."""
+        return self.solve(xs, Us, seeds, step)
+
+    def solve_with_eps(self, xs: torch.Tensor, Us: torch.Tensor, eps: torch.Tensor) -> SolveResult:
+        """Deterministic fleet solve with injected noise eps (R, T, K, a)
+        (parity/testing); runs the fleet kernels in their injected-ε mode on
+        the fused backend."""
+        xs = xs.to(self.device, torch.float32)
+        if self.rollout_backend == "fused":
+            return self._fused(xs, Us, 0, 0, 0, eps=eps)
+        return _stack_results([
+            mppi_solve_deterministic(
+                self.dynamics, self._robot_cost(r), xs[r], Us[r], eps[r], self.lambda_,
+                self.max_a, clamp=self.cfg.clamp_action,
+            )
+            for r in range(self.n_robots)
+        ])
+
+    solve_batch_with_eps = solve_with_eps
+
+    def solve_debug(self, *args, **kwargs):
+        raise NotImplementedError(
+            "per-step debug dumps cover one robot; run MPPIController.solve_debug "
+            "with a robot's seed and goal"
+        )

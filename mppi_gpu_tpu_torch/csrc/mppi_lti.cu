@@ -7,7 +7,12 @@
 //   K3 noise_dump          the ε stream K1 consumed, written as (T, K, A)
 //
 // One thread per rollout k carries its state in registers through a
-// sequential loop over the horizon. The noise stream is Philox4x32-10 keyed
+// sequential loop over the horizon. K1 and K2 take a fleet of R independent
+// robots in one launch: grid axis y of K1 and grid axis x of K2 is the robot
+// r, which reads its own x0, U, goal, noise key and (injected) ε and writes
+// its own S, partials, β, η and ΔU; σ, Σ⁻¹, the weights, dt, both λ, the
+// counter words (step, it), antithetic and OU are shared. The single-robot
+// solve is the R = 1 launch. The noise stream is Philox4x32-10 keyed
 // by the seed, counter (k, t, step, it), with Box-Muller normals; its plain
 // torch twin is ops/philox.py and the words must match it bit for bit. The
 // noise, state-update and cost arithmetic uses explicitly rounded operations
@@ -31,6 +36,7 @@ namespace {
 constexpr int kBlock = 128;  // threads = rollouts per K1/K3 block; ops/fused_solve.BLOCK
 constexpr int kWarps = kBlock / 32;
 constexpr int kCombineThreads = 256;
+constexpr int kMaxRobots = 65535;  // gridDim.y of K1; ops/fused_solve.MAX_ROBOTS
 constexpr int kCombineWarps = kCombineThreads / 32;
 constexpr float kInv2p24 = 5.9604644775390625e-08f;  // 2^-24
 constexpr float kTwoPi = 6.28318530717958647692f;    // rounds to float(2π)
@@ -153,7 +159,10 @@ __device__ __forceinline__ float state_cost(const float q[A], const float qd[A],
 
 // K1. Replaces the TPU solve kernels of mppi_gpu_tpu/ops/pallas_rollout.py:
 // _onepass_solve_kernel (:2342), _planar_onepass_kernel (:2686) and
-// _fused_solve_kernel (:2287), LTI family (_LTIQuadFamily :490).
+// _fused_solve_kernel (:2287), LTI family (_LTIQuadFamily :490), and their
+// fleet forms _fleet_onepass_solve_kernel (:3121), _fleet_fused_solve_kernel
+// (:2973) and _planar_fleet_onepass_kernel (:3078), whose grid (R, tiles)
+// runs the same per-tile bodies robot after robot.
 //
 // What bounds it: arithmetic, not memory. Per rollout and step it does one
 // Philox call (10 rounds of two 32-bit multiply-high), one or two Box-Muller
@@ -172,17 +181,36 @@ __device__ __forceinline__ float state_cost(const float q[A], const float qd[A],
 // combine the sharded path uses across devices. Σ_k e_k ε_k[t, a] is a warp
 // shuffle reduction per (t, a) into shared memory, summed over the warps in a
 // fixed order.
+//
+// Fleet: block (b, r) is block b of robot r; robots run side by side on the
+// SMs, not in turn as on the TPU. All robot offsets are size_t: at R = 64,
+// K = 10⁵ the partials alone are 30 M floats, and an injected (R, T, K, A) ε
+// passes 2³¹ elements. `keys` holds every robot's (R,) int64 seed, whose low
+// and high words are its Philox key; null means every robot uses
+// np.key0/np.key1, which is how the single-robot solve runs without a seed
+// tensor on the device.
 template <int A, bool INJ>
 __global__ void __launch_bounds__(kBlock) lti_solve_partials_kernel(
     const float* __restrict__ x0, const float* __restrict__ U,
     const float* __restrict__ sigma, const float* __restrict__ inv_s,
     const float* __restrict__ wgt, const float* __restrict__ goal,
-    const float* __restrict__ eps_in, float* __restrict__ S_out,
-    float* __restrict__ partials, int T, float dt, float lam_cost, float lam_softmin,
-    NoiseParams np) {
+    const long long* __restrict__ keys, const float* __restrict__ eps_in,
+    float* __restrict__ S_out, float* __restrict__ partials, int T, float dt,
+    float lam_cost, float lam_softmin, NoiseParams np) {
   extern __shared__ float smem[];
   __shared__ float scratch[kWarps];
   const int TA = T * A;
+  const size_t r = blockIdx.y;
+  x0 += r * 2 * A;
+  U += r * TA;
+  goal += r * 2 * A;
+  S_out += r * np.K;
+  if (INJ) eps_in += r * TA * (size_t)np.K;
+  if (keys != nullptr) {
+    const unsigned long long seed = (unsigned long long)keys[r];
+    np.key0 = (unsigned)(seed & 0xFFFFFFFFull);
+    np.key1 = (unsigned)(seed >> 32);
+  }
   float* u_s = smem;         // (T, A) nominal sequence
   float* red = smem + TA;    // (kWarps, T, A) per-warp Σ e·ε
   for (int i = threadIdx.x; i < TA; i += kBlock) u_s[i] = U[i];
@@ -277,7 +305,7 @@ __global__ void __launch_bounds__(kBlock) lti_solve_partials_kernel(
     }
   }
   __syncthreads();
-  float* part = partials + (size_t)blockIdx.x * (2 + TA);
+  float* part = partials + (r * gridDim.x + blockIdx.x) * (2 + (size_t)TA);
   for (int i = threadIdx.x; i < TA; i += kBlock) {
     float s = red[i];
 #pragma unroll
@@ -290,22 +318,28 @@ __global__ void __launch_bounds__(kBlock) lti_solve_partials_kernel(
   }
 }
 
-// K2. Replaces the cross-tile fold of the TPU one-pass kernels,
-// mppi_gpu_tpu/ops/pallas_rollout.py:_online_softmin_step (:1847), which
+// K2. Replaces the cross-tile fold of the TPU one-pass kernels (single-robot
+// and fleet), mppi_gpu_tpu/ops/pallas_rollout.py:_online_softmin_step (:1847)
+// and the two-pass fleet kernel's _softmin_phase (:2257), which
 // rescales a running (β, η, ΔŨ) tile by tile; it is the same associative
 // combine the sharded path applies across devices
 // (mppi_gpu_tpu/controller.py:488-500):
 //   β = min_b β_b,  f_b = exp((β − β_b)/λ),  η = Σ f_b η_b,
 //   ΔU = Σ f_b ΔŨ_b / η.
-// What bounds it: reading the nb·(2 + T·A) partial floats (1.9 MB at
+// What bounds it: reading a robot's nb·(2 + T·A) partial floats (1.9 MB at
 // K = 10⁵, T = 200, A = 3) with one block; the ΔU loop reads them coalesced
-// (thread i walks column i). One block keeps the order of every sum fixed.
+// (thread i walks column i). One block per robot keeps the order of every
+// sum fixed; block r folds robot r's nb partials into beta_eta[r] and ΔU[r].
 __global__ void __launch_bounds__(kCombineThreads) softmin_combine_kernel(
     const float* __restrict__ partials, int nb, int TA, float lam,
     float* __restrict__ beta_eta, float* __restrict__ dU) {
   extern __shared__ float f_s[];  // (nb,) rescale factors f_b
   __shared__ float scratch[kCombineWarps];
   const size_t stride = 2 + (size_t)TA;
+  const size_t r = blockIdx.x;
+  partials += r * nb * stride;
+  beta_eta += 2 * r;
+  dU += r * TA;
   float m = INFINITY;
   for (int b = threadIdx.x; b < nb; b += kCombineThreads) m = nan_min(m, partials[b * stride]);
   const float beta = block_nan_min<kCombineWarps>(m, scratch);
@@ -383,29 +417,30 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
 template <int A, bool INJ>
 cudaError_t launch_partials(const float* x0, const float* U, const float* sigma,
                             const float* inv_s, const float* w, const float* goal,
-                            const float* eps_in, float* S, float* partials, int T, float dt,
-                            float lam_cost, float lam_softmin, NoiseParams np,
-                            cudaStream_t stream) {
-  const int nb = (np.K + kBlock - 1) / kBlock;
+                            const long long* keys, const float* eps_in, float* S,
+                            float* partials, int R, int T, float dt, float lam_cost,
+                            float lam_softmin, NoiseParams np, cudaStream_t stream) {
+  const dim3 grid((np.K + kBlock - 1) / kBlock, R);
   const size_t smem = (size_t)(1 + kWarps) * T * A * sizeof(float);
   cudaError_t err = set_smem(lti_solve_partials_kernel<A, INJ>, smem);
   if (err != cudaSuccess) return err;
-  lti_solve_partials_kernel<A, INJ><<<nb, kBlock, smem, stream>>>(
-      x0, U, sigma, inv_s, w, goal, eps_in, S, partials, T, dt, lam_cost, lam_softmin, np);
+  lti_solve_partials_kernel<A, INJ><<<grid, kBlock, smem, stream>>>(
+      x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials, T, dt, lam_cost, lam_softmin,
+      np);
   return cudaGetLastError();
 }
 
 template <int A>
 cudaError_t launch_partials_mode(const float* x0, const float* U, const float* sigma,
                                  const float* inv_s, const float* w, const float* goal,
-                                 const float* eps_in, float* S, float* partials, int T,
-                                 float dt, float lam_cost, float lam_softmin, NoiseParams np,
-                                 cudaStream_t stream) {
+                                 const long long* keys, const float* eps_in, float* S,
+                                 float* partials, int R, int T, float dt, float lam_cost,
+                                 float lam_softmin, NoiseParams np, cudaStream_t stream) {
   if (eps_in != nullptr)
-    return launch_partials<A, true>(x0, U, sigma, inv_s, w, goal, eps_in, S, partials, T, dt,
-                                    lam_cost, lam_softmin, np, stream);
-  return launch_partials<A, false>(x0, U, sigma, inv_s, w, goal, eps_in, S, partials, T, dt,
-                                   lam_cost, lam_softmin, np, stream);
+    return launch_partials<A, true>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials,
+                                    R, T, dt, lam_cost, lam_softmin, np, stream);
+  return launch_partials<A, false>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials,
+                                   R, T, dt, lam_cost, lam_softmin, np, stream);
 }
 
 }  // namespace
@@ -414,29 +449,35 @@ extern "C" {
 
 // Every entry returns a cudaError_t as int: 0 on a launched kernel.
 
+// x0 (R, 2A), U (R, T, A), goal (R, 2A), keys (R,) int64 or null, eps_in
+// (R, T, K, A) or null → S (R, K), partials (R, nb, 2 + T·A).
 int mppi_lti_solve_partials(const float* x0, const float* U, const float* sigma,
                             const float* inv_s, const float* w, const float* goal,
-                            const float* eps_in, float* S, float* partials, int K, int T,
-                            int A, float dt, float lam_cost, float lam_softmin,
-                            unsigned key0, unsigned key1, unsigned step, unsigned it,
-                            int antithetic, float ou_beta, float ou_c, void* stream) {
+                            const long long* keys, const float* eps_in, float* S,
+                            float* partials, int R, int K, int T, int A, float dt,
+                            float lam_cost, float lam_softmin, unsigned key0, unsigned key1,
+                            unsigned step, unsigned it, int antithetic, float ou_beta,
+                            float ou_c, void* stream) {
+  if (R < 1 || R > kMaxRobots) return (int)cudaErrorInvalidValue;
   const NoiseParams np = make_noise(key0, key1, step, it, K, antithetic, ou_beta, ou_c);
   cudaStream_t s = (cudaStream_t)stream;
   switch (A) {
-    case 1: return launch_partials_mode<1>(x0, U, sigma, inv_s, w, goal, eps_in, S, partials, T, dt, lam_cost, lam_softmin, np, s);
-    case 2: return launch_partials_mode<2>(x0, U, sigma, inv_s, w, goal, eps_in, S, partials, T, dt, lam_cost, lam_softmin, np, s);
-    case 3: return launch_partials_mode<3>(x0, U, sigma, inv_s, w, goal, eps_in, S, partials, T, dt, lam_cost, lam_softmin, np, s);
-    case 4: return launch_partials_mode<4>(x0, U, sigma, inv_s, w, goal, eps_in, S, partials, T, dt, lam_cost, lam_softmin, np, s);
+    case 1: return launch_partials_mode<1>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials, R, T, dt, lam_cost, lam_softmin, np, s);
+    case 2: return launch_partials_mode<2>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials, R, T, dt, lam_cost, lam_softmin, np, s);
+    case 3: return launch_partials_mode<3>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials, R, T, dt, lam_cost, lam_softmin, np, s);
+    case 4: return launch_partials_mode<4>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials, R, T, dt, lam_cost, lam_softmin, np, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int mppi_softmin_combine(const float* partials, int nb, int TA, float lam, float* beta_eta,
-                         float* dU, void* stream) {
+// partials (R, nb, 2 + TA) → beta_eta (R, 2), dU (R, TA).
+int mppi_softmin_combine(const float* partials, int R, int nb, int TA, float lam,
+                         float* beta_eta, float* dU, void* stream) {
+  if (R < 1 || R > kMaxRobots) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)nb * sizeof(float);
   cudaError_t err = set_smem(softmin_combine_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  softmin_combine_kernel<<<1, kCombineThreads, smem, (cudaStream_t)stream>>>(
+  softmin_combine_kernel<<<R, kCombineThreads, smem, (cudaStream_t)stream>>>(
       partials, nb, TA, lam, beta_eta, dU);
   return (int)cudaGetLastError();
 }

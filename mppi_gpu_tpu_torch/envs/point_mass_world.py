@@ -8,6 +8,10 @@ zeroing at the stop, and a control period of 1/60 s (two physics steps of
 0.01 s). Deliberately different from the controller's LTI model: the
 model-plant mismatch is part of the reference. State is float32, like the
 JAX world, time included.
+
+A fleet of R robots is one batched state: q and qd of shape (R, n_axes)
+under one shared clock, as in the JAX fleet episode (``run_fleet_episode_jit``
+broadcasts one reset state over the robots).
 """
 
 from __future__ import annotations
@@ -21,14 +25,15 @@ from mppi_gpu_tpu_torch.envs.params import WorldParams
 
 
 class WorldState(NamedTuple):
-    q: torch.Tensor     # (n_axes,) positions
-    qd: torch.Tensor    # (n_axes,) velocities
-    time: torch.Tensor  # 0-dim float32 sim time
+    q: torch.Tensor     # (n_axes,) positions, or (R, n_axes) for a fleet
+    qd: torch.Tensor    # (n_axes,) velocities, or (R, n_axes)
+    time: torch.Tensor  # 0-dim float32 sim time, shared by a fleet
 
     @property
     def x(self) -> torch.Tensor:
-        """Concatenated [qpos, qvel] (the reference's get_x layout)."""
-        return torch.cat([self.q, self.qd])
+        """Concatenated [qpos, qvel] (the reference's get_x layout): (s,),
+        or (R, s) for a fleet."""
+        return torch.cat([self.q, self.qd], dim=-1)
 
 
 @dataclass(frozen=True)
@@ -57,15 +62,20 @@ class PointMassWorld:
         qd_new = torch.where(hit, torch.zeros_like(qd_new), qd_new)
         return WorldState(q=q_new, qd=qd_new, time=state.time + h)
 
-    def reset(self) -> WorldState:
+    def reset(self, n_robots: int | None = None) -> WorldState:
         """At the origin, at rest, time = timestep (after the reference's
-        warm-up step)."""
-        n = self.params.n_axes
+        warm-up step); with `n_robots`, R robots so."""
+        shape = (self.params.n_axes,) if n_robots is None else (n_robots, self.params.n_axes)
         f32 = dict(dtype=torch.float32, device=self.device)
         return WorldState(
-            q=torch.zeros(n, **f32), qd=torch.zeros(n, **f32),
+            q=torch.zeros(shape, **f32), qd=torch.zeros(shape, **f32),
             time=torch.tensor(self.params.timestep, **f32),
         )
+
+    def from_x(self, x: torch.Tensor, time: torch.Tensor) -> WorldState:
+        """The state whose [qpos, qvel] is `x` ((s,) or (R, s)) at `time`."""
+        n = self.params.n_axes
+        return WorldState(q=x[..., :n].contiguous(), qd=x[..., n:].contiguous(), time=time)
 
     def simulate(self, state: WorldState, u: torch.Tensor) -> tuple[WorldState, bool]:
         """One control cycle: hold `u` for steps_per_control physics steps.
@@ -76,3 +86,14 @@ class PointMassWorld:
         for _ in range(self.params.steps_per_control):
             state = self.physics_step(state, u)
         return state, False
+
+    def advance(self, state: WorldState, u: torch.Tensor) -> WorldState:
+        """:meth:`simulate` without the host's look at the clock: the end of
+        the episode is decided on the device, where a state at or past
+        `sim_end` is held (the JAX world's `simulate` under jit). One control
+        cycle queues its work and never waits for the device."""
+        new = state
+        for _ in range(self.params.steps_per_control):
+            new = self.physics_step(new, u)
+        done = state.time >= self.params.sim_end
+        return WorldState(*(torch.where(done, old, nxt) for old, nxt in zip(state, new)))

@@ -9,12 +9,18 @@ with ``x'`` the state after applying ``u + ε``. The rollout total is
 ``Σ_{t<T} step(x_{t+1}, u_t, ε_t) + final(x_T)``: the terminal state cost is
 counted twice, kept for reference parity.
 
+A fleet's per-robot goals ride the cost's ``goal`` field with a leading
+robot axis R (:func:`batch_goals`, the counterpart of
+``mppi_gpu_tpu.batched._batch_goals``); ``step`` and ``final`` then take
+states of shape (R, K, s).
+
 Only ``quadratic`` is ported; the other registered cost types of the JAX
 package raise ``NotImplementedError`` (ROADMAP.md, Open items §1 item 6).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Protocol, runtime_checkable
 
@@ -35,18 +41,38 @@ class Cost(Protocol):
 @dataclass(frozen=True)
 class QuadraticCost:
     w: torch.Tensor        # (s,) state-cost diagonal
-    goal: torch.Tensor     # (s,)
+    goal: torch.Tensor     # (s,), or (R, s) per robot of a fleet
     lambda_: torch.Tensor  # 0-dim temperature
     inv_s: torch.Tensor    # (a,) diagonal of Σ⁻¹
 
+    def _goal(self) -> torch.Tensor:
+        # per-robot goals (R, s) meet states (R, K, s)
+        return self.goal if self.goal.dim() == 1 else self.goal[..., None, :]
+
     def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         ctrl = self.lambda_ * torch.sum(u * self.inv_s * eps, dim=-1)
-        d = x_next - self.goal
+        d = x_next - self._goal()
         return ctrl + torch.sum(d * self.w * d, dim=-1)
 
     def final(self, x: torch.Tensor) -> torch.Tensor:
-        d = x - self.goal
+        d = x - self._goal()
         return torch.sum(d * self.w * d, dim=-1)
+
+
+def batch_goals(cost: Cost, goals: torch.Tensor, n_robots: int) -> Cost:
+    """``cost`` with the (R, s) per-robot ``goals`` on its ``goal`` field.
+    Raises ``TypeError`` for a cost without a ``goal`` field (its target is
+    built in) and ``ValueError`` for goals that are not (n_robots, s)."""
+    if not (dataclasses.is_dataclass(cost)
+            and any(f.name == "goal" for f in dataclasses.fields(cost))):
+        raise TypeError(
+            f"per-robot goals need a cost with a 'goal' field; "
+            f"{type(cost).__name__} has none (its target is built in)"
+        )
+    shape = (n_robots, cost.goal.shape[-1])
+    if tuple(goals.shape) != shape:
+        raise ValueError(f"goals must be {shape}, got {tuple(goals.shape)}")
+    return dataclasses.replace(cost, goal=goals)
 
 
 CostFactory = Callable[[MPPIConfig, torch.device], Cost]

@@ -20,6 +20,10 @@ Stream definition:
   scan path's convention, ``controller.sample_noise``);
 * OU noise: e_0 = ν_0, e_t = β e_{t−1} + √(1−β²) ν_t, then ε = σ·e.
 
+Fleets: robot r draws the stream above under its own seed ``fleet_seeds(seed,
+R)[r]`` (:func:`fleet_seeds`), so its noise is exactly the single-robot
+stream of that seed, whatever the fleet around it.
+
 uint32 words live in int64 tensors. The 32×32→64 multiply of a Philox round
 would overflow int64, so it runs on 16-bit limbs (:func:`_mulhilo`).
 """
@@ -137,3 +141,29 @@ def sample_eps(
     words = philox_words(seed, step, it, T, K_draw, sigma.device)
     nu = box_muller(words, sigma.shape[0])
     return normals_to_eps(nu, sigma, antithetic=antithetic, ou_beta=ou_beta)
+
+
+# counter word t of the per-robot seed draws; a solve's t stays below T < 2³² − 1
+FLEET_SEED_T = _MASK32
+
+
+def fleet_seeds(seed: int, R: int) -> torch.Tensor:
+    """(R,) int64 per-robot seeds for a fleet under the base ``seed`` (the
+    port's ``jax.random.split(key, R)``). Robot r's seed is the pair of
+    Philox words (w0, w1) at counter (r, 2³² − 1, 0, 0) under the base key,
+    w1 the high word, read as a signed int64. No solve draws at t = 2³² − 1,
+    so the robots' keys are drawn apart from every noise word of the base
+    stream; being 64-bit Philox outputs they are distinct from each other
+    and from the base seed except with negligible probability. A pure
+    function of (seed, r): robot r's seed does not depend on R."""
+    if R < 1:
+        raise ValueError(f"a fleet has R >= 1 robots, got {R}")
+    seed &= (1 << 64) - 1
+    i64 = dict(dtype=torch.int64)
+    full = lambda v: torch.full((R,), v, **i64)  # noqa: E731
+    w0, w1, _, _ = philox4x32(
+        (torch.arange(R, **i64), full(FLEET_SEED_T), full(0), full(0)),
+        (seed & _MASK32, seed >> 32),
+    )
+    hi = w1 - ((w1 >> 31) << 32)  # the high word as a signed int32
+    return hi * (1 << 32) + w0

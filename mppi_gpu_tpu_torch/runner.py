@@ -8,8 +8,12 @@ controller execution time" metric, with optional per-step debug dumps and
 the divergence guard. The world runs on the CPU: its state is six floats and
 the host needs it every cycle anyway.
 
+:func:`run_fleet_episode` runs R such loops at once on the controller's
+device (counterpart of ``run_fleet_episode_jit``).
+
 Not ported yet (ROADMAP.md): the live viewer, checkpoint/resume, the native
-and MuJoCo worlds, and the whole-episode mode (``run_episode_jit``).
+and MuJoCo worlds, and the single-robot whole-episode mode
+(``run_episode_jit``).
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from mppi_gpu_tpu_torch.utils.timing import SolveTimer
 @dataclass
 class EpisodeResult:
     times: np.ndarray        # (N,) sim time at each control step
-    xs: np.ndarray           # (N+1, s) world states (x_0 .. x_N)
-    us: np.ndarray           # (N, a) executed actions
+    xs: np.ndarray           # (N+1, s) world states (x_0 .. x_N); (N+1, R, s) for a fleet
+    us: np.ndarray           # (N, a) executed actions; (N, R, a) for a fleet
     solve_ms: dict[str, float] = field(default_factory=dict)
 
     @property
@@ -120,3 +124,46 @@ def run_closed_loop(
     if traj_csv is not None:
         write_traj_csv(traj_csv, result.times, result.xs[1:], result.us)
     return result
+
+
+def run_fleet_episode(
+    ctrl,  # BatchedMPPIController
+    *,
+    world_params: WorldParams | None = None,
+    num_steps: int | None = None,
+    xs0: torch.Tensor | np.ndarray | None = None,  # (R, s) per-robot initial states
+) -> EpisodeResult:
+    """R independent closed loops, one fleet solve and one batched world
+    step per control cycle, for `num_steps` cycles (default: the episode's
+    ``num_control_steps()``). The batched world lives on the controller's
+    device and the loop never waits for it: no per-step copy to the host and
+    no per-step look at the episode's end (past it the world holds its
+    state, as the JAX fleet's scan does). Returns xs (N+1, R, s), us
+    (N, R, a) and the robots' shared clock."""
+    params = world_params or world_params_for_config(ctrl.cfg)
+    world = PointMassWorld(params, device=ctrl.device)
+    n = num_steps if num_steps is not None else params.num_control_steps()
+    R = ctrl.n_robots
+    state = world.reset(R)
+    if xs0 is not None:
+        xs0 = torch.as_tensor(xs0, dtype=torch.float32, device=ctrl.device)
+        if tuple(xs0.shape) != (R, ctrl.cfg.state_dim):
+            raise ValueError(
+                f"xs0 must be ({R}, {ctrl.cfg.state_dim}), got {tuple(xs0.shape)}"
+            )
+        state = world.from_x(xs0, state.time)
+    Us, seeds = ctrl.init_action_seqs(), ctrl.init_seeds()
+    xs, us, ts = [state.x], [], []
+    for step in range(n):
+        res = ctrl.solve_batch(xs[-1], Us, seeds, step)
+        Us = res.u_next
+        state = world.advance(state, res.action)
+        xs.append(state.x)
+        us.append(res.action)
+        ts.append(state.time)
+    empty = torch.zeros(0, R, ctrl.cfg.action_dim)
+    return EpisodeResult(
+        times=torch.stack(ts).cpu().numpy() if ts else np.zeros(0, np.float32),
+        xs=torch.stack(xs).cpu().numpy(),
+        us=(torch.stack(us) if us else empty).cpu().numpy(),
+    )
