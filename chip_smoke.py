@@ -6,20 +6,23 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``mppi_gpu_tpu_torch/csrc``, holds each one
-against its plain PyTorch version and the float64 NumPy oracle, times them,
-and drives the port's two paths on the card: the single robot
-(``MPPIController`` and the closed-loop CLI, phases 3-7) and the fleet
-(``BatchedMPPIController``, ``run_fleet_episode`` and the fleet example,
-phases 8-10). Every phase prints one line (or a few); any failure raises
-and the script exits non-zero without the final line. Without a CUDA device
-it exits 1 at once. The last two lines are a JSON object describing every
-kernel (route, source, the TPU kernels it replaces, launches on each path,
-max abs error against its plain version, ms on the card next to the plain
-version's, for one robot and for a fleet) and ``{"ok": true, "device": {...}}``.
+against its plain PyTorch version and a float64 reference, times them, and
+drives the port's three paths on the card: the point-mass robot
+(``MPPIController`` and the closed-loop CLI, phases 3-7), the point-mass
+fleet (``BatchedMPPIController``, ``run_fleet_episode`` and the fleet
+example, phases 8-10), and the pendulum and cart-pole families (K1's
+pendulum and cart-pole instances against their plain versions, and the CLI
+on configs/pendulum.yaml and configs/cartpole.yaml, phases 11-12). Every
+phase prints one line (or a few); any failure raises and the script exits
+non-zero without the final line. Without a CUDA device it exits 1 at once.
+The last two lines are a JSON object describing every kernel, K1 once per
+family instance (route, source, the TPU kernels it replaces, launches on
+each path, max abs error against its plain version, ms on the card next to
+the plain version's) and ``{"ok": true, "device": {...}}``.
 
 The ``check_*`` functions are also called by the GPU tests
-(``tests/test_torch_fused.py``, ``tests/test_torch_fleet.py``) at small
-shapes.
+(``tests/test_torch_fused.py``, ``tests/test_torch_fleet.py``,
+``tests/test_torch_families.py``) at small shapes.
 """
 
 from __future__ import annotations
@@ -36,10 +39,19 @@ import time
 
 import numpy as np
 
-SOURCE = "mppi_gpu_tpu_torch/csrc/mppi_lti.cu"
+SOURCE = "mppi_gpu_tpu_torch/csrc/mppi_solve.cu"
 PALLAS = "mppi_gpu_tpu/ops/pallas_rollout.py"
-# steady-state goal-distance tripwire of the lti family (bench.QUALITY_THRESHOLDS)
+# steady-state tripwires (bench.QUALITY_THRESHOLDS): goal distance of the lti
+# family, angle from upright of the pendulum and the cart-pole
 LTI_QUALITY_THRESHOLD_M = 0.35
+FAMILY_QUALITY_THRESHOLD_RAD = {"pendulum": 0.2, "cartpole": 0.35}
+FAMILIES = ("pendulum", "cartpole")
+# the angle's index in the state and the world's start (envs/*_world.py)
+FAMILY_ANGLE = {"pendulum": 0, "cartpole": 1}
+FAMILY_INIT_THETA = {"pendulum": 3.14159265, "cartpole": 0.15}
+# the kernels JSON line: K1 once per family instance, then K2 and K3
+KERNEL_ENTRIES = ("solve_partials<lti>", "solve_partials<pendulum>", "solve_partials<cartpole>",
+                  "softmin_combine", "noise_dump")
 # bar of the fleet's mean final goal distance (point_mass2d, R=8 on the circle
 # of examples/fleet.py, full episode): the JAX package's own fleet ends that
 # episode at 0.364 m on the CPU, so the bar is that figure + 0.05 m
@@ -108,14 +120,19 @@ def _oracle():
 
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel from nvcc's -Xptxas -v output:
-    registers and spill bytes."""
-    out, name = [], "?"
+    registers and spill bytes; K1 instances read solve_partials<family,A,inj>."""
+    out, name, spill = [], "?", "?"
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function .*?(lti_solve_partials|softmin_combine|noise_dump)"
-                      r"_kernel(?:ILi(\d)E(?:Lb(\d)E)?)?", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1) + (f"<A={m.group(2)}" + (f",inj={m.group(3)}" if m.group(3) else "") + ">"
-                                 if m.group(2) else "")
+            mangled = m.group(1)
+            k = re.search(r"(solve_partials|softmin_combine|noise_dump)_kernel", mangled)
+            name = k.group(1) if k else mangled
+            fam = re.search(r"(Lti|Pendulum|CartPole)", mangled)
+            ints, bools = re.findall(r"Li(\d+)E", mangled), re.findall(r"Lb(\d)E", mangled)
+            args = (([fam.group(1).lower()] if fam else []) + ([f"A={ints[-1]}"] if ints else [])
+                    + [f"inj={b}" for b in bools])
+            name += f"<{','.join(args)}>" if args else ""
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = m.group(1)
@@ -237,7 +254,7 @@ def check_kernels(A: int, K: int, T: int, *, antithetic=False, ou_beta=0.0,
     close(f"{name} K2 eta", _np(e), _np(e_r), 1e-5)
     e2 = close(f"{name} K2 dU", _np(dU), _np(dU_r), 1e-4, 1e-6)
     compare_solves(name, p, fs.fused_solve(*args), fs.fused_solve_reference(*args), S_rtol=1e-5)
-    return dict(lti_solve_partials=e1, softmin_combine=e2)
+    return dict(solve_partials=e1, softmin_combine=e2)
 
 
 def check_dump_replay(A: int, K: int, T: int, *, antithetic=False, ou_beta=0.0,
@@ -401,7 +418,7 @@ def check_fleet_philox(A: int, R: int, K: int, T: int, *, antithetic=False, ou_b
                                           ou_beta=ou_beta))
         for label, a, want in zip(("S", "beta", "eta", "dU"), (v[r] for v in fleet), solo):
             expect(torch.equal(a, want), f"{name} robot {r}: {label} differs from its solo solve")
-    return dict(lti_solve_partials=e1, softmin_combine=e2)
+    return dict(solve_partials=e1, softmin_combine=e2)
 
 
 def check_fleet_diverged(K: int = 1000, T: int = 50, device: str = "cuda") -> None:
@@ -431,6 +448,235 @@ def check_fleet_diverged(K: int = 1000, T: int = 50, device: str = "cuda") -> No
         solo = fs.fused_solve(*solve_args(robot(p, r), seed=seed))
         for label, a, want in zip(("S", "beta", "eta", "dU"), (S[r], beta[r], eta[r], dU[r]), solo):
             expect(torch.equal(a, want), f"robot {r} beside a diverged robot: {label} differs")
+
+
+# ---------------------------------------------------------------------------
+# family checks: K1's pendulum and cart-pole instances (also called by
+# tests/test_torch_families.py on the card)
+
+# a live start of each task (tests/test_pallas.py::_setup_pendulum, _setup_cartpole)
+FAMILY_START = {"pendulum": (np.pi - 0.3, 0.4), "cartpole": (0.1, 0.25, -0.05, 0.3)}
+# K1 + K2 against the plain float64 version on the CPU: no further from it
+# than the plain float32 version is, by a factor 2 plus this share of the
+# quantity's magnitude. A fixed tolerance cannot hold here: f32 rollouts of
+# the cart-pole over T = 200 (6 s about an unstable equilibrium) carry up to
+# 6 % relative error in S against float64, the plain version's included
+# (median 6e-7; 1e-7 at the config shapes).
+F64_RTOL = 1e-5
+
+
+def make_family_problem(name: str, K: int, T: int, seed: int = 0, device: str = "cuda") -> dict:
+    """configs/<name>.yaml's model, cost and σ as a fused family at K, T, a
+    live start near the task's, a nominal sequence and injected noise, all
+    from `seed`."""
+    import torch
+
+    from mppi_gpu_tpu_torch.models import dynamics_for_config
+    from mppi_gpu_tpu_torch.ops import families
+    from mppi_gpu_tpu_torch.ops.cost import make_cost
+
+    cfg = _config(name).replace(samples=K, horizon=T)
+    rng = np.random.default_rng(seed)
+    start = np.asarray(FAMILY_START[name])
+    x0 = (start + rng.uniform(-0.05, 0.05, start.shape)).astype(np.float32)
+    U = (0.3 * cfg.max_a[0] * np.sin(0.2 * np.arange(T))).reshape(T, 1).astype(np.float32)
+    eps = (rng.standard_normal((T, K, 1)) * cfg.noise[0]).astype(np.float32)
+    fam = families.family_for(dynamics_for_config(cfg, device), make_cost(cfg, device),
+                              torch.tensor(cfg.noise, dtype=torch.float32, device=device))
+    arrays = dict(x0=x0, U=U, eps=eps)
+    p = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+    p.update(np=arrays, name=name, cfg=cfg, fam=fam, K=K, T=T, lam=cfg.lambda_,
+             max_a=torch.tensor(cfg.max_a, dtype=torch.float32, device=device))
+    return p
+
+
+def family_args(p: dict, *, seed=7, step=3, it=0, antithetic=False, ou_beta=0.0):
+    return (p["fam"], p["x0"], p["U"], None, p["lam"], p["K"], seed, step, it, antithetic, ou_beta)
+
+
+def _float64_family(fam):
+    """`fam` with its eager model, cost and σ in float64 on the CPU."""
+    import dataclasses
+
+    import torch
+
+    def f64(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).to("cpu", torch.float64)
+            for f in dataclasses.fields(obj) if isinstance(getattr(obj, f.name), torch.Tensor)
+        })
+
+    return dataclasses.replace(fam, dynamics=f64(fam.dynamics), cost=f64(fam.cost),
+                               sigma=fam.sigma.to("cpu", torch.float64))
+
+
+def check_float64(name: str, p: dict, got, plain) -> dict:
+    """An injected-ε solve core (S, β, η, ΔU) of K1 + K2 (`got`) and of the
+    plain float32 version (`plain`) against the plain version in float64 on
+    the CPU on the same inputs (F64_RTOL). Returns K1's relative S errors."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    n = p["np"]
+    ref = fs.family_fused_solve_reference(
+        _float64_family(p["fam"]), *(torch.as_tensor(n[k], dtype=torch.float64) for k in ("x0", "U")),
+        None, p["lam"], p["K"], 0, 0, 0, False, 0.0,
+        eps=torch.as_tensor(n["eps"], dtype=torch.float64))
+    out = {}
+    for label, g, pl, r in zip(("S", "beta", "eta", "dU"), got, plain, ref):
+        g, pl, r = (_np(v).astype(np.float64) for v in (g, pl, r))
+        expect(np.isfinite(g).all() and np.isfinite(r).all(), f"{name} {label}: not finite")
+        eg, ep = np.abs(g - r), np.abs(pl - r)
+        if label == "S":
+            qg, qp = (np.quantile(e / np.abs(r), [0.5, 0.99, 1.0]) for e in (eg, ep))
+            expect(bool(np.all(qg <= 2 * qp + F64_RTOL)),
+                   f"{name} S vs float64: K1 relative error quantiles {qg}, plain f32 {qp}")
+            out.update(S_rel_median=float(qg[0]), S_rel_p99=float(qg[1]), S_rel_max=float(qg[2]),
+                       plain_S_rel_max=float(qp[2]))
+        else:
+            bad = eg > 2 * ep + F64_RTOL * max(float(np.abs(r).max()), 1e-30)
+            expect(not bad.any(), f"{name} {label} vs float64: max err {eg.max():.3g}, plain f32 {ep.max():.3g}")
+    return out
+
+
+def check_family_injected(name: str, K: int, T: int, device: str = "cuda") -> dict:
+    """K1's `name` instance + K2 in the injected-ε mode against the plain
+    version on the same device and against the plain version in float64
+    on the CPU."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    p = make_family_problem(name, K, T, device=device)
+    got = fs.family_fused_solve(*family_args(p), eps=p["eps"])
+    want = fs.family_fused_solve_reference(*family_args(p), eps=p["eps"])
+    label = f"{name} injected K={K} T={T}"
+    errs = compare_solves(f"{label} vs plain", p, got, want, S_rtol=1e-5)
+    errs.update(check_float64(f"{label} vs float64", p, got, want))
+    return errs
+
+
+def check_family_philox(name: str, K: int, T: int, *, antithetic=False, ou_beta=0.0,
+                        device: str = "cuda") -> dict:
+    """Philox mode: K1's `name` instance against its plain version, K2 on its
+    partials against K2's plain version, the whole solve against the plain
+    solve; then K3's dump replayed through the injected-ε mode equals the
+    Philox-mode solve exactly. K1's per-block partials are held against the
+    plain partials of K1's own S on that ε: a block's softmin at λ = 0.2 and
+    S ≈ 3·10³ (the pendulum at T = 200) turns the last-ulp differences of S
+    (K1's Kahan sum against torch.sum) into 0.25 % of a weight, so S is held
+    to the plain S on its own."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    p = make_family_problem(name, K, T, device=device)
+    args = family_args(p, step=3, it=1, antithetic=antithetic, ou_beta=ou_beta)
+    label = f"{name} philox K={K} T={T} anti={antithetic} ou={ou_beta}"
+    S, part = fs.family_solve_partials(*args)
+    S_r, _ = fs.family_solve_partials_reference(*args)
+    e1 = close(f"{label} K1 S", _np(S), _np(S_r), 1e-5)
+    eps = fs.noise_dump(p["fam"].sigma, T, K, 7, 3, 1, antithetic, ou_beta)
+    own = fs.block_partials(S, eps, p["lam"])
+    close(f"{label} K1 beta_b", _np(part[:, 0]), _np(own[:, 0]), 0.0)
+    close(f"{label} K1 eta_b", _np(part[:, 1]), _np(own[:, 1]), TOL["eta"])
+    scale = float(own[:, 2:].abs().max())
+    close(f"{label} K1 dU_b", _np(part[:, 2:]), _np(own[:, 2:]), TOL["dU"]["rtol"],
+          TOL["dU"]["atol"] * max(scale, 1.0))
+    b, e, dU = fs.softmin_combine(part, p["lam"], T, 1)
+    b_r, e_r, dU_r = fs.softmin_combine_reference(part, p["lam"], T, 1)
+    close(f"{label} K2 beta", _np(b), _np(b_r), 1e-7)
+    close(f"{label} K2 eta", _np(e), _np(e_r), 1e-5)
+    e2 = close(f"{label} K2 dU", _np(dU), _np(dU_r), 1e-4, 1e-6)
+    live = fs.family_fused_solve(*args)
+    compare_solves(label, p, live, fs.family_fused_solve_reference(*args), S_rtol=1e-5)
+    replay = fs.family_fused_solve(*args, eps=eps)
+    for what, a, r in zip(("S", "beta", "eta", "dU"), live, replay):
+        expect(torch.equal(a, r), f"{label}: replay {what} differs from the Philox-mode solve")
+    return dict(solve_partials=e1, softmin_combine=e2)
+
+
+def check_family_fleet(name: str, R: int, K: int, T: int, device: str = "cuda") -> dict:
+    """A fleet of R robots of family `name` (per-robot x0, U and seed; no
+    goals) in one launch of K1 and K2: against the plain fleet, and every
+    robot's (S, β, η, ΔU) bit-equal to its R = 1 launch."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import philox
+
+    p = make_family_problem(name, K, T, device=device)
+    rng = np.random.default_rng(R)
+    S_dim = p["fam"].state_dim
+    xs = torch.as_tensor((p["np"]["x0"] + rng.uniform(-0.1, 0.1, (R, S_dim))).astype(np.float32),
+                         device=device)
+    phase = rng.uniform(0.0, 2 * np.pi, (R, 1))
+    Us = torch.as_tensor((0.3 * p["cfg"].max_a[0] * np.sin(0.2 * np.arange(T)[None] + phase))
+                         .reshape(R, T, 1).astype(np.float32), device=device)
+    seeds = philox.fleet_seeds(7, R).to(device)
+    args = (p["fam"], xs, Us, None, p["lam"], K, seeds, 3, 1, False, 0.0)
+    label = f"{name} fleet philox R={R} K={K} T={T}"
+    S, part = fs.fleet_family_solve_partials(*args)
+    S_r, _ = fs.fleet_family_solve_partials_reference(*args)
+    e1 = close(f"{label} K1 S", _np(S), _np(S_r), 1e-5)
+    fleet = fs.fleet_family_fused_solve(*args)
+    for r, seed in enumerate(seeds.tolist()):
+        solo = fs.family_fused_solve(p["fam"], xs[r], Us[r], None, p["lam"], K, seed, 3, 1,
+                                     False, 0.0)
+        for what, a, want in zip(("S", "beta", "eta", "dU"), (v[r] for v in fleet), solo):
+            expect(torch.equal(a, want), f"{label} robot {r}: {what} differs from its solo solve")
+    return dict(solve_partials=e1)
+
+
+def check_family_diverged(device: str = "cuda") -> None:
+    """Diverging rollouts on K1's family instances, against the plain version:
+    a pendulum block driven by ε = 1e30 costs +inf (θ̇² overflows) and gets
+    weight 0 while the others solve as before; a cart-pole from θ̇ = 1e4
+    overflows into inf − inf in every rollout, so S and β are NaN, the
+    action is NaN and the guard fires, on the fused and the eager backend
+    alike; a cart-pole from the fast-spinning state of
+    tests/test_pallas.py::test_taylor_delta_extreme_state_stays_finite
+    (θ̇ = 40) stays finite and matches the plain version."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.utils.guard import ControllerDiverged, check_solve
+
+    p = make_family_problem("pendulum", 1000, 50, device=device)
+    eps = p["eps"].clone()
+    blk = np.s_[fs.BLOCK:2 * fs.BLOCK]
+    eps[:, blk] = 1e30
+    got = fs.family_fused_solve(*family_args(p), eps=eps)
+    want = fs.family_fused_solve_reference(*family_args(p), eps=eps)
+    compare_solves("pendulum one diverged block", p, got, want, S_rtol=1e-5)
+    S = _np(got[0])
+    expect(np.isposinf(S[blk]).all() and np.isfinite(np.delete(S, blk)).all(),
+           "pendulum one diverged block: expected +inf exactly on block 1")
+    res = finish(p, *got)
+    expect(bool((res.info.weights[blk] == 0).all()), "pendulum: diverged rollouts got weight")
+    expect(bool(torch.isfinite(res.action).all()), "pendulum one diverged block: action not finite")
+
+    cfg = _config("cartpole").replace(samples=1000, horizon=40)
+    for backend in ("auto", "eager"):
+        ctrl = MPPIController(cfg, device=device, rollout_backend=backend)
+        res = ctrl.solve_auto(torch.tensor([0.0, 0.0, 0.0, 1e4]), ctrl.init_action_seq(), 0)
+        info = res.info.cpu()
+        expect(bool(torch.isnan(info.costs).all() and torch.isnan(info.beta)),
+               f"cartpole from thd=1e4 ({ctrl.rollout_backend}): S and beta are not all NaN")
+        try:
+            check_solve(0, _np(res.action), info)
+        except ControllerDiverged:
+            continue
+        raise SmokeFailure(f"cartpole from thd=1e4 ({ctrl.rollout_backend}): the guard did not fire")
+
+    p = make_family_problem("cartpole", 1000, 30, device=device)
+    p["x0"] = torch.tensor([0.0, 3.0, 0.0, 40.0], device=device)
+    p["U"] = torch.zeros(30, 1, device=device)
+    args = family_args(p, seed=2)
+    got = fs.family_fused_solve(*args)
+    expect(bool(torch.isfinite(got[0]).all()), "cartpole from thd=40: S not finite")
+    compare_solves("cartpole from thd=40", p, got, fs.family_fused_solve_reference(*args),
+                   S_rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +769,7 @@ def main() -> int:
         print(f"    ptxas {line}")
 
     # [3] injected ε vs plain and oracle
-    err = {name: 0.0 for name in fs.KERNELS}
+    err = {name: 0.0 for name in KERNEL_ENTRIES}
     for A, K, T in ((2, 3000, 50), (3, 10_000, 200)):
         e = check_injected(A, K, T)
         print(f"[3] injected A={A} K={K} T={T}: ok vs plain and oracle; max abs err "
@@ -534,10 +780,10 @@ def main() -> int:
                               (2, 3000, 50, False, 0.5)):
         e = check_kernels(A, K, T, antithetic=anti, ou_beta=ou)
         d = check_dump_replay(A, K, T, antithetic=anti, ou_beta=ou)
-        for k in e:
-            err[k] = max(err[k], e[k])
+        err["solve_partials<lti>"] = max(err["solve_partials<lti>"], e["solve_partials"])
+        err["softmin_combine"] = max(err["softmin_combine"], e["softmin_combine"])
         err["noise_dump"] = max(err["noise_dump"], d["noise_dump"])
-        print(f"[4] philox A={A} K={K} T={T} anti={anti} ou={ou}: K1 S err {e['lti_solve_partials']:.3g}, "
+        print(f"[4] philox A={A} K={K} T={T} anti={anti} ou={ou}: K1 S err {e['solve_partials']:.3g}, "
               f"K2 dU err {e['softmin_combine']:.3g}; dump words bit-exact, eps err "
               f"{d['noise_dump']:.3g} (bit-identical: {d['eps_bit_identical']}); replay exact")
 
@@ -556,25 +802,28 @@ def main() -> int:
         expect(ctrl.rollout_backend == "fused", f"auto picked {ctrl.rollout_backend} on cuda")
         x = torch.zeros(cfg.state_dim, device="cuda")
         U = ctrl.init_action_seq()
-        before = fs.launch_counts()["lti_solve_partials"]
+        before = fs.launch_counts()["solve_partials"]
         k_ms, p_ms = paired_median_ms(
             lambda: ctrl.solve_auto(x, U, 1), lambda: plain.solve_auto(x, U, 1),
             reps=20, plain_reps=3 if K >= 100_000 else 5,
         )
-        expect(fs.launch_counts()["lti_solve_partials"] > before, "K1 launch count did not go up")
+        expect(fs.launch_counts()["solve_partials"] > before, "K1 launch count did not go up")
         a_k, a_p = _np(ctrl.solve_auto(x, U, 1).action), _np(plain.solve_auto(x, U, 1).action)
         close(f"controller {cfg_name} K={K} action", a_k, a_p, **TOL["u"])
         timing[f"{cfg_name} K={K} T={T}"] = (k_ms, p_ms)
         print(f"[6] MPPIController {cfg_name} A={cfg.action_dim} K={K} T={T}: fused {k_ms:.4f} "
               f"ms/solve, eager {p_ms:.4f} ms/solve (CUDA events, warm median; {smi})")
 
-    # per-kernel times at the flagship shape (point_mass3d, K=10⁴, T=200)
+    # per-kernel times at the flagship shape (point_mass3d, K=10⁴, T=200), the
+    # LTI family packed once as the controller packs it
     p = make_problem(3, 10_000, 200)
-    args = solve_args(p)
-    _, part = fs.lti_solve_partials(*args)
+    fam = fs.lti_family(p["sigma"], p["inv_s"], p["w"], p["dt"], p["lam_cost"])
+    args = (fam, p["x0"], p["U"], p["goal"], p["lam"], p["K"], 7, 3, 0, False, 0.0)
+    _, part = fs.family_solve_partials(*args)
     kernel_ms = {
-        "lti_solve_partials": paired_median_ms(
-            lambda: fs.lti_solve_partials(*args), lambda: fs.lti_solve_partials_reference(*args), 20, 3),
+        "solve_partials<lti>": paired_median_ms(
+            lambda: fs.family_solve_partials(*args),
+            lambda: fs.family_solve_partials_reference(*args), 20, 3),
         "softmin_combine": paired_median_ms(
             lambda: fs.softmin_combine(part, 1.0, 200, 3),
             lambda: fs.softmin_combine_reference(part, 1.0, 200, 3), 20, 20),
@@ -595,6 +844,7 @@ def main() -> int:
         _cli(["-c", os.path.join("configs", "point_mass3d.yaml"), "--device", "cuda", "-t", traj])
         cols = read_csv_columns(traj)
     launches = fs.launch_counts()
+    launches["solve_partials<lti>"] = fs.family_launch_counts()["lti"]
     cfg3 = _config("point_mass3d")
     xs = np.stack([np.concatenate([[0.0], cols[f"x[{i}]"]]) for i in range(3)], axis=1)
     d = np.linalg.norm(xs - np.asarray(cfg3.goal[:3]), axis=1)
@@ -614,10 +864,10 @@ def main() -> int:
               "robot); max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
     for anti, ou in ((False, 0.0), (True, 0.5)):
         e = check_fleet_philox(3, 8, 10_000, 200, antithetic=anti, ou_beta=ou)
-        for k in e:
-            err[k] = max(err[k], e[k])
+        err["solve_partials<lti>"] = max(err["solve_partials<lti>"], e["solve_partials"])
+        err["softmin_combine"] = max(err["softmin_combine"], e["softmin_combine"])
         print(f"[8] fleet philox A=3 R=8 K=10000 T=200 anti={anti} ou={ou}: K1 S err "
-              f"{e['lti_solve_partials']:.3g}, K2 dU err {e['softmin_combine']:.3g}; every "
+              f"{e['solve_partials']:.3g}, K2 dU err {e['softmin_combine']:.3g}; every "
               "robot's (S, beta, eta, dU) bit-equal to its R=1 launch")
     check_fleet_diverged()
     print("[8] fleet edges: a diverged robot -> +inf beta, NaN action; the others finite "
@@ -642,7 +892,7 @@ def main() -> int:
         before = fs.launch_counts()
         res = fleet.solve_batch(xs, Us, seeds, 1)
         after = fs.launch_counts()
-        for name in ("lti_solve_partials", "softmin_combine"):
+        for name in ("solve_partials", "softmin_combine"):
             expect(after[name] - before[name] == cfg.opt_iters,
                    f"{name}: {after[name] - before[name]} launches for one fleet solve")
         for r in range(R):
@@ -672,7 +922,7 @@ def main() -> int:
     _, fpart = fs.fleet_solve_partials(*fargs)
     seed_list = seeds.tolist()
     fleet_kernel_ms = {
-        "lti_solve_partials": paired_median_ms(
+        "solve_partials<lti>": paired_median_ms(
             lambda: fs.fleet_solve_partials(*fargs),
             lambda: fs.fleet_solve_partials_reference(*fargs), 20, 2),
         "softmin_combine": paired_median_ms(
@@ -709,6 +959,7 @@ def main() -> int:
     ep = run_fleet_episode(fleet)
     ep_s = time.perf_counter() - t0
     fleet_launches = fs.launch_counts()
+    fleet_launches["solve_partials<lti>"] = fs.family_launch_counts()["lti"]
     n_solves = (2 * steps + len(ep.us)) * cfg2.opt_iters
     dist = np.linalg.norm(ep.xs[-1][:, :2] - goals[:, :2], axis=1)
     print(f"[10] fleet closed loop: example host loop and --episode exited 0; full episode "
@@ -716,23 +967,128 @@ def main() -> int:
           f"{dist.mean():.4f} m (bar {FLEET_DISTANCE_BAR_M}); fleet-path launches {fleet_launches}")
     expect(np.isfinite(ep.xs).all() and ep.xs.shape == (len(ep.us) + 1, 8, 4), "episode states")
     expect(dist.mean() < FLEET_DISTANCE_BAR_M, f"fleet mean final distance {dist.mean()} m")
-    for name in ("lti_solve_partials", "softmin_combine"):
+    for name in ("solve_partials<lti>", "softmin_combine"):
         expect(fleet_launches[name] == n_solves,
                f"{name}: {fleet_launches[name]} launches on the fleet path, {n_solves} fleet solves")
 
+    # [11] K1's pendulum and cart-pole instances: injected ε vs plain and
+    # float64, Philox mode vs plain with exact replay, an R=8 fleet bit-equal
+    # to its solo launches, diverging rollouts; K1 and K2 times, the
+    # controller's solve fused vs eager
+    family_ms, family_large_ms = {}, {}
+    for name in FAMILIES:
+        cfg = _config(name)
+        for K, T in ((cfg.samples, cfg.horizon), (100_000, 200)):
+            e = check_family_injected(name, K, T)
+            print(f"[11] {name} injected K={K} T={T}: ok vs plain (max abs err "
+                  + ", ".join(f"{k} {e[k]:.3g}" for k in ("S", "beta", "eta", "dU", "action"))
+                  + f") and float64 (S relative error median {e['S_rel_median']:.3g}, p99 "
+                  f"{e['S_rel_p99']:.3g}, max {e['S_rel_max']:.3g}; plain f32 max "
+                  f"{e['plain_S_rel_max']:.3g})")
+            for anti, ou in ((False, 0.0), (True, 0.55)):
+                e = check_family_philox(name, K, T, antithetic=anti, ou_beta=ou)
+                key = f"solve_partials<{name}>"
+                err[key] = max(err[key], e["solve_partials"])
+                err["softmin_combine"] = max(err["softmin_combine"], e["softmin_combine"])
+                print(f"[11] {name} philox K={K} T={T} anti={anti} ou={ou}: K1 S err "
+                      f"{e['solve_partials']:.3g}, K2 dU err {e['softmin_combine']:.3g}; replay exact")
+            e = check_family_fleet(name, 8, K, T)
+            print(f"[11] {name} fleet R=8 K={K} T={T}: K1 S err {e['solve_partials']:.3g} vs plain; "
+                  "every robot bit-equal to its R=1 launch")
+            p = make_family_problem(name, K, T)
+            args = family_args(p)
+            _, part = fs.family_solve_partials(*args)
+            times = {
+                f"solve_partials<{name}>": paired_median_ms(
+                    lambda: fs.family_solve_partials(*args),
+                    lambda: fs.family_solve_partials_reference(*args), 20, 3),
+                "softmin_combine": paired_median_ms(
+                    lambda: fs.softmin_combine(part, p["lam"], T, 1),
+                    lambda: fs.softmin_combine_reference(part, p["lam"], T, 1), 20, 20),
+            }
+            (family_ms if K == cfg.samples else family_large_ms)[name] = times
+            for k, (k_ms, p_ms) in times.items():
+                print(f"[11] kernel {k} K={K} T={T}: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
+            del p, args, part
+        cfg = _config(name)
+        ctrl = MPPIController(cfg, device="cuda", rollout_backend="auto")
+        plain = MPPIController(cfg, device="cuda", rollout_backend="eager")
+        expect(ctrl.rollout_backend == "fused", f"{name}: auto picked {ctrl.rollout_backend} on cuda")
+        x = torch.tensor(FAMILY_START[name], dtype=torch.float32, device="cuda")
+        U = ctrl.init_action_seq()
+        k_ms, p_ms = paired_median_ms(lambda: ctrl.solve_auto(x, U, 1), lambda: plain.solve_auto(x, U, 1),
+                                      reps=20, plain_reps=5)
+        close(f"controller {name} action", _np(ctrl.solve_auto(x, U, 1).action),
+              _np(plain.solve_auto(x, U, 1).action), **TOL["u"])
+        print(f"[11] MPPIController {name} K={cfg.samples} T={cfg.horizon} opt_iters={cfg.opt_iters}: "
+              f"fused {k_ms:.4f} ms/solve, eager {p_ms:.4f} ms/solve (CUDA events, warm median; {smi})")
+    check_family_diverged()
+    print("[11] family edges: a pendulum block at eps=1e30 -> +inf, weight 0, the rest as plain; "
+          "cartpole from thd=1e4 -> NaN S and beta, NaN action, ControllerDiverged (fused and eager); "
+          "cartpole from thd=40 finite and as plain")
+
+    # [12] the families' path: the CLI on configs/pendulum.yaml and
+    # configs/cartpole.yaml, fused, launches counted
+    fs.reset_launch_counts()
+    steady, avg_ms, steps = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in FAMILIES:
+            traj = os.path.join(tmp, f"{name}.csv")
+            dump = ["-s", os.path.join(tmp, "dump"), "--dump-every", "100"] if name == "cartpole" else []
+            out = _cli(["-c", os.path.join("configs", f"{name}.yaml"), "--device", "cuda",
+                        "--rollout-backend", "fused", "-t", traj, *dump])
+            steps[name] = int(re.search(r"episode finished: (\d+) control steps", out).group(1))
+            avg_ms[name] = float(re.search(r"Average controller execution time: ([\d.]+) ms", out).group(1))
+            idx = FAMILY_ANGLE[name]
+            th = np.concatenate([[FAMILY_INIT_THETA[name]], read_csv_columns(traj)[f"x[{idx}]"]])
+            d = np.abs(np.arctan2(np.sin(th), np.cos(th)))
+            steady[name] = float(d[-max(len(d) // 4, 1):].mean())
+    family_launches = fs.launch_counts()
+    by_family = fs.family_launch_counts()
+    dumps = len(range(0, steps["cartpole"] + 1, 100))
+    print(f"[12] cli closed loops (fused): pendulum {steps['pendulum']} steps x 2 iterations, steady "
+          f"{steady['pendulum']:.4f} rad from upright (threshold {FAMILY_QUALITY_THRESHOLD_RAD['pendulum']}), "
+          f"average controller execution time {avg_ms['pendulum']:.3f} ms; cartpole {steps['cartpole']} "
+          f"steps, steady {steady['cartpole']:.4f} rad (threshold {FAMILY_QUALITY_THRESHOLD_RAD['cartpole']}), "
+          f"average {avg_ms['cartpole']:.3f} ms ({smi}); family-path launches {family_launches}, "
+          f"K1 by family {by_family}")
+    for name in FAMILIES:
+        expect(steady[name] < FAMILY_QUALITY_THRESHOLD_RAD[name], f"{name} steady-state {steady[name]} rad")
+    # one solve per control step and one after the last (its action ends the episode)
+    expect(by_family == {"lti": 0, "pendulum": 2 * (steps["pendulum"] + 1),
+                         "cartpole": steps["cartpole"] + 1},
+           f"K1 launches by family {by_family} for {steps} control steps")
+    expect(family_launches["softmin_combine"] == family_launches["solve_partials"],
+           "K2 launches differ from K1's on the family path")
+    expect(family_launches["noise_dump"] == dumps, f"K3: {family_launches['noise_dump']} launches, {dumps} dumps")
+    launches.update({f"solve_partials<{n}>": by_family[n] for n in FAMILIES})
+
     k12 = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
+    k_fam = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2287, 3121, 2973))
     replaces = {
-        "lti_solve_partials": k12,
+        "solve_partials<lti>": f"{k12} (family {PALLAS}:490)",
+        "solve_partials<pendulum>": f"{k_fam} (family {PALLAS}:648)",
+        "solve_partials<cartpole>": f"{k_fam} (family {PALLAS}:739)",
         "softmin_combine": k12,
         "noise_dump": f"{PALLAS}:2140, {PALLAS}:2872",
     }
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
-         "launches": launches[name], "fleet_launches": fleet_launches[name],
-         "max_abs_err": err[name], "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1],
-         "fleet_ms": fleet_kernel_ms[name][0], "fleet_plain_ms": fleet_kernel_ms[name][1]}
-        for name in replaces
-    ]}))
+    entries = []
+    for name in KERNEL_ENTRIES:
+        entry = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
+                 "launches": launches[name], "max_abs_err": err[name]}
+        fam = name[len("solve_partials<"):-1] if name.startswith("solve_partials<") else None
+        if fam in FAMILIES:
+            (ms, plain_ms), (lms, lplain_ms) = family_ms[fam][name], family_large_ms[fam][name]
+            entry.update(ms=ms, plain_ms=plain_ms, shape=f"K={_config(fam).samples} T={_config(fam).horizon}",
+                         large_ms=lms, large_plain_ms=lplain_ms, large_shape="K=100000 T=200")
+        else:
+            entry.update(ms=kernel_ms[name][0], plain_ms=kernel_ms[name][1], shape="A=3 K=10000 T=200",
+                         fleet_launches=fleet_launches[name], fleet_ms=fleet_kernel_ms[name][0],
+                         fleet_plain_ms=fleet_kernel_ms[name][1])
+            if fam is None:
+                entry["family_path_launches"] = family_launches[name]
+        entries.append(entry)
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

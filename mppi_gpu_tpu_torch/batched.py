@@ -1,11 +1,14 @@
 """Batched multi-robot MPPI: one call solves R independent control problems
 (torch counterpart of ``mppi_gpu_tpu.batched``).
 
-Each robot has its own state, nominal sequence, goal and seed; the dynamics,
-the cost's weights, σ, λ, K and T are shared. Two backends:
+Each robot has its own state, nominal sequence, seed and, for a cost with a
+goal (the point-mass family's), goal; the dynamics, the cost's weights, σ,
+λ, K and T are shared. A fleet of pendulums or cart-poles, whose costs aim
+at a built-in target, takes no goals (``goals=`` raises ``TypeError``).
+Two backends:
 
 * ``fused`` — one launch of K1 and one of K2 for the whole fleet
-  (``ops.fused_solve.fleet_fused_solve``): the robot is a grid axis of the
+  (``ops.fused_solve.fleet_family_fused_solve``): the robot is a grid axis of the
   kernels, as it is of the TPU's fleet kernels (``pallas_fleet_solve_core``);
 * ``eager`` — the single-robot plain solve, robot by robot (the CPU and the
   tests).
@@ -115,11 +118,11 @@ class BatchedMPPIController(MPPIController):
     def _fused(self, xs, Us, seeds, step: int, it: int, eps=None) -> SolveResult:
         """One launch of K1 and one of K2 for the fleet (Philox mode, or
         injected-ε mode with `eps` (R, T, K, a)), then the tail."""
-        cfg, c = self.cfg, self.cost
+        cfg = self.cfg
         K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[2], False)
-        S, beta, eta, dU = fs.fleet_fused_solve(
-            xs, Us, self.sigma, c.inv_s, c.w, c.goal, self._lam_cost, cfg.lambda_,
-            self._dt, K, seeds, step, it, anti, cfg.noise_beta, eps=eps,
+        S, beta, eta, dU = fs.fleet_family_fused_solve(
+            self._family, xs, Us, getattr(self.cost, "goal", None), cfg.lambda_, K, seeds,
+            step, it, anti, cfg.noise_beta, eps=eps,
         )
         return _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)
 

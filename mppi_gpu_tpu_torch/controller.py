@@ -8,8 +8,10 @@ update ``U += Σ_k w_k ε_k`` → clamp → shift. Two backends:
 * ``fused`` — the hand-written CUDA solve (``ops.fused_solve``, kernels K1 +
   K2) on a CUDA device; the noise never leaves the kernel.
 
-``auto`` picks ``fused`` on a CUDA device when the model is the point-mass
-LTI family with the quadratic cost, and ``eager`` otherwise. Both backends
+``auto`` picks ``fused`` on a CUDA device when the (model, cost) pair is a
+fused family (``ops.families``: the point-mass LTI model with the quadratic
+cost, the pendulum with its swing-up cost, the cart-pole with its balance
+cost), and ``eager`` otherwise. Both backends
 draw the same noise stream (``ops.philox``): counter (k, t, step, it) under
 the seed, so a solve is a pure function of (seed, step, it) and replayable.
 """
@@ -22,10 +24,10 @@ import torch
 
 from mppi_gpu_tpu_torch.config import MPPIConfig
 from mppi_gpu_tpu_torch.models.base import Dynamics
-from mppi_gpu_tpu_torch.models.point_mass import PointMassLTI
+from mppi_gpu_tpu_torch.ops import families
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops import philox
-from mppi_gpu_tpu_torch.ops.cost import Cost, QuadraticCost, make_cost
+from mppi_gpu_tpu_torch.ops.cost import Cost, make_cost
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs, rollout_trajectories
 from mppi_gpu_tpu_torch.ops.softmin import softmin_weights
 
@@ -116,14 +118,12 @@ def mppi_solve_deterministic(
 
 
 def resolve_backend(requested: str, device: torch.device, dyn: Dynamics, cost: Cost) -> str:
-    """``auto`` → ``fused`` on a CUDA device for the LTI + quadratic pair,
-    else ``eager``. ``fused`` anywhere but on a CUDA device raises."""
+    """``auto`` → ``fused`` on a CUDA device for a fused family's pair
+    (``ops.families``), else ``eager``. ``fused`` anywhere but on a CUDA
+    device, or for another pair, raises."""
     if requested not in BACKENDS:
         raise ValueError(f"unknown rollout backend '{requested}'; known: {BACKENDS}")
-    fusable = (
-        isinstance(dyn, PointMassLTI) and type(cost) is QuadraticCost
-        and dyn.action_dim <= fs.MAX_A
-    )
+    fusable = families.is_fusable(dyn, cost)
     if requested == "auto":
         return "fused" if device.type == "cuda" and fusable else "eager"
     if requested == "fused":
@@ -133,8 +133,8 @@ def resolve_backend(requested: str, device: torch.device, dyn: Dynamics, cost: C
             )
         if not fusable:
             raise ValueError(
-                "the fused backend covers the point-mass LTI model with the quadratic "
-                f"cost and A <= {fs.MAX_A}; got {type(dyn).__name__} + {type(cost).__name__}"
+                f"the fused backend covers {families.covered()}; got "
+                f"{type(dyn).__name__} + {type(cost).__name__}"
             )
     return requested
 
@@ -172,10 +172,13 @@ class MPPIController:
         self.rollout_backend = resolve_backend(
             rollout_backend, self.device, self.dynamics, self.cost
         )
-        # host copies of the fused kernels' scalars: reading a device scalar
-        # per solve would synchronize the stream
-        self._dt = float(getattr(self.dynamics, "dt", float("nan")))
-        self._lam_cost = float(getattr(self.cost, "lambda_", float("nan")))
+        # the fused family, its parameters packed on the device once and its
+        # scalars kept on the host: reading a device scalar per solve would
+        # synchronize the stream
+        self._family = (
+            families.family_for(self.dynamics, self.cost, self.sigma)
+            if families.is_fusable(self.dynamics, self.cost) else None
+        )
 
     # -- state helpers -----------------------------------------------------
     def init_action_seq(self) -> torch.Tensor:
@@ -187,11 +190,11 @@ class MPPIController:
     def _fused(self, x, U, seed: int, step: int, it: int, eps=None) -> SolveResult:
         """The fused kernels (Philox mode, or injected-ε mode with `eps`) and
         the tail: clamp and shift run as torch ops after the kernels."""
-        cfg, c = self.cfg, self.cost
+        cfg = self.cfg
         K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[1], False)
-        S, beta, eta, dU = fs.fused_solve(
-            x, U, self.sigma, c.inv_s, c.w, c.goal, self._lam_cost, cfg.lambda_,
-            self._dt, K, seed, step, it, anti, cfg.noise_beta, eps=eps,
+        S, beta, eta, dU = fs.family_fused_solve(
+            self._family, x, U, getattr(self.cost, "goal", None), cfg.lambda_, K, seed,
+            step, it, anti, cfg.noise_beta, eps=eps,
         )
         return _finish_fused(U, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)
 

@@ -1,31 +1,41 @@
-// Hopper (sm_90a) kernels of the MPPI solve for the point-mass LTI family
-// with the quadratic cost, bound to Python with ctypes
+// Hopper (sm_90a) kernels of the MPPI solve, bound to Python with ctypes
 // (mppi_gpu_tpu_torch/ops/_build.py, ops/fused_solve.py).
 //
-//   K1 lti_solve_partials  rollout + cost + per-block softmin partial + ΔŨ
-//   K2 softmin_combine     fold of the per-block partials into β, η, ΔU
-//   K3 noise_dump          the ε stream K1 consumed, written as (T, K, A)
+//   K1 solve_partials   rollout + cost + per-block softmin partial + ΔŨ
+//   K2 softmin_combine  fold of the per-block partials into β, η, ΔU
+//   K3 noise_dump       the ε stream K1 consumed, written as (T, K, A)
+//
+// K1 is a template over the fused family, the (dynamics, cost) pair it steps
+// (ops/families.py): the point-mass LTI model with the quadratic cost, the
+// pendulum with its swing-up cost, the cart-pole with its balance cost. A
+// family is a struct below: its state is kS floats in registers, initialised
+// from x0; `load` reads its parameters, `step` (x, u + ε) → x' and `cost`
+// (x) → state cost. Everything else in K1 (noise, control cost, Kahan sum,
+// partials) is shared, and K2 and K3 do not depend on the family.
 //
 // One thread per rollout k carries its state in registers through a
 // sequential loop over the horizon. K1 and K2 take a fleet of R independent
 // robots in one launch: grid axis y of K1 and grid axis x of K2 is the robot
-// r, which reads its own x0, U, goal, noise key and (injected) ε and writes
-// its own S, partials, β, η and ΔU; σ, Σ⁻¹, the weights, dt, both λ, the
-// counter words (step, it), antithetic and OU are shared. The single-robot
-// solve is the R = 1 launch. The noise stream is Philox4x32-10 keyed
-// by the seed, counter (k, t, step, it), with Box-Muller normals; its plain
-// torch twin is ops/philox.py and the words must match it bit for bit. The
-// noise, state-update and cost arithmetic uses explicitly rounded operations
-// (__fmul_rn/__fadd_rn, never contracted into FMAs), in the plain version's
-// order, so K3's dump reproduces K1's ε exactly and the replay of a dump
-// through the injected-ε mode reproduces the Philox-mode solve. No
-// fast-math flags.
+// r, which reads its own x0, U, goal (LTI), noise key and (injected) ε and
+// writes its own S, partials, β, η and ΔU; the family's parameters, dt, both
+// λ, the counter words (step, it), antithetic and OU are shared. The
+// single-robot solve is the R = 1 launch. The noise stream is Philox4x32-10
+// keyed by the seed, counter (k, t, step, it), with Box-Muller normals; its
+// plain torch twin is ops/philox.py and the words must match it bit for bit.
+// The noise, state-update and cost arithmetic uses explicitly rounded
+// operations (__fmul_rn/__fadd_rn/__fdiv_rn, never contracted into FMAs), in
+// the plain version's order (the port's eager models and costs), so K3's dump
+// reproduces K1's ε exactly and the replay of a dump through the injected-ε
+// mode reproduces the Philox-mode solve. The families' trigonometry is full
+// precision sinf/cosf; no fast-math flags.
 //
 // Rollouts past K (the idle threads of the last block) never enter β, η or
 // ΔU. A block whose real rollouts all have S = +inf contributes η_b = 0 and
 // ΔŨ_b = 0 (its weights are exactly 0 against any finite β); if every block
 // is like that, K2's β is +inf and β − β_b = NaN reaches η and ΔU, so the
 // action comes out NaN and the divergence guard fires, as on the eager path.
+// A NaN S (a rollout whose state overflowed into inf − inf) makes its block's
+// β_b NaN, and K2's β with it, as torch.min does on the eager path.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -138,49 +148,181 @@ __device__ __forceinline__ float block_nan_min(float v, float* scratch) {
   return m;
 }
 
-// Σ_j w_j (x_j − g_j)² over x = (q, qd), in the plain version's order.
+// ---- families -------------------------------------------------------------
+// Each reads its parameters from the family part of the packed vector (past
+// σ and Σ⁻¹; layouts in ops/families.py) and steps in the order of the
+// port's eager model and cost, whose float32 arithmetic it repeats.
+
+enum FamilyId { kLtiFamily = 0, kPendulumFamily = 1, kCartPoleFamily = 2 };  // ops/families.py
+
+// Point-mass double integrator per axis, quadratic cost towards robot r's
+// goal (models/point_mass.py, ops/cost.QuadraticCost).
 template <int A>
-__device__ __forceinline__ float state_cost(const float q[A], const float qd[A],
-                                            const float wq[A], const float wqd[A],
-                                            const float gq[A], const float gqd[A]) {
-  float c = 0.0f;
+struct Lti {
+  static constexpr int kS = 2 * A;
+  static constexpr bool kGoal = true;
+  float wq[A], wqd[A], gq[A], gqd[A], dt, hdt2;
+
+  __device__ __forceinline__ void load(const float* fp, const float* goal, float dt_) {
 #pragma unroll
-  for (int a = 0; a < A; ++a) {
-    const float d = __fsub_rn(q[a], gq[a]);
-    c = __fadd_rn(c, __fmul_rn(__fmul_rn(d, wq[a]), d));
+    for (int a = 0; a < A; ++a) {
+      wq[a] = fp[a];
+      wqd[a] = fp[A + a];
+      gq[a] = goal[a];
+      gqd[a] = goal[A + a];
+    }
+    dt = dt_;
+    hdt2 = 0.5f * dt_ * dt_;
   }
+
+  __device__ __forceinline__ void step(float x[kS], const float ue[A]) const {
 #pragma unroll
-  for (int a = 0; a < A; ++a) {
-    const float d = __fsub_rn(qd[a], gqd[a]);
-    c = __fadd_rn(c, __fmul_rn(__fmul_rn(d, wqd[a]), d));
+    for (int a = 0; a < A; ++a) {
+      x[a] = __fadd_rn(__fadd_rn(x[a], __fmul_rn(dt, x[A + a])), __fmul_rn(hdt2, ue[a]));
+      x[A + a] = __fadd_rn(x[A + a], __fmul_rn(dt, ue[a]));
+    }
   }
-  return c;
-}
+
+  // Σ_j w_j (x_j − g_j)² over x = (q, qd)
+  __device__ __forceinline__ float cost(const float x[kS]) const {
+    float c = 0.0f;
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const float d = __fsub_rn(x[a], gq[a]);
+      c = __fadd_rn(c, __fmul_rn(__fmul_rn(d, wq[a]), d));
+    }
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const float d = __fsub_rn(x[A + a], gqd[a]);
+      c = __fadd_rn(c, __fmul_rn(__fmul_rn(d, wqd[a]), d));
+    }
+    return c;
+  }
+};
+
+// Pendulum, x = (θ, θ̇), θ from upright: RK2 midpoint of
+// θ̈ = (g/l) sin θ + u/(m l²) − b θ̇ (models/pendulum.py); swing-up cost
+// w_angle (1 − cos θ) + w_vel θ̇² (ops/cost.PendulumSwingupCost).
+struct Pendulum {
+  static constexpr int kS = 2;
+  static constexpr bool kGoal = false;
+  float w_angle, w_vel, gl, ml2, b, h, hh;
+
+  __device__ __forceinline__ void load(const float* fp, const float*, float dt) {
+    w_angle = fp[0];
+    w_vel = fp[1];
+    gl = fp[2];   // g / l
+    ml2 = fp[3];  // m l², divided by as the model does
+    b = fp[4];
+    h = dt;
+    hh = 0.5f * dt;
+  }
+
+  __device__ __forceinline__ float accel(float th, float thd, float u) const {
+    return __fsub_rn(__fadd_rn(__fmul_rn(gl, sinf(th)), __fdiv_rn(u, ml2)), __fmul_rn(b, thd));
+  }
+
+  __device__ __forceinline__ void step(float x[kS], const float ue[1]) const {
+    const float th = x[0], thd = x[1];
+    const float k1 = accel(th, thd, ue[0]);
+    const float th_m = __fadd_rn(th, __fmul_rn(hh, thd));
+    const float thd_m = __fadd_rn(thd, __fmul_rn(hh, k1));
+    const float k2 = accel(th_m, thd_m, ue[0]);
+    x[0] = __fadd_rn(th, __fmul_rn(h, thd_m));
+    x[1] = __fadd_rn(thd, __fmul_rn(h, k2));
+  }
+
+  __device__ __forceinline__ float cost(const float x[kS]) const {
+    return __fadd_rn(__fmul_rn(w_angle, __fsub_rn(1.0f, cosf(x[0]))),
+                     __fmul_rn(w_vel, __fmul_rn(x[1], x[1])));
+  }
+};
+
+// Cart-pole, x = (p, θ, ṗ, θ̇), θ from upright: RK2 midpoint of the
+// frictionless cart-pole (models/cartpole.py), with its four divides;
+// balance cost w0 p² + w1 (1 − cos θ) + w2 ṗ² + w3 θ̇²
+// (ops/cost.CartPoleBalanceCost).
+struct CartPole {
+  static constexpr int kS = 4;
+  static constexpr bool kGoal = false;
+  float w0, w1, w2, w3, mpl, mp, total, l, g, h, hh;
+
+  __device__ __forceinline__ void load(const float* fp, const float*, float dt) {
+    w0 = fp[0];
+    w1 = fp[1];
+    w2 = fp[2];
+    w3 = fp[3];
+    mpl = fp[4];    // m_p l
+    mp = fp[5];     // m_p
+    total = fp[6];  // m_c + m_p
+    l = fp[7];
+    g = fp[8];
+    h = dt;
+    hh = 0.5f * dt;
+  }
+
+  // (p̈, θ̈) at (θ, θ̇) under force u
+  __device__ __forceinline__ void accel(float th, float thd, float u, float& pdd,
+                                        float& thdd) const {
+    const float s = sinf(th), c = cosf(th);
+    const float a = __fdiv_rn(__fadd_rn(u, __fmul_rn(__fmul_rn(mpl, __fmul_rn(thd, thd)), s)), total);
+    const float den = __fmul_rn(
+        l, __fsub_rn(4.0f / 3.0f, __fdiv_rn(__fmul_rn(mp, __fmul_rn(c, c)), total)));
+    thdd = __fdiv_rn(__fsub_rn(__fmul_rn(g, s), __fmul_rn(c, a)), den);
+    pdd = __fsub_rn(a, __fdiv_rn(__fmul_rn(__fmul_rn(mpl, thdd), c), total));
+  }
+
+  __device__ __forceinline__ void step(float x[kS], const float ue[1]) const {
+    const float p = x[0], th = x[1], pd = x[2], thd = x[3];
+    float pdd1, thdd1, pdd2, thdd2;
+    accel(th, thd, ue[0], pdd1, thdd1);
+    const float th_m = __fadd_rn(th, __fmul_rn(hh, thd));
+    const float thd_m = __fadd_rn(thd, __fmul_rn(hh, thdd1));
+    accel(th_m, thd_m, ue[0], pdd2, thdd2);
+    const float pd_m = __fadd_rn(pd, __fmul_rn(hh, pdd1));
+    x[0] = __fadd_rn(p, __fmul_rn(h, pd_m));
+    x[1] = __fadd_rn(th, __fmul_rn(h, thd_m));
+    x[2] = __fadd_rn(pd, __fmul_rn(h, pdd2));
+    x[3] = __fadd_rn(thd, __fmul_rn(h, thdd2));
+  }
+
+  __device__ __forceinline__ float cost(const float x[kS]) const {
+    float c = __fmul_rn(w0, __fmul_rn(x[0], x[0]));
+    c = __fadd_rn(c, __fmul_rn(w1, __fsub_rn(1.0f, cosf(x[1]))));
+    c = __fadd_rn(c, __fmul_rn(w2, __fmul_rn(x[2], x[2])));
+    return __fadd_rn(c, __fmul_rn(w3, __fmul_rn(x[3], x[3])));
+  }
+};
 
 // K1. Replaces the TPU solve kernels of mppi_gpu_tpu/ops/pallas_rollout.py:
 // _onepass_solve_kernel (:2342), _planar_onepass_kernel (:2686) and
-// _fused_solve_kernel (:2287), LTI family (_LTIQuadFamily :490), and their
-// fleet forms _fleet_onepass_solve_kernel (:3121), _fleet_fused_solve_kernel
-// (:2973) and _planar_fleet_onepass_kernel (:3078), whose grid (R, tiles)
-// runs the same per-tile bodies robot after robot.
+// _fused_solve_kernel (:2287), and their fleet forms
+// _fleet_onepass_solve_kernel (:3121), _fleet_fused_solve_kernel (:2973) and
+// _planar_fleet_onepass_kernel (:3078), whose grid (R, tiles) runs the same
+// per-tile bodies robot after robot; for the families of
+// _LTIQuadFamily (:490), _PendulumFamily (:614) and _CartPoleFamily (:700).
 //
 // What bounds it: arithmetic, not memory. Per rollout and step it does one
 // Philox call (10 rounds of two 32-bit multiply-high), one or two Box-Muller
-// pairs (log1p, sqrt, cos, sin) and ~10 flops of dynamics and cost; the only
-// traffic is U and the parameters (read once into shared memory/registers),
-// S (4 B per rollout) and one (2 + T·A)-float partial per block. In the
-// injected-ε mode it instead streams 2·T·A·4 B per rollout.
+// pairs (log1p, sqrt, cos, sin) and the family's step and cost: ~10 flops for
+// LTI; two sinf, one cosf and two divides for the pendulum; two sinf, three
+// cosf and eight divides for the cart-pole. The only traffic is U and the
+// parameters (read once into shared memory/registers), S (4 B per rollout)
+// and one (2 + T·A)-float partial per block. In the injected-ε mode it
+// instead streams 2·T·A·4 B per rollout.
 //
 // Design: the TPU kernels stage the tile's ε in VMEM for the ΔU pass; here a
 // thread's ε for a whole horizon does not fit in registers and staging it in
 // shared memory would cap the block at a few rollouts, so pass 2
 // regenerates ε from the counter (Philox is stateless), which costs a second
-// round of noise arithmetic and no memory. The cross-tile online softmin of
-// the TPU kernel, which relies on the grid running in order, becomes an
-// associative per-block partial (β_b, η_b, ΔŨ_b) folded by K2, the same
-// combine the sharded path uses across devices. Σ_k e_k ε_k[t, a] is a warp
-// shuffle reduction per (t, a) into shared memory, summed over the warps in a
-// fixed order.
+// round of noise arithmetic and no memory; pass 2 needs no dynamics, so it is
+// the same for every family. The cross-tile online softmin of the TPU
+// kernel, which relies on the grid running in order, becomes an associative
+// per-block partial (β_b, η_b, ΔŨ_b) folded by K2, the same combine the
+// sharded path uses across devices. Σ_k e_k ε_k[t, a] is a warp shuffle
+// reduction per (t, a) into shared memory, summed over the warps in a fixed
+// order. The TPU kernels' trig carry (_sincos_small :455) is not used: it
+// saves TPU transcendentals and holds only for small angle steps.
 //
 // Fleet: block (b, r) is block b of robot r; robots run side by side on the
 // SMs, not in turn as on the TPU. All robot offsets are size_t: at R = 64,
@@ -188,22 +330,23 @@ __device__ __forceinline__ float state_cost(const float q[A], const float qd[A],
 // passes 2³¹ elements. `keys` holds every robot's (R,) int64 seed, whose low
 // and high words are its Philox key; null means every robot uses
 // np.key0/np.key1, which is how the single-robot solve runs without a seed
-// tensor on the device.
-template <int A, bool INJ>
-__global__ void __launch_bounds__(kBlock) lti_solve_partials_kernel(
+// tensor on the device. `params` is [σ (A), Σ⁻¹ (A), family part]; `goal`
+// (R, kS) is read by families with kGoal only.
+template <class F, int A, bool INJ>
+__global__ void __launch_bounds__(kBlock) solve_partials_kernel(
     const float* __restrict__ x0, const float* __restrict__ U,
-    const float* __restrict__ sigma, const float* __restrict__ inv_s,
-    const float* __restrict__ wgt, const float* __restrict__ goal,
+    const float* __restrict__ params, const float* __restrict__ goal,
     const long long* __restrict__ keys, const float* __restrict__ eps_in,
     float* __restrict__ S_out, float* __restrict__ partials, int T, float dt,
     float lam_cost, float lam_softmin, NoiseParams np) {
+  constexpr int S_DIM = F::kS;
   extern __shared__ float smem[];
   __shared__ float scratch[kWarps];
   const int TA = T * A;
   const size_t r = blockIdx.y;
-  x0 += r * 2 * A;
+  x0 += r * S_DIM;
   U += r * TA;
-  goal += r * 2 * A;
+  if (F::kGoal) goal += r * S_DIM;
   S_out += r * np.K;
   if (INJ) eps_in += r * TA * (size_t)np.K;
   if (keys != nullptr) {
@@ -215,56 +358,50 @@ __global__ void __launch_bounds__(kBlock) lti_solve_partials_kernel(
   float* red = smem + TA;    // (kWarps, T, A) per-warp Σ e·ε
   for (int i = threadIdx.x; i < TA; i += kBlock) u_s[i] = U[i];
 
-  float sig[A], lis[A], wq[A], wqd[A], gq[A], gqd[A], q[A], qd[A], e[A];
+  float sig[A], lis[A], x[S_DIM], e[A];
 #pragma unroll
   for (int a = 0; a < A; ++a) {
-    sig[a] = sigma[a];
-    lis[a] = inv_s[a];
-    wq[a] = wgt[a];
-    wqd[a] = wgt[A + a];
-    gq[a] = goal[a];
-    gqd[a] = goal[A + a];
+    sig[a] = params[a];
+    lis[a] = params[A + a];
   }
+  F fam;
+  fam.load(params + 2 * A, goal, dt);
   __syncthreads();
 
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < np.K;
   const bool mirror = np.antithetic && k >= np.K_draw;
   const int kd = mirror ? k - np.K_draw : k;
-  const float hdt2 = 0.5f * dt * dt;
   unsigned words[4];
 
   // ---- pass 1: rollout and cost -------------------------------------------
   float S = INFINITY;
   if (valid) {
 #pragma unroll
-    for (int a = 0; a < A; ++a) {
-      q[a] = x0[a];
-      qd[a] = x0[A + a];
-      e[a] = 0.0f;
-    }
+    for (int i = 0; i < S_DIM; ++i) x[i] = x0[i];
+#pragma unroll
+    for (int a = 0; a < A; ++a) e[a] = 0.0f;
     float acc = 0.0f, comp = 0.0f;  // Kahan-compensated Σ_t step cost
     for (int t = 0; t < T; ++t) {
-      float eps[A];
+      float eps[A], ue[A];
       if (INJ) {
 #pragma unroll
         for (int a = 0; a < A; ++a) eps[a] = eps_in[((size_t)t * np.K + k) * A + a];
       } else {
         next_eps<A>(np, sig, kd, mirror, t, e, eps, words);
       }
-      // explicitly rounded, in the plain version's order (models/point_mass,
-      // ops/cost): both modes of this kernel step bit-identical states and
-      // costs from bit-identical ε
+      // explicitly rounded, in the plain version's order (models/, ops/cost):
+      // both modes of this kernel step bit-identical states and costs from
+      // bit-identical ε
       float ctrl = 0.0f;
 #pragma unroll
       for (int a = 0; a < A; ++a) {
         const float u = u_s[t * A + a];
-        const float ue = __fadd_rn(u, eps[a]);
-        q[a] = __fadd_rn(__fadd_rn(q[a], __fmul_rn(dt, qd[a])), __fmul_rn(hdt2, ue));
-        qd[a] = __fadd_rn(qd[a], __fmul_rn(dt, ue));
+        ue[a] = __fadd_rn(u, eps[a]);
         ctrl = __fadd_rn(ctrl, __fmul_rn(__fmul_rn(u, lis[a]), eps[a]));
       }
-      const float step_cost = __fadd_rn(__fmul_rn(lam_cost, ctrl), state_cost<A>(q, qd, wq, wqd, gq, gqd));
+      fam.step(x, ue);
+      const float step_cost = __fadd_rn(__fmul_rn(lam_cost, ctrl), fam.cost(x));
       const float y = __fsub_rn(step_cost, comp);
       const float sum = __fadd_rn(acc, y);
       // an infinite sum stays infinite (a diverged rollout costs +inf, never NaN)
@@ -272,7 +409,7 @@ __global__ void __launch_bounds__(kBlock) lti_solve_partials_kernel(
       acc = sum;
     }
     // terminal cost: x_T's state cost counted again (reference parity)
-    S = __fadd_rn(acc, state_cost<A>(q, qd, wq, wqd, gq, gqd));
+    S = __fadd_rn(acc, fam.cost(x));
     S_out[k] = S;
   }
 
@@ -414,33 +551,32 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int A, bool INJ>
-cudaError_t launch_partials(const float* x0, const float* U, const float* sigma,
-                            const float* inv_s, const float* w, const float* goal,
-                            const long long* keys, const float* eps_in, float* S,
-                            float* partials, int R, int T, float dt, float lam_cost,
-                            float lam_softmin, NoiseParams np, cudaStream_t stream) {
-  const dim3 grid((np.K + kBlock - 1) / kBlock, R);
-  const size_t smem = (size_t)(1 + kWarps) * T * A * sizeof(float);
-  cudaError_t err = set_smem(lti_solve_partials_kernel<A, INJ>, smem);
+// K1's pointers and scalars, passed through the dispatch below unchanged.
+struct SolveArgs {
+  const float *x0, *U, *params, *goal;
+  const long long* keys;
+  const float* eps_in;
+  float *S, *partials;
+  int R, T;
+  float dt, lam_cost, lam_softmin;
+};
+
+template <class F, int A, bool INJ>
+cudaError_t launch_partials(const SolveArgs& a, const NoiseParams& np, cudaStream_t stream) {
+  const dim3 grid((np.K + kBlock - 1) / kBlock, a.R);
+  const size_t smem = (size_t)(1 + kWarps) * a.T * A * sizeof(float);
+  cudaError_t err = set_smem(solve_partials_kernel<F, A, INJ>, smem);
   if (err != cudaSuccess) return err;
-  lti_solve_partials_kernel<A, INJ><<<grid, kBlock, smem, stream>>>(
-      x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials, T, dt, lam_cost, lam_softmin,
-      np);
+  solve_partials_kernel<F, A, INJ><<<grid, kBlock, smem, stream>>>(
+      a.x0, a.U, a.params, a.goal, a.keys, a.eps_in, a.S, a.partials, a.T, a.dt, a.lam_cost,
+      a.lam_softmin, np);
   return cudaGetLastError();
 }
 
-template <int A>
-cudaError_t launch_partials_mode(const float* x0, const float* U, const float* sigma,
-                                 const float* inv_s, const float* w, const float* goal,
-                                 const long long* keys, const float* eps_in, float* S,
-                                 float* partials, int R, int T, float dt, float lam_cost,
-                                 float lam_softmin, NoiseParams np, cudaStream_t stream) {
-  if (eps_in != nullptr)
-    return launch_partials<A, true>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials,
-                                    R, T, dt, lam_cost, lam_softmin, np, stream);
-  return launch_partials<A, false>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials,
-                                   R, T, dt, lam_cost, lam_softmin, np, stream);
+template <class F, int A>
+cudaError_t launch_partials_mode(const SolveArgs& a, const NoiseParams& np, cudaStream_t s) {
+  return a.eps_in != nullptr ? launch_partials<F, A, true>(a, np, s)
+                             : launch_partials<F, A, false>(a, np, s);
 }
 
 }  // namespace
@@ -449,24 +585,36 @@ extern "C" {
 
 // Every entry returns a cudaError_t as int: 0 on a launched kernel.
 
-// x0 (R, 2A), U (R, T, A), goal (R, 2A), keys (R,) int64 or null, eps_in
-// (R, T, K, A) or null → S (R, K), partials (R, nb, 2 + T·A).
-int mppi_lti_solve_partials(const float* x0, const float* U, const float* sigma,
-                            const float* inv_s, const float* w, const float* goal,
-                            const long long* keys, const float* eps_in, float* S,
-                            float* partials, int R, int K, int T, int A, float dt,
-                            float lam_cost, float lam_softmin, unsigned key0, unsigned key1,
-                            unsigned step, unsigned it, int antithetic, float ou_beta,
-                            float ou_c, void* stream) {
+// family (FamilyId), x0 (R, S), U (R, T, A), params [σ (A), Σ⁻¹ (A), family
+// part], goal (R, S) for LTI (else unused, may be null), keys (R,) int64 or
+// null, eps_in (R, T, K, A) or null → S (R, K), partials (R, nb, 2 + T·A).
+// S is 2A for LTI (A ≤ 4), 2 for the pendulum and 4 for the cart-pole (A = 1).
+int mppi_solve_partials(int family, const float* x0, const float* U, const float* params,
+                        const float* goal, const long long* keys, const float* eps_in, float* S,
+                        float* partials, int R, int K, int T, int A, float dt, float lam_cost,
+                        float lam_softmin, unsigned key0, unsigned key1, unsigned step,
+                        unsigned it, int antithetic, float ou_beta, float ou_c, void* stream) {
   if (R < 1 || R > kMaxRobots) return (int)cudaErrorInvalidValue;
   const NoiseParams np = make_noise(key0, key1, step, it, K, antithetic, ou_beta, ou_c);
+  const SolveArgs a{x0, U, params, goal, keys, eps_in, S, partials, R, T, dt, lam_cost,
+                    lam_softmin};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (A) {
-    case 1: return launch_partials_mode<1>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials, R, T, dt, lam_cost, lam_softmin, np, s);
-    case 2: return launch_partials_mode<2>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials, R, T, dt, lam_cost, lam_softmin, np, s);
-    case 3: return launch_partials_mode<3>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials, R, T, dt, lam_cost, lam_softmin, np, s);
-    case 4: return launch_partials_mode<4>(x0, U, sigma, inv_s, w, goal, keys, eps_in, S, partials, R, T, dt, lam_cost, lam_softmin, np, s);
-    default: return (int)cudaErrorInvalidValue;
+  switch (family) {
+    case kLtiFamily:
+      if (goal == nullptr) return (int)cudaErrorInvalidValue;
+      switch (A) {
+        case 1: return launch_partials_mode<Lti<1>, 1>(a, np, s);
+        case 2: return launch_partials_mode<Lti<2>, 2>(a, np, s);
+        case 3: return launch_partials_mode<Lti<3>, 3>(a, np, s);
+        case 4: return launch_partials_mode<Lti<4>, 4>(a, np, s);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case kPendulumFamily:
+      return A == 1 ? launch_partials_mode<Pendulum, 1>(a, np, s) : (int)cudaErrorInvalidValue;
+    case kCartPoleFamily:
+      return A == 1 ? launch_partials_mode<CartPole, 1>(a, np, s) : (int)cudaErrorInvalidValue;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

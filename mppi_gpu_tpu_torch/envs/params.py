@@ -30,13 +30,14 @@ import math
 from dataclasses import dataclass
 
 from mppi_gpu_tpu_torch.config import MPPIConfig
+from mppi_gpu_tpu_torch.envs.base import ControlCadence
 
 SPHERE_RADIUS = 0.05
 DENSITY = 1000.0
 
 
 @dataclass(frozen=True)
-class WorldParams:
+class WorldParams(ControlCadence):
     n_axes: int                 # 1, 2, or 3 slide joints
     mass: float = (4.0 / 3.0) * math.pi * SPHERE_RADIUS**3 * DENSITY
     armature: float = 0.01
@@ -53,20 +54,8 @@ class WorldParams:
         return 2 * self.n_axes
 
     @property
-    def steps_per_control(self) -> int:
-        """Physics steps per control cycle: the reference loops `mj_step` while
-        elapsed < 1/60 s (PointMassEnv.cpp:136-139) → ceil((1/60)/timestep)."""
-        return math.ceil(self.control_period / self.timestep - 1e-9)
-
-    @property
     def effective_mass(self) -> float:
         return self.mass + self.armature
-
-    def num_control_steps(self) -> int:
-        """Control cycles in one episode (~500 for the default 10 s: each
-        cycle advances 2 physics steps = 0.02 s of sim time)."""
-        per_cycle = self.steps_per_control * self.timestep
-        return math.ceil((self.sim_end - self.timestep) / per_cycle)
 
 
 def world_params_for_config(cfg: MPPIConfig) -> WorldParams:

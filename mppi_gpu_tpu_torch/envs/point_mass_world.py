@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from mppi_gpu_tpu_torch.envs.base import HostWorld
 from mppi_gpu_tpu_torch.envs.params import WorldParams
 
 
@@ -37,7 +38,7 @@ class WorldState(NamedTuple):
 
 
 @dataclass(frozen=True)
-class PointMassWorld:
+class PointMassWorld(HostWorld):
     params: WorldParams
     device: torch.device | str = "cpu"
 
@@ -76,16 +77,6 @@ class PointMassWorld:
         """The state whose [qpos, qvel] is `x` ((s,) or (R, s)) at `time`."""
         n = self.params.n_axes
         return WorldState(q=x[..., :n].contiguous(), qd=x[..., n:].contiguous(), time=time)
-
-    def simulate(self, state: WorldState, u: torch.Tensor) -> tuple[WorldState, bool]:
-        """One control cycle: hold `u` for steps_per_control physics steps.
-        Returns (new_state, done); done (checked before stepping) leaves the
-        state unchanged, as in the reference."""
-        if bool(state.time >= self.params.sim_end):
-            return state, True
-        for _ in range(self.params.steps_per_control):
-            state = self.physics_step(state, u)
-        return state, False
 
     def advance(self, state: WorldState, u: torch.Tensor) -> WorldState:
         """:meth:`simulate` without the host's look at the clock: the end of

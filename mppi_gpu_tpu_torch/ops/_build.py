@@ -36,8 +36,8 @@ NVCC_FLAGS = (
 _p, _i, _u, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # (argtypes, restype) of every C entry; pointers and the stream as c_void_p
 _SIGNATURES = {
-    "mppi_lti_solve_partials": (
-        [_p] * 10 + [_i, _i, _i, _i, _f, _f, _f, _u, _u, _u, _u, _i, _f, _f, _p], _i,
+    "mppi_solve_partials": (
+        [_i] + [_p] * 8 + [_i, _i, _i, _i, _f, _f, _f, _u, _u, _u, _u, _i, _f, _f, _p], _i,
     ),
     "mppi_softmin_combine": ([_p, _i, _i, _i, _f, _p, _p, _p], _i),
     "mppi_noise_dump": ([_p, _p, _p, _i, _i, _i, _u, _u, _u, _u, _i, _f, _f, _p], _i),

@@ -14,8 +14,10 @@ robot axis R (:func:`batch_goals`, the counterpart of
 ``mppi_gpu_tpu.batched._batch_goals``); ``step`` and ``final`` then take
 states of shape (R, K, s).
 
-Only ``quadratic`` is ported; the other registered cost types of the JAX
-package raise ``NotImplementedError`` (ROADMAP.md, Open items §1 item 6).
+:class:`PendulumSwingupCost` and :class:`CartPoleBalanceCost` are the
+pendulum and cart-pole families' costs; their targets (upright, centred) are
+built in, so they have no ``goal`` field. The JAX package's other registered
+cost types raise ``NotImplementedError`` (ROADMAP.md, Open items §1 item 6).
 """
 
 from __future__ import annotations
@@ -59,6 +61,53 @@ class QuadraticCost:
         return torch.sum(d * self.w * d, dim=-1)
 
 
+@dataclass(frozen=True)
+class PendulumSwingupCost:
+    """Swing-up cost of the pendulum family: ``w_angle·(1 − cos θ) +
+    w_vel·θ̇²`` per step (θ = 0 upright; the trig form handles the angle
+    wrap), plus the standard MPPI control term."""
+
+    w_angle: torch.Tensor  # 0-dim
+    w_vel: torch.Tensor    # 0-dim
+    lambda_: torch.Tensor  # 0-dim temperature
+    inv_s: torch.Tensor    # (a,) diagonal of Σ⁻¹
+
+    def _state(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_angle * (1.0 - torch.cos(x[..., 0])) + self.w_vel * x[..., 1] ** 2
+
+    def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        ctrl = self.lambda_ * torch.sum(u * self.inv_s * eps, dim=-1)
+        return ctrl + self._state(x_next)
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        return self._state(x)
+
+
+@dataclass(frozen=True)
+class CartPoleBalanceCost:
+    """Balance cost of the cart-pole family: pole upright, cart centred, both
+    velocities low. ``w = [w_pos, w_angle, w_posvel, w_angvel]``; the angle
+    term is the wrap-safe ``1 − cos θ``."""
+
+    w: torch.Tensor        # (4,)
+    lambda_: torch.Tensor  # 0-dim temperature
+    inv_s: torch.Tensor    # (a,) diagonal of Σ⁻¹
+
+    def _state(self, x: torch.Tensor) -> torch.Tensor:
+        return (
+            self.w[0] * x[..., 0] ** 2
+            + self.w[1] * (1.0 - torch.cos(x[..., 1]))
+            + self.w[2] * x[..., 2] ** 2
+            + self.w[3] * x[..., 3] ** 2
+        )
+
+    def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        return self.lambda_ * torch.sum(u * self.inv_s * eps, dim=-1) + self._state(x_next)
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        return self._state(x)
+
+
 def batch_goals(cost: Cost, goals: torch.Tensor, n_robots: int) -> Cost:
     """``cost`` with the (R, s) per-robot ``goals`` on its ``goal`` field.
     Raises ``TypeError`` for a cost without a ``goal`` field (its target is
@@ -79,9 +128,7 @@ CostFactory = Callable[[MPPIConfig, torch.device], Cost]
 COST_REGISTRY: dict[str, CostFactory] = {}
 
 # cost types the JAX package registers that this package does not port yet
-_UNPORTED_COSTS = (
-    "obstacle", "pendulum", "unicycle", "arm", "cartpole", "quadrotor", "quadrotor3d",
-)
+_UNPORTED_COSTS = ("obstacle", "unicycle", "arm", "quadrotor", "quadrotor3d")
 
 
 def register_cost(name: str) -> Callable[[CostFactory], CostFactory]:
@@ -92,18 +139,49 @@ def register_cost(name: str) -> Callable[[CostFactory], CostFactory]:
     return deco
 
 
+def _inv_s(cfg: MPPIConfig, device: torch.device | str) -> torch.Tensor:
+    f32 = dict(dtype=torch.float32, device=device)
+    if cfg.inv_sigma == "from-noise":
+        return 1.0 / torch.tensor(cfg.noise, **f32) ** 2
+    return torch.ones(cfg.action_dim, **f32)  # reference parity: Σ⁻¹ = I
+
+
 @register_cost("quadratic")
 def _make_quadratic(cfg: MPPIConfig, device: torch.device | str) -> QuadraticCost:
     f32 = dict(dtype=torch.float32, device=device)
-    if cfg.inv_sigma == "from-noise":
-        inv_s = 1.0 / torch.tensor(cfg.noise, **f32) ** 2
-    else:  # reference parity: Σ⁻¹ = I
-        inv_s = torch.ones(cfg.action_dim, **f32)
     return QuadraticCost(
         w=torch.tensor(cfg.cost_w, **f32),
         goal=torch.tensor(cfg.goal, **f32),
         lambda_=torch.tensor(cfg.lambda_, **f32),
-        inv_s=inv_s,
+        inv_s=_inv_s(cfg, device),
+    )
+
+
+@register_cost("pendulum")
+def _make_pendulum(cfg: MPPIConfig, device: torch.device | str) -> PendulumSwingupCost:
+    if len(cfg.cost_w) != 2:
+        raise ValueError(f"pendulum cost needs cost.w = [w_angle, w_vel], got {cfg.cost_w}")
+    f32 = dict(dtype=torch.float32, device=device)
+    return PendulumSwingupCost(
+        w_angle=torch.tensor(cfg.cost_w[0], **f32),
+        w_vel=torch.tensor(cfg.cost_w[1], **f32),
+        lambda_=torch.tensor(cfg.lambda_, **f32),
+        inv_s=_inv_s(cfg, device),
+    )
+
+
+@register_cost("cartpole")
+def _make_cartpole(cfg: MPPIConfig, device: torch.device | str) -> CartPoleBalanceCost:
+    if len(cfg.cost_w) != 4:
+        raise ValueError(
+            "cartpole cost needs cost.w = [w_pos, w_angle, w_posvel, w_angvel], "
+            f"got {cfg.cost_w}"
+        )
+    f32 = dict(dtype=torch.float32, device=device)
+    return CartPoleBalanceCost(
+        w=torch.tensor(cfg.cost_w, **f32),
+        lambda_=torch.tensor(cfg.lambda_, **f32),
+        inv_s=_inv_s(cfg, device),
     )
 
 

@@ -1,26 +1,33 @@
-"""The fused MPPI solve for the point-mass LTI family with the quadratic cost:
-wrappers of the CUDA kernels in ``csrc/mppi_lti.cu`` and their plain
-versions.
+"""The fused MPPI solve: wrappers of the CUDA kernels in
+``csrc/mppi_solve.cu`` and their plain versions.
 
-* :func:`fleet_solve_partials` (K1) — for each of R robots, rollout, cost and
-  per-block softmin partials ``(β_b, η_b, ΔŨ_b)`` over blocks of
-  :data:`BLOCK` rollouts;
+* :func:`fleet_family_solve_partials` (K1) — for each of R robots, rollout,
+  cost and per-block softmin partials ``(β_b, η_b, ΔŨ_b)`` over blocks of
+  :data:`BLOCK` rollouts, for one fused family (``ops/families.py``: the
+  point-mass LTI, pendulum and cart-pole models with their costs);
 * :func:`fleet_softmin_combine` (K2) — each robot's associative fold of its
   partials into ``β``, ``η`` and ``ΔU``;
-* :func:`fleet_fused_solve` — K1 then K2, the fleet controller's ``fused``
-  backend;
-* :func:`lti_solve_partials`, :func:`softmin_combine`, :func:`fused_solve` —
-  the single-robot solve: the R = 1 launch of the same kernels;
+* :func:`fleet_family_fused_solve` — K1 then K2, the fleet controller's
+  ``fused`` backend;
+* :func:`family_solve_partials`, :func:`softmin_combine`,
+  :func:`family_fused_solve` — the single-robot solve: the R = 1 launch of
+  the same kernels;
 * :func:`noise_dump` (K3) — the ε stream K1 consumed, for the debug dump and
   the replay check; its plain version is ``ops/philox.py``.
 
+The LTI functions :func:`lti_solve_partials`, :func:`fused_solve`,
+:func:`fleet_solve_partials` and :func:`fleet_fused_solve` take the
+point-mass problem as tensors (σ, Σ⁻¹, w, goal, λ, dt) and run the same
+kernels on its family (:func:`lti_family`, built per call).
+
 Each wrapper launches its kernel when its inputs lie on a CUDA device,
 through the kernel's one launcher, which counts the launch in its
-``launches`` attribute (:data:`KERNELS` maps the CUDA kernel's name to it);
-on CPU tensors it runs the plain version, which for the fleet is the
-single-robot plain version applied robot by robot. Any other placement,
-dtype, shape or layout raises. There is no fallback from the device to the
-plain version.
+``launches`` attribute (:data:`KERNELS` maps the CUDA kernel's name to it;
+K1's launcher also counts by family); on CPU tensors it runs the plain
+version: for K1 the family's eager model and cost through
+``ops/rollout.rollout_costs`` and the same per-block partials, for the fleet
+robot by robot. Any other placement, dtype, shape or layout raises. There
+is no fallback from the device to the plain version.
 
 Noise: ``eps=None`` is the Philox mode (production): ε is generated in the
 kernel from (seed, step, it), robot r under its own seed. ``eps`` given is
@@ -37,10 +44,10 @@ import torch
 from mppi_gpu_tpu_torch.models.point_mass import PointMassLTI
 from mppi_gpu_tpu_torch.ops import philox
 from mppi_gpu_tpu_torch.ops.cost import QuadraticCost
+from mppi_gpu_tpu_torch.ops.families import FAMILY_ID, FAMILY_NAMES, MAX_A, FusedFamily
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
 
-BLOCK = 128          # rollouts per K1 block (kBlock in csrc/mppi_lti.cu)
-MAX_A = 4            # one Philox call yields four normals
+BLOCK = 128          # rollouts per K1 block (kBlock in csrc/mppi_solve.cu)
 MAX_ROBOTS = 65535   # K1's grid axis y is the robot (kMaxRobots)
 _SMEM_BYTES = 232448 - 1024  # per-block shared memory on Hopper, less static use
 
@@ -116,49 +123,83 @@ def _stream() -> int:
 # K1: rollout + cost + per-block softmin partials
 
 
-def lti_solve_partials_reference(
-    x0, U, sigma, inv_s, w, goal, lam_cost, lam_softmin, dt, K, seed, step, it,
-    antithetic, ou_beta, eps=None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1 for one robot: ``(S (K,), partials (nb, 2 + T·A))``
-    with row b holding β_b = min S over block b's real rollouts,
-    η_b = Σ e_k with e_k = exp(−(S_k − β_b)/λ), and ΔŨ_b[t, a] = Σ e_k ε_k[t, a].
-    Rollouts past K take no part; a block whose real rollouts all cost +inf
-    gives η_b = 0, ΔŨ_b = 0."""
-    T, A = U.shape
-    if eps is None:
-        eps = philox.sample_eps(
-            seed, step, it, T, K, sigma, antithetic=antithetic, ou_beta=ou_beta
-        )
-    f32 = dict(dtype=torch.float32, device=U.device)
-    dyn = PointMassLTI(torch.tensor(dt, **f32), A)
-    cost = QuadraticCost(w, goal, torch.tensor(lam_cost, **f32), inv_s)
-    S = rollout_costs(dyn, cost, x0, U, eps)
+def lti_family(sigma, inv_s, w, dt: float, lam_cost: float) -> FusedFamily:
+    """The point-mass LTI family with the quadratic cost of weights `w`
+    (2A,), Σ⁻¹ `inv_s` (A,), σ (A,), dt and λ, its parameters packed on σ's
+    device (the goal is passed per call)."""
+    A = sigma.shape[0] if sigma.dim() == 1 else -1
+    f32 = dict(dtype=torch.float32, device=sigma.device)
+    return FusedFamily(
+        name="lti", fid=FAMILY_ID["lti"], state_dim=2 * A, action_dim=A,
+        dynamics=PointMassLTI(torch.tensor(dt, **f32), A),
+        cost=QuadraticCost(w, None, torch.tensor(lam_cost, **f32), inv_s),
+        sigma=sigma, params=torch.cat([sigma.reshape(-1), inv_s.reshape(-1), w.reshape(-1)]),
+        dt=float(dt), lam_cost=float(lam_cost),
+    )
+
+
+def _check_family(fam: FusedFamily, T: int, A: int, K: int, antithetic: bool) -> None:
+    _check_problem(T, A, K, antithetic)
+    _check("sigma", fam.sigma, (A,))
+    if fam.action_dim != A:
+        raise ValueError(f"the {fam.name} family has A={fam.action_dim}, the sequence A={A}")
+    _check("params", fam.params, (fam.n_params,))
+
+
+def _check_goal(fam: FusedFamily, goal) -> None:
+    if goal is not None and not fam.has_goal:
+        raise TypeError(f"the {fam.name} family's cost has no goal (its target is built in)")
+
+
+def block_partials(S: torch.Tensor, eps: torch.Tensor, lam_softmin: float) -> torch.Tensor:
+    """K1's per-block partials of one robot's costs S (K,) and noise ε
+    (T, K, A): (nb, 2 + T·A), row b holding β_b = min S over block b's real
+    rollouts, η_b = Σ e_k with e_k = exp(−(S_k − β_b)/λ), and
+    ΔŨ_b[t, a] = Σ e_k ε_k[t, a]. Rollouts past K take no part; a block whose
+    real rollouts all cost +inf gives η_b = 0, ΔŨ_b = 0; a NaN S gives a NaN
+    β_b. In S's dtype."""
+    T, K, A = eps.shape
     nb = -(-K // BLOCK)
-    valid = (torch.arange(nb * BLOCK, device=U.device) < K).view(nb, BLOCK)
-    S_b = torch.full((nb * BLOCK,), math.inf, **f32)
+    like = dict(dtype=S.dtype, device=S.device)
+    valid = (torch.arange(nb * BLOCK, device=S.device) < K).view(nb, BLOCK)
+    S_b = torch.full((nb * BLOCK,), math.inf, **like)
     S_b[:K] = S
     S_b = S_b.view(nb, BLOCK)
     beta_b = torch.amin(S_b, dim=1)
     live = valid & (beta_b != math.inf)[:, None]
     e = torch.where(live, torch.exp(-(S_b - beta_b[:, None]) / lam_softmin), 0.0)
-    eps_b = torch.zeros(T, nb * BLOCK, A, **f32)
+    eps_b = torch.zeros(T, nb * BLOCK, A, **like)
     eps_b[:, :K] = eps
     dUt = torch.einsum("tnka,nk->nta", eps_b.view(T, nb, BLOCK, A), e)
-    partials = torch.cat([beta_b[:, None], e.sum(1)[:, None], dUt.reshape(nb, T * A)], 1)
-    return S, partials
+    return torch.cat([beta_b[:, None], e.sum(1)[:, None], dUt.reshape(nb, T * A)], 1)
 
 
-def fleet_solve_partials_reference(
-    xs, Us, sigma, inv_s, w, goals, lam_cost, lam_softmin, dt, K, seeds, step, it,
-    antithetic, ou_beta, eps=None,
+def family_solve_partials_reference(
+    fam: FusedFamily, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta,
+    eps=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1 for one robot: ``(S (K,), partials (nb, 2 + T·A))``
+    (:func:`block_partials`), S from the family's eager model and cost on
+    the port's noise stream (or the given ε)."""
+    T = U.shape[0]
+    if eps is None:
+        eps = philox.sample_eps(
+            seed, step, it, T, K, fam.sigma, antithetic=antithetic, ou_beta=ou_beta
+        )
+    S = rollout_costs(fam.dynamics, fam.cost_for(goal), x0, U, eps)
+    return S, block_partials(S, eps, lam_softmin)
+
+
+def fleet_family_solve_partials_reference(
+    fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta,
+    eps=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1 for a fleet: the single-robot plain version for
     robot r on (xs[r], Us[r], goals[r], seed r, eps[r]), stacked into
     ``(S (R, K), partials (R, nb, 2 + T·A))``."""
     out = [
-        lti_solve_partials_reference(
-            xs[r], Us[r], sigma, inv_s, w, goals[r], lam_cost, lam_softmin, dt, K, seed,
+        family_solve_partials_reference(
+            fam, xs[r], Us[r], None if goals is None else goals[r], lam_softmin, K, seed,
             step, it, antithetic, ou_beta, None if eps is None else eps[r],
         )
         for r, seed in enumerate(_robot_seeds(seeds, Us.shape[0]))
@@ -167,12 +208,12 @@ def fleet_solve_partials_reference(
 
 
 def _launch_solve_partials(
-    xs, Us, sigma, inv_s, w, goals, lam_cost, lam_softmin, dt, K, seeds, step, it,
-    antithetic, ou_beta, eps, R: int, lead: tuple[int, ...],
+    fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta,
+    eps, R: int, lead: tuple[int, ...],
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 for R robots on checked CUDA tensors; the outputs get the
     leading shape `lead`: () for the single-robot wrapper, (R,) for the
-    fleet's. Counts the launch."""
+    fleet's. Counts the launch, in total and for the family."""
     T, A = Us.shape[-2:]
     if 4 * (1 + BLOCK // 32) * T * A > _SMEM_BYTES:
         raise ValueError(f"T·A = {T * A} exceeds the kernel's shared-memory budget")
@@ -183,79 +224,88 @@ def _launch_solve_partials(
     per_robot = isinstance(seeds, torch.Tensor)
     S = torch.empty(*lead, K, dtype=torch.float32, device=Us.device)
     partials = torch.empty(*lead, nb, 2 + T * A, dtype=torch.float32, device=Us.device)
-    err = lib.mppi_lti_solve_partials(
-        xs.data_ptr(), Us.data_ptr(), sigma.data_ptr(), inv_s.data_ptr(), w.data_ptr(),
-        goals.data_ptr(), seeds.data_ptr() if per_robot else None,
+    err = lib.mppi_solve_partials(
+        fam.fid, xs.data_ptr(), Us.data_ptr(), fam.params.data_ptr(),
+        goals.data_ptr() if goals is not None else None,
+        seeds.data_ptr() if per_robot else None,
         eps.data_ptr() if eps is not None else None, S.data_ptr(), partials.data_ptr(),
-        R, K, T, A, float(dt), float(lam_cost), float(lam_softmin),
+        R, K, T, A, fam.dt, fam.lam_cost, float(lam_softmin),
         *_noise_words(0 if per_robot else int(seeds), step, it), int(antithetic),
         float(ou_beta), _ou_c(ou_beta), _stream(),
     )
-    _raise_on(err, "lti_solve_partials")
+    _raise_on(err, f"solve_partials<{fam.name}>")
     _launch_solve_partials.launches += 1
+    _launch_solve_partials.family_launches[fam.name] += 1
     return S, partials
 
 
 _launch_solve_partials.launches = 0
+_launch_solve_partials.family_launches = dict.fromkeys(FAMILY_NAMES, 0)
 
 
-def lti_solve_partials(
-    x0, U, sigma, inv_s, w, goal, lam_cost, lam_softmin, dt, K, seed, step, it,
-    antithetic, ou_beta, eps=None,
+def family_solve_partials(
+    fam: FusedFamily, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta,
+    eps=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1 for one robot (the R = 1 launch of the fleet kernel) on CUDA
-    tensors, its plain version on CPU tensors; see
-    :func:`lti_solve_partials_reference` for the outputs."""
-    T, A = U.shape
-    _check_problem(T, A, K, antithetic)
+    """K1 for one robot of family `fam` (the R = 1 launch of the fleet
+    kernel) on CUDA tensors, its plain version on CPU tensors. x0 (S,),
+    U (T, A), goal (S,) for a family with a goal, else None; see
+    :func:`family_solve_partials_reference` for the outputs."""
+    T, A = U.shape if U.dim() == 2 else (-1, -1)
+    _check_family(fam, T, A, K, antithetic)
+    S_dim = fam.state_dim
     for name, t, shape in (
-        ("x0", x0, (2 * A,)), ("U", U, (T, A)), ("sigma", sigma, (A,)),
-        ("inv_s", inv_s, (A,)), ("w", w, (2 * A,)), ("goal", goal, (2 * A,)),
-    ) + ((("eps", eps, (T, K, A)),) if eps is not None else ()):
+        ("x0", x0, (S_dim,)), ("U", U, (T, A)),
+    ) + ((("goal", goal, (S_dim,)),) if fam.has_goal else ()) + (
+        (("eps", eps, (T, K, A)),) if eps is not None else ()
+    ):
         _check(name, t, shape)
-    tensors = (x0, U, sigma, inv_s, w, goal) + ((eps,) if eps is not None else ())
+    _check_goal(fam, goal)
+    tensors = (x0, U, fam.params) + ((goal,) if fam.has_goal else ()) + (
+        (eps,) if eps is not None else ()
+    )
     if not _on_cuda(*tensors):
-        return lti_solve_partials_reference(
-            x0, U, sigma, inv_s, w, goal, lam_cost, lam_softmin, dt, K, seed, step,
-            it, antithetic, ou_beta, eps,
+        return family_solve_partials_reference(
+            fam, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta, eps,
         )
     return _launch_solve_partials(
-        x0, U, sigma, inv_s, w, goal, lam_cost, lam_softmin, dt, K, int(seed), step, it,
-        antithetic, ou_beta, eps, 1, (),
+        fam, x0, U, goal, lam_softmin, K, int(seed), step, it, antithetic, ou_beta, eps, 1, (),
     )
 
 
-def fleet_solve_partials(
-    xs, Us, sigma, inv_s, w, goals, lam_cost, lam_softmin, dt, K, seeds, step, it,
-    antithetic, ou_beta, eps=None,
+def fleet_family_solve_partials(
+    fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta,
+    eps=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1 for R robots in one launch on CUDA tensors, its plain version on CPU
-    tensors. xs (R, 2A), Us (R, T, A), goals (R, 2A), ``seeds`` an (R,) int64
-    tensor of per-robot seeds or one int for every robot, eps (R, T, K, A) or
-    None; σ, Σ⁻¹, w, dt, both λ, (step, it), antithetic and OU are shared.
+    """K1 for R robots of family `fam` in one launch on CUDA tensors, its
+    plain version on CPU tensors. xs (R, S), Us (R, T, A), goals (R, S) for a
+    family with a goal, else None; ``seeds`` an (R,) int64 tensor of
+    per-robot seeds or one int for every robot, eps (R, T, K, A) or None; the
+    family's parameters, both λ, (step, it), antithetic and OU are shared.
     Returns ``(S (R, K), partials (R, nb, 2 + T·A))``."""
     if Us.dim() != 3:
         raise ValueError(f"Us must be (R, T, A), got {tuple(Us.shape)}")
     R, T, A = Us.shape
-    _check_problem(T, A, K, antithetic)
     _check_fleet(R)
+    _check_family(fam, T, A, K, antithetic)
+    S_dim = fam.state_dim
     for name, t, shape in (
-        ("xs", xs, (R, 2 * A)), ("Us", Us, (R, T, A)), ("sigma", sigma, (A,)),
-        ("inv_s", inv_s, (A,)), ("w", w, (2 * A,)), ("goals", goals, (R, 2 * A)),
-    ) + ((("eps", eps, (R, T, K, A)),) if eps is not None else ()):
+        ("xs", xs, (R, S_dim)), ("Us", Us, (R, T, A)),
+    ) + ((("goals", goals, (R, S_dim)),) if fam.has_goal else ()) + (
+        (("eps", eps, (R, T, K, A)),) if eps is not None else ()
+    ):
         _check(name, t, shape)
+    _check_goal(fam, goals)
     _check_seeds(seeds, R)
-    tensors = (xs, Us, sigma, inv_s, w, goals) + ((eps,) if eps is not None else ()) + (
-        (seeds,) if isinstance(seeds, torch.Tensor) else ()
-    )
+    tensors = (xs, Us, fam.params) + ((goals,) if fam.has_goal else ()) + (
+        (eps,) if eps is not None else ()
+    ) + ((seeds,) if isinstance(seeds, torch.Tensor) else ())
     if not _on_cuda(*tensors):
-        return fleet_solve_partials_reference(
-            xs, Us, sigma, inv_s, w, goals, lam_cost, lam_softmin, dt, K, seeds, step,
-            it, antithetic, ou_beta, eps,
+        return fleet_family_solve_partials_reference(
+            fam, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta, eps,
         )
     return _launch_solve_partials(
-        xs, Us, sigma, inv_s, w, goals, lam_cost, lam_softmin, dt, K, seeds, step, it,
-        antithetic, ou_beta, eps, R, (R,),
+        fam, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta, eps, R, (R,),
     )
 
 
@@ -344,60 +394,92 @@ def fleet_softmin_combine(
 # K1 + K2: the whole solve core
 
 
-def fused_solve_reference(
-    x0, U, sigma, inv_s, w, goal, lam_cost, lam_softmin, dt, K, seed, step, it,
-    antithetic, ou_beta, eps=None,
-):
-    """Plain version of :func:`fused_solve`."""
-    S, partials = lti_solve_partials_reference(
-        x0, U, sigma, inv_s, w, goal, lam_cost, lam_softmin, dt, K, seed, step, it,
-        antithetic, ou_beta, eps,
-    )
+def family_fused_solve_reference(fam: FusedFamily, x0, U, goal, lam_softmin, *args, eps=None):
+    """Plain version of :func:`family_fused_solve`."""
+    S, partials = family_solve_partials_reference(fam, x0, U, goal, lam_softmin, *args, eps)
     return (S, *softmin_combine_reference(partials, lam_softmin, *U.shape))
 
 
-def fused_solve(
-    x0, U, sigma, inv_s, w, goal, lam_cost, lam_softmin, dt, K, seed, step, it,
-    antithetic, ou_beta, eps=None,
-):
-    """One MPPI solve core: ``(S (K,), β, η, ΔU (T, A))`` with ΔU = Σ_k w_k ε_k
-    for the softmin weights w_k = exp(−(S_k − β)/λ)/η. Clamp and shift are the
-    caller's (``controller.mppi_solve``)."""
-    S, partials = lti_solve_partials(
-        x0, U, sigma, inv_s, w, goal, lam_cost, lam_softmin, dt, K, seed, step, it,
-        antithetic, ou_beta, eps,
-    )
+def family_fused_solve(fam: FusedFamily, x0, U, goal, lam_softmin, *args, eps=None):
+    """One MPPI solve core of family `fam`: ``(S (K,), β, η, ΔU (T, A))``
+    with ΔU = Σ_k w_k ε_k for the softmin weights w_k = exp(−(S_k − β)/λ)/η;
+    ``args`` are (K, seed, step, it, antithetic, ou_beta) as for
+    :func:`family_solve_partials`. Clamp and shift are the caller's
+    (``controller.MPPIController``)."""
+    S, partials = family_solve_partials(fam, x0, U, goal, lam_softmin, *args, eps)
     return (S, *softmin_combine(partials, lam_softmin, *U.shape))
 
 
-def fleet_fused_solve_reference(
-    xs, Us, sigma, inv_s, w, goals, lam_cost, lam_softmin, dt, K, seeds, step, it,
-    antithetic, ou_beta, eps=None,
+def fleet_family_fused_solve_reference(
+    fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, *args, eps=None
 ):
-    """Plain version of :func:`fleet_fused_solve`: :func:`fused_solve_reference`
-    robot by robot, stacked."""
+    """Plain version of :func:`fleet_family_fused_solve`:
+    :func:`family_fused_solve_reference` robot by robot, stacked."""
     out = [
-        fused_solve_reference(
-            xs[r], Us[r], sigma, inv_s, w, goals[r], lam_cost, lam_softmin, dt, K, seed,
-            step, it, antithetic, ou_beta, None if eps is None else eps[r],
+        family_fused_solve_reference(
+            fam, xs[r], Us[r], None if goals is None else goals[r], lam_softmin, K, seed,
+            *args, eps=None if eps is None else eps[r],
         )
         for r, seed in enumerate(_robot_seeds(seeds, Us.shape[0]))
     ]
     return tuple(torch.stack(v) for v in zip(*out))
 
 
-def fleet_fused_solve(
-    xs, Us, sigma, inv_s, w, goals, lam_cost, lam_softmin, dt, K, seeds, step, it,
-    antithetic, ou_beta, eps=None,
-):
-    """R MPPI solve cores in one launch of K1 and one of K2:
+def fleet_family_fused_solve(fam: FusedFamily, xs, Us, goals, lam_softmin, *args, eps=None):
+    """R MPPI solve cores of family `fam` in one launch of K1 and one of K2:
     ``(S (R, K), β (R,), η (R,), ΔU (R, T, A))``; arguments as
-    :func:`fleet_solve_partials`."""
-    S, partials = fleet_solve_partials(
-        xs, Us, sigma, inv_s, w, goals, lam_cost, lam_softmin, dt, K, seeds, step, it,
-        antithetic, ou_beta, eps,
-    )
+    :func:`fleet_family_solve_partials`."""
+    S, partials = fleet_family_solve_partials(fam, xs, Us, goals, lam_softmin, *args, eps)
     return (S, *fleet_softmin_combine(partials, lam_softmin, *Us.shape[1:]))
+
+
+# --------------------------------------------------------------------------
+# the point-mass LTI problem as tensors
+
+
+def _lti(family_fn, name: str, doc: str):
+    """`family_fn` under the LTI signature (x0, U, σ, Σ⁻¹, w, goal, λ_cost,
+    λ_softmin, dt, K, seed, step, it, antithetic, ou_beta, eps=None): the
+    family is :func:`lti_family` of (σ, Σ⁻¹, w, dt, λ_cost)."""
+
+    def fn(x0, U, sigma, inv_s, w, goal, lam_cost, lam_softmin, dt, K, seed, step, it,
+           antithetic, ou_beta, eps=None):
+        return family_fn(
+            lti_family(sigma, inv_s, w, dt, lam_cost), x0, U, goal, lam_softmin, K, seed,
+            step, it, antithetic, ou_beta, eps=eps,
+        )
+
+    fn.__name__ = fn.__qualname__ = name
+    fn.__doc__ = doc
+    return fn
+
+
+lti_solve_partials = _lti(
+    family_solve_partials, "lti_solve_partials",
+    "K1 for one point-mass robot; see :func:`family_solve_partials`.")
+lti_solve_partials_reference = _lti(
+    family_solve_partials_reference, "lti_solve_partials_reference",
+    "Plain version of :func:`lti_solve_partials`.")
+fused_solve = _lti(
+    family_fused_solve, "fused_solve",
+    "One point-mass MPPI solve core; see :func:`family_fused_solve`.")
+fused_solve_reference = _lti(
+    family_fused_solve_reference, "fused_solve_reference",
+    "Plain version of :func:`fused_solve`.")
+fleet_solve_partials = _lti(
+    fleet_family_solve_partials, "fleet_solve_partials",
+    "K1 for R point-mass robots, xs, Us, goals and seeds per robot; see "
+    ":func:`fleet_family_solve_partials`.")
+fleet_solve_partials_reference = _lti(
+    fleet_family_solve_partials_reference, "fleet_solve_partials_reference",
+    "Plain version of :func:`fleet_solve_partials`.")
+fleet_fused_solve = _lti(
+    fleet_family_fused_solve, "fleet_fused_solve",
+    "R point-mass MPPI solve cores in one launch of K1 and one of K2; see "
+    ":func:`fleet_family_fused_solve`.")
+fleet_fused_solve_reference = _lti(
+    fleet_family_fused_solve_reference, "fleet_fused_solve_reference",
+    "Plain version of :func:`fleet_fused_solve`.")
 
 
 # --------------------------------------------------------------------------
@@ -408,7 +490,7 @@ def noise_dump(
     sigma: torch.Tensor, T: int, K: int, seed: int, step: int, it: int,
     antithetic: bool, ou_beta: float, *, words: bool = False,
 ):
-    """The (T, K, A) ε that :func:`lti_solve_partials` consumes in its Philox
+    """The (T, K, A) ε that K1 consumes in its Philox
     mode for (seed, step, it), in rollout order. With ``words`` also returns
     the (T, K_draw, 4) Philox words of the draws (int64 holding uint32 values)
     for a bit-exact check against ``ops/philox.philox_words``. K3 on a CUDA
@@ -446,10 +528,10 @@ def noise_dump(
 
 noise_dump.launches = 0
 
-# each CUDA kernel of csrc/mppi_lti.cu and the function that launches it
+# each CUDA kernel of csrc/mppi_solve.cu and the function that launches it
 # (the single-robot and the fleet wrappers share one launcher per kernel)
 KERNELS = {
-    "lti_solve_partials": _launch_solve_partials,
+    "solve_partials": _launch_solve_partials,
     "softmin_combine": _launch_softmin_combine,
     "noise_dump": noise_dump,
 }
@@ -458,7 +540,13 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _launch_solve_partials.family_launches = dict.fromkeys(FAMILY_NAMES, 0)
 
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def family_launch_counts() -> dict[str, int]:
+    """K1's launches by family (they add up to ``launch_counts()["solve_partials"]``)."""
+    return dict(_launch_solve_partials.family_launches)

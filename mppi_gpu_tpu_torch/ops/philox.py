@@ -1,7 +1,7 @@
 """The port's noise stream: Philox4x32-10 + Box-Muller, in plain torch.
 
 This is the plain version of the CUDA noise-dump kernel (K3,
-``csrc/mppi_lti.cu``) and the stream the fused solve kernel (K1) draws in its
+``csrc/mppi_solve.cu``) and the stream the fused solve kernel (K1) draws in its
 Philox mode; both must reproduce it. It replaces the JAX package's key-based
 samplers (``controller.sample_noise``) and the TPU's on-chip PRNG
 (``pallas_rollout._standard_normal``), neither of which a GPU can replay, so

@@ -5,8 +5,9 @@ loop, src/main.cu:326-374).
 Measure state → solve → apply the first action to the world → repeat until
 the episode ends, timing every solve like the reference's "Average
 controller execution time" metric, with optional per-step debug dumps and
-the divergence guard. The world runs on the CPU: its state is six floats and
-the host needs it every cycle anyway.
+the divergence guard. The world is the config family's (``envs.make_world``:
+point mass, pendulum or cart-pole) and runs on the CPU: its state is a few
+floats and the host needs it every cycle anyway.
 
 :func:`run_fleet_episode` runs R such loops at once on the controller's
 device (counterpart of ``run_fleet_episode_jit``).
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from mppi_gpu_tpu_torch.controller import MPPIController
-from mppi_gpu_tpu_torch.envs import PointMassWorld, WorldParams, world_params_for_config
+from mppi_gpu_tpu_torch.envs import PointMassWorld, WorldParams, make_world, params_for_config
 from mppi_gpu_tpu_torch.io.csvio import write_step_dump_csv, write_traj_csv
 from mppi_gpu_tpu_torch.utils.guard import check_solve
 from mppi_gpu_tpu_torch.utils.timing import SolveTimer
@@ -47,7 +48,7 @@ def run_closed_loop(
     ctrl: MPPIController,
     *,
     world_backend: str = "torch",
-    world_params: WorldParams | None = None,
+    world_params=None,
     max_steps: int | None = None,
     traj_csv: str | os.PathLike | None = None,
     step_dump_every: int | None = None,
@@ -73,8 +74,8 @@ def run_closed_loop(
                 f"run_closed_loop({name}=...) is not ported to mppi_gpu_tpu_torch yet "
                 "(see ROADMAP.md, Open items §1 item 5)"
             )
-    params = world_params or world_params_for_config(ctrl.cfg)
-    world = PointMassWorld(params)
+    params = world_params or params_for_config(ctrl.cfg)
+    world = make_world(ctrl.cfg, params)
     state = world.reset()
     U = ctrl.init_action_seq()
     timer = SolveTimer(ctrl.device)
@@ -140,7 +141,12 @@ def run_fleet_episode(
     no per-step look at the episode's end (past it the world holds its
     state, as the JAX fleet's scan does). Returns xs (N+1, R, s), us
     (N, R, a) and the robots' shared clock."""
-    params = world_params or world_params_for_config(ctrl.cfg)
+    params = world_params or params_for_config(ctrl.cfg)
+    if not isinstance(params, WorldParams):
+        raise NotImplementedError(
+            f"run_fleet_episode runs the batched point-mass world; a batched world "
+            f"for env '{ctrl.cfg.env}' is not ported yet (see ROADMAP.md, Open items §1 item 6)"
+        )
     world = PointMassWorld(params, device=ctrl.device)
     n = num_steps if num_steps is not None else params.num_control_steps()
     R = ctrl.n_robots

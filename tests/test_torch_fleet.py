@@ -101,7 +101,7 @@ def _against_jax_fleet(jcfg, tcfg, R, *, onepass, planar):
                                 ("costs", res_t.info.costs, res_j.info.costs)):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
                                        err_msg=f"{backend} {name}")
-    assert fs.launch_counts() == {"lti_solve_partials": 0, "softmin_combine": 0, "noise_dump": 0}
+    assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0}
 
 
 def test_fleet_onepass_kernel_per_robot_goals():

@@ -71,7 +71,7 @@ def test_plain_version_matches_pallas_onepass_kernel(A, K, T, planar):
     np.testing.assert_allclose(S.numpy(), np.asarray(S_j)[:K], **S_TOL)
     np.testing.assert_allclose(dU.numpy(), np.asarray(dU_j), **DU_TOL)
     np.testing.assert_allclose(float(beta), float(np.asarray(S_j)[:K].min()), rtol=3e-5)
-    assert fs.launch_counts() == {"lti_solve_partials": 0, "softmin_combine": 0, "noise_dump": 0}
+    assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0}
 
 
 @pytest.mark.parametrize("antithetic,ou_beta", [(False, 0.55), (True, 0.0), (True, 0.55)])

@@ -49,7 +49,7 @@ def test_unported_families_raise_naming_roadmap():
     from mppi_gpu_tpu_torch.models import dynamics_for_config
     from mppi_gpu_tpu_torch.ops.cost import make_cost
 
-    for name in ("pendulum", "cartpole", "quadrotor", "quadrotor3d", "unicycle", "arm"):
+    for name in ("quadrotor", "quadrotor3d", "unicycle", "arm"):
         cfg = load_config(os.path.join(ROOT, "configs", f"{name}.yaml"))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dynamics_for_config(cfg, "cpu")
