@@ -10,19 +10,24 @@ against its plain PyTorch version and a float64 reference, times them, and
 drives the port's three paths on the card: the point-mass robot
 (``MPPIController`` and the closed-loop CLI, phases 3-7), the point-mass
 fleet (``BatchedMPPIController``, ``run_fleet_episode`` and the fleet
-example, phases 8-10), and the pendulum and cart-pole families (K1's
+example, phases 8-10), the pendulum and cart-pole families (K1's
 pendulum and cart-pole instances against their plain versions, and the CLI
-on configs/pendulum.yaml and configs/cartpole.yaml, phases 11-12). Every
+on configs/pendulum.yaml and configs/cartpole.yaml, phases 11-12), the
+coupled A=2 families (K1's unicycle, quadrotor and arm instances, and the
+CLI on configs/unicycle.yaml, quadrotor.yaml and arm.yaml, phases 13-14),
+and the costs-only sweep K4 for every family instance (phase 15). Every
 phase prints one line (or a few); any failure raises and the script exits
 non-zero without the final line. Without a CUDA device it exits 1 at once.
 The last two lines are a JSON object describing every kernel, K1 once per
 family instance (route, source, the TPU kernels it replaces, launches on
-each path, max abs error against its plain version, ms on the card next to
-the plain version's) and ``{"ok": true, "device": {...}}``.
+its path, max abs error against its plain version, ms on the card next to
+the plain version's and to its bound, the least time the card could take:
+instructions per step from the built SASS, or bytes) and
+``{"ok": true, "device": {...}}``.
 
 The ``check_*`` functions are also called by the GPU tests
 (``tests/test_torch_fused.py``, ``tests/test_torch_fleet.py``,
-``tests/test_torch_families.py``) at small shapes.
+``tests/test_torch_families.py``, ``tests/test_torch_coupled.py``) at small shapes.
 """
 
 from __future__ import annotations
@@ -46,12 +51,18 @@ PALLAS = "mppi_gpu_tpu/ops/pallas_rollout.py"
 LTI_QUALITY_THRESHOLD_M = 0.35
 FAMILY_QUALITY_THRESHOLD_RAD = {"pendulum": 0.2, "cartpole": 0.35}
 FAMILIES = ("pendulum", "cartpole")
+# the coupled A=2 families and their steady-state tripwires
+# (bench.QUALITY_THRESHOLDS): goal distance of the unicycle and the
+# quadrotor, end-effector distance of the arm, in m
+COUPLED = ("unicycle", "quadrotor", "arm")
+COUPLED_QUALITY_THRESHOLD_M = {"unicycle": 0.4, "quadrotor": 0.5, "arm": 0.5}
 # the angle's index in the state and the world's start (envs/*_world.py)
 FAMILY_ANGLE = {"pendulum": 0, "cartpole": 1}
 FAMILY_INIT_THETA = {"pendulum": 3.14159265, "cartpole": 0.15}
 # the kernels JSON line: K1 once per family instance, then K2 and K3
 KERNEL_ENTRIES = ("solve_partials<lti>", "solve_partials<pendulum>", "solve_partials<cartpole>",
-                  "softmin_combine", "noise_dump")
+                  "solve_partials<unicycle>", "solve_partials<quadrotor>", "solve_partials<arm>",
+                  "softmin_combine", "noise_dump", "rollout_costs")
 # bar of the fleet's mean final goal distance (point_mass2d, R=8 on the circle
 # of examples/fleet.py, full episode): the JAX package's own fleet ends that
 # episode at 0.364 m on the CPU, so the bar is that figure + 0.05 m
@@ -118,21 +129,29 @@ def _oracle():
     return mod
 
 
+def kernel_key(mangled: str) -> str:
+    """A kernel's readable name from its mangled one: K1 instances read
+    solve_partials<family,A=..,inj=..>, K4's (K1's template without its
+    second pass) rollout_costs<family,A=..,inj=..>, K3's noise_dump<A=..>."""
+    k = re.search(r"(solve_partials|softmin_combine|noise_dump)_kernel", mangled)
+    name = k.group(1) if k else mangled
+    fam = re.search(r"(Lti|Pendulum|CartPole|Unicycle|Quadrotor|Arm)", mangled)
+    ints, bools = re.findall(r"Li(\d+)E", mangled), re.findall(r"Lb(\d)E", mangled)
+    if len(bools) == 2:  # <..., INJ, PASS2>
+        name = "solve_partials" if bools.pop() == "1" else "rollout_costs"
+    args = (([fam.group(1).lower()] if fam else []) + ([f"A={ints[-1]}"] if ints else [])
+            + [f"inj={b}" for b in bools])
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel from nvcc's -Xptxas -v output:
-    registers and spill bytes; K1 instances read solve_partials<family,A,inj>."""
+    registers and spill bytes, under :func:`kernel_key`'s names."""
     out, name, spill = [], "?", "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            mangled = m.group(1)
-            k = re.search(r"(solve_partials|softmin_combine|noise_dump)_kernel", mangled)
-            name = k.group(1) if k else mangled
-            fam = re.search(r"(Lti|Pendulum|CartPole)", mangled)
-            ints, bools = re.findall(r"Li(\d+)E", mangled), re.findall(r"Lb(\d)E", mangled)
-            args = (([fam.group(1).lower()] if fam else []) + ([f"A={ints[-1]}"] if ints else [])
-                    + [f"inj={b}" for b in bools])
-            name += f"<{','.join(args)}>" if args else ""
+            name = kernel_key(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = m.group(1)
@@ -143,7 +162,129 @@ def ptxas_summary(log: str) -> list[str]:
 
 
 # ---------------------------------------------------------------------------
-# problem set-up
+# bounds: the least time the card could take for a kernel's work
+
+
+def sass_functions(sass: str) -> dict[str, list[tuple[int, str]]]:
+    """`cuobjdump -sass` text → {mangled kernel name: [(address, instruction)]}."""
+    out: dict[str, list[tuple[int, str]]] = {}
+    current = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = out.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and current is not None:
+            current.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+# a multiply by one of Philox4x32's two round constants, 0xD2511F53 and
+# 0xCD9E8D57, which SASS prints as signed immediates
+_PHILOX_MUL = re.compile(r"IMAD\S* .*(-0x2daee0ad|-0x326172a9|0xd2511f53|0xcd9e8d57)")
+
+
+def _branch_target(ins: str) -> int | None:
+    m = re.search(r"\bBRA\s+(?:`\(\.L_x_\d+\)\s*)?(0x[0-9a-f]+)", ins)
+    return int(m.group(1), 16) if m else None
+
+
+def philox_loop_steps(instrs: list[tuple[int, str]]) -> list[float]:
+    """Instructions per horizon step of each loop of a kernel that draws one
+    Philox block per step (K1's two passes, K4's one, K3's), on its hot path.
+
+    A loop is a backward branch with no EXIT or RET in its range (an
+    out-of-line slow path that jumps back is not one), and only loops not
+    inside another count. Inside one, a forward conditional branch over code
+    that holds a nested loop or a CALL and no Philox round skips a slow path
+    (the large-argument reduction of sinf/cosf, the special cases of
+    division and sqrt) and that code is not counted; an unconditional forward branch skips to its
+    target; NOPs are not counted. One Philox block is ten rounds of two
+    multiplies by the round constants, of which the compiler hoists the
+    first round's, drops those whose words A does not use and splits some
+    into a low and a high half: 16 to 22 instructions remain per block in
+    this kernel file. A loop unrolled u times holds u blocks, so the count is
+    divided by u = ceil(multiplies / 22) (none is unrolled in this build:
+    every pass-2 loop holds its 5·A warp shuffles once). Loops without them (shared-memory
+    loads, partial writes) are left out."""
+    loops = []
+    for a, ins in instrs:
+        t = _branch_target(ins)
+        if t is None or t >= a:
+            continue
+        body = [i for x, i in instrs if t <= x <= a]
+        if not any(re.search(r"\b(EXIT|RET)\b", i) for i in body):
+            loops.append((t, a))
+    outer = [(s, e) for s, e in loops if not any(s2 <= s and e <= e2 and (s2, e2) != (s, e)
+                                                  for s2, e2 in loops)]
+    steps = []
+    for s, e in sorted(set(outer)):
+        body = [(a, i) for a, i in instrs if s <= a <= e]
+        mults = sum(bool(_PHILOX_MUL.search(i)) for _, i in body)
+        if not mults:
+            continue
+        count, skip_to = 0, -1
+        for a, ins in body:
+            if a < skip_to or ins.startswith("NOP"):
+                continue
+            count += 1
+            t = _branch_target(ins)
+            if t is None or t <= a or t > e:
+                continue
+            if not ins.startswith("@"):
+                skip_to = t
+                continue
+            region = [(x, i) for x, i in body if a < x < t]
+            if any("CALL" in i or ((tt := _branch_target(i)) is not None and tt < x)
+                   for x, i in region) and not any(_PHILOX_MUL.search(i) for _, i in region):
+                skip_to = t
+        steps.append(count / -(-mults // 22))
+    return steps
+
+
+# one NVIDIA H100 SXM (NVIDIA's data sheet)
+H100_SMS, H100_LANES, H100_BYTES_PER_S, H100_FP32_PER_S = 132, 128, 3.35e12, 67e12
+
+
+def bound_ms(instructions: float, bytes_moved: float, clock_mhz: float) -> tuple[float, str]:
+    """The least time the card could take for a kernel's work, and what
+    bounds it: the larger of its thread instructions over 132 SMs × 128
+    lanes × the SM clock ("operations") and its bytes over 3.35 TB/s
+    ("bytes")."""
+    t_ops = instructions / (H100_SMS * H100_LANES * clock_mhz * 1e6)
+    t_bytes = bytes_moved / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def solve_bound(steps: dict, fam, K: int, T: int, clock_mhz: float, R: int = 1,
+                pass2: bool = True) -> tuple[float, str]:
+    """:func:`bound_ms` of one Philox-mode launch of K1 (`pass2`) or K4 for
+    R robots of family `fam`: the instructions per step its work needs × T
+    × R·K threads. K4's are its loop's (:func:`philox_loop_steps` of its
+    SASS, `steps`). K1's are that same first pass plus the reduction that
+    ΔU needs, A·(1 + 5 + 5) per step: the product e·ε, five warp shuffles
+    and five adds per action. K1's second noise draw is not counted: it is
+    this kernel's choice (ε stored once and read back would do), not work
+    the function needs. The bytes are x0, U, goal, the pack and S (K1 also
+    its partials), each read or written once."""
+    A, S = fam.action_dim, fam.state_dim
+    per_step = steps[f"rollout_costs<{fam.name},A={A},inj=0>"][0]
+    floats = R * (S + T * A + (S if fam.has_goal else 0) + K) + fam.n_params
+    if pass2:
+        per_step += 11 * A
+        floats += R * -(-K // 128) * (2 + T * A)
+    return bound_ms(per_step * T * R * K, 4 * floats, clock_mhz)
+
+
+def combine_bound(nb: int, T: int, A: int, R: int = 1) -> tuple[float, str]:
+    """:func:`bound_ms` of K2: R·nb·(2 + T·A) partial floats read and
+    R·(2 + T·A) written; ~2 float operations per partial float (a
+    multiply-add), over the float32 peak (67 TFLOP/s) in place of the
+    instruction count."""
+    floats = R * (nb + 1) * (2 + T * A)
+    return max(2 * floats / H100_FP32_PER_S, 4 * floats / H100_BYTES_PER_S) * 1e3, (
+        "operations" if 2 / H100_FP32_PER_S > 4 / H100_BYTES_PER_S else "bytes")
 
 
 def make_problem(A: int, K: int, T: int, seed: int = 0, device: str = "cuda") -> dict:
@@ -454,8 +595,13 @@ def check_fleet_diverged(K: int = 1000, T: int = 50, device: str = "cuda") -> No
 # family checks: K1's pendulum and cart-pole instances (also called by
 # tests/test_torch_families.py on the card)
 
-# a live start of each task (tests/test_pallas.py::_setup_pendulum, _setup_cartpole)
-FAMILY_START = {"pendulum": (np.pi - 0.3, 0.4), "cartpole": (0.1, 0.25, -0.05, 0.3)}
+# a live start of each task (tests/test_pallas.py::_setup_pendulum,
+# _setup_cartpole; the worlds' starts of the coupled families, envs/*_world.py)
+FAMILY_START = {
+    "pendulum": (np.pi - 0.3, 0.4), "cartpole": (0.1, 0.25, -0.05, 0.3),
+    "unicycle": (0.0, 0.0, 0.0), "quadrotor": (-1.0, 0.0, 0.0, 0.0, 0.0, 0.0),
+    "arm": (-1.5707963, 0.0, 0.0, 0.0),
+}
 # K1 + K2 against the plain float64 version on the CPU: no further from it
 # than the plain float32 version is, by a factor 2 plus this share of the
 # quantity's magnitude. A fixed tolerance cannot hold here: f32 rollouts of
@@ -465,10 +611,19 @@ FAMILY_START = {"pendulum": (np.pi - 0.3, 0.4), "cartpole": (0.1, 0.25, -0.05, 0
 F64_RTOL = 1e-5
 
 
+def family_sequence(cfg, T: int, phase=0.0) -> np.ndarray:
+    """A live nominal sequence (T, A) (or (R, T, A) for phases (R, 1)): the
+    config's init-act plus 0.3·max-a·sin(0.2 t + phase + a) per action a."""
+    t = np.arange(T)[:, None] + 0 * np.arange(cfg.action_dim)
+    a = np.arange(cfg.action_dim)
+    wave = np.sin(0.2 * t + a + np.asarray(phase)[..., None])
+    return (np.asarray(cfg.init_act) + 0.3 * np.asarray(cfg.max_a) * wave).astype(np.float32)
+
+
 def make_family_problem(name: str, K: int, T: int, seed: int = 0, device: str = "cuda") -> dict:
-    """configs/<name>.yaml's model, cost and σ as a fused family at K, T, a
-    live start near the task's, a nominal sequence and injected noise, all
-    from `seed`."""
+    """configs/<name>.yaml's model, cost, goal and σ as a fused family at K,
+    T, a live start near the task's, a nominal sequence and injected noise,
+    all from `seed`."""
     import torch
 
     from mppi_gpu_tpu_torch.models import dynamics_for_config
@@ -479,19 +634,23 @@ def make_family_problem(name: str, K: int, T: int, seed: int = 0, device: str = 
     rng = np.random.default_rng(seed)
     start = np.asarray(FAMILY_START[name])
     x0 = (start + rng.uniform(-0.05, 0.05, start.shape)).astype(np.float32)
-    U = (0.3 * cfg.max_a[0] * np.sin(0.2 * np.arange(T))).reshape(T, 1).astype(np.float32)
-    eps = (rng.standard_normal((T, K, 1)) * cfg.noise[0]).astype(np.float32)
+    U = family_sequence(cfg, T)
+    eps = (rng.standard_normal((T, K, cfg.action_dim)) * np.asarray(cfg.noise)).astype(np.float32)
     fam = families.family_for(dynamics_for_config(cfg, device), make_cost(cfg, device),
                               torch.tensor(cfg.noise, dtype=torch.float32, device=device))
     arrays = dict(x0=x0, U=U, eps=eps)
+    if fam.has_goal:
+        arrays["goal"] = np.asarray(cfg.goal, np.float32)
     p = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
-    p.update(np=arrays, name=name, cfg=cfg, fam=fam, K=K, T=T, lam=cfg.lambda_,
+    p.setdefault("goal", None)
+    p.update(np=arrays, name=name, cfg=cfg, fam=fam, K=K, T=T, A=cfg.action_dim, lam=cfg.lambda_,
              max_a=torch.tensor(cfg.max_a, dtype=torch.float32, device=device))
     return p
 
 
 def family_args(p: dict, *, seed=7, step=3, it=0, antithetic=False, ou_beta=0.0):
-    return (p["fam"], p["x0"], p["U"], None, p["lam"], p["K"], seed, step, it, antithetic, ou_beta)
+    return (p["fam"], p["x0"], p["U"], p["goal"], p["lam"], p["K"], seed, step, it, antithetic,
+            ou_beta)
 
 
 def _float64_family(fam):
@@ -519,10 +678,10 @@ def check_float64(name: str, p: dict, got, plain) -> dict:
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
 
     n = p["np"]
+    f64 = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in n.items()}
     ref = fs.family_fused_solve_reference(
-        _float64_family(p["fam"]), *(torch.as_tensor(n[k], dtype=torch.float64) for k in ("x0", "U")),
-        None, p["lam"], p["K"], 0, 0, 0, False, 0.0,
-        eps=torch.as_tensor(n["eps"], dtype=torch.float64))
+        _float64_family(p["fam"]), f64["x0"], f64["U"], f64.get("goal"), p["lam"], p["K"], 0, 0, 0,
+        False, 0.0, eps=f64["eps"])
     out = {}
     for label, g, pl, r in zip(("S", "beta", "eta", "dU"), got, plain, ref):
         g, pl, r = (_np(v).astype(np.float64) for v in (g, pl, r))
@@ -582,8 +741,8 @@ def check_family_philox(name: str, K: int, T: int, *, antithetic=False, ou_beta=
     scale = float(own[:, 2:].abs().max())
     close(f"{label} K1 dU_b", _np(part[:, 2:]), _np(own[:, 2:]), TOL["dU"]["rtol"],
           TOL["dU"]["atol"] * max(scale, 1.0))
-    b, e, dU = fs.softmin_combine(part, p["lam"], T, 1)
-    b_r, e_r, dU_r = fs.softmin_combine_reference(part, p["lam"], T, 1)
+    b, e, dU = fs.softmin_combine(part, p["lam"], T, p["A"])
+    b_r, e_r, dU_r = fs.softmin_combine_reference(part, p["lam"], T, p["A"])
     close(f"{label} K2 beta", _np(b), _np(b_r), 1e-7)
     close(f"{label} K2 eta", _np(e), _np(e_r), 1e-5)
     e2 = close(f"{label} K2 dU", _np(dU), _np(dU_r), 1e-4, 1e-6)
@@ -596,9 +755,10 @@ def check_family_philox(name: str, K: int, T: int, *, antithetic=False, ou_beta=
 
 
 def check_family_fleet(name: str, R: int, K: int, T: int, device: str = "cuda") -> dict:
-    """A fleet of R robots of family `name` (per-robot x0, U and seed; no
-    goals) in one launch of K1 and K2: against the plain fleet, and every
-    robot's (S, β, η, ΔU) bit-equal to its R = 1 launch."""
+    """A fleet of R robots of family `name` (per-robot x0, U, seed and, for a
+    family with a goal, distinct goals) in one launch of K1 and K2: against
+    the plain fleet, and every robot's (S, β, η, ΔU) bit-equal to its R = 1
+    launch."""
     import torch
 
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
@@ -610,18 +770,22 @@ def check_family_fleet(name: str, R: int, K: int, T: int, device: str = "cuda") 
     xs = torch.as_tensor((p["np"]["x0"] + rng.uniform(-0.1, 0.1, (R, S_dim))).astype(np.float32),
                          device=device)
     phase = rng.uniform(0.0, 2 * np.pi, (R, 1))
-    Us = torch.as_tensor((0.3 * p["cfg"].max_a[0] * np.sin(0.2 * np.arange(T)[None] + phase))
-                         .reshape(R, T, 1).astype(np.float32), device=device)
+    Us = torch.as_tensor(family_sequence(p["cfg"], T, phase), device=device)
+    goals = None
+    if p["fam"].has_goal:
+        g = np.tile(p["np"]["goal"], (R, 1))
+        g[:, :2] += rng.uniform(-0.3, 0.3, (R, 2))
+        goals = torch.as_tensor(g, device=device)
     seeds = philox.fleet_seeds(7, R).to(device)
-    args = (p["fam"], xs, Us, None, p["lam"], K, seeds, 3, 1, False, 0.0)
+    args = (p["fam"], xs, Us, goals, p["lam"], K, seeds, 3, 1, False, 0.0)
     label = f"{name} fleet philox R={R} K={K} T={T}"
     S, part = fs.fleet_family_solve_partials(*args)
     S_r, _ = fs.fleet_family_solve_partials_reference(*args)
     e1 = close(f"{label} K1 S", _np(S), _np(S_r), 1e-5)
     fleet = fs.fleet_family_fused_solve(*args)
     for r, seed in enumerate(seeds.tolist()):
-        solo = fs.family_fused_solve(p["fam"], xs[r], Us[r], None, p["lam"], K, seed, 3, 1,
-                                     False, 0.0)
+        solo = fs.family_fused_solve(p["fam"], xs[r], Us[r], None if goals is None else goals[r],
+                                     p["lam"], K, seed, 3, 1, False, 0.0)
         for what, a, want in zip(("S", "beta", "eta", "dU"), (v[r] for v in fleet), solo):
             expect(torch.equal(a, want), f"{label} robot {r}: {what} differs from its solo solve")
     return dict(solve_partials=e1)
@@ -679,6 +843,100 @@ def check_family_diverged(device: str = "cuda") -> None:
                    S_rtol=1e-5)
 
 
+def check_coupled_diverged(name: str, device: str = "cuda") -> str:
+    """Diverging rollouts on K1's unicycle, quadrotor and arm instances,
+    against the plain version. Unicycle and quadrotor: a block driven by
+    ε = 1e30 diverges (+inf S, weight 0) while the others solve as before.
+    Arm: its joint-rate saturation holds any torque to finite rates, so it
+    starts instead from rates of 1e20 at q2 = 0, where B·sin q2 · q̇² is
+    0 · inf = NaN; the saturation keeps that NaN (torch.clamp does, fminf
+    would not), so every rollout costs NaN, β and the action are NaN and
+    the guard fires, on the fused and the eager backend alike. Returns what
+    happened."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.utils.guard import ControllerDiverged, check_solve
+
+    if name != "arm":
+        p = make_family_problem(name, 1000, 50, device=device)
+        eps = p["eps"].clone()
+        blk = np.s_[fs.BLOCK:2 * fs.BLOCK]
+        eps[:, blk] = 1e30
+        got = fs.family_fused_solve(*family_args(p), eps=eps)
+        want = fs.family_fused_solve_reference(*family_args(p), eps=eps)
+        compare_solves(f"{name} one diverged block", p, got, want, S_rtol=1e-5)
+        S = _np(got[0])
+        expect(np.isposinf(S[blk]).all() and np.isfinite(np.delete(S, blk)).all(),
+               f"{name} one diverged block: expected +inf exactly on block 1")
+        res = finish(p, *got)
+        expect(bool((res.info.weights[blk] == 0).all()), f"{name}: diverged rollouts got weight")
+        expect(bool(torch.isfinite(res.action).all()), f"{name} one diverged block: action not finite")
+        return "a block at eps=1e30 -> +inf, weight 0, the rest as plain"
+    cfg = _config("arm").replace(samples=1000, horizon=40)
+    for backend in ("auto", "eager"):
+        ctrl = MPPIController(cfg, device=device, rollout_backend=backend)
+        res = ctrl.solve_auto(torch.tensor([0.0, 0.0, 1e20, 1e20]), ctrl.init_action_seq(), 0)
+        info = res.info.cpu()
+        expect(bool(torch.isnan(info.costs).all() and torch.isnan(info.beta)),
+               f"arm from rates 1e20 ({ctrl.rollout_backend}): S and beta are not all NaN")
+        try:
+            check_solve(0, _np(res.action), info)
+        except ControllerDiverged:
+            continue
+        raise SmokeFailure(f"arm from rates 1e20 ({ctrl.rollout_backend}): the guard did not fire")
+    return "from rates 1e20 -> NaN S and beta, NaN action, ControllerDiverged (fused and eager)"
+
+
+def check_costs_only(name: str, K: int, T: int, *, A: int | None = None, antithetic=False,
+                     ou_beta=0.0, device: str = "cuda") -> dict:
+    """K4 (the costs-only sweep) of family `name` (an lti `A` for the point
+    mass) in Philox mode: its S equal to K1's S for the same inputs, bit for
+    bit, and to the plain version within 1e-5; the fleet form's robots equal
+    to their R = 1 launches. Returns the max abs error against the plain
+    version and the pieces to time it."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import philox
+
+    if name == "lti":
+        p = make_problem(A, K, T, device=device)
+        fam = fs.lti_family(p["sigma"], p["inv_s"], p["w"], p["dt"], p["lam_cost"])
+        x0, U, goal, lam = p["x0"], p["U"], p["goal"], p["lam"]
+    else:
+        p = make_family_problem(name, K, T, device=device)
+        fam, x0, U, goal, lam = p["fam"], p["x0"], p["U"], p["goal"], p["lam"]
+    label = f"costs-only {fam.name} A={fam.action_dim} K={K} T={T} anti={antithetic} ou={ou_beta}"
+    args = (fam, x0, U, goal, K, 7, 3, 1, antithetic, ou_beta)
+    S4 = fs.fused_rollout_costs(*args)
+    S1, _ = fs.family_solve_partials(fam, x0, U, goal, lam, K, 7, 3, 1, antithetic, ou_beta)
+    expect(torch.equal(S4, S1), f"{label}: S differs from K1's S")
+    err = close(f"{label} vs plain", _np(S4), _np(fs.rollout_costs_reference(*args)), 1e-5)
+    R = 3
+    xs, Us = x0.expand(R, -1).contiguous(), U.expand(R, -1, -1).contiguous()
+    goals = None if goal is None else goal.expand(R, -1).contiguous()
+    seeds = philox.fleet_seeds(5, R).to(device)
+    fleet = fs.fleet_rollout_costs(fam, xs, Us, goals, K, seeds, 3, 1, antithetic, ou_beta)
+    for r, seed in enumerate(seeds.tolist()):
+        solo = fs.fused_rollout_costs(fam, x0, U, goal, K, seed, 3, 1, antithetic, ou_beta)
+        expect(torch.equal(fleet[r], solo), f"{label}: fleet robot {r} differs from its solo launch")
+    return dict(err=err, fam=fam, args=args, lam=lam)
+
+
+def rsqrt_probe(device: str = "cuda", n: int = 1 << 20) -> tuple[int, int]:
+    """How many of n float32 values torch.rsqrt on `device` gives other than
+    1/sqrt on the same device, and other than torch.rsqrt on the CPU (which
+    divides): both are nonzero when the device computes rsqrtf."""
+    import torch
+
+    x = torch.rand(n, generator=torch.Generator().manual_seed(0)) * 10 + 1e-3
+    r = torch.rsqrt(x.to(device)).cpu()
+    return (int((r != (1.0 / torch.sqrt(x.to(device))).cpu()).sum()),
+            int((r != torch.rsqrt(x)).sum()))
+
+
 # ---------------------------------------------------------------------------
 # timing
 
@@ -699,6 +957,42 @@ def time_ms(fn, reps: int, warmup: int = 2) -> list[float]:
         end.synchronize()
         out.append(start.elapsed_time(end))
     return out
+
+
+def profile_steps(ctrl, x, U, steps: int = 50) -> dict:
+    """Where a control step's time goes: `steps` warm solves of `ctrl` from
+    (x, U), each followed by the copy of its action to the host as the
+    closed loop makes it, under torch.profiler. Returns the wall ms per step
+    (host clock around the window, synchronised), the device busy ms per
+    step (the device time of every kernel and copy), the idle share
+    1 − busy/wall, and K1's and K2's device µs per step."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    def step(i: int) -> None:
+        ctrl.solve_auto(x, U, i).action.cpu()
+
+    for i in range(5):
+        step(i)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, kernel_us = 0.0, {"solve_partials": 0.0, "softmin_combine": 0.0}
+    for evt in prof.key_averages():
+        dev = getattr(evt, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "self_cuda_time_total", 0.0)
+        busy_us += dev
+        for k in kernel_us:
+            if f"{k}_kernel" in evt.key:
+                kernel_us[k] += dev
+    wall_ms, busy_ms = wall * 1e3 / steps, busy_us / 1e3 / steps
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1.0 - busy_ms / wall_ms,
+                K1_us=kernel_us["solve_partials"] / steps, K2_us=kernel_us["softmin_combine"] / steps)
 
 
 def paired_median_ms(kernel_fn, plain_fn, reps: int, plain_reps: int) -> tuple[float, float]:
@@ -722,6 +1016,23 @@ def _config(name: str):
     return load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", f"{name}.yaml"))
 
 
+def coupled_distance(name: str, xs: np.ndarray) -> np.ndarray:
+    """Distance from solved of each state of a trajectory (N, S) of a coupled
+    family, as bench._goal_metric: the position's distance to the config's
+    goal for the unicycle and the quadrotor, the end effector's (by the
+    port's TwoLinkArmDynamics.end_effector) for the arm."""
+    import torch
+
+    from mppi_gpu_tpu_torch.models import TwoLinkArmDynamics
+
+    cfg = _config(name)
+    g = np.asarray(cfg.goal, np.float64)
+    if name == "arm":
+        xs = TwoLinkArmDynamics.create(cfg.dt).end_effector(
+            torch.as_tensor(xs, dtype=torch.float32)).numpy()
+    return np.hypot(xs[:, 0] - g[0], xs[:, 1] - g[1])
+
+
 def _cli(argv: list[str]) -> str:
     from mppi_gpu_tpu_torch import cli
 
@@ -733,6 +1044,99 @@ def _cli(argv: list[str]) -> str:
     expect(rc == 0, f"cli {' '.join(argv)} exited {rc}")
     expect("episode finished" in out, f"cli {' '.join(argv)}: no 'episode finished'")
     return out
+
+
+def family_phase(tag: str, name: str, modes, err: dict, smi: str) -> tuple[dict, dict, dict]:
+    """One family's K1 checks and times on the card, at its config's shape
+    and at K=10⁵, T=200: injected ε vs plain and float64, Philox mode in
+    each (antithetic, OU β) of `modes` vs plain with exact replay, an R=8
+    fleet bit-equal to its solo launches; K1 and K2 times vs plain; the
+    R=8 fleet's K1 and K2 times at the config's shape; then the controller's
+    solve fused vs eager and a profiler window of its control steps at both
+    shapes. Folds K1's and K2's errors into `err`; returns the K1/K2 (ms,
+    plain ms) at the two shapes and at the fleet's."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import philox
+
+    cfg = _config(name)
+    out = []
+    for K, T in ((cfg.samples, cfg.horizon), (100_000, 200)):
+        e = check_family_injected(name, K, T)
+        print(f"{tag} {name} injected K={K} T={T}: ok vs plain (max abs err "
+              + ", ".join(f"{k} {e[k]:.3g}" for k in ("S", "beta", "eta", "dU", "action"))
+              + f") and float64 (S relative error median {e['S_rel_median']:.3g}, p99 "
+              f"{e['S_rel_p99']:.3g}, max {e['S_rel_max']:.3g}; plain f32 max "
+              f"{e['plain_S_rel_max']:.3g})")
+        for anti, ou in modes:
+            e = check_family_philox(name, K, T, antithetic=anti, ou_beta=ou)
+            key = f"solve_partials<{name}>"
+            err[key] = max(err[key], e["solve_partials"])
+            err["softmin_combine"] = max(err["softmin_combine"], e["softmin_combine"])
+            print(f"{tag} {name} philox K={K} T={T} anti={anti} ou={ou}: K1 S err "
+                  f"{e['solve_partials']:.3g}, K2 dU err {e['softmin_combine']:.3g}; replay exact")
+        e = check_family_fleet(name, 8, K, T)
+        print(f"{tag} {name} fleet R=8 K={K} T={T}: K1 S err {e['solve_partials']:.3g} vs plain; "
+              "every robot bit-equal to its R=1 launch")
+        p = make_family_problem(name, K, T)
+        args = family_args(p)
+        _, part = fs.family_solve_partials(*args)
+        A = p["A"]
+        times = {
+            f"solve_partials<{name}>": paired_median_ms(
+                lambda: fs.family_solve_partials(*args),
+                lambda: fs.family_solve_partials_reference(*args), 20, 3),
+            "softmin_combine": paired_median_ms(
+                lambda: fs.softmin_combine(part, p["lam"], T, A),
+                lambda: fs.softmin_combine_reference(part, p["lam"], T, A), 20, 20),
+        }
+        out.append(times)
+        for k, (k_ms, p_ms) in times.items():
+            print(f"{tag} kernel {k} K={K} T={T}: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
+        del p, args, part
+    # the R=8 fleet at the config's shape, the robots' goals and starts apart
+    K, T = cfg.samples, cfg.horizon
+    p = make_family_problem(name, K, T)
+    R = 8
+    xs = p["x0"].expand(R, -1).contiguous()
+    Us = p["U"].expand(R, -1, -1).contiguous()
+    goals = None if p["goal"] is None else (
+        p["goal"] + 0.1 * torch.arange(R, device="cuda")[:, None]).contiguous()
+    fargs = (p["fam"], xs, Us, goals, p["lam"], K, philox.fleet_seeds(7, R).cuda(), 3, 0, False, 0.0)
+    _, fpart = fs.fleet_family_solve_partials(*fargs)
+    fleet_times = {
+        f"solve_partials<{name}>": paired_median_ms(
+            lambda: fs.fleet_family_solve_partials(*fargs),
+            lambda: fs.fleet_family_solve_partials_reference(*fargs), 20, 1),
+        "softmin_combine": paired_median_ms(
+            lambda: fs.fleet_softmin_combine(fpart, p["lam"], T, p["A"]),
+            lambda: fs.fleet_softmin_combine_reference(fpart, p["lam"], T, p["A"]), 20, 5),
+    }
+    out.append(fleet_times)
+    for k, (k_ms, p_ms) in fleet_times.items():
+        print(f"{tag} fleet kernel {k} R={R} K={K} T={T}: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
+    del p, fargs, fpart
+    ctrl = MPPIController(cfg, device="cuda", rollout_backend="auto")
+    plain = MPPIController(cfg, device="cuda", rollout_backend="eager")
+    expect(ctrl.rollout_backend == "fused", f"{name}: auto picked {ctrl.rollout_backend} on cuda")
+    x = torch.tensor(FAMILY_START[name], dtype=torch.float32, device="cuda")
+    U = ctrl.init_action_seq()
+    k_ms, p_ms = paired_median_ms(lambda: ctrl.solve_auto(x, U, 1), lambda: plain.solve_auto(x, U, 1),
+                                  reps=20, plain_reps=5)
+    close(f"controller {name} action", _np(ctrl.solve_auto(x, U, 1).action),
+          _np(plain.solve_auto(x, U, 1).action), **TOL["u"])
+    print(f"{tag} MPPIController {name} K={cfg.samples} T={cfg.horizon} opt_iters={cfg.opt_iters}: "
+          f"fused {k_ms:.4f} ms/solve, eager {p_ms:.4f} ms/solve (CUDA events, warm median; {smi})")
+    large = MPPIController(cfg.replace(samples=100_000, horizon=200), device="cuda")
+    for c, shape in ((ctrl, f"K={cfg.samples} T={cfg.horizon}"), (large, "K=100000 T=200")):
+        prof = profile_steps(c, x, c.init_action_seq())
+        print(f"{tag} profile {name} {shape} x{cfg.opt_iters}, 50 control steps (solve + action to "
+              f"host): wall {prof['wall_ms']:.4f} ms/step, device busy {prof['busy_ms']:.4f} ms, "
+              f"idle share {prof['idle']:.4f}, K1 {prof['K1_us']:.2f} us, K2 {prof['K2_us']:.2f} us "
+              f"per step ({smi})")
+    return out[0], out[1], out[2]
 
 
 def main() -> int:
@@ -767,6 +1171,18 @@ def main() -> int:
     print(f"[2] build: {build_s:.2f} s -> {lib_path.name}")
     for line in ptxas_summary(lib_path.with_suffix(".log").read_text()):
         print(f"    ptxas {line}")
+    # the per-step instructions of every Philox loop, from the built SASS
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    sass_steps = {kernel_key(k): philox_loop_steps(v) for k, v in sass_functions(sass).items()}
+    sass_steps = {k: v for k, v in sass_steps.items() if v and "inj=1" not in k}
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    print(f"    SASS instructions per horizon step (Philox mode; pass 1, pass 2), max SM clock "
+          f"{clock_mhz:.0f} MHz: " + "; ".join(f"{k} {v}" for k, v in sorted(sass_steps.items())))
 
     # [3] injected ε vs plain and oracle
     err = {name: 0.0 for name in KERNEL_ENTRIES}
@@ -843,7 +1259,8 @@ def main() -> int:
         traj = os.path.join(tmp, "traj3d.csv")
         _cli(["-c", os.path.join("configs", "point_mass3d.yaml"), "--device", "cuda", "-t", traj])
         cols = read_csv_columns(traj)
-    launches = fs.launch_counts()
+    # the point-mass path's kernels (K4 runs on the costs-only path, phase 15)
+    launches = {k: n for k, n in fs.launch_counts().items() if k != "rollout_costs"}
     launches["solve_partials<lti>"] = fs.family_launch_counts()["lti"]
     cfg3 = _config("point_mass3d")
     xs = np.stack([np.concatenate([[0.0], cols[f"x[{i}]"]]) for i in range(3)], axis=1)
@@ -975,53 +1392,10 @@ def main() -> int:
     # float64, Philox mode vs plain with exact replay, an R=8 fleet bit-equal
     # to its solo launches, diverging rollouts; K1 and K2 times, the
     # controller's solve fused vs eager
-    family_ms, family_large_ms = {}, {}
+    family_ms, family_large_ms, family_fleet_ms = {}, {}, {}
     for name in FAMILIES:
-        cfg = _config(name)
-        for K, T in ((cfg.samples, cfg.horizon), (100_000, 200)):
-            e = check_family_injected(name, K, T)
-            print(f"[11] {name} injected K={K} T={T}: ok vs plain (max abs err "
-                  + ", ".join(f"{k} {e[k]:.3g}" for k in ("S", "beta", "eta", "dU", "action"))
-                  + f") and float64 (S relative error median {e['S_rel_median']:.3g}, p99 "
-                  f"{e['S_rel_p99']:.3g}, max {e['S_rel_max']:.3g}; plain f32 max "
-                  f"{e['plain_S_rel_max']:.3g})")
-            for anti, ou in ((False, 0.0), (True, 0.55)):
-                e = check_family_philox(name, K, T, antithetic=anti, ou_beta=ou)
-                key = f"solve_partials<{name}>"
-                err[key] = max(err[key], e["solve_partials"])
-                err["softmin_combine"] = max(err["softmin_combine"], e["softmin_combine"])
-                print(f"[11] {name} philox K={K} T={T} anti={anti} ou={ou}: K1 S err "
-                      f"{e['solve_partials']:.3g}, K2 dU err {e['softmin_combine']:.3g}; replay exact")
-            e = check_family_fleet(name, 8, K, T)
-            print(f"[11] {name} fleet R=8 K={K} T={T}: K1 S err {e['solve_partials']:.3g} vs plain; "
-                  "every robot bit-equal to its R=1 launch")
-            p = make_family_problem(name, K, T)
-            args = family_args(p)
-            _, part = fs.family_solve_partials(*args)
-            times = {
-                f"solve_partials<{name}>": paired_median_ms(
-                    lambda: fs.family_solve_partials(*args),
-                    lambda: fs.family_solve_partials_reference(*args), 20, 3),
-                "softmin_combine": paired_median_ms(
-                    lambda: fs.softmin_combine(part, p["lam"], T, 1),
-                    lambda: fs.softmin_combine_reference(part, p["lam"], T, 1), 20, 20),
-            }
-            (family_ms if K == cfg.samples else family_large_ms)[name] = times
-            for k, (k_ms, p_ms) in times.items():
-                print(f"[11] kernel {k} K={K} T={T}: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
-            del p, args, part
-        cfg = _config(name)
-        ctrl = MPPIController(cfg, device="cuda", rollout_backend="auto")
-        plain = MPPIController(cfg, device="cuda", rollout_backend="eager")
-        expect(ctrl.rollout_backend == "fused", f"{name}: auto picked {ctrl.rollout_backend} on cuda")
-        x = torch.tensor(FAMILY_START[name], dtype=torch.float32, device="cuda")
-        U = ctrl.init_action_seq()
-        k_ms, p_ms = paired_median_ms(lambda: ctrl.solve_auto(x, U, 1), lambda: plain.solve_auto(x, U, 1),
-                                      reps=20, plain_reps=5)
-        close(f"controller {name} action", _np(ctrl.solve_auto(x, U, 1).action),
-              _np(plain.solve_auto(x, U, 1).action), **TOL["u"])
-        print(f"[11] MPPIController {name} K={cfg.samples} T={cfg.horizon} opt_iters={cfg.opt_iters}: "
-              f"fused {k_ms:.4f} ms/solve, eager {p_ms:.4f} ms/solve (CUDA events, warm median; {smi})")
+        family_ms[name], family_large_ms[name], family_fleet_ms[name] = family_phase(
+            "[11]", name, ((False, 0.0), (True, 0.55)), err, smi)
     check_family_diverged()
     print("[11] family edges: a pendulum block at eps=1e30 -> +inf, weight 0, the rest as plain; "
           "cartpole from thd=1e4 -> NaN S and beta, NaN action, ControllerDiverged (fused and eager); "
@@ -1055,38 +1429,181 @@ def main() -> int:
     for name in FAMILIES:
         expect(steady[name] < FAMILY_QUALITY_THRESHOLD_RAD[name], f"{name} steady-state {steady[name]} rad")
     # one solve per control step and one after the last (its action ends the episode)
-    expect(by_family == {"lti": 0, "pendulum": 2 * (steps["pendulum"] + 1),
-                         "cartpole": steps["cartpole"] + 1},
+    expect(by_family == dict(dict.fromkeys(by_family, 0), pendulum=2 * (steps["pendulum"] + 1),
+                             cartpole=steps["cartpole"] + 1),
            f"K1 launches by family {by_family} for {steps} control steps")
     expect(family_launches["softmin_combine"] == family_launches["solve_partials"],
            "K2 launches differ from K1's on the family path")
     expect(family_launches["noise_dump"] == dumps, f"K3: {family_launches['noise_dump']} launches, {dumps} dumps")
     launches.update({f"solve_partials<{n}>": by_family[n] for n in FAMILIES})
 
+    # [13] K1's unicycle, quadrotor and arm instances (A=2; S = 3, 6, 4 with
+    # per-robot goals of that length): as phase 11, the arm also under its
+    # config's OU noise, plus a diverging rollout for each
+    print("[13] ptxas " + "; ".join(line for line in ptxas_summary(
+        lib_path.with_suffix(".log").read_text()) if re.search(r"(unicycle|quadrotor|arm),", line)))
+    n_sqrt, n_cpu = rsqrt_probe()
+    print(f"[13] torch.rsqrt on the card gives other values than 1/sqrt for {n_sqrt} of 2^20 "
+          f"floats, and than the CPU's torch.rsqrt for {n_cpu}: it is rsqrtf, as in K1's unicycle")
+    expect(n_sqrt > 0, "torch.rsqrt on the card divides: K1's unicycle cost takes rsqrtf")
+    for name in COUPLED:
+        cfg = _config(name)
+        modes = ((False, 0.0), (True, 0.0)) + (((False, cfg.noise_beta),) if cfg.noise_beta else ())
+        family_ms[name], family_large_ms[name], family_fleet_ms[name] = family_phase(
+            "[13]", name, modes, err, smi)
+        print(f"[13] {name} diverging rollouts: {check_coupled_diverged(name)}")
+
+    # [14] the coupled families' path: the CLI on configs/unicycle.yaml,
+    # quadrotor.yaml and arm.yaml (opt-iters 2, OU 0.8, dumps), fused, full
+    # episodes, launches counted
+    fs.reset_launch_counts()
+    steady, avg_ms, steps = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in COUPLED:
+            traj = os.path.join(tmp, f"{name}.csv")
+            dump = ["-s", os.path.join(tmp, "dump"), "--dump-every", "100"] if name == "arm" else []
+            out = _cli(["-c", os.path.join("configs", f"{name}.yaml"), "--device", "cuda",
+                        "--rollout-backend", "fused", "-t", traj, *dump])
+            steps[name] = int(re.search(r"episode finished: (\d+) control steps", out).group(1))
+            avg_ms[name] = float(re.search(r"Average controller execution time: ([\d.]+) ms", out).group(1))
+            cols = read_csv_columns(traj)
+            start = FAMILY_START[name]
+            xs = np.stack([np.concatenate([[start[i]], cols[f"x[{i}]"]]) for i in range(len(start))], 1)
+            d = coupled_distance(name, xs)
+            steady[name] = float(d[-max(len(d) // 4, 1):].mean())
+    coupled_launches = fs.launch_counts()
+    by_family = fs.family_launch_counts()
+    dumps = len(range(0, steps["arm"] + 1, 100))
+    print("[14] cli closed loops (fused, full episodes): " + "; ".join(
+        f"{n} {steps[n]} steps x {_config(n).opt_iters} iteration(s), steady {steady[n]:.4f} m "
+        f"{'(end effector) ' if n == 'arm' else ''}from the goal (threshold "
+        f"{COUPLED_QUALITY_THRESHOLD_M[n]}), average controller execution time {avg_ms[n]:.3f} ms"
+        for n in COUPLED) + f" ({smi}); coupled-path launches {coupled_launches}, K1 by family {by_family}")
+    for name in COUPLED:
+        expect(steady[name] < COUPLED_QUALITY_THRESHOLD_M[name], f"{name} steady-state {steady[name]} m")
+    expect(by_family == dict(dict.fromkeys(by_family, 0), **{
+        n: _config(n).opt_iters * (steps[n] + 1) for n in COUPLED}),
+        f"K1 launches by family {by_family} for {steps} control steps")
+    expect(coupled_launches["softmin_combine"] == coupled_launches["solve_partials"],
+           "K2 launches differ from K1's on the coupled path")
+    expect(coupled_launches["noise_dump"] == dumps,
+           f"K3: {coupled_launches['noise_dump']} launches, {dumps} dumps")
+    launches.update({f"solve_partials<{n}>": by_family[n] for n in COUPLED})
+
+    # [15] K4, the costs-only sweep, for every family instance at K=10⁵,
+    # T=200: the sweep itself (launches counted), then its S equal to K1's,
+    # the plain version and K4 beside K1 on the card
+    instances = [("lti", A) for A in range(1, 5)] + [(n, None) for n in FAMILIES + COUPLED]
+    problems = {}
+    for name, A in instances:
+        if name == "lti":
+            q = make_problem(A, 100_000, 200)
+            fam = fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"])
+            problems[(name, A)] = (fam, q["x0"], q["U"], q["goal"])
+        else:
+            q = make_family_problem(name, 100_000, 200)
+            problems[(name, A)] = (q["fam"], q["x0"], q["U"], q["goal"])
+    fs.reset_launch_counts()
+    for fam, x0, U, goal in problems.values():
+        fs.fused_rollout_costs(fam, x0, U, goal, 100_000, 7, 3, 0, False, 0.0)
+    torch.cuda.synchronize()
+    k4_launches = fs.launch_counts()["rollout_costs"]
+    k4_by_family = fs.family_launch_counts("rollout_costs")
+    expect(k4_launches == len(instances) and all(
+        k4_by_family[n] > 0 for n, _ in instances), f"K4 launches {k4_by_family}")
+    launches["rollout_costs"] = k4_launches
+    floor = {}
+    for name, A in instances:
+        modes = ((False, 0.0), (True, 0.0)) + (((False, 0.8),) if name == "arm" else ())
+        for anti, ou in modes:
+            e = check_costs_only(name, 100_000, 200, A=A, antithetic=anti, ou_beta=ou)
+            err["rollout_costs"] = max(err["rollout_costs"], e["err"])
+        fam, x0, U, goal = problems[(name, A)]
+        lam = e["lam"]
+        k4_ms, k1_ms = paired_median_ms(
+            lambda: fs.fused_rollout_costs(fam, x0, U, goal, 100_000, 7, 3, 0, False, 0.0),
+            lambda: fs.family_solve_partials(fam, x0, U, goal, lam, 100_000, 7, 3, 0, False, 0.0),
+            20, 20)
+        label = f"{fam.name} A={fam.action_dim}"
+        floor[label] = dict(ms=k4_ms, k1_ms=k1_ms, ratio=k4_ms / k1_ms,
+                            bound_ms=solve_bound(sass_steps, fam, 100_000, 200, clock_mhz, pass2=False)[0])
+        print(f"[15] costs-only {label} K=100000 T=200: S bit-equal to K1's (iid, antithetic"
+              f"{', OU 0.8' if name == 'arm' else ''}; fleet robots equal to their R=1 launches), "
+              f"max abs err vs plain {e['err']:.3g}; K4 {k4_ms:.4f} ms, K1 {k1_ms:.4f} ms, floor/K1 "
+              f"{k4_ms / k1_ms:.3f}; bound {floor[label]['bound_ms']:.4f} ms ({smi})")
+    fam, x0, U, goal = problems[("lti", 3)]
+    floor_ms = paired_median_ms(
+        lambda: fs.fused_rollout_costs(fam, x0, U, goal, 100_000, 7, 3, 0, False, 0.0),
+        lambda: fs.rollout_costs_reference(fam, x0, U, goal, 100_000, 7, 3, 0, False, 0.0), 20, 3)
+    print(f"[15] kernel rollout_costs lti A=3 K=100000 T=200: {floor_ms[0]:.4f} ms, plain "
+          f"{floor_ms[1]:.4f} ms ({smi}); main-path launches {k4_by_family}")
+
+    # the kernels JSON line: times at each kernel's shape, beside its bound
     k12 = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
     k_fam = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2287, 3121, 2973))
     replaces = {
         "solve_partials<lti>": f"{k12} (family {PALLAS}:490)",
         "solve_partials<pendulum>": f"{k_fam} (family {PALLAS}:648)",
         "solve_partials<cartpole>": f"{k_fam} (family {PALLAS}:739)",
+        "solve_partials<unicycle>": f"{k12} (family {PALLAS}:1152)",
+        "solve_partials<quadrotor>": f"{k12} (family {PALLAS}:980)",
+        "solve_partials<arm>": f"{k12} (family {PALLAS}:1318)",
         "softmin_combine": k12,
         "noise_dump": f"{PALLAS}:2140, {PALLAS}:2872",
+        "rollout_costs": f"{PALLAS}:1952, {PALLAS}:2813",
     }
+    q = make_problem(3, 10_000, 200)
+    lti3 = fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"])
+    bounds = {
+        "solve_partials<lti>": solve_bound(sass_steps, lti3, 10_000, 200, clock_mhz),
+        "softmin_combine": combine_bound(-(-10_000 // fs.BLOCK), 200, 3),
+        "noise_dump": bound_ms(sass_steps["noise_dump<A=3>"][0] * 200 * 10_000,
+                               4 * (3 + 200 * 10_000 * 3), clock_mhz),
+        "rollout_costs": solve_bound(sass_steps, problems[("lti", 3)][0], 100_000, 200, clock_mhz,
+                                     pass2=False),
+    }
+    # the fleet kernels at R=8 of phase 9's shape (point_mass3d K=10⁴, T=200)
+    fleet_bounds = {
+        "solve_partials<lti>": solve_bound(sass_steps, lti3, 10_000, 200, clock_mhz, R=8)[0],
+        "softmin_combine": combine_bound(-(-10_000 // fs.BLOCK), 200, 3, R=8)[0],
+        "noise_dump": 8 * bounds["noise_dump"][0],
+    }
+    for name in FAMILIES + COUPLED:
+        cfg = _config(name)
+        fam = make_family_problem(name, 128, 8)["fam"]
+        bounds[f"solve_partials<{name}>"] = solve_bound(sass_steps, fam, cfg.samples, cfg.horizon,
+                                                        clock_mhz)
+        fleet_bounds[f"solve_partials<{name}>"] = solve_bound(
+            sass_steps, fam, cfg.samples, cfg.horizon, clock_mhz, R=8)[0]
     entries = []
     for name in KERNEL_ENTRIES:
+        b_ms, b_by = bounds[name]
         entry = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
-                 "launches": launches[name], "max_abs_err": err[name]}
+                 "launches": launches[name], "max_abs_err": err[name], "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None}
         fam = name[len("solve_partials<"):-1] if name.startswith("solve_partials<") else None
-        if fam in FAMILIES:
+        if fam in FAMILIES + COUPLED:
             (ms, plain_ms), (lms, lplain_ms) = family_ms[fam][name], family_large_ms[fam][name]
-            entry.update(ms=ms, plain_ms=plain_ms, shape=f"K={_config(fam).samples} T={_config(fam).horizon}",
-                         large_ms=lms, large_plain_ms=lplain_ms, large_shape="K=100000 T=200")
+            fms, fplain_ms = family_fleet_ms[fam][name]
+            shape = f"K={_config(fam).samples} T={_config(fam).horizon}"
+            entry.update(ms=ms, plain_ms=plain_ms, shape=shape,
+                         large_ms=lms, large_plain_ms=lplain_ms, large_shape="K=100000 T=200",
+                         large_bound_ms=solve_bound(
+                             sass_steps, make_family_problem(fam, 128, 8)["fam"], 100_000, 200,
+                             clock_mhz)[0],
+                         fleet_ms=fms, fleet_plain_ms=fplain_ms, fleet_bound_ms=fleet_bounds[name],
+                         fleet_shape=f"R=8 {shape}")
+        elif name == "rollout_costs":
+            entry.update(ms=floor_ms[0], plain_ms=floor_ms[1], shape="lti A=3 K=100000 T=200",
+                         per_family=floor)
         else:
             entry.update(ms=kernel_ms[name][0], plain_ms=kernel_ms[name][1], shape="A=3 K=10000 T=200",
                          fleet_launches=fleet_launches[name], fleet_ms=fleet_kernel_ms[name][0],
-                         fleet_plain_ms=fleet_kernel_ms[name][1])
+                         fleet_plain_ms=fleet_kernel_ms[name][1], fleet_bound_ms=fleet_bounds[name],
+                         fleet_shape="R=8 A=3 K=10000 T=200")
             if fam is None:
-                entry["family_path_launches"] = family_launches[name]
+                entry.update(family_path_launches=family_launches[name],
+                             coupled_path_launches=coupled_launches[name])
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

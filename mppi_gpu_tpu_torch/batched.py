@@ -2,9 +2,10 @@
 (torch counterpart of ``mppi_gpu_tpu.batched``).
 
 Each robot has its own state, nominal sequence, seed and, for a cost with a
-goal (the point-mass family's), goal; the dynamics, the cost's weights, σ,
-λ, K and T are shared. A fleet of pendulums or cart-poles, whose costs aim
-at a built-in target, takes no goals (``goals=`` raises ``TypeError``).
+goal (the point-mass, unicycle, quadrotor and arm families'), goal (R, s);
+the dynamics, the cost's weights, σ, λ, K and T are shared. A fleet of
+pendulums or cart-poles, whose costs aim at a built-in target, takes no
+goals (``goals=`` raises ``TypeError``).
 Two backends:
 
 * ``fused`` — one launch of K1 and one of K2 for the whole fleet

@@ -11,7 +11,8 @@ update ``U += Σ_k w_k ε_k`` → clamp → shift. Two backends:
 ``auto`` picks ``fused`` on a CUDA device when the (model, cost) pair is a
 fused family (``ops.families``: the point-mass LTI model with the quadratic
 cost, the pendulum with its swing-up cost, the cart-pole with its balance
-cost), and ``eager`` otherwise. Both backends
+cost, the unicycle, planar quadrotor and two-link arm with their waypoint,
+hover and reaching costs), and ``eager`` otherwise. Both backends
 draw the same noise stream (``ops.philox``): counter (k, t, step, it) under
 the seed, so a solve is a pure function of (seed, step, it) and replayable.
 """

@@ -10,27 +10,40 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mppi_gpu_tpu_torch.models.arm import TwoLinkArmDynamics
 from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.models.cartpole import CartPoleDynamics
 from mppi_gpu_tpu_torch.models.pendulum import PendulumDynamics
 from mppi_gpu_tpu_torch.models.point_mass import PointMassLTI
+from mppi_gpu_tpu_torch.models.quadrotor import QuadrotorDynamics
+from mppi_gpu_tpu_torch.models.unicycle import UnicycleDynamics
 from mppi_gpu_tpu_torch.ops.cost import (
+    ArmReachCost,
     CartPoleBalanceCost,
     Cost,
     PendulumSwingupCost,
     QuadraticCost,
+    QuadrotorHoverCost,
+    UnicycleWaypointCost,
 )
 
-# the numpy fields of each family's model and cost, keyed by the field of the
-# model that tells the family apart
+_GOAL_COST = ("w", "goal", "lambda_", "inv_s")
+# the numpy fields of each family's model and cost, keyed by the set of the
+# model's fields, which tells the families apart
 _FAMILIES = {
-    "mass": (
-        PendulumDynamics, ("dt", "mass", "length", "gravity", "damping"),
-        PendulumSwingupCost, ("w_angle", "w_vel", "lambda_", "inv_s"),
+    frozenset(("dt", "action_dim")): (PointMassLTI, QuadraticCost, _GOAL_COST),
+    frozenset(("dt", "mass", "length", "gravity", "damping")): (
+        PendulumDynamics, PendulumSwingupCost, ("w_angle", "w_vel", "lambda_", "inv_s"),
     ),
-    "cart_mass": (
-        CartPoleDynamics, ("dt", "cart_mass", "pole_mass", "pole_length", "gravity"),
-        CartPoleBalanceCost, ("w", "lambda_", "inv_s"),
+    frozenset(("dt", "cart_mass", "pole_mass", "pole_length", "gravity")): (
+        CartPoleDynamics, CartPoleBalanceCost, ("w", "lambda_", "inv_s"),
+    ),
+    frozenset(("dt",)): (UnicycleDynamics, UnicycleWaypointCost, _GOAL_COST),
+    frozenset(("dt", "mass", "inertia", "arm", "gravity")): (
+        QuadrotorDynamics, QuadrotorHoverCost, _GOAL_COST,
+    ),
+    frozenset(("dt", "A", "B", "D", "G1", "G2", "damping", "max_rate", "l1", "l2")): (
+        TwoLinkArmDynamics, ArmReachCost, _GOAL_COST + ("l1", "l2"),
     ),
 }
 
@@ -44,29 +57,34 @@ def from_numpy(a, device: torch.device | str) -> torch.Tensor:
 def from_numpy_params(
     dyn: dict, cost: dict, device: torch.device | str, *, goals=None
 ) -> tuple[Dynamics, Cost]:
-    """The port's model and cost from numpy arrays or scalars:
+    """The port's model and cost from numpy arrays or scalars; the keys of
+    `dyn` name the family:
 
     * point-mass LTI: ``dyn = {"dt", "action_dim"}``, ``cost = {"w", "goal",
-      "lambda_", "inv_s"}``; ``goals`` (R, s), such as the goal leaf of a JAX
-      fleet's cost, replaces ``cost["goal"]`` with per-robot goals;
+      "lambda_", "inv_s"}``;
     * pendulum: ``dyn = {"dt", "mass", "length", "gravity", "damping"}``,
       ``cost = {"w_angle", "w_vel", "lambda_", "inv_s"}``;
     * cart-pole: ``dyn = {"dt", "cart_mass", "pole_mass", "pole_length",
-      "gravity"}``, ``cost = {"w", "lambda_", "inv_s"}``.
+      "gravity"}``, ``cost = {"w", "lambda_", "inv_s"}``;
+    * unicycle: ``dyn = {"dt"}``, ``cost = {"w", "goal", "lambda_", "inv_s"}``;
+    * planar quadrotor: ``dyn = {"dt", "mass", "inertia", "arm", "gravity"}``,
+      ``cost = {"w", "goal", "lambda_", "inv_s"}``;
+    * two-link arm: ``dyn = {"dt", "A", "B", "D", "G1", "G2", "damping",
+      "max_rate", "l1", "l2"}``, ``cost = {"w", "goal", "lambda_", "inv_s",
+      "l1", "l2"}`` (the cost's own link lengths).
+
+    For a cost with a goal, ``goals`` (R, s), such as the goal leaf of a JAX
+    fleet's cost, replaces ``cost["goal"]`` with per-robot goals.
     """
-    for key, (model_cls, model_fields, cost_cls, cost_fields) in _FAMILIES.items():
-        if key in dyn:
-            if goals is not None:
-                raise TypeError(f"{cost_cls.__name__} has no goal; goals= does not apply")
-            return (
-                model_cls(**{k: from_numpy(dyn[k], device) for k in model_fields}),
-                cost_cls(**{k: from_numpy(cost[k], device) for k in cost_fields}),
-            )
-    model = PointMassLTI(dt=from_numpy(dyn["dt"], device), action_dim=int(dyn["action_dim"]))
-    qc = QuadraticCost(
-        w=from_numpy(cost["w"], device),
-        goal=from_numpy(cost["goal"] if goals is None else goals, device),
-        lambda_=from_numpy(cost["lambda_"], device),
-        inv_s=from_numpy(cost["inv_s"], device),
-    )
-    return model, qc
+    key = frozenset(dyn)
+    if key not in _FAMILIES:
+        raise ValueError(f"no family has the model fields {sorted(dyn)}")
+    model_cls, cost_cls, cost_fields = _FAMILIES[key]
+    if goals is not None and "goal" not in cost_fields:
+        raise TypeError(f"{cost_cls.__name__} has no goal; goals= does not apply")
+    if model_cls is PointMassLTI:
+        model = PointMassLTI(dt=from_numpy(dyn["dt"], device), action_dim=int(dyn["action_dim"]))
+    else:
+        model = model_cls(**{k: from_numpy(v, device) for k, v in dyn.items()})
+    given = dict(cost, goal=goals) if goals is not None else cost
+    return model, cost_cls(**{k: from_numpy(given[k], device) for k in cost_fields})

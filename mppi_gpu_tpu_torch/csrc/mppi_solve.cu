@@ -4,14 +4,18 @@
 //   K1 solve_partials   rollout + cost + per-block softmin partial + ΔŨ
 //   K2 softmin_combine  fold of the per-block partials into β, η, ΔU
 //   K3 noise_dump       the ε stream K1 consumed, written as (T, K, A)
+//   K4 rollout_costs    K1's pass 1 alone: the costs-only sweep → S
 //
 // K1 is a template over the fused family, the (dynamics, cost) pair it steps
 // (ops/families.py): the point-mass LTI model with the quadratic cost, the
-// pendulum with its swing-up cost, the cart-pole with its balance cost. A
-// family is a struct below: its state is kS floats in registers, initialised
-// from x0; `load` reads its parameters, `step` (x, u + ε) → x' and `cost`
-// (x) → state cost. Everything else in K1 (noise, control cost, Kahan sum,
-// partials) is shared, and K2 and K3 do not depend on the family.
+// pendulum with its swing-up cost, the cart-pole with its balance cost, the
+// unicycle with its waypoint cost, the planar quadrotor with its hover cost
+// and the two-link arm with its reaching cost. A family is a struct below:
+// its state is kS floats in registers, initialised from x0; `load` reads its
+// parameters (and robot r's goal), `step` (x, u + ε) → x' and `cost` (x) →
+// state cost. Everything else in K1 (noise, control cost, Kahan sum,
+// partials) is shared, and K2 and K3 do not depend on the family. K4 is K1's
+// template with its second flag off.
 //
 // One thread per rollout k carries its state in registers through a
 // sequential loop over the horizon. K1 and K2 take a fleet of R independent
@@ -27,7 +31,9 @@
 // the plain version's order (the port's eager models and costs), so K3's dump
 // reproduces K1's ε exactly and the replay of a dump through the injected-ε
 // mode reproduces the Philox-mode solve. The families' trigonometry is full
-// precision sinf/cosf; no fast-math flags.
+// precision sinf/cosf; no fast-math flags. The unicycle's cost takes rsqrtf,
+// which is what torch's CUDA rsqrt computes (chip_smoke.py phase 13 checks
+// torch.rsqrt on the card against 1/sqrt and K1's S against the plain one).
 //
 // Rollouts past K (the idle threads of the last block) never enter β, η or
 // ΔU. A block whose real rollouts all have S = +inf contributes η_b = 0 and
@@ -153,7 +159,14 @@ __device__ __forceinline__ float block_nan_min(float v, float* scratch) {
 // σ and Σ⁻¹; layouts in ops/families.py) and steps in the order of the
 // port's eager model and cost, whose float32 arithmetic it repeats.
 
-enum FamilyId { kLtiFamily = 0, kPendulumFamily = 1, kCartPoleFamily = 2 };  // ops/families.py
+enum FamilyId {  // ops/families.py
+  kLtiFamily = 0,
+  kPendulumFamily = 1,
+  kCartPoleFamily = 2,
+  kUnicycleFamily = 3,
+  kQuadrotorFamily = 4,
+  kArmFamily = 5,
+};
 
 // Point-mass double integrator per axis, quadratic cost towards robot r's
 // goal (models/point_mass.py, ops/cost.QuadraticCost).
@@ -294,19 +307,199 @@ struct CartPole {
   }
 };
 
+// Unicycle, x = (px, py, θ), u = (v, ω): RK2 midpoint, the heading advanced
+// half a step first (models/unicycle.py); waypoint cost
+// w_pos d² + w_head (1 − (d·(cos θ, sin θ))/√(d² + 1e-3)) towards robot r's
+// goal[0:2] (ops/cost.UnicycleWaypointCost).
+struct Unicycle {
+  static constexpr int kS = 3;
+  static constexpr bool kGoal = true;
+  float w_pos, w_head, gx, gy, h, hh;
+
+  __device__ __forceinline__ void load(const float* fp, const float* goal, float dt) {
+    w_pos = fp[0];
+    w_head = fp[1];
+    gx = goal[0];
+    gy = goal[1];
+    h = dt;
+    hh = 0.5f * dt;
+  }
+
+  __device__ __forceinline__ void step(float x[kS], const float ue[2]) const {
+    const float th = x[2], hv = __fmul_rn(h, ue[0]);
+    const float th_m = __fadd_rn(th, __fmul_rn(hh, ue[1]));
+    x[0] = __fadd_rn(x[0], __fmul_rn(hv, cosf(th_m)));
+    x[1] = __fadd_rn(x[1], __fmul_rn(hv, sinf(th_m)));
+    x[2] = __fadd_rn(th, __fmul_rn(h, ue[1]));
+  }
+
+  __device__ __forceinline__ float cost(const float x[kS]) const {
+    const float dx = __fsub_rn(gx, x[0]), dy = __fsub_rn(gy, x[1]);
+    const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+    const float dot = __fadd_rn(__fmul_rn(dx, cosf(x[2])), __fmul_rn(dy, sinf(x[2])));
+    const float align = __fmul_rn(dot, rsqrtf(__fadd_rn(d2, 1e-3f)));
+    return __fadd_rn(__fmul_rn(w_pos, d2), __fmul_rn(w_head, __fsub_rn(1.0f, align)));
+  }
+};
+
+// Planar quadrotor, x = (px, pz, θ, vx, vz, ω), u = (F, D) in mixer space:
+// RK2 midpoint of ẍ = F sin θ / m, z̈ = F cos θ / m − g, θ̈ = r D / I with
+// the model's divides (models/quadrotor.py); hover cost, quadratic on the
+// position towards robot r's goal[0:2] and on the velocities, 1 − cos θ on
+// the tilt (ops/cost.QuadrotorHoverCost).
+struct Quadrotor {
+  static constexpr int kS = 6;
+  static constexpr bool kGoal = true;
+  float w[6], m, inertia, r, g, gx, gz, h, hh;
+
+  __device__ __forceinline__ void load(const float* fp, const float* goal, float dt) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) w[i] = fp[i];
+    m = fp[6];
+    inertia = fp[7];
+    r = fp[8];
+    g = fp[9];
+    gx = goal[0];
+    gz = goal[1];
+    h = dt;
+    hh = 0.5f * dt;
+  }
+
+  // (ẍ, z̈) at tilt th under collective thrust F
+  __device__ __forceinline__ void accel(float th, float F, float& ax, float& az) const {
+    ax = __fdiv_rn(__fmul_rn(F, sinf(th)), m);
+    az = __fsub_rn(__fdiv_rn(__fmul_rn(F, cosf(th)), m), g);
+  }
+
+  __device__ __forceinline__ void step(float x[kS], const float ue[2]) const {
+    const float th = x[2], om = x[5];
+    const float al = __fdiv_rn(__fmul_rn(r, ue[1]), inertia);  // the same at both stages
+    float ax1, az1, ax2, az2;
+    accel(th, ue[0], ax1, az1);
+    accel(__fadd_rn(th, __fmul_rn(hh, om)), ue[0], ax2, az2);
+    const float vx_m = __fadd_rn(x[3], __fmul_rn(hh, ax1));
+    const float vz_m = __fadd_rn(x[4], __fmul_rn(hh, az1));
+    const float om_m = __fadd_rn(om, __fmul_rn(hh, al));
+    x[0] = __fadd_rn(x[0], __fmul_rn(h, vx_m));
+    x[1] = __fadd_rn(x[1], __fmul_rn(h, vz_m));
+    x[2] = __fadd_rn(th, __fmul_rn(h, om_m));
+    x[3] = __fadd_rn(x[3], __fmul_rn(h, ax2));
+    x[4] = __fadd_rn(x[4], __fmul_rn(h, az2));
+    x[5] = __fadd_rn(om, __fmul_rn(h, al));
+  }
+
+  __device__ __forceinline__ float cost(const float x[kS]) const {
+    const float dx = __fsub_rn(x[0], gx), dz = __fsub_rn(x[1], gz);
+    float c = __fmul_rn(__fmul_rn(w[0], dx), dx);
+    c = __fadd_rn(c, __fmul_rn(__fmul_rn(w[1], dz), dz));
+    c = __fadd_rn(c, __fmul_rn(w[2], __fsub_rn(1.0f, cosf(x[2]))));
+    c = __fadd_rn(c, __fmul_rn(w[3], __fmul_rn(x[3], x[3])));
+    c = __fadd_rn(c, __fmul_rn(w[4], __fmul_rn(x[4], x[4])));
+    return __fadd_rn(c, __fmul_rn(w[5], __fmul_rn(x[5], x[5])));
+  }
+};
+
+// Two-link arm, x = (q1, q2, q̇1, q̇2), u = (τ1, τ2): RK2 midpoint of the
+// manipulator equations with the closed-form inverse of the 2×2 mass matrix
+// (one divide for 1/det, as the model), the joint rates saturated at
+// ±max_rate after each stage (models/arm.py); reaching cost, the squared
+// distance of the end effector (the cost's link lengths) to robot r's
+// goal[0:2] plus w_vel (q̇1² + q̇2²) (ops/cost.ArmReachCost).
+struct Arm {
+  static constexpr int kS = 4;
+  static constexpr bool kGoal = true;
+  float w_pos, w_vel, A_, B_, D_, G1, G2, damp, maxr, l1, l2, tx, ty, twoB, h, hh;
+
+  __device__ __forceinline__ void load(const float* fp, const float* goal, float dt) {
+    w_pos = fp[0];
+    w_vel = fp[1];
+    A_ = fp[2];
+    B_ = fp[3];
+    D_ = fp[4];
+    G1 = fp[5];
+    G2 = fp[6];
+    damp = fp[7];
+    maxr = fp[8];
+    l1 = fp[9];
+    l2 = fp[10];
+    tx = goal[0];
+    ty = goal[1];
+    twoB = 2.0f * B_;
+    h = dt;
+    hh = 0.5f * dt;
+  }
+
+  // (q̈1, q̈2) at (q, q̇) under torques (t1, t2)
+  __device__ __forceinline__ void accel(float q1, float q2, float qd1, float qd2, float t1,
+                                        float t2, float& qdd1, float& qdd2) const {
+    const float s2 = sinf(q2), c2 = cosf(q2), c1 = cosf(q1), c12 = cosf(__fadd_rn(q1, q2));
+    const float d11 = __fadd_rn(A_, __fmul_rn(twoB, c2));
+    const float d12 = __fadd_rn(D_, __fmul_rn(B_, c2));
+    const float hs = __fmul_rn(B_, s2);
+    const float cq = __fadd_rn(__fmul_rn(__fmul_rn(2.0f, qd1), qd2), __fmul_rn(qd2, qd2));
+    const float r1 = __fsub_rn(
+        __fsub_rn(__fadd_rn(t1, __fmul_rn(hs, cq)),
+                  __fadd_rn(__fmul_rn(G1, c1), __fmul_rn(G2, c12))),
+        __fmul_rn(damp, qd1));
+    const float r2 = __fsub_rn(
+        __fsub_rn(__fsub_rn(t2, __fmul_rn(__fmul_rn(hs, qd1), qd1)), __fmul_rn(G2, c12)),
+        __fmul_rn(damp, qd2));
+    const float inv_det = __fdiv_rn(1.0f, __fsub_rn(__fmul_rn(d11, D_), __fmul_rn(d12, d12)));
+    qdd1 = __fmul_rn(__fsub_rn(__fmul_rn(D_, r1), __fmul_rn(d12, r2)), inv_det);
+    qdd2 = __fmul_rn(__fsub_rn(__fmul_rn(d11, r2), __fmul_rn(d12, r1)), inv_det);
+  }
+
+  // clamp to ±max_rate; NaN stays NaN, as torch.clamp keeps it (fminf and
+  // fmaxf would drop it and leave a diverged rollout finite)
+  __device__ __forceinline__ float sat(float v) const {
+    return v != v ? v : fminf(fmaxf(v, -maxr), maxr);
+  }
+
+  __device__ __forceinline__ void step(float x[kS], const float ue[2]) const {
+    const float q1 = x[0], q2 = x[1], qd1 = x[2], qd2 = x[3];
+    float a1, a2;
+    accel(q1, q2, qd1, qd2, ue[0], ue[1], a1, a2);
+    const float m0 = __fadd_rn(q1, __fmul_rn(hh, qd1)), m1 = __fadd_rn(q2, __fmul_rn(hh, qd2));
+    const float m2 = sat(__fadd_rn(qd1, __fmul_rn(hh, a1)));
+    const float m3 = sat(__fadd_rn(qd2, __fmul_rn(hh, a2)));
+    accel(m0, m1, m2, m3, ue[0], ue[1], a1, a2);
+    x[0] = __fadd_rn(q1, __fmul_rn(h, m2));
+    x[1] = __fadd_rn(q2, __fmul_rn(h, m3));
+    x[2] = sat(__fadd_rn(qd1, __fmul_rn(h, a1)));
+    x[3] = sat(__fadd_rn(qd2, __fmul_rn(h, a2)));
+  }
+
+  __device__ __forceinline__ float cost(const float x[kS]) const {
+    const float q12 = __fadd_rn(x[0], x[1]);
+    const float ex = __fadd_rn(__fmul_rn(l1, cosf(x[0])), __fmul_rn(l2, cosf(q12)));
+    const float ey = __fadd_rn(__fmul_rn(l1, sinf(x[0])), __fmul_rn(l2, sinf(q12)));
+    const float dx = __fsub_rn(ex, tx), dy = __fsub_rn(ey, ty);
+    const float vel = __fadd_rn(__fmul_rn(x[2], x[2]), __fmul_rn(x[3], x[3]));
+    return __fadd_rn(__fmul_rn(w_pos, __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy))),
+                     __fmul_rn(w_vel, vel));
+  }
+};
+
 // K1. Replaces the TPU solve kernels of mppi_gpu_tpu/ops/pallas_rollout.py:
 // _onepass_solve_kernel (:2342), _planar_onepass_kernel (:2686) and
 // _fused_solve_kernel (:2287), and their fleet forms
 // _fleet_onepass_solve_kernel (:3121), _fleet_fused_solve_kernel (:2973) and
 // _planar_fleet_onepass_kernel (:3078), whose grid (R, tiles) runs the same
 // per-tile bodies robot after robot; for the families of
-// _LTIQuadFamily (:490), _PendulumFamily (:614) and _CartPoleFamily (:700).
+// _LTIQuadFamily (:490), _PendulumFamily (:614), _CartPoleFamily (:700),
+// _QuadrotorFamily (:930), _UnicycleFamily (:1101) and _ArmFamily (:1264).
+// The TPU plans the coupled families (unicycle, quadrotor, arm) on the
+// state-planar kernels only; here every family takes the one layout.
 //
 // What bounds it: arithmetic, not memory. Per rollout and step it does one
 // Philox call (10 rounds of two 32-bit multiply-high), one or two Box-Muller
 // pairs (log1p, sqrt, cos, sin) and the family's step and cost: ~10 flops for
 // LTI; two sinf, one cosf and two divides for the pendulum; two sinf, three
-// cosf and eight divides for the cart-pole. The only traffic is U and the
+// cosf and eight divides for the cart-pole; one Box-Muller pair at A = 2 and,
+// for the unicycle, three sinf, two cosf and one rsqrtf; the quadrotor, two
+// sinf, three cosf and five divides; the arm, two stages of one sinf, three
+// cosf and one divide, and two sinf and two cosf in its cost. K4 does pass
+// 1 alone, about half of K1's noise work. The only traffic is U and the
 // parameters (read once into shared memory/registers), S (4 B per rollout)
 // and one (2 + T·A)-float partial per block. In the injected-ε mode it
 // instead streams 2·T·A·4 B per rollout.
@@ -332,7 +525,12 @@ struct CartPole {
 // np.key0/np.key1, which is how the single-robot solve runs without a seed
 // tensor on the device. `params` is [σ (A), Σ⁻¹ (A), family part]; `goal`
 // (R, kS) is read by families with kGoal only.
-template <class F, int A, bool INJ>
+//
+// K4, the costs-only sweep (PASS2 = false), replaces _rollout_cost_kernel
+// (:1952) and _planar_costs_kernel (:2813): pass 1 alone, writing S and no
+// partials (`partials` may be null). It is the floor of a solve, the work
+// every solve does before its softmin and ΔU pass.
+template <class F, int A, bool INJ, bool PASS2>
 __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
     const float* __restrict__ x0, const float* __restrict__ U,
     const float* __restrict__ params, const float* __restrict__ goal,
@@ -412,6 +610,7 @@ __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
     S = __fadd_rn(acc, fam.cost(x));
     S_out[k] = S;
   }
+  if (!PASS2) return;
 
   // ---- block softmin partial ----------------------------------------------
   const float beta_b = block_nan_min<kWarps>(valid ? S : INFINITY, scratch);
@@ -557,26 +756,59 @@ struct SolveArgs {
   const long long* keys;
   const float* eps_in;
   float *S, *partials;
-  int R, T;
+  int R, T, A;
   float dt, lam_cost, lam_softmin;
 };
 
-template <class F, int A, bool INJ>
+template <class F, int A, bool INJ, bool PASS2>
 cudaError_t launch_partials(const SolveArgs& a, const NoiseParams& np, cudaStream_t stream) {
   const dim3 grid((np.K + kBlock - 1) / kBlock, a.R);
-  const size_t smem = (size_t)(1 + kWarps) * a.T * A * sizeof(float);
-  cudaError_t err = set_smem(solve_partials_kernel<F, A, INJ>, smem);
+  const size_t smem = (size_t)(PASS2 ? 1 + kWarps : 1) * a.T * A * sizeof(float);
+  cudaError_t err = set_smem(solve_partials_kernel<F, A, INJ, PASS2>, smem);
   if (err != cudaSuccess) return err;
-  solve_partials_kernel<F, A, INJ><<<grid, kBlock, smem, stream>>>(
+  solve_partials_kernel<F, A, INJ, PASS2><<<grid, kBlock, smem, stream>>>(
       a.x0, a.U, a.params, a.goal, a.keys, a.eps_in, a.S, a.partials, a.T, a.dt, a.lam_cost,
       a.lam_softmin, np);
   return cudaGetLastError();
 }
 
-template <class F, int A>
-cudaError_t launch_partials_mode(const SolveArgs& a, const NoiseParams& np, cudaStream_t s) {
-  return a.eps_in != nullptr ? launch_partials<F, A, true>(a, np, s)
-                             : launch_partials<F, A, false>(a, np, s);
+template <class F, int A, bool PASS2>
+cudaError_t launch_mode(const SolveArgs& a, const NoiseParams& np, cudaStream_t s) {
+  return a.eps_in != nullptr ? launch_partials<F, A, true, PASS2>(a, np, s)
+                             : launch_partials<F, A, false, PASS2>(a, np, s);
+}
+
+// K1 (PASS2) or K4 for the family id and A: the instances that exist.
+template <bool PASS2>
+int launch_family(int family, const SolveArgs& a, const NoiseParams& np, cudaStream_t s) {
+  const int A = a.A;
+  if (a.R < 1 || a.R > kMaxRobots) return (int)cudaErrorInvalidValue;
+  switch (family) {
+    case kLtiFamily:
+      if (a.goal == nullptr) return (int)cudaErrorInvalidValue;
+      switch (A) {
+        case 1: return launch_mode<Lti<1>, 1, PASS2>(a, np, s);
+        case 2: return launch_mode<Lti<2>, 2, PASS2>(a, np, s);
+        case 3: return launch_mode<Lti<3>, 3, PASS2>(a, np, s);
+        case 4: return launch_mode<Lti<4>, 4, PASS2>(a, np, s);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case kPendulumFamily:
+      return A == 1 ? launch_mode<Pendulum, 1, PASS2>(a, np, s) : (int)cudaErrorInvalidValue;
+    case kCartPoleFamily:
+      return A == 1 ? launch_mode<CartPole, 1, PASS2>(a, np, s) : (int)cudaErrorInvalidValue;
+    case kUnicycleFamily:
+      if (a.goal == nullptr || A != 2) return (int)cudaErrorInvalidValue;
+      return launch_mode<Unicycle, 2, PASS2>(a, np, s);
+    case kQuadrotorFamily:
+      if (a.goal == nullptr || A != 2) return (int)cudaErrorInvalidValue;
+      return launch_mode<Quadrotor, 2, PASS2>(a, np, s);
+    case kArmFamily:
+      if (a.goal == nullptr || A != 2) return (int)cudaErrorInvalidValue;
+      return launch_mode<Arm, 2, PASS2>(a, np, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -586,36 +818,22 @@ extern "C" {
 // Every entry returns a cudaError_t as int: 0 on a launched kernel.
 
 // family (FamilyId), x0 (R, S), U (R, T, A), params [σ (A), Σ⁻¹ (A), family
-// part], goal (R, S) for LTI (else unused, may be null), keys (R,) int64 or
-// null, eps_in (R, T, K, A) or null → S (R, K), partials (R, nb, 2 + T·A).
-// S is 2A for LTI (A ≤ 4), 2 for the pendulum and 4 for the cart-pole (A = 1).
+// part], goal (R, S) for a family with a goal (LTI, unicycle, quadrotor, arm;
+// else unused, may be null), keys (R,) int64 or null, eps_in (R, T, K, A) or
+// null → S (R, K), partials (R, nb, 2 + T·A). S is 2A for LTI (A ≤ 4), 2 for
+// the pendulum and 4 for the cart-pole (A = 1), 3 for the unicycle, 6 for
+// the quadrotor and 4 for the arm (A = 2). With partials null it launches K4
+// instead (S alone; λ_softmin unused).
 int mppi_solve_partials(int family, const float* x0, const float* U, const float* params,
                         const float* goal, const long long* keys, const float* eps_in, float* S,
                         float* partials, int R, int K, int T, int A, float dt, float lam_cost,
                         float lam_softmin, unsigned key0, unsigned key1, unsigned step,
                         unsigned it, int antithetic, float ou_beta, float ou_c, void* stream) {
-  if (R < 1 || R > kMaxRobots) return (int)cudaErrorInvalidValue;
   const NoiseParams np = make_noise(key0, key1, step, it, K, antithetic, ou_beta, ou_c);
-  const SolveArgs a{x0, U, params, goal, keys, eps_in, S, partials, R, T, dt, lam_cost,
+  const SolveArgs a{x0, U, params, goal, keys, eps_in, S, partials, R, T, A, dt, lam_cost,
                     lam_softmin};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (family) {
-    case kLtiFamily:
-      if (goal == nullptr) return (int)cudaErrorInvalidValue;
-      switch (A) {
-        case 1: return launch_partials_mode<Lti<1>, 1>(a, np, s);
-        case 2: return launch_partials_mode<Lti<2>, 2>(a, np, s);
-        case 3: return launch_partials_mode<Lti<3>, 3>(a, np, s);
-        case 4: return launch_partials_mode<Lti<4>, 4>(a, np, s);
-        default: return (int)cudaErrorInvalidValue;
-      }
-    case kPendulumFamily:
-      return A == 1 ? launch_partials_mode<Pendulum, 1>(a, np, s) : (int)cudaErrorInvalidValue;
-    case kCartPoleFamily:
-      return A == 1 ? launch_partials_mode<CartPole, 1>(a, np, s) : (int)cudaErrorInvalidValue;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return partials != nullptr ? launch_family<true>(family, a, np, (cudaStream_t)stream)
+                             : launch_family<false>(family, a, np, (cudaStream_t)stream);
 }
 
 // partials (R, nb, 2 + TA) → beta_eta (R, 2), dU (R, TA).

@@ -16,8 +16,13 @@ states of shape (R, K, s).
 
 :class:`PendulumSwingupCost` and :class:`CartPoleBalanceCost` are the
 pendulum and cart-pole families' costs; their targets (upright, centred) are
-built in, so they have no ``goal`` field. The JAX package's other registered
-cost types raise ``NotImplementedError`` (ROADMAP.md, Open items §1 item 6).
+built in, so they have no ``goal`` field. :class:`UnicycleWaypointCost`,
+:class:`QuadrotorHoverCost` and :class:`ArmReachCost` are the unicycle,
+planar-quadrotor and two-link-arm families' costs; each aims at a ``goal`` of
+the state's length of which only the first two entries are read, and takes
+per-robot goals as the quadratic cost does. The JAX package's ``obstacle``
+and ``quadrotor3d`` cost types raise ``NotImplementedError`` (ROADMAP.md,
+Open items §1 item 6).
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ class Cost(Protocol):
         """(..., s) → (...) terminal cost."""
 
 
+def _ctrl(lambda_, u, inv_s, eps) -> torch.Tensor:
+    """The MPPI control term λ · Σ_i u_i · Σ⁻¹_ii · ε_i of every cost."""
+    return lambda_ * torch.sum(u * inv_s * eps, dim=-1)
+
+
 @dataclass(frozen=True)
 class QuadraticCost:
     w: torch.Tensor        # (s,) state-cost diagonal
@@ -52,9 +62,8 @@ class QuadraticCost:
         return self.goal if self.goal.dim() == 1 else self.goal[..., None, :]
 
     def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
-        ctrl = self.lambda_ * torch.sum(u * self.inv_s * eps, dim=-1)
         d = x_next - self._goal()
-        return ctrl + torch.sum(d * self.w * d, dim=-1)
+        return _ctrl(self.lambda_, u, self.inv_s, eps) + torch.sum(d * self.w * d, dim=-1)
 
     def final(self, x: torch.Tensor) -> torch.Tensor:
         d = x - self._goal()
@@ -76,8 +85,7 @@ class PendulumSwingupCost:
         return self.w_angle * (1.0 - torch.cos(x[..., 0])) + self.w_vel * x[..., 1] ** 2
 
     def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
-        ctrl = self.lambda_ * torch.sum(u * self.inv_s * eps, dim=-1)
-        return ctrl + self._state(x_next)
+        return _ctrl(self.lambda_, u, self.inv_s, eps) + self._state(x_next)
 
     def final(self, x: torch.Tensor) -> torch.Tensor:
         return self._state(x)
@@ -102,7 +110,107 @@ class CartPoleBalanceCost:
         )
 
     def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
-        return self.lambda_ * torch.sum(u * self.inv_s * eps, dim=-1) + self._state(x_next)
+        return _ctrl(self.lambda_, u, self.inv_s, eps) + self._state(x_next)
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        return self._state(x)
+
+
+def _goal_xy(goal: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first two goal entries, 0-dim for one goal (s,); (R, 1) for
+    per-robot goals (R, s), to meet states (R, K, s)."""
+    g = goal if goal.dim() == 1 else goal[..., None, :]
+    return g[..., 0], g[..., 1]
+
+
+@dataclass(frozen=True)
+class UnicycleWaypointCost:
+    """Waypoint cost of the unicycle family, ``w = [w_pos, w_head]``: the
+    squared distance to the waypoint ``goal[0:2]`` plus the wrap-safe
+    face-the-goal term ``w_head·(1 − d̂·ĥ)``, with d̂ the unit vector to the
+    waypoint (one rsqrt; the 1e-3 m² keeps it finite at the waypoint) and
+    ĥ = (cos θ, sin θ). ``goal[2]`` is unused."""
+
+    w: torch.Tensor        # (2,)
+    goal: torch.Tensor     # (3,), or (R, 3) per robot of a fleet
+    lambda_: torch.Tensor  # 0-dim temperature
+    inv_s: torch.Tensor    # (a,) diagonal of Σ⁻¹
+
+    EPS = 1e-3
+
+    def _state(self, x: torch.Tensor) -> torch.Tensor:
+        gx, gy = _goal_xy(self.goal)
+        dx = gx - x[..., 0]
+        dy = gy - x[..., 1]
+        d2 = dx * dx + dy * dy
+        align = (dx * torch.cos(x[..., 2]) + dy * torch.sin(x[..., 2])) * torch.rsqrt(d2 + self.EPS)
+        return self.w[0] * d2 + self.w[1] * (1.0 - align)
+
+    def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        return _ctrl(self.lambda_, u, self.inv_s, eps) + self._state(x_next)
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        return self._state(x)
+
+
+@dataclass(frozen=True)
+class ArmReachCost:
+    """Reaching cost of the two-link-arm family, ``w = [w_pos, w_vel]``: the
+    squared distance of the end effector, by the forward kinematics
+    ``l1·(cos q1, sin q1) + l2·(cos(q1+q2), sin(q1+q2))``, to the target
+    ``goal[0:2]``, plus ``w_vel·(q̇1² + q̇2²)``. ``goal[2:4]`` are unused. The
+    link lengths are the cost's own (defaults of
+    ``TwoLinkArmDynamics.create``) and may differ from the model's."""
+
+    w: torch.Tensor        # (2,)
+    goal: torch.Tensor     # (4,), or (R, 4) per robot of a fleet
+    lambda_: torch.Tensor  # 0-dim temperature
+    inv_s: torch.Tensor    # (a,) diagonal of Σ⁻¹
+    l1: torch.Tensor | float = 0.5
+    l2: torch.Tensor | float = 0.5
+
+    def _state(self, x: torch.Tensor) -> torch.Tensor:
+        gx, gy = _goal_xy(self.goal)
+        q1, q12 = x[..., 0], x[..., 0] + x[..., 1]
+        ex = self.l1 * torch.cos(q1) + self.l2 * torch.cos(q12)
+        ey = self.l1 * torch.sin(q1) + self.l2 * torch.sin(q12)
+        dx, dy = ex - gx, ey - gy
+        vel = x[..., 2] ** 2 + x[..., 3] ** 2
+        return self.w[0] * (dx * dx + dy * dy) + self.w[1] * vel
+
+    def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        return _ctrl(self.lambda_, u, self.inv_s, eps) + self._state(x_next)
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        return self._state(x)
+
+
+@dataclass(frozen=True)
+class QuadrotorHoverCost:
+    """Hover/waypoint cost of the planar-quadrotor family, ``w = [w_px, w_pz,
+    w_th, w_vx, w_vz, w_om]``: quadratic on the position towards
+    ``goal[0:2]`` and on the velocities towards zero, wrap-safe
+    ``1 − cos θ`` on the tilt. ``goal[2:6]`` are unused."""
+
+    w: torch.Tensor        # (6,)
+    goal: torch.Tensor     # (6,), or (R, 6) per robot of a fleet
+    lambda_: torch.Tensor  # 0-dim temperature
+    inv_s: torch.Tensor    # (a,) diagonal of Σ⁻¹
+
+    def _state(self, x: torch.Tensor) -> torch.Tensor:
+        gx, gz = _goal_xy(self.goal)
+        dx, dz = x[..., 0] - gx, x[..., 1] - gz
+        return (
+            self.w[0] * dx * dx
+            + self.w[1] * dz * dz
+            + self.w[2] * (1.0 - torch.cos(x[..., 2]))
+            + self.w[3] * x[..., 3] ** 2
+            + self.w[4] * x[..., 4] ** 2
+            + self.w[5] * x[..., 5] ** 2
+        )
+
+    def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        return _ctrl(self.lambda_, u, self.inv_s, eps) + self._state(x_next)
 
     def final(self, x: torch.Tensor) -> torch.Tensor:
         return self._state(x)
@@ -128,7 +236,7 @@ CostFactory = Callable[[MPPIConfig, torch.device], Cost]
 COST_REGISTRY: dict[str, CostFactory] = {}
 
 # cost types the JAX package registers that this package does not port yet
-_UNPORTED_COSTS = ("obstacle", "unicycle", "arm", "quadrotor", "quadrotor3d")
+_UNPORTED_COSTS = ("obstacle", "quadrotor3d")
 
 
 def register_cost(name: str) -> Callable[[CostFactory], CostFactory]:
@@ -185,13 +293,39 @@ def _make_cartpole(cfg: MPPIConfig, device: torch.device | str) -> CartPoleBalan
     )
 
 
+def _goal_cost(cls, n_w: int, names: str):
+    """The factory of a goal-aiming cost `cls` whose cost.w holds the `n_w`
+    weights `names`."""
+
+    def make(cfg: MPPIConfig, device: torch.device | str):
+        if len(cfg.cost_w) != n_w:
+            raise ValueError(f"{cfg.cost_type} cost needs cost.w = [{names}], got {cfg.cost_w}")
+        f32 = dict(dtype=torch.float32, device=device)
+        return cls(
+            w=torch.tensor(cfg.cost_w, **f32),
+            goal=torch.tensor(cfg.goal, **f32),
+            lambda_=torch.tensor(cfg.lambda_, **f32),
+            inv_s=_inv_s(cfg, device),
+        )
+
+    return make
+
+
+register_cost("unicycle")(_goal_cost(UnicycleWaypointCost, 2, "w_pos, w_head"))
+register_cost("arm")(_goal_cost(ArmReachCost, 2, "w_pos, w_vel"))
+register_cost("quadrotor")(
+    _goal_cost(QuadrotorHoverCost, 6, "w_px, w_pz, w_th, w_vx, w_vz, w_om")
+)
+
+
 def make_cost(cfg: MPPIConfig, device: torch.device | str) -> Cost:
     if cfg.cost_type in COST_REGISTRY:
         return COST_REGISTRY[cfg.cost_type](cfg, device)
     if cfg.cost_type in _UNPORTED_COSTS:
         raise NotImplementedError(
             f"cost.type '{cfg.cost_type}' is not ported to mppi_gpu_tpu_torch yet "
-            "(see ROADMAP.md, Open items §1 item 6)"
+            "(see ROADMAP.md, Open items §1 item 6); the quadratic, pendulum, cartpole, "
+            "unicycle, arm and quadrotor costs run"
         )
     raise ValueError(
         f"unknown cost.type '{cfg.cost_type}'; known: {sorted(COST_REGISTRY)}"

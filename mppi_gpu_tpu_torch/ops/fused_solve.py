@@ -4,7 +4,8 @@
 * :func:`fleet_family_solve_partials` (K1) — for each of R robots, rollout,
   cost and per-block softmin partials ``(β_b, η_b, ΔŨ_b)`` over blocks of
   :data:`BLOCK` rollouts, for one fused family (``ops/families.py``: the
-  point-mass LTI, pendulum and cart-pole models with their costs);
+  point-mass LTI, pendulum, cart-pole, unicycle, planar-quadrotor and
+  two-link-arm models with their costs);
 * :func:`fleet_softmin_combine` (K2) — each robot's associative fold of its
   partials into ``β``, ``η`` and ``ΔU``;
 * :func:`fleet_family_fused_solve` — K1 then K2, the fleet controller's
@@ -13,7 +14,13 @@
   :func:`family_fused_solve` — the single-robot solve: the R = 1 launch of
   the same kernels;
 * :func:`noise_dump` (K3) — the ε stream K1 consumed, for the debug dump and
-  the replay check; its plain version is ``ops/philox.py``.
+  the replay check; its plain version is ``ops/philox.py``;
+* :func:`fused_rollout_costs`, :func:`fleet_rollout_costs` (K4) — the
+  costs-only sweep: K1's first pass alone, S (K,) or (R, K) with no softmin
+  and no update. It is the floor of a solve (the counterpart of the TPU's
+  ``pallas_rollout_costs`` / ``pallas_planar_rollout_costs`` that
+  ``bench.bench_floor`` times); no controller launches it. Its S is K1's S
+  for the same inputs, bit for bit.
 
 The LTI functions :func:`lti_solve_partials`, :func:`fused_solve`,
 :func:`fleet_solve_partials` and :func:`fleet_fused_solve` take the
@@ -21,9 +28,9 @@ point-mass problem as tensors (σ, Σ⁻¹, w, goal, λ, dt) and run the same
 kernels on its family (:func:`lti_family`, built per call).
 
 Each wrapper launches its kernel when its inputs lie on a CUDA device,
-through the kernel's one launcher, which counts the launch in its
-``launches`` attribute (:data:`KERNELS` maps the CUDA kernel's name to it;
-K1's launcher also counts by family); on CPU tensors it runs the plain
+through one launcher per kernel (K1's serves K4 too), which counts the
+launch under the kernel's name (:func:`launch_counts`; K1's and K4's also
+by family, :func:`family_launch_counts`); on CPU tensors it runs the plain
 version: for K1 the family's eager model and cost through
 ``ops/rollout.rollout_costs`` and the same per-block partials, for the fleet
 robot by robot. Any other placement, dtype, shape or layout raises. There
@@ -50,6 +57,11 @@ from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
 BLOCK = 128          # rollouts per K1 block (kBlock in csrc/mppi_solve.cu)
 MAX_ROBOTS = 65535   # K1's grid axis y is the robot (kMaxRobots)
 _SMEM_BYTES = 232448 - 1024  # per-block shared memory on Hopper, less static use
+
+# launches of each CUDA kernel of csrc/mppi_solve.cu, counted by the function
+# that launches it, where it launches; K1's and K4's also by family
+_LAUNCHES = dict.fromkeys(("solve_partials", "softmin_combine", "noise_dump", "rollout_costs"), 0)
+_FAMILY_LAUNCHES = {k: dict.fromkeys(FAMILY_NAMES, 0) for k in ("solve_partials", "rollout_costs")}
 
 
 def _noise_words(seed: int, step: int, it: int) -> tuple[int, int, int, int]:
@@ -149,6 +161,46 @@ def _check_family(fam: FusedFamily, T: int, A: int, K: int, antithetic: bool) ->
 def _check_goal(fam: FusedFamily, goal) -> None:
     if goal is not None and not fam.has_goal:
         raise TypeError(f"the {fam.name} family's cost has no goal (its target is built in)")
+    if goal is None and fam.has_goal:
+        raise ValueError(f"the {fam.name} family's cost aims at a goal: pass one per robot")
+
+
+def _solo_on_cuda(fam: FusedFamily, x0, U, goal, K: int, antithetic: bool, eps) -> bool:
+    """Check one robot's inputs (x0 (S,), U (T, A), goal (S,) for a family
+    with a goal, eps (T, K, A) or None); True if they lie on a CUDA device."""
+    T, A = U.shape if U.dim() == 2 else (-1, -1)
+    _check_family(fam, T, A, K, antithetic)
+    _check_goal(fam, goal)
+    S_dim = fam.state_dim
+    for name, t, shape in (
+        ("x0", x0, (S_dim,)), ("U", U, (T, A)),
+    ) + ((("goal", goal, (S_dim,)),) if fam.has_goal else ()) + (
+        (("eps", eps, (T, K, A)),) if eps is not None else ()
+    ):
+        _check(name, t, shape)
+    return _on_cuda(*(t for t in (x0, U, fam.params, goal, eps) if t is not None))
+
+
+def _fleet_on_cuda(fam: FusedFamily, xs, Us, goals, K: int, seeds, antithetic: bool, eps) -> bool:
+    """Check a fleet's inputs (xs (R, S), Us (R, T, A), goals (R, S) for a
+    family with a goal, seeds, eps (R, T, K, A) or None); True if they lie on
+    a CUDA device."""
+    if Us.dim() != 3:
+        raise ValueError(f"Us must be (R, T, A), got {tuple(Us.shape)}")
+    R, T, A = Us.shape
+    _check_fleet(R)
+    _check_family(fam, T, A, K, antithetic)
+    _check_goal(fam, goals)
+    S_dim = fam.state_dim
+    for name, t, shape in (
+        ("xs", xs, (R, S_dim)), ("Us", Us, (R, T, A)),
+    ) + ((("goals", goals, (R, S_dim)),) if fam.has_goal else ()) + (
+        (("eps", eps, (R, T, K, A)),) if eps is not None else ()
+    ):
+        _check(name, t, shape)
+    _check_seeds(seeds, R)
+    per_robot = seeds if isinstance(seeds, torch.Tensor) else None
+    return _on_cuda(*(t for t in (xs, Us, fam.params, goals, eps, per_robot) if t is not None))
 
 
 def block_partials(S: torch.Tensor, eps: torch.Tensor, lam_softmin: float) -> torch.Tensor:
@@ -174,6 +226,16 @@ def block_partials(S: torch.Tensor, eps: torch.Tensor, lam_softmin: float) -> to
     return torch.cat([beta_b[:, None], e.sum(1)[:, None], dUt.reshape(nb, T * A)], 1)
 
 
+def _plain_costs(fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps):
+    """(S (K,), ε): the family's eager model and cost on the port's noise
+    stream for (seed, step, it), or on the given ε."""
+    if eps is None:
+        eps = philox.sample_eps(
+            seed, step, it, U.shape[0], K, fam.sigma, antithetic=antithetic, ou_beta=ou_beta
+        )
+    return rollout_costs(fam.dynamics, fam.cost_for(goal), x0, U, eps), eps
+
+
 def family_solve_partials_reference(
     fam: FusedFamily, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta,
     eps=None,
@@ -181,12 +243,7 @@ def family_solve_partials_reference(
     """Plain version of K1 for one robot: ``(S (K,), partials (nb, 2 + T·A))``
     (:func:`block_partials`), S from the family's eager model and cost on
     the port's noise stream (or the given ε)."""
-    T = U.shape[0]
-    if eps is None:
-        eps = philox.sample_eps(
-            seed, step, it, T, K, fam.sigma, antithetic=antithetic, ou_beta=ou_beta
-        )
-    S = rollout_costs(fam.dynamics, fam.cost_for(goal), x0, U, eps)
+    S, eps = _plain_costs(fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps)
     return S, block_partials(S, eps, lam_softmin)
 
 
@@ -210,12 +267,15 @@ def fleet_family_solve_partials_reference(
 def _launch_solve_partials(
     fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta,
     eps, R: int, lead: tuple[int, ...],
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1 for R robots on checked CUDA tensors; the outputs get the
-    leading shape `lead`: () for the single-robot wrapper, (R,) for the
-    fleet's. Counts the launch, in total and for the family."""
+):
+    """Launch K1 for R robots on checked CUDA tensors, or K4 (K1's first pass
+    alone) when `lam_softmin` is None; the outputs get the leading shape
+    `lead`: () for the single-robot wrappers, (R,) for the fleet's. Returns
+    ``(S, partials)`` from K1, S from K4. Counts the launch under its
+    kernel, in total and for the family."""
     T, A = Us.shape[-2:]
-    if 4 * (1 + BLOCK // 32) * T * A > _SMEM_BYTES:
+    pass2 = lam_softmin is not None
+    if 4 * (1 + BLOCK // 32 if pass2 else 1) * T * A > _SMEM_BYTES:
         raise ValueError(f"T·A = {T * A} exceeds the kernel's shared-memory budget")
     from mppi_gpu_tpu_torch.ops._build import load_library
 
@@ -223,24 +283,23 @@ def _launch_solve_partials(
     nb = -(-K // BLOCK)
     per_robot = isinstance(seeds, torch.Tensor)
     S = torch.empty(*lead, K, dtype=torch.float32, device=Us.device)
-    partials = torch.empty(*lead, nb, 2 + T * A, dtype=torch.float32, device=Us.device)
+    partials = (torch.empty(*lead, nb, 2 + T * A, dtype=torch.float32, device=Us.device)
+                if pass2 else None)
     err = lib.mppi_solve_partials(
         fam.fid, xs.data_ptr(), Us.data_ptr(), fam.params.data_ptr(),
         goals.data_ptr() if goals is not None else None,
         seeds.data_ptr() if per_robot else None,
-        eps.data_ptr() if eps is not None else None, S.data_ptr(), partials.data_ptr(),
-        R, K, T, A, fam.dt, fam.lam_cost, float(lam_softmin),
+        eps.data_ptr() if eps is not None else None, S.data_ptr(),
+        partials.data_ptr() if pass2 else None,
+        R, K, T, A, fam.dt, fam.lam_cost, float(lam_softmin) if pass2 else 1.0,
         *_noise_words(0 if per_robot else int(seeds), step, it), int(antithetic),
         float(ou_beta), _ou_c(ou_beta), _stream(),
     )
-    _raise_on(err, f"solve_partials<{fam.name}>")
-    _launch_solve_partials.launches += 1
-    _launch_solve_partials.family_launches[fam.name] += 1
-    return S, partials
-
-
-_launch_solve_partials.launches = 0
-_launch_solve_partials.family_launches = dict.fromkeys(FAMILY_NAMES, 0)
+    kernel = "solve_partials" if pass2 else "rollout_costs"
+    _raise_on(err, f"{kernel}<{fam.name}>")
+    _LAUNCHES[kernel] += 1
+    _FAMILY_LAUNCHES[kernel][fam.name] += 1
+    return (S, partials) if pass2 else S
 
 
 def family_solve_partials(
@@ -251,20 +310,7 @@ def family_solve_partials(
     kernel) on CUDA tensors, its plain version on CPU tensors. x0 (S,),
     U (T, A), goal (S,) for a family with a goal, else None; see
     :func:`family_solve_partials_reference` for the outputs."""
-    T, A = U.shape if U.dim() == 2 else (-1, -1)
-    _check_family(fam, T, A, K, antithetic)
-    S_dim = fam.state_dim
-    for name, t, shape in (
-        ("x0", x0, (S_dim,)), ("U", U, (T, A)),
-    ) + ((("goal", goal, (S_dim,)),) if fam.has_goal else ()) + (
-        (("eps", eps, (T, K, A)),) if eps is not None else ()
-    ):
-        _check(name, t, shape)
-    _check_goal(fam, goal)
-    tensors = (x0, U, fam.params) + ((goal,) if fam.has_goal else ()) + (
-        (eps,) if eps is not None else ()
-    )
-    if not _on_cuda(*tensors):
+    if not _solo_on_cuda(fam, x0, U, goal, K, antithetic, eps):
         return family_solve_partials_reference(
             fam, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta, eps,
         )
@@ -283,29 +329,70 @@ def fleet_family_solve_partials(
     per-robot seeds or one int for every robot, eps (R, T, K, A) or None; the
     family's parameters, both λ, (step, it), antithetic and OU are shared.
     Returns ``(S (R, K), partials (R, nb, 2 + T·A))``."""
-    if Us.dim() != 3:
-        raise ValueError(f"Us must be (R, T, A), got {tuple(Us.shape)}")
-    R, T, A = Us.shape
-    _check_fleet(R)
-    _check_family(fam, T, A, K, antithetic)
-    S_dim = fam.state_dim
-    for name, t, shape in (
-        ("xs", xs, (R, S_dim)), ("Us", Us, (R, T, A)),
-    ) + ((("goals", goals, (R, S_dim)),) if fam.has_goal else ()) + (
-        (("eps", eps, (R, T, K, A)),) if eps is not None else ()
-    ):
-        _check(name, t, shape)
-    _check_goal(fam, goals)
-    _check_seeds(seeds, R)
-    tensors = (xs, Us, fam.params) + ((goals,) if fam.has_goal else ()) + (
-        (eps,) if eps is not None else ()
-    ) + ((seeds,) if isinstance(seeds, torch.Tensor) else ())
-    if not _on_cuda(*tensors):
+    if not _fleet_on_cuda(fam, xs, Us, goals, K, seeds, antithetic, eps):
         return fleet_family_solve_partials_reference(
             fam, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta, eps,
         )
     return _launch_solve_partials(
-        fam, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta, eps, R, (R,),
+        fam, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta, eps,
+        Us.shape[0], (Us.shape[0],),
+    )
+
+
+# --------------------------------------------------------------------------
+# K4: the costs-only sweep
+
+
+def rollout_costs_reference(
+    fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps=None,
+) -> torch.Tensor:
+    """Plain version of K4 for one robot: S (K,), the family's eager model and
+    cost on the port's noise stream (or the given ε)."""
+    return _plain_costs(fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps)[0]
+
+
+def fleet_rollout_costs_reference(
+    fam: FusedFamily, xs, Us, goals, K, seeds, step, it, antithetic, ou_beta, eps=None,
+) -> torch.Tensor:
+    """Plain version of K4 for a fleet: robot by robot, stacked into S (R, K)."""
+    return torch.stack([
+        rollout_costs_reference(
+            fam, xs[r], Us[r], None if goals is None else goals[r], K, seed, step, it,
+            antithetic, ou_beta, None if eps is None else eps[r],
+        )
+        for r, seed in enumerate(_robot_seeds(seeds, Us.shape[0]))
+    ])
+
+
+def fused_rollout_costs(
+    fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps=None,
+) -> torch.Tensor:
+    """K4 for one robot of family `fam` (the R = 1 launch) on CUDA tensors,
+    its plain version on CPU tensors: the rollout costs S (K,) of the solve
+    :func:`family_solve_partials` would run on the same inputs, and nothing
+    else. Arguments as there, without λ_softmin."""
+    if not _solo_on_cuda(fam, x0, U, goal, K, antithetic, eps):
+        return rollout_costs_reference(
+            fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps,
+        )
+    return _launch_solve_partials(
+        fam, x0, U, goal, None, K, int(seed), step, it, antithetic, ou_beta, eps, 1, (),
+    )
+
+
+def fleet_rollout_costs(
+    fam: FusedFamily, xs, Us, goals, K, seeds, step, it, antithetic, ou_beta, eps=None,
+) -> torch.Tensor:
+    """K4 for R robots in one launch on CUDA tensors, its plain version on CPU
+    tensors: S (R, K); arguments as :func:`fleet_family_solve_partials`,
+    without λ_softmin."""
+    if not _fleet_on_cuda(fam, xs, Us, goals, K, seeds, antithetic, eps):
+        return fleet_rollout_costs_reference(
+            fam, xs, Us, goals, K, seeds, step, it, antithetic, ou_beta, eps,
+        )
+    return _launch_solve_partials(
+        fam, xs, Us, goals, None, K, seeds, step, it, antithetic, ou_beta, eps, Us.shape[0],
+        (Us.shape[0],),
     )
 
 
@@ -353,11 +440,8 @@ def _launch_softmin_combine(
         dU.data_ptr(), _stream(),
     )
     _raise_on(err, "softmin_combine")
-    _launch_softmin_combine.launches += 1
+    _LAUNCHES["softmin_combine"] += 1
     return beta_eta, dU
-
-
-_launch_softmin_combine.launches = 0
 
 
 def softmin_combine(
@@ -520,33 +604,25 @@ def noise_dump(
         _ou_c(ou_beta), _stream(),
     )
     _raise_on(err, "noise_dump")
-    noise_dump.launches += 1
+    _LAUNCHES["noise_dump"] += 1
     if not words:
         return eps
     return eps, w_out.to(torch.int64) & 0xFFFFFFFF
 
 
-noise_dump.launches = 0
-
-# each CUDA kernel of csrc/mppi_solve.cu and the function that launches it
-# (the single-robot and the fleet wrappers share one launcher per kernel)
-KERNELS = {
-    "solve_partials": _launch_solve_partials,
-    "softmin_combine": _launch_softmin_combine,
-    "noise_dump": noise_dump,
-}
-
-
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
-    _launch_solve_partials.family_launches = dict.fromkeys(FAMILY_NAMES, 0)
+    for kernel in _LAUNCHES:
+        _LAUNCHES[kernel] = 0
+    for counts in _FAMILY_LAUNCHES.values():
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Launches of each CUDA kernel since the last reset."""
+    return dict(_LAUNCHES)
 
 
-def family_launch_counts() -> dict[str, int]:
-    """K1's launches by family (they add up to ``launch_counts()["solve_partials"]``)."""
-    return dict(_launch_solve_partials.family_launches)
+def family_launch_counts(kernel: str = "solve_partials") -> dict[str, int]:
+    """K1's (or K4's, ``kernel="rollout_costs"``) launches by family; they
+    add up to ``launch_counts()[kernel]``."""
+    return dict(_FAMILY_LAUNCHES[kernel])

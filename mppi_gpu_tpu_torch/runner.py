@@ -6,8 +6,9 @@ Measure state → solve → apply the first action to the world → repeat until
 the episode ends, timing every solve like the reference's "Average
 controller execution time" metric, with optional per-step debug dumps and
 the divergence guard. The world is the config family's (``envs.make_world``:
-point mass, pendulum or cart-pole) and runs on the CPU: its state is a few
-floats and the host needs it every cycle anyway.
+point mass, pendulum, cart-pole, unicycle, planar quadrotor or two-link arm)
+and runs on the CPU: its state is a few floats and the host needs it every
+cycle anyway.
 
 :func:`run_fleet_episode` runs R such loops at once on the controller's
 device (counterpart of ``run_fleet_episode_jit``).
@@ -145,7 +146,8 @@ def run_fleet_episode(
     if not isinstance(params, WorldParams):
         raise NotImplementedError(
             f"run_fleet_episode runs the batched point-mass world; a batched world "
-            f"for env '{ctrl.cfg.env}' is not ported yet (see ROADMAP.md, Open items §1 item 6)"
+            f"for env '{ctrl.cfg.env}' is not ported yet (see ROADMAP.md, Open items §1 item 6); "
+            "its fleet solve runs (BatchedMPPIController)"
         )
     world = PointMassWorld(params, device=ctrl.device)
     n = num_steps if num_steps is not None else params.num_control_steps()

@@ -165,7 +165,8 @@ def test_plain_version_matches_pallas_family_kernel(name, ou, anti):
     np.testing.assert_allclose(S.numpy(), np.asarray(S_j)[:K], **S_TOL)
     np.testing.assert_allclose(dU.numpy(), np.asarray(dU_j), **DU_TOL)
     np.testing.assert_allclose(float(beta), float(np.asarray(S_j)[:K].min()), **S_TOL)
-    assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0}
+    assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0,
+                                 "rollout_costs": 0}
 
 
 def test_family_dispatch():
@@ -417,7 +418,8 @@ def test_chip_smoke_family_checks_run_on_the_cpu():
         chip_smoke.check_family_philox(name, 300, 20, antithetic=True, ou_beta=0.55, device="cpu")
         chip_smoke.check_family_fleet(name, 3, 300, 20, device="cpu")
     chip_smoke.check_family_diverged(device="cpu")
-    assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0}
+    assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0,
+                                 "rollout_costs": 0}
 
 
 @pytest.fixture

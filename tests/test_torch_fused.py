@@ -71,7 +71,8 @@ def test_plain_version_matches_pallas_onepass_kernel(A, K, T, planar):
     np.testing.assert_allclose(S.numpy(), np.asarray(S_j)[:K], **S_TOL)
     np.testing.assert_allclose(dU.numpy(), np.asarray(dU_j), **DU_TOL)
     np.testing.assert_allclose(float(beta), float(np.asarray(S_j)[:K].min()), rtol=3e-5)
-    assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0}
+    assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0,
+                                 "rollout_costs": 0}
 
 
 @pytest.mark.parametrize("antithetic,ou_beta", [(False, 0.55), (True, 0.0), (True, 0.55)])
@@ -175,7 +176,7 @@ def test_noise_dump_on_cpu_is_the_philox_stream():
     eps, words = fs.noise_dump(sigma, 7, 40, 3, 4, 1, True, 0.3, words=True)
     assert torch.equal(eps, philox.sample_eps(3, 4, 1, 7, 40, sigma, antithetic=True, ou_beta=0.3))
     assert torch.equal(words, philox.philox_words(3, 4, 1, 7, 20, "cpu"))
-    assert fs.noise_dump.launches == 0
+    assert fs.launch_counts()["noise_dump"] == 0
 
 
 def test_backend_resolution():

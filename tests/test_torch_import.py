@@ -24,7 +24,10 @@ def test_import_loads_no_jax_and_builds_nothing():
         "import sys\n"
         "import mppi_gpu_tpu_torch, mppi_gpu_tpu_torch.cli, mppi_gpu_tpu_torch.runner\n"
         "import mppi_gpu_tpu_torch.controller, mppi_gpu_tpu_torch.convert\n"
-        "import mppi_gpu_tpu_torch.ops.fused_solve\n"
+        "import mppi_gpu_tpu_torch.ops.fused_solve, mppi_gpu_tpu_torch.batched\n"
+        "import mppi_gpu_tpu_torch.models.unicycle, mppi_gpu_tpu_torch.models.quadrotor\n"
+        "import mppi_gpu_tpu_torch.models.arm, mppi_gpu_tpu_torch.envs.unicycle_world\n"
+        "import mppi_gpu_tpu_torch.envs.quadrotor_world, mppi_gpu_tpu_torch.envs.arm_world\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mppi_gpu_tpu')]\n"
         "assert not bad, bad\n"
         "assert 'mppi_gpu_tpu_torch.ops._build' not in sys.modules\n"
@@ -49,7 +52,7 @@ def test_unported_families_raise_naming_roadmap():
     from mppi_gpu_tpu_torch.models import dynamics_for_config
     from mppi_gpu_tpu_torch.ops.cost import make_cost
 
-    for name in ("quadrotor", "quadrotor3d", "unicycle", "arm"):
+    for name in ("quadrotor3d",):
         cfg = load_config(os.path.join(ROOT, "configs", f"{name}.yaml"))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dynamics_for_config(cfg, "cpu")
