@@ -15,7 +15,12 @@ pendulum and cart-pole instances against their plain versions, and the CLI
 on configs/pendulum.yaml and configs/cartpole.yaml, phases 11-12), the
 coupled A=2 families (K1's unicycle, quadrotor and arm instances, and the
 CLI on configs/unicycle.yaml, quadrotor.yaml and arm.yaml, phases 13-14),
-and the costs-only sweep K4 for every family instance (phase 15). Every
+the costs-only sweep K4 for every family instance (phase 15), and the last
+two families, the point mass with the obstacle cost and the 3-D quadrotor
+(K1's LtiObstacle<2>, LtiObstacle<3> and Quadrotor3D instances and the
+controller's pack after a cost reassignment, phase 16; the CLI on
+configs/quadrotor3d.yaml, the obstacle quality episode and the ported
+obstacle and flight examples, phase 17). Every
 phase prints one line (or a few); any failure raises and the script exits
 non-zero without the final line. Without a CUDA device it exits 1 at once.
 The last two lines are a JSON object describing every kernel, K1 once per
@@ -27,7 +32,8 @@ instructions per step from the built SASS, or bytes) and
 
 The ``check_*`` functions are also called by the GPU tests
 (``tests/test_torch_fused.py``, ``tests/test_torch_fleet.py``,
-``tests/test_torch_families.py``, ``tests/test_torch_coupled.py``) at small shapes.
+``tests/test_torch_families.py``, ``tests/test_torch_coupled.py``,
+``tests/test_torch_obstacle_q3d.py``) at small shapes.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -56,13 +63,41 @@ FAMILIES = ("pendulum", "cartpole")
 # quadrotor, end-effector distance of the arm, in m
 COUPLED = ("unicycle", "quadrotor", "arm")
 COUPLED_QUALITY_THRESHOLD_M = {"unicycle": 0.4, "quadrotor": 0.5, "arm": 0.5}
+# the last two families' instances: the point mass with the obstacle cost at
+# A=2 (examples/obstacle_nav.py's config) and A=3 (the obstacle quality
+# config below), and the 3-D quadrotor (configs/quadrotor3d.yaml); their K1
+# entries in the kernels line
+LAST = ("obstacle2d", "obstacle3d", "quadrotor3d")
+# steady-state tripwires (bench.QUALITY_THRESHOLDS): the 3-D quadrotor's
+# distance to the goal, the obstacle quality episode's, in m
+LAST_QUALITY_THRESHOLD_M = {"quadrotor3d": 0.8, "obstacle": 0.5}
+# bench._quality_cfg("obstacle") as literals (this script imports nothing of
+# bench.py): point_mass3d's widths at K=2048, T=50 with two obstacles whose
+# radii the planner sees inflated by bench.QUALITY_OBSTACLE_MARGIN; the
+# clearance is scored against the true radii
+OBSTACLES_3D = ((0.5, 0.25, 0.4, 0.2), (0.2, 0.4, 0.1, 0.15))
+OBSTACLE_MARGIN = 0.06
+# whether one episode clears the true surfaces is not a property of the
+# controller: rounding alone flips it. The JAX package's own two loops over
+# the same threefry noise (step by step, and bench.quality_row's whole-episode
+# jit) disagree on its sign in 10 of seeds 0-31, and the two packages'
+# controllers fed one noise stream part by 1e-3 within 10-33 control steps
+# (tests/_obstacle_noise_probe.py on the CPU). So the clearance is held as a
+# rate over seeds 0-63 against the reference's over the same seeds:
+# bench.quality_row("obstacle", backend="scan", seed=s) clears in 43 of 64
+# (the probe with --jax-row-only --seeds 64). The port's share must not be
+# below it by a one-sided Fisher exact test at 1 %: 29 of 64 pass, 28 fail,
+# and an obstacle term that does not fire sends every episode through the
+# first sphere
+OBSTACLE_SEEDS, OBSTACLE_REF_CLEAR, OBSTACLE_ALPHA = 64, 43, 0.01
 # the angle's index in the state and the world's start (envs/*_world.py)
 FAMILY_ANGLE = {"pendulum": 0, "cartpole": 1}
 FAMILY_INIT_THETA = {"pendulum": 3.14159265, "cartpole": 0.15}
 # the kernels JSON line: K1 once per family instance, then K2 and K3
 KERNEL_ENTRIES = ("solve_partials<lti>", "solve_partials<pendulum>", "solve_partials<cartpole>",
                   "solve_partials<unicycle>", "solve_partials<quadrotor>", "solve_partials<arm>",
-                  "softmin_combine", "noise_dump", "rollout_costs")
+                  "solve_partials<lti-obstacle,A=2>", "solve_partials<lti-obstacle,A=3>",
+                  "solve_partials<quadrotor3d>", "softmin_combine", "noise_dump", "rollout_costs")
 # bar of the fleet's mean final goal distance (point_mass2d, R=8 on the circle
 # of examples/fleet.py, full episode): the JAX package's own fleet ends that
 # episode at 0.364 m on the CPU, so the bar is that figure + 0.05 m
@@ -132,16 +167,29 @@ def _oracle():
 def kernel_key(mangled: str) -> str:
     """A kernel's readable name from its mangled one: K1 instances read
     solve_partials<family,A=..,inj=..>, K4's (K1's template without its
-    second pass) rollout_costs<family,A=..,inj=..>, K3's noise_dump<A=..>."""
+    second pass) rollout_costs<family,A=..,inj=..>, K3's noise_dump<A=..>;
+    the family under its name in ops/families (the struct's name, lower
+    case, is the family's without its hyphen)."""
+    from mppi_gpu_tpu_torch.ops.families import FAMILY_NAMES
+
     k = re.search(r"(solve_partials|softmin_combine|noise_dump)_kernel", mangled)
     name = k.group(1) if k else mangled
-    fam = re.search(r"(Lti|Pendulum|CartPole|Unicycle|Quadrotor|Arm)", mangled)
+    fam = re.search(r"(LtiObstacle|Lti|Pendulum|CartPole|Unicycle|Quadrotor3D|Quadrotor|Arm)",
+                    mangled)
     ints, bools = re.findall(r"Li(\d+)E", mangled), re.findall(r"Lb(\d)E", mangled)
     if len(bools) == 2:  # <..., INJ, PASS2>
         name = "solve_partials" if bools.pop() == "1" else "rollout_costs"
-    args = (([fam.group(1).lower()] if fam else []) + ([f"A={ints[-1]}"] if ints else [])
+    family = {n.replace("-", ""): n for n in FAMILY_NAMES}[fam.group(1).lower()] if fam else None
+    args = (([family] if fam else []) + ([f"A={ints[-1]}"] if ints else [])
             + [f"inj={b}" for b in bools])
     return name + (f"<{','.join(args)}>" if args else "")
+
+
+def entry_key(fam) -> str:
+    """The kernels line's K1 entry of a fused family: solve_partials<name>,
+    with A for the obstacle family, whose main path runs two instances."""
+    a = f",A={fam.action_dim}" if fam.name == "lti-obstacle" else ""
+    return f"solve_partials<{fam.name}{a}>"
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -243,6 +291,29 @@ def philox_loop_steps(instrs: list[tuple[int, str]]) -> list[float]:
     return steps
 
 
+def obstacle_loop_step(instrs: list[tuple[int, str]]) -> float:
+    """Instructions per obstacle per horizon step of `LtiObstacle<A>::cost`
+    in a kernel's Philox loop. The obstacle count M arrives at run time, so
+    the loop over the obstacles sits behind a forward branch (M < 1) that
+    :func:`philox_loop_steps` skips as a slow path and leaves out. Here it is
+    the loop nested in the Philox loop that holds float compares (FSETP, one
+    per obstacle; the math slow paths nested there hold none): its body over
+    its compares, since the compiler unrolls it (4× in this build)."""
+    loops = [(t, a) for a, ins in instrs if (t := _branch_target(ins)) is not None and t < a]
+    hot = [(s, e) for s, e in loops
+           if any(_PHILOX_MUL.search(i) for x, i in instrs if s <= x <= e)]
+    per = []
+    for s, e in loops:
+        if (s, e) in hot or not any(s2 < s and e <= e2 for s2, e2 in hot):
+            continue
+        body = [i for x, i in instrs if s <= x <= e and not i.startswith("NOP")]
+        compares = sum(i.lstrip("@!P0123456 ").startswith("FSETP") for i in body)
+        if compares:
+            per.append(len(body) / compares)
+    expect(bool(per), "no obstacle loop nested in the Philox loop")
+    return min(per)
+
+
 # one NVIDIA H100 SXM (NVIDIA's data sheet)
 H100_SMS, H100_LANES, H100_BYTES_PER_S, H100_FP32_PER_S = 132, 128, 3.35e12, 67e12
 
@@ -266,10 +337,14 @@ def solve_bound(steps: dict, fam, K: int, T: int, clock_mhz: float, R: int = 1,
     ΔU needs, A·(1 + 5 + 5) per step: the product e·ε, five warp shuffles
     and five adds per action. K1's second noise draw is not counted: it is
     this kernel's choice (ε stored once and read back would do), not work
-    the function needs. The bytes are x0, U, goal, the pack and S (K1 also
-    its partials), each read or written once."""
+    the function needs. The obstacle family adds its M obstacles' loop
+    (:func:`obstacle_loop_step`, under the key obstacle_loop<...> of
+    `steps`) to every step. The bytes are x0, U, goal, the pack and S (K1
+    also its partials), each read or written once."""
     A, S = fam.action_dim, fam.state_dim
     per_step = steps[f"rollout_costs<{fam.name},A={A},inj=0>"][0]
+    if fam.name == "lti-obstacle":
+        per_step += fam.cost.centers.shape[0] * steps[f"obstacle_loop<{fam.name},A={A},inj=0>"][0]
     floats = R * (S + T * A + (S if fam.has_goal else 0) + K) + fam.n_params
     if pass2:
         per_step += 11 * A
@@ -601,6 +676,8 @@ FAMILY_START = {
     "pendulum": (np.pi - 0.3, 0.4), "cartpole": (0.1, 0.25, -0.05, 0.3),
     "unicycle": (0.0, 0.0, 0.0), "quadrotor": (-1.0, 0.0, 0.0, 0.0, 0.0, 0.0),
     "arm": (-1.5707963, 0.0, 0.0, 0.0),
+    "obstacle2d": (0.0,) * 4, "obstacle3d": (0.0,) * 6,
+    "quadrotor3d": (-1.0, 0.0, 0.5, 1.0) + (0.0,) * 9,
 }
 # K1 + K2 against the plain float64 version on the CPU: no further from it
 # than the plain float32 version is, by a factor 2 plus this share of the
@@ -659,10 +736,11 @@ def _float64_family(fam):
 
     import torch
 
-    def f64(obj):
+    def f64(obj):  # every tensor field, those of a nested cost (a base) too
         return dataclasses.replace(obj, **{
-            f.name: getattr(obj, f.name).to("cpu", torch.float64)
-            for f in dataclasses.fields(obj) if isinstance(getattr(obj, f.name), torch.Tensor)
+            f.name: v.to("cpu", torch.float64) if isinstance(v, torch.Tensor) else f64(v)
+            for f in dataclasses.fields(obj)
+            if isinstance(v := getattr(obj, f.name), torch.Tensor) or dataclasses.is_dataclass(v)
         })
 
     return dataclasses.replace(fam, dynamics=f64(fam.dynamics), cost=f64(fam.cost),
@@ -843,50 +921,108 @@ def check_family_diverged(device: str = "cuda") -> None:
                    S_rtol=1e-5)
 
 
-def check_coupled_diverged(name: str, device: str = "cuda") -> str:
-    """Diverging rollouts on K1's unicycle, quadrotor and arm instances,
-    against the plain version. Unicycle and quadrotor: a block driven by
-    ε = 1e30 diverges (+inf S, weight 0) while the others solve as before.
-    Arm: its joint-rate saturation holds any torque to finite rates, so it
-    starts instead from rates of 1e20 at q2 = 0, where B·sin q2 · q̇² is
-    0 · inf = NaN; the saturation keeps that NaN (torch.clamp does, fminf
-    would not), so every rollout costs NaN, β and the action are NaN and
-    the guard fires, on the fused and the eager backend alike. Returns what
-    happened."""
+def check_nan_guard(name: str, x0, label: str, device: str = "cuda") -> None:
+    """From start `x0` every rollout of family `name` turns NaN: S and β are
+    NaN, the action is NaN and the guard fires, on the fused (on a CUDA
+    device; the plain version on the CPU) and the eager backend alike."""
     import torch
 
     from mppi_gpu_tpu_torch.controller import MPPIController
-    from mppi_gpu_tpu_torch.ops import fused_solve as fs
     from mppi_gpu_tpu_torch.utils.guard import ControllerDiverged, check_solve
 
-    if name != "arm":
-        p = make_family_problem(name, 1000, 50, device=device)
-        eps = p["eps"].clone()
-        blk = np.s_[fs.BLOCK:2 * fs.BLOCK]
-        eps[:, blk] = 1e30
-        got = fs.family_fused_solve(*family_args(p), eps=eps)
-        want = fs.family_fused_solve_reference(*family_args(p), eps=eps)
-        compare_solves(f"{name} one diverged block", p, got, want, S_rtol=1e-5)
-        S = _np(got[0])
-        expect(np.isposinf(S[blk]).all() and np.isfinite(np.delete(S, blk)).all(),
-               f"{name} one diverged block: expected +inf exactly on block 1")
-        res = finish(p, *got)
-        expect(bool((res.info.weights[blk] == 0).all()), f"{name}: diverged rollouts got weight")
-        expect(bool(torch.isfinite(res.action).all()), f"{name} one diverged block: action not finite")
-        return "a block at eps=1e30 -> +inf, weight 0, the rest as plain"
-    cfg = _config("arm").replace(samples=1000, horizon=40)
+    cfg = _config(name).replace(samples=1000, horizon=40)
     for backend in ("auto", "eager"):
         ctrl = MPPIController(cfg, device=device, rollout_backend=backend)
-        res = ctrl.solve_auto(torch.tensor([0.0, 0.0, 1e20, 1e20]), ctrl.init_action_seq(), 0)
+        res = ctrl.solve_auto(torch.tensor(x0), ctrl.init_action_seq(), 0)
         info = res.info.cpu()
         expect(bool(torch.isnan(info.costs).all() and torch.isnan(info.beta)),
-               f"arm from rates 1e20 ({ctrl.rollout_backend}): S and beta are not all NaN")
+               f"{name} {label} ({ctrl.rollout_backend}): S and beta are not all NaN")
         try:
             check_solve(0, _np(res.action), info)
         except ControllerDiverged:
             continue
-        raise SmokeFailure(f"arm from rates 1e20 ({ctrl.rollout_backend}): the guard did not fire")
-    return "from rates 1e20 -> NaN S and beta, NaN action, ControllerDiverged (fused and eager)"
+        raise SmokeFailure(f"{name} {label} ({ctrl.rollout_backend}): the guard did not fire")
+
+
+def check_coupled_diverged(name: str, device: str = "cuda") -> str:
+    """Diverging rollouts on K1's unicycle, quadrotor, arm, obstacle and 3-D
+    quadrotor instances, against the plain version. All but the arm: a block
+    driven by ε = 1e30 (the 3-D quadrotor's on its thrust alone: 1e30 on its
+    torques would spin the quaternion past float range into inf·0 = NaN)
+    diverges (+inf S, weight 0) while the others solve as before. Arm: its
+    joint-rate saturation holds any torque to finite rates, so it starts
+    instead from rates of 1e20 at q2 = 0, where B·sin q2 · q̇² is 0 · inf =
+    NaN; the saturation keeps that NaN (torch.clamp does, fminf would not).
+    The 3-D quadrotor also starts from a zero quaternion, which stays zero,
+    so the renormalisation takes rsqrtf(0) = inf and the state turns NaN. In
+    both NaN cases every rollout costs NaN, β and the action are NaN and the
+    guard fires, on the fused and the eager backend alike (check_nan_guard).
+    Returns what happened."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    if name == "arm":
+        check_nan_guard("arm", [0.0, 0.0, 1e20, 1e20], "from rates 1e20", device)
+        return "from rates 1e20 -> NaN S and beta, NaN action, ControllerDiverged (fused and eager)"
+    p = make_family_problem(name, 1000, 50, device=device)
+    eps = p["eps"].clone()
+    blk = np.s_[fs.BLOCK:2 * fs.BLOCK]
+    eps[:, blk, 0 if name == "quadrotor3d" else slice(None)] = 1e30
+    got = fs.family_fused_solve(*family_args(p), eps=eps)
+    want = fs.family_fused_solve_reference(*family_args(p), eps=eps)
+    compare_solves(f"{name} one diverged block", p, got, want, S_rtol=1e-5)
+    S = _np(got[0])
+    expect(np.isposinf(S[blk]).all() and np.isfinite(np.delete(S, blk)).all(),
+           f"{name} one diverged block: expected +inf exactly on block 1")
+    res = finish(p, *got)
+    expect(bool((res.info.weights[blk] == 0).all()), f"{name}: diverged rollouts got weight")
+    expect(bool(torch.isfinite(res.action).all()), f"{name} one diverged block: action not finite")
+    out = "a block at eps=1e30 -> +inf, weight 0, the rest as plain"
+    if name == "quadrotor3d":
+        check_nan_guard(name, [0.0] * 13, "from a zero quaternion", device)
+        out += ("; from a zero quaternion -> rsqrtf(0) = inf, NaN S and beta, NaN action, "
+                "ControllerDiverged (fused and eager)")
+    return out
+
+
+def check_reassigned_cost(device: str = "cuda") -> str:
+    """The controller's pack follows a reassigned cost: after
+    ``ctrl.cost = dataclasses.replace(ctrl.cost, w=...)`` (the 3-D
+    quadrotor's tour weights of examples/quadrotor3d_flight.py; the obstacle
+    cost's base weights and penalty) the fused solve (K1 + K2 on a CUDA
+    device) equals the eager solve with the new cost on the same ε, and
+    differs from the solve with the old weights."""
+    import dataclasses
+
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import MPPIController
+
+    out = []
+    for name in ("quadrotor3d", "obstacle2d"):
+        cfg = _config(name).replace(samples=2048, horizon=30)
+        fused = MPPIController(cfg, device=device, rollout_backend="auto")
+        eager = MPPIController(cfg, device=device, rollout_backend="eager")
+        x = torch.tensor(FAMILY_START[name], dtype=torch.float32, device=device)
+        U = fused.init_action_seq()
+        eps = fused._eps(5, 0, 0)
+        before = fused.solve_with_eps(x, U, eps)
+        c = fused.cost
+        if name == "quadrotor3d":
+            new = dataclasses.replace(c, w=torch.tensor([4.0, 4.0, 4.0, 10.0, 1.2, 1.2, 1.2, 0.5],
+                                                        device=c.w.device))
+        else:
+            new = dataclasses.replace(c, base=dataclasses.replace(c.base, w=c.base.w * 3.0),
+                                      penalty=c.penalty * 2.0)
+        fused.cost = eager.cost = new
+        got, want = fused.solve_with_eps(x, U, eps), eager.solve_with_eps(x, U, eps)
+        label = f"{name} after a cost reassignment ({fused.rollout_backend} vs eager)"
+        close(f"{label} S", _np(got.info.costs), _np(want.info.costs), 1e-5)
+        close(f"{label} action", _np(got.action), _np(want.action), **TOL["u"])
+        expect(not torch.equal(got.info.costs, before.info.costs), f"{label}: S did not move")
+        out.append(name)
+    return f"{', '.join(out)}: the fused solve after `ctrl.cost = replace(ctrl.cost, w=...)` equals the eager one"
 
 
 def check_costs_only(name: str, K: int, T: int, *, A: int | None = None, antithetic=False,
@@ -1011,9 +1147,25 @@ def paired_median_ms(kernel_fn, plain_fn, reps: int, plain_reps: int) -> tuple[f
 
 
 def _config(name: str):
-    from mppi_gpu_tpu_torch.config import load_config
+    """configs/<name>.yaml, or an obstacle instance's config:
+    examples/obstacle_nav.py's (point_mass2d with its obstacles) for
+    obstacle2d, the obstacle quality config (OBSTACLES_3D) for obstacle3d."""
+    from mppi_gpu_tpu_torch.config import MPPIConfig, load_config
 
-    return load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", f"{name}.yaml"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    if name == "obstacle2d":
+        from mppi_gpu_tpu_torch.examples.obstacle_nav import OBSTACLES
+
+        return load_config(os.path.join(root, "configs", "point_mass2d.yaml")).replace(
+            cost_type="obstacle", obstacles=OBSTACLES, obstacle_w=800.0, noise_beta=0.5)
+    if name == "obstacle3d":
+        return MPPIConfig(
+            env="point_mass3d", samples=2048, state_dim=6, action_dim=3, horizon=50, dt=0.1,
+            lambda_=1.0, noise=(0.25, 0.25, 0.25), init_act=(0.0, 0.0, 0.0), max_a=(1.0, 1.0, 1.0),
+            goal=(1.0, 0.5, 0.75, 0.0, 0.0, 0.0), cost_type="obstacle",
+            cost_w=(1.0, 1.0, 1.0, 5.0, 5.0, 5.0),
+            obstacles=tuple((*o[:-1], o[-1] + OBSTACLE_MARGIN) for o in OBSTACLES_3D))
+    return load_config(os.path.join(root, "configs", f"{name}.yaml"))
 
 
 def coupled_distance(name: str, xs: np.ndarray) -> np.ndarray:
@@ -1062,6 +1214,7 @@ def family_phase(tag: str, name: str, modes, err: dict, smi: str) -> tuple[dict,
     from mppi_gpu_tpu_torch.ops import philox
 
     cfg = _config(name)
+    key = entry_key(make_family_problem(name, 128, 8)["fam"])
     out = []
     for K, T in ((cfg.samples, cfg.horizon), (100_000, 200)):
         e = check_family_injected(name, K, T)
@@ -1072,7 +1225,6 @@ def family_phase(tag: str, name: str, modes, err: dict, smi: str) -> tuple[dict,
               f"{e['plain_S_rel_max']:.3g})")
         for anti, ou in modes:
             e = check_family_philox(name, K, T, antithetic=anti, ou_beta=ou)
-            key = f"solve_partials<{name}>"
             err[key] = max(err[key], e["solve_partials"])
             err["softmin_combine"] = max(err["softmin_combine"], e["softmin_combine"])
             print(f"{tag} {name} philox K={K} T={T} anti={anti} ou={ou}: K1 S err "
@@ -1085,7 +1237,7 @@ def family_phase(tag: str, name: str, modes, err: dict, smi: str) -> tuple[dict,
         _, part = fs.family_solve_partials(*args)
         A = p["A"]
         times = {
-            f"solve_partials<{name}>": paired_median_ms(
+            key: paired_median_ms(
                 lambda: fs.family_solve_partials(*args),
                 lambda: fs.family_solve_partials_reference(*args), 20, 3),
             "softmin_combine": paired_median_ms(
@@ -1107,7 +1259,7 @@ def family_phase(tag: str, name: str, modes, err: dict, smi: str) -> tuple[dict,
     fargs = (p["fam"], xs, Us, goals, p["lam"], K, philox.fleet_seeds(7, R).cuda(), 3, 0, False, 0.0)
     _, fpart = fs.fleet_family_solve_partials(*fargs)
     fleet_times = {
-        f"solve_partials<{name}>": paired_median_ms(
+        key: paired_median_ms(
             lambda: fs.fleet_family_solve_partials(*fargs),
             lambda: fs.fleet_family_solve_partials_reference(*fargs), 20, 1),
         "softmin_combine": paired_median_ms(
@@ -1137,6 +1289,67 @@ def family_phase(tag: str, name: str, modes, err: dict, smi: str) -> tuple[dict,
               f"idle share {prof['idle']:.4f}, K1 {prof['K1_us']:.2f} us, K2 {prof['K2_us']:.2f} us "
               f"per step ({smi})")
     return out[0], out[1], out[2]
+
+
+def obstacle_quality_episodes(smi: str, seeds: int = OBSTACLE_SEEDS) -> int:
+    """The obstacle quality episode (obstacle3d, fused) under seeds 0 ..
+    `seeds` − 1, each launch counted from 0 before it and read after it:
+    every steady distance under its bar, and the share of episodes whose
+    clearance to the true spheres is above 0 not below the JAX reference's
+    over the same seeds (OBSTACLE_REF_CLEAR of OBSTACLE_SEEDS) at
+    OBSTACLE_ALPHA (:func:`fisher_below`). Returns K1's launches in the
+    configured episode (seed 0), the main path's."""
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.examples.obstacle_nav import min_clearance
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.runner import run_closed_loop
+
+    cfg = _config("obstacle3d")
+    steady, clear = [], []
+    for seed in range(seeds):
+        fs.reset_launch_counts()
+        t0 = time.perf_counter()
+        ep = run_closed_loop(MPPIController(cfg.replace(seed=seed), device="cuda",
+                                            rollout_backend="fused"))
+        ep_s = time.perf_counter() - t0
+        by_family = fs.family_launch_counts()
+        expect(by_family == dict(dict.fromkeys(by_family, 0), **{"lti-obstacle": len(ep.us) + 1}),
+               f"obstacle quality episode: K1 by family {by_family} for {len(ep.us)} steps")
+        d = np.linalg.norm(ep.xs[:, :3] - np.asarray(cfg.goal[:3]), axis=1)
+        steady.append(float(d[-max(len(d) // 4, 1):].mean()))
+        clear.append(min_clearance(ep.xs, OBSTACLES_3D))
+        if seed == 0:  # the configured episode: the main path's launches
+            main_launches = by_family["lti-obstacle"]
+            print(f"[17] obstacle quality episode (obstacle3d K={cfg.samples} T={cfg.horizon}, "
+                  f"obstacles inflated by {OBSTACLE_MARGIN}, fused): {len(ep.us)} steps in "
+                  f"{ep_s:.2f} s, steady {steady[0]:.4f} m from the goal (threshold "
+                  f"{LAST_QUALITY_THRESHOLD_M['obstacle']}), least clearance to the true surfaces "
+                  f"{clear[0]:+.4f} m, average controller execution time "
+                  f"{ep.solve_ms['mean_ms']:.3f} ms ({smi}); K1 by family {by_family}")
+    n_clear = sum(c > 0 for c in clear)
+    p_below = fisher_below(n_clear, seeds, OBSTACLE_REF_CLEAR, OBSTACLE_SEEDS)
+    print(f"[17] obstacle quality episodes, seeds 0-{seeds - 1}: steady max {max(steady):.4f} m; "
+          f"clearance > 0 in {n_clear} of {seeds} (JAX reference {OBSTACLE_REF_CLEAR} of "
+          f"{OBSTACLE_SEEDS}; one-sided Fisher p {p_below:.4f}, bar {OBSTACLE_ALPHA}), median "
+          f"{np.median(clear):+.4f} m, min {min(clear):+.4f} m; per seed "
+          f"{[round(c, 4) for c in clear]}")
+    expect(max(steady) < LAST_QUALITY_THRESHOLD_M["obstacle"],
+           f"obstacle quality episodes: steady {steady} m")
+    expect(p_below > OBSTACLE_ALPHA,
+           f"obstacle quality episodes: clear in {n_clear} of {seeds}, below the JAX reference's "
+           f"{OBSTACLE_REF_CLEAR} of {OBSTACLE_SEEDS} (p {p_below:.4g}): clearances {clear} m")
+    return main_launches
+
+
+def fisher_below(k: int, n: int, k_ref: int, n_ref: int) -> float:
+    """One-sided Fisher exact test: the probability that k or fewer of n
+    trials succeed when the k + k_ref successes of the n + n_ref trials fall
+    at random between the two samples (hypergeometric), that is, the p-value
+    of "the rate of the first sample is below the reference's"."""
+    total, hits = n + n_ref, k + k_ref
+    lo = max(0, hits - n_ref)
+    return sum(math.comb(hits, j) * math.comb(total - hits, n - j)
+               for j in range(lo, k + 1)) / math.comb(total, n)
 
 
 def main() -> int:
@@ -1175,8 +1388,11 @@ def main() -> int:
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    sass_steps = {kernel_key(k): philox_loop_steps(v) for k, v in sass_functions(sass).items()}
-    sass_steps = {k: v for k, v in sass_steps.items() if v and "inj=1" not in k}
+    kernels = {kernel_key(k): v for k, v in sass_functions(sass).items()}
+    sass_steps = {k: s for k, v in kernels.items() if "inj=1" not in k and (s := philox_loop_steps(v))}
+    for k, v in kernels.items():  # the obstacle family's loop over its M obstacles
+        if k.startswith("rollout_costs<lti-obstacle,") and "inj=0" in k:
+            sass_steps[k.replace("rollout_costs", "obstacle_loop")] = [obstacle_loop_step(v)]
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1493,7 +1709,7 @@ def main() -> int:
     # [15] K4, the costs-only sweep, for every family instance at K=10⁵,
     # T=200: the sweep itself (launches counted), then its S equal to K1's,
     # the plain version and K4 beside K1 on the card
-    instances = [("lti", A) for A in range(1, 5)] + [(n, None) for n in FAMILIES + COUPLED]
+    instances = [("lti", A) for A in range(1, 5)] + [(n, None) for n in FAMILIES + COUPLED + LAST]
     problems = {}
     for name, A in instances:
         if name == "lti":
@@ -1510,11 +1726,12 @@ def main() -> int:
     k4_launches = fs.launch_counts()["rollout_costs"]
     k4_by_family = fs.family_launch_counts("rollout_costs")
     expect(k4_launches == len(instances) and all(
-        k4_by_family[n] > 0 for n, _ in instances), f"K4 launches {k4_by_family}")
+        k4_by_family[fam.name] > 0 for fam, *_ in problems.values()), f"K4 launches {k4_by_family}")
     launches["rollout_costs"] = k4_launches
     floor = {}
     for name, A in instances:
-        modes = ((False, 0.0), (True, 0.0)) + (((False, 0.8),) if name == "arm" else ())
+        modes = ((False, 0.0), (True, 0.0)) + (
+            ((False, 0.8),) if name == "arm" else ((False, 0.5),) if name == "quadrotor3d" else ())
         for anti, ou in modes:
             e = check_costs_only(name, 100_000, 200, A=A, antithetic=anti, ou_beta=ou)
             err["rollout_costs"] = max(err["rollout_costs"], e["err"])
@@ -1527,16 +1744,94 @@ def main() -> int:
         label = f"{fam.name} A={fam.action_dim}"
         floor[label] = dict(ms=k4_ms, k1_ms=k1_ms, ratio=k4_ms / k1_ms,
                             bound_ms=solve_bound(sass_steps, fam, 100_000, 200, clock_mhz, pass2=False)[0])
+        if name in LAST:  # this PR's instances: K4 beside its plain version too
+            floor[label]["plain_ms"] = paired_median_ms(
+                lambda: fs.fused_rollout_costs(fam, x0, U, goal, 100_000, 7, 3, 0, False, 0.0),
+                lambda: fs.rollout_costs_reference(fam, x0, U, goal, 100_000, 7, 3, 0, False, 0.0),
+                5, 2)[1]
         print(f"[15] costs-only {label} K=100000 T=200: S bit-equal to K1's (iid, antithetic"
-              f"{', OU 0.8' if name == 'arm' else ''}; fleet robots equal to their R=1 launches), "
+              f"{''.join(f', OU {ou}' for _, ou in modes if ou)}; fleet robots equal to their R=1 "
+              f"launches), "
               f"max abs err vs plain {e['err']:.3g}; K4 {k4_ms:.4f} ms, K1 {k1_ms:.4f} ms, floor/K1 "
-              f"{k4_ms / k1_ms:.3f}; bound {floor[label]['bound_ms']:.4f} ms ({smi})")
+              f"{k4_ms / k1_ms:.3f}; bound {floor[label]['bound_ms']:.4f} ms"
+              + (f"; plain K4 {floor[label]['plain_ms']:.4f} ms" if name in LAST else "")
+              + f" ({smi})")
     fam, x0, U, goal = problems[("lti", 3)]
     floor_ms = paired_median_ms(
         lambda: fs.fused_rollout_costs(fam, x0, U, goal, 100_000, 7, 3, 0, False, 0.0),
         lambda: fs.rollout_costs_reference(fam, x0, U, goal, 100_000, 7, 3, 0, False, 0.0), 20, 3)
     print(f"[15] kernel rollout_costs lti A=3 K=100000 T=200: {floor_ms[0]:.4f} ms, plain "
           f"{floor_ms[1]:.4f} ms ({smi}); main-path launches {k4_by_family}")
+    lti_large_ms = paired_median_ms(
+        lambda: fs.family_solve_partials(fam, x0, U, goal, 1.0, 100_000, 7, 3, 0, False, 0.0),
+        lambda: fs.family_solve_partials_reference(fam, x0, U, goal, 1.0, 100_000, 7, 3, 0, False,
+                                                   0.0), 20, 3)
+    print(f"[15] kernel solve_partials<lti> A=3 K=100000 T=200: {lti_large_ms[0]:.4f} ms, plain "
+          f"{lti_large_ms[1]:.4f} ms ({smi})")
+
+    # [16] K1's LtiObstacle<2>, LtiObstacle<3> and Quadrotor3D instances (the
+    # obstacles counted from the pack at run time; 13 states at A=4): as
+    # phase 13, each also under OU 0.5 (the obstacle2d config's own);
+    # diverging rollouts; the controller's pack after a cost reassignment
+    print("[16] ptxas " + "; ".join(line for line in ptxas_summary(
+        lib_path.with_suffix(".log").read_text()) if re.search(r"(lti-obstacle|quadrotor3d),", line)))
+    for name in LAST:
+        family_ms[name], family_large_ms[name], family_fleet_ms[name] = family_phase(
+            "[16]", name, ((False, 0.0), (True, 0.0), (False, 0.5)), err, smi)
+        print(f"[16] {name} diverging rollouts: {check_coupled_diverged(name)}")
+    print(f"[16] cost reassignment: {check_reassigned_cost()}")
+
+    # [17] the last families' path, fused, launches counted from 0 before each
+    # run and read after it: the CLI on configs/quadrotor3d.yaml (opt-iters
+    # 2) for a full episode; the obstacle quality episode (obstacle3d, A=3)
+    # and the ported obstacle example (obstacle2d, A=2) with its own exit
+    # criterion; the ported flight example, which assigns ctrl.cost every step
+    from mppi_gpu_tpu_torch.examples import obstacle_nav, quadrotor3d_flight
+
+    fs.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = os.path.join(tmp, "quadrotor3d.csv")
+        out = _cli(["-c", os.path.join("configs", "quadrotor3d.yaml"), "--device", "cuda",
+                    "--rollout-backend", "fused", "-t", traj])
+        cols = read_csv_columns(traj)
+    q3d_launches, q3d_by_family = fs.launch_counts(), fs.family_launch_counts()
+    q3d_steps = int(re.search(r"episode finished: (\d+) control steps", out).group(1))
+    q3d_ms = float(re.search(r"Average controller execution time: ([\d.]+) ms", out).group(1))
+    cfg = _config("quadrotor3d")
+    start = FAMILY_START["quadrotor3d"]
+    xs = np.stack([np.concatenate([[start[i]], cols[f"x[{i}]"]]) for i in range(3)], 1)
+    d = np.linalg.norm(xs - np.asarray(cfg.goal[:3]), axis=1)
+    q3d_steady = float(d[-max(len(d) // 4, 1):].mean())
+    print(f"[17] cli closed loop configs/quadrotor3d.yaml (fused, full episode): {q3d_steps} steps x "
+          f"{cfg.opt_iters} iterations, steady {q3d_steady:.4f} m from the goal (threshold "
+          f"{LAST_QUALITY_THRESHOLD_M['quadrotor3d']}), average controller execution time "
+          f"{q3d_ms:.3f} ms ({smi}); launches {q3d_launches}, K1 by family {q3d_by_family}")
+    expect(q3d_steady < LAST_QUALITY_THRESHOLD_M["quadrotor3d"], f"quadrotor3d steady-state {q3d_steady} m")
+    expect(q3d_by_family == dict(dict.fromkeys(q3d_by_family, 0),
+                                 quadrotor3d=cfg.opt_iters * (q3d_steps + 1))
+           and q3d_launches["softmin_combine"] == q3d_launches["solve_partials"],
+           f"quadrotor3d path: launches {q3d_launches}, K1 by family {q3d_by_family}")
+    launches["solve_partials<quadrotor3d>"] = q3d_by_family["quadrotor3d"]
+
+    launches["solve_partials<lti-obstacle,A=3>"] = obstacle_quality_episodes(smi)
+
+    for tag, example, argv in (
+            ("obstacle2d", obstacle_nav, ["--device", "cuda", "--rollout-backend", "fused"]),
+            ("quadrotor3d", quadrotor3d_flight, ["--device", "cuda", "--rollout-backend", "fused"])):
+        fs.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = example.main(argv)
+        print("\n".join("    " + line for line in buf.getvalue().strip().splitlines()))
+        by_family = fs.family_launch_counts()
+        fam_name = "lti-obstacle" if tag == "obstacle2d" else "quadrotor3d"
+        print(f"[17] example {example.__name__.rsplit('.', 1)[1]} (fused): exit {rc}; K1 by family "
+              f"{by_family}")
+        expect(rc == 0, f"example {example.__name__} exited {rc}")
+        expect(by_family[fam_name] > 0 and sum(by_family.values()) == by_family[fam_name],
+               f"example {example.__name__}: K1 by family {by_family}")
+        if tag == "obstacle2d":
+            launches["solve_partials<lti-obstacle,A=2>"] = by_family[fam_name]
 
     # the kernels JSON line: times at each kernel's shape, beside its bound
     k12 = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
@@ -1548,6 +1843,9 @@ def main() -> int:
         "solve_partials<unicycle>": f"{k12} (family {PALLAS}:1152)",
         "solve_partials<quadrotor>": f"{k12} (family {PALLAS}:980)",
         "solve_partials<arm>": f"{k12} (family {PALLAS}:1318)",
+        "solve_partials<lti-obstacle,A=2>": f"{k12} (family {PALLAS}:805)",
+        "solve_partials<lti-obstacle,A=3>": f"{k12} (family {PALLAS}:805)",
+        "solve_partials<quadrotor3d>": f"{k12} (family {PALLAS}:1468)",
         "softmin_combine": k12,
         "noise_dump": f"{PALLAS}:2140, {PALLAS}:2872",
         "rollout_costs": f"{PALLAS}:1952, {PALLAS}:2813",
@@ -1568,21 +1866,22 @@ def main() -> int:
         "softmin_combine": combine_bound(-(-10_000 // fs.BLOCK), 200, 3, R=8)[0],
         "noise_dump": 8 * bounds["noise_dump"][0],
     }
-    for name in FAMILIES + COUPLED:
+    instance_of = {}  # K1 entry -> its family instance's config name
+    for name in FAMILIES + COUPLED + LAST:
         cfg = _config(name)
         fam = make_family_problem(name, 128, 8)["fam"]
-        bounds[f"solve_partials<{name}>"] = solve_bound(sass_steps, fam, cfg.samples, cfg.horizon,
-                                                        clock_mhz)
-        fleet_bounds[f"solve_partials<{name}>"] = solve_bound(
-            sass_steps, fam, cfg.samples, cfg.horizon, clock_mhz, R=8)[0]
+        key = entry_key(fam)
+        instance_of[key] = name
+        bounds[key] = solve_bound(sass_steps, fam, cfg.samples, cfg.horizon, clock_mhz)
+        fleet_bounds[key] = solve_bound(sass_steps, fam, cfg.samples, cfg.horizon, clock_mhz, R=8)[0]
     entries = []
     for name in KERNEL_ENTRIES:
         b_ms, b_by = bounds[name]
         entry = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
                  "launches": launches[name], "max_abs_err": err[name], "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None}
-        fam = name[len("solve_partials<"):-1] if name.startswith("solve_partials<") else None
-        if fam in FAMILIES + COUPLED:
+        fam = instance_of.get(name)
+        if fam is not None:
             (ms, plain_ms), (lms, lplain_ms) = family_ms[fam][name], family_large_ms[fam][name]
             fms, fplain_ms = family_fleet_ms[fam][name]
             shape = f"K={_config(fam).samples} T={_config(fam).horizon}"
@@ -1601,9 +1900,14 @@ def main() -> int:
                          fleet_launches=fleet_launches[name], fleet_ms=fleet_kernel_ms[name][0],
                          fleet_plain_ms=fleet_kernel_ms[name][1], fleet_bound_ms=fleet_bounds[name],
                          fleet_shape="R=8 A=3 K=10000 T=200")
-            if fam is None:
+            if name == "solve_partials<lti>":
+                entry.update(large_ms=lti_large_ms[0], large_plain_ms=lti_large_ms[1],
+                             large_shape="A=3 K=100000 T=200", large_bound_ms=solve_bound(
+                                 sass_steps, problems[("lti", 3)][0], 100_000, 200, clock_mhz)[0])
+            if not name.startswith("solve_partials<"):
                 entry.update(family_path_launches=family_launches[name],
-                             coupled_path_launches=coupled_launches[name])
+                             coupled_path_launches=coupled_launches[name],
+                             quadrotor3d_path_launches=q3d_launches[name])
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

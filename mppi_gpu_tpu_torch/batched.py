@@ -2,7 +2,8 @@
 (torch counterpart of ``mppi_gpu_tpu.batched``).
 
 Each robot has its own state, nominal sequence, seed and, for a cost with a
-goal (the point-mass, unicycle, quadrotor and arm families'), goal (R, s);
+goal (every family's but the pendulum's and the cart-pole's; the obstacle
+cost's is its quadratic base's, ``ops/cost.goal_of``), goal (R, s);
 the dynamics, the cost's weights, σ, λ, K and T are shared. A fleet of
 pendulums or cart-poles, whose costs aim at a built-in target, takes no
 goals (``goals=`` raises ``TypeError``).
@@ -23,8 +24,6 @@ stream under ``seeds[r]`` (``ops.philox.fleet_seeds``), counter
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from mppi_gpu_tpu_torch.config import MPPIConfig
@@ -39,7 +38,7 @@ from mppi_gpu_tpu_torch.controller import (
 from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops import philox
-from mppi_gpu_tpu_torch.ops.cost import Cost, batch_goals
+from mppi_gpu_tpu_torch.ops.cost import Cost, batch_goals, goal_of, with_goal
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
 
 
@@ -83,7 +82,7 @@ class BatchedMPPIController(MPPIController):
         self.n_robots = n_robots
         # a cost with a goal carries one goal row per robot, shared ones
         # repeated: the fused kernels read robot r's row
-        goal = getattr(self.cost, "goal", None)
+        goal = goal_of(self.cost)
         if goals is None and goal is not None:
             goals = goal if goal.dim() == 2 else goal.expand(n_robots, -1)
         if goals is not None:
@@ -111,9 +110,8 @@ class BatchedMPPIController(MPPIController):
 
     def _robot_cost(self, r: int) -> Cost:
         """Robot r's single-robot cost (its own goal)."""
-        if getattr(self.cost, "goal", None) is None:
-            return self.cost
-        return dataclasses.replace(self.cost, goal=self.cost.goal[r])
+        goal = goal_of(self.cost)
+        return self.cost if goal is None else with_goal(self.cost, goal[r])
 
     # -- solves ------------------------------------------------------------
     def _fused(self, xs, Us, seeds, step: int, it: int, eps=None) -> SolveResult:
@@ -122,7 +120,7 @@ class BatchedMPPIController(MPPIController):
         cfg = self.cfg
         K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[2], False)
         S, beta, eta, dU = fs.fleet_family_fused_solve(
-            self._family, xs, Us, getattr(self.cost, "goal", None), cfg.lambda_, K, seeds,
+            self._family, xs, Us, goal_of(self.cost), cfg.lambda_, K, seeds,
             step, it, anti, cfg.noise_beta, eps=eps,
         )
         return _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)

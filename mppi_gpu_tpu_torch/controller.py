@@ -10,9 +10,12 @@ update ``U += Σ_k w_k ε_k`` → clamp → shift. Two backends:
 
 ``auto`` picks ``fused`` on a CUDA device when the (model, cost) pair is a
 fused family (``ops.families``: the point-mass LTI model with the quadratic
-cost, the pendulum with its swing-up cost, the cart-pole with its balance
-cost, the unicycle, planar quadrotor and two-link arm with their waypoint,
-hover and reaching costs), and ``eager`` otherwise. Both backends
+or the obstacle cost, the pendulum with its swing-up cost, the cart-pole
+with its balance cost, the unicycle, planar quadrotor, two-link arm and 3-D
+quadrotor with their waypoint, hover, reaching and hover costs), and
+``eager`` otherwise. The fused family's parameters are packed when the
+controller's ``cost`` is assigned (at init or later, as the examples re-tune
+it), never per solve. Both backends
 draw the same noise stream (``ops.philox``): counter (k, t, step, it) under
 the seed, so a solve is a pure function of (seed, step, it) and replayable.
 """
@@ -28,7 +31,7 @@ from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops import families
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops import philox
-from mppi_gpu_tpu_torch.ops.cost import Cost, make_cost
+from mppi_gpu_tpu_torch.ops.cost import Cost, goal_of, make_cost
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs, rollout_trajectories
 from mppi_gpu_tpu_torch.ops.softmin import softmin_weights
 
@@ -165,21 +168,33 @@ class MPPIController:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA is not available")
         self.dynamics = dynamics if dynamics is not None else dynamics_for_config(cfg, self.device)
-        self.cost = cost if cost is not None else make_cost(cfg, self.device)
+        cost = cost if cost is not None else make_cost(cfg, self.device)
         f32 = dict(dtype=torch.float32, device=self.device)
         self.sigma = torch.tensor(cfg.noise, **f32)
         self.lambda_ = torch.tensor(cfg.lambda_, **f32)
         self.max_a = torch.tensor(cfg.max_a, **f32)
-        self.rollout_backend = resolve_backend(
-            rollout_backend, self.device, self.dynamics, self.cost
-        )
-        # the fused family, its parameters packed on the device once and its
-        # scalars kept on the host: reading a device scalar per solve would
-        # synchronize the stream
-        self._family = (
-            families.family_for(self.dynamics, self.cost, self.sigma)
-            if families.is_fusable(self.dynamics, self.cost) else None
-        )
+        self.rollout_backend = resolve_backend(rollout_backend, self.device, self.dynamics, cost)
+        self.cost = cost
+
+    @property
+    def cost(self) -> Cost:
+        return self._cost
+
+    @cost.setter
+    def cost(self, cost: Cost) -> None:
+        """Assigning the cost re-packs the fused family from it (one small
+        pack on the device, its scalars read to the host once), so the fused
+        backend solves with the weights of the cost assigned last, as the
+        eager one does; a solve reads no device scalar. On the fused backend
+        a cost the family cannot fuse raises."""
+        fusable = families.is_fusable(self.dynamics, cost)
+        if self.rollout_backend == "fused" and not fusable:
+            raise ValueError(
+                f"the fused backend covers {families.covered()}; got "
+                f"{type(self.dynamics).__name__} + {type(cost).__name__}"
+            )
+        self._family = families.family_for(self.dynamics, cost, self.sigma) if fusable else None
+        self._cost = cost
 
     # -- state helpers -----------------------------------------------------
     def init_action_seq(self) -> torch.Tensor:
@@ -194,7 +209,7 @@ class MPPIController:
         cfg = self.cfg
         K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[1], False)
         S, beta, eta, dU = fs.family_fused_solve(
-            self._family, x, U, getattr(self.cost, "goal", None), cfg.lambda_, K, seed,
+            self._family, x, U, goal_of(self.cost), cfg.lambda_, K, seed,
             step, it, anti, cfg.noise_beta, eps=eps,
         )
         return _finish_fused(U, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)

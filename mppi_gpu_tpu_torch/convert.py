@@ -16,15 +16,19 @@ from mppi_gpu_tpu_torch.models.cartpole import CartPoleDynamics
 from mppi_gpu_tpu_torch.models.pendulum import PendulumDynamics
 from mppi_gpu_tpu_torch.models.point_mass import PointMassLTI
 from mppi_gpu_tpu_torch.models.quadrotor import QuadrotorDynamics
+from mppi_gpu_tpu_torch.models.quadrotor3d import Quadrotor3DDynamics
 from mppi_gpu_tpu_torch.models.unicycle import UnicycleDynamics
 from mppi_gpu_tpu_torch.ops.cost import (
     ArmReachCost,
     CartPoleBalanceCost,
     Cost,
+    ObstacleCost,
     PendulumSwingupCost,
     QuadraticCost,
+    Quadrotor3DHoverCost,
     QuadrotorHoverCost,
     UnicycleWaypointCost,
+    with_goal,
 )
 
 _GOAL_COST = ("w", "goal", "lambda_", "inv_s")
@@ -45,7 +49,11 @@ _FAMILIES = {
     frozenset(("dt", "A", "B", "D", "G1", "G2", "damping", "max_rate", "l1", "l2")): (
         TwoLinkArmDynamics, ArmReachCost, _GOAL_COST + ("l1", "l2"),
     ),
+    frozenset(("dt", "mass", "inertia", "gravity")): (
+        Quadrotor3DDynamics, Quadrotor3DHoverCost, _GOAL_COST,
+    ),
 }
+_OBSTACLE = ("centers", "radii", "penalty")
 
 
 def from_numpy(a, device: torch.device | str) -> torch.Tensor:
@@ -80,11 +88,17 @@ def from_numpy_params(
     if key not in _FAMILIES:
         raise ValueError(f"no family has the model fields {sorted(dyn)}")
     model_cls, cost_cls, cost_fields = _FAMILIES[key]
-    if goals is not None and "goal" not in cost_fields:
-        raise TypeError(f"{cost_cls.__name__} has no goal; goals= does not apply")
+    if "base" in cost:
+        _, base = from_numpy_params(dyn, cost["base"], device)
+        out = ObstacleCost(base=base, **{k: from_numpy(cost[k], device) for k in _OBSTACLE})
+    else:
+        out = cost_cls(**{k: from_numpy(cost[k], device) for k in cost_fields})
+    if goals is not None:
+        if "goal" not in cost_fields:
+            raise TypeError(f"{cost_cls.__name__} has no goal; goals= does not apply")
+        out = with_goal(out, from_numpy(goals, device))
     if model_cls is PointMassLTI:
         model = PointMassLTI(dt=from_numpy(dyn["dt"], device), action_dim=int(dyn["action_dim"]))
     else:
         model = model_cls(**{k: from_numpy(v, device) for k, v in dyn.items()})
-    given = dict(cost, goal=goals) if goals is not None else cost
-    return model, cost_cls(**{k: from_numpy(given[k], device) for k in cost_fields})
+    return model, out

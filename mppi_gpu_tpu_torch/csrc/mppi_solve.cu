@@ -7,10 +7,11 @@
 //   K4 rollout_costs    K1's pass 1 alone: the costs-only sweep → S
 //
 // K1 is a template over the fused family, the (dynamics, cost) pair it steps
-// (ops/families.py): the point-mass LTI model with the quadratic cost, the
-// pendulum with its swing-up cost, the cart-pole with its balance cost, the
-// unicycle with its waypoint cost, the planar quadrotor with its hover cost
-// and the two-link arm with its reaching cost. A family is a struct below:
+// (ops/families.py): the point-mass LTI model with the quadratic cost and
+// with the obstacle cost, the pendulum with its swing-up cost, the cart-pole
+// with its balance cost, the unicycle with its waypoint cost, the planar and
+// the 3-D quadrotor with their hover costs and the two-link arm with its
+// reaching cost. A family is a struct below:
 // its state is kS floats in registers, initialised from x0; `load` reads its
 // parameters (and robot r's goal), `step` (x, u + ε) → x' and `cost` (x) →
 // state cost. Everything else in K1 (noise, control cost, Kahan sum,
@@ -31,9 +32,10 @@
 // the plain version's order (the port's eager models and costs), so K3's dump
 // reproduces K1's ε exactly and the replay of a dump through the injected-ε
 // mode reproduces the Philox-mode solve. The families' trigonometry is full
-// precision sinf/cosf; no fast-math flags. The unicycle's cost takes rsqrtf,
-// which is what torch's CUDA rsqrt computes (chip_smoke.py phase 13 checks
-// torch.rsqrt on the card against 1/sqrt and K1's S against the plain one).
+// precision sinf/cosf; no fast-math flags. The unicycle's cost and the 3-D
+// quadrotor's quaternion renormalisation take rsqrtf, which is what torch's
+// CUDA rsqrt computes (chip_smoke.py phase 13 checks torch.rsqrt on the card
+// against 1/sqrt and K1's S against the plain one).
 //
 // Rollouts past K (the idle threads of the last block) never enter β, η or
 // ΔU. A block whose real rollouts all have S = +inf contributes η_b = 0 and
@@ -166,6 +168,8 @@ enum FamilyId {  // ops/families.py
   kUnicycleFamily = 3,
   kQuadrotorFamily = 4,
   kArmFamily = 5,
+  kLtiObstacleFamily = 6,
+  kQuadrotor3DFamily = 7,
 };
 
 // Point-mass double integrator per axis, quadratic cost towards robot r's
@@ -480,6 +484,156 @@ struct Arm {
   }
 };
 
+// Point mass with the obstacle cost: Lti<A>'s step and quadratic cost plus
+// `penalty` for each spherical obstacle the position q = x[0:A] lies inside
+// (ops/cost.ObstacleCost): penalty · #{m : Σ_a (q_a − c_ma)² < r_m²}, the
+// squared distance summed left to right as the eager cost sums it, so the
+// count is the plain version's bit for bit; `<` is strict and false for a
+// NaN distance, which is never inside. The terminal cost repeats it (K1's
+// final fam.cost). The obstacle count M arrives at run time in the pack,
+// [w (2A), penalty, M, centres (M, A), r² (M)], so the obstacles are not
+// sized at compile time: `obs` points at them in global memory, and every
+// thread of a warp reads the same address (one broadcast load).
+template <int A>
+struct LtiObstacle {
+  static constexpr int kS = 2 * A;
+  static constexpr bool kGoal = true;
+  Lti<A> lti;
+  float pen;
+  int M;
+  const float* obs;  // centres (M, A), then r² (M)
+
+  __device__ __forceinline__ void load(const float* fp, const float* goal, float dt) {
+    lti.load(fp, goal, dt);
+    pen = fp[2 * A];
+    M = (int)fp[2 * A + 1];
+    obs = fp + 2 * A + 2;
+  }
+
+  __device__ __forceinline__ void step(float x[kS], const float ue[A]) const { lti.step(x, ue); }
+
+  __device__ __forceinline__ float cost(const float x[kS]) const {
+    int hits = 0;
+    for (int m = 0; m < M; ++m) {
+      const float* c = obs + m * A;
+      float d2 = 0.0f;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const float d = __fsub_rn(x[a], c[a]);
+        d2 = a == 0 ? __fmul_rn(d, d) : __fadd_rn(d2, __fmul_rn(d, d));
+      }
+      hits += d2 < obs[M * A + m];
+    }
+    return __fadd_rn(lti.cost(x), __fmul_rn(pen, (float)hits));
+  }
+};
+
+// 3-D quadrotor, x = (p (3), q (4; w, x, y, z), v (3), ω (3; body)), u =
+// (F, τx, τy, τz) in mixer space: RK2 midpoint of ṗ = v, v̇ = R(q)ẑ F/m − gẑ,
+// q̇ = ½ q ⊗ (0, ω), ω̇ = J⁻¹(τ − ω × Jω) with derivs evaluated twice (at the
+// unnormalised midpoint), the model's divides by m, Jx, Jy, Jz, and one
+// rsqrtf renormalisation of the quaternion at the end of the step, its
+// squared norm summed left to right (models/quadrotor3d.py); hover cost,
+// quadratic on the position towards robot r's goal[0:3] and on the velocity
+// towards goal[7:10], w_tilt · 2(qx² + qy²) and w_om |ω|², in the eager
+// cost's order (ops/cost.Quadrotor3DHoverCost). The widest state of the
+// families: 13 floats in registers, 10 more at the midpoint.
+struct Quadrotor3D {
+  static constexpr int kS = 13;
+  static constexpr bool kGoal = true;
+  float w[8], m, jx, jy, jz, jzy, jxz, jyx, g, gp[3], gv[3], h, hh;
+
+  __device__ __forceinline__ void load(const float* fp, const float* goal, float dt) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] = fp[i];
+    m = fp[8];
+    jx = fp[9];
+    jy = fp[10];
+    jz = fp[11];
+    jzy = fp[12];  // Jz − Jy
+    jxz = fp[13];  // Jx − Jz
+    jyx = fp[14];  // Jy − Jx
+    g = fp[15];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      gp[i] = goal[i];
+      gv[i] = goal[7 + i];
+    }
+    h = dt;
+    hh = 0.5f * dt;
+  }
+
+  // (q̇, v̇, ω̇) at quaternion q (not necessarily unit) and body rates om
+  // under u (models/quadrotor3d.Quadrotor3DDynamics.derivs)
+  __device__ __forceinline__ void derivs(const float q[4], const float om[3], const float u[4],
+                                         float qd[4], float acc[3], float wd[3]) const {
+    const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
+    const float wx = om[0], wy = om[1], wz = om[2];
+    const float fm = __fdiv_rn(u[0], m);
+    acc[0] = __fmul_rn(__fmul_rn(2.0f, __fadd_rn(__fmul_rn(qx, qz), __fmul_rn(qw, qy))), fm);
+    acc[1] = __fmul_rn(__fmul_rn(2.0f, __fsub_rn(__fmul_rn(qy, qz), __fmul_rn(qw, qx))), fm);
+    acc[2] = __fsub_rn(
+        __fmul_rn(__fsub_rn(1.0f, __fmul_rn(2.0f, __fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)))),
+                  fm),
+        g);
+    qd[0] = __fmul_rn(0.5f, -__fadd_rn(__fadd_rn(__fmul_rn(qx, wx), __fmul_rn(qy, wy)),
+                                       __fmul_rn(qz, wz)));
+    qd[1] = __fmul_rn(0.5f, __fsub_rn(__fadd_rn(__fmul_rn(qw, wx), __fmul_rn(qy, wz)),
+                                      __fmul_rn(qz, wy)));
+    qd[2] = __fmul_rn(0.5f, __fsub_rn(__fadd_rn(__fmul_rn(qw, wy), __fmul_rn(qz, wx)),
+                                      __fmul_rn(qx, wz)));
+    qd[3] = __fmul_rn(0.5f, __fsub_rn(__fadd_rn(__fmul_rn(qw, wz), __fmul_rn(qx, wy)),
+                                      __fmul_rn(qy, wx)));
+    wd[0] = __fdiv_rn(__fsub_rn(u[1], __fmul_rn(__fmul_rn(jzy, wy), wz)), jx);
+    wd[1] = __fdiv_rn(__fsub_rn(u[2], __fmul_rn(__fmul_rn(jxz, wz), wx)), jy);
+    wd[2] = __fdiv_rn(__fsub_rn(u[3], __fmul_rn(__fmul_rn(jyx, wx), wy)), jz);
+  }
+
+  __device__ __forceinline__ void step(float x[kS], const float ue[4]) const {
+    float qd[4], acc[3], wd[3], qm[4], vm[3], omm[3];
+    derivs(x + 3, x + 10, ue, qd, acc, wd);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qm[i] = __fadd_rn(x[3 + i], __fmul_rn(hh, qd[i]));
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      vm[i] = __fadd_rn(x[7 + i], __fmul_rn(hh, acc[i]));
+      omm[i] = __fadd_rn(x[10 + i], __fmul_rn(hh, wd[i]));
+    }
+    derivs(qm, omm, ue, qd, acc, wd);
+    float qn[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qn[i] = __fadd_rn(x[3 + i], __fmul_rn(h, qd[i]));
+    const float n2 = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(qn[0], qn[0]), __fmul_rn(qn[1], qn[1])), __fmul_rn(qn[2], qn[2])),
+        __fmul_rn(qn[3], qn[3]));
+    const float rn = rsqrtf(n2);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      x[i] = __fadd_rn(x[i], __fmul_rn(h, vm[i]));
+      x[7 + i] = __fadd_rn(x[7 + i], __fmul_rn(h, acc[i]));
+      x[10 + i] = __fadd_rn(x[10 + i], __fmul_rn(h, wd[i]));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[3 + i] = __fmul_rn(qn[i], rn);
+  }
+
+  __device__ __forceinline__ float cost(const float x[kS]) const {
+    float pos = 0.0f, vel = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float dp = __fsub_rn(x[i], gp[i]), dv = __fsub_rn(x[7 + i], gv[i]);
+      const float cp = __fmul_rn(__fmul_rn(dp, w[i]), dp);
+      const float cv = __fmul_rn(__fmul_rn(dv, w[4 + i]), dv);
+      pos = i == 0 ? cp : __fadd_rn(pos, cp);
+      vel = i == 0 ? cv : __fadd_rn(vel, cv);
+    }
+    const float tilt = __fmul_rn(2.0f, __fadd_rn(__fmul_rn(x[4], x[4]), __fmul_rn(x[5], x[5])));
+    const float om = __fadd_rn(__fadd_rn(__fmul_rn(x[10], x[10]), __fmul_rn(x[11], x[11])),
+                               __fmul_rn(x[12], x[12]));
+    return __fadd_rn(__fadd_rn(__fadd_rn(pos, __fmul_rn(w[3], tilt)), vel), __fmul_rn(w[7], om));
+  }
+};
+
 // K1. Replaces the TPU solve kernels of mppi_gpu_tpu/ops/pallas_rollout.py:
 // _onepass_solve_kernel (:2342), _planar_onepass_kernel (:2686) and
 // _fused_solve_kernel (:2287), and their fleet forms
@@ -487,8 +641,9 @@ struct Arm {
 // _planar_fleet_onepass_kernel (:3078), whose grid (R, tiles) runs the same
 // per-tile bodies robot after robot; for the families of
 // _LTIQuadFamily (:490), _PendulumFamily (:614), _CartPoleFamily (:700),
-// _QuadrotorFamily (:930), _UnicycleFamily (:1101) and _ArmFamily (:1264).
-// The TPU plans the coupled families (unicycle, quadrotor, arm) on the
+// _LTIObstacleFamily (:805), _QuadrotorFamily (:930), _UnicycleFamily
+// (:1101), _ArmFamily (:1264) and _Quadrotor3DFamily (:1468). The TPU plans
+// the coupled families (unicycle, quadrotor, arm, 3-D quadrotor) on the
 // state-planar kernels only; here every family takes the one layout.
 //
 // What bounds it: arithmetic, not memory. Per rollout and step it does one
@@ -498,7 +653,10 @@ struct Arm {
 // cosf and eight divides for the cart-pole; one Box-Muller pair at A = 2 and,
 // for the unicycle, three sinf, two cosf and one rsqrtf; the quadrotor, two
 // sinf, three cosf and five divides; the arm, two stages of one sinf, three
-// cosf and one divide, and two sinf and two cosf in its cost. K4 does pass
+// cosf and one divide, and two sinf and two cosf in its cost; the obstacle
+// cost, LTI's plus A multiply-adds and a compare per obstacle; the 3-D
+// quadrotor, no trigonometry but eight divides, one rsqrtf and ~120 other
+// flops on its 13 states. K4 does pass
 // 1 alone, about half of K1's noise work. The only traffic is U and the
 // parameters (read once into shared memory/registers), S (4 B per rollout)
 // and one (2 + T·A)-float partial per block. In the injected-ε mode it
@@ -806,6 +964,18 @@ int launch_family(int family, const SolveArgs& a, const NoiseParams& np, cudaStr
     case kArmFamily:
       if (a.goal == nullptr || A != 2) return (int)cudaErrorInvalidValue;
       return launch_mode<Arm, 2, PASS2>(a, np, s);
+    case kLtiObstacleFamily:
+      if (a.goal == nullptr) return (int)cudaErrorInvalidValue;
+      switch (A) {
+        case 1: return launch_mode<LtiObstacle<1>, 1, PASS2>(a, np, s);
+        case 2: return launch_mode<LtiObstacle<2>, 2, PASS2>(a, np, s);
+        case 3: return launch_mode<LtiObstacle<3>, 3, PASS2>(a, np, s);
+        case 4: return launch_mode<LtiObstacle<4>, 4, PASS2>(a, np, s);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case kQuadrotor3DFamily:
+      if (a.goal == nullptr || A != 4) return (int)cudaErrorInvalidValue;
+      return launch_mode<Quadrotor3D, 4, PASS2>(a, np, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -818,12 +988,13 @@ extern "C" {
 // Every entry returns a cudaError_t as int: 0 on a launched kernel.
 
 // family (FamilyId), x0 (R, S), U (R, T, A), params [σ (A), Σ⁻¹ (A), family
-// part], goal (R, S) for a family with a goal (LTI, unicycle, quadrotor, arm;
-// else unused, may be null), keys (R,) int64 or null, eps_in (R, T, K, A) or
-// null → S (R, K), partials (R, nb, 2 + T·A). S is 2A for LTI (A ≤ 4), 2 for
-// the pendulum and 4 for the cart-pole (A = 1), 3 for the unicycle, 6 for
-// the quadrotor and 4 for the arm (A = 2). With partials null it launches K4
-// instead (S alone; λ_softmin unused).
+// part], goal (R, S) for a family with a goal (all but the pendulum and the
+// cart-pole; else unused, may be null), keys (R,) int64 or null, eps_in (R,
+// T, K, A) or null → S (R, K), partials (R, nb, 2 + T·A). S is 2A for LTI
+// and LTI with obstacles (A ≤ 4), 2 for the pendulum and 4 for the
+// cart-pole (A = 1), 3 for the unicycle, 6 for the quadrotor and 4 for the
+// arm (A = 2), 13 for the 3-D quadrotor (A = 4). With partials null it
+// launches K4 instead (S alone; λ_softmin unused).
 int mppi_solve_partials(int family, const float* x0, const float* U, const float* params,
                         const float* goal, const long long* keys, const float* eps_in, float* S,
                         float* partials, int R, int K, int T, int A, float dt, float lam_cost,

@@ -12,17 +12,19 @@ counted twice, kept for reference parity.
 A fleet's per-robot goals ride the cost's ``goal`` field with a leading
 robot axis R (:func:`batch_goals`, the counterpart of
 ``mppi_gpu_tpu.batched._batch_goals``); ``step`` and ``final`` then take
-states of shape (R, K, s).
+states of shape (R, K, s). A cost's goal is read and replaced through
+:func:`goal_of` and :func:`with_goal`, which look through the ``base`` of a
+cost that wraps a goal cost (:class:`ObstacleCost`).
 
 :class:`PendulumSwingupCost` and :class:`CartPoleBalanceCost` are the
 pendulum and cart-pole families' costs; their targets (upright, centred) are
 built in, so they have no ``goal`` field. :class:`UnicycleWaypointCost`,
-:class:`QuadrotorHoverCost` and :class:`ArmReachCost` are the unicycle,
-planar-quadrotor and two-link-arm families' costs; each aims at a ``goal`` of
-the state's length of which only the first two entries are read, and takes
-per-robot goals as the quadratic cost does. The JAX package's ``obstacle``
-and ``quadrotor3d`` cost types raise ``NotImplementedError`` (ROADMAP.md,
-Open items §1 item 6).
+:class:`QuadrotorHoverCost`, :class:`ArmReachCost` and
+:class:`Quadrotor3DHoverCost` are the unicycle, planar-quadrotor,
+two-link-arm and 3-D quadrotor families' costs; each aims at a ``goal`` of
+the state's length of which only some entries are read, and takes per-robot
+goals as the quadratic cost does. :class:`ObstacleCost` is the quadratic
+cost plus a penalty for each spherical obstacle the position is inside.
 """
 
 from __future__ import annotations
@@ -68,6 +70,43 @@ class QuadraticCost:
     def final(self, x: torch.Tensor) -> torch.Tensor:
         d = x - self._goal()
         return torch.sum(d * self.w * d, dim=-1)
+
+
+@dataclass(frozen=True)
+class ObstacleCost:
+    """The quadratic cost plus ``penalty`` for each spherical obstacle that
+    the position ``x[:a]`` (a = the centres' width) lies inside, after each
+    step and at the end: ``penalty · #{m : Σ_i (q_i − c_{m,i})² < r_m²}``.
+    The squared distance is summed left to right over i, so the fused
+    kernel's obstacle count (``csrc/mppi_solve.cu``) is this one bit for bit;
+    a NaN distance is never inside. λ and Σ⁻¹ are the base cost's."""
+
+    base: QuadraticCost
+    centers: torch.Tensor  # (M, a) obstacle centres in position space
+    radii: torch.Tensor    # (M,)
+    penalty: torch.Tensor  # 0-dim
+
+    @property
+    def lambda_(self) -> torch.Tensor:
+        return self.base.lambda_
+
+    @property
+    def inv_s(self) -> torch.Tensor:
+        return self.base.inv_s
+
+    def _obstacle(self, x: torch.Tensor) -> torch.Tensor:
+        d2 = None
+        for i in range(self.centers.shape[-1]):
+            d = x[..., i, None] - self.centers[:, i]  # (..., M)
+            d2 = d * d if d2 is None else d2 + d * d
+        inside = d2 < self.radii**2
+        return self.penalty * torch.sum(inside.to(x.dtype), dim=-1)
+
+    def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        return self.base.step(x_next, u, eps) + self._obstacle(x_next)
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        return self.base.final(x) + self._obstacle(x)
 
 
 @dataclass(frozen=True)
@@ -216,27 +255,89 @@ class QuadrotorHoverCost:
         return self._state(x)
 
 
-def batch_goals(cost: Cost, goals: torch.Tensor, n_robots: int) -> Cost:
-    """``cost`` with the (R, s) per-robot ``goals`` on its ``goal`` field.
-    Raises ``TypeError`` for a cost without a ``goal`` field (its target is
-    built in) and ``ValueError`` for goals that are not (n_robots, s)."""
-    if not (dataclasses.is_dataclass(cost)
-            and any(f.name == "goal" for f in dataclasses.fields(cost))):
+@dataclass(frozen=True)
+class Quadrotor3DHoverCost:
+    """Hover/waypoint cost of the 3-D quadrotor family, ``w = [w_px, w_py,
+    w_pz, w_tilt, w_vx, w_vy, w_vz, w_om]``: quadratic on the position
+    towards ``goal[0:3]`` and on the velocity towards ``goal[7:10]``, the
+    tilt ``2(qx² + qy²)`` (zero iff the body z axis points up, yaw-free) and
+    |ω|². Every sum runs left to right, in the JAX cost's order of terms.
+    ``goal`` has the state's 13 entries; the others are unused."""
+
+    w: torch.Tensor        # (8,)
+    goal: torch.Tensor     # (13,), or (R, 13) per robot of a fleet
+    lambda_: torch.Tensor  # 0-dim temperature
+    inv_s: torch.Tensor    # (a,) diagonal of Σ⁻¹
+
+    def _state(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.goal if self.goal.dim() == 1 else self.goal[..., None, :]
+        w = self.w
+
+        def quad(i: int, k: int) -> torch.Tensor:  # w_k (x_i − g_i)²
+            d = x[..., i] - g[..., i]
+            return d * w[k] * d
+
+        pos = quad(0, 0) + quad(1, 1) + quad(2, 2)
+        tilt = 2.0 * (x[..., 4] * x[..., 4] + x[..., 5] * x[..., 5])
+        vel = quad(7, 4) + quad(8, 5) + quad(9, 6)
+        om = x[..., 10] * x[..., 10] + x[..., 11] * x[..., 11] + x[..., 12] * x[..., 12]
+        return pos + w[3] * tilt + vel + w[7] * om
+
+    def step(self, x_next: torch.Tensor, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        return _ctrl(self.lambda_, u, self.inv_s, eps) + self._state(x_next)
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        return self._state(x)
+
+
+def _goal_owner(cost: Cost, *, required: bool = False):
+    """The cost whose ``goal`` field holds `cost`'s goal: `cost` itself, or
+    the goal cost it wraps in ``base`` (``mppi_gpu_tpu.batched._batch_goals``);
+    for a cost whose target is built in None, or ``TypeError`` if
+    `required`."""
+    for c in (cost, getattr(cost, "base", None)):
+        if dataclasses.is_dataclass(c) and any(f.name == "goal" for f in dataclasses.fields(c)):
+            return c
+    if required:
         raise TypeError(
             f"per-robot goals need a cost with a 'goal' field; "
             f"{type(cost).__name__} has none (its target is built in)"
         )
-    shape = (n_robots, cost.goal.shape[-1])
+    return None
+
+
+def has_goal(cost: Cost) -> bool:
+    return _goal_owner(cost) is not None
+
+
+def goal_of(cost: Cost) -> torch.Tensor | None:
+    """`cost`'s goal, (s,) or (R, s) per robot; None for a built-in target."""
+    owner = _goal_owner(cost)
+    return None if owner is None else owner.goal
+
+
+def with_goal(cost: Cost, goal: torch.Tensor) -> Cost:
+    """`cost` aiming at `goal`, through its ``base`` where the goal lives
+    there; ``TypeError`` for a cost whose target is built in."""
+    owner = _goal_owner(cost, required=True)
+    if owner is cost:
+        return dataclasses.replace(cost, goal=goal)
+    return dataclasses.replace(cost, base=dataclasses.replace(owner, goal=goal))
+
+
+def batch_goals(cost: Cost, goals: torch.Tensor, n_robots: int) -> Cost:
+    """``cost`` with the (R, s) per-robot ``goals`` as its goal
+    (:func:`with_goal`). Raises ``TypeError`` for a cost without a goal (its
+    target is built in) and ``ValueError`` for goals that are not
+    (n_robots, s)."""
+    shape = (n_robots, _goal_owner(cost, required=True).goal.shape[-1])
     if tuple(goals.shape) != shape:
         raise ValueError(f"goals must be {shape}, got {tuple(goals.shape)}")
-    return dataclasses.replace(cost, goal=goals)
+    return with_goal(cost, goals)
 
 
 CostFactory = Callable[[MPPIConfig, torch.device], Cost]
 COST_REGISTRY: dict[str, CostFactory] = {}
-
-# cost types the JAX package registers that this package does not port yet
-_UNPORTED_COSTS = ("obstacle", "quadrotor3d")
 
 
 def register_cost(name: str) -> Callable[[CostFactory], CostFactory]:
@@ -316,17 +417,35 @@ register_cost("arm")(_goal_cost(ArmReachCost, 2, "w_pos, w_vel"))
 register_cost("quadrotor")(
     _goal_cost(QuadrotorHoverCost, 6, "w_px, w_pz, w_th, w_vx, w_vz, w_om")
 )
+register_cost("quadrotor3d")(
+    _goal_cost(Quadrotor3DHoverCost, 8, "w_px, w_py, w_pz, w_tilt, w_vx, w_vy, w_vz, w_om")
+)
+
+
+@register_cost("obstacle")
+def _make_obstacle(cfg: MPPIConfig, device: torch.device | str) -> ObstacleCost:
+    if not cfg.obstacles:
+        raise ValueError(
+            "cost.type 'obstacle' needs cost.obstacles: a list of "
+            "[center..., radius] entries (center dims = action-dim)"
+        )
+    for o in cfg.obstacles:
+        if len(o) != cfg.action_dim + 1:
+            raise ValueError(
+                f"each obstacle needs {cfg.action_dim} center coords + radius, "
+                f"got {len(o)} values: {o}"
+            )
+    obs = torch.tensor(cfg.obstacles, dtype=torch.float32, device=device)
+    return ObstacleCost(
+        base=_make_quadratic(cfg, device), centers=obs[:, :-1].contiguous(),
+        radii=obs[:, -1].contiguous(),
+        penalty=torch.tensor(cfg.obstacle_w, dtype=torch.float32, device=device),
+    )
 
 
 def make_cost(cfg: MPPIConfig, device: torch.device | str) -> Cost:
     if cfg.cost_type in COST_REGISTRY:
         return COST_REGISTRY[cfg.cost_type](cfg, device)
-    if cfg.cost_type in _UNPORTED_COSTS:
-        raise NotImplementedError(
-            f"cost.type '{cfg.cost_type}' is not ported to mppi_gpu_tpu_torch yet "
-            "(see ROADMAP.md, Open items §1 item 6); the quadratic, pendulum, cartpole, "
-            "unicycle, arm and quadrotor costs run"
-        )
     raise ValueError(
         f"unknown cost.type '{cfg.cost_type}'; known: {sorted(COST_REGISTRY)}"
     )

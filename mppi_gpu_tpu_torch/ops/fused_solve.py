@@ -4,8 +4,9 @@
 * :func:`fleet_family_solve_partials` (K1) — for each of R robots, rollout,
   cost and per-block softmin partials ``(β_b, η_b, ΔŨ_b)`` over blocks of
   :data:`BLOCK` rollouts, for one fused family (``ops/families.py``: the
-  point-mass LTI, pendulum, cart-pole, unicycle, planar-quadrotor and
-  two-link-arm models with their costs);
+  point-mass LTI model with the quadratic and the obstacle cost, and the
+  pendulum, cart-pole, unicycle, planar-quadrotor, two-link-arm and 3-D
+  quadrotor models with their costs);
 * :func:`fleet_softmin_combine` (K2) — each robot's associative fold of its
   partials into ``β``, ``η`` and ``ΔU``;
 * :func:`fleet_family_fused_solve` — K1 then K2, the fleet controller's
@@ -159,6 +160,8 @@ def _check_family(fam: FusedFamily, T: int, A: int, K: int, antithetic: bool) ->
 
 
 def _check_goal(fam: FusedFamily, goal) -> None:
+    """A goal (of the state's length, checked by the caller) is passed
+    exactly when the family's cost has one (``ops/cost.goal_of``)."""
     if goal is not None and not fam.has_goal:
         raise TypeError(f"the {fam.name} family's cost has no goal (its target is built in)")
     if goal is None and fam.has_goal:

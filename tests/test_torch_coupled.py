@@ -200,7 +200,8 @@ def test_pack_and_mismatched_pairs():
     """The pack holds σ, Σ⁻¹ and each family's parameters in float32 from the
     model's and the cost's own tensors (the arm's link lengths from its
     cost); a family with a goal raises without one; mismatched pairs are
-    not fusable; quadrotor3d still raises naming ROADMAP §1 item 6."""
+    not fusable; configs/quadrotor3d.yaml, the last family ported, builds its
+    own fused pair, the quadrotor3d family."""
     setups = {n: _setup(n)[1] for n in FAMILIES}
     sigma = torch.tensor([0.5, 0.25])
     udyn, ucost = setups["unicycle"]
@@ -227,9 +228,8 @@ def test_pack_and_mismatched_pairs():
         with pytest.raises(TypeError, match="fused solve covers"):
             families.family_for(dyn, cost, sigma)
     cfg = load_config(_cfg_path("quadrotor3d"))
-    for fn in (dynamics_for_config, make_cost, lambda c, d: params_for_config(c)):
-        with pytest.raises(NotImplementedError, match="§1 item 6"):
-            fn(cfg, "cpu")
+    assert families.family_name(dynamics_for_config(cfg, "cpu"), make_cost(cfg, "cpu")) == "quadrotor3d"
+    assert params_for_config(cfg).state_dim == 13
 
 
 # ---------------------------------------------------------------------------

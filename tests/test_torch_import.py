@@ -28,7 +28,10 @@ def test_import_loads_no_jax_and_builds_nothing():
         "import mppi_gpu_tpu_torch.models.unicycle, mppi_gpu_tpu_torch.models.quadrotor\n"
         "import mppi_gpu_tpu_torch.models.arm, mppi_gpu_tpu_torch.envs.unicycle_world\n"
         "import mppi_gpu_tpu_torch.envs.quadrotor_world, mppi_gpu_tpu_torch.envs.arm_world\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mppi_gpu_tpu')]\n"
+        "import mppi_gpu_tpu_torch.models.quadrotor3d, mppi_gpu_tpu_torch.envs.quadrotor3d_world\n"
+        "import mppi_gpu_tpu_torch.examples.obstacle_nav, mppi_gpu_tpu_torch.examples.quadrotor3d_flight\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'mppi_gpu_tpu', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "assert 'mppi_gpu_tpu_torch.ops._build' not in sys.modules\n"
         "print('clean')\n"
@@ -48,13 +51,25 @@ def test_config_loads_equal_in_both_packages(path):
 
 
 def test_unported_families_raise_naming_roadmap():
+    """What the port still lacks raises NotImplementedError naming
+    ROADMAP.md: a MuJoCo XML world, and the batched world of a family other
+    than the point mass in run_fleet_episode. The 3-D quadrotor, the last
+    family to be ported, builds its model, cost and world."""
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
     from mppi_gpu_tpu_torch.config import load_config
+    from mppi_gpu_tpu_torch.envs import make_world, params_for_config
     from mppi_gpu_tpu_torch.models import dynamics_for_config
     from mppi_gpu_tpu_torch.ops.cost import make_cost
+    from mppi_gpu_tpu_torch.runner import run_fleet_episode
 
-    for name in ("quadrotor3d",):
-        cfg = load_config(os.path.join(ROOT, "configs", f"{name}.yaml"))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dynamics_for_config(cfg, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_cost(cfg, "cpu")
+    cfg = load_config(os.path.join(ROOT, "configs", "quadrotor3d.yaml"))
+    assert type(dynamics_for_config(cfg, "cpu")).__name__ == "Quadrotor3DDynamics"
+    assert type(make_cost(cfg, "cpu")).__name__ == "Quadrotor3DHoverCost"
+    assert type(make_world(cfg)).__name__ == "Quadrotor3DWorld"
+    xml = load_config(os.path.join(ROOT, "configs", "point_mass2d.yaml")).replace(
+        env="envs_xml/point_mass2d.xml")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        params_for_config(xml)
+    fleet = BatchedMPPIController(cfg.replace(samples=16, horizon=4), 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_fleet_episode(fleet, num_steps=1)
