@@ -20,20 +20,25 @@ two families, the point mass with the obstacle cost and the 3-D quadrotor
 (K1's LtiObstacle<2>, LtiObstacle<3> and Quadrotor3D instances and the
 controller's pack after a cost reassignment, phase 16; the CLI on
 configs/quadrotor3d.yaml, the obstacle quality episode and the ported
-obstacle and flight examples, phase 17). Every
-phase prints one line (or a few); any failure raises and the script exits
-non-zero without the final line. Without a CUDA device it exits 1 at once.
-The last two lines are a JSON object describing every kernel, K1 once per
-family instance (route, source, the TPU kernels it replaces, launches on
-its path, max abs error against its plain version, ms on the card next to
-the plain version's and to its bound, the least time the card could take:
-instructions per step from the built SASS, or bytes) and
-``{"ok": true, "device": {...}}``.
+obstacle and flight examples, phase 17), and the multi-GPU path: K5, the
+weighted update of the two-kernel sharded solve, against its plain version
+(phase 18), and the sharded solve of ``parallel/`` in both branches on a
+world of one NCCL rank and on four virtual ranks against the solo solve,
+the sharded fleet, the ``--sharded`` CLI and the two-kernel closed loop
+(phase 19). Every phase prints one line (or a few); any failure raises and
+the script exits non-zero without the final line. Without a CUDA device it
+exits 1 at once. The last two lines are a JSON object describing every
+kernel, K1 once per family instance (route, source, the TPU kernels it
+replaces, launches on its path, max abs error against its plain version, ms
+on the card next to the plain version's and to its bound, the least time
+the card could take: instructions per step from the built SASS, or bytes)
+and ``{"ok": true, "device": {...}}``.
 
 The ``check_*`` functions are also called by the GPU tests
 (``tests/test_torch_fused.py``, ``tests/test_torch_fleet.py``,
 ``tests/test_torch_families.py``, ``tests/test_torch_coupled.py``,
-``tests/test_torch_obstacle_q3d.py``) at small shapes.
+``tests/test_torch_obstacle_q3d.py``, ``tests/test_torch_sharded.py``) at
+small shapes.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -93,11 +99,12 @@ OBSTACLE_SEEDS, OBSTACLE_REF_CLEAR, OBSTACLE_ALPHA = 64, 43, 0.01
 # the angle's index in the state and the world's start (envs/*_world.py)
 FAMILY_ANGLE = {"pendulum": 0, "cartpole": 1}
 FAMILY_INIT_THETA = {"pendulum": 3.14159265, "cartpole": 0.15}
-# the kernels JSON line: K1 once per family instance, then K2 and K3
+# the kernels JSON line: K1 once per family instance, then K2, K3, K4 and K5
 KERNEL_ENTRIES = ("solve_partials<lti>", "solve_partials<pendulum>", "solve_partials<cartpole>",
                   "solve_partials<unicycle>", "solve_partials<quadrotor>", "solve_partials<arm>",
                   "solve_partials<lti-obstacle,A=2>", "solve_partials<lti-obstacle,A=3>",
-                  "solve_partials<quadrotor3d>", "softmin_combine", "noise_dump", "rollout_costs")
+                  "solve_partials<quadrotor3d>", "softmin_combine", "noise_dump", "rollout_costs",
+                  "weighted_update")
 # bar of the fleet's mean final goal distance (point_mass2d, R=8 on the circle
 # of examples/fleet.py, full episode): the JAX package's own fleet ends that
 # episode at 0.364 m on the CPU, so the bar is that figure + 0.05 m
@@ -167,12 +174,13 @@ def _oracle():
 def kernel_key(mangled: str) -> str:
     """A kernel's readable name from its mangled one: K1 instances read
     solve_partials<family,A=..,inj=..>, K4's (K1's template without its
-    second pass) rollout_costs<family,A=..,inj=..>, K3's noise_dump<A=..>;
+    second pass) rollout_costs<family,A=..,inj=..>, K3's noise_dump<A=..>,
+    K5's weighted_update<A=..,inj=..>;
     the family under its name in ops/families (the struct's name, lower
     case, is the family's without its hyphen)."""
     from mppi_gpu_tpu_torch.ops.families import FAMILY_NAMES
 
-    k = re.search(r"(solve_partials|softmin_combine|noise_dump)_kernel", mangled)
+    k = re.search(r"(solve_partials|softmin_combine|noise_dump|weighted_update)_kernel", mangled)
     name = k.group(1) if k else mangled
     fam = re.search(r"(LtiObstacle|Lti|Pendulum|CartPole|Unicycle|Quadrotor3D|Quadrotor|Arm)",
                     mangled)
@@ -251,11 +259,13 @@ def philox_loop_steps(instrs: list[tuple[int, str]]) -> list[float]:
     target; NOPs are not counted. One Philox block is ten rounds of two
     multiplies by the round constants, of which the compiler hoists the
     first round's, drops those whose words A does not use and splits some
-    into a low and a high half: 16 to 22 instructions remain per block in
-    this kernel file. A loop unrolled u times holds u blocks, so the count is
-    divided by u = ceil(multiplies / 22) (none is unrolled in this build:
-    every pass-2 loop holds its 5·A warp shuffles once). Loops without them (shared-memory
-    loads, partial writes) are left out."""
+    into a low and a high half: 16 to 23 instructions remain per block in
+    this kernel file (23 in K4's LtiObstacle<3>, <4> and K5's A = 3, 4 loops).
+    A loop unrolled u times holds u blocks, 16·u to 23·u multiplies, so the
+    count is divided by u = multiplies // 16 (at least 1), which is u itself
+    for u ≤ 2 (none is unrolled in this build: every loop holds the MUFU
+    instructions and the 5·A warp shuffles of one step). Loops without them
+    (shared-memory loads, partial writes) are left out."""
     loops = []
     for a, ins in instrs:
         t = _branch_target(ins)
@@ -287,7 +297,7 @@ def philox_loop_steps(instrs: list[tuple[int, str]]) -> list[float]:
             if any("CALL" in i or ((tt := _branch_target(i)) is not None and tt < x)
                    for x, i in region) and not any(_PHILOX_MUL.search(i) for _, i in region):
                 skip_to = t
-        steps.append(count / -(-mults // 22))
+        steps.append(count / max(1, mults // 16))
     return steps
 
 
@@ -1061,6 +1071,191 @@ def check_costs_only(name: str, K: int, T: int, *, A: int | None = None, antithe
     return dict(err=err, fam=fam, args=args, lam=lam)
 
 
+def check_reassigned_dynamics(device: str = "cuda") -> str:
+    """The controller's pack follows a reassigned model: after
+    ``ctrl.dynamics = dataclasses.replace(ctrl.dynamics, ...)`` (the
+    cart-pole's pole mass, the point mass's dt) the fused solve (K1 + K2 on
+    a CUDA device) equals the eager solve with the new model on the same ε
+    and differs from the solve with the old one; on the fused backend a model
+    the family cannot fuse raises and changes nothing."""
+    import dataclasses
+
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.models import PendulumDynamics
+
+    out = []
+    for name, edit in (("cartpole", dict(pole_mass=0.35)), ("point_mass3d", dict(dt=0.05))):
+        cfg = _config(name).replace(samples=2048, horizon=30)
+        fused = MPPIController(cfg, device=device, rollout_backend="auto")
+        eager = MPPIController(cfg, device=device, rollout_backend="eager")
+        x = torch.full((cfg.state_dim,), 0.1, device=device)
+        U = fused.init_action_seq()
+        eps = fused._eps(5, 0, 0)
+        before = fused.solve_with_eps(x, U, eps)
+        new = dataclasses.replace(fused.dynamics, **{
+            k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in edit.items()})
+        fused.dynamics = eager.dynamics = new
+        got, want = fused.solve_with_eps(x, U, eps), eager.solve_with_eps(x, U, eps)
+        label = f"{name} after a model reassignment ({fused.rollout_backend} vs eager)"
+        close(f"{label} S", _np(got.info.costs), _np(want.info.costs), 1e-5)
+        close(f"{label} action", _np(got.action), _np(want.action), **TOL["u"])
+        expect(not torch.equal(got.info.costs, before.info.costs), f"{label}: S did not move")
+        expect(fused._family.dynamics is new, f"{label}: the pack holds the old model")
+        if fused.rollout_backend == "fused":
+            try:
+                fused.dynamics = PendulumDynamics.create(0.05, device=device)
+            except ValueError:
+                expect(fused.dynamics is new, f"{label}: a refused model was kept")
+            else:
+                raise SmokeFailure(f"{label}: an unfusable model was accepted on the fused backend")
+        out.append(f"{name} ({', '.join(edit)})")
+    return f"{', '.join(out)}: the fused solve after `ctrl.dynamics = replace(...)` equals the eager one"
+
+
+def check_weighted_update(A: int, K: int, T: int, *, philox: bool = True,
+                          device: str = "cuda") -> float:
+    """K5 (``fused_solve.weighted_update``: K5's per-block sums folded by K2)
+    for weights w (K,) drawn uniformly from a seed and normalized, so that
+    every rollout's term counts (the softmin at the problem's λ is nearly
+    one-hot at T = 200 and would test one term): in the injected-ε mode
+    against its plain version on the same device and a float64 einsum on
+    the CPU; with `philox` also in the Philox mode (iid, antithetic, OU 0.5,
+    and iid at a draw offset k0) against the plain version on K3's dump of
+    the same stream. Each entry is held to 1e-5 of Σ_k |w_k ε_k[t, a]|, its
+    sum of magnitudes: float32 sums of K terms in two orders. Returns the
+    max abs error against the plain version."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    p = make_problem(A, K, T, device=device)
+    w = torch.rand(K, generator=torch.Generator().manual_seed(K)).to(device)
+    w /= w.sum()
+
+    def held(label: str, got, eps) -> float:
+        e64, w64 = (_np(v).astype(np.float64) for v in (eps, w))
+        tol = 1e-5 * np.einsum("tka,k->ta", np.abs(e64), np.abs(w64))
+        for what, want in (("plain", _np(fs.weighted_update_reference(w, eps))),
+                           ("float64", np.einsum("tka,k->ta", e64, w64))):
+            bad = np.abs(_np(got) - want) > tol
+            expect(not bad.any(), f"{label} vs {what}: {int(bad.sum())} entries beyond 1e-5 of "
+                   f"sum |w eps|, max abs err {np.abs(_np(got) - want).max():.3g}")
+        return float(np.abs(_np(got) - _np(fs.weighted_update_reference(w, eps))).max())
+
+    err = held(f"K5 injected A={A} K={K} T={T}",
+               fs.weighted_update(p["sigma"], w, T, K, 0, 0, 0, False, 0.0, eps=p["eps"]), p["eps"])
+    modes = ((False, 0.0, 0), (True, 0.0, 0), (False, 0.5, 0), (False, 0.0, 3 * K)) if philox else ()
+    for anti, ou, k0 in modes:
+        eps = fs.noise_dump(p["sigma"], T, K, 11, 5, 1, anti, ou, k0=k0)
+        got = fs.weighted_update(p["sigma"], w, T, K, 11, 5, 1, anti, ou, k0=k0)
+        err = max(err, held(f"K5 philox A={A} K={K} T={T} anti={anti} ou={ou} k0={k0}", got, eps))
+    return err
+
+
+def _leaves(res) -> list:
+    return [res.action, res.u_next, *res.info]
+
+
+def check_sharded(cfg, mesh, *, device: str = "cuda") -> dict:
+    """The sharded solve (``parallel.ShardedMPPIController``) on `mesh`, in
+    the one-pass and the two-kernel branch, against ``MPPIController``'s solo
+    solve of the same K for one update: every rank's rollout costs are the
+    solo solve's for the draws of its offset, bit for bit (in rollout order;
+    under antithetic sampling a permutation of them), β equal, η and the
+    action within TOL. Returns each branch's kernel launches per solve and
+    the max abs error of the action."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.parallel import ShardedMPPIController
+
+    cfg = cfg.replace(opt_iters=1)
+    solo = MPPIController(cfg, device=device)
+    x = torch.full((cfg.state_dim,), 0.05, device=device)
+    U = solo.init_action_seq()
+    want = solo.solve(x, U, cfg.seed, 2)
+    S_solo = want.info.costs
+    K, n = cfg.samples, mesh.size
+    k_loc = K // n
+    if cfg.antithetic:  # rank d: draws d·k_loc/2 on, then their mirrors
+        h = k_loc // 2
+        idx = torch.cat([torch.cat([torch.arange(d * h, (d + 1) * h), K // 2 + torch.arange(d * h, (d + 1) * h)])
+                         for d in mesh.local_ranks])
+    else:
+        idx = torch.cat([torch.arange(d * k_loc, (d + 1) * k_loc) for d in mesh.local_ranks])
+    out = {}
+    for onepass in (True, False):
+        branch = "one-pass" if onepass else "two-kernel"
+        ctrl = ShardedMPPIController(cfg, mesh=mesh, onepass=onepass)
+        fs.reset_launch_counts()
+        got = ctrl.solve(x, U, cfg.seed, 2)
+        launches = {k: v for k, v in fs.launch_counts().items() if v}
+        label = f"sharded {cfg.env} K={K} T={cfg.horizon} n={n} {branch} ({ctrl.rollout_backend})"
+        expect(torch.equal(got.info.costs, S_solo[idx.to(S_solo.device)]),
+               f"{label}: the ranks' costs differ from the solo solve's")
+        expect(torch.equal(got.info.beta, want.info.beta), f"{label}: beta differs")
+        close(f"{label} eta", _np(got.info.eta), _np(want.info.eta), TOL["eta"])
+        e = close(f"{label} action", _np(got.action), _np(want.action), **TOL["u"])
+        close(f"{label} u_next", _np(got.u_next), _np(want.u_next), **TOL["u"])
+        out[branch] = dict(launches=launches, action_err=e)
+    return out
+
+
+def check_sharded_fleet(cfg, R: int, mesh, *, device: str = "cuda") -> None:
+    """``parallel.ShardedFleetController`` on `mesh` bit-equal to
+    ``BatchedMPPIController``, robot by robot, every leaf of the result."""
+    import torch
+
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
+    from mppi_gpu_tpu_torch.examples.fleet import circle_goals
+    from mppi_gpu_tpu_torch.parallel import ShardedFleetController
+
+    goals = torch.from_numpy(circle_goals(R, cfg.state_dim))
+    fleet = BatchedMPPIController(cfg, R, goals=goals, device=device)
+    sharded = ShardedFleetController(cfg, R, goals=goals, mesh=mesh)
+    xs = 0.05 * torch.randn(R, cfg.state_dim, generator=torch.Generator().manual_seed(R)).to(device)
+    Us, seeds = fleet.init_action_seqs(), fleet.init_seeds()
+    want, got = fleet.solve(xs, Us, seeds, 1), sharded.solve(xs, Us, seeds, 1)
+    for i, (g, w) in enumerate(zip(_leaves(got), _leaves(want))):
+        expect(torch.equal(g, w), f"sharded fleet R={R} n={mesh.size}: leaf {i} differs from the fleet's")
+
+
+def _group_rank(rank: int, world: int, init: str, backend: str, device: str, cfg, out: str) -> None:
+    """One rank of :func:`group_run` (a spawned process): joins the group,
+    solves both branches on its device and saves its results."""
+    import torch
+
+    from mppi_gpu_tpu_torch.parallel import ShardedMPPIController, global_mesh, init_multihost
+    from mppi_gpu_tpu_torch.parallel.multihost import shutdown_multihost
+
+    init_multihost(init, world, rank, backend=backend)
+    dev = f"cuda:{rank}" if device == "cuda" else device
+    res = {}
+    for onepass in (True, False):
+        ctrl = ShardedMPPIController(cfg, mesh=global_mesh(dev), onepass=onepass)
+        x = torch.full((cfg.state_dim,), 0.05, device=dev)
+        res[onepass] = [v.cpu() for v in _leaves(ctrl.solve(x, ctrl.init_action_seq(), cfg.seed, 2))]
+    shutdown_multihost()
+    torch.save(res, os.path.join(out, f"{rank}.pt"))
+
+
+def group_run(cfg, world: int, *, backend: str = "nccl", device: str = "cuda") -> list[dict]:
+    """The sharded solve of `cfg` over a real process group of `world`
+    ranks, one spawned process each (rank r on cuda:r under NCCL), both
+    branches; returns each rank's results."""
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "init")
+        mp.start_processes(_group_rank, args=(world, init, backend, device, cfg, tmp),
+                           nprocs=world, join=True, start_method="spawn")
+        return [torch.load(os.path.join(tmp, f"{r}.pt")) for r in range(world)]
+
+
 def rsqrt_probe(device: str = "cuda", n: int = 1 << 20) -> tuple[int, int]:
     """How many of n float32 values torch.rsqrt on `device` gives other than
     1/sqrt on the same device, and other than torch.rsqrt on the CPU (which
@@ -1183,6 +1378,16 @@ def coupled_distance(name: str, xs: np.ndarray) -> np.ndarray:
         xs = TwoLinkArmDynamics.create(cfg.dt).end_effector(
             torch.as_tensor(xs, dtype=torch.float32)).numpy()
     return np.hypot(xs[:, 0] - g[0], xs[:, 1] - g[1])
+
+
+def steady_distance(cols: dict, goal) -> float:
+    """A CLI trajectory's steady-state distance to `goal` (its positions'
+    length), as bench.quality_row scores an episode: the mean over the last
+    quarter of the states, the start at the origin prepended to the CSV's."""
+    n = len(goal)
+    xs = np.stack([np.concatenate([[0.0], cols[f"x[{i}]"]]) for i in range(n)], axis=1)
+    d = np.linalg.norm(xs - np.asarray(goal), axis=1)
+    return float(d[-max(len(d) // 4, 1):].mean())
 
 
 def _cli(argv: list[str]) -> str:
@@ -1352,6 +1557,128 @@ def fisher_below(k: int, n: int, k_ref: int, n_ref: int) -> float:
                for j in range(lo, k + 1)) / math.comb(total, n)
 
 
+def sharded_phase(smi: str, steady2d: float) -> tuple[dict, int]:
+    """Phase 19, in this process's world of one NCCL rank: the sharded solve
+    (point_mass3d K=10⁴ and 10⁵ T=200, antithetic at 10⁴, quadrotor3d at its
+    config) on the world of one and on four virtual ranks in both branches
+    against the solo solve (:func:`check_sharded`) with its launches per
+    solve, its times beside the solo solve's and the cost of one NCCL
+    all-reduce; the R=64 sharded fleet; the ``--sharded`` CLI (one-pass) and
+    the two-kernel closed loop on configs/point_mass2d.yaml, each with the
+    counts set to 0 just before it, their steady distance within 0.05 m of
+    the solo CLI's (`steady2d`, phase 7); a real two-rank NCCL run where the
+    machine has two GPUs. Returns the times and K5's launches in the
+    two-kernel closed loop."""
+    import torch
+    import torch.distributed as dist
+
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.io.csvio import read_csv_columns
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.parallel import ShardedMPPIController, global_mesh
+    from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
+    from mppi_gpu_tpu_torch.runner import run_closed_loop
+
+    meshes = {"world of one (NCCL)": global_mesh("cuda:0"), "4 virtual ranks": virtual_mesh(4, "cuda:0")}
+    per_solve = {"one-pass": ("solve_partials", "softmin_combine"),
+                 "two-kernel": ("rollout_costs", "weighted_update", "softmin_combine")}
+    for cfg in (_config("point_mass3d").replace(samples=10_000, horizon=200),
+                _config("point_mass3d").replace(samples=100_000, horizon=200),
+                _config("point_mass3d").replace(samples=10_000, horizon=200, antithetic=True),
+                _config("quadrotor3d")):
+        for mname, mesh in meshes.items():
+            out = check_sharded(cfg, mesh)
+            for branch, o in out.items():
+                want = dict.fromkeys(per_solve[branch], mesh.size)
+                expect(o["launches"] == want, f"{branch} launches {o['launches']}, expected {want}")
+            print(f"[19] sharded {cfg.env} K={cfg.samples} T={cfg.horizon}"
+                  f"{' anti' if cfg.antithetic else ''}, {mname}: both branches equal the solo solve "
+                  "(each rank's S bit-equal, beta equal; action max abs err "
+                  + ", ".join(f"{b} {o['action_err']:.3g}" for b, o in out.items())
+                  + "); launches per solve " + "; ".join(f"{b} {o['launches']}" for b, o in out.items()))
+    sharded_ms = {}
+    for K in (10_000, 100_000):
+        cfg = _config("point_mass3d").replace(samples=K, horizon=200)
+        solo = MPPIController(cfg, device="cuda")
+        x, U = torch.zeros(6, device="cuda"), solo.init_action_seq()
+        for mname, mesh in meshes.items():
+            for onepass in (True, False):
+                ctrl = ShardedMPPIController(cfg, mesh=mesh, onepass=onepass)
+                s_ms, o_ms = paired_median_ms(lambda: ctrl.solve_auto(x, U, 1),
+                                              lambda: solo.solve_auto(x, U, 1), 20, 20)
+                branch = "one-pass" if onepass else "two-kernel"
+                sharded_ms[f"K={K} {mname} {branch}"] = dict(ms=s_ms, solo_ms=o_ms)
+                print(f"[19] sharded solve point_mass3d K={K} T=200, {mname}, {branch}: {s_ms:.4f} "
+                      f"ms/solve, solo {o_ms:.4f} ms/solve (CUDA events, warm median; {smi})")
+    # what one all-reduce costs on the world of one: the host's time per call
+    # (the solve waits on it) and the device's, for β's one float and for the
+    # one-pass branch's η packed with ΔU (1 + T·A floats at T=200, A=3)
+    for n_floats in (1, 601):
+        t = torch.ones(n_floats, device="cuda")
+        dev = float(np.median(time_ms(lambda: dist.all_reduce(t), 50, 5)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            dist.all_reduce(t)
+        host = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        sharded_ms[f"all_reduce {n_floats} floats"] = dict(ms=dev, host_ms=host)
+        print(f"[19] NCCL all_reduce of {n_floats} float(s), world of one: {dev:.4f} ms (CUDA events, "
+              f"warm median), {host:.4f} ms of host time per call ({smi})")
+    check_sharded_fleet(_config("point_mass3d").replace(samples=10_000, horizon=200), 64,
+                        meshes["world of one (NCCL)"])
+    print("[19] ShardedFleetController point_mass3d R=64 K=10000 T=200, world of one (NCCL): every "
+          "leaf bit-equal to BatchedMPPIController's")
+    # the sharded paths: the --sharded CLI (one-pass), then the two-kernel
+    # closed loop, each with the counts set to 0 just before it
+    cfg2 = _config("point_mass2d")
+    fs.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = os.path.join(tmp, "sharded.csv")
+        out = _cli(["-c", os.path.join("configs", "point_mass2d.yaml"), "--device", "cuda",
+                    "--sharded", "-t", traj])
+        steady = steady_distance(read_csv_columns(traj), cfg2.goal[:2])
+    onepass_launches = fs.launch_counts()
+    n_steps = int(re.search(r"episode finished: (\d+) control steps", out).group(1))
+    fs.reset_launch_counts()
+    ep = run_closed_loop(ShardedMPPIController(cfg2, mesh=meshes["world of one (NCCL)"],
+                                               onepass=False))
+    two_launches = fs.launch_counts()
+    d2 = np.linalg.norm(ep.xs[:, :2] - np.asarray(cfg2.goal[:2]), axis=1)
+    steady2 = float(d2[-max(len(d2) // 4, 1):].mean())
+    print(f"[19] --sharded CLI configs/point_mass2d.yaml (world of one, one-pass): {n_steps} steps, "
+          f"steady {steady:.4f} m from the goal (the solo CLI's {steady2d:.4f} m + 0.05 the bar); "
+          f"launches {onepass_launches}. Two-kernel closed loop (run_closed_loop, world of one): "
+          f"{len(ep.us)} steps, steady {steady2:.4f} m, average controller execution time "
+          f"{ep.solve_ms['mean_ms']:.3f} ms ({smi}); launches {two_launches}")
+    expect(onepass_launches["solve_partials"] == onepass_launches["softmin_combine"] == n_steps + 1
+           and onepass_launches["weighted_update"] == 0,
+           f"--sharded CLI: launches {onepass_launches} for {n_steps} steps")
+    expect(two_launches["rollout_costs"] == two_launches["weighted_update"]
+           == two_launches["softmin_combine"] == len(ep.us) + 1
+           and two_launches["solve_partials"] == 0,
+           f"two-kernel closed loop: launches {two_launches} for {len(ep.us)} steps")
+    for label, d in (("--sharded CLI", steady), ("two-kernel closed loop", steady2)):
+        expect(d < steady2d + 0.05, f"{label} point_mass2d steady {d} m, solo {steady2d} m")
+    if torch.cuda.device_count() >= 2:
+        cfg = _config("point_mass3d").replace(samples=10_000, horizon=200)
+        ranks = group_run(cfg, 2)
+        solo = MPPIController(cfg, device="cuda")
+        want = solo.solve(torch.full((6,), 0.05, device="cuda"), solo.init_action_seq(), cfg.seed, 2)
+        for onepass in (True, False):
+            S = torch.cat([r[onepass][2] for r in ranks])
+            expect(torch.equal(S, want.info.costs.cpu()), f"n=2 NCCL onepass={onepass}: S differs")
+            for r in ranks:
+                close(f"n=2 NCCL onepass={onepass} action", _np(r[onepass][0]), _np(want.action),
+                      **TOL["u"])
+        print("[19] n=2 NCCL ranks (torch.multiprocessing, cuda:0 and cuda:1): both branches equal "
+              "the solo solve (S bit-equal, action within TOL)")
+    else:
+        print(f"[19] n=2 NCCL: not run: this machine has {torch.cuda.device_count()} CUDA device(s), "
+              "and NCCL refuses two ranks on one GPU; the virtual ranks above stand in")
+    return sharded_ms, two_launches["weighted_update"]
+
+
 def main() -> int:
     import torch
 
@@ -1472,18 +1799,20 @@ def main() -> int:
         _cli(["-c", os.path.join("configs", "point_mass2d.yaml"), "--device", "cuda",
               "-t", os.path.join(tmp, "traj2d.csv"), "-s", os.path.join(tmp, "dump"),
               "--dump-every", "100"])
+        steady2d = steady_distance(read_csv_columns(os.path.join(tmp, "traj2d.csv")),
+                                   _config("point_mass2d").goal[:2])
         traj = os.path.join(tmp, "traj3d.csv")
         _cli(["-c", os.path.join("configs", "point_mass3d.yaml"), "--device", "cuda", "-t", traj])
         cols = read_csv_columns(traj)
-    # the point-mass path's kernels (K4 runs on the costs-only path, phase 15)
-    launches = {k: n for k, n in fs.launch_counts().items() if k != "rollout_costs"}
+    # the point-mass path's kernels (K4 runs on the costs-only path, phase
+    # 15, and with K5 on the two-kernel sharded path, phase 19)
+    launches = {k: n for k, n in fs.launch_counts().items()
+                if k not in ("rollout_costs", "weighted_update")}
     launches["solve_partials<lti>"] = fs.family_launch_counts()["lti"]
-    cfg3 = _config("point_mass3d")
-    xs = np.stack([np.concatenate([[0.0], cols[f"x[{i}]"]]) for i in range(3)], axis=1)
-    d = np.linalg.norm(xs - np.asarray(cfg3.goal[:3]), axis=1)
-    steady = float(d[-max(len(d) // 4, 1):].mean())
+    steady = steady_distance(cols, _config("point_mass3d").goal[:3])
     print(f"[7] cli closed loop: point_mass2d and point_mass3d episodes finished; point_mass3d "
           f"steady-state goal distance {steady:.4f} m (threshold {LTI_QUALITY_THRESHOLD_M}); "
+          f"point_mass2d {steady2d:.4f} m (its 500 steps end short of the goal; no bar); "
           f"main-path launches {launches}")
     expect(steady < LTI_QUALITY_THRESHOLD_M, f"point_mass3d steady-state {steady} m")
     for name, n in launches.items():
@@ -1780,6 +2109,7 @@ def main() -> int:
             "[16]", name, ((False, 0.0), (True, 0.0), (False, 0.5)), err, smi)
         print(f"[16] {name} diverging rollouts: {check_coupled_diverged(name)}")
     print(f"[16] cost reassignment: {check_reassigned_cost()}")
+    print(f"[16] model reassignment: {check_reassigned_dynamics()}")
 
     # [17] the last families' path, fused, launches counted from 0 before each
     # run and read after it: the CLI on configs/quadrotor3d.yaml (opt-iters
@@ -1833,8 +2163,48 @@ def main() -> int:
         if tag == "obstacle2d":
             launches["solve_partials<lti-obstacle,A=2>"] = by_family[fam_name]
 
+    # [18] K5, the weighted update (TPU kernel #7): injected ε vs plain and
+    # float64; Philox mode vs plain on K3's dump of the same stream; times
+    for A, K, T in ((2, 3000, 50), (3, 10_000, 200)):
+        e = check_weighted_update(A, K, T, philox=A == 3)
+        err["weighted_update"] = max(err["weighted_update"], e)
+        print(f"[18] K5 A={A} K={K} T={T}: injected eps ok vs plain and float64"
+              + ("; philox iid, antithetic, OU 0.5 and k0=3K ok vs plain on K3's dump of the "
+                 "same stream" if A == 3 else "")
+              + f" (each entry within 1e-5 of sum |w eps|); max abs err vs plain {e:.3g}")
+    wu = {}
+    for K in (10_000, 100_000):
+        q = make_problem(3, K, 200)
+        w = torch.rand(K, generator=torch.Generator().manual_seed(K)).cuda()
+        w /= w.sum()
+        k_ms, p_ms = paired_median_ms(
+            lambda: fs.weighted_update(q["sigma"], w, 200, K, 7, 3, 0, False, 0.0),
+            lambda: fs.weighted_update_reference(w, philox.sample_eps(7, 3, 0, 200, K, q["sigma"])),
+            20, 3)
+        b_ms, b_by = bound_ms(sass_steps["weighted_update<A=3,inj=0>"][0] * 200 * K,
+                              4 * (K + 3 + 200 * 3), clock_mhz)
+        wu[K] = (k_ms, p_ms, b_ms, b_by)
+        print(f"[18] kernel weighted_update A=3 K={K} T=200 (K5 + K2's fold): {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({smi})")
+        del q, w
+
+    # [19] the sharded solve on the card: a world of one NCCL rank and four
+    # virtual ranks (each at its draw offset, combined by the collective
+    # path's combine), both branches, against the solo solve; times; the
+    # sharded fleet; the sharded closed loops, launches counted
+    from mppi_gpu_tpu_torch.parallel import init_multihost
+    from mppi_gpu_tpu_torch.parallel.multihost import shutdown_multihost
+
+    group_dir = tempfile.mkdtemp()
+    init_multihost("file://" + os.path.join(group_dir, "init"), 1, 0, backend="nccl")
+    try:
+        sharded_ms, launches["weighted_update"] = sharded_phase(smi, steady2d)
+    finally:
+        shutdown_multihost()
+        shutil.rmtree(group_dir)
+
     # the kernels JSON line: times at each kernel's shape, beside its bound
-    k12 = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
+    k12 =", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
     k_fam = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2287, 3121, 2973))
     replaces = {
         "solve_partials<lti>": f"{k12} (family {PALLAS}:490)",
@@ -1849,6 +2219,7 @@ def main() -> int:
         "softmin_combine": k12,
         "noise_dump": f"{PALLAS}:2140, {PALLAS}:2872",
         "rollout_costs": f"{PALLAS}:1952, {PALLAS}:2813",
+        "weighted_update": f"{PALLAS}:1966",
     }
     q = make_problem(3, 10_000, 200)
     lti3 = fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"])
@@ -1859,6 +2230,7 @@ def main() -> int:
                                4 * (3 + 200 * 10_000 * 3), clock_mhz),
         "rollout_costs": solve_bound(sass_steps, problems[("lti", 3)][0], 100_000, 200, clock_mhz,
                                      pass2=False),
+        "weighted_update": wu[10_000][2:],
     }
     # the fleet kernels at R=8 of phase 9's shape (point_mass3d K=10⁴, T=200)
     fleet_bounds = {
@@ -1895,6 +2267,11 @@ def main() -> int:
         elif name == "rollout_costs":
             entry.update(ms=floor_ms[0], plain_ms=floor_ms[1], shape="lti A=3 K=100000 T=200",
                          per_family=floor)
+        elif name == "weighted_update":
+            entry.update(ms=wu[10_000][0], plain_ms=wu[10_000][1],
+                         shape="A=3 K=10000 T=200, K5 + K2's fold", large_ms=wu[100_000][0],
+                         large_plain_ms=wu[100_000][1], large_bound_ms=wu[100_000][2],
+                         large_shape="A=3 K=100000 T=200", sharded_solve_ms=sharded_ms)
         else:
             entry.update(ms=kernel_ms[name][0], plain_ms=kernel_ms[name][1], shape="A=3 K=10000 T=200",
                          fleet_launches=fleet_launches[name], fleet_ms=fleet_kernel_ms[name][0],

@@ -32,7 +32,6 @@ from mppi_gpu_tpu_torch.controller import (
     SolveInfo,
     SolveResult,
     _finish_fused,
-    mppi_solve_deterministic,
     solve_from_costs,
 )
 from mppi_gpu_tpu_torch.models.base import Dynamics
@@ -114,26 +113,31 @@ class BatchedMPPIController(MPPIController):
         return self.cost if goal is None else with_goal(self.cost, goal[r])
 
     # -- solves ------------------------------------------------------------
-    def _fused(self, xs, Us, seeds, step: int, it: int, eps=None) -> SolveResult:
-        """One launch of K1 and one of K2 for the fleet (Philox mode, or
-        injected-ε mode with `eps` (R, T, K, a)), then the tail."""
+    def _solve_robots(self, xs, Us, seeds, step: int, it: int, robots: range,
+                      eps=None) -> SolveResult:
+        """One update of the fleet's robots `robots`, whose rows of xs, Us,
+        seeds (and of eps (R, T, K, a) in the injected-ε mode) are given: on
+        the fused backend one launch of K1 and one of K2, then the tail;
+        robot by robot on the eager one."""
         cfg = self.cfg
-        K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[2], False)
-        S, beta, eta, dU = fs.fleet_family_fused_solve(
-            self._family, xs, Us, goal_of(self.cost), cfg.lambda_, K, seeds,
-            step, it, anti, cfg.noise_beta, eps=eps,
-        )
-        return _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)
+        goals = goal_of(self.cost)
+        if self.rollout_backend == "fused":
+            K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[2], False)
+            S, beta, eta, dU = fs.fleet_family_fused_solve(
+                self._family, xs, Us, None if goals is None else goals[robots.start:robots.stop],
+                cfg.lambda_, K, seeds, step, it, anti, cfg.noise_beta, eps=eps,
+            )
+            return _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)
+        seed_list = seeds.tolist() if eps is None else [0] * len(robots)
+        out = []
+        for i, r in enumerate(robots):
+            e = self._eps(seed_list[i], step, it) if eps is None else eps[i]
+            S = rollout_costs(self.dynamics, self._robot_cost(r), xs[i], Us[i], e)
+            out.append(solve_from_costs(S, e, Us[i], self.lambda_, self.max_a, clamp=cfg.clamp_action))
+        return _stack_results(out)
 
     def _solve_once(self, xs, Us, seeds, step: int, it: int) -> SolveResult:
-        if self.rollout_backend == "fused":
-            return self._fused(xs, Us, seeds, step, it)
-        cfg, out = self.cfg, []
-        for r, seed in enumerate(seeds.tolist()):
-            eps = self._eps(seed, step, it)
-            S = rollout_costs(self.dynamics, self._robot_cost(r), xs[r], Us[r], eps)
-            out.append(solve_from_costs(S, eps, Us[r], self.lambda_, self.max_a, clamp=cfg.clamp_action))
-        return _stack_results(out)
+        return self._solve_robots(xs, Us, seeds, step, it, range(self.n_robots))
 
     def solve(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step: int = 0) -> SolveResult:
         """One MPPI solve per robot for noise streams (seeds[r], step), with
@@ -154,15 +158,7 @@ class BatchedMPPIController(MPPIController):
         (parity/testing); runs the fleet kernels in their injected-ε mode on
         the fused backend."""
         xs = xs.to(self.device, torch.float32)
-        if self.rollout_backend == "fused":
-            return self._fused(xs, Us, 0, 0, 0, eps=eps)
-        return _stack_results([
-            mppi_solve_deterministic(
-                self.dynamics, self._robot_cost(r), xs[r], Us[r], eps[r], self.lambda_,
-                self.max_a, clamp=self.cfg.clamp_action,
-            )
-            for r in range(self.n_robots)
-        ])
+        return self._solve_robots(xs, Us, 0, 0, 0, range(self.n_robots), eps=eps)
 
     solve_batch_with_eps = solve_with_eps
 

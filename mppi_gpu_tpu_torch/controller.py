@@ -14,8 +14,8 @@ or the obstacle cost, the pendulum with its swing-up cost, the cart-pole
 with its balance cost, the unicycle, planar quadrotor, two-link arm and 3-D
 quadrotor with their waypoint, hover, reaching and hover costs), and
 ``eager`` otherwise. The fused family's parameters are packed when the
-controller's ``cost`` is assigned (at init or later, as the examples re-tune
-it), never per solve. Both backends
+controller's ``cost`` or ``dynamics`` is assigned (at init or later, as the
+examples re-tune the cost), never per solve. Both backends
 draw the same noise stream (``ops.philox``): counter (k, t, step, it) under
 the seed, so a solve is a pure function of (seed, step, it) and replayable.
 """
@@ -167,6 +167,7 @@ class MPPIController:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA is not available")
+        self._cost = None  # the pack is built once, when the cost is assigned below
         self.dynamics = dynamics if dynamics is not None else dynamics_for_config(cfg, self.device)
         cost = cost if cost is not None else make_cost(cfg, self.device)
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -187,14 +188,34 @@ class MPPIController:
         backend solves with the weights of the cost assigned last, as the
         eager one does; a solve reads no device scalar. On the fused backend
         a cost the family cannot fuse raises."""
-        fusable = families.is_fusable(self.dynamics, cost)
+        self._family = self._pack(self.dynamics, cost)
+        self._cost = cost
+
+    @property
+    def dynamics(self) -> Dynamics:
+        return self._dynamics
+
+    @dynamics.setter
+    def dynamics(self, dynamics: Dynamics) -> None:
+        """Assigning the model re-packs the fused family from it and the
+        current cost (its parameters, dt and the plain version's model), as
+        assigning the cost does; on the fused backend a model the family
+        cannot fuse raises and changes nothing. Before the first cost is
+        assigned (in ``__init__``) there is nothing to pack."""
+        if self._cost is not None:
+            self._family = self._pack(dynamics, self._cost)
+        self._dynamics = dynamics
+
+    def _pack(self, dyn: Dynamics, cost: Cost) -> families.FusedFamily | None:
+        """The fused family of (dyn, cost) packed on the device, None for a
+        pair no family fuses; raises for such a pair on the fused backend."""
+        fusable = families.is_fusable(dyn, cost)
         if self.rollout_backend == "fused" and not fusable:
             raise ValueError(
                 f"the fused backend covers {families.covered()}; got "
-                f"{type(self.dynamics).__name__} + {type(cost).__name__}"
+                f"{type(dyn).__name__} + {type(cost).__name__}"
             )
-        self._family = families.family_for(self.dynamics, cost, self.sigma) if fusable else None
-        self._cost = cost
+        return families.family_for(dyn, cost, self.sigma) if fusable else None
 
     # -- state helpers -----------------------------------------------------
     def init_action_seq(self) -> torch.Tensor:

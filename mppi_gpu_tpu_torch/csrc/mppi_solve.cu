@@ -5,6 +5,7 @@
 //   K2 softmin_combine  fold of the per-block partials into β, η, ΔU
 //   K3 noise_dump       the ε stream K1 consumed, written as (T, K, A)
 //   K4 rollout_costs    K1's pass 1 alone: the costs-only sweep → S
+//   K5 weighted_update  per-block Σ_k w_k ε_k for given weights w, ε regenerated
 //
 // K1 is a template over the fused family, the (dynamics, cost) pair it steps
 // (ops/families.py): the point-mass LTI model with the quadratic cost and
@@ -25,8 +26,11 @@
 // writes its own S, partials, β, η and ΔU; the family's parameters, dt, both
 // λ, the counter words (step, it), antithetic and OU are shared. The
 // single-robot solve is the R = 1 launch. The noise stream is Philox4x32-10
-// keyed by the seed, counter (k, t, step, it), with Box-Muller normals; its
-// plain torch twin is ops/philox.py and the words must match it bit for bit.
+// keyed by the seed, counter (k0 + k, t, step, it), with Box-Muller normals;
+// its plain torch twin is ops/philox.py and the words must match it bit for
+// bit. The draw offset k0 is 0 on one GPU; a rank of the sharded solve draws
+// its rollouts at its own offset (parallel/sharded.py), so the ranks together
+// draw exactly the single-GPU stream.
 // The noise, state-update and cost arithmetic uses explicitly rounded
 // operations (__fmul_rn/__fadd_rn/__fdiv_rn, never contracted into FMAs), in
 // the plain version's order (the port's eager models and costs), so K3's dump
@@ -61,6 +65,7 @@ constexpr float kTwoPi = 6.28318530717958647692f;    // rounds to float(2π)
 
 struct NoiseParams {
   unsigned key0, key1, step, it;  // Philox key and counter words 2, 3
+  unsigned k0;                    // draw offset: counter word 0 = k0 + draw index
   int K, K_draw;                  // K_draw = K/2 under antithetic, else K
   int antithetic;
   float ou_beta, ou_c;            // OU recursion; ou_beta == 0 → iid
@@ -90,7 +95,7 @@ template <int A>
 __device__ __forceinline__ void next_eps(const NoiseParams& np, const float* sig, int kd,
                                          bool mirror, int t, float e[A], float eps[A],
                                          unsigned w[4]) {
-  w[0] = (unsigned)kd;
+  w[0] = np.k0 + (unsigned)kd;
   w[1] = (unsigned)t;
   w[2] = np.step;
   w[3] = np.it;
@@ -819,13 +824,16 @@ __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
 // combine the sharded path applies across devices
 // (mppi_gpu_tpu/controller.py:488-500):
 //   β = min_b β_b,  f_b = exp((β − β_b)/λ),  η = Σ f_b η_b,
-//   ΔU = Σ f_b ΔŨ_b / η.
+//   ΔU = Σ f_b ΔŨ_b / η,
+// or Σ f_b ΔŨ_b without the division (`normalize` 0): a rank's unnormalized
+// share for the one-pass sharded combine, and K5's fold, whose partials have
+// β_b = η_b = 0 and so f_b = 1.
 // What bounds it: reading a robot's nb·(2 + T·A) partial floats (1.9 MB at
 // K = 10⁵, T = 200, A = 3) with one block; the ΔU loop reads them coalesced
 // (thread i walks column i). One block per robot keeps the order of every
 // sum fixed; block r folds robot r's nb partials into beta_eta[r] and ΔU[r].
 __global__ void __launch_bounds__(kCombineThreads) softmin_combine_kernel(
-    const float* __restrict__ partials, int nb, int TA, float lam,
+    const float* __restrict__ partials, int nb, int TA, float lam, int normalize,
     float* __restrict__ beta_eta, float* __restrict__ dU) {
   extern __shared__ float f_s[];  // (nb,) rescale factors f_b
   __shared__ float scratch[kCombineWarps];
@@ -847,7 +855,7 @@ __global__ void __launch_bounds__(kCombineThreads) softmin_combine_kernel(
   for (int i = threadIdx.x; i < TA; i += kCombineThreads) {
     float s = 0.0f;
     for (int b = 0; b < nb; ++b) s += f_s[b] * partials[b * stride + 2 + i];
-    dU[i] = s / eta;
+    dU[i] = normalize ? s / eta : s;
   }
   if (threadIdx.x == 0) {
     beta_eta[0] = beta;
@@ -887,13 +895,86 @@ __global__ void __launch_bounds__(kBlock) noise_dump_kernel(
   }
 }
 
-NoiseParams make_noise(unsigned key0, unsigned key1, unsigned step, unsigned it, int K,
-                       int antithetic, float ou_beta, float ou_c) {
+// K5. Replaces mppi_gpu_tpu/ops/pallas_rollout.py:_weighted_update_kernel
+// (:1966), launched by pallas_weighted_update (:2079): ΔU[t, a] = Σ_k w_k
+// ε_k[t, a] for given softmin weights w (K,), already normalized. It is
+// kernel B of the two-kernel sharded solve: K4, the softmin across the ranks,
+// then K5 on each rank's slice of w at the rank's draw offset.
+// What bounds it: arithmetic, as K1's pass 2: per draw and step one Philox
+// call, one or two Box-Muller pairs and the reduction of w·ε (one multiply,
+// five warp shuffles and five adds per action). Its traffic is w (4 B per
+// rollout) and one (2 + T·A)-float partial per block; in the injected-ε mode
+// it streams T·A·4 B per rollout instead.
+// Design: K1's pass 2 with e_k = w[k] read from memory in place of
+// exp(−(S_k − β_b)/λ): ε is regenerated from the stateless counter, never
+// stored. The TPU kernel adds every tile into one (T, A) output in grid order;
+// here each block writes its partial (β_b = 0, η_b = 0, ΔŨ_b[t, a] = Σ w ε
+// over its rollouts) and K2 folds them with f_b = 1 and no division by η
+// (`normalize` 0), every sum in a fixed order: no atomics, a run repeats bit
+// for bit. Antithetic (Philox mode): one thread per draw kd stands for
+// rollout kd and its mirror K_draw + kd, whose ε is −ε_kd, so it weighs ε_kd
+// once by w[kd] − w[K_draw + kd] (the TPU's fold, pallas_rollout.py:1904-1906)
+// and half the noise is drawn. Injected ε (INJ) is read rollout by rollout
+// with no fold. No model is stepped: one instance per A, no family.
+template <int A, bool INJ>
+__global__ void __launch_bounds__(kBlock) weighted_update_kernel(
+    const float* __restrict__ sigma, const float* __restrict__ w,
+    const float* __restrict__ eps_in, float* __restrict__ partials, int T, NoiseParams np) {
+  extern __shared__ float red[];  // (kWarps, T, A) per-warp Σ w·ε
+  const int TA = T * A;
+  const bool fold = !INJ && np.antithetic;
+  const int n = fold ? np.K_draw : np.K;
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  const bool valid = k < n;
+  const float wk = valid ? (fold ? w[k] - w[np.K_draw + k] : w[k]) : 0.0f;
+  float sig[A], e[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    sig[a] = sigma[a];
+    e[a] = 0.0f;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned words[4];
+  for (int t = 0; t < T; ++t) {
+    float eps[A];
+#pragma unroll
+    for (int a = 0; a < A; ++a) eps[a] = 0.0f;
+    if (valid) {
+      if (INJ) {
+#pragma unroll
+        for (int a = 0; a < A; ++a) eps[a] = eps_in[((size_t)t * np.K + k) * A + a];
+      } else {
+        next_eps<A>(np, sig, k, false, t, e, eps, words);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const float v = warp_sum(wk * eps[a]);
+      if (lane == 0) red[warp * TA + t * A + a] = v;
+    }
+  }
+  __syncthreads();
+  float* part = partials + (size_t)blockIdx.x * (2 + (size_t)TA);
+  for (int i = threadIdx.x; i < TA; i += kBlock) {
+    float s = red[i];
+#pragma unroll
+    for (int wi = 1; wi < kWarps; ++wi) s += red[wi * TA + i];
+    part[2 + i] = s;
+  }
+  if (threadIdx.x == 0) {
+    part[0] = 0.0f;
+    part[1] = 0.0f;
+  }
+}
+
+NoiseParams make_noise(unsigned key0, unsigned key1, unsigned step, unsigned it, unsigned k0,
+                       int K, int antithetic, float ou_beta, float ou_c) {
   NoiseParams np;
   np.key0 = key0;
   np.key1 = key1;
   np.step = step;
   np.it = it;
+  np.k0 = k0;
   np.K = K;
   np.antithetic = antithetic;
   np.K_draw = antithetic ? K / 2 : K;
@@ -917,6 +998,28 @@ struct SolveArgs {
   int R, T, A;
   float dt, lam_cost, lam_softmin;
 };
+
+template <int A, bool INJ>
+cudaError_t launch_weighted_update(const float* sigma, const float* w, const float* eps_in,
+                                   float* partials, int T, const NoiseParams& np,
+                                   cudaStream_t stream) {
+  const int n = (!INJ && np.antithetic) ? np.K_draw : np.K;
+  const size_t smem = (size_t)kWarps * T * A * sizeof(float);
+  cudaError_t err = set_smem(weighted_update_kernel<A, INJ>, smem);
+  if (err != cudaSuccess) return err;
+  weighted_update_kernel<A, INJ><<<(n + kBlock - 1) / kBlock, kBlock, smem, stream>>>(
+      sigma, w, eps_in, partials, T, np);
+  return cudaGetLastError();
+}
+
+template <int A>
+cudaError_t launch_weighted_update_mode(const float* sigma, const float* w, const float* eps_in,
+                                        float* partials, int T, const NoiseParams& np,
+                                        cudaStream_t stream) {
+  return eps_in != nullptr
+             ? launch_weighted_update<A, true>(sigma, w, eps_in, partials, T, np, stream)
+             : launch_weighted_update<A, false>(sigma, w, eps_in, partials, T, np, stream);
+}
 
 template <class F, int A, bool INJ, bool PASS2>
 cudaError_t launch_partials(const SolveArgs& a, const NoiseParams& np, cudaStream_t stream) {
@@ -990,7 +1093,8 @@ extern "C" {
 // family (FamilyId), x0 (R, S), U (R, T, A), params [σ (A), Σ⁻¹ (A), family
 // part], goal (R, S) for a family with a goal (all but the pendulum and the
 // cart-pole; else unused, may be null), keys (R,) int64 or null, eps_in (R,
-// T, K, A) or null → S (R, K), partials (R, nb, 2 + T·A). S is 2A for LTI
+// T, K, A) or null → S (R, K), partials (R, nb, 2 + T·A); the draws start at
+// counter word k0 (0 on one GPU). S is 2A for LTI
 // and LTI with obstacles (A ≤ 4), 2 for the pendulum and 4 for the
 // cart-pole (A = 1), 3 for the unicycle, 6 for the quadrotor and 4 for the
 // arm (A = 2), 13 for the 3-D quadrotor (A = 4). With partials null it
@@ -999,30 +1103,32 @@ int mppi_solve_partials(int family, const float* x0, const float* U, const float
                         const float* goal, const long long* keys, const float* eps_in, float* S,
                         float* partials, int R, int K, int T, int A, float dt, float lam_cost,
                         float lam_softmin, unsigned key0, unsigned key1, unsigned step,
-                        unsigned it, int antithetic, float ou_beta, float ou_c, void* stream) {
-  const NoiseParams np = make_noise(key0, key1, step, it, K, antithetic, ou_beta, ou_c);
+                        unsigned it, unsigned k0, int antithetic, float ou_beta, float ou_c,
+                        void* stream) {
+  const NoiseParams np = make_noise(key0, key1, step, it, k0, K, antithetic, ou_beta, ou_c);
   const SolveArgs a{x0, U, params, goal, keys, eps_in, S, partials, R, T, A, dt, lam_cost,
                     lam_softmin};
   return partials != nullptr ? launch_family<true>(family, a, np, (cudaStream_t)stream)
                              : launch_family<false>(family, a, np, (cudaStream_t)stream);
 }
 
-// partials (R, nb, 2 + TA) → beta_eta (R, 2), dU (R, TA).
-int mppi_softmin_combine(const float* partials, int R, int nb, int TA, float lam,
+// partials (R, nb, 2 + TA) → beta_eta (R, 2), dU (R, TA); divided by η
+// unless `normalize` is 0.
+int mppi_softmin_combine(const float* partials, int R, int nb, int TA, float lam, int normalize,
                          float* beta_eta, float* dU, void* stream) {
   if (R < 1 || R > kMaxRobots) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)nb * sizeof(float);
   cudaError_t err = set_smem(softmin_combine_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   softmin_combine_kernel<<<R, kCombineThreads, smem, (cudaStream_t)stream>>>(
-      partials, nb, TA, lam, beta_eta, dU);
+      partials, nb, TA, lam, normalize, beta_eta, dU);
   return (int)cudaGetLastError();
 }
 
 int mppi_noise_dump(const float* sigma, float* eps_out, unsigned* words_out, int K, int T,
                     int A, unsigned key0, unsigned key1, unsigned step, unsigned it,
-                    int antithetic, float ou_beta, float ou_c, void* stream) {
-  const NoiseParams np = make_noise(key0, key1, step, it, K, antithetic, ou_beta, ou_c);
+                    unsigned k0, int antithetic, float ou_beta, float ou_c, void* stream) {
+  const NoiseParams np = make_noise(key0, key1, step, it, k0, K, antithetic, ou_beta, ou_c);
   const int nb = (K + kBlock - 1) / kBlock;
   cudaStream_t s = (cudaStream_t)stream;
   switch (A) {
@@ -1033,6 +1139,25 @@ int mppi_noise_dump(const float* sigma, float* eps_out, unsigned* words_out, int
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// K5: sigma (A,), w (K,) normalized weights, eps_in (T, K, A) or null →
+// partials (nb, 2 + T·A) for K2 to fold (normalize 0), nb = ceil(n / 128)
+// with n = K/2 under antithetic in Philox mode, else K. The draws start at
+// counter word k0.
+int mppi_weighted_update(const float* sigma, const float* w, const float* eps_in,
+                         float* partials, int K, int T, int A, unsigned key0, unsigned key1,
+                         unsigned step, unsigned it, unsigned k0, int antithetic, float ou_beta,
+                         float ou_c, void* stream) {
+  const NoiseParams np = make_noise(key0, key1, step, it, k0, K, antithetic, ou_beta, ou_c);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (A) {
+    case 1: return (int)launch_weighted_update_mode<1>(sigma, w, eps_in, partials, T, np, s);
+    case 2: return (int)launch_weighted_update_mode<2>(sigma, w, eps_in, partials, T, np, s);
+    case 3: return (int)launch_weighted_update_mode<3>(sigma, w, eps_in, partials, T, np, s);
+    case 4: return (int)launch_weighted_update_mode<4>(sigma, w, eps_in, partials, T, np, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

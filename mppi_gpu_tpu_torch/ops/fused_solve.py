@@ -22,6 +22,11 @@
   ``pallas_rollout_costs`` / ``pallas_planar_rollout_costs`` that
   ``bench.bench_floor`` times); no controller launches it. Its S is K1's S
   for the same inputs, bit for bit.
+* :func:`weighted_update` (K5) — ΔU = Σ_k w_k ε_k for given normalized
+  weights w, ε regenerated in the kernel (K5's per-block sums folded by K2
+  without the division by η): the update of the two-kernel sharded solve
+  (``parallel/sharded.py``); its plain version is
+  :func:`weighted_update_reference`.
 
 The LTI functions :func:`lti_solve_partials`, :func:`fused_solve`,
 :func:`fleet_solve_partials` and :func:`fleet_fused_solve` take the
@@ -38,9 +43,11 @@ robot by robot. Any other placement, dtype, shape or layout raises. There
 is no fallback from the device to the plain version.
 
 Noise: ``eps=None`` is the Philox mode (production): ε is generated in the
-kernel from (seed, step, it), robot r under its own seed. ``eps`` given is
-the injected-ε mode for parity tests: a (T, K, A) tensor, (R, T, K, A) for
-the fleet, is read instead.
+kernel from (seed, step, it), robot r under its own seed; the single-robot
+wrappers take a draw offset ``k0`` (counter word 0 = k0 + draw index, 0 on
+one GPU) with which a rank of the sharded solve draws its part of the
+stream. ``eps`` given is the injected-ε mode for parity tests: a (T, K, A)
+tensor, (R, T, K, A) for the fleet, is read instead.
 """
 
 from __future__ import annotations
@@ -61,7 +68,8 @@ _SMEM_BYTES = 232448 - 1024  # per-block shared memory on Hopper, less static us
 
 # launches of each CUDA kernel of csrc/mppi_solve.cu, counted by the function
 # that launches it, where it launches; K1's and K4's also by family
-_LAUNCHES = dict.fromkeys(("solve_partials", "softmin_combine", "noise_dump", "rollout_costs"), 0)
+_LAUNCHES = dict.fromkeys(
+    ("solve_partials", "softmin_combine", "noise_dump", "rollout_costs", "weighted_update"), 0)
 _FAMILY_LAUNCHES = {k: dict.fromkeys(FAMILY_NAMES, 0) for k in ("solve_partials", "rollout_costs")}
 
 
@@ -229,24 +237,26 @@ def block_partials(S: torch.Tensor, eps: torch.Tensor, lam_softmin: float) -> to
     return torch.cat([beta_b[:, None], e.sum(1)[:, None], dUt.reshape(nb, T * A)], 1)
 
 
-def _plain_costs(fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps):
+def _plain_costs(fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps,
+                 k0=0):
     """(S (K,), ε): the family's eager model and cost on the port's noise
-    stream for (seed, step, it), or on the given ε."""
+    stream for (seed, step, it) from draw k0 on, or on the given ε."""
     if eps is None:
         eps = philox.sample_eps(
-            seed, step, it, U.shape[0], K, fam.sigma, antithetic=antithetic, ou_beta=ou_beta
+            seed, step, it, U.shape[0], K, fam.sigma, antithetic=antithetic, ou_beta=ou_beta,
+            k0=k0,
         )
     return rollout_costs(fam.dynamics, fam.cost_for(goal), x0, U, eps), eps
 
 
 def family_solve_partials_reference(
     fam: FusedFamily, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta,
-    eps=None,
+    eps=None, k0=0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1 for one robot: ``(S (K,), partials (nb, 2 + T·A))``
     (:func:`block_partials`), S from the family's eager model and cost on
-    the port's noise stream (or the given ε)."""
-    S, eps = _plain_costs(fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps)
+    the port's noise stream from draw k0 on (or the given ε)."""
+    S, eps = _plain_costs(fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps, k0)
     return S, block_partials(S, eps, lam_softmin)
 
 
@@ -269,7 +279,7 @@ def fleet_family_solve_partials_reference(
 
 def _launch_solve_partials(
     fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta,
-    eps, R: int, lead: tuple[int, ...],
+    eps, R: int, lead: tuple[int, ...], k0: int = 0,
 ):
     """Launch K1 for R robots on checked CUDA tensors, or K4 (K1's first pass
     alone) when `lam_softmin` is None; the outputs get the leading shape
@@ -295,8 +305,8 @@ def _launch_solve_partials(
         eps.data_ptr() if eps is not None else None, S.data_ptr(),
         partials.data_ptr() if pass2 else None,
         R, K, T, A, fam.dt, fam.lam_cost, float(lam_softmin) if pass2 else 1.0,
-        *_noise_words(0 if per_robot else int(seeds), step, it), int(antithetic),
-        float(ou_beta), _ou_c(ou_beta), _stream(),
+        *_noise_words(0 if per_robot else int(seeds), step, it), philox.draw_offset(k0),
+        int(antithetic), float(ou_beta), _ou_c(ou_beta), _stream(),
     )
     kernel = "solve_partials" if pass2 else "rollout_costs"
     _raise_on(err, f"{kernel}<{fam.name}>")
@@ -307,18 +317,20 @@ def _launch_solve_partials(
 
 def family_solve_partials(
     fam: FusedFamily, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta,
-    eps=None,
+    eps=None, k0=0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 for one robot of family `fam` (the R = 1 launch of the fleet
     kernel) on CUDA tensors, its plain version on CPU tensors. x0 (S,),
-    U (T, A), goal (S,) for a family with a goal, else None; see
-    :func:`family_solve_partials_reference` for the outputs."""
+    U (T, A), goal (S,) for a family with a goal, else None; the draws start
+    at counter word k0; see :func:`family_solve_partials_reference` for the
+    outputs."""
     if not _solo_on_cuda(fam, x0, U, goal, K, antithetic, eps):
         return family_solve_partials_reference(
-            fam, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta, eps,
+            fam, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta, eps, k0,
         )
     return _launch_solve_partials(
         fam, x0, U, goal, lam_softmin, K, int(seed), step, it, antithetic, ou_beta, eps, 1, (),
+        k0,
     )
 
 
@@ -347,11 +359,11 @@ def fleet_family_solve_partials(
 
 
 def rollout_costs_reference(
-    fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps=None,
+    fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps=None, k0=0,
 ) -> torch.Tensor:
     """Plain version of K4 for one robot: S (K,), the family's eager model and
-    cost on the port's noise stream (or the given ε)."""
-    return _plain_costs(fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps)[0]
+    cost on the port's noise stream from draw k0 on (or the given ε)."""
+    return _plain_costs(fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps, k0)[0]
 
 
 def fleet_rollout_costs_reference(
@@ -368,7 +380,7 @@ def fleet_rollout_costs_reference(
 
 
 def fused_rollout_costs(
-    fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps=None,
+    fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps=None, k0=0,
 ) -> torch.Tensor:
     """K4 for one robot of family `fam` (the R = 1 launch) on CUDA tensors,
     its plain version on CPU tensors: the rollout costs S (K,) of the solve
@@ -376,10 +388,10 @@ def fused_rollout_costs(
     else. Arguments as there, without λ_softmin."""
     if not _solo_on_cuda(fam, x0, U, goal, K, antithetic, eps):
         return rollout_costs_reference(
-            fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps,
+            fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps, k0,
         )
     return _launch_solve_partials(
-        fam, x0, U, goal, None, K, int(seed), step, it, antithetic, ou_beta, eps, 1, (),
+        fam, x0, U, goal, None, K, int(seed), step, it, antithetic, ou_beta, eps, 1, (), k0,
     )
 
 
@@ -404,16 +416,17 @@ def fleet_rollout_costs(
 
 
 def softmin_combine_reference(
-    partials: torch.Tensor, lam_softmin: float, T: int, A: int
+    partials: torch.Tensor, lam_softmin: float, T: int, A: int, normalize: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K2 for one robot: β = min β_b, f_b = exp((β − β_b)/λ),
-    η = Σ f_b η_b, ΔU = Σ f_b ΔŨ_b / η. Returns (β, η, ΔU (T, A))."""
+    η = Σ f_b η_b, ΔU = Σ f_b ΔŨ_b / η (without the division by η unless
+    `normalize`). Returns (β, η, ΔU (T, A))."""
     beta_b, eta_b = partials[:, 0], partials[:, 1]
     beta = torch.min(beta_b)
     f = torch.exp((beta - beta_b) / lam_softmin)
     eta = torch.sum(f * eta_b)
-    dU = torch.sum(f[:, None] * partials[:, 2:], dim=0) / eta
-    return beta, eta, dU.view(T, A)
+    dU = torch.sum(f[:, None] * partials[:, 2:], dim=0)
+    return beta, eta, (dU / eta if normalize else dU).view(T, A)
 
 
 def fleet_softmin_combine_reference(
@@ -426,7 +439,8 @@ def fleet_softmin_combine_reference(
 
 
 def _launch_softmin_combine(
-    partials: torch.Tensor, lam_softmin: float, R: int, T: int, A: int, lead: tuple[int, ...]
+    partials: torch.Tensor, lam_softmin: float, R: int, T: int, A: int, lead: tuple[int, ...],
+    normalize: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 (one block per robot) on checked CUDA partials; returns
     (β η (*lead, 2), ΔU (*lead, T, A)). Counts the launch."""
@@ -439,8 +453,8 @@ def _launch_softmin_combine(
     beta_eta = torch.empty(*lead, 2, dtype=torch.float32, device=partials.device)
     dU = torch.empty(*lead, T, A, dtype=torch.float32, device=partials.device)
     err = lib.mppi_softmin_combine(
-        partials.data_ptr(), R, nb, T * A, float(lam_softmin), beta_eta.data_ptr(),
-        dU.data_ptr(), _stream(),
+        partials.data_ptr(), R, nb, T * A, float(lam_softmin), int(normalize),
+        beta_eta.data_ptr(), dU.data_ptr(), _stream(),
     )
     _raise_on(err, "softmin_combine")
     _LAUNCHES["softmin_combine"] += 1
@@ -448,16 +462,18 @@ def _launch_softmin_combine(
 
 
 def softmin_combine(
-    partials: torch.Tensor, lam_softmin: float, T: int, A: int
+    partials: torch.Tensor, lam_softmin: float, T: int, A: int, normalize: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 for one robot's (nb, 2 + T·A) partials (the R = 1 launch) on a CUDA
-    tensor, its plain version on a CPU tensor."""
+    tensor, its plain version on a CPU tensor. Without `normalize`, ΔU is
+    Σ f_b ΔŨ_b, not divided by η: a rank's share of the one-pass sharded
+    solve."""
     if partials.dim() != 2:
         raise ValueError(f"partials must be (nb, 2 + T·A), got {tuple(partials.shape)}")
     _check("partials", partials, (partials.shape[0], 2 + T * A))
     if not _on_cuda(partials):
-        return softmin_combine_reference(partials, lam_softmin, T, A)
-    beta_eta, dU = _launch_softmin_combine(partials, lam_softmin, 1, T, A, ())
+        return softmin_combine_reference(partials, lam_softmin, T, A, normalize)
+    beta_eta, dU = _launch_softmin_combine(partials, lam_softmin, 1, T, A, (), normalize)
     return beta_eta[0], beta_eta[1], dU
 
 
@@ -481,20 +497,24 @@ def fleet_softmin_combine(
 # K1 + K2: the whole solve core
 
 
-def family_fused_solve_reference(fam: FusedFamily, x0, U, goal, lam_softmin, *args, eps=None):
+def family_fused_solve_reference(fam: FusedFamily, x0, U, goal, lam_softmin, *args, eps=None,
+                                 k0=0, normalize=True):
     """Plain version of :func:`family_fused_solve`."""
-    S, partials = family_solve_partials_reference(fam, x0, U, goal, lam_softmin, *args, eps)
-    return (S, *softmin_combine_reference(partials, lam_softmin, *U.shape))
+    S, partials = family_solve_partials_reference(fam, x0, U, goal, lam_softmin, *args, eps, k0)
+    return (S, *softmin_combine_reference(partials, lam_softmin, *U.shape, normalize))
 
 
-def family_fused_solve(fam: FusedFamily, x0, U, goal, lam_softmin, *args, eps=None):
+def family_fused_solve(fam: FusedFamily, x0, U, goal, lam_softmin, *args, eps=None, k0=0,
+                       normalize=True):
     """One MPPI solve core of family `fam`: ``(S (K,), β, η, ΔU (T, A))``
     with ΔU = Σ_k w_k ε_k for the softmin weights w_k = exp(−(S_k − β)/λ)/η;
     ``args`` are (K, seed, step, it, antithetic, ou_beta) as for
-    :func:`family_solve_partials`. Clamp and shift are the caller's
+    :func:`family_solve_partials`, the draws from counter word k0 on.
+    Without `normalize` ΔU is η·Σ_k w_k ε_k, the share a rank of the one-pass
+    sharded solve contributes. Clamp and shift are the caller's
     (``controller.MPPIController``)."""
-    S, partials = family_solve_partials(fam, x0, U, goal, lam_softmin, *args, eps)
-    return (S, *softmin_combine(partials, lam_softmin, *U.shape))
+    S, partials = family_solve_partials(fam, x0, U, goal, lam_softmin, *args, eps, k0)
+    return (S, *softmin_combine(partials, lam_softmin, *U.shape, normalize))
 
 
 def fleet_family_fused_solve_reference(
@@ -575,24 +595,25 @@ fleet_fused_solve_reference = _lti(
 
 def noise_dump(
     sigma: torch.Tensor, T: int, K: int, seed: int, step: int, it: int,
-    antithetic: bool, ou_beta: float, *, words: bool = False,
+    antithetic: bool, ou_beta: float, *, words: bool = False, k0: int = 0,
 ):
     """The (T, K, A) ε that K1 consumes in its Philox
-    mode for (seed, step, it), in rollout order. With ``words`` also returns
-    the (T, K_draw, 4) Philox words of the draws (int64 holding uint32 values)
-    for a bit-exact check against ``ops/philox.philox_words``. K3 on a CUDA
-    ``sigma``, ``ops/philox.py`` on a CPU one."""
+    mode for (seed, step, it) from draw k0 on, in rollout order. With
+    ``words`` also returns the (T, K_draw, 4) Philox words of the draws
+    (int64 holding uint32 values) for a bit-exact check against
+    ``ops/philox.philox_words``. K3 on a CUDA ``sigma``, ``ops/philox.py`` on
+    a CPU one."""
     A = sigma.shape[0] if sigma.dim() == 1 else -1
     _check_problem(T, A, K, antithetic)
     _check("sigma", sigma, (A,))
     K_draw = K // 2 if antithetic else K
     if not _on_cuda(sigma):
         eps = philox.sample_eps(
-            seed, step, it, T, K, sigma, antithetic=antithetic, ou_beta=ou_beta
+            seed, step, it, T, K, sigma, antithetic=antithetic, ou_beta=ou_beta, k0=k0
         )
         if not words:
             return eps
-        return eps, philox.philox_words(seed, step, it, T, K_draw, sigma.device)
+        return eps, philox.philox_words(seed, step, it, T, K_draw, sigma.device, k0)
     from mppi_gpu_tpu_torch.ops._build import load_library
 
     lib = load_library()
@@ -603,14 +624,63 @@ def noise_dump(
     )
     err = lib.mppi_noise_dump(
         sigma.data_ptr(), eps.data_ptr(), w_out.data_ptr() if words else None,
-        K, T, A, *_noise_words(seed, step, it), int(antithetic), float(ou_beta),
-        _ou_c(ou_beta), _stream(),
+        K, T, A, *_noise_words(seed, step, it), philox.draw_offset(k0), int(antithetic),
+        float(ou_beta), _ou_c(ou_beta), _stream(),
     )
     _raise_on(err, "noise_dump")
     _LAUNCHES["noise_dump"] += 1
     if not words:
         return eps
     return eps, w_out.to(torch.int64) & 0xFFFFFFFF
+
+
+# --------------------------------------------------------------------------
+# K5: the weighted update
+
+
+def weighted_update_reference(w: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 (with K2's fold): ΔU (T, A) = Σ_k w_k ε_k[t, a]
+    for weights w (K,) and noise ε (T, K, A)."""
+    return torch.einsum("tka,k->ta", eps, w)
+
+
+def weighted_update(
+    sigma: torch.Tensor, w: torch.Tensor, T: int, K: int, seed: int, step: int, it: int,
+    antithetic: bool, ou_beta: float, eps=None, k0: int = 0,
+) -> torch.Tensor:
+    """ΔU (T, A) = Σ_k w_k ε_k for normalized softmin weights w (K,), ε the
+    port's noise stream for (seed, step, it) from draw k0 on under σ (A,)
+    (the stream K1 and K4 draw), or the given ε (T, K, A). On CUDA tensors
+    K5 writes per-block sums, regenerating ε, and K2 folds them (f_b = 1,
+    not divided by η); on CPU tensors :func:`weighted_update_reference` on
+    the stream ``ops/philox.py`` draws."""
+    A = sigma.shape[0] if sigma.dim() == 1 else -1
+    _check_problem(T, A, K, antithetic and eps is None)
+    _check("sigma", sigma, (A,))
+    _check("w", w, (K,))
+    if eps is not None:
+        _check("eps", eps, (T, K, A))
+    if not _on_cuda(*(t for t in (sigma, w, eps) if t is not None)):
+        if eps is None:
+            eps = philox.sample_eps(seed, step, it, T, K, sigma, antithetic=antithetic,
+                                    ou_beta=ou_beta, k0=k0)
+        return weighted_update_reference(w, eps)
+    if 4 * (BLOCK // 32) * T * A > _SMEM_BYTES:
+        raise ValueError(f"T·A = {T * A} exceeds the kernel's shared-memory budget")
+    from mppi_gpu_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    fold = antithetic and eps is None  # one thread per draw, its mirror folded in
+    nb = -(-(K // 2 if fold else K) // BLOCK)
+    partials = torch.empty(nb, 2 + T * A, dtype=torch.float32, device=w.device)
+    err = lib.mppi_weighted_update(
+        sigma.data_ptr(), w.data_ptr(), eps.data_ptr() if eps is not None else None,
+        partials.data_ptr(), K, T, A, *_noise_words(seed, step, it), philox.draw_offset(k0),
+        int(fold), float(ou_beta), _ou_c(ou_beta), _stream(),
+    )
+    _raise_on(err, f"weighted_update<A={A}>")
+    _LAUNCHES["weighted_update"] += 1
+    return _launch_softmin_combine(partials, 1.0, 1, T, A, (), normalize=False)[1]
 
 
 def reset_launch_counts() -> None:

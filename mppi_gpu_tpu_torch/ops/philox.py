@@ -9,8 +9,11 @@ the port is held to its own stream (dump + replay), not to the TPU's bits.
 
 Stream definition:
 
-* key = (seed low word, seed high word); counter = (k, t, step, it) for the
-  drawing rollout k, horizon step t, control step and opt-iteration;
+* key = (seed low word, seed high word); counter = (k0 + k, t, step, it)
+  for the drawing rollout k, horizon step t, control step and
+  opt-iteration; the draw offset k0 is 0 on one GPU, and a rank of the
+  sharded solve draws its K/n rollouts at k0 = rank · K/n (rank · K/2n
+  under antithetic), so the ranks together draw this stream at K;
 * one Philox4x32-10 call per (k, t) gives four uint32 words, hence up to
   A ≤ 4 normals through two Box-Muller pairs — words (0, 1) give normals 0
   and 1, words (2, 3) normals 2 and 3 — from 24-bit uniforms
@@ -73,15 +76,25 @@ def philox4x32(
     return c0, c1, c2, c3
 
 
+def draw_offset(k0: int) -> int:
+    """`k0` as counter word 0 of the first draw, or ``ValueError`` when it is
+    not a 32-bit word (the draw index k0 + k wraps modulo 2³², as in K1)."""
+    if not 0 <= k0 < 1 << 32:
+        raise ValueError(f"the draw offset k0 is a 32-bit counter word, got {k0}")
+    return int(k0)
+
+
 def philox_words(
-    seed: int, step: int, it: int, T: int, K_draw: int, device: torch.device | str
+    seed: int, step: int, it: int, T: int, K_draw: int, device: torch.device | str,
+    k0: int = 0,
 ) -> torch.Tensor:
-    """(T, K_draw, 4) int64: the four uint32 words of counter (k, t, step, it)
-    under key (seed low, seed high)."""
+    """(T, K_draw, 4) int64: the four uint32 words of counter
+    (k0 + k, t, step, it) under key (seed low, seed high)."""
+    k0 = draw_offset(k0)
     seed &= (1 << 64) - 1
     key = (seed & _MASK32, seed >> 32)
     i64 = dict(dtype=torch.int64, device=device)
-    k = torch.arange(K_draw, **i64).expand(T, K_draw)
+    k = ((torch.arange(K_draw, **i64) + k0) & _MASK32).expand(T, K_draw)
     t = torch.arange(T, **i64)[:, None].expand(T, K_draw)
     c2 = torch.full((T, K_draw), step & _MASK32, **i64)
     c3 = torch.full((T, K_draw), it & _MASK32, **i64)
@@ -133,12 +146,14 @@ def sample_eps(
     *,
     antithetic: bool = False,
     ou_beta: float = 0.0,
+    k0: int = 0,
 ) -> torch.Tensor:
-    """(T, K, A) ε of the stream for (seed, step, it), on sigma's device."""
+    """(T, K, A) ε of the stream for (seed, step, it), on sigma's device,
+    drawn from counter word k0 on."""
     if antithetic and K % 2:
         raise ValueError(f"antithetic sampling needs an even K, got {K}")
     K_draw = K // 2 if antithetic else K
-    words = philox_words(seed, step, it, T, K_draw, sigma.device)
+    words = philox_words(seed, step, it, T, K_draw, sigma.device, k0)
     nu = box_muller(words, sigma.shape[0])
     return normals_to_eps(nu, sigma, antithetic=antithetic, ou_beta=ou_beta)
 

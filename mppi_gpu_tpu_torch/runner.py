@@ -6,9 +6,9 @@ Measure state → solve → apply the first action to the world → repeat until
 the episode ends, timing every solve like the reference's "Average
 controller execution time" metric, with optional per-step debug dumps and
 the divergence guard. The world is the config family's (``envs.make_world``:
-point mass, pendulum, cart-pole, unicycle, planar quadrotor or two-link arm)
-and runs on the CPU: its state is a few floats and the host needs it every
-cycle anyway.
+point mass, with or without obstacles, pendulum, cart-pole, unicycle, planar
+quadrotor, two-link arm or 3-D quadrotor) and runs on the CPU: its state is a
+few floats and the host needs it every cycle anyway.
 
 :func:`run_fleet_episode` runs R such loops at once on the controller's
 device (counterpart of ``run_fleet_episode_jit``).
@@ -73,7 +73,7 @@ def run_closed_loop(
         if given:
             raise NotImplementedError(
                 f"run_closed_loop({name}=...) is not ported to mppi_gpu_tpu_torch yet "
-                "(see ROADMAP.md, Open items §1 item 5)"
+                "(see ROADMAP.md, Open items §1 items 4 and 6)"
             )
     params = world_params or params_for_config(ctrl.cfg)
     world = make_world(ctrl.cfg, params)
@@ -146,7 +146,7 @@ def run_fleet_episode(
     if not isinstance(params, WorldParams):
         raise NotImplementedError(
             f"run_fleet_episode runs the batched point-mass world; a batched world "
-            f"for env '{ctrl.cfg.env}' is not ported yet (see ROADMAP.md, Open items §1 item 6); "
+            f"for env '{ctrl.cfg.env}' is not ported yet (see ROADMAP.md, Open items §1 item 1); "
             "its fleet solve runs (BatchedMPPIController)"
         )
     world = PointMassWorld(params, device=ctrl.device)

@@ -63,7 +63,8 @@ S_TOL = dict(rtol=3e-5)
 DU_TOL = dict(rtol=2e-4, atol=1e-6)
 # closed loops on the same ε: (action atol in units of σ, state atol)
 LOOP_TOL = {"unicycle": (2e-3, 2e-5), "quadrotor": (5e-3, 5e-4), "arm": (1e-1, 2e-2)}
-ZERO_LAUNCHES = {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0, "rollout_costs": 0}
+ZERO_LAUNCHES = {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0, "rollout_costs": 0,
+                 "weighted_update": 0}
 
 
 def _cfg_path(name: str) -> str:

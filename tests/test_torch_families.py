@@ -166,7 +166,8 @@ def test_plain_version_matches_pallas_family_kernel(name, ou, anti):
     np.testing.assert_allclose(dU.numpy(), np.asarray(dU_j), **DU_TOL)
     np.testing.assert_allclose(float(beta), float(np.asarray(S_j)[:K].min()), **S_TOL)
     assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0,
-                                 "rollout_costs": 0}
+                                 "rollout_costs": 0,
+                                 "weighted_update": 0}
 
 
 def test_family_dispatch():
@@ -406,6 +407,44 @@ def test_extreme_cartpole_state_eager_and_plain_agree():
 # chip_smoke's family checks: a rehearsal on the CPU, and on the card
 
 
+@pytest.mark.parametrize("name,edit", [("cartpole", dict(pole_mass=0.35)),
+                                       ("point_mass3d", dict(dt=0.05))])
+def test_pack_follows_a_reassigned_model(name, edit):
+    """The stale-pack repair for the model: after ``ctrl.dynamics =
+    dataclasses.replace(ctrl.dynamics, ...)`` the controller's pack is a
+    fresh family_for pack of the new model and the cost (its parameters,
+    dt and the plain version's model), and the fused solve's plain version
+    (K1 + K2's, on CPU tensors) equals the eager solve with the new model on
+    the same ε, S bit for bit; a model no family fuses leaves no pack on the
+    eager backend and raises, changing nothing, on the fused one."""
+    cfg = load_config(_cfg_path(name)).replace(samples=200, horizon=8)
+    ctrl = MPPIController(cfg, device="cpu")
+    old = ctrl._family
+    new = dataclasses.replace(ctrl.dynamics, **{k: torch.tensor(v) for k, v in edit.items()})
+    ctrl.dynamics = new
+    fresh = families.family_for(new, ctrl.cost, ctrl.sigma)
+    assert ctrl.dynamics is new and ctrl._family.dynamics is new
+    assert torch.equal(ctrl._family.params, fresh.params) and ctrl._family.dt == fresh.dt
+    assert not (torch.equal(ctrl._family.params, old.params) and ctrl._family.dt == old.dt)
+    x, U = torch.full((cfg.state_dim,), 0.1), ctrl.init_action_seq()
+    eps = ctrl._eps(1, 0, 0)
+    eager = ctrl.solve_with_eps(x, U, eps)
+    S, beta, eta, dU = fs.family_fused_solve(ctrl._family, x, U, None if name == "cartpole" else ctrl.cost.goal,
+                                             cfg.lambda_, cfg.samples, 0, 0, 0, False, 0.0, eps=eps)
+    assert torch.equal(S, eager.info.costs)
+    u_new = torch.clamp(U + dU, -ctrl.max_a, ctrl.max_a)
+    np.testing.assert_allclose(u_new.numpy(), eager.info.u_seq.numpy(), rtol=1e-5, atol=1e-6)
+    from mppi_gpu_tpu_torch.models import PendulumDynamics
+
+    ctrl.dynamics = PendulumDynamics.create(0.05)  # with this cost: no family
+    assert ctrl._family is None
+    ctrl.dynamics = new
+    ctrl.rollout_backend = "fused"  # on CPU tensors: K1 + K2's plain versions
+    with pytest.raises(ValueError, match="fused backend covers"):
+        ctrl.dynamics = PendulumDynamics.create(0.05)
+    assert ctrl.dynamics is new and ctrl._family.dynamics is new
+
+
 def test_chip_smoke_family_checks_run_on_the_cpu():
     """chip_smoke.py's phase-11 checks on CPU tensors compare the plain
     versions with themselves and with the float64 plain version: a
@@ -419,7 +458,8 @@ def test_chip_smoke_family_checks_run_on_the_cpu():
         chip_smoke.check_family_fleet(name, 3, 300, 20, device="cpu")
     chip_smoke.check_family_diverged(device="cpu")
     assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0,
-                                 "rollout_costs": 0}
+                                 "rollout_costs": 0,
+                                 "weighted_update": 0}
 
 
 @pytest.fixture

@@ -102,7 +102,8 @@ def _against_jax_fleet(jcfg, tcfg, R, *, onepass, planar):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
                                        err_msg=f"{backend} {name}")
     assert fs.launch_counts() == {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0,
-                                 "rollout_costs": 0}
+                                 "rollout_costs": 0,
+                                 "weighted_update": 0}
 
 
 def test_fleet_onepass_kernel_per_robot_goals():

@@ -30,10 +30,15 @@ def test_import_loads_no_jax_and_builds_nothing():
         "import mppi_gpu_tpu_torch.envs.quadrotor_world, mppi_gpu_tpu_torch.envs.arm_world\n"
         "import mppi_gpu_tpu_torch.models.quadrotor3d, mppi_gpu_tpu_torch.envs.quadrotor3d_world\n"
         "import mppi_gpu_tpu_torch.examples.obstacle_nav, mppi_gpu_tpu_torch.examples.quadrotor3d_flight\n"
+        "import mppi_gpu_tpu_torch.parallel, mppi_gpu_tpu_torch.parallel.mesh\n"
+        "import mppi_gpu_tpu_torch.parallel.multihost, mppi_gpu_tpu_torch.parallel.sharded\n"
+        "import mppi_gpu_tpu_torch.parallel.fleet\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'mppi_gpu_tpu', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "assert 'mppi_gpu_tpu_torch.ops._build' not in sys.modules\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "print('clean')\n"
     )
     out = subprocess.run(

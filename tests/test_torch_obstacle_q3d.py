@@ -72,7 +72,8 @@ OBSTACLE_EDITS = dict(cost_type="obstacle", obstacles=OBSTACLES, obstacle_w=800.
 # rtol 2e-4, atol 1e-6
 S_TOL = {"lti-obstacle": dict(rtol=3e-5), "quadrotor3d": dict(rtol=5e-5)}
 DU_TOL = dict(rtol=2e-4, atol=1e-6)
-ZERO_LAUNCHES = {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0, "rollout_costs": 0}
+ZERO_LAUNCHES = {"solve_partials": 0, "softmin_combine": 0, "noise_dump": 0, "rollout_costs": 0,
+                 "weighted_update": 0}
 
 
 def _cfg_path(name: str) -> str:

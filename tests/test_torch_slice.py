@@ -90,7 +90,7 @@ def test_cli_runs_on_the_cpu(capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--device", "cuda"], None),
-    (["--device", "cpu", "--sharded"], "--sharded"),
+    (["--device", "cpu", "--checkpoint-every", "5"], "--checkpoint-every"),
     (["--device", "cpu", "--world", "mujoco"], "--world"),
     (["--device", "cpu", "--jit-episode"], "--jit-episode"),
     (["--device", "cpu", "--checkpoint", "x.npz"], "--checkpoint"),
