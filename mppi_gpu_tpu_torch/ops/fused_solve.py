@@ -33,8 +33,10 @@ The LTI functions :func:`lti_solve_partials`, :func:`fused_solve`,
 point-mass problem as tensors (σ, Σ⁻¹, w, goal, λ, dt) and run the same
 kernels on its family (:func:`lti_family`, built per call).
 
-Each wrapper launches its kernel when its inputs lie on a CUDA device,
-through one launcher per kernel (K1's serves K4 too), which counts the
+Each wrapper launches its kernel when its inputs lie on a CUDA device, on
+that device and torch's current stream there (:func:`_launch`, whatever
+device the calling thread had selected), through one launcher per kernel
+(K1's serves K4 too), which counts the
 launch under the kernel's name (:func:`launch_counts`; K1's and K4's also
 by family, :func:`family_launch_counts`); on CPU tensors it runs the plain
 version: for K1 the family's eager model and cost through
@@ -131,13 +133,15 @@ def _robot_seeds(seeds, R: int) -> list[int]:
     return seeds.tolist() if isinstance(seeds, torch.Tensor) else [int(seeds)] * R
 
 
-def _raise_on(err: int, kernel: str) -> None:
+def _launch(kernel: str, entry, device: torch.device, *args) -> None:
+    """Call the C entry `entry` on `args` and torch's current stream on
+    `device`, the device of the kernel's tensors, with the CUDA runtime's
+    current device set to it: ``<<<>>>`` launches there, whatever device the
+    calling thread had selected. Raises if `kernel` failed to launch."""
+    with torch.cuda.device(device):
+        err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: cudaError_t {err}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 # --------------------------------------------------------------------------
@@ -298,7 +302,9 @@ def _launch_solve_partials(
     S = torch.empty(*lead, K, dtype=torch.float32, device=Us.device)
     partials = (torch.empty(*lead, nb, 2 + T * A, dtype=torch.float32, device=Us.device)
                 if pass2 else None)
-    err = lib.mppi_solve_partials(
+    kernel = "solve_partials" if pass2 else "rollout_costs"
+    _launch(
+        f"{kernel}<{fam.name}>", lib.mppi_solve_partials, Us.device,
         fam.fid, xs.data_ptr(), Us.data_ptr(), fam.params.data_ptr(),
         goals.data_ptr() if goals is not None else None,
         seeds.data_ptr() if per_robot else None,
@@ -306,10 +312,8 @@ def _launch_solve_partials(
         partials.data_ptr() if pass2 else None,
         R, K, T, A, fam.dt, fam.lam_cost, float(lam_softmin) if pass2 else 1.0,
         *_noise_words(0 if per_robot else int(seeds), step, it), philox.draw_offset(k0),
-        int(antithetic), float(ou_beta), _ou_c(ou_beta), _stream(),
+        int(antithetic), float(ou_beta), _ou_c(ou_beta),
     )
-    kernel = "solve_partials" if pass2 else "rollout_costs"
-    _raise_on(err, f"{kernel}<{fam.name}>")
     _LAUNCHES[kernel] += 1
     _FAMILY_LAUNCHES[kernel][fam.name] += 1
     return (S, partials) if pass2 else S
@@ -452,11 +456,11 @@ def _launch_softmin_combine(
     lib = load_library()
     beta_eta = torch.empty(*lead, 2, dtype=torch.float32, device=partials.device)
     dU = torch.empty(*lead, T, A, dtype=torch.float32, device=partials.device)
-    err = lib.mppi_softmin_combine(
+    _launch(
+        "softmin_combine", lib.mppi_softmin_combine, partials.device,
         partials.data_ptr(), R, nb, T * A, float(lam_softmin), int(normalize),
-        beta_eta.data_ptr(), dU.data_ptr(), _stream(),
+        beta_eta.data_ptr(), dU.data_ptr(),
     )
-    _raise_on(err, "softmin_combine")
     _LAUNCHES["softmin_combine"] += 1
     return beta_eta, dU
 
@@ -622,12 +626,12 @@ def noise_dump(
         torch.empty(T, K_draw, 4, dtype=torch.int32, device=sigma.device)
         if words else None
     )
-    err = lib.mppi_noise_dump(
+    _launch(
+        "noise_dump", lib.mppi_noise_dump, sigma.device,
         sigma.data_ptr(), eps.data_ptr(), w_out.data_ptr() if words else None,
         K, T, A, *_noise_words(seed, step, it), philox.draw_offset(k0), int(antithetic),
-        float(ou_beta), _ou_c(ou_beta), _stream(),
+        float(ou_beta), _ou_c(ou_beta),
     )
-    _raise_on(err, "noise_dump")
     _LAUNCHES["noise_dump"] += 1
     if not words:
         return eps
@@ -673,12 +677,12 @@ def weighted_update(
     fold = antithetic and eps is None  # one thread per draw, its mirror folded in
     nb = -(-(K // 2 if fold else K) // BLOCK)
     partials = torch.empty(nb, 2 + T * A, dtype=torch.float32, device=w.device)
-    err = lib.mppi_weighted_update(
+    _launch(
+        f"weighted_update<A={A}>", lib.mppi_weighted_update, w.device,
         sigma.data_ptr(), w.data_ptr(), eps.data_ptr() if eps is not None else None,
         partials.data_ptr(), K, T, A, *_noise_words(seed, step, it), philox.draw_offset(k0),
-        int(fold), float(ou_beta), _ou_c(ou_beta), _stream(),
+        int(fold), float(ou_beta), _ou_c(ou_beta),
     )
-    _raise_on(err, f"weighted_update<A={A}>")
     _LAUNCHES["weighted_update"] += 1
     return _launch_softmin_combine(partials, 1.0, 1, T, A, (), normalize=False)[1]
 

@@ -22,8 +22,6 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-ROLLOUT_AXIS = "k"  # the JAX package's name for the axis K shards over
-
 
 @dataclass(frozen=True)
 class Mesh:
@@ -72,8 +70,12 @@ def make_mesh(device: torch.device | str | None = None) -> Mesh:
     """This process's rank in the default process group (``init_multihost``
     or the caller's ``init_process_group``), or a world of one without a
     group when none is initialized. The device is `device`, by default
-    ``cuda:LOCAL_RANK``; the CPU only when asked for (a gloo group)."""
+    ``cuda:LOCAL_RANK``; the CPU only when asked for (a gloo group). A CUDA
+    device becomes this process's current one (``torch.cuda.set_device``),
+    so that torch's work and NCCL's run where the rank's tensors are."""
     device = torch.device(device) if device is not None else _default_device()
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(1, (0,), device)
     return Mesh(dist.get_world_size(), (dist.get_rank(),), device, dist.group.WORLD)

@@ -215,18 +215,21 @@ class ShardedMPPIController(MPPIController):
 
     def solve_debug(
         self, x: torch.Tensor, U: torch.Tensor, step: int
-    ) -> tuple[SolveResult, torch.Tensor, torch.Tensor]:
+    ) -> tuple[SolveResult, torch.Tensor | None, torch.Tensor | None]:
         """The sharded :meth:`solve_auto` (every rank must call it, or
-        ``solve_auto``, at this step) and the dump of the whole K: the ε of
-        the single-GPU stream (K3 over the global K on the fused backend),
-        which is what the ranks drew between them, its eager rollouts, and
-        their costs and weights under the combined β and η in the single-GPU
-        rollout order."""
+        ``solve_auto``, at this step) and, on the coordinator (the process
+        that runs rank 0), the dump of the whole K: the ε of the single-GPU
+        stream (K3 over the global K on the fused backend), which is what the
+        ranks drew between them, its eager rollouts, and their costs and
+        weights under the combined β and η in the single-GPU rollout order.
+        Every other process gets ``(result, None, None)``."""
         cfg, seed = self.cfg, self.cfg.seed
         x = x.to(self.device, torch.float32)
         U = self._iterate(x, U, seed, step)
         it = cfg.opt_iters - 1
         res = self._solve_once(x, U, seed, step, it)
+        if 0 not in self.mesh.local_ranks:
+            return res, None, None
         if self.rollout_backend == "fused":
             eps = fs.noise_dump(self.sigma, cfg.horizon, cfg.samples, seed, step, it,
                                 cfg.antithetic, cfg.noise_beta)

@@ -90,12 +90,13 @@ def run_closed_loop(
         U_prev = U
         if step_dump_every and step_dump_dir and step % step_dump_every == 0:
             res, eps, traj = ctrl.solve_debug(x, U_prev, step)
-            write_step_dump_csv(
-                os.path.join(step_dump_dir, f"step_{step:05d}.csv"),
-                traj.cpu().numpy(), eps.cpu().numpy(), res.info.u_seq.cpu().numpy(),
-                U_prev.cpu().numpy(), res.info.weights.cpu().numpy(),
-                res.info.costs.cpu().numpy(),
-            )
+            if eps is not None:  # None off a sharded solve's coordinator
+                write_step_dump_csv(
+                    os.path.join(step_dump_dir, f"step_{step:05d}.csv"),
+                    traj.cpu().numpy(), eps.cpu().numpy(), res.info.u_seq.cpu().numpy(),
+                    U_prev.cpu().numpy(), res.info.weights.cpu().numpy(),
+                    res.info.costs.cpu().numpy(),
+                )
             action = res.action.cpu().numpy()
         else:
             with timer.measure():

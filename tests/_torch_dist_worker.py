@@ -67,6 +67,14 @@ def solve(cfg, x, U, onepass: bool, eps=None, seed: int = 0, step: int = 0):
     return _counted(lambda: ctrl.solve(x, U, seed, step))
 
 
+def debug(cfg, x, U, step: int):
+    """ShardedMPPIController.solve_debug over the group: the action and the
+    dump (None off the coordinator)."""
+    ctrl = ShardedMPPIController(cfg, mesh=global_mesh("cpu"))
+    res, eps, xs = ctrl.solve_debug(x, U, step)
+    return dict(action=res.action, eps=eps, xs=xs)
+
+
 def fleet(cfg, n_robots, xs, goals=None, step: int = 1):
     """ShardedFleetController's solve of the fleet over the group."""
     ctrl = ShardedFleetController(cfg, n_robots, mesh=global_mesh("cpu"), goals=goals)
@@ -111,7 +119,7 @@ def main(spec_path: str, rank: int) -> None:
         elif name == "cli":
             out.append(cli([*kwargs["argv"], "--process-id", str(rank)]))
         else:
-            out.append({"solve": solve, "fleet": fleet}[name](**kwargs))
+            out.append({"solve": solve, "fleet": fleet, "debug": debug}[name](**kwargs))
     if grouped:
         shutdown_multihost()
     torch.save(out, os.path.join(os.path.dirname(spec_path), f"{rank}.pt"))

@@ -13,7 +13,11 @@ JAX package and against its own solo solve, on the CPU.
   test's temporary directory): ``solve_with_eps`` on the JAX sharded
   solve's per-shard ε against that solve, the Philox solve against the solo
   one, the all-reduces per update, the sharded fleet bit for bit against
-  ``BatchedMPPIController``, and ``init_multihost``'s re-calls;
+  ``BatchedMPPIController``, ``init_multihost``'s re-calls, and the debug
+  dump built on the coordinator alone;
+- device-free, with ``torch.cuda``'s device selection stubbed: each kernel
+  launches on its tensors' device and stream, and ``make_mesh`` binds the
+  process to its rank's GPU;
 - uneven K and R, and the CLI's ``--sharded``, ``--multihost`` and
   ``--coordinator``.
 
@@ -23,9 +27,13 @@ chip_smoke's checks and skip without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import os
+import re
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -256,7 +264,8 @@ def test_sharded_solve_debug_dumps_the_single_gpu_stream():
 def gloo(request, tmp_path_factory):
     """One group of n worker processes running every task of this section:
     the JAX sharded solve's ε through ``solve_with_eps``, the Philox solve
-    in each mode, two fleets, ``init_multihost``'s re-calls."""
+    in each mode, two fleets, ``init_multihost``'s re-calls, the debug
+    dump."""
     n = request.param
     K, T = 64, 8
     cfg = load_config(PM2).replace(samples=K, horizon=T)
@@ -285,7 +294,8 @@ def gloo(request, tmp_path_factory):
     pend = load_config(PENDULUM).replace(samples=K, horizon=T)
     ps = torch.as_tensor(np.pi - rng.uniform(0.1, 0.5, (R, 2)).astype(np.float32))
     tasks += [("fleet", dict(cfg=cfg, n_robots=R, xs=xs, goals=goals)),
-              ("fleet", dict(cfg=pend, n_robots=R, xs=ps)), ("multihost", {})]
+              ("fleet", dict(cfg=pend, n_robots=R, xs=ps)), ("multihost", {}),
+              ("debug", dict(cfg=cfg.replace(samples=128), x=xt, U=Ut, step=3))]
     ranks = _spawn(tmp_path_factory.mktemp(f"gloo{n}"), n, tasks)
     return dict(n=n, cfg=cfg, x=xt, U=Ut, jres=jres, tasks=tasks, ranks=ranks)
 
@@ -380,8 +390,85 @@ def test_init_multihost_recalls(gloo):
         assert got["coordinator"] == (d == 0)
 
 
+def test_solve_debug_dumps_on_the_coordinator_alone(gloo):
+    """``solve_debug`` over the group: the coordinator's dump is the solo
+    dump of the whole K (ε and trajectories bit for bit); every other rank
+    builds none, gets None for both, and the coordinator's action."""
+    ((kw, ranks),) = _task_results(gloo, "debug")
+    _, eps_w, xs_w = MPPIController(kw["cfg"], device="cpu").solve_debug(kw["x"], kw["U"],
+                                                                         kw["step"])
+    assert torch.equal(ranks[0]["eps"], eps_w) and torch.equal(ranks[0]["xs"], xs_w)
+    for got in ranks[1:]:
+        assert got["eps"] is None and got["xs"] is None
+        assert torch.equal(got["action"], ranks[0]["action"])
+
+
 # ---------------------------------------------------------------------------
-# (e) what raises, and the CLI
+# (e) the device a rank's work runs on
+
+
+class _FakeCudaDevices:
+    """Stands in for ``torch.cuda``'s device selection on the CPU: the
+    current device index, and the devices asked for their current stream or
+    made current."""
+
+    def __init__(self, monkeypatch):
+        self.current, self.set, self.streams = 0, [], []
+        monkeypatch.setattr(torch.cuda, "device", self._device)
+        monkeypatch.setattr(torch.cuda, "current_stream", self._stream)
+        monkeypatch.setattr(torch.cuda, "set_device", self._set_device)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+
+    @contextlib.contextmanager
+    def _device(self, device):
+        prev, self.current = self.current, torch.device(device).index
+        try:
+            yield
+        finally:
+            self.current = prev
+
+    def _stream(self, device=None):
+        self.streams.append(torch.device(device).index)
+        return types.SimpleNamespace(cuda_stream=100 + torch.device(device).index)
+
+    def _set_device(self, device):
+        self.set.append(torch.device(device))
+
+
+def test_kernels_launch_on_the_device_of_their_tensors(monkeypatch):
+    """Device-free: ``fused_solve._launch`` calls a C entry with the CUDA
+    runtime's current device set to the tensors' device (cuda:2 here, while
+    the thread's is cuda:0) and that device's current stream as its last
+    argument, restores the thread's device, and raises on a launch error;
+    every C entry of ``fused_solve`` goes out through it."""
+    cuda = _FakeCudaDevices(monkeypatch)
+    seen = []
+    fs._launch("k", lambda *a: seen.append((cuda.current, a)) or 0, torch.device("cuda", 2), 7, 8)
+    assert seen == [(2, (7, 8, 102))] and cuda.streams == [2] and cuda.current == 0
+    with pytest.raises(RuntimeError, match=r"k<A=3> failed to launch: cudaError_t 700"):
+        fs._launch("k<A=3>", lambda *a: 700, torch.device("cuda", 1))
+    assert cuda.current == 0
+    src = inspect.getsource(fs)
+    assert not re.search(r"lib\.mppi_\w+\(", src)  # no entry called around _launch
+    entries = re.findall(r"_launch\(\s*[^,]+,\s*lib\.(mppi_\w+),\s*\w+\.device,", src)
+    assert sorted(entries) == ["mppi_noise_dump", "mppi_softmin_combine", "mppi_solve_partials",
+                               "mppi_weighted_update"]
+
+
+def test_make_mesh_binds_the_process_to_its_gpu(monkeypatch):
+    """``make_mesh`` makes a rank's CUDA device the process's current one:
+    ``cuda:LOCAL_RANK`` by default (torchrun's variable), or the device
+    given; a CPU mesh selects no GPU."""
+    cuda = _FakeCudaDevices(monkeypatch)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert make_mesh().device == torch.device("cuda", 3)
+    assert make_mesh("cuda:1").device == torch.device("cuda", 1)
+    make_mesh("cpu")
+    assert cuda.set == [torch.device("cuda", 3), torch.device("cuda", 1)]
+
+
+# ---------------------------------------------------------------------------
+# (f) what raises, and the CLI
 
 
 def test_sharded_fleet_solve_with_eps_on_virtual_ranks():
