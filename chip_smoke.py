@@ -25,7 +25,14 @@ weighted update of the two-kernel sharded solve, against its plain version
 (phase 18), and the sharded solve of ``parallel/`` in both branches on a
 world of one NCCL rank and on four virtual ranks against the solo solve,
 the sharded fleet, the ``--sharded`` CLI and the two-kernel closed loop
-(phase 19). Every phase prints one line (or a few); any failure raises and
+(phase 19), and K1's and K4's two bodies (the slab body of the main path's
+K and the per-rollout body; ``ops/fused_solve.block_width`` picks one): S
+bit-equal across both for every family instance, K2 at the nb of both
+widths and of K5, and both bodies timed across K for every family, with the
+crossover each family's timings give beside the rule's table (phase 20).
+``--time-commit ROOT`` instead times K1, K2 and K4 of the package in the
+checkout at ROOT, to compare two commits in one run. Every phase
+prints one line (or a few); any failure raises and
 the script exits non-zero without the final line. Without a CUDA device it
 exits 1 at once. The last two lines are a JSON object describing every
 kernel, K1 once per family instance (route, source, the TPU kernels it
@@ -96,6 +103,14 @@ OBSTACLE_MARGIN = 0.06
 # and an obstacle term that does not fire sends every episode through the
 # first sphere
 OBSTACLE_SEEDS, OBSTACLE_REF_CLEAR, OBSTACLE_ALPHA = 64, 43, 0.01
+# a second, finer bar: the median clearance over the same seeds. The
+# reference's is np.median of the 64 clearances that
+# `python tests/_obstacle_noise_probe.py --jax-row-only --seeds 64 --out F`
+# writes to F (CPU; the same run gives the 43 of 64 above): +0.02535 m. The
+# port's may lie below it by at most 3·√2 standard errors of a median of 64
+# such episodes, 0.0106 m by a bootstrap of those 64 clearances (10⁴
+# resamples, numpy seed 0): both medians carry that spread
+OBSTACLE_REF_MEDIAN_M, OBSTACLE_MEDIAN_SLACK_M = 0.02535, 3 * math.sqrt(2) * 0.0106
 # the angle's index in the state and the world's start (envs/*_world.py)
 FAMILY_ANGLE = {"pendulum": 0, "cartpole": 1}
 FAMILY_INIT_THETA = {"pendulum": 3.14159265, "cartpole": 0.15}
@@ -179,22 +194,25 @@ def _oracle():
 def kernel_key(mangled: str) -> str:
     """A kernel's readable name from its mangled one: K1 instances read
     solve_partials<family,A=..,inj=..>, K4's (K1's template without its
-    second pass) rollout_costs<family,A=..,inj=..>, K3's noise_dump<A=..>,
-    K5's weighted_update<A=..,inj=..>;
+    second pass) rollout_costs<family,A=..,inj=..>, each with ",slab" for
+    their slab body (slab_partials_kernel), K3's noise_dump<A=..>, K5's
+    weighted_update<A=..,inj=..>;
     the family under its name in ops/families (the struct's name, lower
     case, is the family's without its hyphen)."""
     from mppi_gpu_tpu_torch.ops.families import FAMILY_NAMES
 
-    k = re.search(r"(solve_partials|softmin_combine|noise_dump|weighted_update)_kernel", mangled)
+    k = re.search(r"(solve_partials|slab_partials|softmin_combine|noise_dump|weighted_update)_kernel",
+                  mangled)
     name = k.group(1) if k else mangled
     fam = re.search(r"(LtiObstacle|Lti|Pendulum|CartPole|Unicycle|Quadrotor3D|Quadrotor|Arm)",
                     mangled)
     ints, bools = re.findall(r"Li(\d+)E", mangled), re.findall(r"Lb(\d)E", mangled)
+    slab = name == "slab_partials"
     if len(bools) == 2:  # <..., INJ, PASS2>
         name = "solve_partials" if bools.pop() == "1" else "rollout_costs"
     family = {n.replace("-", ""): n for n in FAMILY_NAMES}[fam.group(1).lower()] if fam else None
     args = (([family] if fam else []) + ([f"A={ints[-1]}"] if ints else [])
-            + [f"inj={b}" for b in bools])
+            + [f"inj={b}" for b in bools] + (["slab"] if slab else []))
     return name + (f"<{','.join(args)}>" if args else "")
 
 
@@ -344,18 +362,24 @@ def bound_ms(instructions: float, bytes_moved: float, clock_mhz: float) -> tuple
 
 
 def solve_bound(steps: dict, fam, K: int, T: int, clock_mhz: float, R: int = 1,
-                pass2: bool = True) -> tuple[float, str]:
+                pass2: bool = True, width: int | None = None) -> tuple[float, str]:
     """:func:`bound_ms` of one Philox-mode launch of K1 (`pass2`) or K4 for
     R robots of family `fam`: the instructions per step its work needs × T
-    × R·K threads. K4's are its loop's (:func:`philox_loop_steps` of its
-    SASS, `steps`). K1's are that same first pass plus the reduction that
-    ΔU needs, A·(1 + 5 + 5) per step: the product e·ε, five warp shuffles
-    and five adds per action. K1's second noise draw is not counted: it is
-    this kernel's choice (ε stored once and read back would do), not work
-    the function needs. The obstacle family adds its M obstacles' loop
+    × R·K threads, whichever body runs. K4's are the per-rollout body's
+    loop (:func:`philox_loop_steps` of its SASS, `steps`): one draw, step
+    and cost per rollout and step, in one loop the walker reads (the slab
+    body splits the same work over two warps' loops). K1's are that same
+    first pass plus the reduction that ΔU needs, A·(1 + 5 + 5) per step: the
+    product e·ε, five warp shuffles and five adds per action. The
+    per-rollout body's second noise draw is not counted: it is that body's
+    choice (the slab body stores ε once and reads it back), not work the
+    function needs. The obstacle family adds its M obstacles' loop
     (:func:`obstacle_loop_step`, under the key obstacle_loop<...> of
     `steps`) to every step. The bytes are x0, U, goal, the pack and S (K1
-    also its partials), each read or written once."""
+    also its partials, ceil(K / width) rows, `width` the rule's if None),
+    each read or written once."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
     A, S = fam.action_dim, fam.state_dim
     per_step = steps[f"rollout_costs<{fam.name},A={A},inj=0>"][0]
     if fam.name == "lti-obstacle":
@@ -363,7 +387,8 @@ def solve_bound(steps: dict, fam, K: int, T: int, clock_mhz: float, R: int = 1,
     floats = R * (S + T * A + (S if fam.has_goal else 0) + K) + fam.n_params
     if pass2:
         per_step += 11 * A
-        floats += R * -(-K // 128) * (2 + T * A)
+        width = fs.block_width(R, K, T, A, fam.name) if width is None else width
+        floats += R * -(-K // width) * (2 + T * A)
     return bound_ms(per_step * T * R * K, 4 * floats, clock_mhz)
 
 
@@ -527,16 +552,18 @@ def check_edge_cases(device: str = "cuda") -> None:
 
     check_kernels(3, 1000, 50, device=device)
     p = make_problem(2, 1000, 50, device=device)
+    W = fs.block_width(1, 1000, 50, 2, "lti")
+    blk = np.s_[W:2 * W]  # block 1 at the rule's width
     eps = p["eps"].clone()
-    eps[:, fs.BLOCK:2 * fs.BLOCK, :] = 1e30  # block 1 diverges: S = +inf
+    eps[:, blk, :] = 1e30  # block 1 diverges: S = +inf
     got = fs.fused_solve(*solve_args(p, eps=eps))
     want = fs.fused_solve_reference(*solve_args(p, eps=eps))
     compare_solves("one diverged block", p, got, want, S_rtol=1e-5)
     S = _np(got[0])
-    expect(np.isinf(S[fs.BLOCK:2 * fs.BLOCK]).all() and np.isfinite(np.delete(S, np.s_[fs.BLOCK:2 * fs.BLOCK])).all(),
+    expect(np.isinf(S[blk]).all() and np.isfinite(np.delete(S, blk)).all(),
            "one diverged block: expected +inf exactly on block 1")
     res = finish(p, *got)
-    expect(bool((res.info.weights[fs.BLOCK:2 * fs.BLOCK] == 0).all()), "diverged rollouts got weight")
+    expect(bool((res.info.weights[blk] == 0).all()), "diverged rollouts got weight")
     expect(bool(torch.isfinite(res.action).all()), "one diverged block: action not finite")
 
     cfg = _config("point_mass3d").replace(samples=1000, cost_w=(1e38,) * 6)
@@ -595,6 +622,23 @@ def robot(p: dict, r: int) -> dict:
     return q
 
 
+def solo_at_width(fam, x0, U, goal, lam, K: int, seed: int, step: int, it: int, antithetic,
+                  ou_beta, width: int):
+    """One robot's solve core (S, β, η, ΔU): K1 at block width `width` (the
+    launcher's private width) and K2. A fleet robot's solo twin runs at the
+    fleet's width: a fleet past block_width's crossover runs the per-rollout
+    body where one robot alone runs the slab body. On CPU tensors, the plain
+    version at that width."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    if x0.device.type != "cuda":
+        return fs.family_fused_solve_reference(fam, x0, U, goal, lam, K, int(seed), step, it,
+                                               antithetic, ou_beta, width=width)
+    S, part = fs._launch_solve_partials(fam, x0, U, goal, lam, K, int(seed), step, it, antithetic,
+                                        ou_beta, None, 1, (), width=width)
+    return (S, *fs.softmin_combine(part, lam, *U.shape))
+
+
 def check_fleet_injected(A: int, R: int, K: int, T: int, device: str = "cuda") -> dict:
     """The fleet's K1 + K2 (one launch each) in the injected-ε mode against
     the plain fleet on the card and, robot by robot, against the float64
@@ -619,13 +663,16 @@ def check_fleet_philox(A: int, R: int, K: int, T: int, *, antithetic=False, ou_b
                        device: str = "cuda") -> dict:
     """Philox mode, per-robot seeds (ops/philox.fleet_seeds): the fleet's K1
     and K2 against their plain versions, and every robot's (S, β, η, ΔU)
-    bit-equal to the R = 1 launch with its seed, x0, U and goal."""
+    bit-equal to the R = 1 launch with its seed, x0, U and goal at the
+    fleet's block width (:func:`solo_at_width`)."""
     import torch
 
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
     from mppi_gpu_tpu_torch.ops import philox
 
     p = make_fleet(A, R, K, T, device=device)
+    fam = fs.lti_family(p["sigma"], p["inv_s"], p["w"], p["dt"], p["lam_cost"])
+    width = fs.block_width(R, K, T, A, fam.name)
     seeds = philox.fleet_seeds(7, R).to(device)
     args = fleet_args(p, seeds=seeds, step=3, it=1, antithetic=antithetic, ou_beta=ou_beta)
     name = f"fleet philox A={A} R={R} K={K} T={T} anti={antithetic} ou={ou_beta}"
@@ -645,10 +692,11 @@ def check_fleet_philox(A: int, R: int, K: int, T: int, *, antithetic=False, ou_b
     fleet = fs.fleet_fused_solve(*args)
     for r, seed in enumerate(seeds.tolist()):
         q = robot(p, r)
-        solo = fs.fused_solve(*solve_args(q, seed=seed, step=3, it=1, antithetic=antithetic,
-                                          ou_beta=ou_beta))
+        solo = solo_at_width(fam, q["x0"], q["U"], q["goal"], p["lam"], K, seed, 3, 1, antithetic,
+                             ou_beta, width)
         for label, a, want in zip(("S", "beta", "eta", "dU"), (v[r] for v in fleet), solo):
-            expect(torch.equal(a, want), f"{name} robot {r}: {label} differs from its solo solve")
+            expect(torch.equal(a, want), f"{name} robot {r}: {label} differs from its solo solve "
+                   f"at width {width}")
     return dict(solve_partials=e1, softmin_combine=e2)
 
 
@@ -667,6 +715,8 @@ def check_fleet_diverged(K: int = 1000, T: int = 50, device: str = "cuda") -> No
     p["goals"][bad] = 1e30
     seeds = philox.fleet_seeds(3, R).to(device)
     args = fleet_args(p, seeds=seeds)
+    fam = fs.lti_family(p["sigma"], p["inv_s"], p["w"], p["dt"], p["lam_cost"])
+    width = fs.block_width(R, K, T, 2, fam.name)
     S, beta, eta, dU = fs.fleet_fused_solve(*args)
     res = _finish_fused(p["Us"], dU, S, beta, eta, p["lam"], p["max_a"], True)
     expect(bool(torch.isinf(S[bad]).all()) and float(beta[bad]) == float("inf"),
@@ -676,7 +726,9 @@ def check_fleet_diverged(K: int = 1000, T: int = 50, device: str = "cuda") -> No
         if r == bad:
             continue
         expect(bool(torch.isfinite(res.action[r]).all()), f"robot {r}: action not finite")
-        solo = fs.fused_solve(*solve_args(robot(p, r), seed=seed))
+        q = robot(p, r)
+        solo = solo_at_width(fam, q["x0"], q["U"], q["goal"], p["lam"], K, seed, 3, 0, False, 0.0,
+                             width)
         for label, a, want in zip(("S", "beta", "eta", "dU"), (S[r], beta[r], eta[r], dU[r]), solo):
             expect(torch.equal(a, want), f"robot {r} beside a diverged robot: {label} differs")
 
@@ -876,11 +928,13 @@ def check_family_fleet(name: str, R: int, K: int, T: int, device: str = "cuda") 
     S_r, _ = fs.fleet_family_solve_partials_reference(*args)
     e1 = close(f"{label} K1 S", _np(S), _np(S_r), 1e-5)
     fleet = fs.fleet_family_fused_solve(*args)
+    width = fs.block_width(R, K, T, p["A"], p["fam"].name)
     for r, seed in enumerate(seeds.tolist()):
-        solo = fs.family_fused_solve(p["fam"], xs[r], Us[r], None if goals is None else goals[r],
-                                     p["lam"], K, seed, 3, 1, False, 0.0)
+        solo = solo_at_width(p["fam"], xs[r], Us[r], None if goals is None else goals[r], p["lam"],
+                             K, seed, 3, 1, False, 0.0, width)
         for what, a, want in zip(("S", "beta", "eta", "dU"), (v[r] for v in fleet), solo):
-            expect(torch.equal(a, want), f"{label} robot {r}: {what} differs from its solo solve")
+            expect(torch.equal(a, want), f"{label} robot {r}: {what} differs from its solo solve "
+                   f"at width {width}")
     return dict(solve_partials=e1)
 
 
@@ -901,7 +955,8 @@ def check_family_diverged(device: str = "cuda") -> None:
 
     p = make_family_problem("pendulum", 1000, 50, device=device)
     eps = p["eps"].clone()
-    blk = np.s_[fs.BLOCK:2 * fs.BLOCK]
+    W = fs.block_width(1, 1000, 50, 1, "pendulum")
+    blk = np.s_[W:2 * W]
     eps[:, blk] = 1e30
     got = fs.family_fused_solve(*family_args(p), eps=eps)
     want = fs.family_fused_solve_reference(*family_args(p), eps=eps)
@@ -982,7 +1037,8 @@ def check_coupled_diverged(name: str, device: str = "cuda") -> str:
         return "from rates 1e20 -> NaN S and beta, NaN action, ControllerDiverged (fused and eager)"
     p = make_family_problem(name, 1000, 50, device=device)
     eps = p["eps"].clone()
-    blk = np.s_[fs.BLOCK:2 * fs.BLOCK]
+    W = fs.block_width(1, 1000, 50, p["A"], p["fam"].name)
+    blk = np.s_[W:2 * W]
     eps[:, blk, 0 if name == "quadrotor3d" else slice(None)] = 1e30
     got = fs.family_fused_solve(*family_args(p), eps=eps)
     want = fs.family_fused_solve_reference(*family_args(p), eps=eps)
@@ -1320,17 +1376,45 @@ def profile_steps(ctrl, x, U, steps: int = 50) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us, kernel_us = 0.0, {"solve_partials": 0.0, "softmin_combine": 0.0}
+    names = {"solve_partials": ("solve_partials_kernel", "slab_partials_kernel"),  # K1's bodies
+             "softmin_combine": ("softmin_combine_kernel",)}
     for evt in prof.key_averages():
         dev = getattr(evt, "self_device_time_total", None)
         if dev is None:
             dev = getattr(evt, "self_cuda_time_total", 0.0)
         busy_us += dev
         for k in kernel_us:
-            if f"{k}_kernel" in evt.key:
+            if any(n in evt.key for n in names[k]):
                 kernel_us[k] += dev
     wall_ms, busy_ms = wall * 1e3 / steps, busy_us / 1e3 / steps
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1.0 - busy_ms / wall_ms,
                 K1_us=kernel_us["solve_partials"] / steps, K2_us=kernel_us["softmin_combine"] / steps)
+
+
+def device_ms(fn, reps: int = 10) -> float | None:
+    """Device ms per launch of the one kernel of this file that `fn`
+    launches, by torch.profiler over `reps` warm calls: the kernel alone,
+    without the host's time between launches that CUDA events around a
+    single call also count. The median of the kernel records' durations:
+    a window now and then drops records or misreads some (aggregated over
+    the window they read up to half the time), so a sum would not do; None
+    if three windows recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durations = [evt.time_range.elapsed_us() for evt in prof.events()
+                     if evt.device_type == DeviceType.CUDA and "_kernel" in evt.name]
+        if durations:
+            return float(np.median(durations)) / 1e3
+    return None
 
 
 def paired_median_ms(kernel_fn, plain_fn, reps: int, plain_reps: int) -> tuple[float, float]:
@@ -1550,6 +1634,12 @@ def obstacle_quality_episodes(smi: str, seeds: int = OBSTACLE_SEEDS) -> int:
     expect(p_below > OBSTACLE_ALPHA,
            f"obstacle quality episodes: clear in {n_clear} of {seeds}, below the JAX reference's "
            f"{OBSTACLE_REF_CLEAR} of {OBSTACLE_SEEDS} (p {p_below:.4g}): clearances {clear} m")
+    median_bar = OBSTACLE_REF_MEDIAN_M - OBSTACLE_MEDIAN_SLACK_M
+    print(f"[17] obstacle median clearance {np.median(clear):+.4f} m against the JAX reference's "
+          f"{OBSTACLE_REF_MEDIAN_M:+.5f} m over the same seeds; bar {median_bar:+.4f} m (the "
+          f"reference's less {OBSTACLE_MEDIAN_SLACK_M:.4f}, 3·√2 bootstrap standard errors)")
+    expect(np.median(clear) >= median_bar,
+           f"obstacle quality episodes: median clearance {np.median(clear)} m below {median_bar} m")
     return main_launches
 
 
@@ -1697,6 +1787,156 @@ def sharded_phase(smi: str, cols2d: dict) -> tuple[dict, int]:
     return sharded_ms, two_launches["weighted_update"]
 
 
+def check_bodies(label: str, fam, x0, U, goal, lam, K: int, modes, eps) -> float:
+    """K1 and K4 in both bodies on one robot at one shape, in the Philox mode
+    under each (antithetic, OU β) of `modes` and in the injected-ε mode on
+    `eps`: the four launches' S bit-equal, within 1e-5 of the plain version;
+    each K1 body's partials against :func:`block_partials` of its width on
+    its own S and ε (K3's dump of the stream). Returns the max abs error of S
+    against the plain version."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    T, A = U.shape
+    err = 0.0
+    for anti, ou, inj in [(a, o, False) for a, o in modes] + [(False, 0.0, True)]:
+        e_in = eps if inj else None
+        name = f"{label} K={K} T={T} anti={anti} ou={ou}{' injected' if inj else ''}"
+
+        def run(width: int, lam_softmin):
+            return fs._launch_solve_partials(fam, x0, U, goal, lam_softmin, K, 7, 3, 1, anti, ou,
+                                             e_in, 1, (), width=width)
+
+        (S1, part_slab), (S1_old, part_old) = run(fs.SLAB_WIDTH, lam), run(fs.BLOCK, lam)
+        for what, S in (("K1 per-rollout body", S1_old), ("K4 slab body", run(fs.SLAB_WIDTH, None)),
+                        ("K4 per-rollout body", run(fs.BLOCK, None))):
+            expect(torch.equal(S, S1), f"{name}: {what}'s S differs from the K1 slab body's")
+        S_r = fs.rollout_costs_reference(fam, x0, U, goal, K, 7, 3, 1, anti, ou, e_in)
+        err = max(err, close(f"{name} S vs plain", _np(S1), _np(S_r), 1e-5))
+        noise = e_in if inj else fs.noise_dump(fam.sigma, T, K, 7, 3, 1, anti, ou)
+        for width, part in ((fs.SLAB_WIDTH, part_slab), (fs.BLOCK, part_old)):
+            own = fs.block_partials(S1, noise, lam, width)
+            close(f"{name} width {width} beta_b", _np(part[:, 0]), _np(own[:, 0]), 0.0)
+            close(f"{name} width {width} eta_b", _np(part[:, 1]), _np(own[:, 1]), TOL["eta"])
+            scale = float(own[:, 2:].abs().max())
+            close(f"{name} width {width} dU_b", _np(part[:, 2:]), _np(own[:, 2:]),
+                  TOL["dU"]["rtol"], TOL["dU"]["atol"] * max(scale, 1.0))
+    return err
+
+
+def check_combine(T: int, A: int, nb: int, *, normalize: bool, R: int = 3, seed: int = 0,
+                  device: str = "cuda") -> float:
+    """K2 on made-up partials of nb rows against its plain version: β exact,
+    η within 1e-5, ΔU within 1e-4 (plus 1e-6 of its scale). With
+    `normalize` the rows carry spread β_b, η_b and one all-+inf block (η_b
+    = 0, ΔŨ_b = 0); without it β_b = η_b = 0, as K5 writes them. Every
+    robot of an R-robot launch bit-equal to its R = 1 launch. Returns the
+    max abs error of ΔU."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    rng = np.random.default_rng(seed)
+    TA = T * A
+    part = np.zeros((R, nb, 2 + TA), np.float32)
+    part[..., 2:] = 0.25 * rng.standard_normal((R, nb, TA))
+    if normalize:
+        part[..., 0] = 50.0 + rng.exponential(2.0, (R, nb))
+        part[..., 1] = rng.uniform(0.5, 32.0, (R, nb))
+        part[..., 2:] *= part[..., 1:2]
+        part[:, nb // 2] = 0.0
+        part[:, nb // 2, 0] = np.inf
+    parts = torch.as_tensor(part, device=device)
+    err, label = 0.0, f"K2 nb={nb} T={T} A={A} normalize={int(normalize)}"
+    fleet = fs.fleet_softmin_combine(parts, 1.0, T, A) if normalize else None
+    for r in range(R):
+        b, e, dU = fs.softmin_combine(parts[r], 1.0, T, A, normalize)
+        b_r, e_r, dU_r = fs.softmin_combine_reference(parts[r], 1.0, T, A, normalize)
+        close(f"{label} beta", _np(b), _np(b_r), 0.0)
+        close(f"{label} eta", _np(e), _np(e_r), 1e-5)
+        scale = max(float(dU_r.abs().max()), 1.0)
+        err = max(err, close(f"{label} dU", _np(dU), _np(dU_r), 1e-4, 1e-6 * scale))
+        if fleet is not None:
+            for what, a, want in zip(("beta", "eta", "dU"), (v[r] for v in fleet), (b, e, dU)):
+                expect(torch.equal(a, want), f"{label} robot {r} of {R}: {what} differs from its R=1 launch")
+    return err
+
+
+def body_times(fam, x0, U, goal, lam, R: int, K: int, kernels=("K1", "K4")) -> dict:
+    """Both bodies of K1 and K4 (`kernels`) for R robots of K rollouts on
+    (x0, U, goal), Philox mode: CUDA events around each call, the bodies in
+    turns (warm median; the per-rollout body in the plain slot of
+    :func:`paired_median_ms`), and the device time alone
+    (:func:`device_ms`). Returns {kernel: {slab_ms, per_rollout_ms,
+    slab_device_ms, per_rollout_device_ms}} and the rule's width."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import philox
+
+    if R > 1:
+        x0, U, goal = (None if v is None else v.expand(R, *v.shape).contiguous() for v in (x0, U, goal))
+    seeds = philox.fleet_seeds(7, R).to(U.device) if R > 1 else 7
+    T, A = U.shape[-2:]
+    row = {"rule_width": fs.block_width(R, K, T, A, fam.name)}
+    for kernel in kernels:
+        def run(width, lam_softmin=lam if kernel == "K1" else None):
+            return fs._launch_solve_partials(fam, x0, U, goal, lam_softmin, K, seeds, 3, 0, False,
+                                             0.0, None, R, (R,) if R > 1 else (), width=width)
+
+        slab_ms, per_ms = paired_median_ms(lambda: run(fs.SLAB_WIDTH), lambda: run(fs.BLOCK), 20, 20)
+        row[kernel] = dict(slab_ms=slab_ms, per_rollout_ms=per_ms,
+                           slab_device_ms=device_ms(lambda: run(fs.SLAB_WIDTH)),
+                           per_rollout_device_ms=device_ms(lambda: run(fs.BLOCK)))
+    return row
+
+
+SWEEP_K = (1024, 3000, 10_000, 20_000, 30_000, 50_000, 100_000)
+
+
+def sweep_bodies(smi: str) -> dict:
+    """Both bodies of K1 and K4 (:func:`body_times`) for the instances lti
+    A=2, A=3 and every other family's at T=200 for each K of SWEEP_K, and
+    K1 of Lti<3> fleets of R=8 and R=64 at K=10⁴; each family's crossover by
+    the criterion of ``fused_solve.SLAB_MAX_ROLLOUTS``: the largest K up to
+    which the slab body's device time is at most the per-rollout body's for
+    K1 and at most 5 % above it for K4, the least over a family's
+    instances. Returns {"bodies": rows, "crossover": by family}."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    def dev(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    rows, crossover = {}, {}
+    for name, A in (("lti", 2), ("lti", 3)) + tuple((n, None) for n in FAMILIES + COUPLED + LAST):
+        if name == "lti":
+            q = make_problem(A, 128, 200)
+            case = (fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"]), q["x0"],
+                    q["U"], q["goal"], q["lam"])
+        else:
+            q = make_family_problem(name, 128, 200)
+            case = (q["fam"], q["x0"], q["U"], q["goal"], q["lam"])
+        fleets = ((8, 10_000), (64, 10_000)) if (name, A) == ("lti", 3) else ()
+        last, lost = 0, False
+        for R, K in [(1, K) for K in SWEEP_K] + list(fleets):
+            row = body_times(*case, R, K, ("K1", "K4") if R == 1 else ("K1",))
+            key = f"{case[0].name} A={case[0].action_dim} R={R} K={K} T=200"
+            rows[key] = row
+            print(f"[20] bodies {key}: " + "; ".join(
+                f"{k} slab {v['slab_ms']:.4f} ms ({dev(v['slab_device_ms'])} on the device), "
+                f"per-rollout {v['per_rollout_ms']:.4f} ms ({dev(v['per_rollout_device_ms'])})"
+                for k, v in row.items() if k != "rule_width")
+                + f"; the rule picks width {row['rule_width']} ({smi})")
+            t = [row[k][f] for k in ("K1", "K4") for f in ("slab_device_ms", "per_rollout_device_ms")
+                 if k in row]
+            if R == 1 and None not in t:  # a K the profiler missed neither wins nor loses
+                lost = lost or not (t[0] <= t[1] and t[2] <= 1.05 * t[3])
+                last = last if lost else K
+        crossover[case[0].name] = min(crossover.get(case[0].name, last), last)
+    print(f"[20] crossover by family (largest swept R·K at which the slab body is no slower): "
+          f"{crossover}; the rule's table {dict(fs.SLAB_MAX_ROLLOUTS)} ({smi})")
+    return dict(bodies=rows, crossover=crossover)
+
+
 def main() -> int:
     import torch
 
@@ -1736,7 +1976,7 @@ def main() -> int:
     kernels = {kernel_key(k): v for k, v in sass_functions(sass).items()}
     sass_steps = {k: s for k, v in kernels.items() if "inj=1" not in k and (s := philox_loop_steps(v))}
     for k, v in kernels.items():  # the obstacle family's loop over its M obstacles
-        if k.startswith("rollout_costs<lti-obstacle,") and "inj=0" in k:
+        if k.startswith("rollout_costs<lti-obstacle,") and k.endswith("inj=0>"):
             sass_steps[k.replace("rollout_costs", "obstacle_loop")] = [obstacle_loop_step(v)]
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -1790,6 +2030,11 @@ def main() -> int:
         timing[f"{cfg_name} K={K} T={T}"] = (k_ms, p_ms)
         print(f"[6] MPPIController {cfg_name} A={cfg.action_dim} K={K} T={T}: fused {k_ms:.4f} "
               f"ms/solve, eager {p_ms:.4f} ms/solve (CUDA events, warm median; {smi})")
+        prof = profile_steps(ctrl, x, U)
+        print(f"[6] profile {cfg_name} K={K} T={T} (K1 width {fs.block_width(1, K, T, cfg.action_dim, 'lti')})"
+              f", 50 control steps (solve + action to host): wall {prof['wall_ms']:.4f} ms/step, "
+              f"device busy {prof['busy_ms']:.4f} ms, idle share {prof['idle']:.4f}, K1 "
+              f"{prof['K1_us']:.2f} us, K2 {prof['K2_us']:.2f} us per step ({smi})")
 
     # per-kernel times at the flagship shape (point_mass3d, K=10⁴, T=200), the
     # LTI family packed once as the controller packs it
@@ -1827,14 +2072,18 @@ def main() -> int:
     launches = {k: n for k, n in fs.launch_counts().items()
                 if k not in ("rollout_costs", "weighted_update")}
     launches["solve_partials<lti>"] = fs.family_launch_counts()["lti"]
+    main_widths = fs.width_launch_counts()
     steady = steady_distance(cols, _config("point_mass3d").goal[:3])
     print(f"[7] cli closed loop: point_mass2d and point_mass3d episodes finished; point_mass3d "
           f"steady-state goal distance {steady:.4f} m (threshold {LTI_QUALITY_THRESHOLD_M}); "
           f"point_mass2d {steady2d:.4f} m (its 500 steps end short of the goal; no bar); "
-          f"main-path launches {launches}")
+          f"main-path launches {launches}, K1 by block width {main_widths}")
     expect(steady < LTI_QUALITY_THRESHOLD_M, f"point_mass3d steady-state {steady} m")
     for name, n in launches.items():
         expect(n > 0, f"kernel {name} was not launched on the main path")
+    # the configs' K = 3000 runs K1's slab body, every launch of it
+    expect(main_widths == {fs.SLAB_WIDTH: launches["solve_partials"], fs.BLOCK: 0},
+           f"K1 by block width {main_widths} on the main path")
 
     # [8] the fleet kernels: injected ε vs plain and oracle; Philox mode vs
     # plain and bit-equal to each robot's solo launch; a diverged robot
@@ -1875,10 +2124,22 @@ def main() -> int:
         for name in ("solve_partials", "softmin_combine"):
             expect(after[name] - before[name] == cfg.opt_iters,
                    f"{name}: {after[name] - before[name]} launches for one fleet solve")
+        # robot r is its solo solve bit for bit at one block width; past the
+        # crossover the fleet runs the per-rollout body and a solo robot the
+        # slab body: S and β bit for bit, the action to rounding
+        one_width = fs.block_width(R, K, T, cfg.action_dim, "lti") == fs.block_width(1, K, T, cfg.action_dim, "lti")
         for r in range(R):
             solo = solos[r].solve(xs[r], Us[r], seed_list[r], 1)
-            expect(torch.equal(res.action[r], solo.action) and torch.equal(res.u_next[r], solo.u_next),
-                   f"fleet {cfg_name} R={R}: robot {r} differs from its solo solve")
+            label = f"fleet {cfg_name} R={R}: robot {r}"
+            if one_width:
+                expect(torch.equal(res.action[r], solo.action) and torch.equal(res.u_next[r], solo.u_next),
+                       f"{label} differs from its solo solve")
+            else:
+                expect(torch.equal(res.info.costs[r], solo.info.costs)
+                       and torch.equal(res.info.beta[r], solo.info.beta),
+                       f"{label}: S or beta differs from its solo solve's")
+                close(f"{label} action", _np(res.action[r]), _np(solo.action), **TOL["u"])
+                close(f"{label} u_next", _np(res.u_next[r]), _np(solo.u_next), **TOL["u"])
 
         def loop():
             for r in range(R):
@@ -2221,6 +2482,39 @@ def main() -> int:
         shutdown_multihost()
         shutil.rmtree(group_dir)
 
+    # [20] K1's and K4's two bodies: S bit-equal across both bodies of both
+    # kernels for every family instance at its config's shape (Philox iid,
+    # antithetic, OU 0.5; injected), each body's partials against the plain
+    # ones of its width; K2 against its plain version at the nb that each
+    # width writes and at K5's; both bodies timed across K for every family
+    # (:func:`sweep_bodies`)
+    body_cases = [("lti", A, 3000, 50) for A in range(1, 5)] + [
+        (n, None, _config(n).samples, _config(n).horizon) for n in FAMILIES + COUPLED + LAST]
+    for name, A, K, T in body_cases:
+        if name == "lti":
+            q = make_problem(A, K, T)
+            fam = fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"])
+            args = (fam, q["x0"], q["U"], q["goal"], q["lam"], K)
+        else:
+            q = make_family_problem(name, K, T)
+            args = (q["fam"], q["x0"], q["U"], q["goal"], q["lam"], K)
+        e = check_bodies(f"bodies {args[0].name} A={args[0].action_dim}", *args,
+                         ((False, 0.0), (True, 0.0), (False, 0.5)), q["eps"])
+        err["rollout_costs"] = max(err["rollout_costs"], e)
+        print(f"[20] bodies {args[0].name} A={args[0].action_dim} K={K} T={T}: K1 and K4 S bit-equal "
+              f"in the slab and the per-rollout body (iid, antithetic, OU 0.5, injected); partials "
+              f"of both widths as plain; S max abs err vs plain {e:.3g}")
+        del q, args
+    for nb, normalize, what in ((-(-10_000 // fs.SLAB_WIDTH), True, "K1 slab body, K=10000"),
+                                (-(-10_000 // fs.BLOCK), True, "K1 per-rollout body, K=10000"),
+                                (-(-100_000 // fs.BLOCK), True, "K1 per-rollout body, K=100000"),
+                                (-(-10_000 // fs.BLOCK), False, "K5, K=10000")):
+        e = check_combine(200, 3, nb, normalize=normalize)
+        err["softmin_combine"] = max(err["softmin_combine"], e)
+        print(f"[20] K2 at nb={nb} ({what}), A=3 T=200, normalize={int(normalize)}: ok vs plain "
+              f"(beta exact), fleet robots bit-equal to their R=1 launches; dU max abs err {e:.3g}")
+    sweep = sweep_bodies(smi)
+
     # the kernels JSON line: times at each kernel's shape, beside its bound
     k12 = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
     k_fam = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2287, 3121, 2973))
@@ -2241,9 +2535,11 @@ def main() -> int:
     }
     q = make_problem(3, 10_000, 200)
     lti3 = fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"])
+    nb_main = -(-10_000 // fs.block_width(1, 10_000, 200, 3, "lti"))  # K2's rows as K1 writes them
+    nb_fleet = -(-10_000 // fs.block_width(8, 10_000, 200, 3, "lti"))
     bounds = {
         "solve_partials<lti>": solve_bound(sass_steps, lti3, 10_000, 200, clock_mhz),
-        "softmin_combine": combine_bound(-(-10_000 // fs.BLOCK), 200, 3),
+        "softmin_combine": combine_bound(nb_main, 200, 3),
         "noise_dump": bound_ms(sass_steps["noise_dump<A=3>"][0] * 200 * 10_000,
                                4 * (3 + 200 * 10_000 * 3), clock_mhz),
         "rollout_costs": solve_bound(sass_steps, problems[("lti", 3)][0], 100_000, 200, clock_mhz,
@@ -2253,7 +2549,7 @@ def main() -> int:
     # the fleet kernels at R=8 of phase 9's shape (point_mass3d K=10⁴, T=200)
     fleet_bounds = {
         "solve_partials<lti>": solve_bound(sass_steps, lti3, 10_000, 200, clock_mhz, R=8)[0],
-        "softmin_combine": combine_bound(-(-10_000 // fs.BLOCK), 200, 3, R=8)[0],
+        "softmin_combine": combine_bound(nb_fleet, 200, 3, R=8)[0],
         "noise_dump": 8 * bounds["noise_dump"][0],
     }
     instance_of = {}  # K1 entry -> its family instance's config name
@@ -2271,6 +2567,18 @@ def main() -> int:
                  "launches": launches[name], "max_abs_err": err[name], "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None}
         fam = instance_of.get(name)
+        if name.startswith("solve_partials<"):  # which body ran: K1's block width at each shape
+            f_name = name[len("solve_partials<"):-1].split(",")[0]
+            if fam is None:  # the point mass at the flagship shape
+                A_f, K_f, T_f = 3, 10_000, 200
+            else:
+                A_f, K_f, T_f = _config(fam).action_dim, _config(fam).samples, _config(fam).horizon
+            entry.update(width=fs.block_width(1, K_f, T_f, A_f, f_name),
+                         large_width=fs.block_width(1, 100_000, 200, A_f, f_name),
+                         fleet_width=fs.block_width(8, K_f, T_f, A_f, f_name),
+                         bodies={k: v for k, v in sweep["bodies"].items() if k.startswith(f"{f_name} ")},
+                         slab_max_rollouts=fs.SLAB_MAX_ROLLOUTS[f_name],
+                         crossover=sweep["crossover"].get(f_name))
         if fam is not None:
             (ms, plain_ms), (lms, lplain_ms) = family_ms[fam][name], family_large_ms[fam][name]
             fms, fplain_ms = family_fleet_ms[fam][name]
@@ -2298,7 +2606,10 @@ def main() -> int:
             if name == "solve_partials<lti>":
                 entry.update(large_ms=lti_large_ms[0], large_plain_ms=lti_large_ms[1],
                              large_shape="A=3 K=100000 T=200", large_bound_ms=solve_bound(
-                                 sass_steps, problems[("lti", 3)][0], 100_000, 200, clock_mhz)[0])
+                                 sass_steps, problems[("lti", 3)][0], 100_000, 200, clock_mhz)[0],
+                             launches_by_width=main_widths)
+            if name == "softmin_combine":
+                entry.update(nb=nb_main, fleet_nb=nb_fleet)
             if not name.startswith("solve_partials<"):
                 entry.update(family_path_launches=family_launches[name],
                              coupled_path_launches=coupled_launches[name],
@@ -2310,5 +2621,49 @@ def main() -> int:
     return 0
 
 
+def time_commit(root: str) -> int:
+    """``python3 chip_smoke.py --time-commit ROOT``: through the public
+    wrappers of the package in the checkout at ROOT (its kernels built
+    there), K1 and K2 at the main path's shapes (point_mass3d K=10⁴ T=200
+    and every family instance's config) and K1 and K4 of every family
+    instance at K=10⁵, T=200: CUDA events around a call (warm median of 20)
+    and the device time alone; one JSON line. Run on this checkout and on an
+    earlier one in turns within one call, it compares two commits on one
+    card."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+
+    def times(fn) -> dict:
+        return dict(ms=float(np.median(time_ms(fn, 20))), device_ms=device_ms(fn))
+
+    main_path, large = {}, {}
+    cases = [("lti", A, None, 100_000, 200) for A in range(1, 5)] + [("lti", 3, "point_mass3d", 10_000, 200)] + [
+        (n, None, n, 100_000, 200) for n in FAMILIES + COUPLED + LAST] + [
+        (n, None, n, _config(n).samples, _config(n).horizon) for n in FAMILIES + COUPLED + LAST]
+    for name, A, label, K, T in cases:
+        q = make_problem(A, 128, T) if name == "lti" else make_family_problem(name, 128, T)
+        fam = fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"]) if name == "lti" else q["fam"]
+        args = (fam, q["x0"], q["U"], q["goal"])
+        key = f"{label or fam.name} A={fam.action_dim} K={K} T={T}"
+        k1 = times(lambda: fs.family_solve_partials(*args, q["lam"], K, 7, 3, 0, False, 0.0))
+        if K == 100_000:
+            large[key] = dict(K1=k1, K4=times(lambda: fs.fused_rollout_costs(*args, K, 7, 3, 0, False, 0.0)))
+        else:
+            _, part = fs.family_solve_partials(*args, q["lam"], K, 7, 3, 0, False, 0.0)
+            main_path[key] = dict(K1=k1, nb=part.shape[0], K2=times(
+                lambda: fs.softmin_combine(part, q["lam"], T, fam.action_dim)))
+    print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "main": main_path,
+                      "large": large}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-commit"]:
+        sys.exit(time_commit(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

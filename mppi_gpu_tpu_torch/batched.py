@@ -19,7 +19,11 @@ Robot r's solve is the single-robot solve under its seed and goal, bit for
 bit on the eager backend and on the fused one (the fleet's decomposability
 invariant, ``mppi_gpu_tpu/batched.py:92-103``): its noise is the port's
 stream under ``seeds[r]`` (``ops.philox.fleet_seeds``), counter
-(k, t, step, it).
+(k, t, step, it). On the fused backend that holds at one block width: a
+fleet whose R·K passes ``ops.fused_solve.block_width``'s crossover runs K1's
+per-rollout body where one robot runs the slab body, and then its S and β
+are still the single-robot solve's bit for bit, its ΔU to rounding. Every
+slice of the fleet (``_solve_robots``) runs the whole fleet's width.
 """
 
 from __future__ import annotations
@@ -126,6 +130,7 @@ class BatchedMPPIController(MPPIController):
             S, beta, eta, dU = fs.fleet_family_fused_solve(
                 self._family, xs, Us, None if goals is None else goals[robots.start:robots.stop],
                 cfg.lambda_, K, seeds, step, it, anti, cfg.noise_beta, eps=eps,
+                n_robots=self.n_robots,
             )
             return _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)
         seed_list = seeds.tolist() if eps is None else [0] * len(robots)

@@ -15,13 +15,15 @@ with its balance cost, the unicycle, planar quadrotor, two-link arm and 3-D
 quadrotor with their waypoint, hover, reaching and hover costs), and
 ``eager`` otherwise. The fused family's parameters are packed when the
 controller's ``cost`` or ``dynamics`` is assigned (at init or later, as the
-examples re-tune the cost), never per solve. Both backends
+examples re-tune the cost), never per solve, and not when the cost is only
+re-aimed at another goal (the goal is passed per solve). Both backends
 draw the same noise stream (``ops.philox``): counter (k, t, step, it) under
 the seed, so a solve is a pure function of (seed, step, it) and replayable.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -31,7 +33,7 @@ from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops import families
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops import philox
-from mppi_gpu_tpu_torch.ops.cost import Cost, goal_of, make_cost
+from mppi_gpu_tpu_torch.ops.cost import Cost, goal_of, make_cost, only_goal_differs
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs, rollout_trajectories
 from mppi_gpu_tpu_torch.ops.softmin import softmin_weights
 
@@ -186,9 +188,17 @@ class MPPIController:
         """Assigning the cost re-packs the fused family from it (one small
         pack on the device, its scalars read to the host once), so the fused
         backend solves with the weights of the cost assigned last, as the
-        eager one does; a solve reads no device scalar. On the fused backend
-        a cost the family cannot fuse raises."""
-        self._family = self._pack(self.dynamics, cost)
+        eager one does; a solve reads no device scalar. A cost that is the
+        current one re-aimed (``with_goal``: every other field the same
+        object, ``ops/cost.only_goal_differs``) keeps the pack, which holds
+        no goal (the solve passes ``goal_of(self.cost)``), and reads nothing
+        from the device. On the fused backend a cost the family cannot fuse
+        raises."""
+        if only_goal_differs(self._cost, cost):
+            if self._family is not None:
+                self._family = dataclasses.replace(self._family, cost=cost)
+        else:
+            self._family = self._pack(self.dynamics, cost)
         self._cost = cost
 
     @property

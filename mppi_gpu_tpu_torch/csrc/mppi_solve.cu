@@ -20,9 +20,14 @@
 // template with its second flag off.
 //
 // One thread per rollout k carries its state in registers through a
-// sequential loop over the horizon. K1 and K2 take a fleet of R independent
-// robots in one launch: grid axis y of K1 and grid axis x of K2 is the robot
-// r, which reads its own x0, U, goal (LTI), noise key and (injected) ε and
+// sequential loop over the horizon. K1 and K4 have two bodies that compute
+// the same S bit for bit: the per-rollout body (128 rollouts per block, ε
+// drawn in the rollout's own loop) and the slab body (32 rollouts per block,
+// ε drawn in parallel over the horizon into shared memory); the wrapper
+// picks one by the width it passes (ops/fused_solve.block_width). K1 and K2
+// take a fleet of R independent robots in one launch: grid axis y of K1 and
+// K2 is the robot r, which reads its own x0, U, goal (LTI), noise key and
+// (injected) ε and
 // writes its own S, partials, β, η and ΔU; the family's parameters, dt, both
 // λ, the counter words (step, it), antithetic and OU are shared. The
 // single-robot solve is the R = 1 launch. The noise stream is Philox4x32-10
@@ -55,11 +60,19 @@
 
 namespace {
 
-constexpr int kBlock = 128;  // threads = rollouts per K1/K3 block; ops/fused_solve.BLOCK
+constexpr int kBlock = 128;  // threads = rollouts per block of K1's per-rollout body, K3, K5;
+                             // ops/fused_solve.BLOCK
 constexpr int kWarps = kBlock / 32;
+constexpr int kSlabRollouts = 32;  // rollouts per block of K1's slab body; ops/fused_solve.SLAB_WIDTH
+constexpr int kSlabWarps = 8;      // warp 0 rolls out, warps 1-7 draw
+constexpr int kSlabThreads = 32 * kSlabWarps;
+constexpr int kDrawWarps = kSlabWarps - 1;
+constexpr int kChunk = kDrawWarps;  // horizon steps per pipeline stage: one per draw warp
 constexpr int kCombineThreads = 256;
-constexpr int kMaxRobots = 65535;  // gridDim.y of K1; ops/fused_solve.MAX_ROBOTS
+constexpr int kMaxRobots = 65535;  // gridDim.y of K1 and K2; ops/fused_solve.MAX_ROBOTS
 constexpr int kCombineWarps = kCombineThreads / 32;
+constexpr int kCombineCols = 32;   // columns of ΔU per K2 block, one per lane
+constexpr int kCombineUnroll = 8;  // partial rows each K2 lane has in flight
 constexpr float kInv2p24 = 5.9604644775390625e-08f;  // 2^-24
 constexpr float kTwoPi = 6.28318530717958647692f;    // rounds to float(2π)
 
@@ -88,19 +101,17 @@ __device__ __forceinline__ void philox4x32_10(unsigned c[4], unsigned k0, unsign
   }
 }
 
-// Rollout k's ε at step t: Philox words → Box-Muller normals → OU → σ →
-// antithetic sign. `e` carries the unit-variance OU state across t; `w`
-// returns the four Philox words of the draw.
+// The draw part of the noise: draw kd's Box-Muller normals n at step t from
+// its Philox words, which `w` returns. It depends on (kd, t) alone, so the
+// slab body draws every step of the horizon in parallel.
 template <int A>
-__device__ __forceinline__ void next_eps(const NoiseParams& np, const float* sig, int kd,
-                                         bool mirror, int t, float e[A], float eps[A],
-                                         unsigned w[4]) {
+__device__ __forceinline__ void draw_normals(const NoiseParams& np, int kd, int t, float n[A],
+                                             unsigned w[4]) {
   w[0] = np.k0 + (unsigned)kd;
   w[1] = (unsigned)t;
   w[2] = np.step;
   w[3] = np.it;
   philox4x32_10(w, np.key0, np.key1);
-  float n[A];
 #pragma unroll
   for (int p = 0; p < (A + 1) / 2; ++p) {
     const float u1 = __fmul_rn(__uint2float_rn(w[2 * p] >> 8), kInv2p24);
@@ -110,6 +121,13 @@ __device__ __forceinline__ void next_eps(const NoiseParams& np, const float* sig
     n[2 * p] = __fmul_rn(r, cosf(th));
     if (2 * p + 1 < A) n[2 * p + 1] = __fmul_rn(r, sinf(th));
   }
+}
+
+// The shaping part, sequential in t: normals n → OU → σ → antithetic sign.
+// `e` carries the unit-variance OU state across t.
+template <int A>
+__device__ __forceinline__ void shape_eps(const NoiseParams& np, const float* sig, bool mirror,
+                                          int t, const float n[A], float e[A], float eps[A]) {
   const bool ou = np.ou_beta > 0.0f && t > 0;
 #pragma unroll
   for (int a = 0; a < A; ++a) {
@@ -117,6 +135,17 @@ __device__ __forceinline__ void next_eps(const NoiseParams& np, const float* sig
     const float s = __fmul_rn(sig[a], e[a]);
     eps[a] = mirror ? -s : s;
   }
+}
+
+// Rollout k's ε at step t: both parts in one thread; `w` returns the four
+// Philox words of the draw.
+template <int A>
+__device__ __forceinline__ void next_eps(const NoiseParams& np, const float* sig, int kd,
+                                         bool mirror, int t, float e[A], float eps[A],
+                                         unsigned w[4]) {
+  float n[A];
+  draw_normals<A>(np, kd, t, n, w);
+  shape_eps<A>(np, sig, mirror, t, n, e, eps);
 }
 
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -159,6 +188,47 @@ __device__ __forceinline__ float block_nan_min(float v, float* scratch) {
   for (int i = 1; i < NW; ++i) m = nan_min(m, scratch[i]);
   __syncthreads();
   return m;
+}
+
+// ---- shared-memory barriers and asynchronous copies (the slab body) --------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// one arrival, with release semantics: the caller's shared-memory writes
+// before it are visible to a thread whose wait on the phase returns
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  unsigned long long state;
+  asm volatile("mbarrier.arrive.shared.b64 %0, [%1];" : "=l"(state) : "r"(smem_addr(bar)) : "memory");
+  (void)state;
+}
+
+// wait (acquire) until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
 }
 
 // ---- families -------------------------------------------------------------
@@ -639,6 +709,31 @@ struct Quadrotor3D {
   }
 };
 
+// One horizon step of a rollout from its ε: the control cost u·Σ⁻¹·ε, the
+// family's step and state cost, added to the Kahan-compensated sum (acc,
+// comp). Explicitly rounded, in the plain version's order (models/,
+// ops/cost): both bodies and both modes of K1 and K4 step bit-identical
+// states and costs from bit-identical ε.
+template <class F, int A>
+__device__ __forceinline__ void rollout_step(const F& fam, float* x, const float* u_t,
+                                             const float* lis, const float* eps, float lam_cost,
+                                             float& acc, float& comp) {
+  float ue[A], ctrl = 0.0f;
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const float u = u_t[a];
+    ue[a] = __fadd_rn(u, eps[a]);
+    ctrl = __fadd_rn(ctrl, __fmul_rn(__fmul_rn(u, lis[a]), eps[a]));
+  }
+  fam.step(x, ue);
+  const float step_cost = __fadd_rn(__fmul_rn(lam_cost, ctrl), fam.cost(x));
+  const float y = __fsub_rn(step_cost, comp);
+  const float sum = __fadd_rn(acc, y);
+  // an infinite sum stays infinite (a diverged rollout costs +inf, never NaN)
+  comp = isfinite(sum) ? __fsub_rn(__fsub_rn(sum, acc), y) : 0.0f;
+  acc = sum;
+}
+
 // K1. Replaces the TPU solve kernels of mppi_gpu_tpu/ops/pallas_rollout.py:
 // _onepass_solve_kernel (:2342), _planar_onepass_kernel (:2686) and
 // _fused_solve_kernel (:2287), and their fleet forms
@@ -661,24 +756,50 @@ struct Quadrotor3D {
 // cosf and one divide, and two sinf and two cosf in its cost; the obstacle
 // cost, LTI's plus A multiply-adds and a compare per obstacle; the 3-D
 // quadrotor, no trigonometry but eight divides, one rsqrtf and ~120 other
-// flops on its 13 states. K4 does pass
-// 1 alone, about half of K1's noise work. The only traffic is U and the
-// parameters (read once into shared memory/registers), S (4 B per rollout)
-// and one (2 + T·A)-float partial per block. In the injected-ε mode it
-// instead streams 2·T·A·4 B per rollout.
+// flops on its 13 states. K4 does the rollout alone. The only traffic is U
+// and the parameters (read once into shared memory/registers), S (4 B per
+// rollout) and one (2 + T·A)-float partial per block. In the injected-ε mode
+// it instead streams T·A·4 B per rollout (twice in the per-rollout body).
 //
-// Design: the TPU kernels stage the tile's ε in VMEM for the ΔU pass; here a
-// thread's ε for a whole horizon does not fit in registers and staging it in
-// shared memory would cap the block at a few rollouts, so pass 2
-// regenerates ε from the counter (Philox is stateless), which costs a second
-// round of noise arithmetic and no memory; pass 2 needs no dynamics, so it is
-// the same for every family. The cross-tile online softmin of the TPU
-// kernel, which relies on the grid running in order, becomes an associative
-// per-block partial (β_b, η_b, ΔŨ_b) folded by K2, the same combine the
-// sharded path uses across devices. Σ_k e_k ε_k[t, a] is a warp shuffle
-// reduction per (t, a) into shared memory, summed over the warps in a fixed
-// order. The TPU kernels' trig carry (_sincos_small :455) is not used: it
-// saves TPU transcendentals and holds only for small angle steps.
+// Design: the TPU kernels stage the tile's ε in VMEM for the ΔU pass. The
+// cross-tile online softmin of the TPU kernel, which relies on the grid
+// running in order, becomes an associative per-block partial (β_b, η_b,
+// ΔŨ_b) folded by K2, the same combine the sharded path uses across devices.
+// The TPU kernels' trig carry (_sincos_small :455) is not used: it saves TPU
+// transcendentals and holds only for small angle steps. Two bodies, one per
+// regime (ops/fused_solve.block_width picks by the grid's size):
+//
+// * The per-rollout body (solve_partials_kernel, 128 rollouts per block)
+//   fills the card when R·K is large. One thread per rollout walks the
+//   horizon twice: pass 1 rolls out, pass 2 regenerates ε from the counter
+//   (Philox is stateless; a thread's ε for a whole horizon fits neither its
+//   registers nor, at 2048 rollouts per SM, shared memory) and reduces
+//   Σ_k e_k ε_k[t, a] by warp shuffles into shared memory, summed over the
+//   warps in a fixed order. The second draw costs about half its
+//   instructions.
+// * The slab body (slab_partials_kernel, 32 rollouts per block) is for the
+//   main path's K, where 128-rollout blocks leave most SMs empty and one
+//   warp per SM sub-partition runs the serial chain of Philox, Box-Muller,
+//   step, cost and Kahan sum with nothing to hide its latency. The draw of
+//   (k, t) depends on nothing before it, so seven draw warps fill a
+//   shared-memory slab with the block's normals for every step, in parallel
+//   over t, and only what is sequential in t stays in the rollout warp: the
+//   OU recursion, σ and the mirror (shape_eps, in next_eps's order of
+//   rounded operations, so S is the per-rollout body's bit for bit), the
+//   step, the cost and the Kahan sum. The rollout warp writes the final ε
+//   back into the slab. The two phases are pipelined over chunks of seven
+//   steps, one mbarrier per chunk: the draw warps never wait (the slab holds
+//   the whole horizon, no slot is reused), the rollout warp waits for each
+//   chunk's seven arrivals. ΔŨ_b[t, a] = Σ_j e_j ε_j[t, a] is then a
+//   32-long dot product per (t, a) read from the slab, one warp per row, in a
+//   fixed order: no second draw. Tensor cores do not serve this reduction:
+//   it is a matrix-vector product (no reuse to feed them), and the replay
+//   checks need exact float32 products. The slab is 32·T·A floats (76.8 KB
+//   at T = 200, A = 3), so an SM holds two such blocks: past about a full
+//   card of per-rollout blocks, 64 rollout threads per SM cannot hide the
+//   family's step latency and the per-rollout body is faster. In the
+//   injected-ε mode the draw warps fill the slab with coalesced 4-byte
+//   cp.async copies of each step's contiguous 32·A floats.
 //
 // Fleet: block (b, r) is block b of robot r; robots run side by side on the
 // SMs, not in turn as on the TPU. All robot offsets are size_t: at R = 64,
@@ -744,30 +865,14 @@ __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
     for (int a = 0; a < A; ++a) e[a] = 0.0f;
     float acc = 0.0f, comp = 0.0f;  // Kahan-compensated Σ_t step cost
     for (int t = 0; t < T; ++t) {
-      float eps[A], ue[A];
+      float eps[A];
       if (INJ) {
 #pragma unroll
         for (int a = 0; a < A; ++a) eps[a] = eps_in[((size_t)t * np.K + k) * A + a];
       } else {
         next_eps<A>(np, sig, kd, mirror, t, e, eps, words);
       }
-      // explicitly rounded, in the plain version's order (models/, ops/cost):
-      // both modes of this kernel step bit-identical states and costs from
-      // bit-identical ε
-      float ctrl = 0.0f;
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        const float u = u_s[t * A + a];
-        ue[a] = __fadd_rn(u, eps[a]);
-        ctrl = __fadd_rn(ctrl, __fmul_rn(__fmul_rn(u, lis[a]), eps[a]));
-      }
-      fam.step(x, ue);
-      const float step_cost = __fadd_rn(__fmul_rn(lam_cost, ctrl), fam.cost(x));
-      const float y = __fsub_rn(step_cost, comp);
-      const float sum = __fadd_rn(acc, y);
-      // an infinite sum stays infinite (a diverged rollout costs +inf, never NaN)
-      comp = isfinite(sum) ? __fsub_rn(__fsub_rn(sum, acc), y) : 0.0f;
-      acc = sum;
+      rollout_step<F, A>(fam, x, u_s + t * A, lis, eps, lam_cost, acc, comp);
     }
     // terminal cost: x_T's state cost counted again (reference parity)
     S = __fadd_rn(acc, fam.cost(x));
@@ -817,6 +922,169 @@ __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
   }
 }
 
+// Dynamic shared memory of the slab body: one mbarrier per chunk, U, the
+// block's softmin weights e_j and the slab (ops/fused_solve.slab_bytes).
+size_t slab_smem(int T, int A) {
+  const size_t chunks = (T + kChunk - 1) / kChunk;
+  return 8 * chunks + sizeof(float) * ((size_t)(kSlabRollouts + 1) * T * A + kSlabRollouts);
+}
+
+// K1's and K4's slab body (see K1's note above): block (b, r) rolls out
+// robot r's rollouts 32·b .. 32·b + 31, lane j of every warp standing for
+// rollout 32·b + j. Warps 1-7 draw (or, injected, copy) step c·7 + w − 1 of
+// every chunk c into the slab, (T, A, 32) floats at (t·A + a)·32 + j, and
+// arrive on chunk c's mbarrier; warp 0 waits for each chunk, shapes and
+// writes back ε, and steps the family. Lanes past K draw nothing, hold ε = 0
+// and never enter β, η or ΔŨ.
+// Two blocks per SM (the shared memory holds two slabs at T = 200): up to
+// 128 registers a thread, room for the 3-D quadrotor's state and its
+// midpoint without spilling.
+template <class F, int A, bool INJ, bool PASS2>
+__global__ void __launch_bounds__(kSlabThreads, 2) slab_partials_kernel(
+    const float* __restrict__ x0, const float* __restrict__ U,
+    const float* __restrict__ params, const float* __restrict__ goal,
+    const long long* __restrict__ keys, const float* __restrict__ eps_in,
+    float* __restrict__ S_out, float* __restrict__ partials, int T, float dt,
+    float lam_cost, float lam_softmin, NoiseParams np) {
+  constexpr int S_DIM = F::kS;
+  constexpr int G = kSlabRollouts;
+  extern __shared__ __align__(16) unsigned long long slab_raw[];
+  const int TA = T * A;
+  const int chunks = (T + kChunk - 1) / kChunk;
+  unsigned long long* bars = slab_raw;                      // (chunks,)
+  float* u_s = reinterpret_cast<float*>(slab_raw + chunks);  // (T, A) nominal sequence
+  float* e_s = u_s + TA;                                     // (G,) softmin weights e_j
+  float* slab = e_s + G;                                     // (T, A, G) normals, then ε
+  const size_t r = blockIdx.y;
+  x0 += r * S_DIM;
+  U += r * TA;
+  if (F::kGoal) goal += r * S_DIM;
+  S_out += r * np.K;
+  if (INJ) eps_in += r * TA * (size_t)np.K;
+  if (keys != nullptr) {
+    const unsigned long long seed = (unsigned long long)keys[r];
+    np.key0 = (unsigned)(seed & 0xFFFFFFFFull);
+    np.key1 = (unsigned)(seed >> 32);
+  }
+  for (int i = threadIdx.x; i < TA; i += kSlabThreads) u_s[i] = U[i];
+  for (int c = threadIdx.x; c < chunks; c += kSlabThreads) mbar_init(bars + c, kDrawWarps);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kb = blockIdx.x * G;
+  const int k = kb + lane;
+  const bool valid = k < np.K;
+  const bool mirror = np.antithetic && k >= np.K_draw;
+  const int kd = mirror ? k - np.K_draw : k;
+  float* part = PASS2 ? partials + (r * gridDim.x + blockIdx.x) * (2 + (size_t)TA) : nullptr;
+
+  if (warp > 0) {
+    // ---- draw warps: step t = c·7 + warp − 1 of chunk c, in parallel over t --
+    for (int c = 0; c < chunks; ++c) {
+      const int t = c * kChunk + warp - 1;
+      if (t < T) {
+        float* row = slab + (size_t)t * A * G;
+        if (INJ) {
+          // step t's G·A floats are contiguous in eps_in (rollout-major); the
+          // slab holds them action-major
+          const float* src = eps_in + ((size_t)t * np.K + kb) * A;
+          for (int i = lane; i < G * A; i += 32) {
+            const int j = i / A, a = i - j * A;
+            if (kb + j < np.K) {
+              cp_async4(row + a * G + j, src + i);
+            } else {
+              row[a * G + j] = 0.0f;
+            }
+          }
+          cp_async_wait_all();
+        } else {
+          float n[A];
+          unsigned w[4];
+          if (valid) draw_normals<A>(np, kd, t, n, w);
+#pragma unroll
+          for (int a = 0; a < A; ++a) row[a * G + lane] = valid ? n[a] : 0.0f;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + c);
+    }
+  } else {
+    // ---- rollout warp: shape ε, step, cost, chunk by chunk ---------------------
+    float sig[A], lis[A], x[S_DIM], e[A];
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      sig[a] = params[a];
+      lis[a] = params[A + a];
+      e[a] = 0.0f;
+    }
+    F fam;
+    fam.load(params + 2 * A, goal, dt);
+#pragma unroll
+    for (int i = 0; i < S_DIM; ++i) x[i] = x0[i];
+    float acc = 0.0f, comp = 0.0f;  // Kahan-compensated Σ_t step cost
+    for (int c = 0; c < chunks; ++c) {
+      mbar_wait(bars + c, 0);
+      if (!valid) continue;
+      const int t_end = min(T, (c + 1) * kChunk);
+      float* cell = slab + (size_t)c * kChunk * A * G + lane;
+      float next[A];  // the next step's normals (or injected ε), loaded a step
+                      // ahead: no shared-memory load sits on the step's chain
+#pragma unroll
+      for (int a = 0; a < A; ++a) next[a] = cell[a * G];
+      // not unrolled: a family's step inlined seven times would overflow the
+      // instruction cache (the arm's twelve sinf/cosf calls per step)
+#pragma unroll 1
+      for (int t = c * kChunk; t < t_end; ++t, cell += A * G) {
+        float n[A], eps[A];
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          n[a] = next[a];
+          if (t + 1 < t_end) next[a] = cell[(A + a) * G];
+        }
+        if (INJ) {
+#pragma unroll
+          for (int a = 0; a < A; ++a) eps[a] = n[a];
+        } else {
+          shape_eps<A>(np, sig, mirror, t, n, e, eps);
+          if (PASS2) {
+#pragma unroll
+            for (int a = 0; a < A; ++a) cell[a * G] = eps[a];
+          }
+        }
+        rollout_step<F, A>(fam, x, u_s + t * A, lis, eps, lam_cost, acc, comp);
+      }
+    }
+    float S = INFINITY;
+    if (valid) {
+      // terminal cost: x_T's state cost counted again (reference parity)
+      S = __fadd_rn(acc, fam.cost(x));
+      S_out[k] = S;
+    }
+    if (PASS2) {
+      // ---- block softmin partial: the warp's 32 rollouts ---------------------
+      const float beta_b = warp_nan_min(valid ? S : INFINITY);
+      const bool all_inf = beta_b == INFINITY;
+      const float ek = (valid && !all_inf) ? expf(-(S - beta_b) / lam_softmin) : 0.0f;
+      const float eta_b = warp_sum(ek);
+      e_s[lane] = ek;
+      if (lane == 0) {
+        part[0] = beta_b;
+        part[1] = eta_b;
+      }
+    }
+  }
+  if (!PASS2) return;
+  __syncthreads();
+  // ---- ΔŨ_b[t, a] = Σ_j e_j ε_j[t, a]: slab row t·A + a, one warp per row -----
+  const float ej = e_s[lane];
+  for (int i = warp; i < TA; i += kSlabWarps) {
+    const float v = warp_sum(ej * slab[(size_t)i * G + lane]);
+    if (lane == 0) u_s[i] = v;  // U is spent: its buffer gathers the row sums
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < TA; i += kSlabThreads) part[2 + i] = u_s[i];
+}
+
 // K2. Replaces the cross-tile fold of the TPU one-pass kernels (single-robot
 // and fleet), mppi_gpu_tpu/ops/pallas_rollout.py:_online_softmin_step (:1847)
 // and the two-pass fleet kernel's _softmin_phase (:2257), which
@@ -828,17 +1096,25 @@ __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
 // or Σ f_b ΔŨ_b without the division (`normalize` 0): a rank's unnormalized
 // share for the one-pass sharded combine, and K5's fold, whose partials have
 // β_b = η_b = 0 and so f_b = 1.
-// What bounds it: reading a robot's nb·(2 + T·A) partial floats (1.9 MB at
-// K = 10⁵, T = 200, A = 3) with one block; the ΔU loop reads them coalesced
-// (thread i walks column i). One block per robot keeps the order of every
-// sum fixed; block r folds robot r's nb partials into beta_eta[r] and ΔU[r].
+// What bounds it: reading a robot's nb·(2 + T·A) partial floats (0.75 MB at
+// K = 10⁴ in 32-rollout blocks, 1.9 MB at K = 10⁵ in 128-rollout blocks, T =
+// 200, A = 3): bytes, and in practice the latency of each load, since the
+// data are small. Design: grid (column tiles, R). Block (c, r) folds robot
+// r's columns 32·c .. 32·c + 31 of ΔU, lane i one column, with its eight
+// warps each owning a fixed range of the nb rows and keeping eight row loads
+// in flight per lane (coalesced: a row's 32 columns are 128 B); the warps'
+// sums are added in shared memory in warp order. Every tile first computes
+// β, the factors f_b and η over all nb rows by the same threads in the same
+// order, so the tiles agree on them bit for bit. No atomics: every sum has
+// a fixed order and a run repeats bit for bit. Tile 0 writes beta_eta[r].
 __global__ void __launch_bounds__(kCombineThreads) softmin_combine_kernel(
     const float* __restrict__ partials, int nb, int TA, float lam, int normalize,
     float* __restrict__ beta_eta, float* __restrict__ dU) {
-  extern __shared__ float f_s[];  // (nb,) rescale factors f_b
+  extern __shared__ float f_s[];  // (nb,) rescale factors f_b, then the warps' sums
   __shared__ float scratch[kCombineWarps];
+  float* red = f_s + nb;          // (kCombineWarps, kCombineCols)
   const size_t stride = 2 + (size_t)TA;
-  const size_t r = blockIdx.x;
+  const size_t r = blockIdx.y;
   partials += r * nb * stride;
   beta_eta += 2 * r;
   dU += r * TA;
@@ -852,12 +1128,32 @@ __global__ void __launch_bounds__(kCombineThreads) softmin_combine_kernel(
     eta_part += f * partials[b * stride + 1];
   }
   const float eta = block_sum<kCombineWarps>(eta_part, scratch);  // syncs: f_s visible
-  for (int i = threadIdx.x; i < TA; i += kCombineThreads) {
-    float s = 0.0f;
-    for (int b = 0; b < nb; ++b) s += f_s[b] * partials[b * stride + 2 + i];
-    dU[i] = normalize ? s / eta : s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = blockIdx.x * kCombineCols + lane;
+  const int per = (nb + kCombineWarps - 1) / kCombineWarps;
+  const int b_end = min(nb, (warp + 1) * per);
+  float s = 0.0f;
+  if (col < TA) {
+    const float* p = partials + 2 + col;
+    for (int b = warp * per; b < b_end; b += kCombineUnroll) {
+      float v[kCombineUnroll];
+#pragma unroll
+      for (int u = 0; u < kCombineUnroll; ++u) v[u] = b + u < b_end ? p[(b + u) * stride] : 0.0f;
+#pragma unroll
+      for (int u = 0; u < kCombineUnroll; ++u) {
+        if (b + u < b_end) s += f_s[b + u] * v[u];
+      }
+    }
   }
-  if (threadIdx.x == 0) {
+  red[warp * kCombineCols + lane] = s;
+  __syncthreads();
+  if (warp == 0 && col < TA) {
+    float t = red[lane];
+#pragma unroll
+    for (int w = 1; w < kCombineWarps; ++w) t += red[w * kCombineCols + lane];
+    dU[col] = normalize ? t / eta : t;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
     beta_eta[0] = beta;
     beta_eta[1] = eta;
   }
@@ -997,6 +1293,7 @@ struct SolveArgs {
   float *S, *partials;
   int R, T, A;
   float dt, lam_cost, lam_softmin;
+  int width;  // rollouts per block: kBlock (per-rollout body) or kSlabRollouts (slab body)
 };
 
 template <int A, bool INJ>
@@ -1023,6 +1320,17 @@ cudaError_t launch_weighted_update_mode(const float* sigma, const float* w, cons
 
 template <class F, int A, bool INJ, bool PASS2>
 cudaError_t launch_partials(const SolveArgs& a, const NoiseParams& np, cudaStream_t stream) {
+  if (a.width == kSlabRollouts) {
+    const dim3 grid((np.K + kSlabRollouts - 1) / kSlabRollouts, a.R);
+    const size_t smem = slab_smem(a.T, A);
+    cudaError_t err = set_smem(slab_partials_kernel<F, A, INJ, PASS2>, smem);
+    if (err != cudaSuccess) return err;
+    slab_partials_kernel<F, A, INJ, PASS2><<<grid, kSlabThreads, smem, stream>>>(
+        a.x0, a.U, a.params, a.goal, a.keys, a.eps_in, a.S, a.partials, a.T, a.dt, a.lam_cost,
+        a.lam_softmin, np);
+    return cudaGetLastError();
+  }
+  if (a.width != kBlock) return cudaErrorInvalidValue;
   const dim3 grid((np.K + kBlock - 1) / kBlock, a.R);
   const size_t smem = (size_t)(PASS2 ? 1 + kWarps : 1) * a.T * A * sizeof(float);
   cudaError_t err = set_smem(solve_partials_kernel<F, A, INJ, PASS2>, smem);
@@ -1098,16 +1406,18 @@ extern "C" {
 // and LTI with obstacles (A ≤ 4), 2 for the pendulum and 4 for the
 // cart-pole (A = 1), 3 for the unicycle, 6 for the quadrotor and 4 for the
 // arm (A = 2), 13 for the 3-D quadrotor (A = 4). With partials null it
-// launches K4 instead (S alone; λ_softmin unused).
+// launches K4 instead (S alone; λ_softmin unused). `width` is the rollouts
+// per block, which selects the body: 128 the per-rollout body, 32 the slab
+// body (nb = ceil(K / width)); any other width is refused.
 int mppi_solve_partials(int family, const float* x0, const float* U, const float* params,
                         const float* goal, const long long* keys, const float* eps_in, float* S,
                         float* partials, int R, int K, int T, int A, float dt, float lam_cost,
                         float lam_softmin, unsigned key0, unsigned key1, unsigned step,
                         unsigned it, unsigned k0, int antithetic, float ou_beta, float ou_c,
-                        void* stream) {
+                        int width, void* stream) {
   const NoiseParams np = make_noise(key0, key1, step, it, k0, K, antithetic, ou_beta, ou_c);
   const SolveArgs a{x0, U, params, goal, keys, eps_in, S, partials, R, T, A, dt, lam_cost,
-                    lam_softmin};
+                    lam_softmin, width};
   return partials != nullptr ? launch_family<true>(family, a, np, (cudaStream_t)stream)
                              : launch_family<false>(family, a, np, (cudaStream_t)stream);
 }
@@ -1117,10 +1427,11 @@ int mppi_solve_partials(int family, const float* x0, const float* U, const float
 int mppi_softmin_combine(const float* partials, int R, int nb, int TA, float lam, int normalize,
                          float* beta_eta, float* dU, void* stream) {
   if (R < 1 || R > kMaxRobots) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)nb * sizeof(float);
+  const size_t smem = ((size_t)nb + kCombineWarps * kCombineCols) * sizeof(float);
   cudaError_t err = set_smem(softmin_combine_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  softmin_combine_kernel<<<R, kCombineThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((TA + kCombineCols - 1) / kCombineCols, R);
+  softmin_combine_kernel<<<grid, kCombineThreads, smem, (cudaStream_t)stream>>>(
       partials, nb, TA, lam, normalize, beta_eta, dU);
   return (int)cudaGetLastError();
 }

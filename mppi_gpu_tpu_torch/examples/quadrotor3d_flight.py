@@ -7,8 +7,9 @@ Run:  python -m mppi_gpu_tpu_torch.examples.quadrotor3d_flight [--steps 600] [-o
       (``--device cpu`` runs the eager path on the CPU)
 
 Each control step assigns ``with_goal(ctrl.cost, waypoint)`` to ``ctrl.cost``,
-the hover cost aiming at the current waypoint; the controller re-packs its fused family on
-the assignment, so the fused backend flies the cost assigned last. A
+the hover cost aiming at the current waypoint; the controller sees that only
+the goal changed, keeps its fused family's pack and passes the new goal to
+the next solve, so the fused backend flies the cost assigned last. A
 waypoint counts as visited the first time the quadrotor is within 0.3 m of
 it below 0.8 m/s; the tour then moves on. Exits 0 when all three waypoints
 were visited and the flight ends within 0.45 m of the last. With ``-o`` it

@@ -325,6 +325,25 @@ def with_goal(cost: Cost, goal: torch.Tensor) -> Cost:
     return dataclasses.replace(cost, base=dataclasses.replace(owner, goal=goal))
 
 
+def only_goal_differs(old: Cost | None, new: Cost) -> bool:
+    """True if `new` is `old` aimed elsewhere, as :func:`with_goal` makes it:
+    the same type, and every field but the goal (through ``base`` where the
+    goal lives there) the very same object. Identity, not equality: nothing
+    is read from the device."""
+    owner = _goal_owner(new)
+    if old is None or owner is None or type(old) is not type(new):
+        return False
+
+    def same_but(a, b, skip: str) -> bool:
+        return type(a) is type(b) and all(
+            getattr(a, f.name) is getattr(b, f.name)
+            for f in dataclasses.fields(b) if f.name != skip)
+
+    if owner is new:
+        return same_but(old, new, "goal")
+    return same_but(old, new, "base") and same_but(old.base, new.base, "goal")
+
+
 def batch_goals(cost: Cost, goals: torch.Tensor, n_robots: int) -> Cost:
     """``cost`` with the (R, s) per-robot ``goals`` as its goal
     (:func:`with_goal`). Raises ``TypeError`` for a cost without a goal (its

@@ -3,7 +3,7 @@
 
 * :func:`fleet_family_solve_partials` (K1) — for each of R robots, rollout,
   cost and per-block softmin partials ``(β_b, η_b, ΔŨ_b)`` over blocks of
-  :data:`BLOCK` rollouts, for one fused family (``ops/families.py``: the
+  :func:`block_width` rollouts, for one fused family (``ops/families.py``: the
   point-mass LTI model with the quadratic and the obstacle cost, and the
   pendulum, cart-pole, unicycle, planar-quadrotor, two-link-arm and 3-D
   quadrotor models with their costs);
@@ -44,6 +44,15 @@ version: for K1 the family's eager model and cost through
 robot by robot. Any other placement, dtype, shape or layout raises. There
 is no fallback from the device to the plain version.
 
+K1 and K4 have two bodies with the same S bit for bit: the per-rollout body
+(:data:`BLOCK` rollouts per block), which fills the card at large R·K, and
+the slab body (:data:`SLAB_WIDTH` rollouts per block, the noise drawn in
+parallel over the horizon into shared memory), for the main path's K.
+:func:`block_width` picks one from the shapes alone; the partials have
+ceil(K / width) rows, and the plain :func:`block_partials` takes the same
+width. ΔU at two widths differs by rounding only. A body that fails to
+build or launch raises: nothing falls back to the other body.
+
 Noise: ``eps=None`` is the Philox mode (production): ε is generated in the
 kernel from (seed, step, it), robot r under its own seed; the single-robot
 wrappers take a draw offset ``k0`` (counter word 0 = k0 + draw index, 0 on
@@ -64,15 +73,33 @@ from mppi_gpu_tpu_torch.ops.cost import QuadraticCost
 from mppi_gpu_tpu_torch.ops.families import FAMILY_ID, FAMILY_NAMES, MAX_A, FusedFamily
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
 
-BLOCK = 128          # rollouts per K1 block (kBlock in csrc/mppi_solve.cu)
+BLOCK = 128          # rollouts per block of K1's per-rollout body, K3, K5 (kBlock)
+SLAB_WIDTH = 32      # rollouts per block of K1's slab body (kSlabRollouts)
+_SLAB_CHUNK = 7      # horizon steps per stage of the slab body's pipeline (kChunk)
+# R·K up to which K1 and K4 take the slab body, by family: beyond it the
+# per-rollout body's blocks fill the card, and the slab body, two blocks per
+# SM at T=200, cannot hide its rollout warp's latency; the longer the
+# family's step, the sooner. Each is the largest R·K of the sweep {1024,
+# 3000, 10⁴, 2·10⁴, 3·10⁴, 5·10⁴, 10⁵} at T=200 up to which the slab body's
+# device time was at most the per-rollout body's for K1 and at most 5 %
+# above it for K4, the least over a family's instances (NVIDIA H100 80GB
+# HBM3, 700 W; chip_smoke.body_times; the table in PERF.md §6)
+SLAB_MAX_ROLLOUTS = {
+    "lti": 30_000, "lti-obstacle": 10_000, "pendulum": 20_000, "cartpole": 10_000,
+    "unicycle": 20_000, "quadrotor": 10_000, "arm": 10_000, "quadrotor3d": 10_000,
+}
 MAX_ROBOTS = 65535   # K1's grid axis y is the robot (kMaxRobots)
 _SMEM_BYTES = 232448 - 1024  # per-block shared memory on Hopper, less static use
+_COMBINE_SMEM_FLOATS = 8 * 32  # K2's per-warp column sums (kCombineWarps · kCombineCols)
 
 # launches of each CUDA kernel of csrc/mppi_solve.cu, counted by the function
-# that launches it, where it launches; K1's and K4's also by family
+# that launches it, where it launches; K1's and K4's also by family and by
+# body (block width)
 _LAUNCHES = dict.fromkeys(
     ("solve_partials", "softmin_combine", "noise_dump", "rollout_costs", "weighted_update"), 0)
 _FAMILY_LAUNCHES = {k: dict.fromkeys(FAMILY_NAMES, 0) for k in ("solve_partials", "rollout_costs")}
+_WIDTH_LAUNCHES = {k: dict.fromkeys((SLAB_WIDTH, BLOCK), 0)
+                   for k in ("solve_partials", "rollout_costs")}
 
 
 def _noise_words(seed: int, step: int, it: int) -> tuple[int, int, int, int]:
@@ -218,26 +245,51 @@ def _fleet_on_cuda(fam: FusedFamily, xs, Us, goals, K: int, seeds, antithetic: b
     return _on_cuda(*(t for t in (xs, Us, fam.params, goals, eps, per_robot) if t is not None))
 
 
-def block_partials(S: torch.Tensor, eps: torch.Tensor, lam_softmin: float) -> torch.Tensor:
+def slab_bytes(T: int, A: int) -> int:
+    """Shared memory of one block of K1's slab body (``slab_smem`` in
+    csrc/mppi_solve.cu): an 8-byte mbarrier per chunk of the horizon, U, the
+    block's softmin weights and the (T, A, 32) slab of ε."""
+    return 8 * -(-T // _SLAB_CHUNK) + 4 * ((SLAB_WIDTH + 1) * T * A + SLAB_WIDTH)
+
+
+def block_width(R: int, K: int, T: int, A: int, family: str | None = None) -> int:
+    """Rollouts per block of K1 and K4 for R robots of K rollouts over T
+    steps of A actions of fused family `family`, which picks the body:
+    :data:`SLAB_WIDTH` (the slab body) while R·K is at most the family's
+    :data:`SLAB_MAX_ROLLOUTS` (the least of them for None) and the slab fits
+    in a block's shared memory, else :data:`BLOCK` (the per-rollout body).
+    A pure function of its arguments. The crossovers were measured at T=200;
+    a shorter horizon puts more slab blocks on an SM, so they hold there
+    conservatively."""
+    limit = SLAB_MAX_ROLLOUTS[family] if family is not None else min(SLAB_MAX_ROLLOUTS.values())
+    if R * K <= limit and slab_bytes(T, A) <= _SMEM_BYTES:
+        return SLAB_WIDTH
+    return BLOCK
+
+
+def block_partials(S: torch.Tensor, eps: torch.Tensor, lam_softmin: float,
+                   width: int | None = None) -> torch.Tensor:
     """K1's per-block partials of one robot's costs S (K,) and noise ε
-    (T, K, A): (nb, 2 + T·A), row b holding β_b = min S over block b's real
-    rollouts, η_b = Σ e_k with e_k = exp(−(S_k − β_b)/λ), and
+    (T, K, A) over blocks of `width` rollouts (:func:`block_width` for one
+    robot if None): (nb, 2 + T·A), row b holding β_b = min S over block b's
+    real rollouts, η_b = Σ e_k with e_k = exp(−(S_k − β_b)/λ), and
     ΔŨ_b[t, a] = Σ e_k ε_k[t, a]. Rollouts past K take no part; a block whose
     real rollouts all cost +inf gives η_b = 0, ΔŨ_b = 0; a NaN S gives a NaN
     β_b. In S's dtype."""
     T, K, A = eps.shape
-    nb = -(-K // BLOCK)
+    W = block_width(1, K, T, A) if width is None else width
+    nb = -(-K // W)
     like = dict(dtype=S.dtype, device=S.device)
-    valid = (torch.arange(nb * BLOCK, device=S.device) < K).view(nb, BLOCK)
-    S_b = torch.full((nb * BLOCK,), math.inf, **like)
+    valid = (torch.arange(nb * W, device=S.device) < K).view(nb, W)
+    S_b = torch.full((nb * W,), math.inf, **like)
     S_b[:K] = S
-    S_b = S_b.view(nb, BLOCK)
+    S_b = S_b.view(nb, W)
     beta_b = torch.amin(S_b, dim=1)
     live = valid & (beta_b != math.inf)[:, None]
     e = torch.where(live, torch.exp(-(S_b - beta_b[:, None]) / lam_softmin), 0.0)
-    eps_b = torch.zeros(T, nb * BLOCK, A, **like)
+    eps_b = torch.zeros(T, nb * W, A, **like)
     eps_b[:, :K] = eps
-    dUt = torch.einsum("tnka,nk->nta", eps_b.view(T, nb, BLOCK, A), e)
+    dUt = torch.einsum("tnka,nk->nta", eps_b.view(T, nb, W, A), e)
     return torch.cat([beta_b[:, None], e.sum(1)[:, None], dUt.reshape(nb, T * A)], 1)
 
 
@@ -255,49 +307,72 @@ def _plain_costs(fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, o
 
 def family_solve_partials_reference(
     fam: FusedFamily, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta,
-    eps=None, k0=0,
+    eps=None, k0=0, width=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1 for one robot: ``(S (K,), partials (nb, 2 + T·A))``
-    (:func:`block_partials`), S from the family's eager model and cost on
-    the port's noise stream from draw k0 on (or the given ε)."""
+    (:func:`block_partials` over blocks of `width`, :func:`block_width` for
+    one robot if None), S from the family's eager model and cost on the
+    port's noise stream from draw k0 on (or the given ε)."""
     S, eps = _plain_costs(fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps, k0)
-    return S, block_partials(S, eps, lam_softmin)
+    if width is None:
+        width = block_width(1, K, *U.shape, fam.name)
+    return S, block_partials(S, eps, lam_softmin, width)
+
+
+def _fleet_width(fam: FusedFamily, Us, K: int, n_robots: int | None) -> int:
+    """:func:`block_width` of a fleet of `n_robots` robots (R = Us.shape[0]
+    if None) of whose robots `Us` holds R: a slice of a fleet (a rank of the
+    sharded fleet) runs the whole fleet's body."""
+    R, T, A = Us.shape
+    return block_width(R if n_robots is None else n_robots, K, T, A, fam.name)
 
 
 def fleet_family_solve_partials_reference(
     fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta,
-    eps=None,
+    eps=None, n_robots=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1 for a fleet: the single-robot plain version for
-    robot r on (xs[r], Us[r], goals[r], seed r, eps[r]), stacked into
-    ``(S (R, K), partials (R, nb, 2 + T·A))``."""
+    robot r on (xs[r], Us[r], goals[r], seed r, eps[r]) at the fleet's block
+    width, stacked into ``(S (R, K), partials (R, nb, 2 + T·A))``."""
+    R = Us.shape[0]
+    width = _fleet_width(fam, Us, K, n_robots)
     out = [
         family_solve_partials_reference(
             fam, xs[r], Us[r], None if goals is None else goals[r], lam_softmin, K, seed,
-            step, it, antithetic, ou_beta, None if eps is None else eps[r],
+            step, it, antithetic, ou_beta, None if eps is None else eps[r], width=width,
         )
-        for r, seed in enumerate(_robot_seeds(seeds, Us.shape[0]))
+        for r, seed in enumerate(_robot_seeds(seeds, R))
     ]
     return torch.stack([S for S, _ in out]), torch.stack([p for _, p in out])
 
 
 def _launch_solve_partials(
     fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta,
-    eps, R: int, lead: tuple[int, ...], k0: int = 0,
+    eps, R: int, lead: tuple[int, ...], k0: int = 0, width: int | None = None,
 ):
     """Launch K1 for R robots on checked CUDA tensors, or K4 (K1's first pass
     alone) when `lam_softmin` is None; the outputs get the leading shape
-    `lead`: () for the single-robot wrappers, (R,) for the fleet's. Returns
-    ``(S, partials)`` from K1, S from K4. Counts the launch under its
-    kernel, in total and for the family."""
+    `lead`: () for the single-robot wrappers, (R,) for the fleet's. The body
+    is :func:`block_width`'s, unless `width` forces one (chip_smoke.py times
+    both bodies at one shape with it). Returns ``(S, partials)`` from K1, S
+    from K4. Counts the launch under its kernel, in total, for the family and
+    for the width."""
     T, A = Us.shape[-2:]
     pass2 = lam_softmin is not None
-    if 4 * (1 + BLOCK // 32 if pass2 else 1) * T * A > _SMEM_BYTES:
-        raise ValueError(f"T·A = {T * A} exceeds the kernel's shared-memory budget")
+    if width is None:
+        width = block_width(R, K, T, A, fam.name)
+    if width == SLAB_WIDTH:
+        smem = slab_bytes(T, A)
+    elif width == BLOCK:
+        smem = 4 * (1 + BLOCK // 32 if pass2 else 1) * T * A
+    else:
+        raise ValueError(f"K1 runs blocks of {SLAB_WIDTH} or {BLOCK} rollouts, not {width}")
+    if smem > _SMEM_BYTES:
+        raise ValueError(f"T·A = {T * A} exceeds the {width}-rollout body's shared-memory budget")
     from mppi_gpu_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    nb = -(-K // BLOCK)
+    nb = -(-K // width)
     per_robot = isinstance(seeds, torch.Tensor)
     S = torch.empty(*lead, K, dtype=torch.float32, device=Us.device)
     partials = (torch.empty(*lead, nb, 2 + T * A, dtype=torch.float32, device=Us.device)
@@ -312,10 +387,11 @@ def _launch_solve_partials(
         partials.data_ptr() if pass2 else None,
         R, K, T, A, fam.dt, fam.lam_cost, float(lam_softmin) if pass2 else 1.0,
         *_noise_words(0 if per_robot else int(seeds), step, it), philox.draw_offset(k0),
-        int(antithetic), float(ou_beta), _ou_c(ou_beta),
+        int(antithetic), float(ou_beta), _ou_c(ou_beta), width,
     )
     _LAUNCHES[kernel] += 1
     _FAMILY_LAUNCHES[kernel][fam.name] += 1
+    _WIDTH_LAUNCHES[kernel][width] += 1
     return (S, partials) if pass2 else S
 
 
@@ -340,21 +416,24 @@ def family_solve_partials(
 
 def fleet_family_solve_partials(
     fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta,
-    eps=None,
+    eps=None, n_robots=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 for R robots of family `fam` in one launch on CUDA tensors, its
     plain version on CPU tensors. xs (R, S), Us (R, T, A), goals (R, S) for a
     family with a goal, else None; ``seeds`` an (R,) int64 tensor of
     per-robot seeds or one int for every robot, eps (R, T, K, A) or None; the
     family's parameters, both λ, (step, it), antithetic and OU are shared.
+    The block width is the fleet's (:func:`block_width` of `n_robots`, the
+    whole fleet's size where these R robots are a slice of it; R if None).
     Returns ``(S (R, K), partials (R, nb, 2 + T·A))``."""
     if not _fleet_on_cuda(fam, xs, Us, goals, K, seeds, antithetic, eps):
         return fleet_family_solve_partials_reference(
             fam, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta, eps,
+            n_robots,
         )
     return _launch_solve_partials(
         fam, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta, eps,
-        Us.shape[0], (Us.shape[0],),
+        Us.shape[0], (Us.shape[0],), width=_fleet_width(fam, Us, K, n_robots),
     )
 
 
@@ -446,10 +525,11 @@ def _launch_softmin_combine(
     partials: torch.Tensor, lam_softmin: float, R: int, T: int, A: int, lead: tuple[int, ...],
     normalize: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2 (one block per robot) on checked CUDA partials; returns
-    (β η (*lead, 2), ΔU (*lead, T, A)). Counts the launch."""
+    """Launch K2 (grid: 32-column tiles of ΔU × robots) on checked CUDA
+    partials; returns (β η (*lead, 2), ΔU (*lead, T, A)). Counts the
+    launch."""
     nb = partials.shape[-2]
-    if nb < 1 or 4 * nb > _SMEM_BYTES:
+    if nb < 1 or 4 * (nb + _COMBINE_SMEM_FLOATS) > _SMEM_BYTES:
         raise ValueError(f"{nb} partials exceed the combine kernel's shared memory")
     from mppi_gpu_tpu_torch.ops._build import load_library
 
@@ -484,7 +564,7 @@ def softmin_combine(
 def fleet_softmin_combine(
     partials: torch.Tensor, lam_softmin: float, T: int, A: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2 on a CUDA (R, nb, 2 + T·A) tensor, one block per robot; its plain
+    """K2 on a CUDA (R, nb, 2 + T·A) tensor, one launch for the fleet; its plain
     version on a CPU tensor. Returns (β (R,), η (R,), ΔU (R, T, A))."""
     if partials.dim() != 3:
         raise ValueError(f"partials must be (R, nb, 2 + T·A), got {tuple(partials.shape)}")
@@ -502,9 +582,11 @@ def fleet_softmin_combine(
 
 
 def family_fused_solve_reference(fam: FusedFamily, x0, U, goal, lam_softmin, *args, eps=None,
-                                 k0=0, normalize=True):
-    """Plain version of :func:`family_fused_solve`."""
-    S, partials = family_solve_partials_reference(fam, x0, U, goal, lam_softmin, *args, eps, k0)
+                                 k0=0, normalize=True, width=None):
+    """Plain version of :func:`family_fused_solve` (over blocks of `width`
+    rollouts, :func:`block_width`'s for one robot if None)."""
+    S, partials = family_solve_partials_reference(fam, x0, U, goal, lam_softmin, *args, eps, k0,
+                                                  width)
     return (S, *softmin_combine_reference(partials, lam_softmin, *U.shape, normalize))
 
 
@@ -522,25 +604,29 @@ def family_fused_solve(fam: FusedFamily, x0, U, goal, lam_softmin, *args, eps=No
 
 
 def fleet_family_fused_solve_reference(
-    fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, *args, eps=None
+    fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, *args, eps=None, n_robots=None
 ):
     """Plain version of :func:`fleet_family_fused_solve`:
-    :func:`family_fused_solve_reference` robot by robot, stacked."""
+    :func:`family_fused_solve_reference` robot by robot at the fleet's block
+    width, stacked."""
+    width = _fleet_width(fam, Us, K, n_robots)
     out = [
         family_fused_solve_reference(
             fam, xs[r], Us[r], None if goals is None else goals[r], lam_softmin, K, seed,
-            *args, eps=None if eps is None else eps[r],
+            *args, eps=None if eps is None else eps[r], width=width,
         )
         for r, seed in enumerate(_robot_seeds(seeds, Us.shape[0]))
     ]
     return tuple(torch.stack(v) for v in zip(*out))
 
 
-def fleet_family_fused_solve(fam: FusedFamily, xs, Us, goals, lam_softmin, *args, eps=None):
+def fleet_family_fused_solve(fam: FusedFamily, xs, Us, goals, lam_softmin, *args, eps=None,
+                             n_robots=None):
     """R MPPI solve cores of family `fam` in one launch of K1 and one of K2:
     ``(S (R, K), β (R,), η (R,), ΔU (R, T, A))``; arguments as
     :func:`fleet_family_solve_partials`."""
-    S, partials = fleet_family_solve_partials(fam, xs, Us, goals, lam_softmin, *args, eps)
+    S, partials = fleet_family_solve_partials(fam, xs, Us, goals, lam_softmin, *args, eps,
+                                              n_robots)
     return (S, *fleet_softmin_combine(partials, lam_softmin, *Us.shape[1:]))
 
 
@@ -690,7 +776,7 @@ def weighted_update(
 def reset_launch_counts() -> None:
     for kernel in _LAUNCHES:
         _LAUNCHES[kernel] = 0
-    for counts in _FAMILY_LAUNCHES.values():
+    for counts in (*_FAMILY_LAUNCHES.values(), *_WIDTH_LAUNCHES.values()):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -703,3 +789,9 @@ def family_launch_counts(kernel: str = "solve_partials") -> dict[str, int]:
     """K1's (or K4's, ``kernel="rollout_costs"``) launches by family; they
     add up to ``launch_counts()[kernel]``."""
     return dict(_FAMILY_LAUNCHES[kernel])
+
+
+def width_launch_counts(kernel: str = "solve_partials") -> dict[int, int]:
+    """K1's (or K4's) launches by block width, that is by body:
+    :data:`SLAB_WIDTH` the slab body, :data:`BLOCK` the per-rollout body."""
+    return dict(_WIDTH_LAUNCHES[kernel])

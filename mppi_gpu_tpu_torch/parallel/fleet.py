@@ -4,8 +4,9 @@
 Robots share nothing per solve, so whole robots go to each rank: rank d of
 n solves robots d·R/n to (d + 1)·R/n − 1 with the fleet kernels (one launch
 of K1 and one of K2 for its R/n robots on the fused backend), each robot
-under its own seed (``ops/philox.fleet_seeds``) and goal. So robot r's
-result is ``BatchedMPPIController``'s bit for bit. The full (R, ·) result
+under its own seed (``ops/philox.fleet_seeds``) and goal, at the whole
+fleet's block width. So robot r's result is ``BatchedMPPIController``'s bit
+for bit. The full (R, ·) result
 comes back on every rank through one all_gather of the packed outputs per
 update, so ``runner.run_fleet_episode`` runs on it unchanged.
 """

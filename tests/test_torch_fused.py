@@ -125,19 +125,21 @@ def test_block_partials_equal_the_global_softmin(antithetic, ou_beta, K):
 
 
 def test_diverged_block_and_all_diverged():
-    """A block whose rollouts all cost +inf gets weight 0 and leaves the
-    others' solve intact; when every rollout diverges β = +inf and the
-    result is NaN (the guard's signal), never a finite action."""
+    """A block whose rollouts all cost +inf (block 1 at the width the rule
+    picks) gets weight 0 and leaves the others' solve intact; when every
+    rollout diverges β = +inf and the result is NaN (the guard's signal),
+    never a finite action."""
     A, K, T = 2, 300, 10
+    W = fs.block_width(1, K, T, A, "lti")
     p = _setup(A, T)
     rng = np.random.default_rng(0)
     eps = (0.25 * rng.standard_normal((T, K, A))).astype(np.float32)
     ref = fs.fused_solve(*_port_args(p, K, 1.0, eps))
     eps_bad = eps.copy()
-    eps_bad[:, fs.BLOCK:2 * fs.BLOCK] = 1e30
+    eps_bad[:, W:2 * W] = 1e30
     S, beta, eta, dU = fs.fused_solve(*_port_args(p, K, 1.0, eps_bad))
-    assert torch.isinf(S[fs.BLOCK:2 * fs.BLOCK]).all()
-    keep = np.r_[0:fs.BLOCK, 2 * fs.BLOCK:K]
+    assert torch.isinf(S[W:2 * W]).all()
+    keep = np.r_[0:W, 2 * W:K]
     assert torch.equal(S[keep], ref[0][keep])
     w_ok = torch.exp(-(ref[0][keep] - ref[1]) / 1.0)
     eta_keep = w_ok.sum()

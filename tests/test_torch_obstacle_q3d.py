@@ -535,6 +535,51 @@ def test_pack_follows_a_reassigned_cost(name):
     assert ctrl.cost.__class__ is new.__class__
 
 
+@pytest.mark.parametrize("name", FAMILIES)
+def test_goal_only_reassignment_keeps_the_pack(name, monkeypatch):
+    """``ctrl.cost = with_goal(ctrl.cost, g)`` (the flight example's
+    re-target every step; the obstacle cost's goal lives on its base) keeps
+    the pack: no ``family_for`` call, so no read of dt and λ from the device.
+    The fused path's inputs are then the kept pack and the new goal, and its
+    plain version solves exactly as a fresh pack of the new cost does; a
+    cost whose other fields are equal but not the same objects, or whose
+    weights changed, is packed anew."""
+    real, calls = families.family_for, []
+    monkeypatch.setattr(families, "family_for", lambda *a: calls.append(a) or real(*a))
+    cfg = (_obstacle_cfgs()[0] if name == "lti-obstacle" else load_config(_cfg_path(name)))
+    cfg = cfg.replace(samples=200, horizon=8)
+    ctrl = MPPIController(cfg, device="cpu")
+    assert len(calls) == 1
+    pack, old = ctrl._family.params, ctrl.cost
+    goal = torch.full((cfg.state_dim,), 0.25)
+    ctrl.cost = with_goal(ctrl.cost, goal)
+    assert len(calls) == 1 and ctrl._family.params is pack and ctrl._family.cost is ctrl.cost
+    assert goal_of(ctrl.cost) is goal and not torch.equal(goal_of(old), goal)
+    fresh = real(ctrl.dynamics, ctrl.cost, ctrl.sigma)
+    assert torch.equal(fresh.params, pack)
+    x, U = torch.zeros(cfg.state_dim), ctrl.init_action_seq()
+    if name == "quadrotor3d":
+        x[3] = 1.0
+    eps = ctrl._eps(3, 0, 0)
+    ctrl.rollout_backend = "fused"  # on CPU tensors: K1 + K2's plain versions
+    got = ctrl.solve_with_eps(x, U, eps)
+    want = fs.family_fused_solve(fresh, x, U, goal, cfg.lambda_, 200, 0, 0, 0, False, 0.0, eps=eps)
+    for a, b in zip((got.info.costs, got.info.beta, got.info.eta), want[:3]):
+        assert torch.equal(a, b)
+    ctrl.rollout_backend = "eager"
+    assert torch.equal(ctrl.solve_with_eps(x, U, eps).info.costs, got.info.costs)
+    twin = dataclasses.replace(ctrl.cost, **{
+        f.name: (v.clone() if isinstance(v := getattr(ctrl.cost, f.name), torch.Tensor)
+                 else dataclasses.replace(v))
+        for f in dataclasses.fields(ctrl.cost) if f.name != "goal"})
+    ctrl.cost = twin
+    assert len(calls) == 2
+    ctrl.cost = with_goal(twin, goal + 0.5)
+    assert len(calls) == 2
+    ctrl.cost = old
+    assert len(calls) == 3 and torch.equal(ctrl._family.params, pack)
+
+
 # ---------------------------------------------------------------------------
 # (e) the 3-D quadrotor's world, the closed loops
 
