@@ -30,8 +30,8 @@ K and the per-rollout body; ``ops/fused_solve.block_width`` picks one): S
 bit-equal across both for every family instance, K2 at the nb of both
 widths and of K5, and both bodies timed across K for every family, with the
 crossover each family's timings give beside the rule's table (phase 20).
-``--time-commit ROOT`` instead times K1, K2 and K4 of the package in the
-checkout at ROOT, to compare two commits in one run. Every phase
+``--time-commit ROOT`` instead times K1, K2, K4, K5 and K3 of the package in
+the checkout at ROOT, to compare two commits in one run. Every phase
 prints one line (or a few); any failure raises and
 the script exits non-zero without the final line. Without a CUDA device it
 exits 1 at once. The last two lines are a JSON object describing every
@@ -271,7 +271,7 @@ def _branch_target(ins: str) -> int | None:
 
 def philox_loop_steps(instrs: list[tuple[int, str]]) -> list[float]:
     """Instructions per horizon step of each loop of a kernel that draws one
-    Philox block per step (K1's two passes, K4's one, K3's), on its hot path.
+    Philox block per step (K1's two passes, K4's one), on its hot path.
 
     A loop is a backward branch with no EXIT or RET in its range (an
     out-of-line slow path that jumps back is not one), and only loops not
@@ -283,7 +283,7 @@ def philox_loop_steps(instrs: list[tuple[int, str]]) -> list[float]:
     multiplies by the round constants, of which the compiler hoists the
     first round's, drops those whose words A does not use and splits some
     into a low and a high half: 16 to 23 instructions remain per block in
-    this kernel file (23 in K4's LtiObstacle<3>, <4> and K5's A = 3, 4 loops).
+    this kernel file (23 in K4's LtiObstacle<3>, <4> loops).
     A loop unrolled u times holds u blocks, 16·u to 23·u multiplies, so the
     count is divided by u = multiplies // 16 (at least 1), which is u itself
     for u ≤ 2 (none is unrolled in this build: every loop holds the MUFU
@@ -390,6 +390,38 @@ def solve_bound(steps: dict, fam, K: int, T: int, clock_mhz: float, R: int = 1,
         width = fs.block_width(R, K, T, A, fam.name) if width is None else width
         floats += R * -(-K // width) * (2 + T * A)
     return bound_ms(per_step * T * R * K, 4 * floats, clock_mhz)
+
+
+def _draw_step(steps: dict, A: int) -> float:
+    """Instructions per draw and step of the work K5 does: the second loop of
+    K1's per-rollout body at A (``solve_partials<lti,A=..,inj=0>``), which
+    draws, shapes ε and reduces e·ε (11·A). It is read from a loop that K3's
+    and K5's own design does not touch, so their bounds count the same work
+    whatever body implements them."""
+    loops = steps[f"solve_partials<lti,A={A},inj=0>"]
+    expect(len(loops) == 2, f"K1's per-rollout body at A={A}: {len(loops)} Philox loops, not 2")
+    return loops[1]
+
+
+def weighted_update_bound(steps: dict, K: int, T: int, A: int, clock_mhz: float,
+                          antithetic: bool = False) -> tuple[float, str]:
+    """:func:`bound_ms` of K5 in the Philox mode: :func:`_draw_step` per draw
+    and step over its draws (K/2 under antithetic: the mirrors are weighed
+    in, not drawn); bytes w, σ and the (T, A) result."""
+    n = K // 2 if antithetic else K
+    return bound_ms(_draw_step(steps, A) * T * n, 4 * (K + A + T * A), clock_mhz)
+
+
+def noise_dump_bound(steps: dict, K: int, T: int, A: int, clock_mhz: float,
+                     antithetic: bool = False, words: bool = False) -> tuple[float, str]:
+    """:func:`bound_ms` of K3: per draw and step :func:`_draw_step` less the
+    reduction (11·A), plus A stores of ε (2·A under antithetic, the mirror
+    too) and 4 of the words when they are written; bytes σ, ε (T, K, A)
+    and the words (T, K_draw, 4)."""
+    K_draw = K // 2 if antithetic else K
+    per = _draw_step(steps, A) - 11 * A + A * (2 if antithetic else 1) + (4 if words else 0)
+    return bound_ms(per * T * K_draw, 4 * (A + T * K * A) + (16 * T * K_draw if words else 0),
+                    clock_mhz)
 
 
 def combine_bound(nb: int, T: int, A: int, R: int = 1) -> tuple[float, str]:
@@ -513,11 +545,14 @@ def check_kernels(A: int, K: int, T: int, *, antithetic=False, ou_beta=0.0,
     return dict(solve_partials=e1, softmin_combine=e2)
 
 
-def check_dump_replay(A: int, K: int, T: int, *, antithetic=False, ou_beta=0.0,
+def check_dump_replay(A: int, K: int, T: int, *, antithetic=False, ou_beta=0.0, k0: int = 0,
                       device: str = "cuda") -> dict:
-    """K3's words equal ops/philox.py's bit for bit; its ε equals the plain
-    stream on the card; the injected-ε solve on the dump equals the
-    Philox-mode solve exactly (replay)."""
+    """K3's words equal ops/philox.py's bit for bit, and its ε the plain
+    stream on the same device bit for bit, drawn from counter word k0 on;
+    the injected-ε solve on the dump equals the Philox-mode solve exactly
+    (replay): on the card in each of K1's bodies that fits the shape (the
+    slab body while its slab fits in shared memory), on the CPU the plain
+    version."""
     import torch
 
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
@@ -525,20 +560,48 @@ def check_dump_replay(A: int, K: int, T: int, *, antithetic=False, ou_beta=0.0,
 
     p = make_problem(A, K, T, device=device)
     seed, step, it = 11, 5, 1
-    name = f"dump A={A} K={K} T={T} anti={antithetic} ou={ou_beta}"
-    eps, words = fs.noise_dump(p["sigma"], T, K, seed, step, it, antithetic, ou_beta, words=True)
+    name = f"dump A={A} K={K} T={T} anti={antithetic} ou={ou_beta} k0={k0}"
+    eps, words = fs.noise_dump(p["sigma"], T, K, seed, step, it, antithetic, ou_beta, words=True,
+                               k0=k0)
     K_draw = K // 2 if antithetic else K
-    words_r = philox.philox_words(seed, step, it, T, K_draw, p["sigma"].device)
+    words_r = philox.philox_words(seed, step, it, T, K_draw, p["sigma"].device, k0)
     expect(torch.equal(words, words_r), f"{name}: Philox words differ from ops/philox.py")
-    eps_r = philox.sample_eps(seed, step, it, T, K, p["sigma"], antithetic=antithetic, ou_beta=ou_beta)
+    eps_r = philox.sample_eps(seed, step, it, T, K, p["sigma"], antithetic=antithetic,
+                              ou_beta=ou_beta, k0=k0)
     err = close(f"{name} eps", _np(eps), _np(eps_r), 1e-6, 1e-6)
     bit_equal = bool(torch.equal(eps.view(torch.int32), eps_r.view(torch.int32)))
-    args = dict(seed=seed, step=step, it=it, antithetic=antithetic, ou_beta=ou_beta)
-    live = fs.fused_solve(*solve_args(p, **args))
-    replay = fs.fused_solve(*solve_args(p, **args, eps=eps))
-    for label, a, b in zip(("S", "beta", "eta", "dU"), live, replay):
-        expect(torch.equal(a, b), f"{name}: replay {label} differs from the Philox-mode solve")
-    return dict(noise_dump=err, eps_bit_identical=bit_equal)
+    expect(bit_equal, f"{name}: eps differs from the plain stream's bits")
+    fam = fs.lti_family(p["sigma"], p["inv_s"], p["w"], p["dt"], p["lam_cost"])
+    args = (fam, p["x0"], p["U"], p["goal"], p["lam"], K, seed, step, it, antithetic, ou_beta)
+    widths = [None] if device == "cpu" else [fs.BLOCK] + (
+        [fs.SLAB_WIDTH] if fs.slab_bytes(T, A) <= fs._SMEM_BYTES else [])
+    for width in widths:
+        def solve(e_in):
+            if width is None:
+                S, part = fs.family_solve_partials(*args, e_in, k0)
+            else:
+                S, part = fs._launch_solve_partials(*args, e_in, 1, (), k0, width)
+            return (S, part, *fs.softmin_combine(part, p["lam"], T, A))
+
+        for label, a, b in zip(("S", "partials", "beta", "eta", "dU"), solve(None), solve(eps)):
+            expect(torch.equal(a, b),
+                   f"{name} width {width}: replay {label} differs from the Philox-mode solve")
+    return dict(noise_dump=err, eps_bit_identical=bit_equal, widths=widths)
+
+
+# K3's and K5's shapes on the card (A, K, T, antithetic, OU β, k0): the
+# main path's A=3 K=10⁴ T=200 in every noise mode and at a draw offset k0 =
+# 3K; K past every block width (10⁴ + 17; 10⁴ + 34 under antithetic, so
+# K_draw = 5017 is odd too) at T = 53, past every step tile; T = 1000, past
+# the slab's shared memory; the point_mass2d shape under OU
+DRAW_CASES = (
+    (3, 10_000, 200, False, 0.0, 0), (3, 10_000, 200, True, 0.0, 0),
+    (3, 10_000, 200, False, 0.5, 0), (3, 10_000, 200, False, 0.0, 30_000),
+    (3, 10_017, 53, False, 0.0, 0), (3, 10_017, 53, False, 0.5, 0),
+    (3, 10_034, 53, True, 0.0, 0), (3, 10_034, 53, True, 0.5, 30_102),
+    (3, 10_000, 1000, False, 0.0, 0), (3, 10_000, 1000, False, 0.5, 0),
+    (3, 10_034, 1000, True, 0.5, 0), (2, 3000, 50, False, 0.5, 0),
+)
 
 
 def check_edge_cases(device: str = "cuda") -> None:
@@ -1175,43 +1238,54 @@ def check_reassigned_dynamics(device: str = "cuda") -> str:
     return f"{', '.join(out)}: the fused solve after `ctrl.dynamics = replace(...)` equals the eager one"
 
 
-def check_weighted_update(A: int, K: int, T: int, *, philox: bool = True,
+def check_weighted_update(A: int, K: int, T: int, *, modes=None,
                           device: str = "cuda") -> float:
     """K5 (``fused_solve.weighted_update``: K5's per-block sums folded by K2)
-    for weights w (K,) drawn uniformly from a seed and normalized, so that
-    every rollout's term counts (the softmin at the problem's λ is nearly
-    one-hot at T = 200 and would test one term): in the injected-ε mode
-    against its plain version on the same device and a float64 einsum on
-    the CPU; with `philox` also in the Philox mode (iid, antithetic, OU 0.5,
-    and iid at a draw offset k0) against the plain version on K3's dump of
-    the same stream. Each entry is held to 1e-5 of Σ_k |w_k ε_k[t, a]|, its
-    sum of magnitudes: float32 sums of K terms in two orders. Returns the
-    max abs error against the plain version."""
+    for three weights w (K,): drawn uniformly from a seed and normalized, so
+    that every rollout's term counts (the softmin at the problem's λ is
+    nearly one-hot at T = 200 and would test one term); all zero; one-hot at
+    k = K − 1, the last row's edge (under antithetic a mirror). Each in the
+    injected-ε mode against its plain version on the same device and a
+    float64 einsum on the CPU, and in each Philox mode of `modes`
+    ((antithetic, OU β, draw offset k0); None: iid, antithetic, OU 0.5 and
+    iid at k0 = 3K) against the same on K3's dump of the same stream. Each
+    entry is held to 1e-5 of Σ_k |w_k ε_k[t, a]|, its sum of magnitudes:
+    float32 sums of K terms in two orders, and K5's OU filter runs on its
+    blocks' sums (zero and one-hot weights: exact). Returns the max abs
+    error against the plain version."""
     import torch
 
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
 
     p = make_problem(A, K, T, device=device)
-    w = torch.rand(K, generator=torch.Generator().manual_seed(K)).to(device)
-    w /= w.sum()
+    w_rand = torch.rand(K, generator=torch.Generator().manual_seed(K)).to(device)
+    weights = {"uniform": w_rand / w_rand.sum(), "zero": torch.zeros(K, device=device),
+               "one-hot K-1": torch.zeros(K, device=device)}
+    weights["one-hot K-1"][K - 1] = 1.0
 
-    def held(label: str, got, eps) -> float:
+    def held(label: str, w, got, eps) -> float:
         e64, w64 = (_np(v).astype(np.float64) for v in (eps, w))
         tol = 1e-5 * np.einsum("tka,k->ta", np.abs(e64), np.abs(w64))
-        for what, want in (("plain", _np(fs.weighted_update_reference(w, eps))),
-                           ("float64", np.einsum("tka,k->ta", e64, w64))):
+        plain = _np(fs.weighted_update_reference(w, eps))
+        for what, want in (("plain", plain), ("float64", np.einsum("tka,k->ta", e64, w64))):
             bad = np.abs(_np(got) - want) > tol
             expect(not bad.any(), f"{label} vs {what}: {int(bad.sum())} entries beyond 1e-5 of "
                    f"sum |w eps|, max abs err {np.abs(_np(got) - want).max():.3g}")
-        return float(np.abs(_np(got) - _np(fs.weighted_update_reference(w, eps))).max())
+        return float(np.abs(_np(got) - plain).max())
 
-    err = held(f"K5 injected A={A} K={K} T={T}",
-               fs.weighted_update(p["sigma"], w, T, K, 0, 0, 0, False, 0.0, eps=p["eps"]), p["eps"])
-    modes = ((False, 0.0, 0), (True, 0.0, 0), (False, 0.5, 0), (False, 0.0, 3 * K)) if philox else ()
+    if modes is None:
+        modes = ((False, 0.0, 0), (True, 0.0, 0), (False, 0.5, 0), (False, 0.0, 3 * K))
+    err = 0.0
+    for wname, w in weights.items():
+        err = max(err, held(f"K5 injected A={A} K={K} T={T} w {wname}", w,
+                            fs.weighted_update(p["sigma"], w, T, K, 0, 0, 0, False, 0.0,
+                                               eps=p["eps"]), p["eps"]))
     for anti, ou, k0 in modes:
         eps = fs.noise_dump(p["sigma"], T, K, 11, 5, 1, anti, ou, k0=k0)
-        got = fs.weighted_update(p["sigma"], w, T, K, 11, 5, 1, anti, ou, k0=k0)
-        err = max(err, held(f"K5 philox A={A} K={K} T={T} anti={anti} ou={ou} k0={k0}", got, eps))
+        for wname, w in weights.items():
+            got = fs.weighted_update(p["sigma"], w, T, K, 11, 5, 1, anti, ou, k0=k0)
+            err = max(err, held(f"K5 philox A={A} K={K} T={T} anti={anti} ou={ou} k0={k0} "
+                                f"w {wname}", w, got, eps))
     return err
 
 
@@ -1391,9 +1465,10 @@ def profile_steps(ctrl, x, U, steps: int = 50) -> dict:
                 K1_us=kernel_us["solve_partials"] / steps, K2_us=kernel_us["softmin_combine"] / steps)
 
 
-def device_ms(fn, reps: int = 10) -> float | None:
-    """Device ms per launch of the one kernel of this file that `fn`
-    launches, by torch.profiler over `reps` warm calls: the kernel alone,
+def device_ms(fn, reps: int = 10, name: str = "_kernel") -> float | None:
+    """Device ms per launch of the kernel of this file whose name holds
+    `name` (by default the one kernel that `fn` launches), by torch.profiler
+    over `reps` warm calls: the kernel alone,
     without the host's time between launches that CUDA events around a
     single call also count. The median of the kernel records' durations:
     a window now and then drops records or misreads some (aggregated over
@@ -1411,7 +1486,7 @@ def device_ms(fn, reps: int = 10) -> float | None:
                 fn()
             torch.cuda.synchronize()
         durations = [evt.time_range.elapsed_us() for evt in prof.events()
-                     if evt.device_type == DeviceType.CUDA and "_kernel" in evt.name]
+                     if evt.device_type == DeviceType.CUDA and name in evt.name]
         if durations:
             return float(np.median(durations)) / 1e3
     return None
@@ -1992,17 +2067,20 @@ def main() -> int:
         print(f"[3] injected A={A} K={K} T={T}: ok vs plain and oracle; max abs err "
               + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
 
-    # [4] Philox mode, kernel by kernel; dump and replay
+    # [4] Philox mode, kernel by kernel; K3's dump bit-equal to the plain
+    # stream and its replay through K1 exact, at every shape of DRAW_CASES
     for A, K, T, anti, ou in ((3, 10_000, 200, False, 0.0), (3, 10_000, 200, True, 0.0),
                               (2, 3000, 50, False, 0.5)):
         e = check_kernels(A, K, T, antithetic=anti, ou_beta=ou)
-        d = check_dump_replay(A, K, T, antithetic=anti, ou_beta=ou)
         err["solve_partials<lti>"] = max(err["solve_partials<lti>"], e["solve_partials"])
         err["softmin_combine"] = max(err["softmin_combine"], e["softmin_combine"])
-        err["noise_dump"] = max(err["noise_dump"], d["noise_dump"])
         print(f"[4] philox A={A} K={K} T={T} anti={anti} ou={ou}: K1 S err {e['solve_partials']:.3g}, "
-              f"K2 dU err {e['softmin_combine']:.3g}; dump words bit-exact, eps err "
-              f"{d['noise_dump']:.3g} (bit-identical: {d['eps_bit_identical']}); replay exact")
+              f"K2 dU err {e['softmin_combine']:.3g}")
+    for A, K, T, anti, ou, k0 in DRAW_CASES:
+        d = check_dump_replay(A, K, T, antithetic=anti, ou_beta=ou, k0=k0)
+        err["noise_dump"] = max(err["noise_dump"], d["noise_dump"])
+        print(f"[4] dump A={A} K={K} T={T} anti={anti} ou={ou} k0={k0}: K3 words and eps bit-equal "
+              f"to ops/philox.py; replay through K1 exact at widths {d['widths']}")
 
     # [5] edge cases
     check_edge_cases()
@@ -2055,6 +2133,8 @@ def main() -> int:
     }
     for name, (k_ms, p_ms) in kernel_ms.items():
         print(f"[6] kernel {name} A=3 K=10000 T=200: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
+    dump_device_ms = device_ms(lambda: fs.noise_dump(p["sigma"], 200, 10_000, 7, 3, 0, False, 0.0))
+    print(f"[6] kernel noise_dump A=3 K=10000 T=200: {dump_device_ms} ms on the device ({smi})")
 
     # [7] the main path: the closed-loop CLI, launches counted
     fs.reset_launch_counts()
@@ -2176,6 +2256,11 @@ def main() -> int:
     }
     for name, (k_ms, p_ms) in fleet_kernel_ms.items():
         print(f"[9] fleet kernel {name} R=8 A=3 K=10000 T=200: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
+    # the fleet's dump: eight K3 launches, the median record of each
+    fleet_dump_device_ms = device_ms(
+        lambda: [fs.noise_dump(p["sigma"], 200, 10_000, s_, 3, 0, False, 0.0) for s_ in seed_list])
+    fleet_dump_device_ms = None if fleet_dump_device_ms is None else 8 * fleet_dump_device_ms
+    print(f"[9] fleet kernel noise_dump R=8: {fleet_dump_device_ms} ms on the device (8 launches) ({smi})")
     del p, fargs, fpart
 
     # [10] the fleet path: the fleet example in both modes and a full-length
@@ -2444,13 +2529,16 @@ def main() -> int:
 
     # [18] K5, the weighted update (TPU kernel #7): injected ε vs plain and
     # float64; Philox mode vs plain on K3's dump of the same stream; times
-    for A, K, T in ((2, 3000, 50), (3, 10_000, 200)):
-        e = check_weighted_update(A, K, T, philox=A == 3)
+    wu_shapes = {}
+    for A, K, T, anti, ou, k0 in DRAW_CASES:
+        wu_shapes.setdefault((A, K, T), []).append((anti, ou, k0))
+    wu_shapes[(3, 10_000, 200)] += [(True, 0.5, 0)]
+    for (A, K, T), modes in wu_shapes.items():
+        e = check_weighted_update(A, K, T, modes=modes)
         err["weighted_update"] = max(err["weighted_update"], e)
-        print(f"[18] K5 A={A} K={K} T={T}: injected eps ok vs plain and float64"
-              + ("; philox iid, antithetic, OU 0.5 and k0=3K ok vs plain on K3's dump of the "
-                 "same stream" if A == 3 else "")
-              + f" (each entry within 1e-5 of sum |w eps|); max abs err vs plain {e:.3g}")
+        print(f"[18] K5 A={A} K={K} T={T}: injected and philox (anti, ou, k0) {modes} ok vs plain "
+              "and float64 (philox on K3's dump of the same stream), weights uniform, zero and "
+              f"one-hot at K-1 (each entry within 1e-5 of sum |w eps|); max abs err vs plain {e:.3g}")
     wu = {}
     for K in (10_000, 100_000):
         q = make_problem(3, K, 200)
@@ -2460,11 +2548,12 @@ def main() -> int:
             lambda: fs.weighted_update(q["sigma"], w, 200, K, 7, 3, 0, False, 0.0),
             lambda: fs.weighted_update_reference(w, philox.sample_eps(7, 3, 0, 200, K, q["sigma"])),
             20, 3)
-        b_ms, b_by = bound_ms(sass_steps["weighted_update<A=3,inj=0>"][0] * 200 * K,
-                              4 * (K + 3 + 200 * 3), clock_mhz)
-        wu[K] = (k_ms, p_ms, b_ms, b_by)
+        d_ms = device_ms(lambda: fs.weighted_update(q["sigma"], w, 200, K, 7, 3, 0, False, 0.0),
+                         name="weighted_update_kernel")
+        b_ms, b_by = weighted_update_bound(sass_steps, K, 200, 3, clock_mhz)
+        wu[K] = (k_ms, p_ms, b_ms, b_by, d_ms)
         print(f"[18] kernel weighted_update A=3 K={K} T=200 (K5 + K2's fold): {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({smi})")
+              f"{p_ms:.4f} ms; K5 alone {d_ms} ms on the device; bound {b_ms:.4f} ms ({b_by}) ({smi})")
         del q, w
 
     # [19] the sharded solve on the card: a world of one NCCL rank and four
@@ -2508,7 +2597,8 @@ def main() -> int:
     for nb, normalize, what in ((-(-10_000 // fs.SLAB_WIDTH), True, "K1 slab body, K=10000"),
                                 (-(-10_000 // fs.BLOCK), True, "K1 per-rollout body, K=10000"),
                                 (-(-100_000 // fs.BLOCK), True, "K1 per-rollout body, K=100000"),
-                                (-(-10_000 // fs.BLOCK), False, "K5, K=10000")):
+                                (fs.weighted_update_rows(200, 10_000, 3, False), False,
+                                 "K5, K=10000")):
         e = check_combine(200, 3, nb, normalize=normalize)
         err["softmin_combine"] = max(err["softmin_combine"], e)
         print(f"[20] K2 at nb={nb} ({what}), A=3 T=200, normalize={int(normalize)}: ok vs plain "
@@ -2540,11 +2630,10 @@ def main() -> int:
     bounds = {
         "solve_partials<lti>": solve_bound(sass_steps, lti3, 10_000, 200, clock_mhz),
         "softmin_combine": combine_bound(nb_main, 200, 3),
-        "noise_dump": bound_ms(sass_steps["noise_dump<A=3>"][0] * 200 * 10_000,
-                               4 * (3 + 200 * 10_000 * 3), clock_mhz),
+        "noise_dump": noise_dump_bound(sass_steps, 10_000, 200, 3, clock_mhz),
         "rollout_costs": solve_bound(sass_steps, problems[("lti", 3)][0], 100_000, 200, clock_mhz,
                                      pass2=False),
-        "weighted_update": wu[10_000][2:],
+        "weighted_update": wu[10_000][2:4],
     }
     # the fleet kernels at R=8 of phase 9's shape (point_mass3d K=10⁴, T=200)
     fleet_bounds = {
@@ -2594,9 +2683,10 @@ def main() -> int:
             entry.update(ms=floor_ms[0], plain_ms=floor_ms[1], shape="lti A=3 K=100000 T=200",
                          per_family=floor)
         elif name == "weighted_update":
-            entry.update(ms=wu[10_000][0], plain_ms=wu[10_000][1],
+            entry.update(ms=wu[10_000][0], plain_ms=wu[10_000][1], device_ms=wu[10_000][4],
                          shape="A=3 K=10000 T=200, K5 + K2's fold", large_ms=wu[100_000][0],
                          large_plain_ms=wu[100_000][1], large_bound_ms=wu[100_000][2],
+                         large_device_ms=wu[100_000][4],
                          large_shape="A=3 K=100000 T=200", sharded_solve_ms=sharded_ms)
         else:
             entry.update(ms=kernel_ms[name][0], plain_ms=kernel_ms[name][1], shape="A=3 K=10000 T=200",
@@ -2610,6 +2700,8 @@ def main() -> int:
                              launches_by_width=main_widths)
             if name == "softmin_combine":
                 entry.update(nb=nb_main, fleet_nb=nb_fleet)
+            if name == "noise_dump":
+                entry.update(device_ms=dump_device_ms, fleet_device_ms=fleet_dump_device_ms)
             if not name.startswith("solve_partials<"):
                 entry.update(family_path_launches=family_launches[name],
                              coupled_path_launches=coupled_launches[name],
@@ -2626,8 +2718,12 @@ def time_commit(root: str) -> int:
     wrappers of the package in the checkout at ROOT (its kernels built
     there), K1 and K2 at the main path's shapes (point_mass3d K=10⁴ T=200
     and every family instance's config) and K1 and K4 of every family
-    instance at K=10⁵, T=200: CUDA events around a call (warm median of 20)
-    and the device time alone; one JSON line. Run on this checkout and on an
+    instance at K=10⁵, T=200; K5 (``weighted_update``, with K2's fold) and
+    K3 (``noise_dump``) at A=3 T=200 K=10⁴ and 10⁵ and at the point_mass2d
+    shape A=2 K=3000 T=50, iid, antithetic and OU 0.5 (K5 also injected),
+    and K3 as the R=8 fleet's dump (eight streams at A=3 K=10⁴ T=200): CUDA
+    events around a call (warm median of 20) and the device time alone (K5
+    and K3 by their kernels' records); one JSON line. Run on this checkout and on an
     earlier one in turns within one call, it compares two commits on one
     card."""
     sys.path.insert(0, os.path.abspath(root))
@@ -2639,8 +2735,8 @@ def time_commit(root: str) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    def times(fn) -> dict:
-        return dict(ms=float(np.median(time_ms(fn, 20))), device_ms=device_ms(fn))
+    def times(fn, name: str = "_kernel") -> dict:
+        return dict(ms=float(np.median(time_ms(fn, 20))), device_ms=device_ms(fn, name=name))
 
     main_path, large = {}, {}
     cases = [("lti", A, None, 100_000, 200) for A in range(1, 5)] + [("lti", 3, "point_mass3d", 10_000, 200)] + [
@@ -2658,8 +2754,30 @@ def time_commit(root: str) -> int:
             _, part = fs.family_solve_partials(*args, q["lam"], K, 7, 3, 0, False, 0.0)
             main_path[key] = dict(K1=k1, nb=part.shape[0], K2=times(
                 lambda: fs.softmin_combine(part, q["lam"], T, fam.action_dim)))
+    draws = {}
+    for A, K, T in ((3, 10_000, 200), (3, 100_000, 200), (2, 3000, 50)):
+        sigma = torch.full((A,), 0.25, device="cuda")
+        w = torch.rand(K, generator=torch.Generator().manual_seed(K)).cuda()
+        w /= w.sum()
+        for mode, (anti, ou) in (("iid", (False, 0.0)), ("antithetic", (True, 0.0)),
+                                 ("ou0.5", (False, 0.5))):
+            draws[f"A={A} K={K} T={T} {mode}"] = dict(
+                K5=times(lambda: fs.weighted_update(sigma, w, T, K, 7, 3, 0, anti, ou),
+                         "weighted_update_kernel"),
+                K3=times(lambda: fs.noise_dump(sigma, T, K, 7, 3, 0, anti, ou), "noise_dump_kernel"))
+        eps = 0.25 * torch.randn(T, K, A, generator=torch.Generator().manual_seed(0)).cuda()
+        draws[f"A={A} K={K} T={T} injected"] = dict(K5=times(
+            lambda: fs.weighted_update(sigma, w, T, K, 0, 0, 0, False, 0.0, eps=eps),
+            "weighted_update_kernel"))
+        del eps
+    sigma, seeds = torch.full((3,), 0.25, device="cuda"), range(8)
+    fleet_dump = times(lambda: [fs.noise_dump(sigma, 200, 10_000, s_, 3, 0, False, 0.0)
+                                for s_ in seeds], "noise_dump_kernel")
+    if fleet_dump["device_ms"] is not None:  # eight launches, the median record of each
+        fleet_dump["device_ms"] *= 8
+    draws["fleet R=8 A=3 K=10000 T=200 iid"] = dict(K3=fleet_dump)
     print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "main": main_path,
-                      "large": large}))
+                      "large": large, "draws": draws}))
     return 0
 
 

@@ -60,7 +60,7 @@
 
 namespace {
 
-constexpr int kBlock = 128;  // threads = rollouts per block of K1's per-rollout body, K3, K5;
+constexpr int kBlock = 128;  // threads = rollouts per block of K1's per-rollout body;
                              // ops/fused_solve.BLOCK
 constexpr int kWarps = kBlock / 32;
 constexpr int kSlabRollouts = 32;  // rollouts per block of K1's slab body; ops/fused_solve.SLAB_WIDTH
@@ -1159,35 +1159,90 @@ __global__ void __launch_bounds__(kCombineThreads) softmin_combine_kernel(
   }
 }
 
+// K3 and K5 draw without stepping a model, so every (draw kd, step t) is
+// independent: both spread their draws over (kd, t). A block covers kGroup
+// draws and every step: lane j of each of its eight warps stands for draws
+// kb + j and kb + 32 + j (two Philox chains in flight per lane), and warp w
+// takes steps w, w + 8, w + 16, … (of each chunk, in K3); no warp steps
+// anything, every warp draws. At most 64 registers a thread (four blocks
+// per SM).
+constexpr int kGroup = 64;  // draws per block of K3 and K5; ops/fused_solve.DRAW_GROUP
+constexpr int kGroupThreads = 256;
+constexpr int kGroupWarps = kGroupThreads / 32;
+
 // K3. Replaces mppi_gpu_tpu/ops/pallas_rollout.py:_noise_dump_kernel (:2140)
 // and _planar_noise_dump_kernel (:2872): the ε stream the solve consumed,
 // written to memory for the debug dump and the replay check.
-// What bounds it: the T·K·A·4-byte store (plus 16 B per draw for the
-// optional words); each thread walks its rollout's horizon, so a warp's
-// stores for one t cover 32·A consecutive floats.
+// What bounds it: the draw, ~300 dependent instructions per (kd, t) (one
+// Philox block and A/2 Box-Muller pairs); the T·K·A·4-byte store (and 16 B
+// per draw for the optional words) is ~7 µs at K = 10⁴, T = 200 and overlaps
+// it. The per-rollout design it replaces walked each rollout's horizon in
+// one thread, 79 blocks of 4 warps at K = 10⁴: a latency-bound chain on
+// three-fifths of the SMs.
+// Design: the horizon in chunks of kDumpChunk steps. Stage 1 draws the
+// chunk's normals in parallel over (kd, t) as above into a shared-memory
+// slab, (kDumpChunk, kGroup, A) floats, and writes the words (one 16-byte
+// store per lane). Stage 2 gives one thread to each (draw, action) of the
+// block, which walks the chunk's steps in order and shapes the normals with
+// shape_eps's rounded operations in its order (OU: e = β·e + c·n, carried
+// across chunks in a register; then ε = σ·e), so the output is bit-equal to
+// the stream K1 consumes and ops/philox.sample_eps draws, in every mode. A
+// step's writes are the block's 64·A consecutive floats (and the mirror
+// rows, −ε, as many): coalesced, each byte of ε written once, with no
+// re-read of the output, so OU costs the short in-order sweep over the slab
+// and nothing in memory. The slab is small (24 KB at A = 3): four blocks
+// per SM, and no limit on T.
+constexpr int kDumpChunk = 32;  // horizon steps per stage of K3
+
 template <int A>
-__global__ void __launch_bounds__(kBlock) noise_dump_kernel(
+__global__ void __launch_bounds__(kGroupThreads, 4) noise_dump_kernel(
     const float* __restrict__ sigma, float* __restrict__ eps_out,
     unsigned* __restrict__ words_out, int T, NoiseParams np) {
-  const int k = blockIdx.x * kBlock + threadIdx.x;
-  if (k >= np.K) return;
-  const bool mirror = np.antithetic && k >= np.K_draw;
-  const int kd = mirror ? k - np.K_draw : k;
-  float sig[A], e[A], eps[A];
+  __shared__ float slab[kDumpChunk * kGroup * A];  // (step in chunk, draw, action) normals
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kb = blockIdx.x * kGroup;
+  // stage 2's thread: action a of draw kb + j (i = j·A + a: a step's writes
+  // and slab reads are consecutive across the warp)
+  const int i = threadIdx.x, j = i / A, a = i - j * A;
+  const bool shaper = i < kGroup * A && kb + j < np.K_draw;
+  const float sig = shaper ? sigma[a] : 0.0f;
+  float* out = eps_out + (size_t)(kb + j) * A + a;
+  const size_t stride = (size_t)np.K * A;
+  const size_t mirror_off = (size_t)np.K_draw * A;
+  float e = 0.0f;  // the unit-variance OU state of (kd, a)
+  for (int c0 = 0; c0 < T; c0 += kDumpChunk) {
+    const int c1 = min(T, c0 + kDumpChunk);
+    // ---- stage 1: the chunk's draws, in parallel over (kd, t) --------------
+    for (int t = c0 + warp; t < c1; t += kGroupWarps) {
+      float n[2][A];
+      unsigned q[2][4];
 #pragma unroll
-  for (int a = 0; a < A; ++a) {
-    sig[a] = sigma[a];
-    e[a] = 0.0f;
-  }
-  unsigned w[4];
-  for (int t = 0; t < T; ++t) {
-    next_eps<A>(np, sig, kd, mirror, t, e, eps, w);
+      for (int h = 0; h < 2; ++h) draw_normals<A>(np, kb + 32 * h + lane, t, n[h], q[h]);
 #pragma unroll
-    for (int a = 0; a < A; ++a) eps_out[((size_t)t * np.K + k) * A + a] = eps[a];
-    if (words_out != nullptr && !mirror) {
+      for (int h = 0; h < 2; ++h) {
+        float* cell = slab + ((t - c0) * kGroup + 32 * h + lane) * A;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) words_out[((size_t)t * np.K_draw + kd) * 4 + i] = w[i];
+        for (int b = 0; b < A; ++b) cell[b] = n[h][b];
+        const int kd = kb + 32 * h + lane;
+        if (words_out != nullptr && kd < np.K_draw)
+          *reinterpret_cast<uint4*>(words_out + ((size_t)t * np.K_draw + kd) * 4) =
+              make_uint4(q[h][0], q[h][1], q[h][2], q[h][3]);
+      }
     }
+    __syncthreads();
+    // ---- stage 2: shape in t order, write ε (and the mirror's −ε) -----------
+    if (shaper) {
+      for (int t = c0; t < c1; ++t) {
+        const float nt = slab[(t - c0) * kGroup * A + i];
+        e = np.ou_beta > 0.0f && t > 0
+                ? __fadd_rn(__fmul_rn(np.ou_beta, e), __fmul_rn(np.ou_c, nt))
+                : nt;  // shape_eps's operations, in its order
+        const float s = __fmul_rn(sig, e);
+        out[(size_t)t * stride] = s;
+        if (np.antithetic) out[(size_t)t * stride + mirror_off] = -s;
+      }
+    }
+    __syncthreads();  // the slab is free for the next chunk
   }
 }
 
@@ -1196,66 +1251,95 @@ __global__ void __launch_bounds__(kBlock) noise_dump_kernel(
 // ε_k[t, a] for given softmin weights w (K,), already normalized. It is
 // kernel B of the two-kernel sharded solve: K4, the softmin across the ranks,
 // then K5 on each rank's slice of w at the rank's draw offset.
-// What bounds it: arithmetic, as K1's pass 2: per draw and step one Philox
-// call, one or two Box-Muller pairs and the reduction of w·ε (one multiply,
-// five warp shuffles and five adds per action). Its traffic is w (4 B per
-// rollout) and one (2 + T·A)-float partial per block; in the injected-ε mode
-// it streams T·A·4 B per rollout instead.
-// Design: K1's pass 2 with e_k = w[k] read from memory in place of
-// exp(−(S_k − β_b)/λ): ε is regenerated from the stateless counter, never
-// stored. The TPU kernel adds every tile into one (T, A) output in grid order;
-// here each block writes its partial (β_b = 0, η_b = 0, ΔŨ_b[t, a] = Σ w ε
-// over its rollouts) and K2 folds them with f_b = 1 and no division by η
-// (`normalize` 0), every sum in a fixed order: no atomics, a run repeats bit
-// for bit. Antithetic (Philox mode): one thread per draw kd stands for
-// rollout kd and its mirror K_draw + kd, whose ε is −ε_kd, so it weighs ε_kd
-// once by w[kd] − w[K_draw + kd] (the TPU's fold, pallas_rollout.py:1904-1906)
-// and half the noise is drawn. Injected ε (INJ) is read rollout by rollout
-// with no fold. No model is stepped: one instance per A, no family.
+// What bounds it: the draw, as K3 (ε is regenerated from the stateless
+// counter, never stored), plus a multiply-add per action and draw and the
+// reduction. Its traffic is w (4 B per rollout) and one (2 + T·A)-float
+// partial per block; in the injected-ε mode (INJ) it streams T·A·4 B per
+// rollout instead and is bytes-bound. The per-rollout design it replaces
+// walked each rollout's horizon in one thread (79 blocks of 4 warps at K =
+// 10⁴) and paid five shuffles and five adds per action and step for every
+// rollout.
+// Design: draws spread over (kd, t) as K3's. Each lane weighs its two draws
+// at step t in registers (Σ of two w̃·n per action) before one warp_sum per
+// action, so a partial row covers 64 draws. Antithetic (Philox mode): draw
+// kd stands for rollout kd and its mirror K_draw + kd, whose ε is −ε_kd, so
+// it is weighed once by w̃ = w[kd] − w[K_draw + kd] (the TPU's fold,
+// pallas_rollout.py:1904-1906) and half the noise is drawn. The block sums
+// N[t, a] = Σ w̃·n over its draws into shared memory, each (t, a) by one
+// warp, and writes σ·N. OU mode, route (b): ε_k[t] = σ·e_k[t] with e_k[0] =
+// n_k[0], e_k[t] = β·e_k[t−1] + c·n_k[t] is linear in the normals, so Σ_k
+// w̃_k e_k[t] = E[t] with E[0] = N[0], E[t] = β·E[t−1] + c·N[t]: A threads
+// run that filter once over the block's (T, A) sums and write σ·E. Exact in
+// real arithmetic; the rounding differs from shaping each rollout's ε
+// (route (a) would keep every rollout's normals for its horizon in shared
+// memory, 153 KB for 64 draws at T = 200, one block per SM), and the result
+// is held, as in every mode, to 1e-5 of Σ|w ε| of the plain version. Each
+// row covers the whole horizon of its draws: β_b = η_b = 0, and K2 folds the
+// rows with f_b = 1 and no division by η (`normalize` 0). Every sum has a
+// fixed order, no atomics: a run repeats bit for bit. Injected ε: the two
+// rollouts' A floats at step t, read coalesced (a step's K·A floats are
+// contiguous), weighed by w, no fold, no σ.
 template <int A, bool INJ>
-__global__ void __launch_bounds__(kBlock) weighted_update_kernel(
+__global__ void __launch_bounds__(kGroupThreads, 4) weighted_update_kernel(
     const float* __restrict__ sigma, const float* __restrict__ w,
     const float* __restrict__ eps_in, float* __restrict__ partials, int T, NoiseParams np) {
-  extern __shared__ float red[];  // (kWarps, T, A) per-warp Σ w·ε
+  extern __shared__ float red[];  // (T, A) Σ over the block's draws of w̃·n (INJ: w·ε)
   const int TA = T * A;
   const bool fold = !INJ && np.antithetic;
   const int n = fold ? np.K_draw : np.K;
-  const int k = blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = k < n;
-  const float wk = valid ? (fold ? w[k] - w[np.K_draw + k] : w[k]) : 0.0f;
-  float sig[A], e[A];
-#pragma unroll
-  for (int a = 0; a < A; ++a) {
-    sig[a] = sigma[a];
-    e[a] = 0.0f;
-  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned words[4];
-  for (int t = 0; t < T; ++t) {
-    float eps[A];
+  const int kb = blockIdx.x * kGroup;
+  int k[2];
+  float wk[2];
 #pragma unroll
-    for (int a = 0; a < A; ++a) eps[a] = 0.0f;
-    if (valid) {
-      if (INJ) {
+  for (int h = 0; h < 2; ++h) {
+    k[h] = kb + 32 * h + lane;
+    wk[h] = k[h] < n ? (fold ? w[k[h]] - w[np.K_draw + k[h]] : w[k[h]]) : 0.0f;
+  }
+  for (int t = warp; t < T; t += kGroupWarps) {
+    float acc[A];
+    if (INJ) {
+      const float* row = eps_in + (size_t)t * np.K * A;
+      float v[2][A];
 #pragma unroll
-        for (int a = 0; a < A; ++a) eps[a] = eps_in[((size_t)t * np.K + k) * A + a];
-      } else {
-        next_eps<A>(np, sig, k, false, t, e, eps, words);
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int a = 0; a < A; ++a) v[h][a] = k[h] < n ? row[(size_t)k[h] * A + a] : 0.0f;
       }
+#pragma unroll
+      for (int a = 0; a < A; ++a) acc[a] = wk[0] * v[0][a] + wk[1] * v[1][a];
+    } else {
+      // draws past n are drawn too (their normals are finite) and weigh 0:
+      // both chains stay free of branches
+      float nn[2][A];
+      unsigned q[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) draw_normals<A>(np, k[h], t, nn[h], q[h]);
+#pragma unroll
+      for (int a = 0; a < A; ++a) acc[a] = wk[0] * nn[0][a] + wk[1] * nn[1][a];
     }
 #pragma unroll
     for (int a = 0; a < A; ++a) {
-      const float v = warp_sum(wk * eps[a]);
-      if (lane == 0) red[warp * TA + t * A + a] = v;
+      const float v = warp_sum(acc[a]);
+      if (lane == 0) red[t * A + a] = v;
     }
   }
   __syncthreads();
   float* part = partials + (size_t)blockIdx.x * (2 + (size_t)TA);
-  for (int i = threadIdx.x; i < TA; i += kBlock) {
-    float s = red[i];
-#pragma unroll
-    for (int wi = 1; wi < kWarps; ++wi) s += red[wi * TA + i];
-    part[2 + i] = s;
+  if (!INJ && np.ou_beta > 0.0f) {
+    if (threadIdx.x < A) {  // the OU filter over the block's sums, action a
+      const int a = threadIdx.x;
+      const float s = sigma[a];
+      float e = 0.0f;
+      for (int t = 0; t < T; ++t) {
+        const float nt = red[t * A + a];
+        e = t > 0 ? __fadd_rn(__fmul_rn(np.ou_beta, e), __fmul_rn(np.ou_c, nt)) : nt;
+        part[2 + t * A + a] = __fmul_rn(s, e);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < TA; i += kGroupThreads)
+      part[2 + i] = INJ ? red[i] : __fmul_rn(sigma[i % A], red[i]);
   }
   if (threadIdx.x == 0) {
     part[0] = 0.0f;
@@ -1301,10 +1385,10 @@ cudaError_t launch_weighted_update(const float* sigma, const float* w, const flo
                                    float* partials, int T, const NoiseParams& np,
                                    cudaStream_t stream) {
   const int n = (!INJ && np.antithetic) ? np.K_draw : np.K;
-  const size_t smem = (size_t)kWarps * T * A * sizeof(float);
+  const size_t smem = (size_t)T * A * sizeof(float);
   cudaError_t err = set_smem(weighted_update_kernel<A, INJ>, smem);
   if (err != cudaSuccess) return err;
-  weighted_update_kernel<A, INJ><<<(n + kBlock - 1) / kBlock, kBlock, smem, stream>>>(
+  weighted_update_kernel<A, INJ><<<(n + kGroup - 1) / kGroup, kGroupThreads, smem, stream>>>(
       sigma, w, eps_in, partials, T, np);
   return cudaGetLastError();
 }
@@ -1436,24 +1520,26 @@ int mppi_softmin_combine(const float* partials, int R, int nb, int TA, float lam
   return (int)cudaGetLastError();
 }
 
+// K3: sigma (A,) → eps_out (T, K, A) and, unless null, words_out (T, K_draw,
+// 4); nb = ceil(K_draw / 64) blocks. The draws start at counter word k0.
 int mppi_noise_dump(const float* sigma, float* eps_out, unsigned* words_out, int K, int T,
                     int A, unsigned key0, unsigned key1, unsigned step, unsigned it,
                     unsigned k0, int antithetic, float ou_beta, float ou_c, void* stream) {
   const NoiseParams np = make_noise(key0, key1, step, it, k0, K, antithetic, ou_beta, ou_c);
-  const int nb = (K + kBlock - 1) / kBlock;
+  const int nb = (np.K_draw + kGroup - 1) / kGroup;
   cudaStream_t s = (cudaStream_t)stream;
   switch (A) {
-    case 1: noise_dump_kernel<1><<<nb, kBlock, 0, s>>>(sigma, eps_out, words_out, T, np); break;
-    case 2: noise_dump_kernel<2><<<nb, kBlock, 0, s>>>(sigma, eps_out, words_out, T, np); break;
-    case 3: noise_dump_kernel<3><<<nb, kBlock, 0, s>>>(sigma, eps_out, words_out, T, np); break;
-    case 4: noise_dump_kernel<4><<<nb, kBlock, 0, s>>>(sigma, eps_out, words_out, T, np); break;
+    case 1: noise_dump_kernel<1><<<nb, kGroupThreads, 0, s>>>(sigma, eps_out, words_out, T, np); break;
+    case 2: noise_dump_kernel<2><<<nb, kGroupThreads, 0, s>>>(sigma, eps_out, words_out, T, np); break;
+    case 3: noise_dump_kernel<3><<<nb, kGroupThreads, 0, s>>>(sigma, eps_out, words_out, T, np); break;
+    case 4: noise_dump_kernel<4><<<nb, kGroupThreads, 0, s>>>(sigma, eps_out, words_out, T, np); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
 // K5: sigma (A,), w (K,) normalized weights, eps_in (T, K, A) or null →
-// partials (nb, 2 + T·A) for K2 to fold (normalize 0), nb = ceil(n / 128)
+// partials (nb, 2 + T·A) for K2 to fold (normalize 0), nb = ceil(n / 64)
 // with n = K/2 under antithetic in Philox mode, else K. The draws start at
 // counter word k0.
 int mppi_weighted_update(const float* sigma, const float* w, const float* eps_in,

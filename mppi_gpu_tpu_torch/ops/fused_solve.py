@@ -26,7 +26,9 @@
   weights w, ε regenerated in the kernel (K5's per-block sums folded by K2
   without the division by η): the update of the two-kernel sharded solve
   (``parallel/sharded.py``); its plain version is
-  :func:`weighted_update_reference`.
+  :func:`weighted_update_reference`, and :func:`weighted_update_partials`
+  is the plain twin of K5's rows (:data:`DRAW_GROUP` draws each, the OU
+  filter run on the row's sums).
 
 The LTI functions :func:`lti_solve_partials`, :func:`fused_solve`,
 :func:`fleet_solve_partials` and :func:`fleet_fused_solve` take the
@@ -73,8 +75,9 @@ from mppi_gpu_tpu_torch.ops.cost import QuadraticCost
 from mppi_gpu_tpu_torch.ops.families import FAMILY_ID, FAMILY_NAMES, MAX_A, FusedFamily
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
 
-BLOCK = 128          # rollouts per block of K1's per-rollout body, K3, K5 (kBlock)
+BLOCK = 128          # rollouts per block of K1's per-rollout body (kBlock)
 SLAB_WIDTH = 32      # rollouts per block of K1's slab body (kSlabRollouts)
+DRAW_GROUP = 64      # draws per block of K3 and K5, one partial row of K5 (kGroup)
 _SLAB_CHUNK = 7      # horizon steps per stage of the slab body's pipeline (kChunk)
 # R·K up to which K1 and K4 take the slab body, by family: beyond it the
 # per-rollout body's blocks fill the card, and the slab body, two blocks per
@@ -734,6 +737,47 @@ def weighted_update_reference(w: torch.Tensor, eps: torch.Tensor) -> torch.Tenso
     return torch.einsum("tka,k->ta", eps, w)
 
 
+def weighted_update_partials(w: torch.Tensor, x: torch.Tensor, sigma: torch.Tensor | None = None,
+                             antithetic: bool = False, ou_beta: float = 0.0) -> torch.Tensor:
+    """Plain twin of K5's rows, (nb, 2 + T·A) with β_b = η_b = 0, which K2's
+    ``normalize`` 0 fold (:func:`softmin_combine_reference`) sums into ΔU.
+    Philox mode (`sigma` (A,) given): `x` holds the standard normals
+    (T, K_draw, A) of the draws; under `antithetic` draw kd weighs
+    w̃ = w[kd] − w[K_draw + kd] (its mirror's ε is −ε_kd); row b holds
+    σ·N_b for N_b[t, a] = Σ w̃·n over draws b·DRAW_GROUP … b·DRAW_GROUP + 63,
+    and with OU (`ou_beta` > 0) σ·E_b, E_b[0] = N_b[0], E_b[t] =
+    β·E_b[t−1] + √(1−β²)·N_b[t]: the recursion run once on the row's sums,
+    which equals Σ w̃·e over its draws' OU states in real arithmetic.
+    Injected mode (`sigma` None): `x` is ε (T, K, A) and row b holds
+    Σ w·ε over its rollouts. In x's dtype."""
+    T, n, A = x.shape
+    if sigma is not None and antithetic:
+        w = w[:n] - w[n:]
+    nb = -(-n // DRAW_GROUP)
+    wp = torch.zeros(nb * DRAW_GROUP, dtype=x.dtype, device=x.device)
+    wp[:n] = w
+    xp = torch.zeros(T, nb * DRAW_GROUP, A, dtype=x.dtype, device=x.device)
+    xp[:, :n] = x
+    N = torch.einsum("tbga,bg->bta", xp.view(T, nb, DRAW_GROUP, A), wp.view(nb, DRAW_GROUP))
+    if sigma is not None:
+        if ou_beta > 0.0:
+            c, E = _ou_c(ou_beta), [N[:, 0]]
+            for t in range(1, T):
+                E.append(ou_beta * E[-1] + c * N[:, t])
+            N = torch.stack(E, 1)
+        N = sigma * N
+    return torch.cat([torch.zeros(nb, 2, dtype=x.dtype, device=x.device), N.reshape(nb, T * A)], 1)
+
+
+def weighted_update_rows(T: int, K: int, A: int, fold: bool) -> int:
+    """K5's partial rows, ceil(n / DRAW_GROUP) for its n draws (K/2 with the
+    antithetic mirrors folded in, else K); ``ValueError`` when its (T, A)
+    sums do not fit a block's shared memory."""
+    if 4 * T * A > _SMEM_BYTES:
+        raise ValueError(f"T·A = {T * A} exceeds the kernel's shared-memory budget")
+    return -(-(K // 2 if fold else K) // DRAW_GROUP)
+
+
 def weighted_update(
     sigma: torch.Tensor, w: torch.Tensor, T: int, K: int, seed: int, step: int, it: int,
     antithetic: bool, ou_beta: float, eps=None, k0: int = 0,
@@ -755,13 +799,11 @@ def weighted_update(
             eps = philox.sample_eps(seed, step, it, T, K, sigma, antithetic=antithetic,
                                     ou_beta=ou_beta, k0=k0)
         return weighted_update_reference(w, eps)
-    if 4 * (BLOCK // 32) * T * A > _SMEM_BYTES:
-        raise ValueError(f"T·A = {T * A} exceeds the kernel's shared-memory budget")
+    fold = antithetic and eps is None  # one lane per draw, its mirror folded in
+    nb = weighted_update_rows(T, K, A, fold)
     from mppi_gpu_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    fold = antithetic and eps is None  # one thread per draw, its mirror folded in
-    nb = -(-(K // 2 if fold else K) // BLOCK)
     partials = torch.empty(nb, 2 + T * A, dtype=torch.float32, device=w.device)
     _launch(
         f"weighted_update<A={A}>", lib.mppi_weighted_update, w.device,

@@ -557,10 +557,11 @@ def test_chip_smoke_sharded_checks_run_on_the_cpu():
 
 @pytest.mark.parametrize("mults,blocks", [(16, 1), (23, 1), (32, 2), (46, 2)])
 def test_chip_smoke_loop_counter_reads_the_unroll_factor(mults, blocks):
-    """K5's Philox loop at A = 3 holds 23 round-constant multiplies for one
-    step (SASS of a build on the card): the per-step count divides the
-    loop's instructions by one block, not two; a loop unrolled twice (32 to
-    46 multiplies) by two."""
+    """A Philox loop can hold up to 23 round-constant multiplies for one
+    step (K4's LtiObstacle<3> loop, SASS of a build on the card): the
+    per-step count divides the loop's instructions by one block, not two; a
+    loop with two blocks (32 to 46 multiplies, as K3's and K5's two chains)
+    by two."""
     import chip_smoke
 
     lines = ["Function : k", "/*0000*/ MOV R1, c[0x0][0x28] ;"]
