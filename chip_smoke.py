@@ -393,11 +393,12 @@ def solve_bound(steps: dict, fam, K: int, T: int, clock_mhz: float, R: int = 1,
 
 
 def _draw_step(steps: dict, A: int) -> float:
-    """Instructions per draw and step of the work K5 does: the second loop of
-    K1's per-rollout body at A (``solve_partials<lti,A=..,inj=0>``), which
-    draws, shapes ε and reduces e·ε (11·A). It is read from a loop that K3's
-    and K5's own design does not touch, so their bounds count the same work
-    whatever body implements them."""
+    """Instructions per draw and step of the second loop of K1's
+    per-rollout body at A (``solve_partials<lti,A=..,inj=0>``), which draws,
+    shapes ε and reduces e·ε over the warp (11·A: a product, five shuffles
+    and five adds per action). It is read from a loop that K3's and K5's own
+    design does not touch, so their bounds count the same work whatever body
+    implements them."""
     loops = steps[f"solve_partials<lti,A={A},inj=0>"]
     expect(len(loops) == 2, f"K1's per-rollout body at A={A}: {len(loops)} Philox loops, not 2")
     return loops[1]
@@ -405,11 +406,14 @@ def _draw_step(steps: dict, A: int) -> float:
 
 def weighted_update_bound(steps: dict, K: int, T: int, A: int, clock_mhz: float,
                           antithetic: bool = False) -> tuple[float, str]:
-    """:func:`bound_ms` of K5 in the Philox mode: :func:`_draw_step` per draw
-    and step over its draws (K/2 under antithetic: the mirrors are weighed
-    in, not drawn); bytes w, σ and the (T, A) result."""
+    """:func:`bound_ms` of K5 in the Philox mode: per draw and step
+    :func:`_draw_step` less its per-rollout reduction (11·A), plus one
+    multiply-add w·ε per action, which is all that ΔU = Σ w·ε needs, over
+    its draws (K/2 under antithetic: the mirrors are weighed in, not drawn);
+    bytes w, σ and the (T, A) result."""
     n = K // 2 if antithetic else K
-    return bound_ms(_draw_step(steps, A) * T * n, 4 * (K + A + T * A), clock_mhz)
+    per = _draw_step(steps, A) - 11 * A + A
+    return bound_ms(per * T * n, 4 * (K + A + T * A), clock_mhz)
 
 
 def noise_dump_bound(steps: dict, K: int, T: int, A: int, clock_mhz: float,
@@ -1465,15 +1469,17 @@ def profile_steps(ctrl, x, U, steps: int = 50) -> dict:
                 K1_us=kernel_us["solve_partials"] / steps, K2_us=kernel_us["softmin_combine"] / steps)
 
 
-def device_ms(fn, reps: int = 10, name: str = "_kernel") -> float | None:
-    """Device ms per launch of the kernel of this file whose name holds
+def device_ms(fn, reps: int = 10, name: str = "_kernel", launches: int = 1) -> float | None:
+    """Device ms per call of `fn` of the kernel of this file whose name holds
     `name` (by default the one kernel that `fn` launches), by torch.profiler
     over `reps` warm calls: the kernel alone,
     without the host's time between launches that CUDA events around a
-    single call also count. The median of the kernel records' durations:
-    a window now and then drops records or misreads some (aggregated over
-    the window they read up to half the time), so a sum would not do; None
-    if three windows recorded none."""
+    single call also count. A call that launches the kernel `launches`
+    times is read as the sum of its own records, in start order. The median
+    over the calls: a window now and then drops records or misreads some
+    (aggregated over the window they read up to half the time), so a sum
+    over the window would not do, and a window that does not hold every
+    call's records is read again; None if three windows did not."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1485,10 +1491,11 @@ def device_ms(fn, reps: int = 10, name: str = "_kernel") -> float | None:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        durations = [evt.time_range.elapsed_us() for evt in prof.events()
-                     if evt.device_type == DeviceType.CUDA and name in evt.name]
-        if durations:
-            return float(np.median(durations)) / 1e3
+        records = sorted((evt.time_range.start, evt.time_range.elapsed_us()) for evt in prof.events()
+                         if evt.device_type == DeviceType.CUDA and name in evt.name)
+        if records and (launches == 1 or len(records) == reps * launches):
+            per_call = np.add.reduceat([d for _, d in records], range(0, len(records), launches))
+            return float(np.median(per_call)) / 1e3
     return None
 
 
@@ -2256,11 +2263,12 @@ def main() -> int:
     }
     for name, (k_ms, p_ms) in fleet_kernel_ms.items():
         print(f"[9] fleet kernel {name} R=8 A=3 K=10000 T=200: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
-    # the fleet's dump: eight K3 launches, the median record of each
+    # the fleet's dump: eight K3 launches, their records summed per call
     fleet_dump_device_ms = device_ms(
-        lambda: [fs.noise_dump(p["sigma"], 200, 10_000, s_, 3, 0, False, 0.0) for s_ in seed_list])
-    fleet_dump_device_ms = None if fleet_dump_device_ms is None else 8 * fleet_dump_device_ms
-    print(f"[9] fleet kernel noise_dump R=8: {fleet_dump_device_ms} ms on the device (8 launches) ({smi})")
+        lambda: [fs.noise_dump(p["sigma"], 200, 10_000, s_, 3, 0, False, 0.0) for s_ in seed_list],
+        name="noise_dump_kernel", launches=len(seed_list))
+    print(f"[9] fleet kernel noise_dump R=8: {fleet_dump_device_ms} ms on the device "
+          f"(8 launches, summed per call) ({smi})")
     del p, fargs, fpart
 
     # [10] the fleet path: the fleet example in both modes and a full-length
@@ -2735,8 +2743,9 @@ def time_commit(root: str) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    def times(fn, name: str = "_kernel") -> dict:
-        return dict(ms=float(np.median(time_ms(fn, 20))), device_ms=device_ms(fn, name=name))
+    def times(fn, name: str = "_kernel", launches: int = 1) -> dict:
+        return dict(ms=float(np.median(time_ms(fn, 20))),
+                    device_ms=device_ms(fn, name=name, launches=launches))
 
     main_path, large = {}, {}
     cases = [("lti", A, None, 100_000, 200) for A in range(1, 5)] + [("lti", 3, "point_mass3d", 10_000, 200)] + [
@@ -2771,11 +2780,9 @@ def time_commit(root: str) -> int:
             "weighted_update_kernel"))
         del eps
     sigma, seeds = torch.full((3,), 0.25, device="cuda"), range(8)
-    fleet_dump = times(lambda: [fs.noise_dump(sigma, 200, 10_000, s_, 3, 0, False, 0.0)
-                                for s_ in seeds], "noise_dump_kernel")
-    if fleet_dump["device_ms"] is not None:  # eight launches, the median record of each
-        fleet_dump["device_ms"] *= 8
-    draws["fleet R=8 A=3 K=10000 T=200 iid"] = dict(K3=fleet_dump)
+    draws["fleet R=8 A=3 K=10000 T=200 iid"] = dict(K3=times(
+        lambda: [fs.noise_dump(sigma, 200, 10_000, s_, 3, 0, False, 0.0) for s_ in seeds],
+        "noise_dump_kernel", launches=len(seeds)))
     print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "main": main_path,
                       "large": large, "draws": draws}))
     return 0

@@ -190,3 +190,23 @@ def test_noise_dump_launch_raises_when_refused(monkeypatch):
         fs.noise_dump(torch.tensor([0.3, 0.5]), 6, 40, 7, 3, 0, True, 0.5, words=True, k0=80)
     (args,) = calls["noise_dump"]
     assert args[3:6] == (40, 6, 2) and args[10:12] == (80, 1)
+
+
+@pytest.mark.parametrize("anti", [False, True])
+def test_chip_smoke_draw_bounds_count_the_function(anti):
+    """K5's and K3's bounds read K1's per-rollout second pass per draw and
+    step, less its 11·A reduction: K5 adds one multiply-add w·ε per action,
+    K3 its stores (the mirror's too, and four words when written). Checked
+    on made-up per-step counts, with the clock set so that one instruction
+    per lane is one millisecond."""
+    import chip_smoke
+
+    A, K, T = 3, 1000, 20
+    steps = {f"solve_partials<lti,A={A},inj=0>": [101.0, 90.0]}
+    lanes = chip_smoke.H100_SMS * chip_smoke.H100_LANES
+    clock_mhz = 1e-3 / lanes
+    draws = K // 2 if anti else K
+    k5, by = chip_smoke.weighted_update_bound(steps, K, T, A, clock_mhz, antithetic=anti)
+    assert by == "operations" and k5 == pytest.approx((90 - 11 * A + A) * T * draws)
+    k3, _ = chip_smoke.noise_dump_bound(steps, K, T, A, clock_mhz, antithetic=anti, words=True)
+    assert k3 == pytest.approx((90 - 11 * A + A * (2 if anti else 1) + 4) * T * draws)
