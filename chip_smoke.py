@@ -29,9 +29,19 @@ the sharded fleet, the ``--sharded`` CLI and the two-kernel closed loop
 K and the per-rollout body; ``ops/fused_solve.block_width`` picks one): S
 bit-equal across both for every family instance, K2 at the nb of both
 widths and of K5, and both bodies timed across K for every family, with the
-crossover each family's timings give beside the rule's table (phase 20).
-``--time-commit ROOT`` instead times K1, K2, K4, K5 and K3 of the package in
-the checkout at ROOT, to compare two commits in one run. Every phase
+crossover each family's timings give beside the rule's table (phase 20),
+and the on-device episode: K1's step by pointer bit-equal to by value,
+``run_episode_jit`` as a replayed CUDA graph of one control cycle for every
+config and the flagship (bit-equal to the same cycle run eagerly on the
+card, within each config's tolerance of the host loop at four seeds, under
+each quality tripwire),
+an R=8 ``run_fleet_episode`` of every family, a reassigned cost
+re-capturing, checkpoint/resume and the CLI's ``--jit-episode``,
+``--checkpoint``/``--resume`` and ``--profile`` on the card, with ms per
+control cycle of the three loops, kernels per cycle and idle shares from a
+trace of the graph's replays alone (phase 21). ``--time-commit ROOT`` instead times K1, K2, K4, K5 and K3 of the
+package in the checkout at ROOT, to compare two commits in one run;
+``--episode`` runs the build and phase 21 alone. Every phase
 prints one line (or a few); any failure raises and
 the script exits non-zero without the final line. Without a CUDA device it
 exits 1 at once. The last two lines are a JSON object describing every
@@ -1511,6 +1521,516 @@ def paired_median_ms(kernel_fn, plain_fn, reps: int, plain_reps: int) -> tuple[f
 
 
 # ---------------------------------------------------------------------------
+# the on-device episode (phase 21): run_episode_jit and run_fleet_episode as
+# a replayed CUDA graph of one control cycle
+
+# every shipped config, the two obstacle instances and the flagship
+# point_mass3d K=10⁴ T=200
+EPISODE_CONFIGS = ("point_mass1d", "point_mass2d", "point_mass3d", "mppi-config-test", "pendulum",
+                   "cartpole", "unicycle", "quadrotor", "arm", "quadrotor3d", "obstacle2d",
+                   "obstacle3d", "flagship")
+# the R=8 fleet of every family at its quality config (bench._quality_cfg)
+FLEET_EPISODE_CONFIGS = ("point_mass3d", "obstacle3d", "pendulum", "cartpole", "unicycle",
+                         "quadrotor", "arm", "quadrotor3d")
+# the tripwires of bench.QUALITY_THRESHOLDS were set at one fixed seed, and a
+# fleet runs one seed per robot: the reference itself misses the bar at some
+# seeds (the pendulum's swing-up at 6 of 64, up to 0.92 rad). So the robots
+# of an R=64 fleet (seeds ops.philox.fleet_seeds(seed, 64), from the world's
+# start) are held as a share under the bar against the JAX reference's share
+# over seeds 0-63 (`python tests/_quality_seed_probe.py --seeds 64`,
+# bench.quality_row on the CPU): not below it by a one-sided Fisher exact
+# test at 1 %
+FLEET_QUALITY_ROBOTS = 64
+FLEET_QUALITY_REF_UNDER = {"point_mass3d": 64, "obstacle3d": 64, "pendulum": 58, "cartpole": 64,
+                           "unicycle": 64, "quadrotor": 64, "arm": 64, "quadrotor3d": 64}
+# the graph episode against the host loop on the card over its first
+# EPISODE_HOST_CYCLES cycles, at the config's seed and the next
+# EPISODE_HOST_SEEDS − 1: the world steps on the card in one (FMA
+# contraction, the card's sin, cos and rsqrt) and on the CPU in the other,
+# so the states part by rounding, which the solves and the plant feed back.
+# Each config's (states' atol, actions' atol) is ten times the largest
+# difference it showed over those seeds (NVIDIA H100 80GB HBM3, 700 W),
+# rounded up to one digit and at least 1e-6; or the CPU tests' tolerance
+# for two loops apart by rounding alone (2e-3 and 1e-2·σ; the arm 2e-2 and
+# 1e-1·σ) where that is smaller and still twice the largest difference:
+# point_mass2d, the cart-pole (whose unstable upright parted by 0.0118 in
+# its action at seed 0), obstacle2d's actions and the flagship's states
+EPISODE_HOST_CYCLES = 12
+EPISODE_HOST_SEEDS = 4
+EPISODE_HOST_TOL = {
+    "point_mass1d": (1e-6, 1e-6), "point_mass2d": (2e-3, 2.5e-3), "point_mass3d": (1e-5, 3e-5),
+    "mppi-config-test": (6e-6, 9e-6), "pendulum": (1e-6, 1e-6), "cartpole": (2e-3, 3e-2),
+    "unicycle": (1e-6, 1e-6), "quadrotor": (2e-4, 2e-4), "arm": (3e-3, 2e-2),
+    "quadrotor3d": (3e-2, 2e-1), "obstacle2d": (2e-3, 2.5e-3), "obstacle3d": (6e-4, 2e-3),
+    "flagship": (2e-3, 3e-2),
+}
+# a fleet past the slab body's crossover runs K1's per-rollout body and its
+# solo robot the slab body: S bit-equal, ΔU apart by rounding. Robots
+# 0 .. EPISODE_HOST_SEEDS − 1 are held to their solo graph episodes over the
+# first cycle (state after it, its action), where a robot given another's
+# seed, goal or start would part by the noise's scale, within
+# FLEET_SOLO_TOL (1e-6, the least of EPISODE_HOST_TOL's rule: readings at
+# most 3e-8 and 6e-8); robot 0 also over EPISODE_HOST_CYCLES within
+# FLEET_SOLO_LOOP_TOL: obstacle3d's ten times robots 0-3's largest
+# difference, the 3-D quadrotor's the CPU tests' loop tolerance (2e-3,
+# 1e-2·σ), since its loop amplifies the rounding past any bound over a few
+# robots (robot 3's state parted by 0.72 after 12 cycles, robots 1-2 by 0
+# and 1.9e-5, robot 0 by 1.3e-4); the others' 12-cycle differences are
+# printed
+FLEET_SOLO_TOL = {"obstacle3d": (1e-6, 1e-6), "quadrotor3d": (1e-6, 1e-6)}
+FLEET_SOLO_LOOP_TOL = {"obstacle3d": (2e-4, 3e-4), "quadrotor3d": (2e-3, 1.2e-2)}
+# control cycles of the torch.profiler window and of the timed host loop
+EPISODE_PROFILE_CYCLES = 20
+EPISODE_HOST_TIMED = 100
+# K1's two bodies and K2, as their records in a trace are named
+TRACE_NAMES = {"solve_partials": ("solve_partials_kernel", "slab_partials_kernel"),
+               "softmin_combine": ("softmin_combine_kernel",)}
+
+
+def _episode_config(name: str):
+    if name == "flagship":
+        return _config("point_mass3d").replace(samples=10_000, horizon=200)
+    return _config(name)
+
+
+def episode_quality(name: str, cfg, xs: np.ndarray) -> tuple[float, float | None]:
+    """(steady, bar): the mean over the last quarter of an episode's states
+    (N+1, s) of the family's distance from solved (bench._goal_metric), and
+    its bench.QUALITY_THRESHOLDS tripwire; None where the config has none
+    (point_mass1d and point_mass2d end short of the goal in 500 steps, as
+    phase 7 says; mppi-config-test runs K=3; obstacle2d's bar is its
+    example's own, phase 17)."""
+    g = np.asarray(cfg.goal, np.float64)
+    if name in FAMILY_ANGLE:
+        th = xs[:, FAMILY_ANGLE[name]]
+        d, bar = np.abs(np.arctan2(np.sin(th), np.cos(th))), FAMILY_QUALITY_THRESHOLD_RAD[name]
+    elif name in COUPLED:
+        d, bar = coupled_distance(name, xs), COUPLED_QUALITY_THRESHOLD_M[name]
+    elif name == "quadrotor3d":
+        d, bar = np.linalg.norm(xs[:, :3] - g[:3], axis=1), LAST_QUALITY_THRESHOLD_M[name]
+    else:
+        n = cfg.action_dim
+        d = np.linalg.norm(xs[:, :n] - g[:n], axis=1)
+        bar = {"point_mass3d": LTI_QUALITY_THRESHOLD_M, "flagship": LTI_QUALITY_THRESHOLD_M,
+               "obstacle3d": LAST_QUALITY_THRESHOLD_M["obstacle"]}.get(name)
+    return float(d[-max(len(d) // 4, 1):].mean()), bar
+
+
+def check_step_pointer(fam, x0, U, goal, lam, K: int, R: int = 8) -> None:
+    """K1's (S and partials) and K4's (S) launches with the control step
+    passed by its address (a 0-dim int64 on the card, ``step_ptr``) equal to
+    the by-value launches, in both bodies, solo and for an R-robot fleet
+    (robots apart in start and seed), iid and antithetic with OU 0.5; the step
+    2³² + 3 checks that the kernel takes its low word as the by-value word
+    is."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import philox
+
+    word = 2**32 + 3
+    step = torch.tensor(word, dtype=torch.int64, device="cuda")
+    xs = (x0 + 0.01 * torch.arange(R, device="cuda")[:, None]).contiguous()
+    Us = U.expand(R, -1, -1).contiguous()
+    goals = None if goal is None else goal.expand(R, -1).contiguous()
+    seeds = philox.fleet_seeds(7, R).cuda()
+    for width in (fs.SLAB_WIDTH, fs.BLOCK):
+        for anti, ou in ((False, 0.0), (True, 0.5)):
+            for lam_s in (lam, None):
+                for args in ((x0, U, goal, 7, 1, ()), (xs, Us, goals, seeds, R, (R,))):
+                    a0, a1, a2, seed, n, lead = args
+
+                    def run(s):
+                        return fs._launch_solve_partials(fam, a0, a1, a2, lam_s, K, seed, s, 1, anti,
+                                                         ou, None, n, lead, width=width)
+
+                    by_value, by_ptr = run(word), run(step)
+                    label = (f"{fam.name} A={fam.action_dim} K={K} R={n} width {width} anti={anti} "
+                             f"ou={ou} {'K1' if lam_s is not None else 'K4'}")
+                    for v, p in zip(*((o,) if lam_s is None else o for o in (by_value, by_ptr))):
+                        expect(torch.equal(v, p), f"{label}: the step by pointer differs from by value")
+
+
+def device_records(prof) -> list:
+    """A torch.profiler window's device records."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def solve_records(records) -> dict[str, int]:
+    """How many of `records` are K1's (either body) and K2's."""
+    return {k: sum(any(n in e.name for n in names) for e in records)
+            for k, names in TRACE_NAMES.items()}
+
+
+def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: bool = False) -> dict:
+    """torch.profiler over `cycles` replays of one captured control cycle
+    and nothing else. An episode of `cycles` + 2 cycles captures the cycle
+    (outside the window) and its step counter is set back to 0; the window
+    then holds one replay, a marker kernel (``torch.cuda._sleep``, whose
+    record is ``spin_kernel``), the `cycles` counted replays, a second
+    marker and one more replay. Only the records between the two markers
+    are read, so neither the episode's start and read-back nor the window's
+    edges (where the profiler has dropped a record of a replay) enter. From
+    them, per cycle: K1's and K2's records (checked: one of each per update,
+    opt_iters), the kernels (memory copies and sets not counted), the device
+    busy ms (Σ of the records' times) and the span ms (the first marker's
+    end to the second one's start); the idle share 1 − busy/span, and K1 +
+    K2's share of busy; and, untraced, the ms per cycle of `cycles` replays
+    by CUDA events, which the span exceeds by what the tracer adds to each
+    kernel node. A window without both markers, or whose K1 or K2
+    records fall short, is read again, three windows at most: a graph
+    replays the same launches every time."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode
+
+    (run_fleet_episode if fleet else run_episode_jit)(ctrl, num_steps=cycles + 2)
+    cyc = ctrl._episode_cycles["fleet" if fleet else "single"][1]
+    want = cycles * ctrl.cfg.opt_iters
+    for window in range(1, 4):
+        cyc.step.zero_()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cyc.graph.replay()
+            torch.cuda._sleep(1000)
+            for _ in range(cycles):
+                cyc.graph.replay()
+            torch.cuda._sleep(1000)
+            cyc.graph.replay()
+            torch.cuda.synchronize()
+        dev = device_records(prof)
+        marks = sorted((e.time_range for e in dev if "spin_kernel" in e.name), key=lambda r: r.start)
+        if len(marks) != 2:
+            continue
+        t0, t1 = marks[0].end, marks[1].start
+        dev = [e for e in dev if e.time_range.start >= t0 and e.time_range.end <= t1]
+        counts = solve_records(dev)
+        if all(c == want for c in counts.values()):
+            break
+    expect(len(marks) == 2, f"{label}: {len(marks)} marker records in the trace ({window} windows read)")
+    cyc.step.zero_()  # the same replays untraced, by CUDA events: what the tracer adds
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(cycles):
+        cyc.graph.replay()
+    end.record()
+    end.synchronize()
+    for kernel, c in counts.items():
+        expect(c == want, f"{label}: {c} {kernel} records in {cycles} graph replays, want {want} "
+               f"({window} windows read)")
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    solve_us = sum(e.time_range.elapsed_us() for e in dev
+                   if any(n in e.name for names in TRACE_NAMES.values() for n in names))
+    kernels = [e for e in dev if not re.search(r"[Mm]emcpy|[Mm]emset", e.name)]
+    return dict(kernels=len(kernels) / cycles, busy_ms=busy_us / 1e3 / cycles,
+                span_ms=(t1 - t0) / 1e3 / cycles, idle=1.0 - busy_us / (t1 - t0),
+                untraced_ms=start.elapsed_time(end) / cycles,
+                k12_share=solve_us / busy_us, k1_per_cycle=counts["solve_partials"] / cycles,
+                k2_per_cycle=counts["softmin_combine"] / cycles, windows=window)
+
+
+def close_loops(label: str, a, b, tol: tuple[float, float]) -> tuple[float, float]:
+    """Two episodes' first EPISODE_HOST_CYCLES cycles held to each other
+    within `tol` (states' atol, actions' atol); returns the max abs
+    differences (states, actions)."""
+    m = EPISODE_HOST_CYCLES
+    dx = close(f"{label} states, first {m} cycles", a.xs[:m + 1], b.xs[:m + 1], 0.0, tol[0])
+    du = close(f"{label} actions, first {m} cycles", a.us[:m], b.us[:m], 0.0, tol[1])
+    return dx, du
+
+
+def _timed(fn) -> tuple[object, float]:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _pairs(readings) -> list[tuple[float, float]]:
+    """(states, actions) differences to three digits, for a line."""
+    return [(float(f"{a:.3g}"), float(f"{b:.3g}")) for a, b in readings]
+
+
+def _trace_line(t: dict) -> str:
+    return (f"{t['kernels']:.1f} kernels, K1 {t['k1_per_cycle']:g} and K2 {t['k2_per_cycle']:g} "
+            f"records per cycle; device busy {t['busy_ms']:.4f} of a {t['span_ms']:.4f} ms span per "
+            f"cycle, idle share {t['idle']:.4f}; K1 + K2 {t['k12_share']:.4f} of busy; the same "
+            f"replays untraced (CUDA events) {t['untraced_ms']:.4f} ms per cycle")
+
+
+def episode_config_phase(name: str, smi: str) -> dict:
+    """One config's on-device episode: the graph episode (captured, then
+    timed warm; no wrapper launches a kernel during it), bit-equal to the
+    same cycle run eagerly on the card over the whole episode (which
+    launches K1 and K2 once per update); the host loop on the card (CPU
+    world) timed over EPISODE_HOST_TIMED cycles; the graph episode against
+    the host loop over the first EPISODE_HOST_CYCLES cycles at
+    EPISODE_HOST_SEEDS seeds, within the config's EPISODE_HOST_TOL; the graph
+    episode's steady-state quality under its tripwire; a trace of the graph's
+    replays (:func:`replay_trace`). Returns the row of PERF.md §5's episode
+    table."""
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.envs import params_for_config
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.runner import run_closed_loop, run_episode_jit
+
+    cfg = _episode_config(name)
+    n = params_for_config(cfg).num_control_steps()
+    ctrl = MPPIController(cfg, device="cuda")
+    expect(ctrl.rollout_backend == "fused", f"{name}: auto picked {ctrl.rollout_backend}")
+
+    first, first_s = _timed(lambda: run_episode_jit(ctrl))
+    before = fs.launch_counts()
+    graph, graph_s = _timed(lambda: run_episode_jit(ctrl))
+    mid = fs.launch_counts()
+    eager, eager_s = _timed(lambda: run_episode_jit(ctrl, capture=False))
+    after = fs.launch_counts()
+    for kernel in ("solve_partials", "softmin_combine"):
+        expect(mid[kernel] == before[kernel],
+               f"{name}: {mid[kernel] - before[kernel]} {kernel} launches from the host in a warm "
+               "graph episode")
+        expect(after[kernel] - mid[kernel] == n * cfg.opt_iters,
+               f"{name}: {after[kernel] - mid[kernel]} {kernel} launches in the eager episode of "
+               f"{n} cycles x {cfg.opt_iters}")
+    for what, other in (("a second replay", first), ("the eager cycle on the card", eager)):
+        for f in ("xs", "us", "times"):
+            expect(np.array_equal(getattr(graph, f), getattr(other, f)),
+                   f"{name}: the graph episode's {f} differ from {what}'s")
+    expect(graph.xs.shape == (n + 1, cfg.state_dim) and np.isfinite(graph.xs).all(),
+           f"{name}: graph episode states {graph.xs.shape}")
+    host, host_s = _timed(lambda: run_closed_loop(MPPIController(cfg, device="cuda"),
+                                                  max_steps=EPISODE_HOST_TIMED))
+    tol = EPISODE_HOST_TOL[name]
+    readings = [close_loops(f"{name} graph vs host loop, seed {cfg.seed}", graph, host, tol)]
+    for seed in range(cfg.seed + 1, cfg.seed + EPISODE_HOST_SEEDS):
+        other = MPPIController(cfg.replace(seed=seed), device="cuda")
+        readings.append(close_loops(
+            f"{name} graph vs host loop, seed {seed}",
+            run_episode_jit(other, num_steps=EPISODE_HOST_CYCLES),
+            run_closed_loop(other, max_steps=EPISODE_HOST_CYCLES), tol))
+    dx, du = (max(r[i] for r in readings) for i in (0, 1))
+    steady, bar = episode_quality(name, cfg, graph.xs.astype(np.float64))
+    if bar is not None:
+        expect(steady < bar, f"{name}: graph episode steady-state {steady} (bar {bar})")
+    trace = replay_trace(ctrl, name)
+    row = dict(K=cfg.samples, T=cfg.horizon, opt_iters=cfg.opt_iters, cycles=n,
+               graph_ms=graph_s * 1e3 / n, eager_ms=eager_s * 1e3 / n,
+               host_ms=host_s * 1e3 / len(host.us), first_s=first_s, steady=steady, bar=bar,
+               host_dx=dx, host_du=du, host_readings=readings, trace=trace)
+    print(f"[21] episode {name} K={cfg.samples} T={cfg.horizon} x{cfg.opt_iters}, {n} cycles: "
+          f"graph {row['graph_ms']:.4f} ms/cycle (first call {first_s:.3f} s with the capture), "
+          f"eager on the card {row['eager_ms']:.4f}, host loop {row['host_ms']:.4f} "
+          f"({EPISODE_HOST_TIMED} cycles); graph == eager over the whole episode; no host launch "
+          f"in a warm graph episode, {n * cfg.opt_iters} each of K1 and K2 in the eager one; host "
+          f"loop within (states, actions) {tol} over {EPISODE_HOST_CYCLES} cycles at "
+          f"{EPISODE_HOST_SEEDS} seeds (max abs per seed {_pairs(readings)}); "
+          f"steady {steady:.4f} (bar {bar}); trace of {EPISODE_PROFILE_CYCLES} graph replays: "
+          f"{_trace_line(trace)} ({smi})")
+    return row
+
+
+def fleet_episode_phase(name: str, smi: str, R: int = 8) -> dict:
+    """An R-robot fleet of a family at its quality config, every robot from
+    the world's start under its own seed: the graph episode (timed warm),
+    bit-equal to the eager cycle on the card, each robot's steady state;
+    robot 0 against its solo graph episode (seed, goal) bit for bit where
+    the fleet's K1 body is the solo one's, else (the fleet past the slab's
+    crossover runs the per-rollout body: S bit-equal, ΔU to rounding)
+    robots 0 .. EPISODE_HOST_SEEDS − 1 within the config's FLEET_SOLO_TOL
+    over the first cycle, robot 0 within its FLEET_SOLO_LOOP_TOL over
+    EPISODE_HOST_CYCLES; a trace of the graph's replays; then an
+    R=FLEET_QUALITY_ROBOTS fleet's share of robots under the tripwire against
+    the reference's (FLEET_QUALITY_REF_UNDER)."""
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.envs import params_for_config
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode
+
+    cfg = _episode_config(name)
+    n = params_for_config(cfg).num_control_steps()
+    fleet = BatchedMPPIController(cfg, R, device="cuda")
+    _, first_s = _timed(lambda: run_fleet_episode(fleet))
+    before = fs.launch_counts()
+    ep, graph_s = _timed(lambda: run_fleet_episode(fleet))
+    mid = fs.launch_counts()
+    eager, eager_s = _timed(lambda: run_fleet_episode(fleet, capture=False))
+    after = fs.launch_counts()
+    for kernel in ("solve_partials", "softmin_combine"):  # one launch of each per update, whatever R
+        expect(mid[kernel] == before[kernel],
+               f"fleet {name}: {mid[kernel] - before[kernel]} {kernel} launches from the host in a "
+               "warm graph episode")
+        expect(after[kernel] - mid[kernel] == n * cfg.opt_iters,
+               f"fleet {name}: {after[kernel] - mid[kernel]} {kernel} launches in the eager episode "
+               f"of {n} cycles x {cfg.opt_iters}")
+    for f in ("xs", "us", "times"):
+        expect(np.array_equal(getattr(ep, f), getattr(eager, f)),
+               f"fleet {name}: the graph episode's {f} differ from the eager cycle's")
+    expect(ep.xs.shape == (n + 1, R, cfg.state_dim) and np.isfinite(ep.xs).all(),
+           f"fleet {name}: states {ep.xs.shape}")
+    steady = [episode_quality(name, cfg, ep.xs[:, r].astype(np.float64)) for r in range(R)]
+    seeds = [int(s) for s in fleet.init_seeds()]
+    family = fleet._family.name
+    one_width = (fs.block_width(R, cfg.samples, cfg.horizon, cfg.action_dim, family)
+                 == fs.block_width(1, cfg.samples, cfg.horizon, cfg.action_dim, family))
+    if one_width:
+        one = run_episode_jit(MPPIController(cfg, device="cuda", cost=fleet._robot_cost(0)),
+                              seed=seeds[0])
+        expect(np.array_equal(ep.xs[:, 0], one.xs) and np.array_equal(ep.us[:, 0], one.us),
+               f"fleet {name}: robot 0 differs from its solo graph episode")
+        solo = "robot 0 bit-equal to its solo graph episode"
+    else:
+        tol, first, late, m = FLEET_SOLO_TOL[name], [], [], EPISODE_HOST_CYCLES
+        for r in range(EPISODE_HOST_SEEDS):
+            one = run_episode_jit(MPPIController(cfg, device="cuda", cost=fleet._robot_cost(r)),
+                                  seed=seeds[r], num_steps=m)
+            first.append((
+                close(f"fleet {name} robot {r} vs solo, state after cycle 0", ep.xs[1, r], one.xs[1],
+                      0.0, tol[0]),
+                close(f"fleet {name} robot {r} vs solo, action of cycle 0", ep.us[0, r], one.us[0],
+                      0.0, tol[1])))
+            if r == 0:
+                robot = type(one)(times=ep.times, xs=ep.xs[:, 0], us=ep.us[:, 0])
+                late.append(close_loops(f"fleet {name} robot 0 vs solo", robot, one,
+                                        FLEET_SOLO_LOOP_TOL[name]))
+            else:
+                late.append((float(np.abs(ep.xs[:m + 1, r] - one.xs).max()),
+                             float(np.abs(ep.us[:m, r] - one.us).max())))
+        solo = (f"robots 0-{EPISODE_HOST_SEEDS - 1} within (states, actions) {tol} of their solo "
+                f"graph episodes over the first cycle (max abs per robot {_pairs(first)}), robot 0 "
+                f"within {FLEET_SOLO_LOOP_TOL[name]} over {m} cycles (max abs per robot "
+                f"{_pairs(late)}); the fleet runs K1's per-rollout body, the solo robot the slab "
+                "body")
+    trace = replay_trace(fleet, f"fleet {name}", fleet=True)
+    bar = steady[0][1]
+    del fleet, eager
+    many = BatchedMPPIController(cfg, FLEET_QUALITY_ROBOTS, device="cuda")
+    big = run_fleet_episode(many)
+    under = sum(episode_quality(name, cfg, big.xs[:, r].astype(np.float64))[0] < bar
+                for r in range(FLEET_QUALITY_ROBOTS))
+    ref = FLEET_QUALITY_REF_UNDER[name]
+    p_below = fisher_below(under, FLEET_QUALITY_ROBOTS, ref, 64)
+    expect(p_below >= 0.01, f"fleet {name}: {under} of {FLEET_QUALITY_ROBOTS} robots under the "
+           f"bar {bar}, the reference {ref} of 64 seeds (one-sided Fisher p {p_below:.3g})")
+    del many, big
+    row = dict(R=R, K=cfg.samples, T=cfg.horizon, cycles=n, graph_ms=graph_s * 1e3 / n,
+               eager_ms=eager_s * 1e3 / n, first_s=first_s, steady=[s for s, _ in steady], bar=bar,
+               under=under, ref_under=ref, p_below=p_below, trace=trace)
+    print(f"[21] fleet episode {name} R={R} K={cfg.samples} T={cfg.horizon} x{cfg.opt_iters}, {n} "
+          f"cycles: graph {row['graph_ms']:.4f} ms/fleet cycle (first call {first_s:.3f} s), eager "
+          f"on the card {row['eager_ms']:.4f}; graph == eager; no host launch in a warm graph "
+          f"episode; robots' steady {[round(s, 4) for s in row['steady']]} (bar {bar}); {solo}; "
+          f"trace of {EPISODE_PROFILE_CYCLES} graph replays: {_trace_line(trace)}; an "
+          f"R={FLEET_QUALITY_ROBOTS} fleet: {under} of {FLEET_QUALITY_ROBOTS} robots under the bar, "
+          f"the reference {ref} of 64 seeds (one-sided Fisher p {p_below:.3g}) ({smi})")
+    return row
+
+
+def episode_phase(smi: str) -> dict:
+    """Phase 21: K1's step by pointer against by value for every family
+    instance; the on-device episode of every config (:func:`episode_config_phase`)
+    and the R=8 fleet of every family (:func:`fleet_episode_phase`); a
+    reassigned cost re-captures; checkpoint/resume on the card; the CLI's
+    --jit-episode, --checkpoint/--resume and --profile on cuda."""
+    import torch
+
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.envs import params_for_config
+    from mppi_gpu_tpu_torch.io.csvio import read_csv_columns
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops.cost import goal_of, with_goal
+    from mppi_gpu_tpu_torch.runner import run_closed_loop, run_episode_jit, run_fleet_episode
+
+    t_phase = time.perf_counter()
+    for A in range(1, 5):
+        q = make_problem(A, 3000, 50)
+        fam = fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"])
+        check_step_pointer(fam, q["x0"], q["U"], q["goal"], q["lam"], 3000)
+    q = make_problem(3, 10_000, 200)
+    check_step_pointer(fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"]),
+                       q["x0"], q["U"], q["goal"], q["lam"], 10_000)
+    for name in FAMILIES + COUPLED + LAST:
+        cfg = _config(name)
+        q = make_family_problem(name, cfg.samples, cfg.horizon)
+        check_step_pointer(q["fam"], q["x0"], q["U"], q["goal"], q["lam"], cfg.samples)
+    del q
+    print("[21] K1 and K4 S (and K1's partials) bit-equal with the step by pointer and by value, "
+          "both bodies, solo and R=8 fleets, iid and antithetic + OU 0.5: lti A=1-4 at K=3000 "
+          "T=50, A=3 at K=10000 T=200, every other family instance at its config")
+
+    rows = {name: episode_config_phase(name, smi) for name in EPISODE_CONFIGS}
+    fleets = {name: fleet_episode_phase(name, smi) for name in FLEET_EPISODE_CONFIGS}
+
+    # the eager backend's solve reads nothing from the card either: its graph
+    # episode (Philox noise drawn by torch ops at the step tensor, the fleet's
+    # seeds kept on the card) equals the same cycle run eagerly
+    cfg = _config("pendulum")
+    for ctrl, run in ((MPPIController(cfg, device="cuda", rollout_backend="eager"), run_episode_jit),
+                      (BatchedMPPIController(cfg, 4, device="cuda", rollout_backend="eager"),
+                       run_fleet_episode)):
+        graph, eager = run(ctrl, num_steps=20), run(ctrl, num_steps=20, capture=False)
+        expect(np.array_equal(graph.xs, eager.xs) and np.array_equal(graph.us, eager.us),
+               f"eager backend: the graph episode differs from the eager cycle ({type(ctrl).__name__})")
+    print("[21] eager backend (pendulum, solo and R=4 fleet, 20 cycles): the graph episode equals the "
+          "same cycle run eagerly on the card")
+
+    # a reassigned cost re-captures: the episode then equals a fresh
+    # controller's with that cost, not the old goal's
+    cfg = _config("point_mass2d")
+    ctrl = MPPIController(cfg, device="cuda")
+    old = run_episode_jit(ctrl, num_steps=120)
+    cycle = ctrl._episode_cycles["single"][1]
+    goal = goal_of(ctrl.cost).clone()
+    goal[:2] = torch.tensor([-0.6, 0.4], device="cuda")
+    ctrl.cost = with_goal(ctrl.cost, goal)
+    moved = run_episode_jit(ctrl, num_steps=120)
+    fresh = run_episode_jit(MPPIController(cfg, device="cuda", cost=ctrl.cost), num_steps=120)
+    expect(ctrl._episode_cycles["single"][1] is not cycle, "a reassigned cost did not re-capture")
+    expect(np.array_equal(moved.xs, fresh.xs) and np.array_equal(moved.us, fresh.us),
+           "after a reassigned cost the graph episode differs from a fresh controller's")
+    expect(not np.array_equal(moved.us, old.us), "the reassigned goal did not move the episode")
+    print("[21] ctrl.cost = with_goal(...) re-captured; the episode equals a fresh controller's with "
+          "that cost bit for bit (point_mass2d, 120 cycles)")
+
+    # checkpoint/resume on the card: the resumed steps equal the uninterrupted run's
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck.npz")
+        cfg = _config("quadrotor3d")
+        full = run_closed_loop(MPPIController(cfg, device="cuda"), max_steps=40,
+                               checkpoint_path=ck, checkpoint_every=25)
+        resumed = run_closed_loop(MPPIController(cfg, device="cuda"), max_steps=40, resume_from=ck)
+        expect(len(resumed.us) == 15 and np.array_equal(resumed.us, full.us[25:])
+               and np.array_equal(resumed.xs, full.xs[25:]),
+               "checkpoint resume on the card differs from the uninterrupted run")
+        # the CLI on cuda: --jit-episode, --checkpoint then --resume, --profile
+        base = ["-c", os.path.join("configs", "pendulum.yaml"), "--device", "cuda"]
+        trajs = {k: os.path.join(tmp, f"{k}.csv") for k in ("jit", "host", "resumed")}
+        _cli([*base, "--jit-episode", "-t", trajs["jit"]])
+        _cli([*base, "--max-steps", "120", "-t", trajs["host"], "--checkpoint", ck,
+              "--checkpoint-every", "50", "--profile", os.path.join(tmp, "prof")])
+        out = _cli([*base, "--max-steps", "120", "-t", trajs["resumed"], "--resume", ck])
+        cols = {k: read_csv_columns(v) for k, v in trajs.items()}
+        expect("episode finished: 20 control steps" in out, "the resumed CLI run did not run 20 steps")
+        expect(all(np.array_equal(cols["resumed"][c], cols["host"][c][100:]) for c in cols["host"]),
+               "the CLI's resumed trajectory differs from the uninterrupted run's")
+        n_pendulum = params_for_config(_config("pendulum")).num_control_steps()
+        expect(len(cols["jit"]["time"]) == n_pendulum and os.listdir(os.path.join(tmp, "prof")),
+               "the CLI's --jit-episode trajectory or --profile trace is missing")
+    print("[21] checkpoint resume on the card (quadrotor3d, step 25 of 40) bit-equal to the "
+          "uninterrupted run; the CLI on cuda: --jit-episode wrote the whole pendulum episode, "
+          "--checkpoint/--resume continued bit for bit (step 100 of 120), --profile wrote a trace")
+    print(f"[21] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(configs=rows, fleets=fleets)
+
+
+# ---------------------------------------------------------------------------
 # main
 
 
@@ -2019,6 +2539,34 @@ def sweep_bodies(smi: str) -> dict:
     return dict(bodies=rows, crossover=crossover)
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0].strip()
+
+
+def episode_only() -> int:
+    """``python3 chip_smoke.py --episode``: the build (phase 2), then phase
+    21 alone, and no contract line: the quickest check of the on-device
+    episode on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    from mppi_gpu_tpu_torch.ops import _build
+
+    smi = _smi()
+    print(smi)
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"[2] build: {time.perf_counter() - t0:.2f} s")
+    episode_phase(smi)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2034,10 +2582,7 @@ def main() -> int:
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
 
     # [1] device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0].strip()
+    smi = _smi()
     kind = torch.cuda.get_device_name(0)
     print(smi)
     print(f"[1] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
@@ -2273,6 +2818,8 @@ def main() -> int:
 
     # [10] the fleet path: the fleet example in both modes and a full-length
     # episode, launches counted
+    from torch.profiler import ProfilerActivity
+
     from mppi_gpu_tpu_torch.examples import fleet as fleet_example
     from mppi_gpu_tpu_torch.runner import run_fleet_episode
 
@@ -2280,30 +2827,45 @@ def main() -> int:
     steps = 120
     for mode in ([], ["--episode"]):
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            if mode:  # the device episode's replays are seen only in a trace
+                prof = stack.enter_context(torch.profiler.profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
             rc = fleet_example.main(["-c", os.path.join("configs", "point_mass2d.yaml"), "-n", "8",
                                      "--steps", str(steps), "--device", "cuda", *mode])
+            torch.cuda.synchronize()
         out = buf.getvalue()
         print("\n".join("    " + line for line in out.strip().splitlines()))
         expect(rc == 0, f"fleet example {mode} exited {rc}")
     cfg2 = _config("point_mass2d")
+    episode_records = solve_records(device_records(prof))
+    del prof
     goals = circle_goals(8, cfg2.state_dim)
     fleet = BatchedMPPIController(cfg2, 8, goals=torch.from_numpy(goals), device="cuda")
     t0 = time.perf_counter()
-    ep = run_fleet_episode(fleet)
+    ep = run_fleet_episode(fleet, capture=False)
     ep_s = time.perf_counter() - t0
     fleet_launches = fs.launch_counts()
     fleet_launches["solve_partials<lti>"] = fs.family_launch_counts()["lti"]
-    n_solves = (2 * steps + len(ep.us)) * cfg2.opt_iters
+    # launched from the host: every control step's solve of the host loop,
+    # the one warm-up cycle the example's --episode runs before it captures
+    # its cycle, and every cycle of the full episode, run without capture;
+    # the --episode run's trace holds the warm-up and its replays
+    n_solves = (steps + 1 + len(ep.us)) * cfg2.opt_iters
     dist = np.linalg.norm(ep.xs[-1][:, :2] - goals[:, :2], axis=1)
     print(f"[10] fleet closed loop: example host loop and --episode exited 0; full episode "
-          f"point_mass2d R=8, {len(ep.us)} steps in {ep_s:.2f} s, mean final goal distance "
-          f"{dist.mean():.4f} m (bar {FLEET_DISTANCE_BAR_M}); fleet-path launches {fleet_launches}")
+          f"point_mass2d R=8 on the card without capture, {len(ep.us)} steps in {ep_s:.2f} s, mean "
+          f"final goal distance {dist.mean():.4f} m (bar {FLEET_DISTANCE_BAR_M}); fleet-path launches "
+          f"{fleet_launches}; K1 and K2 records in the --episode run's trace {episode_records}")
     expect(np.isfinite(ep.xs).all() and ep.xs.shape == (len(ep.us) + 1, 8, 4), "episode states")
     expect(dist.mean() < FLEET_DISTANCE_BAR_M, f"fleet mean final distance {dist.mean()} m")
     for name in ("solve_partials<lti>", "softmin_combine"):
         expect(fleet_launches[name] == n_solves,
                f"{name}: {fleet_launches[name]} launches on the fleet path, {n_solves} fleet solves")
+    for name, c in episode_records.items():
+        expect(c == (steps + 1) * cfg2.opt_iters,
+               f"{name}: {c} records in the --episode run's trace, {steps + 1} cycles")
 
     # [11] K1's pendulum and cart-pole instances: injected ε vs plain and
     # float64, Philox mode vs plain with exact replay, an R=8 fleet bit-equal
@@ -2613,6 +3175,12 @@ def main() -> int:
               f"(beta exact), fleet robots bit-equal to their R=1 launches; dU max abs err {e:.3g}")
     sweep = sweep_bodies(smi)
 
+    # [21] the on-device episode: K1's step by pointer; run_episode_jit and
+    # run_fleet_episode as a replayed CUDA graph of one control cycle for
+    # every config and an R=8 fleet of every family; a reassigned cost;
+    # checkpoint/resume and the CLI's new flags on the card
+    episode_phase(smi)
+
     # the kernels JSON line: times at each kernel's shape, beside its bound
     k12 = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
     k_fam = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2287, 3121, 2973))
@@ -2731,7 +3299,9 @@ def time_commit(root: str) -> int:
     shape A=2 K=3000 T=50, iid, antithetic and OU 0.5 (K5 also injected),
     and K3 as the R=8 fleet's dump (eight streams at A=3 K=10⁴ T=200): CUDA
     events around a call (warm median of 20) and the device time alone (K5
-    and K3 by their kernels' records); one JSON line. Run on this checkout and on an
+    and K3 by their kernels' records); where the package's K1 reads the
+    control step by pointer, K1 so too at the main path's shapes
+    (``K1_step_ptr``); one JSON line. Run on this checkout and on an
     earlier one in turns within one call, it compares two commits on one
     card."""
     sys.path.insert(0, os.path.abspath(root))
@@ -2763,6 +3333,10 @@ def time_commit(root: str) -> int:
             _, part = fs.family_solve_partials(*args, q["lam"], K, 7, 3, 0, False, 0.0)
             main_path[key] = dict(K1=k1, nb=part.shape[0], K2=times(
                 lambda: fs.softmin_combine(part, q["lam"], T, fam.action_dim)))
+            if hasattr(fs, "_step_tensors"):  # a package whose K1 reads the step by pointer
+                step = torch.tensor(3, dtype=torch.int64, device="cuda")
+                main_path[key]["K1_step_ptr"] = times(
+                    lambda: fs.family_solve_partials(*args, q["lam"], K, 7, step, 0, False, 0.0))
     draws = {}
     for A, K, T in ((3, 10_000, 200), (3, 100_000, 200), (2, 3000, 50)):
         sigma = torch.full((A,), 0.25, device="cuda")
@@ -2791,4 +3365,6 @@ def time_commit(root: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-commit"]:
         sys.exit(time_commit(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] == ["--episode"]:
+        sys.exit(episode_only())
     sys.exit(main())

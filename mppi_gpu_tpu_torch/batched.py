@@ -117,7 +117,7 @@ class BatchedMPPIController(MPPIController):
         return self.cost if goal is None else with_goal(self.cost, goal[r])
 
     # -- solves ------------------------------------------------------------
-    def _solve_robots(self, xs, Us, seeds, step: int, it: int, robots: range,
+    def _solve_robots(self, xs, Us, seeds, step, it: int, robots: range,
                       eps=None) -> SolveResult:
         """One update of the fleet's robots `robots`, whose rows of xs, Us,
         seeds (and of eps (R, T, K, a) in the injected-ε mode) are given: on
@@ -133,7 +133,8 @@ class BatchedMPPIController(MPPIController):
                 n_robots=self.n_robots,
             )
             return _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)
-        seed_list = seeds.tolist() if eps is None else [0] * len(robots)
+        # the seeds stay on the device: a solve reads nothing from it
+        seed_list = seeds.unbind(0) if eps is None else [0] * len(robots)
         out = []
         for i, r in enumerate(robots):
             e = self._eps(seed_list[i], step, it) if eps is None else eps[i]
@@ -141,19 +142,21 @@ class BatchedMPPIController(MPPIController):
             out.append(solve_from_costs(S, e, Us[i], self.lambda_, self.max_a, clamp=cfg.clamp_action))
         return _stack_results(out)
 
-    def _solve_once(self, xs, Us, seeds, step: int, it: int) -> SolveResult:
+    def _solve_once(self, xs, Us, seeds, step, it: int) -> SolveResult:
         return self._solve_robots(xs, Us, seeds, step, it, range(self.n_robots))
 
-    def solve(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step: int = 0) -> SolveResult:
+    def solve(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step=0) -> SolveResult:
         """One MPPI solve per robot for noise streams (seeds[r], step), with
         ``opt_iters`` updates (iteration j on counter word it = j) as in
-        :meth:`MPPIController.solve`. On the fused backend every iteration
-        is one launch of K1 and one of K2, whatever R is."""
+        :meth:`MPPIController.solve`, `step` an int or a 0-dim int64 tensor
+        on the device, and nothing read from the device. On the fused
+        backend every iteration is one launch of K1 and one of K2, whatever R
+        is."""
         return super().solve(xs, Us, self._seeds(seeds), step)
 
     solve_batch = solve
 
-    def solve_batch_auto(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step: int) -> SolveResult:
+    def solve_batch_auto(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step) -> SolveResult:
         """:meth:`solve_batch` at control step `step` (the JAX fleet folds
         the step into its keys; here it is the counter word)."""
         return self.solve(xs, Us, seeds, step)

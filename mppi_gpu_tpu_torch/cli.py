@@ -6,8 +6,14 @@ reference's `mppi_gpu` executable, src/main.cu:220-399):
 Flags: `-c` config, `-t` trajectory CSV, `-s` per-step dump dir with
 `--dump-every`, `--max-steps`, `-v`, `--seed`, `--rollout-backend` and
 `--device`. `--device` defaults to `cuda` and never falls back to the CPU:
-without a GPU the run errors unless `--device cpu` is given. The JAX CLI's
-other flags are recognised and rejected until they are ported.
+without a GPU the run errors unless `--device cpu` is given.
+`--jit-episode` runs the whole episode on the device
+(``runner.run_episode_jit``: one control cycle captured as a CUDA graph and
+replayed; a loop on the CPU). `--checkpoint PATH` with `--checkpoint-every N`
+writes the loop state every N steps and `--resume PATH` goes on from it, bit
+for bit as the uninterrupted run. `--profile DIR` writes a torch.profiler
+trace of the run into DIR. The JAX CLI's other flags (`--world`, `--view`,
+`--compile-cache`) are recognised and rejected until they are ported.
 
 Multi-GPU (``parallel/``): `--sharded` shards K over the ranks of torchrun's
 process group (``torchrun --nproc-per-node N -m mppi_gpu_tpu_torch.cli ...
@@ -26,16 +32,11 @@ import json
 import os
 import sys
 
-# JAX CLI flags not ported yet (ROADMAP.md, Open items §1 items 4 and 6)
+# JAX CLI flags not ported yet (ROADMAP.md, Open items §1 items 3 and 5)
 _UNPORTED = (
-    ("--jit-episode", dict(action="store_true")),
     ("--world", dict(default=None)),
-    ("--checkpoint", dict(default=None)),
-    ("--checkpoint-every", dict(type=int, default=50)),
-    ("--resume", dict(default=None)),
     ("--view", dict(action="store_true")),
     ("--compile-cache", dict(default=None, nargs="?", const="")),
-    ("--profile", dict(default=None)),
 )
 
 
@@ -75,6 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--num-processes", type=int, default=None, help="with --coordinator")
     p.add_argument("--process-id", type=int, default=None, help="with --coordinator")
+    p.add_argument(
+        "--jit-episode", action="store_true",
+        help="run the whole episode on the device: one control cycle captured as a CUDA "
+        "graph and replayed (a loop on the CPU)",
+    )
+    p.add_argument("--checkpoint", default=None, help="checkpoint .npz path")
+    p.add_argument("--checkpoint-every", type=int, default=50)
+    p.add_argument("--resume", default=None, help="resume from checkpoint .npz")
+    p.add_argument("--profile", default=None, help="torch.profiler trace dir")
     for flag, kw in _UNPORTED:
         p.add_argument(flag, help=argparse.SUPPRESS, **kw)
     return p
@@ -133,7 +143,7 @@ def _main(args) -> int:
         print(f"multihost: process {rank}/{world}, world {world}")
         if not is_coordinator():
             # every rank runs the same closed loop; the coordinator owns the files
-            args.traj = args.step_dump_dir = None
+            args.traj = args.step_dump_dir = args.checkpoint = args.profile = None
     try:
         if args.sharded or args.multihost:
             from mppi_gpu_tpu_torch.parallel import ShardedMPPIController
@@ -158,17 +168,44 @@ def _main(args) -> int:
 
 
 def _run(args, ctrl) -> int:
-    from mppi_gpu_tpu_torch.runner import run_closed_loop
+    import time
 
-    result = run_closed_loop(
-        ctrl,
-        max_steps=args.max_steps,
-        traj_csv=args.traj,
-        step_dump_every=args.dump_every if args.step_dump_dir else None,
-        step_dump_dir=args.step_dump_dir,
-        verbose=args.verbose,
-    )
+    from mppi_gpu_tpu_torch.config import ConfigError
+    from mppi_gpu_tpu_torch.io.csvio import write_traj_csv
+    from mppi_gpu_tpu_torch.runner import run_closed_loop, run_episode_jit
+    from mppi_gpu_tpu_torch.utils.timing import profiler_trace
+
+    if args.jit_episode:
+        host_only = [flag for flag, given in (
+            ("-s", args.step_dump_dir), ("--checkpoint", args.checkpoint),
+            ("--resume", args.resume), ("-v", args.verbose)) if given]
+        if host_only:
+            raise ConfigError(f"{', '.join(host_only)}: options of the host loop, which "
+                              "--jit-episode does not run")
+    with profiler_trace(args.profile):
+        if args.jit_episode:
+            t0 = time.perf_counter()
+            result = run_episode_jit(ctrl, num_steps=args.max_steps)
+            wall = time.perf_counter() - t0
+            if args.traj:
+                write_traj_csv(args.traj, result.times, result.xs[1:], result.us)
+        else:
+            result = run_closed_loop(
+                ctrl,
+                max_steps=args.max_steps,
+                traj_csv=args.traj,
+                step_dump_every=args.dump_every if args.step_dump_dir else None,
+                step_dump_dir=args.step_dump_dir,
+                verbose=args.verbose,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every if args.checkpoint else None,
+                resume_from=args.resume,
+            )
     print(f"episode finished: {len(result.us)} control steps")
+    if args.jit_episode:
+        graph = "one CUDA graph of a control cycle, replayed" if ctrl.device.type == "cuda" else "a loop"
+        print(f"device episode on {ctrl.device} ({graph}): {wall:.3f} s, capture and kernel "
+              "build included")
     print(f"final state: {result.final_state}")
     if "mean_ms" in result.solve_ms:
         # the reference's closing metric (src/main.cu:376-379): warm mean;
@@ -189,6 +226,8 @@ def _run(args, ctrl) -> int:
         print(json.dumps(result.solve_ms))
     if args.traj:
         print(f"trajectory written to {args.traj}")
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
     return 0
 
 

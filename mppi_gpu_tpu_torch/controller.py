@@ -234,7 +234,7 @@ class MPPIController:
         return u0.expand(self.cfg.horizon, -1).contiguous()
 
     # -- solves ------------------------------------------------------------
-    def _fused(self, x, U, seed: int, step: int, it: int, eps=None) -> SolveResult:
+    def _fused(self, x, U, seed: int, step, it: int, eps=None) -> SolveResult:
         """The fused kernels (Philox mode, or injected-ε mode with `eps`) and
         the tail: clamp and shift run as torch ops after the kernels."""
         cfg = self.cfg
@@ -245,7 +245,7 @@ class MPPIController:
         )
         return _finish_fused(U, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)
 
-    def _solve_once(self, x: torch.Tensor, U: torch.Tensor, seed: int, step: int, it: int) -> SolveResult:
+    def _solve_once(self, x: torch.Tensor, U: torch.Tensor, seed: int, step, it: int) -> SolveResult:
         if self.rollout_backend == "fused":
             return self._fused(x, U, seed, step, it)
         cfg = self.cfg
@@ -253,30 +253,34 @@ class MPPIController:
         S = rollout_costs(self.dynamics, self.cost, x, U, eps)
         return solve_from_costs(S, eps, U, self.lambda_, self.max_a, clamp=cfg.clamp_action)
 
-    def _eps(self, seed: int, step: int, it: int) -> torch.Tensor:
+    def _eps(self, seed, step, it: int) -> torch.Tensor:
         cfg = self.cfg
         return sample_noise(
             seed, step, it, cfg.horizon, cfg.samples, self.sigma,
             antithetic=cfg.antithetic, ou_beta=cfg.noise_beta,
         )
 
-    def _iterate(self, x: torch.Tensor, U: torch.Tensor, seed: int, step: int) -> torch.Tensor:
+    def _iterate(self, x: torch.Tensor, U: torch.Tensor, seed: int, step) -> torch.Tensor:
         """Iterated MPPI: the first opt_iters − 1 updates of the nominal
         sequence (fresh noise per iteration through the counter's `it`)."""
         for j in range(self.cfg.opt_iters - 1):
             U = self._solve_once(x, U, seed, step, j).info.u_seq
         return U
 
-    def solve(self, x: torch.Tensor, U: torch.Tensor, seed: int, step: int = 0) -> SolveResult:
+    def solve(self, x: torch.Tensor, U: torch.Tensor, seed: int, step=0) -> SolveResult:
         """One control step for noise stream (seed, step). With
         ``opt_iters > 1`` the nominal sequence is updated that many times
         (iteration j draws counter word it = j) before U[0] is executed and
-        the shift happens once; ``SolveInfo`` is the final iteration's."""
+        the shift happens once; ``SolveInfo`` is the final iteration's.
+        `step` is an int or a 0-dim int64 tensor on the controller's device
+        (the same noise bit for bit); either way the solve reads nothing
+        from the device, so a CUDA graph can capture it and replay it with
+        the step its counter holds (``runner.run_episode_jit``)."""
         x = x.to(self.device, torch.float32)
         U = self._iterate(x, U, seed, step)
         return self._solve_once(x, U, seed, step, self.cfg.opt_iters - 1)
 
-    def solve_auto(self, x: torch.Tensor, U: torch.Tensor, step: int) -> SolveResult:
+    def solve_auto(self, x: torch.Tensor, U: torch.Tensor, step) -> SolveResult:
         """:meth:`solve` under the config's seed."""
         return self.solve(x, U, self.cfg.seed, step)
 

@@ -807,7 +807,11 @@ __device__ __forceinline__ void rollout_step(const F& fam, float* x, const float
 // passes 2³¹ elements. `keys` holds every robot's (R,) int64 seed, whose low
 // and high words are its Philox key; null means every robot uses
 // np.key0/np.key1, which is how the single-robot solve runs without a seed
-// tensor on the device. `params` is [σ (A), Σ⁻¹ (A), family part]; `goal`
+// tensor on the device. `step_ptr`, when set, points at the control step (a
+// 0-dim int64 on the device) whose low word replaces np.step: a CUDA graph
+// that captured the launch replays each cycle's step, where a step passed by
+// value would be frozen at the captured one. Every thread reads it once,
+// before its first draw, as it reads its robot's seed. `params` is [σ (A), Σ⁻¹ (A), family part]; `goal`
 // (R, kS) is read by families with kGoal only.
 //
 // K4, the costs-only sweep (PASS2 = false), replaces _rollout_cost_kernel
@@ -818,9 +822,9 @@ template <class F, int A, bool INJ, bool PASS2>
 __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
     const float* __restrict__ x0, const float* __restrict__ U,
     const float* __restrict__ params, const float* __restrict__ goal,
-    const long long* __restrict__ keys, const float* __restrict__ eps_in,
-    float* __restrict__ S_out, float* __restrict__ partials, int T, float dt,
-    float lam_cost, float lam_softmin, NoiseParams np) {
+    const long long* __restrict__ keys, const long long* __restrict__ step_ptr,
+    const float* __restrict__ eps_in, float* __restrict__ S_out, float* __restrict__ partials,
+    int T, float dt, float lam_cost, float lam_softmin, NoiseParams np) {
   constexpr int S_DIM = F::kS;
   extern __shared__ float smem[];
   __shared__ float scratch[kWarps];
@@ -836,6 +840,7 @@ __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
     np.key0 = (unsigned)(seed & 0xFFFFFFFFull);
     np.key1 = (unsigned)(seed >> 32);
   }
+  if (step_ptr != nullptr) np.step = (unsigned)(unsigned long long)*step_ptr;
   float* u_s = smem;         // (T, A) nominal sequence
   float* red = smem + TA;    // (kWarps, T, A) per-warp Σ e·ε
   for (int i = threadIdx.x; i < TA; i += kBlock) u_s[i] = U[i];
@@ -943,9 +948,9 @@ template <class F, int A, bool INJ, bool PASS2>
 __global__ void __launch_bounds__(kSlabThreads, 2) slab_partials_kernel(
     const float* __restrict__ x0, const float* __restrict__ U,
     const float* __restrict__ params, const float* __restrict__ goal,
-    const long long* __restrict__ keys, const float* __restrict__ eps_in,
-    float* __restrict__ S_out, float* __restrict__ partials, int T, float dt,
-    float lam_cost, float lam_softmin, NoiseParams np) {
+    const long long* __restrict__ keys, const long long* __restrict__ step_ptr,
+    const float* __restrict__ eps_in, float* __restrict__ S_out, float* __restrict__ partials,
+    int T, float dt, float lam_cost, float lam_softmin, NoiseParams np) {
   constexpr int S_DIM = F::kS;
   constexpr int G = kSlabRollouts;
   extern __shared__ __align__(16) unsigned long long slab_raw[];
@@ -966,6 +971,7 @@ __global__ void __launch_bounds__(kSlabThreads, 2) slab_partials_kernel(
     np.key0 = (unsigned)(seed & 0xFFFFFFFFull);
     np.key1 = (unsigned)(seed >> 32);
   }
+  if (step_ptr != nullptr) np.step = (unsigned)(unsigned long long)*step_ptr;
   for (int i = threadIdx.x; i < TA; i += kSlabThreads) u_s[i] = U[i];
   for (int c = threadIdx.x; c < chunks; c += kSlabThreads) mbar_init(bars + c, kDrawWarps);
   __syncthreads();
@@ -1372,7 +1378,7 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
 // K1's pointers and scalars, passed through the dispatch below unchanged.
 struct SolveArgs {
   const float *x0, *U, *params, *goal;
-  const long long* keys;
+  const long long *keys, *step_ptr;
   const float* eps_in;
   float *S, *partials;
   int R, T, A;
@@ -1410,7 +1416,8 @@ cudaError_t launch_partials(const SolveArgs& a, const NoiseParams& np, cudaStrea
     cudaError_t err = set_smem(slab_partials_kernel<F, A, INJ, PASS2>, smem);
     if (err != cudaSuccess) return err;
     slab_partials_kernel<F, A, INJ, PASS2><<<grid, kSlabThreads, smem, stream>>>(
-        a.x0, a.U, a.params, a.goal, a.keys, a.eps_in, a.S, a.partials, a.T, a.dt, a.lam_cost,
+        a.x0, a.U, a.params, a.goal, a.keys, a.step_ptr, a.eps_in, a.S, a.partials, a.T, a.dt,
+        a.lam_cost,
         a.lam_softmin, np);
     return cudaGetLastError();
   }
@@ -1420,7 +1427,8 @@ cudaError_t launch_partials(const SolveArgs& a, const NoiseParams& np, cudaStrea
   cudaError_t err = set_smem(solve_partials_kernel<F, A, INJ, PASS2>, smem);
   if (err != cudaSuccess) return err;
   solve_partials_kernel<F, A, INJ, PASS2><<<grid, kBlock, smem, stream>>>(
-      a.x0, a.U, a.params, a.goal, a.keys, a.eps_in, a.S, a.partials, a.T, a.dt, a.lam_cost,
+      a.x0, a.U, a.params, a.goal, a.keys, a.step_ptr, a.eps_in, a.S, a.partials, a.T, a.dt,
+        a.lam_cost,
       a.lam_softmin, np);
   return cudaGetLastError();
 }
@@ -1484,9 +1492,10 @@ extern "C" {
 
 // family (FamilyId), x0 (R, S), U (R, T, A), params [σ (A), Σ⁻¹ (A), family
 // part], goal (R, S) for a family with a goal (all but the pendulum and the
-// cart-pole; else unused, may be null), keys (R,) int64 or null, eps_in (R,
-// T, K, A) or null → S (R, K), partials (R, nb, 2 + T·A); the draws start at
-// counter word k0 (0 on one GPU). S is 2A for LTI
+// cart-pole; else unused, may be null), keys (R,) int64 or null, step_ptr
+// (a 0-dim int64 control step on the device, read in place of `step`) or
+// null, eps_in (R, T, K, A) or null → S (R, K), partials (R, nb, 2 + T·A);
+// the draws start at counter word k0 (0 on one GPU). S is 2A for LTI
 // and LTI with obstacles (A ≤ 4), 2 for the pendulum and 4 for the
 // cart-pole (A = 1), 3 for the unicycle, 6 for the quadrotor and 4 for the
 // arm (A = 2), 13 for the 3-D quadrotor (A = 4). With partials null it
@@ -1494,14 +1503,14 @@ extern "C" {
 // per block, which selects the body: 128 the per-rollout body, 32 the slab
 // body (nb = ceil(K / width)); any other width is refused.
 int mppi_solve_partials(int family, const float* x0, const float* U, const float* params,
-                        const float* goal, const long long* keys, const float* eps_in, float* S,
-                        float* partials, int R, int K, int T, int A, float dt, float lam_cost,
-                        float lam_softmin, unsigned key0, unsigned key1, unsigned step,
-                        unsigned it, unsigned k0, int antithetic, float ou_beta, float ou_c,
-                        int width, void* stream) {
+                        const float* goal, const long long* keys, const long long* step_ptr,
+                        const float* eps_in, float* S, float* partials, int R, int K, int T,
+                        int A, float dt, float lam_cost, float lam_softmin, unsigned key0,
+                        unsigned key1, unsigned step, unsigned it, unsigned k0, int antithetic,
+                        float ou_beta, float ou_c, int width, void* stream) {
   const NoiseParams np = make_noise(key0, key1, step, it, k0, K, antithetic, ou_beta, ou_c);
-  const SolveArgs a{x0, U, params, goal, keys, eps_in, S, partials, R, T, A, dt, lam_cost,
-                    lam_softmin, width};
+  const SolveArgs a{x0, U, params, goal, keys, step_ptr, eps_in, S, partials, R, T, A, dt,
+                    lam_cost, lam_softmin, width};
   return partials != nullptr ? launch_family<true>(family, a, np, (cudaStream_t)stream)
                              : launch_family<false>(family, a, np, (cudaStream_t)stream);
 }

@@ -1,10 +1,13 @@
 """Ground-truth worlds for the closed loop: the torch point-mass, pendulum,
 cart-pole, unicycle, planar-quadrotor, two-link-arm and 3-D quadrotor
-worlds, picked from a config by :func:`make_world` (the obstacle cost's
-point mass runs in the point-mass world).
+worlds, picked from a config by :func:`make_world` (the counterpart of
+``mppi_gpu_tpu.envs.make_jax_world``; the obstacle cost's point mass runs in
+the point-mass world). Each world steps one robot or a fleet of R robots
+(``reset(n_robots)``, ``from_x`` of an (R, s) state) on the host
+(``simulate``) or on the device (``advance``, ``envs/base.py``).
 
 The native C++ world and the MuJoCo plant are not ported yet (ROADMAP.md,
-Open items §1 items 5 and 10).
+Open items §1 items 3 and 5).
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ def params_for_config(cfg):
 
 
 def make_world(cfg, params=None, device: torch.device | str = "cpu"):
-    """The ground-truth world for `params` (default: the config's)."""
+    """The ground-truth world for `params` (default: the config's), its
+    states on `device`."""
     params = params if params is not None else params_for_config(cfg)
     return _WORLDS.get(type(params), PointMassWorld)(params, device)
 

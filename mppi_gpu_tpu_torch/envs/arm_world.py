@@ -5,7 +5,8 @@ equations (the world calls ``TwoLinkArmDynamics._deriv`` and ``_sat`` of
 at 5 ms, the joint rates saturated after each step, the commanded torques
 clamped per joint, four physics steps per control cycle of 1/60 s and 500
 control cycles per episode, starting from the arm hanging straight down.
-State is float32, time included, like the JAX world.
+State is float32, time included, like the JAX world. A fleet of R arms is
+one state whose q is (R, 4), under one shared clock or one clock per robot.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from mppi_gpu_tpu_torch.envs.base import ControlCadence, HostWorld
+from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
 from mppi_gpu_tpu_torch.models.arm import TwoLinkArmDynamics
 
 
@@ -42,7 +43,7 @@ class ArmParams(ControlCadence):
 
 
 class ArmState(NamedTuple):
-    q: torch.Tensor  # (4,) float32 = [q1, q2, q̇1, q̇2]
+    q: torch.Tensor  # (4,) float32 = [q1, q2, q̇1, q̇2], or (R, 4) for a fleet
     time: torch.Tensor
 
     @property
@@ -51,7 +52,7 @@ class ArmState(NamedTuple):
 
 
 @dataclass(frozen=True)
-class ArmWorld(HostWorld):
+class ArmWorld(World):
     params: ArmParams
     device: torch.device | str = "cpu"
 
@@ -79,11 +80,17 @@ class ArmWorld(HostWorld):
             q=self._dyn._sat(y + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)), time=s.time + h
         )
 
-    def reset(self) -> ArmState:
+    def reset(self, n_robots: int | None = None) -> ArmState:
+        """Hanging straight down at rest, time = timestep; with `n_robots`, R
+        arms so."""
         f32 = dict(dtype=torch.float32, device=self.device)
         p = self.params
-        return ArmState(q=torch.tensor(p.init_state, **f32), time=torch.tensor(p.timestep, **f32))
+        q = torch.tensor(p.init_state, **f32)
+        if n_robots is not None:
+            q = q.expand(n_robots, -1).contiguous()
+        return ArmState(q=q, time=torch.tensor(p.timestep, **f32))
 
-    def from_x(self, x: torch.Tensor, time: torch.Tensor) -> ArmState:
-        """The state whose [q1, q2, q̇1, q̇2] is `x` at `time`."""
-        return ArmState(q=x, time=time)
+    def from_x(self, x: torch.Tensor, time) -> ArmState:
+        """The state whose [q1, q2, q̇1, q̇2] is `x` ((4,) or (R, 4)) at
+        `time`."""
+        return ArmState(q=x, time=clock(time, x.device))

@@ -4,7 +4,9 @@
 the actuator clamp and a hard track limit (the cart is clamped at
 ±track_limit and its velocity zeroed at the stop), four physics steps per
 control cycle of 1/60 s and 500 control cycles per episode. State is
-float32, time included, like the JAX world.
+float32, time included, like the JAX world. A fleet of R cart-poles is one
+state whose four leaves are (R,), under one shared clock or one clock per
+robot.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from mppi_gpu_tpu_torch.envs.base import ControlCadence, HostWorld
+from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
 
 
 @dataclass(frozen=True)
@@ -36,7 +38,7 @@ class CartPoleParams(ControlCadence):
 
 
 class CartPoleState(NamedTuple):
-    p: torch.Tensor     # 0-dim float32
+    p: torch.Tensor     # 0-dim float32, or (R,) for a fleet
     th: torch.Tensor
     pd: torch.Tensor
     thd: torch.Tensor
@@ -44,11 +46,12 @@ class CartPoleState(NamedTuple):
 
     @property
     def x(self) -> torch.Tensor:
-        return torch.stack([self.p, self.th, self.pd, self.thd])
+        """[p, θ, ṗ, θ̇]: (4,), or (R, 4) for a fleet."""
+        return torch.stack([self.p, self.th, self.pd, self.thd], dim=-1)
 
 
 @dataclass(frozen=True)
-class CartPoleWorld(HostWorld):
+class CartPoleWorld(World):
     params: CartPoleParams
     device: torch.device | str = "cpu"
 
@@ -86,15 +89,18 @@ class CartPoleWorld(HostWorld):
         pd = torch.where(hit, torch.zeros_like(pd), pd)
         return CartPoleState(p=p, th=th, pd=pd, thd=thd, time=s.time + h)
 
-    def reset(self) -> CartPoleState:
+    def reset(self, n_robots: int | None = None) -> CartPoleState:
+        """Centred, the pole tilted by init_theta, at rest, time = timestep;
+        with `n_robots`, R cart-poles so."""
         f32 = dict(dtype=torch.float32, device=self.device)
         pp = self.params
-        z = torch.tensor(0.0, **f32)
+        shape = () if n_robots is None else (n_robots,)
+        z = torch.zeros(shape, **f32)
         return CartPoleState(
-            p=z, th=torch.tensor(pp.init_theta, **f32), pd=z, thd=z,
+            p=z, th=torch.full(shape, pp.init_theta, **f32), pd=z, thd=z,
             time=torch.tensor(pp.timestep, **f32),
         )
 
-    def from_x(self, x: torch.Tensor, time: torch.Tensor) -> CartPoleState:
-        """The state whose [p, θ, ṗ, θ̇] is `x` at `time`."""
-        return CartPoleState(p=x[0], th=x[1], pd=x[2], thd=x[3], time=time)
+    def from_x(self, x: torch.Tensor, time) -> CartPoleState:
+        """The state whose [p, θ, ṗ, θ̇] is `x` ((4,) or (R, 4)) at `time`."""
+        return CartPoleState(*x.unbind(-1), time=clock(time, x.device))

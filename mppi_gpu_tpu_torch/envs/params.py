@@ -61,7 +61,7 @@ class WorldParams(ControlCadence):
 def world_params_for_config(cfg: MPPIConfig) -> WorldParams:
     """World params for a point-mass config: the built-in constants above,
     keyed by the config's dimensionality. An ``env`` that points at a MuJoCo
-    XML is not ported yet (ROADMAP.md, Open items §1 item 10)."""
+    XML is not ported yet (ROADMAP.md, Open items §1 item 5)."""
     if str(cfg.env).endswith(".xml"):
         raise NotImplementedError(
             f"config env '{cfg.env}' is a MuJoCo XML; XML worlds are not ported "

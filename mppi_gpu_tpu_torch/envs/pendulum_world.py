@@ -3,7 +3,8 @@
 (``models/pendulum.py``) integrated with RK4 at a 10× finer timestep, with the
 actuator clamp, four physics steps per control cycle of 1/60 s and 500
 control cycles per episode. State is float32, time included, like the JAX
-world.
+world. A fleet of R pendulums is one state whose θ and θ̇ are (R,), under one
+shared clock or one clock per robot.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from mppi_gpu_tpu_torch.envs.base import ControlCadence, HostWorld
+from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
 
 
 @dataclass(frozen=True)
@@ -34,17 +35,18 @@ class PendulumParams(ControlCadence):
 
 
 class PendulumState(NamedTuple):
-    th: torch.Tensor    # 0-dim float32
+    th: torch.Tensor    # 0-dim float32, or (R,) for a fleet
     thd: torch.Tensor
     time: torch.Tensor
 
     @property
     def x(self) -> torch.Tensor:
-        return torch.stack([self.th, self.thd])
+        """[θ, θ̇]: (2,), or (R, 2) for a fleet."""
+        return torch.stack([self.th, self.thd], dim=-1)
 
 
 @dataclass(frozen=True)
-class PendulumWorld(HostWorld):
+class PendulumWorld(World):
     params: PendulumParams
     device: torch.device | str = "cpu"
 
@@ -71,14 +73,17 @@ class PendulumWorld(HostWorld):
             time=s.time + h,
         )
 
-    def reset(self) -> PendulumState:
+    def reset(self, n_robots: int | None = None) -> PendulumState:
+        """Hanging down at rest, time = timestep; with `n_robots`, R pendulums
+        so."""
         f32 = dict(dtype=torch.float32, device=self.device)
         p = self.params
+        shape = () if n_robots is None else (n_robots,)
         return PendulumState(
-            th=torch.tensor(p.init_theta, **f32), thd=torch.tensor(0.0, **f32),
+            th=torch.full(shape, p.init_theta, **f32), thd=torch.zeros(shape, **f32),
             time=torch.tensor(p.timestep, **f32),
         )
 
-    def from_x(self, x: torch.Tensor, time: torch.Tensor) -> PendulumState:
-        """The state whose [θ, θ̇] is `x` at `time`."""
-        return PendulumState(th=x[0], thd=x[1], time=time)
+    def from_x(self, x: torch.Tensor, time) -> PendulumState:
+        """The state whose [θ, θ̇] is `x` ((2,) or (R, 2)) at `time`."""
+        return PendulumState(th=x[..., 0], thd=x[..., 1], time=clock(time, x.device))

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from mppi_gpu_tpu_torch.envs.base import HostWorld
+from mppi_gpu_tpu_torch.envs.base import World, clock
 from mppi_gpu_tpu_torch.envs.params import WorldParams
 
 
@@ -38,7 +38,7 @@ class WorldState(NamedTuple):
 
 
 @dataclass(frozen=True)
-class PointMassWorld(HostWorld):
+class PointMassWorld(World):
     params: WorldParams
     device: torch.device | str = "cpu"
 
@@ -73,18 +73,8 @@ class PointMassWorld(HostWorld):
             time=torch.tensor(self.params.timestep, **f32),
         )
 
-    def from_x(self, x: torch.Tensor, time: torch.Tensor) -> WorldState:
+    def from_x(self, x: torch.Tensor, time) -> WorldState:
         """The state whose [qpos, qvel] is `x` ((s,) or (R, s)) at `time`."""
         n = self.params.n_axes
-        return WorldState(q=x[..., :n].contiguous(), qd=x[..., n:].contiguous(), time=time)
-
-    def advance(self, state: WorldState, u: torch.Tensor) -> WorldState:
-        """:meth:`simulate` without the host's look at the clock: the end of
-        the episode is decided on the device, where a state at or past
-        `sim_end` is held (the JAX world's `simulate` under jit). One control
-        cycle queues its work and never waits for the device."""
-        new = state
-        for _ in range(self.params.steps_per_control):
-            new = self.physics_step(new, u)
-        done = state.time >= self.params.sim_end
-        return WorldState(*(torch.where(done, old, nxt) for old, nxt in zip(state, new)))
+        return WorldState(q=x[..., :n].contiguous(), qd=x[..., n:].contiguous(),
+                          time=clock(time, x.device))

@@ -4,7 +4,9 @@
 per control cycle of 1/60 s and 500 control cycles per episode. The world is
 the mixer and the rotors: the command (F, D) becomes per-rotor thrusts
 (F ± D)/2, each clamped to [0, max_thrust] (the model is unclamped). State
-is float32, time included, like the JAX world.
+is float32, time included, like the JAX world. A fleet of R quadrotors is
+one state whose six leaves are (R,), under one shared clock or one clock per
+robot.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from mppi_gpu_tpu_torch.envs.base import ControlCadence, HostWorld
+from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
 
 
 @dataclass(frozen=True)
@@ -36,7 +38,7 @@ class QuadrotorParams(ControlCadence):
 
 
 class QuadrotorState(NamedTuple):
-    px: torch.Tensor  # 0-dim float32
+    px: torch.Tensor  # 0-dim float32, or (R,) for a fleet
     pz: torch.Tensor
     th: torch.Tensor
     vx: torch.Tensor
@@ -46,11 +48,12 @@ class QuadrotorState(NamedTuple):
 
     @property
     def x(self) -> torch.Tensor:
-        return torch.stack([self.px, self.pz, self.th, self.vx, self.vz, self.om])
+        """[px, pz, θ, vx, vz, ω]: (6,), or (R, 6) for a fleet."""
+        return torch.stack([self.px, self.pz, self.th, self.vx, self.vz, self.om], dim=-1)
 
 
 @dataclass(frozen=True)
-class QuadrotorWorld(HostWorld):
+class QuadrotorWorld(World):
     params: QuadrotorParams
     device: torch.device | str = "cpu"
 
@@ -84,15 +87,19 @@ class QuadrotorWorld(HostWorld):
         )
         return QuadrotorState(px=px, pz=pz, th=th, vx=vx, vz=vz, om=om, time=s.time + h)
 
-    def reset(self) -> QuadrotorState:
+    def reset(self, n_robots: int | None = None) -> QuadrotorState:
+        """At (init_x, init_z), level, at rest, time = timestep; with
+        `n_robots`, R quadrotors so."""
         f32 = dict(dtype=torch.float32, device=self.device)
         p = self.params
-        z = torch.tensor(0.0, **f32)
+        shape = () if n_robots is None else (n_robots,)
+        z = torch.zeros(shape, **f32)
         return QuadrotorState(
-            px=torch.tensor(p.init_x, **f32), pz=torch.tensor(p.init_z, **f32), th=z, vx=z,
-            vz=z, om=z, time=torch.tensor(p.timestep, **f32),
+            px=torch.full(shape, p.init_x, **f32), pz=torch.full(shape, p.init_z, **f32), th=z,
+            vx=z, vz=z, om=z, time=torch.tensor(p.timestep, **f32),
         )
 
-    def from_x(self, x: torch.Tensor, time: torch.Tensor) -> QuadrotorState:
-        """The state whose [px, pz, θ, vx, vz, ω] is `x` at `time`."""
-        return QuadrotorState(*x, time=time)
+    def from_x(self, x: torch.Tensor, time) -> QuadrotorState:
+        """The state whose [px, pz, θ, vx, vz, ω] is `x` ((6,) or (R, 6)) at
+        `time`."""
+        return QuadrotorState(*x.unbind(-1), time=clock(time, x.device))

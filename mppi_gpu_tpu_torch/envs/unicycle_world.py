@@ -3,7 +3,8 @@
 (``models/unicycle.py``) integrated with RK4 at a 10× finer timestep, with
 the commanded forward speed and turn rate clamped, four physics steps per
 control cycle of 1/60 s and 500 control cycles per episode. State is
-float32, time included, like the JAX world.
+float32, time included, like the JAX world. A fleet of R unicycles is one
+state whose pose is (R, 3), under one shared clock or one clock per robot.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from mppi_gpu_tpu_torch.envs.base import ControlCadence, HostWorld
+from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
 
 
 @dataclass(frozen=True)
@@ -31,7 +32,7 @@ class UnicycleParams(ControlCadence):
 
 
 class UnicycleState(NamedTuple):
-    pose: torch.Tensor  # (3,) float32 = [px, py, θ]
+    pose: torch.Tensor  # (3,) float32 = [px, py, θ], or (R, 3) for a fleet
     time: torch.Tensor
 
     @property
@@ -40,7 +41,7 @@ class UnicycleState(NamedTuple):
 
 
 @dataclass(frozen=True)
-class UnicycleWorld(HostWorld):
+class UnicycleWorld(World):
     params: UnicycleParams
     device: torch.device | str = "cpu"
 
@@ -61,13 +62,15 @@ class UnicycleWorld(HostWorld):
         k4 = self._deriv(y + h * k3, v, w)
         return UnicycleState(pose=y + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4), time=s.time + h)
 
-    def reset(self) -> UnicycleState:
+    def reset(self, n_robots: int | None = None) -> UnicycleState:
+        """At init_pose, time = timestep; with `n_robots`, R unicycles so."""
         f32 = dict(dtype=torch.float32, device=self.device)
         p = self.params
-        return UnicycleState(
-            pose=torch.tensor(p.init_pose, **f32), time=torch.tensor(p.timestep, **f32)
-        )
+        pose = torch.tensor(p.init_pose, **f32)
+        if n_robots is not None:
+            pose = pose.expand(n_robots, -1).contiguous()
+        return UnicycleState(pose=pose, time=torch.tensor(p.timestep, **f32))
 
-    def from_x(self, x: torch.Tensor, time: torch.Tensor) -> UnicycleState:
-        """The state whose [px, py, θ] is `x` at `time`."""
-        return UnicycleState(pose=x, time=time)
+    def from_x(self, x: torch.Tensor, time) -> UnicycleState:
+        """The state whose [px, py, θ] is `x` ((3,) or (R, 3)) at `time`."""
+        return UnicycleState(pose=x, time=clock(time, x.device))

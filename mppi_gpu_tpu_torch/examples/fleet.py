@@ -1,15 +1,19 @@
-"""Multi-robot fleet control: R independent point-mass robots, each with its
-own goal on a circle of radius 0.8 m, all solved in one launch of the fused
-kernels per control step (``BatchedMPPIController``; counterpart of the
-repo's ``examples/fleet.py``).
+"""Multi-robot fleet control: R independent robots, all solved in one launch
+of the fused kernels per control step (``BatchedMPPIController``;
+counterpart of the repo's ``examples/fleet.py``). Point-mass robots each
+have their own goal on a circle of radius 0.8 m; a fleet of any other
+family's config runs R copies of its task (the config's goal, if its cost
+has one) from the world's start.
 
-Run:  python -m mppi_gpu_tpu_torch.examples.fleet [-n 8] [--steps 120] [--episode]
+Run:  python -m mppi_gpu_tpu_torch.examples.fleet [-c CONFIG] [-n 8] [--steps 120] [--episode]
       (``--device cpu --rollout-backend eager`` runs it on the CPU)
 
 The host loop steps the batched world after each fleet solve and checks the
 episode's end on the host; ``--episode`` runs ``run_fleet_episode``, which
-keeps the whole loop on the device (the counterpart of ``--jit``). Exits 0
-when the robots' mean distance to their goals ends below 0.75 m.
+keeps the whole loop on the device, one CUDA graph of a control cycle
+replayed per step (the counterpart of ``--jit``). Exits 0 when the
+point-mass robots' mean distance to their goals ends below 0.75 m, or when
+every state of another family's fleet is finite.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from mppi_gpu_tpu_torch.batched import BatchedMPPIController
 from mppi_gpu_tpu_torch.config import load_config
 from mppi_gpu_tpu_torch.controller import BACKENDS
-from mppi_gpu_tpu_torch.envs import PointMassWorld, world_params_for_config
+from mppi_gpu_tpu_torch.envs import WorldParams, make_world, params_for_config
 from mppi_gpu_tpu_torch.runner import run_fleet_episode
 from mppi_gpu_tpu_torch.utils.timing import SolveTimer
 
@@ -58,9 +62,10 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     cfg = load_config(args.config)
     R = args.robots
-    goals = circle_goals(R, cfg.state_dim)
+    point_mass = isinstance(params_for_config(cfg), WorldParams)
+    goals = circle_goals(R, cfg.state_dim) if point_mass else None
     fleet = BatchedMPPIController(
-        cfg, R, goals=torch.from_numpy(goals), device=device,
+        cfg, R, goals=None if goals is None else torch.from_numpy(goals), device=device,
         rollout_backend=args.rollout_backend,
     )
     print(f"{R} robots, {cfg.env} K={cfg.samples} T={cfg.horizon}, "
@@ -73,7 +78,7 @@ def main(argv: list[str] | None = None) -> int:
         final = res.xs[-1]
         print(f"{R} robots x {args.steps} steps as one device episode in {dt:.2f} s")
     else:
-        world = PointMassWorld(world_params_for_config(cfg), device=device)
+        world = make_world(cfg, device=device)
         state = world.reset(R)
         Us, seeds = fleet.init_action_seqs(), fleet.init_seeds()
         timer = SolveTimer(device)
@@ -91,6 +96,10 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{R} robots x {args.steps} steps in {dt:.2f} s "
               f"({dt / args.steps * 1e3:.2f} ms/fleet-step incl. world); fleet solve "
               f"{ms.get('mean_ms', float('nan')):.3f} ms mean (warm)")
+    if not point_mass:
+        for i in range(R):
+            print(f"  robot {i}: final state {np.array2string(final[i], precision=3, max_line_width=200)}")
+        return 0 if np.isfinite(final).all() else 1
     dist = np.linalg.norm(final[:, :2] - goals[:, :2], axis=1)
     for i in range(R):
         print(f"  robot {i}: goal ({goals[i, 0]:+.2f},{goals[i, 1]:+.2f})  "

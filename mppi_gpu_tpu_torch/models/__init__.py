@@ -2,7 +2,7 @@
 
 The point-mass LTI, pendulum, cart-pole, unicycle, planar-quadrotor,
 two-link-arm and 3-D quadrotor families are ported; the neural models are
-still to port (ROADMAP.md, Open items §1 item 8).
+still to port (ROADMAP.md, Open items §1 item 4).
 """
 
 from __future__ import annotations

@@ -37,7 +37,7 @@ _p, _i, _u, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # (argtypes, restype) of every C entry; pointers and the stream as c_void_p
 _SIGNATURES = {
     "mppi_solve_partials": (
-        [_i] + [_p] * 8 + [_i, _i, _i, _i, _f, _f, _f, _u, _u, _u, _u, _u, _i, _f, _f, _i, _p], _i,
+        [_i] + [_p] * 9 + [_i, _i, _i, _i, _f, _f, _f, _u, _u, _u, _u, _u, _i, _f, _f, _i, _p], _i,
     ),
     "mppi_softmin_combine": ([_p, _i, _i, _i, _f, _i, _p, _p, _p], _i),
     "mppi_noise_dump": ([_p, _p, _p, _i, _i, _i, _u, _u, _u, _u, _u, _i, _f, _f, _p], _i),

@@ -40,7 +40,9 @@ that device and torch's current stream there (:func:`_launch`, whatever
 device the calling thread had selected), through one launcher per kernel
 (K1's serves K4 too), which counts the
 launch under the kernel's name (:func:`launch_counts`; K1's and K4's also
-by family, :func:`family_launch_counts`); on CPU tensors it runs the plain
+by family, :func:`family_launch_counts`). A launch made while the stream
+captures a CUDA graph runs nothing and counts nothing; the graph's replays
+run it, and only a trace sees those. On CPU tensors it runs the plain
 version: for K1 the family's eager model and cost through
 ``ops/rollout.rollout_costs`` and the same per-block partials, for the fleet
 robot by robot. Any other placement, dtype, shape or layout raises. There
@@ -56,7 +58,11 @@ width. ΔU at two widths differs by rounding only. A body that fails to
 build or launch raises: nothing falls back to the other body.
 
 Noise: ``eps=None`` is the Philox mode (production): ε is generated in the
-kernel from (seed, step, it), robot r under its own seed; the single-robot
+kernel from (seed, step, it), robot r under its own seed. K1's and K4's
+wrappers take the control step as an int, passed by value, or as a 0-dim
+int64 tensor on the inputs' device, whose address K1 reads the step from
+(the S of both forms is the same bit for bit): a captured CUDA graph replays
+the step its counter holds (``runner.run_episode_jit``). The single-robot
 wrappers take a draw offset ``k0`` (counter word 0 = k0 + draw index, 0 on
 one GPU) with which a rank of the sharded solve draws its part of the
 stream. ``eps`` given is the injected-ε mode for parity tests: a (T, K, A)
@@ -149,6 +155,16 @@ def _check_fleet(R: int) -> None:
         raise ValueError(f"the fused solve takes 1 <= R <= {MAX_ROBOTS} robots, got R={R}")
 
 
+def _step_tensors(step) -> tuple[torch.Tensor, ...]:
+    """`step` as the tensors a wrapper checks the placement of: () for an
+    int, (step,) for a 0-dim int64 tensor; anything else raises."""
+    if not isinstance(step, torch.Tensor):
+        return ()
+    if step.dtype != torch.int64 or step.dim() != 0:
+        raise TypeError(f"a step tensor is 0-dim int64, got {step.dtype} of shape {tuple(step.shape)}")
+    return (step,)
+
+
 def _check_seeds(seeds, R: int) -> None:
     """`seeds` is one int shared by every robot, or an (R,) int64 tensor."""
     if not isinstance(seeds, torch.Tensor):
@@ -163,15 +179,19 @@ def _robot_seeds(seeds, R: int) -> list[int]:
     return seeds.tolist() if isinstance(seeds, torch.Tensor) else [int(seeds)] * R
 
 
-def _launch(kernel: str, entry, device: torch.device, *args) -> None:
+def _launch(kernel: str, entry, device: torch.device, *args) -> bool:
     """Call the C entry `entry` on `args` and torch's current stream on
     `device`, the device of the kernel's tensors, with the CUDA runtime's
     current device set to it: ``<<<>>>`` launches there, whatever device the
-    calling thread had selected. Raises if `kernel` failed to launch."""
+    calling thread had selected. Raises if `kernel` failed to launch.
+    Returns whether the kernel ran: False when the stream was capturing a
+    CUDA graph, which only records the launch."""
     with torch.cuda.device(device):
         err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+        captured = torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: cudaError_t {err}")
+    return not captured
 
 
 # --------------------------------------------------------------------------
@@ -210,9 +230,10 @@ def _check_goal(fam: FusedFamily, goal) -> None:
         raise ValueError(f"the {fam.name} family's cost aims at a goal: pass one per robot")
 
 
-def _solo_on_cuda(fam: FusedFamily, x0, U, goal, K: int, antithetic: bool, eps) -> bool:
+def _solo_on_cuda(fam: FusedFamily, x0, U, goal, K: int, antithetic: bool, eps, step=0) -> bool:
     """Check one robot's inputs (x0 (S,), U (T, A), goal (S,) for a family
-    with a goal, eps (T, K, A) or None); True if they lie on a CUDA device."""
+    with a goal, eps (T, K, A) or None, the step); True if they lie on a CUDA
+    device."""
     T, A = U.shape if U.dim() == 2 else (-1, -1)
     _check_family(fam, T, A, K, antithetic)
     _check_goal(fam, goal)
@@ -223,13 +244,15 @@ def _solo_on_cuda(fam: FusedFamily, x0, U, goal, K: int, antithetic: bool, eps) 
         (("eps", eps, (T, K, A)),) if eps is not None else ()
     ):
         _check(name, t, shape)
-    return _on_cuda(*(t for t in (x0, U, fam.params, goal, eps) if t is not None))
+    return _on_cuda(*(t for t in (x0, U, fam.params, goal, eps) if t is not None),
+                    *_step_tensors(step))
 
 
-def _fleet_on_cuda(fam: FusedFamily, xs, Us, goals, K: int, seeds, antithetic: bool, eps) -> bool:
+def _fleet_on_cuda(fam: FusedFamily, xs, Us, goals, K: int, seeds, antithetic: bool, eps,
+                   step=0) -> bool:
     """Check a fleet's inputs (xs (R, S), Us (R, T, A), goals (R, S) for a
-    family with a goal, seeds, eps (R, T, K, A) or None); True if they lie on
-    a CUDA device."""
+    family with a goal, seeds, eps (R, T, K, A) or None, the step); True if
+    they lie on a CUDA device."""
     if Us.dim() != 3:
         raise ValueError(f"Us must be (R, T, A), got {tuple(Us.shape)}")
     R, T, A = Us.shape
@@ -245,7 +268,8 @@ def _fleet_on_cuda(fam: FusedFamily, xs, Us, goals, K: int, seeds, antithetic: b
         _check(name, t, shape)
     _check_seeds(seeds, R)
     per_robot = seeds if isinstance(seeds, torch.Tensor) else None
-    return _on_cuda(*(t for t in (xs, Us, fam.params, goals, eps, per_robot) if t is not None))
+    return _on_cuda(*(t for t in (xs, Us, fam.params, goals, eps, per_robot) if t is not None),
+                    *_step_tensors(step))
 
 
 def slab_bytes(T: int, A: int) -> int:
@@ -357,9 +381,10 @@ def _launch_solve_partials(
     alone) when `lam_softmin` is None; the outputs get the leading shape
     `lead`: () for the single-robot wrappers, (R,) for the fleet's. The body
     is :func:`block_width`'s, unless `width` forces one (chip_smoke.py times
-    both bodies at one shape with it). Returns ``(S, partials)`` from K1, S
-    from K4. Counts the launch under its kernel, in total, for the family and
-    for the width."""
+    both bodies at one shape with it). A step tensor goes to the kernel by
+    its address (``step_ptr``), an int by value. Returns ``(S, partials)``
+    from K1, S from K4. Counts the launch under its kernel, in total, for the
+    family and for the width."""
     T, A = Us.shape[-2:]
     pass2 = lam_softmin is not None
     if width is None:
@@ -377,24 +402,27 @@ def _launch_solve_partials(
     lib = load_library()
     nb = -(-K // width)
     per_robot = isinstance(seeds, torch.Tensor)
+    step_ptr = isinstance(step, torch.Tensor)
     S = torch.empty(*lead, K, dtype=torch.float32, device=Us.device)
     partials = (torch.empty(*lead, nb, 2 + T * A, dtype=torch.float32, device=Us.device)
                 if pass2 else None)
     kernel = "solve_partials" if pass2 else "rollout_costs"
-    _launch(
+    ran = _launch(
         f"{kernel}<{fam.name}>", lib.mppi_solve_partials, Us.device,
         fam.fid, xs.data_ptr(), Us.data_ptr(), fam.params.data_ptr(),
         goals.data_ptr() if goals is not None else None,
-        seeds.data_ptr() if per_robot else None,
+        seeds.data_ptr() if per_robot else None, step.data_ptr() if step_ptr else None,
         eps.data_ptr() if eps is not None else None, S.data_ptr(),
         partials.data_ptr() if pass2 else None,
         R, K, T, A, fam.dt, fam.lam_cost, float(lam_softmin) if pass2 else 1.0,
-        *_noise_words(0 if per_robot else int(seeds), step, it), philox.draw_offset(k0),
+        *_noise_words(0 if per_robot else int(seeds), 0 if step_ptr else step, it),
+        philox.draw_offset(k0),
         int(antithetic), float(ou_beta), _ou_c(ou_beta), width,
     )
-    _LAUNCHES[kernel] += 1
-    _FAMILY_LAUNCHES[kernel][fam.name] += 1
-    _WIDTH_LAUNCHES[kernel][width] += 1
+    if ran:
+        _LAUNCHES[kernel] += 1
+        _FAMILY_LAUNCHES[kernel][fam.name] += 1
+        _WIDTH_LAUNCHES[kernel][width] += 1
     return (S, partials) if pass2 else S
 
 
@@ -405,9 +433,10 @@ def family_solve_partials(
     """K1 for one robot of family `fam` (the R = 1 launch of the fleet
     kernel) on CUDA tensors, its plain version on CPU tensors. x0 (S,),
     U (T, A), goal (S,) for a family with a goal, else None; the draws start
-    at counter word k0; see :func:`family_solve_partials_reference` for the
+    at counter word k0; `step` is an int or a 0-dim int64 tensor on the
+    inputs' device; see :func:`family_solve_partials_reference` for the
     outputs."""
-    if not _solo_on_cuda(fam, x0, U, goal, K, antithetic, eps):
+    if not _solo_on_cuda(fam, x0, U, goal, K, antithetic, eps, step):
         return family_solve_partials_reference(
             fam, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta, eps, k0,
         )
@@ -429,7 +458,7 @@ def fleet_family_solve_partials(
     The block width is the fleet's (:func:`block_width` of `n_robots`, the
     whole fleet's size where these R robots are a slice of it; R if None).
     Returns ``(S (R, K), partials (R, nb, 2 + T·A))``."""
-    if not _fleet_on_cuda(fam, xs, Us, goals, K, seeds, antithetic, eps):
+    if not _fleet_on_cuda(fam, xs, Us, goals, K, seeds, antithetic, eps, step):
         return fleet_family_solve_partials_reference(
             fam, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta, eps,
             n_robots,
@@ -472,7 +501,7 @@ def fused_rollout_costs(
     its plain version on CPU tensors: the rollout costs S (K,) of the solve
     :func:`family_solve_partials` would run on the same inputs, and nothing
     else. Arguments as there, without λ_softmin."""
-    if not _solo_on_cuda(fam, x0, U, goal, K, antithetic, eps):
+    if not _solo_on_cuda(fam, x0, U, goal, K, antithetic, eps, step):
         return rollout_costs_reference(
             fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps, k0,
         )
@@ -487,7 +516,7 @@ def fleet_rollout_costs(
     """K4 for R robots in one launch on CUDA tensors, its plain version on CPU
     tensors: S (R, K); arguments as :func:`fleet_family_solve_partials`,
     without λ_softmin."""
-    if not _fleet_on_cuda(fam, xs, Us, goals, K, seeds, antithetic, eps):
+    if not _fleet_on_cuda(fam, xs, Us, goals, K, seeds, antithetic, eps, step):
         return fleet_rollout_costs_reference(
             fam, xs, Us, goals, K, seeds, step, it, antithetic, ou_beta, eps,
         )
@@ -539,12 +568,12 @@ def _launch_softmin_combine(
     lib = load_library()
     beta_eta = torch.empty(*lead, 2, dtype=torch.float32, device=partials.device)
     dU = torch.empty(*lead, T, A, dtype=torch.float32, device=partials.device)
-    _launch(
+    if _launch(
         "softmin_combine", lib.mppi_softmin_combine, partials.device,
         partials.data_ptr(), R, nb, T * A, float(lam_softmin), int(normalize),
         beta_eta.data_ptr(), dU.data_ptr(),
-    )
-    _LAUNCHES["softmin_combine"] += 1
+    ):
+        _LAUNCHES["softmin_combine"] += 1
     return beta_eta, dU
 
 
@@ -715,13 +744,13 @@ def noise_dump(
         torch.empty(T, K_draw, 4, dtype=torch.int32, device=sigma.device)
         if words else None
     )
-    _launch(
+    if _launch(
         "noise_dump", lib.mppi_noise_dump, sigma.device,
         sigma.data_ptr(), eps.data_ptr(), w_out.data_ptr() if words else None,
         K, T, A, *_noise_words(seed, step, it), philox.draw_offset(k0), int(antithetic),
         float(ou_beta), _ou_c(ou_beta),
-    )
-    _LAUNCHES["noise_dump"] += 1
+    ):
+        _LAUNCHES["noise_dump"] += 1
     if not words:
         return eps
     return eps, w_out.to(torch.int64) & 0xFFFFFFFF
@@ -805,13 +834,13 @@ def weighted_update(
 
     lib = load_library()
     partials = torch.empty(nb, 2 + T * A, dtype=torch.float32, device=w.device)
-    _launch(
+    if _launch(
         f"weighted_update<A={A}>", lib.mppi_weighted_update, w.device,
         sigma.data_ptr(), w.data_ptr(), eps.data_ptr() if eps is not None else None,
         partials.data_ptr(), K, T, A, *_noise_words(seed, step, it), philox.draw_offset(k0),
         int(fold), float(ou_beta), _ou_c(ou_beta),
-    )
-    _LAUNCHES["weighted_update"] += 1
+    ):
+        _LAUNCHES["weighted_update"] += 1
     return _launch_softmin_combine(partials, 1.0, 1, T, A, (), normalize=False)[1]
 
 

@@ -27,6 +27,11 @@ Fleets: robot r draws the stream above under its own seed ``fleet_seeds(seed,
 R)[r]`` (:func:`fleet_seeds`), so its noise is exactly the single-robot
 stream of that seed, whatever the fleet around it.
 
+The seed and the control step are ints, or 0-dim int64 tensors holding them
+(a replayed CUDA graph reads the step of each cycle from device memory, and
+the eager fleet keeps its robots' seeds on the device); both forms give the
+same words bit for bit.
+
 uint32 words live in int64 tensors. The 32×32→64 multiply of a Philox round
 would overflow int64, so it runs on 16-bit limbs (:func:`_mulhilo`).
 """
@@ -60,11 +65,12 @@ def _mulhilo(m: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def philox4x32(
     ctr: tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
-    key: tuple[int, int],
+    key: tuple,
     rounds: int = 10,
 ) -> tuple[torch.Tensor, ...]:
     """Philox4x32-R (Salmon et al., SC'11; Random123) on int64 tensors
-    holding uint32 words. Returns the four output words."""
+    holding uint32 words, under a key of two uint32 words (ints or 0-dim
+    int64 tensors). Returns the four output words."""
     c0, c1, c2, c3 = ctr
     k0, k1 = key
     for r in range(rounds):
@@ -84,21 +90,38 @@ def draw_offset(k0: int) -> int:
     return int(k0)
 
 
+def _seed_key(seed) -> tuple:
+    """The Philox key (low word, high word) of a 64-bit seed: ints for an int,
+    0-dim int64 tensors for a 0-dim int64 tensor (its two's-complement
+    words, as K1 reads a robot's seed)."""
+    if isinstance(seed, torch.Tensor):
+        return seed & _MASK32, (seed >> 32) & _MASK32
+    seed &= (1 << 64) - 1
+    return seed & _MASK32, seed >> 32
+
+
+def _counter_word(v, shape: tuple[int, ...], device) -> torch.Tensor:
+    """Counter word `v` (an int, or a 0-dim int64 tensor) modulo 2³² over
+    `shape`, without a copy from the host when `v` is a tensor."""
+    if isinstance(v, torch.Tensor):
+        return (v.to(device=device, dtype=torch.int64) & _MASK32).expand(shape)
+    return torch.full(shape, v & _MASK32, dtype=torch.int64, device=device)
+
+
 def philox_words(
-    seed: int, step: int, it: int, T: int, K_draw: int, device: torch.device | str,
+    seed, step, it: int, T: int, K_draw: int, device: torch.device | str,
     k0: int = 0,
 ) -> torch.Tensor:
     """(T, K_draw, 4) int64: the four uint32 words of counter
-    (k0 + k, t, step, it) under key (seed low, seed high)."""
+    (k0 + k, t, step, it) under key (seed low, seed high); `seed` and `step`
+    are ints or 0-dim int64 tensors."""
     k0 = draw_offset(k0)
-    seed &= (1 << 64) - 1
-    key = (seed & _MASK32, seed >> 32)
     i64 = dict(dtype=torch.int64, device=device)
     k = ((torch.arange(K_draw, **i64) + k0) & _MASK32).expand(T, K_draw)
     t = torch.arange(T, **i64)[:, None].expand(T, K_draw)
-    c2 = torch.full((T, K_draw), step & _MASK32, **i64)
-    c3 = torch.full((T, K_draw), it & _MASK32, **i64)
-    return torch.stack(philox4x32((k, t, c2, c3), key), dim=-1)
+    c2 = _counter_word(step, (T, K_draw), device)
+    c3 = _counter_word(it, (T, K_draw), device)
+    return torch.stack(philox4x32((k, t, c2, c3), _seed_key(seed)), dim=-1)
 
 
 def box_muller(words: torch.Tensor, A: int) -> torch.Tensor:
@@ -137,8 +160,8 @@ def normals_to_eps(
 
 
 def sample_eps(
-    seed: int,
-    step: int,
+    seed,
+    step,
     it: int,
     T: int,
     K: int,
@@ -149,7 +172,8 @@ def sample_eps(
     k0: int = 0,
 ) -> torch.Tensor:
     """(T, K, A) ε of the stream for (seed, step, it), on sigma's device,
-    drawn from counter word k0 on."""
+    drawn from counter word k0 on; `seed` and `step` are ints or 0-dim int64
+    tensors."""
     if antithetic and K % 2:
         raise ValueError(f"antithetic sampling needs an even K, got {K}")
     K_draw = K // 2 if antithetic else K

@@ -1,5 +1,6 @@
 """Per-solve timing — the reference's "Average controller execution time"
-metric (src/main.cu:222-224, 329-332, 376-379) plus percentiles.
+metric (src/main.cu:222-224, 329-332, 376-379) plus percentiles — and an
+optional ``torch.profiler`` trace.
 
 On a CUDA device a sample is the time between two CUDA events recorded on
 the current stream around the solve, read after the end event completes; on
@@ -55,3 +56,26 @@ class SolveTimer:
             min_ms=float(np.min(samples)),
         )
         return out
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: str | None):
+    """Optional ``torch.profiler`` trace of the block, written into `logdir`
+    as a Chrome trace (the counterpart of the JAX package's
+    ``jax.profiler`` hook; the reference has no profiler). The CPU's
+    activity always, the card's too when CUDA is available. A `None` logdir
+    is a no-op."""
+    if logdir is None:
+        yield
+        return
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}.json"))

@@ -473,7 +473,7 @@ def test_fleet_robots_with_goals_are_solo_solves(name):
     single-robot solve under its seed and goal, bit for bit, on the eager
     backend and through the fused solve's plain version; the per-robot
     costs broadcast over (R, K, s) states as robot by robot; the fleet
-    episode's batched world is not ported and says so."""
+    episode runs in the family's batched world from the robots' states."""
     from mppi_gpu_tpu_torch.runner import run_fleet_episode
 
     cfg = load_config(_cfg_path(name)).replace(samples=160, horizon=10)
@@ -498,8 +498,10 @@ def test_fleet_robots_with_goals_are_solo_solves(name):
     batched = fleet.cost.final(states)
     for r in range(R):
         assert torch.allclose(batched[r], fleet._robot_cost(r).final(states[r]), rtol=1e-6, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_fleet_episode(fleet, num_steps=1)
+    ep = run_fleet_episode(fleet, num_steps=2, xs0=xs)
+    assert ep.xs.shape == (3, R, S) and ep.us.shape == (2, R, cfg.action_dim)
+    assert ep.times.shape == (2,) and np.isfinite(ep.xs).all()
+    np.testing.assert_array_equal(ep.xs[0], xs.numpy())
 
 
 # ---------------------------------------------------------------------------

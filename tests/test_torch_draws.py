@@ -150,7 +150,10 @@ def test_weighted_update_shared_memory_check():
 
 
 def _stub_cuda(monkeypatch, status=0):
-    """CPU tensors taken for CUDA ones, the C entries recorded."""
+    """CPU tensors taken for CUDA ones, the C entries recorded; the stubbed
+    launches count in a copy of the launch counts, so that none leaks into
+    the process's counts that other tests read."""
+    monkeypatch.setattr(fs, "_LAUNCHES", dict(fs._LAUNCHES))
     calls = {"weighted_update": [], "softmin_combine": [], "noise_dump": []}
     lib = types.SimpleNamespace(**{
         f"mppi_{k}": (lambda k: lambda *a: calls[k].append(a) or status)(k) for k in calls})

@@ -347,7 +347,8 @@ def test_pendulum_fleet_robots_are_solo_solves():
     """A fleet of 3 pendulums (no goals): robot r's solve is the single-robot
     solve under its seed, bit for bit, on the eager backend and through the
     fused solve's plain version; goals= raises TypeError, as in JAX; the
-    batched world for the fleet episode is not ported and says so."""
+    fleet episode runs in the batched pendulum world from the robots'
+    states."""
     from mppi_gpu_tpu_torch.runner import run_fleet_episode
 
     cfg = load_config(_cfg_path("pendulum")).replace(samples=200, horizon=15)
@@ -367,8 +368,10 @@ def test_pendulum_fleet_robots_are_solo_solves():
             assert torch.equal(res.info.costs[r], want.info.costs), (backend, r)
     with pytest.raises(TypeError, match="goal"):
         BatchedMPPIController(cfg, R, device="cpu", goals=torch.zeros(R, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_fleet_episode(fleet, num_steps=1)
+    ep = run_fleet_episode(fleet, num_steps=2, xs0=xs)
+    assert ep.xs.shape == (3, R, 2) and ep.us.shape == (2, R, 1) and ep.times.shape == (2,)
+    assert np.isfinite(ep.xs).all()
+    np.testing.assert_array_equal(ep.xs[0], xs.numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -57,9 +57,9 @@ def test_config_loads_equal_in_both_packages(path):
 
 def test_unported_families_raise_naming_roadmap():
     """What the port still lacks raises NotImplementedError naming
-    ROADMAP.md: a MuJoCo XML world, and the batched world of a family other
-    than the point mass in run_fleet_episode. The 3-D quadrotor, the last
-    family to be ported, builds its model, cost and world."""
+    ROADMAP.md: a MuJoCo XML world. The 3-D quadrotor, the last family to be
+    ported, builds its model, cost and world, and its fleet runs an episode
+    in the batched world (which once raised here)."""
     from mppi_gpu_tpu_torch.batched import BatchedMPPIController
     from mppi_gpu_tpu_torch.config import load_config
     from mppi_gpu_tpu_torch.envs import make_world, params_for_config
@@ -76,5 +76,5 @@ def test_unported_families_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         params_for_config(xml)
     fleet = BatchedMPPIController(cfg.replace(samples=16, horizon=4), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_fleet_episode(fleet, num_steps=1)
+    ep = run_fleet_episode(fleet, num_steps=1)
+    assert ep.xs.shape == (2, 2, 13) and ep.us.shape == (1, 2, 4) and ep.times.shape == (1,)

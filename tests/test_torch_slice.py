@@ -90,10 +90,10 @@ def test_cli_runs_on_the_cpu(capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--device", "cuda"], None),
-    (["--device", "cpu", "--checkpoint-every", "5"], "--checkpoint-every"),
+    (["--device", "cpu", "--view"], "--view"),
     (["--device", "cpu", "--world", "mujoco"], "--world"),
-    (["--device", "cpu", "--jit-episode"], "--jit-episode"),
-    (["--device", "cpu", "--checkpoint", "x.npz"], "--checkpoint"),
+    (["--device", "cpu", "--compile-cache"], "--compile-cache"),
+    (["--device", "cpu", "--world", "native"], "--world"),
 ])
 def test_cli_refuses_what_it_cannot_do(capsys, argv, needle):
     from mppi_gpu_tpu_torch import cli
@@ -137,7 +137,6 @@ def test_unported_runner_options_raise():
     from mppi_gpu_tpu_torch.runner import run_closed_loop
 
     ctrl = MPPIController(load_config(CFG).replace(samples=16, horizon=4), device="cpu")
-    for kw in (dict(world_backend="native"), dict(checkpoint_path="c.npz"),
-               dict(resume_from="c.npz"), dict(view=True)):
+    for kw in (dict(world_backend="native"), dict(world_backend="mujoco"), dict(view=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_closed_loop(ctrl, max_steps=1, **kw)
