@@ -39,10 +39,21 @@ an R=8 ``run_fleet_episode`` of every family, a reassigned cost
 re-capturing, checkpoint/resume and the CLI's ``--jit-episode``,
 ``--checkpoint``/``--resume`` and ``--profile`` on the card, with ms per
 control cycle of the three loops, kernels per cycle and idle shares from a
-trace of the graph's replays alone (phase 21). ``--time-commit ROOT`` instead times K1, K2, K4, K5 and K3 of the
+trace of the graph's replays alone (phase 21); then a fused family
+registered from user code, the bicycle of
+``mppi_gpu_tpu_torch/examples/custom_family.py``: its own library built from
+its struct, K1 and K4 on it against their plain versions in every mode and
+both bodies, its fleet, diverging rollouts, times beside the bound from that
+library's SASS, and the example on the fused backend (phase 22); the planar
+quadrotor's waypoint tour, fused, packing once (phase 23); and the learned
+models: both learning examples on the card, the learned controller's graph
+episode bit-equal to its eager cycle, its solve beside the fused LTI's
+(phase 24). ``--time-commit ROOT`` instead times K1, K2, K4, K5 and K3 of the
 package in the checkout at ROOT, to compare two commits in one run;
-``--episode`` runs the build and phase 21 alone. Every phase
-prints one line (or a few); any failure raises and
+``--sass-diff ROOT`` compares the built-in library's SASS with ROOT's,
+kernel by kernel; ``--episode`` and ``--family`` run the build and phase 21,
+or 22, alone. Every phase
+prints one line (or a few) and how far into the run it ended; any failure raises and
 the script exits non-zero without the final line. Without a CUDA device it
 exits 1 at once. The last two lines are a JSON object describing every
 kernel, K1 once per family instance (route, source, the TPU kernels it
@@ -54,7 +65,8 @@ and ``{"ok": true, "device": {...}}``.
 The ``check_*`` functions are also called by the GPU tests
 (``tests/test_torch_fused.py``, ``tests/test_torch_fleet.py``,
 ``tests/test_torch_families.py``, ``tests/test_torch_coupled.py``,
-``tests/test_torch_obstacle_q3d.py``, ``tests/test_torch_sharded.py``) at
+``tests/test_torch_obstacle_q3d.py``, ``tests/test_torch_sharded.py``,
+``tests/test_torch_custom_family.py``, ``tests/test_torch_neural.py``) at
 small shapes.
 """
 
@@ -129,7 +141,7 @@ KERNEL_ENTRIES = ("solve_partials<lti>", "solve_partials<pendulum>", "solve_part
                   "solve_partials<unicycle>", "solve_partials<quadrotor>", "solve_partials<arm>",
                   "solve_partials<lti-obstacle,A=2>", "solve_partials<lti-obstacle,A=3>",
                   "solve_partials<quadrotor3d>", "softmin_combine", "noise_dump", "rollout_costs",
-                  "weighted_update")
+                  "weighted_update", "solve_partials<bicycle-demo>", "rollout_costs<bicycle-demo>")
 # bar of the fleet's mean final goal distance (point_mass2d, R=8 on the circle
 # of examples/fleet.py, full episode): the JAX package's own fleet ends that
 # episode at 0.364 m on the CPU, so the bar is that figure + 0.05 m
@@ -201,26 +213,31 @@ def _oracle():
     return mod
 
 
-def kernel_key(mangled: str) -> str:
+def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
     """A kernel's readable name from its mangled one: K1 instances read
     solve_partials<family,A=..,inj=..>, K4's (K1's template without its
     second pass) rollout_costs<family,A=..,inj=..>, each with ",slab" for
     their slab body (slab_partials_kernel), K3's noise_dump<A=..>, K5's
     weighted_update<A=..,inj=..>;
     the family under its name in ops/families (the struct's name, lower
-    case, is the family's without its hyphen)."""
+    case, is the family's without its hyphen), or, for a library built from
+    a user family, under the name `structs` maps its struct's to."""
     from mppi_gpu_tpu_torch.ops.families import FAMILY_NAMES
 
     k = re.search(r"(solve_partials|slab_partials|softmin_combine|noise_dump|weighted_update)_kernel",
                   mangled)
     name = k.group(1) if k else mangled
-    fam = re.search(r"(LtiObstacle|Lti|Pendulum|CartPole|Unicycle|Quadrotor3D|Quadrotor|Arm)",
-                    mangled)
+    names = {n.replace("-", ""): n for n in FAMILY_NAMES}
+    if structs:
+        names = {s.lower(): n for s, n in structs.items()}
+    fam = re.search("(" + "|".join(sorted(structs or (
+        "LtiObstacle", "Lti", "Pendulum", "CartPole", "Unicycle", "Quadrotor3D", "Quadrotor", "Arm"),
+        key=len, reverse=True)) + ")", mangled)
     ints, bools = re.findall(r"Li(\d+)E", mangled), re.findall(r"Lb(\d)E", mangled)
     slab = name == "slab_partials"
     if len(bools) == 2:  # <..., INJ, PASS2>
         name = "solve_partials" if bools.pop() == "1" else "rollout_costs"
-    family = {n.replace("-", ""): n for n in FAMILY_NAMES}[fam.group(1).lower()] if fam else None
+    family = names[fam.group(1).lower()] if fam else None
     args = (([family] if fam else []) + ([f"A={ints[-1]}"] if ints else [])
             + [f"inj={b}" for b in bools] + (["slab"] if slab else []))
     return name + (f"<{','.join(args)}>" if args else "")
@@ -233,14 +250,14 @@ def entry_key(fam) -> str:
     return f"solve_partials<{fam.name}{a}>"
 
 
-def ptxas_summary(log: str) -> list[str]:
+def ptxas_summary(log: str, structs: dict[str, str] | None = None) -> list[str]:
     """One line per compiled kernel from nvcc's -Xptxas -v output:
     registers and spill bytes, under :func:`kernel_key`'s names."""
     out, name, spill = [], "?", "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = kernel_key(m.group(1))
+            name = kernel_key(m.group(1), structs)
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = m.group(1)
@@ -355,6 +372,33 @@ def obstacle_loop_step(instrs: list[tuple[int, str]]) -> float:
             per.append(len(body) / compares)
     expect(bool(per), "no obstacle loop nested in the Philox loop")
     return min(per)
+
+
+def library_steps(path, structs: dict[str, str] | None = None) -> dict[str, list[float]]:
+    """{kernel_key: instructions per horizon step of each Philox loop} of
+    the kernels of the library at `path` (`cuobjdump -sass`), the injected-ε
+    instances left out; the obstacle family's loop over its M obstacles
+    under obstacle_loop<...>. `structs` names a user family's struct (see
+    :func:`kernel_key`)."""
+    from mppi_gpu_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    kernels = {kernel_key(k, structs): v for k, v in sass_functions(sass).items()}
+    steps = {k: s for k, v in kernels.items() if "inj=1" not in k and (s := philox_loop_steps(v))}
+    for k, v in kernels.items():  # the obstacle family's loop over its M obstacles
+        if k.startswith("rollout_costs<lti-obstacle,") and k.endswith("inj=0>"):
+            steps[k.replace("rollout_costs", "obstacle_loop")] = [obstacle_loop_step(v)]
+    return steps
+
+
+def max_sm_clock() -> float:
+    """The card's maximum SM clock in MHz (nvidia-smi)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
 
 
 # one NVIDIA H100 SXM (NVIDIA's data sheet)
@@ -822,6 +866,7 @@ FAMILY_START = {
     "arm": (-1.5707963, 0.0, 0.0, 0.0),
     "obstacle2d": (0.0,) * 4, "obstacle3d": (0.0,) * 6,
     "quadrotor3d": (-1.0, 0.0, 0.5, 1.0) + (0.0,) * 9,
+    "bicycle": (0.1, -0.2, 0.3, 0.5),  # tests/test_custom_family.py::_setup
 }
 # K1 + K2 against the plain float64 version on the CPU: no further from it
 # than the plain float32 version is, by a factor 2 plus this share of the
@@ -857,8 +902,13 @@ def make_family_problem(name: str, K: int, T: int, seed: int = 0, device: str = 
     x0 = (start + rng.uniform(-0.05, 0.05, start.shape)).astype(np.float32)
     U = family_sequence(cfg, T)
     eps = (rng.standard_normal((T, K, cfg.action_dim)) * np.asarray(cfg.noise)).astype(np.float32)
-    fam = families.family_for(dynamics_for_config(cfg, device), make_cost(cfg, device),
-                              torch.tensor(cfg.noise, dtype=torch.float32, device=device))
+    if name == "bicycle":  # the family registered from user code
+        from mppi_gpu_tpu_torch.examples.custom_family import bicycle_pair
+
+        pair = bicycle_pair(cfg, device)
+    else:
+        pair = dynamics_for_config(cfg, device), make_cost(cfg, device)
+    fam = families.family_for(*pair, torch.tensor(cfg.noise, dtype=torch.float32, device=device))
     arrays = dict(x0=x0, U=U, eps=eps)
     if fam.has_goal:
         arrays["goal"] = np.asarray(cfg.goal, np.float32)
@@ -2037,10 +2087,15 @@ def episode_phase(smi: str) -> dict:
 def _config(name: str):
     """configs/<name>.yaml, or an obstacle instance's config:
     examples/obstacle_nav.py's (point_mass2d with its obstacles) for
-    obstacle2d, the obstacle quality config (OBSTACLES_3D) for obstacle3d."""
+    obstacle2d, the obstacle quality config (OBSTACLES_3D) for obstacle3d;
+    the bicycle example's (K=1024, T=40) for the user family "bicycle"."""
     from mppi_gpu_tpu_torch.config import MPPIConfig, load_config
 
     root = os.path.dirname(os.path.abspath(__file__))
+    if name == "bicycle":
+        from mppi_gpu_tpu_torch.examples.custom_family import bicycle_config
+
+        return bicycle_config()
     if name == "obstacle2d":
         from mppi_gpu_tpu_torch.examples.obstacle_nav import OBSTACLES
 
@@ -2164,9 +2219,15 @@ def family_phase(tag: str, name: str, modes, err: dict, smi: str) -> tuple[dict,
             lambda: fs.fleet_softmin_combine(fpart, p["lam"], T, p["A"]),
             lambda: fs.fleet_softmin_combine_reference(fpart, p["lam"], T, p["A"]), 20, 5),
     }
+    fleet_device = {key: device_ms(lambda: fs.fleet_family_solve_partials(*fargs),
+                                   name="partials_kernel"),
+                    "softmin_combine": device_ms(
+                        lambda: fs.fleet_softmin_combine(fpart, p["lam"], T, p["A"]),
+                        name="softmin_combine_kernel")}
     out.append(fleet_times)
     for k, (k_ms, p_ms) in fleet_times.items():
-        print(f"{tag} fleet kernel {k} R={R} K={K} T={T}: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
+        print(f"{tag} fleet kernel {k} R={R} K={K} T={T}: {k_ms:.4f} ms, device {fleet_device[k]} "
+              f"ms, plain {p_ms:.4f} ms ({smi})")
     del p, fargs, fpart
     ctrl = MPPIController(cfg, device="cuda", rollout_backend="auto")
     plain = MPPIController(cfg, device="cuda", rollout_backend="eager")
@@ -2539,6 +2600,394 @@ def sweep_bodies(smi: str) -> dict:
     return dict(bodies=rows, crossover=crossover)
 
 
+# ---------------------------------------------------------------------------
+# a fused family registered from user code (phase 22): the kinematic bicycle
+# of mppi_gpu_tpu_torch/examples/custom_family.py, K1 and K4 built from its
+# struct into a library of their own (ops/_build.build_family)
+
+BICYCLE_STRUCTS = {"Bicycle": "bicycle-demo"}  # the struct's name → the family's
+BICYCLE_ENTRIES = ("solve_partials<bicycle-demo>", "rollout_costs<bicycle-demo>")
+BICYCLE_SOURCE = ("mppi_gpu_tpu_torch/examples/custom_family.py (struct Bicycle, built on "
+                  "mppi_gpu_tpu_torch/csrc/mppi_solve.cuh)")
+BICYCLE_REACH_M = 0.3  # the example's exit rule (examples/custom_family.py)
+
+
+def check_bicycle_diverged(device: str = "cuda") -> str:
+    """Diverging rollouts on the bicycle, against the plain version: a block
+    driven by an acceleration ε of 1e30 costs +inf (its speed term
+    overflows) and gets weight 0 while the others solve as before; from a
+    speed of 1e20 every rollout costs +inf, so K2's β is +inf, the action is
+    NaN and the guard fires, on the fused backend (on a CUDA device) and the
+    eager one alike, as for the built-in families."""
+    import torch
+
+    from mppi_gpu_tpu_torch.examples.custom_family import make_controller
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.utils.guard import ControllerDiverged, check_solve
+
+    p = make_family_problem("bicycle", 1000, 50, device=device)
+    eps = p["eps"].clone()
+    W = fs.block_width(1, 1000, 50, 2, p["fam"].name)
+    blk = np.s_[W:2 * W]
+    eps[:, blk, 0] = 1e30
+    got = fs.family_fused_solve(*family_args(p), eps=eps)
+    want = fs.family_fused_solve_reference(*family_args(p), eps=eps)
+    compare_solves("bicycle one diverged block", p, got, want, S_rtol=1e-5)
+    S = _np(got[0])
+    expect(np.isposinf(S[blk]).all() and np.isfinite(np.delete(S, blk)).all(),
+           "bicycle one diverged block: expected +inf exactly on block 1")
+    res = finish(p, *got)
+    expect(bool((res.info.weights[blk] == 0).all()), "bicycle: diverged rollouts got weight")
+    expect(bool(torch.isfinite(res.action).all()), "bicycle one diverged block: action not finite")
+    for backend in ("auto", "eager"):
+        ctrl, _ = make_controller(1000, 40, backend, device)
+        res = ctrl.solve_auto(torch.tensor([0.0, 0.0, 0.0, 1e20]), ctrl.init_action_seq(), 0)
+        info = res.info.cpu()
+        expect(bool(torch.isposinf(info.costs).all() and torch.isposinf(info.beta)
+                    and torch.isnan(res.action).all()),
+               f"bicycle from v=1e20 ({ctrl.rollout_backend}): S and beta not all +inf, or the "
+               "action not NaN")
+        try:
+            check_solve(0, _np(res.action), info)
+        except ControllerDiverged:
+            continue
+        raise SmokeFailure(f"bicycle from v=1e20 ({ctrl.rollout_backend}): the guard did not fire")
+    return ("a block at eps=1e30 -> +inf, weight 0, the rest as plain; from v=1e20 -> +inf S and "
+            "beta, NaN action, ControllerDiverged (fused and eager)")
+
+
+def build_bicycle() -> tuple[object, float]:
+    """Build (or find) and load the bicycle's library; (its path, seconds)."""
+    from mppi_gpu_tpu_torch.examples.custom_family import BicycleFamily
+    from mppi_gpu_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path = _build.build_family(BicycleFamily.cuda_source, BicycleFamily.cuda_struct, 2)
+    _build.load_family_library(BicycleFamily.cuda_source, BicycleFamily.cuda_struct, 2)
+    return path, time.perf_counter() - t0
+
+
+def bicycle_phase(smi: str, err: dict, clock_mhz: float, builtin_log: str) -> dict:
+    """Phase 22: the bicycle, a family registered from user code. Its
+    library's build (seconds, ptxas registers and spills beside the built-in
+    unicycle's, A=2 too, and its SASS); at the example's shape (K=1024, T=40)
+    and at K=10⁵, T=200: K1 + K2 in the injected-ε mode against the plain
+    version and float64, the Philox mode (iid, antithetic, OU 0.5 at the
+    example's shape; iid at K=10⁵) against the plain version with K3's dump
+    replayed exactly, an R=8 fleet
+    bit-equal to its solo launches; K1 and K4 in both bodies (S bit-equal,
+    partials as plain at each width); K4's S equal to K1's; diverging
+    rollouts; K1 and K4 times (CUDA events and device) beside the plain
+    version and the bound from the library's SASS. Then the example at its
+    defaults on the fused backend and a costs-only sweep, launches counted
+    from 0 before each and read after it. Folds the errors into `err`;
+    returns the kernels line's fields of both entries."""
+    import torch
+
+    from mppi_gpu_tpu_torch.examples import custom_family
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    key1, key4 = BICYCLE_ENTRIES
+    path, build_s = build_bicycle()
+    print(f"[22] build of the bicycle family's library: {build_s:.2f} s -> {path.name}")
+    for line in ptxas_summary(path.with_suffix(".log").read_text(), BICYCLE_STRUCTS):
+        print(f"    ptxas {line}")
+    print("    ptxas of the built-in unicycle (A=2): " + "; ".join(
+        line for line in ptxas_summary(builtin_log) if re.search(r"<unicycle,", line)))
+    steps = library_steps(path, BICYCLE_STRUCTS)
+    print("    SASS instructions per horizon step (Philox mode; pass 1, pass 2): "
+          + "; ".join(f"{k} {v}" for k, v in sorted(steps.items())))
+    cfg = _config("bicycle")
+    for K, T in ((cfg.samples, cfg.horizon), (100_000, 200)):
+        # every noise mode at the example's shape, iid alone at K=10⁵
+        modes = ((False, 0.0), (True, 0.0), (False, 0.5)) if K == cfg.samples else ((False, 0.0),)
+        e = check_family_injected("bicycle", K, T)
+        print(f"[22] bicycle injected K={K} T={T}: ok vs plain (max abs err "
+              + ", ".join(f"{k} {e[k]:.3g}" for k in ("S", "beta", "eta", "dU", "action"))
+              + f") and float64 (S relative error median {e['S_rel_median']:.3g}, max "
+              f"{e['S_rel_max']:.3g}; plain f32 max {e['plain_S_rel_max']:.3g})")
+        for anti, ou in modes:
+            e = check_family_philox("bicycle", K, T, antithetic=anti, ou_beta=ou)
+            err[key1] = max(err[key1], e["solve_partials"])
+            err["softmin_combine"] = max(err["softmin_combine"], e["softmin_combine"])
+            print(f"[22] bicycle philox K={K} T={T} anti={anti} ou={ou}: K1 S err "
+                  f"{e['solve_partials']:.3g}, K2 dU err {e['softmin_combine']:.3g}; K3's dump "
+                  "replayed through K1 exact")
+        e = check_family_fleet("bicycle", 8, K, T)
+        print(f"[22] bicycle fleet R=8 K={K} T={T}: K1 S err {e['solve_partials']:.3g} vs plain; "
+              "every robot bit-equal to its R=1 launch")
+        for anti, ou in modes:
+            e = check_costs_only("bicycle", K, T, antithetic=anti, ou_beta=ou)
+            err[key4] = max(err[key4], e["err"])
+        print(f"[22] bicycle costs-only K={K} T={T}: K4's S bit-equal to K1's (anti, ou) {modes}; "
+              "fleet robots equal to their R=1 launches")
+    q = make_family_problem("bicycle", cfg.samples, cfg.horizon)
+    e = check_bodies("bodies bicycle-demo A=2", q["fam"], q["x0"], q["U"], q["goal"], q["lam"],
+                     cfg.samples, ((False, 0.0), (True, 0.0), (False, 0.5)), q["eps"])
+    err[key4] = max(err[key4], e)
+    print(f"[22] bodies bicycle-demo K={cfg.samples} T={cfg.horizon}: K1 and K4 S bit-equal in the "
+          "slab and the per-rollout body (widths 32 and 128; iid, antithetic, OU 0.5, injected); "
+          f"partials of both widths as plain; S max abs err vs plain {e:.3g}")
+    print(f"[22] bicycle diverging rollouts: {check_bicycle_diverged()}")
+    out = {key1: {}, key4: {}}
+    for K, T, pre in ((cfg.samples, cfg.horizon, ""), (100_000, 200, "large_")):
+        p = make_family_problem("bicycle", K, T)
+        fam, x0, U = p["fam"], p["x0"], p["U"]
+        args = family_args(p, step=3, it=0)
+        k4_args = (fam, x0, U, None, K, 7, 3, 0, False, 0.0)
+        plain_reps = 3 if K < 100_000 else 2
+        for key, run, plain, pass2 in (
+                (key1, lambda: fs.family_solve_partials(*args),
+                 lambda: fs.family_solve_partials_reference(*args), True),
+                (key4, lambda: fs.fused_rollout_costs(*k4_args),
+                 lambda: fs.rollout_costs_reference(*k4_args), False)):
+            ms, plain_ms = paired_median_ms(run, plain, 20, plain_reps)
+            dev = device_ms(run, name="partials_kernel")
+            b_ms, b_by = solve_bound(steps, fam, K, T, clock_mhz, pass2=pass2)
+            out[key].update({f"{pre}ms": ms, f"{pre}plain_ms": plain_ms, f"{pre}device_ms": dev,
+                             f"{pre}bound_ms": b_ms, f"{pre}bound_by": b_by,
+                             f"{pre}shape": f"K={K} T={T}",
+                             f"{pre}width": fs.block_width(1, K, T, 2, fam.name)})
+            print(f"[22] kernel {key} K={K} T={T} (width {fs.block_width(1, K, T, 2, fam.name)}): "
+                  f"{ms:.4f} ms, device {dev} ms, plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
+                  f"({b_by}) ({smi})")
+        del p, args, k4_args
+    # the example at its defaults (K=1024, T=40, 120 steps) on the fused backend
+    fs.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = custom_family.main(["--device", "cuda", "--backend", "fused"])
+    ex_s = time.perf_counter() - t0
+    print("\n".join("    " + line for line in buf.getvalue().strip().splitlines()))
+    by_family, launches = fs.family_launch_counts(), fs.launch_counts()
+    d = float(re.search(r"dist-to-waypoint ([\d.]+) m", buf.getvalue()).group(1))
+    print(f"[22] example custom_family (fused, K=1024 T=40, 120 steps): exit {rc}, distance {d} m "
+          f"(bar {BICYCLE_REACH_M}), {ex_s:.2f} s; launches {launches}, K1 by family {by_family}")
+    expect(rc == 0 and d < BICYCLE_REACH_M, f"custom_family exited {rc} at {d} m")
+    expect(by_family["bicycle-demo"] == 120 and sum(by_family.values()) == 120
+           and launches["softmin_combine"] == 120,
+           f"custom_family: K1 by family {by_family}, launches {launches} for 120 solves")
+    out[key1]["launches"] = by_family["bicycle-demo"]
+    # the costs-only path: one K4 sweep of the bicycle at K=10⁵, T=200
+    q = make_family_problem("bicycle", 100_000, 200)
+    fs.reset_launch_counts()
+    fs.fused_rollout_costs(q["fam"], q["x0"], q["U"], None, 100_000, 7, 3, 0, False, 0.0)
+    torch.cuda.synchronize()
+    k4_by_family = fs.family_launch_counts("rollout_costs")
+    expect(k4_by_family["bicycle-demo"] == 1 and sum(k4_by_family.values()) == 1,
+           f"bicycle costs-only sweep: K4 by family {k4_by_family}")
+    out[key4]["launches"] = k4_by_family["bicycle-demo"]
+    for entry in out.values():
+        entry["build_s"] = build_s
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the planar quadrotor's waypoint tour (phase 23) and the learned models
+# (phase 24): examples/quadrotor_waypoints, learn_dynamics and
+# learn_quadrotor_residual of mppi_gpu_tpu_torch/examples
+
+WAYPOINT_FINAL_M = 0.4  # examples/quadrotor_waypoints.py's exit rule
+# learn_quadrotor_residual's size on the card: half the example's defaults,
+# which take about a minute of this script's time limit on an H100 (the
+# held-out RMSE there 20x below the analytic model's)
+RESIDUAL_ARGV = ("--transitions", "8192", "--fit-steps", "2000", "--loop-steps", "60")
+
+
+def _run_example(module, argv: list[str]) -> tuple[int, str, float]:
+    """`module.main(argv)` with its output captured and echoed indented:
+    (exit code, output, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    print("\n".join("    " + line for line in out.strip().splitlines()))
+    return rc, out, secs
+
+
+def waypoints_phase(smi: str) -> int:
+    """Phase 23: the planar quadrotor's waypoint tour at its defaults (600
+    steps) on the fused backend, launches counted from 0 before it and read
+    after it, and the packs counted by wrapping ``families.family_for``: the
+    tour visits all three waypoints and ends within 0.4 m of the last, K1
+    and K2 run once per update, and the controller packs once, at its init:
+    re-aiming the cost every step (a new cost of the old w, λ and Σ⁻¹
+    tensors) keeps the pack. Returns K1's launches."""
+    from mppi_gpu_tpu_torch.examples import quadrotor_waypoints
+    from mppi_gpu_tpu_torch.ops import families
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    packs = []
+    family_for = families.family_for
+
+    def counted(*args, **kwargs):
+        packs.append(1)
+        return family_for(*args, **kwargs)
+
+    fs.reset_launch_counts()
+    families.family_for = counted
+    try:
+        rc, out, secs = _run_example(quadrotor_waypoints,
+                                     ["--device", "cuda", "--rollout-backend", "fused"])
+    finally:
+        families.family_for = family_for
+    steps = int(re.search(r"(\d+) steps,", out).group(1))
+    visited = re.search(r"waypoints visited: (\[.*?\])", out).group(1)
+    d = float(re.search(r"final distance to last waypoint: ([\d.]+) m", out).group(1))
+    by_family, launches = fs.family_launch_counts(), fs.launch_counts()
+    updates = steps * _config("quadrotor").opt_iters
+    print(f"[23] example quadrotor_waypoints (fused, {steps} steps): exit {rc}, waypoints visited "
+          f"{visited}, final distance {d} m (bar {WAYPOINT_FINAL_M}), {secs:.2f} s "
+          f"({1e3 * secs / steps:.3f} ms per step with the host world; {smi}); packs built "
+          f"{len(packs)}; launches {launches}, K1 by family {by_family}")
+    expect(rc == 0 and d < WAYPOINT_FINAL_M, f"quadrotor_waypoints exited {rc} at {d} m")
+    expect(len(packs) == 1, f"quadrotor_waypoints: {len(packs)} packs, re-aiming re-packed")
+    expect(by_family["quadrotor"] == updates and sum(by_family.values()) == updates
+           and launches["softmin_combine"] == updates,
+           f"quadrotor_waypoints: K1 by family {by_family}, launches {launches}, {updates} updates")
+    return by_family["quadrotor"]
+
+
+def check_learned_episode(steps: int = 120, fit_steps: int = 800, device: str = "cuda") -> dict:
+    """A controller over a learned model on the card: the point_mass2d
+    surrogate of examples/learn_dynamics (its 2000 transitions, `fit_steps`
+    Adam steps) on the eager backend; ``run_episode_jit`` of `steps` cycles
+    as a replayed CUDA graph (cuBLAS's products inside the capture) equal
+    bit for bit to the same cycle run eagerly on the card, every state
+    finite. Returns the controller and both loops' ms per cycle (host clock
+    around a warm episode)."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.examples import learn_dynamics
+    from mppi_gpu_tpu_torch.runner import run_episode_jit
+
+    cfg = _config("point_mass2d")
+    mlp, _, _ = learn_dynamics.fit(
+        cfg, learn_dynamics.collect_transitions(cfg, 2000, device=device), fit_steps, device)
+    ctrl = MPPIController(cfg, device=device, dynamics=mlp, rollout_backend="eager")
+    expect(ctrl.rollout_backend == "eager", f"learned model: backend {ctrl.rollout_backend}")
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    run_episode_jit(ctrl, num_steps=steps)  # warm-up and capture
+    out = {"ctrl": ctrl}
+    for label, capture in (("graph", True), ("eager", False)):
+        sync()
+        t0 = time.perf_counter()
+        ep = run_episode_jit(ctrl, num_steps=steps, capture=capture)
+        sync()
+        out[f"{label}_ms"] = 1e3 * (time.perf_counter() - t0) / steps
+        out[label] = ep
+    g, e = out["graph"], out["eager"]
+    expect(np.isfinite(g.xs).all() and g.xs.shape == (steps + 1, cfg.state_dim),
+           "learned episode: states")
+    expect(np.array_equal(g.xs, e.xs) and np.array_equal(g.us, e.us),
+           f"learned episode: the graph parts from the eager cycle by "
+           f"{np.abs(g.xs - e.xs).max()} in a state")
+    return out
+
+
+def learned_phase(smi: str) -> dict:
+    """Phase 24: the learned models on the card. examples/learn_dynamics at
+    its defaults (2000 transitions, 800 Adam steps, 120 episode steps): exit
+    0, both final distances finite, the fit's ms per Adam step; the learned
+    controller's device episode (:func:`check_learned_episode`); its solve's
+    ms per control step on the eager backend beside the fused LTI's at the
+    same K, T (point_mass2d, K=3000, T=50), and a profiler window of its
+    control steps; examples/learn_quadrotor_residual at RESIDUAL_ARGV: the
+    example's exit rule (the hybrid's held-out RMSE below the analytic
+    model's, a finite closed-loop distance)."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.examples import learn_dynamics, learn_quadrotor_residual
+
+    rc, out, secs = _run_example(learn_dynamics, ["--device", "cuda"])
+    dists = [float(v) for v in re.findall(r"final distance to goal: (\S+) m", out)]
+    fit_ms = float(re.search(r"\(([\d.]+) ms per step\)", out).group(1))
+    print(f"[24] example learn_dynamics (2000 transitions, 800 Adam steps, 120 episode steps): "
+          f"exit {rc} in {secs:.2f} s; fit {fit_ms:.4f} ms per Adam step; final distance analytic "
+          f"{dists[0]:.4f} m, learned {dists[1]:.4f} m ({smi})")
+    expect(rc == 0 and len(dists) == 2 and np.isfinite(dists).all(),
+           f"learn_dynamics exited {rc} with distances {dists}")
+    e = check_learned_episode()
+    ctrl = e["ctrl"]
+    print(f"[24] learned controller's device episode (point_mass2d K=3000 T=50, 120 cycles): graph "
+          f"== eager cycle bit for bit; graph {e['graph_ms']:.4f} ms per cycle, eager on the card "
+          f"{e['eager_ms']:.4f} ms ({smi})")
+    cfg = ctrl.cfg
+    lti = MPPIController(cfg, device="cuda")
+    expect(lti.rollout_backend == "fused", f"point_mass2d: auto picked {lti.rollout_backend}")
+    x = torch.zeros(cfg.state_dim, device="cuda")
+    U = ctrl.init_action_seq()
+    lti_ms, mlp_ms = paired_median_ms(lambda: lti.solve_auto(x, U, 1),
+                                      lambda: ctrl.solve_auto(x, U, 1), 20, 10)
+    prof = profile_steps(ctrl, x, U)
+    # the net's products per solve: 2·K·T·Σ in·out over its layers
+    flops = 2 * cfg.samples * cfg.horizon * cfg.opt_iters * sum(
+        w.shape[0] * w.shape[1] for w in ctrl.dynamics.weights)
+    print(f"[24] solve point_mass2d K={cfg.samples} T={cfg.horizon}: learned model, eager "
+          f"{mlp_ms:.4f} ms per control step; LTI, fused {lti_ms:.4f} ms (CUDA events, warm "
+          f"median); learned, 50 control steps: wall {prof['wall_ms']:.4f} ms/step, device busy "
+          f"{prof['busy_ms']:.4f} ms, idle share {prof['idle']:.4f}; the net's products "
+          f"{flops / 1e9:.3f} GFLOP per solve, {1e3 * flops / H100_FP32_PER_S:.4f} ms at the "
+          f"float32 peak ({smi})")
+    rc, out, secs = _run_example(learn_quadrotor_residual, ["--device", "cuda", *RESIDUAL_ARGV])
+    e_a = float(re.search(r"analytic model : (\S+)", out).group(1))
+    e_h = float(re.search(r"hybrid model   : (\S+)", out).group(1))
+    d = float(re.search(r"cycles: (\S+) m", out).group(1))
+    fit_q_ms = float(re.search(r"\(([\d.]+) ms per step\)", out).group(1))
+    print(f"[24] example learn_quadrotor_residual ({' '.join(RESIDUAL_ARGV)}): exit {rc} in "
+          f"{secs:.2f} s; held-out RMSE analytic {e_a:.5f}, hybrid {e_h:.5f}; closed-loop distance "
+          f"{d:.3f} m; fit {fit_q_ms:.4f} ms per Adam step ({smi})")
+    expect(rc == 0 and e_h < e_a and np.isfinite(d),
+           f"learn_quadrotor_residual exited {rc}: RMSE {e_h} vs {e_a}, distance {d}")
+    return dict(fit_ms=fit_ms, residual_fit_ms=fit_q_ms, mlp_ms=mlp_ms, lti_ms=lti_ms,
+                graph_ms=e["graph_ms"], eager_ms=e["eager_ms"])
+
+
+def bicycle_entry(name: str, b: dict, err: float) -> dict:
+    """The kernels line's entry of the bicycle's K1 or K4 from phase 22's
+    readings: at the example's shape, and at K=10⁵, T=200 as large_*."""
+    k1 = name.startswith("solve_partials")
+    replaces = (", ".join(f"{PALLAS}:{line}" for line in (2342, 2287, 3121, 2973)) if k1
+                else f"{PALLAS}:1952") + f" (a family registered with {PALLAS}:1676)"
+    entry = {"name": name, "route": "cuda", "source": BICYCLE_SOURCE, "replaces": replaces,
+             "launches": b["launches"], "max_abs_err": err, "ms": b["ms"],
+             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "library_ms": None}
+    entry.update({k: v for k, v in b.items() if k not in entry})
+    return entry
+
+
+def _stamp(t_start: float, phase: int) -> None:
+    print(f"    (phase {phase} done {time.perf_counter() - t_start:.1f} s into the run)")
+
+
+def family_only() -> int:
+    """``python3 chip_smoke.py --family``: the build (phase 2), then phase 22
+    alone, and no contract line: the quickest check of a family registered
+    from user code on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    from mppi_gpu_tpu_torch.ops import _build
+
+    smi = _smi()
+    print(smi)
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load_library()
+    print(f"[2] build: {time.perf_counter() - t0:.2f} s")
+    err = dict.fromkeys(KERNEL_ENTRIES, 0.0)
+    bicycle_phase(smi, err, max_sm_clock(), lib_path.with_suffix(".log").read_text())
+    return 0
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2575,6 +3024,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     from mppi_gpu_tpu_torch.controller import MPPIController
     from mppi_gpu_tpu_torch.io.csvio import read_csv_columns
@@ -2597,20 +3047,11 @@ def main() -> int:
     for line in ptxas_summary(lib_path.with_suffix(".log").read_text()):
         print(f"    ptxas {line}")
     # the per-step instructions of every Philox loop, from the built SASS
-    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
-    kernels = {kernel_key(k): v for k, v in sass_functions(sass).items()}
-    sass_steps = {k: s for k, v in kernels.items() if "inj=1" not in k and (s := philox_loop_steps(v))}
-    for k, v in kernels.items():  # the obstacle family's loop over its M obstacles
-        if k.startswith("rollout_costs<lti-obstacle,") and k.endswith("inj=0>"):
-            sass_steps[k.replace("rollout_costs", "obstacle_loop")] = [obstacle_loop_step(v)]
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.split()[0])
+    sass_steps = library_steps(lib_path)
+    clock_mhz = max_sm_clock()
     print(f"    SASS instructions per horizon step (Philox mode; pass 1, pass 2), max SM clock "
           f"{clock_mhz:.0f} MHz: " + "; ".join(f"{k} {v}" for k, v in sorted(sass_steps.items())))
+    _stamp(t_start, 2)
 
     # [3] injected ε vs plain and oracle
     err = {name: 0.0 for name in KERNEL_ENTRIES}
@@ -2618,6 +3059,7 @@ def main() -> int:
         e = check_injected(A, K, T)
         print(f"[3] injected A={A} K={K} T={T}: ok vs plain and oracle; max abs err "
               + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+    _stamp(t_start, 3)
 
     # [4] Philox mode, kernel by kernel; K3's dump bit-equal to the plain
     # stream and its replay through K1 exact, at every shape of DRAW_CASES
@@ -2633,11 +3075,13 @@ def main() -> int:
         err["noise_dump"] = max(err["noise_dump"], d["noise_dump"])
         print(f"[4] dump A={A} K={K} T={T} anti={anti} ou={ou} k0={k0}: K3 words and eps bit-equal "
               f"to ops/philox.py; replay through K1 exact at widths {d['widths']}")
+    _stamp(t_start, 4)
 
     # [5] edge cases
     check_edge_cases()
     print("[5] edges: K=1000 ok; one diverged block matches plain, weight 0; "
           "all diverged -> NaN action, ControllerDiverged")
+    _stamp(t_start, 5)
 
     # [6] controller on point_mass3d (and the point_mass2d shape): kernel vs plain
     timing = {}
@@ -2687,6 +3131,7 @@ def main() -> int:
         print(f"[6] kernel {name} A=3 K=10000 T=200: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
     dump_device_ms = device_ms(lambda: fs.noise_dump(p["sigma"], 200, 10_000, 7, 3, 0, False, 0.0))
     print(f"[6] kernel noise_dump A=3 K=10000 T=200: {dump_device_ms} ms on the device ({smi})")
+    _stamp(t_start, 6)
 
     # [7] the main path: the closed-loop CLI, launches counted
     fs.reset_launch_counts()
@@ -2716,6 +3161,7 @@ def main() -> int:
     # the configs' K = 3000 runs K1's slab body, every launch of it
     expect(main_widths == {fs.SLAB_WIDTH: launches["solve_partials"], fs.BLOCK: 0},
            f"K1 by block width {main_widths} on the main path")
+    _stamp(t_start, 7)
 
     # [8] the fleet kernels: injected ε vs plain and oracle; Philox mode vs
     # plain and bit-equal to each robot's solo launch; a diverged robot
@@ -2733,6 +3179,7 @@ def main() -> int:
     check_fleet_diverged()
     print("[8] fleet edges: a diverged robot -> +inf beta, NaN action; the others finite "
           "and bit-equal to their solo solves")
+    _stamp(t_start, 8)
 
     # [9] fleet solve timings: one fleet solve vs a loop of R solo solves
     from mppi_gpu_tpu_torch.batched import BatchedMPPIController
@@ -2808,6 +3255,14 @@ def main() -> int:
     }
     for name, (k_ms, p_ms) in fleet_kernel_ms.items():
         print(f"[9] fleet kernel {name} R=8 A=3 K=10000 T=200: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({smi})")
+    fleet_device_ms = {
+        "solve_partials<lti>": device_ms(lambda: fs.fleet_solve_partials(*fargs),
+                                         name="partials_kernel"),
+        "softmin_combine": device_ms(lambda: fs.fleet_softmin_combine(fpart, 1.0, 200, 3),
+                                     name="softmin_combine_kernel"),
+    }
+    print("[9] fleet kernels R=8 A=3 K=10000 T=200 on the device: " + ", ".join(
+        f"{k} {v} ms" for k, v in fleet_device_ms.items()) + f" ({smi})")
     # the fleet's dump: eight K3 launches, their records summed per call
     fleet_dump_device_ms = device_ms(
         lambda: [fs.noise_dump(p["sigma"], 200, 10_000, s_, 3, 0, False, 0.0) for s_ in seed_list],
@@ -2815,6 +3270,7 @@ def main() -> int:
     print(f"[9] fleet kernel noise_dump R=8: {fleet_dump_device_ms} ms on the device "
           f"(8 launches, summed per call) ({smi})")
     del p, fargs, fpart
+    _stamp(t_start, 9)
 
     # [10] the fleet path: the fleet example in both modes and a full-length
     # episode, launches counted
@@ -2866,6 +3322,7 @@ def main() -> int:
     for name, c in episode_records.items():
         expect(c == (steps + 1) * cfg2.opt_iters,
                f"{name}: {c} records in the --episode run's trace, {steps + 1} cycles")
+    _stamp(t_start, 10)
 
     # [11] K1's pendulum and cart-pole instances: injected ε vs plain and
     # float64, Philox mode vs plain with exact replay, an R=8 fleet bit-equal
@@ -2879,6 +3336,7 @@ def main() -> int:
     print("[11] family edges: a pendulum block at eps=1e30 -> +inf, weight 0, the rest as plain; "
           "cartpole from thd=1e4 -> NaN S and beta, NaN action, ControllerDiverged (fused and eager); "
           "cartpole from thd=40 finite and as plain")
+    _stamp(t_start, 11)
 
     # [12] the families' path: the CLI on configs/pendulum.yaml and
     # configs/cartpole.yaml, fused, launches counted
@@ -2915,6 +3373,7 @@ def main() -> int:
            "K2 launches differ from K1's on the family path")
     expect(family_launches["noise_dump"] == dumps, f"K3: {family_launches['noise_dump']} launches, {dumps} dumps")
     launches.update({f"solve_partials<{n}>": by_family[n] for n in FAMILIES})
+    _stamp(t_start, 12)
 
     # [13] K1's unicycle, quadrotor and arm instances (A=2; S = 3, 6, 4 with
     # per-robot goals of that length): as phase 11, the arm also under its
@@ -2931,6 +3390,7 @@ def main() -> int:
         family_ms[name], family_large_ms[name], family_fleet_ms[name] = family_phase(
             "[13]", name, modes, err, smi)
         print(f"[13] {name} diverging rollouts: {check_coupled_diverged(name)}")
+    _stamp(t_start, 13)
 
     # [14] the coupled families' path: the CLI on configs/unicycle.yaml,
     # quadrotor.yaml and arm.yaml (opt-iters 2, OU 0.8, dumps), fused, full
@@ -2968,6 +3428,7 @@ def main() -> int:
     expect(coupled_launches["noise_dump"] == dumps,
            f"K3: {coupled_launches['noise_dump']} launches, {dumps} dumps")
     launches.update({f"solve_partials<{n}>": by_family[n] for n in COUPLED})
+    _stamp(t_start, 14)
 
     # [15] K4, the costs-only sweep, for every family instance at K=10⁵,
     # T=200: the sweep itself (launches counted), then its S equal to K1's,
@@ -3031,6 +3492,7 @@ def main() -> int:
                                                    0.0), 20, 3)
     print(f"[15] kernel solve_partials<lti> A=3 K=100000 T=200: {lti_large_ms[0]:.4f} ms, plain "
           f"{lti_large_ms[1]:.4f} ms ({smi})")
+    _stamp(t_start, 15)
 
     # [16] K1's LtiObstacle<2>, LtiObstacle<3> and Quadrotor3D instances (the
     # obstacles counted from the pack at run time; 13 states at A=4): as
@@ -3044,6 +3506,7 @@ def main() -> int:
         print(f"[16] {name} diverging rollouts: {check_coupled_diverged(name)}")
     print(f"[16] cost reassignment: {check_reassigned_cost()}")
     print(f"[16] model reassignment: {check_reassigned_dynamics()}")
+    _stamp(t_start, 16)
 
     # [17] the last families' path, fused, launches counted from 0 before each
     # run and read after it: the CLI on configs/quadrotor3d.yaml (opt-iters
@@ -3096,6 +3559,7 @@ def main() -> int:
                f"example {example.__name__}: K1 by family {by_family}")
         if tag == "obstacle2d":
             launches["solve_partials<lti-obstacle,A=2>"] = by_family[fam_name]
+    _stamp(t_start, 17)
 
     # [18] K5, the weighted update (TPU kernel #7): injected ε vs plain and
     # float64; Philox mode vs plain on K3's dump of the same stream; times
@@ -3125,6 +3589,7 @@ def main() -> int:
         print(f"[18] kernel weighted_update A=3 K={K} T=200 (K5 + K2's fold): {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms; K5 alone {d_ms} ms on the device; bound {b_ms:.4f} ms ({b_by}) ({smi})")
         del q, w
+    _stamp(t_start, 18)
 
     # [19] the sharded solve on the card: a world of one NCCL rank and four
     # virtual ranks (each at its draw offset, combined by the collective
@@ -3140,6 +3605,7 @@ def main() -> int:
     finally:
         shutdown_multihost()
         shutil.rmtree(group_dir)
+    _stamp(t_start, 19)
 
     # [20] K1's and K4's two bodies: S bit-equal across both bodies of both
     # kernels for every family instance at its config's shape (Philox iid,
@@ -3174,12 +3640,27 @@ def main() -> int:
         print(f"[20] K2 at nb={nb} ({what}), A=3 T=200, normalize={int(normalize)}: ok vs plain "
               f"(beta exact), fleet robots bit-equal to their R=1 launches; dU max abs err {e:.3g}")
     sweep = sweep_bodies(smi)
+    _stamp(t_start, 20)
 
     # [21] the on-device episode: K1's step by pointer; run_episode_jit and
     # run_fleet_episode as a replayed CUDA graph of one control cycle for
     # every config and an R=8 fleet of every family; a reassigned cost;
     # checkpoint/resume and the CLI's new flags on the card
     episode_phase(smi)
+    _stamp(t_start, 21)
+
+    # [22] a family registered from user code: the bicycle's own library,
+    # its K1 and K4 against their plain versions, times, the example
+    bicycle = bicycle_phase(smi, err, clock_mhz, lib_path.with_suffix(".log").read_text())
+    _stamp(t_start, 22)
+
+    # [23] the planar quadrotor's waypoint tour, fused, the pack kept
+    waypoints_phase(smi)
+    _stamp(t_start, 23)
+
+    # [24] the learned models on the card
+    learned_phase(smi)
+    _stamp(t_start, 24)
 
     # the kernels JSON line: times at each kernel's shape, beside its bound
     k12 = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
@@ -3227,6 +3708,9 @@ def main() -> int:
         fleet_bounds[key] = solve_bound(sass_steps, fam, cfg.samples, cfg.horizon, clock_mhz, R=8)[0]
     entries = []
     for name in KERNEL_ENTRIES:
+        if name in bicycle:  # the family registered from user code (phase 22)
+            entries.append(bicycle_entry(name, bicycle[name], err[name]))
+            continue
         b_ms, b_by = bounds[name]
         entry = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
                  "launches": launches[name], "max_abs_err": err[name], "bound_ms": b_ms,
@@ -3269,6 +3753,8 @@ def main() -> int:
                          fleet_launches=fleet_launches[name], fleet_ms=fleet_kernel_ms[name][0],
                          fleet_plain_ms=fleet_kernel_ms[name][1], fleet_bound_ms=fleet_bounds[name],
                          fleet_shape="R=8 A=3 K=10000 T=200")
+            if name in fleet_device_ms:
+                entry["fleet_device_ms"] = fleet_device_ms[name]
             if name == "solve_partials<lti>":
                 entry.update(large_ms=lti_large_ms[0], large_plain_ms=lti_large_ms[1],
                              large_shape="A=3 K=100000 T=200", large_bound_ms=solve_bound(
@@ -3362,9 +3848,45 @@ def time_commit(root: str) -> int:
     return 0
 
 
+def sass_diff(root: str) -> int:
+    """``python3 chip_smoke.py --sass-diff ROOT``: the built-in library of
+    this checkout and the one of the checkout at ROOT, each built from its
+    own sources, compared kernel by kernel (:func:`kernel_key` names, SASS
+    instruction streams without their addresses): prints how many are
+    identical and exits 1 if any kernel differs or is missing on one side.
+    A change that moves kernel code without changing it leaves every stream
+    identical, and so every result bit for bit."""
+    import importlib.util
+
+    from mppi_gpu_tpu_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location(
+        "other_build", os.path.join(root, "mppi_gpu_tpu_torch", "ops", "_build.py"))
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+
+    def streams(path) -> dict[str, list[str]]:
+        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        return {kernel_key(k): [i for _, i in v] for k, v in sass_functions(sass).items()}
+
+    mine, theirs = streams(_build.build()), streams(other.build())
+    both = mine.keys() & theirs.keys()
+    differ = sorted(k for k in mine.keys() | theirs.keys() if mine.get(k) != theirs.get(k))
+    same = len(both) - sum(k in both for k in differ)
+    print(f"sass-diff {root}: {len(mine)} kernels here, {len(theirs)} there, {same} identical "
+          f"instruction streams; differ or missing: {differ}")
+    return 1 if differ else 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-commit"]:
         sys.exit(time_commit(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] == ["--episode"]:
         sys.exit(episode_only())
+    if sys.argv[1:2] == ["--family"]:
+        sys.exit(family_only())
+    if sys.argv[1:2] == ["--sass-diff"]:
+        sys.exit(sass_diff(sys.argv[2]))
     sys.exit(main())

@@ -6,7 +6,9 @@ goal (every family's but the pendulum's and the cart-pole's; the obstacle
 cost's is its quadratic base's, ``ops/cost.goal_of``), goal (R, s);
 the dynamics, the cost's weights, σ, λ, K and T are shared. A fleet of
 pendulums or cart-poles, whose costs aim at a built-in target, takes no
-goals (``goals=`` raises ``TypeError``).
+goals (``goals=`` raises ``TypeError``), nor does a fleet of a family
+registered from user code that keeps its goal in its pack
+(``ops.families.call_goal``): its robots share that goal.
 Two backends:
 
 * ``fused`` — one launch of K1 and one of K2 for the whole fleet
@@ -39,9 +41,9 @@ from mppi_gpu_tpu_torch.controller import (
     solve_from_costs,
 )
 from mppi_gpu_tpu_torch.models.base import Dynamics
+from mppi_gpu_tpu_torch.ops import families, philox
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
-from mppi_gpu_tpu_torch.ops import philox
-from mppi_gpu_tpu_torch.ops.cost import Cost, batch_goals, goal_of, with_goal
+from mppi_gpu_tpu_torch.ops.cost import Cost, batch_goals, has_goal, with_goal
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
 
 
@@ -84,8 +86,12 @@ class BatchedMPPIController(MPPIController):
         )
         self.n_robots = n_robots
         # a cost with a goal carries one goal row per robot, shared ones
-        # repeated: the fused kernels read robot r's row
-        goal = goal_of(self.cost)
+        # repeated: the fused kernels read robot r's row (a family that
+        # keeps its goal in its pack has none to batch)
+        goal = families.call_goal(self._family, self.cost)
+        if goals is not None and goal is None and has_goal(self.cost):
+            raise TypeError(f"the {self._family.name} family keeps its goal in its pack: "
+                            "per-robot goals do not apply")
         if goals is None and goal is not None:
             goals = goal if goal.dim() == 2 else goal.expand(n_robots, -1)
         if goals is not None:
@@ -113,7 +119,7 @@ class BatchedMPPIController(MPPIController):
 
     def _robot_cost(self, r: int) -> Cost:
         """Robot r's single-robot cost (its own goal)."""
-        goal = goal_of(self.cost)
+        goal = families.call_goal(self._family, self.cost)
         return self.cost if goal is None else with_goal(self.cost, goal[r])
 
     # -- solves ------------------------------------------------------------
@@ -124,7 +130,7 @@ class BatchedMPPIController(MPPIController):
         the fused backend one launch of K1 and one of K2, then the tail;
         robot by robot on the eager one."""
         cfg = self.cfg
-        goals = goal_of(self.cost)
+        goals = families.call_goal(self._family, self.cost)
         if self.rollout_backend == "fused":
             K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[2], False)
             S, beta, eta, dU = fs.fleet_family_fused_solve(

@@ -12,11 +12,13 @@ update ``U += Σ_k w_k ε_k`` → clamp → shift. Two backends:
 fused family (``ops.families``: the point-mass LTI model with the quadratic
 or the obstacle cost, the pendulum with its swing-up cost, the cart-pole
 with its balance cost, the unicycle, planar quadrotor, two-link arm and 3-D
-quadrotor with their waypoint, hover, reaching and hover costs), and
-``eager`` otherwise. The fused family's parameters are packed when the
+quadrotor with their waypoint, hover, reaching and hover costs, and any
+family registered from user code with ``ops.families.register_family``),
+and ``eager`` otherwise. The fused family's parameters are packed when the
 controller's ``cost`` or ``dynamics`` is assigned (at init or later, as the
 examples re-tune the cost), never per solve, and not when the cost is only
-re-aimed at another goal (the goal is passed per solve). Both backends
+re-aimed at another goal (the goal is passed per solve), unless the family
+keeps its goal in its pack (a user family without ``has_goal``). Both backends
 draw the same noise stream (``ops.philox``): counter (k, t, step, it) under
 the seed, so a solve is a pure function of (seed, step, it) and replayable.
 """
@@ -33,7 +35,7 @@ from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops import families
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops import philox
-from mppi_gpu_tpu_torch.ops.cost import Cost, goal_of, make_cost, only_goal_differs
+from mppi_gpu_tpu_torch.ops.cost import Cost, make_cost, only_goal_differs
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs, rollout_trajectories
 from mppi_gpu_tpu_torch.ops.softmin import softmin_weights
 
@@ -169,7 +171,7 @@ class MPPIController:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA is not available")
-        self._cost = None  # the pack is built once, when the cost is assigned below
+        self._cost = self._family = None  # packed once, when the cost is assigned below
         self.dynamics = dynamics if dynamics is not None else dynamics_for_config(cfg, self.device)
         cost = cost if cost is not None else make_cost(cfg, self.device)
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -192,11 +194,13 @@ class MPPIController:
         current one re-aimed (``with_goal``: every other field the same
         object, ``ops/cost.only_goal_differs``) keeps the pack, which holds
         no goal (the solve passes ``goal_of(self.cost)``), and reads nothing
-        from the device. On the fused backend a cost the family cannot fuse
-        raises."""
-        if only_goal_differs(self._cost, cost):
-            if self._family is not None:
-                self._family = dataclasses.replace(self._family, cost=cost)
+        from the device, unless the family holds its goal in the pack (a
+        user family without ``has_goal``), which re-packs. On the fused
+        backend a cost the family cannot fuse raises."""
+        fam = self._family
+        if only_goal_differs(self._cost, cost) and (fam is None or fam.has_goal):
+            if fam is not None:
+                self._family = dataclasses.replace(fam, cost=cost)
         else:
             self._family = self._pack(self.dynamics, cost)
         self._cost = cost
@@ -240,7 +244,7 @@ class MPPIController:
         cfg = self.cfg
         K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[1], False)
         S, beta, eta, dU = fs.family_fused_solve(
-            self._family, x, U, goal_of(self.cost), cfg.lambda_, K, seed,
+            self._family, x, U, families.call_goal(self._family, self.cost), cfg.lambda_, K, seed,
             step, it, anti, cfg.noise_beta, eps=eps,
         )
         return _finish_fused(U, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)

@@ -2,7 +2,9 @@
 
 The JAX package's models and costs, pulled out as numpy arrays, become the
 port's models and costs, so that both packages compute with identical
-float32 numbers (the tests use this).
+float32 numbers (the tests use this); so do its learned models, an
+:class:`MLPDynamics` (:func:`mlp_from_numpy`) and a
+:class:`HybridResidualDynamics` (:func:`hybrid_from_numpy`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from mppi_gpu_tpu_torch.models.arm import TwoLinkArmDynamics
 from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.models.cartpole import CartPoleDynamics
+from mppi_gpu_tpu_torch.models.neural import HybridResidualDynamics, MLPDynamics
 from mppi_gpu_tpu_torch.models.pendulum import PendulumDynamics
 from mppi_gpu_tpu_torch.models.point_mass import PointMassLTI
 from mppi_gpu_tpu_torch.models.quadrotor import QuadrotorDynamics
@@ -97,8 +100,43 @@ def from_numpy_params(
         if "goal" not in cost_fields:
             raise TypeError(f"{cost_cls.__name__} has no goal; goals= does not apply")
         out = with_goal(out, from_numpy(goals, device))
+    return _model_from_numpy(model_cls, dyn, device), out
+
+
+def _model_from_numpy(model_cls, dyn: dict, device) -> Dynamics:
     if model_cls is PointMassLTI:
-        model = PointMassLTI(dt=from_numpy(dyn["dt"], device), action_dim=int(dyn["action_dim"]))
-    else:
-        model = model_cls(**{k: from_numpy(v, device) for k, v in dyn.items()})
-    return model, out
+        return PointMassLTI(dt=from_numpy(dyn["dt"], device), action_dim=int(dyn["action_dim"]))
+    return model_cls(**{k: from_numpy(v, device) for k, v in dyn.items()})
+
+
+def model_from_numpy(dyn: dict, device: torch.device | str) -> Dynamics:
+    """The port's analytic model alone from numpy arrays or scalars, the
+    keys of `dyn` naming the family as in :func:`from_numpy_params`."""
+    key = frozenset(dyn)
+    if key not in _FAMILIES:
+        raise ValueError(f"no family has the model fields {sorted(dyn)}")
+    return _model_from_numpy(_FAMILIES[key][0], dyn, device)
+
+
+def mlp_from_numpy(mlp: dict, device: torch.device | str) -> MLPDynamics:
+    """The port's :class:`MLPDynamics` from the JAX one's arrays: ``mlp =
+    {"weights": [(in, out), ...], "biases": [(out,), ...], "residual_scale"}``
+    and, where the JAX model standardises its inputs, ``"in_shift"`` and
+    ``"in_scale"``."""
+    shift, scale = mlp.get("in_shift"), mlp.get("in_scale")
+    return MLPDynamics(
+        [from_numpy(w, device) for w in mlp["weights"]],
+        [from_numpy(b, device) for b in mlp["biases"]],
+        from_numpy(mlp["residual_scale"], device),
+        None if shift is None else from_numpy(shift, device),
+        None if scale is None else from_numpy(scale, device),
+    )
+
+
+def hybrid_from_numpy(base: dict, mlp: dict, device: torch.device | str,
+                      unit_norm_slice: tuple[int, int] | None = None) -> HybridResidualDynamics:
+    """The port's :class:`HybridResidualDynamics`: the analytic model of the
+    fields `base` (:func:`model_from_numpy`) and the net of `mlp`
+    (:func:`mlp_from_numpy`)."""
+    return HybridResidualDynamics(model_from_numpy(base, device), mlp_from_numpy(mlp, device),
+                                  unit_norm_slice)

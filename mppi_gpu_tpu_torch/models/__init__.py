@@ -1,8 +1,9 @@
 """Dynamics models usable inside the MPPI rollout.
 
 The point-mass LTI, pendulum, cart-pole, unicycle, planar-quadrotor,
-two-link-arm and 3-D quadrotor families are ported; the neural models are
-still to port (ROADMAP.md, Open items §1 item 4).
+two-link-arm and 3-D quadrotor families, and the learned models
+(``models/neural.py``: :class:`MLPDynamics`, :class:`HybridResidualDynamics`
+and their fits), which run on the eager backend.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 from mppi_gpu_tpu_torch.models.arm import TwoLinkArmDynamics
 from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.models.cartpole import CartPoleDynamics
+from mppi_gpu_tpu_torch.models.neural import HybridResidualDynamics, MLPDynamics
 from mppi_gpu_tpu_torch.models.pendulum import PendulumDynamics
 from mppi_gpu_tpu_torch.models.point_mass import PointMassLTI
 from mppi_gpu_tpu_torch.models.quadrotor import QuadrotorDynamics
@@ -42,5 +44,6 @@ def dynamics_for_config(cfg, device: torch.device | str) -> Dynamics:
 
 __all__ = [
     "Dynamics", "PointMassLTI", "PendulumDynamics", "CartPoleDynamics", "UnicycleDynamics",
-    "QuadrotorDynamics", "Quadrotor3DDynamics", "TwoLinkArmDynamics", "dynamics_for_config",
+    "QuadrotorDynamics", "Quadrotor3DDynamics", "TwoLinkArmDynamics", "MLPDynamics",
+    "HybridResidualDynamics", "dynamics_for_config",
 ]

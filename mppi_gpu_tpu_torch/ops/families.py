@@ -36,6 +36,30 @@ A mismatched pair (a pendulum with the quadratic cost, say) is not fusable
 and raises ``TypeError``, as ``family_for`` does in the JAX package; so is
 an obstacle cost whose base is not the quadratic cost or whose centres are
 not of the action's width (``pallas_rollout._LTIObstacleFamily.supports``).
+
+A family can also be registered from user code (:func:`register_family`,
+the counterpart of ``mppi_gpu_tpu.register_family``): a class with
+
+* ``name: str`` — unique, not a built-in name;
+* ``supports(dyn, cost) -> bool`` — whether it fuses the pair;
+* ``pack(dyn, cost) -> list[Tensor]`` — the family part of the pack, after
+  the shared ``[σ, Σ⁻¹]`` head, in the order its struct's ``load`` reads it;
+* ``cuda_source: str`` — CUDA C++ that defines a family struct as
+  ``csrc/mppi_solve.cuh`` describes it (``kS``, ``kGoal``, ``load``,
+  ``step``, ``cost``), in its plain version's order of rounded operations,
+  as the built-in structs in ``csrc/mppi_solve.cu`` are written;
+* ``cuda_struct: str`` — the struct's name;
+* ``has_goal: bool`` (optional, default False) — the Python mirror of the
+  struct's ``kGoal``: True when the struct reads a per-call goal of the
+  state's length (the cost's ``goal``, per robot), False when the family
+  keeps its target in its pack (re-aiming the cost then re-packs).
+
+:func:`family_name`, :func:`is_fusable`, :func:`family_for` and
+:func:`covered` consult the user families after the built-ins, the first
+that supports the pair winning. A user family's :class:`FusedFamily` has no
+FamilyId; it carries the registered class, whose K1 and K4 are built from
+its source into a library of their own at the first launch on a CUDA
+device (``ops/_build.load_family_library``).
 """
 
 from __future__ import annotations
@@ -63,6 +87,7 @@ from mppi_gpu_tpu_torch.ops.cost import (
     Quadrotor3DHoverCost,
     QuadrotorHoverCost,
     UnicycleWaypointCost,
+    goal_of,
     has_goal,
     with_goal,
 )
@@ -72,8 +97,8 @@ MAX_A = 4  # one Philox call yields four normals
 
 @dataclass(frozen=True)
 class FusedFamily:
-    name: str              # a key of FAMILY_ID
-    fid: int               # FamilyId in csrc/mppi_solve.cu
+    name: str              # a key of FAMILY_ID, or a registered family's name
+    fid: int | None        # FamilyId in csrc/mppi_solve.cu; None for a user family
     state_dim: int         # S
     action_dim: int        # A
     dynamics: Dynamics     # the eager model and cost: the plain version
@@ -82,17 +107,25 @@ class FusedFamily:
     params: torch.Tensor   # packed float32 vector, on the solve's device
     dt: float              # host copies of the kernel's scalars
     lam_cost: float
+    user: type | None = None  # the registered class of a user family
+    user_params: int = 0      # the length of its family part of the pack
 
     @property
     def has_goal(self) -> bool:
-        """The cost has a goal (``ops/cost.goal_of``), passed per call and per
-        robot, and not a built-in target (``mppi_gpu_tpu.batched._has_goal``)."""
+        """A goal is passed per call and per robot: the cost has one
+        (``ops/cost.goal_of``) and not a built-in target
+        (``mppi_gpu_tpu.batched._has_goal``); for a user family, its
+        ``has_goal`` (its struct's kGoal)."""
+        if self.user is not None:
+            return bool(getattr(self.user, "has_goal", False))
         return has_goal(self.cost)
 
     @property
     def n_params(self) -> int:
         """Length of the pack: the floats K1 reads from `params`."""
         A = self.action_dim
+        if self.user is not None:
+            return 2 * A + self.user_params
         if self.name == "lti-obstacle":
             return 4 * A + 2 + self.cost.centers.shape[0] * (A + 1)
         part = {"lti": 2 * A, "pendulum": 5, "cartpole": 9, "unicycle": 2, "quadrotor": 10,
@@ -167,19 +200,56 @@ _FAMILIES: dict[str, tuple[int, type, type, Callable, Callable | None]] = {
 FAMILY_NAMES = tuple(_FAMILIES)
 FAMILY_ID = {name: fid for name, (fid, *_) in _FAMILIES.items()}
 
+# families registered from user code, by name, in registration order
+_USER_FAMILIES: dict[str, type] = {}
+_USER_PROTOCOL = ("name", "supports", "pack", "cuda_source", "cuda_struct")
+
+
+def register_family(cls):
+    """Register a fused (model, cost) family from user code (usable as a
+    class decorator); the protocol is in the module's docstring. A missing
+    attribute raises ``TypeError``, a built-in name ``ValueError``;
+    registering a name again replaces the family (a module imported
+    twice)."""
+    for attr in _USER_PROTOCOL:
+        if not hasattr(cls, attr):
+            raise TypeError(f"fused family {cls!r} lacks required attribute '{attr}'")
+    if not isinstance(cls.name, str) or not cls.name:
+        raise TypeError(f"fused family {cls!r}: 'name' must be a non-empty str")
+    if not isinstance(cls.cuda_source, str) or not isinstance(cls.cuda_struct, str):
+        raise TypeError(f"fused family '{cls.name}': 'cuda_source' and 'cuda_struct' must be str")
+    if cls.name in _FAMILIES:
+        raise ValueError(f"cannot override built-in fused family '{cls.name}'")
+    _USER_FAMILIES[cls.name] = cls
+    return cls
+
+
+def unregister_family(name: str) -> None:
+    """Remove a family registered from user code; built-ins are
+    permanent (``ValueError``)."""
+    if name in _FAMILIES:
+        raise ValueError(f"cannot unregister built-in fused family '{name}'")
+    _USER_FAMILIES.pop(name, None)
+
 
 def covered() -> str:
     """The pairs the fused solve covers, for error messages."""
     pairs = ", ".join(f"{m.__name__} + {c.__name__}" for _, m, c, *_ in _FAMILIES.values())
-    return f"{pairs} (A <= {MAX_A})"
+    users = "".join(f", {name} (registered)" for name in _USER_FAMILIES)
+    return f"{pairs}{users} (A <= {MAX_A})"
 
 
 def family_name(dyn: Dynamics, cost: Cost) -> str:
-    """The fused family of the exact (model, cost) pair, or ``TypeError``."""
-    for name, (_, model_t, cost_t, _, fits) in _FAMILIES.items():
-        if (isinstance(dyn, model_t) and type(cost) is cost_t and dyn.action_dim <= MAX_A
-                and (fits is None or fits(dyn, cost))):
-            return name
+    """The fused family of the exact (model, cost) pair, or ``TypeError``:
+    the built-ins first, then the families registered from user code."""
+    if dyn.action_dim <= MAX_A:
+        for name, (_, model_t, cost_t, _, fits) in _FAMILIES.items():
+            if (isinstance(dyn, model_t) and type(cost) is cost_t
+                    and (fits is None or fits(dyn, cost))):
+                return name
+        for name, cls in _USER_FAMILIES.items():
+            if cls.supports(dyn, cost):
+                return name
     raise TypeError(
         f"the fused solve covers {covered()}; got {type(dyn).__name__} + {type(cost).__name__}"
     )
@@ -197,13 +267,25 @@ def family_for(dyn: Dynamics, cost: Cost, sigma: torch.Tensor) -> FusedFamily:
     """The fused family of (dyn, cost) with its parameters packed on σ's
     device. Reads dt and λ to the host once."""
     name = family_name(dyn, cost)
-    fid, _, _, part, _ = _FAMILIES[name]
-    head = [sigma, cost.inv_s]
-    params = torch.cat([
-        t.to(sigma.device, torch.float32).reshape(-1) for t in head + part(dyn, cost)
-    ])
+    user = _USER_FAMILIES.get(name)
+    if user is None:
+        fid, _, _, part, _ = _FAMILIES[name]
+        parts = part(dyn, cost)
+    else:
+        fid, parts = None, user.pack(dyn, cost)
+    parts = [torch.as_tensor(t).to(sigma.device, torch.float32).reshape(-1) for t in parts]
+    head = [t.to(sigma.device, torch.float32).reshape(-1) for t in (sigma, cost.inv_s)]
     return FusedFamily(
         name=name, fid=fid, state_dim=dyn.state_dim, action_dim=dyn.action_dim,
-        dynamics=dyn, cost=cost, sigma=sigma, params=params.to(sigma.device).contiguous(),
-        dt=float(dyn.dt), lam_cost=float(cost.lambda_),
+        dynamics=dyn, cost=cost, sigma=sigma, params=torch.cat(head + parts).contiguous(),
+        dt=float(dyn.dt), lam_cost=float(cost.lambda_), user=user,
+        user_params=sum(t.numel() for t in parts) if user is not None else 0,
     )
+
+
+def call_goal(fam: FusedFamily | None, cost: Cost) -> torch.Tensor | None:
+    """The goal a solve of `cost` passes per call (``ops/cost.goal_of``), or
+    None where its fused family `fam` keeps the target in its pack (a user
+    family without ``has_goal``). With `fam` None (a pair no family fuses)
+    the cost's goal, which the eager path reads from the cost itself."""
+    return goal_of(cost) if fam is None or fam.has_goal else None

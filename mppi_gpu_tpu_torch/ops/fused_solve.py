@@ -1,12 +1,15 @@
 """The fused MPPI solve: wrappers of the CUDA kernels in
-``csrc/mppi_solve.cu`` and their plain versions.
+``csrc/mppi_solve.cu`` (K1's and K4's bodies in ``csrc/mppi_solve.cuh``)
+and their plain versions.
 
 * :func:`fleet_family_solve_partials` (K1) — for each of R robots, rollout,
   cost and per-block softmin partials ``(β_b, η_b, ΔŨ_b)`` over blocks of
   :func:`block_width` rollouts, for one fused family (``ops/families.py``: the
   point-mass LTI model with the quadratic and the obstacle cost, and the
   pendulum, cart-pole, unicycle, planar-quadrotor, two-link-arm and 3-D
-  quadrotor models with their costs);
+  quadrotor models with their costs, or a family registered from user
+  code, whose K1 and K4 come from a library built on its own struct,
+  ``ops/_build.load_family_library``, through the same wrappers);
 * :func:`fleet_softmin_combine` (K2) — each robot's associative fold of its
   partials into ``β``, ``η`` and ``ΔU``;
 * :func:`fleet_family_fused_solve` — K1 then K2, the fleet controller's
@@ -283,12 +286,13 @@ def block_width(R: int, K: int, T: int, A: int, family: str | None = None) -> in
     """Rollouts per block of K1 and K4 for R robots of K rollouts over T
     steps of A actions of fused family `family`, which picks the body:
     :data:`SLAB_WIDTH` (the slab body) while R·K is at most the family's
-    :data:`SLAB_MAX_ROLLOUTS` (the least of them for None) and the slab fits
-    in a block's shared memory, else :data:`BLOCK` (the per-rollout body).
-    A pure function of its arguments. The crossovers were measured at T=200;
-    a shorter horizon puts more slab blocks on an SM, so they hold there
-    conservatively."""
-    limit = SLAB_MAX_ROLLOUTS[family] if family is not None else min(SLAB_MAX_ROLLOUTS.values())
+    :data:`SLAB_MAX_ROLLOUTS` (the least of them for None or a family
+    registered from user code, whose crossover nobody measured) and the
+    slab fits in a block's shared memory, else :data:`BLOCK` (the
+    per-rollout body). A pure function of its arguments. The crossovers were
+    measured at T=200; a shorter horizon puts more slab blocks on an SM, so
+    they hold there conservatively."""
+    limit = SLAB_MAX_ROLLOUTS.get(family, min(SLAB_MAX_ROLLOUTS.values()))
     if R * K <= limit and slab_bytes(T, A) <= _SMEM_BYTES:
         return SLAB_WIDTH
     return BLOCK
@@ -399,7 +403,6 @@ def _launch_solve_partials(
         raise ValueError(f"T·A = {T * A} exceeds the {width}-rollout body's shared-memory budget")
     from mppi_gpu_tpu_torch.ops._build import load_library
 
-    lib = load_library()
     nb = -(-K // width)
     per_robot = isinstance(seeds, torch.Tensor)
     step_ptr = isinstance(step, torch.Tensor)
@@ -407,9 +410,8 @@ def _launch_solve_partials(
     partials = (torch.empty(*lead, nb, 2 + T * A, dtype=torch.float32, device=Us.device)
                 if pass2 else None)
     kernel = "solve_partials" if pass2 else "rollout_costs"
-    ran = _launch(
-        f"{kernel}<{fam.name}>", lib.mppi_solve_partials, Us.device,
-        fam.fid, xs.data_ptr(), Us.data_ptr(), fam.params.data_ptr(),
+    args = (
+        xs.data_ptr(), Us.data_ptr(), fam.params.data_ptr(),
         goals.data_ptr() if goals is not None else None,
         seeds.data_ptr() if per_robot else None, step.data_ptr() if step_ptr else None,
         eps.data_ptr() if eps is not None else None, S.data_ptr(),
@@ -419,11 +421,36 @@ def _launch_solve_partials(
         philox.draw_offset(k0),
         int(antithetic), float(ou_beta), _ou_c(ou_beta), width,
     )
+    label = f"{kernel}<{fam.name}>"
+    if fam.user is None:
+        lib = load_library()
+        ran = _launch(label, lib.mppi_solve_partials, Us.device, fam.fid, *args)
+    else:
+        lib = _family_library(fam)
+        ran = _launch(label, lib.mppi_family_solve_partials, Us.device, *args)
     if ran:
         _LAUNCHES[kernel] += 1
-        _FAMILY_LAUNCHES[kernel][fam.name] += 1
+        by_family = _FAMILY_LAUNCHES[kernel]
+        by_family[fam.name] = by_family.get(fam.name, 0) + 1
         _WIDTH_LAUNCHES[kernel][width] += 1
     return (S, partials) if pass2 else S
+
+
+def _family_library(fam: FusedFamily):
+    """The library built from a user family's source (``ops/_build``, at
+    its first launch), once its struct's kS and kGoal are found to be the
+    family's state dimension and ``has_goal``."""
+    from mppi_gpu_tpu_torch.ops import _build
+
+    user = fam.user
+    lib = _build.load_family_library(user.cuda_source, user.cuda_struct, fam.action_dim)
+    S, goal = lib.family_struct
+    if (S, goal) != (fam.state_dim, fam.has_goal):
+        raise ValueError(
+            f"the {fam.name} family's struct {user.cuda_struct} has kS={S}, kGoal={goal}; its "
+            f"model has state_dim={fam.state_dim} and the family has_goal={fam.has_goal}"
+        )
+    return lib
 
 
 def family_solve_partials(

@@ -48,7 +48,7 @@ from mppi_gpu_tpu_torch.controller import (
 from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops import families, philox
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
-from mppi_gpu_tpu_torch.ops.cost import Cost, goal_of
+from mppi_gpu_tpu_torch.ops.cost import Cost
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs, rollout_trajectories
 from mppi_gpu_tpu_torch.parallel.mesh import Mesh, make_mesh
 
@@ -120,7 +120,7 @@ def _solve_once(
     k_loc = rollouts_per_rank(K, mesh.size, anti)
     T = U.shape[0]
     fused = backend == "fused"
-    goal = goal_of(cost)
+    goal = families.call_goal(fam, cost)
     ranks = mesh.local_ranks
     args = (k_loc, seed, step, it, anti, ou_beta)
     k0 = {d: draw_offset(d, k_loc, anti) for d in ranks}

@@ -33,6 +33,11 @@ def test_import_loads_no_jax_and_builds_nothing():
         "import mppi_gpu_tpu_torch.parallel, mppi_gpu_tpu_torch.parallel.mesh\n"
         "import mppi_gpu_tpu_torch.parallel.multihost, mppi_gpu_tpu_torch.parallel.sharded\n"
         "import mppi_gpu_tpu_torch.parallel.fleet\n"
+        "import mppi_gpu_tpu_torch.models.neural, mppi_gpu_tpu_torch.ops.families\n"
+        "import mppi_gpu_tpu_torch.examples.custom_family, mppi_gpu_tpu_torch.examples.quadrotor_waypoints\n"
+        "import mppi_gpu_tpu_torch.examples.learn_dynamics\n"
+        "import mppi_gpu_tpu_torch.examples.learn_quadrotor_residual\n"
+        "from mppi_gpu_tpu_torch import register_family\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'mppi_gpu_tpu', 'matplotlib')]\n"
         "assert not bad, bad\n"
