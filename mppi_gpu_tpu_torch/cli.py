@@ -32,14 +32,6 @@ import json
 import os
 import sys
 
-# JAX CLI flags not ported yet (ROADMAP.md, Open items §1 items 3 and 5)
-_UNPORTED = (
-    ("--world", dict(default=None)),
-    ("--view", dict(action="store_true")),
-    ("--compile-cache", dict(default=None, nargs="?", const="")),
-)
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mppi_gpu_tpu_torch",
@@ -85,26 +77,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--resume", default=None, help="resume from checkpoint .npz")
     p.add_argument("--profile", default=None, help="torch.profiler trace dir")
-    for flag, kw in _UNPORTED:
-        p.add_argument(flag, help=argparse.SUPPRESS, **kw)
+    p.add_argument(
+        "--world", choices=("torch", "native", "mujoco"), default="torch",
+        help="the host loop's plant: the torch world, the native C++ twin, or real MuJoCo "
+        "(mj_step; needs the optional mujoco package)",
+    )
+    p.add_argument(
+        "--view", action="store_true",
+        help="live interactive MuJoCo viewer (needs --world mujoco and a display)",
+    )
+    p.add_argument(
+        "--compile-cache", default=None, metavar="DIR",
+        help="build the CUDA kernel libraries and the native world library into DIR "
+        "(default: build/mppi_gpu_tpu_torch/ under the checkout)",
+    )
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    from mppi_gpu_tpu_torch.config import ConfigError
-
     args = build_parser().parse_args(argv)
-    for flag, kw in _UNPORTED:
-        value = getattr(args, flag[2:].replace("-", "_"))
-        if value != kw.get("default", False):
-            print(
-                f"error: {flag} is not ported to mppi_gpu_tpu_torch yet (see ROADMAP.md)",
-                file=sys.stderr,
-            )
-            return 2
     try:
         return _main(args)
-    except (FileNotFoundError, ConfigError, NotImplementedError) as e:
+    except (FileNotFoundError, NotImplementedError, ValueError) as e:  # ConfigError is one
         print(f"error: {e}", file=sys.stderr)
         return 2
 
@@ -124,6 +118,10 @@ def _main(args) -> int:
             file=sys.stderr,
         )
         return 2
+    if args.compile_cache is not None:
+        from mppi_gpu_tpu_torch.ops import _build
+
+        _build.set_build_dir(args.compile_cache)
     cfg = load_config(args.config)
     if args.seed is not None:
         cfg = cfg.replace(seed=args.seed)
@@ -178,7 +176,8 @@ def _run(args, ctrl) -> int:
     if args.jit_episode:
         host_only = [flag for flag, given in (
             ("-s", args.step_dump_dir), ("--checkpoint", args.checkpoint),
-            ("--resume", args.resume), ("-v", args.verbose)) if given]
+            ("--resume", args.resume), ("-v", args.verbose), ("--view", args.view),
+            (f"--world {args.world}", args.world != "torch")) if given]
         if host_only:
             raise ConfigError(f"{', '.join(host_only)}: options of the host loop, which "
                               "--jit-episode does not run")
@@ -192,6 +191,8 @@ def _run(args, ctrl) -> int:
         else:
             result = run_closed_loop(
                 ctrl,
+                world_backend=args.world,
+                view=args.view,
                 max_steps=args.max_steps,
                 traj_csv=args.traj,
                 step_dump_every=args.dump_every if args.step_dump_dir else None,

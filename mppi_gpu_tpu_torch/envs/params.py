@@ -59,12 +59,23 @@ class WorldParams(ControlCadence):
 
 
 def world_params_for_config(cfg: MPPIConfig) -> WorldParams:
-    """World params for a point-mass config: the built-in constants above,
-    keyed by the config's dimensionality. An ``env`` that points at a MuJoCo
-    XML is not ported yet (ROADMAP.md, Open items §1 item 5)."""
+    """World params for a point-mass config. If `env` is a path to a MuJoCo
+    XML (the reference schema: its YAML points at envs/*.xml), the physics
+    is parsed from the XML (``envs/xml.py``); otherwise (a bare name like
+    "point_mass2d") the built-in constants above apply, keyed by the
+    config's dimensionality."""
     if str(cfg.env).endswith(".xml"):
-        raise NotImplementedError(
-            f"config env '{cfg.env}' is a MuJoCo XML; XML worlds are not ported "
-            "to mppi_gpu_tpu_torch yet (see ROADMAP.md)"
-        )
+        import os
+
+        if not os.path.exists(cfg.env):
+            raise FileNotFoundError(f"config env points at XML '{cfg.env}' which does not exist")
+        from mppi_gpu_tpu_torch.envs.xml import load_world_xml
+
+        world = load_world_xml(cfg.env)
+        if world.params.n_axes != cfg.action_dim:
+            raise ValueError(
+                f"XML '{cfg.env}' has {world.params.n_axes} axes but config "
+                f"action-dim is {cfg.action_dim}"
+            )
+        return world.params
     return WorldParams(n_axes=cfg.action_dim)

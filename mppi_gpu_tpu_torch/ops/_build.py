@@ -55,6 +55,14 @@ _SIGNATURES = {
 }
 
 
+def set_build_dir(path: str | os.PathLike) -> None:
+    """Build into `path` from now on, in place of ``build/mppi_gpu_tpu_torch/``
+    (the CLI's ``--compile-cache DIR``): the built-in library, the libraries
+    of user families and the native world library (``envs/native.py``)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+
+
 def find_nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),

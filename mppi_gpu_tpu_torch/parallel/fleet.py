@@ -8,7 +8,10 @@ under its own seed (``ops/philox.fleet_seeds``) and goal, at the whole
 fleet's block width. So robot r's result is ``BatchedMPPIController``'s bit
 for bit. The full (R, ·) result
 comes back on every rank through one all_gather of the packed outputs per
-update, so ``runner.run_fleet_episode`` runs on it unchanged.
+update, so ``runner.run_fleet_episode`` runs on it unchanged: on the CPU, a
+loop over gloo, bit for bit as on the unsharded fleet
+(``tests/test_torch_sharded.py``). Its CUDA graph, NCCL's all_gather
+captured in it, is not run anywhere yet (ROADMAP.md, §1).
 """
 
 from __future__ import annotations

@@ -8,10 +8,12 @@ Three entry points:
   first action to the world → repeat until the episode ends, timing every
   solve like the reference's "Average controller execution time" metric,
   with optional per-step debug dumps, checkpoint/resume and the divergence
-  guard. The world is the config family's (``envs.make_world``: point mass,
-  with or without obstacles, pendulum, cart-pole, unicycle, planar
-  quadrotor, two-link arm or 3-D quadrotor) and runs on the CPU: its state is
-  a few floats and the host needs it every cycle anyway.
+  guard, and the live MuJoCo viewer. The plant is the config family's
+  (point mass, with or without obstacles, pendulum, cart-pole, unicycle,
+  planar quadrotor, two-link arm or 3-D quadrotor) on one of three backends
+  (``envs.make_host_world``): the torch world on the CPU, the native C++
+  twin or real MuJoCo. Each runs on the host: its state is a few floats and
+  the host needs it every cycle anyway.
 * :func:`run_episode_jit` — the whole episode on the controller's device with
   no host round trip: one control cycle (every opt iteration of the solve,
   the world's ``advance``, the step into the histories) captured once as a
@@ -19,21 +21,25 @@ Three entry points:
 * :func:`run_fleet_episode` — the same for R robots: one fleet solve and one
   batched world step per cycle (counterpart of ``run_fleet_episode_jit``).
 
-Not ported yet (ROADMAP.md, Open items §1 items 3 and 5): the live viewer
-and the native and MuJoCo worlds.
+The two device episodes step the torch world on the device and refuse a
+host plant by name. Not ported yet (ROADMAP.md, Open items §1): the sharded
+device episode.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
+import sys
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from mppi_gpu_tpu_torch.controller import MPPIController
-from mppi_gpu_tpu_torch.envs import WorldParams, make_world, params_for_config
+from mppi_gpu_tpu_torch.envs import WorldParams, make_host_world, make_world, params_for_config
 from mppi_gpu_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from mppi_gpu_tpu_torch.io.csvio import write_step_dump_csv, write_traj_csv
 from mppi_gpu_tpu_torch.utils.guard import check_solve
@@ -52,6 +58,39 @@ class EpisodeResult:
         return self.xs[-1]
 
 
+def _launch_viewer(world):
+    """Open the live viewer over the real MuJoCo plant (the reference's GLFW
+    window and mjv/mjr scene, src/PointMassEnv.cpp:65-92, 141-169; here
+    ``mujoco.viewer`` supplies the window, the render loop and the camera).
+    Needs the MuJoCo world and a display, and raises ConfigError otherwise.
+    Module-level so tests can put a stub handle in its place."""
+    from mppi_gpu_tpu_torch.config import ConfigError
+
+    if not (hasattr(world, "m") and hasattr(world, "d")):
+        raise ConfigError(
+            "--view drives the live MuJoCo viewer and needs the real engine as the plant: "
+            "add --world mujoco"
+        )
+    if sys.platform.startswith("linux") and not (
+        os.environ.get("DISPLAY") or os.environ.get("WAYLAND_DISPLAY")
+    ):
+        # glfwInit on a headless host aborts the process rather than
+        # raising, so it is never reached without a display
+        raise ConfigError(
+            "--view needs a display (no DISPLAY/WAYLAND_DISPLAY set). For headless replay, "
+            "record with -t and use mppi_gpu_tpu_torch/scripts/animate.py"
+        )
+    try:
+        import mujoco.viewer
+
+        return mujoco.viewer.launch_passive(world.m, world.d)
+    except Exception as e:  # noqa: BLE001 (GLFW/EGL init failures)
+        raise ConfigError(
+            f"could not open the live viewer (needs a working GL display): {e}. For headless "
+            "replay, record with -t and use mppi_gpu_tpu_torch/scripts/animate.py"
+        ) from e
+
+
 def run_closed_loop(
     ctrl: MPPIController,
     *,
@@ -68,27 +107,27 @@ def run_closed_loop(
     view: bool = False,
     validate: bool = True,
 ) -> EpisodeResult:
-    """Interactive closed loop. Dump steps (every `step_dump_every` with a
-    `step_dump_dir`) run ``solve_debug`` in place of the timed solve — the
-    same stream, so the CSV documents the solve that drives the robot.
+    """Interactive closed loop against the plant of `world_backend`
+    ("torch", "native" or "mujoco"; ``envs.make_host_world``). Dump steps
+    (every `step_dump_every` with a `step_dump_dir`) run ``solve_debug`` in
+    place of the timed solve — the same stream, so the CSV documents the
+    solve that drives the robot.
 
     Checkpoint/resume (no reference analog): with `checkpoint_path` and
     `checkpoint_every`, the loop state (step, U, seed, world state) is
-    written atomically every N steps; `resume_from` restores it and the run
-    goes on bit for bit as the uninterrupted one (the noise of a step is a
-    function of the seed and the absolute step). The checkpoint's seed must
-    be the controller's (build it from the checkpoint's config). On resume
-    the returned EpisodeResult covers only the resumed suffix."""
-    unported = {"world_backend": world_backend != "torch", "view": view}
-    for name, given in unported.items():
-        if given:
-            raise NotImplementedError(
-                f"run_closed_loop({name}=...) is not ported to mppi_gpu_tpu_torch yet "
-                "(see ROADMAP.md, Open items §1 items 3 and 5)"
-            )
+    written atomically every N steps; `resume_from` restores it (the plant
+    through ``set_state``) and the run goes on bit for bit as the
+    uninterrupted one (the noise of a step is a function of the seed and the
+    absolute step). The checkpoint's seed must be the controller's (build it
+    from the checkpoint's config). On resume the returned EpisodeResult
+    covers only the resumed suffix.
+
+    `view` opens the live MuJoCo viewer (:func:`_launch_viewer`) over the
+    MuJoCo plant, syncs it every control cycle, paces the loop to real time
+    and ends the episode when its window closes."""
     params = world_params or params_for_config(ctrl.cfg)
-    world = make_world(ctrl.cfg, params)
-    state = world.reset()
+    world = make_host_world(ctrl.cfg, params, world_backend)
+    viewer = _launch_viewer(world) if view else None
     U = ctrl.init_action_seq()
     step = 0
     if resume_from is not None:
@@ -100,47 +139,63 @@ def run_closed_loop(
             )
         U = torch.as_tensor(ck.U, dtype=torch.float32, device=ctrl.device)
         step = ck.step
-        state = world.from_x(torch.from_numpy(ck.x), ck.time)
+        world.set_state(ck.x, ck.time)
     timer = SolveTimer(ctrl.device)
-    xs = [state.x.numpy()]
+    xs = [world.get_x()]
     us: list[np.ndarray] = []
     times: list[float] = []
     limit = max_steps if max_steps is not None else params.num_control_steps() + 5
-    while step < limit:
-        if checkpoint_path is not None and checkpoint_every and step % checkpoint_every == 0:
-            save_checkpoint(checkpoint_path, step=step, U=U.cpu().numpy(), seed=ctrl.cfg.seed,
-                            x=xs[-1], time=float(state.time), cfg=ctrl.cfg)
-        x = torch.from_numpy(xs[-1])
-        U_prev = U
-        if step_dump_every and step_dump_dir and step % step_dump_every == 0:
-            res, eps, traj = ctrl.solve_debug(x, U_prev, step)
-            if eps is not None:  # None off a sharded solve's coordinator
-                write_step_dump_csv(
-                    os.path.join(step_dump_dir, f"step_{step:05d}.csv"),
-                    traj.cpu().numpy(), eps.cpu().numpy(), res.info.u_seq.cpu().numpy(),
-                    U_prev.cpu().numpy(), res.info.weights.cpu().numpy(),
-                    res.info.costs.cpu().numpy(),
-                )
-            action = res.action.cpu().numpy()
-        else:
-            with timer.measure():
-                res = ctrl.solve_auto(x, U, step)
+    with contextlib.ExitStack() as stack:
+        if viewer is not None:
+            stack.callback(viewer.close)
+        last_wall = None
+        while step < limit:
+            if checkpoint_path is not None and checkpoint_every and step % checkpoint_every == 0:
+                save_checkpoint(checkpoint_path, step=step, U=U.cpu().numpy(), seed=ctrl.cfg.seed,
+                                x=xs[-1], time=world.time, cfg=ctrl.cfg)
+            x = torch.from_numpy(xs[-1])
+            U_prev = U
+            if step_dump_every and step_dump_dir and step % step_dump_every == 0:
+                res, eps, traj = ctrl.solve_debug(x, U_prev, step)
+                if eps is not None:  # None off a sharded solve's coordinator
+                    write_step_dump_csv(
+                        os.path.join(step_dump_dir, f"step_{step:05d}.csv"),
+                        traj.cpu().numpy(), eps.cpu().numpy(), res.info.u_seq.cpu().numpy(),
+                        U_prev.cpu().numpy(), res.info.weights.cpu().numpy(),
+                        res.info.costs.cpu().numpy(),
+                    )
                 action = res.action.cpu().numpy()
-        U = res.u_next
-        if validate and not np.all(np.isfinite(action)):
-            check_solve(step, action, res.info.cpu())
-        state, done = world.simulate(state, torch.from_numpy(action))
-        if done:
-            break
-        times.append(float(state.time))
-        xs.append(state.x.numpy())
-        us.append(action)
-        if verbose:
-            print(
-                f"[{step:4d}] t={times[-1]:7.3f}  x={xs[-1]}  u={action}  "
-                f"beta={float(res.info.beta):.4g} eta={float(res.info.eta):.4g}"
-            )
-        step += 1
+            else:
+                with timer.measure():
+                    res = ctrl.solve_auto(x, U, step)
+                    action = res.action.cpu().numpy()
+            U = res.u_next
+            if validate and not np.all(np.isfinite(action)):
+                check_solve(step, action, res.info.cpu())
+            done = world.simulate(action)
+            if viewer is not None:
+                # a closed window ends the episode (the reference's
+                # glfwWindowShouldClose, PointMassEnv.cpp:118)
+                if not viewer.is_running():
+                    break
+                viewer.sync()
+                # real-time pacing (the reference's usleep to the frame
+                # time, PointMassEnv.cpp:150-161)
+                now = time.perf_counter()
+                if last_wall is not None and params.control_period > now - last_wall:
+                    time.sleep(params.control_period - (now - last_wall))
+                last_wall = time.perf_counter()
+            if done:
+                break
+            times.append(world.time)
+            xs.append(world.get_x())
+            us.append(action)
+            if verbose:
+                print(
+                    f"[{step:4d}] t={times[-1]:7.3f}  x={xs[-1]}  u={action}  "
+                    f"beta={float(res.info.beta):.4g} eta={float(res.info.eta):.4g}"
+                )
+            step += 1
 
     result = EpisodeResult(
         times=np.asarray(times),
@@ -151,6 +206,16 @@ def run_closed_loop(
     if traj_csv is not None:
         write_traj_csv(traj_csv, result.times, result.xs[1:], result.us)
     return result
+
+
+def _device_world(fn: str, world_backend: str) -> None:
+    """A device episode steps the torch world on the device: a host plant
+    is refused by name."""
+    if world_backend != "torch":
+        raise ValueError(
+            f"{fn} steps the torch world on the device; the {world_backend!r} world is a host "
+            f"plant, which only run_closed_loop(world_backend={world_backend!r}) drives"
+        )
 
 
 # --------------------------------------------------------------------------
@@ -279,6 +344,7 @@ def run_episode_jit(
     seed: int | None = None,
     x0: torch.Tensor | np.ndarray | None = None,
     capture: bool = True,
+    world_backend: str = "torch",
 ) -> EpisodeResult:
     """The whole episode on the controller's device, with no host round
     trip: the counterpart of the JAX package's whole-episode ``lax.scan``
@@ -291,13 +357,15 @@ def run_episode_jit(
     On the CPU the cycle runs as a loop. `seed` (default: the config's) and
     `x0` (default: the world's start) override the episode's noise stream and
     start state; the clock starts where the world's reset does. A new seed
-    re-captures (the solo kernel takes it by value); a new x0 does not."""
+    re-captures (the solo kernel takes it by value); a new x0 does not. Any
+    `world_backend` but "torch" (a host plant) raises ValueError."""
     from mppi_gpu_tpu_torch.parallel import ShardedMPPIController
 
+    _device_world("run_episode_jit", world_backend)
     if isinstance(ctrl, ShardedMPPIController):
         raise NotImplementedError(
             "run_episode_jit with a ShardedMPPIController is not ported yet "
-            "(see ROADMAP.md, Open items §1 item 3); run_closed_loop drives it"
+            "(see ROADMAP.md, Open items §1 item 1); run_closed_loop drives it"
         )
     params = world_params or params_for_config(ctrl.cfg)
     world = make_world(ctrl.cfg, params, device=ctrl.device)
@@ -327,6 +395,7 @@ def run_fleet_episode(
     num_steps: int | None = None,
     xs0: torch.Tensor | np.ndarray | None = None,  # (R, s) per-robot initial states
     capture: bool = True,
+    world_backend: str = "torch",
 ) -> EpisodeResult:
     """R independent closed loops, one fleet solve and one batched world
     step per control cycle, for `num_steps` cycles (default: the episode's
@@ -337,7 +406,9 @@ def run_fleet_episode(
     state, as the JAX fleet's scan does. Robot r under seed
     ``ctrl.init_seeds()[r]`` from ``xs0[r]`` is :func:`run_episode_jit` of one
     robot with that seed, start and goal. Returns xs (N+1, R, s), us
-    (N, R, a) and the robots' shared clock."""
+    (N, R, a) and the robots' shared clock. Any `world_backend` but "torch"
+    (a host plant) raises ValueError."""
+    _device_world("run_fleet_episode", world_backend)
     params = world_params or params_for_config(ctrl.cfg)
     world = make_world(ctrl.cfg, params, device=ctrl.device)
     n = num_steps if num_steps is not None else params.num_control_steps()

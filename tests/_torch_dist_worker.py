@@ -81,6 +81,16 @@ def fleet(cfg, n_robots, xs, goals=None, step: int = 1):
     return _counted(lambda: ctrl.solve(xs, ctrl.init_action_seqs(), ctrl.init_seeds(), step))
 
 
+def fleet_episode(cfg, n_robots, num_steps: int):
+    """``runner.run_fleet_episode`` of ShardedFleetController over the
+    group: the histories of every robot."""
+    from mppi_gpu_tpu_torch.runner import run_fleet_episode
+
+    ctrl = ShardedFleetController(cfg, n_robots, mesh=global_mesh("cpu"))
+    ep = run_fleet_episode(ctrl, num_steps=num_steps)
+    return dict(xs=ep.xs, us=ep.us, times=ep.times)
+
+
 def multihost(init: str, world: int, rank: int):
     """init_multihost's re-calls: the same arguments or none return the
     coordinates; other arguments raise RuntimeError."""
@@ -119,7 +129,8 @@ def main(spec_path: str, rank: int) -> None:
         elif name == "cli":
             out.append(cli([*kwargs["argv"], "--process-id", str(rank)]))
         else:
-            out.append({"solve": solve, "fleet": fleet, "debug": debug}[name](**kwargs))
+            out.append({"solve": solve, "fleet": fleet, "debug": debug,
+                        "fleet_episode": fleet_episode}[name](**kwargs))
     if grouped:
         shutdown_multihost()
     torch.save(out, os.path.join(os.path.dirname(spec_path), f"{rank}.pt"))

@@ -37,9 +37,11 @@ def test_import_loads_no_jax_and_builds_nothing():
         "import mppi_gpu_tpu_torch.examples.custom_family, mppi_gpu_tpu_torch.examples.quadrotor_waypoints\n"
         "import mppi_gpu_tpu_torch.examples.learn_dynamics\n"
         "import mppi_gpu_tpu_torch.examples.learn_quadrotor_residual\n"
+        "import mppi_gpu_tpu_torch.miss, mppi_gpu_tpu_torch.envs.native\n"
+        "import mppi_gpu_tpu_torch.envs.mujoco_world, mppi_gpu_tpu_torch.envs.xml\n"
         "from mppi_gpu_tpu_torch import register_family\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'mppi_gpu_tpu', 'matplotlib')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'mppi_gpu_tpu', 'matplotlib', 'mujoco')]\n"
         "assert not bad, bad\n"
         "assert 'mppi_gpu_tpu_torch.ops._build' not in sys.modules\n"
         "import torch.distributed as dist\n"
@@ -61,10 +63,11 @@ def test_config_loads_equal_in_both_packages(path):
 
 
 def test_unported_families_raise_naming_roadmap():
-    """What the port still lacks raises NotImplementedError naming
-    ROADMAP.md: a MuJoCo XML world. The 3-D quadrotor, the last family to be
-    ported, builds its model, cost and world, and its fleet runs an episode
-    in the batched world (which once raised here)."""
+    """Once the port's last refusals: an XML world now loads, and the one
+    whose axes do not match the config's action-dim raises as in the JAX
+    package. The 3-D quadrotor, the last family to be ported, builds its
+    model, cost and world, and its fleet runs an episode in the batched
+    world (which once raised here)."""
     from mppi_gpu_tpu_torch.batched import BatchedMPPIController
     from mppi_gpu_tpu_torch.config import load_config
     from mppi_gpu_tpu_torch.envs import make_world, params_for_config
@@ -77,9 +80,10 @@ def test_unported_families_raise_naming_roadmap():
     assert type(make_cost(cfg, "cpu")).__name__ == "Quadrotor3DHoverCost"
     assert type(make_world(cfg)).__name__ == "Quadrotor3DWorld"
     xml = load_config(os.path.join(ROOT, "configs", "point_mass2d.yaml")).replace(
-        env="envs_xml/point_mass2d.xml")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        env=os.path.join(ROOT, "envs_xml", "point_mass3d.xml"))
+    with pytest.raises(ValueError, match="3 axes but config action-dim is 2"):
         params_for_config(xml)
+    assert params_for_config(xml.replace(env=xml.env.replace("3d", "2d"))).n_axes == 2
     fleet = BatchedMPPIController(cfg.replace(samples=16, horizon=4), 2, device="cpu")
     ep = run_fleet_episode(fleet, num_steps=1)
     assert ep.xs.shape == (2, 2, 13) and ep.us.shape == (1, 2, 4) and ep.times.shape == (1,)

@@ -65,6 +65,7 @@ from mppi_gpu_tpu_torch.parallel import (  # noqa: E402
     sharded_mppi_solve,
 )
 from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh  # noqa: E402
+from mppi_gpu_tpu_torch.runner import run_fleet_episode  # noqa: E402
 from mppi_gpu_tpu_torch.parallel.sharded import (  # noqa: E402
     COLLECTIVES,
     onepass_combine,
@@ -376,6 +377,21 @@ def test_sharded_fleet_equals_the_fleet_bit_for_bit(gloo):
         for got, _ in ranks:
             for k, v in want.items():
                 assert torch.equal(got[k], v), (kw["cfg"].env, k)
+
+
+def test_sharded_fleet_episode_equals_the_fleet_episode(tmp_path):
+    """``run_fleet_episode`` on a ``ShardedFleetController`` over a gloo
+    world of one (a worker process) runs as it does on the unsharded
+    ``BatchedMPPIController``: xs, us and the clock bit for bit, the point
+    mass with its goals and the goal-less pendulum, 6 cycles of 4 robots."""
+    for name in ("point_mass2d", "pendulum"):
+        cfg = load_config(os.path.join(ROOT, "configs", f"{name}.yaml")).replace(samples=64,
+                                                                                horizon=8)
+        ((got,),) = _spawn(tmp_path / name, 1,
+                           [("fleet_episode", dict(cfg=cfg, n_robots=4, num_steps=6))])
+        want = run_fleet_episode(BatchedMPPIController(cfg, 4, device="cpu"), num_steps=6)
+        for k in ("xs", "us", "times"):
+            assert np.array_equal(got[k], getattr(want, k)), (name, k)
 
 
 def test_init_multihost_recalls(gloo):

@@ -90,12 +90,17 @@ def test_cli_runs_on_the_cpu(capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--device", "cuda"], None),
-    (["--device", "cpu", "--view"], "--view"),
-    (["--device", "cpu", "--world", "mujoco"], "--world"),
-    (["--device", "cpu", "--compile-cache"], "--compile-cache"),
-    (["--device", "cpu", "--world", "native"], "--world"),
+    (["--device", "cpu", "--view"], "--world mujoco"),
+    (["--device", "cpu", "--world", "mujoco", "--view", "--jit-episode"], "--view"),
+    (["--device", "cpu", "-c", "configs/arm.yaml", "--world", "native"], "arm"),
+    (["--device", "cpu", "--world", "native", "--jit-episode"], "--world native"),
+    (["--device", "cpu", "-c", "configs/unicycle.yaml", "--world", "native"], "unicycle"),
 ])
 def test_cli_refuses_what_it_cannot_do(capsys, argv, needle):
+    """What the CLI refuses, with exit code 2 and the reason: a CUDA device
+    where there is none, the viewer without the MuJoCo plant or under the
+    device episode, a plant the family lacks, and a host plant under the
+    device episode."""
     from mppi_gpu_tpu_torch import cli
 
     if argv[1] == "cuda" and torch.cuda.is_available():
@@ -103,7 +108,7 @@ def test_cli_refuses_what_it_cannot_do(capsys, argv, needle):
     rc = cli.main(["-c", CFG, "--max-steps", "1", *argv])
     err = capsys.readouterr().err
     assert rc == 2
-    assert ("CUDA is not available" in err) if needle is None else (needle in err and "ROADMAP" in err)
+    assert ("CUDA is not available" in err) if needle is None else (needle in err), err
 
 
 def test_all_diverged_guard_on_padded_K():
@@ -134,9 +139,18 @@ def test_all_diverged_guard_on_padded_K():
 
 
 def test_unported_runner_options_raise():
-    from mppi_gpu_tpu_torch.runner import run_closed_loop
+    """What the runner refuses: the viewer over any plant but MuJoCo, a
+    plant the family lacks, and a host plant under the device episode."""
+    from mppi_gpu_tpu_torch.config import ConfigError
+    from mppi_gpu_tpu_torch.runner import run_closed_loop, run_episode_jit
 
     ctrl = MPPIController(load_config(CFG).replace(samples=16, horizon=4), device="cpu")
-    for kw in (dict(world_backend="native"), dict(world_backend="mujoco"), dict(view=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(view=True), dict(world_backend="native", view=True)):
+        with pytest.raises(ConfigError, match="--world mujoco"):
             run_closed_loop(ctrl, max_steps=1, **kw)
+    uni = MPPIController(load_config("configs/unicycle.yaml").replace(samples=16, horizon=4),
+                         device="cpu")
+    with pytest.raises(ValueError, match="unicycle"):
+        run_closed_loop(uni, max_steps=1, world_backend="mujoco")
+    with pytest.raises(ValueError, match="host plant"):
+        run_episode_jit(ctrl, num_steps=1, world_backend="native")
