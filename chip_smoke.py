@@ -50,20 +50,32 @@ models: both learning examples on the card, the learned controller's graph
 episode bit-equal to its eager cycle, its solve beside the fused LTI's
 (phase 24); and the host plants: the CLI's closed loop on the native C++
 twin (and on MuJoCo where ``import mujoco`` works) beside the torch world,
-resume on the native plant and the ``miss`` harness (phase 25).
+resume on the native plant and the ``miss`` harness (phase 25); and the
+graphs: K5 with the step by pointer bit-equal to by value, the host loop's
+solve as a replayed CUDA graph bit-equal to the op-by-op solve for every
+config, the learned model, a fleet and the sharded controller, with each
+loop's ms per control step both ways, and the sharded device episode, its
+collectives captured, in both branches on a world of one NCCL rank and on
+four virtual ranks (phase 26).
 ``--time-commit ROOT`` instead times K1, K2, K4, K5 and K3 of the
 package in the checkout at ROOT, to compare two commits in one run;
 ``--sass-diff ROOT`` compares the built-in library's SASS with ROOT's,
-kernel by kernel; ``--episode``, ``--family`` and ``--plants`` run the
-build and phase 21, 22 or 25 alone. Every phase
+kernel by kernel; ``--episode``, ``--family``, ``--plants`` and
+``--graphs`` run the build and phase 21, 22, 25 or 26 alone. Every phase
 prints one line (or a few) and how far into the run it ended; any failure raises and
 the script exits non-zero without the final line. Without a CUDA device it
 exits 1 at once. The last two lines are a JSON object describing every
 kernel, K1 once per family instance (route, source, the TPU kernels it
-replaces, launches on its path, max abs error against its plain version, ms
+replaces, launches on its path as its wrapper counted them, max abs error
+against its plain version, ms
 on the card next to the plain version's and to its bound, the least time
 the card could take: instructions per step from the built SASS, or bytes)
-and ``{"ok": true, "device": {...}}``.
+and ``{"ok": true, "device": {...}}``. A wrapper counts only the launches
+it makes: on a CUDA device the host loop's solve is a replayed CUDA graph,
+so a closed loop counts its graph's warm-up and its op-by-op dump steps,
+and the records of the replayed kernels per control step are read from a
+trace of the graphed loop (``solve_trace``), as an episode graph's are
+(``replay_trace``).
 
 The ``check_*`` functions are also called by the GPU tests
 (``tests/test_torch_fused.py``, ``tests/test_torch_fleet.py``,
@@ -1425,13 +1437,15 @@ def check_sharded_fleet(cfg, R: int, mesh, *, device: str = "cuda") -> None:
         expect(torch.equal(g, w), f"sharded fleet R={R} n={mesh.size}: leaf {i} differs from the fleet's")
 
 
-def _group_rank(rank: int, world: int, init: str, backend: str, device: str, cfg, out: str) -> None:
+def _group_rank(rank: int, world: int, init: str, backend: str, device: str, cfg, out: str,
+                episode: bool) -> None:
     """One rank of :func:`group_run` (a spawned process): joins the group,
-    solves both branches on its device and saves its results."""
+    runs both branches on its device and saves its results."""
     import torch
 
     from mppi_gpu_tpu_torch.parallel import ShardedMPPIController, global_mesh, init_multihost
     from mppi_gpu_tpu_torch.parallel.multihost import shutdown_multihost
+    from mppi_gpu_tpu_torch.runner import run_episode_jit
 
     dev = f"cuda:{rank}" if device == "cuda" else device
     if device == "cuda":
@@ -1440,24 +1454,31 @@ def _group_rank(rank: int, world: int, init: str, backend: str, device: str, cfg
     res = {}
     for onepass in (True, False):
         ctrl = ShardedMPPIController(cfg, mesh=global_mesh(dev), onepass=onepass)
-        x = torch.full((cfg.state_dim,), 0.05, device=dev)
-        res[onepass] = [v.cpu() for v in _leaves(ctrl.solve(x, ctrl.init_action_seq(), cfg.seed, 2))]
+        if episode:
+            ep, eager = run_episode_jit(ctrl), run_episode_jit(ctrl, capture=False)
+            res[onepass] = (ep.xs, ep.us, eager.xs, eager.us)
+        else:
+            x = torch.full((cfg.state_dim,), 0.05, device=dev)
+            res[onepass] = [v.cpu() for v in _leaves(ctrl.solve(x, ctrl.init_action_seq(), cfg.seed,
+                                                                 2))]
     shutdown_multihost()
     torch.save(res, os.path.join(out, f"{rank}.pt"))
 
 
-def group_run(cfg, world: int, *, backend: str = "nccl", device: str = "cuda") -> list[dict]:
+def group_run(cfg, world: int, *, backend: str = "nccl", device: str = "cuda",
+              episode: bool = False) -> list[dict]:
     """The sharded solve of `cfg` over a real process group of `world`
     ranks, one spawned process each (rank r on cuda:r under NCCL), both
-    branches; returns each rank's results."""
+    branches; with `episode`, its graph episode and the same cycle run
+    eagerly (xs, us of each). Returns each rank's results."""
     import torch
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "init")
-        mp.start_processes(_group_rank, args=(world, init, backend, device, cfg, tmp),
+        mp.start_processes(_group_rank, args=(world, init, backend, device, cfg, tmp, episode),
                            nprocs=world, join=True, start_method="spawn")
-        return [torch.load(os.path.join(tmp, f"{r}.pt")) for r in range(world)]
+        return [torch.load(os.path.join(tmp, f"{r}.pt"), weights_only=False) for r in range(world)]
 
 
 def rsqrt_probe(device: str = "cuda", n: int = 1 << 20) -> tuple[int, int]:
@@ -1532,34 +1553,61 @@ def profile_steps(ctrl, x, U, steps: int = 50) -> dict:
                 K1_us=kernel_us["solve_partials"] / steps, K2_us=kernel_us["softmin_combine"] / steps)
 
 
-def device_ms(fn, reps: int = 10, name: str = "_kernel", launches: int = 1) -> float | None:
+def device_reading(fn, reps: int = 10, name: str = "_kernel",
+                   launches: int = 1) -> tuple[float | None, str]:
     """Device ms per call of `fn` of the kernel of this file whose name holds
     `name` (by default the one kernel that `fn` launches), by torch.profiler
-    over `reps` warm calls: the kernel alone,
-    without the host's time between launches that CUDA events around a
-    single call also count. A call that launches the kernel `launches`
-    times is read as the sum of its own records, in start order. The median
-    over the calls: a window now and then drops records or misreads some
-    (aggregated over the window they read up to half the time), so a sum
-    over the window would not do, and a window that does not hold every
-    call's records is read again; None if three windows did not."""
+    over `reps` warm calls: the kernel alone, without the host's time
+    between launches that CUDA events around a single call also count. The
+    window holds one call, a marker kernel (``torch.cuda._sleep``, as in
+    :func:`replay_trace`), the `reps` counted calls, a second marker and one
+    more call, and only the records between the markers are read: the
+    window's edges, where the profiler has dropped records, hold none of
+    them. A call of one launch is read as the median of the records; a
+    call that launches the kernel `launches` times as the median over the
+    calls of each call's records summed, in start order, and only from a
+    window that holds all `reps` × `launches` of them. A window that does
+    not is read again, three windows at most. Returns (ms, how it was read);
+    ms is None, and the text says what each window held, where no window
+    gave a reading."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
+    held = []
     for _ in range(3):
         with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda._sleep(1000)
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(1000)
+            fn()
             torch.cuda.synchronize()
-        records = sorted((evt.time_range.start, evt.time_range.elapsed_us()) for evt in prof.events()
-                         if evt.device_type == DeviceType.CUDA and name in evt.name)
-        if records and (launches == 1 or len(records) == reps * launches):
+        dev = device_records(prof)
+        marks = sorted((e.time_range for e in dev if "spin_kernel" in e.name), key=lambda r: r.start)
+        if len(marks) != 2:
+            held.append(f"{len(marks)} markers")
+            continue
+        t0, t1 = marks[0].end, marks[1].start
+        records = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in dev
+                         if name in e.name and e.time_range.start >= t0 and e.time_range.end <= t1)
+        held.append(len(records))
+        if records and launches == 1:
+            return (float(np.median([d for _, d in records])) / 1e3,
+                    f"median of {len(records)} records of {reps} calls")
+        if len(records) == reps * launches:
             per_call = np.add.reduceat([d for _, d in records], range(0, len(records), launches))
-            return float(np.median(per_call)) / 1e3
-    return None
+            return (float(np.median(per_call)) / 1e3,
+                    f"{launches} records summed per call, median of {reps} calls")
+    return None, (f"not read: no window of 3 held the {reps * launches} records of its {reps} calls "
+                  f"between the markers (they held {held})")
+
+
+def device_ms(fn, reps: int = 10, name: str = "_kernel", launches: int = 1) -> float | None:
+    """:func:`device_reading`'s ms alone."""
+    return device_reading(fn, reps, name, launches)[0]
 
 
 def paired_median_ms(kernel_fn, plain_fn, reps: int, plain_reps: int) -> tuple[float, float]:
@@ -1634,10 +1682,15 @@ FLEET_SOLO_TOL = {"obstacle3d": (1e-6, 1e-6), "quadrotor3d": (1e-6, 1e-6)}
 FLEET_SOLO_LOOP_TOL = {"obstacle3d": (2e-4, 3e-4), "quadrotor3d": (2e-3, 1.2e-2)}
 # control cycles of the torch.profiler window and of the timed host loop
 EPISODE_PROFILE_CYCLES = 20
+# graphed control steps of a host loop's torch.profiler window (solve_trace),
+# and the steps on each side of its markers
+SOLVE_TRACE_STEPS, SOLVE_TRACE_EDGE = 20, 5
 EPISODE_HOST_TIMED = 100
 # K1's two bodies and K2, as their records in a trace are named
 TRACE_NAMES = {"solve_partials": ("solve_partials_kernel", "slab_partials_kernel"),
                "softmin_combine": ("softmin_combine_kernel",)}
+# and K5's; K4 is K1's template without its second pass, under K1's names
+KERNEL_TRACE_NAMES = {**TRACE_NAMES, "weighted_update": ("weighted_update_kernel",)}
 
 
 def _episode_config(name: str):
@@ -1717,7 +1770,8 @@ def solve_records(records) -> dict[str, int]:
             for k, names in TRACE_NAMES.items()}
 
 
-def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: bool = False) -> dict:
+def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: bool = False,
+                 per_update: dict | None = None) -> dict:
     """torch.profiler over `cycles` replays of one captured control cycle
     and nothing else. An episode of `cycles` + 2 cycles captures the cycle
     (outside the window) and its step counter is set back to 0; the window
@@ -1726,8 +1780,10 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     marker and one more replay. Only the records between the two markers
     are read, so neither the episode's start and read-back nor the window's
     edges (where the profiler has dropped a record of a replay) enter. From
-    them, per cycle: K1's and K2's records (checked: one of each per update,
-    opt_iters), the kernels (memory copies and sets not counted), the device
+    them, per cycle: the records of each kernel of `per_update` (a key of
+    KERNEL_TRACE_NAMES: its records per update; by default one of K1 and
+    one of K2) (checked: that many per update, opt_iters), NCCL's records
+    and their µs, the kernels (memory copies and sets not counted), the device
     busy ms (Σ of the records' times) and the span ms (the first marker's
     end to the second one's start); the idle share 1 − busy/span, and K1 +
     K2's share of busy; and, untraced, the ms per cycle of `cycles` replays
@@ -1742,7 +1798,8 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
 
     (run_fleet_episode if fleet else run_episode_jit)(ctrl, num_steps=cycles + 2)
     cyc = ctrl._episode_cycles["fleet" if fleet else "single"][1]
-    want = cycles * ctrl.cfg.opt_iters
+    per_update = per_update or {"solve_partials": 1, "softmin_combine": 1}
+    want = {k: cycles * ctrl.cfg.opt_iters * v for k, v in per_update.items()}
     for window in range(1, 4):
         cyc.step.zero_()
         torch.cuda.synchronize()
@@ -1760,8 +1817,8 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
             continue
         t0, t1 = marks[0].end, marks[1].start
         dev = [e for e in dev if e.time_range.start >= t0 and e.time_range.end <= t1]
-        counts = solve_records(dev)
-        if all(c == want for c in counts.values()):
+        counts = {k: sum(any(n in e.name for n in KERNEL_TRACE_NAMES[k]) for e in dev) for k in want}
+        if counts == want:
             break
     expect(len(marks) == 2, f"{label}: {len(marks)} marker records in the trace ({window} windows read)")
     cyc.step.zero_()  # the same replays untraced, by CUDA events: what the tracer adds
@@ -1772,17 +1829,112 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     end.record()
     end.synchronize()
     for kernel, c in counts.items():
-        expect(c == want, f"{label}: {c} {kernel} records in {cycles} graph replays, want {want} "
-               f"({window} windows read)")
+        expect(c == want[kernel], f"{label}: {c} {kernel} records in {cycles} graph replays, want "
+               f"{want[kernel]} ({window} windows read)")
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
     solve_us = sum(e.time_range.elapsed_us() for e in dev
                    if any(n in e.name for names in TRACE_NAMES.values() for n in names))
     kernels = [e for e in dev if not re.search(r"[Mm]emcpy|[Mm]emset", e.name)]
+    nccl = [e for e in dev if "nccl" in e.name.lower()]
     return dict(kernels=len(kernels) / cycles, busy_ms=busy_us / 1e3 / cycles,
                 span_ms=(t1 - t0) / 1e3 / cycles, idle=1.0 - busy_us / (t1 - t0),
                 untraced_ms=start.elapsed_time(end) / cycles,
                 k12_share=solve_us / busy_us, k1_per_cycle=counts["solve_partials"] / cycles,
-                k2_per_cycle=counts["softmin_combine"] / cycles, windows=window)
+                k2_per_cycle=counts["softmin_combine"] / cycles, windows=window,
+                records={k: c / cycles for k, c in counts.items()}, nccl_per_cycle=len(nccl) / cycles,
+                nccl_us=sum(e.time_range.elapsed_us() for e in nccl) / cycles,
+                nccl_names=sorted({e.name for e in nccl}))
+
+
+def solve_trace(label: str, ctrl, x, U, seed, per_update: dict | None = None,
+                steps: int = SOLVE_TRACE_STEPS) -> dict:
+    """torch.profiler over `steps` control steps of `ctrl`'s host loop as
+    ``run_closed_loop`` runs it (``solve``, a replayed CUDA graph, U fed
+    forward, the action read back to the host) and nothing else: the graph
+    is captured and replayed once before the window, which holds a few steps,
+    a marker kernel (as in :func:`replay_trace`), the `steps` counted steps,
+    a second marker and a few more steps; only the records between the markers
+    are read. Each edge holds SOLVE_TRACE_EDGE steps and the first ends
+    with a synchronisation: on an H100, late in this script, three windows
+    in a row with a one-step lead-in held only one of the two markers.
+    Checked: the kernels' wrappers launched nothing in the window (the
+    replays launch from the graph), and each kernel of `per_update` (a
+    key of KERNEL_TRACE_NAMES: its records per update; by default one of K1
+    and one of K2) has that many records per update, opt_iters per step; a
+    window that falls short is read again, three at most. Returns the
+    records per step of each, the device busy ms and the span ms per step
+    and the idle share 1 − busy/span."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    per_update = per_update or {"solve_partials": 1, "softmin_combine": 1}
+    want = {k: steps * ctrl.cfg.opt_iters * v for k, v in per_update.items()}
+
+    def loop(n: int) -> None:
+        u = U
+        for i in range(n):
+            res = ctrl.solve(x, u, seed, i)
+            res.action.cpu()
+            u = res.u_next
+
+    loop(2)
+    torch.cuda.synchronize()
+    before = fs.launch_counts()
+    missed = []
+    for window in range(1, 4):
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loop(SOLVE_TRACE_EDGE)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            loop(steps)
+            torch.cuda._sleep(1000)
+            loop(SOLVE_TRACE_EDGE)
+            torch.cuda.synchronize()
+        dev = device_records(prof)
+        marks = sorted((e.time_range for e in dev if "spin_kernel" in e.name), key=lambda r: r.start)
+        if len(marks) != 2:
+            missed.append(f"{len(marks)} markers in {len(dev)} records, the first "
+                          f"{[e.name[:40] for e in sorted(dev, key=lambda e: e.time_range.start)[:3]]}")
+            continue
+        t0, t1 = marks[0].end, marks[1].start
+        dev = [e for e in dev if e.time_range.start >= t0 and e.time_range.end <= t1]
+        counts = {k: sum(any(n in e.name for n in KERNEL_TRACE_NAMES[k]) for e in dev) for k in want}
+        if counts == want:
+            break
+    after = fs.launch_counts()
+    expect(after == before, f"{label}: the kernels' wrappers launched {after} during the graphed "
+           f"host loop, {before} before it")
+    expect(len(marks) == 2, f"{label}: no window held both marker records ({missed})")
+    for kernel, c in counts.items():
+        expect(c == want[kernel], f"{label}: {c} {kernel} records in {steps} graphed control steps, "
+               f"want {want[kernel]} ({window} windows read)")
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    return dict(records={k: c / steps for k, c in counts.items()}, busy_ms=busy_us / 1e3 / steps,
+                span_ms=(t1 - t0) / 1e3 / steps, idle=1.0 - busy_us / (t1 - t0), windows=window)
+
+
+def config_trace(name: str, per_update: dict | None = None) -> dict:
+    """:func:`solve_trace` of config `name`'s controller on the card (the
+    fused backend) from its world's start: the graph its CLI replays each
+    step."""
+    from mppi_gpu_tpu_torch.controller import MPPIController
+
+    cfg = _config(name)
+    ctrl = MPPIController(cfg, device="cuda", rollout_backend="fused")
+    return solve_trace(name, ctrl, _start(cfg), ctrl.init_action_seq(), cfg.seed, per_update)
+
+
+def _start(cfg):
+    """The state config `cfg`'s world starts from, on the card."""
+    from mppi_gpu_tpu_torch.envs import make_world, params_for_config
+
+    return make_world(cfg, params_for_config(cfg), device="cuda").reset().x
+
+
+def _records_line(traces: dict) -> str:
+    return "; ".join(f"{n} {t['records']}" for n, t in traces.items())
 
 
 def close_loops(label: str, a, b, tol: tuple[float, float]) -> tuple[float, float]:
@@ -1822,7 +1974,8 @@ def episode_config_phase(name: str, smi: str) -> dict:
     timed warm; no wrapper launches a kernel during it), bit-equal to the
     same cycle run eagerly on the card over the whole episode (which
     launches K1 and K2 once per update); the host loop on the card (CPU
-    world) timed over EPISODE_HOST_TIMED cycles; the graph episode against
+    world, its solve a replayed graph captured by a first step outside the
+    timing) timed over EPISODE_HOST_TIMED cycles; the graph episode against
     the host loop over the first EPISODE_HOST_CYCLES cycles at
     EPISODE_HOST_SEEDS seeds, within the config's EPISODE_HOST_TOL; the graph
     episode's steady-state quality under its tripwire; a trace of the graph's
@@ -1857,8 +2010,9 @@ def episode_config_phase(name: str, smi: str) -> dict:
                    f"{name}: the graph episode's {f} differ from {what}'s")
     expect(graph.xs.shape == (n + 1, cfg.state_dim) and np.isfinite(graph.xs).all(),
            f"{name}: graph episode states {graph.xs.shape}")
-    host, host_s = _timed(lambda: run_closed_loop(MPPIController(cfg, device="cuda"),
-                                                  max_steps=EPISODE_HOST_TIMED))
+    host_ctrl = MPPIController(cfg, device="cuda")
+    run_closed_loop(host_ctrl, max_steps=1)  # captures its solve graph, outside the timing
+    host, host_s = _timed(lambda: run_closed_loop(host_ctrl, max_steps=EPISODE_HOST_TIMED))
     tol = EPISODE_HOST_TOL[name]
     readings = [close_loops(f"{name} graph vs host loop, seed {cfg.seed}", graph, host, tol)]
     for seed in range(cfg.seed + 1, cfg.seed + EPISODE_HOST_SEEDS):
@@ -2255,8 +2409,9 @@ def family_phase(tag: str, name: str, modes, err: dict, smi: str) -> tuple[dict,
 
 def obstacle_quality_episodes(smi: str, seeds: int = OBSTACLE_SEEDS) -> int:
     """The obstacle quality episode (obstacle3d, fused) under seeds 0 ..
-    `seeds` − 1, each launch counted from 0 before it and read after it:
-    every steady distance under its bar, and the share of episodes whose
+    `seeds` − 1, each launch counted from 0 before it and read after it (the
+    warm-up of the episode's solve graph; its replays launch nothing from
+    the host): every steady distance under its bar, and the share of episodes whose
     clearance to the true spheres is above 0 not below the JAX reference's
     over the same seeds (OBSTACLE_REF_CLEAR of OBSTACLE_SEEDS) at
     OBSTACLE_ALPHA (:func:`fisher_below`). Returns K1's launches in the
@@ -2275,8 +2430,9 @@ def obstacle_quality_episodes(smi: str, seeds: int = OBSTACLE_SEEDS) -> int:
                                             rollout_backend="fused"))
         ep_s = time.perf_counter() - t0
         by_family = fs.family_launch_counts()
-        expect(by_family == dict(dict.fromkeys(by_family, 0), **{"lti-obstacle": len(ep.us) + 1}),
-               f"obstacle quality episode: K1 by family {by_family} for {len(ep.us)} steps")
+        expect(by_family == dict(dict.fromkeys(by_family, 0), **{"lti-obstacle": cfg.opt_iters}),
+               f"obstacle quality episode: K1 by family {by_family} for {len(ep.us)} steps, want "
+               "its solve graph's warm-up alone")
         d = np.linalg.norm(ep.xs[:, :3] - np.asarray(cfg.goal[:3]), axis=1)
         steady.append(float(d[-max(len(d) // 4, 1):].mean()))
         clear.append(min_clearance(ep.xs, OBSTACLES_3D))
@@ -2425,13 +2581,24 @@ def sharded_phase(smi: str, cols2d: dict) -> tuple[dict, int]:
           f"launches {onepass_launches}. Two-kernel closed loop (run_closed_loop, world of one): "
           f"{len(ep.us)} steps, steady {steady2:.4f} m (the solo CLI's + 0.05 the bar), average "
           f"controller execution time {ep.solve_ms['mean_ms']:.3f} ms ({smi}); launches {two_launches}")
-    expect(onepass_launches["solve_partials"] == onepass_launches["softmin_combine"] == n_steps + 1
-           and onepass_launches["weighted_update"] == 0,
-           f"--sharded CLI: launches {onepass_launches} for {n_steps} steps")
+    # each loop's launches from the host: its solve graph's warm-up (one
+    # update, one rank); the graphed steps' records from a trace
+    world1 = meshes["world of one (NCCL)"]
+    sharded_traces = {
+        branch: solve_trace(f"sharded point_mass2d world of one {branch}", c, _start(cfg2),
+                            c.init_action_seq(), cfg2.seed, per_update=dict(
+                                solve_partials=1, softmin_combine=1, weighted_update=int(not onepass)))
+        for branch, onepass in (("one-pass", True), ("two-kernel", False))
+        for c in (ShardedMPPIController(cfg2, mesh=world1, onepass=onepass),)}
+    print(f"[19] records per graphed step of the sharded host loops in a trace of "
+          f"{SOLVE_TRACE_STEPS} (K4 under solve_partials): {_records_line(sharded_traces)}")
+    expect(onepass_launches["solve_partials"] == onepass_launches["softmin_combine"] == 1
+           and onepass_launches["weighted_update"] == onepass_launches["rollout_costs"] == 0,
+           f"--sharded CLI: launches {onepass_launches} for {n_steps} steps, want the graph warm-up's")
     expect(two_launches["rollout_costs"] == two_launches["weighted_update"]
-           == two_launches["softmin_combine"] == len(ep.us) + 1
-           and two_launches["solve_partials"] == 0,
-           f"two-kernel closed loop: launches {two_launches} for {len(ep.us)} steps")
+           == two_launches["softmin_combine"] == 1 and two_launches["solve_partials"] == 0,
+           f"two-kernel closed loop: launches {two_launches} for {len(ep.us)} steps, want the graph "
+           "warm-up's")
     expect(steady2 < steady2d + 0.05,
            f"two-kernel closed loop point_mass2d steady {steady2} m, solo {steady2d} m")
     if torch.cuda.device_count() >= 2:
@@ -2768,10 +2935,17 @@ def bicycle_phase(smi: str, err: dict, clock_mhz: float, builtin_log: str) -> di
     print(f"[22] example custom_family (fused, K=1024 T=40, 120 steps): exit {rc}, distance {d} m "
           f"(bar {BICYCLE_REACH_M}), {ex_s:.2f} s; launches {launches}, K1 by family {by_family}")
     expect(rc == 0 and d < BICYCLE_REACH_M, f"custom_family exited {rc} at {d} m")
-    expect(by_family["bicycle-demo"] == 120 and sum(by_family.values()) == 120
-           and launches["softmin_combine"] == 120,
-           f"custom_family: K1 by family {by_family}, launches {launches} for 120 solves")
+    # the warm-up of its solve graph; the replays' records from a trace
+    expect(by_family["bicycle-demo"] == 1 and sum(by_family.values()) == 1
+           and launches["softmin_combine"] == 1,
+           f"custom_family: K1 by family {by_family}, launches {launches} for 120 solves, want "
+           "the graph warm-up's")
     out[key1]["launches"] = by_family["bicycle-demo"]
+    ctrl, _ = custom_family.make_controller(1024, backend="fused", device="cuda")
+    trace = solve_trace("custom_family", ctrl, torch.zeros(4, device="cuda"), ctrl.init_action_seq(),
+                        ctrl.cfg.seed)
+    print(f"[22] custom_family: records per graphed step in a trace of {SOLVE_TRACE_STEPS}: "
+          f"{trace['records']}")
     # the costs-only path: one K4 sweep of the bicycle at K=10⁵, T=200
     q = make_family_problem("bicycle", 100_000, 200)
     fs.reset_launch_counts()
@@ -2816,7 +2990,9 @@ def waypoints_phase(smi: str) -> int:
     steps) on the fused backend, launches counted from 0 before it and read
     after it, and the packs counted by wrapping ``families.family_for``: the
     tour visits all three waypoints and ends within 0.4 m of the last, K1
-    and K2 run once per update, and the controller packs once, at its init:
+    and K2 launch from the host only for the warm-up of its one solve graph
+    (a trace of the quadrotor's graphed steps holds one of each per update),
+    and the controller packs once, at its init:
     re-aiming the cost every step (a new cost of the old w, λ and Σ⁻¹
     tensors) keeps the pack. Returns K1's launches."""
     from mppi_gpu_tpu_torch.examples import quadrotor_waypoints
@@ -2848,9 +3024,16 @@ def waypoints_phase(smi: str) -> int:
           f"{len(packs)}; launches {launches}, K1 by family {by_family}")
     expect(rc == 0 and d < WAYPOINT_FINAL_M, f"quadrotor_waypoints exited {rc} at {d} m")
     expect(len(packs) == 1, f"quadrotor_waypoints: {len(packs)} packs, re-aiming re-packed")
-    expect(by_family["quadrotor"] == updates and sum(by_family.values()) == updates
-           and launches["softmin_combine"] == updates,
-           f"quadrotor_waypoints: K1 by family {by_family}, launches {launches}, {updates} updates")
+    # the warm-up of its one solve graph (the goal re-aimed every step is
+    # among the graph's inputs); the replays' records from a trace
+    warm = _config("quadrotor").opt_iters
+    expect(by_family["quadrotor"] == warm and sum(by_family.values()) == warm
+           and launches["softmin_combine"] == warm,
+           f"quadrotor_waypoints: K1 by family {by_family}, launches {launches} for {updates} "
+           f"updates, want the graph warm-up's {warm}")
+    trace = config_trace("quadrotor")
+    print(f"[23] quadrotor: records per graphed step in a trace of {SOLVE_TRACE_STEPS}: "
+          f"{trace['records']}")
     return by_family["quadrotor"]
 
 
@@ -3144,6 +3327,438 @@ def plants_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the graphs (phase 26): the host loop's solve as one replayed CUDA graph
+# (graphs.SolveGraph) and the sharded device episode, its collectives inside
+# the captured cycle
+
+LEAF_NAMES = ("action", "u_next", "costs", "beta", "eta", "weights", "u_seq")
+GRAPH_HOST_STEPS = 100       # control steps per timed host loop, each mode
+GRAPH_LEARNED_STEPS = 20     # the learned model's (~28 ms per op-by-op step)
+SHARDED_EPISODE_CONFIGS = ("point_mass2d", "flagship")
+# the flagship's loop amplifies rounding (phase 21: the host loop parts from
+# the graph episode by 1e-3 in 12 cycles), so after 500 cycles the sharded
+# episode, whose η and ΔU are summed in another order, is another draw of
+# the closed loop than the solo one: at the config's seed the CPU's solo,
+# one-pass and two-kernel episodes over 1 and 4 ranks ended 0.199-0.327 m
+# from the goal (tests/_sharded_quality_probe.py). The tripwire, set at one
+# seed, is held over SHARDED_QUALITY_SEEDS seeds from the config's, paired
+# seed by seed with the solo graph episode at the same seed: the sharded
+# episode must not end farther from the goal at more seeds than chance
+# allows (one-sided sign test at SHARDED_SIGN_ALPHA, :func:`sign_test_worse`)
+SHARDED_QUALITY_SEEDS = 32
+SHARDED_SIGN_ALPHA = 0.01
+K5_STEP_MODES = (("iid", False, 0.0), ("antithetic", True, 0.0), ("ou0.5", False, 0.5))
+
+
+def check_graphed_solve(label: str, ctrl, x, U, seed, steps: int = 3, reaim=None) -> int:
+    """`steps` control steps, U fed forward: the graphed solve (``ctrl.solve``,
+    a replayed CUDA graph on a CUDA device) against ``solve(capture=False)``,
+    every leaf ``torch.equal``; ``reaim(step)``, if given, re-aims the cost
+    before each step. Returns how many solve graphs the steps built."""
+    import torch
+
+    built, last = 0, None
+    for step in range(steps):
+        if reaim is not None:
+            reaim(step)
+        want = ctrl.solve(x, U, seed, step, capture=False)
+        got = ctrl.solve(x, U, seed, step)
+        graph = ctrl._solve_graphs["solve"][1]
+        built += graph is not last
+        last = graph
+        for name, a, b in zip(LEAF_NAMES, _leaves(got), _leaves(want)):
+            expect(torch.equal(a, b), f"{label} step {step}: the graphed solve's {name} differs "
+                   "from the op-by-op solve's")
+        U = got.u_next
+    return built
+
+
+def check_weighted_update_step_pointer(A: int, K: int, T: int, device: str = "cuda") -> None:
+    """K4's S, K5's partials and ΔU (K5 + K2's fold) with the control step
+    passed by its address (a 0-dim int64 on the card) equal to the by-value
+    launches, in every noise mode of K5_STEP_MODES, at draw offset K; the
+    step 2³² + 3 checks that K5 takes its low word as the by-value word is."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    p = make_problem(A, K, T, device=device)
+    fam = fs.lti_family(p["sigma"], p["inv_s"], p["w"], p["dt"], p["lam_cost"])
+    w = torch.rand(K, generator=torch.Generator().manual_seed(K)).to(device)
+    w /= w.sum()
+    word = 2**32 + 3
+    step = torch.tensor(word, dtype=torch.int64, device=device)
+    inner = fs._launch_softmin_combine
+    for mode, anti, ou in K5_STEP_MODES:
+        out = {}
+        for form, s in (("value", word), ("pointer", step)):
+            seen = []
+
+            def spy(partials, *a, **k):
+                seen.append(partials.clone())
+                return inner(partials, *a, **k)
+
+            fs._launch_softmin_combine = spy
+            try:
+                dU = fs.weighted_update(p["sigma"], w, T, K, 7, s, 1, anti, ou, k0=K)
+            finally:
+                fs._launch_softmin_combine = inner
+            S = fs.fused_rollout_costs(fam, p["x0"], p["U"], p["goal"], K, 7, s, 1, anti, ou, k0=K)
+            out[form] = (S, *seen, dU)
+        for what, a, b in zip(("K4 S", "K5 partials", "dU"), out["value"], out["pointer"]):
+            expect(torch.equal(a, b), f"A={A} K={K} T={T} {mode}: {what} by pointer differs from "
+                   "by value")
+
+
+def host_loop_ms(ctrl, x, U, seed, steps: int) -> tuple[float, float]:
+    """ms per control step of a host loop of `steps` solves, the state sent
+    from the host (`x` on the CPU) and the action read back each step, U fed
+    forward: (graphed, op by op), host clock around each loop, in turns (op
+    by op, graphed, graphed, op by op), the median of each mode's two; a warm
+    step of each first."""
+    import torch
+
+    def loop(capture: bool, n: int) -> float:
+        u = U
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            res = ctrl.solve(x, u, seed, i, capture=capture)
+            res.action.cpu()
+            u = res.u_next
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    loop(True, 2)
+    loop(False, 2)
+    op = [loop(False, steps)]
+    graph = [loop(True, steps), loop(True, steps)]
+    op.append(loop(False, steps))
+    return float(np.median(graph)), float(np.median(op))
+
+
+def sign_test_worse(diffs) -> tuple[int, int, float]:
+    """One-sided sign test on paired differences (sharded − solo steady
+    distance, one per seed): of the n differences that are not 0, k are
+    above 0; p = P(X ≥ k) for X ~ Binomial(n, 1/2), the p-value of "the
+    sharded episode ends farther from the goal than the solo one at more
+    seeds than not". Returns (k, n, p); p = 1 when n = 0."""
+    nz = [float(d) for d in diffs if d != 0]
+    n, k = len(nz), sum(d > 0 for d in nz)
+    return k, n, sum(math.comb(n, j) for j in range(k, n + 1)) / 2**n if n else 1.0
+
+
+def quality_over_seeds(name: str, ctrl) -> list[float]:
+    """The steady state of `ctrl`'s graph episode of config `name` at
+    SHARDED_QUALITY_SEEDS seeds from the config's."""
+    from mppi_gpu_tpu_torch.runner import run_episode_jit
+
+    cfg = ctrl.cfg
+    return [episode_quality(name, cfg, run_episode_jit(ctrl, seed=cfg.seed + i).xs
+                            .astype(np.float64))[0] for i in range(SHARDED_QUALITY_SEEDS)]
+
+
+def sharded_episode_row(name: str, mesh_name: str, mesh, onepass: bool, solo, smi: str) -> dict:
+    """The sharded device episode of config `name` on `mesh`: the graph
+    episode (captured, then timed warm) bit-equal to a second replay and to
+    the same cycle run eagerly on the card over the whole episode; within
+    the config's EPISODE_HOST_TOL of the solo graph episode `solo` over its
+    first EPISODE_HOST_CYCLES cycles (each cycle's S is the solo S; η and
+    ΔU are summed in another order); where the config has a tripwire, its
+    steady distance over SHARDED_QUALITY_SEEDS seeds paired with the solo
+    episode's (:func:`sign_test_worse`); a trace of its replays. Returns its
+    row."""
+    from mppi_gpu_tpu_torch.parallel import ShardedMPPIController
+    from mppi_gpu_tpu_torch.runner import run_episode_jit
+
+    cfg = _episode_config(name)
+    branch = "one-pass" if onepass else "two-kernel"
+    label = f"sharded episode {name} {mesh_name} {branch}"
+    ctrl = ShardedMPPIController(cfg, mesh=mesh, onepass=onepass)
+    first, first_s = _timed(lambda: run_episode_jit(ctrl))
+    graph, graph_s = _timed(lambda: run_episode_jit(ctrl))
+    eager, eager_s = _timed(lambda: run_episode_jit(ctrl, capture=False))
+    for what, other in (("a second replay", first), ("the eager cycle on the card", eager)):
+        for f in ("xs", "us", "times"):
+            expect(np.array_equal(getattr(graph, f), getattr(other, f)),
+                   f"{label}: the graph episode's {f} differ from {what}'s")
+    dx, du = close_loops(f"{label} vs the solo graph episode", graph, solo["ep"], EPISODE_HOST_TOL[name])
+    steady, bar = episode_quality(name, cfg, graph.xs.astype(np.float64))
+    quality = ""
+    if bar is not None:
+        seeds = quality_over_seeds(name, ctrl)
+        diffs = np.asarray(seeds) - np.asarray(solo["seeds"])
+        worse, n_nz, p_worse = sign_test_worse(diffs)
+        under, ref = sum(d < bar for d in seeds), sum(d < bar for d in solo["seeds"])
+        se = float(diffs.std(ddof=1) / np.sqrt(len(diffs)))
+        expect(p_worse >= SHARDED_SIGN_ALPHA,
+               f"{label}: farther from the goal than the solo episode at {worse} of {n_nz} seeds "
+               f"that differ (one-sided sign test p {p_worse:.3g}, bar {SHARDED_SIGN_ALPHA}); "
+               f"per-seed differences {[round(float(d), 4) for d in diffs]}")
+        quality = (f"; paired with the solo episode over {len(seeds)} seeds: farther at {worse} of "
+                   f"{n_nz} that differ (sign test p {p_worse:.3g}, bar {SHARDED_SIGN_ALPHA}), mean "
+                   f"difference {diffs.mean():+.4f} m (standard error {se:.4f}); mean steady "
+                   f"{np.mean(seeds):.4f}, solo {np.mean(solo['seeds']):.4f}; {under} and {ref} "
+                   "seeds under the bar")
+    # K1 or K4, K2 and K5 once per rank and update
+    trace = replay_trace(ctrl, label, per_update={
+        "solve_partials": mesh.size, "softmin_combine": mesh.size,
+        "weighted_update": 0 if onepass else mesh.size})
+    n = len(graph.us)
+    row = dict(graph_ms=graph_s * 1e3 / n, eager_ms=eager_s * 1e3 / n, solo_ms=solo["ms"],
+               first_s=first_s, dx=dx, du=du, steady=steady, bar=bar, trace=trace)
+    print(f"[26] {label} K={cfg.samples} T={cfg.horizon}, {n} cycles: graph {row['graph_ms']:.4f} "
+          f"ms/cycle (first call {first_s:.3f} s with the capture), eager on the card "
+          f"{row['eager_ms']:.4f}, the solo graph episode {solo['ms']:.4f}; graph == eager; within "
+          f"(states, actions) {dx:.3g}, {du:.3g} of the solo episode over {EPISODE_HOST_CYCLES} "
+          f"cycles (tol {EPISODE_HOST_TOL[name]}); steady {steady:.4f} (bar {bar}){quality}; trace of "
+          f"{EPISODE_PROFILE_CYCLES} replays: records per cycle {trace['records']} (K4 under "
+          f"solve_partials), NCCL {trace['nccl_per_cycle']:g} records, {trace['nccl_us']:.2f} us per "
+          f"cycle {trace['nccl_names']}; {_trace_line(trace)} ({smi})")
+    return row
+
+
+def graphs_phase(smi: str) -> dict:
+    """Phase 26: K5's step by pointer (:func:`check_weighted_update_step_pointer`,
+    and its device ms by value and by pointer); the host loop's graphed solve
+    against the op-by-op solve (:func:`check_graphed_solve`) for every
+    config's controller at its shape and the flagship, the learned model,
+    an R=8 fleet, the sharded controller in both branches on a world of one
+    NCCL rank and on four virtual ranks, a cost re-tuned mid-loop (a new
+    graph) and a goal re-aimed every step (none), with each loop's ms per
+    control step graphed and op by op, profiler windows of the graphed loop,
+    and the CLI's average controller execution time; the sharded device
+    episode in both branches on both meshes at point_mass2d and the
+    flagship (:func:`sharded_episode_row`) and the sharded fleet's, against
+    the unsharded fleet's; ``--sharded --jit-episode`` on the card with the
+    counts set to 0 around it, and the two-kernel episode's; ``entry`` and
+    ``dryrun_multichip(4)``; a two-rank NCCL episode where the machine has
+    two GPUs. Needs this process's world of one NCCL rank."""
+    import dataclasses
+
+    import torch
+
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.entry import dryrun_multichip, entry
+    from mppi_gpu_tpu_torch.examples.fleet import circle_goals
+    from mppi_gpu_tpu_torch.models.neural import init_mlp_dynamics
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops.cost import goal_of, with_goal
+    from mppi_gpu_tpu_torch.parallel import ShardedFleetController, ShardedMPPIController, global_mesh
+    from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
+    from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode
+
+    t_phase = time.perf_counter()
+    out = {"k5": {}, "host": {}, "profile": {}, "sharded": {}}
+    # (a) K5 with the step by address
+    for A, K, T in ((3, 10_000, 200), (2, 3000, 50), (3, 100_000, 200)):
+        check_weighted_update_step_pointer(A, K, T)
+    for K in (10_000, 100_000):
+        sigma = torch.full((3,), 0.25, device="cuda")
+        w = torch.rand(K, generator=torch.Generator().manual_seed(K)).cuda()
+        w /= w.sum()
+        step = torch.tensor(3, dtype=torch.int64, device="cuda")
+        reads = {"value": [], "pointer": []}
+        for form in ("value", "pointer", "pointer", "value"):
+            s = 3 if form == "value" else step
+            reads[form].append(device_ms(lambda: fs.weighted_update(sigma, w, 200, K, 7, s, 0, False,
+                                                                    0.0), name="weighted_update_kernel"))
+        out["k5"][K] = {f: float(np.median([v for v in r if v is not None])) for f, r in reads.items()}
+    print("[26] K5 by pointer == by value (K4 S, K5 partials, dU bit-equal; iid, antithetic, OU 0.5; "
+          "A=3 K=10^4 and 10^5 T=200, A=2 K=3000 T=50); device ms A=3 T=200, iid, in turns "
+          + "; ".join(f"K={K}: by value {v['value']:.4f}, by pointer {v['pointer']:.4f}"
+                      for K, v in out["k5"].items()) + f" ({smi})")
+
+    # (b) the host loop's solve: graphed == op by op, and its ms per step
+    for name in EPISODE_CONFIGS:
+        cfg = _episode_config(name)
+        ctrl = MPPIController(cfg, device="cuda")
+        x0 = _start(cfg)
+        built = check_graphed_solve(name, ctrl, x0, ctrl.init_action_seq(), cfg.seed)
+        expect(built == 1, f"{name}: {built} solve graphs in 3 steps")
+        out["host"][name] = host_loop_ms(ctrl, x0.cpu(), ctrl.init_action_seq(), cfg.seed,
+                                         GRAPH_HOST_STEPS)
+    cfg = _config("point_mass2d")
+    gen = torch.Generator().manual_seed(0)
+    mlp = init_mlp_dynamics(cfg.state_dim, cfg.action_dim, generator=gen, device="cuda")
+    mlp = mlp.replace([*mlp.weights[:-1], 0.01 * torch.randn(mlp.weights[-1].shape, generator=gen)
+                       .cuda()], mlp.biases)
+    learned = MPPIController(cfg, device="cuda", dynamics=mlp, rollout_backend="eager")
+    x0 = _start(cfg)
+    expect(check_graphed_solve("learned", learned, x0, learned.init_action_seq(), cfg.seed) == 1,
+           "learned: more than one solve graph")
+    out["host"]["learned"] = host_loop_ms(learned, x0.cpu(), learned.init_action_seq(), cfg.seed,
+                                          GRAPH_LEARNED_STEPS)
+    fcfg = _episode_config("flagship")
+    fleet = BatchedMPPIController(fcfg, 8, goals=torch.from_numpy(circle_goals(8, 6)), device="cuda")
+    xs0 = _start(fcfg).expand(8, -1).contiguous()
+    expect(check_graphed_solve("fleet R=8", fleet, xs0, fleet.init_action_seqs(),
+                               fleet.init_seeds()) == 1, "fleet: more than one solve graph")
+    out["host"]["fleet R=8"] = host_loop_ms(fleet, xs0.cpu(), fleet.init_action_seqs(),
+                                            fleet.init_seeds(), GRAPH_HOST_STEPS)
+    meshes = {"world of one (NCCL)": global_mesh("cuda:0"), "4 virtual ranks": virtual_mesh(4, "cuda:0")}
+    for mname, mesh in meshes.items():
+        for onepass in (True, False):
+            sh = ShardedMPPIController(fcfg, mesh=mesh, onepass=onepass)
+            label = f"sharded flagship {mname} {'one-pass' if onepass else 'two-kernel'}"
+            x0 = _start(fcfg)
+            expect(check_graphed_solve(label, sh, x0, sh.init_action_seq(), fcfg.seed) == 1,
+                   f"{label}: more than one solve graph")
+            out["host"][label] = host_loop_ms(sh, x0.cpu(), sh.init_action_seq(), fcfg.seed,
+                                              GRAPH_HOST_STEPS)
+    # a cost re-tuned mid-loop re-captures; a goal re-aimed every step does not
+    ctrl = MPPIController(cfg, device="cuda")
+    x0, U0 = _start(cfg), ctrl.init_action_seq()
+    check_graphed_solve("point_mass2d before re-tuning", ctrl, x0, U0, cfg.seed)
+    before = ctrl._solve_graphs["solve"][1]
+    ctrl.cost = dataclasses.replace(ctrl.cost, w=ctrl.cost.w * 2.0)
+    check_graphed_solve("point_mass2d re-tuned", ctrl, x0, U0, cfg.seed)
+    expect(ctrl._solve_graphs["solve"][1] is not before, "a re-tuned cost did not re-capture")
+    goal = goal_of(ctrl.cost)
+    aims = [goal + torch.tensor([0.3 * i, -0.2 * i, 0.0, 0.0], device="cuda") for i in range(4)]
+
+    def reaim(step: int) -> None:
+        ctrl.cost = with_goal(ctrl.cost, aims[step % len(aims)])
+
+    kept = ctrl._solve_graphs["solve"][1]
+    built = check_graphed_solve("point_mass2d re-aimed", ctrl, x0, U0, cfg.seed, steps=8, reaim=reaim)
+    expect(built == 1 and ctrl._solve_graphs["solve"][1] is kept,
+           f"a goal re-aimed every step built {built} graph(s)")
+    print("[26] graphed solve == op by op (every leaf, 3 steps fed forward, one capture) for "
+          f"{', '.join(EPISODE_CONFIGS)}, the learned MLP (eager backend), an R=8 fleet of the "
+          "flagship, the sharded flagship in both branches on a world of one NCCL rank and on four "
+          "virtual ranks; a re-tuned cost re-captured; a goal re-aimed every step (8 steps) kept "
+          "its graph")
+    for label, (g_ms, o_ms) in out["host"].items():
+        print(f"[26] host loop {label}: graphed {g_ms:.4f} ms per control step, op by op "
+              f"{o_ms:.4f} ms (state from the host, action to the host; host clock, "
+              f"{GRAPH_LEARNED_STEPS if label == 'learned' else GRAPH_HOST_STEPS} steps, median of "
+              f"two loops in turns; {smi})")
+    for label, c in (("point_mass2d", MPPIController(cfg, device="cuda")),
+                     ("flagship", MPPIController(fcfg, device="cuda")), ("learned", learned)):
+        x0 = _start(c.cfg)
+        prof = profile_steps(c, x0, c.init_action_seq())
+        out["profile"][label] = prof
+        print(f"[26] profile {label}, 50 graphed control steps: wall {prof['wall_ms']:.4f} ms/step, "
+              f"device busy {prof['busy_ms']:.4f} ms, idle share {prof['idle']:.4f}; K1 "
+              f"{prof['K1_us']:.2f} us, K2 {prof['K2_us']:.2f} us per step ({smi})")
+    cli_out = _cli(["-c", os.path.join("configs", "point_mass2d.yaml"), "--device", "cuda"])
+    out["cli_avg_ms"] = float(re.search(r"Average controller execution time: ([\d.]+) ms",
+                                        cli_out).group(1))
+    print(f"[26] cli configs/point_mass2d.yaml (graphed host loop): {_average_line(cli_out)} ({smi})")
+
+    # (c) the sharded device episode
+    for name in SHARDED_EPISODE_CONFIGS:
+        c = _episode_config(name)
+        solo_ctrl = MPPIController(c, device="cuda")
+        run_episode_jit(solo_ctrl)
+        ep, s = _timed(lambda: run_episode_jit(solo_ctrl))
+        solo = dict(ep=ep, ms=s * 1e3 / len(ep.us))
+        if episode_quality(name, c, ep.xs)[1] is not None:
+            solo["seeds"] = quality_over_seeds(name, solo_ctrl)
+            print(f"[26] solo graph episode {name}: steady {episode_quality(name, c, ep.xs)[0]:.4f} "
+                  f"at the config's seed; over {SHARDED_QUALITY_SEEDS} seeds mean "
+                  f"{np.mean(solo['seeds']):.4f}, max {max(solo['seeds']):.4f}")
+        for mname, mesh in meshes.items():
+            for onepass in (True, False):
+                out["sharded"][f"{name} {mname} {'one-pass' if onepass else 'two-kernel'}"] = (
+                    sharded_episode_row(name, mname, mesh, onepass, solo, smi))
+    xs0 = torch.from_numpy(0.05 * np.random.default_rng(8).standard_normal((8, 6))).float()
+    goals = torch.from_numpy(circle_goals(8, 6))
+    pm3 = _episode_config("point_mass3d")
+    want = run_fleet_episode(BatchedMPPIController(pm3, 8, goals=goals, device="cuda"), xs0=xs0)
+    for mname, mesh in meshes.items():
+        got = run_fleet_episode(ShardedFleetController(pm3, 8, goals=goals, mesh=mesh), xs0=xs0)
+        for f in ("xs", "us", "times"):
+            expect(np.array_equal(getattr(got, f), getattr(want, f)),
+                   f"sharded fleet episode {mname}: {f} differ from the unsharded fleet's")
+    print(f"[26] run_fleet_episode ShardedFleetController point_mass3d R=8 K={pm3.samples} "
+          f"T={pm3.horizon}, {len(want.us)} cycles, on the world of one (NCCL, the all_gather "
+          "captured) and on four virtual ranks: graph episode bit-equal to the unsharded fleet's")
+    # the sharded episode's paths, each with the counts set to 0 around it
+    fs.reset_launch_counts()
+    cli_out = _cli(["-c", os.path.join("configs", "point_mass2d.yaml"), "--device", "cuda",
+                    "--sharded", "--jit-episode"])
+    onepass_launches = fs.launch_counts()
+    fs.reset_launch_counts()
+    run_episode_jit(ShardedMPPIController(_config("point_mass2d"), mesh=meshes["world of one (NCCL)"],
+                                          onepass=False))
+    two_launches = fs.launch_counts()
+    expect(min(onepass_launches[k] for k in ("solve_partials", "softmin_combine")) > 0,
+           f"--sharded --jit-episode: launches {onepass_launches}")
+    expect(min(two_launches[k] for k in ("rollout_costs", "weighted_update", "softmin_combine")) > 0,
+           f"two-kernel sharded episode: launches {two_launches}")
+    print(f"[26] cli --sharded --jit-episode configs/point_mass2d.yaml (world of one, one-pass): "
+          f"{re.search(r'episode finished: .*', cli_out).group(0)}; launches {onepass_launches} (the "
+          f"warm-up cycle; the replays are in the traces above); two-kernel episode: launches "
+          f"{two_launches}")
+    out["launches"] = dict(onepass=onepass_launches, two_kernel=two_launches)
+    # the harness entry points
+    fn, args = entry()
+    fn(*args)
+    e_ms = float(np.median(time_ms(lambda: fn(*args), 20)))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(4)
+    print(f"[26] entry(): the flagship's graphed solve {e_ms:.4f} ms per call (CUDA events, warm "
+          f"median; {smi}); dryrun_multichip(4): " + " | ".join(buf.getvalue().strip().splitlines()))
+    out["entry_ms"] = e_ms
+    if torch.cuda.device_count() >= 2:
+        ranks = group_run(_config("point_mass2d"), 2, episode=True)
+        for onepass in (True, False):
+            for r in ranks:
+                xs, us, exs, eus = r[onepass]
+                expect(np.array_equal(xs, exs) and np.array_equal(us, eus),
+                       f"n=2 NCCL onepass={onepass}: the graph episode differs from its eager cycle")
+                expect(np.array_equal(xs, ranks[0][onepass][0]), "n=2 NCCL: the ranks differ")
+        print("[26] n=2 NCCL ranks: the sharded graph episode == its eager cycle on each rank, both "
+              "branches, the ranks equal")
+    else:
+        print(f"[26] n=2 NCCL episode: not run: this machine has {torch.cuda.device_count()} CUDA "
+              "device(s), and NCCL refuses two ranks on one GPU")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[26] phase 26 took {out['seconds']:.1f} s")
+    return out
+
+
+def graphs_only() -> int:
+    """``python3 chip_smoke.py --graphs``: the build (phase 2), then phase
+    26 alone in a world of one NCCL rank, and no contract line: the quickest
+    check of the graphed solve and the sharded device episode on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    from mppi_gpu_tpu_torch.ops import _build
+
+    smi = _smi()
+    print(smi)
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"[2] build: {time.perf_counter() - t0:.2f} s")
+    with nccl_world_of_one():
+        graphs_phase(smi)
+    return 0
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """This process as a world of one NCCL rank (``parallel.init_multihost``
+    at a ``file://`` store in a temporary directory), left on exit."""
+    from mppi_gpu_tpu_torch.parallel import init_multihost
+    from mppi_gpu_tpu_torch.parallel.multihost import shutdown_multihost
+
+    with tempfile.TemporaryDirectory() as group_dir:
+        init_multihost("file://" + os.path.join(group_dir, "init"), 1, 0, backend="nccl")
+        try:
+            yield
+        finally:
+            shutdown_multihost()
+
+
 def bicycle_entry(name: str, b: dict, err: float) -> dict:
     """The kernels line's entry of the bicycle's K1 or K4 from phase 22's
     readings: at the example's shape, and at K=10⁵, T=200 as large_*."""
@@ -3329,12 +3944,16 @@ def main() -> int:
     print(f"[6] kernel noise_dump A=3 K=10000 T=200: {dump_device_ms} ms on the device ({smi})")
     _stamp(t_start, 6)
 
-    # [7] the main path: the closed-loop CLI, launches counted
+    # [7] the main path: the closed-loop CLI, launches counted. Its host loop
+    # replays one solve graph per episode: the wrappers count the warm-up of
+    # that graph's capture and every dump step, op by op; a trace of each
+    # config's graphed steps gives K1's and K2's records per step
     fs.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         _cli(["-c", os.path.join("configs", "point_mass2d.yaml"), "--device", "cuda",
               "-t", os.path.join(tmp, "traj2d.csv"), "-s", os.path.join(tmp, "dump"),
               "--dump-every", "100"])
+        dumps2d = sum(f.startswith("step_") for f in os.listdir(os.path.join(tmp, "dump")))
         cols2d = read_csv_columns(os.path.join(tmp, "traj2d.csv"))
         steady2d = steady_distance(cols2d, _config("point_mass2d").goal[:2])
         traj = os.path.join(tmp, "traj3d.csv")
@@ -3346,14 +3965,22 @@ def main() -> int:
                 if k not in ("rollout_costs", "weighted_update")}
     launches["solve_partials<lti>"] = fs.family_launch_counts()["lti"]
     main_widths = fs.width_launch_counts()
+    main_traces = {n: config_trace(n) for n in ("point_mass2d", "point_mass3d")}
     steady = steady_distance(cols, _config("point_mass3d").goal[:3])
+    updates = _config("point_mass2d").opt_iters * (1 + dumps2d) + _config("point_mass3d").opt_iters
     print(f"[7] cli closed loop: point_mass2d and point_mass3d episodes finished; point_mass3d "
           f"steady-state goal distance {steady:.4f} m (threshold {LTI_QUALITY_THRESHOLD_M}); "
           f"point_mass2d {steady2d:.4f} m (its 500 steps end short of the goal; no bar); "
-          f"main-path launches {launches}, K1 by block width {main_widths}")
+          f"main-path launches {launches} (each episode's graph warm-up and point_mass2d's "
+          f"{dumps2d} dump steps), K1 by block width {main_widths}; records per graphed step in a "
+          f"trace of {SOLVE_TRACE_STEPS}: {_records_line(main_traces)}")
     expect(steady < LTI_QUALITY_THRESHOLD_M, f"point_mass3d steady-state {steady} m")
     for name, n in launches.items():
         expect(n > 0, f"kernel {name} was not launched on the main path")
+    expect(launches["solve_partials"] == launches["softmin_combine"] == updates
+           and launches["noise_dump"] == dumps2d,
+           f"main path: launches {launches}, want K1 and K2 {updates} (two graph warm-ups, "
+           f"{dumps2d} dump steps) and K3 {dumps2d}")
     # the configs' K = 3000 runs K1's slab body, every launch of it
     expect(main_widths == {fs.SLAB_WIDTH: launches["solve_partials"], fs.BLOCK: 0},
            f"K1 by block width {main_widths} on the main path")
@@ -3460,11 +4087,11 @@ def main() -> int:
     print("[9] fleet kernels R=8 A=3 K=10000 T=200 on the device: " + ", ".join(
         f"{k} {v} ms" for k, v in fleet_device_ms.items()) + f" ({smi})")
     # the fleet's dump: eight K3 launches, their records summed per call
-    fleet_dump_device_ms = device_ms(
+    fleet_dump_device_ms, how = device_reading(
         lambda: [fs.noise_dump(p["sigma"], 200, 10_000, s_, 3, 0, False, 0.0) for s_ in seed_list],
         name="noise_dump_kernel", launches=len(seed_list))
-    print(f"[9] fleet kernel noise_dump R=8: {fleet_dump_device_ms} ms on the device "
-          f"(8 launches, summed per call) ({smi})")
+    print(f"[9] fleet kernel noise_dump R=8: {fleet_dump_device_ms} ms on the device ({how}) "
+          f"({smi})")
     del p, fargs, fpart
     _stamp(t_start, 9)
 
@@ -3500,21 +4127,26 @@ def main() -> int:
     ep_s = time.perf_counter() - t0
     fleet_launches = fs.launch_counts()
     fleet_launches["solve_partials<lti>"] = fs.family_launch_counts()["lti"]
-    # launched from the host: every control step's solve of the host loop,
+    # launched from the host: the warm-up of the host loop's solve graph,
     # the one warm-up cycle the example's --episode runs before it captures
     # its cycle, and every cycle of the full episode, run without capture;
-    # the --episode run's trace holds the warm-up and its replays
-    n_solves = (steps + 1 + len(ep.us)) * cfg2.opt_iters
+    # the --episode run's trace holds the warm-up and its replays, and a
+    # trace of the fleet's graphed host loop its records per step
+    n_solves = (1 + 1 + len(ep.us)) * cfg2.opt_iters
+    fleet_trace = solve_trace("fleet R=8 point_mass2d", fleet, torch.zeros(8, cfg2.state_dim, device="cuda"),
+                              fleet.init_action_seqs(), fleet.init_seeds())
     dist = np.linalg.norm(ep.xs[-1][:, :2] - goals[:, :2], axis=1)
     print(f"[10] fleet closed loop: example host loop and --episode exited 0; full episode "
           f"point_mass2d R=8 on the card without capture, {len(ep.us)} steps in {ep_s:.2f} s, mean "
           f"final goal distance {dist.mean():.4f} m (bar {FLEET_DISTANCE_BAR_M}); fleet-path launches "
-          f"{fleet_launches}; K1 and K2 records in the --episode run's trace {episode_records}")
+          f"{fleet_launches}; K1 and K2 records in the --episode run's trace {episode_records}; per "
+          f"step of the graphed host loop in a trace of {SOLVE_TRACE_STEPS} {fleet_trace['records']}")
     expect(np.isfinite(ep.xs).all() and ep.xs.shape == (len(ep.us) + 1, 8, 4), "episode states")
     expect(dist.mean() < FLEET_DISTANCE_BAR_M, f"fleet mean final distance {dist.mean()} m")
     for name in ("solve_partials<lti>", "softmin_combine"):
         expect(fleet_launches[name] == n_solves,
-               f"{name}: {fleet_launches[name]} launches on the fleet path, {n_solves} fleet solves")
+               f"{name}: {fleet_launches[name]} launches on the fleet path, want {n_solves} (two "
+               f"warm-ups and {len(ep.us)} eager cycles)")
     for name, c in episode_records.items():
         expect(c == (steps + 1) * cfg2.opt_iters,
                f"{name}: {c} records in the --episode run's trace, {steps + 1} cycles")
@@ -3535,15 +4167,18 @@ def main() -> int:
     _stamp(t_start, 11)
 
     # [12] the families' path: the CLI on configs/pendulum.yaml and
-    # configs/cartpole.yaml, fused, launches counted
+    # configs/cartpole.yaml, fused, launches counted (each episode's graph
+    # warm-up and the dump steps; the graphed steps' records from a trace)
     fs.reset_launch_counts()
-    steady, avg_ms, steps = {}, {}, {}
+    steady, avg_ms, steps, dumps = {}, {}, {}, dict.fromkeys(FAMILIES, 0)
     with tempfile.TemporaryDirectory() as tmp:
         for name in FAMILIES:
             traj = os.path.join(tmp, f"{name}.csv")
             dump = ["-s", os.path.join(tmp, "dump"), "--dump-every", "100"] if name == "cartpole" else []
             out = _cli(["-c", os.path.join("configs", f"{name}.yaml"), "--device", "cuda",
                         "--rollout-backend", "fused", "-t", traj, *dump])
+            if dump:
+                dumps[name] = sum(f.startswith("step_") for f in os.listdir(os.path.join(tmp, "dump")))
             steps[name] = int(re.search(r"episode finished: (\d+) control steps", out).group(1))
             avg_ms[name] = float(re.search(r"Average controller execution time: ([\d.]+) ms", out).group(1))
             idx = FAMILY_ANGLE[name]
@@ -3552,22 +4187,24 @@ def main() -> int:
             steady[name] = float(d[-max(len(d) // 4, 1):].mean())
     family_launches = fs.launch_counts()
     by_family = fs.family_launch_counts()
-    dumps = len(range(0, steps["cartpole"] + 1, 100))
+    family_traces = {n: config_trace(n) for n in FAMILIES}
     print(f"[12] cli closed loops (fused): pendulum {steps['pendulum']} steps x 2 iterations, steady "
           f"{steady['pendulum']:.4f} rad from upright (threshold {FAMILY_QUALITY_THRESHOLD_RAD['pendulum']}), "
           f"average controller execution time {avg_ms['pendulum']:.3f} ms; cartpole {steps['cartpole']} "
           f"steps, steady {steady['cartpole']:.4f} rad (threshold {FAMILY_QUALITY_THRESHOLD_RAD['cartpole']}), "
           f"average {avg_ms['cartpole']:.3f} ms ({smi}); family-path launches {family_launches}, "
-          f"K1 by family {by_family}")
+          f"K1 by family {by_family} (graph warm-ups and {dumps['cartpole']} cartpole dump steps); "
+          f"records per graphed step in a trace of {SOLVE_TRACE_STEPS}: {_records_line(family_traces)}")
     for name in FAMILIES:
         expect(steady[name] < FAMILY_QUALITY_THRESHOLD_RAD[name], f"{name} steady-state {steady[name]} rad")
-    # one solve per control step and one after the last (its action ends the episode)
-    expect(by_family == dict(dict.fromkeys(by_family, 0), pendulum=2 * (steps["pendulum"] + 1),
-                             cartpole=steps["cartpole"] + 1),
-           f"K1 launches by family {by_family} for {steps} control steps")
+    # one graph warm-up per episode and each dump step, opt_iters updates each
+    expect(by_family == dict(dict.fromkeys(by_family, 0), **{
+        n: _config(n).opt_iters * (1 + dumps[n]) for n in FAMILIES}),
+        f"K1 launches by family {by_family}, {dumps} dump steps")
     expect(family_launches["softmin_combine"] == family_launches["solve_partials"],
            "K2 launches differ from K1's on the family path")
-    expect(family_launches["noise_dump"] == dumps, f"K3: {family_launches['noise_dump']} launches, {dumps} dumps")
+    expect(family_launches["noise_dump"] == dumps["cartpole"],
+           f"K3: {family_launches['noise_dump']} launches, {dumps['cartpole']} dumps")
     launches.update({f"solve_partials<{n}>": by_family[n] for n in FAMILIES})
     _stamp(t_start, 12)
 
@@ -3590,15 +4227,17 @@ def main() -> int:
 
     # [14] the coupled families' path: the CLI on configs/unicycle.yaml,
     # quadrotor.yaml and arm.yaml (opt-iters 2, OU 0.8, dumps), fused, full
-    # episodes, launches counted
+    # episodes, launches counted as in [12]
     fs.reset_launch_counts()
-    steady, avg_ms, steps = {}, {}, {}
+    steady, avg_ms, steps, dumps = {}, {}, {}, dict.fromkeys(COUPLED, 0)
     with tempfile.TemporaryDirectory() as tmp:
         for name in COUPLED:
             traj = os.path.join(tmp, f"{name}.csv")
             dump = ["-s", os.path.join(tmp, "dump"), "--dump-every", "100"] if name == "arm" else []
             out = _cli(["-c", os.path.join("configs", f"{name}.yaml"), "--device", "cuda",
                         "--rollout-backend", "fused", "-t", traj, *dump])
+            if dump:
+                dumps[name] = sum(f.startswith("step_") for f in os.listdir(os.path.join(tmp, "dump")))
             steps[name] = int(re.search(r"episode finished: (\d+) control steps", out).group(1))
             avg_ms[name] = float(re.search(r"Average controller execution time: ([\d.]+) ms", out).group(1))
             cols = read_csv_columns(traj)
@@ -3608,21 +4247,23 @@ def main() -> int:
             steady[name] = float(d[-max(len(d) // 4, 1):].mean())
     coupled_launches = fs.launch_counts()
     by_family = fs.family_launch_counts()
-    dumps = len(range(0, steps["arm"] + 1, 100))
+    coupled_traces = {n: config_trace(n) for n in COUPLED}
     print("[14] cli closed loops (fused, full episodes): " + "; ".join(
         f"{n} {steps[n]} steps x {_config(n).opt_iters} iteration(s), steady {steady[n]:.4f} m "
         f"{'(end effector) ' if n == 'arm' else ''}from the goal (threshold "
         f"{COUPLED_QUALITY_THRESHOLD_M[n]}), average controller execution time {avg_ms[n]:.3f} ms"
-        for n in COUPLED) + f" ({smi}); coupled-path launches {coupled_launches}, K1 by family {by_family}")
+        for n in COUPLED) + f" ({smi}); coupled-path launches {coupled_launches}, K1 by family "
+        f"{by_family} (graph warm-ups and {dumps['arm']} arm dump steps); records per graphed "
+        f"step in a trace of {SOLVE_TRACE_STEPS}: {_records_line(coupled_traces)}")
     for name in COUPLED:
         expect(steady[name] < COUPLED_QUALITY_THRESHOLD_M[name], f"{name} steady-state {steady[name]} m")
     expect(by_family == dict(dict.fromkeys(by_family, 0), **{
-        n: _config(n).opt_iters * (steps[n] + 1) for n in COUPLED}),
-        f"K1 launches by family {by_family} for {steps} control steps")
+        n: _config(n).opt_iters * (1 + dumps[n]) for n in COUPLED}),
+        f"K1 launches by family {by_family}, {dumps} dump steps")
     expect(coupled_launches["softmin_combine"] == coupled_launches["solve_partials"],
            "K2 launches differ from K1's on the coupled path")
-    expect(coupled_launches["noise_dump"] == dumps,
-           f"K3: {coupled_launches['noise_dump']} launches, {dumps} dumps")
+    expect(coupled_launches["noise_dump"] == dumps["arm"],
+           f"K3: {coupled_launches['noise_dump']} launches, {dumps['arm']} dumps")
     launches.update({f"solve_partials<{n}>": by_family[n] for n in COUPLED})
     _stamp(t_start, 14)
 
@@ -3705,7 +4346,8 @@ def main() -> int:
     _stamp(t_start, 16)
 
     # [17] the last families' path, fused, launches counted from 0 before each
-    # run and read after it: the CLI on configs/quadrotor3d.yaml (opt-iters
+    # run and read after it (each run's solve-graph warm-up), the graphed
+    # steps' records from a trace: the CLI on configs/quadrotor3d.yaml (opt-iters
     # 2) for a full episode; the obstacle quality episode (obstacle3d, A=3)
     # and the ported obstacle example (obstacle2d, A=2) with its own exit
     # criterion; the ported flight example, which assigns ctrl.cost every step
@@ -3730,11 +4372,14 @@ def main() -> int:
           f"{LAST_QUALITY_THRESHOLD_M['quadrotor3d']}), average controller execution time "
           f"{q3d_ms:.3f} ms ({smi}); launches {q3d_launches}, K1 by family {q3d_by_family}")
     expect(q3d_steady < LAST_QUALITY_THRESHOLD_M["quadrotor3d"], f"quadrotor3d steady-state {q3d_steady} m")
-    expect(q3d_by_family == dict(dict.fromkeys(q3d_by_family, 0),
-                                 quadrotor3d=cfg.opt_iters * (q3d_steps + 1))
+    # the warm-up of the episode's solve graph; the replays' records from a trace
+    expect(q3d_by_family == dict(dict.fromkeys(q3d_by_family, 0), quadrotor3d=cfg.opt_iters)
            and q3d_launches["softmin_combine"] == q3d_launches["solve_partials"],
            f"quadrotor3d path: launches {q3d_launches}, K1 by family {q3d_by_family}")
     launches["solve_partials<quadrotor3d>"] = q3d_by_family["quadrotor3d"]
+    last_traces = {n: config_trace(n) for n in ("quadrotor3d", "obstacle3d")}
+    print(f"[17] records per graphed step in a trace of {SOLVE_TRACE_STEPS}: "
+          f"{_records_line(last_traces)}")
 
     launches["solve_partials<lti-obstacle,A=3>"] = obstacle_quality_episodes(smi)
 
@@ -3791,16 +4436,8 @@ def main() -> int:
     # virtual ranks (each at its draw offset, combined by the collective
     # path's combine), both branches, against the solo solve; times; the
     # sharded fleet; the sharded closed loops, launches counted
-    from mppi_gpu_tpu_torch.parallel import init_multihost
-    from mppi_gpu_tpu_torch.parallel.multihost import shutdown_multihost
-
-    group_dir = tempfile.mkdtemp()
-    init_multihost("file://" + os.path.join(group_dir, "init"), 1, 0, backend="nccl")
-    try:
+    with nccl_world_of_one():
         sharded_ms, launches["weighted_update"] = sharded_phase(smi, cols2d)
-    finally:
-        shutdown_multihost()
-        shutil.rmtree(group_dir)
     _stamp(t_start, 19)
 
     # [20] K1's and K4's two bodies: S bit-equal across both bodies of both
@@ -3862,6 +4499,13 @@ def main() -> int:
     # real MuJoCo beside the torch world, resume, the miss harness
     plants_phase(smi)
     _stamp(t_start, 25)
+
+    # [26] the graphs: K5's step by pointer; the host loop's solve as a
+    # replayed CUDA graph against the op-by-op solve, its ms per step; the
+    # sharded device episode, its collectives captured
+    with nccl_world_of_one():
+        graphs = graphs_phase(smi)
+    _stamp(t_start, 26)
 
     # the kernels JSON line: times at each kernel's shape, beside its bound
     k12 = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
@@ -3948,7 +4592,8 @@ def main() -> int:
                          shape="A=3 K=10000 T=200, K5 + K2's fold", large_ms=wu[100_000][0],
                          large_plain_ms=wu[100_000][1], large_bound_ms=wu[100_000][2],
                          large_device_ms=wu[100_000][4],
-                         large_shape="A=3 K=100000 T=200", sharded_solve_ms=sharded_ms)
+                         large_shape="A=3 K=100000 T=200", sharded_solve_ms=sharded_ms,
+                         step_pointer_device_ms=graphs["k5"])
         else:
             entry.update(ms=kernel_ms[name][0], plain_ms=kernel_ms[name][1], shape="A=3 K=10000 T=200",
                          fleet_launches=fleet_launches[name], fleet_ms=fleet_kernel_ms[name][0],
@@ -4090,6 +4735,8 @@ if __name__ == "__main__":
         sys.exit(family_only())
     if sys.argv[1:2] == ["--plants"]:
         sys.exit(plants_only())
+    if sys.argv[1:2] == ["--graphs"]:
+        sys.exit(graphs_only())
     if sys.argv[1:2] == ["--sass-diff"]:
         sys.exit(sass_diff(sys.argv[2]))
     sys.exit(main())

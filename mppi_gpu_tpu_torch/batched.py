@@ -151,14 +151,16 @@ class BatchedMPPIController(MPPIController):
     def _solve_once(self, xs, Us, seeds, step, it: int) -> SolveResult:
         return self._solve_robots(xs, Us, seeds, step, it, range(self.n_robots))
 
-    def solve(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step=0) -> SolveResult:
+    def solve(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step=0, *,
+              capture: bool = True) -> SolveResult:
         """One MPPI solve per robot for noise streams (seeds[r], step), with
         ``opt_iters`` updates (iteration j on counter word it = j) as in
         :meth:`MPPIController.solve`, `step` an int or a 0-dim int64 tensor
-        on the device, and nothing read from the device. On the fused
-        backend every iteration is one launch of K1 and one of K2, whatever R
-        is."""
-        return super().solve(xs, Us, self._seeds(seeds), step)
+        on the device, and nothing read from the device; on a CUDA device a
+        replayed graph unless ``capture=False``, the seeds and the goals among
+        its inputs. On the fused backend every iteration is one launch of K1
+        and one of K2, whatever R is."""
+        return super().solve(xs, Us, self._seeds(seeds), step, capture=capture)
 
     solve_batch = solve
 

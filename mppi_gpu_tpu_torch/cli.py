@@ -7,13 +7,15 @@ Flags: `-c` config, `-t` trajectory CSV, `-s` per-step dump dir with
 `--dump-every`, `--max-steps`, `-v`, `--seed`, `--rollout-backend` and
 `--device`. `--device` defaults to `cuda` and never falls back to the CPU:
 without a GPU the run errors unless `--device cpu` is given.
-`--jit-episode` runs the whole episode on the device
-(``runner.run_episode_jit``: one control cycle captured as a CUDA graph and
-replayed; a loop on the CPU). `--checkpoint PATH` with `--checkpoint-every N`
-writes the loop state every N steps and `--resume PATH` goes on from it, bit
-for bit as the uninterrupted run. `--profile DIR` writes a torch.profiler
-trace of the run into DIR. The JAX CLI's other flags (`--world`, `--view`,
-`--compile-cache`) are recognised and rejected until they are ported.
+On a CUDA device the host loop's every solve replays one CUDA graph of it
+(``MPPIController.solve``). `--jit-episode` runs the whole episode on the
+device (``runner.run_episode_jit``: one control cycle captured as a CUDA
+graph and replayed; a loop on the CPU), with `--sharded` or `--multihost`
+too. `--checkpoint PATH` with `--checkpoint-every N` writes the loop state
+every N steps and `--resume PATH` goes on from it, bit for bit as the
+uninterrupted run. `--profile DIR` writes a torch.profiler trace of the run
+into DIR. `--world` picks the host loop's plant, `--view` opens MuJoCo's
+viewer and `--compile-cache DIR` moves the kernel builds.
 
 Multi-GPU (``parallel/``): `--sharded` shards K over the ranks of torchrun's
 process group (``torchrun --nproc-per-node N -m mppi_gpu_tpu_torch.cli ...
@@ -21,8 +23,9 @@ process group (``torchrun --nproc-per-node N -m mppi_gpu_tpu_torch.cli ...
 the group from `--coordinator HOST:PORT`, `--num-processes` and
 `--process-id` (all three, on every process) or from torchrun's
 environment. One rank per GPU over NCCL, or per process over gloo with
-`--device cpu`. Every rank runs the same closed loop; only the coordinator
-(rank 0) writes the trajectory CSV and the dumps.
+`--device cpu`. Every rank runs the same closed loop, or the same device
+episode; only the coordinator (rank 0) writes the trajectory CSV, the dumps
+and the profiler trace.
 """
 
 from __future__ import annotations

@@ -271,7 +271,18 @@ class MPPIController:
             U = self._solve_once(x, U, seed, step, j).info.u_seq
         return U
 
-    def solve(self, x: torch.Tensor, U: torch.Tensor, seed: int, step=0) -> SolveResult:
+    def _solve_identity(self) -> tuple:
+        """The identity of every object whose tensors a solve reads, the
+        cost aside (the fused pack's parameters, the model, σ, λ and the
+        clamp; reassigning ``dynamics`` changes it, re-aiming the cost at
+        another goal does not), the config and the backend: part of a graph's
+        key (``graphs.solve_key``, ``runner.cycle_key``)."""
+        params = None if self._family is None else self._family.params
+        return (id(params), id(self.dynamics), id(self.sigma), id(self.lambda_), id(self.max_a),
+                self.cfg, self.rollout_backend)
+
+    def solve(self, x: torch.Tensor, U: torch.Tensor, seed: int, step=0, *,
+              capture: bool = True) -> SolveResult:
         """One control step for noise stream (seed, step). With
         ``opt_iters > 1`` the nominal sequence is updated that many times
         (iteration j draws counter word it = j) before U[0] is executed and
@@ -279,14 +290,27 @@ class MPPIController:
         `step` is an int or a 0-dim int64 tensor on the controller's device
         (the same noise bit for bit); either way the solve reads nothing
         from the device, so a CUDA graph can capture it and replay it with
-        the step its counter holds (``runner.run_episode_jit``)."""
+        the step its counter holds.
+
+        On a CUDA device the solve is a CUDA graph, captured at the first
+        call and again when its key changes (``graphs.SolveGraph``: a new
+        cost or model, shape or solo seed; not a goal re-aim), and replayed
+        (the counterpart of the JAX package's jitted solve). ``capture=False``
+        launches it op by op, the graph's yardstick (the same result bit for
+        bit); so does a call made while the stream captures another graph
+        (``runner.EpisodeCycle``), which then records those launches."""
+        from mppi_gpu_tpu_torch import graphs
+
+        if graphs.replays(self.device, capture):
+            return graphs.graphed_solve(self, x, U, seed, step)
         x = x.to(self.device, torch.float32)
         U = self._iterate(x, U, seed, step)
         return self._solve_once(x, U, seed, step, self.cfg.opt_iters - 1)
 
-    def solve_auto(self, x: torch.Tensor, U: torch.Tensor, step) -> SolveResult:
+    def solve_auto(self, x: torch.Tensor, U: torch.Tensor, step, *,
+                   capture: bool = True) -> SolveResult:
         """:meth:`solve` under the config's seed."""
-        return self.solve(x, U, self.cfg.seed, step)
+        return self.solve(x, U, self.cfg.seed, step, capture=capture)
 
     def solve_with_eps(self, x: torch.Tensor, U: torch.Tensor, eps: torch.Tensor) -> SolveResult:
         """Deterministic solve with injected noise (parity/testing); runs the

@@ -733,13 +733,18 @@ __global__ void __launch_bounds__(kGroupThreads, 4) noise_dump_kernel(
 // rows with f_b = 1 and no division by η (`normalize` 0). Every sum has a
 // fixed order, no atomics: a run repeats bit for bit. Injected ε: the two
 // rollouts' A floats at step t, read coalesced (a step's K·A floats are
-// contiguous), weighed by w, no fold, no σ.
+// contiguous), weighed by w, no fold, no σ. `step_ptr`, when set, points at
+// the control step (a 0-dim int64 on the device) whose low word replaces
+// np.step, as in K1: a CUDA graph that captured the launch replays each
+// cycle's step.
 template <int A, bool INJ>
 __global__ void __launch_bounds__(kGroupThreads, 4) weighted_update_kernel(
     const float* __restrict__ sigma, const float* __restrict__ w,
-    const float* __restrict__ eps_in, float* __restrict__ partials, int T, NoiseParams np) {
+    const float* __restrict__ eps_in, float* __restrict__ partials, int T, NoiseParams np,
+    const long long* __restrict__ step_ptr) {
   extern __shared__ float red[];  // (T, A) Σ over the block's draws of w̃·n (INJ: w·ε)
   const int TA = T * A;
+  if (step_ptr != nullptr) np.step = (unsigned)(unsigned long long)*step_ptr;
   const bool fold = !INJ && np.antithetic;
   const int n = fold ? np.K_draw : np.K;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -805,23 +810,24 @@ __global__ void __launch_bounds__(kGroupThreads, 4) weighted_update_kernel(
 template <int A, bool INJ>
 cudaError_t launch_weighted_update(const float* sigma, const float* w, const float* eps_in,
                                    float* partials, int T, const NoiseParams& np,
-                                   cudaStream_t stream) {
+                                   const long long* step_ptr, cudaStream_t stream) {
   const int n = (!INJ && np.antithetic) ? np.K_draw : np.K;
   const size_t smem = (size_t)T * A * sizeof(float);
   cudaError_t err = set_smem(weighted_update_kernel<A, INJ>, smem);
   if (err != cudaSuccess) return err;
   weighted_update_kernel<A, INJ><<<(n + kGroup - 1) / kGroup, kGroupThreads, smem, stream>>>(
-      sigma, w, eps_in, partials, T, np);
+      sigma, w, eps_in, partials, T, np, step_ptr);
   return cudaGetLastError();
 }
 
 template <int A>
 cudaError_t launch_weighted_update_mode(const float* sigma, const float* w, const float* eps_in,
                                         float* partials, int T, const NoiseParams& np,
-                                        cudaStream_t stream) {
+                                        const long long* step_ptr, cudaStream_t stream) {
   return eps_in != nullptr
-             ? launch_weighted_update<A, true>(sigma, w, eps_in, partials, T, np, stream)
-             : launch_weighted_update<A, false>(sigma, w, eps_in, partials, T, np, stream);
+             ? launch_weighted_update<A, true>(sigma, w, eps_in, partials, T, np, step_ptr, stream)
+             : launch_weighted_update<A, false>(sigma, w, eps_in, partials, T, np, step_ptr,
+                                                stream);
 }
 
 // K1 (PASS2) or K4 for the family id and A: the instances that exist.
@@ -935,18 +941,19 @@ int mppi_noise_dump(const float* sigma, float* eps_out, unsigned* words_out, int
 // K5: sigma (A,), w (K,) normalized weights, eps_in (T, K, A) or null →
 // partials (nb, 2 + T·A) for K2 to fold (normalize 0), nb = ceil(n / 64)
 // with n = K/2 under antithetic in Philox mode, else K. The draws start at
-// counter word k0.
+// counter word k0. step_ptr (a 0-dim int64 control step on the device, read
+// in place of `step`) or null, as K1's.
 int mppi_weighted_update(const float* sigma, const float* w, const float* eps_in,
                          float* partials, int K, int T, int A, unsigned key0, unsigned key1,
                          unsigned step, unsigned it, unsigned k0, int antithetic, float ou_beta,
-                         float ou_c, void* stream) {
+                         float ou_c, const long long* step_ptr, void* stream) {
   const NoiseParams np = make_noise(key0, key1, step, it, k0, K, antithetic, ou_beta, ou_c);
   cudaStream_t s = (cudaStream_t)stream;
   switch (A) {
-    case 1: return (int)launch_weighted_update_mode<1>(sigma, w, eps_in, partials, T, np, s);
-    case 2: return (int)launch_weighted_update_mode<2>(sigma, w, eps_in, partials, T, np, s);
-    case 3: return (int)launch_weighted_update_mode<3>(sigma, w, eps_in, partials, T, np, s);
-    case 4: return (int)launch_weighted_update_mode<4>(sigma, w, eps_in, partials, T, np, s);
+    case 1: return (int)launch_weighted_update_mode<1>(sigma, w, eps_in, partials, T, np, step_ptr, s);
+    case 2: return (int)launch_weighted_update_mode<2>(sigma, w, eps_in, partials, T, np, step_ptr, s);
+    case 3: return (int)launch_weighted_update_mode<3>(sigma, w, eps_in, partials, T, np, step_ptr, s);
+    case 4: return (int)launch_weighted_update_mode<4>(sigma, w, eps_in, partials, T, np, step_ptr, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

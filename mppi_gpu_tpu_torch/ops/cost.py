@@ -344,6 +344,22 @@ def only_goal_differs(old: Cost | None, new: Cost) -> bool:
     return same_but(old, new, "base") and same_but(old.base, new.base, "goal")
 
 
+def goal_free_key(cost: Cost) -> tuple:
+    """The identity of `cost` but its goal: its type and the id of every
+    field but the goal (through ``base`` where the goal lives there); the
+    cost's own id where its target is built in. While `cost` lives, another
+    cost has its key exactly when :func:`only_goal_differs` holds between
+    them (a solve graph keys on it and takes the goal as an input)."""
+    owner = _goal_owner(cost)
+    if owner is None:
+        return (id(cost),)
+
+    def ids(c, skip: str) -> tuple:
+        return (type(c), *(id(getattr(c, f.name)) for f in dataclasses.fields(c) if f.name != skip))
+
+    return ids(cost, "goal") if owner is cost else ids(cost, "base") + ids(owner, "goal")
+
+
 def batch_goals(cost: Cost, goals: torch.Tensor, n_robots: int) -> Cost:
     """``cost`` with the (R, s) per-robot ``goals`` as its goal
     (:func:`with_goal`). Raises ``TypeError`` for a cost without a goal (its

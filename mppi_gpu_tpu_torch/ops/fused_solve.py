@@ -61,11 +61,12 @@ width. ΔU at two widths differs by rounding only. A body that fails to
 build or launch raises: nothing falls back to the other body.
 
 Noise: ``eps=None`` is the Philox mode (production): ε is generated in the
-kernel from (seed, step, it), robot r under its own seed. K1's and K4's
-wrappers take the control step as an int, passed by value, or as a 0-dim
-int64 tensor on the inputs' device, whose address K1 reads the step from
-(the S of both forms is the same bit for bit): a captured CUDA graph replays
-the step its counter holds (``runner.run_episode_jit``). The single-robot
+kernel from (seed, step, it), robot r under its own seed. K1's, K4's and
+K5's wrappers take the control step as an int, passed by value, or as a
+0-dim int64 tensor on the inputs' device, whose address the kernel reads the
+step from (the results of both forms are the same bit for bit): a captured
+CUDA graph replays the step its counter holds (``runner.run_episode_jit``,
+``graphs.SolveGraph``). The single-robot
 wrappers take a draw offset ``k0`` (counter word 0 = k0 + draw index, 0 on
 one GPU) with which a rank of the sharded solve draws its part of the
 stream. ``eps`` given is the injected-ε mode for parity tests: a (T, K, A)
@@ -835,22 +836,24 @@ def weighted_update_rows(T: int, K: int, A: int, fold: bool) -> int:
 
 
 def weighted_update(
-    sigma: torch.Tensor, w: torch.Tensor, T: int, K: int, seed: int, step: int, it: int,
+    sigma: torch.Tensor, w: torch.Tensor, T: int, K: int, seed: int, step, it: int,
     antithetic: bool, ou_beta: float, eps=None, k0: int = 0,
 ) -> torch.Tensor:
     """ΔU (T, A) = Σ_k w_k ε_k for normalized softmin weights w (K,), ε the
     port's noise stream for (seed, step, it) from draw k0 on under σ (A,)
-    (the stream K1 and K4 draw), or the given ε (T, K, A). On CUDA tensors
-    K5 writes per-block sums, regenerating ε, and K2 folds them (f_b = 1,
-    not divided by η); on CPU tensors :func:`weighted_update_reference` on
-    the stream ``ops/philox.py`` draws."""
+    (the stream K1 and K4 draw), or the given ε (T, K, A). `step` is an int,
+    passed by value, or a 0-dim int64 tensor on the inputs' device, whose
+    address K5 reads the step from, as K1 does. On CUDA tensors K5 writes
+    per-block sums, regenerating ε, and K2 folds them (f_b = 1, not divided
+    by η); on CPU tensors :func:`weighted_update_reference` on the stream
+    ``ops/philox.py`` draws."""
     A = sigma.shape[0] if sigma.dim() == 1 else -1
     _check_problem(T, A, K, antithetic and eps is None)
     _check("sigma", sigma, (A,))
     _check("w", w, (K,))
     if eps is not None:
         _check("eps", eps, (T, K, A))
-    if not _on_cuda(*(t for t in (sigma, w, eps) if t is not None)):
+    if not _on_cuda(*(t for t in (sigma, w, eps) if t is not None), *_step_tensors(step)):
         if eps is None:
             eps = philox.sample_eps(seed, step, it, T, K, sigma, antithetic=antithetic,
                                     ou_beta=ou_beta, k0=k0)
@@ -860,12 +863,14 @@ def weighted_update(
     from mppi_gpu_tpu_torch.ops._build import load_library
 
     lib = load_library()
+    step_ptr = isinstance(step, torch.Tensor)
     partials = torch.empty(nb, 2 + T * A, dtype=torch.float32, device=w.device)
     if _launch(
         f"weighted_update<A={A}>", lib.mppi_weighted_update, w.device,
         sigma.data_ptr(), w.data_ptr(), eps.data_ptr() if eps is not None else None,
-        partials.data_ptr(), K, T, A, *_noise_words(seed, step, it), philox.draw_offset(k0),
-        int(fold), float(ou_beta), _ou_c(ou_beta),
+        partials.data_ptr(), K, T, A, *_noise_words(seed, 0 if step_ptr else step, it),
+        philox.draw_offset(k0), int(fold), float(ou_beta), _ou_c(ou_beta),
+        step.data_ptr() if step_ptr else None,
     ):
         _LAUNCHES["weighted_update"] += 1
     return _launch_softmin_combine(partials, 1.0, 1, T, A, (), normalize=False)[1]

@@ -10,8 +10,9 @@ for bit. The full (R, ·) result
 comes back on every rank through one all_gather of the packed outputs per
 update, so ``runner.run_fleet_episode`` runs on it unchanged: on the CPU, a
 loop over gloo, bit for bit as on the unsharded fleet
-(``tests/test_torch_sharded.py``). Its CUDA graph, NCCL's all_gather
-captured in it, is not run anywhere yet (ROADMAP.md, §1).
+(``tests/test_torch_sharded.py``); on a CUDA device a replayed CUDA graph of
+the cycle with NCCL's all_gather captured in it, as is the host loop's
+solve (``graphs.SolveGraph``).
 """
 
 from __future__ import annotations
@@ -61,7 +62,10 @@ class ShardedFleetController(BatchedMPPIController):
         out = [w.reshape(-1, *v.shape[1:]) for w, v in zip(rows.split(widths, 1), leaves)]
         return SolveResult(out[0], out[1], SolveInfo(*out[2:]))
 
-    def _solve_once(self, xs, Us, seeds, step: int, it: int) -> SolveResult:
+    def _solve_identity(self) -> tuple:
+        return (*super()._solve_identity(), id(self.mesh))
+
+    def _solve_once(self, xs, Us, seeds, step, it: int) -> SolveResult:
         return self._gather([
             self._solve_robots(xs[r.start:r.stop], Us[r.start:r.stop], seeds[r.start:r.stop],
                                step, it, r)

@@ -179,7 +179,9 @@ class ShardedMPPIController(MPPIController):
     rank of a process group (:func:`~mppi_gpu_tpu_torch.parallel.mesh.make_mesh`,
     the default) or n ranks in one process (``virtual_mesh``). Every rank
     runs the same closed loop; ``onepass=False`` selects the two-kernel
-    branch."""
+    branch. On a CUDA device its ``solve`` is a replayed CUDA graph, the
+    collectives of a process group captured in it (``graphs.SolveGraph``),
+    and ``runner.run_episode_jit`` captures its whole control cycle."""
 
     def __init__(
         self,
@@ -198,7 +200,10 @@ class ShardedMPPIController(MPPIController):
         self.mesh = mesh
         self.onepass = onepass
 
-    def _solve_once(self, x, U, seed: int, step: int, it: int, eps=None) -> SolveResult:
+    def _solve_identity(self) -> tuple:
+        return (*super()._solve_identity(), id(self.mesh), self.onepass)
+
+    def _solve_once(self, x, U, seed: int, step, it: int, eps=None) -> SolveResult:
         cfg = self.cfg
         return _solve_once(
             self.mesh, self.rollout_backend, self._family, self.dynamics, self.cost, x, U,

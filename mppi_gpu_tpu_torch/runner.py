@@ -14,22 +14,24 @@ Three entry points:
   (``envs.make_host_world``): the torch world on the CPU, the native C++
   twin or real MuJoCo. Each runs on the host: its state is a few floats and
   the host needs it every cycle anyway.
+  On a CUDA device each solve replays the controller's solve graph
+  (``graphs.SolveGraph``); ``capture=False`` launches it op by op.
 * :func:`run_episode_jit` — the whole episode on the controller's device with
   no host round trip: one control cycle (every opt iteration of the solve,
   the world's ``advance``, the step into the histories) captured once as a
-  CUDA graph and replayed once per cycle.
+  CUDA graph and replayed once per cycle; for a sharded controller the
+  ranks' collectives are captured in it.
 * :func:`run_fleet_episode` — the same for R robots: one fleet solve and one
-  batched world step per cycle (counterpart of ``run_fleet_episode_jit``).
+  batched world step per cycle (counterpart of ``run_fleet_episode_jit``),
+  sharded or not.
 
 The two device episodes step the torch world on the device and refuse a
-host plant by name. Not ported yet (ROADMAP.md, Open items §1): the sharded
-device episode.
+host plant by name.
 """
 
 from __future__ import annotations
 
 import contextlib
-import gc
 import os
 import sys
 import time
@@ -38,6 +40,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from mppi_gpu_tpu_torch import graphs
 from mppi_gpu_tpu_torch.controller import MPPIController
 from mppi_gpu_tpu_torch.envs import WorldParams, make_host_world, make_world, params_for_config
 from mppi_gpu_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
@@ -106,6 +109,7 @@ def run_closed_loop(
     resume_from: str | os.PathLike | None = None,
     view: bool = False,
     validate: bool = True,
+    capture: bool = True,
 ) -> EpisodeResult:
     """Interactive closed loop against the plant of `world_backend`
     ("torch", "native" or "mujoco"; ``envs.make_host_world``). Dump steps
@@ -124,7 +128,9 @@ def run_closed_loop(
 
     `view` opens the live MuJoCo viewer (:func:`_launch_viewer`) over the
     MuJoCo plant, syncs it every control cycle, paces the loop to real time
-    and ends the episode when its window closes."""
+    and ends the episode when its window closes. `capture` goes to every
+    timed solve (``MPPIController.solve``): a replayed CUDA graph on a CUDA
+    device, op by op with False."""
     params = world_params or params_for_config(ctrl.cfg)
     world = make_host_world(ctrl.cfg, params, world_backend)
     viewer = _launch_viewer(world) if view else None
@@ -167,7 +173,7 @@ def run_closed_loop(
                 action = res.action.cpu().numpy()
             else:
                 with timer.measure():
-                    res = ctrl.solve_auto(x, U, step)
+                    res = ctrl.solve_auto(x, U, step, capture=capture)
                     action = res.action.cpu().numpy()
             U = res.u_next
             if validate and not np.all(np.isfinite(action)):
@@ -269,26 +275,12 @@ class EpisodeCycle:
         self.step.add_(1)
 
     def _capture(self) -> None:
-        """Warm one cycle up on a side stream (it builds the kernels, sets
-        K1's shared-memory attribute and fills the allocator), then capture
-        one cycle. A cycle that cannot be captured raises: nothing falls
-        back to the eager loop. The capture runs no kernel, and its wrappers
-        count none (``ops.fused_solve``): a replay's launches are seen only
-        in a trace."""
-        dev = self.U.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.cycle()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        # a dropped controller and its cached cycle form a reference cycle,
-        # which only the garbage collector frees: were it to free that
-        # cycle's graph during this capture, the capture would fail
-        gc.collect()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.cycle()
-        self.graph = graph
+        """Warm one cycle up on a side stream, then capture one cycle
+        (``graphs.capture``). A cycle that cannot be captured raises:
+        nothing falls back to the eager loop. The capture runs no kernel,
+        and its wrappers count none (``ops.fused_solve``): a replay's
+        launches are seen only in a trace."""
+        self.graph = graphs.capture(self.cycle, self.U.device)[0]
 
     def run(self, state0, U0: torch.Tensor, capture: bool = True) -> EpisodeResult:
         """The episode of `n` cycles from (state0, U0); histories read once,
@@ -314,26 +306,24 @@ class EpisodeCycle:
 
 def cycle_key(ctrl, kind: str, params, R: int | None, state_shape, n: int, seed) -> tuple:
     """What a cached episode cycle depends on: the identity of every object
-    whose tensors its graph reads (the pack, the cost, the model, σ, λ and
-    the clamp; reassigning ``ctrl.cost`` or ``ctrl.dynamics`` makes a new
-    key), the config, the backend, the world's parameters, R, the state's
-    shape, the episode length and, for one robot, the seed its kernel takes
-    by value."""
-    return (kind, id(ctrl._family), id(ctrl.cost), id(ctrl.dynamics), id(ctrl.sigma),
-            id(ctrl.lambda_), id(ctrl.max_a), ctrl.cfg, ctrl.rollout_backend, repr(params), R,
-            tuple(state_shape), n, seed)
+    whose tensors its graph reads (the cost and the controller's solve
+    identity, ``MPPIController._solve_identity``: the pack, the model, σ, λ,
+    the clamp, the config, the backend, a sharded controller's mesh and
+    branch; reassigning ``ctrl.cost`` or ``ctrl.dynamics`` makes a new key),
+    the world's parameters, R, the state's shape, the episode length and,
+    for one robot, the seed its kernel takes by value. Every rank of a
+    process group builds the same key at the same episode, so the ranks
+    capture their collectives together."""
+    return (kind, id(ctrl.cost), *ctrl._solve_identity(), repr(params), R, tuple(state_shape), n,
+            seed)
 
 
 def _episode_cycle(ctrl, kind: str, key: tuple, build) -> EpisodeCycle:
     """The controller's cached cycle of `kind` ("single" or "fleet") if its
-    key is `key`, else a new one from ``build()`` in its place (the old
-    graph and buffers are freed), as the JAX package's ``_episode_cache``
-    keeps its jitted episodes."""
-    cache = ctrl.__dict__.setdefault("_episode_cycles", {})
-    hit = cache.get(kind)
-    if hit is None or hit[0] != key:
-        cache[kind] = (key, build())
-    return cache[kind][1]
+    key is `key`, else a new one from ``build()`` in its place
+    (``graphs.cached``), as the JAX package's ``_episode_cache`` keeps its
+    jitted episodes."""
+    return graphs.cached(ctrl.__dict__.setdefault("_episode_cycles", {}), kind, key, build)
 
 
 def run_episode_jit(
@@ -358,15 +348,14 @@ def run_episode_jit(
     `x0` (default: the world's start) override the episode's noise stream and
     start state; the clock starts where the world's reset does. A new seed
     re-captures (the solo kernel takes it by value); a new x0 does not. Any
-    `world_backend` but "torch" (a host plant) raises ValueError."""
-    from mppi_gpu_tpu_torch.parallel import ShardedMPPIController
+    `world_backend` but "torch" (a host plant) raises ValueError.
 
+    A ``ShardedMPPIController`` runs the same cycle around its sharded solve
+    (the counterpart of ``mppi_gpu_tpu/runner.py:377``): every rank of its
+    mesh calls this with the same arguments, captures its own cycle with its
+    collectives in it (NCCL's; a virtual mesh's are plain reductions) and
+    replays it; over gloo, on the CPU, the cycle is a loop."""
     _device_world("run_episode_jit", world_backend)
-    if isinstance(ctrl, ShardedMPPIController):
-        raise NotImplementedError(
-            "run_episode_jit with a ShardedMPPIController is not ported yet "
-            "(see ROADMAP.md, Open items §1 item 1); run_closed_loop drives it"
-        )
     params = world_params or params_for_config(ctrl.cfg)
     world = make_world(ctrl.cfg, params, device=ctrl.device)
     n = num_steps if num_steps is not None else params.num_control_steps()
@@ -380,7 +369,7 @@ def run_episode_jit(
     U0 = ctrl.init_action_seq()
 
     def solve(x, U, step):
-        res = ctrl.solve(x, U, seed, step)
+        res = ctrl.solve(x, U, seed, step, capture=False)
         return res.action, res.u_next
 
     key = cycle_key(ctrl, "single", params, None, state0.x.shape, n, seed)
@@ -427,7 +416,7 @@ def run_fleet_episode(
         seeds = ctrl.init_seeds()
 
         def solve(xs, Us, step):
-            res = ctrl.solve_batch(xs, Us, seeds, step)
+            res = ctrl.solve_batch(xs, Us, seeds, step, capture=False)
             return res.action, res.u_next
 
         return EpisodeCycle(ctrl, world, state0, Us0, n, solve)

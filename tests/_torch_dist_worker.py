@@ -91,6 +91,21 @@ def fleet_episode(cfg, n_robots, num_steps: int):
     return dict(xs=ep.xs, us=ep.us, times=ep.times)
 
 
+def episode(cfg, num_steps: int):
+    """``runner.run_episode_jit`` and ``run_closed_loop`` of
+    ShardedMPPIController over the group, in each branch: the histories of
+    both."""
+    from mppi_gpu_tpu_torch.runner import run_closed_loop, run_episode_jit
+
+    out = {}
+    for onepass in (True, False):
+        ctrl = ShardedMPPIController(cfg, mesh=global_mesh("cpu"), onepass=onepass)
+        ep = run_episode_jit(ctrl, num_steps=num_steps)
+        host = run_closed_loop(ctrl, max_steps=num_steps)
+        out[onepass] = dict(xs=ep.xs, us=ep.us, times=ep.times, host_xs=host.xs, host_us=host.us)
+    return out
+
+
 def multihost(init: str, world: int, rank: int):
     """init_multihost's re-calls: the same arguments or none return the
     coordinates; other arguments raise RuntimeError."""
@@ -130,7 +145,7 @@ def main(spec_path: str, rank: int) -> None:
             out.append(cli([*kwargs["argv"], "--process-id", str(rank)]))
         else:
             out.append({"solve": solve, "fleet": fleet, "debug": debug,
-                        "fleet_episode": fleet_episode}[name](**kwargs))
+                        "fleet_episode": fleet_episode, "episode": episode}[name](**kwargs))
     if grouped:
         shutdown_multihost()
     torch.save(out, os.path.join(os.path.dirname(spec_path), f"{rank}.pt"))

@@ -276,15 +276,6 @@ def test_an_episode_result_outlives_the_next_episode():
         np.testing.assert_array_equal(getattr(first, f), getattr(kept, f))
 
 
-def test_episode_on_a_sharded_controller_raises_naming_roadmap():
-    from mppi_gpu_tpu_torch.parallel import ShardedMPPIController
-    from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
-
-    ctrl = ShardedMPPIController(load_config(CFG).replace(samples=4), mesh=virtual_mesh(2, "cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_episode_jit(ctrl, num_steps=1)
-
-
 # ---------------------------------------------------------------------------
 # checkpoint / resume
 
