@@ -9,6 +9,7 @@
 //   rollout_step                one horizon step: control cost, family step,
 //                               state cost, Kahan sum
 //   solve_partials_kernel       K1's and K4's per-rollout body (128 per block)
+//   rollout_smem                its dynamic shared memory
 //   slab_partials_kernel        K1's and K4's slab body (32 per block)
 //   SolveArgs, launch_partials, launch_mode
 //                               the launch of one body for a family struct F
@@ -42,6 +43,10 @@ namespace {
 constexpr int kBlock = 128;  // threads = rollouts per block of K1's per-rollout body;
                              // ops/fused_solve.BLOCK
 constexpr int kWarps = kBlock / 32;
+// floats per action of the slab of the per-rollout body's second pass: eight
+// steps of a block whose every rollout weighs, each row of 128 slots padded
+// to 136 (ops/fused_solve.DELTA_CELLS)
+constexpr int kDeltaCells = 8 * (kBlock + 8);
 constexpr int kSlabRollouts = 32;  // rollouts per block of K1's slab body; ops/fused_solve.SLAB_WIDTH
 constexpr int kSlabWarps = 8;      // warp 0 rolls out, warps 1-7 draw
 constexpr int kSlabThreads = 32 * kSlabWarps;
@@ -260,7 +265,12 @@ __device__ __forceinline__ void rollout_step(const F& fam, float* x, const float
 // flops on its 13 states. K4 does the rollout alone. The only traffic is U
 // and the parameters (read once into shared memory/registers), S (4 B per
 // rollout) and one (2 + T·A)-float partial per block. In the injected-ε mode
-// it instead streams T·A·4 B per rollout (twice in the per-rollout body).
+// it instead streams T·A·4 B per rollout (again for each rollout that weighs,
+// in the per-rollout body). That body draws the noise of every rollout that
+// weighs twice: its second draw costs what pass 1's draw costs (~250
+// instructions per step at A = 3, Philox and two Box-Muller pairs), more than
+// the step, cost and reduction of the LTI family together; a rollout whose
+// weight e_k is 0 is not drawn again.
 //
 // Design: the TPU kernels stage the tile's ε in VMEM for the ΔU pass. The
 // cross-tile online softmin of the TPU kernel, which relies on the grid
@@ -271,13 +281,35 @@ __device__ __forceinline__ void rollout_step(const F& fam, float* x, const float
 // regime (ops/fused_solve.block_width picks by the grid's size):
 //
 // * The per-rollout body (solve_partials_kernel, 128 rollouts per block)
-//   fills the card when R·K is large. One thread per rollout walks the
-//   horizon twice: pass 1 rolls out, pass 2 regenerates ε from the counter
-//   (Philox is stateless; a thread's ε for a whole horizon fits neither its
-//   registers nor, at 2048 rollouts per SM, shared memory) and reduces
-//   Σ_k e_k ε_k[t, a] by warp shuffles into shared memory, summed over the
-//   warps in a fixed order. The second draw costs about half its
-//   instructions.
+//   fills the card when R·K is large. Pass 1: one thread per rollout rolls
+//   out, and the block's softmin gives each rollout its weight e_k. Pass 2
+//   regenerates ε from the counter (Philox is stateless; a rollout's ε for a
+//   whole horizon fits neither its thread's registers nor, at 2048 rollouts
+//   per SM, shared memory) for the n rollouts of the block that weigh
+//   (e_k ≠ 0; the others add exact zeros: in chip_smoke.py's K = 10⁵, T = 200
+//   problems at the configs' λ, 94-99 % of the weights underflow to 0),
+//   packed in rollout order into n slots; a block where none weighs writes
+//   ΔŨ_b = 0 and draws nothing. It takes the horizon in chunks, eight steps
+//   when every rollout weighs, more for fewer slots: (i) the chunk's cells
+//   (step, slot) are drawn over all the block's threads, two Philox chains in
+//   flight per lane (injected ε: copied), shaped with shape_eps's rounded
+//   operations and weighed, e_k·ε, into a shared-memory slab (steps, A,
+//   slots). When every rollout weighs, thread j draws its own rollout's steps
+//   in order, so it also carries its OU state; under OU with fewer slots (ii)
+//   the thread of slot i shapes its normals in t order after the draws, the
+//   OU state carried across chunks in its registers. (iii) Each row (t, a) is
+//   summed over its slots by G lanes (up to 16 slots each, in two running
+//   sums, then a shuffle tree; rows padded so one warp's rows start on
+//   different banks), in one order that both modes share, straight into the
+//   partial row. No atomics: a run repeats bit for bit, and the injected-ε
+//   solve on K3's dump equals the Philox one. The slab is 4.25 KB per action
+//   whatever T, so apart from U shared memory does not grow with T, and at
+//   T = 200 no instance has fewer blocks per SM for its shared memory than
+//   for its registers. The design replaced a second walk of each rollout's
+//   horizon by its own thread, one Philox chain in flight and A warp_sums per
+//   step into a (warps, T, A) buffer; with every rollout weighing it is about
+//   as fast, since the draws, not the reduction, hold that pass back (pass 2
+//   runs in pass 1's grid, ~6 blocks of 4 warps per SM at K = 10⁵).
 // * The slab body (slab_partials_kernel, 32 rollouts per block) is for the
 //   main path's K, where 128-rollout blocks leave most SMs empty and one
 //   warp per SM sub-partition runs the serial chain of Philox, Box-Muller,
@@ -293,7 +325,7 @@ __device__ __forceinline__ void rollout_step(const F& fam, float* x, const float
 //   the whole horizon, no slot is reused), the rollout warp waits for each
 //   chunk's seven arrivals. ΔŨ_b[t, a] = Σ_j e_j ε_j[t, a] is then a
 //   32-long dot product per (t, a) read from the slab, one warp per row, in a
-//   fixed order: no second draw. Tensor cores do not serve this reduction:
+//   fixed order: no second draw. Tensor cores serve neither body's reduction:
 //   it is a matrix-vector product (no reuse to feed them), and the replay
 //   checks need exact float32 products. The slab is 32·T·A floats (76.8 KB
 //   at T = 200, A = 3), so an SM holds two such blocks: past about a full
@@ -343,7 +375,6 @@ __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
   }
   if (step_ptr != nullptr) np.step = (unsigned)(unsigned long long)*step_ptr;
   float* u_s = smem;         // (T, A) nominal sequence
-  float* red = smem + TA;    // (kWarps, T, A) per-warp Σ e·ε
   for (int i = threadIdx.x; i < TA; i += kBlock) u_s[i] = U[i];
 
   float sig[A], lis[A], x[S_DIM], e[A];
@@ -391,41 +422,187 @@ __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
   const bool all_inf = beta_b == INFINITY;
   const float ek = (valid && !all_inf) ? expf(-(S - beta_b) / lam_softmin) : 0.0f;
   const float eta_b = block_sum<kWarps>(ek, scratch);
-
-  // ---- pass 2: ΔŨ_b[t, a] = Σ_k e_k ε_k[t, a], ε regenerated ---------------
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int a = 0; a < A; ++a) e[a] = 0.0f;
-  for (int t = 0; t < T; ++t) {
-    float eps[A];
-#pragma unroll
-    for (int a = 0; a < A; ++a) eps[a] = 0.0f;
-    if (valid) {
-      if (INJ) {
-#pragma unroll
-        for (int a = 0; a < A; ++a) eps[a] = eps_in[((size_t)t * np.K + k) * A + a];
-      } else {
-        next_eps<A>(np, sig, kd, mirror, t, e, eps, words);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      const float v = warp_sum(ek * eps[a]);
-      if (lane == 0) red[warp * TA + t * A + a] = v;
-    }
-  }
-  __syncthreads();
   float* part = partials + (r * gridDim.x + blockIdx.x) * (2 + (size_t)TA);
-  for (int i = threadIdx.x; i < TA; i += kBlock) {
-    float s = red[i];
-#pragma unroll
-    for (int wi = 1; wi < kWarps; ++wi) s += red[wi * TA + i];
-    part[2 + i] = s;
-  }
   if (threadIdx.x == 0) {
     part[0] = beta_b;
     part[1] = eta_b;
   }
+
+  // ---- pass 2: ΔŨ_b[t, a] = Σ_k e_k ε_k[t, a] over the rollouts that weigh --
+  // A rollout weighs when e_k ≠ 0 (a NaN e_k too: it reaches ΔŨ_b, as in
+  // block_partials). Slot i of the block's n such rollouts, in rollout
+  // order, holds its weight and its draw: Philox mode kd, or ~kd for an
+  // antithetic mirror; injected ε the rollout k.
+  float* e_s = u_s + TA;                                     // (kBlock,) slot weights
+  int* slot = reinterpret_cast<int*>(e_s + kBlock);          // (kBlock,) slot draws
+  int* counts = slot + kBlock;                               // (kWarps,) per warp
+  float* cells = reinterpret_cast<float*>(counts + kWarps);  // (steps, A, ld)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool weighs = ek != 0.0f;
+  const unsigned ballot = __ballot_sync(0xffffffffu, weighs);
+  if (lane == 0) counts[warp] = __popc(ballot);
+  __syncthreads();
+  int n = 0, before = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? counts[w] : 0;
+    n += counts[w];
+  }
+  if (n == 0) {  // block-uniform: no rollout weighs, ΔŨ_b = 0
+    for (int i = threadIdx.x; i < TA; i += kBlock) part[2 + i] = 0.0f;
+    return;
+  }
+  if (weighs) {
+    const int i = before + __popc(ballot & ((1u << lane) - 1u));
+    e_s[i] = ek;
+    slot[i] = INJ ? k : mirror ? ~kd : kd;
+  }
+  __syncthreads();
+
+  // Where ε is shaped: by the thread that draws it when shaping needs no
+  // order (iid, injected ε) or when every rollout weighs, whose thread j then
+  // draws slot j's steps in order; else (OU, some rollouts weigh 0) by the
+  // thread of each slot after the chunk's draws, in t order.
+  const bool own = INJ || np.ou_beta == 0.0f || n == kBlock;
+  const bool shaper = threadIdx.x < n;
+  const float se = shaper ? e_s[threadIdx.x] : 0.0f;
+  const bool smirror = shaper && slot[threadIdx.x] < 0;
+#pragma unroll
+  for (int a = 0; a < A; ++a) e[a] = 0.0f;  // the OU state of the slot this thread shapes
+  const float inv_n = 1.0f / (float)n;
+  // (iii)'s lanes per row, G = 2^lg: 8 when every rollout weighs, fewer for
+  // fewer slots, each lane summing up to 16 of a row's n slots
+  int lg = 0;
+  while ((16 << lg) < n) ++lg;
+  const int G = 1 << lg;
+  // row stride of the slab: the 32 / G rows that one warp sums at once start
+  // on banks G apart
+  const int ld = n > 32 ? ((n + 31) & ~31) + G : n;
+  const int span = kDeltaCells / ld;  // steps per chunk: 8 when every rollout weighs
+  for (int t0 = 0; t0 < T; t0 += span) {
+    const int steps = min(span, T - t0), m = steps * n;
+    // (i) the chunk's cells (step s, slot i), two draws in flight per lane
+    // (injected ε: two copies); a second cell past the chunk repeats the
+    // first and is neither shaped nor stored
+    if (n == kBlock) {
+      // every rollout weighs: thread j draws slot j, its own rollout, at the
+      // chunk's steps in order, and shapes them as it goes
+      for (int s = 0; s < steps; s += 2) {
+        const bool second = s + 1 < steps;
+        float v[2][A];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = t0 + s + (second ? h : 0);
+          if (INJ) {
+            const float* src = eps_in + ((size_t)t * np.K + k) * A;
+#pragma unroll
+            for (int a = 0; a < A; ++a) v[h][a] = src[a];
+          } else {
+            unsigned w[4];
+            draw_normals<A>(np, kd, t, v[h], w);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h == 0 || second) {
+            float eps[A];
+            if (INJ) {
+#pragma unroll
+              for (int a = 0; a < A; ++a) eps[a] = v[h][a];
+            } else {
+              shape_eps<A>(np, sig, mirror, t0 + s + h, v[h], e, eps);
+            }
+#pragma unroll
+            for (int a = 0; a < A; ++a)
+              cells[((s + h) * A + a) * ld + threadIdx.x] = __fmul_rn(ek, eps[a]);
+          }
+        }
+      }
+    } else {
+      // cell q = s·n + i, over all threads
+      for (int q = threadIdx.x; q < m; q += 2 * kBlock) {
+        const bool second = q + kBlock < m;
+        int cs[2], ci[2], d[2];
+        float v[2][A];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int qh = second ? q + h * kBlock : q;
+          cs[h] = (int)(((float)qh + 0.5f) * inv_n);  // exact: qh < 2^11, n <= 128
+          ci[h] = qh - cs[h] * n;
+          d[h] = slot[ci[h]];
+          if (INJ) {
+            const float* src = eps_in + ((size_t)(t0 + cs[h]) * np.K + d[h]) * A;
+#pragma unroll
+            for (int a = 0; a < A; ++a) v[h][a] = src[a];
+          } else {
+            unsigned w[4];
+            draw_normals<A>(np, d[h] < 0 ? ~d[h] : d[h], t0 + cs[h], v[h], w);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h == 0 || second) {
+            float eps[A];
+            if (INJ) {
+#pragma unroll
+              for (int a = 0; a < A; ++a) eps[a] = v[h][a];
+            } else if (own) {
+              shape_eps<A>(np, sig, d[h] < 0, t0 + cs[h], v[h], e, eps);
+            }
+            const float w = e_s[ci[h]];
+#pragma unroll
+            for (int a = 0; a < A; ++a)
+              cells[(cs[h] * A + a) * ld + ci[h]] = own ? __fmul_rn(w, eps[a]) : v[h][a];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (!own) {
+      // (ii) shape slot threadIdx.x's normals in t order and weigh them
+      if (shaper) {
+        for (int s = 0; s < steps; ++s) {
+          float* c = cells + s * A * ld + threadIdx.x;
+          float v[A], eps[A];
+#pragma unroll
+          for (int a = 0; a < A; ++a) v[a] = c[a * ld];
+          shape_eps<A>(np, sig, smirror, t0 + s, v, e, eps);
+#pragma unroll
+          for (int a = 0; a < A; ++a) c[a * ld] = __fmul_rn(se, eps[a]);
+        }
+      }
+      __syncthreads();
+    }
+    // (iii) row (s, a) = Σ over its n slots: lane l of a row's G adds slots
+    // l, l + 2G, … and l + G, l + 3G, … in two sums, then the G lanes' sums
+    // by a shuffle tree
+    const int rows = steps * A;
+    for (int r0 = warp << (5 - lg); r0 < rows; r0 += kWarps << (5 - lg)) {
+      const int row = r0 + (lane >> lg);
+      float sum = 0.0f;
+      if (row < rows) {
+        const float* c = cells + row * ld;
+        float odd = 0.0f;
+        int i = lane & (G - 1);
+        for (; i + G < n; i += 2 * G) {
+          sum += c[i];
+          odd += c[i + G];
+        }
+        if (i < n) sum += c[i];
+        sum += odd;
+      }
+      for (int o = G >> 1; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if ((lane & (G - 1)) == 0 && row < rows) part[2 + t0 * A + row] = sum;
+    }
+    __syncthreads();  // the slab is free for the next chunk
+  }
+}
+
+// Dynamic shared memory of the per-rollout body (ops/fused_solve.rollout_bytes):
+// U; K1 also the slot weights and draws, the per-warp counts and the slab of
+// kDeltaCells floats per action.
+size_t rollout_smem(int T, int A, bool pass2) {
+  return sizeof(float) * ((size_t)T * A + (pass2 ? 2 * kBlock + kWarps + kDeltaCells * A : 0));
 }
 
 // Dynamic shared memory of the slab body: one mbarrier per chunk, U, the
@@ -640,7 +817,7 @@ cudaError_t launch_partials(const SolveArgs& a, const NoiseParams& np, cudaStrea
   }
   if (a.width != kBlock) return cudaErrorInvalidValue;
   const dim3 grid((np.K + kBlock - 1) / kBlock, a.R);
-  const size_t smem = (size_t)(PASS2 ? 1 + kWarps : 1) * a.T * A * sizeof(float);
+  const size_t smem = rollout_smem(a.T, A, PASS2);
   cudaError_t err = set_smem(solve_partials_kernel<F, A, INJ, PASS2>, smem);
   if (err != cudaSuccess) return err;
   solve_partials_kernel<F, A, INJ, PASS2><<<grid, kBlock, smem, stream>>>(

@@ -52,8 +52,10 @@ robot by robot. Any other placement, dtype, shape or layout raises. There
 is no fallback from the device to the plain version.
 
 K1 and K4 have two bodies with the same S bit for bit: the per-rollout body
-(:data:`BLOCK` rollouts per block), which fills the card at large R·K, and
-the slab body (:data:`SLAB_WIDTH` rollouts per block, the noise drawn in
+(:data:`BLOCK` rollouts per block, one thread per rollout; K1's second pass
+draws the noise of the rollouts that weigh again, over (step, rollout), and
+sums e·ε from shared memory), which fills the card at large R·K, and the
+slab body (:data:`SLAB_WIDTH` rollouts per block, the noise drawn in
 parallel over the horizon into shared memory), for the main path's K.
 :func:`block_width` picks one from the shapes alone; the partials have
 ceil(K / width) rows, and the plain :func:`block_partials` takes the same
@@ -86,6 +88,7 @@ from mppi_gpu_tpu_torch.ops.families import FAMILY_ID, FAMILY_NAMES, MAX_A, Fuse
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
 
 BLOCK = 128          # rollouts per block of K1's per-rollout body (kBlock)
+DELTA_CELLS = 8 * (BLOCK + 8)  # floats per action of its second pass's slab (kDeltaCells)
 SLAB_WIDTH = 32      # rollouts per block of K1's slab body (kSlabRollouts)
 DRAW_GROUP = 64      # draws per block of K3 and K5, one partial row of K5 (kGroup)
 _SLAB_CHUNK = 7      # horizon steps per stage of the slab body's pipeline (kChunk)
@@ -94,9 +97,12 @@ _SLAB_CHUNK = 7      # horizon steps per stage of the slab body's pipeline (kChu
 # SM at T=200, cannot hide its rollout warp's latency; the longer the
 # family's step, the sooner. Each is the largest R·K of the sweep {1024,
 # 3000, 10⁴, 2·10⁴, 3·10⁴, 5·10⁴, 10⁵} at T=200 up to which the slab body's
-# device time was at most the per-rollout body's for K1 and at most 5 %
-# above it for K4, the least over a family's instances (NVIDIA H100 80GB
-# HBM3, 700 W; chip_smoke.body_times; the table in PERF.md §6)
+# device time was at most the per-rollout body's for K1 with every rollout
+# weighing (λ = 1e9: the per-rollout body's second pass draws and sums only
+# the rollouts whose weight is not 0, so this is its slowest case; the rule
+# sees the shapes, not the weights) and at most 5 % above it for K4, the
+# least over a family's instances (NVIDIA H100 80GB HBM3, 700 W;
+# chip_smoke.body_times; the table in PERF.md §6)
 SLAB_MAX_ROLLOUTS = {
     "lti": 30_000, "lti-obstacle": 10_000, "pendulum": 20_000, "cartpole": 10_000,
     "unicycle": 20_000, "quadrotor": 10_000, "arm": 10_000, "quadrotor3d": 10_000,
@@ -276,6 +282,15 @@ def _fleet_on_cuda(fam: FusedFamily, xs, Us, goals, K: int, seeds, antithetic: b
                     *_step_tensors(step))
 
 
+def rollout_bytes(T: int, A: int, pass2: bool = True) -> int:
+    """Shared memory of one block of the per-rollout body (``rollout_smem``
+    in csrc/mppi_solve.cuh): U; K1 (`pass2`) also the weights and draws of
+    its :data:`BLOCK` slots, one count per warp and the slab of
+    :data:`DELTA_CELLS` floats per action that its second pass fills chunk
+    by chunk (eight steps of 128 slots, rows padded to 136), whatever T."""
+    return 4 * (T * A + (2 * BLOCK + BLOCK // 32 + DELTA_CELLS * A if pass2 else 0))
+
+
 def slab_bytes(T: int, A: int) -> int:
     """Shared memory of one block of K1's slab body (``slab_smem`` in
     csrc/mppi_solve.cu): an 8-byte mbarrier per chunk of the horizon, U, the
@@ -397,7 +412,7 @@ def _launch_solve_partials(
     if width == SLAB_WIDTH:
         smem = slab_bytes(T, A)
     elif width == BLOCK:
-        smem = 4 * (1 + BLOCK // 32 if pass2 else 1) * T * A
+        smem = rollout_bytes(T, A, pass2)
     else:
         raise ValueError(f"K1 runs blocks of {SLAB_WIDTH} or {BLOCK} rollouts, not {width}")
     if smem > _SMEM_BYTES:

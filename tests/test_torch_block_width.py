@@ -79,7 +79,8 @@ def _force_width(monkeypatch, width):
 @pytest.mark.parametrize("R,K,T,A", [
     (1, 1024, 60, 1), (1, 2048, 60, 4), (1, 3000, 50, 2), (1, 10_000, 200, 3),
     (8, 3000, 50, 2), (1, 100_000, 200, 3), (64, 10_000, 200, 3), (1, 100_000, 1000, 3),
-    (1, 10_000, 1800, 4),
+    (1, 10_000, 1800, 4), (1, 3001, 50, 2), (1, 20_000, 200, 3), (1, 20_001, 200, 3),
+    (8, 1024, 40, 1), (8, 2048, 60, 4),
 ])
 def test_block_width_is_a_pure_function_within_the_slab(R, K, T, A):
     """For every family (and None, the least crossover) the rule returns one
@@ -110,30 +111,39 @@ def test_slab_bytes_is_the_kernels_layout():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_onepass(A, K, T):
+def _jax_onepass(A, K, T, antithetic=False, ou_beta=0.0):
     """pallas_fused_solve_core in interpret mode (testmode noise): its ε
-    (the kernel's host twin), S and ΔU."""
+    (the kernel's host twin, in rollout-rank order), S and ΔU."""
     p = _setup(A, T)
     key = jax.random.key(21)
-    plan = pr.make_plan(K, T, A, testmode=True)
+    plan = pr.make_plan(K, T, A, antithetic=antithetic, ou_beta=ou_beta, testmode=True)
     twin = pr.planar_fake_noise_tensor if plan.planar else pr.fake_noise_tensor
-    eps = np.asarray(twin(plan, jnp.asarray(p["sigma"]), key=key))[:, :K]
+    eps = np.asarray(twin(plan, jnp.asarray(p["sigma"]), ou_beta, key=key))[:, :K]
     cost = JaxQuadratic(**{k: jnp.asarray(p[k]) for k in ("w", "goal", "lambda_", "inv_s")})
     S_j, dU_j = pr.pallas_fused_solve_core(
         JaxLTI.create(0.1, A), cost, jnp.asarray(p["x0"]), jnp.asarray(p["U"]), key,
-        jnp.asarray(p["sigma"]), jnp.float32(0.9), K=K, testmode=True, interpret=True,
+        jnp.asarray(p["sigma"]), jnp.float32(0.9), K=K, antithetic=antithetic, ou_beta=ou_beta,
+        testmode=True, interpret=True,
     )
     return p, eps, np.asarray(S_j)[:K], np.asarray(dU_j)
 
 
 @pytest.mark.parametrize("width", WIDTHS)
-@pytest.mark.parametrize("A,K,T", [(2, 300, 12), (3, 530, 11)], ids=["rowpacked", "planar"])
-def test_block_partials_at_each_width_match_pallas_onepass_kernel(A, K, T, width):
+@pytest.mark.parametrize("A,K,T,antithetic,ou_beta", [
+    (2, 300, 12, False, 0.0), (3, 530, 11, False, 0.0),
+    (3, 300, 7, False, 0.0), (3, 266, 8, True, 0.0), (3, 300, 9, False, 0.5),
+    (3, 300, 17, False, 0.0), (3, 266, 17, True, 0.0), (3, 300, 17, False, 0.5),
+], ids=["rowpacked", "planar", "T7", "T8-antithetic-odd-draws", "T9-ou", "T17", "T17-antithetic",
+        "T17-ou"])
+def test_block_partials_at_each_width_match_pallas_onepass_kernel(A, K, T, antithetic, ou_beta,
+                                                                  width):
     """The plain K1 (eager rollout + block_partials over blocks of `width`)
     folded by the plain K2 gives the JAX package's one-pass kernel's S, β
-    and ΔU within test_pallas's tolerances, at the slab width and at 128;
-    the partials have ceil(K / width) rows."""
-    p, eps, S_j, dU_j = _jax_onepass(A, K, T)
+    and ΔU within test_pallas's tolerances, at the slab width and at 128:
+    short horizons, K past the block (the pad takes no part), antithetic
+    pairs with an odd number of draws (266 rollouts, 133 draws) and OU
+    noise; the partials have ceil(K / width) rows."""
+    p, eps, S_j, dU_j = _jax_onepass(A, K, T, antithetic, ou_beta)
     args = _port_args(p, K, 0.9, eps)
     fam = fs.lti_family(*args[2:5], 0.1, float(p["lambda_"]))
     S, part = fs.family_solve_partials_reference(fam, args[0], args[1], args[5], 0.9, K, 0, 0, 0,

@@ -196,20 +196,21 @@ def test_noise_dump_launch_raises_when_refused(monkeypatch):
 
 
 @pytest.mark.parametrize("anti", [False, True])
-def test_chip_smoke_draw_bounds_count_the_function(anti):
-    """K5's and K3's bounds read K1's per-rollout second pass per draw and
-    step, less its 11·A reduction: K5 adds one multiply-add w·ε per action,
-    K3 its stores (the mirror's too, and four words when written). Checked
-    on made-up per-step counts, with the clock set so that one instruction
-    per lane is one millisecond."""
+def test_chip_smoke_draw_bounds_count_the_function(monkeypatch, anti):
+    """K5's and K3's bounds read the pinned per-step count of K1's former
+    per-rollout second pass (one draw, its shaping and an 11·A reduction),
+    less that reduction: K5 adds one multiply-add w·ε per action, K3 its
+    stores (the mirror's too, and four words when written). Checked on a
+    made-up count, with the clock set so that one instruction per lane is
+    one millisecond."""
     import chip_smoke
 
     A, K, T = 3, 1000, 20
-    steps = {f"solve_partials<lti,A={A},inj=0>": [101.0, 90.0]}
+    monkeypatch.setitem(chip_smoke.DRAW_LOOP_STEP, A, 90.0)
     lanes = chip_smoke.H100_SMS * chip_smoke.H100_LANES
     clock_mhz = 1e-3 / lanes
     draws = K // 2 if anti else K
-    k5, by = chip_smoke.weighted_update_bound(steps, K, T, A, clock_mhz, antithetic=anti)
+    k5, by = chip_smoke.weighted_update_bound(K, T, A, clock_mhz, antithetic=anti)
     assert by == "operations" and k5 == pytest.approx((90 - 11 * A + A) * T * draws)
-    k3, _ = chip_smoke.noise_dump_bound(steps, K, T, A, clock_mhz, antithetic=anti, words=True)
+    k3, _ = chip_smoke.noise_dump_bound(K, T, A, clock_mhz, antithetic=anti, words=True)
     assert k3 == pytest.approx((90 - 11 * A + A * (2 if anti else 1) + 4) * T * draws)
