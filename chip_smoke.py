@@ -42,7 +42,16 @@ an R=8 ``run_fleet_episode`` of every family, a reassigned cost
 re-capturing, checkpoint/resume and the CLI's ``--jit-episode``,
 ``--checkpoint``/``--resume`` and ``--profile`` on the card, with ms per
 control cycle of the three loops, kernels per cycle and idle shares from a
-trace of the graph's replays alone (phase 21); then a fused family
+trace of the graph's replays alone; K6 ``world_advance``
+(``csrc/world_step.cu``, one launch per control cycle of a world) against
+its plain loop for every world body, solo and R=8 and R=64, under one
+shared clock and one per robot, crossing sim_end, with a NaN state and a
+NaN action and its history rows at a non-zero counter, with a tolerance of
+0 (WORLD_STEP_TOL: bit for bit, NaN bits included, since K6 repeats every
+torch op of the plain loop in order, each rounded once alike), three world
+cycles' device records (K6 alone, once each), its launches in the eager episodes
+(one per cycle) and its records in the replay traces (one per cycle)
+(phase 21); then a fused family
 registered from user code, the bicycle of
 ``mppi_gpu_tpu_torch/examples/custom_family.py``: its own library built from
 its struct, K1 and K4 on it against their plain versions in every mode and
@@ -61,7 +70,9 @@ loop's ms per control step both ways, and the sharded device episode, its
 collectives captured, in both branches on a world of one NCCL rank and on
 four virtual ranks (phase 26).
 ``--time-commit ROOT`` instead times K1, K2, K4, K5 and K3 of the
-package in the checkout at ROOT, to compare two commits in one run;
+package in the checkout at ROOT, and ``--episode-commit ROOT`` its device
+episodes (ms per cycle, kernels per cycle, K1 + K2's share of busy), to
+compare two commits in one run;
 ``--sass-diff ROOT [REGEX]`` compares the built-in library's SASS with
 ROOT's, kernel by kernel (the kernels REGEX names may differ);
 ``--bodies``, ``--episode``, ``--family``, ``--plants`` and ``--graphs``
@@ -237,12 +248,16 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
     solve_partials<family,A=..,inj=..>, K4's (K1's template without its
     second pass) rollout_costs<family,A=..,inj=..>, each with ",slab" for
     their slab body (slab_partials_kernel), K3's noise_dump<A=..>, K5's
-    weighted_update<A=..,inj=..>;
-    the family under its name in ops/families (the struct's name, lower
+    weighted_update<A=..,inj=..>, K6's world_advance<World> (PointMass1-3 for
+    the point mass); the family under its name in ops/families (the struct's name, lower
     case, is the family's without its hyphen), or, for a library built from
     a user family, under the name `structs` maps its struct's to."""
     from mppi_gpu_tpu_torch.ops.families import FAMILY_NAMES
 
+    w = re.search(r"world_advance_kernel\S*?(PointMass|Pendulum|CartPole|Unicycle|Quadrotor3D|"
+                  r"Quadrotor|Arm)(ILi(\d)E)?", mangled)
+    if w:  # K6, one instance per world body
+        return f"world_advance<{w.group(1)}{w.group(3) or ''}>"
     k = re.search(r"(solve_partials|slab_partials|softmin_combine|noise_dump|weighted_update)_kernel",
                   mangled)
     name = k.group(1) if k else mangled
@@ -1723,8 +1738,10 @@ EPISODE_HOST_TIMED = 100
 # K1's two bodies and K2, as their records in a trace are named
 TRACE_NAMES = {"solve_partials": ("solve_partials_kernel", "slab_partials_kernel"),
                "softmin_combine": ("softmin_combine_kernel",)}
-# and K5's; K4 is K1's template without its second pass, under K1's names
-KERNEL_TRACE_NAMES = {**TRACE_NAMES, "weighted_update": ("weighted_update_kernel",)}
+# and K5's; K4 is K1's template without its second pass, under K1's names;
+# and K6's, once per control cycle
+KERNEL_TRACE_NAMES = {**TRACE_NAMES, "weighted_update": ("weighted_update_kernel",),
+                      "world_advance": ("world_advance_kernel",)}
 
 
 def _episode_config(name: str):
@@ -1805,22 +1822,29 @@ def solve_records(records) -> dict[str, int]:
 
 
 def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: bool = False,
-                 per_update: dict | None = None) -> dict:
+                 per_update: dict | None = None, world_kernel: bool = True) -> dict:
     """torch.profiler over `cycles` replays of one captured control cycle
-    and nothing else. An episode of `cycles` + 2 cycles captures the cycle
-    (outside the window) and its step counter is set back to 0; the window
-    then holds one replay, a marker kernel (``torch.cuda._sleep``, whose
-    record is ``spin_kernel``), the `cycles` counted replays, a second
-    marker and one more replay. Only the records between the two markers
-    are read, so neither the episode's start and read-back nor the window's
-    edges (where the profiler has dropped a record of a replay) enter. From
+    and nothing else. An episode of `cycles` + 2·SOLVE_TRACE_EDGE cycles
+    captures the cycle (outside the window) and its step counter is set
+    back to 0; the window then holds SOLVE_TRACE_EDGE replays and a
+    synchronisation, a marker kernel (``torch.cuda._sleep``, whose record
+    is ``spin_kernel``), the `cycles` counted replays, a second marker and
+    SOLVE_TRACE_EDGE more replays, as :func:`solve_trace`'s (with one replay
+    on each edge, a cycle of K6's length lost its first marker late in this
+    script in three windows in a row). Only the records between the two
+    markers are read, so neither the episode's start and read-back nor the
+    window's edges (where the profiler has dropped a record of a replay)
+    enter. From
     them, per cycle: the records of each kernel of `per_update` (a key of
     KERNEL_TRACE_NAMES: its records per update; by default one of K1 and
-    one of K2) (checked: that many per update, opt_iters), NCCL's records
+    one of K2) (checked: that many per update, opt_iters) and K6's (checked:
+    one per cycle, the world's whole step; not with `world_kernel` False, for
+    a package before K6), NCCL's records
     and their µs, the kernels (memory copies and sets not counted), the device
     busy ms (Σ of the records' times) and the span ms (the first marker's
-    end to the second one's start); the idle share 1 − busy/span, and K1 +
-    K2's share of busy; and, untraced, the ms per cycle of `cycles` replays
+    end to the second one's start); the idle share 1 − busy/span, K1 +
+    K2's share of busy and the four names with the most device µs; and,
+    untraced, the ms per cycle of `cycles` replays
     by CUDA events, which the span exceeds by what the tracer adds to each
     kernel node. A window without both markers, or whose K1 or K2
     records fall short, is read again, three windows at most: a graph
@@ -1830,20 +1854,24 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
 
     from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode
 
-    (run_fleet_episode if fleet else run_episode_jit)(ctrl, num_steps=cycles + 2)
+    (run_fleet_episode if fleet else run_episode_jit)(ctrl, num_steps=cycles + 2 * SOLVE_TRACE_EDGE)
     cyc = ctrl._episode_cycles["fleet" if fleet else "single"][1]
     per_update = per_update or {"solve_partials": 1, "softmin_combine": 1}
     want = {k: cycles * ctrl.cfg.opt_iters * v for k, v in per_update.items()}
+    want["world_advance"] = cycles if world_kernel else 0
     for window in range(1, 4):
         cyc.step.zero_()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            cyc.graph.replay()
+            for _ in range(SOLVE_TRACE_EDGE):
+                cyc.graph.replay()
+            torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             for _ in range(cycles):
                 cyc.graph.replay()
             torch.cuda._sleep(1000)
-            cyc.graph.replay()
+            for _ in range(SOLVE_TRACE_EDGE):
+                cyc.graph.replay()
             torch.cuda.synchronize()
         dev = device_records(prof)
         marks = sorted((e.time_range for e in dev if "spin_kernel" in e.name), key=lambda r: r.start)
@@ -1870,14 +1898,20 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
                    if any(n in e.name for names in TRACE_NAMES.values() for n in names))
     kernels = [e for e in dev if not re.search(r"[Mm]emcpy|[Mm]emset", e.name)]
     nccl = [e for e in dev if "nccl" in e.name.lower()]
+    by_name: dict[str, float] = {}
+    for e in dev:  # device µs per cycle of each record's name, its first 48 characters
+        key = re.sub(r"^void |\(anonymous namespace\)::|at::native::", "", e.name)[:48]
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / cycles
     return dict(kernels=len(kernels) / cycles, busy_ms=busy_us / 1e3 / cycles,
                 span_ms=(t1 - t0) / 1e3 / cycles, idle=1.0 - busy_us / (t1 - t0),
                 untraced_ms=start.elapsed_time(end) / cycles,
                 k12_share=solve_us / busy_us, k1_per_cycle=counts["solve_partials"] / cycles,
-                k2_per_cycle=counts["softmin_combine"] / cycles, windows=window,
+                k2_per_cycle=counts["softmin_combine"] / cycles,
+                k6_per_cycle=counts["world_advance"] / cycles, windows=window,
                 records={k: c / cycles for k, c in counts.items()}, nccl_per_cycle=len(nccl) / cycles,
                 nccl_us=sum(e.time_range.elapsed_us() for e in nccl) / cycles,
-                nccl_names=sorted({e.name for e in nccl}))
+                nccl_names=sorted({e.name for e in nccl}),
+                top=sorted(((round(v, 2), k) for k, v in by_name.items()), reverse=True)[:4])
 
 
 def solve_trace(label: str, ctrl, x, U, seed, per_update: dict | None = None,
@@ -1997,10 +2031,11 @@ def _pairs(readings) -> list[tuple[float, float]]:
 
 
 def _trace_line(t: dict) -> str:
-    return (f"{t['kernels']:.1f} kernels, K1 {t['k1_per_cycle']:g} and K2 {t['k2_per_cycle']:g} "
-            f"records per cycle; device busy {t['busy_ms']:.4f} of a {t['span_ms']:.4f} ms span per "
+    return (f"{t['kernels']:.1f} kernels, K1 {t['k1_per_cycle']:g}, K2 {t['k2_per_cycle']:g} and "
+            f"K6 {t['k6_per_cycle']:g} records per cycle; device busy {t['busy_ms']:.4f} of a {t['span_ms']:.4f} ms span per "
             f"cycle, idle share {t['idle']:.4f}; K1 + K2 {t['k12_share']:.4f} of busy; the same "
-            f"replays untraced (CUDA events) {t['untraced_ms']:.4f} ms per cycle")
+            f"replays untraced (CUDA events) {t['untraced_ms']:.4f} ms per cycle; the largest device "
+            f"µs per cycle {t['top']}")
 
 
 def episode_config_phase(name: str, smi: str) -> dict:
@@ -2018,6 +2053,7 @@ def episode_config_phase(name: str, smi: str) -> dict:
     from mppi_gpu_tpu_torch.controller import MPPIController
     from mppi_gpu_tpu_torch.envs import params_for_config
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import world_step as ws
     from mppi_gpu_tpu_torch.runner import run_closed_loop, run_episode_jit
 
     cfg = _episode_config(name)
@@ -2027,10 +2063,14 @@ def episode_config_phase(name: str, smi: str) -> dict:
 
     first, first_s = _timed(lambda: run_episode_jit(ctrl))
     before = fs.launch_counts()
+    ws.reset_launch_counts()
     graph, graph_s = _timed(lambda: run_episode_jit(ctrl))
-    mid = fs.launch_counts()
+    mid, k6_graph = fs.launch_counts(), sum(ws.launch_counts().values())
+    ws.reset_launch_counts()
     eager, eager_s = _timed(lambda: run_episode_jit(ctrl, capture=False))
-    after = fs.launch_counts()
+    after, k6 = fs.launch_counts(), {k: v for k, v in ws.launch_counts().items() if v}
+    expect(k6_graph == 0, f"{name}: {k6_graph} K6 launches from the host in a warm graph episode")
+    expect(sum(k6.values()) == n, f"{name}: K6 launched {k6} in the eager episode of {n} cycles")
     for kernel in ("solve_partials", "softmin_combine"):
         expect(mid[kernel] == before[kernel],
                f"{name}: {mid[kernel] - before[kernel]} {kernel} launches from the host in a warm "
@@ -2060,7 +2100,7 @@ def episode_config_phase(name: str, smi: str) -> dict:
     if bar is not None:
         expect(steady < bar, f"{name}: graph episode steady-state {steady} (bar {bar})")
     trace = replay_trace(ctrl, name)
-    row = dict(K=cfg.samples, T=cfg.horizon, opt_iters=cfg.opt_iters, cycles=n,
+    row = dict(K=cfg.samples, T=cfg.horizon, opt_iters=cfg.opt_iters, cycles=n, k6=k6,
                graph_ms=graph_s * 1e3 / n, eager_ms=eager_s * 1e3 / n,
                host_ms=host_s * 1e3 / len(host.us), first_s=first_s, steady=steady, bar=bar,
                host_dx=dx, host_du=du, host_readings=readings, trace=trace)
@@ -2068,7 +2108,8 @@ def episode_config_phase(name: str, smi: str) -> dict:
           f"graph {row['graph_ms']:.4f} ms/cycle (first call {first_s:.3f} s with the capture), "
           f"eager on the card {row['eager_ms']:.4f}, host loop {row['host_ms']:.4f} "
           f"({EPISODE_HOST_TIMED} cycles); graph == eager over the whole episode; no host launch "
-          f"in a warm graph episode, {n * cfg.opt_iters} each of K1 and K2 in the eager one; host "
+          f"in a warm graph episode, {n * cfg.opt_iters} each of K1 and K2 and {n} of K6 {k6} in "
+          f"the eager one; host "
           f"loop within (states, actions) {tol} over {EPISODE_HOST_CYCLES} cycles at "
           f"{EPISODE_HOST_SEEDS} seeds (max abs per seed {_pairs(readings)}); "
           f"steady {steady:.4f} (bar {bar}); trace of {EPISODE_PROFILE_CYCLES} graph replays: "
@@ -2092,6 +2133,7 @@ def fleet_episode_phase(name: str, smi: str, R: int = 8) -> dict:
     from mppi_gpu_tpu_torch.controller import MPPIController
     from mppi_gpu_tpu_torch.envs import params_for_config
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import world_step as ws
     from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode
 
     cfg = _episode_config(name)
@@ -2099,10 +2141,16 @@ def fleet_episode_phase(name: str, smi: str, R: int = 8) -> dict:
     fleet = BatchedMPPIController(cfg, R, device="cuda")
     _, first_s = _timed(lambda: run_fleet_episode(fleet))
     before = fs.launch_counts()
+    ws.reset_launch_counts()
     ep, graph_s = _timed(lambda: run_fleet_episode(fleet))
-    mid = fs.launch_counts()
+    mid, k6_graph = fs.launch_counts(), sum(ws.launch_counts().values())
+    ws.reset_launch_counts()
     eager, eager_s = _timed(lambda: run_fleet_episode(fleet, capture=False))
-    after = fs.launch_counts()
+    after, k6 = fs.launch_counts(), {k: v for k, v in ws.launch_counts().items() if v}
+    expect(k6_graph == 0, f"fleet {name}: {k6_graph} K6 launches from the host in a warm graph "
+           "episode")
+    expect(sum(k6.values()) == n, f"fleet {name}: K6 launched {k6} in the eager episode of {n} "
+           "cycles (one launch per cycle for the R robots)")
     for kernel in ("solve_partials", "softmin_combine"):  # one launch of each per update, whatever R
         expect(mid[kernel] == before[kernel],
                f"fleet {name}: {mid[kernel] - before[kernel]} {kernel} launches from the host in a "
@@ -2160,17 +2208,354 @@ def fleet_episode_phase(name: str, smi: str, R: int = 8) -> dict:
     expect(p_below >= 0.01, f"fleet {name}: {under} of {FLEET_QUALITY_ROBOTS} robots under the "
            f"bar {bar}, the reference {ref} of 64 seeds (one-sided Fisher p {p_below:.3g})")
     del many, big
-    row = dict(R=R, K=cfg.samples, T=cfg.horizon, cycles=n, graph_ms=graph_s * 1e3 / n,
+    row = dict(R=R, K=cfg.samples, T=cfg.horizon, cycles=n, k6=k6, graph_ms=graph_s * 1e3 / n,
                eager_ms=eager_s * 1e3 / n, first_s=first_s, steady=[s for s, _ in steady], bar=bar,
                under=under, ref_under=ref, p_below=p_below, trace=trace)
     print(f"[21] fleet episode {name} R={R} K={cfg.samples} T={cfg.horizon} x{cfg.opt_iters}, {n} "
           f"cycles: graph {row['graph_ms']:.4f} ms/fleet cycle (first call {first_s:.3f} s), eager "
           f"on the card {row['eager_ms']:.4f}; graph == eager; no host launch in a warm graph "
-          f"episode; robots' steady {[round(s, 4) for s in row['steady']]} (bar {bar}); {solo}; "
+          f"episode, K6 {k6} in the eager one; robots' steady {[round(s, 4) for s in row['steady']]} (bar {bar}); {solo}; "
           f"trace of {EPISODE_PROFILE_CYCLES} graph replays: {_trace_line(trace)}; an "
           f"R={FLEET_QUALITY_ROBOTS} fleet: {under} of {FLEET_QUALITY_ROBOTS} robots under the bar, "
           f"the reference {ref} of 64 seeds (one-sided Fisher p {p_below:.3g}) ({smi})")
     return row
+
+
+# ---------------------------------------------------------------------------
+# K6 world_advance (phase 21): one control cycle of a ground-truth world per
+# launch, against its plain version (ops/world_step.plain_advance)
+
+WORLD_SOURCE = "mppi_gpu_tpu_torch/csrc/world_step.cu"
+WORLD_REPLACES = ("no Pallas kernel: XLA's fusion of the JAX world's simulate under lax.scan, "
+                  "mppi_gpu_tpu/runner.py:375-383")
+# a config of each world body, and point_mass2d's config on the reference XML
+# (envs/xml.py), which packs its own parameters into the point-mass body
+WORLD_CASES = ("point_mass1d", "point_mass2d", "point_mass3d", "point_mass_xml", "pendulum",
+               "cartpole", "unicycle", "quadrotor", "arm", "quadrotor3d")
+# how far K6 may part from the plain loop on the card, by world: not at all.
+# Each torch op rounds once and K6 repeats them in order, rounded alike
+# (csrc/world_step.cu); a NaN state stays NaN with the same bits
+WORLD_STEP_TOL = dict.fromkeys(WORLD_CASES, 0.0)
+# robots (None: one robot, no robot axis) and clocks of each layout, named as
+# in :func:`world_clocks`
+WORLD_LAYOUTS = (("solo", None, "dt"), ("solo at sim_end", None, "end"),
+                 ("solo crossing sim_end", None, "last"), ("solo past sim_end", None, "past"),
+                 ("R=8 shared clock", 8, "dt"), ("R=8 shared clock crossing sim_end", 8, "last"),
+                 ("R=8 per-robot clocks", 8, "mixed"), ("R=64 shared clock", 64, "dt"),
+                 ("R=64 per-robot clocks", 64, "mixed"))
+WORLD_CYCLES = 3      # cycles per layout, chained
+WORLD_HIST_ROW = 5    # the history row of the first cycle (a non-zero counter)
+
+
+def world_config(name: str):
+    cfg = _config("point_mass2d" if name == "point_mass_xml" else name)
+    return cfg.replace(env=os.path.join("envs_xml", "point_mass2d.xml")) if name == "point_mass_xml" \
+        else cfg
+
+
+def world_clocks(kind: str, n: int, p):
+    """The clocks of a layout: dt (the world's start), end (at sim_end:
+    held), last (one cycle before crossing sim_end: stepped once, then
+    held), past (held), mixed (per robot, all of those)."""
+    dt, end = np.float32(p.timestep), np.float32(p.sim_end)
+    last = np.float32(p.sim_end - p.steps_per_control * p.timestep)
+    one = {"dt": dt, "end": end, "last": last, "past": np.float32(p.sim_end + 0.5)}
+    if kind != "mixed":
+        return one[kind]
+    return np.float32([dt, 1.0, last, end, one["past"], 4.0, dt, last] * (n // 8))
+
+
+def world_inputs(name: str, cfg, n: int, seed: int = 3):
+    """(n, s) states near the task's and (WORLD_CYCLES, n, a) actions up to
+    1.5× the config's bounds (past every clamp), from a numpy seed; robot 0
+    of a point mass or the cart-pole at its stop driving into it; with 64
+    robots, robot 63's state NaN and robot 62's action NaN."""
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-0.6, 0.6, (n, cfg.state_dim)).astype(np.float32)
+    if name == "quadrotor3d":
+        xs[:, 3:7] = np.array([1.0, 0.0, 0.0, 0.0]) + rng.uniform(-0.2, 0.2, (n, 4))
+        xs[:, 3:7] /= np.linalg.norm(xs[:, 3:7], axis=1, keepdims=True)
+    bound = np.asarray(cfg.max_a, np.float32)
+    us = rng.uniform(-1.5, 1.5, (WORLD_CYCLES, n, cfg.action_dim)).astype(np.float32) * bound
+    if name.startswith("point_mass") or name == "cartpole":
+        xs[0, 0], us[:, 0, 0] = (2.38 if name == "cartpole" else 1.39), 1.5 * bound[0]
+    if n == 64:
+        xs[63], us[:, 62] = np.nan, np.nan
+    return xs, us
+
+
+def bits_equal(a, b) -> bool:
+    """Equal bit for bit (NaN payloads included)."""
+    import torch
+
+    a, b = a.contiguous(), b.contiguous()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a − b| over entries finite in both; inf where one is NaN and the
+    other not."""
+    import torch
+
+    a, b = a.double(), b.double()
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return float("inf")
+    ok = ~torch.isnan(a)
+    return float((a[ok] - b[ok]).abs().max()) if ok.any() else 0.0
+
+
+def check_world_step(name: str, device: str = "cuda") -> dict:
+    """K6 against the plain loop on the card for one world, in every
+    WORLD_LAYOUT over WORLD_CYCLES chained cycles from the same states and
+    actions (a fleet's strided, a column of its sequences):
+    ``world_step.advance`` (new buffers) and ``advance_into`` (the state's
+    own buffers, the histories at rows WORLD_HIST_ROW … through a device
+    counter) against ``plain_advance``; every leaf, xs[row + 1],
+    us[row], ts[row] and the untouched history rows. Returns the largest
+    |Δ| (0.0: bit-equal everywhere) and the number of launches made."""
+    import torch
+
+    from mppi_gpu_tpu_torch.envs import make_world
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
+    cfg = world_config(name)
+    world = make_world(cfg, device=device)
+    p = world.params
+    worst, bit_equal, launches = 0.0, True, 0
+    for label, n, clocks in WORLD_LAYOUTS:
+        xs, us = world_inputs(name, cfg, n or 8)
+        t = world_clocks(clocks, n or 8, p)
+        if n is None:
+            xs, us = xs[0], us[:, 0]
+        start = world.from_x(torch.from_numpy(xs).to(device), torch.from_numpy(np.asarray(t)).to(device))
+        plain = k6 = type(start)(*(leaf.contiguous() for leaf in start))
+        into = type(start)(*(leaf.clone(memory_format=torch.contiguous_format) for leaf in start))
+        rows = WORLD_HIST_ROW + WORLD_CYCLES + 2
+        lead = () if n is None else (n,)
+        f32 = dict(dtype=torch.float32, device=device)
+        hx = torch.full((rows + 1, *lead, cfg.state_dim), -7.0, **f32)
+        hu = torch.full((rows, *lead, cfg.action_dim), -7.0, **f32)
+        ht = torch.full((rows, *start.time.shape), -7.0, **f32)
+        step = torch.tensor(WORLD_HIST_ROW, dtype=torch.int64, device=device)
+        before = sum(ws.launch_counts().values())
+        # the actions as a controller gives them: a fleet's, a column of its
+        # sequences (robots strided), a solo robot's one row of its own
+        seqs = torch.from_numpy(np.ascontiguousarray(np.moveaxis(us, 0, -2))).to(device)
+        for c in range(WORLD_CYCLES):
+            u = seqs[..., c, :]
+            plain = ws.plain_advance(world, plain, u)
+            k6 = ws.advance(world, k6, u)
+            ws.advance_into(world, into, u, hx, hu, ht, step)
+            row = WORLD_HIST_ROW + c
+            pairs = [(f"{label} cycle {c} leaf {i}", a, b) for i, (a, b) in enumerate(zip(k6, plain))]
+            pairs += [(f"{label} cycle {c} in place leaf {i}", a, b)
+                      for i, (a, b) in enumerate(zip(into, plain))]
+            pairs += [(f"{label} cycle {c} xs[{row + 1}]", hx[row + 1], plain.x),
+                      (f"{label} cycle {c} us[{row}]", hu[row], u),
+                      (f"{label} cycle {c} ts[{row}]", ht[row], plain.time)]
+            for what, a, b in pairs:
+                if not bits_equal(a, b):
+                    bit_equal = False
+                    d = max_abs_diff(a, b)
+                    worst = max(worst, d)
+                    expect(d <= WORLD_STEP_TOL[name],
+                           f"K6 {name} {what}: max |K6 - plain| {d:.3g} (tolerance {WORLD_STEP_TOL[name]})")
+            step.add_(1)
+        launches += sum(ws.launch_counts().values()) - before
+        untouched = [hx[:WORLD_HIST_ROW + 1], hx[WORLD_HIST_ROW + WORLD_CYCLES + 1:],
+                     hu[:WORLD_HIST_ROW], hu[WORLD_HIST_ROW + WORLD_CYCLES:],
+                     ht[:WORLD_HIST_ROW], ht[WORLD_HIST_ROW + WORLD_CYCLES:]]
+        expect(all(bool((h == -7.0).all()) for h in untouched),
+               f"K6 {name} {label}: a history row outside the cycles' was written")
+    want = 2 * WORLD_CYCLES * len(WORLD_LAYOUTS) if device == "cuda" else 0  # the CPU: plain
+    expect(launches == want, f"K6 {name}: {launches} launches counted, want {want}")
+    return dict(max_abs_err=worst, bit_equal=bit_equal, launches=launches)
+
+
+WORLD_OPS = ("add", "sub", "mul", "div", "neg", "sin", "cos", "rsqrt", "clamp", "abs", "gt", "ge",
+             "where", "maximum", "minimum", "reciprocal", "pow", "sum")
+
+
+def plain_world_ops(world, state, u) -> int:
+    """The float operations of one plain cycle on these inputs: the output
+    elements of every arithmetic, comparison and select op that
+    ``plain_advance`` dispatches (a sin, a clamp or a where counted as one)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
+    count = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__.rstrip("_") in WORLD_OPS:
+                count[0] += out.numel()
+            return out
+
+    with Count():
+        ws.plain_advance(world, state, u)
+    return count[0]
+
+
+def world_step_bound(world, state, u, hist: bool) -> tuple[float, str, int]:
+    """The least time the card could take for one K6 cycle on these inputs:
+    the larger of its operations (:func:`plain_world_ops`) over the float32
+    peak (67 TFLOP/s) and its bytes (the state, the clock, u and the pack
+    read once; the new state and clock written once, and with `hist` the
+    history rows) over 3.35 TB/s. Returns (ms, what bounds it, operations)."""
+    ops = plain_world_ops(world, state, u)
+    floats = 2 * sum(leaf.numel() for leaf in state) + u.numel() + world._packs[u.device].numel()
+    if hist:
+        floats += state.x.numel() + u.numel() + state.time.numel()
+    t_ops, t_bytes = ops / H100_FP32_PER_S, 4 * floats / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops
+
+
+def world_step_times(name: str, R: int | None) -> dict:
+    """K6's times at one world's episode shape (R None: one robot, the solo
+    episode's): ``advance_into`` as the episode's cycle calls it, CUDA events
+    around a call (warm median of 50) and the device time alone; the plain
+    cycle it replaced (``advance`` and the history copies as the cycle ran
+    them before K6) by events; and the bound."""
+    import torch
+
+    from mppi_gpu_tpu_torch.envs import make_world
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
+    cfg = world_config(name)
+    world = make_world(cfg, device="cuda")
+    state = world.reset(R)
+    state = type(state)(*(leaf.clone(memory_format=torch.contiguous_format) for leaf in state))
+    lead = () if R is None else (R,)
+    u = torch.full((*lead, cfg.action_dim), 0.1, device="cuda")
+    n = 64
+    hx = torch.zeros((n + 1, *lead, cfg.state_dim), device="cuda")
+    hu, ht = torch.zeros((n, *lead, cfg.action_dim), device="cuda"), torch.zeros(n, device="cuda")
+    step = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def kernel():
+        ws.advance_into(world, state, u, hx, hu, ht, step)
+
+    def plain():
+        new = ws.plain_advance(world, state, u)
+        for buf, v in zip(state, new):
+            buf.copy_(v)
+        row = step.view(1)
+        hx.index_copy_(0, row + 1, new.x.unsqueeze(0))
+        hu.index_copy_(0, row, u.unsqueeze(0))
+        ht.index_copy_(0, row, new.time.reshape(1))
+
+    ms, plain_ms = paired_median_ms(kernel, plain, 50, 10)
+    bound, bound_by, ops = world_step_bound(world, state, u, hist=True)
+    return dict(ms=ms, plain_ms=plain_ms, device_ms=device_ms(kernel, name="world_advance_kernel"),
+                bound_ms=bound, bound_by=bound_by, ops=ops)
+
+
+def world_cycle_records(name: str, calls: int = 3) -> list[str]:
+    """The device records of `calls` world cycles on the card
+    (``advance_into``, as an episode's cycle runs it) under torch.profiler:
+    the names of every kernel and copy the world's part of a cycle launches.
+    As in :func:`replay_trace`, the window holds a few cycles, a marker
+    kernel, the `calls` counted cycles, a second marker and a few more, and
+    only the records between the markers are read (late in this script a
+    window's first records go missing); a window without both markers is
+    read again, three at most."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from mppi_gpu_tpu_torch.envs import make_world
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
+    cfg = world_config(name)
+    world = make_world(cfg, device="cuda")
+    state = world.reset()
+    u = torch.zeros(cfg.action_dim, device="cuda")
+    hx, hu = torch.zeros(3, cfg.state_dim, device="cuda"), torch.zeros(2, cfg.action_dim, device="cuda")
+    ht, step = torch.zeros(2, device="cuda"), torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def cycles(n: int) -> None:
+        for _ in range(n):
+            ws.advance_into(world, state, u, hx, hu, ht, step)
+
+    cycles(1)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cycles(SOLVE_TRACE_EDGE)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            cycles(calls)
+            torch.cuda._sleep(1000)
+            cycles(SOLVE_TRACE_EDGE)
+            torch.cuda.synchronize()
+        dev = device_records(prof)
+        marks = sorted((e.time_range for e in dev if "spin_kernel" in e.name), key=lambda r: r.start)
+        if len(marks) == 2:
+            t0, t1 = marks[0].end, marks[1].start
+            return [e.name for e in dev if e.time_range.start >= t0 and e.time_range.end <= t1]
+    raise SmokeFailure(f"K6 {name}: no profiler window of 3 held both markers")
+
+
+def world_entries(episode: dict) -> list[dict]:
+    """The kernels line's K6 entries, one per world body, from phase 21: its
+    launches in the eager episodes (which must be at least one), its largest
+    difference from the plain loop, and its times at the solo and R=8
+    episode shapes."""
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
+    out = []
+    for kind, (_, _, _, line) in ws.WORLDS.items():
+        cases = [c for c in WORLD_CASES if ws.pack_fields(_world_of(c))[0] == kind]
+        r = episode["world"][cases[0]]
+        launches = episode["k6_launches"][kind]
+        expect(launches > 0, f"K6 {kind}: no launch in phase 21's eager episodes")
+        solo, fleet = r["solo"], r["fleet"]
+        out.append({
+            "name": f"world_advance<{kind}>", "route": "cuda", "source": WORLD_SOURCE,
+            "replaces": WORLD_REPLACES, "launches": launches,
+            "max_abs_err": max(episode["world"][c]["max_abs_err"] for c in cases),
+            "ms": solo["ms"], "plain_ms": solo["plain_ms"], "bound_ms": solo["bound_ms"],
+            "bound_by": solo["bound_by"], "library_ms": None, "device_ms": solo["device_ms"],
+            "shape": f"{cases[0]} world, R=1 (a solo episode's cycle)", "worlds": cases,
+            "bit_equal": all(episode["world"][c]["bit_equal"] for c in cases),
+            "fleet_ms": fleet["ms"], "fleet_plain_ms": fleet["plain_ms"],
+            "fleet_device_ms": fleet["device_ms"], "fleet_bound_ms": fleet["bound_ms"],
+            "fleet_shape": "R=8, one shared clock"})
+    return out
+
+
+def _world_of(name: str):
+    from mppi_gpu_tpu_torch.envs import make_world
+
+    return make_world(world_config(name))
+
+
+def world_step_phase(smi: str) -> dict:
+    """K6 on the card: every world against its plain loop
+    (:func:`check_world_step`; the tolerance WORLD_STEP_TOL), the device
+    records of three world cycles (K6 alone, once each), and K6's times at the solo and
+    R=8 episode shapes beside the plain cycle's and the bound. Returns
+    {world: readings}."""
+    out = {}
+    for name in WORLD_CASES:
+        got = check_world_step(name)
+        records = world_cycle_records(name)
+        expect(len(records) == 3 and all("world_advance_kernel" in r for r in records),
+               f"K6 {name}: three world cycles on the card launched {records}, want K6 alone, "
+               "once each")
+        solo, fleet = world_step_times(name, None), world_step_times(name, 8)
+        out[name] = dict(got, solo=solo, fleet=fleet)
+        agree = "bit-equal" if got["bit_equal"] else f"max |delta| {got['max_abs_err']:.3g}"
+        print(f"[21] K6 world_advance {name}: {agree} to the plain loop over {len(WORLD_LAYOUTS)} "
+              f"layouts x {WORLD_CYCLES} cycles (solo, R=8, R=64, shared and per-robot clocks, "
+              f"crossing sim_end, NaN state and action; histories at rows {WORLD_HIST_ROW}-"
+              f"{WORLD_HIST_ROW + WORLD_CYCLES - 1}, the rest untouched); three cycles' device "
+              f"records: {len(records)} of {sorted(set(records))}; solo {solo['ms']:.4f} ms by events, device {solo['device_ms']}, the plain "
+              f"cycle {solo['plain_ms']:.4f}, bound {solo['bound_ms']:.3g} ({solo['bound_by']}, "
+              f"{solo['ops']} operations); R=8 {fleet['ms']:.4f}, device {fleet['device_ms']}, plain "
+              f"{fleet['plain_ms']:.4f}, bound {fleet['bound_ms']:.3g} ({smi})")
+    return out
 
 
 def episode_phase(smi: str) -> dict:
@@ -2186,6 +2571,7 @@ def episode_phase(smi: str) -> dict:
     from mppi_gpu_tpu_torch.envs import params_for_config
     from mppi_gpu_tpu_torch.io.csvio import read_csv_columns
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import world_step as ws
     from mppi_gpu_tpu_torch.ops.cost import goal_of, with_goal
     from mppi_gpu_tpu_torch.runner import run_closed_loop, run_episode_jit, run_fleet_episode
 
@@ -2205,6 +2591,7 @@ def episode_phase(smi: str) -> dict:
     print("[21] K1 and K4 S (and K1's partials) bit-equal with the step by pointer and by value, "
           "both bodies, solo and R=8 fleets, iid and antithetic + OU 0.5: lti A=1-4 at K=3000 "
           "T=50, A=3 at K=10000 T=200, every other family instance at its config")
+    world = world_step_phase(smi)
 
     rows = {name: episode_config_phase(name, smi) for name in EPISODE_CONFIGS}
     fleets = {name: fleet_episode_phase(name, smi) for name in FLEET_EPISODE_CONFIGS}
@@ -2267,8 +2654,15 @@ def episode_phase(smi: str) -> dict:
     print("[21] checkpoint resume on the card (quadrotor3d, step 25 of 40) bit-equal to the "
           "uninterrupted run; the CLI on cuda: --jit-episode wrote the whole pendulum episode, "
           "--checkpoint/--resume continued bit for bit (step 100 of 120), --profile wrote a trace")
+    # K6's launches on the main path: the eager episodes of every config and
+    # fleet, each counted from 0 just before it and read just after
+    k6_launches = dict.fromkeys(ws.WORLDS, 0)
+    for row in (*rows.values(), *fleets.values()):
+        for k, v in row["k6"].items():
+            k6_launches[k] += v
+    print(f"[21] K6's launches in the eager episodes, by world body: {k6_launches}")
     print(f"[21] phase 21 took {time.perf_counter() - t_phase:.1f} s")
-    return dict(configs=rows, fleets=fleets)
+    return dict(configs=rows, fleets=fleets, world=world, k6_launches=k6_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -4718,7 +5112,7 @@ def main() -> int:
     # run_fleet_episode as a replayed CUDA graph of one control cycle for
     # every config and an R=8 fleet of every family; a reassigned cost;
     # checkpoint/resume and the CLI's new flags on the card
-    episode_phase(smi)
+    episode = episode_phase(smi)
     _stamp(t_start, 21)
 
     # [22] a family registered from user code: the bicycle's own library,
@@ -4854,6 +5248,7 @@ def main() -> int:
                              coupled_path_launches=coupled_launches[name],
                              quadrotor3d_path_launches=q3d_launches[name])
         entries.append(entry)
+    entries += world_entries(episode)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -4968,6 +5363,65 @@ def time_commit(root: str) -> int:
     return 0
 
 
+def episode_commit(root: str) -> int:
+    """``python3 chip_smoke.py --episode-commit ROOT``: the device episode
+    of the package in the checkout at ROOT (its kernels built there), to
+    compare two commits in one run: for every config of EPISODE_CONFIGS and
+    the R=8 fleet of every FLEET_EPISODE_CONFIGS, the graph's ms per cycle
+    (host clock around a warm episode) and the eager cycle's, and from a
+    trace of its replays (:func:`replay_trace`) kernels, busy ms and K1 + K2's
+    share of busy per cycle and the untraced ms per cycle; the sharded
+    episode's graph ms per cycle at SHARDED_EPISODE_CONFIGS, both branches, on
+    a world of one NCCL rank and on four virtual ranks; one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import importlib.util
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.parallel import ShardedMPPIController, global_mesh
+    from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
+    from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode
+
+    k6 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.world_step") is not None
+
+    def row(ctrl, run, label: str, fleet: bool = False, per_update=None) -> dict:
+        run(ctrl)  # captures
+        graph = _timed(lambda: run(ctrl))
+        eager = _timed(lambda: run(ctrl, capture=False))
+        n = len(graph[0].us)
+        t = replay_trace(ctrl, label, fleet=fleet, per_update=per_update, world_kernel=k6)
+        return dict(graph_ms=graph[1] * 1e3 / n, eager_ms=eager[1] * 1e3 / n, kernels=t["kernels"],
+                    busy_ms=t["busy_ms"], k12_share=t["k12_share"], idle=t["idle"],
+                    untraced_ms=t["untraced_ms"], k6_per_cycle=t["k6_per_cycle"])
+
+    configs = {name: row(MPPIController(_episode_config(name), device="cuda"), run_episode_jit, name)
+               for name in EPISODE_CONFIGS}
+    fleets = {name: row(BatchedMPPIController(_episode_config(name), 8, device="cuda"),
+                        run_fleet_episode, f"fleet {name}", fleet=True)
+              for name in FLEET_EPISODE_CONFIGS}
+    sharded = {}
+    with nccl_world_of_one():
+        meshes = {"world of one (NCCL)": global_mesh("cuda:0"),
+                  "4 virtual ranks": virtual_mesh(4, "cuda:0")}
+        for name in SHARDED_EPISODE_CONFIGS:
+            for mname, mesh in meshes.items():
+                for onepass in (True, False):
+                    label = f"{name} {mname} {'one-pass' if onepass else 'two-kernel'}"
+                    ctrl = ShardedMPPIController(_episode_config(name), mesh=mesh, onepass=onepass)
+                    sharded[label] = row(ctrl, run_episode_jit, label, per_update={
+                        "solve_partials": mesh.size, "softmin_combine": mesh.size,
+                        "weighted_update": 0 if onepass else mesh.size})
+    print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "smi": _smi(),
+                      "world_kernel": k6, "configs": configs, "fleets": fleets,
+                      "sharded": sharded}))
+    return 0
+
+
 def sass_diff(root: str, changed: str | None = None) -> int:
     """``python3 chip_smoke.py --sass-diff ROOT [REGEX]``: the built-in
     library of this checkout and the one of the checkout at ROOT, each built
@@ -4975,8 +5429,9 @@ def sass_diff(root: str, changed: str | None = None) -> int:
     names, SASS instruction streams without their addresses): prints how
     many are identical and exits 1 if any kernel differs or is missing on
     one side, except a kernel whose name REGEX matches, which a change to
-    that kernel alone is expected to alter (``'^solve_partials<(?!.*slab)'``:
-    K1's per-rollout body, every other kernel identical). A change that
+    that kernel alone is expected to alter or add (``'^solve_partials<(?!.*slab)'``:
+    K1's per-rollout body, every other kernel identical; ``'^world_advance'``:
+    K6's instances, new beside K1-K5). A change that
     moves kernel code without changing it leaves every stream identical,
     and so every result bit for bit."""
     import importlib.util
@@ -4998,7 +5453,7 @@ def sass_diff(root: str, changed: str | None = None) -> int:
     both = mine.keys() & theirs.keys()
     differ = sorted(k for k in mine.keys() | theirs.keys() if mine.get(k) != theirs.get(k))
     same = len(both) - sum(k in both for k in differ)
-    expected = [k for k in differ if changed and k in both and re.search(changed, k)]
+    expected = [k for k in differ if changed and re.search(changed, k)]
     others = [k for k in differ if k not in expected]
     print(f"sass-diff {root}: {len(mine)} kernels here, {len(theirs)} there, {same} identical "
           f"instruction streams; differ as expected ({changed!r}): {expected}; differ otherwise "
@@ -5011,6 +5466,8 @@ if __name__ == "__main__":
         sys.exit(time_commit(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] == ["--episode"]:
         sys.exit(episode_only())
+    if sys.argv[1:2] == ["--episode-commit"]:
+        sys.exit(episode_commit(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] == ["--family"]:
         sys.exit(family_only())
     if sys.argv[1:2] == ["--plants"]:

@@ -4,7 +4,9 @@ worlds, picked from a config by :func:`make_world` (the counterpart of
 ``mppi_gpu_tpu.envs.make_jax_world``; the obstacle cost's point mass runs in
 the point-mass world). Each world steps one robot or a fleet of R robots
 (``reset(n_robots)``, ``from_x`` of an (R, s) state) on the host
-(``simulate``) or on the device (``advance``, ``envs/base.py``).
+(``simulate``) or on the device (``advance``, ``envs/base.py``); on a CUDA
+device either runs a control cycle as one launch of the world-step kernel
+(``ops/world_step.py``).
 
 The host loop's plants, picked by :func:`make_host_world` (the counterpart
 of ``mppi_gpu_tpu.runner._make_world``), have the reference-env API

@@ -18,6 +18,7 @@ import torch
 
 from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
 from mppi_gpu_tpu_torch.models.arm import TwoLinkArmDynamics
+from mppi_gpu_tpu_torch.ops.world_step import kernel_world
 
 
 @dataclass(frozen=True)
@@ -51,6 +52,7 @@ class ArmState(NamedTuple):
         return self.q
 
 
+@kernel_world
 @dataclass(frozen=True)
 class ArmWorld(World):
     params: ArmParams
@@ -58,11 +60,24 @@ class ArmWorld(World):
 
     def __post_init__(self) -> None:
         # the model's dt is unused here: the world integrates with its own RK4
+        object.__setattr__(self, "_dyn", self._dynamics(self.device))
+        super().__post_init__()
+
+    def _dynamics(self, device) -> TwoLinkArmDynamics:
         p = self.params
-        object.__setattr__(self, "_dyn", TwoLinkArmDynamics.create(
+        return TwoLinkArmDynamics.create(
             p.timestep, m1=p.m1, m2=p.m2, l1=p.l1, l2=p.l2, damping=p.damping,
-            gravity=p.gravity, max_rate=p.max_rate, device=self.device,
-        ))
+            gravity=p.gravity, max_rate=p.max_rate, device=device,
+        )
+
+    def kernel_params(self) -> tuple[str, dict[str, float]]:
+        """K6's body and its parameters (csrc/world_step.cu, @pack arm),
+        past the cadence: the model's float32 constants, as its `_deriv`
+        reads them."""
+        p, d = self.params, self._dynamics("cpu")
+        return "arm", dict(max_t1=p.max_t1, max_t2=p.max_t2, A=float(d.A), B=float(d.B),
+                           D=float(d.D), G1=float(d.G1), G2=float(d.G2),
+                           damping=float(d.damping), max_rate=float(d.max_rate))
 
     def physics_step(self, s: ArmState, u: torch.Tensor) -> ArmState:
         p = self.params

@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from mppi_gpu_tpu_torch.ops import world_step
+
 
 class ControlCadence:
     """Mixed into a world's parameters, which have ``timestep`` (physics dt),
@@ -26,17 +28,27 @@ class ControlCadence:
         return math.ceil((self.sim_end - self.timestep) / per_cycle)
 
 
-def _hold(done: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    """`old` where `done`, else `new`; `done` is 0-dim or one flag per robot
-    (R,) against a leaf of shape (R, ...)."""
-    return torch.where(done.reshape(done.shape + (1,) * (new.dim() - done.dim())), old, new)
-
-
 class World:
-    """Mixed into a world with ``params`` (a :class:`ControlCadence`) and
-    ``physics_step(state, u)`` over a state NamedTuple that carries ``time``.
-    Its leaves may carry a leading robot axis R, under one shared 0-dim clock
-    or one clock per robot (R,)."""
+    """Mixed into a world with ``params`` (a :class:`ControlCadence`),
+    ``device`` and ``physics_step(state, u)`` over a state NamedTuple that
+    carries ``time``. Its leaves may carry a leading robot axis R, under one
+    shared 0-dim clock or one clock per robot (R,).
+
+    Both :meth:`simulate` and :meth:`advance` step through
+    ``ops.world_step.advance``: a built-in world (its class declared with
+    ``ops.world_step.kernel_world``) whose state lies on a CUDA device runs
+    the whole control cycle as one launch of K6 (``csrc/world_step.cu``);
+    on the CPU, and always for a subclass from user code, which has no
+    kernel, the cycle is ``physics_step`` repeated as torch operations
+    (``ops.world_step.plain_advance``). A built-in world packs its
+    parameters once, on its device, when it is built."""
+
+    def __post_init__(self) -> None:
+        if world_step.has_kernel(self):
+            kind, _ = world_step.pack_fields(self)
+            packed = world_step.pack(self)
+            object.__setattr__(self, "_kernel_kind", kind)
+            object.__setattr__(self, "_packs", {packed.device: packed})
 
     def simulate(self, state, u):
         """One control cycle on the host: hold `u` for steps_per_control
@@ -44,9 +56,7 @@ class World:
         stepping) leaves the state unchanged, as in the reference."""
         if bool(state.time >= self.params.sim_end):
             return state, True
-        for _ in range(self.params.steps_per_control):
-            state = self.physics_step(state, u)
-        return state, False
+        return world_step.advance(self, state, u), False
 
     def advance(self, state, u: torch.Tensor):
         """:meth:`simulate` without the host's look at the clock: the end of
@@ -54,11 +64,7 @@ class World:
         `sim_end` is held (the JAX world's `simulate` under jit). One control
         cycle queues its work and never waits for the device, so it can be
         captured in a CUDA graph."""
-        new = state
-        for _ in range(self.params.steps_per_control):
-            new = self.physics_step(new, u)
-        done = state.time >= self.params.sim_end
-        return type(state)(*(_hold(done, old, nxt) for old, nxt in zip(state, new)))
+        return world_step.advance(self, state, u)
 
 
 def clock(time, device) -> torch.Tensor:

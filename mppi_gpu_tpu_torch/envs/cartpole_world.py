@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
+from mppi_gpu_tpu_torch.ops.world_step import kernel_world
 
 
 @dataclass(frozen=True)
@@ -50,10 +51,20 @@ class CartPoleState(NamedTuple):
         return torch.stack([self.p, self.th, self.pd, self.thd], dim=-1)
 
 
+@kernel_world
 @dataclass(frozen=True)
 class CartPoleWorld(World):
     params: CartPoleParams
     device: torch.device | str = "cpu"
+
+    def kernel_params(self) -> tuple[str, dict[str, float]]:
+        """K6's body and its parameters (csrc/world_step.cu, @pack
+        cartpole), past the cadence."""
+        pp = self.params
+        return "cartpole", dict(
+            max_force=pp.max_force, inv_total=1.0 / (pp.cart_mass + pp.pole_mass),
+            ml=pp.pole_mass * pp.pole_length, gravity=pp.gravity, pole_length=pp.pole_length,
+            four_thirds=4.0 / 3.0, pole_mass=pp.pole_mass, track_limit=pp.track_limit)
 
     def _accels(self, th, thd, u):
         pp = self.params

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
+from mppi_gpu_tpu_torch.ops.world_step import kernel_world
 
 
 @dataclass(frozen=True)
@@ -45,10 +46,18 @@ class PendulumState(NamedTuple):
         return torch.stack([self.th, self.thd], dim=-1)
 
 
+@kernel_world
 @dataclass(frozen=True)
 class PendulumWorld(World):
     params: PendulumParams
     device: torch.device | str = "cpu"
+
+    def kernel_params(self) -> tuple[str, dict[str, float]]:
+        """K6's body and its parameters (csrc/world_step.cu, @pack
+        pendulum), past the cadence."""
+        p = self.params
+        return "pendulum", dict(max_torque=p.max_torque, g_over_l=p.gravity / p.length,
+                                inv_ml2=1.0 / (p.mass * p.length**2), damping=p.damping)
 
     def _accel(self, th, thd, u):
         p = self.params

@@ -23,6 +23,7 @@ import torch
 
 from mppi_gpu_tpu_torch.envs.base import World, clock
 from mppi_gpu_tpu_torch.envs.params import WorldParams
+from mppi_gpu_tpu_torch.ops.world_step import kernel_world
 
 
 class WorldState(NamedTuple):
@@ -37,10 +38,19 @@ class WorldState(NamedTuple):
         return torch.cat([self.q, self.qd], dim=-1)
 
 
+@kernel_world
 @dataclass(frozen=True)
 class PointMassWorld(World):
     params: WorldParams
     device: torch.device | str = "cpu"
+
+    def kernel_params(self) -> tuple[str, dict[str, float]]:
+        """K6's body and its parameters (csrc/world_step.cu, @pack
+        point_mass), past the cadence."""
+        p = self.params
+        return f"point_mass{p.n_axes}", dict(
+            ctrl_range=p.ctrl_range, gear=p.gear, damping=p.damping,
+            inv_mass=1.0 / p.effective_mass, joint_range=p.joint_range)
 
     def _accel(self, qd: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         p = self.params

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
+from mppi_gpu_tpu_torch.ops.world_step import kernel_world
 
 
 @dataclass(frozen=True)
@@ -52,10 +53,18 @@ class QuadrotorState(NamedTuple):
         return torch.stack([self.px, self.pz, self.th, self.vx, self.vz, self.om], dim=-1)
 
 
+@kernel_world
 @dataclass(frozen=True)
 class QuadrotorWorld(World):
     params: QuadrotorParams
     device: torch.device | str = "cpu"
+
+    def kernel_params(self) -> tuple[str, dict[str, float]]:
+        """K6's body and its parameters (csrc/world_step.cu, @pack
+        quadrotor), past the cadence."""
+        p = self.params
+        return "quadrotor", dict(max_thrust=p.max_thrust, inv_mass=1.0 / p.mass,
+                                 gravity=p.gravity, arm=p.arm, inv_inertia=1.0 / p.inertia)
 
     def _accels(self, th, f1, f2):
         """Accelerations from the left (f1) and right (f2) rotor thrusts."""

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
+from mppi_gpu_tpu_torch.ops.world_step import kernel_world
 
 
 @dataclass(frozen=True)
@@ -40,10 +41,16 @@ class UnicycleState(NamedTuple):
         return self.pose
 
 
+@kernel_world
 @dataclass(frozen=True)
 class UnicycleWorld(World):
     params: UnicycleParams
     device: torch.device | str = "cpu"
+
+    def kernel_params(self) -> tuple[str, dict[str, float]]:
+        """K6's body and its parameters (csrc/world_step.cu, @pack
+        unicycle), past the cadence."""
+        return "unicycle", dict(max_v=self.params.max_v, max_w=self.params.max_w)
 
     @staticmethod
     def _deriv(pose, v, w):

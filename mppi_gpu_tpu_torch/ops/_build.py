@@ -1,7 +1,9 @@
 """Build the port's CUDA sources and bind them with ctypes.
 
 ``load_library()`` compiles ``mppi_gpu_tpu_torch/csrc/*.cu`` with ``nvcc``
-into one shared library with a plain C interface and loads it. It runs at the
+into one shared library with a plain C interface and loads it: the solve's
+kernels (``mppi_solve.cu``, K1-K5) and the world step (``world_step.cu``,
+K6), each file its own translation unit. It runs at the
 first kernel launch on a CUDA device; importing the package, or running on
 the CPU, never builds.
 
@@ -44,6 +46,7 @@ NVCC_FLAGS = (
 )
 
 _p, _i, _u, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_pp, _ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 # (argtypes, restype) of every C entry; pointers and the stream as c_void_p
 _SIGNATURES = {
     "mppi_solve_partials": (
@@ -53,6 +56,10 @@ _SIGNATURES = {
     "mppi_noise_dump": ([_p, _p, _p, _i, _i, _i, _u, _u, _u, _u, _u, _i, _f, _f, _p], _i),
     "mppi_weighted_update": ([_p] * 4 + [_i, _i, _i, _u, _u, _u, _u, _u, _i, _f, _f, _p, _p],
                              _i),
+    # csrc/world_step.cu (K6)
+    "mppi_world_layout": ([_i, _ip, _ip, _ip], _i),
+    "mppi_world_advance": ([_i, _pp, _pp, _i, _p, _p, _i, _p, _i, _i, _p, _i, _i, _i, _p, _p, _p,
+                            _i, _p, _p], _i),
 }
 
 

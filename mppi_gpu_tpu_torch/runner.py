@@ -18,7 +18,8 @@ Three entry points:
   (``graphs.SolveGraph``); ``capture=False`` launches it op by op.
 * :func:`run_episode_jit` — the whole episode on the controller's device with
   no host round trip: one control cycle (every opt iteration of the solve,
-  the world's ``advance``, the step into the histories) captured once as a
+  the world's step and the writes into the histories, one launch of the
+  world-step kernel, ``ops/world_step.advance_into``) captured once as a
   CUDA graph and replayed once per cycle; for a sharded controller the
   ranks' collectives are captured in it.
 * :func:`run_fleet_episode` — the same for R robots: one fleet solve and one
@@ -45,6 +46,7 @@ from mppi_gpu_tpu_torch.controller import MPPIController
 from mppi_gpu_tpu_torch.envs import WorldParams, make_host_world, make_world, params_for_config
 from mppi_gpu_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from mppi_gpu_tpu_torch.io.csvio import write_step_dump_csv, write_traj_csv
+from mppi_gpu_tpu_torch.ops import world_step
 from mppi_gpu_tpu_torch.utils.guard import check_solve
 from mppi_gpu_tpu_torch.utils.timing import SolveTimer
 
@@ -232,9 +234,12 @@ class EpisodeCycle:
     """One control cycle of an on-device episode over buffers that live as
     long as it does: the world state, the nominal sequence(s) U, the control
     step (a 0-dim int64 counter on the device) and the histories xs (N+1, ...),
-    us (N, ...), ts (N,). :meth:`cycle` solves at the counter's step (every
-    opt iteration), advances the world, writes x, u and the time at the
-    counter's row and increments it, reading nothing from the device.
+    us (N, ...), ts (N, ...) (one time per row, or per robot and row under
+    per-robot clocks). :meth:`cycle` solves at the counter's step (every opt
+    iteration), advances the world in the state's buffers and writes x, u
+    and the time at the counter's row (``ops.world_step.advance_into``: one
+    launch of K6 on a CUDA device), and increments the counter, reading
+    nothing from the device.
 
     On a CUDA device :meth:`run` captures the cycle once as a CUDA graph and
     replays it once per control cycle; ``capture=False`` runs the same cycle
@@ -252,26 +257,22 @@ class EpisodeCycle:
         # cost's and the model's tensors through the pack and the plain model
         self.held = (ctrl._family, ctrl.cost, ctrl.dynamics, ctrl.sigma, ctrl.lambda_,
                      ctrl.max_a)
-        self.state = type(state0)(*(leaf.clone() for leaf in state0))
+        self.state = type(state0)(*(leaf.clone(memory_format=torch.contiguous_format)
+                                    for leaf in state0))
         self.U = U0.clone()
         self.step = torch.zeros((), dtype=torch.int64, device=dev)
         x0 = state0.x
         self.xs = torch.empty((n + 1, *x0.shape), **f32)
         self.us = torch.empty((n, *U0.shape[:-2], U0.shape[-1]), **f32)
-        self.ts = torch.empty((n,), **f32)
+        self.ts = torch.empty((n, *state0.time.shape), **f32)
         self.n = n
         self.graph = None
 
     def cycle(self) -> None:
         action, u_next = self.solve(self.state.x, self.U, self.step)
-        new = self.world.advance(self.state, action)
-        for buf, v in zip(self.state, new):
-            buf.copy_(v)
+        world_step.advance_into(self.world, self.state, action, self.xs, self.us, self.ts,
+                                self.step)
         self.U.copy_(u_next)
-        row = self.step.view(1)
-        self.xs.index_copy_(0, row + 1, new.x.unsqueeze(0))
-        self.us.index_copy_(0, row, action.unsqueeze(0))
-        self.ts.index_copy_(0, row, new.time.reshape(1))
         self.step.add_(1)
 
     def _capture(self) -> None:
