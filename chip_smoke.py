@@ -50,7 +50,16 @@ NaN action and its history rows at a non-zero counter, with a tolerance of
 0 (WORLD_STEP_TOL: bit for bit, NaN bits included, since K6 repeats every
 torch op of the plain loop in order, each rounded once alike), three world
 cycles' device records (K6 alone, once each), its launches in the eager episodes
-(one per cycle) and its records in the replay traces (one per cycle)
+(one per cycle) and its records in the replay traces (one per cycle), and,
+as the episode's cycle runs it, the new x written into the cycle's buffer and
+the step counter advanced, both bit for bit; K7 ``solve_tail``
+(``csrc/solve_tail.cu``, the tail of one update for R robots in one launch:
+U + ΔU, the clamp, the action, the shift and the softmin weights, each only
+where asked for) against its plain version, solo, R=8 and R=64, T=1 and 200,
+A=1-4, clamp on and off, a NaN, in place, every output bit for bit
+(TAIL_TOL, TAIL_WEIGHTS_TOL: 0), how torch divides by a Python float on the
+card, K7's times beside its bound; and every graph cycle of a fused episode
+four kernels (K1, K2, K7, K6) at one opt iteration and seven at two
 (phase 21); then a fused family
 registered from user code, the bicycle of
 ``mppi_gpu_tpu_torch/examples/custom_family.py``: its own library built from
@@ -80,8 +89,10 @@ run the build and phase 20, 21, 22, 25 or 26 alone. Every phase
 prints one line (or a few) and how far into the run it ended; any failure raises and
 the script exits non-zero without the final line. Without a CUDA device it
 exits 1 at once. The last two lines are a JSON object describing every
-kernel, K1 once per family instance (route, source, the TPU kernels it
-replaces, launches on its path as its wrapper counted them, max abs error
+kernel, K1 once per family instance, K2-K5, the bicycle's K1 and K4, K7
+and K6 once per world body (route, source, the TPU kernels it replaces or
+the XLA fusion it stands for, launches on its path as its wrapper counted
+them, max abs error
 against its plain version, ms
 on the card next to the plain version's and to its bound, the least time
 the card could take: instructions per step from the built SASS, or bytes)
@@ -166,12 +177,14 @@ OBSTACLE_REF_MEDIAN_M, OBSTACLE_MEDIAN_SLACK_M = 0.02535, 3 * math.sqrt(2) * 0.0
 # the angle's index in the state and the world's start (envs/*_world.py)
 FAMILY_ANGLE = {"pendulum": 0, "cartpole": 1}
 FAMILY_INIT_THETA = {"pendulum": 3.14159265, "cartpole": 0.15}
-# the kernels JSON line: K1 once per family instance, then K2, K3, K4 and K5
+# the kernels JSON line: K1 once per family instance, then K2, K3, K4 and K5,
+# the bicycle's K1 and K4, and K7 (K6's entries, one per world body, follow)
 KERNEL_ENTRIES = ("solve_partials<lti>", "solve_partials<pendulum>", "solve_partials<cartpole>",
                   "solve_partials<unicycle>", "solve_partials<quadrotor>", "solve_partials<arm>",
                   "solve_partials<lti-obstacle,A=2>", "solve_partials<lti-obstacle,A=3>",
                   "solve_partials<quadrotor3d>", "softmin_combine", "noise_dump", "rollout_costs",
-                  "weighted_update", "solve_partials<bicycle-demo>", "rollout_costs<bicycle-demo>")
+                  "weighted_update", "solve_partials<bicycle-demo>", "rollout_costs<bicycle-demo>",
+                  "solve_tail")
 # bar of the fleet's mean final goal distance (point_mass2d, R=8 on the circle
 # of examples/fleet.py, full episode): the JAX package's own fleet ends that
 # episode at 0.364 m on the CPU, so the bar is that figure + 0.05 m
@@ -249,7 +262,7 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
     second pass) rollout_costs<family,A=..,inj=..>, each with ",slab" for
     their slab body (slab_partials_kernel), K3's noise_dump<A=..>, K5's
     weighted_update<A=..,inj=..>, K6's world_advance<World> (PointMass1-3 for
-    the point mass); the family under its name in ops/families (the struct's name, lower
+    the point mass), K7's solve_tail; the family under its name in ops/families (the struct's name, lower
     case, is the family's without its hyphen), or, for a library built from
     a user family, under the name `structs` maps its struct's to."""
     from mppi_gpu_tpu_torch.ops.families import FAMILY_NAMES
@@ -258,6 +271,8 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
                   r"Quadrotor|Arm)(ILi(\d)E)?", mangled)
     if w:  # K6, one instance per world body
         return f"world_advance<{w.group(1)}{w.group(3) or ''}>"
+    if "solve_tail_kernel" in mangled:  # K7
+        return "solve_tail"
     k = re.search(r"(solve_partials|slab_partials|softmin_combine|noise_dump|weighted_update)_kernel",
                   mangled)
     name = k.group(1) if k else mangled
@@ -1734,14 +1749,25 @@ EPISODE_PROFILE_CYCLES = 20
 # graphed control steps of a host loop's torch.profiler window (solve_trace),
 # and the steps on each side of its markers
 SOLVE_TRACE_STEPS, SOLVE_TRACE_EDGE = 20, 5
+# graph replays on each edge of :func:`replay_trace`'s window: a cycle of four
+# kernels is ~0.02 ms, and late in this script the profiler has dropped every
+# record of a window whose lead-in held 5 of them, three windows in a row
+REPLAY_TRACE_EDGE = 40
 EPISODE_HOST_TIMED = 100
+
+
+def cycle_kernels(opt_iters: int) -> int:
+    """Kernels per graph cycle of a fused episode: K1, K2 and K7 per update,
+    then K6."""
+    return 3 * opt_iters + 1
 # K1's two bodies and K2, as their records in a trace are named
 TRACE_NAMES = {"solve_partials": ("solve_partials_kernel", "slab_partials_kernel"),
                "softmin_combine": ("softmin_combine_kernel",)}
 # and K5's; K4 is K1's template without its second pass, under K1's names;
-# and K6's, once per control cycle
+# K6's, once per control cycle; and K7's, once per update
 KERNEL_TRACE_NAMES = {**TRACE_NAMES, "weighted_update": ("weighted_update_kernel",),
-                      "world_advance": ("world_advance_kernel",)}
+                      "world_advance": ("world_advance_kernel",),
+                      "solve_tail": ("solve_tail_kernel",)}
 
 
 def _episode_config(name: str):
@@ -1822,14 +1848,15 @@ def solve_records(records) -> dict[str, int]:
 
 
 def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: bool = False,
-                 per_update: dict | None = None, world_kernel: bool = True) -> dict:
+                 per_update: dict | None = None, world_kernel: bool = True,
+                 tail_kernel: bool = True) -> dict:
     """torch.profiler over `cycles` replays of one captured control cycle
-    and nothing else. An episode of `cycles` + 2·SOLVE_TRACE_EDGE cycles
+    and nothing else. An episode of `cycles` + 2·REPLAY_TRACE_EDGE cycles
     captures the cycle (outside the window) and its step counter is set
-    back to 0; the window then holds SOLVE_TRACE_EDGE replays and a
+    back to 0; the window then holds REPLAY_TRACE_EDGE replays and a
     synchronisation, a marker kernel (``torch.cuda._sleep``, whose record
     is ``spin_kernel``), the `cycles` counted replays, a second marker and
-    SOLVE_TRACE_EDGE more replays, as :func:`solve_trace`'s (with one replay
+    REPLAY_TRACE_EDGE more replays, as :func:`solve_trace`'s (with one replay
     on each edge, a cycle of K6's length lost its first marker late in this
     script in three windows in a row). Only the records between the two
     markers are read, so neither the episode's start and read-back nor the
@@ -1839,7 +1866,9 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     KERNEL_TRACE_NAMES: its records per update; by default one of K1 and
     one of K2) (checked: that many per update, opt_iters) and K6's (checked:
     one per cycle, the world's whole step; not with `world_kernel` False, for
-    a package before K6), NCCL's records
+    a package before K6) and K7's (checked: one per update, opt_iters per
+    cycle, whatever the mesh; not with `tail_kernel` False, for a package
+    before K7), NCCL's records
     and their µs, the kernels (memory copies and sets not counted), the device
     busy ms (Σ of the records' times) and the span ms (the first marker's
     end to the second one's start); the idle share 1 − busy/span, K1 +
@@ -1847,34 +1876,37 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     untraced, the ms per cycle of `cycles` replays
     by CUDA events, which the span exceeds by what the tracer adds to each
     kernel node. A window without both markers, or whose K1 or K2
-    records fall short, is read again, three windows at most: a graph
-    replays the same launches every time."""
+    records fall short, is read again, five windows at most (a failure says
+    what each held): a graph replays the same launches every time."""
     import torch
     from torch.profiler import ProfilerActivity
 
     from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode
 
-    (run_fleet_episode if fleet else run_episode_jit)(ctrl, num_steps=cycles + 2 * SOLVE_TRACE_EDGE)
+    (run_fleet_episode if fleet else run_episode_jit)(ctrl, num_steps=cycles + 2 * REPLAY_TRACE_EDGE)
     cyc = ctrl._episode_cycles["fleet" if fleet else "single"][1]
     per_update = per_update or {"solve_partials": 1, "softmin_combine": 1}
     want = {k: cycles * ctrl.cfg.opt_iters * v for k, v in per_update.items()}
     want["world_advance"] = cycles if world_kernel else 0
-    for window in range(1, 4):
+    want["solve_tail"] = cycles * ctrl.cfg.opt_iters if tail_kernel else 0
+    held = []
+    for window in range(1, 6):
         cyc.step.zero_()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(SOLVE_TRACE_EDGE):
+            for _ in range(REPLAY_TRACE_EDGE):
                 cyc.graph.replay()
             torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             for _ in range(cycles):
                 cyc.graph.replay()
             torch.cuda._sleep(1000)
-            for _ in range(SOLVE_TRACE_EDGE):
+            for _ in range(REPLAY_TRACE_EDGE):
                 cyc.graph.replay()
             torch.cuda.synchronize()
         dev = device_records(prof)
         marks = sorted((e.time_range for e in dev if "spin_kernel" in e.name), key=lambda r: r.start)
+        held.append(f"{len(marks)} markers in {len(dev)} records")
         if len(marks) != 2:
             continue
         t0, t1 = marks[0].end, marks[1].start
@@ -1882,7 +1914,8 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
         counts = {k: sum(any(n in e.name for n in KERNEL_TRACE_NAMES[k]) for e in dev) for k in want}
         if counts == want:
             break
-    expect(len(marks) == 2, f"{label}: {len(marks)} marker records in the trace ({window} windows read)")
+    expect(len(marks) == 2, f"{label}: {len(marks)} marker records in the trace ({window} windows "
+           f"read: {held})")
     cyc.step.zero_()  # the same replays untraced, by CUDA events: what the tracer adds
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1907,7 +1940,8 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
                 untraced_ms=start.elapsed_time(end) / cycles,
                 k12_share=solve_us / busy_us, k1_per_cycle=counts["solve_partials"] / cycles,
                 k2_per_cycle=counts["softmin_combine"] / cycles,
-                k6_per_cycle=counts["world_advance"] / cycles, windows=window,
+                k6_per_cycle=counts["world_advance"] / cycles,
+                k7_per_cycle=counts["solve_tail"] / cycles, windows=window,
                 records={k: c / cycles for k, c in counts.items()}, nccl_per_cycle=len(nccl) / cycles,
                 nccl_us=sum(e.time_range.elapsed_us() for e in nccl) / cycles,
                 nccl_names=sorted({e.name for e in nccl}),
@@ -2031,8 +2065,8 @@ def _pairs(readings) -> list[tuple[float, float]]:
 
 
 def _trace_line(t: dict) -> str:
-    return (f"{t['kernels']:.1f} kernels, K1 {t['k1_per_cycle']:g}, K2 {t['k2_per_cycle']:g} and "
-            f"K6 {t['k6_per_cycle']:g} records per cycle; device busy {t['busy_ms']:.4f} of a {t['span_ms']:.4f} ms span per "
+    return (f"{t['kernels']:.1f} kernels, K1 {t['k1_per_cycle']:g}, K2 {t['k2_per_cycle']:g}, "
+            f"K7 {t['k7_per_cycle']:g} and K6 {t['k6_per_cycle']:g} records per cycle; device busy {t['busy_ms']:.4f} of a {t['span_ms']:.4f} ms span per "
             f"cycle, idle share {t['idle']:.4f}; K1 + K2 {t['k12_share']:.4f} of busy; the same "
             f"replays untraced (CUDA events) {t['untraced_ms']:.4f} ms per cycle; the largest device "
             f"µs per cycle {t['top']}")
@@ -2053,6 +2087,7 @@ def episode_config_phase(name: str, smi: str) -> dict:
     from mppi_gpu_tpu_torch.controller import MPPIController
     from mppi_gpu_tpu_torch.envs import params_for_config
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
     from mppi_gpu_tpu_torch.ops import world_step as ws
     from mppi_gpu_tpu_torch.runner import run_closed_loop, run_episode_jit
 
@@ -2064,13 +2099,20 @@ def episode_config_phase(name: str, smi: str) -> dict:
     first, first_s = _timed(lambda: run_episode_jit(ctrl))
     before = fs.launch_counts()
     ws.reset_launch_counts()
+    st.reset_launch_counts()
     graph, graph_s = _timed(lambda: run_episode_jit(ctrl))
     mid, k6_graph = fs.launch_counts(), sum(ws.launch_counts().values())
+    k7_graph = st.launch_counts()["solve_tail"]
     ws.reset_launch_counts()
+    st.reset_launch_counts()
     eager, eager_s = _timed(lambda: run_episode_jit(ctrl, capture=False))
     after, k6 = fs.launch_counts(), {k: v for k, v in ws.launch_counts().items() if v}
-    expect(k6_graph == 0, f"{name}: {k6_graph} K6 launches from the host in a warm graph episode")
+    k7 = st.launch_counts()["solve_tail"]
+    expect(k6_graph == 0 and k7_graph == 0, f"{name}: {k6_graph} K6 and {k7_graph} K7 launches "
+           "from the host in a warm graph episode")
     expect(sum(k6.values()) == n, f"{name}: K6 launched {k6} in the eager episode of {n} cycles")
+    expect(k7 == n * cfg.opt_iters, f"{name}: K7 launched {k7} times in the eager episode of {n} "
+           f"cycles x {cfg.opt_iters}")
     for kernel in ("solve_partials", "softmin_combine"):
         expect(mid[kernel] == before[kernel],
                f"{name}: {mid[kernel] - before[kernel]} {kernel} launches from the host in a warm "
@@ -2100,7 +2142,10 @@ def episode_config_phase(name: str, smi: str) -> dict:
     if bar is not None:
         expect(steady < bar, f"{name}: graph episode steady-state {steady} (bar {bar})")
     trace = replay_trace(ctrl, name)
-    row = dict(K=cfg.samples, T=cfg.horizon, opt_iters=cfg.opt_iters, cycles=n, k6=k6,
+    expect(trace["kernels"] == cycle_kernels(cfg.opt_iters),
+           f"{name}: {trace['kernels']} kernels per graph cycle, want K1, K2 and K7 per update "
+           f"and K6: {cycle_kernels(cfg.opt_iters)} (the largest: {trace['top']})")
+    row = dict(K=cfg.samples, T=cfg.horizon, opt_iters=cfg.opt_iters, cycles=n, k6=k6, k7=k7,
                graph_ms=graph_s * 1e3 / n, eager_ms=eager_s * 1e3 / n,
                host_ms=host_s * 1e3 / len(host.us), first_s=first_s, steady=steady, bar=bar,
                host_dx=dx, host_du=du, host_readings=readings, trace=trace)
@@ -2108,7 +2153,7 @@ def episode_config_phase(name: str, smi: str) -> dict:
           f"graph {row['graph_ms']:.4f} ms/cycle (first call {first_s:.3f} s with the capture), "
           f"eager on the card {row['eager_ms']:.4f}, host loop {row['host_ms']:.4f} "
           f"({EPISODE_HOST_TIMED} cycles); graph == eager over the whole episode; no host launch "
-          f"in a warm graph episode, {n * cfg.opt_iters} each of K1 and K2 and {n} of K6 {k6} in "
+          f"in a warm graph episode, {n * cfg.opt_iters} each of K1, K2 and K7 and {n} of K6 {k6} in "
           f"the eager one; host "
           f"loop within (states, actions) {tol} over {EPISODE_HOST_CYCLES} cycles at "
           f"{EPISODE_HOST_SEEDS} seeds (max abs per seed {_pairs(readings)}); "
@@ -2133,6 +2178,7 @@ def fleet_episode_phase(name: str, smi: str, R: int = 8) -> dict:
     from mppi_gpu_tpu_torch.controller import MPPIController
     from mppi_gpu_tpu_torch.envs import params_for_config
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
     from mppi_gpu_tpu_torch.ops import world_step as ws
     from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode
 
@@ -2142,13 +2188,19 @@ def fleet_episode_phase(name: str, smi: str, R: int = 8) -> dict:
     _, first_s = _timed(lambda: run_fleet_episode(fleet))
     before = fs.launch_counts()
     ws.reset_launch_counts()
+    st.reset_launch_counts()
     ep, graph_s = _timed(lambda: run_fleet_episode(fleet))
     mid, k6_graph = fs.launch_counts(), sum(ws.launch_counts().values())
+    k7_graph = st.launch_counts()["solve_tail"]
     ws.reset_launch_counts()
+    st.reset_launch_counts()
     eager, eager_s = _timed(lambda: run_fleet_episode(fleet, capture=False))
     after, k6 = fs.launch_counts(), {k: v for k, v in ws.launch_counts().items() if v}
-    expect(k6_graph == 0, f"fleet {name}: {k6_graph} K6 launches from the host in a warm graph "
-           "episode")
+    k7 = st.launch_counts()["solve_tail"]
+    expect(k6_graph == 0 and k7_graph == 0, f"fleet {name}: {k6_graph} K6 and {k7_graph} K7 "
+           "launches from the host in a warm graph episode")
+    expect(k7 == n * cfg.opt_iters, f"fleet {name}: K7 launched {k7} times in the eager episode "
+           f"of {n} cycles x {cfg.opt_iters} (one launch per update for the R robots)")
     expect(sum(k6.values()) == n, f"fleet {name}: K6 launched {k6} in the eager episode of {n} "
            "cycles (one launch per cycle for the R robots)")
     for kernel in ("solve_partials", "softmin_combine"):  # one launch of each per update, whatever R
@@ -2197,6 +2249,9 @@ def fleet_episode_phase(name: str, smi: str, R: int = 8) -> dict:
                 f"{_pairs(late)}); the fleet runs K1's per-rollout body, the solo robot the slab "
                 "body")
     trace = replay_trace(fleet, f"fleet {name}", fleet=True)
+    expect(trace["kernels"] == cycle_kernels(cfg.opt_iters),
+           f"fleet {name}: {trace['kernels']} kernels per graph cycle, want "
+           f"{cycle_kernels(cfg.opt_iters)} (the largest: {trace['top']})")
     bar = steady[0][1]
     del fleet, eager
     many = BatchedMPPIController(cfg, FLEET_QUALITY_ROBOTS, device="cuda")
@@ -2208,7 +2263,7 @@ def fleet_episode_phase(name: str, smi: str, R: int = 8) -> dict:
     expect(p_below >= 0.01, f"fleet {name}: {under} of {FLEET_QUALITY_ROBOTS} robots under the "
            f"bar {bar}, the reference {ref} of 64 seeds (one-sided Fisher p {p_below:.3g})")
     del many, big
-    row = dict(R=R, K=cfg.samples, T=cfg.horizon, cycles=n, k6=k6, graph_ms=graph_s * 1e3 / n,
+    row = dict(R=R, K=cfg.samples, T=cfg.horizon, cycles=n, k6=k6, k7=k7, graph_ms=graph_s * 1e3 / n,
                eager_ms=eager_s * 1e3 / n, first_s=first_s, steady=[s for s, _ in steady], bar=bar,
                under=under, ref_under=ref, p_below=p_below, trace=trace)
     print(f"[21] fleet episode {name} R={R} K={cfg.samples} T={cfg.horizon} x{cfg.opt_iters}, {n} "
@@ -2310,9 +2365,11 @@ def check_world_step(name: str, device: str = "cuda") -> dict:
     actions (a fleet's strided, a column of its sequences):
     ``world_step.advance`` (new buffers) and ``advance_into`` (the state's
     own buffers, the histories at rows WORLD_HIST_ROW … through a device
-    counter) against ``plain_advance``; every leaf, xs[row + 1],
-    us[row], ts[row] and the untouched history rows. Returns the largest
-    |Δ| (0.0: bit-equal everywhere) and the number of launches made."""
+    counter, the new x into a buffer of its own and the counter advanced, as
+    the device episode's cycle runs it) against ``plain_advance``; every
+    leaf, xs[row + 1], us[row], ts[row], the x buffer, the counter and the
+    untouched history rows. Returns the largest |Δ| (0.0: bit-equal
+    everywhere) and the number of launches made."""
     import torch
 
     from mppi_gpu_tpu_torch.envs import make_world
@@ -2337,6 +2394,7 @@ def check_world_step(name: str, device: str = "cuda") -> dict:
         hu = torch.full((rows, *lead, cfg.action_dim), -7.0, **f32)
         ht = torch.full((rows, *start.time.shape), -7.0, **f32)
         step = torch.tensor(WORLD_HIST_ROW, dtype=torch.int64, device=device)
+        x_buf = torch.full((*lead, cfg.state_dim), -7.0, **f32)
         before = sum(ws.launch_counts().values())
         # the actions as a controller gives them: a fleet's, a column of its
         # sequences (robots strided), a solo robot's one row of its own
@@ -2345,14 +2403,15 @@ def check_world_step(name: str, device: str = "cuda") -> dict:
             u = seqs[..., c, :]
             plain = ws.plain_advance(world, plain, u)
             k6 = ws.advance(world, k6, u)
-            ws.advance_into(world, into, u, hx, hu, ht, step)
+            ws.advance_into(world, into, u, hx, hu, ht, step, x_buf)
             row = WORLD_HIST_ROW + c
             pairs = [(f"{label} cycle {c} leaf {i}", a, b) for i, (a, b) in enumerate(zip(k6, plain))]
             pairs += [(f"{label} cycle {c} in place leaf {i}", a, b)
                       for i, (a, b) in enumerate(zip(into, plain))]
             pairs += [(f"{label} cycle {c} xs[{row + 1}]", hx[row + 1], plain.x),
                       (f"{label} cycle {c} us[{row}]", hu[row], u),
-                      (f"{label} cycle {c} ts[{row}]", ht[row], plain.time)]
+                      (f"{label} cycle {c} ts[{row}]", ht[row], plain.time),
+                      (f"{label} cycle {c} x buffer", x_buf, plain.x)]
             for what, a, b in pairs:
                 if not bits_equal(a, b):
                     bit_equal = False
@@ -2360,7 +2419,8 @@ def check_world_step(name: str, device: str = "cuda") -> dict:
                     worst = max(worst, d)
                     expect(d <= WORLD_STEP_TOL[name],
                            f"K6 {name} {what}: max |K6 - plain| {d:.3g} (tolerance {WORLD_STEP_TOL[name]})")
-            step.add_(1)
+            expect(int(step) == row + 1, f"K6 {name} {label} cycle {c}: the counter reads "
+                   f"{int(step)} after the cycle at row {row}, want {row + 1}")
         launches += sum(ws.launch_counts().values()) - before
         untouched = [hx[:WORLD_HIST_ROW + 1], hx[WORLD_HIST_ROW + WORLD_CYCLES + 1:],
                      hu[:WORLD_HIST_ROW], hu[WORLD_HIST_ROW + WORLD_CYCLES:],
@@ -2403,21 +2463,23 @@ def world_step_bound(world, state, u, hist: bool) -> tuple[float, str, int]:
     the larger of its operations (:func:`plain_world_ops`) over the float32
     peak (67 TFLOP/s) and its bytes (the state, the clock, u and the pack
     read once; the new state and clock written once, and with `hist` the
-    history rows) over 3.35 TB/s. Returns (ms, what bounds it, operations)."""
+    history rows, the episode's x buffer and the counter) over 3.35 TB/s.
+    Returns (ms, what bounds it, operations)."""
     ops = plain_world_ops(world, state, u)
     floats = 2 * sum(leaf.numel() for leaf in state) + u.numel() + world._packs[u.device].numel()
-    if hist:
-        floats += state.x.numel() + u.numel() + state.time.numel()
+    if hist:  # the history rows, the x buffer, the counter read and written (2 floats each)
+        floats += 2 * state.x.numel() + u.numel() + state.time.numel() + 4
     t_ops, t_bytes = ops / H100_FP32_PER_S, 4 * floats / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops
 
 
 def world_step_times(name: str, R: int | None) -> dict:
     """K6's times at one world's episode shape (R None: one robot, the solo
-    episode's): ``advance_into`` as the episode's cycle calls it, CUDA events
-    around a call (warm median of 50) and the device time alone; the plain
-    cycle it replaced (``advance`` and the history copies as the cycle ran
-    them before K6) by events; and the bound."""
+    episode's): ``advance_into`` as the episode's cycle calls it (the x
+    buffer and the counter's advance too), CUDA events around a call (warm
+    median of 50) and the device time alone; the plain cycle it replaced
+    (``advance``, the history copies, the x copy and the counter's add as the
+    cycle ran them before K6) by events; and the bound."""
     import torch
 
     from mppi_gpu_tpu_torch.envs import make_world
@@ -2429,13 +2491,14 @@ def world_step_times(name: str, R: int | None) -> dict:
     state = type(state)(*(leaf.clone(memory_format=torch.contiguous_format) for leaf in state))
     lead = () if R is None else (R,)
     u = torch.full((*lead, cfg.action_dim), 0.1, device="cuda")
-    n = 64
+    n = 4096  # history rows past every call's counter
     hx = torch.zeros((n + 1, *lead, cfg.state_dim), device="cuda")
     hu, ht = torch.zeros((n, *lead, cfg.action_dim), device="cuda"), torch.zeros(n, device="cuda")
     step = torch.zeros((), dtype=torch.int64, device="cuda")
+    x = torch.zeros((*lead, cfg.state_dim), device="cuda")
 
     def kernel():
-        ws.advance_into(world, state, u, hx, hu, ht, step)
+        ws.advance_into(world, state, u, hx, hu, ht, step, x)
 
     def plain():
         new = ws.plain_advance(world, state, u)
@@ -2445,8 +2508,11 @@ def world_step_times(name: str, R: int | None) -> dict:
         hx.index_copy_(0, row + 1, new.x.unsqueeze(0))
         hu.index_copy_(0, row, u.unsqueeze(0))
         ht.index_copy_(0, row, new.time.reshape(1))
+        x.copy_(new.x)
+        step.add_(1)
 
     ms, plain_ms = paired_median_ms(kernel, plain, 50, 10)
+    step.zero_()
     bound, bound_by, ops = world_step_bound(world, state, u, hist=True)
     return dict(ms=ms, plain_ms=plain_ms, device_ms=device_ms(kernel, name="world_advance_kernel"),
                 bound_ms=bound, bound_by=bound_by, ops=ops)
@@ -2473,10 +2539,11 @@ def world_cycle_records(name: str, calls: int = 3) -> list[str]:
     u = torch.zeros(cfg.action_dim, device="cuda")
     hx, hu = torch.zeros(3, cfg.state_dim, device="cuda"), torch.zeros(2, cfg.action_dim, device="cuda")
     ht, step = torch.zeros(2, device="cuda"), torch.zeros((), dtype=torch.int64, device="cuda")
+    x = torch.zeros(cfg.state_dim, device="cuda")
 
     def cycles(n: int) -> None:
         for _ in range(n):
-            ws.advance_into(world, state, u, hx, hu, ht, step)
+            ws.advance_into(world, state, u, hx, hu, ht, step, x)
 
     cycles(1)
     torch.cuda.synchronize()
@@ -2558,6 +2625,222 @@ def world_step_phase(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K7 solve_tail (phase 21): the tail of one MPPI update for R robots per
+# launch, against its plain version (ops/solve_tail.solve_tail_reference)
+
+TAIL_SOURCE = "mppi_gpu_tpu_torch/csrc/solve_tail.cu"
+TAIL_REPLACES = ("no Pallas kernel: XLA's fusion of the solve's tail, mppi_gpu_tpu/controller.py:504, "
+                 "522-531 (solve_from_costs :261-268)")
+# how far K7 may part from the plain tail on the card: not at all. u_seq,
+# u_next and action are one add and a min/max, each rounded once; the weights
+# repeat torch's sub, neg, product with the float32 reciprocal of λ (torch's
+# CUDA division by a Python float, :func:`reciprocal_probe`), expf and true
+# division, each rounded once alike (csrc/solve_tail.cu)
+TAIL_TOL = 0.0
+TAIL_WEIGHTS_TOL = 0.0
+# (robots, None: one robot), T, A and K of the cases; each runs with the
+# clamp on and off, and with a NaN in ΔU and a diverged rollout (S = +inf)
+TAIL_SHAPES = tuple((R, T, A, 3000) for R in (None, 8, 64) for T in (1, 200) for A in range(1, 5))
+TAIL_MODES = (("clamp", True, False), ("no clamp", False, False), ("clamp, NaN", True, True))
+# the configs' λ and two others
+TAIL_LAMS = (0.1, 0.2, 0.3, 1.0, 1.5, 0.7, 1.3)
+
+
+def tail_inputs(R, T: int, A: int, K: int, lam: float, nan: bool, device: str, seed: int = 0):
+    """U, ΔU (T, A) or (R, T, A), max_a (A,) and the softmin (S, β, η, λ) of
+    one case, from a numpy seed; U past the bounds in places; β and η views
+    of one (…, 2) tensor as K2 writes them (a fleet's strided); with `nan`, a
+    NaN in ΔU at step T // 2 and one rollout's cost +inf (weight 0)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lead = () if R is None else (R,)
+    U = rng.uniform(-1.5, 1.5, lead + (T, A)).astype(np.float32)
+    dU = rng.normal(0.0, 0.5, lead + (T, A)).astype(np.float32)
+    max_a = rng.uniform(0.3, 1.2, A).astype(np.float32)
+    S = rng.uniform(0.0, 50.0, lead + (K,)).astype(np.float32)
+    if nan:
+        dU[..., T // 2, 0] = np.nan
+        S[..., K // 3] = np.inf
+    beta = S.min(-1)
+    eta = np.exp(-(S.astype(np.float64) - beta[..., None]) / lam).sum(-1).astype(np.float32)
+    be = torch.from_numpy(np.stack([beta, eta], -1)).to(device)
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    return t(U), t(dU), t(max_a), (t(S), be[..., 0], be[..., 1], lam)
+
+
+def check_solve_tail(device: str = "cuda", shapes=TAIL_SHAPES) -> dict:
+    """K7 against its plain version on `device`'s tensors for every shape of
+    `shapes` in every TAIL_MODES mode, each at one λ of TAIL_LAMS in turn:
+    the full tail (u_seq, u_next, action and the weights, as ``solve``'s
+    result), the updated sequence alone (an inner opt iteration) and the
+    cycle's form (action, and u_next written over U itself); every output
+    bit for bit against ``solve_tail_reference`` (TAIL_TOL, TAIL_WEIGHTS_TOL),
+    an output not asked for None. Returns the largest |Δ| of the sequences
+    and of the weights (0.0: bit-equal), whether all were bit-equal, and the
+    launches made (three per case on the card, none on the CPU)."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import CYCLE, FULL, ITERATE
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
+
+    worst, worst_w, bit_equal = 0.0, 0.0, True
+    before, cases = st.launch_counts()["solve_tail"], 0
+
+    def hold(what, got, want, tol):
+        nonlocal bit_equal
+        if bits_equal(got, want):
+            return 0.0
+        bit_equal = False
+        d = max_abs_diff(got, want)
+        expect(d <= tol, f"K7 {what}: max |K7 - plain| {d:.3g} (tolerance {tol})")
+        return d
+
+    for i, (R, T, A, K) in enumerate(shapes):
+        for j, (mode, clamp, nan) in enumerate(TAIL_MODES):
+            lam = TAIL_LAMS[(i * len(TAIL_MODES) + j) % len(TAIL_LAMS)]
+            U, dU, max_a, softmin = tail_inputs(R, T, A, K, lam, nan, device, seed=i)
+            label = f"R={R or 1} T={T} A={A} K={K} {mode} lambda={lam}"
+            want = st.solve_tail_reference(U, dU, max_a, clamp, FULL, softmin)
+            full = st.solve_tail(U, dU, max_a, clamp, FULL, softmin)
+            for name in ("u_seq", "u_next", "action"):
+                worst = max(worst, hold(f"{label} {name}", getattr(full, name), getattr(want, name),
+                                        TAIL_TOL))
+            worst_w = max(worst_w, hold(f"{label} weights", full.weights, want.weights,
+                                        TAIL_WEIGHTS_TOL))
+            seq = st.solve_tail(U, dU, max_a, clamp, ITERATE)
+            expect(seq.u_next is None and seq.action is None and seq.weights is None,
+                   f"K7 {label}: the iteration's tail wrote more than u_seq")
+            worst = max(worst, hold(f"{label} u_seq alone", seq.u_seq, want.u_seq, TAIL_TOL))
+            inplace = U.clone()
+            cyc = st.solve_tail(inplace, dU, max_a, clamp, CYCLE, into=inplace)
+            expect(cyc.u_next is inplace and cyc.u_seq is None and cyc.weights is None,
+                   f"K7 {label}: the cycle's tail did not shift U in place alone")
+            worst = max(worst, hold(f"{label} u_next in place", inplace, want.u_next, TAIL_TOL),
+                        hold(f"{label} action of the cycle", cyc.action, want.action, TAIL_TOL))
+            cases += 1
+    launches = st.launch_counts()["solve_tail"] - before
+    want_launches = 3 * cases if device == "cuda" else 0  # the CPU: the plain version
+    expect(launches == want_launches, f"K7: {launches} launches counted, want {want_launches}")
+    return dict(max_abs_err=worst, weights_max_abs_err=worst_w, bit_equal=bit_equal,
+                launches=launches, cases=cases)
+
+
+def reciprocal_probe(n: int = 1 << 20) -> dict:
+    """How torch's CUDA division of a float32 tensor by a Python float λ
+    rounds, over n values of many magnitudes and each λ of TAIL_LAMS: the
+    count of quotients that differ from the product with 1.0f/(float)λ (what
+    K7 computes), from the product with (float)(1/λ), and from the true
+    division by a float32 device scalar λ."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops.solve_tail import inverse_lambda
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    d = torch.randn(n, device="cuda", generator=g) * torch.exp2(
+        torch.randint(-20, 20, (n,), device="cuda", generator=g).float())
+    out = {}
+    for lam in TAIL_LAMS:
+        q = d / lam
+        out[lam] = dict(
+            recip_f32=int((q != d * inverse_lambda(lam)).sum()),
+            recip_f64=int((q != d * float(np.float32(1.0 / lam))).sum()),
+            true_div=int((q != d / torch.tensor(lam, dtype=torch.float32, device="cuda")).sum()))
+    return out
+
+
+def tail_bound(R: int, T: int, A: int, K: int, outputs, clamp: bool = True) -> tuple[float, str]:
+    """The least time the card could take for one tail: the larger of its
+    bytes (U and ΔU read, max_a, and with the weights S, β and η; each output
+    asked for written once) over 3.35 TB/s and its operations (an add and,
+    clamped, two comparisons per entry; five per weight) over the float32
+    peak. Returns (ms, what bounds it)."""
+    n = R * T * A
+    floats = 2 * n + A + n * (("u_seq" in outputs) + ("u_next" in outputs))
+    floats += R * A * ("action" in outputs)
+    ops = n * (3 if clamp else 1)
+    if "weights" in outputs:
+        floats += 2 * R * K + 2 * R
+        ops += 5 * R * K
+    t_bytes, t_ops = 4 * floats / H100_BYTES_PER_S, ops / H100_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tail_times(R, T: int, A: int, K: int, outputs, lam: float = 1.0) -> dict:
+    """K7's times at one shape: CUDA events around a call (warm median) in
+    turns with the plain tail's, the device time alone, and the bound; the
+    cycle's form (no u_seq) writes u_next over U, as the episode does."""
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
+
+    U, dU, max_a, softmin = tail_inputs(R, T, A, K, lam, False, "cuda")
+    softmin = softmin if "weights" in outputs else None
+    into = U if "u_seq" not in outputs else None
+
+    def kernel():
+        st.solve_tail(U, dU, max_a, True, outputs, softmin, into)
+
+    def plain():
+        st.solve_tail_reference(U, dU, max_a, True, outputs, softmin, into)
+
+    ms, plain_ms = paired_median_ms(kernel, plain, 50, 20)
+    bound, bound_by = tail_bound(R or 1, T, A, K, outputs)
+    return dict(ms=ms, plain_ms=plain_ms, device_ms=device_ms(kernel, name="solve_tail_kernel"),
+                bound_ms=bound, bound_by=bound_by)
+
+
+def solve_tail_phase(smi: str) -> dict:
+    """K7 on the card: every case of :func:`check_solve_tail` against the
+    plain tail (TAIL_TOL, TAIL_WEIGHTS_TOL), how torch divides by a Python
+    float (:func:`reciprocal_probe`), and K7's times beside the plain tail's
+    and the bound at the flagship's shape (R=1, T=200, A=3, K=10⁴) as
+    ``solve`` runs it (every output) and as the episode's cycle runs it
+    (action and U shifted in place), and at the R=8 fleet's."""
+    from mppi_gpu_tpu_torch.controller import CYCLE, FULL
+
+    probe = reciprocal_probe()
+    for lam, c in probe.items():
+        expect(c["recip_f32"] == 0, f"torch's division by the Python float {lam} on the card is "
+               f"not the product with 1.0f/(float){lam}: {c}")
+    got = check_solve_tail()
+    times = {"full": tail_times(None, 200, 3, 10_000, FULL),
+             "cycle": tail_times(None, 200, 3, 10_000, CYCLE),
+             "fleet": tail_times(8, 200, 3, 10_000, FULL)}
+    agree = ("bit-equal" if got["bit_equal"] else
+             f"max |delta| {got['max_abs_err']:.3g}, weights {got['weights_max_abs_err']:.3g}")
+    print(f"[21] K7 solve_tail: {agree} to the plain tail over {got['cases']} cases (R=1, 8, 64; "
+          f"T=1, 200; A=1-4; clamp on and off; a NaN in dU and a diverged rollout; the full tail, "
+          f"u_seq alone, the cycle's in place), {got['launches']} launches; torch's division by a "
+          f"Python float on the card, quotients that differ from the product with "
+          f"1.0f/(float)lam, with (float)(1/lam) and from the true division, by lam: {probe}; "
+          + "; ".join(f"{k} {v['ms']:.4f} ms by events, device {v['device_ms']}, plain "
+                      f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.3g} ({v['bound_by']})"
+                      for k, v in times.items()) + f" ({smi})")
+    return dict(got, probe=probe, times=times)
+
+
+def tail_entry(tail: dict, launches: int) -> dict:
+    """The kernels line's K7 entry: its launches on the main path (phase 7),
+    its largest difference from the plain tail, and its times at the
+    flagship shape as ``solve`` runs it, beside those of the cycle's form and
+    the R=8 fleet's."""
+    full, cyc, fleet = (tail["times"][k] for k in ("full", "cycle", "fleet"))
+    return {"name": "solve_tail", "route": "cuda", "source": TAIL_SOURCE, "replaces": TAIL_REPLACES,
+            "launches": launches, "max_abs_err": max(tail["max_abs_err"], tail["weights_max_abs_err"]),
+            "ms": full["ms"], "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
+            "bound_by": full["bound_by"], "library_ms": None, "device_ms": full["device_ms"],
+            "shape": "R=1 T=200 A=3 K=10000, every output (solve)", "bit_equal": tail["bit_equal"],
+            "cycle_ms": cyc["ms"], "cycle_plain_ms": cyc["plain_ms"],
+            "cycle_device_ms": cyc["device_ms"], "cycle_bound_ms": cyc["bound_ms"],
+            "cycle_shape": "R=1 T=200 A=3, action and u_next in place (the episode's cycle)",
+            "fleet_ms": fleet["ms"], "fleet_plain_ms": fleet["plain_ms"],
+            "fleet_device_ms": fleet["device_ms"], "fleet_bound_ms": fleet["bound_ms"],
+            "fleet_shape": "R=8 T=200 A=3 K=10000, every output"}
+
+
 def episode_phase(smi: str) -> dict:
     """Phase 21: K1's step by pointer against by value for every family
     instance; the on-device episode of every config (:func:`episode_config_phase`)
@@ -2592,6 +2875,7 @@ def episode_phase(smi: str) -> dict:
           "both bodies, solo and R=8 fleets, iid and antithetic + OU 0.5: lti A=1-4 at K=3000 "
           "T=50, A=3 at K=10000 T=200, every other family instance at its config")
     world = world_step_phase(smi)
+    tail = solve_tail_phase(smi)
 
     rows = {name: episode_config_phase(name, smi) for name in EPISODE_CONFIGS}
     fleets = {name: fleet_episode_phase(name, smi) for name in FLEET_EPISODE_CONFIGS}
@@ -2662,7 +2946,7 @@ def episode_phase(smi: str) -> dict:
             k6_launches[k] += v
     print(f"[21] K6's launches in the eager episodes, by world body: {k6_launches}")
     print(f"[21] phase 21 took {time.perf_counter() - t_phase:.1f} s")
-    return dict(configs=rows, fleets=fleets, world=world, k6_launches=k6_launches)
+    return dict(configs=rows, fleets=fleets, world=world, tail=tail, k6_launches=k6_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3265,10 +3549,11 @@ def closed_loop_shares(name: str, R: int, K: int | None = None, device: str = "c
     state0, Us0, seeds = world.reset(R), fleet.init_action_seqs(), fleet.init_seeds()
     costs = torch.empty((n, R, cfg.samples), device=device)
 
-    def solve(xs, Us, step):
+    def solve(xs, Us, step):  # the cycle's solve: the action, U shifted in place
         res = fleet.solve_batch(xs, Us, seeds, step, capture=False)
         costs.index_copy_(0, step.view(1), res.info.costs.reshape(1, R, -1))
-        return res.action, res.u_next
+        Us.copy_(res.u_next)
+        return res.action
 
     EpisodeCycle(fleet, world, state0, Us0, n, solve).run(state0, Us0)
     marks = {"first": 0, "middle": n // 2, "last": n - 1}
@@ -4499,6 +4784,7 @@ def main() -> int:
     from mppi_gpu_tpu_torch.io.csvio import read_csv_columns
     from mppi_gpu_tpu_torch.ops import _build, philox
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
 
     # [1] device
     smi = _smi()
@@ -4613,6 +4899,7 @@ def main() -> int:
     # that graph's capture and every dump step, op by op; a trace of each
     # config's graphed steps gives K1's and K2's records per step
     fs.reset_launch_counts()
+    st.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         _cli(["-c", os.path.join("configs", "point_mass2d.yaml"), "--device", "cuda",
               "-t", os.path.join(tmp, "traj2d.csv"), "-s", os.path.join(tmp, "dump"),
@@ -4628,6 +4915,7 @@ def main() -> int:
     launches = {k: n for k, n in fs.launch_counts().items()
                 if k not in ("rollout_costs", "weighted_update")}
     launches["solve_partials<lti>"] = fs.family_launch_counts()["lti"]
+    launches["solve_tail"] = st.launch_counts()["solve_tail"]
     main_widths = fs.width_launch_counts()
     main_traces = {n: config_trace(n) for n in ("point_mass2d", "point_mass3d")}
     steady = steady_distance(cols, _config("point_mass3d").goal[:3])
@@ -4641,9 +4929,9 @@ def main() -> int:
     expect(steady < LTI_QUALITY_THRESHOLD_M, f"point_mass3d steady-state {steady} m")
     for name, n in launches.items():
         expect(n > 0, f"kernel {name} was not launched on the main path")
-    expect(launches["solve_partials"] == launches["softmin_combine"] == updates
-           and launches["noise_dump"] == dumps2d,
-           f"main path: launches {launches}, want K1 and K2 {updates} (two graph warm-ups, "
+    expect(launches["solve_partials"] == launches["softmin_combine"] == launches["solve_tail"]
+           == updates and launches["noise_dump"] == dumps2d,
+           f"main path: launches {launches}, want K1, K2 and K7 {updates} (two graph warm-ups, "
            f"{dumps2d} dump steps) and K3 {dumps2d}")
     # the configs' K = 3000 runs K1's slab body, every launch of it
     expect(main_widths == {fs.SLAB_WIDTH: launches["solve_partials"], fs.BLOCK: 0},
@@ -5189,6 +5477,9 @@ def main() -> int:
         if name in bicycle:  # the family registered from user code (phase 22)
             entries.append(bicycle_entry(name, bicycle[name], err[name]))
             continue
+        if name == "solve_tail":  # K7, checked and timed in phase 21
+            entries.append(tail_entry(episode["tail"], launches[name]))
+            continue
         b_ms, b_by = bounds[name]
         entry = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
                  "launches": launches[name], "max_abs_err": err[name], "bound_ms": b_ms,
@@ -5372,7 +5663,8 @@ def episode_commit(root: str) -> int:
     trace of its replays (:func:`replay_trace`) kernels, busy ms and K1 + K2's
     share of busy per cycle and the untraced ms per cycle; the sharded
     episode's graph ms per cycle at SHARDED_EPISODE_CONFIGS, both branches, on
-    a world of one NCCL rank and on four virtual ranks; one JSON line."""
+    a world of one NCCL rank and on four virtual ranks; one JSON line. A
+    package before K6 or K7 is traced without their records."""
     sys.path.insert(0, os.path.abspath(root))
     import importlib.util
 
@@ -5388,16 +5680,19 @@ def episode_commit(root: str) -> int:
     from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode
 
     k6 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.world_step") is not None
+    k7 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.solve_tail") is not None
 
     def row(ctrl, run, label: str, fleet: bool = False, per_update=None) -> dict:
         run(ctrl)  # captures
         graph = _timed(lambda: run(ctrl))
         eager = _timed(lambda: run(ctrl, capture=False))
         n = len(graph[0].us)
-        t = replay_trace(ctrl, label, fleet=fleet, per_update=per_update, world_kernel=k6)
+        t = replay_trace(ctrl, label, fleet=fleet, per_update=per_update, world_kernel=k6,
+                         tail_kernel=k7)
         return dict(graph_ms=graph[1] * 1e3 / n, eager_ms=eager[1] * 1e3 / n, kernels=t["kernels"],
                     busy_ms=t["busy_ms"], k12_share=t["k12_share"], idle=t["idle"],
-                    untraced_ms=t["untraced_ms"], k6_per_cycle=t["k6_per_cycle"])
+                    untraced_ms=t["untraced_ms"], k6_per_cycle=t["k6_per_cycle"],
+                    k7_per_cycle=t["k7_per_cycle"], top=t["top"])
 
     configs = {name: row(MPPIController(_episode_config(name), device="cuda"), run_episode_jit, name)
                for name in EPISODE_CONFIGS}
@@ -5417,7 +5712,7 @@ def episode_commit(root: str) -> int:
                         "solve_partials": mesh.size, "softmin_combine": mesh.size,
                         "weighted_update": 0 if onepass else mesh.size})
     print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "smi": _smi(),
-                      "world_kernel": k6, "configs": configs, "fleets": fleets,
+                      "world_kernel": k6, "tail_kernel": k7, "configs": configs, "fleets": fleets,
                       "sharded": sharded}))
     return 0
 

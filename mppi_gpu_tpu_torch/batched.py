@@ -34,26 +34,18 @@ import torch
 
 from mppi_gpu_tpu_torch.config import MPPIConfig
 from mppi_gpu_tpu_torch.controller import (
+    FULL,
     MPPIController,
-    SolveInfo,
     SolveResult,
+    _finish,
     _finish_fused,
-    solve_from_costs,
+    softmin_update,
 )
 from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops import families, philox
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops.cost import Cost, batch_goals, has_goal, with_goal
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
-
-
-def _stack_results(results: list[SolveResult]) -> SolveResult:
-    """R single-robot results → one whose every leaf has a leading R axis."""
-    return SolveResult(
-        action=torch.stack([r.action for r in results]),
-        u_next=torch.stack([r.u_next for r in results]),
-        info=SolveInfo(*(torch.stack(v) for v in zip(*(r.info for r in results)))),
-    )
 
 
 class BatchedMPPIController(MPPIController):
@@ -124,11 +116,13 @@ class BatchedMPPIController(MPPIController):
 
     # -- solves ------------------------------------------------------------
     def _solve_robots(self, xs, Us, seeds, step, it: int, robots: range,
-                      eps=None) -> SolveResult:
+                      eps=None, outputs=FULL, into=None) -> SolveResult:
         """One update of the fleet's robots `robots`, whose rows of xs, Us,
         seeds (and of eps (R, T, K, a) in the injected-ε mode) are given: on
-        the fused backend one launch of K1 and one of K2, then the tail;
-        robot by robot on the eager one."""
+        the fused backend one launch of K1 and one of K2, on the eager one
+        the rollouts and the softmin robot by robot; then one tail for the
+        fleet, computing `outputs` only (the shifted sequences into `into`
+        when given)."""
         cfg = self.cfg
         goals = families.call_goal(self._family, self.cost)
         if self.rollout_backend == "fused":
@@ -138,18 +132,22 @@ class BatchedMPPIController(MPPIController):
                 cfg.lambda_, K, seeds, step, it, anti, cfg.noise_beta, eps=eps,
                 n_robots=self.n_robots,
             )
-            return _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action)
+            return _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action,
+                                 outputs, into)
         # the seeds stay on the device: a solve reads nothing from it
         seed_list = seeds.unbind(0) if eps is None else [0] * len(robots)
-        out = []
+        rows = []
         for i, r in enumerate(robots):
             e = self._eps(seed_list[i], step, it) if eps is None else eps[i]
             S = rollout_costs(self.dynamics, self._robot_cost(r), xs[i], Us[i], e)
-            out.append(solve_from_costs(S, e, Us[i], self.lambda_, self.max_a, clamp=cfg.clamp_action))
-        return _stack_results(out)
+            sm, dU = softmin_update(S, e, self.lambda_)
+            rows.append((S, sm.beta, sm.eta, sm.weights, dU))
+        S, beta, eta, weights, dU = (torch.stack(v) for v in zip(*rows))
+        return _finish(Us, dU, S, beta, eta, weights, self.max_a, cfg.clamp_action, outputs, into)
 
-    def _solve_once(self, xs, Us, seeds, step, it: int) -> SolveResult:
-        return self._solve_robots(xs, Us, seeds, step, it, range(self.n_robots))
+    def _solve_once(self, xs, Us, seeds, step, it: int, outputs=FULL, into=None) -> SolveResult:
+        return self._solve_robots(xs, Us, seeds, step, it, range(self.n_robots), outputs=outputs,
+                                  into=into)
 
     def solve(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step=0, *,
               capture: bool = True) -> SolveResult:

@@ -1,6 +1,7 @@
 // K6 world_advance: one control cycle of a ground-truth world for R robots in
 // one launch, bound to Python with ctypes (mppi_gpu_tpu_torch/ops/_build.py,
-// ops/world_step.py).
+// ops/world_step.py). In the device episode the same launch also writes the
+// cycle's next x and advances the control-step counter.
 //
 // It replaces, on a CUDA device, the torch operations of `World.advance`
 // (envs/base.py): steps_per_control RK4 steps of the world's physics_step,
@@ -356,8 +357,9 @@ struct AdvanceArgs {
   float* xs;                    // (n_hist + 1, R, kS) or null
   float* us;                    // (n_hist, R, kA)
   float* ts;                    // (n_hist,) shared clock, (n_hist, R) per robot
-  const long long* step_ptr;    // the history row, read on the device
-  int u_stride, R, per_robot_clock, steps, n_hist;
+  long long* step_ptr;          // the history row, read on the device
+  float* x_out;                 // (R, kS) the new x, or null
+  int u_stride, R, per_robot_clock, steps, n_hist, tick;
 };
 
 template <class W>
@@ -397,6 +399,10 @@ __global__ void __launch_bounds__(kMaxThreads) world_advance_kernel(const Advanc
     }
     if (a.per_robot_clock) a.time_out[r] = t;
     else shared_new = t;
+    if (a.x_out != nullptr) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) a.x_out[r * S + i] = x[i];
+    }
     if (hist) {
       float* xr = a.xs + ((row + 1) * a.R + r) * S;
 #pragma unroll
@@ -407,12 +413,15 @@ __global__ void __launch_bounds__(kMaxThreads) world_advance_kernel(const Advanc
       if (a.per_robot_clock) a.ts[row * a.R + r] = t;
     }
   }
-  if (!a.per_robot_clock) {
-    __syncthreads();  // every robot has read the shared clock
+  if (!a.per_robot_clock || a.tick) {
+    __syncthreads();  // every robot has read the shared clock and the counter
     if (threadIdx.x == 0) {
-      // thread 0 ran robot 0, so shared_new is the clock after the cycle
-      a.time_out[0] = shared_new;
-      if (hist) a.ts[row] = shared_new;
+      if (!a.per_robot_clock) {
+        // thread 0 ran robot 0, so shared_new is the clock after the cycle
+        a.time_out[0] = shared_new;
+        if (hist) a.ts[row] = shared_new;
+      }
+      if (a.tick) *a.step_ptr = row + 1;  // the episode's next control step
     }
   }
 }
@@ -463,15 +472,19 @@ int mppi_world_layout(int world, int* widths, int* n_params, int* action_dim) {
 // u + r·u_stride (a fleet's action is a column of its sequences); params:
 // n_params floats. With xs
 // non-null and a row = *step_ptr in [0, n_hist): xs[row + 1] = the new x
-// (R, S), us[row] = u, ts[row] = the new clock ((R,) per robot). Refuses
+// (R, S), us[row] = u, ts[row] = the new clock ((R,) per robot). With x_out
+// non-null, x_out = the new x (R, S) as well (the device episode's next
+// solve reads it); with `tick`, *step_ptr = row + 1 once every robot is
+// done (the episode's counter advanced in the same launch). Refuses
 // (cudaErrorInvalidValue) another leaf count, pack length or action dim than
-// the world's, R outside [1, 65535] or steps < 0.
+// the world's, R outside [1, 65535], steps < 0, or `tick` without step_ptr.
 int mppi_world_advance(int world, const void* const* in, void* const* out, int n_leaves,
                        const float* time_in, float* time_out, int per_robot_clock,
                        const float* u, int u_stride, int A, const float* params, int n_params,
                        int R, int steps, float* xs, float* us, float* ts, int n_hist,
-                       const long long* step_ptr, void* stream) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves || R < 1 || R > 65535 || steps < 0 || u_stride < A)
+                       long long* step_ptr, float* x_out, int tick, void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || R < 1 || R > 65535 || steps < 0 || u_stride < A
+      || (tick && step_ptr == nullptr))
     return (int)cudaErrorInvalidValue;
   AdvanceArgs a{};
   for (int l = 0; l < n_leaves; ++l) {
@@ -487,6 +500,8 @@ int mppi_world_advance(int world, const void* const* in, void* const* out, int n
   a.us = us;
   a.ts = ts;
   a.step_ptr = step_ptr;
+  a.x_out = x_out;
+  a.tick = tick;
   a.R = R;
   a.per_robot_clock = per_robot_clock;
   a.steps = steps;

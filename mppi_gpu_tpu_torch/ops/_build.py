@@ -2,8 +2,9 @@
 
 ``load_library()`` compiles ``mppi_gpu_tpu_torch/csrc/*.cu`` with ``nvcc``
 into one shared library with a plain C interface and loads it: the solve's
-kernels (``mppi_solve.cu``, K1-K5) and the world step (``world_step.cu``,
-K6), each file its own translation unit. It runs at the
+kernels (``mppi_solve.cu``, K1-K5), the world step (``world_step.cu``, K6)
+and the solve's tail (``solve_tail.cu``, K7), each file its own translation
+unit. It runs at the
 first kernel launch on a CUDA device; importing the package, or running on
 the CPU, never builds.
 
@@ -19,9 +20,10 @@ that struct, with ``mppi_solve_partials``'s arguments less the family id.
   edited source, header or flag builds anew and an unchanged one is reused;
   a family's ``libfamily_<hash>.so``, the hash over the header, the user's
   source, the struct's name, A and the flags.
-* The compiler writes to a temporary file in the same directory that is then
-  renamed into place (atomic on POSIX), so concurrent processes never load a
-  half-written library.
+* Each source compiles in its own ``nvcc`` process, all started together,
+  into an object in a temporary directory beside the library; the objects
+  are linked there and the library renamed into place (atomic on POSIX), so
+  concurrent processes never load a half-written library.
 * ``nvcc`` is looked up on ``PATH``, then under ``$CUDA_HOME/bin`` and
   ``/usr/local/cuda/bin``; without it, or when it fails, the build raises
   with the compiler's output. Nothing falls back to the plain versions.
@@ -42,7 +44,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mppi_gpu_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _p, _i, _u, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
@@ -59,7 +61,10 @@ _SIGNATURES = {
     # csrc/world_step.cu (K6)
     "mppi_world_layout": ([_i, _ip, _ip, _ip], _i),
     "mppi_world_advance": ([_i, _pp, _pp, _i, _p, _p, _i, _p, _i, _i, _p, _i, _i, _i, _p, _p, _p,
-                            _i, _p, _p], _i),
+                            _i, _p, _p, _i, _p], _i),
+    # csrc/solve_tail.cu (K7)
+    "mppi_solve_tail": ([_p, _p, _p, _i, _p, _p, _p, _p, _p, _i, _p, _i, _f, _p, _i, _i, _i, _i, _p],
+                        _i),
 }
 
 
@@ -102,31 +107,33 @@ def library_path() -> Path:
 
 
 def _compile(lib: Path, sources: list[str], extra: tuple[str, ...] = ()) -> None:
-    """nvcc `sources` into `lib` through a temporary file renamed into place;
-    the compiler's messages (``-Xptxas -v``: registers, shared memory, spills
-    per kernel) are kept beside it as ``<lib>.log``. Raises with the
-    compiler's output if it fails."""
+    """nvcc each of `sources` into an object, one process per source, all
+    started together, then link the objects into `lib` through a temporary
+    directory beside it, renamed into place; the compiler's messages
+    (``-Xptxas -v``: registers, shared memory, spills per kernel) are kept
+    beside it as ``<lib>.log``, in the order of `sources`. Raises with the
+    compiler's output if a step fails."""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", tmp, *sources]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+
+    def check(cmd, proc, log) -> str:
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        log = lib.with_suffix(".log")
-        log_tmp = Path(tmp + ".log")
-        log_tmp.write_text(proc.stdout + proc.stderr)
-        os.replace(log_tmp, log)
-        os.replace(tmp, lib)
-    finally:
-        for leftover in (tmp, tmp + ".log"):
-            if os.path.exists(leftover):
-                os.unlink(leftover)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        return log
+
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{i}.o") for i in range(len(sources))]
+        cmds = [[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj, src] for obj, src in zip(objs, sources)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]  # every process ends before a raise
+        logs = [check(cmd, proc, out) for cmd, proc, out in zip(cmds, procs, outs)]
+        out, log = os.path.join(tmp, "lib.so"), os.path.join(tmp, "lib.log")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        Path(log).write_text("".join(logs) + check(cmd, proc, proc.stdout))
+        os.replace(log, lib.with_suffix(".log"))
+        os.replace(out, lib)
 
 
 def build() -> Path:

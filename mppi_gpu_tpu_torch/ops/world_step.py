@@ -9,9 +9,10 @@ dispatch between them.
   subclass from user code has no kernel and always runs its own torch
   operations (the choice is made by the world's class, never by trying).
 * :func:`advance_into` — the device episode's step (``runner.EpisodeCycle``):
-  the cycle written into the state's own buffers, and x_new, u and the new
-  time into the histories at the row a 0-dim int64 device counter holds
-  (xs[step + 1], us[step], ts[step]), all in the one launch on a CUDA device.
+  the cycle written into the state's own buffers, x_new, u and the new time
+  into the histories at the row a 0-dim int64 device counter holds
+  (xs[step + 1], us[step], ts[step]), x_new into the cycle's x buffer, and
+  the counter advanced, all in the one launch on a CUDA device.
 * :func:`plain_advance` — K6's plain version: ``physics_step``
   ``steps_per_control`` times, then a robot whose clock was at or past
   ``sim_end`` before the cycle keeps its old state (one shared 0-dim clock
@@ -128,15 +129,17 @@ def advance(world, state, u: torch.Tensor):
 
 
 def advance_into(world, state, u: torch.Tensor, xs: torch.Tensor, us: torch.Tensor,
-                 ts: torch.Tensor, step: torch.Tensor) -> None:
+                 ts: torch.Tensor, step: torch.Tensor, x: torch.Tensor) -> None:
     """One control cycle written into `state`'s own leaves, then xs[step + 1]
     = the new x, us[step] = u, ts[step] = the new clock, at the row the 0-dim
-    int64 `step` holds on the device: one launch of K6 on a CUDA device
-    (every buffer contiguous float32 but `u`, whose robots may be strided,
-    as a fleet's action, a column of its sequences, is), else
-    :func:`advance` and the copies."""
-    if has_kernel(world) and _on_cuda((*state, u, xs, us, ts, step)):
-        _launch_world(world, state, u, state, (xs, us, ts, step))
+    int64 `step` holds on the device, the new x into `x` ((s,) or (R, s), the
+    next solve's input), and the counter advanced by one after those
+    writes. One launch of K6 on a CUDA device (every buffer contiguous
+    float32 but `u`, whose robots may be strided, as a fleet's action, a
+    column of its sequences, is), else :func:`advance`, the copies and the
+    add."""
+    if has_kernel(world) and _on_cuda((*state, u, xs, us, ts, step, x)):
+        _launch_world(world, state, u, state, (xs, us, ts, step, x))
         return
     new = world.advance(state, u)
     for buf, v in zip(state, new):
@@ -145,6 +148,8 @@ def advance_into(world, state, u: torch.Tensor, xs: torch.Tensor, us: torch.Tens
     xs.index_copy_(0, row + 1, new.x.unsqueeze(0))
     us.index_copy_(0, row, u.unsqueeze(0))
     ts.index_copy_(0, row, new.time.unsqueeze(0))
+    x.copy_(new.x)
+    step.add_(1)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple[int, ...], contiguous: bool = True) -> None:
@@ -174,7 +179,8 @@ def _check_layout(lib, kind: str, n_params: int) -> None:
 
 def _launch_world(world, state, u, out, hist=None) -> None:
     """Check the inputs and launch K6 from `state` into `out` (which may be
-    `state`: in place), with `hist` = (xs, us, ts, step) the history writes."""
+    `state`: in place), with `hist` = (xs, us, ts, step, x) the episode's
+    writes: the histories, the new x and the counter's advance."""
     kind = world._kernel_kind
     wid, shapes, A, _ = WORLDS[kind]
     leaves, time = tuple(state)[:-1], state.time
@@ -201,9 +207,9 @@ def _launch_world(world, state, u, out, hist=None) -> None:
     params = world._packs.get(time.device)
     if params is None:
         params = world._packs.setdefault(time.device, pack(world, time.device))
-    xs = us = ts = step = None
+    xs = us = ts = step = x = None
     if hist is not None:
-        xs, us, ts, step = hist
+        xs, us, ts, step, x = hist
         n = us.shape[0]
         S = sum(math.prod(s) for s in shapes)
         _check("xs", xs, (n + 1, *lead, S))
@@ -212,6 +218,7 @@ def _launch_world(world, state, u, out, hist=None) -> None:
         if step.dtype != torch.int64 or step.dim() != 0:
             raise TypeError(f"K6: the step is a 0-dim int64 tensor, got {step.dtype} "
                             f"{tuple(step.shape)}")
+        _check("x", x, (*lead, S))
     from mppi_gpu_tpu_torch.ops import _build  # built at the first launch, not at import
 
     lib = _build.load_library()
@@ -224,7 +231,8 @@ def _launch_world(world, state, u, out, hist=None) -> None:
         params.data_ptr(), params.numel(), R, world.params.steps_per_control,
         xs.data_ptr() if xs is not None else None, us.data_ptr() if us is not None else None,
         ts.data_ptr() if ts is not None else None, us.shape[0] if us is not None else 0,
-        step.data_ptr() if step is not None else None,
+        step.data_ptr() if step is not None else None, x.data_ptr() if x is not None else None,
+        int(hist is not None),
     ):
         _LAUNCHES[kind] += 1
 

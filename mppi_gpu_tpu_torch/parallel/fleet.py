@@ -21,7 +21,7 @@ import torch
 
 from mppi_gpu_tpu_torch.batched import BatchedMPPIController
 from mppi_gpu_tpu_torch.config import MPPIConfig
-from mppi_gpu_tpu_torch.controller import SolveInfo, SolveResult
+from mppi_gpu_tpu_torch.controller import FULL, SolveInfo, SolveResult
 from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops.cost import Cost
 from mppi_gpu_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -55,22 +55,30 @@ class ShardedFleetController(BatchedMPPIController):
 
     def _gather(self, parts: list[SolveResult]) -> SolveResult:
         """The local ranks' results → every robot's, in robot order: one
-        all_gather of their leaves packed into rows of floats."""
-        leaves = [torch.cat(v) for v in zip(*([p.action, p.u_next, *p.info] for p in parts))]
-        rows = self.mesh.all_gather(torch.cat([v.reshape(v.shape[0], -1) for v in leaves], 1))
-        widths = [v[0].numel() for v in leaves]
-        out = [w.reshape(-1, *v.shape[1:]) for w, v in zip(rows.split(widths, 1), leaves)]
+        all_gather of their leaves packed into rows of floats (a leaf the
+        solve did not compute, None, stays None)."""
+        fields = zip(*([p.action, p.u_next, *p.info] for p in parts))
+        leaves = [None if v[0] is None else torch.cat(v) for v in fields]
+        present = [v for v in leaves if v is not None]
+        rows = self.mesh.all_gather(torch.cat([v.reshape(v.shape[0], -1) for v in present], 1))
+        gathered = iter(w.reshape(-1, *v.shape[1:])
+                        for w, v in zip(rows.split([v[0].numel() for v in present], 1), present))
+        out = [None if v is None else next(gathered) for v in leaves]
         return SolveResult(out[0], out[1], SolveInfo(*out[2:]))
 
     def _solve_identity(self) -> tuple:
         return (*super()._solve_identity(), id(self.mesh))
 
-    def _solve_once(self, xs, Us, seeds, step, it: int) -> SolveResult:
-        return self._gather([
+    def _solve_once(self, xs, Us, seeds, step, it: int, outputs=FULL, into=None) -> SolveResult:
+        """Each local rank's robots (their tails computing `outputs` only),
+        gathered; the whole fleet's shifted sequences then copied into `into`
+        when given, once every rank has read Us."""
+        res = self._gather([
             self._solve_robots(xs[r.start:r.stop], Us[r.start:r.stop], seeds[r.start:r.stop],
-                               step, it, r)
+                               step, it, r, outputs=outputs)
             for r in self._local
         ])
+        return res if into is None else res._replace(u_next=into.copy_(res.u_next))
 
     def solve_with_eps(self, xs: torch.Tensor, Us: torch.Tensor, eps: torch.Tensor) -> SolveResult:
         """Deterministic fleet solve on the injected ε (R, T, K, a), the same

@@ -40,6 +40,7 @@ import torch
 
 from mppi_gpu_tpu_torch.config import MPPIConfig
 from mppi_gpu_tpu_torch.controller import (
+    FULL,
     MPPIController,
     SolveResult,
     _finish_fused,
@@ -50,6 +51,7 @@ from mppi_gpu_tpu_torch.ops import families, philox
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops.cost import Cost
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs, rollout_trajectories
+from mppi_gpu_tpu_torch.ops.solve_tail import softmin_of
 from mppi_gpu_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 # all-reduces per update of each branch (tests/test_torch_sharded.py counts them)
@@ -112,10 +114,11 @@ def _eager_core(dyn: Dynamics, cost: Cost, x0, U, eps, lam: float):
 def _solve_once(
     mesh: Mesh, backend: str, fam, dyn: Dynamics, cost: Cost, x0, U, sigma, lam: float, max_a,
     *, K: int, clamp: bool, antithetic: bool, ou_beta: float, onepass: bool, seed: int,
-    step: int, it: int, eps=None,
+    step: int, it: int, eps=None, outputs=FULL, into=None,
 ) -> SolveResult:
     """One sharded update of U for (seed, step, it), or on the injected ε
-    (T, K, A) of which rank d takes its slice."""
+    (T, K, A) of which rank d takes its slice; its tail (K7 on the card, the
+    same on every rank, after the collectives) computes `outputs` only."""
     anti = antithetic and eps is None
     k_loc = rollouts_per_rank(K, mesh.size, anti)
     T = U.shape[0]
@@ -148,7 +151,7 @@ def _solve_once(
             else fs.weighted_update_reference(w_d, noise[d])
             for d, w_d in zip(ranks, w)
         ]), "sum")
-    return _finish_fused(U, dU, S.reshape(-1), beta, eta, lam, max_a, clamp)
+    return _finish_fused(U, dU, S.reshape(-1), beta, eta, lam, max_a, clamp, outputs, into)
 
 
 def sharded_mppi_solve(
@@ -203,14 +206,15 @@ class ShardedMPPIController(MPPIController):
     def _solve_identity(self) -> tuple:
         return (*super()._solve_identity(), id(self.mesh), self.onepass)
 
-    def _solve_once(self, x, U, seed: int, step, it: int, eps=None) -> SolveResult:
+    def _solve_once(self, x, U, seed: int, step, it: int, outputs=FULL, into=None,
+                    eps=None) -> SolveResult:
         cfg = self.cfg
         return _solve_once(
             self.mesh, self.rollout_backend, self._family, self.dynamics, self.cost, x, U,
             self.sigma, cfg.lambda_, self.max_a,
             K=cfg.samples if eps is None else eps.shape[1], clamp=cfg.clamp_action,
             antithetic=cfg.antithetic, ou_beta=cfg.noise_beta, onepass=self.onepass, seed=seed,
-            step=step, it=it, eps=eps,
+            step=step, it=it, eps=eps, outputs=outputs, into=into,
         )
 
     def solve_with_eps(self, x: torch.Tensor, U: torch.Tensor, eps: torch.Tensor) -> SolveResult:
@@ -241,5 +245,5 @@ class ShardedMPPIController(MPPIController):
         else:
             eps = self._eps(seed, step, it)
         S, xs = rollout_trajectories(self.dynamics, self.cost, x, U, eps)
-        weights = torch.exp(-(S - res.info.beta) / cfg.lambda_) / res.info.eta
+        weights = softmin_of(S, res.info.beta, res.info.eta, cfg.lambda_)
         return res._replace(info=res.info._replace(costs=S, weights=weights)), eps, xs

@@ -18,10 +18,11 @@ Three entry points:
   (``graphs.SolveGraph``); ``capture=False`` launches it op by op.
 * :func:`run_episode_jit` — the whole episode on the controller's device with
   no host round trip: one control cycle (every opt iteration of the solve,
-  the world's step and the writes into the histories, one launch of the
-  world-step kernel, ``ops/world_step.advance_into``) captured once as a
-  CUDA graph and replayed once per cycle; for a sharded controller the
-  ranks' collectives are captured in it.
+  its last tail shifting U in place, ``MPPIController.solve_in_place``; the
+  world's step, the writes into the histories and the counter's advance,
+  one launch of the world-step kernel, ``ops/world_step.advance_into``)
+  captured once as a CUDA graph and replayed once per cycle; for a sharded
+  controller the ranks' collectives are captured in it.
 * :func:`run_fleet_episode` — the same for R robots: one fleet solve and one
   batched world step per cycle (counterpart of ``run_fleet_episode_jit``),
   sharded or not.
@@ -232,14 +233,18 @@ def _device_world(fn: str, world_backend: str) -> None:
 
 class EpisodeCycle:
     """One control cycle of an on-device episode over buffers that live as
-    long as it does: the world state, the nominal sequence(s) U, the control
-    step (a 0-dim int64 counter on the device) and the histories xs (N+1, ...),
-    us (N, ...), ts (N, ...) (one time per row, or per robot and row under
-    per-robot clocks). :meth:`cycle` solves at the counter's step (every opt
-    iteration), advances the world in the state's buffers and writes x, u
-    and the time at the counter's row (``ops.world_step.advance_into``: one
-    launch of K6 on a CUDA device), and increments the counter, reading
-    nothing from the device.
+    long as it does: the world state, its x (the solve's input, (s,) or
+    (R, s)), the nominal sequence(s) U, the control step (a 0-dim int64
+    counter on the device) and the histories xs (N+1, ...), us (N, ...), ts
+    (N, ...) (one time per row, or per robot and row under per-robot
+    clocks). :meth:`cycle` solves at the counter's step (every opt
+    iteration; ``solve`` returns the action and shifts U in place, on the
+    card the last update's tail one launch of K7), then advances the world
+    in the state's buffers, writes x, u and the time at the counter's row,
+    the new x into the x buffer and increments the counter
+    (``ops.world_step.advance_into``: one launch of K6 on a CUDA device),
+    reading nothing from the device. At one opt iteration a fused cycle is
+    four kernels: K1, K2, K7 and K6.
 
     On a CUDA device :meth:`run` captures the cycle once as a CUDA graph and
     replays it once per control cycle; ``capture=False`` runs the same cycle
@@ -259,9 +264,10 @@ class EpisodeCycle:
                      ctrl.max_a)
         self.state = type(state0)(*(leaf.clone(memory_format=torch.contiguous_format)
                                     for leaf in state0))
-        self.U = U0.clone()
-        self.step = torch.zeros((), dtype=torch.int64, device=dev)
         x0 = state0.x
+        self.x = x0.clone(memory_format=torch.contiguous_format)  # the solve's input; K6 writes it
+        self.U = U0.clone(memory_format=torch.contiguous_format)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
         self.xs = torch.empty((n + 1, *x0.shape), **f32)
         self.us = torch.empty((n, *U0.shape[:-2], U0.shape[-1]), **f32)
         self.ts = torch.empty((n, *state0.time.shape), **f32)
@@ -269,11 +275,9 @@ class EpisodeCycle:
         self.graph = None
 
     def cycle(self) -> None:
-        action, u_next = self.solve(self.state.x, self.U, self.step)
+        action = self.solve(self.x, self.U, self.step)
         world_step.advance_into(self.world, self.state, action, self.xs, self.us, self.ts,
-                                self.step)
-        self.U.copy_(u_next)
-        self.step.add_(1)
+                                self.step, self.x)
 
     def _capture(self) -> None:
         """Warm one cycle up on a side stream, then capture one cycle
@@ -292,6 +296,7 @@ class EpisodeCycle:
             self._capture()
         for buf, v in zip(self.state, state0):
             buf.copy_(v)
+        self.x.copy_(state0.x)
         self.U.copy_(U0)
         self.step.zero_()
         self.xs[0].copy_(state0.x)
@@ -340,8 +345,9 @@ def run_episode_jit(
     """The whole episode on the controller's device, with no host round
     trip: the counterpart of the JAX package's whole-episode ``lax.scan``
     under jit. On a CUDA device one control cycle — the solve (every opt
-    iteration: K1 + K2 and the tail), the world's ``advance`` and the write
-    into the histories at the step a device counter holds — is captured once
+    iteration: K1, K2 and the tail K7, which shifts U in place), the world's
+    ``advance``, the writes into the histories at the step a device counter
+    holds and the counter's advance (K6) — is captured once
     as a CUDA graph (:class:`EpisodeCycle`, cached per controller) and
     replayed `num_steps` times (default: the episode's
     ``num_control_steps()``); ``capture=False`` runs the same cycle eagerly.
@@ -370,8 +376,7 @@ def run_episode_jit(
     U0 = ctrl.init_action_seq()
 
     def solve(x, U, step):
-        res = ctrl.solve(x, U, seed, step, capture=False)
-        return res.action, res.u_next
+        return ctrl.solve_in_place(x, U, seed, step)
 
     key = cycle_key(ctrl, "single", params, None, state0.x.shape, n, seed)
     cyc = _episode_cycle(ctrl, "single", key, lambda: EpisodeCycle(ctrl, world, state0, U0, n, solve))
@@ -417,8 +422,7 @@ def run_fleet_episode(
         seeds = ctrl.init_seeds()
 
         def solve(xs, Us, step):
-            res = ctrl.solve_batch(xs, Us, seeds, step, capture=False)
-            return res.action, res.u_next
+            return ctrl.solve_in_place(xs, Us, seeds, step)
 
         return EpisodeCycle(ctrl, world, state0, Us0, n, solve)
 

@@ -262,9 +262,11 @@ def test_cuda_bound_cycle_passes_its_buffers(monkeypatch, name, per_robot):
     """Device-free: a CUDA-bound cycle calls K6's entry once with the world's
     id, the state's leaves (in place for ``advance_into``, new buffers for
     ``advance``), the clock and its layout, u and A, the world's pack, R,
-    steps_per_control, and the histories and the step counter by address
-    (the fleet's action strided, as a column of its sequences, by its robot
-    stride); the launch counts under the world's kind."""
+    steps_per_control, and for ``advance_into`` the histories, the step
+    counter and the episode's x buffer by address with the counter's
+    advance asked for (the fleet's
+    action strided, as a column of its sequences, by its robot stride); the
+    launch counts under the world's kind."""
     calls = _stub(monkeypatch)
     cfg, _ = _configs(name)
     world = make_world(cfg)
@@ -278,13 +280,14 @@ def test_cuda_bound_cycle_passes_its_buffers(monkeypatch, name, per_robot):
     n = 6
     hx, hu = torch.zeros(n + 1, R, cfg.state_dim), torch.zeros(n, R, cfg.action_dim)
     ht, step = torch.zeros(n, *clock.shape), torch.tensor(3)
-    ws.advance_into(world, state, u, hx, hu, ht, step)
+    xb = torch.zeros(R, cfg.state_dim)
+    ws.advance_into(world, state, u, hx, hu, ht, step, xb)
     new = world.advance(state, u)
     assert len(calls) == 2 and ws.launch_counts()[ws.pack_fields(world)[0]] == 2
     kind, _ = ws.pack_fields(world)
     for args, out, hist in ((calls[0], state, True), (calls[1], new, False)):
         (wid, ins, outs, n_leaves, t_in, t_out, per, u_ptr, u_stride, A, params, n_params, r,
-         steps, px, pu, pt, n_hist, step_ptr) = args[:-1]
+         steps, px, pu, pt, n_hist, step_ptr, x_ptr, tick) = args[:-1]
         assert args[-1] == 5  # the stream
         assert wid == ws.WORLDS[kind][0] and n_leaves == len(state) - 1
         assert list(ins)[:n_leaves] == [leaf.data_ptr() for leaf in state[:-1]]
@@ -297,8 +300,9 @@ def test_cuda_bound_cycle_passes_its_buffers(monkeypatch, name, per_robot):
         if hist:
             assert (px, pu, pt, n_hist, step_ptr) == (hx.data_ptr(), hu.data_ptr(), ht.data_ptr(),
                                                       n, step.data_ptr())
+            assert (x_ptr, tick) == (xb.data_ptr(), 1)
         else:
-            assert (px, pu, pt, n_hist, step_ptr) == (None, None, None, 0, None)
+            assert (px, pu, pt, n_hist, step_ptr, x_ptr, tick) == (None, None, None, 0, None, None, 0)
     assert all(a.data_ptr() != b.data_ptr() for a, b in zip(new, state))
     assert [tuple(a.shape) for a in new] == [tuple(b.shape) for b in state]
 
@@ -337,16 +341,19 @@ def test_user_world_runs_its_own_operations(monkeypatch):
     steps = world.params.steps_per_control
     assert torch.equal(new.th, state.th * 2.0**steps) and torch.equal(new.thd, state.thd + steps)
     xs, us, ts = torch.zeros(3, 3, 2), torch.zeros(2, 3, 1), torch.zeros(2)
-    ws.advance_into(world, state, u, xs, us, ts, torch.tensor(0))
+    x, step = torch.zeros(3, 2), torch.tensor(0)
+    ws.advance_into(world, state, u, xs, us, ts, step, x)
     assert torch.equal(state.th, new.th) and torch.equal(xs[1], new.x) and ts[0] == new.time
+    assert torch.equal(x, new.x) and int(step) == 1
     assert not calls
 
 
 def test_failed_or_refused_launch_raises(monkeypatch):
     """A non-zero return of the entry raises (no fallback to the plain
     loop); so do a non-contiguous leaf, a float64 action, a step that is
-    not a 0-dim int64 and an action whose robot's entries are not side by
-    side or whose robots share them, before any launch."""
+    not a 0-dim int64, an action whose robot's entries are not side by
+    side or whose robots share them, and an x buffer of another shape,
+    before any launch."""
     calls = _stub(monkeypatch, rc=700)
     cfg, _ = _configs("arm")
     world = make_world(cfg)
@@ -356,17 +363,20 @@ def test_failed_or_refused_launch_raises(monkeypatch):
         world.advance(state, u)
     assert len(calls) == 1 and sum(ws.launch_counts().values()) == 0
     hist = (torch.zeros(3, 4, 4), torch.zeros(2, 4, 2), torch.zeros(2))
+    x = torch.zeros(4, 4)
     strided = type(state)(q=torch.zeros(4, 8)[:, ::2], time=state.time)
     with pytest.raises(ValueError, match="contiguous"):
-        ws.advance_into(world, strided, u, *hist, torch.tensor(0))
+        ws.advance_into(world, strided, u, *hist, torch.tensor(0), x)
     with pytest.raises(TypeError, match="float32"):
-        ws.advance_into(world, state, u.double(), *hist, torch.tensor(0))
+        ws.advance_into(world, state, u.double(), *hist, torch.tensor(0), x)
     with pytest.raises(TypeError, match="0-dim int64"):
-        ws.advance_into(world, state, u, *hist, torch.tensor([0]))
+        ws.advance_into(world, state, u, *hist, torch.tensor([0]), x)
     with pytest.raises(ValueError, match="side by side"):
-        ws.advance_into(world, state, torch.zeros(2, 4).t(), *hist, torch.tensor(0))
+        ws.advance_into(world, state, torch.zeros(2, 4).t(), *hist, torch.tensor(0), x)
     with pytest.raises(ValueError, match="side by side"):  # one action for every robot
-        ws.advance_into(world, state, torch.zeros(2).expand(4, 2), *hist, torch.tensor(0))
+        ws.advance_into(world, state, torch.zeros(2).expand(4, 2), *hist, torch.tensor(0), x)
+    with pytest.raises(ValueError, match="x must have shape"):
+        ws.advance_into(world, state, u, *hist, torch.tensor(0), torch.zeros(4, 3))
     assert len(calls) == 1
 
 
@@ -384,9 +394,10 @@ def test_only_a_launch_that_runs_is_counted(monkeypatch, capturing):
 
 @pytest.mark.parametrize("name", ["point_mass2d", "quadrotor"])
 def test_cpu_cycle_writes_the_histories_per_robot_clock(name):
-    """``advance_into`` on the CPU: the state's buffers hold the cycle's
-    result and the histories their rows at the counter, under one clock per
-    robot too (ts of shape (N, R)), equal to ``advance``'s result."""
+    """``advance_into`` on the CPU: the state's buffers and the x buffer hold
+    the cycle's result, the histories their rows at the counter and the
+    counter its next step, under one clock per robot too (ts of shape
+    (N, R)), equal to ``advance``'s result."""
     cfg, _ = _configs(name)
     world = make_world(cfg)
     xs0, us0 = _inputs(name, cfg, 4, 2)
@@ -395,12 +406,12 @@ def test_cpu_cycle_writes_the_histories_per_robot_clock(name):
     ref = world.from_x(torch.from_numpy(xs0), clocks)
     state = type(ref)(*(leaf.clone() for leaf in ref))
     hx, hu, ht = torch.zeros(3, 4, cfg.state_dim), torch.zeros(2, 4, cfg.action_dim), torch.zeros(2, 4)
-    step = torch.tensor(0)
+    step, x = torch.tensor(0), torch.zeros(4, cfg.state_dim)
     for c in range(2):
         u = torch.from_numpy(us0[c])
         ref = world.advance(ref, u)
-        ws.advance_into(world, state, u, hx, hu, ht, step)
-        step.add_(1)
+        ws.advance_into(world, state, u, hx, hu, ht, step, x)
+        assert int(step) == c + 1 and torch.equal(x, ref.x)
         assert torch.equal(state.x, ref.x) and torch.equal(state.time, ref.time)
         assert torch.equal(hx[c + 1], ref.x) and torch.equal(hu[c], u) and torch.equal(ht[c], ref.time)
     assert torch.equal(hx[1:, 2], torch.from_numpy(xs0[2]).expand(2, -1))  # robot 2 held
