@@ -178,13 +178,14 @@ OBSTACLE_REF_MEDIAN_M, OBSTACLE_MEDIAN_SLACK_M = 0.02535, 3 * math.sqrt(2) * 0.0
 FAMILY_ANGLE = {"pendulum": 0, "cartpole": 1}
 FAMILY_INIT_THETA = {"pendulum": 3.14159265, "cartpole": 0.15}
 # the kernels JSON line: K1 once per family instance, then K2, K3, K4 and K5,
-# the bicycle's K1 and K4, and K7 (K6's entries, one per world body, follow)
+# the bicycle's K1 and K4, K7 and K2' (K6's entries, one per world body,
+# follow)
 KERNEL_ENTRIES = ("solve_partials<lti>", "solve_partials<pendulum>", "solve_partials<cartpole>",
                   "solve_partials<unicycle>", "solve_partials<quadrotor>", "solve_partials<arm>",
                   "solve_partials<lti-obstacle,A=2>", "solve_partials<lti-obstacle,A=3>",
                   "solve_partials<quadrotor3d>", "softmin_combine", "noise_dump", "rollout_costs",
                   "weighted_update", "solve_partials<bicycle-demo>", "rollout_costs<bicycle-demo>",
-                  "solve_tail")
+                  "solve_tail", "combine_tail")
 # bar of the fleet's mean final goal distance (point_mass2d, R=8 on the circle
 # of examples/fleet.py, full episode): the JAX package's own fleet ends that
 # episode at 0.364 m on the CPU, so the bar is that figure + 0.05 m
@@ -262,7 +263,8 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
     second pass) rollout_costs<family,A=..,inj=..>, each with ",slab" for
     their slab body (slab_partials_kernel), K3's noise_dump<A=..>, K5's
     weighted_update<A=..,inj=..>, K6's world_advance<World> (PointMass1-3 for
-    the point mass), K7's solve_tail; the family under its name in ops/families (the struct's name, lower
+    the point mass), K7's solve_tail, K2''s combine_tail<World> (NoWorld for
+    the tail alone); the family under its name in ops/families (the struct's name, lower
     case, is the family's without its hyphen), or, for a library built from
     a user family, under the name `structs` maps its struct's to."""
     from mppi_gpu_tpu_torch.ops.families import FAMILY_NAMES
@@ -273,6 +275,10 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
         return f"world_advance<{w.group(1)}{w.group(3) or ''}>"
     if "solve_tail_kernel" in mangled:  # K7
         return "solve_tail"
+    e = re.search(r"combine_tail_kernel\S*?(NoWorld|PointMass|Pendulum|CartPole|Unicycle|Quadrotor3D|"
+                  r"Quadrotor|Arm)(ILi(\d)E)?", mangled)
+    if e:  # K2', one instance per world body and one without
+        return f"combine_tail<{e.group(1)}{e.group(3) or ''}>"
     k = re.search(r"(solve_partials|slab_partials|softmin_combine|noise_dump|weighted_update)_kernel",
                   mangled)
     name = k.group(1) if k else mangled
@@ -1757,14 +1763,17 @@ EPISODE_HOST_TIMED = 100
 
 
 def cycle_kernels(opt_iters: int) -> int:
-    """Kernels per graph cycle of a fused episode: K1, K2 and K7 per update,
-    then K6."""
-    return 3 * opt_iters + 1
-# K1's two bodies and K2, as their records in a trace are named
+    """Kernels per graph cycle of a fused episode: K1 and K2' (K2 with the
+    tail, and in the last update the world's step, as its epilogue) per
+    update."""
+    return 2 * opt_iters
+# K1's two bodies, K2 and K2', as their records in a trace are named
 TRACE_NAMES = {"solve_partials": ("solve_partials_kernel", "slab_partials_kernel"),
-               "softmin_combine": ("softmin_combine_kernel",)}
+               "softmin_combine": ("softmin_combine_kernel",),
+               "combine_tail": ("combine_tail_kernel",)}
 # and K5's; K4 is K1's template without its second pass, under K1's names;
-# K6's, once per control cycle; and K7's, once per update
+# K6's, once per control cycle; and K7's, once per update (the sharded
+# episodes and a package before K2')
 KERNEL_TRACE_NAMES = {**TRACE_NAMES, "weighted_update": ("weighted_update_kernel",),
                       "world_advance": ("world_advance_kernel",),
                       "solve_tail": ("solve_tail_kernel",)}
@@ -1849,7 +1858,7 @@ def solve_records(records) -> dict[str, int]:
 
 def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: bool = False,
                  per_update: dict | None = None, world_kernel: bool = True,
-                 tail_kernel: bool = True) -> dict:
+                 tail_kernel: bool = True, epilogue: bool = True) -> dict:
     """torch.profiler over `cycles` replays of one captured control cycle
     and nothing else. An episode of `cycles` + 2·REPLAY_TRACE_EDGE cycles
     captures the cycle (outside the window) and its step counter is set
@@ -1864,11 +1873,13 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     enter. From
     them, per cycle: the records of each kernel of `per_update` (a key of
     KERNEL_TRACE_NAMES: its records per update; by default one of K1 and
-    one of K2) (checked: that many per update, opt_iters) and K6's (checked:
-    one per cycle, the world's whole step; not with `world_kernel` False, for
-    a package before K6) and K7's (checked: one per update, opt_iters per
-    cycle, whatever the mesh; not with `tail_kernel` False, for a package
-    before K7), NCCL's records
+    one of K2', with `epilogue` False one of K2) (checked: that many per
+    update, opt_iters) and, with `epilogue` False (a sharded controller, a
+    package before K2'), K6's (checked: one per cycle, the world's whole
+    step; not with `world_kernel` False, for a package before K6) and K7's
+    (checked: one per update, opt_iters per cycle, whatever the mesh; not
+    with `tail_kernel` False, for a package before K7); with `epilogue`, no
+    record of K2, K6 or K7; NCCL's records
     and their µs, the kernels (memory copies and sets not counted), the device
     busy ms (Σ of the records' times) and the span ms (the first marker's
     end to the second one's start); the idle share 1 − busy/span, K1 +
@@ -1885,10 +1896,12 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
 
     (run_fleet_episode if fleet else run_episode_jit)(ctrl, num_steps=cycles + 2 * REPLAY_TRACE_EDGE)
     cyc = ctrl._episode_cycles["fleet" if fleet else "single"][1]
-    per_update = per_update or {"solve_partials": 1, "softmin_combine": 1}
+    k2 = "combine_tail" if epilogue else "softmin_combine"
+    per_update = {"softmin_combine": 0, "combine_tail": 0,
+                  **(per_update or {"solve_partials": 1, k2: 1})}
     want = {k: cycles * ctrl.cfg.opt_iters * v for k, v in per_update.items()}
-    want["world_advance"] = cycles if world_kernel else 0
-    want["solve_tail"] = cycles * ctrl.cfg.opt_iters if tail_kernel else 0
+    want["world_advance"] = cycles if world_kernel and not epilogue else 0
+    want["solve_tail"] = cycles * ctrl.cfg.opt_iters if tail_kernel and not epilogue else 0
     held = []
     for window in range(1, 6):
         cyc.step.zero_()
@@ -1940,6 +1953,7 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
                 untraced_ms=start.elapsed_time(end) / cycles,
                 k12_share=solve_us / busy_us, k1_per_cycle=counts["solve_partials"] / cycles,
                 k2_per_cycle=counts["softmin_combine"] / cycles,
+                k2e_per_cycle=counts["combine_tail"] / cycles,
                 k6_per_cycle=counts["world_advance"] / cycles,
                 k7_per_cycle=counts["solve_tail"] / cycles, windows=window,
                 records={k: c / cycles for k, c in counts.items()}, nccl_per_cycle=len(nccl) / cycles,
@@ -1961,18 +1975,21 @@ def solve_trace(label: str, ctrl, x, U, seed, per_update: dict | None = None,
     in a row with a one-step lead-in held only one of the two markers.
     Checked: the kernels' wrappers launched nothing in the window (the
     replays launch from the graph), and each kernel of `per_update` (a
-    key of KERNEL_TRACE_NAMES: its records per update; by default one of K1
-    and one of K2) has that many records per update, opt_iters per step; a
-    window that falls short is read again, three at most. Returns the
-    records per step of each, the device busy ms and the span ms per step
-    and the idle share 1 − busy/span."""
+    key of KERNEL_TRACE_NAMES: its records per update, opt_iters per step;
+    by default, per step, opt_iters of K1, one of K2 (the last update's,
+    before K7) and opt_iters − 1 of K2' (the inner updates', the tail their
+    epilogue)) has that many records; a window that falls short is read
+    again, three at most. Returns the records per step of each, the device
+    busy ms and the span ms per step and the idle share 1 − busy/span."""
     import torch
     from torch.profiler import ProfilerActivity
 
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
 
-    per_update = per_update or {"solve_partials": 1, "softmin_combine": 1}
-    want = {k: steps * ctrl.cfg.opt_iters * v for k, v in per_update.items()}
+    iters = ctrl.cfg.opt_iters
+    want = ({k: steps * iters * v for k, v in per_update.items()} if per_update else
+            {"solve_partials": steps * iters, "softmin_combine": steps,
+             "combine_tail": steps * (iters - 1)})
 
     def loop(n: int) -> None:
         u = U
@@ -2065,11 +2082,32 @@ def _pairs(readings) -> list[tuple[float, float]]:
 
 
 def _trace_line(t: dict) -> str:
-    return (f"{t['kernels']:.1f} kernels, K1 {t['k1_per_cycle']:g}, K2 {t['k2_per_cycle']:g}, "
-            f"K7 {t['k7_per_cycle']:g} and K6 {t['k6_per_cycle']:g} records per cycle; device busy {t['busy_ms']:.4f} of a {t['span_ms']:.4f} ms span per "
-            f"cycle, idle share {t['idle']:.4f}; K1 + K2 {t['k12_share']:.4f} of busy; the same "
+    return (f"{t['kernels']:.1f} kernels, K1 {t['k1_per_cycle']:g}, K2' {t['k2e_per_cycle']:g}, "
+            f"K2 {t['k2_per_cycle']:g}, K7 {t['k7_per_cycle']:g} and K6 {t['k6_per_cycle']:g} "
+            f"records per cycle; device busy {t['busy_ms']:.4f} of a {t['span_ms']:.4f} ms span per "
+            f"cycle, idle share {t['idle']:.4f}; K1 + K2 (or K2') {t['k12_share']:.4f} of busy; the same "
             f"replays untraced (CUDA events) {t['untraced_ms']:.4f} ms per cycle; the largest device "
             f"µs per cycle {t['top']}")
+
+
+def counted(fn) -> tuple[object, dict[str, int]]:
+    """fn()'s result and the launches its kernels' wrappers counted (K1-K5,
+    K2', K7 and K6 by world body), each count set to 0 just before it; only
+    the kernels that launched."""
+    from mppi_gpu_tpu_torch.ops import combine_tail as ct
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
+    mods = (fs, ct, st, ws)
+    for m in mods:
+        m.reset_launch_counts()
+    out = fn()
+    counts = {}
+    for m in mods:
+        for k, v in m.launch_counts().items():
+            counts[k if m is not ws else f"world_advance<{k}>"] = v
+    return out, {k: v for k, v in counts.items() if v}
 
 
 def episode_config_phase(name: str, smi: str) -> dict:
@@ -2086,9 +2124,6 @@ def episode_config_phase(name: str, smi: str) -> dict:
     table."""
     from mppi_gpu_tpu_torch.controller import MPPIController
     from mppi_gpu_tpu_torch.envs import params_for_config
-    from mppi_gpu_tpu_torch.ops import fused_solve as fs
-    from mppi_gpu_tpu_torch.ops import solve_tail as st
-    from mppi_gpu_tpu_torch.ops import world_step as ws
     from mppi_gpu_tpu_torch.runner import run_closed_loop, run_episode_jit
 
     cfg = _episode_config(name)
@@ -2097,29 +2132,15 @@ def episode_config_phase(name: str, smi: str) -> dict:
     expect(ctrl.rollout_backend == "fused", f"{name}: auto picked {ctrl.rollout_backend}")
 
     first, first_s = _timed(lambda: run_episode_jit(ctrl))
-    before = fs.launch_counts()
-    ws.reset_launch_counts()
-    st.reset_launch_counts()
-    graph, graph_s = _timed(lambda: run_episode_jit(ctrl))
-    mid, k6_graph = fs.launch_counts(), sum(ws.launch_counts().values())
-    k7_graph = st.launch_counts()["solve_tail"]
-    ws.reset_launch_counts()
-    st.reset_launch_counts()
-    eager, eager_s = _timed(lambda: run_episode_jit(ctrl, capture=False))
-    after, k6 = fs.launch_counts(), {k: v for k, v in ws.launch_counts().items() if v}
-    k7 = st.launch_counts()["solve_tail"]
-    expect(k6_graph == 0 and k7_graph == 0, f"{name}: {k6_graph} K6 and {k7_graph} K7 launches "
-           "from the host in a warm graph episode")
-    expect(sum(k6.values()) == n, f"{name}: K6 launched {k6} in the eager episode of {n} cycles")
-    expect(k7 == n * cfg.opt_iters, f"{name}: K7 launched {k7} times in the eager episode of {n} "
-           f"cycles x {cfg.opt_iters}")
-    for kernel in ("solve_partials", "softmin_combine"):
-        expect(mid[kernel] == before[kernel],
-               f"{name}: {mid[kernel] - before[kernel]} {kernel} launches from the host in a warm "
-               "graph episode")
-        expect(after[kernel] - mid[kernel] == n * cfg.opt_iters,
-               f"{name}: {after[kernel] - mid[kernel]} {kernel} launches in the eager episode of "
-               f"{n} cycles x {cfg.opt_iters}")
+    (graph, graph_s), graph_counts = counted(lambda: _timed(lambda: run_episode_jit(ctrl)))
+    (eager, eager_s), counts = counted(lambda: _timed(lambda: run_episode_jit(ctrl, capture=False)))
+    expect(not graph_counts, f"{name}: launches {graph_counts} from the host in a warm graph "
+           "episode")
+    # the eager cycle: K1 and K2' per update, nothing else (no K2, K7 or K6)
+    want = {"solve_partials": n * cfg.opt_iters, "combine_tail": n * cfg.opt_iters}
+    expect(counts == want, f"{name}: launches {counts} in the eager episode of {n} cycles x "
+           f"{cfg.opt_iters}, want {want}")
+    k2e = counts["combine_tail"]
     for what, other in (("a second replay", first), ("the eager cycle on the card", eager)):
         for f in ("xs", "us", "times"):
             expect(np.array_equal(getattr(graph, f), getattr(other, f)),
@@ -2143,9 +2164,9 @@ def episode_config_phase(name: str, smi: str) -> dict:
         expect(steady < bar, f"{name}: graph episode steady-state {steady} (bar {bar})")
     trace = replay_trace(ctrl, name)
     expect(trace["kernels"] == cycle_kernels(cfg.opt_iters),
-           f"{name}: {trace['kernels']} kernels per graph cycle, want K1, K2 and K7 per update "
-           f"and K6: {cycle_kernels(cfg.opt_iters)} (the largest: {trace['top']})")
-    row = dict(K=cfg.samples, T=cfg.horizon, opt_iters=cfg.opt_iters, cycles=n, k6=k6, k7=k7,
+           f"{name}: {trace['kernels']} kernels per graph cycle, want K1 and K2' per update: "
+           f"{cycle_kernels(cfg.opt_iters)} (the largest: {trace['top']})")
+    row = dict(K=cfg.samples, T=cfg.horizon, opt_iters=cfg.opt_iters, cycles=n, k2e=k2e,
                graph_ms=graph_s * 1e3 / n, eager_ms=eager_s * 1e3 / n,
                host_ms=host_s * 1e3 / len(host.us), first_s=first_s, steady=steady, bar=bar,
                host_dx=dx, host_du=du, host_readings=readings, trace=trace)
@@ -2153,8 +2174,8 @@ def episode_config_phase(name: str, smi: str) -> dict:
           f"graph {row['graph_ms']:.4f} ms/cycle (first call {first_s:.3f} s with the capture), "
           f"eager on the card {row['eager_ms']:.4f}, host loop {row['host_ms']:.4f} "
           f"({EPISODE_HOST_TIMED} cycles); graph == eager over the whole episode; no host launch "
-          f"in a warm graph episode, {n * cfg.opt_iters} each of K1, K2 and K7 and {n} of K6 {k6} in "
-          f"the eager one; host "
+          f"in a warm graph episode, {n * cfg.opt_iters} each of K1 and K2' and none of K2, K7 or "
+          f"K6 in the eager one; host "
           f"loop within (states, actions) {tol} over {EPISODE_HOST_CYCLES} cycles at "
           f"{EPISODE_HOST_SEEDS} seeds (max abs per seed {_pairs(readings)}); "
           f"steady {steady:.4f} (bar {bar}); trace of {EPISODE_PROFILE_CYCLES} graph replays: "
@@ -2178,38 +2199,22 @@ def fleet_episode_phase(name: str, smi: str, R: int = 8) -> dict:
     from mppi_gpu_tpu_torch.controller import MPPIController
     from mppi_gpu_tpu_torch.envs import params_for_config
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
-    from mppi_gpu_tpu_torch.ops import solve_tail as st
-    from mppi_gpu_tpu_torch.ops import world_step as ws
     from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode
 
     cfg = _episode_config(name)
     n = params_for_config(cfg).num_control_steps()
     fleet = BatchedMPPIController(cfg, R, device="cuda")
     _, first_s = _timed(lambda: run_fleet_episode(fleet))
-    before = fs.launch_counts()
-    ws.reset_launch_counts()
-    st.reset_launch_counts()
-    ep, graph_s = _timed(lambda: run_fleet_episode(fleet))
-    mid, k6_graph = fs.launch_counts(), sum(ws.launch_counts().values())
-    k7_graph = st.launch_counts()["solve_tail"]
-    ws.reset_launch_counts()
-    st.reset_launch_counts()
-    eager, eager_s = _timed(lambda: run_fleet_episode(fleet, capture=False))
-    after, k6 = fs.launch_counts(), {k: v for k, v in ws.launch_counts().items() if v}
-    k7 = st.launch_counts()["solve_tail"]
-    expect(k6_graph == 0 and k7_graph == 0, f"fleet {name}: {k6_graph} K6 and {k7_graph} K7 "
-           "launches from the host in a warm graph episode")
-    expect(k7 == n * cfg.opt_iters, f"fleet {name}: K7 launched {k7} times in the eager episode "
-           f"of {n} cycles x {cfg.opt_iters} (one launch per update for the R robots)")
-    expect(sum(k6.values()) == n, f"fleet {name}: K6 launched {k6} in the eager episode of {n} "
-           "cycles (one launch per cycle for the R robots)")
-    for kernel in ("solve_partials", "softmin_combine"):  # one launch of each per update, whatever R
-        expect(mid[kernel] == before[kernel],
-               f"fleet {name}: {mid[kernel] - before[kernel]} {kernel} launches from the host in a "
-               "warm graph episode")
-        expect(after[kernel] - mid[kernel] == n * cfg.opt_iters,
-               f"fleet {name}: {after[kernel] - mid[kernel]} {kernel} launches in the eager episode "
-               f"of {n} cycles x {cfg.opt_iters}")
+    (ep, graph_s), graph_counts = counted(lambda: _timed(lambda: run_fleet_episode(fleet)))
+    (eager, eager_s), counts = counted(lambda: _timed(lambda: run_fleet_episode(fleet,
+                                                                                capture=False)))
+    expect(not graph_counts, f"fleet {name}: launches {graph_counts} from the host in a warm "
+           "graph episode")
+    # one launch of K1 and one of K2' per update for the R robots, whatever R
+    want = {"solve_partials": n * cfg.opt_iters, "combine_tail": n * cfg.opt_iters}
+    expect(counts == want, f"fleet {name}: launches {counts} in the eager episode of {n} cycles "
+           f"x {cfg.opt_iters}, want {want}")
+    k2e = counts["combine_tail"]
     for f in ("xs", "us", "times"):
         expect(np.array_equal(getattr(ep, f), getattr(eager, f)),
                f"fleet {name}: the graph episode's {f} differ from the eager cycle's")
@@ -2263,13 +2268,13 @@ def fleet_episode_phase(name: str, smi: str, R: int = 8) -> dict:
     expect(p_below >= 0.01, f"fleet {name}: {under} of {FLEET_QUALITY_ROBOTS} robots under the "
            f"bar {bar}, the reference {ref} of 64 seeds (one-sided Fisher p {p_below:.3g})")
     del many, big
-    row = dict(R=R, K=cfg.samples, T=cfg.horizon, cycles=n, k6=k6, k7=k7, graph_ms=graph_s * 1e3 / n,
+    row = dict(R=R, K=cfg.samples, T=cfg.horizon, cycles=n, k2e=k2e, graph_ms=graph_s * 1e3 / n,
                eager_ms=eager_s * 1e3 / n, first_s=first_s, steady=[s for s, _ in steady], bar=bar,
                under=under, ref_under=ref, p_below=p_below, trace=trace)
     print(f"[21] fleet episode {name} R={R} K={cfg.samples} T={cfg.horizon} x{cfg.opt_iters}, {n} "
           f"cycles: graph {row['graph_ms']:.4f} ms/fleet cycle (first call {first_s:.3f} s), eager "
           f"on the card {row['eager_ms']:.4f}; graph == eager; no host launch in a warm graph "
-          f"episode, K6 {k6} in the eager one; robots' steady {[round(s, 4) for s in row['steady']]} (bar {bar}); {solo}; "
+          f"episode, K1 and K2' {k2e} each and no K2, K7 or K6 in the eager one; robots' steady {[round(s, 4) for s in row['steady']]} (bar {bar}); {solo}; "
           f"trace of {EPISODE_PROFILE_CYCLES} graph replays: {_trace_line(trace)}; an "
           f"R={FLEET_QUALITY_ROBOTS} fleet: {under} of {FLEET_QUALITY_ROBOTS} robots under the bar, "
           f"the reference {ref} of 64 seeds (one-sided Fisher p {p_below:.3g}) ({smi})")
@@ -2522,11 +2527,13 @@ def world_cycle_records(name: str, calls: int = 3) -> list[str]:
     """The device records of `calls` world cycles on the card
     (``advance_into``, as an episode's cycle runs it) under torch.profiler:
     the names of every kernel and copy the world's part of a cycle launches.
-    As in :func:`replay_trace`, the window holds a few cycles, a marker
-    kernel, the `calls` counted cycles, a second marker and a few more, and
-    only the records between the markers are read (late in this script a
-    window's first records go missing); a window without both markers is
-    read again, three at most."""
+    As in :func:`replay_trace`, the window holds REPLAY_TRACE_EDGE cycles, a
+    marker kernel, the `calls` counted cycles, a second marker and
+    REPLAY_TRACE_EDGE more, and only the records between the markers are
+    read (late in this script a window's first records go missing: with
+    SOLVE_TRACE_EDGE cycles on each edge the arm's three windows in a row
+    once held no marker, on an H100); a window without both markers is read
+    again, five at most."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -2547,26 +2554,29 @@ def world_cycle_records(name: str, calls: int = 3) -> list[str]:
 
     cycles(1)
     torch.cuda.synchronize()
-    for _ in range(3):
+    held = []
+    for _ in range(5):
         with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            cycles(SOLVE_TRACE_EDGE)
+            cycles(REPLAY_TRACE_EDGE)
             torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             cycles(calls)
             torch.cuda._sleep(1000)
-            cycles(SOLVE_TRACE_EDGE)
+            cycles(REPLAY_TRACE_EDGE)
             torch.cuda.synchronize()
         dev = device_records(prof)
         marks = sorted((e.time_range for e in dev if "spin_kernel" in e.name), key=lambda r: r.start)
         if len(marks) == 2:
             t0, t1 = marks[0].end, marks[1].start
             return [e.name for e in dev if e.time_range.start >= t0 and e.time_range.end <= t1]
-    raise SmokeFailure(f"K6 {name}: no profiler window of 3 held both markers")
+        held.append(f"{len(marks)} markers in {len(dev)} records")
+    raise SmokeFailure(f"K6 {name}: no profiler window of 5 held both markers ({held})")
 
 
 def world_entries(episode: dict) -> list[dict]:
     """The kernels line's K6 entries, one per world body, from phase 21: its
-    launches in the eager episodes (which must be at least one), its largest
+    launches in the eager backend's device episodes (which must be at least
+    one; the fused episodes step the world in K2''s epilogue), its largest
     difference from the plain loop, and its times at the solo and R=8
     episode shapes."""
     from mppi_gpu_tpu_torch.ops import world_step as ws
@@ -2576,7 +2586,7 @@ def world_entries(episode: dict) -> list[dict]:
         cases = [c for c in WORLD_CASES if ws.pack_fields(_world_of(c))[0] == kind]
         r = episode["world"][cases[0]]
         launches = episode["k6_launches"][kind]
-        expect(launches > 0, f"K6 {kind}: no launch in phase 21's eager episodes")
+        expect(launches > 0, f"K6 {kind}: no launch in phase 21's eager-backend episodes")
         solo, fleet = r["solo"], r["fleet"]
         out.append({
             "name": f"world_advance<{kind}>", "route": "cuda", "source": WORLD_SOURCE,
@@ -2634,17 +2644,20 @@ TAIL_REPLACES = ("no Pallas kernel: XLA's fusion of the solve's tail, mppi_gpu_t
                  "522-531 (solve_from_costs :261-268)")
 # how far K7 may part from the plain tail on the card: not at all. u_seq,
 # u_next and action are one add and a min/max, each rounded once; the weights
-# repeat torch's sub, neg, product with the float32 reciprocal of λ (torch's
-# CUDA division by a Python float, :func:`reciprocal_probe`), expf and true
-# division, each rounded once alike (csrc/solve_tail.cu)
+# repeat torch's sub, neg, product with float32(1/λ) (torch's CUDA division
+# by a Python float, :func:`reciprocal_probe`), expf and true division, each
+# rounded once alike (csrc/solve_tail.cu)
 TAIL_TOL = 0.0
 TAIL_WEIGHTS_TOL = 0.0
 # (robots, None: one robot), T, A and K of the cases; each runs with the
 # clamp on and off, and with a NaN in ΔU and a diverged rollout (S = +inf)
 TAIL_SHAPES = tuple((R, T, A, 3000) for R in (None, 8, 64) for T in (1, 200) for A in range(1, 5))
 TAIL_MODES = (("clamp", True, False), ("no clamp", False, False), ("clamp, NaN", True, True))
-# the configs' λ and two others
-TAIL_LAMS = (0.1, 0.2, 0.3, 1.0, 1.5, 0.7, 1.3)
+# the configs' λ and four others; at 1.1 and 1.7 the float32 reciprocal
+# 1.0f/(float)λ and float32(1/λ) are two floats
+TAIL_LAMS = (0.1, 0.2, 0.3, 1.0, 1.5, 0.7, 1.3, 1.1, 1.7)
+# the divisors reciprocal_probe tries beside TAIL_LAMS and the worlds' packs
+PROBE_LAMS = (1.1, 1.7, 0.064, 1.0 / 3.0)
 
 
 def tail_inputs(R, T: int, A: int, K: int, lam: float, nan: bool, device: str, seed: int = 0):
@@ -2731,25 +2744,42 @@ def check_solve_tail(device: str = "cuda", shapes=TAIL_SHAPES) -> dict:
 
 
 def reciprocal_probe(n: int = 1 << 20) -> dict:
-    """How torch's CUDA division of a float32 tensor by a Python float λ
-    rounds, over n values of many magnitudes and each λ of TAIL_LAMS: the
-    count of quotients that differ from the product with 1.0f/(float)λ (what
-    K7 computes), from the product with (float)(1/λ), and from the true
-    division by a float32 device scalar λ."""
+    """How torch's CUDA division of a float32 tensor by a Python float c
+    rounds, over n values of many magnitudes, at every divisor the worlds
+    pack (``world_step.Reciprocal`` fields of WORLD_CASES' worlds), at
+    PROBE_LAMS and at TAIL_LAMS: the share of quotients that differ from the
+    product with 1.0f/(float)c, from the product with float32(1/c) (the
+    double reciprocal rounded once), from the product with the factor of
+    ``_rounding.scalar_reciprocal`` (which K6's packs and K7's λ take), and
+    from the true division by a float32 device scalar c."""
     import torch
 
-    from mppi_gpu_tpu_torch.ops.solve_tail import inverse_lambda
+    from mppi_gpu_tpu_torch.ops import _rounding
+    from mppi_gpu_tpu_torch.ops import world_step as ws
 
     g = torch.Generator(device="cuda").manual_seed(11)
     d = torch.randn(n, device="cuda", generator=g) * torch.exp2(
         torch.randint(-20, 20, (n,), device="cuda", generator=g).float())
+    divisors = {f"lambda {lam}": lam for lam in (*PROBE_LAMS, *TAIL_LAMS)}
+    for name in WORLD_CASES:
+        world = _world_of(name)
+        kind, own = world.kernel_params()
+        divisors.update({f"{name} {k}": v.divisor for k, v in own.items()
+                         if isinstance(v, ws.Reciprocal)})
+
+    def share(q, factor) -> float:
+        return float((q != d * torch.tensor(factor, dtype=torch.float32, device="cuda"))
+                     .float().mean())
+
     out = {}
-    for lam in TAIL_LAMS:
-        q = d / lam
-        out[lam] = dict(
-            recip_f32=int((q != d * inverse_lambda(lam)).sum()),
-            recip_f64=int((q != d * float(np.float32(1.0 / lam))).sum()),
-            true_div=int((q != d / torch.tensor(lam, dtype=torch.float32, device="cuda")).sum()))
+    for label, c in divisors.items():
+        q = d / c
+        out[label] = dict(
+            c=c, recip_f32=share(q, float(np.float32(1.0) / np.float32(c))),
+            recip_f64=share(q, float(np.float32(1.0 / c))),
+            helper=share(q, _rounding.scalar_reciprocal(c)),
+            true_div=float((q != d / torch.tensor(c, dtype=torch.float32, device="cuda"))
+                           .float().mean()))
     return out
 
 
@@ -2799,12 +2829,15 @@ def solve_tail_phase(smi: str) -> dict:
     and the bound at the flagship's shape (R=1, T=200, A=3, K=10⁴) as
     ``solve`` runs it (every output) and as the episode's cycle runs it
     (action and U shifted in place), and at the R=8 fleet's."""
+    import torch
+
     from mppi_gpu_tpu_torch.controller import CYCLE, FULL
 
     probe = reciprocal_probe()
-    for lam, c in probe.items():
-        expect(c["recip_f32"] == 0, f"torch's division by the Python float {lam} on the card is "
-               f"not the product with 1.0f/(float){lam}: {c}")
+    for label, c in probe.items():
+        expect(c["helper"] == 0, f"torch's division by the Python float {label} on the card is "
+               f"not the product with _rounding.scalar_reciprocal's factor: {c}")
+    apart = {k: v for k, v in probe.items() if v["recip_f32"] != v["recip_f64"]}
     got = check_solve_tail()
     times = {"full": tail_times(None, 200, 3, 10_000, FULL),
              "cycle": tail_times(None, 200, 3, 10_000, CYCLE),
@@ -2814,8 +2847,13 @@ def solve_tail_phase(smi: str) -> dict:
     print(f"[21] K7 solve_tail: {agree} to the plain tail over {got['cases']} cases (R=1, 8, 64; "
           f"T=1, 200; A=1-4; clamp on and off; a NaN in dU and a diverged rollout; the full tail, "
           f"u_seq alone, the cycle's in place), {got['launches']} launches; torch's division by a "
-          f"Python float on the card, quotients that differ from the product with "
-          f"1.0f/(float)lam, with (float)(1/lam) and from the true division, by lam: {probe}; "
+          f"Python float c on the card (torch {torch.__version__}, CUDA {torch.version.cuda}): "
+          f"at every one of {len(probe)} divisors "
+          f"its quotient is the product with _rounding.scalar_reciprocal(c) = float32(1/c); "
+          f"where 1.0f/(float)c is another float, the shares of quotients that differ from the "
+          f"product with 1.0f/(float)c, with float32(1/c) and from the true division: "
+          + ", ".join(f"{k} {v['recip_f32']:.4f} {v['recip_f64']:.4f} {v['true_div']:.4f}"
+                      for k, v in apart.items()) + "; "
           + "; ".join(f"{k} {v['ms']:.4f} ms by events, device {v['device_ms']}, plain "
                       f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.3g} ({v['bound_by']})"
                       for k, v in times.items()) + f" ({smi})")
@@ -2839,6 +2877,355 @@ def tail_entry(tail: dict, launches: int) -> dict:
             "fleet_ms": fleet["ms"], "fleet_plain_ms": fleet["plain_ms"],
             "fleet_device_ms": fleet["device_ms"], "fleet_bound_ms": fleet["bound_ms"],
             "fleet_shape": "R=8 T=200 A=3 K=10000, every output"}
+
+
+# ---------------------------------------------------------------------------
+# K2' combine_tail (phase 21): K2 with the tail and the world's step as its
+# epilogue, against the cycle of four kernels it replaced (K1, K2, K7, K6)
+
+EPILOGUE_SOURCE = "mppi_gpu_tpu_torch/csrc/combine_tail.cu"
+EPILOGUE_REPLACES = (f"no Pallas kernel of its own: K2's fold ({PALLAS}:1847, 2257) with XLA's "
+                     "fusion of the solve's tail and of the world's simulate, "
+                     "mppi_gpu_tpu/controller.py:504, 522-531, mppi_gpu_tpu/runner.py:375-383")
+# how far the epilogue cycle may part from the four-kernel cycle on the card:
+# not at all. Its fold, tail and world step are the same device functions
+# (softmin_combine.cuh, solve_tail.cuh, world_step.cuh) in the same order
+EPILOGUE_TOL = 0.0
+# against its plain version (ops/combine_tail.combine_tail_reference): β, η
+# and ΔU within K2's tolerances of :func:`check_kernels` (K2 and its plain
+# version sum in other orders); the tail and the world step on K2''s own ΔU
+# and action bit for bit, as K7's and K6's
+EPILOGUE_PLAIN_TOL = dict(beta=1e-7, eta=1e-5, dU=(1e-4, 1e-6))
+# the fleets of the cycle check: (robots, None: one robot; clocks): a shared
+# clock, per-robot clocks (some at or past sim_end: held) and a NaN state
+EPILOGUE_FLEETS = ((None, "shared"), (8, "shared"), (8, "per-robot"), (64, "nan"))
+EPILOGUE_CYCLES = 3
+
+
+def four_kernel_cycle(ctrl, x, U, seed, step, advance) -> None:
+    """One device-episode cycle as the parent ran it: each update K1 and K2
+    (``family_fused_solve``, the fleet's for a fleet), then K7 (the inner
+    updates' u_seq, the last one's action and U shifted in place), then K6
+    (``advance_into``) under the action."""
+    from mppi_gpu_tpu_torch.controller import CYCLE, ITERATE
+    from mppi_gpu_tpu_torch.ops import families
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
+    cfg = ctrl.cfg
+    goal = families.call_goal(ctrl._family, ctrl.cost)
+
+    def update(Uin, it, outputs, into):
+        args = (ctrl._family, x, Uin, goal, cfg.lambda_, cfg.samples, seed, step, it,
+                cfg.antithetic, cfg.noise_beta)
+        S, beta, eta, dU = (fs.fleet_family_fused_solve(*args, n_robots=ctrl.n_robots)
+                            if Uin.dim() == 3 else fs.family_fused_solve(*args))
+        return st.solve_tail(Uin, dU, ctrl.max_a, cfg.clamp_action, outputs, into=into)
+
+    for j in range(cfg.opt_iters - 1):
+        U_it = update(U if j == 0 else U_it, j, ITERATE, None).u_seq
+    last = U if cfg.opt_iters == 1 else U_it
+    action = update(last, cfg.opt_iters - 1, CYCLE, U).action
+    ws.advance_into(advance.world, advance.state, action, advance.xs, advance.us, advance.ts, step,
+                    advance.x)
+
+
+def _episode_buffers(world, state0, U0, n: int, device: str):
+    """An episode's buffers as ``runner.EpisodeCycle`` holds them: an
+    ``Advance`` of the state's copy, histories of n rows and the x buffer,
+    U's copy and the counter (0), on `device`."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
+    state = type(state0)(*(leaf.clone(memory_format=torch.contiguous_format) for leaf in state0))
+    f32 = dict(dtype=torch.float32, device=device)
+    lead = tuple(U0.shape[:-2])
+    adv = ws.Advance(world, state, torch.full((n + 1, *lead, state.x.shape[-1]), -7.0, **f32),
+                     torch.full((n, *lead, U0.shape[-1]), -7.0, **f32),
+                     torch.full((n, *state.time.shape), -7.0, **f32), state.x.clone())
+    adv.xs[0].copy_(state.x)
+    return adv, U0.clone(), torch.zeros((), dtype=torch.int64, device=device)
+
+
+def check_epilogue_cycle(name: str, R, clocks: str, opt_iters: int, device: str = "cuda") -> dict:
+    """EPILOGUE_CYCLES device-episode cycles of config `name` at `opt_iters`
+    for R robots (None: one robot) under `clocks` (EPILOGUE_FLEETS), from
+    the world's start (robots apart in their states, per-robot clocks from
+    :func:`world_clocks`' mixed layout, the last robot's state NaN), through
+    ``solve_in_place(..., advance)`` (K1 and K2' per update on the card)
+    and through :func:`four_kernel_cycle` from the same buffers: x, U, the
+    state and its clock, the histories and the counter bit for bit
+    (EPILOGUE_TOL), the tickets 0 after every cycle, and the launches of
+    each (K1 and K2' per update; K1, K2 and K7 per update and K6 per cycle;
+    none on the CPU, where both run the plain versions). Returns whether all
+    were bit-equal and the largest |Δ| otherwise."""
+    import torch
+
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.envs import make_world
+
+    cfg = _episode_config(name).replace(opt_iters=opt_iters)
+    ctrl = (MPPIController(cfg, device=device) if R is None
+            else BatchedMPPIController(cfg, R, device=device))
+    ctrl.rollout_backend = "fused"
+    world = make_world(cfg, device=device)
+    state0 = world.reset(R)
+    if R is not None:  # robots apart, from the world's start
+        x0 = state0.x + 0.01 * torch.arange(R, device=device)[:, None]
+        if clocks == "nan":
+            x0[-1] = float("nan")
+        t0 = (torch.from_numpy(np.asarray(world_clocks("mixed", R, world.params))).to(device)
+              if clocks == "per-robot" else state0.time)
+        state0 = world.from_x(x0, t0)
+    U0 = ctrl.init_action_seq() if R is None else ctrl.init_action_seqs()
+    seed = cfg.seed if R is None else ctrl.init_seeds()
+    n = EPILOGUE_CYCLES + 2
+    epi, U_e, step_e = _episode_buffers(world, state0, U0, n, device)
+    four, U_f, step_f = _episode_buffers(world, state0, U0, n, device)
+    worst, equal = 0.0, True
+    label = f"K2' {name} R={R or 1} {clocks} clock(s) x{opt_iters}"
+    for c in range(EPILOGUE_CYCLES):
+        _, got = counted(lambda: ctrl.solve_in_place(epi.x, U_e, seed, step_e, epi))
+        _, want = counted(lambda: four_kernel_cycle(ctrl, four.x, U_f, seed, step_f, four))
+        if device == "cuda":
+            kind = f"world_advance<{world._kernel_kind}>"
+            expect(got == {"solve_partials": opt_iters, "combine_tail": opt_iters},
+                   f"{label} cycle {c}: the epilogue cycle launched {got}")
+            expect(want == {"solve_partials": opt_iters, "softmin_combine": opt_iters,
+                            "solve_tail": opt_iters, kind: 1},
+                   f"{label} cycle {c}: the four-kernel cycle launched {want}")
+        expect(not bool(ctrl._tickets.any()), f"{label} cycle {c}: tickets {ctrl._tickets} left")
+        pairs = [("x", epi.x, four.x), ("U", U_e, U_f), ("xs", epi.xs, four.xs),
+                 ("us", epi.us, four.us), ("ts", epi.ts, four.ts)]
+        pairs += [(f"state leaf {i}", a, b) for i, (a, b) in enumerate(zip(epi.state, four.state))]
+        for what, a, b in pairs:
+            if not bits_equal(a, b):
+                equal = False
+                d = max_abs_diff(a, b)
+                worst = max(worst, d)
+                expect(d <= EPILOGUE_TOL, f"{label} cycle {c} {what}: max |K2' cycle - four-kernel "
+                       f"cycle| {d:.3g} (tolerance {EPILOGUE_TOL})")
+        expect(int(step_e) == int(step_f) == c + 1, f"{label} cycle {c}: the counters read "
+               f"{int(step_e)} and {int(step_f)}, want {c + 1}")
+    return dict(bit_equal=equal, max_abs_err=worst)
+
+
+def check_epilogue_plain(name: str, R, device: str = "cuda") -> dict:
+    """K2' (the cycle's form, with the world's step) against its plain
+    version on the same inputs (K1's partials at config `name`'s shape, R
+    robots, None: one): β, η and ΔU against K2's plain version within
+    EPILOGUE_PLAIN_TOL; the action and U shifted in place against K7's plain
+    version on K2''s own ΔU, and the world's state, histories, x buffer and
+    counter against the plain loop under K2''s own action, bit for bit.
+    Returns ΔU's largest |Δ|."""
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
+    from mppi_gpu_tpu_torch.controller import CYCLE, MPPIController
+    from mppi_gpu_tpu_torch.envs import make_world
+    from mppi_gpu_tpu_torch.ops import combine_tail as ct
+    from mppi_gpu_tpu_torch.ops import families
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
+    cfg = _episode_config(name)
+    ctrl = (MPPIController(cfg, device=device) if R is None
+            else BatchedMPPIController(cfg, R, device=device))
+    world = make_world(cfg, device=device)
+    state0 = world.reset(R)
+    U0 = ctrl.init_action_seq() if R is None else ctrl.init_action_seqs()
+    goal = families.call_goal(ctrl._family, ctrl.cost)
+    args = (ctrl._family, state0.x, U0, goal, cfg.lambda_, cfg.samples,
+            cfg.seed if R is None else ctrl.init_seeds(), 3, 0, cfg.antithetic, cfg.noise_beta)
+    _, partials = (fs.family_solve_partials(*args) if R is None
+                   else fs.fleet_family_solve_partials(*args, None, R))
+    adv, U, step = _episode_buffers(world, state0, U0, 4, device)
+    beta, eta, dU, tail = ct.combine_tail(partials, cfg.lambda_, U, ctrl.max_a, cfg.clamp_action,
+                                          CYCLE, ctrl._tickets, into=U, step=step, advance=adv)
+    combine = fs.softmin_combine_reference if R is None else fs.fleet_softmin_combine_reference
+    b_r, e_r, dU_r = combine(partials, cfg.lambda_, cfg.horizon, cfg.action_dim)
+    label = f"K2' {name} R={R or 1} vs plain"
+    close(f"{label} beta", _np(beta), _np(b_r), EPILOGUE_PLAIN_TOL["beta"])
+    close(f"{label} eta", _np(eta), _np(e_r), EPILOGUE_PLAIN_TOL["eta"])
+    err = close(f"{label} dU", _np(dU), _np(dU_r), *EPILOGUE_PLAIN_TOL["dU"])
+    want = st.solve_tail_reference(U0, dU, ctrl.max_a, cfg.clamp_action, CYCLE)
+    plain = ws.plain_advance(world, state0, want.action)
+    pairs = [("action", tail.action, want.action), ("U shifted", U, want.u_next),
+             ("xs[1]", adv.xs[1], plain.x), ("us[0]", adv.us[0], want.action),
+             ("ts[0]", adv.ts[0], plain.time), ("x", adv.x, plain.x)]
+    pairs += [(f"state leaf {i}", a, b) for i, (a, b) in enumerate(zip(adv.state, plain))]
+    for what, a, b in pairs:
+        expect(bits_equal(a, b), f"{label} {what}: not bit-equal to the plain version "
+               f"(max |delta| {max_abs_diff(a, b):.3g})")
+    expect(int(step) == 1 and not bool(ctrl._tickets.any()),
+           f"{label}: counter {int(step)}, tickets {ctrl._tickets}")
+    return dict(max_abs_err=err)
+
+
+def epilogue_bound(nb: int, T: int, A: int, R: int, world, state, u) -> tuple[float, str]:
+    """The least time the card could take for one K2' of the cycle's form:
+    the larger of its bytes (K2's partials read and its β, η, ΔU written, U
+    and max_a read, U shifted and the action written, and K6's bytes of the
+    world's step with the histories) over 3.35 TB/s and its operations (K2's
+    multiply-add per partial float, the tail's add and clamp per entry, the
+    world's operations, :func:`plain_world_ops`) over the float32 peak."""
+    n = R * T * A
+    floats = R * (nb + 1) * (2 + T * A) + 2 * n + A + n + R * A
+    floats += 2 * sum(leaf.numel() for leaf in state) + u.numel() + world._packs[u.device].numel()
+    floats += 2 * state.x.numel() + u.numel() + state.time.numel() + 4
+    ops = 2 * R * (nb + 1) * (2 + T * A) + 3 * n + plain_world_ops(world, state, u)
+    t_bytes, t_ops = 4 * floats / H100_BYTES_PER_S, ops / H100_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def epilogue_times(name: str, R) -> dict:
+    """K2''s times in the cycle's form at config `name`'s shape for R robots
+    (None: one): CUDA events around a call (warm median) in turns with the
+    plain version's (``combine_tail_reference``: K2's, K7's and the world's
+    torch ops), the device time alone, and the bound, on K1's partials; U
+    shifted in place, the world stepped and its history rows written at the
+    counter, as an episode's cycle runs it."""
+    import torch
+
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
+    from mppi_gpu_tpu_torch.controller import CYCLE, MPPIController
+    from mppi_gpu_tpu_torch.envs import make_world
+    from mppi_gpu_tpu_torch.ops import combine_tail as ct
+    from mppi_gpu_tpu_torch.ops import families
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    cfg = _episode_config(name)
+    ctrl = (MPPIController(cfg, device="cuda") if R is None
+            else BatchedMPPIController(cfg, R, device="cuda"))
+    world = make_world(cfg, device="cuda")
+    state0 = world.reset(R)
+    U0 = ctrl.init_action_seq() if R is None else ctrl.init_action_seqs()
+    goal = families.call_goal(ctrl._family, ctrl.cost)
+    args = (ctrl._family, state0.x, U0, goal, cfg.lambda_, cfg.samples,
+            cfg.seed if R is None else ctrl.init_seeds(), 3, 0, cfg.antithetic, cfg.noise_beta)
+    _, partials = (fs.family_solve_partials(*args) if R is None
+                   else fs.fleet_family_solve_partials(*args, None, R))
+    adv, U, step = _episode_buffers(world, state0, U0, 4096, "cuda")  # rows past every call's
+
+    def kernel():
+        ct.combine_tail(partials, cfg.lambda_, U, ctrl.max_a, cfg.clamp_action, CYCLE,
+                        ctrl._tickets, into=U, step=step, advance=adv)
+
+    def plain():
+        ct.combine_tail_reference(partials, cfg.lambda_, U, ctrl.max_a, cfg.clamp_action, CYCLE,
+                                  into=U, step=step, advance=adv)
+
+    ms, plain_ms = paired_median_ms(kernel, plain, 50, 10)
+    u = torch.zeros(*state0.x.shape[:-1], cfg.action_dim, device="cuda")
+    bound, bound_by = epilogue_bound(partials.shape[-2], cfg.horizon, cfg.action_dim, R or 1,
+                                     world, adv.state, u)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                device_ms=device_ms(kernel, name="combine_tail_kernel"), nb=partials.shape[-2])
+
+
+def latency_floor(nodes: int = 200) -> dict:
+    """What a kernel that does next to nothing costs on this card: the
+    device µs of a one-element torch add (its record an elementwise kernel:
+    one launch, one load and one store) and the ms per node of a CUDA graph
+    of `nodes` such adds, replayed, by CUDA events (median of five)."""
+    import torch
+
+    one = torch.zeros(1, device="cuda")
+
+    def tiny():
+        one.add_(1.0)
+
+    reading = device_ms(tiny, name="elementwise_kernel")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tiny()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(nodes):
+            tiny()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reps = []
+    for _ in range(5):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        reps.append(start.elapsed_time(end) / nodes)
+    return dict(device_us=None if reading is None else reading * 1e3,
+                graph_ms_per_node=float(np.median(reps)))
+
+
+def epilogue_phase(smi: str) -> dict:
+    """K2' on the card: the epilogue cycle against the four-kernel cycle bit
+    for bit (:func:`check_epilogue_cycle`) for every config of
+    EPISODE_CONFIGS at one and two opt iterations in every layout of
+    EPILOGUE_FLEETS; K2' against its plain version at every config, solo and
+    R=8 (:func:`check_epilogue_plain`); its times at the flagship's shape
+    (solo) and the R=8 point_mass3d fleet's; and the latency floor of a
+    kernel that does next to nothing (:func:`latency_floor`)."""
+    t0 = time.perf_counter()
+    cases, equal, worst = 0, True, 0.0
+    for name in EPISODE_CONFIGS:
+        for opt_iters in (1, 2):
+            for R, clocks in EPILOGUE_FLEETS:
+                got = check_epilogue_cycle(name, R, clocks, opt_iters)
+                equal &= got["bit_equal"]
+                worst = max(worst, got["max_abs_err"])
+                cases += 1
+    cycle_s = time.perf_counter() - t0
+    plain = max(check_epilogue_plain(name, R)["max_abs_err"]
+                for name in EPISODE_CONFIGS for R in (None, 8))
+    times = {"solo": epilogue_times("flagship", None), "fleet": epilogue_times("point_mass3d", 8)}
+    floor = latency_floor()
+    agree = "bit-equal" if equal else f"max |delta| {worst:.3g}"
+    print(f"[21] K2' combine_tail: the epilogue cycle {agree} to the four-kernel cycle (K1, K2, K7, "
+          f"K6) over {cases} cases x {EPILOGUE_CYCLES} cycles (the {len(EPISODE_CONFIGS)} configs, "
+          f"opt_iters 1 and 2, R=1, R=8 with a shared and with per-robot clocks, R=64 with a NaN "
+          f"state: x, U, the state and its clock, the histories, the counter; tickets 0), K1 and "
+          f"K2' alone launched per update, {cycle_s:.1f} s; against its plain version (every config, "
+          f"R=1 and 8): beta, eta, dU within {EPILOGUE_PLAIN_TOL} (dU max |delta| {plain:.3g}), the "
+          f"tail and the world step on its own dU and action bit-equal; "
+          + "; ".join(f"{k} (nb {v['nb']}) {v['ms']:.4f} ms by events, device {v['device_ms']}, "
+                      f"plain {v['plain_ms']:.4f}, bound {v['bound_ms']:.3g} ({v['bound_by']})"
+                      for k, v in times.items())
+          + f"; a one-element add (the latency floor of a kernel): device "
+          f"{floor['device_us']} us, {floor['graph_ms_per_node']:.5f} graph ms per node "
+          f"({smi})")
+    return dict(bit_equal=equal, max_abs_err=worst, plain_max_abs_err=plain, cases=cases,
+                times=times, floor=floor)
+
+
+def epilogue_entry(epi: dict, launches: int) -> dict:
+    """The kernels line's K2' entry: its launches in phase 21's eager
+    episodes, its largest difference from its plain version, its times at the
+    flagship's shape and the R=8 fleet's."""
+    solo, fleet = epi["times"]["solo"], epi["times"]["fleet"]
+    return {"name": "combine_tail", "route": "cuda", "source": EPILOGUE_SOURCE,
+            "replaces": EPILOGUE_REPLACES, "launches": launches,
+            "max_abs_err": epi["plain_max_abs_err"], "ms": solo["ms"], "plain_ms": solo["plain_ms"],
+            "bound_ms": solo["bound_ms"], "bound_by": solo["bound_by"], "library_ms": None,
+            "device_ms": solo["device_ms"],
+            "shape": f"flagship R=1 T=200 A=3 K=10000 (nb {solo['nb']}), the cycle's form with "
+                     "the point mass's world step",
+            "cycle_bit_equal": epi["bit_equal"], "cycle_max_abs_err": epi["max_abs_err"],
+            "fleet_ms": fleet["ms"], "fleet_plain_ms": fleet["plain_ms"],
+            "fleet_device_ms": fleet["device_ms"], "fleet_bound_ms": fleet["bound_ms"],
+            "fleet_shape": f"point_mass3d R=8 (nb {fleet['nb']})",
+            "floor_kernel_device_us": epi["floor"]["device_us"],
+            "floor_graph_ms_per_node": epi["floor"]["graph_ms_per_node"]}
+
+
+# a config of each world body, whose eager-backend device episode runs K6 and
+# K7 standalone, for EAGER_EPISODE_CYCLES cycles each
+EAGER_EPISODE_CONFIGS = ("point_mass1d", "point_mass2d", "point_mass3d", "pendulum", "cartpole",
+                         "unicycle", "quadrotor", "quadrotor3d", "arm")
+EAGER_EPISODE_CYCLES = 5
 
 
 def episode_phase(smi: str) -> dict:
@@ -2876,10 +3263,29 @@ def episode_phase(smi: str) -> dict:
           "T=50, A=3 at K=10000 T=200, every other family instance at its config")
     world = world_step_phase(smi)
     tail = solve_tail_phase(smi)
+    epi = epilogue_phase(smi)
 
     rows = {name: episode_config_phase(name, smi) for name in EPISODE_CONFIGS}
     fleets = {name: fleet_episode_phase(name, smi) for name in FLEET_EPISODE_CONFIGS}
 
+    # K6 and K7 stand alone on the eager backend's device episode (a learned
+    # model's, or any model's with rollout_backend="eager"): its solve ends
+    # in K7, its world step is K6. Each world body's config, a few eager
+    # cycles, the counts set to 0 just before and read just after
+    k6_launches, k7_eager = dict.fromkeys(ws.WORLDS, 0), 0
+    for name in EAGER_EPISODE_CONFIGS:
+        ctrl = MPPIController(_config(name), device="cuda", rollout_backend="eager")
+        _, got = counted(lambda: run_episode_jit(ctrl, num_steps=EAGER_EPISODE_CYCLES,
+                                                 capture=False))
+        kind = ws.pack_fields(_world_of(name))[0]
+        want = {f"world_advance<{kind}>": EAGER_EPISODE_CYCLES,
+                "solve_tail": EAGER_EPISODE_CYCLES * ctrl.cfg.opt_iters}
+        expect(got == want, f"{name} eager-backend episode: launches {got}, want {want}")
+        k6_launches[kind] += got[f"world_advance<{kind}>"]
+        k7_eager += got["solve_tail"]
+    print(f"[21] the eager backend's device episode ({EAGER_EPISODE_CYCLES} cycles of each world "
+          f"body's config): K6 launched by world body {k6_launches}, K7 {k7_eager} times, no K2 or "
+          "K2'")
     # the eager backend's solve reads nothing from the card either: its graph
     # episode (Philox noise drawn by torch ops at the step tensor, the fleet's
     # seeds kept on the card) equals the same cycle run eagerly
@@ -2938,15 +3344,14 @@ def episode_phase(smi: str) -> dict:
     print("[21] checkpoint resume on the card (quadrotor3d, step 25 of 40) bit-equal to the "
           "uninterrupted run; the CLI on cuda: --jit-episode wrote the whole pendulum episode, "
           "--checkpoint/--resume continued bit for bit (step 100 of 120), --profile wrote a trace")
-    # K6's launches on the main path: the eager episodes of every config and
+    # K2''s launches on the main path: the eager episodes of every config and
     # fleet, each counted from 0 just before it and read just after
-    k6_launches = dict.fromkeys(ws.WORLDS, 0)
-    for row in (*rows.values(), *fleets.values()):
-        for k, v in row["k6"].items():
-            k6_launches[k] += v
-    print(f"[21] K6's launches in the eager episodes, by world body: {k6_launches}")
+    k2e_launches = sum(row["k2e"] for row in (*rows.values(), *fleets.values()))
+    print(f"[21] K2''s launches in the fused eager episodes of every config and fleet: "
+          f"{k2e_launches}")
     print(f"[21] phase 21 took {time.perf_counter() - t_phase:.1f} s")
-    return dict(configs=rows, fleets=fleets, world=world, tail=tail, k6_launches=k6_launches)
+    return dict(configs=rows, fleets=fleets, world=world, tail=tail, epi=epi,
+                k6_launches=k6_launches, k2e_launches=k2e_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3538,6 +3943,7 @@ def closed_loop_shares(name: str, R: int, K: int | None = None, device: str = "c
     from mppi_gpu_tpu_torch.batched import BatchedMPPIController
     from mppi_gpu_tpu_torch.envs import make_world, params_for_config
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import world_step as ws
     from mppi_gpu_tpu_torch.runner import EpisodeCycle
 
     cfg = _episode_config(name)
@@ -3549,11 +3955,11 @@ def closed_loop_shares(name: str, R: int, K: int | None = None, device: str = "c
     state0, Us0, seeds = world.reset(R), fleet.init_action_seqs(), fleet.init_seeds()
     costs = torch.empty((n, R, cfg.samples), device=device)
 
-    def solve(xs, Us, step):  # the cycle's solve: the action, U shifted in place
+    def solve(xs, Us, step, advance):  # the cycle's: U shifted in place, then the world step
         res = fleet.solve_batch(xs, Us, seeds, step, capture=False)
         costs.index_copy_(0, step.view(1), res.info.costs.reshape(1, R, -1))
         Us.copy_(res.u_next)
-        return res.action
+        ws.advance_after(advance, res.action, step)
 
     EpisodeCycle(fleet, world, state0, Us0, n, solve).run(state0, Us0)
     marks = {"first": 0, "middle": n // 2, "last": n - 1}
@@ -4422,7 +4828,7 @@ def sharded_episode_row(name: str, mesh_name: str, mesh, onepass: bool, solo, sm
                    f"{np.mean(seeds):.4f}, solo {np.mean(solo['seeds']):.4f}; {under} and {ref} "
                    "seeds under the bar")
     # K1 or K4, K2 and K5 once per rank and update
-    trace = replay_trace(ctrl, label, per_update={
+    trace = replay_trace(ctrl, label, epilogue=False, per_update={
         "solve_partials": mesh.size, "softmin_combine": mesh.size,
         "weighted_update": 0 if onepass else mesh.size})
     n = len(graph.us)
@@ -4783,6 +5189,7 @@ def main() -> int:
     from mppi_gpu_tpu_torch.controller import MPPIController
     from mppi_gpu_tpu_torch.io.csvio import read_csv_columns
     from mppi_gpu_tpu_torch.ops import _build, philox
+    from mppi_gpu_tpu_torch.ops import combine_tail as ct
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
     from mppi_gpu_tpu_torch.ops import solve_tail as st
 
@@ -5055,6 +5462,7 @@ def main() -> int:
     from mppi_gpu_tpu_torch.runner import run_fleet_episode
 
     fs.reset_launch_counts()
+    ct.reset_launch_counts()
     steps = 120
     for mode in ([], ["--episode"]):
         buf = io.StringIO()
@@ -5079,29 +5487,34 @@ def main() -> int:
     ep_s = time.perf_counter() - t0
     fleet_launches = fs.launch_counts()
     fleet_launches["solve_partials<lti>"] = fs.family_launch_counts()["lti"]
-    # launched from the host: the warm-up of the host loop's solve graph,
-    # the one warm-up cycle the example's --episode runs before it captures
-    # its cycle, and every cycle of the full episode, run without capture;
-    # the --episode run's trace holds the warm-up and its replays, and a
-    # trace of the fleet's graphed host loop its records per step
+    fleet_launches["combine_tail"] = ct.launch_counts()["combine_tail"]
+    # launched from the host: the warm-up of the host loop's solve graph
+    # (its last update K2 and K7, its inner ones K2'), the one warm-up cycle
+    # the example's --episode runs before it captures its cycle, and every
+    # cycle of the full episode, run without capture (K1 and K2' per
+    # update); the --episode run's trace holds the warm-up and its replays,
+    # and a trace of the fleet's graphed host loop its records per step
     n_solves = (1 + 1 + len(ep.us)) * cfg2.opt_iters
+    n_epilogues = (1 + len(ep.us)) * cfg2.opt_iters + cfg2.opt_iters - 1
     fleet_trace = solve_trace("fleet R=8 point_mass2d", fleet, torch.zeros(8, cfg2.state_dim, device="cuda"),
                               fleet.init_action_seqs(), fleet.init_seeds())
     dist = np.linalg.norm(ep.xs[-1][:, :2] - goals[:, :2], axis=1)
     print(f"[10] fleet closed loop: example host loop and --episode exited 0; full episode "
           f"point_mass2d R=8 on the card without capture, {len(ep.us)} steps in {ep_s:.2f} s, mean "
           f"final goal distance {dist.mean():.4f} m (bar {FLEET_DISTANCE_BAR_M}); fleet-path launches "
-          f"{fleet_launches}; K1 and K2 records in the --episode run's trace {episode_records}; per "
+          f"{fleet_launches}; K1, K2 and K2' records in the --episode run's trace {episode_records}; per "
           f"step of the graphed host loop in a trace of {SOLVE_TRACE_STEPS} {fleet_trace['records']}")
     expect(np.isfinite(ep.xs).all() and ep.xs.shape == (len(ep.us) + 1, 8, 4), "episode states")
     expect(dist.mean() < FLEET_DISTANCE_BAR_M, f"fleet mean final distance {dist.mean()} m")
-    for name in ("solve_partials<lti>", "softmin_combine"):
-        expect(fleet_launches[name] == n_solves,
-               f"{name}: {fleet_launches[name]} launches on the fleet path, want {n_solves} (two "
+    want = {"solve_partials<lti>": n_solves, "softmin_combine": 1, "combine_tail": n_epilogues}
+    for name, n in want.items():
+        expect(fleet_launches[name] == n,
+               f"{name}: {fleet_launches[name]} launches on the fleet path, want {n} (two "
                f"warm-ups and {len(ep.us)} eager cycles)")
-    for name, c in episode_records.items():
-        expect(c == (steps + 1) * cfg2.opt_iters,
-               f"{name}: {c} records in the --episode run's trace, {steps + 1} cycles")
+    want = {k: 0 if k == "softmin_combine" else (steps + 1) * cfg2.opt_iters
+            for k in episode_records}
+    expect(episode_records == want, f"records in the --episode run's trace {episode_records}, "
+           f"want {want} ({steps + 1} cycles: K1 and K2' per update)")
     _stamp(t_start, 10)
 
     # [11] K1's pendulum and cart-pole instances: injected ε vs plain and
@@ -5122,6 +5535,7 @@ def main() -> int:
     # configs/cartpole.yaml, fused, launches counted (each episode's graph
     # warm-up and the dump steps; the graphed steps' records from a trace)
     fs.reset_launch_counts()
+    ct.reset_launch_counts()
     steady, avg_ms, steps, dumps = {}, {}, {}, dict.fromkeys(FAMILIES, 0)
     with tempfile.TemporaryDirectory() as tmp:
         for name in FAMILIES:
@@ -5137,7 +5551,7 @@ def main() -> int:
             th = np.concatenate([[FAMILY_INIT_THETA[name]], read_csv_columns(traj)[f"x[{idx}]"]])
             d = np.abs(np.arctan2(np.sin(th), np.cos(th)))
             steady[name] = float(d[-max(len(d) // 4, 1):].mean())
-    family_launches = fs.launch_counts()
+    family_launches, family_k2e = fs.launch_counts(), ct.launch_counts()["combine_tail"]
     by_family = fs.family_launch_counts()
     family_traces = {n: config_trace(n) for n in FAMILIES}
     print(f"[12] cli closed loops (fused): pendulum {steps['pendulum']} steps x 2 iterations, steady "
@@ -5153,8 +5567,8 @@ def main() -> int:
     expect(by_family == dict(dict.fromkeys(by_family, 0), **{
         n: _config(n).opt_iters * (1 + dumps[n]) for n in FAMILIES}),
         f"K1 launches by family {by_family}, {dumps} dump steps")
-    expect(family_launches["softmin_combine"] == family_launches["solve_partials"],
-           "K2 launches differ from K1's on the family path")
+    expect(family_launches["softmin_combine"] + family_k2e == family_launches["solve_partials"],
+           f"K2 and K2' launches ({family_k2e}) add up to other than K1's on the family path")
     expect(family_launches["noise_dump"] == dumps["cartpole"],
            f"K3: {family_launches['noise_dump']} launches, {dumps['cartpole']} dumps")
     launches.update({f"solve_partials<{n}>": by_family[n] for n in FAMILIES})
@@ -5181,6 +5595,7 @@ def main() -> int:
     # quadrotor.yaml and arm.yaml (opt-iters 2, OU 0.8, dumps), fused, full
     # episodes, launches counted as in [12]
     fs.reset_launch_counts()
+    ct.reset_launch_counts()
     steady, avg_ms, steps, dumps = {}, {}, {}, dict.fromkeys(COUPLED, 0)
     with tempfile.TemporaryDirectory() as tmp:
         for name in COUPLED:
@@ -5197,7 +5612,7 @@ def main() -> int:
             xs = np.stack([np.concatenate([[start[i]], cols[f"x[{i}]"]]) for i in range(len(start))], 1)
             d = coupled_distance(name, xs)
             steady[name] = float(d[-max(len(d) // 4, 1):].mean())
-    coupled_launches = fs.launch_counts()
+    coupled_launches, coupled_k2e = fs.launch_counts(), ct.launch_counts()["combine_tail"]
     by_family = fs.family_launch_counts()
     coupled_traces = {n: config_trace(n) for n in COUPLED}
     print("[14] cli closed loops (fused, full episodes): " + "; ".join(
@@ -5212,8 +5627,8 @@ def main() -> int:
     expect(by_family == dict(dict.fromkeys(by_family, 0), **{
         n: _config(n).opt_iters * (1 + dumps[n]) for n in COUPLED}),
         f"K1 launches by family {by_family}, {dumps} dump steps")
-    expect(coupled_launches["softmin_combine"] == coupled_launches["solve_partials"],
-           "K2 launches differ from K1's on the coupled path")
+    expect(coupled_launches["softmin_combine"] + coupled_k2e == coupled_launches["solve_partials"],
+           f"K2 and K2' launches ({coupled_k2e}) add up to other than K1's on the coupled path")
     expect(coupled_launches["noise_dump"] == dumps["arm"],
            f"K3: {coupled_launches['noise_dump']} launches, {dumps['arm']} dumps")
     launches.update({f"solve_partials<{n}>": by_family[n] for n in COUPLED})
@@ -5306,12 +5721,14 @@ def main() -> int:
     from mppi_gpu_tpu_torch.examples import obstacle_nav, quadrotor3d_flight
 
     fs.reset_launch_counts()
+    ct.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         traj = os.path.join(tmp, "quadrotor3d.csv")
         out = _cli(["-c", os.path.join("configs", "quadrotor3d.yaml"), "--device", "cuda",
                     "--rollout-backend", "fused", "-t", traj])
         cols = read_csv_columns(traj)
     q3d_launches, q3d_by_family = fs.launch_counts(), fs.family_launch_counts()
+    q3d_k2e = ct.launch_counts()["combine_tail"]
     q3d_steps = int(re.search(r"episode finished: (\d+) control steps", out).group(1))
     q3d_ms = float(re.search(r"Average controller execution time: ([\d.]+) ms", out).group(1))
     cfg = _config("quadrotor3d")
@@ -5326,7 +5743,7 @@ def main() -> int:
     expect(q3d_steady < LAST_QUALITY_THRESHOLD_M["quadrotor3d"], f"quadrotor3d steady-state {q3d_steady} m")
     # the warm-up of the episode's solve graph; the replays' records from a trace
     expect(q3d_by_family == dict(dict.fromkeys(q3d_by_family, 0), quadrotor3d=cfg.opt_iters)
-           and q3d_launches["softmin_combine"] == q3d_launches["solve_partials"],
+           and q3d_launches["softmin_combine"] + q3d_k2e == q3d_launches["solve_partials"],
            f"quadrotor3d path: launches {q3d_launches}, K1 by family {q3d_by_family}")
     launches["solve_partials<quadrotor3d>"] = q3d_by_family["quadrotor3d"]
     last_traces = {n: config_trace(n) for n in ("quadrotor3d", "obstacle3d")}
@@ -5479,6 +5896,10 @@ def main() -> int:
             continue
         if name == "solve_tail":  # K7, checked and timed in phase 21
             entries.append(tail_entry(episode["tail"], launches[name]))
+            continue
+        if name == "combine_tail":  # K2', checked and timed in phase 21
+            expect(episode["k2e_launches"] > 0, "K2' was not launched in phase 21's episodes")
+            entries.append(epilogue_entry(episode["epi"], episode["k2e_launches"]))
             continue
         b_ms, b_by = bounds[name]
         entry = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
@@ -5664,7 +6085,8 @@ def episode_commit(root: str) -> int:
     share of busy per cycle and the untraced ms per cycle; the sharded
     episode's graph ms per cycle at SHARDED_EPISODE_CONFIGS, both branches, on
     a world of one NCCL rank and on four virtual ranks; one JSON line. A
-    package before K6 or K7 is traced without their records."""
+    package before K6 or K7 is traced without their records, one before K2'
+    (``ops/combine_tail.py``) with K2, K7 and K6 in its cycle."""
     sys.path.insert(0, os.path.abspath(root))
     import importlib.util
 
@@ -5681,18 +6103,21 @@ def episode_commit(root: str) -> int:
 
     k6 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.world_step") is not None
     k7 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.solve_tail") is not None
+    k2e = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.combine_tail") is not None
 
-    def row(ctrl, run, label: str, fleet: bool = False, per_update=None) -> dict:
+    def row(ctrl, run, label: str, fleet: bool = False, per_update=None,
+            epilogue: bool = k2e) -> dict:
         run(ctrl)  # captures
         graph = _timed(lambda: run(ctrl))
         eager = _timed(lambda: run(ctrl, capture=False))
         n = len(graph[0].us)
         t = replay_trace(ctrl, label, fleet=fleet, per_update=per_update, world_kernel=k6,
-                         tail_kernel=k7)
+                         tail_kernel=k7, epilogue=epilogue)
         return dict(graph_ms=graph[1] * 1e3 / n, eager_ms=eager[1] * 1e3 / n, kernels=t["kernels"],
                     busy_ms=t["busy_ms"], k12_share=t["k12_share"], idle=t["idle"],
                     untraced_ms=t["untraced_ms"], k6_per_cycle=t["k6_per_cycle"],
-                    k7_per_cycle=t["k7_per_cycle"], top=t["top"])
+                    k7_per_cycle=t["k7_per_cycle"], k2e_per_cycle=t["k2e_per_cycle"],
+                    top=t["top"])
 
     configs = {name: row(MPPIController(_episode_config(name), device="cuda"), run_episode_jit, name)
                for name in EPISODE_CONFIGS}
@@ -5708,11 +6133,12 @@ def episode_commit(root: str) -> int:
                 for onepass in (True, False):
                     label = f"{name} {mname} {'one-pass' if onepass else 'two-kernel'}"
                     ctrl = ShardedMPPIController(_episode_config(name), mesh=mesh, onepass=onepass)
-                    sharded[label] = row(ctrl, run_episode_jit, label, per_update={
+                    sharded[label] = row(ctrl, run_episode_jit, label, epilogue=False, per_update={
                         "solve_partials": mesh.size, "softmin_combine": mesh.size,
                         "weighted_update": 0 if onepass else mesh.size})
     print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "smi": _smi(),
-                      "world_kernel": k6, "tail_kernel": k7, "configs": configs, "fleets": fleets,
+                      "world_kernel": k6, "tail_kernel": k7, "epilogue": k2e, "configs": configs,
+                      "fleets": fleets,
                       "sharded": sharded}))
     return 0
 

@@ -39,11 +39,14 @@ from mppi_gpu_tpu_torch.controller import (
     SolveResult,
     _finish,
     _finish_fused,
+    _result,
     softmin_update,
 )
 from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops import families, philox
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
+from mppi_gpu_tpu_torch.ops import world_step as ws
+from mppi_gpu_tpu_torch.ops.combine_tail import combine_tail
 from mppi_gpu_tpu_torch.ops.cost import Cost, batch_goals, has_goal, with_goal
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
 
@@ -77,6 +80,7 @@ class BatchedMPPIController(MPPIController):
             cfg, device=device, rollout_backend=rollout_backend, dynamics=dynamics, cost=cost
         )
         self.n_robots = n_robots
+        self._tickets = torch.zeros(n_robots + 1, dtype=torch.int32, device=self.device)
         # a cost with a goal carries one goal row per robot, shared ones
         # repeated: the fused kernels read robot r's row (a family that
         # keeps its goal in its pack has none to batch)
@@ -116,24 +120,32 @@ class BatchedMPPIController(MPPIController):
 
     # -- solves ------------------------------------------------------------
     def _solve_robots(self, xs, Us, seeds, step, it: int, robots: range,
-                      eps=None, outputs=FULL, into=None) -> SolveResult:
+                      eps=None, outputs=FULL, into=None, advance=None) -> SolveResult:
         """One update of the fleet's robots `robots`, whose rows of xs, Us,
         seeds (and of eps (R, T, K, a) in the injected-ε mode) are given: on
         the fused backend one launch of K1 and one of K2, on the eager one
         the rollouts and the softmin robot by robot; then one tail for the
         fleet, computing `outputs` only (the shifted sequences into `into`
-        when given)."""
+        when given), then with `advance` the world's step (the whole fleet's);
+        on the fused backend a tail without the weights is K2's epilogue
+        (K2', ``ops.combine_tail``), as in ``MPPIController._fused``."""
         cfg = self.cfg
         goals = families.call_goal(self._family, self.cost)
         if self.rollout_backend == "fused":
             K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[2], False)
-            S, beta, eta, dU = fs.fleet_family_fused_solve(
-                self._family, xs, Us, None if goals is None else goals[robots.start:robots.stop],
-                cfg.lambda_, K, seeds, step, it, anti, cfg.noise_beta, eps=eps,
-                n_robots=self.n_robots,
-            )
-            return _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action,
-                                 outputs, into)
+            args = (self._family, xs, Us, None if goals is None else goals[robots.start:robots.stop],
+                    cfg.lambda_, K, seeds, step, it, anti, cfg.noise_beta)
+            if outputs != FULL:
+                S, partials = fs.fleet_family_solve_partials(*args, eps, self.n_robots)
+                beta, eta, _, tail = combine_tail(
+                    partials, cfg.lambda_, Us, self.max_a, cfg.clamp_action, outputs,
+                    self._tickets[:len(robots) + 1], into, step, advance)
+                return _result(tail, S, beta, eta, None)
+            S, beta, eta, dU = fs.fleet_family_fused_solve(*args, eps=eps, n_robots=self.n_robots)
+            res = _finish_fused(Us, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action,
+                                outputs, into)
+            ws.advance_after(advance, res.action, step)
+            return res
         # the seeds stay on the device: a solve reads nothing from it
         seed_list = seeds.unbind(0) if eps is None else [0] * len(robots)
         rows = []
@@ -143,11 +155,14 @@ class BatchedMPPIController(MPPIController):
             sm, dU = softmin_update(S, e, self.lambda_)
             rows.append((S, sm.beta, sm.eta, sm.weights, dU))
         S, beta, eta, weights, dU = (torch.stack(v) for v in zip(*rows))
-        return _finish(Us, dU, S, beta, eta, weights, self.max_a, cfg.clamp_action, outputs, into)
+        res = _finish(Us, dU, S, beta, eta, weights, self.max_a, cfg.clamp_action, outputs, into)
+        ws.advance_after(advance, res.action, step)
+        return res
 
-    def _solve_once(self, xs, Us, seeds, step, it: int, outputs=FULL, into=None) -> SolveResult:
+    def _solve_once(self, xs, Us, seeds, step, it: int, outputs=FULL, into=None,
+                    advance=None) -> SolveResult:
         return self._solve_robots(xs, Us, seeds, step, it, range(self.n_robots), outputs=outputs,
-                                  into=into)
+                                  into=into, advance=advance)
 
     def solve(self, xs: torch.Tensor, Us: torch.Tensor, seeds, step=0, *,
               capture: bool = True) -> SolveResult:

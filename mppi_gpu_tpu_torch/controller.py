@@ -6,7 +6,10 @@ update ``U += Σ_k w_k ε_k`` → clamp → shift. Two backends:
 * ``eager`` — plain torch on any device: ``ops.philox`` noise,
   ``ops.rollout``, ``ops.softmin``;
 * ``fused`` — the hand-written CUDA solve (``ops.fused_solve``, kernels K1 +
-  K2) on a CUDA device; the noise never leaves the kernel.
+  K2) on a CUDA device; the noise never leaves the kernel. ``solve``'s last
+  update ends in K7, the solve's tail with the weights; an inner opt
+  iteration and the device episode's update end in K2 with the tail (and
+  the world's step) as its epilogue (``ops.combine_tail``, K2').
 
 ``auto`` picks ``fused`` on a CUDA device when the (model, cost) pair is a
 fused family (``ops.families``: the point-mass LTI model with the quadratic
@@ -35,20 +38,18 @@ from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops import families
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops import philox
+from mppi_gpu_tpu_torch.ops import world_step as ws
+from mppi_gpu_tpu_torch.ops.combine_tail import combine_tail
 from mppi_gpu_tpu_torch.ops.cost import Cost, make_cost, only_goal_differs
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs, rollout_trajectories
 from mppi_gpu_tpu_torch.ops.softmin import softmin_weights
-from mppi_gpu_tpu_torch.ops.solve_tail import OUTPUTS, solve_tail
+from mppi_gpu_tpu_torch.ops.solve_tail import CYCLE, ITERATE, OUTPUTS, solve_tail
 from mppi_gpu_tpu_torch.ops.solve_tail import shift_action_seq  # noqa: F401 (the public name)
 
 BACKENDS = ("auto", "eager", "fused")
 # what a solve's tail computes (``ops/solve_tail``): every field of a
-# SolveResult; an inner iteration of iterated MPPI, which keeps only the
-# updated sequence; the device episode's cycle, which reads the action and
-# the shifted sequence (as XLA drops the rest of the jitted episode's solve)
+# SolveResult, or ITERATE's or CYCLE's part of it
 FULL = OUTPUTS
-ITERATE = ("u_seq",)
-CYCLE = ("u_next", "action")
 
 
 class SolveInfo(NamedTuple):
@@ -194,6 +195,9 @@ class MPPIController:
         self.max_a = torch.tensor(cfg.max_a, **f32)
         self.rollout_backend = resolve_backend(rollout_backend, self.device, self.dynamics, cost)
         self.cost = cost
+        # K2's epilogue finds each robot's last block by a ticket: one per
+        # robot and one for the robots' world steps, zero between launches
+        self._tickets = torch.zeros(2, dtype=torch.int32, device=self.device)
 
     @property
     def cost(self) -> Cost:
@@ -253,29 +257,41 @@ class MPPIController:
 
     # -- solves ------------------------------------------------------------
     def _fused(self, x, U, seed: int, step, it: int, eps=None, outputs=FULL,
-               into=None) -> SolveResult:
-        """The fused kernels (Philox mode, or injected-ε mode with `eps`) and
-        the tail (:func:`_finish_fused`: K7 on the card)."""
+               into=None, advance=None) -> SolveResult:
+        """The fused kernels (Philox mode, or injected-ε mode with `eps`):
+        K1, then for `outputs` = FULL K2 and the tail with the weights
+        (:func:`_finish_fused`: K7 on the card), else K2 with the tail and,
+        with `advance`, the world's step as its epilogue
+        (``ops.combine_tail``: one launch of K2' on the card)."""
         cfg = self.cfg
         K, anti = (cfg.samples, cfg.antithetic) if eps is None else (eps.shape[1], False)
-        S, beta, eta, dU = fs.family_fused_solve(
-            self._family, x, U, families.call_goal(self._family, self.cost), cfg.lambda_, K, seed,
-            step, it, anti, cfg.noise_beta, eps=eps,
-        )
-        return _finish_fused(U, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action,
-                             outputs, into)
+        args = (self._family, x, U, families.call_goal(self._family, self.cost), cfg.lambda_, K,
+                seed, step, it, anti, cfg.noise_beta)
+        if outputs == FULL:
+            S, beta, eta, dU = fs.family_fused_solve(*args, eps=eps)
+            res = _finish_fused(U, dU, S, beta, eta, cfg.lambda_, self.max_a, cfg.clamp_action,
+                                outputs, into)
+            ws.advance_after(advance, res.action, step)
+            return res
+        S, partials = fs.family_solve_partials(*args, eps)
+        beta, eta, _, tail = combine_tail(partials, cfg.lambda_, U, self.max_a, cfg.clamp_action,
+                                          outputs, self._tickets, into, step, advance)
+        return _result(tail, S, beta, eta, None)
 
     def _solve_once(self, x: torch.Tensor, U: torch.Tensor, seed: int, step, it: int,
-                    outputs=FULL, into=None) -> SolveResult:
+                    outputs=FULL, into=None, advance=None) -> SolveResult:
         """One update of U, its tail computing `outputs` only (the shifted
-        sequence into `into` when given)."""
+        sequence into `into` when given), then with `advance` the world's
+        step under its action (``ops.world_step.Advance``)."""
         if self.rollout_backend == "fused":
-            return self._fused(x, U, seed, step, it, outputs=outputs, into=into)
+            return self._fused(x, U, seed, step, it, outputs=outputs, into=into, advance=advance)
         cfg = self.cfg
         eps = self._eps(seed, step, it)
         S = rollout_costs(self.dynamics, self.cost, x, U, eps)
-        return solve_from_costs(S, eps, U, self.lambda_, self.max_a, clamp=cfg.clamp_action,
-                                outputs=outputs, into=into)
+        res = solve_from_costs(S, eps, U, self.lambda_, self.max_a, clamp=cfg.clamp_action,
+                               outputs=outputs, into=into)
+        ws.advance_after(advance, res.action, step)
+        return res
 
     def _eps(self, seed, step, it: int) -> torch.Tensor:
         cfg = self.cfg
@@ -291,15 +307,20 @@ class MPPIController:
             U = self._solve_once(x, U, seed, step, j, ITERATE).info.u_seq
         return U
 
-    def solve_in_place(self, x: torch.Tensor, U: torch.Tensor, seed: int, step) -> torch.Tensor:
+    def solve_in_place(self, x: torch.Tensor, U: torch.Tensor, seed: int, step,
+                       advance: ws.Advance | None = None) -> torch.Tensor:
         """The device episode's solve (``runner.EpisodeCycle``): :meth:`solve`
         op by op (every opt iteration), computing only what the cycle reads,
         as XLA's dead-code elimination leaves the JAX package's jitted
         episode: returns the action, and writes the shifted sequence over U
         in place; neither the weights over K nor an updated sequence beside
-        U are computed."""
+        U are computed. With `advance`, the world's step under the action at
+        the counter `step` follows (``ops.world_step.Advance``): on the
+        fused backend on a CUDA device inside the last update's K2' where
+        the world has a K6 body, else after the solve."""
         U_last = self._iterate(x, U, seed, step)
-        return self._solve_once(x, U_last, seed, step, self.cfg.opt_iters - 1, CYCLE, U).action
+        return self._solve_once(x, U_last, seed, step, self.cfg.opt_iters - 1, CYCLE, U,
+                                advance).action
 
     def _solve_identity(self) -> tuple:
         """The identity of every object whose tensors a solve reads, the

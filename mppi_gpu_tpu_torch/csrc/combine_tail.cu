@@ -1,0 +1,184 @@
+// K2' combine_tail: K2's fold with the solve's tail as its epilogue and, in
+// the device episode's last update, the world's control cycle, for R robots
+// in one launch; bound to Python with ctypes (mppi_gpu_tpu_torch/ops/_build.py,
+// ops/combine_tail.py).
+//
+// It replaces no Pallas kernel of its own. On the TPU, XLA fuses the jitted
+// solve's tail and the JAX world's simulate into the episode's program
+// (mppi_gpu_tpu/controller.py:504, 522-531; mppi_gpu_tpu/runner.py:375-383).
+// The port first stood for that fusion with two kernels of their own, K7
+// (solve_tail.cu) and K6 (world_step.cu), which took 1.4-3.1 and 1.8-5.3 µs
+// of device time per graph cycle. Neither is bound by its bytes or its
+// operations (their bounds are 1e-8 to 2e-4 ms): each is bound by its launch
+// and its serial latency. Both read only what K2 has just produced for the
+// same robot: K7 its ΔU, K6 the action K7 computes from it. So here their
+// work has no launch of its own.
+//
+// Design: K2's grid (column tiles, R) and K2's fold, unchanged
+// (softmin_combine.cuh). Every block then fences its ΔU columns and takes a
+// ticket from robot r's counter; the last of the robot's tiles to finish
+// reads the robot's whole ΔU row from L2 and runs K7's row body
+// (solve_tail.cuh: U + ΔU, the clamp, u_seq, or the shift in place and the
+// action). With a world body (world_step.cuh), its thread 0 then steps robot
+// r's world under the action it holds in shared memory, as K6 does: the
+// state, the clock, the histories at the counter's row and the next x. The
+// robot then takes a second ticket; the last robot to finish writes a fleet's
+// shared clock and advances the counter, after every robot has read both.
+// The last blocks reset their counters to 0, so a graph's every replay
+// starts clean. The tickets are R + 1 int32 the caller holds (zeros).
+//
+// The arithmetic, its order and each rounding are the standalone kernels'
+// (the same device functions): the outputs are bit-equal to K2, K7 and K6
+// launched one after the other.
+
+#include <type_traits>
+
+#include "softmin_combine.cuh"
+#include "solve_tail.cuh"
+#include "world_step.cuh"
+
+namespace {
+
+struct NoWorld {};  // the tail alone: an inner opt iteration, or no K6 body
+
+struct EpilogueArgs {
+  tail::RowArgs row;   // U, ΔU (K2's output), max_a, u_seq, u_next, action
+  world::AdvanceArgs adv;  // its u unused: the action is the row's first A floats
+  int* tickets;        // (R + 1,): one per robot, then one for the robots' world steps
+};
+
+// Robot r's world step in one thread, then its ticket; the last robot writes
+// the shared clock and advances the counter.
+template <class W>
+__device__ __forceinline__ void step_world(const world::AdvanceArgs& a, int r, const float* u,
+                                           int* tickets) {
+  W w;
+  w.load(a.params);
+  const long long row = a.step_ptr != nullptr ? *a.step_ptr : -1;
+  const bool hist = a.xs != nullptr && row >= 0 && row < a.n_hist;
+  const float t = world::advance_robot(w, a, r, u, a.per_robot_clock ? a.time_in[r] : a.time_in[0],
+                                       row, hist);
+  __threadfence();  // robot r has read the clock and the counter and written its rows
+  if (atomicAdd(tickets + a.R, 1) != a.R - 1) return;
+  tickets[a.R] = 0;
+  if (!a.per_robot_clock) {  // every robot's t is the fleet's clock after the cycle
+    a.time_out[0] = t;
+    if (hist) a.ts[row] = t;
+  }
+  if (a.tick) *a.step_ptr = row + 1;  // the episode's next control step
+}
+
+template <class W>
+__global__ void __launch_bounds__(kCombineThreads) combine_tail_kernel(
+    const float* __restrict__ partials, int nb, int TA, float lam, float* __restrict__ beta_eta,
+    float* __restrict__ dU, const EpilogueArgs e) {
+  combine_fold(partials, nb, TA, lam, 1, beta_eta, dU);
+  __shared__ int last;
+  const int r = blockIdx.y;
+  __threadfence();  // this block's ΔU columns reach L2 before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(e.tickets + r, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  if (threadIdx.x == 0) e.tickets[r] = 0;  // every tile of robot r has taken its ticket
+  extern __shared__ float row[];  // robot r's u_new, T·A floats (the fold is done with f_s)
+  tail::row_body<true>(e.row, r, row);
+  if constexpr (!std::is_same<W, NoWorld>::value) {
+    if (threadIdx.x == 0) step_world<W>(e.adv, r, row, e.tickets);
+  }
+}
+
+template <class W>
+int launch(const float* partials, int nb, int TA, float lam, float* beta_eta, float* dU,
+           const EpilogueArgs& e, int R, size_t smem, cudaStream_t stream) {
+  const cudaError_t err = set_smem(combine_tail_kernel<W>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((TA + kCombineCols - 1) / kCombineCols, R);
+  combine_tail_kernel<W><<<grid, kCombineThreads, smem, stream>>>(partials, nb, TA, lam, beta_eta,
+                                                                  dU, e);
+  return (int)cudaGetLastError();
+}
+
+template <class W>
+bool fits(int n_leaves, int n_params, int A) {
+  return n_leaves == W::kLeaves && n_params == W::kParams && A == W::kA;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K2': for R robots, K2's fold of partials (R, nb, 2 + T·A) into beta_eta
+// (R, 2) and dU (R, T, A), divided by η; then K7's row body for each robot
+// (u_new = U + ΔU, clamped to ±max_a when `clamp`; u_seq = u_new, u_next =
+// u_new shifted with the last repeated (may be U: in place), action =
+// u_new[0] (R, A); a null output is not written); then, with `world_id` >= 0
+// (world_step.cuh's WorldId), K6's cycle of that world for each robot under
+// its action, as mppi_world_advance with `tick` and step_ptr: in / out the
+// state leaves (out may be in), the clock shared (per_robot_clock 0) or
+// (R,), xs[row + 1], us[row], ts[row] at row = *step_ptr when row is in
+// [0, n_hist), x_out = the new x, and *step_ptr = row + 1 once every robot
+// is done. tickets: R + 1 int32, zero, left zero. Refuses
+// (cudaErrorInvalidValue) R outside [1, 65535], T or A below 1, a row of more
+// than 227 KB, null tickets, and with a world another leaf count, pack
+// length or action dim than the world's, steps < 0, or a null step_ptr.
+int mppi_combine_tail(const float* partials, int R, int nb, int T, int A, float lam,
+                      float* beta_eta, float* dU, const float* U, const float* max_a, int clamp,
+                      float* u_seq, float* u_next, float* action, int* tickets, int world_id,
+                      const void* const* in, void* const* out, int n_leaves,
+                      const float* time_in, float* time_out, int per_robot_clock,
+                      const float* params, int n_params, int steps, float* xs, float* us,
+                      float* ts, int n_hist, long long* step_ptr, float* x_out, void* stream) {
+  const int TA = T * A;
+  if (R < 1 || R > kMaxRobots || T < 1 || A < 1 || tickets == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long row_bytes = (long long)TA * (long long)sizeof(float);
+  if (row_bytes > tail::kMaxRowBytes) return (int)cudaErrorInvalidValue;
+  const size_t fold = ((size_t)nb + kCombineWarps * kCombineCols) * sizeof(float);
+  const size_t smem = fold > (size_t)row_bytes ? fold : (size_t)row_bytes;
+  EpilogueArgs e{};
+  e.row = tail::RowArgs{U, dU, max_a, u_seq, u_next, action, clamp, T, A};
+  e.tickets = tickets;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (world_id < 0) return launch<NoWorld>(partials, nb, TA, lam, beta_eta, dU, e, R, smem, s);
+  if (n_leaves < 1 || n_leaves > world::kMaxLeaves || steps < 0 || step_ptr == nullptr)
+    return (int)cudaErrorInvalidValue;
+  world::AdvanceArgs& a = e.adv;
+  for (int l = 0; l < n_leaves; ++l) {
+    a.in[l] = static_cast<const float*>(in[l]);
+    a.out[l] = static_cast<float*>(out[l]);
+  }
+  a.time_in = time_in;
+  a.time_out = time_out;
+  a.params = params;
+  a.xs = xs;
+  a.us = us;
+  a.ts = ts;
+  a.step_ptr = step_ptr;
+  a.x_out = x_out;
+  a.tick = 1;
+  a.R = R;
+  a.per_robot_clock = per_robot_clock;
+  a.steps = steps;
+  a.n_hist = n_hist;
+#define WORLD_CASE(id, W)                                                                  \
+  case world::id:                                                                          \
+    return fits<world::W>(n_leaves, n_params, A)                                           \
+               ? launch<world::W>(partials, nb, TA, lam, beta_eta, dU, e, R, smem, s)      \
+               : (int)cudaErrorInvalidValue;
+  switch (world_id) {
+    WORLD_CASE(kPointMass1, PointMass<1>)
+    WORLD_CASE(kPointMass2, PointMass<2>)
+    WORLD_CASE(kPointMass3, PointMass<3>)
+    WORLD_CASE(kPendulum, Pendulum)
+    WORLD_CASE(kCartPole, CartPole)
+    WORLD_CASE(kUnicycle, Unicycle)
+    WORLD_CASE(kQuadrotor, Quadrotor)
+    WORLD_CASE(kQuadrotor3D, Quadrotor3D)
+    WORLD_CASE(kArm, Arm)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WORLD_CASE
+}
+
+}  // extern "C"

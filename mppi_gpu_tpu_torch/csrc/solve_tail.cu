@@ -25,42 +25,29 @@
 // U itself (the device episode shifts its nominal sequence in place).
 //
 // The arithmetic is the torch ops', each rounded once alike (never
-// contracted into an FMA): U + ΔU with __fadd_rn; torch.clamp with tensor
-// bounds passes NaN and is otherwise min(max(v, −m), m); the weights are the
-// sub, the neg, the division by the Python float λ, which torch's CUDA
-// division by a CPU scalar computes as a product with the float32 reciprocal
-// 1.0f/λ (its BinaryDivTrueKernel; the wrapper passes that reciprocal, so the
-// product here is __fmul_rn), expf at full precision (no fast math), and the
-// true division by the device scalar η (__fdiv_rn).
+// contracted into an FMA): the row's (solve_tail.cuh, shared with K2's
+// epilogue); the weights are the sub, the neg, the division by the Python
+// float λ, which torch's CUDA division by a CPU scalar computes as a product
+// with the double reciprocal 1/λ rounded once to float32 (the wrapper passes
+// that factor, ops/_rounding.scalar_reciprocal, so the product here is
+// __fmul_rn), expf at full precision (no fast math), and the true division
+// by the device scalar η (__fdiv_rn).
 
-#include <cuda_runtime.h>
+#include "solve_tail.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxRobots = 65535;
-// the shared memory a block can have on Hopper (227 KB), the row's bound
-constexpr int kMaxRowBytes = 232448;
 
 struct TailArgs {
-  const float* U;      // (R, T, A)
-  const float* dU;     // (R, T, A)
-  const float* max_a;  // (A,)
-  float* u_seq;        // (R, T, A) or null
-  float* u_next;       // (R, T, A) or null; may be U (in place)
-  float* action;       // (R, A) or null
+  tail::RowArgs row;   // U, ΔU, max_a, u_seq, u_next, action
   const float* S;      // (R, K)
   const float* beta;   // robot r's at beta + r·beta_stride
   const float* eta;    // robot r's at eta + r·eta_stride
   float* weights;      // (R, K) or null
-  int beta_stride, eta_stride, clamp, T, A, K;
-  float inv_lam;       // 1.0f / (float)λ
+  int beta_stride, eta_stride, K;
+  float inv_lam;       // float32(1/λ)
 };
-
-// torch.clamp(v, lo, hi) on the card: NaN passes, else min(max(v, lo), hi)
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
 
 __global__ void __launch_bounds__(kThreads) solve_tail_kernel(const TailArgs a) {
   const int r = blockIdx.y;
@@ -75,23 +62,7 @@ __global__ void __launch_bounds__(kThreads) solve_tail_kernel(const TailArgs a) 
     return;
   }
   extern __shared__ float row[];  // robot r's u_new, T·A floats
-  const int n = a.T * a.A;
-  const long long base = (long long)r * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float v = __fadd_rn(a.U[base + i], a.dU[base + i]);
-    if (a.clamp) {
-      const float m = a.max_a[i % a.A];
-      v = clampf(v, -m, m);
-    }
-    row[i] = v;
-  }
-  __syncthreads();  // the whole row is read before any of it is written
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (a.u_seq != nullptr) a.u_seq[base + i] = row[i];
-    // u_next[t] = u_new[t + 1], the last step's action repeated
-    if (a.u_next != nullptr) a.u_next[base + i] = row[i + a.A < n ? i + a.A : i];
-    if (a.action != nullptr && i < a.A) a.action[(long long)r * a.A + i] = row[i];
-  }
+  tail::row_body<false>(a.row, r, row);
 }
 
 }  // namespace
@@ -101,8 +72,9 @@ extern "C" {
 // K7: for R robots, u_new = U + ΔU (clamped to ±max_a when `clamp`), then
 // u_seq = u_new, u_next = u_new shifted by one step with the last repeated,
 // action = u_new[0] (R, A), and, with `weights` non-null, weights[r, k] =
-// expf(−(S[r, k] − β_r)·inv_lam) / η_r over K; a null output is not written.
-// u_next may be U (in place); no other output may overlap an input. Refuses
+// expf(−(S[r, k] − β_r)·inv_lam) / η_r over K (inv_lam: float32(1/λ)); a
+// null output is not written. u_next may be U (in place); no other output
+// may overlap an input. Refuses
 // (cudaErrorInvalidValue) R outside [1, 65535], T, A or K below 1 (K only
 // with weights), and a row of more than 227 KB (T·A > 58112 floats): the row
 // is staged in shared memory, and there is no other path.
@@ -110,31 +82,23 @@ int mppi_solve_tail(const float* U, const float* dU, const float* max_a, int cla
                     float* u_seq, float* u_next, float* action, const float* S,
                     const float* beta, int beta_stride, const float* eta, int eta_stride,
                     float inv_lam, float* weights, int R, int T, int A, int K, void* stream) {
-  if (R < 1 || R > kMaxRobots || T < 1 || A < 1 || (weights != nullptr && K < 1))
+  if (R < 1 || R > tail::kMaxRobots || T < 1 || A < 1 || (weights != nullptr && K < 1))
     return (int)cudaErrorInvalidValue;
   const long long row_bytes = (long long)T * A * (long long)sizeof(float);
-  if (row_bytes > kMaxRowBytes) return (int)cudaErrorInvalidValue;
+  if (row_bytes > tail::kMaxRowBytes) return (int)cudaErrorInvalidValue;
   if (row_bytes > 48 * 1024) {  // past the default, on the current device
     const cudaError_t err = cudaFuncSetAttribute(
         solve_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)row_bytes);
     if (err != cudaSuccess) return (int)err;
   }
   TailArgs a{};
-  a.U = U;
-  a.dU = dU;
-  a.max_a = max_a;
-  a.u_seq = u_seq;
-  a.u_next = u_next;
-  a.action = action;
+  a.row = tail::RowArgs{U, dU, max_a, u_seq, u_next, action, clamp, T, A};
   a.S = S;
   a.beta = beta;
   a.eta = eta;
   a.weights = weights;
   a.beta_stride = beta_stride;
   a.eta_stride = eta_stride;
-  a.clamp = clamp;
-  a.T = T;
-  a.A = A;
   a.K = weights != nullptr ? K : 0;
   a.inv_lam = inv_lam;
   const dim3 grid(1 + (weights != nullptr ? (K + kThreads - 1) / kThreads : 0), R);

@@ -1,0 +1,71 @@
+// K7's row body: the tail of one MPPI update for one robot's sequence, shared
+// by K7 (solve_tail.cu), which runs it in block 0 of each robot, and by K2's
+// epilogue (combine_tail.cu), which runs it in the last of K2's blocks to
+// finish for a robot. Both therefore compute the same floats.
+//
+// u_new = U + ΔU (__fadd_rn: torch's add, never contracted into an FMA),
+// clamped to ±max_a as torch.clamp with tensor bounds clamps (NaN passes,
+// else min(max(v, −m), m)); then u_seq = u_new, u_next = u_new shifted by one
+// step with the last action repeated, action = u_new[0], each written only
+// where its pointer is not null. The block reads the robot's whole u_new into
+// shared memory before it writes anything, and no other block touches that
+// robot's sequence, so u_next may be U itself (the device episode shifts its
+// nominal sequence in place).
+//
+// Everything lives in the namespace `tail` inside an anonymous namespace, so
+// a translation unit may include it beside mppi_solve.cuh and world_step.cuh,
+// and no library exports any of it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+namespace tail {
+
+constexpr int kMaxRobots = 65535;
+// the shared memory a block can have on Hopper (227 KB), the row's bound
+constexpr int kMaxRowBytes = 232448;
+
+struct RowArgs {
+  const float* U;      // (R, T, A)
+  const float* dU;     // (R, T, A)
+  const float* max_a;  // (A,)
+  float* u_seq;        // (R, T, A) or null
+  float* u_next;       // (R, T, A) or null; may be U (in place)
+  float* action;       // (R, A) or null
+  int clamp, T, A;
+};
+
+// torch.clamp(v, lo, hi) on the card: NaN passes, else min(max(v, lo), hi)
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// Robot r's tail, by every thread of the block; `row` holds T·A floats of
+// shared memory. With L2, ΔU is read from L2 (__ldcg): K2's epilogue reads
+// columns that other blocks of the same launch wrote.
+template <bool L2>
+__device__ __forceinline__ void row_body(const RowArgs& a, int r, float* row) {
+  const int n = a.T * a.A;
+  const long long base = (long long)r * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float d = L2 ? __ldcg(a.dU + base + i) : a.dU[base + i];
+    float v = __fadd_rn(a.U[base + i], d);
+    if (a.clamp) {
+      const float m = a.max_a[i % a.A];
+      v = clampf(v, -m, m);
+    }
+    row[i] = v;
+  }
+  __syncthreads();  // the whole row is read before any of it is written
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (a.u_seq != nullptr) a.u_seq[base + i] = row[i];
+    // u_next[t] = u_new[t + 1], the last step's action repeated
+    if (a.u_next != nullptr) a.u_next[base + i] = row[i + a.A < n ? i + a.A : i];
+    if (a.action != nullptr && i < a.A) a.action[(long long)r * a.A + i] = row[i];
+  }
+}
+
+}  // namespace tail
+}  // namespace

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
-from mppi_gpu_tpu_torch.ops.world_step import kernel_world
+from mppi_gpu_tpu_torch.ops.world_step import Reciprocal, kernel_world
 
 
 @dataclass(frozen=True)
@@ -62,7 +62,7 @@ class CartPoleWorld(World):
         cartpole), past the cadence."""
         pp = self.params
         return "cartpole", dict(
-            max_force=pp.max_force, inv_total=1.0 / (pp.cart_mass + pp.pole_mass),
+            max_force=pp.max_force, inv_total=Reciprocal(pp.cart_mass + pp.pole_mass),
             ml=pp.pole_mass * pp.pole_length, gravity=pp.gravity, pole_length=pp.pole_length,
             four_thirds=4.0 / 3.0, pole_mass=pp.pole_mass, track_limit=pp.track_limit)
 

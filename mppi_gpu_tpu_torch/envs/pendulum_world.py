@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
-from mppi_gpu_tpu_torch.ops.world_step import kernel_world
+from mppi_gpu_tpu_torch.ops.world_step import Reciprocal, kernel_world
 
 
 @dataclass(frozen=True)
@@ -57,7 +57,7 @@ class PendulumWorld(World):
         pendulum), past the cadence."""
         p = self.params
         return "pendulum", dict(max_torque=p.max_torque, g_over_l=p.gravity / p.length,
-                                inv_ml2=1.0 / (p.mass * p.length**2), damping=p.damping)
+                                inv_ml2=Reciprocal(p.mass * p.length**2), damping=p.damping)
 
     def _accel(self, th, thd, u):
         p = self.params

@@ -23,7 +23,7 @@ import torch
 
 from mppi_gpu_tpu_torch.envs.base import World, clock
 from mppi_gpu_tpu_torch.envs.params import WorldParams
-from mppi_gpu_tpu_torch.ops.world_step import kernel_world
+from mppi_gpu_tpu_torch.ops.world_step import Reciprocal, kernel_world
 
 
 class WorldState(NamedTuple):
@@ -50,7 +50,7 @@ class PointMassWorld(World):
         p = self.params
         return f"point_mass{p.n_axes}", dict(
             ctrl_range=p.ctrl_range, gear=p.gear, damping=p.damping,
-            inv_mass=1.0 / p.effective_mass, joint_range=p.joint_range)
+            inv_mass=Reciprocal(p.effective_mass), joint_range=p.joint_range)
 
     def _accel(self, qd: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         p = self.params

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
-from mppi_gpu_tpu_torch.ops.world_step import kernel_world
+from mppi_gpu_tpu_torch.ops.world_step import Reciprocal, kernel_world
 
 
 @dataclass(frozen=True)
@@ -95,10 +95,10 @@ class Quadrotor3DWorld(World):
         p = self.params
         jx, jy, jz = p.inertia
         return "quadrotor3d", dict(
-            max_thrust=p.max_thrust, inv_two_arm=1.0 / (2.0 * p.arm),
-            inv_four_kappa=1.0 / (4.0 * p.kappa), arm=p.arm, kappa=p.kappa, inv_mass=1.0 / p.mass,
-            gravity=p.gravity, jzy=jz - jy, jxz=jx - jz, jyx=jy - jx, inv_jx=1.0 / jx,
-            inv_jy=1.0 / jy, inv_jz=1.0 / jz)
+            max_thrust=p.max_thrust, inv_two_arm=Reciprocal(2.0 * p.arm),
+            inv_four_kappa=Reciprocal(4.0 * p.kappa), arm=p.arm, kappa=p.kappa,
+            inv_mass=Reciprocal(p.mass), gravity=p.gravity, jzy=jz - jy, jxz=jx - jz, jyx=jy - jx,
+            inv_jx=Reciprocal(jx), inv_jy=Reciprocal(jy), inv_jz=Reciprocal(jz))
 
     def _derivs(self, q, om, wrench):
         """(q̇, v̇, ω̇): the model's rigid-body ODE on the achieved wrench."""

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from mppi_gpu_tpu_torch.envs.base import ControlCadence, World, clock
-from mppi_gpu_tpu_torch.ops.world_step import kernel_world
+from mppi_gpu_tpu_torch.ops.world_step import Reciprocal, kernel_world
 
 
 @dataclass(frozen=True)
@@ -63,8 +63,9 @@ class QuadrotorWorld(World):
         """K6's body and its parameters (csrc/world_step.cu, @pack
         quadrotor), past the cadence."""
         p = self.params
-        return "quadrotor", dict(max_thrust=p.max_thrust, inv_mass=1.0 / p.mass,
-                                 gravity=p.gravity, arm=p.arm, inv_inertia=1.0 / p.inertia)
+        return "quadrotor", dict(
+            max_thrust=p.max_thrust, inv_mass=Reciprocal(p.mass), gravity=p.gravity, arm=p.arm,
+            inv_inertia=Reciprocal(p.inertia))
 
     def _accels(self, th, f1, f2):
         """Accelerations from the left (f1) and right (f2) rotor thrusts."""

@@ -23,14 +23,19 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
+from mppi_gpu_tpu_torch.ops import _rounding
 from mppi_gpu_tpu_torch.ops.fused_solve import _launch
 
 MAX_ROW = 232448 // 4  # floats of one robot's sequence K7 stages in shared memory (kMaxRowBytes)
 MAX_ROBOTS = 65535     # the C entry's bound on R
 OUTPUTS = ("u_seq", "u_next", "action", "weights")
+# the tails without the weights: an inner iteration of iterated MPPI keeps
+# only the updated sequence; the device episode's cycle reads the action and
+# the shifted sequence (as XLA drops the rest of the jitted episode's solve)
+ITERATE = ("u_seq",)
+CYCLE = ("u_next", "action")
 
 # launches of K7 that ran
 _LAUNCHES = {"solve_tail": 0}
@@ -94,12 +99,6 @@ def _on_cuda(tensors) -> bool:
     return devices.pop().type == "cuda"
 
 
-def inverse_lambda(lambda_: float) -> float:
-    """1.0f / (float)λ in float32: what torch's CUDA division by the Python
-    float λ multiplies by."""
-    return float(np.float32(1.0) / np.float32(lambda_))
-
-
 def solve_tail(U: torch.Tensor, dU: torch.Tensor, max_a: torch.Tensor, clamp: bool,
                outputs=OUTPUTS, softmin=None, into: torch.Tensor | None = None) -> Tail:
     """The tail of one update: U, ΔU (T, A) or (R, T, A), max_a (A,); the
@@ -160,7 +159,7 @@ def _launch_tail(U, dU, max_a, clamp, outputs, softmin, into) -> Tail:
         if K < 1:
             raise ValueError("K7: the weights need K >= 1")
         b_stride, e_stride = (beta.stride(0), eta.stride(0)) if lead else (0, 0)
-        inv_lam = inverse_lambda(lam)
+        inv_lam = _rounding.scalar_reciprocal(lam)
         weights = torch.empty(S.shape, **f32)
     from mppi_gpu_tpu_torch.ops import _build  # built at the first launch, not at import
 

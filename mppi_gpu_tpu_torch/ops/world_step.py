@@ -13,6 +13,11 @@ dispatch between them.
   into the histories at the row a 0-dim int64 device counter holds
   (xs[step + 1], us[step], ts[step]), x_new into the cycle's x buffer, and
   the counter advanced, all in the one launch on a CUDA device.
+* :func:`plain_advance_into` — :func:`advance_into`'s plain version.
+* :func:`advance_after` — :func:`advance_into` of an :class:`Advance`, the
+  episode's world step after a solve that did not run it in K2's epilogue.
+* :func:`world_args` — the checked arguments of a world's cycle, which K6
+  and K2's epilogue take alike.
 * :func:`plain_advance` — K6's plain version: ``physics_step``
   ``steps_per_control`` times, then a robot whose clock was at or past
   ``sim_end`` before the cycle keeps its old state (one shared 0-dim clock
@@ -20,8 +25,10 @@ dispatch between them.
 * :func:`pack` — a world's parameters as K6 reads them: the four numbers of
   its cadence (timestep, 0.5·timestep, timestep/6, sim_end) and the world's
   own (``kernel_params`` of its class), each a double rounded to float32 as
-  torch rounds a Python scalar; a world packs them once, on its device,
-  when it is built, so a captured graph holds their address.
+  torch rounds a Python scalar, a divisor as the reciprocal torch's CUDA
+  division multiplies by (``ops/_rounding.scalar_reciprocal``); a world
+  packs them once, on its device, when it is built, so a captured graph
+  holds their address.
 
 A CUDA state, action or history of another dtype, shape or layout raises, as
 does a failed or refused launch: nothing falls back to the plain version on
@@ -34,9 +41,11 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
+from mppi_gpu_tpu_torch.ops import _rounding
 from mppi_gpu_tpu_torch.ops.fused_solve import _launch
 
 # the world bodies of csrc/world_step.cu: kind → (C id (WorldId), the shape of
@@ -65,7 +74,9 @@ def kernel_world(cls: type) -> type:
     """Class decorator: `cls` (exactly, not its subclasses) steps through
     K6 on a CUDA device. It defines ``kernel_params(self) -> (kind, {name:
     value})``, the body of :data:`WORLDS` and its parameters in the order of
-    that body's ``@pack`` line in csrc/world_step.cu, past the cadence."""
+    that body's ``@pack`` line in csrc/world_step.cu, past the cadence; a
+    field the world's torch ops divide by is given as its divisor, wrapped in
+    :class:`Reciprocal`."""
     _KERNEL_WORLDS.add(cls)
     return cls
 
@@ -74,11 +85,23 @@ def has_kernel(world) -> bool:
     return type(world) in _KERNEL_WORLDS
 
 
+class Reciprocal(NamedTuple):
+    """A packed field that is the reciprocal of `divisor`: the world's torch
+    ops divide by the Python float `divisor`, which torch's CUDA division
+    computes as a product with ``_rounding.scalar_reciprocal(divisor)``."""
+
+    divisor: float
+
+
 def pack_fields(world) -> tuple[str, dict[str, float]]:
-    """(kind, every packed field by name in order) of a built-in world."""
+    """(kind, every packed field by name in order) of a built-in world; a
+    :class:`Reciprocal` of its ``kernel_params`` packed as the float32 factor
+    torch's CUDA division multiplies by."""
     p = world.params
     h = p.timestep
     kind, own = world.kernel_params()
+    own = {k: _rounding.scalar_reciprocal(v.divisor) if isinstance(v, Reciprocal) else v
+           for k, v in own.items()}
     return kind, {"timestep": h, "half_step": 0.5 * h, "sixth_step": h / 6.0,
                   "sim_end": p.sim_end, **own}
 
@@ -141,7 +164,15 @@ def advance_into(world, state, u: torch.Tensor, xs: torch.Tensor, us: torch.Tens
     if has_kernel(world) and _on_cuda((*state, u, xs, us, ts, step, x)):
         _launch_world(world, state, u, state, (xs, us, ts, step, x))
         return
-    new = world.advance(state, u)
+    plain_advance_into(world, state, u, xs, us, ts, step, x)
+
+
+def plain_advance_into(world, state, u: torch.Tensor, xs: torch.Tensor, us: torch.Tensor,
+                       ts: torch.Tensor, step: torch.Tensor, x: torch.Tensor) -> None:
+    """:func:`advance_into`'s plain version, torch operations on any device:
+    :func:`plain_advance`, the copies into the state and the histories at the
+    counter's row, and the counter's add."""
+    new = plain_advance(world, state, u)
     for buf, v in zip(state, new):
         buf.copy_(v)
     row = step.view(1)
@@ -150,6 +181,30 @@ def advance_into(world, state, u: torch.Tensor, xs: torch.Tensor, us: torch.Tens
     ts.index_copy_(0, row, new.time.unsqueeze(0))
     x.copy_(new.x)
     step.add_(1)
+
+
+class Advance(NamedTuple):
+    """The device episode's world step after its solve (``runner.EpisodeCycle``):
+    the world, its state (stepped in its own buffers), the histories xs, us,
+    ts and the x buffer the next solve reads; the counter is the solve's
+    step. K2's epilogue runs it in the cycle's last update where the world
+    has a K6 body (``ops/combine_tail.py``); elsewhere :func:`advance_after`
+    does, after the solve."""
+
+    world: object
+    state: tuple
+    xs: torch.Tensor
+    us: torch.Tensor
+    ts: torch.Tensor
+    x: torch.Tensor
+
+
+def advance_after(advance: Advance | None, u: torch.Tensor, step: torch.Tensor) -> None:
+    """:func:`advance_into` of `advance` under the action `u` at the counter
+    `step`; nothing without `advance`."""
+    if advance is not None:
+        advance_into(advance.world, advance.state, u, advance.xs, advance.us, advance.ts, step,
+                     advance.x)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple[int, ...], contiguous: bool = True) -> None:
@@ -177,27 +232,23 @@ def _check_layout(lib, kind: str, n_params: int) -> None:
     _CHECKED.add(kind)
 
 
-def _launch_world(world, state, u, out, hist=None) -> None:
-    """Check the inputs and launch K6 from `state` into `out` (which may be
-    `state`: in place), with `hist` = (xs, us, ts, step, x) the episode's
-    writes: the histories, the new x and the counter's advance."""
+def world_args(world, state, out, R: int, lead: tuple[int, ...], hist=None) -> tuple:
+    """Check a built-in world's state, new state `out` (which may be `state`:
+    in place) and, with `hist` = (xs, us, ts, step, x), the episode's buffers
+    for R robots (`lead` = (R,) for a fleet, () for one robot); return the
+    arguments that K6's C entry and K2's epilogue take for them, in their
+    order: the world's id, the leaves in and out and their count, the clock
+    in and out, whether it is one per robot, the pack and its length, the
+    physics steps per cycle, xs, us, ts, the history rows, the counter and
+    the x buffer (null pointers without `hist`). Loads the library and
+    checks the world's layout against it."""
     kind = world._kernel_kind
     wid, shapes, A, _ = WORLDS[kind]
     leaves, time = tuple(state)[:-1], state.time
     if len(leaves) != len(shapes):
         raise ValueError(f"K6: a {kind} state has {len(shapes)} leaves and a clock, got {len(state)}")
-    lead = tuple(u.shape[:-1])
-    if len(lead) > 1 or u.shape[-1:] != (A,):
-        raise ValueError(f"K6: the {kind} action is ({A},) or (R, {A}), got {tuple(u.shape)}")
-    R = lead[0] if lead else 1
     if not 1 <= R <= MAX_ROBOTS:
         raise ValueError(f"K6 steps 1 <= R <= {MAX_ROBOTS} robots, got {R}")
-    _check("u", u, lead + (A,), contiguous=False)
-    # each robot's A actions side by side, the robots u_stride floats apart
-    u_stride = u.stride(0) if R > 1 else A
-    if (A > 1 and u.stride(-1) != 1) or u_stride < A:
-        raise ValueError(f"K6: u's {A} actions of a robot must be side by side and the robots "
-                         f"apart, got strides {u.stride()}")
     for i, (leaf, o, s) in enumerate(zip(leaves, tuple(out)[:-1], shapes)):
         _check(f"state leaf {i}", leaf, lead + s)
         _check(f"new state leaf {i}", o, lead + s)
@@ -221,18 +272,43 @@ def _launch_world(world, state, u, out, hist=None) -> None:
         _check("x", x, (*lead, S))
     from mppi_gpu_tpu_torch.ops import _build  # built at the first launch, not at import
 
-    lib = _build.load_library()
-    _check_layout(lib, kind, params.numel())
+    _check_layout(_build.load_library(), kind, params.numel())
     ptrs = ctypes.c_void_p * MAX_LEAVES
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    return (wid, ptrs(*(t.data_ptr() for t in leaves)),
+            ptrs(*(t.data_ptr() for t in tuple(out)[:-1])), len(leaves), time.data_ptr(),
+            out.time.data_ptr(), int(per_robot), params.data_ptr(), params.numel(),
+            world.params.steps_per_control, ptr(xs), ptr(us), ptr(ts),
+            us.shape[0] if us is not None else 0, ptr(step), ptr(x))
+
+
+def _launch_world(world, state, u, out, hist=None) -> None:
+    """Check the inputs and launch K6 from `state` into `out` (which may be
+    `state`: in place), with `hist` = (xs, us, ts, step, x) the episode's
+    writes: the histories, the new x and the counter's advance."""
+    kind = world._kernel_kind
+    A = WORLDS[kind][2]
+    lead = tuple(u.shape[:-1])
+    if len(lead) > 1 or u.shape[-1:] != (A,):
+        raise ValueError(f"K6: the {kind} action is ({A},) or (R, {A}), got {tuple(u.shape)}")
+    R = lead[0] if lead else 1
+    _check("u", u, lead + (A,), contiguous=False)
+    # each robot's A actions side by side, the robots u_stride floats apart
+    u_stride = u.stride(0) if R > 1 else A
+    if (A > 1 and u.stride(-1) != 1) or u_stride < A:
+        raise ValueError(f"K6: u's {A} actions of a robot must be side by side and the robots "
+                         f"apart, got strides {u.stride()}")
+    (wid, ins, outs, n_leaves, t_in, t_out, per_robot, params, n_params, steps, xs, us, ts, n_hist,
+     step, x) = world_args(world, state, out, R, lead, hist)
+    from mppi_gpu_tpu_torch.ops import _build
+
     if _launch(
-        "world_advance", lib.mppi_world_advance, time.device, wid,
-        ptrs(*(t.data_ptr() for t in leaves)), ptrs(*(t.data_ptr() for t in tuple(out)[:-1])),
-        len(leaves), time.data_ptr(), out.time.data_ptr(), int(per_robot), u.data_ptr(), u_stride, A,
-        params.data_ptr(), params.numel(), R, world.params.steps_per_control,
-        xs.data_ptr() if xs is not None else None, us.data_ptr() if us is not None else None,
-        ts.data_ptr() if ts is not None else None, us.shape[0] if us is not None else 0,
-        step.data_ptr() if step is not None else None, x.data_ptr() if x is not None else None,
-        int(hist is not None),
+        "world_advance", _build.load_library().mppi_world_advance, state.time.device, wid, ins,
+        outs, n_leaves, t_in, t_out, per_robot, u.data_ptr(), u_stride, A, params, n_params, R,
+        steps, xs, us, ts, n_hist, step, x, int(hist is not None),
     ):
         _LAUNCHES[kind] += 1
 

@@ -23,6 +23,7 @@ from mppi_gpu_tpu_torch.batched import BatchedMPPIController
 from mppi_gpu_tpu_torch.config import MPPIConfig
 from mppi_gpu_tpu_torch.controller import FULL, SolveInfo, SolveResult
 from mppi_gpu_tpu_torch.models.base import Dynamics
+from mppi_gpu_tpu_torch.ops import world_step as ws
 from mppi_gpu_tpu_torch.ops.cost import Cost
 from mppi_gpu_tpu_torch.parallel.mesh import Mesh, make_mesh
 
@@ -69,16 +70,20 @@ class ShardedFleetController(BatchedMPPIController):
     def _solve_identity(self) -> tuple:
         return (*super()._solve_identity(), id(self.mesh))
 
-    def _solve_once(self, xs, Us, seeds, step, it: int, outputs=FULL, into=None) -> SolveResult:
+    def _solve_once(self, xs, Us, seeds, step, it: int, outputs=FULL, into=None,
+                    advance=None) -> SolveResult:
         """Each local rank's robots (their tails computing `outputs` only),
         gathered; the whole fleet's shifted sequences then copied into `into`
-        when given, once every rank has read Us."""
+        when given, once every rank has read Us; then with `advance` the
+        whole fleet's world step under the gathered actions."""
         res = self._gather([
             self._solve_robots(xs[r.start:r.stop], Us[r.start:r.stop], seeds[r.start:r.stop],
                                step, it, r, outputs=outputs)
             for r in self._local
         ])
-        return res if into is None else res._replace(u_next=into.copy_(res.u_next))
+        res = res if into is None else res._replace(u_next=into.copy_(res.u_next))
+        ws.advance_after(advance, res.action, step)
+        return res
 
     def solve_with_eps(self, xs: torch.Tensor, Us: torch.Tensor, eps: torch.Tensor) -> SolveResult:
         """Deterministic fleet solve on the injected ε (R, T, K, a), the same

@@ -26,13 +26,22 @@ import torch.distributed as dist
 @dataclass(frozen=True)
 class Mesh:
     """``size`` ranks in all, of which this process runs ``local_ranks`` on
-    ``device``; ``group`` is the process group joining the processes, or None
-    when this process runs every rank."""
+    ``device``; ``grouped`` when the ranks span the processes of the default
+    process group (:attr:`group`), False when this process runs every rank.
+    The mesh names the group and does not hold it: a controller, or an
+    episode's cycle cached on it, would otherwise keep gloo's process group
+    alive past ``destroy_process_group`` until the interpreter's exit tears
+    it down."""
 
     size: int
     local_ranks: tuple[int, ...]
     device: torch.device
-    group: dist.ProcessGroup | None = None
+    grouped: bool = False
+
+    @property
+    def group(self) -> dist.ProcessGroup | None:
+        """The process group joining the ranks (the default one), or None."""
+        return dist.group.WORLD if self.grouped else None
 
     def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
         """The ``"min"`` or ``"sum"`` of `t` over every rank: `t` holds one
@@ -78,7 +87,7 @@ def make_mesh(device: torch.device | str | None = None) -> Mesh:
         torch.cuda.set_device(device)
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(1, (0,), device)
-    return Mesh(dist.get_world_size(), (dist.get_rank(),), device, dist.group.WORLD)
+    return Mesh(dist.get_world_size(), (dist.get_rank(),), device, grouped=True)
 
 
 def virtual_mesh(n: int, device: torch.device | str | None = None) -> Mesh:

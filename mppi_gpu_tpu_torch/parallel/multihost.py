@@ -68,9 +68,17 @@ def init_multihost(
 
 def shutdown_multihost() -> None:
     """Leave the process group :func:`init_multihost` joined (a no-op when
-    it joined none); a later :func:`init_multihost` joins anew."""
+    it joined none); a later :func:`init_multihost` joins anew. Every rank
+    meets the others at a barrier first, so no rank tears its connections
+    down while a peer still sends on them: a rank that left early, its work
+    done, could abort a peer's gloo transport mid-collective. So every rank
+    of the group calls it, as every rank calls the collectives."""
     global _INITIALIZED
     if _INITIALIZED is not None:
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
         dist.destroy_process_group()
         _INITIALIZED = None
 

@@ -49,6 +49,7 @@ from mppi_gpu_tpu_torch.controller import (
 from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops import families, philox
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
+from mppi_gpu_tpu_torch.ops import world_step as ws
 from mppi_gpu_tpu_torch.ops.cost import Cost
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs, rollout_trajectories
 from mppi_gpu_tpu_torch.ops.solve_tail import softmin_of
@@ -207,15 +208,19 @@ class ShardedMPPIController(MPPIController):
         return (*super()._solve_identity(), id(self.mesh), self.onepass)
 
     def _solve_once(self, x, U, seed: int, step, it: int, outputs=FULL, into=None,
-                    eps=None) -> SolveResult:
+                    advance=None, eps=None) -> SolveResult:
+        """One sharded update (K7 after the combine, on the card), then with
+        `advance` the world's step (K6 on the card) under its action."""
         cfg = self.cfg
-        return _solve_once(
+        res = _solve_once(
             self.mesh, self.rollout_backend, self._family, self.dynamics, self.cost, x, U,
             self.sigma, cfg.lambda_, self.max_a,
             K=cfg.samples if eps is None else eps.shape[1], clamp=cfg.clamp_action,
             antithetic=cfg.antithetic, ou_beta=cfg.noise_beta, onepass=self.onepass, seed=seed,
             step=step, it=it, eps=eps, outputs=outputs, into=into,
         )
+        ws.advance_after(advance, res.action, step)
+        return res
 
     def solve_with_eps(self, x: torch.Tensor, U: torch.Tensor, eps: torch.Tensor) -> SolveResult:
         """Sharded solve on the injected ε (T, K, a), the same on every rank:

@@ -18,11 +18,13 @@ Three entry points:
   (``graphs.SolveGraph``); ``capture=False`` launches it op by op.
 * :func:`run_episode_jit` — the whole episode on the controller's device with
   no host round trip: one control cycle (every opt iteration of the solve,
-  its last tail shifting U in place, ``MPPIController.solve_in_place``; the
-  world's step, the writes into the histories and the counter's advance,
-  one launch of the world-step kernel, ``ops/world_step.advance_into``)
-  captured once as a CUDA graph and replayed once per cycle; for a sharded
-  controller the ranks' collectives are captured in it.
+  its last tail shifting U in place, then the world's step, the writes into
+  the histories and the counter's advance: ``MPPIController.solve_in_place``
+  with an ``ops.world_step.Advance``; on the fused backend on a CUDA device
+  the last update's K2 runs the tail and the world's step as its epilogue,
+  ``ops/combine_tail.py``) captured once as a CUDA graph and replayed once
+  per cycle; for a sharded controller the ranks' collectives are captured
+  in it.
 * :func:`run_fleet_episode` — the same for R robots: one fleet solve and one
   batched world step per cycle (counterpart of ``run_fleet_episode_jit``),
   sharded or not.
@@ -238,34 +240,36 @@ class EpisodeCycle:
     counter on the device) and the histories xs (N+1, ...), us (N, ...), ts
     (N, ...) (one time per row, or per robot and row under per-robot
     clocks). :meth:`cycle` solves at the counter's step (every opt
-    iteration; ``solve`` returns the action and shifts U in place, on the
-    card the last update's tail one launch of K7), then advances the world
-    in the state's buffers, writes x, u and the time at the counter's row,
-    the new x into the x buffer and increments the counter
-    (``ops.world_step.advance_into``: one launch of K6 on a CUDA device),
-    reading nothing from the device. At one opt iteration a fused cycle is
-    four kernels: K1, K2, K7 and K6.
+    iteration; ``solve(x, U, step, advance)``, the controller's
+    ``solve_in_place``, shifts U in place) and then, through the
+    ``ops.world_step.Advance`` it is given, advances the world in the
+    state's buffers, writes x, u and the time at the counter's row, the new
+    x into the x buffer and increments the counter, reading nothing from the
+    device. At one opt iteration a fused cycle on the card is two kernels,
+    K1 and K2' (K2 with the tail and the world's step as its epilogue), and
+    2·opt_iters at more; a world with no K6 body adds its own torch ops.
 
     On a CUDA device :meth:`run` captures the cycle once as a CUDA graph and
     replays it once per control cycle; ``capture=False`` runs the same cycle
     eagerly (the graph's yardstick, bit for bit). On the CPU it runs as a
     loop. A graph holds the raw addresses of every tensor it touches, so the
     cycle holds every object whose tensors it reads: the controller's pack,
-    cost (with its goals), model, σ, λ and clamp, the world, the seeds and
-    the buffers."""
+    cost (with its goals), model, σ, λ, clamp and tickets, the world, the
+    seeds and the buffers."""
 
     def __init__(self, ctrl, world, state0, U0: torch.Tensor, n: int, solve) -> None:
         dev = U0.device
         f32 = dict(dtype=torch.float32, device=dev)
         self.world, self.solve = world, solve
         # σ, λ and the clamp reach the graph through the solve's tail; the
-        # cost's and the model's tensors through the pack and the plain model
+        # cost's and the model's tensors through the pack and the plain
+        # model; K2's epilogue takes the controller's tickets
         self.held = (ctrl._family, ctrl.cost, ctrl.dynamics, ctrl.sigma, ctrl.lambda_,
-                     ctrl.max_a)
+                     ctrl.max_a, ctrl._tickets)
         self.state = type(state0)(*(leaf.clone(memory_format=torch.contiguous_format)
                                     for leaf in state0))
         x0 = state0.x
-        self.x = x0.clone(memory_format=torch.contiguous_format)  # the solve's input; K6 writes it
+        self.x = x0.clone(memory_format=torch.contiguous_format)  # the solve's input; the world step writes it
         self.U = U0.clone(memory_format=torch.contiguous_format)
         self.step = torch.zeros((), dtype=torch.int64, device=dev)
         self.xs = torch.empty((n + 1, *x0.shape), **f32)
@@ -273,11 +277,10 @@ class EpisodeCycle:
         self.ts = torch.empty((n, *state0.time.shape), **f32)
         self.n = n
         self.graph = None
+        self.advance = world_step.Advance(world, self.state, self.xs, self.us, self.ts, self.x)
 
     def cycle(self) -> None:
-        action = self.solve(self.x, self.U, self.step)
-        world_step.advance_into(self.world, self.state, action, self.xs, self.us, self.ts,
-                                self.step, self.x)
+        self.solve(self.x, self.U, self.step, self.advance)
 
     def _capture(self) -> None:
         """Warm one cycle up on a side stream, then capture one cycle
@@ -345,9 +348,10 @@ def run_episode_jit(
     """The whole episode on the controller's device, with no host round
     trip: the counterpart of the JAX package's whole-episode ``lax.scan``
     under jit. On a CUDA device one control cycle — the solve (every opt
-    iteration: K1, K2 and the tail K7, which shifts U in place), the world's
-    ``advance``, the writes into the histories at the step a device counter
-    holds and the counter's advance (K6) — is captured once
+    iteration: K1, then K2 with the tail, which shifts U in place, as its
+    epilogue), the world's ``advance``, the writes into the histories at the
+    step a device counter holds and the counter's advance (in the last
+    update's K2 too, where the world has a K6 body) — is captured once
     as a CUDA graph (:class:`EpisodeCycle`, cached per controller) and
     replayed `num_steps` times (default: the episode's
     ``num_control_steps()``); ``capture=False`` runs the same cycle eagerly.
@@ -375,8 +379,8 @@ def run_episode_jit(
         state0 = world.from_x(x0, state0.time)
     U0 = ctrl.init_action_seq()
 
-    def solve(x, U, step):
-        return ctrl.solve_in_place(x, U, seed, step)
+    def solve(x, U, step, advance):
+        return ctrl.solve_in_place(x, U, seed, step, advance)
 
     key = cycle_key(ctrl, "single", params, None, state0.x.shape, n, seed)
     cyc = _episode_cycle(ctrl, "single", key, lambda: EpisodeCycle(ctrl, world, state0, U0, n, solve))
@@ -421,8 +425,8 @@ def run_fleet_episode(
     def build() -> EpisodeCycle:
         seeds = ctrl.init_seeds()
 
-        def solve(xs, Us, step):
-            return ctrl.solve_in_place(xs, Us, seeds, step)
+        def solve(xs, Us, step, advance):
+            return ctrl.solve_in_place(xs, Us, seeds, step, advance)
 
         return EpisodeCycle(ctrl, world, state0, Us0, n, solve)
 

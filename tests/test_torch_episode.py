@@ -31,9 +31,11 @@ torch.set_num_threads(1)
 from mppi_gpu_tpu_torch.batched import BatchedMPPIController  # noqa: E402
 from mppi_gpu_tpu_torch.config import load_config  # noqa: E402
 from mppi_gpu_tpu_torch.controller import MPPIController  # noqa: E402
+from mppi_gpu_tpu_torch.envs import make_world  # noqa: E402
 from mppi_gpu_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from mppi_gpu_tpu_torch.ops import _build, philox  # noqa: E402
 from mppi_gpu_tpu_torch.ops import fused_solve as fs  # noqa: E402
+from mppi_gpu_tpu_torch.ops import world_step as ws  # noqa: E402
 from mppi_gpu_tpu_torch.ops.cost import goal_of, with_goal  # noqa: E402
 from mppi_gpu_tpu_torch.runner import (  # noqa: E402
     cycle_key,
@@ -274,6 +276,87 @@ def test_an_episode_result_outlives_the_next_episode():
     run_fleet_episode(fleet, num_steps=4, xs0=np.full((2, 4), 0.1, np.float32))
     for f in ("xs", "us", "times"):
         np.testing.assert_array_equal(getattr(first, f), getattr(kept, f))
+
+
+# ---------------------------------------------------------------------------
+# the cycle's world step inside the solve (K2's epilogue on the card)
+
+
+def _advance(world, state, U, n: int):
+    """Fresh copies of an episode's buffers for `state` and U: the state,
+    U, the histories of n rows, the x buffer, the counter at row 1."""
+    state = type(state)(*(leaf.clone() for leaf in state))
+    lead, f32 = tuple(U.shape[:-2]), dict(dtype=torch.float32)
+    adv = ws.Advance(world, state, torch.zeros(n + 1, *lead, state.x.shape[-1], **f32),
+                     torch.zeros(n, *lead, U.shape[-1], **f32),
+                     torch.zeros(n, *state.time.shape, **f32), state.x.clone())
+    return adv, U.clone(), torch.tensor(1)
+
+
+@pytest.mark.parametrize("opt_iters", [1, 2])
+@pytest.mark.parametrize("fleet", [False, True], ids=["solo", "fleet"])
+@pytest.mark.parametrize("backend", ["eager", "fused"])
+@pytest.mark.parametrize("name", ["cartpole", "quadrotor3d"])
+def test_solve_in_place_with_advance_is_solve_then_advance_into(name, backend, fleet, opt_iters):
+    """On the CPU, ``solve_in_place(..., advance)`` over three cycles equals
+    the parent's cycle, ``solve_in_place`` and then ``advance_into`` under
+    its action, bit for bit: the actions, U shifted in place, the world's
+    state, the histories, the x buffer and the counter."""
+    cfg = _config(name).replace(opt_iters=opt_iters)
+    world = make_world(cfg)
+    ctrl = (_ctrl(cfg, backend, BatchedMPPIController, 3) if fleet else _ctrl(cfg, backend))
+    seed = ctrl.init_seeds() if fleet else 7
+    U0 = ctrl.init_action_seqs() if fleet else ctrl.init_action_seq()
+    state0 = world.reset(3 if fleet else None)
+    new, U_new, step_new = _advance(world, state0, U0, 4)
+    old, U_old, step_old = _advance(world, state0, U0, 4)
+    for _ in range(3):
+        a = ctrl.solve_in_place(new.x, U_new, seed, step_new, new)
+        b = ctrl.solve_in_place(old.x, U_old, seed, step_old)
+        ws.advance_into(world, old.state, b, old.xs, old.us, old.ts, step_old, old.x)
+        assert torch.equal(a, b)
+    for x, y in zip((*new.state, new.xs, new.us, new.ts, new.x, U_new, step_new),
+                    (*old.state, old.xs, old.us, old.ts, old.x, U_old, step_old)):
+        assert torch.equal(x, y)
+    assert int(step_new) == 4 and new.xs[2:].any()
+
+
+# one ε for every cycle and update of both packages' episodes; the states
+# and actions of the two part by the two libraries' roundings (exp, sums
+# over K, the worlds' sin/cos) and the loop feeds them back over 6 cycles:
+# at most 1.5e-5 (the pendulum's action at two opt iterations, λ = 0.2)
+JAX_EPISODE_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("opt_iters", [1, 2])
+@pytest.mark.parametrize("name", ["point_mass2d", "pendulum"])
+def test_device_episode_matches_the_jax_jitted_episode(monkeypatch, name, opt_iters):
+    """The port's ``run_episode_jit`` on the CPU (the eager backend, the
+    cycle's world step through ``solve_in_place``'s ``Advance``) against the
+    JAX package's jitted ``run_episode_jit`` (its scan backend, flat layout)
+    over 6 cycles at K = 64, T = 8, both drawing the same ε (numpy seed) in
+    every update in place of their noise streams: states, actions and
+    clocks within JAX_EPISODE_TOL."""
+    import jax.numpy as jnp
+
+    import mppi_gpu_tpu.controller as jax_controller
+    from mppi_gpu_tpu.config import load_config as load_jax_config
+    from mppi_gpu_tpu.runner import run_episode_jit as jax_run_episode_jit
+
+    path = os.path.join(ROOT, "configs", f"{name}.yaml")
+    cfg = load_config(path).replace(samples=64, horizon=8, opt_iters=opt_iters)
+    jcfg = dataclasses.replace(load_jax_config(path), samples=64, horizon=8, opt_iters=opt_iters)
+    eps = (np.random.default_rng(3).normal(size=(8, 64, cfg.action_dim))
+           * np.asarray(cfg.noise)).astype(np.float32)
+    monkeypatch.setenv("MPPI_SCAN_LAYOUT", "flat")
+    monkeypatch.setattr(jax_controller, "sample_noise", lambda *a, **k: jnp.asarray(eps))
+    monkeypatch.setattr(MPPIController, "_eps", lambda self, seed, step, it: torch.from_numpy(eps))
+    got = run_episode_jit(_ctrl(cfg, "eager"), num_steps=6)
+    want = jax_run_episode_jit(jax_controller.MPPIController(jcfg, rollout_backend="scan"),
+                               num_steps=6)
+    np.testing.assert_allclose(got.us, np.asarray(want.us), **JAX_EPISODE_TOL)
+    np.testing.assert_allclose(got.xs, np.asarray(want.xs), **JAX_EPISODE_TOL)
+    np.testing.assert_allclose(got.times, np.asarray(want.times), **JAX_EPISODE_TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -394,6 +394,49 @@ def test_sharded_fleet_episode_equals_the_fleet_episode(tmp_path):
             assert np.array_equal(got[k], getattr(want, k)), (name, k)
 
 
+# a gloo world of one in a fresh process: the threads of the process before
+# the group, with it after a fleet episode (whose cycle, cached on the
+# controller, holds the controller and its mesh in a reference cycle), and
+# after shutdown_multihost; the mesh's group after it
+TEARDOWN = """
+import os, sys, tempfile
+import torch
+torch.set_num_threads(1)
+from mppi_gpu_tpu_torch.config import load_config
+from mppi_gpu_tpu_torch.parallel import ShardedFleetController, global_mesh, init_multihost
+from mppi_gpu_tpu_torch.parallel.multihost import shutdown_multihost
+from mppi_gpu_tpu_torch.runner import run_fleet_episode
+def threads():
+    return len(os.listdir("/proc/self/task"))
+before = threads()
+init_multihost("file://" + os.path.join(tempfile.mkdtemp(), "init"), 1, 0, backend="gloo")
+cfg = load_config(sys.argv[1]).replace(samples=64, horizon=8)
+ctrl = ShardedFleetController(cfg, 4, mesh=global_mesh("cpu"))
+run_fleet_episode(ctrl, num_steps=3)
+during = threads()
+shutdown_multihost()
+print(before, during, threads(), ctrl.mesh.group is None)
+"""
+
+
+def test_shutdown_multihost_joins_the_group_threads(tmp_path):
+    """``shutdown_multihost`` leaves no thread of gloo's process group
+    behind, though a fleet episode's cycle cached on its controller still
+    holds the controller's mesh: the mesh names the default group and does
+    not hold it, so ``destroy_process_group`` destroys it and joins its
+    threads then, and not during the interpreter's exit, where CPython ends
+    a thread that asks for the GIL and the C++ runtime aborts the process
+    ("terminate called without an active exception"). The process exits 0."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    env.pop("WORLD_SIZE", None)
+    out = subprocess.run([sys.executable, "-c", TEARDOWN, PM2], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    before, during, after, no_group = out.stdout.split()
+    assert int(during) > int(before) and int(after) == int(before), out.stdout
+    assert no_group == "True"
+
+
 def test_init_multihost_recalls(gloo):
     """A re-call with the first call's arguments or with none returns (rank,
     world); one with other arguments raises RuntimeError; rank 0 alone is

@@ -33,9 +33,11 @@ from mppi_gpu_tpu_torch.batched import BatchedMPPIController  # noqa: E402
 from mppi_gpu_tpu_torch.config import load_config  # noqa: E402
 from mppi_gpu_tpu_torch.controller import CYCLE, FULL, ITERATE, MPPIController  # noqa: E402
 from mppi_gpu_tpu_torch.envs import make_world, params_for_config  # noqa: E402
-from mppi_gpu_tpu_torch.ops import _build  # noqa: E402
+from mppi_gpu_tpu_torch.ops import _build, _rounding  # noqa: E402
+from mppi_gpu_tpu_torch.ops import combine_tail as ct  # noqa: E402
 from mppi_gpu_tpu_torch.ops import fused_solve as fs  # noqa: E402
 from mppi_gpu_tpu_torch.ops import solve_tail as st  # noqa: E402
+from mppi_gpu_tpu_torch.ops import world_step as ws  # noqa: E402
 from mppi_gpu_tpu_torch.parallel import ShardedMPPIController  # noqa: E402
 from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh  # noqa: E402
 from mppi_gpu_tpu_torch.runner import run_episode_jit, run_fleet_episode  # noqa: E402
@@ -250,26 +252,42 @@ def test_episodes_equal_their_parent_cycle(name, backend):
 # the dispatch to K7, its C entry stubbed
 
 
-def _stub(monkeypatch, rc: int = 0):
-    """CPU tensors taken for CUDA ones and K1's, K2's and K7's C entries
-    recorded (returning `rc` for K7); the stubbed launches count in copies of
-    the launch counts."""
+def _stub(monkeypatch, rc: int = 0, failing: str = "solve_tail"):
+    """CPU tensors taken for CUDA ones and K1's, K2's, K7's, K2''s and K6's
+    C entries recorded (returning `rc` for the kernel `failing`; K6's layout
+    the source's); the stubbed launches count in copies of the launch
+    counts."""
     monkeypatch.setattr(st, "_LAUNCHES", dict(st._LAUNCHES))
+    monkeypatch.setattr(ct, "_LAUNCHES", dict(ct._LAUNCHES))
+    monkeypatch.setattr(ws, "_LAUNCHES", dict(ws._LAUNCHES))
+    monkeypatch.setattr(ws, "_CHECKED", set())
     monkeypatch.setattr(fs, "_LAUNCHES", dict(fs._LAUNCHES))
     monkeypatch.setattr(fs, "_FAMILY_LAUNCHES", {k: dict(v) for k, v in fs._FAMILY_LAUNCHES.items()})
     monkeypatch.setattr(fs, "_WIDTH_LAUNCHES", {k: dict(v) for k, v in fs._WIDTH_LAUNCHES.items()})
-    calls = {"solve_partials": [], "softmin_combine": [], "solve_tail": []}
+    calls = {"solve_partials": [], "softmin_combine": [], "solve_tail": [], "combine_tail": [],
+             "world_advance": []}
 
     def entry(kernel):
         def call(*args):
             calls[kernel].append(args)
-            return rc if kernel == "solve_tail" else 0
+            return rc if kernel == failing else 0
         return call
 
-    lib = types.SimpleNamespace(**{f"mppi_{k}": entry(k) for k in calls})
+    def layout(wid, widths, n_params, a):
+        kind = next(k for k, v in ws.WORLDS.items() if v[0] == wid)
+        _, shapes, A, _ = ws.WORLDS[kind]
+        for i, shape in enumerate(shapes):
+            widths[i] = int(np.prod(shape))
+        n_params._obj.value = ws.pack(_world_of_kind(kind)).numel()
+        a._obj.value = A
+        return len(shapes)
+
+    lib = types.SimpleNamespace(mppi_world_layout=layout,
+                                **{f"mppi_{k}": entry(k) for k in calls})
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(st, "_on_cuda", lambda tensors: True)
     monkeypatch.setattr(fs, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(ws, "_on_cuda", lambda tensors: True)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=5))
@@ -287,8 +305,9 @@ def test_cuda_bound_tail_passes_its_buffers(monkeypatch, R):
     U, ΔU and max_a by address, the clamp flag, each output asked for by the
     address of a new buffer (u_next's `into`'s, in place: U's) and a null
     pointer for each not asked for, S, β and η by address with β's and η's
-    robot strides (views of K2's (…, 2) output), the float32 reciprocal of
-    λ, R, T, A and K; each launch counts once."""
+    robot strides (views of K2's (…, 2) output), the factor torch's CUDA
+    division by λ multiplies by (``_rounding.scalar_reciprocal``), R, T, A
+    and K; each launch counts once."""
     calls = _stub(monkeypatch)
     U, dU, max_a, S, beta, eta, lam = _inputs(R, 6, 2, 16, False)
     tU, tdU, tmax, tS = _torch(U, dU, max_a, S)
@@ -311,7 +330,7 @@ def test_cuda_bound_tail_passes_its_buffers(monkeypatch, R):
     assert (a["S"], a["beta"], a["eta"], a["K"]) == (tS.data_ptr(), be[..., 0].data_ptr(),
                                                      be[..., 1].data_ptr(), 16)
     assert (a["beta_stride"], a["eta_stride"]) == ((0, 0) if R is None else (2, 2))
-    assert a["inv_lam"] == float(np.float32(1.0) / np.float32(lam))
+    assert a["inv_lam"] == _rounding.scalar_reciprocal(lam) == float(np.float32(1.0 / lam))
     assert (b["u_seq"], b["u_next"], b["action"], b["weights"], b["S"], b["K"]) == (
         None, tU.data_ptr(), cyc.action.data_ptr(), None, None, 0)
     assert cyc.u_next is tU
@@ -361,11 +380,13 @@ TAIL_OPS = ("add", "clamp", "cat", "sub", "neg", "div", "exp", "mul")
 
 @pytest.mark.parametrize("fleet", [False, True], ids=["solo", "fleet"])
 def test_fused_solve_on_cuda_runs_no_torch_tail(monkeypatch, fleet):
-    """Device-free: the fused solve bound for CUDA (K1 and K2 stubbed too)
-    at two opt iterations runs no torch op of the old tail: each update
-    ends in one launch of K7, the inner one asking for u_seq alone, the last
-    for every output and the weights (``solve``) or for the action and U
-    shifted in place (``solve_in_place``, the episode's)."""
+    """Device-free: the fused solve bound for CUDA (K1, K2 and K2' stubbed
+    too) at two opt iterations runs no torch op of the old tail: ``solve``'s
+    inner update ends in K2' asking for u_seq alone, its last in K2 and one
+    launch of K7 for every output and the weights; ``solve_in_place`` (the
+    episode's) ends both updates in K2', the inner one asking for u_seq, the
+    last for the action and U shifted in place; no world is stepped without
+    an ``Advance``."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     calls = _stub(monkeypatch)
@@ -388,11 +409,238 @@ def test_fused_solve_on_cuda_runs_no_torch_tail(monkeypatch, fleet):
         ctrl.solve_in_place(x, U, seed, torch.tensor(3))
     assert not set(ops) & set(TAIL_OPS), sorted(set(ops))
     tails = [dict(zip(ENTRY_ARGS, c)) for c in calls["solve_tail"]]
-    assert len(tails) == 4 and len(calls["solve_partials"]) == len(calls["softmin_combine"]) == 4
-    asked = [tuple(k for k in ("u_seq", "u_next", "action", "weights") if t[k] is not None)
-             for t in tails]
-    assert asked == [("u_seq",), FULL, ("u_seq",), ("u_next", "action")]
-    assert tails[3]["u_next"] == U.data_ptr() and tails[3]["U"] != U.data_ptr()
+    epilogues = [dict(zip(EPILOGUE_ARGS, c)) for c in calls["combine_tail"]]
+    assert len(calls["solve_partials"]) == 4 and len(calls["softmin_combine"]) == len(tails) == 1
+    assert len(epilogues) == 3 and not calls["world_advance"]
+    assert tuple(k for k in FULL if tails[0][k] is not None) == FULL
+    asked = [tuple(k for k in ("u_seq", "u_next", "action") if e[k] is not None) for e in epilogues]
+    assert asked == [ITERATE, ITERATE, CYCLE]
+    assert epilogues[2]["u_next"] == U.data_ptr() and epilogues[2]["U"] != U.data_ptr()
+    assert all(e["world"] == -1 and e["tickets"] == ctrl._tickets.data_ptr() for e in epilogues)
+    assert ct.launch_counts()["combine_tail"] == 3 and st.launch_counts()["solve_tail"] == 1
+
+
+# ---------------------------------------------------------------------------
+# K2' (ops/combine_tail.py): the fold with the tail and the world's step
+
+
+# the C entry's arguments, by name (csrc/combine_tail.cu, mppi_combine_tail)
+EPILOGUE_ARGS = ("partials", "R", "nb", "T", "A", "lam", "beta_eta", "dU", "U", "max_a", "clamp",
+                 "u_seq", "u_next", "action", "tickets", "world", "in", "out", "n_leaves",
+                 "time_in", "time_out", "per_robot_clock", "params", "n_params", "steps", "xs", "us",
+                 "ts", "n_hist", "step_ptr", "x_out", "stream")
+
+
+def _world_of_kind(kind: str):
+    """A world whose K6 body is `kind`, from its config."""
+    name = {"point_mass1": "point_mass1d", "point_mass2": "point_mass2d",
+            "point_mass3": "point_mass3d"}.get(kind, kind)
+    return make_world(load_config(os.path.join(ROOT, "configs", f"{name}.yaml")))
+
+
+def _epilogue_inputs(R, T: int, A: int, nb: int, seed: int = 0):
+    """partials (…, nb, 2 + T·A), U, max_a and λ from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    lead = () if R is None else (R,)
+    partials = rng.uniform(0.0, 2.0, lead + (nb, 2 + T * A)).astype(np.float32)
+    U = rng.uniform(-1.5, 1.5, lead + (T, A)).astype(np.float32)
+    max_a = rng.uniform(0.3, 1.2, A).astype(np.float32)
+    return (*_torch(partials, U, max_a), float(rng.choice([0.3, 1.1, 1.7])))
+
+
+def _advance(name: str, R, n: int = 5, per_robot: bool = False):
+    """An ``Advance`` of config `name`'s world for R robots (None: one
+    robot, no robot axis): its start state, histories of n rows, x buffer."""
+    cfg = load_config(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    world = make_world(cfg)
+    state = world.reset(R)
+    if per_robot:
+        state = world.from_x(state.x, torch.full((R,), world.params.timestep))
+    state = type(state)(*(leaf.clone(memory_format=torch.contiguous_format) for leaf in state))
+    lead = () if R is None else (R,)
+    return ws.Advance(world, state, torch.zeros(n + 1, *lead, cfg.state_dim),
+                      torch.zeros(n, *lead, cfg.action_dim), torch.zeros(n, *state.time.shape),
+                      state.x.clone())
+
+
+@pytest.mark.parametrize("name,R,per_robot", [
+    ("point_mass2d", None, False), ("quadrotor3d", 4, False), ("quadrotor3d", 4, True),
+    ("cartpole", 3, False), ("cartpole", 3, True)])
+def test_cuda_bound_epilogue_passes_its_buffers(monkeypatch, name, R, per_robot):
+    """Device-free: a CUDA-bound K2' call passes the partials, R, nb, T, A
+    and λ, new β η and ΔU buffers, U and max_a by address, the clamp flag,
+    u_seq (an inner iteration) or u_next over U in place and a new action
+    (the cycle), the tickets, and with an ``Advance`` of a world with a K6
+    body that world's id, its state's leaves (in place), clock and its
+    layout, pack, steps_per_control, histories, the counter and the x buffer,
+    as K6's entry takes them; without one, world −1 and null pointers. β and
+    η come back as views of one (…, 2) buffer, as K2's; each launch counts
+    once under K2', none under K2, K7 or K6."""
+    calls = _stub(monkeypatch)
+    adv = _advance(name, R, per_robot=per_robot)
+    cfg = load_config(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    T, A, nb = 6, cfg.action_dim, 5
+    partials, U, max_a, lam = _epilogue_inputs(R, T, A, nb)
+    rows = 1 if R is None else R
+    tickets = torch.zeros(rows + 1, dtype=torch.int32)
+    step = torch.tensor(2)
+    beta, eta, dU, tail = ct.combine_tail(partials, lam, U, max_a, True, ITERATE, tickets)
+    beta2, eta2, dU2, cyc = ct.combine_tail(partials, lam, U, max_a, False, CYCLE, tickets, into=U,
+                                            step=step, advance=adv)
+    assert len(calls["combine_tail"]) == 2 and ct.launch_counts()["combine_tail"] == 2
+    assert not (calls["softmin_combine"] or calls["solve_tail"] or calls["world_advance"])
+    a, b = (dict(zip(EPILOGUE_ARGS, c)) for c in calls["combine_tail"])
+    for args, d, bt in ((a, dU, beta), (b, dU2, beta2)):
+        assert (args["partials"], args["R"], args["nb"], args["T"], args["A"], args["lam"]) == (
+            partials.data_ptr(), rows, nb, T, A, lam)
+        assert (args["U"], args["max_a"], args["dU"], args["beta_eta"]) == (
+            U.data_ptr(), max_a.data_ptr(), d.data_ptr(), bt.data_ptr())
+        assert (args["tickets"], args["stream"]) == (tickets.data_ptr(), 5)
+    assert eta.data_ptr() == beta.data_ptr() + 4 and beta.shape == eta.shape == U.shape[:-2]
+    assert dU.shape == U.shape and tail.u_seq.shape == U.shape
+    assert (a["clamp"], a["u_seq"], a["u_next"], a["action"]) == (1, tail.u_seq.data_ptr(), None,
+                                                                  None)
+    assert a["world"] == -1 and (a["in"], a["xs"], a["step_ptr"], a["x_out"]) == (None,) * 4
+    assert (b["clamp"], b["u_seq"], b["u_next"], b["action"]) == (
+        0, None, U.data_ptr(), cyc.action.data_ptr())
+    assert cyc.u_next is U and cyc.action.shape == U.shape[:-2] + (A,)
+    kind = adv.world._kernel_kind
+    leaves = [leaf.data_ptr() for leaf in adv.state[:-1]]
+    assert b["world"] == ws.WORLDS[kind][0] and b["n_leaves"] == len(leaves)
+    assert list(b["in"])[:len(leaves)] == list(b["out"])[:len(leaves)] == leaves
+    assert (b["time_in"], b["time_out"], b["per_robot_clock"]) == (
+        adv.state.time.data_ptr(), adv.state.time.data_ptr(), int(per_robot))
+    packed = adv.world._packs[torch.device("cpu")]
+    assert (b["params"], b["n_params"], b["steps"]) == (packed.data_ptr(), packed.numel(),
+                                                        adv.world.params.steps_per_control)
+    assert (b["xs"], b["us"], b["ts"], b["n_hist"], b["step_ptr"], b["x_out"]) == (
+        adv.xs.data_ptr(), adv.us.data_ptr(), adv.ts.data_ptr(), 5, step.data_ptr(),
+        adv.x.data_ptr())
+
+
+def test_epilogue_refuses_what_it_cannot_compute(monkeypatch):
+    """Before any launch, a CUDA-bound K2' call refuses: a tail it does not
+    compute (the weights' FULL), `into` without u_next, an ``Advance``
+    without the cycle's action or without a counter tensor, float64 or
+    non-contiguous partials or of another width, a non-contiguous U, R out
+    of range, tickets of another dtype or size, and a world whose action dim
+    is not the solve's. A refused launch raises with its error, counts
+    nothing and falls back to nothing: K2, K7 and K6 are not called."""
+    calls = _stub(monkeypatch, rc=700, failing="combine_tail")
+    partials, U, max_a, lam = _epilogue_inputs(None, 4, 2, 3)
+    tickets = torch.zeros(2, dtype=torch.int32)
+    adv, step = _advance("point_mass2d", None), torch.tensor(0)
+
+    def call(*args, **kw):
+        base = dict(partials=partials, lam_softmin=lam, U=U, max_a=max_a, clamp=True,
+                    outputs=CYCLE, tickets=tickets)
+        base.update(kw)
+        return ct.combine_tail(*args, **base)
+
+    for kw, err, match in (
+            (dict(outputs=FULL), ValueError, "computes the tails"),
+            (dict(outputs=ITERATE, into=U), ValueError, "into"),
+            (dict(outputs=ITERATE, advance=adv, step=step), ValueError, "action"),
+            (dict(advance=adv, step=0), TypeError, "0-dim int64"),
+            (dict(partials=partials.double()), TypeError, "float32"),
+            (dict(partials=partials[:, :-1]), ValueError, "partials"),
+            (dict(partials=torch.zeros(2 + 8, 3).t()), ValueError, "contiguous"),
+            (dict(U=torch.zeros(2, 4).t()), ValueError, "contiguous"),
+            (dict(tickets=torch.zeros(2, dtype=torch.int64)), ValueError, "int32"),
+            (dict(tickets=torch.zeros(1, dtype=torch.int32)), ValueError, "R \\+ 1 = 2"),
+            (dict(advance=_advance("pendulum", None), step=step), ValueError, "takes 1 actions"),
+    ):
+        with pytest.raises(err, match=match):
+            call(**kw)
+    R = fs.MAX_ROBOTS + 1
+    with pytest.raises(ValueError, match="robots"):
+        call(partials=torch.zeros(R, 1, 3), U=torch.zeros(R, 1, 1), max_a=torch.ones(1),
+             tickets=torch.zeros(R + 1, dtype=torch.int32))
+    assert not calls["combine_tail"]
+    with pytest.raises(RuntimeError, match="combine_tail failed to launch: cudaError_t 700"):
+        call(advance=adv, step=step)
+    assert len(calls["combine_tail"]) == 1 and ct.launch_counts()["combine_tail"] == 0
+    assert not (calls["softmin_combine"] or calls["solve_tail"] or calls["world_advance"])
+    assert int(step) == 0 and not adv.xs.any()
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_only_an_epilogue_that_runs_is_counted(monkeypatch, capturing):
+    """While the stream captures a CUDA graph K2''s entry is called (the
+    graph records the launch) but nothing is counted."""
+    calls = _stub(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+    partials, U, max_a, lam = _epilogue_inputs(3, 4, 2, 3)
+    ct.combine_tail(partials, lam, U, max_a, True, ITERATE, torch.zeros(4, dtype=torch.int32))
+    assert len(calls["combine_tail"]) == 1
+    assert ct.launch_counts()["combine_tail"] == (0 if capturing else 1)
+
+
+def test_epilogue_steps_a_world_without_a_body_after_it(monkeypatch):
+    """Device-free: with a world from user code (no K6 body) K2' launches
+    without a world (−1) and the world's own torch ops then step it under
+    the action K2' wrote, writing the histories and advancing the counter
+    as ``advance_into`` does; K6 is not called."""
+    from mppi_gpu_tpu_torch.envs.point_mass_world import PointMassWorld
+
+    class UserWorld(PointMassWorld):
+        pass
+
+    calls = _stub(monkeypatch)
+    adv = _advance("point_mass2d", None)
+    adv = adv._replace(world=UserWorld(adv.world.params))
+    partials, U, max_a, lam = _epilogue_inputs(None, 4, 2, 3)
+    step = torch.tensor(1)
+    x0 = adv.state.x.clone()
+    _, _, _, cyc = ct.combine_tail(partials, lam, U, max_a, True, CYCLE,
+                                   torch.zeros(2, dtype=torch.int32), into=U, step=step,
+                                   advance=adv)
+    (args,) = calls["combine_tail"]
+    assert dict(zip(EPILOGUE_ARGS, args))["world"] == -1 and not calls["world_advance"]
+    want = ws.plain_advance(adv.world, adv.world.from_x(x0, adv.world.reset().time), cyc.action)
+    assert int(step) == 2 and torch.equal(adv.xs[2], want.x) and torch.equal(adv.x, want.x)
+    assert torch.equal(adv.us[1], cyc.action)
+
+
+@pytest.mark.parametrize("opt_iters", [1, 2])
+@pytest.mark.parametrize("clamp", [True, False], ids=["clamp", "no-clamp"])
+@pytest.mark.parametrize("R", [None, 3], ids=["solo", "fleet"])
+def test_plain_epilogue_is_the_three_kernels_plain_versions(R, clamp, opt_iters):
+    """On CPU tensors K2' is K2's, K7's and K6's plain versions in that
+    order, bit for bit: β, η, ΔU, the tail's outputs (in place), the world's
+    state, histories, x buffer and counter; ``opt_iters`` inner updates of U
+    first, as the episode's cycle runs them."""
+    name = "pendulum"
+    cfg = load_config(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    T, A, nb = 7, cfg.action_dim, 4
+    got_adv, want_adv = _advance(name, R), _advance(name, R)
+    step_got, step_want = torch.tensor(1), torch.tensor(1)
+    combine = fs.fleet_softmin_combine if R is not None else fs.softmin_combine
+    tickets = torch.zeros((R or 1) + 1, dtype=torch.int32)
+    for j in range(opt_iters):
+        partials, U, max_a, lam = _epilogue_inputs(R, T, A, nb, seed=j)
+        last = j == opt_iters - 1
+        form = CYCLE if last else ITERATE
+        U_got, U_want = U.clone(), U.clone()
+        got = ct.combine_tail(partials, lam, U_got, max_a, clamp, form, tickets,
+                              into=U_got if last else None, step=step_got,
+                              advance=got_adv if last else None)
+        beta, eta, dU = combine(partials, lam, T, A)
+        tail = st.solve_tail(U_want, dU, max_a, clamp, form, into=U_want if last else None)
+        if last:
+            ws.advance_into(want_adv.world, want_adv.state, tail.action, want_adv.xs, want_adv.us,
+                            want_adv.ts, step_want, want_adv.x)
+        for a, b in zip(got[:3], (beta, eta, dU)):
+            assert torch.equal(a, b)
+        for a, b in zip(got[3], tail):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+        assert torch.equal(U_got, U_want)
+    for a, b in zip((*got_adv.state, got_adv.xs, got_adv.us, got_adv.ts, got_adv.x, step_got),
+                    (*want_adv.state, want_adv.xs, want_adv.us, want_adv.ts, want_adv.x,
+                     step_want)):
+        assert torch.equal(a, b)
+    assert not tickets.any()
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +668,62 @@ def test_chip_smoke_closed_loop_shares_runs_on_the_cpu():
     got = chip_smoke.closed_loop_shares("point_mass3d", 2, 64, device="cpu")
     assert (got["R"], got["K"], got["family"]) == (2, 64, "lti")
     assert all(0.0 <= got[k] <= 1.0 for k in ("first", "middle", "last"))
+
+
+@pytest.mark.parametrize("name,R,clocks,opt_iters", [
+    ("pendulum", 8, "per-robot", 2), ("point_mass2d", None, "shared", 1),
+    ("quadrotor3d", 8, "nan", 1)])
+def test_chip_smoke_epilogue_cycle_check_runs_on_the_cpu(name, R, clocks, opt_iters):
+    """chip_smoke.py's check of the epilogue cycle against the four-kernel
+    cycle, on CPU tensors, where both run the plain versions: bit-equal over
+    its cycles (x, U, the state and its clock, the histories, the counter),
+    at a fleet with per-robot clocks, one robot and a fleet with a NaN
+    state."""
+    import chip_smoke
+
+    got = chip_smoke.check_epilogue_cycle(name, R, clocks, opt_iters, device="cpu")
+    assert got == {"bit_equal": True, "max_abs_err": 0.0}
+
+
+@pytest.mark.parametrize("name,R", [("cartpole", 8), ("arm", None)])
+def test_chip_smoke_epilogue_plain_check_runs_on_the_cpu(name, R):
+    """chip_smoke.py's check of K2' against its plain version, on CPU
+    tensors (both sides the plain version): β, η and ΔU agree, the tail and
+    the world step bit for bit, the counter advanced, the tickets 0."""
+    import chip_smoke
+
+    assert chip_smoke.check_epilogue_plain(name, R, device="cpu") == {"max_abs_err": 0.0}
+
+
+def test_chip_smoke_names_the_epilogue_instances():
+    """chip_smoke.py's kernel names (``--sass-diff``, ptxas lines) tell K2''s
+    instances apart by world body, the tail alone as NoWorld, and keep K2's
+    own name."""
+    import chip_smoke
+
+    mangled = ("_ZN12_GLOBAL__N_119combine_tail_kernelINS_5world9PointMassILi3EEEEEvPKfiifPfS6_"
+               "NS_12EpilogueArgsE")
+    assert chip_smoke.kernel_key(mangled) == "combine_tail<PointMass3>"
+    assert chip_smoke.kernel_key("_ZN12_GLOBAL__N_119combine_tail_kernelINS_7NoWorldEEEvPKf"
+                                 ) == "combine_tail<NoWorld>"
+    assert chip_smoke.kernel_key("_ZN12_GLOBAL__N_122softmin_combine_kernelEPKfiifiPfS2_"
+                                 ) == "softmin_combine"
+    assert chip_smoke.cycle_kernels(1) == 2 and chip_smoke.cycle_kernels(2) == 4
+
+
+@pytest.mark.gpu
+def test_epilogue_on_the_card():
+    """On the card: the epilogue cycle bit-equal to the four-kernel cycle and
+    K2' against its plain version, at a few layouts (chip_smoke.py runs every
+    config of EPISODE_CONFIGS)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K2' has no CPU mode")
+    import chip_smoke
+
+    for name, R, clocks in (("pendulum", 8, "per-robot"), ("flagship", None, "shared"),
+                            ("quadrotor3d", 64, "nan")):
+        assert chip_smoke.check_epilogue_cycle(name, R, clocks, 2)["bit_equal"]
+    chip_smoke.check_epilogue_plain("cartpole", 8)
 
 
 @pytest.mark.gpu

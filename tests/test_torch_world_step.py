@@ -33,13 +33,16 @@ from mppi_gpu_tpu.utils.timing import SolveTimer as JaxSolveTimer  # noqa: E402
 from mppi_gpu_tpu_torch.config import load_config  # noqa: E402
 from mppi_gpu_tpu_torch.envs import make_world, params_for_config  # noqa: E402
 from mppi_gpu_tpu_torch.envs.pendulum_world import PendulumState, PendulumWorld  # noqa: E402
-from mppi_gpu_tpu_torch.ops import _build  # noqa: E402
+from mppi_gpu_tpu_torch.ops import _build, _rounding  # noqa: E402
 from mppi_gpu_tpu_torch.ops import fused_solve as fs  # noqa: E402
+from mppi_gpu_tpu_torch.ops import solve_tail as st  # noqa: E402
 from mppi_gpu_tpu_torch.ops import world_step as ws  # noqa: E402
 from mppi_gpu_tpu_torch.utils.timing import SolveTimer, time_fn  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "mppi_gpu_tpu_torch", "csrc", "world_step.cu")
+# the world bodies K6 and K2's epilogue share
+HEADER = os.path.join(ROOT, "mppi_gpu_tpu_torch", "csrc", "world_step.cuh")
 XML = os.path.join(ROOT, "envs_xml", "point_mass2d.xml")
 # a config of each world body; point_mass_xml: point_mass2d's config with its
 # env the reference XML (envs/xml.py)
@@ -148,8 +151,8 @@ def _pack_lines() -> dict[str, list[str]]:
 
 
 def _struct_constants() -> dict[str, dict[str, int]]:
-    """{struct: {kS, kA, kLeaves, kParams}} of csrc/world_step.cu's worlds."""
-    src = open(SOURCE).read()
+    """{struct: {kS, kA, kLeaves, kParams}} of csrc/world_step.cuh's worlds."""
+    src = open(HEADER).read()
     out = {}
     for m in re.finditer(r"struct (\w+) : Cadence \{\s*static constexpr int ([^;]*);", src):
         out[m.group(1)] = {k.strip(): v.strip() for k, v in
@@ -203,8 +206,8 @@ def test_pack_matches_params_and_the_source_layout(name):
     number within 1 ulp of its double, the products and reciprocals
     computed from the dataclass's fields); its field names and their order
     against the body's ``@pack`` line in csrc/world_step.cu; the body's
-    kParams, kA, kLeaves and kS there against WORLDS and the state; and the
-    C ids of WORLDS against the source's WorldId."""
+    kParams, kA, kLeaves and kS in csrc/world_step.cuh against WORLDS and
+    the state; and the C ids of WORLDS against the header's WorldId."""
     cfg, _ = _configs(name)
     world = make_world(cfg)
     kind, fields = ws.pack_fields(world)
@@ -221,9 +224,64 @@ def test_pack_matches_params_and_the_source_layout(name):
     assert int(consts["kLeaves"]) == len(shapes) == len(state) - 1
     assert [tuple(leaf.shape) for leaf in state[:-1]] == list(shapes)
     assert consts["kS"] in (str(cfg.state_dim), "2 * N")
-    ids = re.search(r"enum WorldId \{([^}]*)\}", open(SOURCE).read()).group(1)
+    ids = re.search(r"enum WorldId \{([^}]*)\}", open(HEADER).read()).group(1)
     assert [int(v) for v in re.findall(r"= (\d+)", ids)] == sorted(w[0] for w in ws.WORLDS.values())
     assert wid == list(ws.WORLDS).index(kind)
+
+
+# the packed fields at which the two candidate reciprocals of torch's CUDA
+# x / c, 1.0f/(float)c and (float)(1/c), are different floats at the
+# configs' defaults: the cart-pole's total mass 1.1 and the 3-D
+# quadrotor's 4κ = 0.064 (at every config's λ they agree)
+RECIPROCALS_APART = {("cartpole", "inv_total"), ("quadrotor3d", "inv_four_kappa")}
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_every_division_by_a_python_float_packs_one_reciprocal(monkeypatch, name):
+    """Every field a world packs for a division by a Python float, and the
+    config's λ that K7 divides by, go through ``_rounding.scalar_reciprocal``
+    once each: each divisor is listed with the two candidate reciprocals,
+    1.0f/(float)c and (float)(1/c), and whether they differ; the pack holds
+    (float)(1/c), what torch's CUDA division multiplies by on the card, and
+    K7's entry is passed that of λ. The candidates differ exactly at
+    RECIPROCALS_APART and at no config's λ."""
+    seen = []
+    real = _rounding.scalar_reciprocal
+    monkeypatch.setattr(_rounding, "scalar_reciprocal", lambda c: seen.append(c) or real(c))
+    cfg, _ = _configs(name)
+    world = make_world(cfg)
+    kind, own = world.kernel_params()
+    divisors = {k: v.divisor for k, v in own.items() if isinstance(v, ws.Reciprocal)}
+    seen.clear()
+    _, fields = ws.pack_fields(world)
+    assert seen == list(divisors.values())
+    rows = []
+    for field, c in divisors.items():
+        a, b = np.float32(1.0) / np.float32(c), np.float32(1.0 / c)
+        assert fields[field] == float(b)
+        rows.append((field, c, float(a), float(b), bool(a != b)))
+    lam = cfg.lambda_
+    rows.append(("lambda", lam, float(np.float32(1.0) / np.float32(lam)),
+                 float(np.float32(1.0 / lam)), bool(np.float32(1.0) / np.float32(lam)
+                                                    != np.float32(1.0 / lam))))
+    apart = {(kind, f) for f, *_, d in rows if d}
+    assert apart == {k for k in RECIPROCALS_APART if k[0] == kind}, rows
+    # K7's wrapper, its C entry stubbed: λ through the helper, into the entry
+    recorded = []
+    lib = types.SimpleNamespace(mppi_solve_tail=lambda *a: recorded.append(a) or 0)
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(st, "_on_cuda", lambda tensors: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=5))
+    monkeypatch.setattr(st, "_LAUNCHES", dict(st._LAUNCHES))
+    seen.clear()
+    T, A, K = 4, cfg.action_dim, 8
+    z = torch.zeros(K)
+    st.solve_tail(torch.zeros(T, A), torch.zeros(T, A), torch.ones(A), True, st.OUTPUTS,
+                  (z, torch.tensor(0.0), torch.tensor(1.0), lam))
+    (args,) = recorded
+    assert seen == [lam] and args[12] == float(np.float32(1.0 / lam))
 
 
 def _stub(monkeypatch, rc: int = 0):
