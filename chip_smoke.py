@@ -77,20 +77,28 @@ solve as a replayed CUDA graph bit-equal to the op-by-op solve for every
 config, the learned model, a fleet and the sharded controller, with each
 loop's ms per control step both ways, and the sharded device episode, its
 collectives captured, in both branches on a world of one NCCL rank and on
-four virtual ranks (phase 26).
+four virtual ranks (phase 26); and K8 ``sharded_scale`` and K9
+``sharded_tail`` (``csrc/sharded_combine.cu``: the one-pass sharded
+combine between its two all-reduces, and the division by η, the tail and
+the world's step after them) bit-equal to their plain versions and to the
+torch combine they replaced, K9's world step for every world body, and the
+sharded solve and graph episode with them bit-equal to the torch-combine
+cycle at point_mass2d and the flagship, both branches, both meshes, with
+their times (phase 27).
 ``--time-commit ROOT`` instead times K1, K2, K4, K5 and K3 of the
 package in the checkout at ROOT, and ``--episode-commit ROOT`` its device
 episodes (ms per cycle, kernels per cycle, K1 + K2's share of busy), to
 compare two commits in one run;
 ``--sass-diff ROOT [REGEX]`` compares the built-in library's SASS with
 ROOT's, kernel by kernel (the kernels REGEX names may differ);
-``--bodies``, ``--episode``, ``--family``, ``--plants`` and ``--graphs``
-run the build and phase 20, 21, 22, 25 or 26 alone. Every phase
+``--bodies``, ``--episode``, ``--family``, ``--plants``, ``--graphs`` and
+``--sharded-combine`` run the build and phase 20, 21, 22, 25, 26 or 27
+alone. Every phase
 prints one line (or a few) and how far into the run it ended; any failure raises and
 the script exits non-zero without the final line. Without a CUDA device it
 exits 1 at once. The last two lines are a JSON object describing every
-kernel, K1 once per family instance, K2-K5, the bicycle's K1 and K4, K7
-and K6 once per world body (route, source, the TPU kernels it replaces or
+kernel, K1 once per family instance, K2-K5, the bicycle's K1 and K4, K7,
+K2', K6 once per world body, K8 and K9 (route, source, the TPU kernels it replaces or
 the XLA fusion it stands for, launches on its path as its wrapper counted
 them, max abs error
 against its plain version, ms
@@ -264,7 +272,8 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
     their slab body (slab_partials_kernel), K3's noise_dump<A=..>, K5's
     weighted_update<A=..,inj=..>, K6's world_advance<World> (PointMass1-3 for
     the point mass), K7's solve_tail, K2''s combine_tail<World> (NoWorld for
-    the tail alone); the family under its name in ops/families (the struct's name, lower
+    the tail alone), K8's sharded_scale, K9's sharded_tail<World,divide=0|1>;
+    the family under its name in ops/families (the struct's name, lower
     case, is the family's without its hyphen), or, for a library built from
     a user family, under the name `structs` maps its struct's to."""
     from mppi_gpu_tpu_torch.ops.families import FAMILY_NAMES
@@ -275,6 +284,12 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
         return f"world_advance<{w.group(1)}{w.group(3) or ''}>"
     if "solve_tail_kernel" in mangled:  # K7
         return "solve_tail"
+    if "sharded_scale_kernel" in mangled:  # K8
+        return "sharded_scale"
+    t = re.search(r"sharded_tail_kernel\S*?(NoWorld|PointMass|Pendulum|CartPole|Unicycle|Quadrotor3D|"
+                  r"Quadrotor|Arm)(ILi(\d)E)?\S*?Lb(\d)E", mangled)
+    if t:  # K9, one instance per world body and one without, each with and without the division
+        return f"sharded_tail<{t.group(1)}{t.group(3) or ''},divide={t.group(4)}>"
     e = re.search(r"combine_tail_kernel\S*?(NoWorld|PointMass|Pendulum|CartPole|Unicycle|Quadrotor3D|"
                   r"Quadrotor|Arm)(ILi(\d)E)?", mangled)
     if e:  # K2', one instance per world body and one without
@@ -1772,11 +1787,14 @@ TRACE_NAMES = {"solve_partials": ("solve_partials_kernel", "slab_partials_kernel
                "softmin_combine": ("softmin_combine_kernel",),
                "combine_tail": ("combine_tail_kernel",)}
 # and K5's; K4 is K1's template without its second pass, under K1's names;
-# K6's, once per control cycle; and K7's, once per update (the sharded
-# episodes and a package before K2')
+# K6's, once per control cycle; K7's, once per update (a package before K2',
+# and the sharded episodes of one before K8 and K9); K8's and K9's, once per
+# update of a sharded episode
 KERNEL_TRACE_NAMES = {**TRACE_NAMES, "weighted_update": ("weighted_update_kernel",),
                       "world_advance": ("world_advance_kernel",),
-                      "solve_tail": ("solve_tail_kernel",)}
+                      "solve_tail": ("solve_tail_kernel",),
+                      "sharded_scale": ("sharded_scale_kernel",),
+                      "sharded_tail": ("sharded_tail_kernel",)}
 
 
 def _episode_config(name: str):
@@ -1858,7 +1876,8 @@ def solve_records(records) -> dict[str, int]:
 
 def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: bool = False,
                  per_update: dict | None = None, world_kernel: bool = True,
-                 tail_kernel: bool = True, epilogue: bool = True) -> dict:
+                 tail_kernel: bool = True, epilogue: bool = True,
+                 sharded_tail: bool = False) -> dict:
     """torch.profiler over `cycles` replays of one captured control cycle
     and nothing else. An episode of `cycles` + 2·REPLAY_TRACE_EDGE cycles
     captures the cycle (outside the window) and its step counter is set
@@ -1878,8 +1897,9 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     package before K2'), K6's (checked: one per cycle, the world's whole
     step; not with `world_kernel` False, for a package before K6) and K7's
     (checked: one per update, opt_iters per cycle, whatever the mesh; not
-    with `tail_kernel` False, for a package before K7); with `epilogue`, no
-    record of K2, K6 or K7; NCCL's records
+    with `tail_kernel` False, for a package before K7; with `sharded_tail`,
+    a sharded episode whose tail and world step are K9, none of either);
+    with `epilogue`, no record of K2, K6 or K7; NCCL's records
     and their µs, the kernels (memory copies and sets not counted), the device
     busy ms (Σ of the records' times) and the span ms (the first marker's
     end to the second one's start); the idle share 1 − busy/span, K1 +
@@ -1897,11 +1917,12 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     (run_fleet_episode if fleet else run_episode_jit)(ctrl, num_steps=cycles + 2 * REPLAY_TRACE_EDGE)
     cyc = ctrl._episode_cycles["fleet" if fleet else "single"][1]
     k2 = "combine_tail" if epilogue else "softmin_combine"
-    per_update = {"softmin_combine": 0, "combine_tail": 0,
+    per_update = {"softmin_combine": 0, "combine_tail": 0, "sharded_scale": 0, "sharded_tail": 0,
                   **(per_update or {"solve_partials": 1, k2: 1})}
     want = {k: cycles * ctrl.cfg.opt_iters * v for k, v in per_update.items()}
-    want["world_advance"] = cycles if world_kernel and not epilogue else 0
-    want["solve_tail"] = cycles * ctrl.cfg.opt_iters if tail_kernel and not epilogue else 0
+    standalone = not (epilogue or sharded_tail)
+    want["world_advance"] = cycles if world_kernel and standalone else 0
+    want["solve_tail"] = cycles * ctrl.cfg.opt_iters if tail_kernel and standalone else 0
     held = []
     for window in range(1, 6):
         cyc.step.zero_()
@@ -1955,7 +1976,9 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
                 k2_per_cycle=counts["softmin_combine"] / cycles,
                 k2e_per_cycle=counts["combine_tail"] / cycles,
                 k6_per_cycle=counts["world_advance"] / cycles,
-                k7_per_cycle=counts["solve_tail"] / cycles, windows=window,
+                k7_per_cycle=counts["solve_tail"] / cycles,
+                k8_per_cycle=counts["sharded_scale"] / cycles,
+                k9_per_cycle=counts["sharded_tail"] / cycles, windows=window,
                 records={k: c / cycles for k, c in counts.items()}, nccl_per_cycle=len(nccl) / cycles,
                 nccl_us=sum(e.time_range.elapsed_us() for e in nccl) / cycles,
                 nccl_names=sorted({e.name for e in nccl}),
@@ -2083,8 +2106,8 @@ def _pairs(readings) -> list[tuple[float, float]]:
 
 def _trace_line(t: dict) -> str:
     return (f"{t['kernels']:.1f} kernels, K1 {t['k1_per_cycle']:g}, K2' {t['k2e_per_cycle']:g}, "
-            f"K2 {t['k2_per_cycle']:g}, K7 {t['k7_per_cycle']:g} and K6 {t['k6_per_cycle']:g} "
-            f"records per cycle; device busy {t['busy_ms']:.4f} of a {t['span_ms']:.4f} ms span per "
+            f"K2 {t['k2_per_cycle']:g}, K7 {t['k7_per_cycle']:g}, K6 {t['k6_per_cycle']:g}, K8 "
+            f"{t['k8_per_cycle']:g} and K9 {t['k9_per_cycle']:g} records per cycle; device busy {t['busy_ms']:.4f} of a {t['span_ms']:.4f} ms span per "
             f"cycle, idle share {t['idle']:.4f}; K1 + K2 (or K2') {t['k12_share']:.4f} of busy; the same "
             f"replays untraced (CUDA events) {t['untraced_ms']:.4f} ms per cycle; the largest device "
             f"µs per cycle {t['top']}")
@@ -2092,14 +2115,15 @@ def _trace_line(t: dict) -> str:
 
 def counted(fn) -> tuple[object, dict[str, int]]:
     """fn()'s result and the launches its kernels' wrappers counted (K1-K5,
-    K2', K7 and K6 by world body), each count set to 0 just before it; only
-    the kernels that launched."""
+    K2', K7, K6 by world body, K8 and K9), each count set to 0 just before
+    it; only the kernels that launched."""
     from mppi_gpu_tpu_torch.ops import combine_tail as ct
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import sharded_combine as sc
     from mppi_gpu_tpu_torch.ops import solve_tail as st
     from mppi_gpu_tpu_torch.ops import world_step as ws
 
-    mods = (fs, ct, st, ws)
+    mods = (fs, ct, st, ws, sc)
     for m in mods:
         m.reset_launch_counts()
     out = fn()
@@ -4785,6 +4809,429 @@ def quality_over_seeds(name: str, ctrl) -> list[float]:
                             .astype(np.float64))[0] for i in range(SHARDED_QUALITY_SEEDS)]
 
 
+# ---------------------------------------------------------------------------
+# K8 sharded_scale and K9 sharded_tail (phase 27): the one-pass sharded
+# combine between its two all-reduces, and the sharded controller's tail and
+# world step after them, against their plain versions and against the torch
+# combine, K7 and K6 they replaced
+
+SHARDED_SOURCE = "mppi_gpu_tpu_torch/csrc/sharded_combine.cu"
+SHARDED_REPLACES = ("no Pallas kernel: XLA's fusion of the one-pass sharded combine, "
+                    "mppi_gpu_tpu/controller.py:493-500, 522-531, under jax.jit, "
+                    "mppi_gpu_tpu/parallel/sharded.py:157")
+# how far K8 and K9 may part from their plain versions and from the torch
+# combine on the card: not at all. Each torch op is repeated in order, rounded
+# once alike, and the cross-rank sums are the mesh's own
+SHARDED_TOL = 0.0
+SHARDED_RANKS = (1, 2, 4)  # local ranks of a virtual mesh
+SHARDED_SHAPES = ((6, 2), (50, 2), (60, 4), (200, 3))  # (T, A): T·A 12, 100, 240, 600
+# λ = 1.1, 1.7 and 0.064: where 1.0f/λ and float32(1/λ) are two floats
+SHARDED_LAMS = (1.0, 1.1, 1.7, 0.064, 1e9)
+# a rank whose rollouts all cost +inf (its η_d and ΔŨ_d NaN), every rank so
+# (β +inf, η and ΔU NaN), and a rank whose f_d underflows to 0
+SHARDED_CASES = ("finite", "inf rank", "every rank inf", "underflow")
+SHARDED_K_LOC = 64  # rollouts per rank behind the weights
+SHARDED_WORLD_CYCLES = 3  # K9's world step, chained cycles per world body
+
+
+def sharded_inputs(n: int, T: int, A: int, lam: float, case: str, device: str, seed: int = 0):
+    """The local ranks' rows [β_d, η_d, ΔŨ_d] (n, 2 + T·A) as K2 writes them
+    unnormalized, their costs S (n, SHARDED_K_LOC) with min β_d, U (T, A)
+    past the bounds in places and max_a (A,), from a numpy seed; `case` of
+    SHARDED_CASES."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    beta_d = (5.0 + lam * rng.uniform(0.0, 3.0, n)).astype(np.float32)
+    if case == "underflow" and n > 1:  # f_0 = exp(−150) is 0 in float32
+        beta_d[0] = np.float32(beta_d[1:].min() + 150.0 * lam)
+    S = (beta_d[:, None] + lam * rng.uniform(0.0, 8.0, (n, SHARDED_K_LOC))).astype(np.float32)
+    S[:, 0] = beta_d
+    eta_d = rng.uniform(1.0, SHARDED_K_LOC, n).astype(np.float32)
+    dU_d = rng.normal(0.0, 1.0, (n, T * A)).astype(np.float32)
+    inf = {"inf rank": [n - 1], "every rank inf": list(range(n))}.get(case, [])
+    for d in inf:
+        beta_d[d], S[d], eta_d[d], dU_d[d] = np.inf, np.inf, np.nan, np.nan
+    rows = np.concatenate([beta_d[:, None], eta_d[:, None], dU_d], 1)
+    U = rng.uniform(-1.5, 1.5, (T, A)).astype(np.float32)
+    max_a = rng.uniform(0.3, 1.2, A).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device) for v in (rows, S, U, max_a))
+
+
+def check_sharded_combine(device: str = "cuda", ranks=SHARDED_RANKS, shapes=SHARDED_SHAPES,
+                          lams=SHARDED_LAMS, cases=SHARDED_CASES) -> dict:
+    """K8 and K9 against their plain versions and against the torch combine
+    (``parallel/sharded.onepass_combine``, then K7's plain tail) on the same
+    rows, for n local ranks of a virtual mesh (the MIN and the SUM its
+    reductions), every (T, A), λ and case: K8's rows, β, η, ΔU = Σ/η, and
+    K9's every output with the weights, the cycle's form (U shifted in
+    place) and the two-kernel branch's form (ΔU given, no division), bit for
+    bit (SHARDED_TOL). Returns whether all were, the largest |Δ| otherwise,
+    the cases and the launches (one of K8 and three of K9 per case on the
+    card, none on the CPU)."""
+    from mppi_gpu_tpu_torch.controller import CYCLE, FULL
+    from mppi_gpu_tpu_torch.ops import sharded_combine as sc
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
+    from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
+    from mppi_gpu_tpu_torch.parallel.sharded import onepass_combine
+
+    sc.reset_launch_counts()
+    worst, equal, n_cases = 0.0, True, 0
+
+    def hold(label: str, got, want) -> None:
+        nonlocal worst, equal
+        if bits_equal(got, want):
+            return
+        equal = False
+        d = max_abs_diff(got, want)
+        worst = max(worst, d)
+        expect(d <= SHARDED_TOL, f"{label}: max |kernel - plain| {d:.3g} (tolerance {SHARDED_TOL})")
+
+    for n in ranks:
+        reduce = virtual_mesh(n, device).all_reduce
+        for T, A in shapes:
+            for lam in lams:
+                for case in cases:
+                    label = f"K8/K9 n={n} T={T} A={A} lambda={lam} {case}"
+                    rows, S, U, max_a = sharded_inputs(n, T, A, lam, case, device, seed=n_cases)
+                    beta = reduce(rows[:, 0], "min", keep=True)
+                    scaled = sc.sharded_scale(rows, beta, lam)
+                    hold(f"{label} K8", scaled, sc.sharded_scale_reference(rows, beta, lam))
+                    sums = reduce(scaled, "sum")
+                    b_t, e_t, dU_t = onepass_combine(rows[:, 0].contiguous(), rows[:, 1].contiguous(),
+                                                     rows[:, 2:].reshape(n, T, A), lam, reduce)
+                    hold(f"{label} beta", beta, b_t)
+                    hold(f"{label} eta", sums[0], e_t)
+                    S_all = S.reshape(-1)
+                    dU, full = sc.sharded_tail(U, sums, max_a, True, FULL, (S_all, beta, sums[0], lam),
+                                               divide=True, keep_dU=True)
+                    want = st.solve_tail_reference(U, dU_t, max_a, True, FULL, (S_all, b_t, e_t, lam))
+                    hold(f"{label} dU", dU, dU_t)
+                    for k in FULL:
+                        hold(f"{label} {k}", getattr(full, k), getattr(want, k))
+                    U_c = U.clone()
+                    _, cyc = sc.sharded_tail(U_c, sums, max_a, True, CYCLE, into=U_c, divide=True)
+                    hold(f"{label} U shifted in place", U_c, want.u_next)
+                    hold(f"{label} cycle action", cyc.action, want.action)
+                    _, two = sc.sharded_tail(U, dU_t, max_a, False, FULL, (S_all, b_t, e_t, lam))
+                    want = st.solve_tail_reference(U, dU_t, max_a, False, FULL, (S_all, b_t, e_t, lam))
+                    for k in FULL:
+                        hold(f"{label} two-kernel {k}", getattr(two, k), getattr(want, k))
+                    n_cases += 1
+    launches = sc.launch_counts()
+    if device == "cuda":
+        expect(launches == {"sharded_scale": n_cases, "sharded_tail": 3 * n_cases},
+               f"K8/K9: launches {launches} over {n_cases} cases")
+    return dict(bit_equal=equal, max_abs_err=worst, cases=n_cases, launches=launches)
+
+
+def check_sharded_tail_world(name: str, device: str = "cuda") -> bool:
+    """K9's world step for config `name`'s world body, one robot from the
+    world's start: SHARDED_WORLD_CYCLES chained cycles in the episode's form
+    (the action, U shifted in place, the world stepped in its buffers, the
+    histories at the counter's row, the x buffer, the counter advanced),
+    dividing by η in the first and last and given ΔU in between, against
+    the plain version from the same buffers: all of it bit for bit, the
+    tickets 0 after every cycle. Returns True (a difference raises)."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import CYCLE
+    from mppi_gpu_tpu_torch.envs import make_world
+    from mppi_gpu_tpu_torch.ops import sharded_combine as sc
+
+    cfg = _config(name)
+    T, A = cfg.horizon, cfg.action_dim
+    world = make_world(cfg, device=device)
+    state0 = world.reset()
+    rng = np.random.default_rng(len(name))
+    U0 = torch.from_numpy(rng.uniform(-1.0, 1.0, (T, A)).astype(np.float32)).to(device)
+    max_a = torch.tensor(cfg.max_a, dtype=torch.float32, device=device)
+    n = SHARDED_WORLD_CYCLES + 2
+    kern, U_k, step_k = _episode_buffers(world, state0, U0, n, device)
+    plain, U_p, step_p = _episode_buffers(world, state0, U0, n, device)
+    tickets = torch.zeros(2, dtype=torch.int32, device=device)
+    for c in range(SHARDED_WORLD_CYCLES):
+        divide = c != 1
+        if divide:
+            dU = rng.normal(0.0, 0.5, 1 + T * A).astype(np.float32)
+            dU[0] = np.float32(rng.uniform(1.0, 50.0))
+        else:
+            dU = rng.normal(0.0, 0.3, (T, A)).astype(np.float32)
+        dU = torch.from_numpy(dU).to(device)
+        sc.sharded_tail(U_k, dU, max_a, cfg.clamp_action, CYCLE, into=U_k, divide=divide, step=step_k,
+                        advance=kern, tickets=tickets)
+        sc.sharded_tail_reference(U_p, dU, max_a, cfg.clamp_action, CYCLE, into=U_p, divide=divide,
+                                  step=step_p, advance=plain)
+        pairs = [("x", kern.x, plain.x), ("U", U_k, U_p), ("xs", kern.xs, plain.xs),
+                 ("us", kern.us, plain.us), ("ts", kern.ts, plain.ts)]
+        pairs += [(f"state leaf {i}", a, b) for i, (a, b) in enumerate(zip(kern.state, plain.state))]
+        for what, a, b in pairs:
+            expect(bits_equal(a, b), f"K9 {name} world step, cycle {c} ({'divide' if divide else 'dU'})"
+                   f" {what}: not bit-equal to the plain version (max |delta| {max_abs_diff(a, b):.3g})")
+        expect(int(step_k) == int(step_p) == c + 1 and not bool(tickets.any()),
+               f"K9 {name} cycle {c}: counters {int(step_k)}, {int(step_p)}, tickets {tickets}")
+    return True
+
+
+def check_sharded_episode_combine(name: str, mesh, onepass: bool, device: str = "cuda",
+                                  steps: int | None = None) -> dict:
+    """Config `name`'s sharded controller on `mesh` in one branch, on the
+    fused backend, against the same controller with the torch combine forced
+    (``_torch_combine``: the combine's torch ops, K7 and K6, as the cycle
+    ran before K8 and K9): one solve with every output (action, u_next, S, β,
+    η, the weights, u_seq) and the whole graph episode (run_episode_jit: x,
+    u and the clock of every cycle; `steps` cycles, the config's if None)
+    bit for bit; then three eager cycles of each with their launches
+    counted (the new: K1 or K4, K2 and K5 per local rank, K8 one-pass and K9
+    per update, and no K7, no K6; the forced one: K7 per update and K6 per
+    cycle) and ``onepass_combine`` called by the forced one-pass cycle alone.
+    On the CPU both run the plain versions and launch nothing. Returns the
+    launches per update and per cycle of each."""
+    import torch
+
+    import mppi_gpu_tpu_torch.parallel.sharded as shd
+    from mppi_gpu_tpu_torch.envs import make_world
+    from mppi_gpu_tpu_torch.parallel import ShardedMPPIController
+    from mppi_gpu_tpu_torch.runner import run_episode_jit
+
+    cfg = _episode_config(name)
+    branch = "one-pass" if onepass else "two-kernel"
+    label = f"sharded {name} n={mesh.size} ({len(mesh.local_ranks)} local) {branch}"
+    ctrls = []
+    for torch_combine in (False, True):
+        c = ShardedMPPIController(cfg, mesh=mesh, onepass=onepass)
+        c.rollout_backend = "fused"
+        c._torch_combine = torch_combine
+        ctrls.append(c)
+    new, old = ctrls
+    world = make_world(cfg, device=device)
+    x0 = world.reset().x
+    U0 = new.init_action_seq()
+    calls = {"new": 0, "old": 0}
+    orig = shd.onepass_combine
+    side = ["new"]
+
+    def spy(*args, **kwargs):
+        calls[side[0]] += 1
+        return orig(*args, **kwargs)
+
+    shd.onepass_combine = spy
+    try:
+        results, eps, launches = {}, {}, {}
+        for key, c in (("new", new), ("old", old)):
+            side[0] = key
+            results[key] = c.solve(x0, U0, cfg.seed, 3, capture=False)
+            eps[key] = run_episode_jit(c, num_steps=steps)
+            _, launches[key] = counted(lambda: run_episode_jit(c, num_steps=3, capture=False))
+    finally:
+        shd.onepass_combine = orig
+    for i, (a, b) in enumerate(zip(_leaves(results["new"]), _leaves(results["old"]))):
+        expect(bits_equal(a, b), f"{label}: solve leaf {LEAF_NAMES[i]} differs from the torch "
+               f"combine's (max |delta| {max_abs_diff(a, b):.3g})")
+    for f in ("xs", "us", "times"):
+        a, b = (np.ascontiguousarray(getattr(eps[k], f), np.float32).view(np.int32)
+                for k in ("new", "old"))
+        expect(np.array_equal(a, b), f"{label}: the graph episode's {f} differ from the torch "
+               "combine's")
+    expect(calls["new"] == 0, f"{label}: onepass_combine called {calls['new']} times by the K8/K9 "
+           "controller")
+    expect((calls["old"] > 0) == onepass, f"{label}: the forced torch combine ran onepass_combine "
+           f"{calls['old']} times")
+    if device == "cuda":
+        n, it = len(mesh.local_ranks), cfg.opt_iters
+        k1 = "solve_partials" if onepass else "rollout_costs"
+        per_rank = {k1: 3 * it * n, "softmin_combine": 3 * it * n}
+        if not onepass:
+            per_rank["weighted_update"] = 3 * it * n
+        kind = f"world_advance<{world._kernel_kind}>"
+        want_new = {**per_rank, "sharded_tail": 3 * it, **({"sharded_scale": 3 * it} if onepass else {})}
+        want_old = {**per_rank, "solve_tail": 3 * it, kind: 3}
+        expect(launches["new"] == want_new, f"{label}: the K8/K9 cycle launched {launches['new']}, "
+               f"want {want_new}")
+        expect(launches["old"] == want_old, f"{label}: the torch-combine cycle launched "
+               f"{launches['old']}, want {want_old}")
+    return dict(launches=launches, episode_cycles=len(eps["new"].us))
+
+
+def sharded_scale_bound(n: int, TA: int) -> tuple[float, str]:
+    """The least time the card could take for one K8: the larger of its
+    bytes (the rows and β read once, the scaled rows written once) over 3.35
+    TB/s and its operations (a sub, a multiply and an exp per row, a
+    compare and a multiply per entry) over the float32 peak."""
+    floats = n * (2 + TA) + 1 + n * (1 + TA)
+    ops = 3 * n + 2 * n * (1 + TA)
+    t_bytes, t_ops = 4 * floats / H100_BYTES_PER_S, ops / H100_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sharded_tail_bound(T: int, A: int, K: int, outputs, world=None, state=None,
+                       u=None) -> tuple[float, str]:
+    """The least time the card could take for one K9 with the division:
+    K7's (:func:`tail_bound`) plus η read and a division per entry, and with
+    a world its step's bytes (the state, the pack, the histories, the x
+    buffer and the counter) and operations (:func:`plain_world_ops`), as
+    :func:`epilogue_bound` counts them."""
+    n = T * A
+    floats = 2 * n + A + 1 + n * (("u_seq" in outputs) + ("u_next" in outputs)) + A * ("action" in outputs)
+    ops = 4 * n
+    if "weights" in outputs:
+        floats += 2 * K + 2
+        ops += 5 * K
+    if world is not None:
+        floats += 2 * sum(leaf.numel() for leaf in state) + u.numel() + world._packs[u.device].numel()
+        floats += 2 * state.x.numel() + u.numel() + state.time.numel() + 4
+        ops += plain_world_ops(world, state, u)
+    t_bytes, t_ops = 4 * floats / H100_BYTES_PER_S, ops / H100_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sharded_combine_times() -> dict:
+    """K8's and K9's times at the flagship's shape (T=200, A=3, K=10⁴): K8
+    on one local rank's row (a world of one) and on four (a virtual mesh);
+    K9 in the episode's form (the division, the action, U shifted in place,
+    the point mass's world step with its history rows at the counter) and
+    in ``solve``'s (every output with the weights over K): CUDA events around
+    a call (warm median) in turns with the plain version's, the device time
+    alone, and the bound."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import CYCLE, FULL
+    from mppi_gpu_tpu_torch.envs import make_world
+    from mppi_gpu_tpu_torch.ops import sharded_combine as sc
+    from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
+
+    cfg = _episode_config("flagship")
+    T, A, K, lam = cfg.horizon, cfg.action_dim, cfg.samples, cfg.lambda_
+    out = {}
+    for n in (1, 4):
+        rows, _, _, _ = sharded_inputs(n, T, A, lam, "finite", "cuda")
+        beta = virtual_mesh(n, "cuda").all_reduce(rows[:, 0], "min", keep=True)
+        ms, plain_ms = paired_median_ms(lambda: sc.sharded_scale(rows, beta, lam),
+                                        lambda: sc.sharded_scale_reference(rows, beta, lam), 50, 20)
+        bound, by = sharded_scale_bound(n, T * A)
+        out[f"K8 n={n}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                device_ms=device_ms(lambda: sc.sharded_scale(rows, beta, lam),
+                                                    name="sharded_scale_kernel"))
+    rows, S, U, max_a = sharded_inputs(1, T, A, lam, "finite", "cuda")
+    sums = sc.sharded_scale(rows, rows[0, 0].clone(), lam)[0]
+    world = make_world(cfg, device="cuda")
+    state0 = world.reset()
+    adv, U_c, step = _episode_buffers(world, state0, U, 4096, "cuda")  # rows past every call's
+    tickets = torch.zeros(2, dtype=torch.int32, device="cuda")
+    S_full = torch.cat([S.reshape(-1)] * -(-K // S.numel()))[:K].contiguous()
+    softmin = (S_full, rows[0, 0].clone(), sums[0], lam)
+    forms = {
+        "K9 cycle": (lambda: sc.sharded_tail(U_c, sums, max_a, True, CYCLE, into=U_c, divide=True,
+                                             step=step, advance=adv, tickets=tickets),
+                     lambda: sc.sharded_tail_reference(U_c, sums, max_a, True, CYCLE, into=U_c,
+                                                       divide=True, step=step, advance=adv),
+                     sharded_tail_bound(T, A, K, CYCLE, world, adv.state,
+                                        torch.zeros(A, device="cuda"))),
+        "K9 full": (lambda: sc.sharded_tail(U, sums, max_a, True, FULL, softmin, divide=True),
+                    lambda: sc.sharded_tail_reference(U, sums, max_a, True, FULL, softmin,
+                                                      divide=True),
+                    sharded_tail_bound(T, A, K, FULL)),
+    }
+    for key, (kernel, plain, (bound, by)) in forms.items():
+        ms, plain_ms = paired_median_ms(kernel, plain, 50, 10)
+        step.zero_()
+        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        device_ms=device_ms(kernel, name="sharded_tail_kernel"))
+        step.zero_()
+    return out
+
+
+def sharded_combine_phase(smi: str) -> dict:
+    """Phase 27, in this process's world of one NCCL rank: K8 and K9 against
+    their plain versions and the torch combine over every case of
+    :func:`check_sharded_combine`; K9's world step for every world body
+    (:func:`check_sharded_tail_world`); the sharded solve and graph episode
+    with K8 and K9 bit-equal to the torch-combine cycle at
+    SHARDED_EPISODE_CONFIGS, both branches, on the world of one and on four
+    virtual ranks, with each cycle's launches
+    (:func:`check_sharded_episode_combine`); K8's and K9's times beside
+    their plain versions, their bounds and the latency floor of a kernel."""
+    from mppi_gpu_tpu_torch.parallel import global_mesh
+    from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
+
+    t0 = time.perf_counter()
+    got = check_sharded_combine()
+    worlds = [name for name in EAGER_EPISODE_CONFIGS if check_sharded_tail_world(name)]
+    meshes = {"world of one (NCCL)": global_mesh("cuda:0"), "4 virtual ranks": virtual_mesh(4, "cuda:0")}
+    episodes = {}
+    for name in SHARDED_EPISODE_CONFIGS:
+        for mname, mesh in meshes.items():
+            for onepass in (True, False):
+                label = f"{name} {mname} {'one-pass' if onepass else 'two-kernel'}"
+                episodes[label] = check_sharded_episode_combine(name, mesh, onepass)
+    checks_s = time.perf_counter() - t0
+    times = sharded_combine_times()
+    floor = latency_floor()
+    agree = "bit-equal" if got["bit_equal"] else f"max |delta| {got['max_abs_err']:.3g}"
+    print(f"[27] K8 sharded_scale and K9 sharded_tail: {agree} to their plain versions and to the "
+          f"torch combine over {got['cases']} cases (n = {SHARDED_RANKS} local ranks, (T, A) "
+          f"{SHARDED_SHAPES}, lambda {SHARDED_LAMS}, {SHARDED_CASES}: K8's rows, beta, eta, dU, "
+          f"every output with the weights, the cycle's in place, the two-kernel form), launches "
+          f"{got['launches']}; K9's world step bit-equal to the plain cycle for {', '.join(worlds)} "
+          f"({SHARDED_WORLD_CYCLES} cycles each); the sharded solve (every output) and graph "
+          f"episode with K8 and K9 bit-equal to the torch-combine cycle (x, u, the clock) for "
+          f"{len(episodes)} cases ({', '.join(episodes)}; "
+          + "; ".join(f"{k} {v['episode_cycles']} cycles, eager launches over 3 cycles "
+                      f"{v['launches']['new']} vs {v['launches']['old']}" for k, v in episodes.items())
+          + f"); checks {checks_s:.1f} s; "
+          + "; ".join(f"{k} {v['ms']:.4f} ms by events, device {v['device_ms']}, plain "
+                      f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.3g} ({v['bound_by']})"
+                      for k, v in times.items())
+          + f"; a one-element add (the latency floor of a kernel): device {floor['device_us']} us, "
+          f"{floor['graph_ms_per_node']:.5f} graph ms per node ({smi})")
+    return dict(got, worlds=worlds, episodes=episodes, times=times, floor=floor)
+
+
+def sharded_entries(phase: dict, launches: dict) -> list[dict]:
+    """The kernels line's K8 and K9 entries: their launches on the sharded
+    paths of phase 26 (the ``--sharded --jit-episode`` CLI and the
+    two-kernel episode, the counts set to 0 around each), their largest
+    difference from their plain versions (phase 27), and their times at the
+    flagship's shape beside their bounds and the latency floor."""
+    floor = phase["floor"]
+    out = []
+    for name, main, other in (("sharded_scale", "K8 n=1", "K8 n=4"), ("sharded_tail", "K9 cycle", "K9 full")):
+        m, o = phase["times"][main], phase["times"][other]
+        out.append({
+            "name": name, "route": "cuda", "source": SHARDED_SOURCE, "replaces": SHARDED_REPLACES,
+            "launches": launches[name], "max_abs_err": phase["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "device_ms": m["device_ms"],
+            "shape": ("flagship T=200 A=3, one local rank's row (a world of one)" if name == "sharded_scale"
+                      else "flagship T=200 A=3, the episode's form: the division, the action, U "
+                           "shifted in place, the point mass's world step"),
+            "bit_equal": phase["bit_equal"], "other_ms": o["ms"], "other_plain_ms": o["plain_ms"],
+            "other_device_ms": o["device_ms"], "other_bound_ms": o["bound_ms"],
+            "other_shape": ("four local ranks' rows (a virtual mesh)" if name == "sharded_scale"
+                            else "every output with the weights over K=10000 (solve)"),
+            "floor_kernel_device_us": floor["device_us"],
+            "floor_graph_ms_per_node": floor["graph_ms_per_node"]})
+    return out
+
+
+def sharded_per_update(mesh, onepass: bool) -> dict:
+    """The records per update of a sharded episode's graph cycle: K1 or K4,
+    K2 and (two-kernel) K5 once per local rank, K8 (one-pass) and K9 once."""
+    n = len(mesh.local_ranks)
+    return {"solve_partials": n, "softmin_combine": n, "weighted_update": 0 if onepass else n,
+            "sharded_scale": int(onepass), "sharded_tail": 1}
+
+
+def sharded_cycle_kernels(mesh, opt_iters: int) -> int:
+    """Kernels per graph cycle of a one-pass sharded episode: K1 and K2 per
+    local rank, the MIN's and the SUM's reductions over two or more local
+    ranks (a virtual mesh; a real rank's are NCCL's, which on a world of one
+    launches none), K8 and K9, per update. The copy of β_d that a real
+    rank's MIN takes is a memory copy, not a kernel."""
+    n = len(mesh.local_ranks)
+    return opt_iters * (2 * n + (2 if n > 1 else 0) + 2)
+
+
 def sharded_episode_row(name: str, mesh_name: str, mesh, onepass: bool, solo, smi: str) -> dict:
     """The sharded device episode of config `name` on `mesh`: the graph
     episode (captured, then timed warm) bit-equal to a second replay and to
@@ -4827,10 +5274,15 @@ def sharded_episode_row(name: str, mesh_name: str, mesh, onepass: bool, solo, sm
                    f"difference {diffs.mean():+.4f} m (standard error {se:.4f}); mean steady "
                    f"{np.mean(seeds):.4f}, solo {np.mean(solo['seeds']):.4f}; {under} and {ref} "
                    "seeds under the bar")
-    # K1 or K4, K2 and K5 once per rank and update
-    trace = replay_trace(ctrl, label, epilogue=False, per_update={
-        "solve_partials": mesh.size, "softmin_combine": mesh.size,
-        "weighted_update": 0 if onepass else mesh.size})
+    # K1 or K4, K2 and K5 once per rank and update; K8 (one-pass) and K9 once
+    # per update, K9 with the world's step; no K7, no K6
+    trace = replay_trace(ctrl, label, epilogue=False, sharded_tail=True,
+                         per_update=sharded_per_update(mesh, onepass))
+    if onepass:
+        want = sharded_cycle_kernels(mesh, cfg.opt_iters)
+        expect(trace["kernels"] == want, f"{label}: {trace['kernels']:g} kernels per graph cycle, "
+               f"want {want} (K1 and K2 per rank, K8 and K9, and on {mesh.size} virtual ranks the "
+               "two reductions, per update)")
     n = len(graph.us)
     row = dict(graph_ms=graph_s * 1e3 / n, eager_ms=eager_s * 1e3 / n, solo_ms=solo["ms"],
                first_s=first_s, dx=dx, du=du, steady=steady, bar=bar, trace=trace)
@@ -4839,7 +5291,8 @@ def sharded_episode_row(name: str, mesh_name: str, mesh, onepass: bool, solo, sm
           f"{row['eager_ms']:.4f}, the solo graph episode {solo['ms']:.4f}; graph == eager; within "
           f"(states, actions) {dx:.3g}, {du:.3g} of the solo episode over {EPISODE_HOST_CYCLES} "
           f"cycles (tol {EPISODE_HOST_TOL[name]}); steady {steady:.4f} (bar {bar}){quality}; trace of "
-          f"{EPISODE_PROFILE_CYCLES} replays: records per cycle {trace['records']} (K4 under "
+          f"{EPISODE_PROFILE_CYCLES} replays: {trace['kernels']:g} kernels per cycle, records per "
+          f"cycle {trace['records']} (K4 under "
           f"solve_partials), NCCL {trace['nccl_per_cycle']:g} records, {trace['nccl_us']:.2f} us per "
           f"cycle {trace['nccl_names']}; {_trace_line(trace)} ({smi})")
     return row
@@ -5004,17 +5457,20 @@ def graphs_phase(smi: str) -> dict:
           f"T={pm3.horizon}, {len(want.us)} cycles, on the world of one (NCCL, the all_gather "
           "captured) and on four virtual ranks: graph episode bit-equal to the unsharded fleet's")
     # the sharded episode's paths, each with the counts set to 0 around it
-    fs.reset_launch_counts()
-    cli_out = _cli(["-c", os.path.join("configs", "point_mass2d.yaml"), "--device", "cuda",
-                    "--sharded", "--jit-episode"])
-    onepass_launches = fs.launch_counts()
-    fs.reset_launch_counts()
-    run_episode_jit(ShardedMPPIController(_config("point_mass2d"), mesh=meshes["world of one (NCCL)"],
-                                          onepass=False))
-    two_launches = fs.launch_counts()
-    expect(min(onepass_launches[k] for k in ("solve_partials", "softmin_combine")) > 0,
+    onepass_launches = counted(lambda: _cli(["-c", os.path.join("configs", "point_mass2d.yaml"),
+                                             "--device", "cuda", "--sharded", "--jit-episode"]))
+    cli_out, onepass_launches = onepass_launches
+    _, two_launches = counted(lambda: run_episode_jit(ShardedMPPIController(
+        _config("point_mass2d"), mesh=meshes["world of one (NCCL)"], onepass=False)))
+    expect(min(onepass_launches.get(k, 0) for k in ("solve_partials", "softmin_combine",
+                                                     "sharded_scale", "sharded_tail")) > 0
+           and not {"solve_tail", "weighted_update"} & onepass_launches.keys()
+           and not any(k.startswith("world_advance") for k in onepass_launches),
            f"--sharded --jit-episode: launches {onepass_launches}")
-    expect(min(two_launches[k] for k in ("rollout_costs", "weighted_update", "softmin_combine")) > 0,
+    expect(min(two_launches.get(k, 0) for k in ("rollout_costs", "weighted_update",
+                                                 "softmin_combine", "sharded_tail")) > 0
+           and not {"solve_tail", "sharded_scale"} & two_launches.keys()
+           and not any(k.startswith("world_advance") for k in two_launches),
            f"two-kernel sharded episode: launches {two_launches}")
     print(f"[26] cli --sharded --jit-episode configs/point_mass2d.yaml (world of one, one-pass): "
           f"{re.search(r'episode finished: .*', cli_out).group(0)}; launches {onepass_launches} (the "
@@ -5047,6 +5503,33 @@ def graphs_phase(smi: str) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[26] phase 26 took {out['seconds']:.1f} s")
     return out
+
+
+def sharded_combine_only() -> int:
+    """``python3 chip_smoke.py --sharded-combine``: the build (phase 2), then
+    phase 27 alone in a world of one NCCL rank, and no contract line: the
+    quickest check of K8 and K9 and of the sharded episode's cycle with
+    them."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    from mppi_gpu_tpu_torch.ops import _build
+
+    smi = _smi()
+    print(smi)
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load_library()
+    print(f"[2] build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}")
+    for line in ptxas_summary(lib_path.with_suffix(".log").read_text()):
+        if line.startswith("sharded_"):
+            print(f"    ptxas {line}")
+    with nccl_world_of_one():
+        sharded_combine_phase(smi)
+    _stamp(t0, 27)
+    return 0
 
 
 def graphs_only() -> int:
@@ -5843,7 +6326,13 @@ def main() -> int:
     # sharded device episode, its collectives captured
     with nccl_world_of_one():
         graphs = graphs_phase(smi)
-    _stamp(t_start, 26)
+        _stamp(t_start, 26)
+
+        # [27] K8 and K9: the one-pass sharded combine between its
+        # all-reduces and the sharded tail with the world's step, against
+        # their plain versions and the torch combine, K7 and K6
+        sharded = sharded_combine_phase(smi)
+    _stamp(t_start, 27)
 
     # the kernels JSON line: times at each kernel's shape, beside its bound
     k12 = ", ".join(f"{PALLAS}:{line}" for line in (2342, 2686, 2287, 3121, 2973, 3078))
@@ -5961,6 +6450,12 @@ def main() -> int:
                              quadrotor3d_path_launches=q3d_launches[name])
         entries.append(entry)
     entries += world_entries(episode)
+    path = graphs["launches"]  # the sharded paths of phase 26, counted from 0 around each
+    sharded_launches = {k: path["onepass"].get(k, 0) + path["two_kernel"].get(k, 0)
+                        for k in ("sharded_scale", "sharded_tail")}
+    for name, n in sharded_launches.items():
+        expect(n > 0, f"kernel {name} was not launched on the sharded paths")
+    entries += sharded_entries(sharded, sharded_launches)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -6104,20 +6599,22 @@ def episode_commit(root: str) -> int:
     k6 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.world_step") is not None
     k7 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.solve_tail") is not None
     k2e = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.combine_tail") is not None
+    k9 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.sharded_combine") is not None
 
     def row(ctrl, run, label: str, fleet: bool = False, per_update=None,
-            epilogue: bool = k2e) -> dict:
+            epilogue: bool = k2e, sharded_tail: bool = False) -> dict:
         run(ctrl)  # captures
         graph = _timed(lambda: run(ctrl))
         eager = _timed(lambda: run(ctrl, capture=False))
         n = len(graph[0].us)
         t = replay_trace(ctrl, label, fleet=fleet, per_update=per_update, world_kernel=k6,
-                         tail_kernel=k7, epilogue=epilogue)
+                         tail_kernel=k7, epilogue=epilogue, sharded_tail=sharded_tail)
         return dict(graph_ms=graph[1] * 1e3 / n, eager_ms=eager[1] * 1e3 / n, kernels=t["kernels"],
                     busy_ms=t["busy_ms"], k12_share=t["k12_share"], idle=t["idle"],
                     untraced_ms=t["untraced_ms"], k6_per_cycle=t["k6_per_cycle"],
                     k7_per_cycle=t["k7_per_cycle"], k2e_per_cycle=t["k2e_per_cycle"],
-                    top=t["top"])
+                    k8_per_cycle=t["k8_per_cycle"], k9_per_cycle=t["k9_per_cycle"],
+                    nccl_per_cycle=t["nccl_per_cycle"], top=t["top"])
 
     configs = {name: row(MPPIController(_episode_config(name), device="cuda"), run_episode_jit, name)
                for name in EPISODE_CONFIGS}
@@ -6133,13 +6630,20 @@ def episode_commit(root: str) -> int:
                 for onepass in (True, False):
                     label = f"{name} {mname} {'one-pass' if onepass else 'two-kernel'}"
                     ctrl = ShardedMPPIController(_episode_config(name), mesh=mesh, onepass=onepass)
-                    sharded[label] = row(ctrl, run_episode_jit, label, epilogue=False, per_update={
-                        "solve_partials": mesh.size, "softmin_combine": mesh.size,
-                        "weighted_update": 0 if onepass else mesh.size})
-    print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "smi": _smi(),
-                      "world_kernel": k6, "tail_kernel": k7, "epilogue": k2e, "configs": configs,
-                      "fleets": fleets,
-                      "sharded": sharded}))
+                    per_update = sharded_per_update(mesh, onepass)
+                    if not k9:  # a package before K8 and K9: K7 per update, K6 per cycle
+                        per_update.update(sharded_scale=0, sharded_tail=0)
+                    sharded[label] = row(ctrl, run_episode_jit, label, epilogue=False,
+                                         per_update=per_update, sharded_tail=k9)
+    smi = _smi()
+    for label, r in sharded.items():  # the sharded rows, to read parent → change by eye
+        print(f"[episode-commit] {root} sharded {label}: {r['kernels']:g} kernels per cycle (K7 "
+              f"{r['k7_per_cycle']:g}, K6 {r['k6_per_cycle']:g}, K8 {r['k8_per_cycle']:g}, K9 "
+              f"{r['k9_per_cycle']:g}), graph {r['graph_ms']:.4f} ms per cycle, untraced "
+              f"{r['untraced_ms']:.4f}, idle {r['idle']:.4f}, eager {r['eager_ms']:.4f} ({smi})")
+    print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "smi": smi,
+                      "world_kernel": k6, "tail_kernel": k7, "epilogue": k2e, "sharded_tail": k9,
+                      "configs": configs, "fleets": fleets, "sharded": sharded}))
     return 0
 
 
@@ -6195,6 +6699,8 @@ if __name__ == "__main__":
         sys.exit(plants_only())
     if sys.argv[1:2] == ["--graphs"]:
         sys.exit(graphs_only())
+    if sys.argv[1:2] == ["--sharded-combine"]:
+        sys.exit(sharded_combine_only())
     if sys.argv[1:2] == ["--bodies"]:
         sys.exit(bodies_only())
     if sys.argv[1:2] == ["--sass-diff"]:

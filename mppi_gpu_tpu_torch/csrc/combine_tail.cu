@@ -47,27 +47,6 @@ struct EpilogueArgs {
   int* tickets;        // (R + 1,): one per robot, then one for the robots' world steps
 };
 
-// Robot r's world step in one thread, then its ticket; the last robot writes
-// the shared clock and advances the counter.
-template <class W>
-__device__ __forceinline__ void step_world(const world::AdvanceArgs& a, int r, const float* u,
-                                           int* tickets) {
-  W w;
-  w.load(a.params);
-  const long long row = a.step_ptr != nullptr ? *a.step_ptr : -1;
-  const bool hist = a.xs != nullptr && row >= 0 && row < a.n_hist;
-  const float t = world::advance_robot(w, a, r, u, a.per_robot_clock ? a.time_in[r] : a.time_in[0],
-                                       row, hist);
-  __threadfence();  // robot r has read the clock and the counter and written its rows
-  if (atomicAdd(tickets + a.R, 1) != a.R - 1) return;
-  tickets[a.R] = 0;
-  if (!a.per_robot_clock) {  // every robot's t is the fleet's clock after the cycle
-    a.time_out[0] = t;
-    if (hist) a.ts[row] = t;
-  }
-  if (a.tick) *a.step_ptr = row + 1;  // the episode's next control step
-}
-
 template <class W>
 __global__ void __launch_bounds__(kCombineThreads) combine_tail_kernel(
     const float* __restrict__ partials, int nb, int TA, float lam, float* __restrict__ beta_eta,
@@ -84,7 +63,7 @@ __global__ void __launch_bounds__(kCombineThreads) combine_tail_kernel(
   extern __shared__ float row[];  // robot r's u_new, T·A floats (the fold is done with f_s)
   tail::row_body<true>(e.row, r, row);
   if constexpr (!std::is_same<W, NoWorld>::value) {
-    if (threadIdx.x == 0) step_world<W>(e.adv, r, row, e.tickets);
+    if (threadIdx.x == 0) world::step_world<W>(e.adv, r, row, e.tickets);
   }
 }
 

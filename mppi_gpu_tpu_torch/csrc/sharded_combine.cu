@@ -1,0 +1,226 @@
+// K8 sharded_scale and K9 sharded_tail: the one-pass sharded combine of the
+// ranks' unnormalized solves, the kernel between its two all-reduces (K8)
+// and the tail with the world's step after them (K9), bound to Python with
+// ctypes (mppi_gpu_tpu_torch/ops/_build.py, ops/sharded_combine.py).
+//
+// They replace no Pallas kernel. On the TPU the sharded solve runs under
+// shard_map inside jax.jit (mppi_gpu_tpu/parallel/sharded.py:105, 157), and
+// XLA fuses the combine's elementwise work between the collectives
+// (mppi_gpu_tpu/controller.py:481-500): β = pmin β_d, f_d = exp((β − β_d)/λ),
+// psum of f_d·η_d and of f_d·ΔŨ_d, ΔU = Σ f_d·ΔŨ_d / η; then the tail
+// (:522-531) and, in the jitted episode, the world's simulate
+// (mppi_gpu_tpu/runner.py:375-383). These kernels stand for that fusion in
+// the port's sharded controller (parallel/sharded.py), where the torch ops
+// of the combine, K7 (solve_tail.cu) and K6 (world_step.cu) ran 15 kernels
+// per graph cycle on a world of one rank.
+//
+// K8, between the MIN and the SUM collectives: for each of the n local
+// ranks' rows [β_d, η_d, ΔŨ_d] (K2's unnormalized output, 2 + T·A floats),
+// f_d = expf((β − β_d)·float32(1/λ)) and the row [f_d·η_d, f_d·ΔŨ_d]
+// (1 + T·A floats), 0 where f_d is 0: a rank whose rollouts all cost +inf
+// (β_d = +inf, η_d and ΔŨ_d NaN) adds nothing, as torch.where drops it. The
+// SUM collective then adds those rows over the ranks in place.
+//
+// K9, after the SUM: robot 0's row body of K7 (solve_tail.cuh) on ΔU = Σ/η,
+// each entry divided as it is loaded (`divide`; the two-kernel branch's ΔU
+// is already the sum it needs), the softmin weights over K where asked for
+// (K7's weight blocks), and in the episode's last update the world's cycle
+// in thread 0 under the action the block holds in shared memory (K6's body,
+// world_step.cuh's step_world, as K2's epilogue runs it).
+//
+// Both move a few KB (at the flagship T·A = 600 floats per rank) and do a
+// few hundred operations: they are bound by their launch and their latency,
+// not by bytes or operations. K8 is a grid (⌈(1 + T·A)/256⌉, n) of 256
+// threads, one entry each; K9 is K7's grid for one robot, (1 + ⌈K/256⌉, 1)
+// with the weights, (1, 1) without.
+//
+// The arithmetic is the torch ops', each rounded once (never contracted into
+// an FMA): β − β_d (__fsub_rn), the division by the Python float λ as torch's
+// CUDA division by a CPU scalar computes it, a product with float32(1/λ)
+// (the wrapper passes it, ops/_rounding.scalar_reciprocal; __fmul_rn), expf
+// at full precision (no fast math), f·x (__fmul_rn), 0.0 where f == 0, and
+// Σ/η by the device scalar η (__fdiv_rn); the cross-rank sums are the mesh's
+// own. So the result is the torch combine's bit for bit.
+
+#include <type_traits>
+
+#include "solve_tail.cuh"
+#include "world_step.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxRanks = 65535;  // gridDim.y of K8
+
+struct NoWorld {};  // the tail alone: an inner opt iteration, or a world without a K6 body
+
+__global__ void __launch_bounds__(kThreads) sharded_scale_kernel(
+    const float* __restrict__ rows, const float* __restrict__ beta, float inv_lam, int TA,
+    float* __restrict__ out) {
+  const long long d = blockIdx.y;
+  const float* row = rows + d * (2 + (long long)TA);
+  const float f = expf(__fmul_rn(__fsub_rn(*beta, row[0]), inv_lam));
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i <= TA; i += gridDim.x * kThreads)
+    out[d * (1 + (long long)TA) + i] = f == 0.0f ? 0.0f : __fmul_rn(f, row[1 + i]);
+}
+
+struct ShardedTailArgs {
+  tail::RowArgs row;   // U, ΔU (with `divide` the sum [η, Σ f·ΔŨ]), max_a, u_seq, u_next, action
+  float* dU_out;       // (T, A) the quotient Σ/η, or null
+  const float* S;      // (K,)
+  const float* beta;   // 0-dim
+  const float* eta;    // 0-dim
+  float* weights;      // (K,) or null
+  int K;
+  float inv_lam;       // float32(1/λ)
+  world::AdvanceArgs adv;  // its u unused: the action is the row's first A floats
+  int* tickets;        // (2,): the world step's, zero, left zero
+};
+
+template <class W, bool DIVIDE>
+__global__ void __launch_bounds__(kThreads) sharded_tail_kernel(const ShardedTailArgs a) {
+  if (blockIdx.x > 0) {  // the weights of rollouts (blockIdx.x − 1)·256 + threadIdx.x, as K7's
+    const int k = (blockIdx.x - 1) * kThreads + threadIdx.x;
+    if (k < a.K) {
+      const float d = __fsub_rn(a.S[k], *a.beta);
+      const float e = expf(__fmul_rn(-d, a.inv_lam));
+      a.weights[k] = __fdiv_rn(e, *a.eta);
+    }
+    return;
+  }
+  extern __shared__ float row[];  // u_new, T·A floats
+  if constexpr (DIVIDE) {
+    const float* sum = a.row.dU;
+    const float eta = sum[0];
+    tail::row_body_of(a.row, 0, row, [&](long long, int i) {
+      const float q = __fdiv_rn(sum[1 + i], eta);
+      if (a.dU_out != nullptr) a.dU_out[i] = q;
+      return q;
+    });
+  } else {
+    tail::row_body<false>(a.row, 0, row);
+  }
+  if constexpr (!std::is_same<W, NoWorld>::value) {
+    if (threadIdx.x == 0) world::step_world<W>(a.adv, 0, row, a.tickets);
+  }
+}
+
+template <class W, bool DIVIDE>
+int launch_tail(const ShardedTailArgs& a, int row_bytes, cudaStream_t stream) {
+  if (row_bytes > 48 * 1024) {  // past the default, on the current device
+    const cudaError_t err = cudaFuncSetAttribute(
+        sharded_tail_kernel<W, DIVIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, row_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(1 + (a.weights != nullptr ? (a.K + kThreads - 1) / kThreads : 0), 1);
+  sharded_tail_kernel<W, DIVIDE><<<grid, kThreads, (size_t)row_bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <class W>
+int launch(const ShardedTailArgs& a, int divide, int row_bytes, cudaStream_t stream) {
+  return divide ? launch_tail<W, true>(a, row_bytes, stream)
+                : launch_tail<W, false>(a, row_bytes, stream);
+}
+
+template <class W>
+bool fits(int n_leaves, int n_params, int A) {
+  return n_leaves == W::kLeaves && n_params == W::kParams && A == W::kA;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K8: for n rows (n, 2 + TA) = [β_d, η_d, ΔŨ_d] and β (one float on the
+// device, after the MIN collective), out (n, 1 + TA) = f_d·[η_d, ΔŨ_d] with
+// f_d = expf((β − β_d)·inv_lam), 0 where f_d == 0 (inv_lam: float32(1/λ)).
+// out may not overlap rows. Refuses (cudaErrorInvalidValue) n outside
+// [1, 65535] and TA below 1.
+int mppi_sharded_scale(const float* rows, int n, int TA, const float* beta, float inv_lam,
+                       float* out, void* stream) {
+  if (n < 1 || n > kMaxRanks || TA < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((TA + kThreads) / kThreads, n);  // ⌈(1 + TA)/256⌉ blocks per row
+  sharded_scale_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(rows, beta, inv_lam, TA, out);
+  return (int)cudaGetLastError();
+}
+
+// K9: one robot's tail, u_new = U + ΔU (clamped to ±max_a when `clamp`),
+// where with `divide` dU holds the sum [η, Σ (T·A)] and ΔU = Σ/η (written to
+// dU_out when it is not null), else dU is ΔU (T, A); then u_seq = u_new,
+// u_next = u_new shifted by one step with the last repeated (may be U: in
+// place), action = u_new[0] (A,), and with `weights` non-null weights[k] =
+// expf(−(S[k] − β)·inv_lam)/η over K; a null output is not written. Then,
+// with `world_id` >= 0 (world_step.cuh's WorldId), K6's cycle of that world
+// for the one robot under the action, as mppi_combine_tail runs it: in / out
+// the state leaves (out may be in), the clock, xs[row + 1], us[row], ts[row]
+// at row = *step_ptr when row is in [0, n_hist), x_out = the new x, and
+// *step_ptr = row + 1; tickets: 2 int32, zero, left zero. Refuses
+// (cudaErrorInvalidValue) T or A below 1, K below 1 with weights, a row of
+// more than 227 KB, and with a world null tickets, another leaf count, pack
+// length or action dim than the world's, steps < 0, or a null step_ptr.
+int mppi_sharded_tail(const float* U, const float* dU, int divide, const float* max_a, int clamp,
+                      float* u_seq, float* u_next, float* action, float* dU_out, const float* S,
+                      const float* beta, const float* eta, float inv_lam, float* weights, int T,
+                      int A, int K, int* tickets, int world_id, const void* const* in,
+                      void* const* out, int n_leaves, const float* time_in, float* time_out,
+                      int per_robot_clock, const float* params, int n_params, int steps, float* xs,
+                      float* us, float* ts, int n_hist, long long* step_ptr, float* x_out,
+                      void* stream) {
+  if (T < 1 || A < 1 || (weights != nullptr && K < 1)) return (int)cudaErrorInvalidValue;
+  const long long row_bytes = (long long)T * A * (long long)sizeof(float);
+  if (row_bytes > tail::kMaxRowBytes) return (int)cudaErrorInvalidValue;
+  ShardedTailArgs a{};
+  a.row = tail::RowArgs{U, dU, max_a, u_seq, u_next, action, clamp, T, A};
+  a.dU_out = divide ? dU_out : nullptr;
+  a.S = S;
+  a.beta = beta;
+  a.eta = eta;
+  a.weights = weights;
+  a.K = weights != nullptr ? K : 0;
+  a.inv_lam = inv_lam;
+  a.tickets = tickets;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rb = (int)row_bytes;
+  if (world_id < 0) return launch<NoWorld>(a, divide, rb, s);
+  if (tickets == nullptr || n_leaves < 1 || n_leaves > world::kMaxLeaves || steps < 0
+      || step_ptr == nullptr)
+    return (int)cudaErrorInvalidValue;
+  world::AdvanceArgs& w = a.adv;
+  for (int l = 0; l < n_leaves; ++l) {
+    w.in[l] = static_cast<const float*>(in[l]);
+    w.out[l] = static_cast<float*>(out[l]);
+  }
+  w.time_in = time_in;
+  w.time_out = time_out;
+  w.params = params;
+  w.xs = xs;
+  w.us = us;
+  w.ts = ts;
+  w.step_ptr = step_ptr;
+  w.x_out = x_out;
+  w.tick = 1;
+  w.R = 1;
+  w.per_robot_clock = per_robot_clock;
+  w.steps = steps;
+  w.n_hist = n_hist;
+#define WORLD_CASE(id, W)                                                                   \
+  case world::id:                                                                           \
+    return fits<world::W>(n_leaves, n_params, A) ? launch<world::W>(a, divide, rb, s)       \
+                                                 : (int)cudaErrorInvalidValue;
+  switch (world_id) {
+    WORLD_CASE(kPointMass1, PointMass<1>)
+    WORLD_CASE(kPointMass2, PointMass<2>)
+    WORLD_CASE(kPointMass3, PointMass<3>)
+    WORLD_CASE(kPendulum, Pendulum)
+    WORLD_CASE(kCartPole, CartPole)
+    WORLD_CASE(kUnicycle, Unicycle)
+    WORLD_CASE(kQuadrotor, Quadrotor)
+    WORLD_CASE(kQuadrotor3D, Quadrotor3D)
+    WORLD_CASE(kArm, Arm)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WORLD_CASE
+}
+
+}  // extern "C"

@@ -12,6 +12,9 @@
 // robot's sequence, so u_next may be U itself (the device episode shifts its
 // nominal sequence in place).
 //
+// The sharded controller's tail (sharded_combine.cu) runs the same body on
+// ΔU = Σ/η, the quotient of the ranks' sum formed as it loads each entry.
+//
 // Everything lives in the namespace `tail` inside an anonymous namespace, so
 // a translation unit may include it beside mppi_solve.cuh and world_step.cuh,
 // and no library exports any of it.
@@ -42,15 +45,14 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
 }
 
-// Robot r's tail, by every thread of the block; `row` holds T·A floats of
-// shared memory. With L2, ΔU is read from L2 (__ldcg): K2's epilogue reads
-// columns that other blocks of the same launch wrote.
-template <bool L2>
-__device__ __forceinline__ void row_body(const RowArgs& a, int r, float* row) {
+// Robot r's tail, by every thread of the block, from ΔU[base + i] =
+// delta(base, i), base = r·T·A; `row` holds T·A floats of shared memory.
+template <class Delta>
+__device__ __forceinline__ void row_body_of(const RowArgs& a, int r, float* row, Delta delta) {
   const int n = a.T * a.A;
   const long long base = (long long)r * n;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float d = L2 ? __ldcg(a.dU + base + i) : a.dU[base + i];
+    const float d = delta(base, i);
     float v = __fadd_rn(a.U[base + i], d);
     if (a.clamp) {
       const float m = a.max_a[i % a.A];
@@ -65,6 +67,15 @@ __device__ __forceinline__ void row_body(const RowArgs& a, int r, float* row) {
     if (a.u_next != nullptr) a.u_next[base + i] = row[i + a.A < n ? i + a.A : i];
     if (a.action != nullptr && i < a.A) a.action[(long long)r * a.A + i] = row[i];
   }
+}
+
+// Robot r's tail from ΔU = a.dU. With L2, ΔU is read from L2 (__ldcg): K2's
+// epilogue reads columns that other blocks of the same launch wrote.
+template <bool L2>
+__device__ __forceinline__ void row_body(const RowArgs& a, int r, float* row) {
+  row_body_of(a, r, row, [&](long long base, int i) {
+    return L2 ? __ldcg(a.dU + base + i) : a.dU[base + i];
+  });
 }
 
 }  // namespace tail

@@ -1,9 +1,10 @@
 // K6's world bodies and one robot's control cycle, shared by K6
 // (world_step.cu), which runs robots r, r + blockDim, … in the threads of
-// one block, and by K2's epilogue (combine_tail.cu), which runs robot r in
-// thread 0 of the last of K2's blocks to finish for that robot. Both
-// therefore compute the same floats. The arithmetic, the packs and their
-// order are described in world_step.cu.
+// one block, by K2's epilogue (combine_tail.cu), which runs robot r in
+// thread 0 of the last of K2's blocks to finish for that robot, and by the
+// sharded controller's tail (sharded_combine.cu), in thread 0 of its row's
+// block. All therefore compute the same floats. The arithmetic, the packs
+// and their order are described in world_step.cu.
 //
 // Everything lives in the namespace `world` inside an anonymous namespace, so
 // a translation unit may include it beside mppi_solve.cuh and solve_tail.cuh,
@@ -379,6 +380,31 @@ __device__ __forceinline__ float advance_robot(const W& w, const AdvanceArgs& a,
     if (a.per_robot_clock) a.ts[row * a.R + r] = t;
   }
   return t;
+}
+
+// Robot r's control cycle in one thread of a launch that also ran the
+// solve's tail (K2's epilogue in combine_tail.cu, the sharded controller's
+// tail in sharded_combine.cu), under the action `u` it holds, at the row the
+// counter holds; then its ticket (tickets[R], zero, left zero): the last
+// robot to finish writes the shared clock and advances the counter, after
+// every robot has read both.
+template <class W>
+__device__ __forceinline__ void step_world(const AdvanceArgs& a, int r, const float* u,
+                                           int* tickets) {
+  W w;
+  w.load(a.params);
+  const long long row = a.step_ptr != nullptr ? *a.step_ptr : -1;
+  const bool hist = a.xs != nullptr && row >= 0 && row < a.n_hist;
+  const float t = advance_robot(w, a, r, u, a.per_robot_clock ? a.time_in[r] : a.time_in[0],
+                                row, hist);
+  __threadfence();  // robot r has read the clock and the counter and written its rows
+  if (atomicAdd(tickets + a.R, 1) != a.R - 1) return;
+  tickets[a.R] = 0;
+  if (!a.per_robot_clock) {  // every robot's t is the fleet's clock after the cycle
+    a.time_out[0] = t;
+    if (hist) a.ts[row] = t;
+  }
+  if (a.tick) *a.step_ptr = row + 1;  // the episode's next control step
 }
 
 }  // namespace world

@@ -3,8 +3,9 @@
 ``load_library()`` compiles ``mppi_gpu_tpu_torch/csrc/*.cu`` with ``nvcc``
 into one shared library with a plain C interface and loads it: the solve's
 kernels (``mppi_solve.cu``, K1-K5), the world step (``world_step.cu``, K6),
-the solve's tail (``solve_tail.cu``, K7) and K2 with the tail and the world
-step as its epilogue (``combine_tail.cu``, K2'), each file its own
+the solve's tail (``solve_tail.cu``, K7), K2 with the tail and the world
+step as its epilogue (``combine_tail.cu``, K2') and the sharded controller's
+combine and tail (``sharded_combine.cu``, K8 and K9), each file its own
 translation unit. It runs at the
 first kernel launch on a CUDA device; importing the package, or running on
 the CPU, never builds.
@@ -68,6 +69,11 @@ _SIGNATURES = {
                         _i),
     # csrc/combine_tail.cu (K2')
     "mppi_combine_tail": ([_p, _i, _i, _i, _i, _f] + [_p] * 4 + [_i] + [_p] * 4
+                          + [_i, _pp, _pp, _i, _p, _p, _i, _p, _i, _i, _p, _p, _p, _i, _p, _p, _p],
+                          _i),
+    # csrc/sharded_combine.cu (K8, K9)
+    "mppi_sharded_scale": ([_p, _i, _i, _p, _f, _p, _p], _i),
+    "mppi_sharded_tail": ([_p, _p, _i, _p, _i] + [_p] * 7 + [_f, _p, _i, _i, _i, _p]
                           + [_i, _pp, _pp, _i, _p, _p, _i, _p, _i, _i, _p, _p, _p, _i, _p, _p, _p],
                           _i),
 }

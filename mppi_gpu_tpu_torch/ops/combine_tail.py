@@ -127,7 +127,7 @@ def _launch_combine_tail(partials, lam, U, max_a, clamp, outputs, tickets, into,
     if "u_next" in outputs:
         u_next = into if into is not None else torch.empty(U.shape, **f32)
         action = torch.empty((*lead, A), **f32)
-    world = (-1, None, None, 0, None, None, 0, None, 0, 0, None, None, None, 0, None, None)
+    world = ws.NO_WORLD_ARGS
     if advance is not None and ws.has_kernel(advance.world):
         kind = advance.world._kernel_kind
         if ws.WORLDS[kind][2] != A:

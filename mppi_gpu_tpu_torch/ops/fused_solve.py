@@ -396,10 +396,12 @@ def fleet_family_solve_partials_reference(
 def _launch_solve_partials(
     fam: FusedFamily, xs, Us, goals, lam_softmin, K, seeds, step, it, antithetic, ou_beta,
     eps, R: int, lead: tuple[int, ...], k0: int = 0, width: int | None = None,
+    S_out: torch.Tensor | None = None,
 ):
     """Launch K1 for R robots on checked CUDA tensors, or K4 (K1's first pass
     alone) when `lam_softmin` is None; the outputs get the leading shape
-    `lead`: () for the single-robot wrappers, (R,) for the fleet's. The body
+    `lead`: () for the single-robot wrappers, (R,) for the fleet's; S is
+    written into `S_out` when given (checked). The body
     is :func:`block_width`'s, unless `width` forces one (chip_smoke.py times
     both bodies at one shape with it). A step tensor goes to the kernel by
     its address (``step_ptr``), an int by value. Returns ``(S, partials)``
@@ -422,7 +424,11 @@ def _launch_solve_partials(
     nb = -(-K // width)
     per_robot = isinstance(seeds, torch.Tensor)
     step_ptr = isinstance(step, torch.Tensor)
-    S = torch.empty(*lead, K, dtype=torch.float32, device=Us.device)
+    if S_out is None:
+        S = torch.empty(*lead, K, dtype=torch.float32, device=Us.device)
+    else:
+        _check("S_out", S_out, (*lead, K))
+        S = S_out
     partials = (torch.empty(*lead, nb, 2 + T * A, dtype=torch.float32, device=Us.device)
                 if pass2 else None)
     kernel = "solve_partials" if pass2 else "rollout_costs"
@@ -471,21 +477,23 @@ def _family_library(fam: FusedFamily):
 
 def family_solve_partials(
     fam: FusedFamily, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta,
-    eps=None, k0=0,
+    eps=None, k0=0, S_out=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 for one robot of family `fam` (the R = 1 launch of the fleet
     kernel) on CUDA tensors, its plain version on CPU tensors. x0 (S,),
     U (T, A), goal (S,) for a family with a goal, else None; the draws start
     at counter word k0; `step` is an int or a 0-dim int64 tensor on the
-    inputs' device; see :func:`family_solve_partials_reference` for the
+    inputs' device; S written into `S_out` (K,) when given (a sharded rank's
+    row of one buffer); see :func:`family_solve_partials_reference` for the
     outputs."""
     if not _solo_on_cuda(fam, x0, U, goal, K, antithetic, eps, step):
-        return family_solve_partials_reference(
+        S, partials = family_solve_partials_reference(
             fam, x0, U, goal, lam_softmin, K, seed, step, it, antithetic, ou_beta, eps, k0,
         )
+        return (S if S_out is None else S_out.copy_(S)), partials
     return _launch_solve_partials(
         fam, x0, U, goal, lam_softmin, K, int(seed), step, it, antithetic, ou_beta, eps, 1, (),
-        k0,
+        k0, S_out=S_out,
     )
 
 
@@ -598,19 +606,22 @@ def fleet_softmin_combine_reference(
 
 def _launch_softmin_combine(
     partials: torch.Tensor, lam_softmin: float, R: int, T: int, A: int, lead: tuple[int, ...],
-    normalize: bool = True,
+    normalize: bool = True, out: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 (grid: 32-column tiles of ΔU × robots) on checked CUDA
-    partials; returns (β η (*lead, 2), ΔU (*lead, T, A)). Counts the
-    launch."""
+    partials; returns (β η (*lead, 2), ΔU (*lead, T, A)), for one robot the
+    two parts of `out` (2 + T·A,) when given. Counts the launch."""
     nb = partials.shape[-2]
     if nb < 1 or 4 * (nb + _COMBINE_SMEM_FLOATS) > _SMEM_BYTES:
         raise ValueError(f"{nb} partials exceed the combine kernel's shared memory")
     from mppi_gpu_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    beta_eta = torch.empty(*lead, 2, dtype=torch.float32, device=partials.device)
-    dU = torch.empty(*lead, T, A, dtype=torch.float32, device=partials.device)
+    if out is not None:
+        beta_eta, dU = out[:2], out[2:].view(T, A)
+    else:
+        beta_eta = torch.empty(*lead, 2, dtype=torch.float32, device=partials.device)
+        dU = torch.empty(*lead, T, A, dtype=torch.float32, device=partials.device)
     if _launch(
         "softmin_combine", lib.mppi_softmin_combine, partials.device,
         partials.data_ptr(), R, nb, T * A, float(lam_softmin), int(normalize),
@@ -622,17 +633,26 @@ def _launch_softmin_combine(
 
 def softmin_combine(
     partials: torch.Tensor, lam_softmin: float, T: int, A: int, normalize: bool = True,
+    out: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 for one robot's (nb, 2 + T·A) partials (the R = 1 launch) on a CUDA
     tensor, its plain version on a CPU tensor. Without `normalize`, ΔU is
     Σ f_b ΔŨ_b, not divided by η: a rank's share of the one-pass sharded
-    solve."""
+    solve. With `out` (2 + T·A,) the result [β, η, ΔU] is written there (a
+    sharded rank's row of one buffer) and returned as its views."""
     if partials.dim() != 2:
         raise ValueError(f"partials must be (nb, 2 + T·A), got {tuple(partials.shape)}")
     _check("partials", partials, (partials.shape[0], 2 + T * A))
-    if not _on_cuda(partials):
-        return softmin_combine_reference(partials, lam_softmin, T, A, normalize)
-    beta_eta, dU = _launch_softmin_combine(partials, lam_softmin, 1, T, A, (), normalize)
+    if out is not None:
+        _check("out", out, (2 + T * A,))
+    if not _on_cuda(*(t for t in (partials, out) if t is not None)):
+        beta, eta, dU = softmin_combine_reference(partials, lam_softmin, T, A, normalize)
+        if out is None:
+            return beta, eta, dU
+        out[0], out[1] = beta, eta
+        out[2:].copy_(dU.reshape(-1))
+        return out[0], out[1], out[2:].view(T, A)
+    beta_eta, dU = _launch_softmin_combine(partials, lam_softmin, 1, T, A, (), normalize, out)
     return beta_eta[0], beta_eta[1], dU
 
 
@@ -666,16 +686,17 @@ def family_fused_solve_reference(fam: FusedFamily, x0, U, goal, lam_softmin, *ar
 
 
 def family_fused_solve(fam: FusedFamily, x0, U, goal, lam_softmin, *args, eps=None, k0=0,
-                       normalize=True):
+                       normalize=True, S_out=None, out=None):
     """One MPPI solve core of family `fam`: ``(S (K,), β, η, ΔU (T, A))``
     with ΔU = Σ_k w_k ε_k for the softmin weights w_k = exp(−(S_k − β)/λ)/η;
     ``args`` are (K, seed, step, it, antithetic, ou_beta) as for
     :func:`family_solve_partials`, the draws from counter word k0 on.
     Without `normalize` ΔU is η·Σ_k w_k ε_k, the share a rank of the one-pass
-    sharded solve contributes. Clamp and shift are the caller's
-    (``controller.MPPIController``)."""
-    S, partials = family_solve_partials(fam, x0, U, goal, lam_softmin, *args, eps, k0)
-    return (S, *softmin_combine(partials, lam_softmin, *U.shape, normalize))
+    sharded solve contributes. S is written into `S_out` (K,) and [β, η, ΔU]
+    into `out` (2 + T·A,) when given (a sharded rank's rows). Clamp and shift
+    are the caller's (``controller.MPPIController``)."""
+    S, partials = family_solve_partials(fam, x0, U, goal, lam_softmin, *args, eps, k0, S_out)
+    return (S, *softmin_combine(partials, lam_softmin, *U.shape, normalize, out))
 
 
 def fleet_family_fused_solve_reference(

@@ -63,6 +63,8 @@ WORLDS = {
 }
 MAX_LEAVES = 6      # kMaxLeaves
 MAX_ROBOTS = 65535  # the C entry's bound on R
+# :func:`world_args` for no world: the tail alone in K2' and K9 (id −1)
+NO_WORLD_ARGS = (-1, None, None, 0, None, None, 0, None, 0, 0, None, None, None, 0, None, None)
 
 _KERNEL_WORLDS: set[type] = set()
 # launches of K6 that ran, by world kind

@@ -43,11 +43,19 @@ class Mesh:
         """The process group joining the ranks (the default one), or None."""
         return dist.group.WORLD if self.grouped else None
 
-    def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, op: str, keep: bool = False) -> torch.Tensor:
         """The ``"min"`` or ``"sum"`` of `t` over every rank: `t` holds one
         entry per local rank on its leading axis, which the result drops.
-        One ``dist.all_reduce`` when the ranks span processes."""
-        out = t.amin(0) if op == "min" else t.sum(0)
+        One entry is its own reduction: the result is a view of it, and no
+        kernel runs (a sum over one entry would only turn a −0.0 into +0.0);
+        on a real rank ``dist.all_reduce`` then runs in place on that entry,
+        in `t`'s own storage, unless `keep` (the caller reads `t` again),
+        which gives the collective a copy of it. Two or more entries (a
+        virtual mesh) are reduced over the axis, which is the collective."""
+        if t.shape[0] == 1:
+            out = t[0].clone() if keep and self.group is not None else t[0]
+        else:
+            out = t.amin(0) if op == "min" else t.sum(0)
         if self.group is not None:
             out = out.contiguous()
             dist.all_reduce(out, op=dist.ReduceOp.MIN if op == "min" else dist.ReduceOp.SUM,

@@ -13,20 +13,29 @@ distribution.) Two branches, as ``mppi_gpu_tpu/controller.py:481-521``:
 
 * **one-pass** (the default): each rank runs the solo solve core
   unnormalized (K1, then K2 without the division by η) to (β_d, η_d, ΔŨ_d);
-  then β = min β_d, f_d = exp((β − β_d)/λ), η = Σ f_d η_d, ΔU = Σ f_d ΔŨ_d / η
-  (:func:`onepass_combine`). Two collectives per update: the min, and one
-  sum of η packed with ΔU;
+  then β = min β_d, f_d = exp((β − β_d)/λ), η = Σ f_d η_d, ΔU = Σ f_d ΔŨ_d / η.
+  Two collectives per update: the min, and one sum of η packed with ΔU. On
+  the fused backend K1 writes each local rank's S into its row of one
+  (n_local, K/n) buffer and K2 its [β_d, η_d, ΔŨ_d] into its row of one
+  (n_local, 2 + T·A) buffer; after the MIN, K8 (``ops/sharded_combine``)
+  scales every local row by its f_d, the SUM adds them in place, and K9
+  divides by η as it runs the tail (and the world's step where the episode
+  asks for it): K1, K2, K8, K9 on a world of one. The eager backend runs
+  :func:`onepass_combine`, the plain version, and the controller's tail;
 * **two-kernel** (``onepass=False``, JAX's ``MPPI_SHARDED_ONEPASS=0``): each
   rank's costs (K4), the softmin across the ranks (:func:`softmin_across`:
   β = min, η = Σ exp(−(S − β)/λ)), the update of the rank's ε by its weights
   w = exp(−(S − β)/λ)/η (K5), and ΔU = Σ over the ranks: three collectives.
+  On the fused backend its tail and the world's step are one launch of K9.
 
 The eager backend runs the same branches on the plain versions. The combine
-functions take the ranks' values stacked on a leading axis and the mesh's
-reducer (``parallel/mesh.py``): on a real rank that axis holds its own value
-and the reducer is a ``torch.distributed`` all-reduce; in a virtual mesh
-one process runs every rank in turn (each at its offset) and the reducer is
-a reduction over the axis. One code path serves both.
+takes the ranks' values stacked on a leading axis and the mesh's reducer
+(``parallel/mesh.py``): on a real rank that axis holds its own value and the
+reducer is a ``torch.distributed`` all-reduce on it; in a virtual mesh one
+process runs every rank in turn (each at its offset) and the reducer is a
+reduction over the axis. One code path serves both. On CPU tensors each
+kernel's wrapper runs its plain version, so the fused branch holds to the
+plain one there bit for bit.
 
 Outputs: ``action``, ``u_next``, β and η are the same on every rank; the
 per-rollout ``info.costs`` and ``info.weights`` are the rank's own (K/n,)
@@ -44,11 +53,13 @@ from mppi_gpu_tpu_torch.controller import (
     MPPIController,
     SolveResult,
     _finish_fused,
+    _result,
     resolve_backend,
 )
 from mppi_gpu_tpu_torch.models.base import Dynamics
 from mppi_gpu_tpu_torch.ops import families, philox
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
+from mppi_gpu_tpu_torch.ops import sharded_combine as sc
 from mppi_gpu_tpu_torch.ops import world_step as ws
 from mppi_gpu_tpu_torch.ops.cost import Cost
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs, rollout_trajectories
@@ -85,8 +96,9 @@ def onepass_combine(beta_d, eta_d, dU_d, lam: float, reduce):
     `reduce(t, op)` the min or sum over every rank (``Mesh.all_reduce``).
     A rank whose rollouts all cost +inf (β_d = +inf, its η_d and ΔŨ_d NaN)
     has f_d = 0 and adds nothing; if every rank's do, β is +inf and η and ΔU
-    are NaN, as on one GPU."""
-    beta = reduce(beta_d, "min")
+    are NaN, as on one GPU. The plain version of K8 and K9's division
+    (``ops/sharded_combine``)."""
+    beta = reduce(beta_d, "min", keep=True)
     f = torch.exp((beta - beta_d) / lam)[:, None]
     part = torch.cat([eta_d[:, None], dU_d.reshape(dU_d.shape[0], -1)], 1)
     total = reduce(torch.where(f == 0, 0.0, f * part), "sum")
@@ -115,11 +127,17 @@ def _eager_core(dyn: Dynamics, cost: Cost, x0, U, eps, lam: float):
 def _solve_once(
     mesh: Mesh, backend: str, fam, dyn: Dynamics, cost: Cost, x0, U, sigma, lam: float, max_a,
     *, K: int, clamp: bool, antithetic: bool, ou_beta: float, onepass: bool, seed: int,
-    step: int, it: int, eps=None, outputs=FULL, into=None,
+    step, it: int, eps=None, outputs=FULL, into=None, advance=None, tickets=None,
+    torch_combine: bool = False,
 ) -> SolveResult:
     """One sharded update of U for (seed, step, it), or on the injected ε
-    (T, K, A) of which rank d takes its slice; its tail (K7 on the card, the
-    same on every rank, after the collectives) computes `outputs` only."""
+    (T, K, A) of which rank d takes its slice; its tail (the same on every
+    rank, after the collectives) computes `outputs` only, then with
+    `advance` the world's step under its action: on the fused backend one
+    launch of K9 (``ops/sharded_combine``, with the controller's `tickets`),
+    on the eager one K7 and K6 on the card. `torch_combine` runs the fused
+    backend's combine as the eager backend's (the torch ops, K7 and K6): the
+    yardstick chip_smoke.py holds K8 and K9 to."""
     anti = antithetic and eps is None
     k_loc = rollouts_per_rank(K, mesh.size, anti)
     T = U.shape[0]
@@ -135,6 +153,9 @@ def _solve_once(
              else philox.sample_eps(seed, step, it, T, k_loc, sigma, antithetic=anti,
                                     ou_beta=ou_beta, k0=k0[d])
              for d in ranks}
+    if fused and onepass and not torch_combine:
+        return _fused_onepass(mesh, fam, x0, U, goal, lam, max_a, args, noise, k0, clamp,
+                              outputs, into, step, advance, tickets)
     if onepass:
         cores = [fs.family_fused_solve(fam, x0, U, goal, lam, *args, eps=noise[d], k0=k0[d],
                                        normalize=False) if fused
@@ -152,7 +173,37 @@ def _solve_once(
             else fs.weighted_update_reference(w_d, noise[d])
             for d, w_d in zip(ranks, w)
         ]), "sum")
-    return _finish_fused(U, dU, S.reshape(-1), beta, eta, lam, max_a, clamp, outputs, into)
+        if fused and not torch_combine:
+            softmin = (S.reshape(-1), beta, eta, lam) if "weights" in outputs else None
+            _, tail = sc.sharded_tail(U, dU, max_a, clamp, outputs, softmin, into, step=step,
+                                      advance=advance, tickets=tickets)
+            return _result(tail, S.reshape(-1), beta, eta, tail.weights)
+    res = _finish_fused(U, dU, S.reshape(-1), beta, eta, lam, max_a, clamp, outputs, into)
+    ws.advance_after(advance, res.action, step)
+    return res
+
+
+def _fused_onepass(mesh: Mesh, fam, x0, U, goal, lam: float, max_a, args, noise, k0,
+                   clamp: bool, outputs, into, step, advance, tickets) -> SolveResult:
+    """The one-pass branch on the fused backend: per local rank K1 (S into
+    its row of one buffer) and K2 unnormalized (into its row of the rows
+    [β_d, η_d, ΔŨ_d]), the MIN collective on the β_d, K8, the SUM
+    collective in place, then K9: ΔU = Σ/η, the tail and, with `advance`,
+    the world's step."""
+    T, A = U.shape
+    f32 = dict(dtype=torch.float32, device=U.device)
+    S = torch.empty(len(mesh.local_ranks), args[0], **f32)
+    rows = torch.empty(len(mesh.local_ranks), 2 + T * A, **f32)
+    for i, d in enumerate(mesh.local_ranks):
+        fs.family_fused_solve(fam, x0, U, goal, lam, *args, eps=noise[d], k0=k0[d],
+                              normalize=False, S_out=S[i], out=rows[i])
+    beta = mesh.all_reduce(rows[:, 0], "min", keep=True)  # the β_d stay for K8
+    sums = mesh.all_reduce(sc.sharded_scale(rows, beta, lam), "sum")  # [η, Σ f_d·ΔŨ_d]
+    S = S.reshape(-1)
+    softmin = (S, beta, sums[0], lam) if "weights" in outputs else None
+    _, tail = sc.sharded_tail(U, sums, max_a, clamp, outputs, softmin, into, divide=True,
+                              step=step, advance=advance, tickets=tickets)
+    return _result(tail, S, beta, sums[0], tail.weights)
 
 
 def sharded_mppi_solve(
@@ -203,24 +254,28 @@ class ShardedMPPIController(MPPIController):
                          dynamics=dynamics, cost=cost)
         self.mesh = mesh
         self.onepass = onepass
+        # the fused backend's combine as torch ops, K7 and K6 (chip_smoke.py's
+        # yardstick for K8 and K9; part of the solve's identity)
+        self._torch_combine = False
 
     def _solve_identity(self) -> tuple:
-        return (*super()._solve_identity(), id(self.mesh), self.onepass)
+        return (*super()._solve_identity(), id(self.mesh), self.onepass, self._torch_combine)
 
     def _solve_once(self, x, U, seed: int, step, it: int, outputs=FULL, into=None,
                     advance=None, eps=None) -> SolveResult:
-        """One sharded update (K7 after the combine, on the card), then with
-        `advance` the world's step (K6 on the card) under its action."""
+        """One sharded update, then with `advance` the world's step under its
+        action: on the fused backend on the card the update's tail and the
+        step are one launch of K9 after the combine, on the eager backend K7
+        and K6."""
         cfg = self.cfg
-        res = _solve_once(
+        return _solve_once(
             self.mesh, self.rollout_backend, self._family, self.dynamics, self.cost, x, U,
             self.sigma, cfg.lambda_, self.max_a,
             K=cfg.samples if eps is None else eps.shape[1], clamp=cfg.clamp_action,
             antithetic=cfg.antithetic, ou_beta=cfg.noise_beta, onepass=self.onepass, seed=seed,
-            step=step, it=it, eps=eps, outputs=outputs, into=into,
+            step=step, it=it, eps=eps, outputs=outputs, into=into, advance=advance,
+            tickets=self._tickets, torch_combine=self._torch_combine,
         )
-        ws.advance_after(advance, res.action, step)
-        return res
 
     def solve_with_eps(self, x: torch.Tensor, U: torch.Tensor, eps: torch.Tensor) -> SolveResult:
         """Sharded solve on the injected ε (T, K, a), the same on every rank:
