@@ -122,6 +122,7 @@ small shapes.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -1906,7 +1907,8 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     K2's share of busy and the four names with the most device µs; and,
     untraced, the ms per cycle of `cycles` replays
     by CUDA events, which the span exceeds by what the tracer adds to each
-    kernel node. A window without both markers, or whose K1 or K2
+    kernel node; K2''s µs per cycle by record name (its world body),
+    ``k2e_us``. A window without both markers, or whose K1 or K2
     records fall short, is read again, five windows at most (a failure says
     what each held): a graph replays the same launches every time."""
     import torch
@@ -1982,7 +1984,8 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
                 records={k: c / cycles for k, c in counts.items()}, nccl_per_cycle=len(nccl) / cycles,
                 nccl_us=sum(e.time_range.elapsed_us() for e in nccl) / cycles,
                 nccl_names=sorted({e.name for e in nccl}),
-                top=sorted(((round(v, 2), k) for k, v in by_name.items()), reverse=True)[:4])
+                top=sorted(((round(v, 2), k) for k, v in by_name.items()), reverse=True)[:4],
+                k2e_us={k: v for k, v in by_name.items() if k.startswith("combine_tail")})
 
 
 def solve_trace(label: str, ctrl, x, U, seed, per_update: dict | None = None,
@@ -2626,10 +2629,10 @@ def world_entries(episode: dict) -> list[dict]:
     return out
 
 
-def _world_of(name: str):
+def _world_of(name: str, device: str = "cpu"):
     from mppi_gpu_tpu_torch.envs import make_world
 
-    return make_world(world_config(name))
+    return make_world(world_config(name), device=device)
 
 
 def world_step_phase(smi: str) -> dict:
@@ -3162,27 +3165,8 @@ def latency_floor(nodes: int = 200) -> dict:
         one.add_(1.0)
 
     reading = device_ms(tiny, name="elementwise_kernel")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        tiny()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(nodes):
-            tiny()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    reps = []
-    for _ in range(5):
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        reps.append(start.elapsed_time(end) / nodes)
     return dict(device_us=None if reading is None else reading * 1e3,
-                graph_ms_per_node=float(np.median(reps)))
+                graph_ms_per_node=graph_us(tiny, calls=nodes) / 1e3)
 
 
 def epilogue_phase(smi: str) -> dict:
@@ -3228,7 +3212,7 @@ def epilogue_phase(smi: str) -> dict:
 def epilogue_entry(epi: dict, launches: int) -> dict:
     """The kernels line's K2' entry: its launches in phase 21's eager
     episodes, its largest difference from its plain version, its times at the
-    flagship's shape and the R=8 fleet's."""
+    flagship's shape and the R=8 fleet's, and the forms' check."""
     solo, fleet = epi["times"]["solo"], epi["times"]["fleet"]
     return {"name": "combine_tail", "route": "cuda", "source": EPILOGUE_SOURCE,
             "replaces": EPILOGUE_REPLACES, "launches": launches,
@@ -3242,7 +3226,425 @@ def epilogue_entry(epi: dict, launches: int) -> dict:
             "fleet_device_ms": fleet["device_ms"], "fleet_bound_ms": fleet["bound_ms"],
             "fleet_shape": f"point_mass3d R=8 (nb {fleet['nb']})",
             "floor_kernel_device_us": epi["floor"]["device_us"],
-            "floor_graph_ms_per_node": epi["floor"]["graph_ms_per_node"]}
+            "floor_graph_ms_per_node": epi["floor"]["graph_ms_per_node"],
+            "forms_cases": epi["forms"]["check"]["cases"],
+            "forms_both": epi["forms"]["check"]["both_forms"]}
+
+
+
+# ---------------------------------------------------------------------------
+# K2's fold in its two forms (phase 21, and alone with --combine): K2 in
+# column tiles; K2' in tiles and in one block per robot, the same floats bit
+# for bit; K2 and K2' held to their plain versions and K2' to K2 + K7 + K6 in
+# both; the crossover
+
+# the shapes of the check: nb partial rows (1, 7, the configs' 32 and 94, the
+# flagship's 313, K=10⁵'s 782), (T, A) of T·A 1, 31, 33, 100 and 600
+COMBINE_NBS = (1, 7, 32, 94, 313, 782)
+COMBINE_SHAPES = ((1, 1), (31, 1), (11, 3), (50, 2), (200, 3))
+COMBINE_LAMS = (1.0, 1.1, 1.7, 0.064, 1e9)
+# the partials: spread β_b; one block's rows all at +inf (η_b = 0, ΔŨ_b = 0);
+# every rollout at +inf (β = +inf: NaN everywhere, the guard's signal)
+COMBINE_CASES = ("finite", "inf block", "every rollout inf")
+COMBINE_ROBOTS = (None, 8)
+# K2 against its plain version, as check_combine: β exact, η, ΔU (rtol, atol
+# per unit of ΔU's scale)
+COMBINE_PLAIN_TOL = dict(beta=0.0, eta=1e-5, dU=(1e-4, 1e-6))
+# the crossover's sweep: nb, (T, A) of T·A 40, 100, 240, 600, robots
+COMBINE_SWEEP_NBS = (16, 32, 64, 94, 157, 313)
+COMBINE_SWEEP_SHAPES = ((20, 2), (50, 2), (80, 3), (200, 3))
+COMBINE_SWEEP_ROBOTS = (1, 8)
+COMBINE_GRAPH_CALLS = 50  # launches per timed graph
+
+
+def combine_partials(R, nb: int, T: int, A: int, case: str, seed: int = 0) -> np.ndarray:
+    """(R or 1, nb, 2 + T·A) float32 partials from a numpy seed, as K1 writes
+    them: β_b = 50 + Exp(2), η_b in [0.5, 32], ΔŨ_b = η_b · 0.25·N(0, 1);
+    `case` one of COMBINE_CASES."""
+    rng = np.random.default_rng(seed)
+    n, TA = R or 1, T * A
+    part = np.zeros((n, nb, 2 + TA), np.float32)
+    part[..., 0] = 50.0 + rng.exponential(2.0, (n, nb))
+    part[..., 1] = rng.uniform(0.5, 32.0, (n, nb))
+    part[..., 2:] = 0.25 * rng.standard_normal((n, nb, TA)) * part[..., 1:2]
+    rows = {"finite": slice(0, 0), "inf block": slice(nb // 2, nb // 2 + 1),
+            "every rollout inf": slice(0, nb)}[case]
+    part[:, rows] = 0.0
+    part[:, rows, 0] = np.inf
+    return part
+
+
+def combine_forms(nb: int, TA: int, device: str) -> tuple:
+    """The forms a check launches K2' in: on the card the tiled one and,
+    where its shared memory holds the robot, the one-block one; on the CPU
+    the plain version alone (None)."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    if device != "cuda":
+        return (None,)
+    fits = max(fs.combine_smem(nb, TA, True), 4 * TA) <= fs._SMEM_BYTES
+    return (False, True) if fits else (False,)
+
+
+def run_k2(parts, lam: float, T: int, A: int) -> tuple:
+    """K2 on (nb, 2 + T·A) or (R, nb, 2 + T·A) partials through its wrapper
+    (the tiles on the card, the plain version on the CPU). Returns (β, η,
+    ΔU)."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    return (fs.fleet_softmin_combine if parts.dim() == 3 else fs.softmin_combine)(parts, lam, T, A)
+
+
+def run_k2e(parts, lam: float, U, max_a, clamp: bool, outputs, tickets, form, into=None,
+            step=None, advance=None) -> tuple:
+    """K2' in `form` (True: one block, False: tiles; None: through
+    ``combine_tail``, the rule's form on the card, the plain version on the
+    CPU)."""
+    from mppi_gpu_tpu_torch.ops import combine_tail as ct
+
+    if form is None:
+        return ct.combine_tail(parts, lam, U, max_a, clamp, outputs, tickets, into, step, advance)
+    lead = tuple(U.shape[:-2])
+    return ct._launch_combine_tail(parts, lam, U, max_a, clamp, outputs, tickets, into, step,
+                                   advance, lead[0] if lead else 1, lead, one_block=form)
+
+
+def combine_case_inputs(R, nb: int, T: int, A: int, case: str, device: str, seed: int = 0):
+    """The partials of a case, U in [-1.5, 1.5] and max_a in [0.3, 1.2]
+    (some entries clamped), and the point mass of A axes (its world and a
+    state apart per robot) for K2''s world step."""
+    import torch
+
+    rng = np.random.default_rng(seed + 1)
+    lead = () if R is None else (R,)
+    parts = torch.as_tensor(combine_partials(R, nb, T, A, case, seed), device=device)
+    if R is None:
+        parts = parts[0]
+    U = torch.as_tensor(rng.uniform(-1.5, 1.5, lead + (T, A)).astype(np.float32), device=device)
+    max_a = torch.as_tensor(rng.uniform(0.3, 1.2, A).astype(np.float32), device=device)
+    world = _world_of(f"point_mass{A}d", device)
+    state = world.reset(R)
+    if R is not None:
+        state = world.from_x(state.x + 0.01 * torch.arange(R, device=device)[:, None], state.time)
+    return parts, U, max_a, world, state
+
+
+def k2e_four_kernels(parts, lam, U, max_a, clamp, world, state, device: str) -> dict:
+    """K2' of the cycle's form in every form against K2 + K7 + K6 (K2, K7's tail with U shifted in place, K6's step under the action) from
+    the same buffers: β, η, ΔU, the action, U, the state, the histories, the
+    x buffer and the counter bit for bit; the tickets 0 after each."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import CYCLE
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
+    T, A = U.shape[-2:]
+    R = U.shape[0] if U.dim() == 3 else 1
+    tickets = torch.zeros(R + 1, dtype=torch.int32, device=device)
+    ref, U_r, step_r = _episode_buffers(world, state, U, 2, device)
+    beta, eta, dU = run_k2(parts, lam, T, A)
+    tail = st.solve_tail(U_r, dU.view(U.shape), max_a, clamp, CYCLE, into=U_r)
+    ws.advance_into(world, ref.state, tail.action, ref.xs, ref.us, ref.ts, step_r, ref.x)
+    want = [beta, eta, dU.view(U.shape), tail.action, U_r, ref.xs, ref.us, ref.ts, ref.x,
+            *ref.state]
+    equal = True
+    for form in combine_forms(parts.shape[-2], T * A, device):
+        adv, U_e, step_e = _episode_buffers(world, state, U, 2, device)
+        b, e, d, t = run_k2e(parts, lam, U_e, max_a, clamp, CYCLE, tickets, form, into=U_e,
+                             step=step_e, advance=adv)
+        got = [b, e, d, t.action, U_e, adv.xs, adv.us, adv.ts, adv.x, *adv.state]
+        equal &= all(bits_equal(g, w) for g, w in zip(got, want)) and int(step_e) == int(step_r)
+        expect(not bool(tickets.any()), f"K2' form {form}: tickets {tickets} left")
+    return dict(bit_equal=equal)
+
+
+def check_combine_forms_case(nb: int, T: int, A: int, lam: float, case: str, R,
+                             device: str = "cuda") -> dict:
+    """One case of the forms' check: K2 within COMBINE_PLAIN_TOL of its
+    plain version, a fleet's robots bit-equal to their R = 1 launches; K2'
+    of an inner iteration (u_seq) in every form of :func:`combine_forms`
+    bit-equal to K2 + K7 and within EPILOGUE_PLAIN_TOL of its plain version;
+    K2' of the cycle's form with the point mass's world step in every form
+    bit-equal to K2 + K7 + K6 (:func:`k2e_four_kernels`). Returns dU's
+    largest |Δ| from plain for K2 and K2' and the forms K2' ran in."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import ITERATE
+    from mppi_gpu_tpu_torch.ops import combine_tail as ct
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
+
+    label = f"K2 forms nb={nb} T={T} A={A} lambda={lam} {case} R={R or 1}"
+    parts, U, max_a, world, state = combine_case_inputs(R, nb, T, A, case, device)
+    forms = combine_forms(nb, T * A, device)
+
+    def near_plain(what: str, got, want, tol) -> float:
+        """β, η and ΔU of `got` within `tol` of the plain `want`."""
+        close(f"{label} {what} beta", _np(got[0]), _np(want[0]), tol["beta"])
+        close(f"{label} {what} eta", _np(got[1]), _np(want[1]), tol["eta"])
+        fin = want[2][torch.isfinite(want[2])]
+        scale = max(float(fin.abs().max()), 1.0) if fin.numel() else 1.0
+        return close(f"{label} {what} dU", _np(got[2]), _np(want[2].reshape(got[2].shape)),
+                     tol["dU"][0], tol["dU"][1] * scale)
+
+    plain = (fs.fleet_softmin_combine_reference(parts, lam, T, A) if R is not None
+             else fs.softmin_combine_reference(parts, lam, T, A))
+    beta, eta, dU = first = run_k2(parts, lam, T, A)
+    err = near_plain("K2", first, plain, COMBINE_PLAIN_TOL)
+    if R is not None:
+        for r in range(R):
+            solo = run_k2(parts[r], lam, T, A)
+            expect(all(bits_equal(a[r], b) for a, b in zip(first, solo)),
+                   f"{label}: robot {r} differs from its R=1 launch")
+    tickets = torch.zeros((R or 1) + 1, dtype=torch.int32, device=device)
+    want = st.solve_tail(U, dU.view(U.shape), max_a, True, ITERATE).u_seq
+    plain_e = ct.combine_tail_reference(parts, lam, U, max_a, True, ITERATE)
+    e_err = 0.0
+    for form in forms:
+        b, e, d, tail = run_k2e(parts, lam, U, max_a, True, ITERATE, tickets, form)
+        expect(all(bits_equal(g, w) for g, w in zip((b, e, d, tail.u_seq),
+                                                     (beta, eta, dU.view(U.shape), want))),
+               f"{label}: K2' (u_seq) in form {form} differs from K2 + K7")
+        expect(not bool(tickets.any()), f"{label}: K2' form {form} left tickets {tickets}")
+        e_err = max(e_err, near_plain("K2'", (b, e, d), plain_e, EPILOGUE_PLAIN_TOL))
+    cycle = k2e_four_kernels(parts, lam, U, max_a, False, world, state, device)
+    expect(cycle["bit_equal"], f"{label}: K2' of the cycle differs from K2 + K7 + K6")
+    return dict(k2_err=err, k2e_err=e_err, forms=len(forms))
+
+
+def check_combine_forms(device: str = "cuda", nbs=COMBINE_NBS, shapes=COMBINE_SHAPES,
+                        lams=COMBINE_LAMS, cases=COMBINE_CASES, robots=COMBINE_ROBOTS) -> dict:
+    """:func:`check_combine_forms_case` over every nb, (T, A), λ, case and
+    robot count. Returns the cases, those run in both forms, and the largest
+    |Δ| of K2's and K2''s ΔU from their plain versions."""
+    out = dict(cases=0, both_forms=0, k2_err=0.0, k2e_err=0.0)
+    for nb in nbs:
+        for T, A in shapes:
+            for lam in lams:
+                for case in cases:
+                    for R in robots:
+                        got = check_combine_forms_case(nb, T, A, lam, case, R, device)
+                        out["cases"] += 1
+                        out["both_forms"] += got["forms"] == 2
+                        out["k2_err"] = max(out["k2_err"], got["k2_err"])
+                        out["k2e_err"] = max(out["k2e_err"], got["k2e_err"])
+    return out
+
+
+def graph_us(fn, calls: int = COMBINE_GRAPH_CALLS, reps: int = 5) -> float:
+    """µs per call of `fn` replayed in a CUDA graph of `calls` calls (warmed
+    on a side stream, captured, replayed once), by CUDA events, median of
+    `reps` replays: the device time of a launch as a graph cycle pays it,
+    its launch gap included."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) * 1e3 / calls)
+    return float(np.median(out))
+
+
+def combine_crossover() -> dict:
+    """K2' (an inner iteration's tail, u_seq) in both forms, and K2 beside
+    it, over COMBINE_SWEEP_NBS × COMBINE_SWEEP_SHAPES × COMBINE_SWEEP_ROBOTS
+    where one block holds the robot: µs per launch in a replayed graph
+    (:func:`graph_us`), and the rule's form beside the faster one. Returns
+    the rows and the largest nb·(2 + T·A) below the smallest at which K2''s
+    one-block form was slower than the tiled one."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import ITERATE
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    rows = []
+    for R in COMBINE_SWEEP_ROBOTS:
+        for nb in COMBINE_SWEEP_NBS:
+            for T, A in COMBINE_SWEEP_SHAPES:
+                TA = T * A
+                if combine_forms(nb, TA, "cuda") != (False, True):
+                    continue
+                parts, U, max_a, _, _ = combine_case_inputs(None if R == 1 else R, nb, T, A,
+                                                            "finite", "cuda")
+                tickets = torch.zeros(R + 1, dtype=torch.int32, device="cuda")
+                row = dict(R=R, nb=nb, TA=TA, floats=nb * (2 + TA),
+                           rule="one block" if fs.combine_one_block(nb, TA) else "tiles",
+                           k2_us=graph_us(lambda: run_k2(parts, 1.0, T, A)))
+                for form in (False, True):
+                    row[f"k2e_{'block' if form else 'tiles'}_us"] = graph_us(
+                        lambda: run_k2e(parts, 1.0, U, max_a, True, ITERATE, tickets, form))
+                rows.append(row)
+    slower = min((r["floats"] for r in rows if r["k2e_block_us"] > r["k2e_tiles_us"]),
+                 default=float("inf"))
+    agree = sum((r["rule"] == "one block") == (r["k2e_block_us"] <= r["k2e_tiles_us"])
+                for r in rows)
+    return dict(rows=rows, rule_agrees=agree, rule_max_floats=fs.COMBINE_ONE_BLOCK_FLOATS,
+                measured_max_floats=max((r["floats"] for r in rows if r["floats"] < slower),
+                                        default=0))
+
+
+def _us(reading: tuple) -> float | str:
+    """A :func:`device_reading` in µs, or why it gave none."""
+    ms, how = reading
+    return how if ms is None else ms * 1e3
+
+
+def combine_times() -> dict:
+    """Device µs (torch.profiler) of K2 and K2' (the inner iteration's form,
+    in the rule's form) at the flagship's partials (nb 313, T·A 600) and an
+    R=8 point_mass3d fleet's, and beside them, as a yardstick of the fold's
+    product alone (not of the kernels' function), ``torch.mv(P.T, f)`` on
+    one robot's ΔŨ columns with f its factors f_b."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import ITERATE
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    out = {}
+    for label, name, R in (("flagship", "flagship", None), ("point_mass3d R=8", "point_mass3d", 8)):
+        cfg = _episode_config(name)
+        T, A, K = cfg.horizon, cfg.action_dim, cfg.samples
+        nb = -(-K // fs.block_width(R or 1, K, T, A, "lti"))
+        parts, U, max_a, _, _ = combine_case_inputs(R, nb, T, A, "finite", "cuda")
+        tickets = torch.zeros((R or 1) + 1, dtype=torch.int32, device="cuda")
+        P = parts if R is None else parts[0]
+        f = torch.exp((P[:, 0].min() - P[:, 0]) / 1.0).contiguous()
+        out[label] = dict(
+            nb=nb, TA=T * A, form="one block" if fs.combine_one_block(nb, T * A) else "tiles",
+            k2_us=_us(device_reading(lambda: run_k2(parts, 1.0, T, A),
+                                     name="softmin_combine_kernel")),
+            k2e_us=_us(device_reading(lambda: run_k2e(parts, 1.0, U, max_a, True, ITERATE,
+                                                      tickets, None), name="combine_tail_kernel")),
+            mv_us=_us(device_reading(lambda: torch.mv(P[:, 2:].T, f), name="gemv")),
+            bound_us=combine_bound(nb, T, A, R or 1)[0] * 1e3)
+    return out
+
+
+@contextlib.contextmanager
+def k2e_form(one_block: bool):
+    """K2' launched in `one_block`'s form wherever it fits (the tiles where
+    one block cannot hold the robot) while the context is open, through
+    every path: ``fused_solve.combine_one_block`` answers for the rule.
+    Yields the list of the (nb, T·A) it was asked about."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    rule, asked = fs.combine_one_block, []
+
+    def forced(nb: int, TA: int) -> bool:
+        asked.append((nb, TA))
+        return one_block and combine_forms(nb, TA, "cuda") == (False, True)
+
+    fs.combine_one_block = forced
+    try:
+        yield asked
+    finally:
+        fs.combine_one_block = rule
+
+
+def episode_forms() -> dict:
+    """K2' in the graph episode in both forms: for every config of
+    EPISODE_CONFIGS and the R=8 fleet of every FLEET_EPISODE_CONFIGS, a
+    controller captured with K2' in one block (where it fits) and one
+    captured in tiles, in turns (one block, tiles, tiles, one block), each
+    read by :func:`replay_trace`: K2''s device µs per cycle by record name
+    (its world body, and ``NoWorld`` for an inner update) and the untraced
+    ms per cycle. Returns {label: {"rule", "block", "tiles"}}: the rule's
+    form for the episode's shapes, and each form's readings in turn order."""
+    from mppi_gpu_tpu_torch.batched import BatchedMPPIController
+    from mppi_gpu_tpu_torch.controller import MPPIController
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    out = {}
+    cases = [(name, None) for name in EPISODE_CONFIGS] + [(n, 8) for n in FLEET_EPISODE_CONFIGS]
+    for name, R in cases:
+        cfg = _episode_config(name)
+        label = name if R is None else f"fleet {name}"
+        row = out[label] = dict(block=[], tiles=[])
+        for one_block in (True, False, False, True):
+            with k2e_form(one_block) as asked:
+                ctrl = (MPPIController(cfg, device="cuda") if R is None
+                        else BatchedMPPIController(cfg, R, device="cuda"))
+                t = replay_trace(ctrl, f"{label} K2' {'one block' if one_block else 'tiles'}",
+                                 fleet=R is not None)
+            row["block" if one_block else "tiles"].append(
+                dict(k2e_us=t["k2e_us"], untraced_ms=t["untraced_ms"]))
+        row["rule"] = "/".join(sorted({"one block" if fs.combine_one_block(*a) else "tiles"
+                                       for a in asked}))
+    return out
+
+
+def _forms_line(label: str, row: dict) -> str:
+    """One episode's K2' µs per cycle by world body in each form, turn by
+    turn, and its untraced ms per cycle."""
+    def form(runs):
+        bodies = sorted({k for r in runs for k in r["k2e_us"]})
+        return ("; ".join(f"{re.sub(r'[(].*', '', b)} "
+                          + "/".join(f"{r['k2e_us'].get(b, 0.0):.2f}" for r in runs)
+                          for b in bodies)
+                + ", untraced ms " + "/".join(f"{r['untraced_ms']:.4f}" for r in runs))
+    return (f"{label} (rule: {row['rule']}): one block {form(row['block'])} | tiles "
+            f"{form(row['tiles'])}")
+
+
+def combine_phase(smi: str, measure: bool = True) -> dict:
+    """K2's fold in its forms on the card: :func:`check_combine_forms` over
+    every case and, with `measure` (``--combine``), :func:`combine_crossover`,
+    :func:`combine_times` and :func:`episode_forms`. The whole run leaves the
+    measurements out: their profiler windows, late in the run, made the
+    profiler drop the first records of later phases' trace windows."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    t0 = time.perf_counter()
+    check = check_combine_forms()
+    check_s = time.perf_counter() - t0
+    print(f"[21] K2 in tiles and K2' in both forms (one block per robot where it fits, column "
+          f"tiles): {check['cases']} cases ({check['both_forms']} with K2' in both forms; nb "
+          f"{COMBINE_NBS}, (T, A) {COMBINE_SHAPES}, lambda {COMBINE_LAMS}, {COMBINE_CASES}, R=1 "
+          f"and 8), {check_s:.1f} s: fleets' robots bit-equal to their R=1 launches, K2 within "
+          f"{COMBINE_PLAIN_TOL} of plain (dU max |delta| {check['k2_err']:.3g}), K2' within "
+          f"{EPILOGUE_PLAIN_TOL} (dU {check['k2e_err']:.3g}), K2' in each form bit-equal to "
+          f"K2 + K7 and, with the point mass's world step, to K2 + K7 + K6; the rule "
+          f"(fused_solve.combine_one_block): K2' in one block up to "
+          f"{fs.COMBINE_ONE_BLOCK_FLOATS} floats of at most {fs.COMBINE_ONE_BLOCK_COLUMNS} "
+          f"columns, K2 always in tiles ({smi})")
+    if not measure:
+        print(f"    (K2 forms phase {time.perf_counter() - t0:.1f} s)")
+        return dict(check=check)
+    cross = combine_crossover()
+    for r in cross["rows"]:
+        print(f"[21] crossover R={r['R']} nb={r['nb']} T*A={r['TA']} ({r['floats']} floats, rule: "
+              f"{r['rule']}): graph us per launch K2' tiles {r['k2e_tiles_us']:.3f} one block "
+              f"{r['k2e_block_us']:.3f}; K2 (tiles) {r['k2_us']:.3f}")
+    print(f"[21] crossover: K2''s one-block form at most the tiled one's below "
+          f"{cross['measured_max_floats']} floats and up to them; the rule picks the faster form "
+          f"at {cross['rule_agrees']} of {len(cross['rows'])} shapes ({smi})")
+    times = combine_times()
+    for k, v in times.items():
+        print(f"[21] {k} (nb {v['nb']}, T*A {v['TA']}, K2' {v['form']}): device us K2 "
+              f"{v['k2_us']}, K2' {v['k2e_us']}; torch.mv(P.T, f) on the same partials "
+              f"{v['mv_us']} (the fold's product alone); bound {v['bound_us']:.3g} us ({smi})")
+    forms = episode_forms()
+    for label, row in forms.items():
+        print(f"[21] episode K2' us per cycle by world body, turns one block, tiles, tiles, one "
+              f"block: {_forms_line(label, row)} ({smi})")
+    print(f"    (K2 forms phase {time.perf_counter() - t0:.1f} s)")
+    return dict(check=check, crossover=cross, times=times, episode_forms=forms)
 
 
 # a config of each world body, whose eager-backend device episode runs K6 and
@@ -3288,6 +3690,7 @@ def episode_phase(smi: str) -> dict:
     world = world_step_phase(smi)
     tail = solve_tail_phase(smi)
     epi = epilogue_phase(smi)
+    epi["forms"] = combine_phase(smi, measure=False)
 
     rows = {name: episode_config_phase(name, smi) for name in EPISODE_CONFIGS}
     fleets = {name: fleet_episode_phase(name, smi) for name in FLEET_EPISODE_CONFIGS}
@@ -5636,6 +6039,31 @@ def episode_only() -> int:
     return 0
 
 
+def combine_only() -> int:
+    """``python3 chip_smoke.py --combine``: the build (phase 2), then K2's
+    forms alone (:func:`combine_phase`: both forms against each other, their
+    plain versions and K2 + K7 + K6, the crossover, the device times), and
+    no contract line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    from mppi_gpu_tpu_torch.ops import _build
+
+    smi = _smi()
+    print(smi)
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load_library()
+    print(f"[2] build: {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_summary(lib_path.with_suffix(".log").read_text()):
+        if re.match(r"(softmin_combine|combine_tail)", line):
+            print(f"    ptxas {line}")
+    combine_phase(smi)
+    return 0
+
+
 def bodies_only() -> int:
     """``python3 chip_smoke.py --bodies``: the build (phase 2), then phase
     20 alone, and no contract line: K1's and K4's two bodies checked and
@@ -6477,11 +6905,16 @@ def time_commit(root: str) -> int:
     share of rollouts that weigh): CUDA events around a call (warm median
     of 20) and the device time alone (K5 and K3 by their kernels' records);
     where the package's K1 reads the control step by pointer, K1 so too at
-    the main path's shapes (``K1_step_ptr``); one JSON line. Run on this
-    checkout and on an earlier one in turns within one call, it compares two
-    commits on one card."""
+    the main path's shapes (``K1_step_ptr``); where the package has K2'
+    (``ops/combine_tail.py``), K2' at K2's shapes in an inner iteration's
+    form (``K2e``); and the digests of K2's and K2''s outputs on the fixed
+    partials of :func:`combine_digests` (``digest``); one JSON line. Run on
+    this checkout and on an earlier one in turns within one call, it
+    compares two commits on one card (``--same-digests`` their outputs)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
+
+    import importlib.util
 
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
     from mppi_gpu_tpu_torch.ops import philox
@@ -6489,6 +6922,12 @@ def time_commit(root: str) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    k2e = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.combine_tail") is not None
+    if k2e:
+        from mppi_gpu_tpu_torch.controller import CYCLE, ITERATE
+        from mppi_gpu_tpu_torch.envs import make_world
+        from mppi_gpu_tpu_torch.ops import combine_tail as ct
+        from mppi_gpu_tpu_torch.ops import world_step as ws
 
     def times(fn, name: str = "_kernel", launches: int = 1) -> dict:
         return dict(ms=float(np.median(time_ms(fn, 20))),
@@ -6510,6 +6949,20 @@ def time_commit(root: str) -> int:
             _, part = fs.family_solve_partials(*args, q["lam"], K, 7, 3, 0, False, 0.0)
             main_path[key] = dict(K1=k1, nb=part.shape[0], K2=times(
                 lambda: fs.softmin_combine(part, q["lam"], T, fam.action_dim)))
+            if k2e:  # K2' at K2's shapes: an inner iteration's tail (u_seq), and the
+                # cycle's with the config's world step where its world has a K6 body
+                tickets = torch.zeros(2, dtype=torch.int32, device="cuda")
+                max_a = torch.full((fam.action_dim,), 1e9, device="cuda")
+                main_path[key]["K2e"] = times(lambda: ct.combine_tail(
+                    part, q["lam"], q["U"], max_a, True, ITERATE, tickets))
+                world = make_world(_episode_config("flagship" if label == "point_mass3d"
+                                                   else label), device="cuda")
+                if ws.has_kernel(world) and ws.WORLDS[world._kernel_kind][2] == fam.action_dim:
+                    adv, U_c, step = _episode_buffers(world, world.reset(None), q["U"], 4096,
+                                                      "cuda")
+                    main_path[key]["K2e_cycle"] = times(lambda: ct.combine_tail(
+                        part, q["lam"], U_c, max_a, False, CYCLE, tickets, into=U_c, step=step,
+                        advance=adv), "combine_tail_kernel")
             if hasattr(fs, "_step_tensors"):  # a package whose K1 reads the step by pointer
                 step = torch.tensor(3, dtype=torch.int64, device="cuda")
                 main_path[key]["K1_step_ptr"] = times(
@@ -6565,9 +7018,78 @@ def time_commit(root: str) -> int:
     per_rollout["bicycle-demo A=2 K=100000 T=200"] = dict(
         K1=times(run), K4=times(lambda: fs.fused_rollout_costs(*bargs, 100_000, 7, 3, 0, False, 0.0)),
         weighing=weighing_share(run()[0], b["lam"], fs.BLOCK))
+    digests = combine_digests(k2e)
     print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "main": main_path,
-                      "large": large, "draws": draws, "per_rollout": per_rollout}))
+                      "large": large, "draws": draws, "per_rollout": per_rollout,
+                      "digest": digests}))
     return 0
+
+
+def digest(*arrays) -> str:
+    """The first 16 hex digits of the SHA-256 of the arrays' bytes (tensors
+    or numpy arrays, in order, each with its dtype and shape): equal digests
+    mean equal bits."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(_np(a) if hasattr(a, "detach") else np.asarray(a))
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def combine_digests(k2e: bool = True) -> dict:
+    """Through the public wrappers of the package on ``sys.path``, on the
+    partials of every case of :func:`check_combine_forms` (λ 1.1 where the
+    case is finite; all of COMBINE_LAMS otherwise would be 900 cases): the
+    digest of K2's (β, η, ΔU) and, with K2' (`k2e`), of K2''s (β, η, ΔU,
+    u_seq) of an inner iteration and of its cycle with the point mass's
+    world step (β, η, ΔU, the action, U shifted in place, the state, the
+    histories, x and the counter). Run on two packages, equal digests say
+    their kernels give the same bits."""
+    import torch
+
+    out = {}
+    for nb in COMBINE_NBS:
+        for T, A in COMBINE_SHAPES:
+            for case in COMBINE_CASES:
+                for lam in (COMBINE_LAMS if case == "finite" else (1.1,)):
+                    for R in COMBINE_ROBOTS:
+                        parts, U, max_a, world, state = combine_case_inputs(R, nb, T, A, case,
+                                                                            "cuda")
+                        key = f"nb={nb} T={T} A={A} {case} lambda={lam} R={R or 1}"
+                        k2 = run_k2(parts, lam, T, A)
+                        out[f"K2 {key}"] = digest(*k2)
+                        if not k2e:
+                            continue
+                        from mppi_gpu_tpu_torch.controller import CYCLE, ITERATE
+
+                        tickets = torch.zeros((R or 1) + 1, dtype=torch.int32, device="cuda")
+                        b, e, d, tail = run_k2e(parts, lam, U, max_a, True, ITERATE, tickets, None)
+                        out[f"K2' {key}"] = digest(b, e, d, tail.u_seq)
+                        adv, U_e, step = _episode_buffers(world, state, U, 2, "cuda")
+                        b, e, d, tail = run_k2e(parts, lam, U_e, max_a, False, CYCLE, tickets, None,
+                                                into=U_e, step=step, advance=adv)
+                        out[f"K2' cycle {key}"] = digest(b, e, d, tail.action, U_e, *adv.state,
+                                                         adv.xs, adv.us, adv.ts, adv.x, step)
+    return out
+
+
+def same_digests(paths: list[str]) -> int:
+    """``python3 chip_smoke.py --same-digests FILE...``: the last JSON line
+    holding "digest" in each file (a ``--time-commit`` or
+    ``--episode-commit`` run's), compared key by key: prints how many agree
+    in all files and which differ or are missing in one; exits 1 if any."""
+    runs = []
+    for path in paths:
+        with open(path) as f:
+            lines = [ln for ln in f if ln.startswith("{") and '"digest"' in ln]
+        expect(bool(lines), f"{path}: no JSON line with digests")
+        runs.append(json.loads(lines[-1])["digest"])
+    keys = set().union(*runs)
+    differ = sorted(k for k in keys if len({r.get(k) for r in runs}) != 1)
+    print(f"same-digests {paths}: {len(keys) - len(differ)} of {len(keys)} digests equal in all "
+          f"{len(runs)}; differ or missing: {differ}")
+    return 1 if differ else 0
 
 
 def episode_commit(root: str) -> int:
@@ -6579,9 +7101,11 @@ def episode_commit(root: str) -> int:
     trace of its replays (:func:`replay_trace`) kernels, busy ms and K1 + K2's
     share of busy per cycle and the untraced ms per cycle; the sharded
     episode's graph ms per cycle at SHARDED_EPISODE_CONFIGS, both branches, on
-    a world of one NCCL rank and on four virtual ranks; one JSON line. A
-    package before K6 or K7 is traced without their records, one before K2'
-    (``ops/combine_tail.py``) with K2, K7 and K6 in its cycle."""
+    a world of one NCCL rank and on four virtual ranks; the digest of each
+    graph episode's histories (xs, us, times: the final state is xs[-1]),
+    ``digest``; one JSON line. A package before K6 or K7 is traced without
+    their records, one before K2' (``ops/combine_tail.py``) with K2, K7 and
+    K6 in its cycle."""
     sys.path.insert(0, os.path.abspath(root))
     import importlib.util
 
@@ -6600,6 +7124,7 @@ def episode_commit(root: str) -> int:
     k7 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.solve_tail") is not None
     k2e = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.combine_tail") is not None
     k9 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.sharded_combine") is not None
+    digests = {}  # each graph episode's xs, us and times
 
     def row(ctrl, run, label: str, fleet: bool = False, per_update=None,
             epilogue: bool = k2e, sharded_tail: bool = False) -> dict:
@@ -6609,6 +7134,8 @@ def episode_commit(root: str) -> int:
         n = len(graph[0].us)
         t = replay_trace(ctrl, label, fleet=fleet, per_update=per_update, world_kernel=k6,
                          tail_kernel=k7, epilogue=epilogue, sharded_tail=sharded_tail)
+        res = graph[0]
+        digests[label] = digest(res.xs, res.us, res.times)
         return dict(graph_ms=graph[1] * 1e3 / n, eager_ms=eager[1] * 1e3 / n, kernels=t["kernels"],
                     busy_ms=t["busy_ms"], k12_share=t["k12_share"], idle=t["idle"],
                     untraced_ms=t["untraced_ms"], k6_per_cycle=t["k6_per_cycle"],
@@ -6643,7 +7170,8 @@ def episode_commit(root: str) -> int:
               f"{r['untraced_ms']:.4f}, idle {r['idle']:.4f}, eager {r['eager_ms']:.4f} ({smi})")
     print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "smi": smi,
                       "world_kernel": k6, "tail_kernel": k7, "epilogue": k2e, "sharded_tail": k9,
-                      "configs": configs, "fleets": fleets, "sharded": sharded}))
+                      "configs": configs, "fleets": fleets, "sharded": sharded,
+                      "digest": digests}))
     return 0
 
 
@@ -6703,6 +7231,10 @@ if __name__ == "__main__":
         sys.exit(sharded_combine_only())
     if sys.argv[1:2] == ["--bodies"]:
         sys.exit(bodies_only())
+    if sys.argv[1:2] == ["--combine"]:
+        sys.exit(combine_only())
+    if sys.argv[1:2] == ["--same-digests"]:
+        sys.exit(same_digests(sys.argv[2:]))
     if sys.argv[1:2] == ["--sass-diff"]:
         sys.exit(sass_diff(*sys.argv[2:4]))
     sys.exit(main())

@@ -14,22 +14,30 @@
 // same robot: K7 its ΔU, K6 the action K7 computes from it. So here their
 // work has no launch of its own.
 //
-// Design: K2's grid (column tiles, R) and K2's fold, unchanged
-// (softmin_combine.cuh). Every block then fences its ΔU columns and takes a
-// ticket from robot r's counter; the last of the robot's tiles to finish
-// reads the robot's whole ΔU row from L2 and runs K7's row body
-// (solve_tail.cuh: U + ΔU, the clamp, u_seq, or the shift in place and the
-// action). With a world body (world_step.cuh), its thread 0 then steps robot
-// r's world under the action it holds in shared memory, as K6 does: the
-// state, the clock, the histories at the counter's row and the next x. The
-// robot then takes a second ticket; the last robot to finish writes a fleet's
-// shared clock and advances the counter, after every robot has read both.
+// Design: K2's fold (softmin_combine.cuh) in one of its two forms, a
+// function of nb and T·A alone (ops/fused_solve.combine_one_block; K2 alone
+// always takes the tiles). In the tiled form, grid (column tiles, R), every block then
+// fences its ΔU columns and takes a ticket from robot r's counter; the last
+// of the robot's tiles to finish reads the robot's whole ΔU row from L2. In
+// the one-block form, grid (1, R), the block holds the robot's whole ΔU in
+// shared memory already: no fence, no ticket, no reload. Either runs K7's
+// row body (solve_tail.cuh: U + ΔU, the clamp, u_seq, or the shift in place
+// and the action). With a world body (world_step.cuh), its thread 0 then
+// steps robot r's world under the action it holds in shared memory, as K6
+// does: the state, the clock, the histories at the counter's row and the
+// next x. The robot then takes a second ticket; the last robot to finish
+// writes a fleet's shared clock and advances the counter, after every robot
+// has read both.
 // The last blocks reset their counters to 0, so a graph's every replay
 // starts clean. The tickets are R + 1 int32 the caller holds (zeros).
 //
 // The arithmetic, its order and each rounding are the standalone kernels'
 // (the same device functions): the outputs are bit-equal to K2, K7 and K6
-// launched one after the other.
+// launched one after the other. The row body's loads stay one round trip
+// per 256 entries: hoisting them all ahead (every load in flight at once)
+// took the flagship's K2' from 6.2 to 5.2-5.5 µs, but lengthened the
+// kernels that step a world (K2'<Arm> 9.6 → 11.3 µs per launch in the
+// episode; PERF.md §6), so the body is K7's own.
 
 #include <type_traits>
 
@@ -49,32 +57,39 @@ struct EpilogueArgs {
 
 template <class W>
 __global__ void __launch_bounds__(kCombineThreads) combine_tail_kernel(
-    const float* __restrict__ partials, int nb, int TA, float lam, float* __restrict__ beta_eta,
-    float* __restrict__ dU, const EpilogueArgs e) {
-  combine_fold(partials, nb, TA, lam, 1, beta_eta, dU);
-  __shared__ int last;
+    const float* __restrict__ partials, int nb, int TA, float lam, int one_block,
+    float* __restrict__ beta_eta, float* __restrict__ dU, const EpilogueArgs e) {
   const int r = blockIdx.y;
-  __threadfence();  // this block's ΔU columns reach L2 before its ticket
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(e.tickets + r, 1) == (int)gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  if (threadIdx.x == 0) e.tickets[r] = 0;  // every tile of robot r has taken its ticket
-  extern __shared__ float row[];  // robot r's u_new, T·A floats (the fold is done with f_s)
-  tail::row_body<true>(e.row, r, row);
+  extern __shared__ float row[];  // robot r's u_new, T·A floats, once the fold is done
+  if (one_block) {
+    const float* d = combine_block(partials, nb, TA, lam, 1, beta_eta, dU);
+    __syncthreads();  // ΔU complete; the partials' copy free for the row
+    tail::row_body_of(e.row, r, row, [&](long long, int i) { return d[i]; });
+  } else {
+    combine_tile(partials, nb, TA, lam, 1, beta_eta, dU);
+    __shared__ int last;
+    __threadfence();  // this block's ΔU columns reach L2 before its ticket
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(e.tickets + r, 1) == (int)gridDim.x - 1;
+    __syncthreads();
+    if (!last) return;
+    if (threadIdx.x == 0) e.tickets[r] = 0;  // every tile of robot r has taken its ticket
+    // ΔU from L2: the other tiles of this launch wrote it
+    tail::row_body<true>(e.row, r, row);
+  }
   if constexpr (!std::is_same<W, NoWorld>::value) {
     if (threadIdx.x == 0) world::step_world<W>(e.adv, r, row, e.tickets);
   }
 }
 
 template <class W>
-int launch(const float* partials, int nb, int TA, float lam, float* beta_eta, float* dU,
-           const EpilogueArgs& e, int R, size_t smem, cudaStream_t stream) {
+int launch(const float* partials, int nb, int TA, float lam, int one_block, float* beta_eta,
+           float* dU, const EpilogueArgs& e, int R, size_t smem, cudaStream_t stream) {
   const cudaError_t err = set_smem(combine_tail_kernel<W>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((TA + kCombineCols - 1) / kCombineCols, R);
-  combine_tail_kernel<W><<<grid, kCombineThreads, smem, stream>>>(partials, nb, TA, lam, beta_eta,
-                                                                  dU, e);
+  const dim3 grid(one_block ? 1 : (TA + kCombineCols - 1) / kCombineCols, R);
+  combine_tail_kernel<W><<<grid, kCombineThreads, smem, stream>>>(partials, nb, TA, lam,
+                                                                  one_block, beta_eta, dU, e);
   return (int)cudaGetLastError();
 }
 
@@ -97,29 +112,35 @@ extern "C" {
 // state leaves (out may be in), the clock shared (per_robot_clock 0) or
 // (R,), xs[row + 1], us[row], ts[row] at row = *step_ptr when row is in
 // [0, n_hist), x_out = the new x, and *step_ptr = row + 1 once every robot
-// is done. tickets: R + 1 int32, zero, left zero. Refuses
-// (cudaErrorInvalidValue) R outside [1, 65535], T or A below 1, a row of more
-// than 227 KB, null tickets, and with a world another leaf count, pack
-// length or action dim than the world's, steps < 0, or a null step_ptr.
+// is done. The fold runs in one block per robot when `one_block`, else in
+// K2's column tiles (ops/fused_solve.combine_one_block picks).
+// tickets: R + 1 int32, zero, left zero. Refuses (cudaErrorInvalidValue) R
+// outside [1, 65535], nb, T or A below 1, a row of more than 227 KB, a form
+// whose shared memory exceeds a block's, null tickets, and with a world
+// another leaf count, pack length or action dim than the world's, steps < 0,
+// or a null step_ptr.
 int mppi_combine_tail(const float* partials, int R, int nb, int T, int A, float lam,
                       float* beta_eta, float* dU, const float* U, const float* max_a, int clamp,
                       float* u_seq, float* u_next, float* action, int* tickets, int world_id,
                       const void* const* in, void* const* out, int n_leaves,
                       const float* time_in, float* time_out, int per_robot_clock,
                       const float* params, int n_params, int steps, float* xs, float* us,
-                      float* ts, int n_hist, long long* step_ptr, float* x_out, void* stream) {
+                      float* ts, int n_hist, long long* step_ptr, float* x_out, int one_block,
+                      void* stream) {
   const int TA = T * A;
-  if (R < 1 || R > kMaxRobots || T < 1 || A < 1 || tickets == nullptr)
+  if (R < 1 || R > kMaxRobots || nb < 1 || T < 1 || A < 1 || tickets == nullptr)
     return (int)cudaErrorInvalidValue;
   const long long row_bytes = (long long)TA * (long long)sizeof(float);
   if (row_bytes > tail::kMaxRowBytes) return (int)cudaErrorInvalidValue;
-  const size_t fold = ((size_t)nb + kCombineWarps * kCombineCols) * sizeof(float);
+  const size_t fold = fold_smem_bytes(nb, TA, one_block);
   const size_t smem = fold > (size_t)row_bytes ? fold : (size_t)row_bytes;
+  if (smem > kCombineSmemFloats * sizeof(float)) return (int)cudaErrorInvalidValue;
   EpilogueArgs e{};
   e.row = tail::RowArgs{U, dU, max_a, u_seq, u_next, action, clamp, T, A};
   e.tickets = tickets;
   cudaStream_t s = (cudaStream_t)stream;
-  if (world_id < 0) return launch<NoWorld>(partials, nb, TA, lam, beta_eta, dU, e, R, smem, s);
+  if (world_id < 0)
+    return launch<NoWorld>(partials, nb, TA, lam, one_block, beta_eta, dU, e, R, smem, s);
   if (n_leaves < 1 || n_leaves > world::kMaxLeaves || steps < 0 || step_ptr == nullptr)
     return (int)cudaErrorInvalidValue;
   world::AdvanceArgs& a = e.adv;
@@ -143,7 +164,8 @@ int mppi_combine_tail(const float* partials, int R, int nb, int T, int A, float 
 #define WORLD_CASE(id, W)                                                                  \
   case world::id:                                                                          \
     return fits<world::W>(n_leaves, n_params, A)                                           \
-               ? launch<world::W>(partials, nb, TA, lam, beta_eta, dU, e, R, smem, s)      \
+               ? launch<world::W>(partials, nb, TA, lam, one_block, beta_eta, dU, e, R,    \
+                                  smem, s)                                                 \
                : (int)cudaErrorInvalidValue;
   switch (world_id) {
     WORLD_CASE(kPointMass1, PointMass<1>)

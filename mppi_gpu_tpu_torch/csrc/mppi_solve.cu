@@ -541,12 +541,12 @@ struct Quadrotor3D {
   }
 };
 
-// K2: the fold of softmin_combine.cuh (what it replaces of the TPU kernels,
-// what bounds it and its design are described there).
+// K2: the fold of softmin_combine.cuh in column tiles (what it replaces of
+// the TPU kernels, what bounds it and its design are described there).
 __global__ void __launch_bounds__(kCombineThreads) softmin_combine_kernel(
     const float* __restrict__ partials, int nb, int TA, float lam, int normalize,
     float* __restrict__ beta_eta, float* __restrict__ dU) {
-  combine_fold(partials, nb, TA, lam, normalize, beta_eta, dU);
+  combine_tile(partials, nb, TA, lam, normalize, beta_eta, dU);
 }
 
 // K3 and K5 draw without stepping a model, so every (draw kd, step t) is
@@ -842,11 +842,14 @@ int mppi_solve_partials(int family, const float* x0, const float* U, const float
 }
 
 // partials (R, nb, 2 + TA) → beta_eta (R, 2), dU (R, TA); divided by η
-// unless `normalize` is 0.
+// unless `normalize` is 0; a block per 32-column tile. Refuses
+// (cudaErrorInvalidValue) R outside [1, 65535], nb or TA below 1, and more
+// rows than a block's shared memory holds.
 int mppi_softmin_combine(const float* partials, int R, int nb, int TA, float lam, int normalize,
                          float* beta_eta, float* dU, void* stream) {
-  if (R < 1 || R > kMaxRobots) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)nb + kCombineWarps * kCombineCols) * sizeof(float);
+  if (R < 1 || R > kMaxRobots || nb < 1 || TA < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = tile_smem_floats(nb) * sizeof(float);
+  if (smem > kCombineSmemFloats * sizeof(float)) return (int)cudaErrorInvalidValue;
   cudaError_t err = set_smem(softmin_combine_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((TA + kCombineCols - 1) / kCombineCols, R);

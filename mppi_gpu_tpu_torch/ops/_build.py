@@ -69,8 +69,8 @@ _SIGNATURES = {
                         _i),
     # csrc/combine_tail.cu (K2')
     "mppi_combine_tail": ([_p, _i, _i, _i, _i, _f] + [_p] * 4 + [_i] + [_p] * 4
-                          + [_i, _pp, _pp, _i, _p, _p, _i, _p, _i, _i, _p, _p, _p, _i, _p, _p, _p],
-                          _i),
+                          + [_i, _pp, _pp, _i, _p, _p, _i, _p, _i, _i, _p, _p, _p, _i, _p, _p, _i,
+                             _p], _i),
     # csrc/sharded_combine.cu (K8, K9)
     "mppi_sharded_scale": ([_p, _i, _i, _p, _f, _p, _p], _i),
     "mppi_sharded_tail": ([_p, _p, _i, _p, _i] + [_p] * 7 + [_f, _p, _i, _i, _i, _p]

@@ -99,16 +99,17 @@ def combine_tail(partials: torch.Tensor, lam_softmin: float, U: torch.Tensor,
 
 
 def _launch_combine_tail(partials, lam, U, max_a, clamp, outputs, tickets, into, step, advance, R,
-                         lead):
-    """Check the CUDA inputs, allocate the outputs and launch K2'."""
+                         lead, one_block=None):
+    """Check the CUDA inputs, allocate the outputs and launch K2' in the
+    rule's form (:func:`~mppi_gpu_tpu_torch.ops.fused_solve.combine_one_block`),
+    unless `one_block` forces one."""
     T, A = U.shape[-2:]
     fs._check_fleet(R)
     if T * A > st.MAX_ROW:
         raise ValueError(f"K2' stages a robot's sequence in one block's shared memory, at most "
                          f"{st.MAX_ROW} floats (227 KB); got T·A = {T * A}")
     nb = partials.shape[-2]
-    if nb < 1 or 4 * (nb + fs._COMBINE_SMEM_FLOATS) > fs._SMEM_BYTES:
-        raise ValueError(f"{nb} partials exceed the combine kernel's shared memory")
+    one_block = fs._combine_form(nb, T * A, one_block, 4 * T * A)
     fs._check("partials", partials, (*lead, nb, 2 + T * A))
     st._check("U", U, U.shape)
     st._check("max_a", max_a, (A,))
@@ -144,6 +145,7 @@ def _launch_combine_tail(partials, lam, U, max_a, clamp, outputs, tickets, into,
         "combine_tail", _build.load_library().mppi_combine_tail, U.device, partials.data_ptr(), R,
         nb, T, A, float(lam), beta_eta.data_ptr(), dU.data_ptr(), U.data_ptr(), max_a.data_ptr(),
         int(clamp), ptr(u_seq), ptr(u_next), ptr(action), tickets.data_ptr(), *world,
+        int(one_block),
     ):
         _LAUNCHES["combine_tail"] += 1
     tail = st.Tail(u_seq=u_seq, u_next=u_next, action=action, weights=None)

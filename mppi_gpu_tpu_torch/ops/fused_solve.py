@@ -110,6 +110,22 @@ SLAB_MAX_ROLLOUTS = {
 MAX_ROBOTS = 65535   # K1's grid axis y is the robot (kMaxRobots)
 _SMEM_BYTES = 232448 - 1024  # per-block shared memory on Hopper, less static use
 _COMBINE_SMEM_FLOATS = 8 * 32  # K2's per-warp column sums (kCombineWarps · kCombineCols)
+_COMBINE_THREADS, _COMBINE_WARPS = 256, 8  # the fold's block (kCombineThreads, kCombineWarps)
+# K2' folds a robot's partials in one block (grid (1, R)) where they are at
+# most COMBINE_ONE_BLOCK_FLOATS floats, nb·(2 + T·A), of at most
+# COMBINE_ONE_BLOCK_COLUMNS columns T·A, and the block's shared memory holds
+# them; else in 32-column tiles (grid (⌈T·A/32⌉, R)), as K2 always does. Both
+# forms give the same floats bit for bit (csrc/softmin_combine.cuh); the
+# one-block form spares K2' the tiles' ticket and the reload of ΔU, and costs
+# one SM's bandwidth and all the columns' sums in one block. The crossover,
+# K2''s µs per launch in a replayed graph of each form over nb 16-313 × T·A
+# 40-600, R = 1 and 8 (chip_smoke.combine_crossover, `--combine`; NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md §6): one block at most the tiles' at every
+# shape of T·A ≤ 240 up to 13146 floats, the tiles faster at T·A = 600 from
+# 9632 floats and at 15488, within 0.1 µs at 16014. K2 alone, with no tail
+# to spare, was faster in tiles at every shape (by 0.03-0.5 µs).
+COMBINE_ONE_BLOCK_FLOATS = 13_312
+COMBINE_ONE_BLOCK_COLUMNS = 256  # one column per thread of the block
 
 # launches of each CUDA kernel of csrc/mppi_solve.cu, counted by the function
 # that launches it, where it launches; K1's and K4's also by family and by
@@ -604,6 +620,41 @@ def fleet_softmin_combine_reference(
     return tuple(torch.stack(v) for v in zip(*out))
 
 
+def combine_smem(nb: int, TA: int, one_block: bool) -> int:
+    """Shared bytes of the fold's block in either form
+    (csrc/softmin_combine.cuh, block_smem_floats and tile_smem_floats): one
+    block holds the robot's partials (and 4 floats of slack, to align its
+    16-byte copies), the factors f_b and the warps' sums of every column; a
+    tile f_b, its warps' sums and each lane's staged rows (all its warp's
+    ⌈nb/8⌉, or as many as fit)."""
+    if one_block:
+        return 4 * (4 + nb * (2 + TA) + nb + _COMBINE_WARPS * TA)
+    per = -(-nb // _COMBINE_WARPS)
+    room = (_SMEM_BYTES // 4 - nb - _COMBINE_THREADS) // _COMBINE_THREADS
+    return 4 * (nb + _COMBINE_THREADS + _COMBINE_THREADS * max(0, min(per, room)))
+
+
+def combine_one_block(nb: int, TA: int) -> bool:
+    """K2''s form for nb partial rows of T·A columns: one block per robot
+    where the partials are at most COMBINE_ONE_BLOCK_FLOATS floats of at
+    most COMBINE_ONE_BLOCK_COLUMNS columns and fit one block's shared memory
+    with K2''s row, else column tiles (K2's only form). A function of the
+    shapes alone, so a fleet's robots take their solo launch's form."""
+    return (nb * (2 + TA) <= COMBINE_ONE_BLOCK_FLOATS and TA <= COMBINE_ONE_BLOCK_COLUMNS
+            and max(combine_smem(nb, TA, True), 4 * TA) <= _SMEM_BYTES)
+
+
+def _combine_form(nb: int, TA: int, one_block: bool | None, row_bytes: int = 0) -> bool:
+    """The form a K2 (False) or K2' launch takes (`one_block` None: the
+    rule's); raises where nb partials do not fit the form's shared memory."""
+    if one_block is None:
+        one_block = combine_one_block(nb, TA)
+    if nb < 1 or max(combine_smem(nb, TA, one_block), row_bytes) > _SMEM_BYTES:
+        raise ValueError(f"{nb} partials of {TA} columns exceed the combine kernel's shared memory "
+                         f"in the {'one-block' if one_block else 'tiled'} form")
+    return one_block
+
+
 def _launch_softmin_combine(
     partials: torch.Tensor, lam_softmin: float, R: int, T: int, A: int, lead: tuple[int, ...],
     normalize: bool = True, out: torch.Tensor | None = None,
@@ -612,8 +663,7 @@ def _launch_softmin_combine(
     partials; returns (β η (*lead, 2), ΔU (*lead, T, A)), for one robot the
     two parts of `out` (2 + T·A,) when given. Counts the launch."""
     nb = partials.shape[-2]
-    if nb < 1 or 4 * (nb + _COMBINE_SMEM_FLOATS) > _SMEM_BYTES:
-        raise ValueError(f"{nb} partials exceed the combine kernel's shared memory")
+    _combine_form(nb, T * A, False)
     from mppi_gpu_tpu_torch.ops._build import load_library
 
     lib = load_library()

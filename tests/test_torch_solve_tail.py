@@ -428,7 +428,7 @@ def test_fused_solve_on_cuda_runs_no_torch_tail(monkeypatch, fleet):
 EPILOGUE_ARGS = ("partials", "R", "nb", "T", "A", "lam", "beta_eta", "dU", "U", "max_a", "clamp",
                  "u_seq", "u_next", "action", "tickets", "world", "in", "out", "n_leaves",
                  "time_in", "time_out", "per_robot_clock", "params", "n_params", "steps", "xs", "us",
-                 "ts", "n_hist", "step_ptr", "x_out", "stream")
+                 "ts", "n_hist", "step_ptr", "x_out", "one_block", "stream")
 
 
 def _world_of_kind(kind: str):
