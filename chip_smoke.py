@@ -81,14 +81,15 @@ four virtual ranks (phase 26); and K8 ``sharded_scale`` and K9
 ``sharded_tail`` (``csrc/sharded_combine.cu``: the one-pass sharded
 combine between its two all-reduces, and the division by η, the tail and
 the world's step after them) bit-equal to their plain versions and to the
-torch combine they replaced, K9's world step for every world body, and the
+torch combine they replaced, also at rows on every boundary of K9's row
+block, K9's world step for every world body at three horizons, and the
 sharded solve and graph episode with them bit-equal to the torch-combine
 cycle at point_mass2d and the flagship, both branches, both meshes, with
 their times (phase 27).
-``--time-commit ROOT`` instead times K1, K2, K4, K5 and K3 of the
-package in the checkout at ROOT, and ``--episode-commit ROOT`` its device
-episodes (ms per cycle, kernels per cycle, K1 + K2's share of busy), to
-compare two commits in one run;
+``--time-commit ROOT`` instead times K1, K2, K4, K5, K3, K2', K8 and K9 of
+the package in the checkout at ROOT, and ``--episode-commit ROOT`` its
+device episodes (ms per cycle, kernels per cycle, K1 + K2's share of busy,
+K8's and K9's µs per sharded cycle), to compare two commits in one run;
 ``--sass-diff ROOT [REGEX]`` compares the built-in library's SASS with
 ROOT's, kernel by kernel (the kernels REGEX names may differ);
 ``--bodies``, ``--episode``, ``--family``, ``--plants``, ``--graphs`` and
@@ -1769,8 +1770,10 @@ FLEET_SOLO_LOOP_TOL = {"obstacle3d": (2e-4, 3e-4), "quadrotor3d": (2e-3, 1.2e-2)
 # control cycles of the torch.profiler window and of the timed host loop
 EPISODE_PROFILE_CYCLES = 20
 # graphed control steps of a host loop's torch.profiler window (solve_trace),
-# and the steps on each side of its markers
-SOLVE_TRACE_STEPS, SOLVE_TRACE_EDGE = 20, 5
+# and the steps on each side of its markers: late in this script the
+# profiler has dropped the first marker of the quadrotor's window with 5 steps
+# of lead-in, three windows in a row
+SOLVE_TRACE_STEPS, SOLVE_TRACE_EDGE = 20, 20
 # graph replays on each edge of :func:`replay_trace`'s window: a cycle of four
 # kernels is ~0.02 ms, and late in this script the profiler has dropped every
 # record of a window whose lead-in held 5 of them, three windows in a row
@@ -1908,8 +1911,9 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     untraced, the ms per cycle of `cycles` replays
     by CUDA events, which the span exceeds by what the tracer adds to each
     kernel node; K2''s µs per cycle by record name (its world body),
-    ``k2e_us``. A window without both markers, or whose K1 or K2
-    records fall short, is read again, five windows at most (a failure says
+    ``k2e_us``, and K8's and K9's, ``k8_us`` and ``k9_us``. A window
+    without both markers, or whose K1 or K2 records fall short, is read
+    again, five windows at most (a failure says
     what each held): a graph replays the same launches every time."""
     import torch
     from torch.profiler import ProfilerActivity
@@ -1985,7 +1989,9 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
                 nccl_us=sum(e.time_range.elapsed_us() for e in nccl) / cycles,
                 nccl_names=sorted({e.name for e in nccl}),
                 top=sorted(((round(v, 2), k) for k, v in by_name.items()), reverse=True)[:4],
-                k2e_us={k: v for k, v in by_name.items() if k.startswith("combine_tail")})
+                k2e_us={k: v for k, v in by_name.items() if k.startswith("combine_tail")},
+                k8_us=sum(v for k, v in by_name.items() if k.startswith("sharded_scale")),
+                k9_us=sum(v for k, v in by_name.items() if k.startswith("sharded_tail")))
 
 
 def solve_trace(label: str, ctrl, x, U, seed, per_update: dict | None = None,
@@ -1998,7 +2004,8 @@ def solve_trace(label: str, ctrl, x, U, seed, per_update: dict | None = None,
     a second marker and a few more steps; only the records between the markers
     are read. Each edge holds SOLVE_TRACE_EDGE steps and the first ends
     with a synchronisation: on an H100, late in this script, three windows
-    in a row with a one-step lead-in held only one of the two markers.
+    in a row with a one-step lead-in held only one of the two markers, and
+    so did the quadrotor's with five.
     Checked: the kernels' wrappers launched nothing in the window (the
     replays launch from the graph), and each kernel of `per_update` (a
     key of KERNEL_TRACE_NAMES: its records per update, opt_iters per step;
@@ -2557,9 +2564,9 @@ def world_cycle_records(name: str, calls: int = 3) -> list[str]:
     As in :func:`replay_trace`, the window holds REPLAY_TRACE_EDGE cycles, a
     marker kernel, the `calls` counted cycles, a second marker and
     REPLAY_TRACE_EDGE more, and only the records between the markers are
-    read (late in this script a window's first records go missing: with
-    SOLVE_TRACE_EDGE cycles on each edge the arm's three windows in a row
-    once held no marker, on an H100); a window without both markers is read
+    read (late in this script a window's first records go missing: with 5
+    cycles on each edge the arm's three windows in a row once held no
+    marker, on an H100); a window without both markers is read
     again, five at most."""
     import torch
     from torch.profiler import ProfilerActivity
@@ -5235,6 +5242,17 @@ SHARDED_LAMS = (1.0, 1.1, 1.7, 0.064, 1e9)
 SHARDED_CASES = ("finite", "inf rank", "every rank inf", "underflow")
 SHARDED_K_LOC = 64  # rollouts per rank behind the weights
 SHARDED_WORLD_CYCLES = 3  # K9's world step, chained cycles per world body
+# rows on each boundary of K9's row block (256 threads, 4 entries each: 1024
+# per pass) and past 48 KB of shared memory up to the largest, 227 KB: T·A 1,
+# 31, 32, 33, 255, 256, 257, 1023, 1024, 1025, 2049, 12291 and 58112, A 1-4
+SHARDED_EDGE_SHAPES = ((1, 1), (31, 1), (16, 2), (11, 3), (85, 3), (64, 4), (257, 1), (341, 3),
+                       (256, 4), (1025, 1), (683, 3), (4097, 3), (14528, 4))
+SHARDED_EDGE_RANKS = (1, 4)
+SHARDED_EDGE_LAMS = (1.1,)
+SHARDED_EDGE_CASES = ("finite", "inf rank")
+# K9's world step at each world body's config horizon (None), at T = 1 and at
+# a row of two passes (T·A 1100-4400)
+SHARDED_WORLD_HORIZONS = (None, 1, 1100)
 
 
 def sharded_inputs(n: int, T: int, A: int, lam: float, case: str, device: str, seed: int = 0):
@@ -5264,14 +5282,14 @@ def sharded_inputs(n: int, T: int, A: int, lam: float, case: str, device: str, s
 def check_sharded_combine(device: str = "cuda", ranks=SHARDED_RANKS, shapes=SHARDED_SHAPES,
                           lams=SHARDED_LAMS, cases=SHARDED_CASES) -> dict:
     """K8 and K9 against their plain versions and against the torch combine
-    (``parallel/sharded.onepass_combine``, then K7's plain tail) on the same
-    rows, for n local ranks of a virtual mesh (the MIN and the SUM its
-    reductions), every (T, A), λ and case: K8's rows, β, η, ΔU = Σ/η, and
-    K9's every output with the weights, the cycle's form (U shifted in
-    place) and the two-kernel branch's form (ΔU given, no division), bit for
-    bit (SHARDED_TOL). Returns whether all were, the largest |Δ| otherwise,
-    the cases and the launches (one of K8 and three of K9 per case on the
-    card, none on the CPU)."""
+    (``parallel/sharded.onepass_combine``, then K7's plain tail and K7
+    itself, ``solve_tail``) on the same rows, for n local ranks of a virtual
+    mesh (the MIN and the SUM its reductions), every (T, A), λ and case:
+    K8's rows, β, η, ΔU = Σ/η, and K9's every output with the weights, the
+    cycle's form (U shifted in place) and the two-kernel branch's form (ΔU
+    given, no division), bit for bit (SHARDED_TOL). Returns whether all
+    were, the largest |Δ| otherwise, the cases and the launches (one of K8
+    and three of K9 per case on the card, none on the CPU)."""
     from mppi_gpu_tpu_torch.controller import CYCLE, FULL
     from mppi_gpu_tpu_torch.ops import sharded_combine as sc
     from mppi_gpu_tpu_torch.ops import solve_tail as st
@@ -5309,9 +5327,11 @@ def check_sharded_combine(device: str = "cuda", ranks=SHARDED_RANKS, shapes=SHAR
                     dU, full = sc.sharded_tail(U, sums, max_a, True, FULL, (S_all, beta, sums[0], lam),
                                                divide=True, keep_dU=True)
                     want = st.solve_tail_reference(U, dU_t, max_a, True, FULL, (S_all, b_t, e_t, lam))
+                    k7 = st.solve_tail(U, dU_t, max_a, True, FULL, (S_all, b_t, e_t, lam))
                     hold(f"{label} dU", dU, dU_t)
                     for k in FULL:
                         hold(f"{label} {k}", getattr(full, k), getattr(want, k))
+                        hold(f"{label} {k} vs K7", getattr(full, k), getattr(k7, k))
                     U_c = U.clone()
                     _, cyc = sc.sharded_tail(U_c, sums, max_a, True, CYCLE, into=U_c, divide=True)
                     hold(f"{label} U shifted in place", U_c, want.u_next)
@@ -5328,51 +5348,67 @@ def check_sharded_combine(device: str = "cuda", ranks=SHARDED_RANKS, shapes=SHAR
     return dict(bit_equal=equal, max_abs_err=worst, cases=n_cases, launches=launches)
 
 
-def check_sharded_tail_world(name: str, device: str = "cuda") -> bool:
+def check_sharded_tail_world(name: str, device: str = "cuda",
+                             horizons=SHARDED_WORLD_HORIZONS) -> bool:
     """K9's world step for config `name`'s world body, one robot from the
-    world's start: SHARDED_WORLD_CYCLES chained cycles in the episode's form
-    (the action, U shifted in place, the world stepped in its buffers, the
-    histories at the counter's row, the x buffer, the counter advanced),
-    dividing by η in the first and last and given ΔU in between, against
-    the plain version from the same buffers: all of it bit for bit, the
-    tickets 0 after every cycle. Returns True (a difference raises)."""
+    world's start, at each horizon of `horizons` (None: the config's):
+    SHARDED_WORLD_CYCLES chained cycles in the episode's form (the action, U
+    shifted in place, the world stepped in its buffers, the histories at the
+    counter's row, the x buffer, the counter advanced), dividing by η in the
+    first and last and given ΔU in between, against the plain version and
+    against K7 and K6 launched one after the other (the torch division
+    first), each from the same buffers: all of it bit for bit, the tickets 0
+    after every cycle. Returns True (a difference raises)."""
     import torch
 
     from mppi_gpu_tpu_torch.controller import CYCLE
     from mppi_gpu_tpu_torch.envs import make_world
     from mppi_gpu_tpu_torch.ops import sharded_combine as sc
+    from mppi_gpu_tpu_torch.ops import solve_tail as st
+    from mppi_gpu_tpu_torch.ops import world_step as ws
 
     cfg = _config(name)
-    T, A = cfg.horizon, cfg.action_dim
+    A = cfg.action_dim
     world = make_world(cfg, device=device)
     state0 = world.reset()
-    rng = np.random.default_rng(len(name))
-    U0 = torch.from_numpy(rng.uniform(-1.0, 1.0, (T, A)).astype(np.float32)).to(device)
     max_a = torch.tensor(cfg.max_a, dtype=torch.float32, device=device)
     n = SHARDED_WORLD_CYCLES + 2
-    kern, U_k, step_k = _episode_buffers(world, state0, U0, n, device)
-    plain, U_p, step_p = _episode_buffers(world, state0, U0, n, device)
-    tickets = torch.zeros(2, dtype=torch.int32, device=device)
-    for c in range(SHARDED_WORLD_CYCLES):
-        divide = c != 1
-        if divide:
-            dU = rng.normal(0.0, 0.5, 1 + T * A).astype(np.float32)
-            dU[0] = np.float32(rng.uniform(1.0, 50.0))
-        else:
-            dU = rng.normal(0.0, 0.3, (T, A)).astype(np.float32)
-        dU = torch.from_numpy(dU).to(device)
-        sc.sharded_tail(U_k, dU, max_a, cfg.clamp_action, CYCLE, into=U_k, divide=divide, step=step_k,
-                        advance=kern, tickets=tickets)
-        sc.sharded_tail_reference(U_p, dU, max_a, cfg.clamp_action, CYCLE, into=U_p, divide=divide,
-                                  step=step_p, advance=plain)
-        pairs = [("x", kern.x, plain.x), ("U", U_k, U_p), ("xs", kern.xs, plain.xs),
-                 ("us", kern.us, plain.us), ("ts", kern.ts, plain.ts)]
-        pairs += [(f"state leaf {i}", a, b) for i, (a, b) in enumerate(zip(kern.state, plain.state))]
-        for what, a, b in pairs:
-            expect(bits_equal(a, b), f"K9 {name} world step, cycle {c} ({'divide' if divide else 'dU'})"
-                   f" {what}: not bit-equal to the plain version (max |delta| {max_abs_diff(a, b):.3g})")
-        expect(int(step_k) == int(step_p) == c + 1 and not bool(tickets.any()),
-               f"K9 {name} cycle {c}: counters {int(step_k)}, {int(step_p)}, tickets {tickets}")
+    for T in horizons:
+        T = T or cfg.horizon
+        rng = np.random.default_rng(len(name) + T)
+        U0 = torch.from_numpy(rng.uniform(-1.0, 1.0, (T, A)).astype(np.float32)).to(device)
+        kern, U_k, step_k = _episode_buffers(world, state0, U0, n, device)
+        plain, U_p, step_p = _episode_buffers(world, state0, U0, n, device)
+        two, U_2, step_2 = _episode_buffers(world, state0, U0, n, device)
+        tickets = torch.zeros(2, dtype=torch.int32, device=device)
+        for c in range(SHARDED_WORLD_CYCLES):
+            divide = c != 1
+            if divide:
+                dU = rng.normal(0.0, 0.5, 1 + T * A).astype(np.float32)
+                dU[0] = np.float32(rng.uniform(1.0, 50.0))
+            else:
+                dU = rng.normal(0.0, 0.3, (T, A)).astype(np.float32)
+            dU = torch.from_numpy(dU).to(device)
+            sc.sharded_tail(U_k, dU, max_a, cfg.clamp_action, CYCLE, into=U_k, divide=divide,
+                            step=step_k, advance=kern, tickets=tickets)
+            sc.sharded_tail_reference(U_p, dU, max_a, cfg.clamp_action, CYCLE, into=U_p,
+                                      divide=divide, step=step_p, advance=plain)
+            dU_2 = (dU[1:] / dU[0]).view(T, A) if divide else dU
+            action = st.solve_tail(U_2, dU_2, max_a, cfg.clamp_action, CYCLE, into=U_2).action
+            ws.advance_into(two.world, two.state, action, two.xs, two.us, two.ts, step_2, two.x)
+            for other, U_o, step_o, side in ((plain, U_p, step_p, "the plain version"),
+                                             (two, U_2, step_2, "K7 + K6")):
+                pairs = [("x", kern.x, other.x), ("U", U_k, U_o), ("xs", kern.xs, other.xs),
+                         ("us", kern.us, other.us), ("ts", kern.ts, other.ts)]
+                pairs += [(f"state leaf {i}", a, b)
+                          for i, (a, b) in enumerate(zip(kern.state, other.state))]
+                for what, a, b in pairs:
+                    expect(bits_equal(a, b), f"K9 {name} T={T} world step, cycle {c} "
+                           f"({'divide' if divide else 'dU'}) {what}: not bit-equal to {side} "
+                           f"(max |delta| {max_abs_diff(a, b):.3g})")
+                expect(int(step_k) == int(step_o) == c + 1 and not bool(tickets.any()),
+                       f"K9 {name} T={T} cycle {c}: counters {int(step_k)}, {int(step_o)} "
+                       f"({side}), tickets {tickets}")
     return True
 
 
@@ -5547,8 +5583,9 @@ def sharded_combine_times() -> dict:
 def sharded_combine_phase(smi: str) -> dict:
     """Phase 27, in this process's world of one NCCL rank: K8 and K9 against
     their plain versions and the torch combine over every case of
-    :func:`check_sharded_combine`; K9's world step for every world body
-    (:func:`check_sharded_tail_world`); the sharded solve and graph episode
+    :func:`check_sharded_combine`, and over the rows on the boundaries of
+    K9's row block (SHARDED_EDGE_SHAPES); K9's world step for every world
+    body (:func:`check_sharded_tail_world`); the sharded solve and graph episode
     with K8 and K9 bit-equal to the torch-combine cycle at
     SHARDED_EPISODE_CONFIGS, both branches, on the world of one and on four
     virtual ranks, with each cycle's launches
@@ -5559,6 +5596,8 @@ def sharded_combine_phase(smi: str) -> dict:
 
     t0 = time.perf_counter()
     got = check_sharded_combine()
+    edge = check_sharded_combine(ranks=SHARDED_EDGE_RANKS, shapes=SHARDED_EDGE_SHAPES,
+                                 lams=SHARDED_EDGE_LAMS, cases=SHARDED_EDGE_CASES)
     worlds = [name for name in EAGER_EPISODE_CONFIGS if check_sharded_tail_world(name)]
     meshes = {"world of one (NCCL)": global_mesh("cuda:0"), "4 virtual ranks": virtual_mesh(4, "cuda:0")}
     episodes = {}
@@ -5571,12 +5610,18 @@ def sharded_combine_phase(smi: str) -> dict:
     times = sharded_combine_times()
     floor = latency_floor()
     agree = "bit-equal" if got["bit_equal"] else f"max |delta| {got['max_abs_err']:.3g}"
+    agree_edge = "bit-equal" if edge["bit_equal"] else f"max |delta| {edge['max_abs_err']:.3g}"
     print(f"[27] K8 sharded_scale and K9 sharded_tail: {agree} to their plain versions and to the "
           f"torch combine over {got['cases']} cases (n = {SHARDED_RANKS} local ranks, (T, A) "
           f"{SHARDED_SHAPES}, lambda {SHARDED_LAMS}, {SHARDED_CASES}: K8's rows, beta, eta, dU, "
-          f"every output with the weights, the cycle's in place, the two-kernel form), launches "
-          f"{got['launches']}; K9's world step bit-equal to the plain cycle for {', '.join(worlds)} "
-          f"({SHARDED_WORLD_CYCLES} cycles each); the sharded solve (every output) and graph "
+          f"every output with the weights, also against K7, the cycle's in place, the two-kernel "
+          f"form), launches {got['launches']}; {agree_edge} over {edge['cases']} cases on the "
+          f"boundaries of K9's row block (n = {SHARDED_EDGE_RANKS}, T*A "
+          f"{[T * A for T, A in SHARDED_EDGE_SHAPES]}, lambda {SHARDED_EDGE_LAMS}, "
+          f"{SHARDED_EDGE_CASES}), launches {edge['launches']}; K9's world step bit-equal to the "
+          f"plain cycle and to K7 + K6 for {', '.join(worlds)} ({SHARDED_WORLD_CYCLES} cycles at "
+          f"each horizon {SHARDED_WORLD_HORIZONS}, None the config's); the sharded solve (every "
+          f"output) and graph "
           f"episode with K8 and K9 bit-equal to the torch-combine cycle (x, u, the clock) for "
           f"{len(episodes)} cases ({', '.join(episodes)}; "
           + "; ".join(f"{k} {v['episode_cycles']} cycles, eager launches over 3 cycles "
@@ -5587,7 +5632,10 @@ def sharded_combine_phase(smi: str) -> dict:
                       for k, v in times.items())
           + f"; a one-element add (the latency floor of a kernel): device {floor['device_us']} us, "
           f"{floor['graph_ms_per_node']:.5f} graph ms per node ({smi})")
-    return dict(got, worlds=worlds, episodes=episodes, times=times, floor=floor)
+    return dict(got, bit_equal=got["bit_equal"] and edge["bit_equal"],
+                max_abs_err=max(got["max_abs_err"], edge["max_abs_err"]),
+                cases=got["cases"] + edge["cases"], edge=edge, worlds=worlds, episodes=episodes,
+                times=times, floor=floor)
 
 
 def sharded_entries(phase: dict, launches: dict) -> list[dict]:
@@ -6908,7 +6956,10 @@ def time_commit(root: str) -> int:
     the main path's shapes (``K1_step_ptr``); where the package has K2'
     (``ops/combine_tail.py``), K2' at K2's shapes in an inner iteration's
     form (``K2e``); and the digests of K2's and K2''s outputs on the fixed
-    partials of :func:`combine_digests` (``digest``); one JSON line. Run on
+    partials of :func:`combine_digests` (``digest``); where the package has
+    K8 and K9 (``ops/sharded_combine.py``), their times
+    (:func:`sharded_commit_times`, ``sharded``) and the digests of their
+    outputs (:func:`sharded_digests`); one JSON line. Run on
     this checkout and on an earlier one in turns within one call, it
     compares two commits on one card (``--same-digests`` their outputs)."""
     sys.path.insert(0, os.path.abspath(root))
@@ -7019,10 +7070,129 @@ def time_commit(root: str) -> int:
         K1=times(run), K4=times(lambda: fs.fused_rollout_costs(*bargs, 100_000, 7, 3, 0, False, 0.0)),
         weighing=weighing_share(run()[0], b["lam"], fs.BLOCK))
     digests = combine_digests(k2e)
+    sharded = {}
+    if importlib.util.find_spec("mppi_gpu_tpu_torch.ops.sharded_combine") is not None:
+        sharded = sharded_commit_times(times)
+        digests.update(sharded_digests())
+        smi = _smi()
+        for key, r in sharded.items():  # to read parent → change by eye
+            print(f"[time-commit] {root} {key}: {r['ms']:.4f} ms by events, device {r['device_ms']} "
+                  f"ms ({smi})")
     print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "main": main_path,
                       "large": large, "draws": draws, "per_rollout": per_rollout,
-                      "digest": digests}))
+                      "sharded": sharded, "digest": digests}))
     return 0
+
+
+def sharded_commit_times(times) -> dict:
+    """K8 and K9 through the package on ``sys.path``, each by `times` (CUDA
+    events and the kernel's device time): K8 on the flagship's rows of one
+    and four local ranks; K9 at the flagship (T=200, A=3, K=10⁴) in
+    ``solve``'s form (every output, the weights over K), an inner update's
+    (u_seq alone) and the two-kernel branch's cycle (ΔU given, the point
+    mass's world step), and in the one-pass cycle's form (the division, the
+    action, U shifted in place, the world step at the counter) for the
+    world body of every EAGER_EPISODE_CONFIGS config at its (T, A) and for
+    the flagship's."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import CYCLE, FULL, ITERATE
+    from mppi_gpu_tpu_torch.envs import make_world
+    from mppi_gpu_tpu_torch.ops import sharded_combine as sc
+    from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
+
+    out = {}
+    cfg = _episode_config("flagship")
+    T, A, K, lam = cfg.horizon, cfg.action_dim, cfg.samples, cfg.lambda_
+    for n in (1, 4):
+        rows, _, _, _ = sharded_inputs(n, T, A, lam, "finite", "cuda")
+        beta = virtual_mesh(n, "cuda").all_reduce(rows[:, 0], "min", keep=True)
+        out[f"K8 n={n} T={T} A={A}"] = times(lambda: sc.sharded_scale(rows, beta, lam),
+                                             "sharded_scale_kernel")
+    rows, S, U, max_a = sharded_inputs(1, T, A, lam, "finite", "cuda")
+    sums = sc.sharded_scale(rows, rows[0, 0].clone(), lam)[0]
+    S_full = torch.cat([S.reshape(-1)] * -(-K // S.numel()))[:K].contiguous()
+    softmin = (S_full, rows[0, 0].clone(), sums[0], lam)
+    out[f"K9 full T={T} A={A} K={K}"] = times(
+        lambda: sc.sharded_tail(U, sums, max_a, True, FULL, softmin, divide=True), "sharded_tail_kernel")
+    out[f"K9 iterate T={T} A={A}"] = times(
+        lambda: sc.sharded_tail(U, sums, max_a, True, ITERATE, divide=True), "sharded_tail_kernel")
+    tickets = torch.zeros(2, dtype=torch.int32, device="cuda")
+    dU = (sums[1:] / sums[0]).view(T, A)
+    for name in ("flagship",) + EAGER_EPISODE_CONFIGS:
+        c = _episode_config(name)
+        world = make_world(c, device="cuda")
+        rows, _, U, max_a = sharded_inputs(1, c.horizon, c.action_dim, c.lambda_, "finite", "cuda")
+        sums_c = sc.sharded_scale(rows, rows[0, 0].clone(), c.lambda_)[0]
+        adv, U_c, step = _episode_buffers(world, world.reset(), U, 4096, "cuda")  # past every call
+        out[f"K9 cycle {name} {world._kernel_kind} T={c.horizon} A={c.action_dim}"] = times(
+            lambda: sc.sharded_tail(U_c, sums_c, max_a, c.clamp_action, CYCLE, into=U_c,
+                                    divide=True, step=step, advance=adv, tickets=tickets),
+            "sharded_tail_kernel")
+        if name == "flagship":
+            step.zero_()
+            out[f"K9 two-kernel cycle {name} T={T} A={A}"] = times(
+                lambda: sc.sharded_tail(U_c, dU, max_a, c.clamp_action, CYCLE, into=U_c,
+                                        step=step, advance=adv, tickets=tickets),
+                "sharded_tail_kernel")
+    return out
+
+
+def sharded_digests(device: str = "cuda") -> dict:
+    """Through the public wrappers of the package on ``sys.path``: the
+    digest of K8's and K9's outputs at every shape of SHARDED_SHAPES and
+    SHARDED_EDGE_SHAPES (one and four local ranks, λ 1.1, a finite case and
+    a rank at +inf; K8's rows, ΔU, every output with the weights, the cycle
+    in place, the two-kernel form) and of K9's world step for the world body
+    of every EAGER_EPISODE_CONFIGS config at each of SHARDED_WORLD_HORIZONS
+    (SHARDED_WORLD_CYCLES chained cycles: U, the state, the histories, x
+    and the counter), on `device`. Run on two packages, equal digests say
+    their K8 and K9 give the same bits."""
+    import torch
+
+    from mppi_gpu_tpu_torch.controller import CYCLE, FULL
+    from mppi_gpu_tpu_torch.envs import make_world
+    from mppi_gpu_tpu_torch.ops import sharded_combine as sc
+    from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
+
+    out = {}
+    for n in (1, 4):
+        reduce = virtual_mesh(n, device).all_reduce
+        for T, A in SHARDED_SHAPES + SHARDED_EDGE_SHAPES:
+            for case in ("finite", "inf rank"):
+                rows, S, U, max_a = sharded_inputs(n, T, A, 1.1, case, device, seed=T * A)
+                beta = reduce(rows[:, 0], "min", keep=True)
+                scaled = sc.sharded_scale(rows, beta, 1.1)
+                sums = reduce(scaled, "sum")
+                dU, full = sc.sharded_tail(U, sums, max_a, True, FULL,
+                                           (S.reshape(-1), beta, sums[0], 1.1), divide=True,
+                                           keep_dU=True)
+                U_c = U.clone()
+                _, cyc = sc.sharded_tail(U_c, sums, max_a, True, CYCLE, into=U_c, divide=True)
+                _, two = sc.sharded_tail(U, dU, max_a, False, FULL,
+                                         (S.reshape(-1), beta, sums[0], 1.1))
+                out[f"K8/K9 n={n} T={T} A={A} {case}"] = digest(
+                    scaled, dU, *(getattr(full, k) for k in FULL), U_c, cyc.action,
+                    *(getattr(two, k) for k in FULL))
+    for name in EAGER_EPISODE_CONFIGS:
+        cfg = _config(name)
+        world = make_world(cfg, device=device)
+        for T in SHARDED_WORLD_HORIZONS:
+            T = T or cfg.horizon
+            rng = np.random.default_rng(T)
+            U0 = rng.uniform(-1.0, 1.0, (T, cfg.action_dim)).astype(np.float32)
+            U0 = torch.from_numpy(U0).to(device)
+            adv, U_k, step = _episode_buffers(world, world.reset(), U0, SHARDED_WORLD_CYCLES + 2, device)
+            tickets = torch.zeros(2, dtype=torch.int32, device=device)
+            max_a = torch.tensor(cfg.max_a, dtype=torch.float32, device=device)
+            for c in range(SHARDED_WORLD_CYCLES):
+                dU = rng.normal(0.0, 0.5, 1 + T * cfg.action_dim).astype(np.float32)
+                dU[0] = np.float32(rng.uniform(1.0, 50.0))
+                sc.sharded_tail(U_k, torch.from_numpy(dU).to(device), max_a, cfg.clamp_action, CYCLE,
+                                into=U_k, divide=True, step=step, advance=adv, tickets=tickets)
+            out[f"K9 world {name} T={T}"] = digest(U_k, *adv.state, adv.xs, adv.us, adv.ts, adv.x,
+                                                   step)
+    return out
 
 
 def digest(*arrays) -> str:
@@ -7101,7 +7271,8 @@ def episode_commit(root: str) -> int:
     trace of its replays (:func:`replay_trace`) kernels, busy ms and K1 + K2's
     share of busy per cycle and the untraced ms per cycle; the sharded
     episode's graph ms per cycle at SHARDED_EPISODE_CONFIGS, both branches, on
-    a world of one NCCL rank and on four virtual ranks; the digest of each
+    a world of one NCCL rank and on four virtual ranks, with K8's and K9's
+    device µs per cycle from the trace; the digest of each
     graph episode's histories (xs, us, times: the final state is xs[-1]),
     ``digest``; one JSON line. A package before K6 or K7 is traced without
     their records, one before K2' (``ops/combine_tail.py``) with K2, K7 and
@@ -7141,7 +7312,8 @@ def episode_commit(root: str) -> int:
                     untraced_ms=t["untraced_ms"], k6_per_cycle=t["k6_per_cycle"],
                     k7_per_cycle=t["k7_per_cycle"], k2e_per_cycle=t["k2e_per_cycle"],
                     k8_per_cycle=t["k8_per_cycle"], k9_per_cycle=t["k9_per_cycle"],
-                    nccl_per_cycle=t["nccl_per_cycle"], top=t["top"])
+                    k8_us=t["k8_us"], k9_us=t["k9_us"], nccl_per_cycle=t["nccl_per_cycle"],
+                    top=t["top"])
 
     configs = {name: row(MPPIController(_episode_config(name), device="cuda"), run_episode_jit, name)
                for name in EPISODE_CONFIGS}
@@ -7166,7 +7338,8 @@ def episode_commit(root: str) -> int:
     for label, r in sharded.items():  # the sharded rows, to read parent → change by eye
         print(f"[episode-commit] {root} sharded {label}: {r['kernels']:g} kernels per cycle (K7 "
               f"{r['k7_per_cycle']:g}, K6 {r['k6_per_cycle']:g}, K8 {r['k8_per_cycle']:g}, K9 "
-              f"{r['k9_per_cycle']:g}), graph {r['graph_ms']:.4f} ms per cycle, untraced "
+              f"{r['k9_per_cycle']:g}; device K8 {r['k8_us']:.2f} us, K9 {r['k9_us']:.2f} us per "
+              f"cycle), graph {r['graph_ms']:.4f} ms per cycle, untraced "
               f"{r['untraced_ms']:.4f}, idle {r['idle']:.4f}, eager {r['eager_ms']:.4f} ({smi})")
     print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "smi": smi,
                       "world_kernel": k6, "tail_kernel": k7, "epilogue": k2e, "sharded_tail": k9,

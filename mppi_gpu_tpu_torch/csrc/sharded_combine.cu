@@ -21,18 +21,31 @@
 // (β_d = +inf, η_d and ΔŨ_d NaN) adds nothing, as torch.where drops it. The
 // SUM collective then adds those rows over the ranks in place.
 //
-// K9, after the SUM: robot 0's row body of K7 (solve_tail.cuh) on ΔU = Σ/η,
-// each entry divided as it is loaded (`divide`; the two-kernel branch's ΔU
-// is already the sum it needs), the softmin weights over K where asked for
-// (K7's weight blocks), and in the episode's last update the world's cycle
-// in thread 0 under the action the block holds in shared memory (K6's body,
-// world_step.cuh's step_world, as K2's epilogue runs it).
+// K9, after the SUM: robot 0's tail on ΔU = Σ/η, each entry divided as it is
+// loaded (`divide`; the two-kernel branch's ΔU is already the sum it needs),
+// the softmin weights over K where asked for (K7's weight blocks), and in the
+// episode's last update the world's cycle in thread 0 under the action the
+// block holds in shared memory (K6's body, world_step.cuh's OneRobot).
 //
 // Both move a few KB (at the flagship T·A = 600 floats per rank) and do a
 // few hundred operations: they are bound by their launch and their latency,
 // not by bytes or operations. K8 is a grid (⌈(1 + T·A)/256⌉, n) of 256
 // threads, one entry each; K9 is K7's grid for one robot, (1 + ⌈K/256⌉, 1)
-// with the weights, (1, 1) without.
+// with the weights, (1, 1) without. So K9's row block is built for latency:
+// - every load of a pass is issued before any arithmetic that uses it: a
+//   thread's kPer entries of U and Σ (or ΔU), their max_a, and η once, into
+//   registers. A row of up to kChunk = 1024 entries is one round trip to L2;
+//   a longer one (up to 227 KB) takes one per 1024 entries. K7's row body
+//   (solve_tail.cuh) loads one entry per thread at a time instead, each
+//   pass's loads after the last one's stores, three round trips at T·A = 600;
+// - thread 0 issues the world's loads (its pack, the counter, the clock and
+//   the state) at the start too, beside its row loads, so after the barrier
+//   only the world's serial arithmetic and its stores remain;
+// - the one robot writes the clock, its history row and the counter's
+//   advance itself: no fence and no ticket (step_world takes one per robot so
+//   that the last of R writes them). The tickets argument stays, left zero.
+// The per-entry arithmetic and the world's are K7's and K6's, so the outputs
+// are the same floats.
 //
 // The arithmetic is the torch ops', each rounded once (never contracted into
 // an FMA): β − β_d (__fsub_rn), the division by the Python float λ as torch's
@@ -42,8 +55,6 @@
 // Σ/η by the device scalar η (__fdiv_rn); the cross-rank sums are the mesh's
 // own. So the result is the torch combine's bit for bit.
 
-#include <type_traits>
-
 #include "solve_tail.cuh"
 #include "world_step.cuh"
 
@@ -51,6 +62,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRanks = 65535;  // gridDim.y of K8
+constexpr int kPer = 4;             // K9: row entries a thread holds per pass
+constexpr int kChunk = kPer * kThreads;  // K9: entries per pass, one round trip each
 
 struct NoWorld {};  // the tail alone: an inner opt iteration, or a world without a K6 body
 
@@ -74,7 +87,20 @@ struct ShardedTailArgs {
   int K;
   float inv_lam;       // float32(1/λ)
   world::AdvanceArgs adv;  // its u unused: the action is the row's first A floats
-  int* tickets;        // (2,): the world step's, zero, left zero
+};
+
+// The world's step in the thread that takes it: its loads at the kernel's
+// start, its arithmetic under the action after the row's barrier.
+template <class W>
+struct WorldStep {
+  world::OneRobot<W> robot;
+  __device__ __forceinline__ void load(const world::AdvanceArgs& a) { robot.load(a); }
+  __device__ __forceinline__ void run(const world::AdvanceArgs& a, const float* u) { robot.run(a, u); }
+};
+template <>
+struct WorldStep<NoWorld> {
+  __device__ __forceinline__ void load(const world::AdvanceArgs&) {}
+  __device__ __forceinline__ void run(const world::AdvanceArgs&, const float*) {}
 };
 
 template <class W, bool DIVIDE>
@@ -89,20 +115,63 @@ __global__ void __launch_bounds__(kThreads) sharded_tail_kernel(const ShardedTai
     return;
   }
   extern __shared__ float row[];  // u_new, T·A floats
-  if constexpr (DIVIDE) {
-    const float* sum = a.row.dU;
-    const float eta = sum[0];
-    tail::row_body_of(a.row, 0, row, [&](long long, int i) {
-      const float q = __fdiv_rn(sum[1 + i], eta);
-      if (a.dU_out != nullptr) a.dU_out[i] = q;
-      return q;
-    });
-  } else {
-    tail::row_body<false>(a.row, 0, row);
+  const tail::RowArgs& r = a.row;
+  const int n = r.T * r.A;
+  WorldStep<W> world;  // thread 0's: its loads go out now, beside the row's
+  if (threadIdx.x == 0) world.load(a.adv);
+  const float eta = DIVIDE ? r.dU[0] : 0.0f;
+  // c: the action index of this thread's next entry (entries i = threadIdx.x
+  // + m·256), kept mod A by one subtraction per entry
+  int c = 0, step = 0;
+  for (int base = threadIdx.x; base < n; base += kChunk) {
+    float u[kPer], d[kPer], m[kPer];
+    // every load of the pass before any arithmetic: U and ΔU first, then
+    // their bounds, whose first index takes two integer divisions
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = base + j * kThreads;
+      if (i < n) {
+        u[j] = r.U[i];
+        d[j] = r.dU[DIVIDE + i];  // Σ after η, or ΔU itself
+      }
+    }
+    if (r.clamp) {
+      if (base == (int)threadIdx.x) {
+        step = kThreads % r.A;
+        c = threadIdx.x % r.A;
+      }
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (base + j * kThreads < n) {
+          m[j] = r.max_a[c];
+          c += step;
+          if (c >= r.A) c -= r.A;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = base + j * kThreads;
+      if (i < n) {
+        float q = d[j];
+        if constexpr (DIVIDE) {
+          q = __fdiv_rn(q, eta);
+          if (a.dU_out != nullptr) a.dU_out[i] = q;
+        }
+        float v = __fadd_rn(u[j], q);
+        if (r.clamp) v = tail::clampf(v, -m[j], m[j]);
+        row[i] = v;
+      }
+    }
   }
-  if constexpr (!std::is_same<W, NoWorld>::value) {
-    if (threadIdx.x == 0) world::step_world<W>(a.adv, 0, row, a.tickets);
+  __syncthreads();  // the whole row is read before any of it is written (u_next may be U)
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    if (r.u_seq != nullptr) r.u_seq[i] = row[i];
+    // u_next[t] = u_new[t + 1], the last step's action repeated
+    if (r.u_next != nullptr) r.u_next[i] = row[i + r.A < n ? i + r.A : i];
+    if (r.action != nullptr && i < r.A) r.action[i] = row[i];
   }
+  if (threadIdx.x == 0) world.run(a.adv, row);
 }
 
 template <class W, bool DIVIDE>
@@ -179,7 +248,6 @@ int mppi_sharded_tail(const float* U, const float* dU, int divide, const float* 
   a.weights = weights;
   a.K = weights != nullptr ? K : 0;
   a.inv_lam = inv_lam;
-  a.tickets = tickets;
   cudaStream_t s = (cudaStream_t)stream;
   const int rb = (int)row_bytes;
   if (world_id < 0) return launch<NoWorld>(a, divide, rb, s);

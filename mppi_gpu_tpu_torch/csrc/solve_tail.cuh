@@ -12,8 +12,8 @@
 // robot's sequence, so u_next may be U itself (the device episode shifts its
 // nominal sequence in place).
 //
-// The sharded controller's tail (sharded_combine.cu) runs the same body on
-// ΔU = Σ/η, the quotient of the ranks' sum formed as it loads each entry.
+// The sharded controller's tail (sharded_combine.cu) has a row of its own with
+// the same per-entry arithmetic, its loads issued ahead of it.
 //
 // Everything lives in the namespace `tail` inside an anonymous namespace, so
 // a translation unit may include it beside mppi_solve.cuh and world_step.cuh,

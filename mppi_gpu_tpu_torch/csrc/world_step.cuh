@@ -3,8 +3,9 @@
 // one block, by K2's epilogue (combine_tail.cu), which runs robot r in
 // thread 0 of the last of K2's blocks to finish for that robot, and by the
 // sharded controller's tail (sharded_combine.cu), in thread 0 of its row's
-// block. All therefore compute the same floats. The arithmetic, the packs
-// and their order are described in world_step.cu.
+// block, split into its loads and its arithmetic (OneRobot). All therefore
+// compute the same floats. The arithmetic, the packs and their order are
+// described in world_step.cu.
 //
 // Everything lives in the namespace `world` inside an anonymous namespace, so
 // a translation unit may include it beside mppi_solve.cuh and solve_tail.cuh,
@@ -383,11 +384,10 @@ __device__ __forceinline__ float advance_robot(const W& w, const AdvanceArgs& a,
 }
 
 // Robot r's control cycle in one thread of a launch that also ran the
-// solve's tail (K2's epilogue in combine_tail.cu, the sharded controller's
-// tail in sharded_combine.cu), under the action `u` it holds, at the row the
-// counter holds; then its ticket (tickets[R], zero, left zero): the last
-// robot to finish writes the shared clock and advances the counter, after
-// every robot has read both.
+// solve's tail (K2's epilogue in combine_tail.cu), under the action `u` it
+// holds, at the row the counter holds; then its ticket (tickets[R], zero,
+// left zero): the last robot to finish writes the shared clock and advances
+// the counter, after every robot has read both.
 template <class W>
 __device__ __forceinline__ void step_world(const AdvanceArgs& a, int r, const float* u,
                                            int* tickets) {
@@ -406,6 +406,70 @@ __device__ __forceinline__ void step_world(const AdvanceArgs& a, int r, const fl
   }
   if (a.tick) *a.step_ptr = row + 1;  // the episode's next control step
 }
+
+// One robot's control cycle in a launch that steps exactly one (R = 1), split
+// in two so that its loads need not wait for the action (the sharded
+// controller's tail, sharded_combine.cu): `load` reads the pack, the counter,
+// the clock and the state, issued by the stepping thread at the start of the
+// kernel beside its other loads; `run` is advance_robot's arithmetic and
+// stores under the action `u_in`, then the clock, its history row and the
+// counter's advance, which step_world leaves to the last robot's ticket: with
+// one robot there is none to wait for. The floats are step_world's at R = 1,
+// its clock shared or its own (the same one float).
+template <class W>
+struct OneRobot {
+  W w;
+  float x[W::kS];
+  float t;
+  long long row;
+
+  __device__ __forceinline__ void load(const AdvanceArgs& a) {
+    w.load(a.params);
+    row = a.step_ptr != nullptr ? *a.step_ptr : -1;
+    t = a.time_in[0];
+    int off = 0;
+#pragma unroll
+    for (int l = 0; l < W::kLeaves; ++l) {
+#pragma unroll
+      for (int j = 0; j < W::width(l); ++j) x[off + j] = a.in[l][j];
+      off += W::width(l);
+    }
+  }
+
+  __device__ __forceinline__ void run(const AdvanceArgs& a, const float* u_in) {
+    constexpr int S = W::kS, A = W::kA;
+    float u0[A], u[A];
+#pragma unroll
+    for (int i = 0; i < A; ++i) u[i] = u0[i] = u_in[i];
+    if (!(t >= w.end)) {  // World.advance holds a state at or past sim_end
+      w.clamp_u(u);
+      for (int s = 0; s < a.steps; ++s) {
+        w.step(x, u);
+        t = add(t, w.h);
+      }
+    }
+    int off = 0;
+#pragma unroll
+    for (int l = 0; l < W::kLeaves; ++l) {
+#pragma unroll
+      for (int j = 0; j < W::width(l); ++j) a.out[l][j] = x[off + j];
+      off += W::width(l);
+    }
+    a.time_out[0] = t;
+    if (a.x_out != nullptr) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) a.x_out[i] = x[i];
+    }
+    if (a.xs != nullptr && row >= 0 && row < a.n_hist) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) a.xs[(row + 1) * S + i] = x[i];
+#pragma unroll
+      for (int i = 0; i < A; ++i) a.us[row * A + i] = u0[i];
+      a.ts[row] = t;
+    }
+    if (a.tick) *a.step_ptr = row + 1;  // the episode's next control step
+  }
+};
 
 }  // namespace world
 }  // namespace

@@ -9,6 +9,7 @@ after them.
   world loop), bit for bit, over 1, 2 and 4 local ranks, T·A from 12 to
   600, λ where 1.0f/λ and float32(1/λ) agree and where they do not, a rank
   whose rollouts all cost +inf, every rank so, and an f_d that underflows;
+  and at the rows on each boundary of K9's row block (T·A 1 to 58112);
 - the port's sharded solve on the new path (the fused backend's branch on
   CPU tensors, whose wrappers run their plain versions) on virtual meshes
   of 2 and 4 ranks against the JAX ``sharded_mppi_solve`` on the same
@@ -18,7 +19,8 @@ after them.
 - the dispatch with the C entries stubbed (no card needed): the fused
   sharded solve and episode bound for CUDA launch K1, K2 into the ranks'
   rows, K8 and K9, and never the torch combine, K7 or K6;
-- chip_smoke.py's checks of phase 27 on CPU tensors, its kernel names, and
+- chip_smoke.py's checks of phase 27 on CPU tensors (the boundary rows,
+  every world body at three horizons), its digests, its kernel names, and
   (marked `gpu`, skipped without a card) K8 and K9 against their plain
   versions on the card.
 
@@ -142,6 +144,66 @@ def test_plain_scale_and_tail_equal_the_torch_combine(n, T, A, lam, case):
                     [*adv_t.state, adv_t.xs, adv_t.us, adv_t.ts, adv_t.x, step_t]):
         assert torch.equal(a, b) if a.dtype == torch.int64 else _bits(a, b)
     assert int(step) == 1
+
+
+def _world_advance(A: int, n: int = 4):
+    """An ``Advance`` of a world of A actions (the point mass of A axes, the
+    3-D quadrotor for A = 4) from its start, histories of n rows, and the
+    counter at 0."""
+    if A < 4:
+        return _advance(A, n)
+    world = _world_of_kind("quadrotor3d")
+    state = world.reset()
+    state = type(state)(*(leaf.clone(memory_format=torch.contiguous_format) for leaf in state))
+    S = state.x.shape[-1]
+    adv = ws.Advance(world, state, torch.zeros(n + 1, S), torch.zeros(n, A), torch.zeros(n),
+                     state.x.clone())
+    return adv, torch.zeros((), dtype=torch.int64)
+
+
+def _edge_shapes():
+    import chip_smoke
+
+    return chip_smoke.SHARDED_EDGE_SHAPES
+
+
+@pytest.mark.parametrize("divide", [True, False], ids=["divide", "given-dU"])
+@pytest.mark.parametrize("T,A", _edge_shapes(), ids=[f"TA{T * A}" for T, A in _edge_shapes()])
+def test_plain_tail_at_the_row_block_boundaries(T, A, divide):
+    """At the rows on each boundary of K9's row block (T·A 1, 31-33,
+    255-257, 1023-1025, 2049, past 48 KB and the largest, 58112): the plain
+    K9 gives ΔU, every output with the weights, and in the cycle's form U
+    shifted in place and the world's state, histories, x and counter (a
+    world of A actions), bit for bit as the torch combine (with `divide`),
+    K7's plain tail and K6's plain step do, one after the other."""
+    n = 2
+    rows, S, U, max_a = _rows(n, T, A, 1.1, "finite", seed=T * A)
+    reduce = virtual_mesh(n, "cpu").all_reduce
+    beta = reduce(rows[:, 0], "min", keep=True)
+    sums = reduce(sc.sharded_scale(rows, beta, 1.1), "sum")
+    b_t, e_t, dU_t = shd.onepass_combine(rows[:, 0].contiguous(), rows[:, 1].contiguous(),
+                                         rows[:, 2:].reshape(n, T, A), 1.1, reduce)
+    dU_in = sums if divide else dU_t
+    softmin = (S, b_t, e_t, 1.1)
+    dU, full = sc.sharded_tail(U, dU_in, max_a, True, FULL, softmin, divide=divide)
+    want = st.solve_tail_reference(U, dU_t, max_a, True, FULL, softmin)
+    assert _bits(dU, dU_t)
+    for k in FULL:
+        assert _bits(getattr(full, k), getattr(want, k))
+    adv, step = _world_advance(A)
+    adv_t, step_t = _world_advance(A)
+    U_c, U_t = U.clone(), U.clone()
+    for cycle in range(2):
+        _, cyc = sc.sharded_tail(U_c, dU_in, max_a, True, CYCLE, into=U_c, divide=divide,
+                                 step=step, advance=adv)
+        tail = st.solve_tail_reference(U_t, dU_t, max_a, True, CYCLE, into=U_t)
+        ws.plain_advance_into(adv_t.world, adv_t.state, tail.action, adv_t.xs, adv_t.us, adv_t.ts,
+                              step_t, adv_t.x)
+        assert _bits(U_c, U_t) and _bits(cyc.action, tail.action)
+        for a, b in zip([*adv.state, adv.xs, adv.us, adv.ts, adv.x, step],
+                        [*adv_t.state, adv_t.xs, adv_t.us, adv_t.ts, adv_t.x, step_t]):
+            assert torch.equal(a, b) if a.dtype == torch.int64 else _bits(a, b)
+        assert int(step) == cycle + 1
 
 
 @pytest.mark.parametrize("divide", [True, False], ids=["divide", "given-dU"])
@@ -459,13 +521,42 @@ def test_chip_smoke_sharded_combine_check_runs_on_the_cpu():
                    "launches": {"sharded_scale": 0, "sharded_tail": 0}}
 
 
-@pytest.mark.parametrize("name", ["point_mass1d", "pendulum", "cartpole", "quadrotor3d", "arm"])
+def test_chip_smoke_sharded_edge_check_runs_on_the_cpu():
+    """chip_smoke.py's K8/K9 check over the rows on the boundaries of K9's
+    row block (SHARDED_EDGE_SHAPES, one and four ranks), on CPU tensors:
+    every case agrees bit for bit and nothing launches."""
+    import chip_smoke
+
+    got = chip_smoke.check_sharded_combine(device="cpu", ranks=chip_smoke.SHARDED_EDGE_RANKS,
+                                           shapes=chip_smoke.SHARDED_EDGE_SHAPES,
+                                           lams=chip_smoke.SHARDED_EDGE_LAMS,
+                                           cases=chip_smoke.SHARDED_EDGE_CASES)
+    assert got == {"bit_equal": True, "max_abs_err": 0.0, "cases": 52,
+                   "launches": {"sharded_scale": 0, "sharded_tail": 0}}
+
+
+@pytest.mark.parametrize("name", ["point_mass1d", "point_mass2d", "point_mass3d", "pendulum",
+                                  "cartpole", "unicycle", "quadrotor", "quadrotor3d", "arm"])
 def test_chip_smoke_sharded_tail_world_check_runs_on_the_cpu(name):
-    """chip_smoke.py's check of K9's world step against the plain cycle, on
-    CPU tensors (both sides plain): bit-equal over its chained cycles."""
+    """chip_smoke.py's check of K9's world step against the plain cycle and
+    K7 + K6, on CPU tensors (every side plain), for every world body at
+    each of its horizons (the config's, T = 1 and a row of two passes):
+    bit-equal over its chained cycles."""
     import chip_smoke
 
     assert chip_smoke.check_sharded_tail_world(name, device="cpu")
+
+
+def test_chip_smoke_sharded_digests_run_on_the_cpu():
+    """chip_smoke.py's digests of K8's and K9's outputs (``--time-commit``),
+    on CPU tensors: one per shape, rank count and case and one per world
+    body and horizon, the same on a second run."""
+    import chip_smoke
+
+    got = chip_smoke.sharded_digests("cpu")
+    shapes = chip_smoke.SHARDED_SHAPES + chip_smoke.SHARDED_EDGE_SHAPES
+    assert len(got) == 2 * len(shapes) * 2 + 9 * len(chip_smoke.SHARDED_WORLD_HORIZONS)
+    assert got == chip_smoke.sharded_digests("cpu")
 
 
 def test_chip_smoke_names_the_sharded_kernels():
@@ -495,15 +586,19 @@ def test_chip_smoke_names_the_sharded_kernels():
 @pytest.mark.gpu
 def test_sharded_kernels_on_the_card():
     """On the card: K8 and K9 against their plain versions and the torch
-    combine, bit for bit, at a few shapes (chip_smoke.py --sharded-combine
-    runs every case); K9's world step for the point mass and the 3-D
-    quadrotor; the sharded episode on four virtual ranks equal to the
+    combine, bit for bit, at a few shapes and at the rows on the boundaries
+    of K9's row block (chip_smoke.py --sharded-combine runs every case);
+    K9's world step for the point mass and the 3-D quadrotor at three
+    horizons; the sharded episode on four virtual ranks equal to the
     torch-combine cycle in both branches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K8 and K9 have no CPU mode")
     import chip_smoke
 
     got = chip_smoke.check_sharded_combine(ranks=(1, 4), shapes=((6, 2), (200, 3)))
+    assert got["bit_equal"] and got["launches"]["sharded_tail"] == 3 * got["cases"]
+    got = chip_smoke.check_sharded_combine(ranks=(1, 4), shapes=chip_smoke.SHARDED_EDGE_SHAPES,
+                                           lams=(1.1,), cases=("finite", "inf rank"))
     assert got["bit_equal"] and got["launches"]["sharded_tail"] == 3 * got["cases"]
     assert chip_smoke.check_sharded_tail_world("point_mass3d")
     assert chip_smoke.check_sharded_tail_world("quadrotor3d")
