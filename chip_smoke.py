@@ -272,9 +272,11 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
     solve_partials<family,A=..,inj=..>, K4's (K1's template without its
     second pass) rollout_costs<family,A=..,inj=..>, each with ",slab" for
     their slab body (slab_partials_kernel), K3's noise_dump<A=..>, K5's
-    weighted_update<A=..,inj=..>, K6's world_advance<World> (PointMass1-3 for
-    the point mass), K7's solve_tail, K2''s combine_tail<World> (NoWorld for
-    the tail alone), K8's sharded_scale, K9's sharded_tail<World,divide=0|1>;
+    weighted_update<A=..,inj=..> (its softmin form softmin_update<A=..,inj=..>),
+    K6's world_advance<World> (PointMass1-3 for the point mass), K7's
+    solve_tail, K2''s combine_tail<World> (NoWorld for the tail alone), K8's
+    sharded_scale, K9's sharded_tail<World,divide=0|1>, K10's softmin_min,
+    K11's softmin_eta;
     the family under its name in ops/families (the struct's name, lower
     case, is the family's without its hyphen), or, for a library built from
     a user family, under the name `structs` maps its struct's to."""
@@ -288,6 +290,9 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
         return "solve_tail"
     if "sharded_scale_kernel" in mangled:  # K8
         return "sharded_scale"
+    m = re.search(r"softmin_(min|eta)_kernel", mangled)
+    if m:  # K10, K11
+        return f"softmin_{m.group(1)}"
     t = re.search(r"sharded_tail_kernel\S*?(NoWorld|PointMass|Pendulum|CartPole|Unicycle|Quadrotor3D|"
                   r"Quadrotor|Arm)(ILi(\d)E)?\S*?Lb(\d)E", mangled)
     if t:  # K9, one instance per world body and one without, each with and without the division
@@ -296,8 +301,8 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
                   r"Quadrotor|Arm)(ILi(\d)E)?", mangled)
     if e:  # K2', one instance per world body and one without
         return f"combine_tail<{e.group(1)}{e.group(3) or ''}>"
-    k = re.search(r"(solve_partials|slab_partials|softmin_combine|noise_dump|weighted_update)_kernel",
-                  mangled)
+    k = re.search(r"(solve_partials|slab_partials|softmin_combine|noise_dump|weighted_update|"
+                  r"softmin_update)_kernel", mangled)
     name = k.group(1) if k else mangled
     names = {n.replace("-", ""): n for n in FAMILY_NAMES}
     if structs:
@@ -1793,12 +1798,17 @@ TRACE_NAMES = {"solve_partials": ("solve_partials_kernel", "slab_partials_kernel
 # and K5's; K4 is K1's template without its second pass, under K1's names;
 # K6's, once per control cycle; K7's, once per update (a package before K2',
 # and the sharded episodes of one before K8 and K9); K8's and K9's, once per
-# update of a sharded episode
+# update of a sharded episode; K10's and K11's, once per update of a
+# two-kernel sharded episode, and K5's softmin form (softmin_update) once per
+# local rank and update there
 KERNEL_TRACE_NAMES = {**TRACE_NAMES, "weighted_update": ("weighted_update_kernel",),
                       "world_advance": ("world_advance_kernel",),
                       "solve_tail": ("solve_tail_kernel",),
                       "sharded_scale": ("sharded_scale_kernel",),
-                      "sharded_tail": ("sharded_tail_kernel",)}
+                      "sharded_tail": ("sharded_tail_kernel",),
+                      "softmin_min": ("softmin_min_kernel",),
+                      "softmin_eta": ("softmin_eta_kernel",),
+                      "softmin_update": ("softmin_update_kernel",)}
 
 
 def _episode_config(name: str):
@@ -1911,7 +1921,8 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     untraced, the ms per cycle of `cycles` replays
     by CUDA events, which the span exceeds by what the tracer adds to each
     kernel node; K2''s µs per cycle by record name (its world body),
-    ``k2e_us``, and K8's and K9's, ``k8_us`` and ``k9_us``. A window
+    ``k2e_us``, and K8's, K9's, K10's and K11's, ``k8_us``, ``k9_us``,
+    ``k10_us`` and ``k11_us``. A window
     without both markers, or whose K1 or K2 records fall short, is read
     again, five windows at most (a failure says
     what each held): a graph replays the same launches every time."""
@@ -1924,6 +1935,7 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
     cyc = ctrl._episode_cycles["fleet" if fleet else "single"][1]
     k2 = "combine_tail" if epilogue else "softmin_combine"
     per_update = {"softmin_combine": 0, "combine_tail": 0, "sharded_scale": 0, "sharded_tail": 0,
+                  "softmin_min": 0, "softmin_eta": 0, "softmin_update": 0,
                   **(per_update or {"solve_partials": 1, k2: 1})}
     want = {k: cycles * ctrl.cfg.opt_iters * v for k, v in per_update.items()}
     standalone = not (epilogue or sharded_tail)
@@ -1991,7 +2003,9 @@ def replay_trace(ctrl, label: str, cycles: int = EPISODE_PROFILE_CYCLES, fleet: 
                 top=sorted(((round(v, 2), k) for k, v in by_name.items()), reverse=True)[:4],
                 k2e_us={k: v for k, v in by_name.items() if k.startswith("combine_tail")},
                 k8_us=sum(v for k, v in by_name.items() if k.startswith("sharded_scale")),
-                k9_us=sum(v for k, v in by_name.items() if k.startswith("sharded_tail")))
+                k9_us=sum(v for k, v in by_name.items() if k.startswith("sharded_tail")),
+                k10_us=sum(v for k, v in by_name.items() if k.startswith("softmin_min")),
+                k11_us=sum(v for k, v in by_name.items() if k.startswith("softmin_eta")))
 
 
 def solve_trace(label: str, ctrl, x, U, seed, per_update: dict | None = None,
@@ -2125,7 +2139,7 @@ def _trace_line(t: dict) -> str:
 
 def counted(fn) -> tuple[object, dict[str, int]]:
     """fn()'s result and the launches its kernels' wrappers counted (K1-K5,
-    K2', K7, K6 by world body, K8 and K9), each count set to 0 just before
+    K2', K7, K6 by world body, K8-K11), each count set to 0 just before
     it; only the kernels that launched."""
     from mppi_gpu_tpu_torch.ops import combine_tail as ct
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
@@ -4138,7 +4152,9 @@ def sharded_phase(smi: str, cols2d: dict) -> tuple[dict, int]:
     sharded_traces = {
         branch: solve_trace(f"sharded point_mass2d world of one {branch}", c, _start(cfg2),
                             c.init_action_seq(), cfg2.seed, per_update=dict(
-                                solve_partials=1, softmin_combine=1, weighted_update=int(not onepass)))
+                                solve_partials=1, softmin_combine=1,
+                                softmin_update=int(not onepass), softmin_min=int(not onepass),
+                                softmin_eta=int(not onepass)))
         for branch, onepass in (("one-pass", True), ("two-kernel", False))
         for c in (ShardedMPPIController(cfg2, mesh=world1, onepass=onepass),)}
     print(f"[19] records per graphed step of the sharded host loops in a trace of "
@@ -5253,6 +5269,22 @@ SHARDED_EDGE_CASES = ("finite", "inf rank")
 # K9's world step at each world body's config horizon (None), at T = 1 and at
 # a row of two passes (T·A 1100-4400)
 SHARDED_WORLD_HORIZONS = (None, 1, 1100)
+# K10, K11 and K5's softmin form: rollouts per rank K/n on the boundaries of
+# K11's 4096-entry chunk, a block of K10 and K11 (one entry, a ragged warp,
+# one chunk less one, one, one more) and at the point_mass2d shape, then one
+# case at the K = 10⁶ cell's (a block per chunk, 245, and the ticket), the
+# point-mass (T, A) behind K5
+SOFTMIN_K_LOCS = (1, 7, 4095, 4096, 4097, 3000)
+SOFTMIN_LARGE = (1, 1_000_000, 1.1, "finite")  # (n, K/n, λ, case)
+SOFTMIN_SHAPE = (8, 2)
+# a row with a NaN cost besides SHARDED_CASES: β and η NaN where it is (K10
+# is torch.amin's, a NaN wins); held by where the NaNs are and every other
+# bit
+SOFTMIN_CASES = SHARDED_CASES + ("nan",)
+SOFTMIN_SOURCE = SHARDED_SOURCE
+SOFTMIN_REPLACES = ("no Pallas kernel: XLA's fusion of softmin_weights around its pmin and psum, "
+                    "mppi_gpu_tpu/ops/softmin.py:30-43, in mppi_gpu_tpu/controller.py:508-521, "
+                    "under jax.jit, mppi_gpu_tpu/parallel/sharded.py:157")
 
 
 def sharded_inputs(n: int, T: int, A: int, lam: float, case: str, device: str, seed: int = 0):
@@ -5341,11 +5373,175 @@ def check_sharded_combine(device: str = "cuda", ranks=SHARDED_RANKS, shapes=SHAR
                     for k in FULL:
                         hold(f"{label} two-kernel {k}", getattr(two, k), getattr(want, k))
                     n_cases += 1
-    launches = sc.launch_counts()
+    launches = {k: v for k, v in sc.launch_counts().items() if k in ("sharded_scale", "sharded_tail")}
     if device == "cuda":
         expect(launches == {"sharded_scale": n_cases, "sharded_tail": 3 * n_cases},
                f"K8/K9: launches {launches} over {n_cases} cases")
     return dict(bit_equal=equal, max_abs_err=worst, cases=n_cases, launches=launches)
+
+
+def softmin_inputs(n: int, k_loc: int, lam: float, case: str, device: str, seed: int = 0):
+    """The local ranks' costs S (n, k_loc) from a numpy seed, each row's
+    least cost 5-8·λ and the rest up to 8·λ above it; `case` of
+    SOFTMIN_CASES: a rank at +inf, every rank so, rank 0 150·λ above the
+    others (its e_k underflow to 0), a NaN in rank 0's last entry."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    beta_d = (5.0 + lam * rng.uniform(0.0, 3.0, n)).astype(np.float32)
+    if case == "underflow" and n > 1:
+        beta_d[0] = np.float32(beta_d[1:].min() + 150.0 * lam)
+    S = (beta_d[:, None] + lam * rng.uniform(0.0, 8.0, (n, k_loc))).astype(np.float32)
+    S[np.arange(n), rng.integers(0, k_loc, n)] = beta_d
+    for d in {"inf rank": [n - 1], "every rank inf": list(range(n))}.get(case, []):
+        S[d] = np.inf
+    if case == "nan":
+        S[0, -1] = np.nan
+    return torch.from_numpy(S).to(device)
+
+
+def check_sharded_softmin(device: str = "cuda", ranks=SHARDED_RANKS, k_locs=SOFTMIN_K_LOCS,
+                          lams=SHARDED_LAMS, cases=SOFTMIN_CASES, large=SOFTMIN_LARGE) -> dict:
+    """K10, K11 and K5's softmin form against their plain version
+    (``parallel/sharded.softmin_across``) on the same costs, for n local
+    ranks of a virtual mesh (the MIN and the SUM its reductions), every
+    K/n, λ and case, and the `large` case (n, K/n, λ, case): β and η bit for
+    bit, and each rank's ΔU from K5's softmin form (+ K2's fold, T·A of
+    SOFTMIN_SHAPE) bit-equal to K5's w form on softmin_across's weights, in
+    iid, antithetic (even K/n), OU 0.5 and injected mode by turns; the row
+    tickets zero after each call. The "nan" case holds β, η and ΔU by where
+    their NaNs are and every other bit. Returns whether all were bit-equal,
+    the largest |Δ|, the cases and the launches (one of K10 and K11, n of K5
+    in each form per case on the card, none on the CPU)."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import sharded_combine as sc
+    from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
+    from mppi_gpu_tpu_torch.parallel.sharded import softmin_across
+
+    sc.reset_launch_counts()
+    fs.reset_launch_counts()
+    worst, equal, n_cases, updates = 0.0, True, 0, 0
+    T, A = SOFTMIN_SHAPE
+    sigma = torch.tensor([0.3, 0.7], device=device)
+    modes = ("iid", "antithetic", "ou", "injected")
+
+    def hold(label: str, got, want, nan: bool) -> None:
+        nonlocal worst, equal
+        if nan:  # where the NaNs are, and every other bit
+            same = torch.equal(torch.isnan(got), torch.isnan(want))
+            ok = ~torch.isnan(want)
+            if same and bits_equal(got[ok], want[ok]):
+                return
+        elif bits_equal(got, want):
+            return
+        equal = False
+        d = max_abs_diff(got, want)
+        worst = max(worst, d)
+        expect(d <= SHARDED_TOL, f"{label}: max |kernel - plain| {d:.3g} (tolerance {SHARDED_TOL})")
+
+    grid = [(n, k, lam, case) for n in ranks for k in k_locs for lam in lams for case in cases]
+    for n, k_loc, lam, case in grid + ([large] if large else []):
+        label = f"K10/K11/K5 n={n} K/n={k_loc} lambda={lam} {case}"
+        mesh = virtual_mesh(n, device)
+        S = softmin_inputs(n, k_loc, lam, case, device, seed=n_cases)
+        tickets = torch.zeros(n, dtype=torch.int32, device=device)
+        beta = mesh.all_reduce(sc.softmin_min(S, tickets), "min")
+        eta = mesh.all_reduce(sc.softmin_eta(S, beta, lam, tickets), "sum")
+        b_t, e_t, w_t = softmin_across(S, lam, mesh.all_reduce)
+        nan = case == "nan"
+        hold(f"{label} beta", beta, b_t, nan)
+        hold(f"{label} eta", eta, e_t, nan)
+        expect(not bool(tickets.any()), f"{label}: row tickets {tickets} after K10 and K11")
+        mode = modes[n_cases % len(modes)]
+        if mode == "antithetic" and k_loc % 2:
+            mode = "iid"
+        anti, ou = mode == "antithetic", 0.5 if mode == "ou" else 0.0
+        for i in range(n):
+            eps = None
+            if mode == "injected":
+                g = torch.Generator().manual_seed(n_cases * 8 + i)
+                eps = (0.4 * torch.randn(T, k_loc, A, generator=g)).to(device)
+            args = (T, k_loc, 7, 3, 1, anti, ou)
+            got = fs.weighted_update(sigma, (S[i], beta, eta, lam), *args, eps=eps, k0=i * k_loc)
+            want = fs.weighted_update(sigma, w_t[i].contiguous(), *args, eps=eps, k0=i * k_loc)
+            hold(f"{label} rank {i} {mode} dU", got, want, nan)
+            updates += 1
+        n_cases += 1
+    launches = {k: v for k, v in sc.launch_counts().items() if k.startswith("softmin_")}
+    launches["weighted_update"] = fs.launch_counts()["weighted_update"]
+    if device == "cuda":
+        expect(launches == {"softmin_min": n_cases, "softmin_eta": n_cases,
+                            "weighted_update": 2 * updates},
+               f"K10/K11/K5: launches {launches} over {n_cases} cases, {updates} updates")
+    return dict(bit_equal=equal, max_abs_err=worst, cases=n_cases, launches=launches)
+
+
+def softmin_row_bound(n: int, k_loc: int, eta: bool) -> tuple[float, str]:
+    """The least time the card could take for one K10 (`eta` False) or K11:
+    the larger of its bytes (S read once, β with K11, the n results written
+    once) over 3.35 TB/s and its operations (a compare per entry; K11 a
+    subtraction, a product, an exp and an add) over the float32 peak."""
+    floats = n * k_loc + n + int(eta)
+    ops = n * k_loc * (4 if eta else 1)
+    t_bytes, t_ops = 4 * floats / H100_BYTES_PER_S, ops / H100_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# the shapes K10, K11 and K5's softmin form are timed at: the flagship's
+# (point_mass3d K=10⁴ T=200) and point_mass2d's (K=3000 T=50), on the world
+# of one and on four virtual ranks
+SOFTMIN_TIME_SHAPES = (("flagship", 1), ("flagship", 4), ("point_mass2d", 1), ("point_mass2d", 4))
+
+
+def sharded_softmin_times() -> dict:
+    """K10 and K11 at SOFTMIN_TIME_SHAPES: CUDA events around a call (warm
+    median) in turns with the plain version's, the device time alone, the
+    bound, and the torch calls for the same work, ``torch.amin(S, 1)`` (one
+    call, K10's library yardstick) and ``torch.exp(-(S - β) / λ).sum(1)``
+    (three); K5's softmin form beside its w form at each config's (A, K, T)
+    on one rank, iid: events and device time."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+    from mppi_gpu_tpu_torch.ops import sharded_combine as sc
+
+    out = {}
+    for name, n in SOFTMIN_TIME_SHAPES:
+        cfg = _episode_config(name)
+        k_loc, lam = cfg.samples // n, cfg.lambda_
+        S = softmin_inputs(n, k_loc, lam, "finite", "cuda")
+        tickets = torch.zeros(n, dtype=torch.int32, device="cuda")
+        beta = sc.softmin_min(S, tickets).amin(0)
+        for key, kernel, plain, torch_fn, trace, eta in (
+                ("K10", lambda: sc.softmin_min(S, tickets), lambda: sc.softmin_min_reference(S),
+                 lambda: torch.amin(S, 1), "softmin_min_kernel", False),
+                ("K11", lambda: sc.softmin_eta(S, beta, lam, tickets),
+                 lambda: sc.softmin_eta_reference(S, beta, lam),
+                 lambda: torch.exp(-(S - beta) / lam).sum(1), "softmin_eta_kernel", True)):
+            ms, plain_ms = paired_median_ms(kernel, plain, 50, 10)
+            bound, by = softmin_row_bound(n, k_loc, eta)
+            out[f"{key} {name} n={n} K/n={k_loc}"] = dict(
+                ms=ms, plain_ms=plain_ms, torch_ms=float(np.median(time_ms(torch_fn, 50))),
+                bound_ms=bound, bound_by=by, device_ms=device_ms(kernel, name=trace))
+        if n == 1:
+            T, A, K = cfg.horizon, cfg.action_dim, cfg.samples
+            sigma = torch.full((A,), 0.25, device="cuda")
+            eta = sc.softmin_eta(S, beta, lam, tickets)[0]
+            w = fs.softmin_weights_of((S[0], beta, eta, lam))
+            forms = {"softmin": (lambda: fs.weighted_update(sigma, (S[0], beta, eta, lam), T, K, 7,
+                                                            3, 0, False, 0.0), "softmin_update_kernel"),
+                     "w": (lambda: fs.weighted_update(sigma, w, T, K, 7, 3, 0, False, 0.0),
+                           "weighted_update_kernel")}
+            reads = {f: [] for f in forms}
+            for f in ("w", "softmin", "softmin", "w"):
+                fn, trace = forms[f]
+                reads[f].append((float(np.median(time_ms(fn, 20))), device_ms(fn, name=trace)))
+            out[f"K5 {name} A={A} K={K} T={T}"] = {
+                f"{f}_{k}": float(np.median([r[j] for r in v if r[j] is not None]))
+                for f, v in reads.items() for j, k in enumerate(("ms", "device_ms"))}
+    return out
 
 
 def check_sharded_tail_world(name: str, device: str = "cuda",
@@ -5416,16 +5612,18 @@ def check_sharded_episode_combine(name: str, mesh, onepass: bool, device: str = 
                                   steps: int | None = None) -> dict:
     """Config `name`'s sharded controller on `mesh` in one branch, on the
     fused backend, against the same controller with the torch combine forced
-    (``_torch_combine``: the combine's torch ops, K7 and K6, as the cycle
-    ran before K8 and K9): one solve with every output (action, u_next, S, β,
-    η, the weights, u_seq) and the whole graph episode (run_episode_jit: x,
-    u and the clock of every cycle; `steps` cycles, the config's if None)
-    bit for bit; then three eager cycles of each with their launches
-    counted (the new: K1 or K4, K2 and K5 per local rank, K8 one-pass and K9
-    per update, and no K7, no K6; the forced one: K7 per update and K6 per
-    cycle) and ``onepass_combine`` called by the forced one-pass cycle alone.
-    On the CPU both run the plain versions and launch nothing. Returns the
-    launches per update and per cycle of each."""
+    (``_torch_combine``: the combine's torch ops, K5 on torch's weights, K7
+    and K6, as the cycle ran before K8-K11): one solve with every output
+    (action, u_next, S, β, η, the weights, u_seq) and the whole graph
+    episode (run_episode_jit: x, u and the clock of every cycle; `steps`
+    cycles, the config's if None) bit for bit; then three eager cycles of
+    each with their launches counted (the new: K1 or K4, K2 and K5 per local
+    rank, K8 one-pass or K10 and K11 two-kernel, and K9 per update, and no
+    K7, no K6; the forced one: K7 per update and K6 per cycle), and
+    ``onepass_combine`` and ``softmin_across`` (the torch ops between the
+    collectives) called by the forced cycle of their branch alone. On the
+    CPU both run the plain versions and launch nothing. Returns the launches
+    per update and per cycle of each."""
     import torch
 
     import mppi_gpu_tpu_torch.parallel.sharded as shd
@@ -5446,15 +5644,16 @@ def check_sharded_episode_combine(name: str, mesh, onepass: bool, device: str = 
     world = make_world(cfg, device=device)
     x0 = world.reset().x
     U0 = new.init_action_seq()
+    combine = "onepass_combine" if onepass else "softmin_across"
     calls = {"new": 0, "old": 0}
-    orig = shd.onepass_combine
+    orig = getattr(shd, combine)
     side = ["new"]
 
     def spy(*args, **kwargs):
         calls[side[0]] += 1
         return orig(*args, **kwargs)
 
-    shd.onepass_combine = spy
+    setattr(shd, combine, spy)
     try:
         results, eps, launches = {}, {}, {}
         for key, c in (("new", new), ("old", old)):
@@ -5463,7 +5662,7 @@ def check_sharded_episode_combine(name: str, mesh, onepass: bool, device: str = 
             eps[key] = run_episode_jit(c, num_steps=steps)
             _, launches[key] = counted(lambda: run_episode_jit(c, num_steps=3, capture=False))
     finally:
-        shd.onepass_combine = orig
+        setattr(shd, combine, orig)
     for i, (a, b) in enumerate(zip(_leaves(results["new"]), _leaves(results["old"]))):
         expect(bits_equal(a, b), f"{label}: solve leaf {LEAF_NAMES[i]} differs from the torch "
                f"combine's (max |delta| {max_abs_diff(a, b):.3g})")
@@ -5472,10 +5671,9 @@ def check_sharded_episode_combine(name: str, mesh, onepass: bool, device: str = 
                 for k in ("new", "old"))
         expect(np.array_equal(a, b), f"{label}: the graph episode's {f} differ from the torch "
                "combine's")
-    expect(calls["new"] == 0, f"{label}: onepass_combine called {calls['new']} times by the K8/K9 "
+    expect(calls["new"] == 0, f"{label}: {combine} called {calls['new']} times by the kernels' "
            "controller")
-    expect((calls["old"] > 0) == onepass, f"{label}: the forced torch combine ran onepass_combine "
-           f"{calls['old']} times")
+    expect(calls["old"] > 0, f"{label}: the forced torch combine never ran {combine}")
     if device == "cuda":
         n, it = len(mesh.local_ranks), cfg.opt_iters
         k1 = "solve_partials" if onepass else "rollout_costs"
@@ -5483,10 +5681,12 @@ def check_sharded_episode_combine(name: str, mesh, onepass: bool, device: str = 
         if not onepass:
             per_rank["weighted_update"] = 3 * it * n
         kind = f"world_advance<{world._kernel_kind}>"
-        want_new = {**per_rank, "sharded_tail": 3 * it, **({"sharded_scale": 3 * it} if onepass else {})}
+        between = {"sharded_scale": 3 * it} if onepass else {"softmin_min": 3 * it,
+                                                             "softmin_eta": 3 * it}
+        want_new = {**per_rank, "sharded_tail": 3 * it, **between}
         want_old = {**per_rank, "solve_tail": 3 * it, kind: 3}
-        expect(launches["new"] == want_new, f"{label}: the K8/K9 cycle launched {launches['new']}, "
-               f"want {want_new}")
+        expect(launches["new"] == want_new, f"{label}: the kernels' cycle launched "
+               f"{launches['new']}, want {want_new}")
         expect(launches["old"] == want_old, f"{label}: the torch-combine cycle launched "
                f"{launches['old']}, want {want_old}")
     return dict(launches=launches, episode_cycles=len(eps["new"].us))
@@ -5589,8 +5789,12 @@ def sharded_combine_phase(smi: str) -> dict:
     with K8 and K9 bit-equal to the torch-combine cycle at
     SHARDED_EPISODE_CONFIGS, both branches, on the world of one and on four
     virtual ranks, with each cycle's launches
-    (:func:`check_sharded_episode_combine`); K8's and K9's times beside
-    their plain versions, their bounds and the latency floor of a kernel."""
+    (:func:`check_sharded_episode_combine`); K10, K11 and K5's softmin form
+    against their plain version over every case of
+    :func:`check_sharded_softmin`; K8's, K9's, K10's and K11's times beside
+    their plain versions, their bounds and the latency floor of a kernel,
+    K10's and K11's beside the torch calls for their work, and K5's softmin
+    form beside its w form."""
     from mppi_gpu_tpu_torch.parallel import global_mesh
     from mppi_gpu_tpu_torch.parallel.mesh import virtual_mesh
 
@@ -5598,6 +5802,9 @@ def sharded_combine_phase(smi: str) -> dict:
     got = check_sharded_combine()
     edge = check_sharded_combine(ranks=SHARDED_EDGE_RANKS, shapes=SHARDED_EDGE_SHAPES,
                                  lams=SHARDED_EDGE_LAMS, cases=SHARDED_EDGE_CASES)
+    t_soft = time.perf_counter()
+    soft = check_sharded_softmin()
+    soft_s = time.perf_counter() - t_soft
     worlds = [name for name in EAGER_EPISODE_CONFIGS if check_sharded_tail_world(name)]
     meshes = {"world of one (NCCL)": global_mesh("cuda:0"), "4 virtual ranks": virtual_mesh(4, "cuda:0")}
     episodes = {}
@@ -5608,6 +5815,7 @@ def sharded_combine_phase(smi: str) -> dict:
                 episodes[label] = check_sharded_episode_combine(name, mesh, onepass)
     checks_s = time.perf_counter() - t0
     times = sharded_combine_times()
+    soft_times = sharded_softmin_times()
     floor = latency_floor()
     agree = "bit-equal" if got["bit_equal"] else f"max |delta| {got['max_abs_err']:.3g}"
     agree_edge = "bit-equal" if edge["bit_equal"] else f"max |delta| {edge['max_abs_err']:.3g}"
@@ -5632,20 +5840,52 @@ def sharded_combine_phase(smi: str) -> dict:
                       for k, v in times.items())
           + f"; a one-element add (the latency floor of a kernel): device {floor['device_us']} us, "
           f"{floor['graph_ms_per_node']:.5f} graph ms per node ({smi})")
+    agree_soft = "bit-equal" if soft["bit_equal"] else f"max |delta| {soft['max_abs_err']:.3g}"
+    print(f"[27] K10 softmin_min, K11 softmin_eta and K5's softmin form: {agree_soft} to their plain "
+          f"version (softmin_across: beta, eta, and each rank's dU against K5's w form on its "
+          f"weights) over {soft['cases']} cases (n = {SHARDED_RANKS} local ranks, K/n "
+          f"{SOFTMIN_K_LOCS}, lambda {SHARDED_LAMS}, {SOFTMIN_CASES}; and n, K/n, lambda, case = "
+          f"{SOFTMIN_LARGE}; T, A = {SOFTMIN_SHAPE}, iid/antithetic/OU 0.5/injected by turns), "
+          f"launches {soft['launches']}, {soft_s:.1f} s of the checks; "
+          + "; ".join(f"{k} " + (f"{v['ms']:.4f} ms by events, device {v['device_ms']}, plain "
+                                 f"{v['plain_ms']:.4f}, torch {v['torch_ms']:.4f}, bound "
+                                 f"{v['bound_ms']:.3g} ({v['bound_by']})" if "ms" in v else
+                                 ", ".join(f"{f} {x:.4f}" for f, x in v.items()))
+                      for k, v in soft_times.items())
+          + f" ({smi})")
     return dict(got, bit_equal=got["bit_equal"] and edge["bit_equal"],
                 max_abs_err=max(got["max_abs_err"], edge["max_abs_err"]),
                 cases=got["cases"] + edge["cases"], edge=edge, worlds=worlds, episodes=episodes,
-                times=times, floor=floor)
+                times=times, floor=floor, softmin=soft, softmin_times=soft_times)
 
 
 def sharded_entries(phase: dict, launches: dict) -> list[dict]:
-    """The kernels line's K8 and K9 entries: their launches on the sharded
-    paths of phase 26 (the ``--sharded --jit-episode`` CLI and the
+    """The kernels line's K8, K9, K10 and K11 entries: their launches on the
+    sharded paths of phase 26 (the ``--sharded --jit-episode`` CLI and the
     two-kernel episode, the counts set to 0 around each), their largest
     difference from their plain versions (phase 27), and their times at the
-    flagship's shape beside their bounds and the latency floor."""
+    flagship's shape beside their bounds and the latency floor (K10 and K11
+    on the world of one, K/n = 10⁴, the four virtual ranks' as "other",
+    K10's library call ``torch.amin(S, 1)``; K11 has no one torch call for
+    its work, so its ``torch_ms``, three calls, stands beside it)."""
     floor = phase["floor"]
     out = []
+    soft = phase["softmin"]
+    for name, key in (("softmin_min", "K10"), ("softmin_eta", "K11")):
+        m = phase["softmin_times"][f"{key} flagship n=1 K/n=10000"]
+        o = phase["softmin_times"][f"{key} flagship n=4 K/n=2500"]
+        out.append({
+            "name": name, "route": "cuda", "source": SOFTMIN_SOURCE, "replaces": SOFTMIN_REPLACES,
+            "launches": launches[name], "max_abs_err": soft["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["torch_ms"] if name == "softmin_min" else None,
+            "torch_ms": m["torch_ms"], "device_ms": m["device_ms"],
+            "shape": "flagship K=10000, one local rank's row of S (a world of one)",
+            "bit_equal": soft["bit_equal"], "other_ms": o["ms"], "other_plain_ms": o["plain_ms"],
+            "other_device_ms": o["device_ms"], "other_bound_ms": o["bound_ms"],
+            "other_shape": "four local ranks' rows of 2500 (a virtual mesh)",
+            "floor_kernel_device_us": floor["device_us"],
+            "floor_graph_ms_per_node": floor["graph_ms_per_node"]})
     for name, main, other in (("sharded_scale", "K8 n=1", "K8 n=4"), ("sharded_tail", "K9 cycle", "K9 full")):
         m, o = phase["times"][main], phase["times"][other]
         out.append({
@@ -5665,22 +5905,32 @@ def sharded_entries(phase: dict, launches: dict) -> list[dict]:
     return out
 
 
-def sharded_per_update(mesh, onepass: bool) -> dict:
-    """The records per update of a sharded episode's graph cycle: K1 or K4,
-    K2 and (two-kernel) K5 once per local rank, K8 (one-pass) and K9 once."""
+def sharded_per_update(mesh, onepass: bool, softmin_kernels: bool = True) -> dict:
+    """The records per update of a sharded episode's graph cycle: K1 or K4
+    and K2 once per local rank, K9 once; one-pass K8 once; two-kernel K5
+    once per local rank, in its softmin form with K10 and K11 once each
+    (`softmin_kernels`; a package before them: K5's w form, no K10, K11)."""
     n = len(mesh.local_ranks)
-    return {"solve_partials": n, "softmin_combine": n, "weighted_update": 0 if onepass else n,
+    two = not onepass
+    return {"solve_partials": n, "softmin_combine": n,
+            "weighted_update": n if two and not softmin_kernels else 0,
+            "softmin_update": n if two and softmin_kernels else 0,
+            "softmin_min": int(two and softmin_kernels), "softmin_eta": int(two and softmin_kernels),
             "sharded_scale": int(onepass), "sharded_tail": 1}
 
 
-def sharded_cycle_kernels(mesh, opt_iters: int) -> int:
-    """Kernels per graph cycle of a one-pass sharded episode: K1 and K2 per
-    local rank, the MIN's and the SUM's reductions over two or more local
-    ranks (a virtual mesh; a real rank's are NCCL's, which on a world of one
-    launches none), K8 and K9, per update. The copy of β_d that a real
-    rank's MIN takes is a memory copy, not a kernel."""
+def sharded_cycle_kernels(mesh, opt_iters: int, onepass: bool = True) -> int:
+    """Kernels per graph cycle of a sharded episode, per update: one-pass K1
+    and K2 per local rank, K8 and K9; two-kernel K4, K5 and K2 per local
+    rank, K10, K11 and K9; and the reductions of its collectives over two or
+    more local ranks (a virtual mesh: two one-pass, three two-kernel; a real
+    rank's are NCCL's, which on a world of one launches none). The copy of
+    β_d that a real rank's one-pass MIN takes is a memory copy, not a
+    kernel."""
     n = len(mesh.local_ranks)
-    return opt_iters * (2 * n + (2 if n > 1 else 0) + 2)
+    if onepass:
+        return opt_iters * (2 * n + (2 if n > 1 else 0) + 2)
+    return opt_iters * (3 * n + (3 if n > 1 else 0) + 3)
 
 
 def sharded_episode_row(name: str, mesh_name: str, mesh, onepass: bool, solo, smi: str) -> dict:
@@ -5725,15 +5975,16 @@ def sharded_episode_row(name: str, mesh_name: str, mesh, onepass: bool, solo, sm
                    f"difference {diffs.mean():+.4f} m (standard error {se:.4f}); mean steady "
                    f"{np.mean(seeds):.4f}, solo {np.mean(solo['seeds']):.4f}; {under} and {ref} "
                    "seeds under the bar")
-    # K1 or K4, K2 and K5 once per rank and update; K8 (one-pass) and K9 once
-    # per update, K9 with the world's step; no K7, no K6
+    # K1 or K4, K2 and K5 (its softmin form) once per rank and update; K8
+    # (one-pass) or K10 and K11 (two-kernel) and K9 once per update, K9 with
+    # the world's step; no K7, no K6
     trace = replay_trace(ctrl, label, epilogue=False, sharded_tail=True,
                          per_update=sharded_per_update(mesh, onepass))
-    if onepass:
-        want = sharded_cycle_kernels(mesh, cfg.opt_iters)
-        expect(trace["kernels"] == want, f"{label}: {trace['kernels']:g} kernels per graph cycle, "
-               f"want {want} (K1 and K2 per rank, K8 and K9, and on {mesh.size} virtual ranks the "
-               "two reductions, per update)")
+    want = sharded_cycle_kernels(mesh, cfg.opt_iters, onepass)
+    expect(trace["kernels"] == want, f"{label}: {trace['kernels']:g} kernels per graph cycle, "
+           f"want {want} ({'K1 and K2 per rank, K8' if onepass else 'K4, K5 and K2 per rank, K10, K11'}"
+           f" and K9, and on {mesh.size} virtual ranks the reductions of the collectives, per "
+           "update)")
     n = len(graph.us)
     row = dict(graph_ms=graph_s * 1e3 / n, eager_ms=eager_s * 1e3 / n, solo_ms=solo["ms"],
                first_s=first_s, dx=dx, du=du, steady=steady, bar=bar, trace=trace)
@@ -5743,8 +5994,9 @@ def sharded_episode_row(name: str, mesh_name: str, mesh, onepass: bool, solo, sm
           f"(states, actions) {dx:.3g}, {du:.3g} of the solo episode over {EPISODE_HOST_CYCLES} "
           f"cycles (tol {EPISODE_HOST_TOL[name]}); steady {steady:.4f} (bar {bar}){quality}; trace of "
           f"{EPISODE_PROFILE_CYCLES} replays: {trace['kernels']:g} kernels per cycle, records per "
-          f"cycle {trace['records']} (K4 under "
-          f"solve_partials), NCCL {trace['nccl_per_cycle']:g} records, {trace['nccl_us']:.2f} us per "
+          f"cycle {trace['records']} (K4 under solve_partials, K5's softmin form as "
+          f"softmin_update), K10 {trace['k10_us']:.2f} us, K11 {trace['k11_us']:.2f} us per "
+          f"cycle, NCCL {trace['nccl_per_cycle']:g} records, {trace['nccl_us']:.2f} us per "
           f"cycle {trace['nccl_names']}; {_trace_line(trace)} ({smi})")
     return row
 
@@ -5919,7 +6171,8 @@ def graphs_phase(smi: str) -> dict:
            and not any(k.startswith("world_advance") for k in onepass_launches),
            f"--sharded --jit-episode: launches {onepass_launches}")
     expect(min(two_launches.get(k, 0) for k in ("rollout_costs", "weighted_update",
-                                                 "softmin_combine", "sharded_tail")) > 0
+                                                 "softmin_combine", "softmin_min", "softmin_eta",
+                                                 "sharded_tail")) > 0
            and not {"solve_tail", "sharded_scale"} & two_launches.keys()
            and not any(k.startswith("world_advance") for k in two_launches),
            f"two-kernel sharded episode: launches {two_launches}")
@@ -5959,8 +6212,8 @@ def graphs_phase(smi: str) -> dict:
 def sharded_combine_only() -> int:
     """``python3 chip_smoke.py --sharded-combine``: the build (phase 2), then
     phase 27 alone in a world of one NCCL rank, and no contract line: the
-    quickest check of K8 and K9 and of the sharded episode's cycle with
-    them."""
+    quickest check of K8-K11 and K5's softmin form and of the sharded
+    episode's cycle with them."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5975,7 +6228,7 @@ def sharded_combine_only() -> int:
     _build.load_library()
     print(f"[2] build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}")
     for line in ptxas_summary(lib_path.with_suffix(".log").read_text()):
-        if line.startswith("sharded_"):
+        if line.startswith(("sharded_", "softmin_min", "softmin_eta", "softmin_update")):
             print(f"    ptxas {line}")
     with nccl_world_of_one():
         sharded_combine_phase(smi)
@@ -6903,7 +7156,9 @@ def main() -> int:
                          large_plain_ms=wu[100_000][1], large_bound_ms=wu[100_000][2],
                          large_device_ms=wu[100_000][4],
                          large_shape="A=3 K=100000 T=200", sharded_solve_ms=sharded_ms,
-                         step_pointer_device_ms=graphs["k5"])
+                         step_pointer_device_ms=graphs["k5"],
+                         softmin_form={k: v for k, v in sharded["softmin_times"].items()
+                                       if k.startswith("K5 ")})
         else:
             entry.update(ms=kernel_ms[name][0], plain_ms=kernel_ms[name][1], shape="A=3 K=10000 T=200",
                          fleet_launches=fleet_launches[name], fleet_ms=fleet_kernel_ms[name][0],
@@ -6928,7 +7183,7 @@ def main() -> int:
     entries += world_entries(episode)
     path = graphs["launches"]  # the sharded paths of phase 26, counted from 0 around each
     sharded_launches = {k: path["onepass"].get(k, 0) + path["two_kernel"].get(k, 0)
-                        for k in ("sharded_scale", "sharded_tail")}
+                        for k in ("sharded_scale", "sharded_tail", "softmin_min", "softmin_eta")}
     for name, n in sharded_launches.items():
         expect(n > 0, f"kernel {name} was not launched on the sharded paths")
     entries += sharded_entries(sharded, sharded_launches)
@@ -7093,7 +7348,9 @@ def sharded_commit_times(times) -> dict:
     mass's world step), and in the one-pass cycle's form (the division, the
     action, U shifted in place, the world step at the counter) for the
     world body of every EAGER_EPISODE_CONFIGS config at its (T, A) and for
-    the flagship's."""
+    the flagship's; where the package has K10 and K11, those at
+    SOFTMIN_TIME_SHAPES and K5's softmin form at the flagship's and
+    point_mass2d's (A, K, T) on one rank, iid."""
     import torch
 
     from mppi_gpu_tpu_torch.controller import CYCLE, FULL, ITERATE
@@ -7135,6 +7392,26 @@ def sharded_commit_times(times) -> dict:
                 lambda: sc.sharded_tail(U_c, dU, max_a, c.clamp_action, CYCLE, into=U_c,
                                         step=step, advance=adv, tickets=tickets),
                 "sharded_tail_kernel")
+    if not hasattr(sc, "softmin_eta"):
+        return out
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    for name, n in SOFTMIN_TIME_SHAPES:
+        c = _episode_config(name)
+        k_loc = c.samples // n
+        S = softmin_inputs(n, k_loc, c.lambda_, "finite", "cuda")
+        row_tickets = torch.zeros(n, dtype=torch.int32, device="cuda")
+        beta = sc.softmin_min(S, row_tickets).amin(0)
+        out[f"K10 {name} n={n} K/n={k_loc}"] = times(lambda: sc.softmin_min(S, row_tickets),
+                                                      "softmin_min_kernel")
+        out[f"K11 {name} n={n} K/n={k_loc}"] = times(
+            lambda: sc.softmin_eta(S, beta, c.lambda_, row_tickets), "softmin_eta_kernel")
+        if n == 1:
+            sigma = torch.full((c.action_dim,), 0.25, device="cuda")
+            softmin = (S[0], beta, sc.softmin_eta(S, beta, c.lambda_, row_tickets)[0], c.lambda_)
+            out[f"K5 softmin form {name} A={c.action_dim} K={c.samples} T={c.horizon}"] = times(
+                lambda: fs.weighted_update(sigma, softmin, c.horizon, c.samples, 7, 3, 0, False,
+                                           0.0), "softmin_update_kernel")
     return out
 
 
@@ -7271,8 +7548,10 @@ def episode_commit(root: str) -> int:
     trace of its replays (:func:`replay_trace`) kernels, busy ms and K1 + K2's
     share of busy per cycle and the untraced ms per cycle; the sharded
     episode's graph ms per cycle at SHARDED_EPISODE_CONFIGS, both branches, on
-    a world of one NCCL rank and on four virtual ranks, with K8's and K9's
-    device µs per cycle from the trace; the digest of each
+    a world of one NCCL rank and on four virtual ranks, with K8's, K9's,
+    K10's and K11's device µs per cycle from the trace (a package before
+    K10 and K11 traced with K5's w form in its two-kernel cycle); the
+    digest of each
     graph episode's histories (xs, us, times: the final state is xs[-1]),
     ``digest``; one JSON line. A package before K6 or K7 is traced without
     their records, one before K2' (``ops/combine_tail.py``) with K2, K7 and
@@ -7295,6 +7574,8 @@ def episode_commit(root: str) -> int:
     k7 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.solve_tail") is not None
     k2e = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.combine_tail") is not None
     k9 = importlib.util.find_spec("mppi_gpu_tpu_torch.ops.sharded_combine") is not None
+    k11 = k9 and hasattr(importlib.import_module("mppi_gpu_tpu_torch.ops.sharded_combine"),
+                         "softmin_eta")
     digests = {}  # each graph episode's xs, us and times
 
     def row(ctrl, run, label: str, fleet: bool = False, per_update=None,
@@ -7312,8 +7593,8 @@ def episode_commit(root: str) -> int:
                     untraced_ms=t["untraced_ms"], k6_per_cycle=t["k6_per_cycle"],
                     k7_per_cycle=t["k7_per_cycle"], k2e_per_cycle=t["k2e_per_cycle"],
                     k8_per_cycle=t["k8_per_cycle"], k9_per_cycle=t["k9_per_cycle"],
-                    k8_us=t["k8_us"], k9_us=t["k9_us"], nccl_per_cycle=t["nccl_per_cycle"],
-                    top=t["top"])
+                    k8_us=t["k8_us"], k9_us=t["k9_us"], k10_us=t["k10_us"], k11_us=t["k11_us"],
+                    nccl_per_cycle=t["nccl_per_cycle"], top=t["top"])
 
     configs = {name: row(MPPIController(_episode_config(name), device="cuda"), run_episode_jit, name)
                for name in EPISODE_CONFIGS}
@@ -7329,7 +7610,7 @@ def episode_commit(root: str) -> int:
                 for onepass in (True, False):
                     label = f"{name} {mname} {'one-pass' if onepass else 'two-kernel'}"
                     ctrl = ShardedMPPIController(_episode_config(name), mesh=mesh, onepass=onepass)
-                    per_update = sharded_per_update(mesh, onepass)
+                    per_update = sharded_per_update(mesh, onepass, softmin_kernels=k11)
                     if not k9:  # a package before K8 and K9: K7 per update, K6 per cycle
                         per_update.update(sharded_scale=0, sharded_tail=0)
                     sharded[label] = row(ctrl, run_episode_jit, label, epilogue=False,
@@ -7338,8 +7619,9 @@ def episode_commit(root: str) -> int:
     for label, r in sharded.items():  # the sharded rows, to read parent → change by eye
         print(f"[episode-commit] {root} sharded {label}: {r['kernels']:g} kernels per cycle (K7 "
               f"{r['k7_per_cycle']:g}, K6 {r['k6_per_cycle']:g}, K8 {r['k8_per_cycle']:g}, K9 "
-              f"{r['k9_per_cycle']:g}; device K8 {r['k8_us']:.2f} us, K9 {r['k9_us']:.2f} us per "
-              f"cycle), graph {r['graph_ms']:.4f} ms per cycle, untraced "
+              f"{r['k9_per_cycle']:g}; device K8 {r['k8_us']:.2f} us, K9 {r['k9_us']:.2f} us, K10 "
+              f"{r['k10_us']:.2f} us, K11 {r['k11_us']:.2f} us per cycle), graph "
+              f"{r['graph_ms']:.4f} ms per cycle, untraced "
               f"{r['untraced_ms']:.4f}, idle {r['idle']:.4f}, eager {r['eager_ms']:.4f} ({smi})")
     print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "smi": smi,
                       "world_kernel": k6, "tail_kernel": k7, "epilogue": k2e, "sharded_tail": k9,

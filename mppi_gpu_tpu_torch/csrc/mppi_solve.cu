@@ -672,14 +672,33 @@ __global__ void __launch_bounds__(kGroupThreads, 4) noise_dump_kernel(
 // the control step (a 0-dim int64 on the device) whose low word replaces
 // np.step, as in K1: a CUDA graph that captured the launch replays each
 // cycle's step.
-template <int A, bool INJ>
-__global__ void __launch_bounds__(kGroupThreads, 4) weighted_update_kernel(
-    const float* __restrict__ sigma, const float* __restrict__ w,
-    const float* __restrict__ eps_in, float* __restrict__ partials, int T, NoiseParams np,
-    const long long* __restrict__ step_ptr) {
+// Two forms share the body: weighted_update_kernel reads the weights w;
+// softmin_update_kernel, the two-kernel sharded solve's, reads the rank's
+// costs S, β and η after the collectives and λ, and forms each weight in its
+// prologue as w_k = e_k/η, e_k = expf(−(S_k − β)·float32(1/λ)), each torch op
+// rounded once (__fsub_rn, __fmul_rn, __fdiv_rn), as K9's weight blocks and
+// K11 (sharded_combine.cu) form e_k: bit-equal to torch's exp(−(S − β)/λ)/η on
+// the card, and no w is written. Under antithetic it forms w̃ = w[kd] −
+// w[K_draw + kd] from the two costs.
+
+// the weight of a rollout from what the form reads: w itself, or its cost
+struct GivenWeight {
+  __device__ __forceinline__ float operator()(float w) const { return w; }
+};
+struct SoftminWeight {
+  float beta, eta, inv_lam;  // β and η after the collectives, float32(1/λ)
+  __device__ __forceinline__ float operator()(float s) const {
+    return __fdiv_rn(expf(__fmul_rn(-__fsub_rn(s, beta), inv_lam)), eta);
+  }
+};
+
+// K5's body: `src` holds w (GivenWeight) or S (SoftminWeight), one per rollout
+template <int A, bool INJ, class Weight>
+__device__ __forceinline__ void weighted_update_body(
+    const float* __restrict__ sigma, const float* __restrict__ src, const Weight weight,
+    const float* __restrict__ eps_in, float* __restrict__ partials, int T, const NoiseParams& np) {
   extern __shared__ float red[];  // (T, A) Σ over the block's draws of w̃·n (INJ: w·ε)
   const int TA = T * A;
-  if (step_ptr != nullptr) np.step = (unsigned)(unsigned long long)*step_ptr;
   const bool fold = !INJ && np.antithetic;
   const int n = fold ? np.K_draw : np.K;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -689,7 +708,9 @@ __global__ void __launch_bounds__(kGroupThreads, 4) weighted_update_kernel(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     k[h] = kb + 32 * h + lane;
-    wk[h] = k[h] < n ? (fold ? w[k[h]] - w[np.K_draw + k[h]] : w[k[h]]) : 0.0f;
+    wk[h] = k[h] < n ? (fold ? weight(src[k[h]]) - weight(src[np.K_draw + k[h]])
+                              : weight(src[k[h]]))
+                     : 0.0f;
   }
   for (int t = warp; t < T; t += kGroupWarps) {
     float acc[A];
@@ -743,25 +764,64 @@ __global__ void __launch_bounds__(kGroupThreads, 4) weighted_update_kernel(
 }
 
 template <int A, bool INJ>
-cudaError_t launch_weighted_update(const float* sigma, const float* w, const float* eps_in,
-                                   float* partials, int T, const NoiseParams& np,
-                                   const long long* step_ptr, cudaStream_t stream) {
+__global__ void __launch_bounds__(kGroupThreads, 4) weighted_update_kernel(
+    const float* __restrict__ sigma, const float* __restrict__ w,
+    const float* __restrict__ eps_in, float* __restrict__ partials, int T, NoiseParams np,
+    const long long* __restrict__ step_ptr) {
+  if (step_ptr != nullptr) np.step = (unsigned)(unsigned long long)*step_ptr;
+  weighted_update_body<A, INJ>(sigma, w, GivenWeight{}, eps_in, partials, T, np);
+}
+
+template <int A, bool INJ>
+__global__ void __launch_bounds__(kGroupThreads, 4) softmin_update_kernel(
+    const float* __restrict__ sigma, const float* __restrict__ S,
+    const float* __restrict__ beta, const float* __restrict__ eta, float inv_lam,
+    const float* __restrict__ eps_in, float* __restrict__ partials, int T, NoiseParams np,
+    const long long* __restrict__ step_ptr) {
+  if (step_ptr != nullptr) np.step = (unsigned)(unsigned long long)*step_ptr;
+  weighted_update_body<A, INJ>(sigma, S, SoftminWeight{*beta, *eta, inv_lam}, eps_in, partials,
+                               T, np);
+}
+
+// the softmin K5 forms its weights from, when it is not given w
+struct SoftminArgs {
+  const float* S;     // the rank's costs (K,)
+  const float* beta;  // 0-dim, after the MIN collective
+  const float* eta;   // 0-dim, after the SUM collective
+  float inv_lam;      // float32(1/λ)
+};
+
+template <int A, bool INJ>
+cudaError_t launch_weighted_update(const float* sigma, const float* w, const SoftminArgs& sm,
+                                   const float* eps_in, float* partials, int T,
+                                   const NoiseParams& np, const long long* step_ptr,
+                                   cudaStream_t stream) {
   const int n = (!INJ && np.antithetic) ? np.K_draw : np.K;
+  const int nb = (n + kGroup - 1) / kGroup;
   const size_t smem = (size_t)T * A * sizeof(float);
-  cudaError_t err = set_smem(weighted_update_kernel<A, INJ>, smem);
-  if (err != cudaSuccess) return err;
-  weighted_update_kernel<A, INJ><<<(n + kGroup - 1) / kGroup, kGroupThreads, smem, stream>>>(
-      sigma, w, eps_in, partials, T, np, step_ptr);
+  if (w != nullptr) {
+    cudaError_t err = set_smem(weighted_update_kernel<A, INJ>, smem);
+    if (err != cudaSuccess) return err;
+    weighted_update_kernel<A, INJ><<<nb, kGroupThreads, smem, stream>>>(sigma, w, eps_in,
+                                                                        partials, T, np, step_ptr);
+  } else {
+    cudaError_t err = set_smem(softmin_update_kernel<A, INJ>, smem);
+    if (err != cudaSuccess) return err;
+    softmin_update_kernel<A, INJ><<<nb, kGroupThreads, smem, stream>>>(
+        sigma, sm.S, sm.beta, sm.eta, sm.inv_lam, eps_in, partials, T, np, step_ptr);
+  }
   return cudaGetLastError();
 }
 
 template <int A>
-cudaError_t launch_weighted_update_mode(const float* sigma, const float* w, const float* eps_in,
-                                        float* partials, int T, const NoiseParams& np,
-                                        const long long* step_ptr, cudaStream_t stream) {
+cudaError_t launch_weighted_update_mode(const float* sigma, const float* w, const SoftminArgs& sm,
+                                        const float* eps_in, float* partials, int T,
+                                        const NoiseParams& np, const long long* step_ptr,
+                                        cudaStream_t stream) {
   return eps_in != nullptr
-             ? launch_weighted_update<A, true>(sigma, w, eps_in, partials, T, np, step_ptr, stream)
-             : launch_weighted_update<A, false>(sigma, w, eps_in, partials, T, np, step_ptr,
+             ? launch_weighted_update<A, true>(sigma, w, sm, eps_in, partials, T, np, step_ptr,
+                                               stream)
+             : launch_weighted_update<A, false>(sigma, w, sm, eps_in, partials, T, np, step_ptr,
                                                 stream);
 }
 
@@ -880,18 +940,26 @@ int mppi_noise_dump(const float* sigma, float* eps_out, unsigned* words_out, int
 // partials (nb, 2 + T·A) for K2 to fold (normalize 0), nb = ceil(n / 64)
 // with n = K/2 under antithetic in Philox mode, else K. The draws start at
 // counter word k0. step_ptr (a 0-dim int64 control step on the device, read
-// in place of `step`) or null, as K1's.
+// in place of `step`) or null, as K1's. With w null, the softmin form: the
+// weights formed from S (K,), beta and eta (one float each on the device)
+// and inv_lam = float32(1/λ) as expf(−(S − β)·inv_lam)/η. Refuses
+// (cudaErrorInvalidValue) both w and S given or neither, and the softmin
+// form without beta or eta.
 int mppi_weighted_update(const float* sigma, const float* w, const float* eps_in,
                          float* partials, int K, int T, int A, unsigned key0, unsigned key1,
                          unsigned step, unsigned it, unsigned k0, int antithetic, float ou_beta,
-                         float ou_c, const long long* step_ptr, void* stream) {
+                         float ou_c, const long long* step_ptr, const float* S, const float* beta,
+                         const float* eta, float inv_lam, void* stream) {
+  if ((w == nullptr) == (S == nullptr) || (S != nullptr && (beta == nullptr || eta == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const NoiseParams np = make_noise(key0, key1, step, it, k0, K, antithetic, ou_beta, ou_c);
+  const SoftminArgs sm{S, beta, eta, inv_lam};
   cudaStream_t s = (cudaStream_t)stream;
   switch (A) {
-    case 1: return (int)launch_weighted_update_mode<1>(sigma, w, eps_in, partials, T, np, step_ptr, s);
-    case 2: return (int)launch_weighted_update_mode<2>(sigma, w, eps_in, partials, T, np, step_ptr, s);
-    case 3: return (int)launch_weighted_update_mode<3>(sigma, w, eps_in, partials, T, np, step_ptr, s);
-    case 4: return (int)launch_weighted_update_mode<4>(sigma, w, eps_in, partials, T, np, step_ptr, s);
+    case 1: return (int)launch_weighted_update_mode<1>(sigma, w, sm, eps_in, partials, T, np, step_ptr, s);
+    case 2: return (int)launch_weighted_update_mode<2>(sigma, w, sm, eps_in, partials, T, np, step_ptr, s);
+    case 3: return (int)launch_weighted_update_mode<3>(sigma, w, sm, eps_in, partials, T, np, step_ptr, s);
+    case 4: return (int)launch_weighted_update_mode<4>(sigma, w, sm, eps_in, partials, T, np, step_ptr, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

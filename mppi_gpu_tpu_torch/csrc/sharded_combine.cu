@@ -54,6 +54,41 @@
 // at full precision (no fast math), f·x (__fmul_rn), 0.0 where f == 0, and
 // Σ/η by the device scalar η (__fdiv_rn); the cross-rank sums are the mesh's
 // own. So the result is the torch combine's bit for bit.
+//
+// K10 softmin_min and K11 softmin_eta: the two-kernel sharded solve's softmin
+// across the ranks, one kernel before each of its collectives. They replace
+// no Pallas kernel either: under jax.jit (mppi_gpu_tpu/parallel/sharded.py:
+// 157) the two-kernel branch (mppi_gpu_tpu/controller.py:508-521) runs
+// softmin_weights with an axis name (mppi_gpu_tpu/ops/softmin.py:30-43), a
+// min, a pmin, an exp with its sum, a psum and e/η, and XLA fuses the work
+// before each collective into one fusion, the weights into the Pallas update.
+// Here K10 takes β_d = min of each local rank's row of S (the rows of one
+// (n, K/n) buffer K4 writes), the MIN collective β; K11 η_d = Σ_k e_k with
+// e_k = expf(−(S_k − β)·float32(1/λ)) (K9's and K7's expression for torch's
+// rounding), the SUM collective η; K5's softmin form (mppi_solve.cu) forms
+// the weights e_k/η itself. Their plain version is
+// parallel/sharded.softmin_across, the seven torch kernels they replace.
+// K10's min is torch.amin's: +inf where every rollout of the rank costs +inf,
+// NaN where a NaN is present (a NaN wins every comparison). K11's sum has one
+// fixed order, whatever the grid: each 4096-entry chunk of a row is summed by
+// 1024 lanes, lane l taking entries l, l + 1024, l + 2048, l + 3072 of the
+// chunk in that order (entries past the row are 0), then by a halving tree,
+// lane l adding lane l + h for h = 512, 256, …, 1; the chunks' sums are then
+// added in chunk order. The plain version repeats it in elementwise torch
+// adds over a zero-padded view (ops/sharded_combine.eta_sum), so on the card
+// the two agree bit for bit.
+// Both read K/n floats a row and write one: at K/n = 3000-10⁴ that is 12-40 KB,
+// 0.004-0.012 µs at 3.35 TB/s, far below a launch. They are built for
+// latency: a block of 256 threads takes one chunk, each thread its 16 entries
+// (16 loads, then β once, all in flight before any arithmetic), so a row of up
+// to 4096 entries is one round trip and one block. A longer row (up to the
+// K = 10⁶ cell's) takes a block per chunk, in parallel; each writes its
+// chunk's value to a scratch row and takes a ticket of its row (atomicAdd
+// after __threadfence), and the last block combines the C values, in chunk
+// order for the sum, and sets the ticket back to 0 for the next launch (a
+// replayed graph's too). Blocks of up to four chunks (1024 threads, no ticket
+// up to 16384 entries) were tried on an H100: about 0.3 µs less per cycle at
+// the flagship's K/n = 10⁴, 0.15-0.3 µs more at one chunk (PERF.md §6).
 
 #include "solve_tail.cuh"
 #include "world_step.cuh"
@@ -61,9 +96,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxRanks = 65535;  // gridDim.y of K8
+constexpr int kMaxRanks = 65535;  // gridDim.y of K8, K10 and K11
 constexpr int kPer = 4;             // K9: row entries a thread holds per pass
 constexpr int kChunk = kPer * kThreads;  // K9: entries per pass, one round trip each
+constexpr int kRowChunk = 4096;     // K10/K11: entries of a row per block, K11's chunk
+constexpr int kRowLanes = 1024;     // K11: lanes of a chunk, kRowChunk / kRowLanes entries each
+constexpr int kRowPer = kRowChunk / kThreads;          // K10/K11: entries a thread loads, 16
+constexpr int kLaneEntries = kRowChunk / kRowLanes;    // K11: entries a lane adds in order, 4
+constexpr int kThreadLanes = kRowLanes / kThreads;     // K11: lanes a thread holds, 4
 
 struct NoWorld {};  // the tail alone: an inner opt iteration, or a world without a K6 body
 
@@ -75,6 +115,122 @@ __global__ void __launch_bounds__(kThreads) sharded_scale_kernel(
   const float f = expf(__fmul_rn(__fsub_rn(*beta, row[0]), inv_lam));
   for (int i = blockIdx.x * kThreads + threadIdx.x; i <= TA; i += gridDim.x * kThreads)
     out[d * (1 + (long long)TA) + i] = f == 0.0f ? 0.0f : __fmul_rn(f, row[1 + i]);
+}
+
+// torch's min: a NaN on either side wins
+__device__ __forceinline__ float nan_min(float a, float b) { return (a != a || a < b) ? a : b; }
+
+// After each block of row d has its value v in thread 0: true in every thread
+// of the last of the row's C blocks to finish, which then reads the C values
+// from scratch[d·C …]; thread 0 of every block wrote its own there first.
+__device__ __forceinline__ bool last_block_of_row(float v, float* scratch, int* tickets,
+                                                  long long d) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    scratch[d * gridDim.x + blockIdx.x] = v;
+    __threadfence();  // the value is seen before the ticket
+    last = atomicAdd(&tickets[d], 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  return last;
+}
+
+// K10: β_d = min over row d of S (n, k_loc), grid (⌈k_loc/4096⌉, n)
+__global__ void __launch_bounds__(kThreads) softmin_min_kernel(
+    const float* __restrict__ S, int k_loc, float* __restrict__ beta_d, float* scratch,
+    int* tickets) {
+  const long long d = blockIdx.y;
+  const float* row = S + d * k_loc;
+  const int base = blockIdx.x * kRowChunk + threadIdx.x;
+  float v[kRowPer];
+#pragma unroll
+  for (int j = 0; j < kRowPer; ++j) {
+    const int i = base + j * kThreads;
+    v[j] = i < k_loc ? row[i] : __int_as_float(0x7f800000);  // +inf
+  }
+  float m = v[0];
+#pragma unroll
+  for (int j = 1; j < kRowPer; ++j) m = nan_min(m, v[j]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = nan_min(m, __shfl_xor_sync(0xffffffffu, m, o));
+  __shared__ float warp_min[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < kThreads / 32; ++w) m = nan_min(m, warp_min[w]);
+  }
+  if (gridDim.x == 1) {
+    if (threadIdx.x == 0) beta_d[d] = m;
+    return;
+  }
+  if (last_block_of_row(m, scratch, tickets, d) && threadIdx.x == 0) {
+    const float* part = scratch + d * gridDim.x;
+    float r = __ldcg(part);
+#pragma unroll 8
+    for (int c = 1; c < (int)gridDim.x; ++c) r = nan_min(r, __ldcg(part + c));
+    beta_d[d] = r;
+    tickets[d] = 0;
+  }
+}
+
+// K11: η_d = Σ_k expf(−(S_k − β)·inv_lam) over row d of S (n, k_loc) in the
+// fixed order above, grid (⌈k_loc/4096⌉, n). Thread t holds lanes t, t + 256,
+// t + 512, t + 768 of its block's chunk: the tree's first two levels (h = 512,
+// 256) in its registers, h = 128, 64, 32 in shared memory, 16-1 in warp 0.
+__global__ void __launch_bounds__(kThreads) softmin_eta_kernel(
+    const float* __restrict__ S, int k_loc, const float* __restrict__ beta, float inv_lam,
+    float* __restrict__ eta_d, float* scratch, int* tickets) {
+  const long long d = blockIdx.y;
+  const float* row = S + d * k_loc;
+  const int base = blockIdx.x * kRowChunk + threadIdx.x;
+  float s[kThreadLanes][kLaneEntries];  // lane t + 256·q, its entries in order
+#pragma unroll
+  for (int q = 0; q < kThreadLanes; ++q) {
+#pragma unroll
+    for (int j = 0; j < kLaneEntries; ++j) {
+      const int i = base + q * kThreads + j * kRowLanes;
+      s[q][j] = i < k_loc ? row[i] : 0.0f;
+    }
+  }
+  const float b = *beta;
+  float lane[kThreadLanes];
+#pragma unroll
+  for (int q = 0; q < kThreadLanes; ++q) {
+#pragma unroll
+    for (int j = 0; j < kLaneEntries; ++j) {
+      const int i = base + q * kThreads + j * kRowLanes;
+      const float e = i < k_loc ? expf(__fmul_rn(-__fsub_rn(s[q][j], b), inv_lam)) : 0.0f;
+      lane[q] = j == 0 ? e : __fadd_rn(lane[q], e);
+    }
+  }
+  // h = 512 (lane t + lane t + 512, lane t + 256 + lane t + 768), then h = 256
+  __shared__ float tree[kThreads];
+  tree[threadIdx.x] = __fadd_rn(__fadd_rn(lane[0], lane[2]), __fadd_rn(lane[1], lane[3]));
+  __syncthreads();
+#pragma unroll
+  for (int h = kThreads / 2; h > 32; h >>= 1) {
+    if (threadIdx.x < h) tree[threadIdx.x] = __fadd_rn(tree[threadIdx.x], tree[threadIdx.x + h]);
+    __syncthreads();
+  }
+  float v = 0.0f;
+  if (threadIdx.x < 32) {
+    v = __fadd_rn(tree[threadIdx.x], tree[threadIdx.x + 32]);  // h = 32
+#pragma unroll
+    for (int h = 16; h > 0; h >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, h));
+  }
+  if (gridDim.x == 1) {
+    if (threadIdx.x == 0) eta_d[d] = v;
+    return;
+  }
+  if (last_block_of_row(v, scratch, tickets, d) && threadIdx.x == 0) {
+    const float* part = scratch + d * gridDim.x;
+    float r = __ldcg(part);
+#pragma unroll 8
+    for (int c = 1; c < (int)gridDim.x; ++c) r = __fadd_rn(r, __ldcg(part + c));  // chunk order
+    eta_d[d] = r;
+    tickets[d] = 0;
+  }
 }
 
 struct ShardedTailArgs {
@@ -197,6 +353,16 @@ bool fits(int n_leaves, int n_params, int A) {
   return n_leaves == W::kLeaves && n_params == W::kParams && A == W::kA;
 }
 
+// the chunks of a row of k_loc entries, K10's and K11's blocks per row
+int row_chunks(int k_loc) { return (k_loc + kRowChunk - 1) / kRowChunk; }
+
+// K10 and K11 refuse n outside [1, 65535], k_loc below 1, and a row of more
+// than one chunk without scratch (n·C floats) or tickets (n int32, zero)
+bool bad_rows(int n, int k_loc, const float* scratch, const int* tickets) {
+  return n < 1 || n > kMaxRanks || k_loc < 1
+         || (row_chunks(k_loc) > 1 && (scratch == nullptr || tickets == nullptr));
+}
+
 }  // namespace
 
 extern "C" {
@@ -211,6 +377,32 @@ int mppi_sharded_scale(const float* rows, int n, int TA, const float* beta, floa
   if (n < 1 || n > kMaxRanks || TA < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((TA + kThreads) / kThreads, n);  // ⌈(1 + TA)/256⌉ blocks per row
   sharded_scale_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(rows, beta, inv_lam, TA, out);
+  return (int)cudaGetLastError();
+}
+
+// K10: beta_d (n,) = the min of each row of S (n, k_loc), torch.amin's (NaN
+// where one is present); scratch (n, ⌈k_loc/4096⌉) floats and tickets (n,)
+// int32 zeros, left zero, for rows of more than 4096 entries (else unused,
+// may be null). Refuses (cudaErrorInvalidValue) what bad_rows names.
+int mppi_softmin_min(const float* S, int n, int k_loc, float* beta_d, float* scratch,
+                     int* tickets, void* stream) {
+  if (bad_rows(n, k_loc, scratch, tickets)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(row_chunks(k_loc), n);
+  softmin_min_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(S, k_loc, beta_d, scratch,
+                                                                  tickets);
+  return (int)cudaGetLastError();
+}
+
+// K11: eta_d (n,) = Σ_k expf(−(S[d, k] − β)·inv_lam) for each row of S
+// (n, k_loc), β one float on the device (after the MIN collective), inv_lam
+// float32(1/λ), summed in the fixed order above; scratch and tickets as K10's.
+// Refuses (cudaErrorInvalidValue) what bad_rows names.
+int mppi_softmin_eta(const float* S, int n, int k_loc, const float* beta, float inv_lam,
+                     float* eta_d, float* scratch, int* tickets, void* stream) {
+  if (bad_rows(n, k_loc, scratch, tickets)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(row_chunks(k_loc), n);
+  softmin_eta_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(S, k_loc, beta, inv_lam, eta_d,
+                                                                  scratch, tickets);
   return (int)cudaGetLastError();
 }
 

@@ -5,10 +5,10 @@ into one shared library with a plain C interface and loads it: the solve's
 kernels (``mppi_solve.cu``, K1-K5), the world step (``world_step.cu``, K6),
 the solve's tail (``solve_tail.cu``, K7), K2 with the tail and the world
 step as its epilogue (``combine_tail.cu``, K2') and the sharded controller's
-combine and tail (``sharded_combine.cu``, K8 and K9), each file its own
-translation unit. It runs at the
-first kernel launch on a CUDA device; importing the package, or running on
-the CPU, never builds.
+combine and tail (``sharded_combine.cu``, K8 and K9) and its two-kernel
+softmin (K10 and K11, same file), each file its own translation unit. It
+runs at the first kernel launch on a CUDA device; importing the package, or
+running on the CPU, never builds.
 
 ``load_family_library(source, struct, A)`` does the same for a fused family
 registered from user code (``ops/families.register_family``): one generated
@@ -58,8 +58,8 @@ _SIGNATURES = {
     ),
     "mppi_softmin_combine": ([_p, _i, _i, _i, _f, _i, _p, _p, _p], _i),
     "mppi_noise_dump": ([_p, _p, _p, _i, _i, _i, _u, _u, _u, _u, _u, _i, _f, _f, _p], _i),
-    "mppi_weighted_update": ([_p] * 4 + [_i, _i, _i, _u, _u, _u, _u, _u, _i, _f, _f, _p, _p],
-                             _i),
+    "mppi_weighted_update": ([_p] * 4 + [_i, _i, _i, _u, _u, _u, _u, _u, _i, _f, _f, _p]
+                             + [_p, _p, _p, _f, _p], _i),
     # csrc/world_step.cu (K6)
     "mppi_world_layout": ([_i, _ip, _ip, _ip], _i),
     "mppi_world_advance": ([_i, _pp, _pp, _i, _p, _p, _i, _p, _i, _i, _p, _i, _i, _i, _p, _p, _p,
@@ -71,8 +71,10 @@ _SIGNATURES = {
     "mppi_combine_tail": ([_p, _i, _i, _i, _i, _f] + [_p] * 4 + [_i] + [_p] * 4
                           + [_i, _pp, _pp, _i, _p, _p, _i, _p, _i, _i, _p, _p, _p, _i, _p, _p, _i,
                              _p], _i),
-    # csrc/sharded_combine.cu (K8, K9)
+    # csrc/sharded_combine.cu (K8, K9, K10, K11)
     "mppi_sharded_scale": ([_p, _i, _i, _p, _f, _p, _p], _i),
+    "mppi_softmin_min": ([_p, _i, _i, _p, _p, _p, _p], _i),
+    "mppi_softmin_eta": ([_p, _i, _i, _p, _f, _p, _p, _p, _p], _i),
     "mppi_sharded_tail": ([_p, _p, _i, _p, _i] + [_p] * 7 + [_f, _p, _i, _i, _i, _p]
                           + [_i, _pp, _pp, _i, _p, _p, _i, _p, _i, _i, _p, _p, _p, _i, _p, _p, _p],
                           _i),

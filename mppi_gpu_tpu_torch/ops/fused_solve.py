@@ -26,12 +26,14 @@ and their plain versions.
   ``bench.bench_floor`` times); no controller launches it. Its S is K1's S
   for the same inputs, bit for bit.
 * :func:`weighted_update` (K5) — ΔU = Σ_k w_k ε_k for given normalized
-  weights w, ε regenerated in the kernel (K5's per-block sums folded by K2
-  without the division by η): the update of the two-kernel sharded solve
-  (``parallel/sharded.py``); its plain version is
-  :func:`weighted_update_reference`, and :func:`weighted_update_partials`
-  is the plain twin of K5's rows (:data:`DRAW_GROUP` draws each, the OU
-  filter run on the row's sums).
+  weights w, or for the weights K5 forms itself from the softmin (S, β, η,
+  λ) (its softmin form, the update of the two-kernel sharded solve,
+  ``parallel/sharded.py``), ε regenerated in the kernel (K5's per-block
+  sums folded by K2 without the division by η); its plain version is
+  :func:`weighted_update_reference` (on the softmin's weights as torch ops
+  compute them, :func:`softmin_weights_of`), and
+  :func:`weighted_update_partials` is the plain twin of K5's rows
+  (:data:`DRAW_GROUP` draws each, the OU filter run on the row's sums).
 
 The LTI functions :func:`lti_solve_partials`, :func:`fused_solve`,
 :func:`fleet_solve_partials` and :func:`fleet_fused_solve` take the
@@ -82,7 +84,7 @@ import math
 import torch
 
 from mppi_gpu_tpu_torch.models.point_mass import PointMassLTI
-from mppi_gpu_tpu_torch.ops import philox
+from mppi_gpu_tpu_torch.ops import _rounding, philox
 from mppi_gpu_tpu_torch.ops.cost import QuadraticCost
 from mppi_gpu_tpu_torch.ops.families import FAMILY_ID, FAMILY_NAMES, MAX_A, FusedFamily
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
@@ -563,17 +565,21 @@ def fleet_rollout_costs_reference(
 
 def fused_rollout_costs(
     fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps=None, k0=0,
+    S_out=None,
 ) -> torch.Tensor:
     """K4 for one robot of family `fam` (the R = 1 launch) on CUDA tensors,
     its plain version on CPU tensors: the rollout costs S (K,) of the solve
     :func:`family_solve_partials` would run on the same inputs, and nothing
-    else. Arguments as there, without λ_softmin."""
+    else. Arguments as there, without λ_softmin; S written into `S_out` (K,)
+    when given (a sharded rank's row of one buffer)."""
     if not _solo_on_cuda(fam, x0, U, goal, K, antithetic, eps, step):
-        return rollout_costs_reference(
+        S = rollout_costs_reference(
             fam, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps, k0,
         )
+        return S if S_out is None else S_out.copy_(S)
     return _launch_solve_partials(
         fam, x0, U, goal, None, K, int(seed), step, it, antithetic, ou_beta, eps, 1, (), k0,
+        S_out=S_out,
     )
 
 
@@ -657,21 +663,23 @@ def _combine_form(nb: int, TA: int, one_block: bool | None, row_bytes: int = 0) 
 
 def _launch_softmin_combine(
     partials: torch.Tensor, lam_softmin: float, R: int, T: int, A: int, lead: tuple[int, ...],
-    normalize: bool = True, out: torch.Tensor | None = None,
+    normalize: bool = True, out: torch.Tensor | None = None, dU_out: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 (grid: 32-column tiles of ΔU × robots) on checked CUDA
     partials; returns (β η (*lead, 2), ΔU (*lead, T, A)), for one robot the
-    two parts of `out` (2 + T·A,) when given. Counts the launch."""
+    two parts of `out` (2 + T·A,) when given, or ΔU as a view of `dU_out`
+    (T·A,) when given (β η then into a scratch pair). Counts the launch."""
     nb = partials.shape[-2]
     _combine_form(nb, T * A, False)
     from mppi_gpu_tpu_torch.ops._build import load_library
 
     lib = load_library()
+    f32 = dict(dtype=torch.float32, device=partials.device)
     if out is not None:
         beta_eta, dU = out[:2], out[2:].view(T, A)
     else:
-        beta_eta = torch.empty(*lead, 2, dtype=torch.float32, device=partials.device)
-        dU = torch.empty(*lead, T, A, dtype=torch.float32, device=partials.device)
+        beta_eta = torch.empty(*lead, 2, **f32)
+        dU = dU_out.view(T, A) if dU_out is not None else torch.empty(*lead, T, A, **f32)
     if _launch(
         "softmin_combine", lib.mppi_softmin_combine, partials.device,
         partials.data_ptr(), R, nb, T * A, float(lam_softmin), int(normalize),
@@ -921,45 +929,79 @@ def weighted_update_rows(T: int, K: int, A: int, fold: bool) -> int:
     return -(-(K // 2 if fold else K) // DRAW_GROUP)
 
 
+def softmin_weights_of(softmin) -> torch.Tensor:
+    """The weights exp(−(S − β)/λ)/η of `softmin` = (S (K,), β, η 0-dim, λ a
+    Python float) as torch ops compute them: what K5's softmin form forms."""
+    S, beta, eta, lam = softmin
+    return torch.exp(-(S - beta) / lam) / eta
+
+
 def weighted_update(
-    sigma: torch.Tensor, w: torch.Tensor, T: int, K: int, seed: int, step, it: int,
-    antithetic: bool, ou_beta: float, eps=None, k0: int = 0,
+    sigma: torch.Tensor, w, T: int, K: int, seed: int, step, it: int,
+    antithetic: bool, ou_beta: float, eps=None, k0: int = 0, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """ΔU (T, A) = Σ_k w_k ε_k for normalized softmin weights w (K,), ε the
+    """ΔU (T, A) = Σ_k w_k ε_k for normalized softmin weights w, ε the
     port's noise stream for (seed, step, it) from draw k0 on under σ (A,)
-    (the stream K1 and K4 draw), or the given ε (T, K, A). `step` is an int,
-    passed by value, or a 0-dim int64 tensor on the inputs' device, whose
-    address K5 reads the step from, as K1 does. On CUDA tensors K5 writes
-    per-block sums, regenerating ε, and K2 folds them (f_b = 1, not divided
-    by η); on CPU tensors :func:`weighted_update_reference` on the stream
-    ``ops/philox.py`` draws."""
+    (the stream K1 and K4 draw), or the given ε (T, K, A). `w` is the
+    weights (K,), or the softmin (S (K,), β, η 0-dim, λ a Python float)
+    from which K5's softmin form forms each weight in its prologue,
+    exp(−(S_k − β)/λ)/η with torch's rounding (the division by λ a product
+    with float32(1/λ), ``_rounding.scalar_reciprocal``), and writes no w:
+    the two-kernel sharded solve's update after its collectives. `step` is
+    an int, passed by value, or a 0-dim int64 tensor on the inputs' device,
+    whose address K5 reads the step from, as K1 does. ΔU is written into
+    `out` (T·A,) when given (a sharded rank's row of one buffer) and
+    returned as its view. On CUDA tensors K5 writes per-block sums,
+    regenerating ε, and K2 folds them (f_b = 1, not divided by η); on CPU
+    tensors :func:`weighted_update_reference` on the stream
+    ``ops/philox.py`` draws and, for a softmin, on the weights of
+    :func:`softmin_weights_of`."""
     A = sigma.shape[0] if sigma.dim() == 1 else -1
     _check_problem(T, A, K, antithetic and eps is None)
     _check("sigma", sigma, (A,))
-    _check("w", w, (K,))
+    softmin = w if isinstance(w, tuple) else None
+    if softmin is not None:
+        S, beta, eta, lam = softmin
+        _check("S", S, (K,))
+        _check("beta", beta, ())
+        _check("eta", eta, ())
+        tensors = [sigma, S, beta, eta]
+    else:
+        _check("w", w, (K,))
+        tensors = [sigma, w]
     if eps is not None:
         _check("eps", eps, (T, K, A))
-    if not _on_cuda(*(t for t in (sigma, w, eps) if t is not None), *_step_tensors(step)):
+        tensors.append(eps)
+    if out is not None:
+        _check("out", out, (T * A,))
+        tensors.append(out)
+    if not _on_cuda(*tensors, *_step_tensors(step)):
         if eps is None:
             eps = philox.sample_eps(seed, step, it, T, K, sigma, antithetic=antithetic,
                                     ou_beta=ou_beta, k0=k0)
-        return weighted_update_reference(w, eps)
+        dU = weighted_update_reference(w if softmin is None else softmin_weights_of(softmin), eps)
+        return dU if out is None else out.view(T, A).copy_(dU)
     fold = antithetic and eps is None  # one lane per draw, its mirror folded in
     nb = weighted_update_rows(T, K, A, fold)
     from mppi_gpu_tpu_torch.ops._build import load_library
 
     lib = load_library()
     step_ptr = isinstance(step, torch.Tensor)
-    partials = torch.empty(nb, 2 + T * A, dtype=torch.float32, device=w.device)
+    partials = torch.empty(nb, 2 + T * A, dtype=torch.float32, device=sigma.device)
+    if softmin is None:  # the weights given, or their costs (w null)
+        w_ptr, form = w.data_ptr(), (None, None, None, 0.0)
+    else:
+        w_ptr = None
+        form = (S.data_ptr(), beta.data_ptr(), eta.data_ptr(), _rounding.scalar_reciprocal(lam))
     if _launch(
-        f"weighted_update<A={A}>", lib.mppi_weighted_update, w.device,
-        sigma.data_ptr(), w.data_ptr(), eps.data_ptr() if eps is not None else None,
+        f"weighted_update<A={A}>", lib.mppi_weighted_update, sigma.device,
+        sigma.data_ptr(), w_ptr, eps.data_ptr() if eps is not None else None,
         partials.data_ptr(), K, T, A, *_noise_words(seed, 0 if step_ptr else step, it),
         philox.draw_offset(k0), int(fold), float(ou_beta), _ou_c(ou_beta),
-        step.data_ptr() if step_ptr else None,
+        step.data_ptr() if step_ptr else None, *form,
     ):
         _LAUNCHES["weighted_update"] += 1
-    return _launch_softmin_combine(partials, 1.0, 1, T, A, (), normalize=False)[1]
+    return _launch_softmin_combine(partials, 1.0, 1, T, A, (), normalize=False, dU_out=out)[1]
 
 
 def reset_launch_counts() -> None:

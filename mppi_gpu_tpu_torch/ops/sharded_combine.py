@@ -1,7 +1,9 @@
 """K8 ``sharded_scale`` and K9 ``sharded_tail``: the one-pass sharded
 combine's kernel between its two all-reduces and the sharded controller's
-tail after them (``csrc/sharded_combine.cu``), their plain versions and the
-dispatch between them.
+tail after them; K10 ``softmin_min`` and K11 ``softmin_eta``: the two-kernel
+branch's softmin, one kernel before each of its collectives
+(``csrc/sharded_combine.cu``); their plain versions and the dispatch
+between them.
 
 * :func:`sharded_scale` (K8) — the local ranks' rows [β_d, η_d, ΔŨ_d]
   (n, 2 + T·A), K2's unnormalized output, and β after the MIN collective →
@@ -14,10 +16,18 @@ dispatch between them.
   with an :class:`~mppi_gpu_tpu_torch.ops.world_step.Advance`, the world's
   cycle at the counter `step`, as K2''s epilogue runs it. A world from user
   code (no K6 body) steps after the launch in its own torch ops.
+* :func:`softmin_min` (K10) — β_d = min of each local rank's row of S
+  (n, K/n), ``torch.amin``'s, before the MIN collective.
+* :func:`softmin_eta` (K11) — η_d = Σ_k exp(−(S_k − β)/λ) of each row
+  against β after the MIN, before the SUM collective, summed in one fixed
+  order (:func:`eta_sum`); K5's softmin form (``fused_solve.weighted_update``)
+  then forms the weights e_k/η after it.
 * :func:`sharded_scale_reference`, :func:`sharded_tail_reference` — their
   plain versions: the torch operations of ``parallel/sharded.onepass_combine``
   between the collectives, the division, ``solve_tail_reference`` and the
-  world's plain cycle, in their order.
+  world's plain cycle, in their order; :func:`softmin_min_reference`,
+  :func:`softmin_eta_reference` — K10's and K11's, those of
+  ``parallel/sharded.softmin_across``.
 
 The choice is made by the tensors' device, never by trying: a CUDA input of
 another dtype, shape or layout raises, as does a failed or refused launch,
@@ -36,10 +46,125 @@ from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops import solve_tail as st
 from mppi_gpu_tpu_torch.ops import world_step as ws
 
-MAX_RANKS = 65535  # K8's grid axis y is the local rank (kMaxRanks)
+MAX_RANKS = 65535  # K8's, K10's and K11's grid axis y is the local rank (kMaxRanks)
+# K11's fixed order: each ROW_CHUNK-entry chunk of a row is summed by
+# ROW_LANES lanes, lane l taking entries l, l + ROW_LANES, … of the chunk in
+# that order, then by a halving tree (lane l + lane l + h, h = ROW_LANES/2
+# … 1); the chunks' sums are added in chunk order. K10 and K11 run a block
+# per chunk (kRowChunk, kRowLanes)
+ROW_CHUNK, ROW_LANES = 4096, 1024
 
-# launches of K8 and K9 that ran
-_LAUNCHES = {"sharded_scale": 0, "sharded_tail": 0}
+# launches of K8-K11 that ran
+_LAUNCHES = {"sharded_scale": 0, "sharded_tail": 0, "softmin_min": 0, "softmin_eta": 0}
+
+
+def row_chunks(k_loc: int) -> int:
+    """The chunks of a row of k_loc entries: K10's and K11's blocks per row."""
+    return -(-k_loc // ROW_CHUNK)
+
+
+def eta_sum(e: torch.Tensor) -> torch.Tensor:
+    """The sum of each row of e (n, k) in K11's fixed order, in elementwise
+    torch adds over a zero-padded view: (n,). On the card these adds round
+    as K11's do, so the two agree bit for bit."""
+    n, k = e.shape
+    C = row_chunks(k)
+    x = torch.nn.functional.pad(e, (0, C * ROW_CHUNK - k))
+    x = x.view(n, C, ROW_CHUNK // ROW_LANES, ROW_LANES)  # [row, chunk, entry of the lane, lane]
+    s = x[:, :, 0]
+    for j in range(1, x.shape[2]):
+        s = s + x[:, :, j]
+    h = ROW_LANES // 2
+    while h:
+        s = s[..., :h] + s[..., h:]
+        h //= 2
+    total = s[:, 0, 0]
+    for c in range(1, C):
+        total = total + s[:, c, 0]
+    return total
+
+
+def softmin_min_reference(S: torch.Tensor) -> torch.Tensor:
+    """K10's plain version: the min of each row of S, ``torch.amin``."""
+    return torch.amin(S, 1)
+
+
+def softmin_eta_reference(S: torch.Tensor, beta: torch.Tensor, lam: float) -> torch.Tensor:
+    """K11's plain version: Σ exp(−(S − β)/λ) over each row of S in K11's
+    order (:func:`eta_sum`)."""
+    return eta_sum(torch.exp(-(S - beta) / lam))
+
+
+def _check_rows(S: torch.Tensor, tickets) -> tuple[int, int]:
+    """(n, K/n) of the local ranks' costs S, checked for K10 and K11."""
+    if S.dim() != 2 or S.shape[1] < 1:
+        raise ValueError(f"K10/K11: S is (n, K/n), got {tuple(S.shape)}")
+    n = S.shape[0]
+    if not 1 <= n <= MAX_RANKS:
+        raise ValueError(f"K10/K11 take 1 <= n <= {MAX_RANKS} rows, got {n}")
+    st._check("S", S, S.shape)
+    if tickets is not None and (tickets.dtype != torch.int32 or tuple(tickets.shape) != (n,)
+                                or not tickets.is_contiguous()):
+        raise ValueError(f"K10/K11: tickets are ({n},) contiguous int32 zeros")
+    return S.shape
+
+
+def _row_scratch(S: torch.Tensor, tickets):
+    """K10's and K11's scratch (n, C) and tickets (n,) for rows of C > 1
+    chunks (the caller's tickets, else new zeros), else (None, None)."""
+    n, k_loc = S.shape
+    C = row_chunks(k_loc)
+    if C == 1:
+        return None, None
+    if tickets is None:
+        tickets = torch.zeros(n, dtype=torch.int32, device=S.device)
+    return torch.empty(n, C, dtype=torch.float32, device=S.device), tickets
+
+
+def softmin_min(S: torch.Tensor, tickets: torch.Tensor | None = None) -> torch.Tensor:
+    """β_d (n,): the min of each local rank's row of its costs S (n, K/n),
+    as ``torch.amin`` (+inf where a rank's rollouts all cost +inf, NaN where
+    a NaN is present). One launch of K10 on a CUDA tensor, with `tickets`
+    ((n,) int32 zeros, the controller's; new ones if None) where a row is
+    longer than ROW_CHUNK; else :func:`softmin_min_reference`."""
+    n, k_loc = _check_rows(S, tickets)
+    if not fs._on_cuda(S, *([] if tickets is None else [tickets])):
+        return softmin_min_reference(S)
+    beta_d = torch.empty(n, dtype=torch.float32, device=S.device)
+    scratch, tickets = _row_scratch(S, tickets)
+    from mppi_gpu_tpu_torch.ops import _build  # built at the first launch, not at import
+
+    if fs._launch("softmin_min", _build.load_library().mppi_softmin_min, S.device, S.data_ptr(),
+                  n, k_loc, beta_d.data_ptr(), _ptr(scratch), _ptr(tickets)):
+        _LAUNCHES["softmin_min"] += 1
+    return beta_d
+
+
+def softmin_eta(S: torch.Tensor, beta: torch.Tensor, lam: float,
+                tickets: torch.Tensor | None = None) -> torch.Tensor:
+    """η_d (n,) = Σ_k exp(−(S_k − β)/λ) over each local rank's row of S
+    (n, K/n) against β (a 0-dim tensor, the MIN collective's result) at λ
+    (a Python float), summed in K11's fixed order (:func:`eta_sum`). One
+    launch of K11 on CUDA tensors (the division by λ a product with
+    float32(1/λ), as torch's on the card), with `tickets` as
+    :func:`softmin_min`'s; else :func:`softmin_eta_reference`."""
+    n, k_loc = _check_rows(S, tickets)
+    st._check("beta", beta, ())
+    if not fs._on_cuda(S, beta, *([] if tickets is None else [tickets])):
+        return softmin_eta_reference(S, beta, lam)
+    eta_d = torch.empty(n, dtype=torch.float32, device=S.device)
+    scratch, tickets = _row_scratch(S, tickets)
+    from mppi_gpu_tpu_torch.ops import _build  # built at the first launch, not at import
+
+    if fs._launch("softmin_eta", _build.load_library().mppi_softmin_eta, S.device, S.data_ptr(),
+                  n, k_loc, beta.data_ptr(), _rounding.scalar_reciprocal(lam), eta_d.data_ptr(),
+                  _ptr(scratch), _ptr(tickets)):
+        _LAUNCHES["softmin_eta"] += 1
+    return eta_d
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def sharded_scale_reference(rows: torch.Tensor, beta: torch.Tensor, lam: float) -> torch.Tensor:
@@ -177,14 +302,11 @@ def _launch_tail(U, dU, max_a, clamp, outputs, softmin, into, divide, keep_dU, s
                               (advance.xs, advance.us, advance.ts, step, advance.x))
     from mppi_gpu_tpu_torch.ops import _build  # built at the first launch, not at import
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     if fs._launch(
         "sharded_tail", _build.load_library().mppi_sharded_tail, U.device, U.data_ptr(),
-        dU.data_ptr(), int(divide), max_a.data_ptr(), int(clamp), ptr(u_seq), ptr(u_next),
-        ptr(action), ptr(dU_out), ptr(S), ptr(beta), ptr(eta), inv_lam, ptr(weights), T, A, K,
-        ptr(tickets), *world,
+        dU.data_ptr(), int(divide), max_a.data_ptr(), int(clamp), _ptr(u_seq), _ptr(u_next),
+        _ptr(action), _ptr(dU_out), _ptr(S), _ptr(beta), _ptr(eta), inv_lam, _ptr(weights), T,
+        A, K, _ptr(tickets), *world,
     ):
         _LAUNCHES["sharded_tail"] += 1
     tail = st.Tail(u_seq=u_seq, u_next=u_next, action=action, weights=weights)
@@ -196,5 +318,5 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """K8's and K9's launches that ran since the last reset."""
+    """K8's, K9's, K10's and K11's launches that ran since the last reset."""
     return dict(_LAUNCHES)

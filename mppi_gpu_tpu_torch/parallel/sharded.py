@@ -26,7 +26,16 @@ distribution.) Two branches, as ``mppi_gpu_tpu/controller.py:481-521``:
   rank's costs (K4), the softmin across the ranks (:func:`softmin_across`:
   β = min, η = Σ exp(−(S − β)/λ)), the update of the rank's ε by its weights
   w = exp(−(S − β)/λ)/η (K5), and ΔU = Σ over the ranks: three collectives.
-  On the fused backend its tail and the world's step are one launch of K9.
+  On the fused backend K4 writes each local rank's S into its row of one
+  (n_local, K/n) buffer; K10 (``ops/sharded_combine``) takes every row's
+  min β_d, the MIN collective β; K11 every row's η_d, the SUM collective η;
+  K5 in its softmin form forms each rank's weights from S, β, η and λ and
+  K2 folds its rows into the rank's row of one (n_local, T·A) buffer; the
+  SUM collective adds those in place; K9 runs the tail and the world's step:
+  K4, K10, K11, K5, K2, K9 on a world of one, and between the collectives
+  nothing but the port's kernels. The eager backend runs
+  :func:`softmin_across`, the plain version of K10, K11 and K5's weights,
+  and K7.
 
 The eager backend runs the same branches on the plain versions. The combine
 takes the ranks' values stacked on a leading axis and the mesh's reducer
@@ -108,10 +117,12 @@ def onepass_combine(beta_d, eta_d, dU_d, lam: float, reduce):
 def softmin_across(S_d, lam: float, reduce):
     """The softmin over every rank's costs S_d (n, K/n), stacked on a leading
     axis: (β, η, w (n, K/n)) with w_k = exp(−(S_k − β)/λ)/η (two
-    collectives)."""
+    collectives), each rank's η_d summed in K11's fixed order
+    (``sharded_combine.eta_sum``). The plain version of K10, K11 and K5's
+    softmin form."""
     beta = reduce(torch.amin(S_d, 1), "min")
     e = torch.exp(-(S_d - beta) / lam)
-    eta = reduce(e.sum(1), "sum")
+    eta = reduce(sc.eta_sum(e), "sum")
     return beta, eta, e / eta
 
 
@@ -128,16 +139,18 @@ def _solve_once(
     mesh: Mesh, backend: str, fam, dyn: Dynamics, cost: Cost, x0, U, sigma, lam: float, max_a,
     *, K: int, clamp: bool, antithetic: bool, ou_beta: float, onepass: bool, seed: int,
     step, it: int, eps=None, outputs=FULL, into=None, advance=None, tickets=None,
-    torch_combine: bool = False,
+    row_tickets=None, torch_combine: bool = False,
 ) -> SolveResult:
     """One sharded update of U for (seed, step, it), or on the injected ε
     (T, K, A) of which rank d takes its slice; its tail (the same on every
     rank, after the collectives) computes `outputs` only, then with
     `advance` the world's step under its action: on the fused backend one
     launch of K9 (``ops/sharded_combine``, with the controller's `tickets`),
-    on the eager one K7 and K6 on the card. `torch_combine` runs the fused
-    backend's combine as the eager backend's (the torch ops, K7 and K6): the
-    yardstick chip_smoke.py holds K8 and K9 to."""
+    on the eager one K7 and K6 on the card; the two-kernel branch's K10 and
+    K11 take the controller's `row_tickets` (one int32 zero per local rank)
+    for rows of more than one block. `torch_combine` runs the fused
+    backend's combine as the eager backend's (the torch ops, K5 on torch's
+    weights, K7 and K6): the yardstick chip_smoke.py holds K8-K11 to."""
     anti = antithetic and eps is None
     k_loc = rollouts_per_rank(K, mesh.size, anti)
     T = U.shape[0]
@@ -153,9 +166,12 @@ def _solve_once(
              else philox.sample_eps(seed, step, it, T, k_loc, sigma, antithetic=anti,
                                     ou_beta=ou_beta, k0=k0[d])
              for d in ranks}
-    if fused and onepass and not torch_combine:
-        return _fused_onepass(mesh, fam, x0, U, goal, lam, max_a, args, noise, k0, clamp,
-                              outputs, into, step, advance, tickets)
+    if fused and not torch_combine:
+        if onepass:
+            return _fused_onepass(mesh, fam, x0, U, goal, lam, max_a, args, noise, k0, clamp,
+                                  outputs, into, step, advance, tickets)
+        return _fused_two_kernel(mesh, fam, x0, U, goal, lam, max_a, args, noise, k0, clamp,
+                                 outputs, into, step, advance, tickets, row_tickets)
     if onepass:
         cores = [fs.family_fused_solve(fam, x0, U, goal, lam, *args, eps=noise[d], k0=k0[d],
                                        normalize=False) if fused
@@ -173,11 +189,6 @@ def _solve_once(
             else fs.weighted_update_reference(w_d, noise[d])
             for d, w_d in zip(ranks, w)
         ]), "sum")
-        if fused and not torch_combine:
-            softmin = (S.reshape(-1), beta, eta, lam) if "weights" in outputs else None
-            _, tail = sc.sharded_tail(U, dU, max_a, clamp, outputs, softmin, into, step=step,
-                                      advance=advance, tickets=tickets)
-            return _result(tail, S.reshape(-1), beta, eta, tail.weights)
     res = _finish_fused(U, dU, S.reshape(-1), beta, eta, lam, max_a, clamp, outputs, into)
     ws.advance_after(advance, res.action, step)
     return res
@@ -204,6 +215,34 @@ def _fused_onepass(mesh: Mesh, fam, x0, U, goal, lam: float, max_a, args, noise,
     _, tail = sc.sharded_tail(U, sums, max_a, clamp, outputs, softmin, into, divide=True,
                               step=step, advance=advance, tickets=tickets)
     return _result(tail, S, beta, sums[0], tail.weights)
+
+
+def _fused_two_kernel(mesh: Mesh, fam, x0, U, goal, lam: float, max_a, args, noise, k0,
+                      clamp: bool, outputs, into, step, advance, tickets,
+                      row_tickets) -> SolveResult:
+    """The two-kernel branch on the fused backend: per local rank K4 (S into
+    its row of one buffer), K10 on every row, the MIN collective, K11 on
+    every row, the SUM collective, per local rank K5 in its softmin form and
+    K2's fold into its row of one (n_local, T·A) buffer, the SUM collective
+    in place, then K9: the tail and, with `advance`, the world's step."""
+    T, A = U.shape
+    f32 = dict(dtype=torch.float32, device=U.device)
+    ranks = mesh.local_ranks
+    S = torch.empty(len(ranks), args[0], **f32)
+    for i, d in enumerate(ranks):
+        fs.fused_rollout_costs(fam, x0, U, goal, *args, eps=noise[d], k0=k0[d], S_out=S[i])
+    beta = mesh.all_reduce(sc.softmin_min(S, row_tickets), "min")
+    eta = mesh.all_reduce(sc.softmin_eta(S, beta, lam, row_tickets), "sum")
+    rows = torch.empty(len(ranks), T * A, **f32)
+    for i, d in enumerate(ranks):
+        fs.weighted_update(fam.sigma, (S[i], beta, eta, lam), T, *args, eps=noise[d], k0=k0[d],
+                           out=rows[i])
+    dU = mesh.all_reduce(rows, "sum").view(T, A)
+    S = S.reshape(-1)
+    softmin = (S, beta, eta, lam) if "weights" in outputs else None
+    _, tail = sc.sharded_tail(U, dU, max_a, clamp, outputs, softmin, into, step=step,
+                              advance=advance, tickets=tickets)
+    return _result(tail, S, beta, eta, tail.weights)
 
 
 def sharded_mppi_solve(
@@ -255,8 +294,12 @@ class ShardedMPPIController(MPPIController):
         self.mesh = mesh
         self.onepass = onepass
         # the fused backend's combine as torch ops, K7 and K6 (chip_smoke.py's
-        # yardstick for K8 and K9; part of the solve's identity)
+        # yardstick for K8-K11; part of the solve's identity)
         self._torch_combine = False
+        # K10 and K11 find each local rank's last block by a ticket, zero
+        # between launches (rows of more than one block)
+        self._row_tickets = torch.zeros(len(mesh.local_ranks), dtype=torch.int32,
+                                        device=self.device)
 
     def _solve_identity(self) -> tuple:
         return (*super()._solve_identity(), id(self.mesh), self.onepass, self._torch_combine)
@@ -265,8 +308,8 @@ class ShardedMPPIController(MPPIController):
                     advance=None, eps=None) -> SolveResult:
         """One sharded update, then with `advance` the world's step under its
         action: on the fused backend on the card the update's tail and the
-        step are one launch of K9 after the combine, on the eager backend K7
-        and K6."""
+        step are one launch of K9 after the combine (K8, or K10, K11 and K5's
+        softmin form), on the eager backend K7 and K6."""
         cfg = self.cfg
         return _solve_once(
             self.mesh, self.rollout_backend, self._family, self.dynamics, self.cost, x, U,
@@ -274,7 +317,8 @@ class ShardedMPPIController(MPPIController):
             K=cfg.samples if eps is None else eps.shape[1], clamp=cfg.clamp_action,
             antithetic=cfg.antithetic, ou_beta=cfg.noise_beta, onepass=self.onepass, seed=seed,
             step=step, it=it, eps=eps, outputs=outputs, into=into, advance=advance,
-            tickets=self._tickets, torch_combine=self._torch_combine,
+            tickets=self._tickets, row_tickets=self._row_tickets,
+            torch_combine=self._torch_combine,
         )
 
     def solve_with_eps(self, x: torch.Tensor, U: torch.Tensor, eps: torch.Tensor) -> SolveResult:

@@ -353,7 +353,8 @@ def _stub(monkeypatch, rc: int = 0, failing: str = "sharded_scale"):
     monkeypatch.setattr(fs, "_FAMILY_LAUNCHES", {k: dict(v) for k, v in fs._FAMILY_LAUNCHES.items()})
     monkeypatch.setattr(fs, "_WIDTH_LAUNCHES", {k: dict(v) for k, v in fs._WIDTH_LAUNCHES.items()})
     calls = {k: [] for k in ("solve_partials", "softmin_combine", "weighted_update", "solve_tail",
-                             "combine_tail", "world_advance", "sharded_scale", "sharded_tail")}
+                             "combine_tail", "world_advance", "sharded_scale", "sharded_tail",
+                             "softmin_min", "softmin_eta")}
 
     def entry(kernel):
         def call(*args):
@@ -390,6 +391,10 @@ SCALE_ARGS = ("rows", "n", "TA", "beta", "inv_lam", "out", "stream")
 TAIL_ARGS = ("U", "dU", "divide", "max_a", "clamp", "u_seq", "u_next", "action", "dU_out", "S",
              "beta", "eta", "inv_lam", "weights", "T", "A", "K", "tickets", "world")
 COMBINE_ARGS = ("partials", "R", "nb", "TA", "lam", "normalize", "beta_eta", "dU", "stream")
+UPDATE_ARGS = ("sigma", "w", "eps", "partials", "K", "T", "A", "key0", "key1", "step", "it", "k0",
+               "antithetic", "ou_beta", "ou_c", "step_ptr", "S", "beta", "eta", "inv_lam", "stream")
+MIN_ARGS = ("S", "n", "k_loc", "beta_d", "scratch", "tickets", "stream")
+ETA_ARGS = ("S", "n", "k_loc", "beta", "inv_lam", "eta_d", "scratch", "tickets", "stream")
 
 
 @pytest.mark.parametrize("onepass", [True, False], ids=["one-pass", "two-kernel"])
@@ -398,13 +403,18 @@ def test_fused_sharded_path_on_cuda_launches_k8_and_k9(monkeypatch, n, onepass):
     """Device-free: the fused sharded solve bound for CUDA (``solve`` every
     output, then ``solve_in_place`` with the point mass's ``Advance``, the
     episode's cycle) launches per update K1 (or K4 and K5) and K2 once per
-    local rank, K8 once (one-pass) and K9 once, and never
-    ``onepass_combine``, K7, K6 or K2'. One-pass: K1 writes each rank's S
-    into its row of one buffer and K2, unnormalized, each rank's [β_d, η_d,
-    ΔŨ_d] into its row of one (n, 2 + T·A) buffer, which K8 reads; K9
-    divides (the two-kernel branch's does not), computes the weights with
-    float32(1/λ) for ``solve``, writes the shifted sequence over U in the
-    cycle and steps the world there, with the controller's tickets."""
+    local rank, K8 once (one-pass), or K10 and K11 once (two-kernel), and
+    K9 once, and never ``onepass_combine``, K7, K6 or K2'. Both branches
+    write each rank's S into its row of one buffer (K1 or K4). One-pass: K2,
+    unnormalized, writes each rank's [β_d, η_d, ΔŨ_d] into its row of one
+    (n, 2 + T·A) buffer, which K8 reads. Two-kernel: K10 and K11 read that
+    S buffer (n rows of K/n) and K11 takes K10's β, after the MIN; K5 runs
+    in its softmin form (no w: each rank's row of S, β, η after the SUM and
+    float32(1/λ)); K2 folds each rank's K5 rows into its row of one
+    (n, T·A) buffer. K9 divides (the two-kernel branch's does not),
+    computes the weights with float32(1/λ) for ``solve``, writes the
+    shifted sequence over U in the cycle and steps the world there, with
+    the controller's tickets."""
     calls = _stub(monkeypatch)
     T = 8
     cfg = load_config(PM2).replace(samples=32 * n, horizon=T, lambda_=1.1)
@@ -425,7 +435,39 @@ def test_fused_sharded_path_on_cuda_launches_k8_and_k9(monkeypatch, n, onepass):
     assert full["inv_lam"] == _rounding.scalar_reciprocal(1.1)
     assert cyc["weights"] is None and cyc["u_next"] == U.data_ptr() and cyc["world"] == 1
     assert cyc["tickets"] == ctrl._tickets.data_ptr() and cyc["divide"] == int(onepass)
-    assert sc.launch_counts() == {"sharded_scale": 2 if onepass else 0, "sharded_tail": 2}
+    assert sc.launch_counts() == {"sharded_scale": 2 if onepass else 0, "sharded_tail": 2,
+                                  "softmin_min": 0 if onepass else 2,
+                                  "softmin_eta": 0 if onepass else 2}
+    S_ptrs = [c[8] for c in calls["solve_partials"]]  # S, the entry's 9th argument
+    for update in (S_ptrs[:n], S_ptrs[n:]):
+        assert update == [update[0] + 4 * d * 32 for d in range(n)]
+    if not onepass:
+        mins = [dict(zip(MIN_ARGS, c)) for c in calls["softmin_min"]]
+        etas = [dict(zip(ETA_ARGS, c)) for c in calls["softmin_eta"]]
+        assert [m["S"] for m in mins] == [e["S"] for e in etas] == S_ptrs[::n]
+        assert all(m["n"] == e["n"] == n and m["k_loc"] == e["k_loc"] == 32
+                   for m, e in zip(mins, etas))
+        assert all(e["inv_lam"] == _rounding.scalar_reciprocal(1.1) for e in etas)
+        # one row of 32 rollouts is one block: no scratch, no ticket
+        assert all(c["scratch"] is None and c["tickets"] is None for c in mins + etas)
+        if n == 1:  # the MIN of one local entry is K10's β_d itself
+            assert [e["beta"] for e in etas] == [m["beta_d"] for m in mins]
+        updates = [dict(zip(UPDATE_ARGS, c)) for c in calls["weighted_update"]]
+        assert all(u["w"] is None and u["inv_lam"] == _rounding.scalar_reciprocal(1.1)
+                   for u in updates)
+        assert [u["S"] for u in updates] == S_ptrs
+        for i, e in enumerate(etas):
+            assert all(u["beta"] == e["beta"] for u in updates[i * n:(i + 1) * n])
+            if n == 1:  # the SUM of one local entry is K11's η_d itself
+                assert updates[i]["eta"] == e["eta_d"]
+        combines = [dict(zip(COMBINE_ARGS, c)) for c in calls["softmin_combine"]]
+        for update in (combines[:n], combines[n:]):
+            rows = update[0]["dU"]
+            assert [c["dU"] for c in update] == [rows + 4 * d * T * 2 for d in range(n)]
+            assert all(c["normalize"] == 0 for c in update)
+        # one local rank's SUM is its row itself (no kernel): K9 reads it
+        assert all((t["dU"] == c[0]["dU"]) == (n == 1)
+                   for t, c in zip(tails, (combines[:n], combines[n:])))
     if onepass:
         combines = [dict(zip(COMBINE_ARGS, c)) for c in calls["softmin_combine"]]
         row = 4 * (2 + T * 2)
@@ -438,8 +480,6 @@ def test_fused_sharded_path_on_cuda_launches_k8_and_k9(monkeypatch, n, onepass):
         assert all(s["n"] == n and s["TA"] == T * 2 for s in scales)
         # one local rank's SUM is its row itself (no kernel); four ranks' a new sum
         assert all((t["dU"] == s["out"]) == (n == 1) for t, s in zip(tails, scales))
-        S_ptrs = [c[8] for c in calls["solve_partials"][:n]]  # S, the entry's 9th argument
-        assert S_ptrs == [S_ptrs[0] + 4 * d * 32 for d in range(n)]
 
 
 def test_failed_or_refused_launch_raises(monkeypatch):
@@ -480,9 +520,11 @@ def test_only_a_launch_that_runs_is_counted(monkeypatch, capturing):
     rows, S, U, max_a = _rows(2, 4, 2, 1.0, "finite")
     sc.sharded_scale(rows, rows[:, 0].amin(0), 1.0)
     sc.sharded_tail(U, rows[0, 1:].contiguous(), max_a, True, CYCLE, divide=True)
-    assert len(calls["sharded_scale"]) == len(calls["sharded_tail"]) == 1
-    assert sc.launch_counts() == dict.fromkeys(("sharded_scale", "sharded_tail"),
-                                               0 if capturing else 1)
+    sc.softmin_min(S.view(2, -1))
+    sc.softmin_eta(S.view(2, -1), rows[:, 0].amin(0), 1.0)
+    assert all(len(calls[k]) == 1 for k in sc.launch_counts())
+    assert sc.launch_counts() == dict.fromkeys(
+        ("sharded_scale", "sharded_tail", "softmin_min", "softmin_eta"), 0 if capturing else 1)
 
 
 def test_a_world_without_a_body_steps_after_k9(monkeypatch):
