@@ -275,8 +275,9 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
     weighted_update<A=..,inj=..> (its softmin form softmin_update<A=..,inj=..>),
     K6's world_advance<World> (PointMass1-3 for the point mass), K7's
     solve_tail, K2''s combine_tail<World> (NoWorld for the tail alone), K8's
-    sharded_scale, K9's sharded_tail<World,divide=0|1>, K10's softmin_min,
-    K11's softmin_eta;
+    sharded_scale, K9's sharded_tail<World,divide=0|1>, K10's
+    softmin_min<cluster=0|1>, K11's softmin_eta<cluster=0|1> (softmin_min and
+    softmin_eta in a package before their cluster form);
     the family under its name in ops/families (the struct's name, lower
     case, is the family's without its hyphen), or, for a library built from
     a user family, under the name `structs` maps its struct's to."""
@@ -290,9 +291,9 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
         return "solve_tail"
     if "sharded_scale_kernel" in mangled:  # K8
         return "sharded_scale"
-    m = re.search(r"softmin_(min|eta)_kernel", mangled)
-    if m:  # K10, K11
-        return f"softmin_{m.group(1)}"
+    m = re.search(r"softmin_(min|eta)_kernel(ILb(\d)E)?", mangled)
+    if m:  # K10, K11: a block or a ticket per row, or a cluster (a package before them: one kernel)
+        return f"softmin_{m.group(1)}" + (f"<cluster={m.group(3)}>" if m.group(2) else "")
     t = re.search(r"sharded_tail_kernel\S*?(NoWorld|PointMass|Pendulum|CartPole|Unicycle|Quadrotor3D|"
                   r"Quadrotor|Arm)(ILi(\d)E)?\S*?Lb(\d)E", mangled)
     if t:  # K9, one instance per world body and one without, each with and without the division
@@ -1644,10 +1645,11 @@ def profile_steps(ctrl, x, U, steps: int = 50) -> dict:
                 K1_us=kernel_us["solve_partials"] / steps, K2_us=kernel_us["softmin_combine"] / steps)
 
 
-def device_reading(fn, reps: int = 10, name: str = "_kernel",
+def device_reading(fn, reps: int = 10, name: str | None = "_kernel",
                    launches: int = 1) -> tuple[float | None, str]:
     """Device ms per call of `fn` of the kernel of this file whose name holds
-    `name` (by default the one kernel that `fn` launches), by torch.profiler
+    `name` (by default the one kernel that `fn` launches; None: every kernel
+    that `fn` launches, a library call's, summed per call), by torch.profiler
     over `reps` warm calls: the kernel alone, without the host's time
     between launches that CUDA events around a single call also count. The
     window holds one call, a marker kernel (``torch.cuda._sleep``, as in
@@ -1683,8 +1685,14 @@ def device_reading(fn, reps: int = 10, name: str = "_kernel",
             continue
         t0, t1 = marks[0].end, marks[1].start
         records = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in dev
-                         if name in e.name and e.time_range.start >= t0 and e.time_range.end <= t1)
+                         if (name is None or name in e.name) and e.time_range.start >= t0
+                         and e.time_range.end <= t1)
         held.append(len(records))
+        if name is None:
+            if records and len(records) % reps == 0:
+                return (sum(d for _, d in records) / reps / 1e3,
+                        f"{len(records) // reps} records summed per call over {reps} calls")
+            continue
         if records and launches == 1:
             return (float(np.median([d for _, d in records])) / 1e3,
                     f"median of {len(records)} records of {reps} calls")
@@ -1696,7 +1704,8 @@ def device_reading(fn, reps: int = 10, name: str = "_kernel",
                   f"between the markers (they held {held})")
 
 
-def device_ms(fn, reps: int = 10, name: str = "_kernel", launches: int = 1) -> float | None:
+def device_ms(fn, reps: int = 10, name: str | None = "_kernel",
+              launches: int = 1) -> float | None:
     """:func:`device_reading`'s ms alone."""
     return device_reading(fn, reps, name, launches)[0]
 
@@ -5271,10 +5280,12 @@ SHARDED_EDGE_CASES = ("finite", "inf rank")
 SHARDED_WORLD_HORIZONS = (None, 1, 1100)
 # K10, K11 and K5's softmin form: rollouts per rank K/n on the boundaries of
 # K11's 4096-entry chunk, a block of K10 and K11 (one entry, a ragged warp,
-# one chunk less one, one, one more) and at the point_mass2d shape, then one
-# case at the K = 10⁶ cell's (a block per chunk, 245, and the ticket), the
-# point-mass (T, A) behind K5
-SOFTMIN_K_LOCS = (1, 7, 4095, 4096, 4097, 3000)
+# one chunk less one, one, one more) and at the point_mass2d shape; rows in
+# a cluster of 2-8 blocks (two chunks, the flagship's three on a world of
+# one, four, eight) and one chunk past it (nine: scratch and a ticket); then
+# one case at the K = 10⁶ cell's (a block per chunk, 245, and the ticket),
+# the point-mass (T, A) behind K5
+SOFTMIN_K_LOCS = (1, 7, 4095, 4096, 4097, 3000, 8192, 10_000, 16_384, 32_768, 32_769)
 SOFTMIN_LARGE = (1, 1_000_000, 1.1, "finite")  # (n, K/n, λ, case)
 SOFTMIN_SHAPE = (8, 2)
 # a row with a NaN cost besides SHARDED_CASES: β and η NaN where it is (K10
@@ -5500,8 +5511,9 @@ def sharded_softmin_times() -> dict:
     median) in turns with the plain version's, the device time alone, the
     bound, and the torch calls for the same work, ``torch.amin(S, 1)`` (one
     call, K10's library yardstick) and ``torch.exp(-(S - β) / λ).sum(1)``
-    (three); K5's softmin form beside its w form at each config's (A, K, T)
-    on one rank, iid: events and device time."""
+    (three), each by events and by the device time of every kernel it
+    launches (``torch_device_ms``); K5's softmin form beside its w form at
+    each config's (A, K, T) on one rank, iid: events and device time."""
     import torch
 
     from mppi_gpu_tpu_torch.ops import fused_solve as fs
@@ -5524,7 +5536,8 @@ def sharded_softmin_times() -> dict:
             bound, by = softmin_row_bound(n, k_loc, eta)
             out[f"{key} {name} n={n} K/n={k_loc}"] = dict(
                 ms=ms, plain_ms=plain_ms, torch_ms=float(np.median(time_ms(torch_fn, 50))),
-                bound_ms=bound, bound_by=by, device_ms=device_ms(kernel, name=trace))
+                bound_ms=bound, bound_by=by, device_ms=device_ms(kernel, name=trace),
+                torch_device_ms=device_ms(torch_fn, name=None))
         if n == 1:
             T, A, K = cfg.horizon, cfg.action_dim, cfg.samples
             sigma = torch.full((A,), 0.25, device="cuda")
@@ -5848,7 +5861,8 @@ def sharded_combine_phase(smi: str) -> dict:
           f"{SOFTMIN_LARGE}; T, A = {SOFTMIN_SHAPE}, iid/antithetic/OU 0.5/injected by turns), "
           f"launches {soft['launches']}, {soft_s:.1f} s of the checks; "
           + "; ".join(f"{k} " + (f"{v['ms']:.4f} ms by events, device {v['device_ms']}, plain "
-                                 f"{v['plain_ms']:.4f}, torch {v['torch_ms']:.4f}, bound "
+                                 f"{v['plain_ms']:.4f}, torch {v['torch_ms']:.4f} (device "
+                                 f"{v['torch_device_ms']}), bound "
                                  f"{v['bound_ms']:.3g} ({v['bound_by']})" if "ms" in v else
                                  ", ".join(f"{f} {x:.4f}" for f, x in v.items()))
                       for k, v in soft_times.items())
@@ -5866,8 +5880,9 @@ def sharded_entries(phase: dict, launches: dict) -> list[dict]:
     difference from their plain versions (phase 27), and their times at the
     flagship's shape beside their bounds and the latency floor (K10 and K11
     on the world of one, K/n = 10⁴, the four virtual ranks' as "other",
-    K10's library call ``torch.amin(S, 1)``; K11 has no one torch call for
-    its work, so its ``torch_ms``, three calls, stands beside it)."""
+    K10's library call ``torch.amin(S, 1)``, by events and on the device;
+    K11 has no one torch call for its work, so its ``torch_ms``, three
+    calls, stands beside it)."""
     floor = phase["floor"]
     out = []
     soft = phase["softmin"]
@@ -5879,7 +5894,9 @@ def sharded_entries(phase: dict, launches: dict) -> list[dict]:
             "launches": launches[name], "max_abs_err": soft["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["torch_ms"] if name == "softmin_min" else None,
-            "torch_ms": m["torch_ms"], "device_ms": m["device_ms"],
+            "library_device_ms": m["torch_device_ms"] if name == "softmin_min" else None,
+            "torch_ms": m["torch_ms"], "torch_device_ms": m["torch_device_ms"],
+            "device_ms": m["device_ms"],
             "shape": "flagship K=10000, one local rank's row of S (a world of one)",
             "bit_equal": soft["bit_equal"], "other_ms": o["ms"], "other_plain_ms": o["plain_ms"],
             "other_device_ms": o["device_ms"], "other_bound_ms": o["bound_ms"],
@@ -7214,7 +7231,8 @@ def time_commit(root: str) -> int:
     partials of :func:`combine_digests` (``digest``); where the package has
     K8 and K9 (``ops/sharded_combine.py``), their times
     (:func:`sharded_commit_times`, ``sharded``) and the digests of their
-    outputs (:func:`sharded_digests`); one JSON line. Run on
+    outputs (:func:`sharded_digests`), and of K10's and K11's where it has
+    them (:func:`softmin_digests`); one JSON line. Run on
     this checkout and on an earlier one in turns within one call, it
     compares two commits on one card (``--same-digests`` their outputs)."""
     sys.path.insert(0, os.path.abspath(root))
@@ -7329,6 +7347,7 @@ def time_commit(root: str) -> int:
     if importlib.util.find_spec("mppi_gpu_tpu_torch.ops.sharded_combine") is not None:
         sharded = sharded_commit_times(times)
         digests.update(sharded_digests())
+        digests.update(softmin_digests())
         smi = _smi()
         for key, r in sharded.items():  # to read parent → change by eye
             print(f"[time-commit] {root} {key}: {r['ms']:.4f} ms by events, device {r['device_ms']} "
@@ -7349,8 +7368,9 @@ def sharded_commit_times(times) -> dict:
     action, U shifted in place, the world step at the counter) for the
     world body of every EAGER_EPISODE_CONFIGS config at its (T, A) and for
     the flagship's; where the package has K10 and K11, those at
-    SOFTMIN_TIME_SHAPES and K5's softmin form at the flagship's and
-    point_mass2d's (A, K, T) on one rank, iid."""
+    SOFTMIN_TIME_SHAPES beside K10's library call ``torch.amin(S, 1)``, and
+    K5's softmin form at the flagship's and point_mass2d's (A, K, T) on one
+    rank, iid."""
     import torch
 
     from mppi_gpu_tpu_torch.controller import CYCLE, FULL, ITERATE
@@ -7406,6 +7426,7 @@ def sharded_commit_times(times) -> dict:
                                                       "softmin_min_kernel")
         out[f"K11 {name} n={n} K/n={k_loc}"] = times(
             lambda: sc.softmin_eta(S, beta, c.lambda_, row_tickets), "softmin_eta_kernel")
+        out[f"torch.amin {name} n={n} K/n={k_loc}"] = times(lambda: torch.amin(S, 1), None)
         if n == 1:
             sigma = torch.full((c.action_dim,), 0.25, device="cuda")
             softmin = (S[0], beta, sc.softmin_eta(S, beta, c.lambda_, row_tickets)[0], c.lambda_)
@@ -7469,6 +7490,31 @@ def sharded_digests(device: str = "cuda") -> dict:
                                 into=U_k, divide=True, step=step, advance=adv, tickets=tickets)
             out[f"K9 world {name} T={T}"] = digest(U_k, *adv.state, adv.xs, adv.us, adv.ts, adv.x,
                                                    step)
+    return out
+
+
+def softmin_digests(device: str = "cuda") -> dict:
+    """Through the public wrappers of the package on ``sys.path``, where it
+    has K10 and K11: the digest of K10's β_d and K11's η_d (against the
+    MIN's β) on one, two and four local ranks' rows at every SOFTMIN_K_LOCS
+    (each row form: a block, a cluster, a ticket) and every SOFTMIN_CASES
+    case at λ 1.1, and at SOFTMIN_LARGE, on `device`. Run on two packages,
+    equal digests say their K10 and K11 give the same bits."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import sharded_combine as sc
+
+    if not hasattr(sc, "softmin_eta"):
+        return {}
+    out = {}
+    grid = [(n, k, 1.1, case) for n in SHARDED_RANKS for k in SOFTMIN_K_LOCS
+            for case in SOFTMIN_CASES]
+    for n, k_loc, lam, case in grid + [SOFTMIN_LARGE]:
+        S = softmin_inputs(n, k_loc, lam, case, device, seed=n * k_loc)
+        tickets = torch.zeros(n, dtype=torch.int32, device=device)
+        beta_d = sc.softmin_min(S, tickets)
+        out[f"K10/K11 n={n} K/n={k_loc} lambda={lam} {case}"] = digest(
+            beta_d, sc.softmin_eta(S, beta_d.amin(), lam, tickets))
     return out
 
 

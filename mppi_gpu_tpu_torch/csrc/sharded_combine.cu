@@ -80,13 +80,31 @@
 // Both read K/n floats a row and write one: at K/n = 3000-10⁴ that is 12-40 KB,
 // 0.004-0.012 µs at 3.35 TB/s, far below a launch. They are built for
 // latency: a block of 256 threads takes one chunk, each thread its 16 entries
-// (16 loads, then β once, all in flight before any arithmetic), so a row of up
-// to 4096 entries is one round trip and one block. A longer row (up to the
-// K = 10⁶ cell's) takes a block per chunk, in parallel; each writes its
-// chunk's value to a scratch row and takes a ticket of its row (atomicAdd
-// after __threadfence), and the last block combines the C values, in chunk
-// order for the sum, and sets the ticket back to 0 for the next launch (a
-// replayed graph's too). Blocks of up to four chunks (1024 threads, no ticket
+// (16 loads, then β once, all in flight before any arithmetic), and K11's
+// halving tree takes one barrier (h = 512, 256 in registers, then warp 0 alone
+// reads the 256 partial lanes and finishes h = 128 … 1). A row of C chunks
+// takes one of three forms, by C (row_form):
+// - C = 1 (K/n ≤ 4096): one block, which writes the row's value;
+// - 2 ≤ C ≤ 8 (up to 32768 entries): one thread-block cluster of the row's C
+//   blocks (Hopper's portable cluster size is 8). Thread 0 of block r > 0
+//   sends its chunk's value into block 0's shared memory through distributed
+//   shared memory (st.async), which counts its bytes on an mbarrier of block
+//   0; block 0's thread 0 waits on that mbarrier alone and combines the C
+//   values in chunk order. No scratch, fence, atomic or ticket: the row's
+//   second round trip to L2 is gone, and no barrier of the whole cluster
+//   follows the reduction. The cluster barrier that proves block 0 has
+//   started and readied its mbarrier before another block writes it is
+//   split: arrived at the kernel's start, waited on after the chunk's
+//   reduction, so it hides behind the loads. A cluster barrier after the
+//   writes instead (cooperative_groups' cluster.sync(), every block waiting)
+//   was 0.5 µs slower per launch at three chunks on an H100 (PERF.md §6);
+// - C > 8 (the K = 10⁵ and 10⁶ cells on few ranks): a block per chunk, in
+//   parallel; each writes its chunk's value to a scratch row and takes a
+//   ticket of its row (atomicAdd after __threadfence), and the last block
+//   combines the C values in chunk order, and sets the ticket back to 0 for
+//   the next launch (a replayed graph's too).
+// The three forms combine the same chunk values in the same order, so they
+// give the same floats. Blocks of up to four chunks (1024 threads, no ticket
 // up to 16384 entries) were tried on an H100: about 0.3 µs less per cycle at
 // the flagship's K/n = 10⁴, 0.15-0.3 µs more at one chunk (PERF.md §6).
 
@@ -104,6 +122,7 @@ constexpr int kRowLanes = 1024;     // K11: lanes of a chunk, kRowChunk / kRowLa
 constexpr int kRowPer = kRowChunk / kThreads;          // K10/K11: entries a thread loads, 16
 constexpr int kLaneEntries = kRowChunk / kRowLanes;    // K11: entries a lane adds in order, 4
 constexpr int kThreadLanes = kRowLanes / kThreads;     // K11: lanes a thread holds, 4
+constexpr int kMaxCluster = 8;      // K10/K11: chunks of a row in one cluster, the portable most
 
 struct NoWorld {};  // the tail alone: an inner opt iteration, or a world without a K6 body
 
@@ -135,10 +154,80 @@ __device__ __forceinline__ bool last_block_of_row(float v, float* scratch, int* 
   return last;
 }
 
-// K10: β_d = min over row d of S (n, k_loc), grid (⌈k_loc/4096⌉, n)
+// The cluster form's landing place in block 0's shared memory: an mbarrier
+// counting the bytes of the other blocks' values, and the row's C values
+struct RowParts {
+  unsigned long long full;
+  float part[kMaxCluster];
+};
+
+__device__ __forceinline__ RowParts& row_parts() {
+  __shared__ RowParts parts;
+  return parts;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// At the kernel's start, in a cluster of the row's C blocks: block 0's thread
+// 0 readies its mbarrier for one arrival (its own) and the other blocks'
+// 4·(C − 1) bytes, and every thread arrives at the cluster's barrier (relaxed;
+// the init's fence releases it). Only a thread about to write block 0's
+// memory waits on that barrier, after its chunk is reduced.
+__device__ __forceinline__ void cluster_start() {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 : : "r"(smem_addr(&row_parts().full)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
+  }
+  asm volatile("barrier.cluster.arrive.relaxed;\n" : : : "memory");
+}
+
+// With the chunk's value v in thread 0: thread 0 of block r > 0 waits until
+// every block of the cluster has started (block 0's mbarrier is ready), sends
+// v into part[r] of block 0 by st.async, which completes its 4 bytes on block
+// 0's mbarrier, and leaves; thread 0 of block 0 puts v into part[0], arrives
+// expecting the others' bytes, and waits for the mbarrier's phase. True in
+// block 0's thread 0 alone, once part holds the row's C values. No cluster
+// barrier after the reduction: the values travel one way, and only block 0
+// waits.
+__device__ __forceinline__ bool cluster_gather(float v) {
+  if (threadIdx.x != 0) return false;
+  RowParts& p = row_parts();
+  if (blockIdx.x > 0) {
+    asm volatile("barrier.cluster.wait;\n" : : : "memory");
+    unsigned dst, full;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n"
+                 : "=r"(dst) : "r"(smem_addr(p.part + blockIdx.x)));
+    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n" : "=r"(full) : "r"(smem_addr(&p.full)));
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+                 : : "r"(dst), "r"(__float_as_uint(v)), "r"(full) : "memory");
+    return false;
+  }
+  p.part[0] = v;
+  const unsigned full = smem_addr(&p.full);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               : : "r"(full), "r"(4 * ((int)gridDim.x - 1)) : "memory");
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], 0;\n"
+      "@!done bra WAIT;\n"
+      "}\n"
+      : : "r"(full) : "memory");
+  return true;
+}
+
+// K10: β_d = min over row d of S (n, k_loc), grid (⌈k_loc/4096⌉, n); with
+// CLUSTER each row's blocks form one cluster, else the row is one block or
+// takes a ticket
+template <bool CLUSTER>
 __global__ void __launch_bounds__(kThreads) softmin_min_kernel(
     const float* __restrict__ S, int k_loc, float* __restrict__ beta_d, float* scratch,
     int* tickets) {
+  if constexpr (CLUSTER) cluster_start();
   const long long d = blockIdx.y;
   const float* row = S + d * k_loc;
   const int base = blockIdx.x * kRowChunk + threadIdx.x;
@@ -160,6 +249,17 @@ __global__ void __launch_bounds__(kThreads) softmin_min_kernel(
 #pragma unroll
     for (int w = 1; w < kThreads / 32; ++w) m = nan_min(m, warp_min[w]);
   }
+  if constexpr (CLUSTER) {
+    if (cluster_gather(m)) {
+      const float* part = row_parts().part;
+      float r = part[0];
+#pragma unroll
+      for (int c = 1; c < kMaxCluster; ++c)
+        if (c < (int)gridDim.x) r = nan_min(r, part[c]);
+      beta_d[d] = r;
+    }
+    return;
+  }
   if (gridDim.x == 1) {
     if (threadIdx.x == 0) beta_d[d] = m;
     return;
@@ -175,12 +275,16 @@ __global__ void __launch_bounds__(kThreads) softmin_min_kernel(
 }
 
 // K11: η_d = Σ_k expf(−(S_k − β)·inv_lam) over row d of S (n, k_loc) in the
-// fixed order above, grid (⌈k_loc/4096⌉, n). Thread t holds lanes t, t + 256,
-// t + 512, t + 768 of its block's chunk: the tree's first two levels (h = 512,
-// 256) in its registers, h = 128, 64, 32 in shared memory, 16-1 in warp 0.
+// fixed order above, grid (⌈k_loc/4096⌉, n), its rows' blocks in clusters
+// with CLUSTER as K10's. Thread t holds lanes t, t + 256, t + 512, t + 768 of
+// its block's chunk: the tree's first two levels (h = 512, 256) in its
+// registers; after one barrier lane i of warp 0 holds partial lanes i + 32·j
+// (j = 0 … 7) and adds h = 128, 64, 32 in its registers, 16-1 by shuffles.
+template <bool CLUSTER>
 __global__ void __launch_bounds__(kThreads) softmin_eta_kernel(
     const float* __restrict__ S, int k_loc, const float* __restrict__ beta, float inv_lam,
     float* __restrict__ eta_d, float* scratch, int* tickets) {
+  if constexpr (CLUSTER) cluster_start();
   const long long d = blockIdx.y;
   const float* row = S + d * k_loc;
   const int base = blockIdx.x * kRowChunk + threadIdx.x;
@@ -208,16 +312,31 @@ __global__ void __launch_bounds__(kThreads) softmin_eta_kernel(
   __shared__ float tree[kThreads];
   tree[threadIdx.x] = __fadd_rn(__fadd_rn(lane[0], lane[2]), __fadd_rn(lane[1], lane[3]));
   __syncthreads();
-#pragma unroll
-  for (int h = kThreads / 2; h > 32; h >>= 1) {
-    if (threadIdx.x < h) tree[threadIdx.x] = __fadd_rn(tree[threadIdx.x], tree[threadIdx.x + h]);
-    __syncthreads();
-  }
   float v = 0.0f;
   if (threadIdx.x < 32) {
-    v = __fadd_rn(tree[threadIdx.x], tree[threadIdx.x + 32]);  // h = 32
+    constexpr int kWarps = kThreads / 32;
+    float t[kWarps];  // partial lanes threadIdx.x + 32·j
+#pragma unroll
+    for (int j = 0; j < kWarps; ++j) t[j] = tree[threadIdx.x + 32 * j];
+#pragma unroll
+    for (int h = kWarps / 2; h > 0; h >>= 1) {  // h = 128, 64, 32: lane + lane 32·h later
+#pragma unroll
+      for (int j = 0; j < h; ++j) t[j] = __fadd_rn(t[j], t[j + h]);
+    }
+    v = t[0];
 #pragma unroll
     for (int h = 16; h > 0; h >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, h));
+  }
+  if constexpr (CLUSTER) {
+    if (cluster_gather(v)) {
+      const float* part = row_parts().part;
+      float r = part[0];
+#pragma unroll
+      for (int c = 1; c < kMaxCluster; ++c)
+        if (c < (int)gridDim.x) r = __fadd_rn(r, part[c]);  // chunk order
+      eta_d[d] = r;
+    }
+    return;
   }
   if (gridDim.x == 1) {
     if (threadIdx.x == 0) eta_d[d] = v;
@@ -356,11 +475,42 @@ bool fits(int n_leaves, int n_params, int A) {
 // the chunks of a row of k_loc entries, K10's and K11's blocks per row
 int row_chunks(int k_loc) { return (k_loc + kRowChunk - 1) / kRowChunk; }
 
+// a row of more than kMaxCluster chunks takes scratch and a ticket
+bool ticket_rows(int k_loc) { return row_chunks(k_loc) > kMaxCluster; }
+
 // K10 and K11 refuse n outside [1, 65535], k_loc below 1, and a row of more
-// than one chunk without scratch (n·C floats) or tickets (n int32, zero)
+// than eight chunks without scratch (n·C floats) or tickets (n int32, zero)
 bool bad_rows(int n, int k_loc, const float* scratch, const int* tickets) {
   return n < 1 || n > kMaxRanks || k_loc < 1
-         || (row_chunks(k_loc) > 1 && (scratch == nullptr || tickets == nullptr));
+         || (ticket_rows(k_loc) && (scratch == nullptr || tickets == nullptr));
+}
+
+// K10 or K11 over grid (C, n) for rows of C chunks: one block or a ticket
+// per row by a plain launch, 2 ≤ C ≤ 8 as one cluster of the row's C blocks
+// (the kernels read scratch and tickets only for a ticket). A launch
+// refused, the cluster's too, returns its error.
+template <class... Params, class... Args>
+int launch_rows(void (*plain)(Params...), void (*cluster)(Params...), int n, int k_loc,
+                cudaStream_t stream, Args... args) {
+  const int C = row_chunks(k_loc);
+  const dim3 grid(C, n);
+  if (C == 1 || C > kMaxCluster) {
+    plain<<<grid, kThreads, 0, stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kThreads);
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, cluster, args...);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -381,29 +531,27 @@ int mppi_sharded_scale(const float* rows, int n, int TA, const float* beta, floa
 }
 
 // K10: beta_d (n,) = the min of each row of S (n, k_loc), torch.amin's (NaN
-// where one is present); scratch (n, ⌈k_loc/4096⌉) floats and tickets (n,)
-// int32 zeros, left zero, for rows of more than 4096 entries (else unused,
-// may be null). Refuses (cudaErrorInvalidValue) what bad_rows names.
+// where one is present). A row of one chunk (k_loc ≤ 4096) is one block, of
+// 2-8 chunks one cluster; scratch (n, ⌈k_loc/4096⌉) floats and tickets (n,)
+// int32 zeros, left zero, serve rows of more than eight chunks (k_loc >
+// 32768; else unused, may be null). Refuses (cudaErrorInvalidValue) what
+// bad_rows names.
 int mppi_softmin_min(const float* S, int n, int k_loc, float* beta_d, float* scratch,
                      int* tickets, void* stream) {
   if (bad_rows(n, k_loc, scratch, tickets)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(row_chunks(k_loc), n);
-  softmin_min_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(S, k_loc, beta_d, scratch,
-                                                                  tickets);
-  return (int)cudaGetLastError();
+  return launch_rows(softmin_min_kernel<false>, softmin_min_kernel<true>, n, k_loc,
+                     (cudaStream_t)stream, S, k_loc, beta_d, scratch, tickets);
 }
 
 // K11: eta_d (n,) = Σ_k expf(−(S[d, k] − β)·inv_lam) for each row of S
 // (n, k_loc), β one float on the device (after the MIN collective), inv_lam
-// float32(1/λ), summed in the fixed order above; scratch and tickets as K10's.
-// Refuses (cudaErrorInvalidValue) what bad_rows names.
+// float32(1/λ), summed in the fixed order above; its forms, scratch and
+// tickets as K10's. Refuses (cudaErrorInvalidValue) what bad_rows names.
 int mppi_softmin_eta(const float* S, int n, int k_loc, const float* beta, float inv_lam,
                      float* eta_d, float* scratch, int* tickets, void* stream) {
   if (bad_rows(n, k_loc, scratch, tickets)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(row_chunks(k_loc), n);
-  softmin_eta_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(S, k_loc, beta, inv_lam, eta_d,
-                                                                  scratch, tickets);
-  return (int)cudaGetLastError();
+  return launch_rows(softmin_eta_kernel<false>, softmin_eta_kernel<true>, n, k_loc,
+                     (cudaStream_t)stream, S, k_loc, beta, inv_lam, eta_d, scratch, tickets);
 }
 
 // K9: one robot's tail, u_new = U + ΔU (clamped to ±max_a when `clamp`),

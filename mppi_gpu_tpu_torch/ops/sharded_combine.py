@@ -53,6 +53,10 @@ MAX_RANKS = 65535  # K8's, K10's and K11's grid axis y is the local rank (kMaxRa
 # … 1); the chunks' sums are added in chunk order. K10 and K11 run a block
 # per chunk (kRowChunk, kRowLanes)
 ROW_CHUNK, ROW_LANES = 4096, 1024
+# the most chunks of a row that K10 and K11 reduce in one thread-block
+# cluster (kMaxCluster, Hopper's portable cluster size); a longer row takes
+# scratch and a ticket
+MAX_CLUSTER = 8
 
 # launches of K8-K11 that ran
 _LAUNCHES = {"sharded_scale": 0, "sharded_tail": 0, "softmin_min": 0, "softmin_eta": 0}
@@ -61,6 +65,16 @@ _LAUNCHES = {"sharded_scale": 0, "sharded_tail": 0, "softmin_min": 0, "softmin_e
 def row_chunks(k_loc: int) -> int:
     """The chunks of a row of k_loc entries: K10's and K11's blocks per row."""
     return -(-k_loc // ROW_CHUNK)
+
+
+def row_form(k_loc: int) -> tuple[str, int]:
+    """K10's and K11's form for a row of k_loc entries, with its chunks C:
+    "block" (C = 1, one block), "cluster" (2 ≤ C ≤ MAX_CLUSTER, one
+    thread-block cluster of the row's C blocks) or "ticket" (a block per
+    chunk, scratch and a ticket per row), as ``csrc/sharded_combine.cu``
+    picks it."""
+    C = row_chunks(k_loc)
+    return ("block" if C == 1 else "cluster" if C <= MAX_CLUSTER else "ticket"), C
 
 
 def eta_sum(e: torch.Tensor) -> torch.Tensor:
@@ -110,11 +124,12 @@ def _check_rows(S: torch.Tensor, tickets) -> tuple[int, int]:
 
 
 def _row_scratch(S: torch.Tensor, tickets):
-    """K10's and K11's scratch (n, C) and tickets (n,) for rows of C > 1
-    chunks (the caller's tickets, else new zeros), else (None, None)."""
+    """K10's and K11's scratch (n, C) and tickets (n,) for rows in the
+    ticket form, C > MAX_CLUSTER chunks (the caller's tickets, else new
+    zeros), else (None, None): a block or a cluster needs neither."""
     n, k_loc = S.shape
-    C = row_chunks(k_loc)
-    if C == 1:
+    form, C = row_form(k_loc)
+    if form != "ticket":
         return None, None
     if tickets is None:
         tickets = torch.zeros(n, dtype=torch.int32, device=S.device)
@@ -124,9 +139,10 @@ def _row_scratch(S: torch.Tensor, tickets):
 def softmin_min(S: torch.Tensor, tickets: torch.Tensor | None = None) -> torch.Tensor:
     """β_d (n,): the min of each local rank's row of its costs S (n, K/n),
     as ``torch.amin`` (+inf where a rank's rollouts all cost +inf, NaN where
-    a NaN is present). One launch of K10 on a CUDA tensor, with `tickets`
-    ((n,) int32 zeros, the controller's; new ones if None) where a row is
-    longer than ROW_CHUNK; else :func:`softmin_min_reference`."""
+    a NaN is present). One launch of K10 on a CUDA tensor in the rows'
+    :func:`row_form`, with `tickets` ((n,) int32 zeros, the controller's;
+    new ones if None) in the ticket form (unused in the others); else
+    :func:`softmin_min_reference`."""
     n, k_loc = _check_rows(S, tickets)
     if not fs._on_cuda(S, *([] if tickets is None else [tickets])):
         return softmin_min_reference(S)

@@ -148,7 +148,7 @@ def _solve_once(
     launch of K9 (``ops/sharded_combine``, with the controller's `tickets`),
     on the eager one K7 and K6 on the card; the two-kernel branch's K10 and
     K11 take the controller's `row_tickets` (one int32 zero per local rank)
-    for rows of more than one block. `torch_combine` runs the fused
+    for rows of more than eight blocks (``sc.row_form``'s ticket form). `torch_combine` runs the fused
     backend's combine as the eager backend's (the torch ops, K5 on torch's
     weights, K7 and K6): the yardstick chip_smoke.py holds K8-K11 to."""
     anti = antithetic and eps is None
@@ -297,7 +297,8 @@ class ShardedMPPIController(MPPIController):
         # yardstick for K8-K11; part of the solve's identity)
         self._torch_combine = False
         # K10 and K11 find each local rank's last block by a ticket, zero
-        # between launches (rows of more than one block)
+        # between launches (rows of more than eight blocks; shorter rows are
+        # one block or one cluster)
         self._row_tickets = torch.zeros(len(mesh.local_ranks), dtype=torch.int32,
                                         device=self.device)
 

@@ -17,8 +17,10 @@ two-kernel branch, and K5's softmin form (``fused_solve.weighted_update`` on
 - the two-kernel sharded solve on virtual meshes of 2 and 4 ranks on the
   fused backend (every wrapper its plain version) bit-equal to the eager
   backend, and within tolerance of the JAX sharded solve on its ε;
-- the dispatch with the C entries stubbed: scratch and tickets for rows of
-  more than one block, a failed launch raising;
+- K10's and K11's row forms (``row_form``: a block, a cluster of 2-8
+  blocks, a ticket) and the dispatch with the C entries stubbed: scratch
+  and tickets for rows of more than eight blocks alone, a failed launch
+  raising;
 - chip_smoke.py's phase-27 check of K10, K11 and K5's softmin form on CPU
   tensors, its kernel names and its kernels per two-kernel cycle; (marked
   `gpu`, skipped without a card) the same check on the card.
@@ -349,12 +351,24 @@ MIN_ARGS = ("S", "n", "k_loc", "beta_d", "scratch", "tickets", "stream")
 ETA_ARGS = ("S", "n", "k_loc", "beta", "inv_lam", "eta_d", "scratch", "tickets", "stream")
 
 
-@pytest.mark.parametrize("k_loc", [4096, 4097, 10_000])
+@pytest.mark.parametrize("k_loc, form", [(1, "block"), (4096, "block"), (4097, "cluster"),
+                                         (10_000, "cluster"), (32_768, "cluster"),
+                                         (32_769, "ticket"), (1_000_000, "ticket")])
+def test_row_form_follows_the_row_chunks(k_loc, form):
+    """K10's and K11's form for a row of k_loc entries: one block for one
+    chunk, one cluster for 2-8 chunks, a ticket past eight; C is
+    ``row_chunks``."""
+    assert sc.row_form(k_loc) == (form, sc.row_chunks(k_loc))
+    assert sc.row_chunks(k_loc) == -(-k_loc // 4096)
+
+
+@pytest.mark.parametrize("k_loc", [4096, 4097, 10_000, 32_768, 32_769])
 def test_rows_of_more_than_one_block_get_scratch_and_tickets(monkeypatch, k_loc):
-    """Device-free: a row of at most 4096 rollouts is one block, and K10 and
-    K11 get no scratch and no tickets; a longer one gets scratch for its C
-    chunks' values per row and the caller's tickets, or new zero tickets;
-    K11 gets float32(1/λ); each launch counts once."""
+    """Device-free: a row of at most 4096 rollouts is one block and a row of
+    2-8 chunks one cluster, and K10 and K11 get no scratch and no tickets; a
+    row of more than eight chunks gets scratch for its C chunks' values per
+    row and the caller's tickets, or new zero tickets; K11 gets
+    float32(1/λ); each launch counts once."""
     calls = _stub(monkeypatch)
     n = 3
     S = _S(n, k_loc, 1.7, "finite")
@@ -366,7 +380,7 @@ def test_rows_of_more_than_one_block_get_scratch_and_tickets(monkeypatch, k_loc)
     assert m["S"] == e["S"] == S.data_ptr() and m["n"] == e["n"] == n
     assert m["k_loc"] == e["k_loc"] == k_loc
     assert e["inv_lam"] == _rounding.scalar_reciprocal(1.7)
-    if k_loc <= sc.ROW_CHUNK:
+    if k_loc <= sc.MAX_CLUSTER * sc.ROW_CHUNK:
         assert m["scratch"] is m["tickets"] is e["scratch"] is e["tickets"] is None
     else:
         assert m["tickets"] == mine.data_ptr() and e["tickets"] not in (None, mine.data_ptr())
@@ -424,6 +438,12 @@ def test_chip_smoke_names_the_softmin_kernels():
     assert chip_smoke.kernel_key("_ZN12_GLOBAL__N_118softmin_min_kernelEPKfiPfS2_Pi") == "softmin_min"
     assert chip_smoke.kernel_key(
         "_ZN12_GLOBAL__N_118softmin_eta_kernelEPKfiS1_fPfS2_Pi") == "softmin_eta"
+    for c in (0, 1):  # the kernels' forms: a block or a ticket, a cluster
+        assert chip_smoke.kernel_key(f"_ZN12_GLOBAL__N_118softmin_min_kernelILb{c}EEEvPKfiPfS3_Pi") \
+            == f"softmin_min<cluster={c}>"
+        assert chip_smoke.kernel_key(
+            f"_ZN12_GLOBAL__N_118softmin_eta_kernelILb{c}EEEvPKfiS2_fPfS3_Pi") \
+            == f"softmin_eta<cluster={c}>"
     assert chip_smoke.kernel_key(
         "_ZN12_GLOBAL__N_121softmin_update_kernelILi3ELb0EEEvPKfS2_S2_S2_fS2_PfiNS_11NoiseParamsEPKx"
     ) == "softmin_update<A=3,inj=0>"
@@ -447,11 +467,13 @@ def test_chip_smoke_names_the_softmin_kernels():
 @pytest.mark.gpu
 def test_softmin_kernels_on_the_card():
     """On the card: K10, K11 and K5's softmin form against their plain
-    version bit for bit over a few ranks, K/n, λ and every case
+    version bit for bit over 1, 2 and 4 ranks, K/n in each row form (a
+    block, clusters of 2-8 blocks, a ticket past eight), λ and every case
     (chip_smoke.py --sharded-combine runs them all, and K/n = 10⁶)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K10 and K11 have no CPU mode")
     import chip_smoke
 
-    got = chip_smoke.check_sharded_softmin(ranks=(1, 4), k_locs=(7, 4097, 10_000), lams=(1.1,))
+    got = chip_smoke.check_sharded_softmin(
+        ranks=(1, 2, 4), k_locs=(7, 4097, 8192, 10_000, 16_384, 32_768, 32_769), lams=(1.1,))
     assert got["bit_equal"] and got["launches"]["softmin_eta"] == got["cases"]
