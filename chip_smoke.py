@@ -86,10 +86,11 @@ block, K9's world step for every world body at three horizons, and the
 sharded solve and graph episode with them bit-equal to the torch-combine
 cycle at point_mass2d and the flagship, both branches, both meshes, with
 their times (phase 27).
-``--time-commit ROOT`` instead times K1, K2, K4, K5, K3, K2', K8 and K9 of
-the package in the checkout at ROOT, and ``--episode-commit ROOT`` its
-device episodes (ms per cycle, kernels per cycle, K1 + K2's share of busy,
-K8's and K9's µs per sharded cycle), to compare two commits in one run;
+``--time-commit ROOT`` instead times K1, K2, K4, K5, K3, K2', K8-K11, K7
+and K6 of the package in the checkout at ROOT (with digests of their
+outputs), and ``--episode-commit ROOT`` its device episodes (ms per cycle,
+kernels per cycle, K1 + K2's share of busy, K2''s µs per cycle by world
+body, K8's-K11's µs per sharded cycle), to compare two commits in one run;
 ``--sass-diff ROOT [REGEX]`` compares the built-in library's SASS with
 ROOT's, kernel by kernel (the kernels REGEX names may differ);
 ``--bodies``, ``--episode``, ``--family``, ``--plants``, ``--graphs`` and
@@ -273,11 +274,13 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
     second pass) rollout_costs<family,A=..,inj=..>, each with ",slab" for
     their slab body (slab_partials_kernel), K3's noise_dump<A=..>, K5's
     weighted_update<A=..,inj=..> (its softmin form softmin_update<A=..,inj=..>),
-    K6's world_advance<World> (PointMass1-3 for the point mass), K7's
-    solve_tail, K2''s combine_tail<World> (NoWorld for the tail alone), K8's
-    sharded_scale, K9's sharded_tail<World,divide=0|1>, K10's
-    softmin_min<cluster=0|1>, K11's softmin_eta<cluster=0|1> (softmin_min and
-    softmin_eta in a package before their cluster form);
+    K6's world_advance<World> (PointMass1-3 for the point mass), the check
+    of its float substitutions world_identities, K7's solve_tail<threads>
+    (solve_tail in a package before its two block widths), K2''s
+    combine_tail<World> (NoWorld for the tail alone), K8's sharded_scale,
+    K9's sharded_tail<World,divide=0|1>, K10's softmin_min<cluster=0|1>,
+    K11's softmin_eta<cluster=0|1> (softmin_min and softmin_eta in a package
+    before their cluster form);
     the family under its name in ops/families (the struct's name, lower
     case, is the family's without its hyphen), or, for a library built from
     a user family, under the name `structs` maps its struct's to."""
@@ -287,8 +290,11 @@ def kernel_key(mangled: str, structs: dict[str, str] | None = None) -> str:
                   r"Quadrotor|Arm)(ILi(\d)E)?", mangled)
     if w:  # K6, one instance per world body
         return f"world_advance<{w.group(1)}{w.group(3) or ''}>"
-    if "solve_tail_kernel" in mangled:  # K7
-        return "solve_tail"
+    t = re.search(r"solve_tail_kernel(ILi(\d+)E)?", mangled)
+    if t:  # K7, by its block width (one kernel in a package before its two widths)
+        return "solve_tail" + (f"<{t.group(2)}>" if t.group(1) else "")
+    if "world_identities_kernel" in mangled:  # the check of K6's float substitutions
+        return "world_identities"
     if "sharded_scale_kernel" in mangled:  # K8
         return "sharded_scale"
     m = re.search(r"softmin_(min|eta)_kernel(ILb(\d)E)?", mangled)
@@ -2353,13 +2359,23 @@ WORLD_CASES = ("point_mass1d", "point_mass2d", "point_mass3d", "point_mass_xml",
 # Each torch op rounds once and K6 repeats them in order, rounded alike
 # (csrc/world_step.cu); a NaN state stays NaN with the same bits
 WORLD_STEP_TOL = dict.fromkeys(WORLD_CASES, 0.0)
-# robots (None: one robot, no robot axis) and clocks of each layout, named as
-# in :func:`world_clocks`
-WORLD_LAYOUTS = (("solo", None, "dt"), ("solo at sim_end", None, "end"),
-                 ("solo crossing sim_end", None, "last"), ("solo past sim_end", None, "past"),
-                 ("R=8 shared clock", 8, "dt"), ("R=8 shared clock crossing sim_end", 8, "last"),
-                 ("R=8 per-robot clocks", 8, "mixed"), ("R=64 shared clock", 64, "dt"),
-                 ("R=64 per-robot clocks", 64, "mixed"))
+# robots (None: one robot, no robot axis), clocks and states of each layout,
+# named as in :func:`world_clocks` and :func:`world_inputs`
+WORLD_LAYOUTS = (("solo", None, "dt", "task"), ("solo at sim_end", None, "end", "task"),
+                 ("solo crossing sim_end", None, "last", "task"),
+                 ("solo past sim_end", None, "past", "task"),
+                 ("R=8 shared clock", 8, "dt", "task"),
+                 ("R=8 shared clock crossing sim_end", 8, "last", "task"),
+                 ("R=8 per-robot clocks", 8, "mixed", "task"),
+                 ("R=64 shared clock", 64, "dt", "task"),
+                 ("R=64 per-robot clocks", 64, "mixed", "task"),
+                 ("R=8 hard states", 8, "dt", "hard"))
+# the angles of the hard states: sinf's and cosf's large-argument path
+# (|x| >= 105615 takes the full argument reduction)
+WORLD_HARD_ANGLES = (1.0e5, -3.7e5, 1.5e7, 2.5e9, -7.77e12, 123456.7)
+# each world's angles in its x (the arm: both joints)
+WORLD_ANGLES = {"pendulum": (0,), "cartpole": (1,), "unicycle": (2,), "quadrotor": (2,),
+                "arm": (0, 1)}
 WORLD_CYCLES = 3      # cycles per layout, chained
 WORLD_HIST_ROW = 5    # the history row of the first cycle (a non-zero counter)
 
@@ -2382,11 +2398,12 @@ def world_clocks(kind: str, n: int, p):
     return np.float32([dt, 1.0, last, end, one["past"], 4.0, dt, last] * (n // 8))
 
 
-def world_inputs(name: str, cfg, n: int, seed: int = 3):
+def world_inputs(name: str, cfg, n: int, seed: int = 3, states: str = "task"):
     """(n, s) states near the task's and (WORLD_CYCLES, n, a) actions up to
     1.5× the config's bounds (past every clamp), from a numpy seed; robot 0
     of a point mass or the cart-pole at its stop driving into it; with 64
-    robots, robot 63's state NaN and robot 62's action NaN."""
+    robots, robot 63's state NaN and robot 62's action NaN. With `states`
+    "hard", the first eight robots' states are :func:`world_hard_states`'."""
     rng = np.random.default_rng(seed)
     xs = rng.uniform(-0.6, 0.6, (n, cfg.state_dim)).astype(np.float32)
     if name == "quadrotor3d":
@@ -2398,7 +2415,27 @@ def world_inputs(name: str, cfg, n: int, seed: int = 3):
         xs[0, 0], us[:, 0, 0] = (2.38 if name == "cartpole" else 1.39), 1.5 * bound[0]
     if n == 64:
         xs[63], us[:, 62] = np.nan, np.nan
+    if states == "hard":
+        world_hard_states(name, xs)
     return xs, us
+
+
+def world_hard_states(name: str, xs: np.ndarray) -> np.ndarray:
+    """Robots 0-7 of `xs` (n >= 8, s) in place, states where the world
+    bodies' float substitutions (rcp, sin_cos) and their slow paths are
+    reached: robots 0-5 with every angle of the world (WORLD_ANGLES) at one
+    of WORLD_HARD_ANGLES (a world without one: its first coordinate, past
+    its stop); the arm's robots 4 and 5 with q2 = 0 and π, where its mass
+    matrix's determinant d11·D − d12² is smallest, nearest zero; robot 6's
+    state all NaN, robot 7's coordinate s // 2 NaN."""
+    for r, a in enumerate(WORLD_HARD_ANGLES):
+        for i in WORLD_ANGLES.get(name, (0,)):
+            xs[r, i] = a
+    if name == "arm":
+        xs[4, 1], xs[5, 1] = 0.0, np.pi
+    xs[6] = np.nan
+    xs[7, xs.shape[1] // 2] = np.nan
+    return xs
 
 
 def bits_equal(a, b) -> bool:
@@ -2421,7 +2458,7 @@ def max_abs_diff(a, b) -> float:
     return float((a[ok] - b[ok]).abs().max()) if ok.any() else 0.0
 
 
-def check_world_step(name: str, device: str = "cuda") -> dict:
+def check_world_step(name: str, device: str = "cuda", digests: dict | None = None) -> dict:
     """K6 against the plain loop on the card for one world, in every
     WORLD_LAYOUT over WORLD_CYCLES chained cycles from the same states and
     actions (a fleet's strided, a column of its sequences):
@@ -2431,7 +2468,9 @@ def check_world_step(name: str, device: str = "cuda") -> dict:
     the device episode's cycle runs it) against ``plain_advance``; every
     leaf, xs[row + 1], us[row], ts[row], the x buffer, the counter and the
     untouched history rows. Returns the largest |Δ| (0.0: bit-equal
-    everywhere) and the number of launches made."""
+    everywhere) and the number of launches made; with `digests`, adds to it
+    the digest of each layout's K6 outputs after its cycles (the new buffers'
+    and the in-place leaves, the histories, the x buffer and the counter)."""
     import torch
 
     from mppi_gpu_tpu_torch.envs import make_world
@@ -2441,8 +2480,8 @@ def check_world_step(name: str, device: str = "cuda") -> dict:
     world = make_world(cfg, device=device)
     p = world.params
     worst, bit_equal, launches = 0.0, True, 0
-    for label, n, clocks in WORLD_LAYOUTS:
-        xs, us = world_inputs(name, cfg, n or 8)
+    for label, n, clocks, states in WORLD_LAYOUTS:
+        xs, us = world_inputs(name, cfg, n or 8, states=states)
         t = world_clocks(clocks, n or 8, p)
         if n is None:
             xs, us = xs[0], us[:, 0]
@@ -2484,6 +2523,8 @@ def check_world_step(name: str, device: str = "cuda") -> dict:
             expect(int(step) == row + 1, f"K6 {name} {label} cycle {c}: the counter reads "
                    f"{int(step)} after the cycle at row {row}, want {row + 1}")
         launches += sum(ws.launch_counts().values()) - before
+        if digests is not None:
+            digests[f"K6 {name} {label}"] = digest(*k6, *into, hx, hu, ht, x_buf, step)
         untouched = [hx[:WORLD_HIST_ROW + 1], hx[WORLD_HIST_ROW + WORLD_CYCLES + 1:],
                      hu[:WORLD_HIST_ROW], hu[WORLD_HIST_ROW + WORLD_CYCLES:],
                      ht[:WORLD_HIST_ROW], ht[WORLD_HIST_ROW + WORLD_CYCLES:]]
@@ -2535,29 +2576,31 @@ def world_step_bound(world, state, u, hist: bool) -> tuple[float, str, int]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops
 
 
-def world_step_times(name: str, R: int | None) -> dict:
+def world_step_times(name: str, R: int | None, device: str = "cuda") -> dict:
     """K6's times at one world's episode shape (R None: one robot, the solo
     episode's): ``advance_into`` as the episode's cycle calls it (the x
     buffer and the counter's advance too), CUDA events around a call (warm
     median of 50) and the device time alone; the plain cycle it replaced
     (``advance``, the history copies, the x copy and the counter's add as the
-    cycle ran them before K6) by events; and the bound."""
+    cycle ran them before K6) by events; and the bound. The tensors lie on
+    `device` (the card's; the CPU only where a test stubs the timers)."""
     import torch
 
     from mppi_gpu_tpu_torch.envs import make_world
     from mppi_gpu_tpu_torch.ops import world_step as ws
 
     cfg = world_config(name)
-    world = make_world(cfg, device="cuda")
+    world = make_world(cfg, device=device)
     state = world.reset(R)
     state = type(state)(*(leaf.clone(memory_format=torch.contiguous_format) for leaf in state))
     lead = () if R is None else (R,)
-    u = torch.full((*lead, cfg.action_dim), 0.1, device="cuda")
+    f32 = dict(dtype=torch.float32, device=device)
+    u = torch.full((*lead, cfg.action_dim), 0.1, **f32)
     n = 4096  # history rows past every call's counter
-    hx = torch.zeros((n + 1, *lead, cfg.state_dim), device="cuda")
-    hu, ht = torch.zeros((n, *lead, cfg.action_dim), device="cuda"), torch.zeros(n, device="cuda")
-    step = torch.zeros((), dtype=torch.int64, device="cuda")
-    x = torch.zeros((*lead, cfg.state_dim), device="cuda")
+    hx = torch.zeros((n + 1, *lead, cfg.state_dim), **f32)
+    hu, ht = torch.zeros((n, *lead, cfg.action_dim), **f32), torch.zeros(n, **f32)
+    step = torch.zeros((), dtype=torch.int64, device=device)
+    x = torch.zeros((*lead, cfg.state_dim), **f32)
 
     def kernel():
         ws.advance_into(world, state, u, hx, hu, ht, step, x)
@@ -2671,7 +2714,19 @@ def world_step_phase(smi: str) -> dict:
     records of three world cycles (K6 alone, once each), and K6's times at the solo and
     R=8 episode shapes beside the plain cycle's and the bound. Returns
     {world: readings}."""
+    from mppi_gpu_tpu_torch.ops import world_step as ws
+
     out = {}
+    t0 = time.perf_counter()
+    same = ws.identities()
+    secs = time.perf_counter() - t0
+    for k, (n, first) in same.items():
+        expect(n == 0, f"K6's substitution {ws.IDENTITIES[k]}: {n} of the 2^32 float inputs give "
+               f"other bits, the first 0x{first or 0:08x}")
+    print(f"[21] K6's float substitutions over all 2^32 inputs on the card, in {secs:.2f} s: "
+          + ", ".join(f"{ws.IDENTITIES[k]}: {n} differ" for k, (n, _) in same.items())
+          + f" ({smi})")
+    out["identities"] = same
     for name in WORLD_CASES:
         got = check_world_step(name)
         records = world_cycle_records(name)
@@ -2683,7 +2738,8 @@ def world_step_phase(smi: str) -> dict:
         agree = "bit-equal" if got["bit_equal"] else f"max |delta| {got['max_abs_err']:.3g}"
         print(f"[21] K6 world_advance {name}: {agree} to the plain loop over {len(WORLD_LAYOUTS)} "
               f"layouts x {WORLD_CYCLES} cycles (solo, R=8, R=64, shared and per-robot clocks, "
-              f"crossing sim_end, NaN state and action; histories at rows {WORLD_HIST_ROW}-"
+              f"crossing sim_end, NaN state and action; angles of 1e5-7.8e12, the arm at q2 = 0 "
+              f"and pi; histories at rows {WORLD_HIST_ROW}-"
               f"{WORLD_HIST_ROW + WORLD_CYCLES - 1}, the rest untouched); three cycles' device "
               f"records: {len(records)} of {sorted(set(records))}; solo {solo['ms']:.4f} ms by events, device {solo['device_ms']}, the plain "
               f"cycle {solo['plain_ms']:.4f}, bound {solo['bound_ms']:.3g} ({solo['bound_by']}, "
@@ -2707,8 +2763,13 @@ TAIL_REPLACES = ("no Pallas kernel: XLA's fusion of the solve's tail, mppi_gpu_t
 TAIL_TOL = 0.0
 TAIL_WEIGHTS_TOL = 0.0
 # (robots, None: one robot), T, A and K of the cases; each runs with the
-# clamp on and off, and with a NaN in ΔU and a diverged rollout (S = +inf)
-TAIL_SHAPES = tuple((R, T, A, 3000) for R in (None, 8, 64) for T in (1, 200) for A in range(1, 5))
+# clamp on and off, and with a NaN in ΔU and a diverged rollout (S = +inf).
+# Past the configs' shapes: T·A at K7's round of 1024 entries ±1 (1023, 1024,
+# 1025), two rounds and one entry (2049), and the row's limit in shared
+# memory (58112 floats)
+TAIL_SHAPES = tuple((R, T, A, 3000) for R in (None, 8, 64) for T in (1, 200) for A in range(1, 5)) + (
+    (None, 341, 3, 3000), (None, 256, 4, 3000), (None, 1025, 1, 3000), (8, 205, 5, 3000),
+    (None, 2049, 1, 3000), (None, 14528, 4, 3000), (8, 14528, 4, 3000))
 TAIL_MODES = (("clamp", True, False), ("no clamp", False, False), ("clamp, NaN", True, True))
 # the configs' λ and four others; at 1.1 and 1.7 the float32 reciprocal
 # 1.0f/(float)λ and float32(1/λ) are two floats
@@ -2743,7 +2804,7 @@ def tail_inputs(R, T: int, A: int, K: int, lam: float, nan: bool, device: str, s
     return t(U), t(dU), t(max_a), (t(S), be[..., 0], be[..., 1], lam)
 
 
-def check_solve_tail(device: str = "cuda", shapes=TAIL_SHAPES) -> dict:
+def check_solve_tail(device: str = "cuda", shapes=TAIL_SHAPES, digests: dict | None = None) -> dict:
     """K7 against its plain version on `device`'s tensors for every shape of
     `shapes` in every TAIL_MODES mode, each at one λ of TAIL_LAMS in turn:
     the full tail (u_seq, u_next, action and the weights, as ``solve``'s
@@ -2752,7 +2813,9 @@ def check_solve_tail(device: str = "cuda", shapes=TAIL_SHAPES) -> dict:
     bit for bit against ``solve_tail_reference`` (TAIL_TOL, TAIL_WEIGHTS_TOL),
     an output not asked for None. Returns the largest |Δ| of the sequences
     and of the weights (0.0: bit-equal), whether all were bit-equal, and the
-    launches made (three per case on the card, none on the CPU)."""
+    launches made (three per case on the card, none on the CPU); with
+    `digests`, adds to it the digest of each case's K7 outputs in its three
+    forms."""
     import torch
 
     from mppi_gpu_tpu_torch.controller import CYCLE, FULL, ITERATE
@@ -2792,6 +2855,8 @@ def check_solve_tail(device: str = "cuda", shapes=TAIL_SHAPES) -> dict:
                    f"K7 {label}: the cycle's tail did not shift U in place alone")
             worst = max(worst, hold(f"{label} u_next in place", inplace, want.u_next, TAIL_TOL),
                         hold(f"{label} action of the cycle", cyc.action, want.action, TAIL_TOL))
+            if digests is not None:
+                digests[f"K7 {label}"] = digest(*full, seq.u_seq, inplace, cyc.action)
             cases += 1
     launches = st.launch_counts()["solve_tail"] - before
     want_launches = 3 * cases if device == "cuda" else 0  # the CPU: the plain version
@@ -2857,13 +2922,15 @@ def tail_bound(R: int, T: int, A: int, K: int, outputs, clamp: bool = True) -> t
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def tail_times(R, T: int, A: int, K: int, outputs, lam: float = 1.0) -> dict:
+def tail_times(R, T: int, A: int, K: int, outputs, lam: float = 1.0, device: str = "cuda") -> dict:
     """K7's times at one shape: CUDA events around a call (warm median) in
     turns with the plain tail's, the device time alone, and the bound; the
-    cycle's form (no u_seq) writes u_next over U, as the episode does."""
+    cycle's form (no u_seq) writes u_next over U, as the episode does. The
+    tensors lie on `device` (the card's; the CPU only where a test stubs the
+    timers)."""
     from mppi_gpu_tpu_torch.ops import solve_tail as st
 
-    U, dU, max_a, softmin = tail_inputs(R, T, A, K, lam, False, "cuda")
+    U, dU, max_a, softmin = tail_inputs(R, T, A, K, lam, False, device)
     softmin = softmin if "weights" in outputs else None
     into = U if "u_seq" not in outputs else None
 
@@ -2902,7 +2969,7 @@ def solve_tail_phase(smi: str) -> dict:
     agree = ("bit-equal" if got["bit_equal"] else
              f"max |delta| {got['max_abs_err']:.3g}, weights {got['weights_max_abs_err']:.3g}")
     print(f"[21] K7 solve_tail: {agree} to the plain tail over {got['cases']} cases (R=1, 8, 64; "
-          f"T=1, 200; A=1-4; clamp on and off; a NaN in dU and a diverged rollout; the full tail, "
+          f"T=1, 200; A=1-4; T·A 1023-1025, 2049, 58112; clamp on and off; a NaN in dU and a diverged rollout; the full tail, "
           f"u_seq alone, the cycle's in place), {got['launches']} launches; torch's division by a "
           f"Python float c on the card (torch {torch.__version__}, CUDA {torch.version.cuda}): "
           f"at every one of {len(probe)} divisors "
@@ -7232,9 +7299,13 @@ def time_commit(root: str) -> int:
     K8 and K9 (``ops/sharded_combine.py``), their times
     (:func:`sharded_commit_times`, ``sharded``) and the digests of their
     outputs (:func:`sharded_digests`), and of K10's and K11's where it has
-    them (:func:`softmin_digests`); one JSON line. Run on
-    this checkout and on an earlier one in turns within one call, it
-    compares two commits on one card (``--same-digests`` their outputs)."""
+    them (:func:`softmin_digests`); K7 and K6 at their paths' shapes
+    (:func:`tail_world_commit_times`, ``world_tail``) and the digests of
+    their outputs over every case of :func:`check_solve_tail` and
+    :func:`check_world_step` (each held to its plain version there too); one
+    JSON line. Run on this checkout and on an earlier one in turns within one
+    call, it compares two commits on one card (``--same-digests`` their
+    outputs)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -7343,19 +7414,52 @@ def time_commit(root: str) -> int:
         K1=times(run), K4=times(lambda: fs.fused_rollout_costs(*bargs, 100_000, 7, 3, 0, False, 0.0)),
         weighing=weighing_share(run()[0], b["lam"], fs.BLOCK))
     digests = combine_digests(k2e)
+    # K7 and K6 at the shapes their paths run, and their outputs over every
+    # case of phase 21's checks (each also held there to its plain version)
+    world_tail = tail_world_commit_times()
+    check_solve_tail(digests=digests)
+    for name in WORLD_CASES:
+        check_world_step(name, digests=digests)
+    smi = _smi()
+    for key, r in world_tail.items():  # to read parent → change by eye
+        print(f"[time-commit] {root} {key}: {r['ms']:.4f} ms by events, device {r['device_ms']} "
+              f"ms ({smi})")
     sharded = {}
     if importlib.util.find_spec("mppi_gpu_tpu_torch.ops.sharded_combine") is not None:
         sharded = sharded_commit_times(times)
         digests.update(sharded_digests())
         digests.update(softmin_digests())
-        smi = _smi()
         for key, r in sharded.items():  # to read parent → change by eye
             print(f"[time-commit] {root} {key}: {r['ms']:.4f} ms by events, device {r['device_ms']} "
                   f"ms ({smi})")
     print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "main": main_path,
                       "large": large, "draws": draws, "per_rollout": per_rollout,
-                      "sharded": sharded, "digest": digests}))
+                      "sharded": sharded, "world_tail": world_tail, "digest": digests}))
     return 0
+
+
+def tail_world_commit_times(device: str = "cuda") -> dict:
+    """K7 and K6 through the package on ``sys.path``, each by
+    :func:`tail_times` or :func:`world_step_times` (CUDA events in turns with
+    the plain version, the device time alone, the bound): K7 at the flagship
+    (R=1, T=200, A=3, K=10⁴) with every output (``solve``) and in the
+    cycle's form (action, U shifted in place), at the R=8 fleet's with every
+    output and at point_mass2d's (T=50, A=2, K=3000) with every output; K6
+    for every world of WORLD_CASES at its solo and R=8 episode shapes. The
+    tensors lie on `device` (the card's; the CPU only where a test stubs the
+    timers and the C entries)."""
+    from mppi_gpu_tpu_torch.controller import CYCLE, FULL
+
+    out = {f"K7 {label}": tail_times(R, T, A, K, outputs, device=device)
+           for label, (R, T, A, K, outputs) in {
+               "full R=1 T=200 A=3 K=10000": (None, 200, 3, 10_000, FULL),
+               "cycle R=1 T=200 A=3": (None, 200, 3, 10_000, CYCLE),
+               "full R=8 T=200 A=3 K=10000": (8, 200, 3, 10_000, FULL),
+               "full R=1 T=50 A=2 K=3000": (None, 50, 2, 3000, FULL)}.items()}
+    for name in WORLD_CASES:
+        for R in (None, 8):
+            out[f"K6 {name} R={R or 1}"] = world_step_times(name, R, device)
+    return out
 
 
 def sharded_commit_times(times) -> dict:
@@ -7591,8 +7695,9 @@ def episode_commit(root: str) -> int:
     compare two commits in one run: for every config of EPISODE_CONFIGS and
     the R=8 fleet of every FLEET_EPISODE_CONFIGS, the graph's ms per cycle
     (host clock around a warm episode) and the eager cycle's, and from a
-    trace of its replays (:func:`replay_trace`) kernels, busy ms and K1 + K2's
-    share of busy per cycle and the untraced ms per cycle; the sharded
+    trace of its replays (:func:`replay_trace`) kernels, busy ms, K1 + K2's
+    share of busy and K2''s µs (by its world body) per cycle and the
+    untraced ms per cycle; the sharded
     episode's graph ms per cycle at SHARDED_EPISODE_CONFIGS, both branches, on
     a world of one NCCL rank and on four virtual ranks, with K8's, K9's,
     K10's and K11's device µs per cycle from the trace (a package before
@@ -7639,8 +7744,9 @@ def episode_commit(root: str) -> int:
                     untraced_ms=t["untraced_ms"], k6_per_cycle=t["k6_per_cycle"],
                     k7_per_cycle=t["k7_per_cycle"], k2e_per_cycle=t["k2e_per_cycle"],
                     k8_per_cycle=t["k8_per_cycle"], k9_per_cycle=t["k9_per_cycle"],
-                    k8_us=t["k8_us"], k9_us=t["k9_us"], k10_us=t["k10_us"], k11_us=t["k11_us"],
-                    nccl_per_cycle=t["nccl_per_cycle"], top=t["top"])
+                    k2e_us=t["k2e_us"], k8_us=t["k8_us"], k9_us=t["k9_us"],
+                    k10_us=t["k10_us"], k11_us=t["k11_us"], nccl_per_cycle=t["nccl_per_cycle"],
+                    top=t["top"])
 
     configs = {name: row(MPPIController(_episode_config(name), device="cuda"), run_episode_jit, name)
                for name in EPISODE_CONFIGS}

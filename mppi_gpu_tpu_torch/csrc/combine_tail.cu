@@ -37,7 +37,8 @@
 // per 256 entries: hoisting them all ahead (every load in flight at once)
 // took the flagship's K2' from 6.2 to 5.2-5.5 µs, but lengthened the
 // kernels that step a world (K2'<Arm> 9.6 → 11.3 µs per launch in the
-// episode; PERF.md §6), so the body is K7's own.
+// episode; PERF.md §6), so K2' keeps the strided row body, and K7, which
+// steps no world, stages its row with loads of its own.
 
 #include <type_traits>
 
@@ -75,7 +76,7 @@ __global__ void __launch_bounds__(kCombineThreads) combine_tail_kernel(
     if (!last) return;
     if (threadIdx.x == 0) e.tickets[r] = 0;  // every tile of robot r has taken its ticket
     // ΔU from L2: the other tiles of this launch wrote it
-    tail::row_body<true>(e.row, r, row);
+    tail::row_body(e.row, r, row);
   }
   if constexpr (!std::is_same<W, NoWorld>::value) {
     if (threadIdx.x == 0) world::step_world<W>(e.adv, r, row, e.tickets);

@@ -25,17 +25,18 @@
 // loaded (`divide`; the two-kernel branch's ΔU is already the sum it needs),
 // the softmin weights over K where asked for (K7's weight blocks), and in the
 // episode's last update the world's cycle in thread 0 under the action the
-// block holds in shared memory (K6's body, world_step.cuh's OneRobot).
+// block holds in shared memory (K6's body, world_step.cuh's Robot).
 //
 // Both move a few KB (at the flagship T·A = 600 floats per rank) and do a
 // few hundred operations: they are bound by their launch and their latency,
 // not by bytes or operations. K8 is a grid (⌈(1 + T·A)/256⌉, n) of 256
-// threads, one entry each; K9 is K7's grid for one robot, (1 + ⌈K/256⌉, 1)
-// with the weights, (1, 1) without. So K9's row block is built for latency:
+// threads, one entry each; K9 is a grid (1 + ⌈K/256⌉, 1) with the weights
+// (K7's blocks for one robot), (1, 1) without. So K9's row block is built
+// for latency:
 // - every load of a pass is issued before any arithmetic that uses it: a
 //   thread's kPer entries of U and Σ (or ΔU), their max_a, and η once, into
 //   registers. A row of up to kChunk = 1024 entries is one round trip to L2;
-//   a longer one (up to 227 KB) takes one per 1024 entries. K7's row body
+//   a longer one (up to 227 KB) takes one per 1024 entries. K2''s row body
 //   (solve_tail.cuh) loads one entry per thread at a time instead, each
 //   pass's loads after the last one's stores, three round trips at T·A = 600;
 // - thread 0 issues the world's loads (its pack, the counter, the clock and
@@ -368,10 +369,13 @@ struct ShardedTailArgs {
 // start, its arithmetic under the action after the row's barrier.
 template <class W>
 struct WorldStep {
-  world::OneRobot<W> robot;
-  __device__ __forceinline__ void load(const world::AdvanceArgs& a) { robot.load(a); }
-  __device__ __forceinline__ void run(const world::AdvanceArgs& a, const float* u) { robot.run(a, u); }
+  world::Robot<W> robot;
+  __device__ __forceinline__ void load(const world::AdvanceArgs& a) { robot.load(a, 0, nullptr); }
+  __device__ __forceinline__ void run(const world::AdvanceArgs& a, const float* u) {
+    robot.run_alone(a, u);
+  }
 };
+
 template <>
 struct WorldStep<NoWorld> {
   __device__ __forceinline__ void load(const world::AdvanceArgs&) {}

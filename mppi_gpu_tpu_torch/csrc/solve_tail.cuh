@@ -1,7 +1,8 @@
-// K7's row body: the tail of one MPPI update for one robot's sequence, shared
-// by K7 (solve_tail.cu), which runs it in block 0 of each robot, and by K2's
-// epilogue (combine_tail.cu), which runs it in the last of K2's blocks to
-// finish for a robot. Both therefore compute the same floats.
+// The row body: the tail of one MPPI update for one robot's sequence, run by
+// K2's epilogue (combine_tail.cu) in the last of K2's blocks to finish for a
+// robot. K7 (solve_tail.cu) has row code of its own, its loads issued ahead
+// of its arithmetic, with the same per-entry arithmetic (clampf below), so
+// both compute the same floats.
 //
 // u_new = U + ΔU (__fadd_rn: torch's add, never contracted into an FMA),
 // clamped to ±max_a as torch.clamp with tensor bounds clamps (NaN passes,
@@ -13,7 +14,7 @@
 // nominal sequence in place).
 //
 // The sharded controller's tail (sharded_combine.cu) has a row of its own with
-// the same per-entry arithmetic, its loads issued ahead of it.
+// the same per-entry arithmetic, its loads issued ahead of it, as K7's.
 //
 // Everything lives in the namespace `tail` inside an anonymous namespace, so
 // a translation unit may include it beside mppi_solve.cuh and world_step.cuh,
@@ -69,13 +70,10 @@ __device__ __forceinline__ void row_body_of(const RowArgs& a, int r, float* row,
   }
 }
 
-// Robot r's tail from ΔU = a.dU. With L2, ΔU is read from L2 (__ldcg): K2's
-// epilogue reads columns that other blocks of the same launch wrote.
-template <bool L2>
+// Robot r's tail from ΔU = a.dU, read from L2 (__ldcg): K2's epilogue reads
+// columns that other blocks of the same launch wrote.
 __device__ __forceinline__ void row_body(const RowArgs& a, int r, float* row) {
-  row_body_of(a, r, row, [&](long long base, int i) {
-    return L2 ? __ldcg(a.dU + base + i) : a.dU[base + i];
-  });
+  row_body_of(a, r, row, [&](long long base, int i) { return __ldcg(a.dU + base + i); });
 }
 
 }  // namespace tail

@@ -14,15 +14,28 @@
 // kernels of ~1.2 µs each.
 //
 // One thread per robot carries its state in registers through the cycle
-// (world_step.cuh: the world bodies and one robot's cycle, which K2's
-// epilogue in combine_tail.cu runs too).
+// (world_step.cuh: the world bodies and one robot's cycle, `Robot`, which
+// K2's epilogue in combine_tail.cu and K9 in sharded_combine.cu run too).
 // The work is a few hundred to a few thousand float operations per robot
 // (R ≤ 64 on the episode paths), far under a microsecond of the card at any
-// rate: the kernel is bound by its own latency (launch, the dependent chain
-// of one robot's RK4 stages), not by bytes or operations. So it is one block
-// of up to 1024 threads, robots r, r + blockDim, … per thread; the one block
-// also lets a clock shared by a fleet (a 0-dim time) be read by every robot
-// and written once after a barrier, so the state may be updated in place.
+// rate: the kernel is bound by its own latency (launch, the loads' round
+// trips, the dependent chain of one robot's RK4 stages), not by bytes or
+// operations. So it is one block of up to 1024 threads, robots r, r +
+// blockDim, … per thread; the one block also lets a clock shared by a fleet
+// (a 0-dim time) be read by every robot and written once after a barrier, so
+// the state may be updated in place. For its latency:
+// - a robot's loads (the pack, the counter, the clock, the state leaves and
+//   the held action) sit together at the start of its cycle (`Robot::load`),
+//   none behind another's arithmetic. The compiler issues the pack fields
+//   that only the stepping reads after the hold's test on the clock; reading
+//   the pack once ahead of the robots' loop, which keeps every load ahead of
+//   that test, measured up to 0.26 µs slower on 8 of the 10 worlds (0.14
+//   faster on the planar quadrotor) on an H100 (PERF.md §6);
+// - the chain of each RK4 stage is shortened only where the float stays the
+//   same for every input: the arm's inverse determinant by the correctly
+//   rounded reciprocal (`rcp`) in place of the division 1/x, and sinf and
+//   cosf of one argument from one `sincosf` (`sin_cos`), each held over all
+//   2³² inputs by mppi_world_identities below.
 //
 // The arithmetic repeats the plain version's float32 operations in their
 // order, each rounded once as the torch op is (__fadd_rn, __fsub_rn,
@@ -31,7 +44,8 @@
 // parameters computed in double, then rounded to float32; `x / c` by a
 // Python scalar c is x · float32(1/c), the double reciprocal rounded once,
 // as torch's CUDA division by a CPU scalar computes it, packed through
-// ops/_rounding.scalar_reciprocal); x**2 is x·x; sinf, cosf and rsqrtf at full
+// ops/_rounding.scalar_reciprocal); x**2 is x·x; 1.0 / x, which torch
+// computes as reciprocal(x)·1.0, is rcp(x); sinf, cosf and rsqrtf at full
 // precision (no fast math); clamp, minimum and maximum pass NaN through as
 // torch's do, so a diverged state stays NaN (utils/guard.py). The 3-D
 // quadrotor's quaternion norm adds its squares as torch.sum over the last
@@ -56,27 +70,18 @@ using namespace world;
 
 template <class W>
 __global__ void __launch_bounds__(kMaxThreads) world_advance_kernel(const AdvanceArgs a) {
-  W w;
-  w.load(a.params);
-  const long long row = a.step_ptr != nullptr ? *a.step_ptr : -1;
-  const bool hist = a.xs != nullptr && row >= 0 && row < a.n_hist;
-  const float shared_t = a.per_robot_clock ? 0.0f : a.time_in[0];
-  float shared_new = shared_t;
+  // a thread's robots r, r + blockDim, …: each one's loads issued together
+  // as its cycle starts (the first's at the kernel's start), its arithmetic
+  // after them
+  Robot<W> robot;
   for (int r = threadIdx.x; r < a.R; r += blockDim.x) {
-    const float t = advance_robot(w, a, r, a.u + r * a.u_stride,
-                                  a.per_robot_clock ? a.time_in[r] : shared_t, row, hist);
-    if (!a.per_robot_clock) shared_new = t;
+    robot.load(a, r, a.u + r * a.u_stride);
+    robot.run(a, r);
   }
   if (!a.per_robot_clock || a.tick) {
     __syncthreads();  // every robot has read the shared clock and the counter
-    if (threadIdx.x == 0) {
-      if (!a.per_robot_clock) {
-        // thread 0 ran robot 0, so shared_new is the clock after the cycle
-        a.time_out[0] = shared_new;
-        if (hist) a.ts[row] = shared_new;
-      }
-      if (a.tick) *a.step_ptr = row + 1;  // the episode's next control step
-    }
+    // thread 0 ran robot 0, so its t is the fleet's clock after the cycle
+    if (threadIdx.x == 0) robot.finish(a);
   }
 }
 
@@ -86,6 +91,33 @@ int launch(const AdvanceArgs& a, int n_leaves, int n_params, int A, cudaStream_t
   const int threads = a.R < kMaxThreads ? ((a.R + 31) / 32) * 32 : kMaxThreads;
   world_advance_kernel<W><<<1, threads, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Over every float x (its 2³² bit patterns, grid-strided): whether rcp(x)
+// differs in bits from __fdiv_rn(1, x), and sin_cos(x)'s sine and cosine from
+// sinf(x) and cosf(x); counts[k] += the inputs that differ, first[k] = the
+// smallest such bit pattern (k: 0 rcp, 1 sine, 2 cosine).
+__global__ void world_identities_kernel(unsigned long long* counts, unsigned* first) {
+  const unsigned lane = threadIdx.x % 32;
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += stride) {
+    const float x = __uint_as_float((unsigned)i);
+    float s, c;
+    sin_cos(x, &s, &c);
+    const bool differ[3] = {__float_as_uint(rcp(x)) != __float_as_uint(dvd(1.0f, x)),
+                            __float_as_uint(s) != __float_as_uint(sinf(x)),
+                            __float_as_uint(c) != __float_as_uint(cosf(x))};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      // every lane of a warp runs the same pass, lane j on input i − lane + j
+      const unsigned mask = __ballot_sync(0xffffffffu, differ[k]);
+      if (mask != 0 && lane == 0) {
+        atomicAdd(counts + k, (unsigned long long)__popc(mask));
+        atomicMin(first + k, (unsigned)i + __ffs(mask) - 1);
+      }
+    }
+  }
 }
 
 template <class W>
@@ -173,6 +205,15 @@ int mppi_world_advance(int world, const void* const* in, void* const* out, int n
     case kArm: return launch<Arm>(a, n_leaves, n_params, A, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The substitutions of world_step.cuh over all 2³² float inputs: counts[3]
+// (zeros) += the inputs where rcp, sin_cos's sine and its cosine differ in
+// bits from __fdiv_rn(1, x), sinf and cosf; first[3] (0xffffffff) = the
+// smallest bit pattern of each that differs.
+int mppi_world_identities(unsigned long long* counts, unsigned* first, void* stream) {
+  world_identities_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(counts, first);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -3,9 +3,17 @@
 // one block, by K2's epilogue (combine_tail.cu), which runs robot r in
 // thread 0 of the last of K2's blocks to finish for that robot, and by the
 // sharded controller's tail (sharded_combine.cu), in thread 0 of its row's
-// block, split into its loads and its arithmetic (OneRobot). All therefore
-// compute the same floats. The arithmetic, the packs and their order are
-// described in world_step.cu.
+// block. All run one robot's cycle as a `Robot`: its loads, then its
+// arithmetic and stores, so all compute the same floats. The arithmetic, the
+// packs and their order are described in world_step.cu.
+//
+// Two device functions give a float by a shorter sequence than the one the
+// plain version's expression names, and the same float for every input:
+// `rcp` (1/x correctly rounded, the arm's inverse determinant: the
+// reciprocal's sequence in place of the general division's) and `sin_cos`
+// (sinf and cosf of one argument from one call). Each is held bit for bit
+// against __fdiv_rn(1, x), sinf and cosf over all 2³² float inputs on the
+// card (mppi_world_identities in world_step.cu, chip_smoke.py phase 21).
 //
 // Everything lives in the namespace `world` inside an anonymous namespace, so
 // a translation unit may include it beside mppi_solve.cuh and solve_tail.cuh,
@@ -25,6 +33,11 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
+// 1/x rounded once: IEEE 754 rounds the reciprocal and the division 1/x to
+// the same float
+__device__ __forceinline__ float rcp(float x) { return __frcp_rn(x); }
+// sinf(x) and cosf(x), their argument reduced once
+__device__ __forceinline__ void sin_cos(float x, float* s, float* c) { sincosf(x, s, c); }
 
 // torch.clamp(v, lo, hi) on the card: NaN passes, else min(max(v, lo), hi)
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
@@ -143,7 +156,9 @@ struct CartPole : Cadence {
   __device__ void clamp_u(float* u) const { u[0] = clampf(u[0], -mf, mf); }
   // y = [p, θ, ṗ, θ̇] → [ṗ, θ̇, p̈, θ̈]
   __device__ void deriv(const float* y, const float* u, float* k) const {
-    const float s = sinf(y[1]), c = cosf(y[1]), thd = y[3];
+    float s, c;
+    sin_cos(y[1], &s, &c);
+    const float thd = y[3];
     const float a = mul(add(u[0], mul(mul(ml, mul(thd, thd)), s)), inv_total);
     const float den = mul(l, sub(c43, mul(mul(mp, mul(c, c)), inv_total)));
     const float thdd = dvd(sub(mul(g, s), mul(c, a)), den);
@@ -174,8 +189,10 @@ struct Unicycle : Cadence {
     u[1] = clampf(u[1], -mw, mw);
   }
   __device__ void deriv(const float* y, const float* u, float* k) const {
-    k[0] = mul(u[0], cosf(y[2]));
-    k[1] = mul(u[0], sinf(y[2]));
+    float s, c;
+    sin_cos(y[2], &s, &c);
+    k[0] = mul(u[0], c);
+    k[1] = mul(u[0], s);
     k[2] = u[1];
   }
   __device__ void step(float* x, const float* u) const { rk4(*this, x, u); }
@@ -200,11 +217,13 @@ struct Quadrotor : Cadence {
   // y = [px, pz, θ, vx, vz, ω]
   __device__ void deriv(const float* y, const float* u, float* k) const {
     const float f_tot = add(u[0], u[1]);
+    float s, c;
+    sin_cos(y[2], &s, &c);
     k[0] = y[3];
     k[1] = y[4];
     k[2] = y[5];
-    k[3] = mul(mul(f_tot, sinf(y[2])), inv_m);
-    k[4] = sub(mul(mul(f_tot, cosf(y[2])), inv_m), g);
+    k[3] = mul(mul(f_tot, s), inv_m);
+    k[4] = sub(mul(mul(f_tot, c), inv_m), g);
     k[5] = mul(mul(arm, sub(u[0], u[1])), inv_i);
   }
   __device__ void step(float* x, const float* u) const { rk4(*this, x, u); }
@@ -283,7 +302,9 @@ struct Arm : Cadence {
   // TwoLinkArmDynamics._deriv: y = [q1, q2, q̇1, q̇2] → [q̇1, q̇2, q̈1, q̈2]
   __device__ void deriv(const float* y, const float* u, float* k) const {
     const float q1 = y[0], q2 = y[1], qd1 = y[2], qd2 = y[3];
-    const float s2 = sinf(q2), c2 = cosf(q2), c1 = cosf(q1), c12 = cosf(add(q1, q2));
+    float s2, c2;
+    sin_cos(q2, &s2, &c2);
+    const float c1 = cosf(q1), c12 = cosf(add(q1, q2));
     const float d11 = add(A, mul(mul(2.0f, B), c2));
     const float d12 = add(D, mul(B, c2));
     const float hs = mul(B, s2);
@@ -291,7 +312,7 @@ struct Arm : Cadence {
                              add(mul(G1, c1), mul(G2, c12))),
                          mul(damp, qd1));
     const float r2 = sub(sub(sub(u[1], mul(mul(hs, qd1), qd1)), mul(G2, c12)), mul(damp, qd2));
-    const float inv_det = dvd(1.0f, sub(mul(d11, D), mul(d12, d12)));
+    const float inv_det = rcp(sub(mul(d11, D), mul(d12, d12)));
     k[0] = qd1;
     k[1] = qd2;
     k[2] = mul(sub(mul(D, r1), mul(d12, r2)), inv_det);
@@ -331,114 +352,104 @@ struct AdvanceArgs {
   int u_stride, R, per_robot_clock, steps, n_hist, tick;
 };
 
-// Robot r's control cycle from clock t (its own, or the fleet's shared one):
-// its state read from the leaves, the held action u (A floats) clamped as
-// physics_step clamps it, steps_per_control physics steps unless t was at or
-// past sim_end, then its leaves, its clock (per robot), its row of x_out and,
-// with `hist`, its rows of the histories at `row` written (the shared clock's
-// row is the caller's). Returns its clock after the cycle.
+// One robot's control cycle in two parts. `load` reads everything the cycle
+// reads, issued together before any arithmetic: the pack, the counter, the
+// robot's clock (its own, or the fleet's shared one) and state and, where
+// the caller gives its address, the held action. `run` steps the robot under
+// that action, clamped as physics_step clamps it, steps_per_control times
+// unless its clock was at or past sim_end, then writes its leaves, its own
+// clock (per robot), its row of x_out and, at a history row, its rows of the
+// histories. The fleet's shared clock, its history row and the counter's
+// advance are the caller's (`finish`): every robot reads both first. A
+// caller whose action is not in memory yet (it computes it) loads without it;
+// `run_alone` then takes it, for a launch of one robot.
 template <class W>
-__device__ __forceinline__ float advance_robot(const W& w, const AdvanceArgs& a, int r,
-                                               const float* u_in, float t, long long row,
-                                               bool hist) {
-  constexpr int S = W::kS, A = W::kA;
-  float x[S], u0[A], u[A];
-  int off = 0;
-#pragma unroll
-  for (int l = 0; l < W::kLeaves; ++l) {
-#pragma unroll
-    for (int j = 0; j < W::width(l); ++j) x[off + j] = a.in[l][r * W::width(l) + j];
-    off += W::width(l);
-  }
-#pragma unroll
-  for (int i = 0; i < A; ++i) u[i] = u0[i] = u_in[i];
-  if (!(t >= w.end)) {  // World.advance holds a state at or past sim_end
-    w.clamp_u(u);
-    for (int s = 0; s < a.steps; ++s) {
-      w.step(x, u);
-      t = add(t, w.h);
-    }
-  }
-  off = 0;
-#pragma unroll
-  for (int l = 0; l < W::kLeaves; ++l) {
-#pragma unroll
-    for (int j = 0; j < W::width(l); ++j) a.out[l][r * W::width(l) + j] = x[off + j];
-    off += W::width(l);
-  }
-  if (a.per_robot_clock) a.time_out[r] = t;
-  if (a.x_out != nullptr) {
-#pragma unroll
-    for (int i = 0; i < S; ++i) a.x_out[r * S + i] = x[i];
-  }
-  if (hist) {
-    float* xr = a.xs + ((row + 1) * a.R + r) * S;
-#pragma unroll
-    for (int i = 0; i < S; ++i) xr[i] = x[i];
-    float* ur = a.us + (row * a.R + r) * A;
-#pragma unroll
-    for (int i = 0; i < A; ++i) ur[i] = u0[i];
-    if (a.per_robot_clock) a.ts[row * a.R + r] = t;
-  }
-  return t;
-}
-
-// Robot r's control cycle in one thread of a launch that also ran the
-// solve's tail (K2's epilogue in combine_tail.cu), under the action `u` it
-// holds, at the row the counter holds; then its ticket (tickets[R], zero,
-// left zero): the last robot to finish writes the shared clock and advances
-// the counter, after every robot has read both.
-template <class W>
-__device__ __forceinline__ void step_world(const AdvanceArgs& a, int r, const float* u,
-                                           int* tickets) {
+struct Robot {
   W w;
-  w.load(a.params);
-  const long long row = a.step_ptr != nullptr ? *a.step_ptr : -1;
-  const bool hist = a.xs != nullptr && row >= 0 && row < a.n_hist;
-  const float t = advance_robot(w, a, r, u, a.per_robot_clock ? a.time_in[r] : a.time_in[0],
-                                row, hist);
-  __threadfence();  // robot r has read the clock and the counter and written its rows
-  if (atomicAdd(tickets + a.R, 1) != a.R - 1) return;
-  tickets[a.R] = 0;
-  if (!a.per_robot_clock) {  // every robot's t is the fleet's clock after the cycle
-    a.time_out[0] = t;
-    if (hist) a.ts[row] = t;
-  }
-  if (a.tick) *a.step_ptr = row + 1;  // the episode's next control step
-}
+  long long row;    // the history row the counter holds, −1 without a counter
+  float t;          // the robot's clock, then its clock after the cycle
+  float x[W::kS];   // its state
+  float u0[W::kA];  // the held action, as given
 
-// One robot's control cycle in a launch that steps exactly one (R = 1), split
-// in two so that its loads need not wait for the action (the sharded
-// controller's tail, sharded_combine.cu): `load` reads the pack, the counter,
-// the clock and the state, issued by the stepping thread at the start of the
-// kernel beside its other loads; `run` is advance_robot's arithmetic and
-// stores under the action `u_in`, then the clock, its history row and the
-// counter's advance, which step_world leaves to the last robot's ticket: with
-// one robot there is none to wait for. The floats are step_world's at R = 1,
-// its clock shared or its own (the same one float).
-template <class W>
-struct OneRobot {
-  W w;
-  float x[W::kS];
-  float t;
-  long long row;
-
-  __device__ __forceinline__ void load(const AdvanceArgs& a) {
+  __device__ __forceinline__ void load(const AdvanceArgs& a, int r, const float* u_in) {
     w.load(a.params);
     row = a.step_ptr != nullptr ? *a.step_ptr : -1;
-    t = a.time_in[0];
+    t = a.time_in[a.per_robot_clock ? r : 0];
     int off = 0;
 #pragma unroll
     for (int l = 0; l < W::kLeaves; ++l) {
 #pragma unroll
-      for (int j = 0; j < W::width(l); ++j) x[off + j] = a.in[l][j];
+      for (int j = 0; j < W::width(l); ++j) x[off + j] = a.in[l][r * W::width(l) + j];
       off += W::width(l);
+    }
+    if (u_in != nullptr) {
+#pragma unroll
+      for (int i = 0; i < W::kA; ++i) u0[i] = u_in[i];
     }
   }
 
-  __device__ __forceinline__ void run(const AdvanceArgs& a, const float* u_in) {
+  // whether the cycle writes the histories: a counter whose row is in them
+  __device__ __forceinline__ bool hist(const AdvanceArgs& a) const {
+    return a.xs != nullptr && row >= 0 && row < a.n_hist;
+  }
+
+  __device__ __forceinline__ void run(const AdvanceArgs& a, int r) {
     constexpr int S = W::kS, A = W::kA;
-    float u0[A], u[A];
+    float u[A];
+#pragma unroll
+    for (int i = 0; i < A; ++i) u[i] = u0[i];
+    if (!(t >= w.end)) {  // World.advance holds a state at or past sim_end
+      w.clamp_u(u);
+      for (int s = 0; s < a.steps; ++s) {
+        w.step(x, u);
+        t = add(t, w.h);
+      }
+    }
+    int off = 0;
+#pragma unroll
+    for (int l = 0; l < W::kLeaves; ++l) {
+#pragma unroll
+      for (int j = 0; j < W::width(l); ++j) a.out[l][r * W::width(l) + j] = x[off + j];
+      off += W::width(l);
+    }
+    if (a.per_robot_clock) a.time_out[r] = t;
+    if (a.x_out != nullptr) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) a.x_out[r * S + i] = x[i];
+    }
+    if (hist(a)) {
+      float* xr = a.xs + ((row + 1) * a.R + r) * S;
+#pragma unroll
+      for (int i = 0; i < S; ++i) xr[i] = x[i];
+      float* ur = a.us + (row * a.R + r) * A;
+#pragma unroll
+      for (int i = 0; i < A; ++i) ur[i] = u0[i];
+      if (a.per_robot_clock) a.ts[row * a.R + r] = t;
+    }
+  }
+
+  // after every robot's `run`, by one thread: the shared clock (any robot's
+  // t is the fleet's after the cycle), its history row, and the counter
+  __device__ __forceinline__ void finish(const AdvanceArgs& a) const {
+    if (!a.per_robot_clock) {
+      a.time_out[0] = t;
+      if (hist(a)) a.ts[row] = t;
+    }
+    if (a.tick) *a.step_ptr = row + 1;  // the episode's next control step
+  }
+
+  // The cycle of a launch that steps one robot (R = 1; the sharded
+  // controller's tail, sharded_combine.cu), loaded without its action, under
+  // the action `u_in`: run's arithmetic and stores, then the clock, its
+  // history row and the counter's advance, which finish leaves to one thread
+  // after every robot's run: with one robot there is none to wait for. The
+  // floats are run's and finish's at R = 1, its clock shared or its own (the
+  // same one float). Its stores are addressed for the one robot: with run's
+  // and finish's, K9's point-mass instances took 0.12-0.15 µs longer per
+  // episode cycle on an H100 (PERF.md §6).
+  __device__ __forceinline__ void run_alone(const AdvanceArgs& a, const float* u_in) {
+    constexpr int S = W::kS, A = W::kA;
+    float u[A];
 #pragma unroll
     for (int i = 0; i < A; ++i) u[i] = u0[i] = u_in[i];
     if (!(t >= w.end)) {  // World.advance holds a state at or past sim_end
@@ -470,6 +481,23 @@ struct OneRobot {
     if (a.tick) *a.step_ptr = row + 1;  // the episode's next control step
   }
 };
+
+// Robot r's control cycle in one thread of a launch that also ran the
+// solve's tail (K2's epilogue in combine_tail.cu), under the action `u` it
+// holds, at the row the counter holds; then its ticket (tickets[R], zero,
+// left zero): the last robot to finish writes the shared clock and advances
+// the counter, after every robot has read both.
+template <class W>
+__device__ __forceinline__ void step_world(const AdvanceArgs& a, int r, const float* u,
+                                           int* tickets) {
+  Robot<W> robot;
+  robot.load(a, r, u);
+  robot.run(a, r);
+  __threadfence();  // robot r has read the clock and the counter and written its rows
+  if (atomicAdd(tickets + a.R, 1) != a.R - 1) return;
+  tickets[a.R] = 0;
+  robot.finish(a);
+}
 
 }  // namespace world
 }  // namespace

@@ -64,6 +64,7 @@ _SIGNATURES = {
     "mppi_world_layout": ([_i, _ip, _ip, _ip], _i),
     "mppi_world_advance": ([_i, _pp, _pp, _i, _p, _p, _i, _p, _i, _i, _p, _i, _i, _i, _p, _p, _p,
                             _i, _p, _p, _i, _p], _i),
+    "mppi_world_identities": ([_p, _p, _p], _i),
     # csrc/solve_tail.cu (K7)
     "mppi_solve_tail": ([_p, _p, _p, _i, _p, _p, _p, _p, _p, _i, _p, _i, _f, _p, _i, _i, _i, _i, _p],
                         _i),

@@ -22,6 +22,9 @@ dispatch between them.
   ``steps_per_control`` times, then a robot whose clock was at or past
   ``sim_end`` before the cycle keeps its old state (one shared 0-dim clock
   or one per robot (R,)).
+* :func:`identities` — the world bodies' two float substitutions (the
+  correctly rounded reciprocal for 1/x, one ``sincosf`` for sinf and cosf of
+  one argument) held bit for bit over all 2³² float inputs on the card.
 * :func:`pack` — a world's parameters as K6 reads them: the four numbers of
   its cadence (timestep, 0.5·timestep, timestep/6, sim_end) and the world's
   own (``kernel_params`` of its class), each a double rounded to float32 as
@@ -313,6 +316,31 @@ def _launch_world(world, state, u, out, hist=None) -> None:
         steps, xs, us, ts, n_hist, step, x, int(hist is not None),
     ):
         _LAUNCHES[kind] += 1
+
+
+# the substitutions of csrc/world_step.cuh, in mppi_world_identities' order:
+# name → what the world bodies compute in place of what
+IDENTITIES = {"rcp": "__frcp_rn(x) for __fdiv_rn(1, x)",
+              "sin": "sincosf's sine for sinf(x)",
+              "cos": "sincosf's cosine for cosf(x)"}
+
+
+def identities(device: torch.device | str = "cuda") -> dict[str, tuple[int, int | None]]:
+    """Every float32 input, all 2³² bit patterns, through the world bodies'
+    substitutions on the CUDA device `device`: for each of :data:`IDENTITIES`,
+    the number of inputs whose result differs in bits from the expression it
+    replaces, and the smallest such bit pattern (None where none differs)."""
+    from mppi_gpu_tpu_torch.ops import _build
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the identities run on a CUDA device, not {device}")
+    counts = torch.zeros(len(IDENTITIES), dtype=torch.int64, device=device)
+    first = torch.full((len(IDENTITIES),), -1, dtype=torch.int32, device=device)  # 0xffffffff
+    _launch("world_identities", _build.load_library().mppi_world_identities, device,
+            counts.data_ptr(), first.data_ptr())
+    n, f = counts.tolist(), [v & 0xFFFFFFFF for v in first.tolist()]
+    return {k: (n[i], f[i] if n[i] else None) for i, k in enumerate(IDENTITIES)}
 
 
 def reset_launch_counts() -> None:

@@ -93,13 +93,15 @@ def _torch(*arrays):
 @pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
 @pytest.mark.parametrize("clamp", [True, False], ids=["clamp", "no-clamp"])
 @pytest.mark.parametrize("R", [None, 3], ids=["solo", "fleet"])
-@pytest.mark.parametrize("T", [1, 2, 50])
+@pytest.mark.parametrize("T", [1, 2, 50, 256, 341, 1025])
 @pytest.mark.parametrize("A", [1, 2, 3, 4])
 def test_plain_tail_matches_the_jax_tail(A, T, R, clamp, nan):
     """``solve_tail`` on CPU tensors against the JAX tail on the same
     numpy-seeded inputs: u_seq, u_next and action bit for bit (one add and a
     min/max, each rounded once; NaN where the JAX tail has NaN), the weights
-    within WEIGHTS_RTOL (and WEIGHTS_ATOL for subnormals)."""
+    within WEIGHTS_RTOL (and WEIGHTS_ATOL for subnormals). T·A reaches
+    across K7's round of 1024 entries: 1023 (T=341, A=3), 1024 (256, 4),
+    1025 (1025, 1) and rows of two to five rounds."""
     U, dU, max_a, S, beta, eta, lam = _inputs(R, T, A, 40, nan, seed=A * 100 + T)
     want = _jax_tail(U, dU, max_a, S, beta, eta, lam, clamp)
     tU, tdU, tmax, tS, tb, te = _torch(U, dU, max_a, S, beta, eta)
@@ -656,6 +658,58 @@ def test_chip_smoke_tail_check_runs_on_the_cpu():
     got = chip_smoke.check_solve_tail(device="cpu", shapes=((None, 1, 3, 50), (4, 20, 2, 64)))
     assert got == {"max_abs_err": 0.0, "weights_max_abs_err": 0.0, "bit_equal": True,
                    "launches": 0, "cases": 6}
+
+
+def test_chip_smoke_tail_and_world_digests_run_on_the_cpu():
+    """chip_smoke.py's digests of K7's and K6's outputs (``--time-commit``),
+    on CPU tensors: one per case of the K7 check (here the row's round
+    boundary), one per layout of the K6 check, the same on a second run."""
+    import chip_smoke
+
+    shapes = ((None, 341, 3, 50), (None, 256, 4, 50), (8, 1025, 1, 64))
+    runs = []
+    for _ in range(2):
+        d = {}
+        got = chip_smoke.check_solve_tail(device="cpu", shapes=shapes, digests=d)
+        assert got["bit_equal"] and got["cases"] == 9
+        for name in ("cartpole", "arm"):
+            assert chip_smoke.check_world_step(name, device="cpu", digests=d)["bit_equal"]
+        runs.append(d)
+    assert len(runs[0]) == 9 + 2 * len(chip_smoke.WORLD_LAYOUTS)
+    assert runs[0] == runs[1]
+    assert len(set(runs[0].values())) == len(runs[0])
+
+
+def test_chip_smoke_commit_times_launch_k7_and_k6(monkeypatch):
+    """Device-free: chip_smoke.py's ``--time-commit`` entries for K7 and K6
+    (``tail_world_commit_times``) with the C entries stubbed and the timers
+    calling each function once: K7 launched at the flagship (R=1, T=200,
+    A=3, K=10⁴) with every output and in the cycle's form, at R=8 and at
+    point_mass2d's (T=50, A=2, K=3000); K6 at R=1 and R=8 for every world of
+    WORLD_CASES; each entry with events, device time and the bound. Its
+    kernel names: the identities' probe kernel apart from K6's instances,
+    K7's two block widths apart (one name in a package before them)."""
+    import chip_smoke
+
+    calls = _stub(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "paired_median_ms", lambda k, p, r, pr: (k(), p(), 1.0, 2.0)[2:])
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, name=None, **kw: (fn(), 0.5)[1])
+    got = chip_smoke.tail_world_commit_times(device="cpu")
+    assert len(got) == 4 + 2 * len(chip_smoke.WORLD_CASES)
+    assert all(r["ms"] == 1.0 and r["device_ms"] == 0.5 and r["bound_ms"] > 0 for r in got.values())
+    k7 = [dict(zip(ENTRY_ARGS, c)) for c in calls["solve_tail"]]
+    shapes = sorted({(c["R"], c["T"], c["A"], c["K"], c["weights"] is not None) for c in k7})
+    assert shapes == [(1, 50, 2, 3000, True), (1, 200, 3, 0, False), (1, 200, 3, 10_000, True),
+                      (8, 200, 3, 10_000, True)]
+    kinds = {ws.pack_fields(chip_smoke._world_of(n))[0] for n in chip_smoke.WORLD_CASES}
+    ids = {c[0] for c in calls["world_advance"]}
+    assert ids == {ws.WORLDS[k][0] for k in kinds}
+    assert {c[12] for c in calls["world_advance"]} == {1, 8}  # R
+    assert chip_smoke.kernel_key("_ZN12_GLOBAL__N_123world_identities_kernelEPyPj") == \
+        "world_identities"
+    assert chip_smoke.kernel_key("_ZN12_GLOBAL__N_117solve_tail_kernelILi256EEEvNS_8TailArgsE") \
+        == "solve_tail<256>"
+    assert chip_smoke.kernel_key("_ZN12_GLOBAL__N_117solve_tail_kernelENS_8TailArgsE") == "solve_tail"
 
 
 def test_chip_smoke_closed_loop_shares_runs_on_the_cpu():

@@ -79,15 +79,19 @@ def _inputs(name: str, cfg, n: int, cycles: int, seed: int = 5):
     return xs, us
 
 
-# each layout: robots (None: one robot, no robot axis) and the clocks of the
-# first cycle, as multiples-or-offsets of (timestep, sim_end)
+# each layout: robots (None: one robot, no robot axis), the clocks of the
+# first cycle, as multiples-or-offsets of (timestep, sim_end), and the
+# states: near the task's, or chip_smoke.world_hard_states' (angles on
+# sinf's and cosf's large-argument path, the arm at its smallest mass-matrix
+# determinant, NaN states)
 LAYOUTS = {
-    "solo before sim_end": (None, "dt"),
-    "solo at sim_end": (None, "end"),
-    "solo past sim_end": (None, "past"),
-    "R=8 shared clock": (R, "dt"),
-    "R=8 shared clock at sim_end": (R, "end"),
-    "R=8 per-robot clocks": (R, "mixed"),
+    "solo before sim_end": (None, "dt", "task"),
+    "solo at sim_end": (None, "end", "task"),
+    "solo past sim_end": (None, "past", "task"),
+    "R=8 shared clock": (R, "dt", "task"),
+    "R=8 shared clock at sim_end": (R, "end", "task"),
+    "R=8 per-robot clocks": (R, "mixed", "task"),
+    "R=8 hard states": (R, "dt", "hard"),
 }
 
 
@@ -108,12 +112,19 @@ def test_plain_cycle_matches_jax_simulate(name, layout):
     under ``jax.jit`` (``jax.vmap`` over the robots), from the same states,
     clocks and actions: rtol 1e-5 / atol 1e-6 (XLA's and torch's float32
     trigonometry an ulp apart over up to 8 RK4 steps); a robot held at or
-    past sim_end is equal bit for bit in both, and to its start."""
+    past sim_end is equal bit for bit in both, and to its start. The hard
+    states hold the worlds' angles at 1e5-7.8e12, where both reduce the
+    argument in full, the arm where its determinant is smallest, and NaN
+    states, which stay NaN in both."""
     cfg, jcfg = _configs(name)
     tworld, jworld = make_world(cfg), make_jax_world(jcfg)
     p = tworld.params
-    n, clock_kind = LAYOUTS[layout]
+    n, clock_kind, states = LAYOUTS[layout]
     xs, us = _inputs(name, cfg, n or 1, 2)
+    if states == "hard":
+        import chip_smoke
+
+        chip_smoke.world_hard_states(name, xs)
     clocks = _clocks(clock_kind, n or 1, p)
     if n is None:
         xs, us = xs[0], us[:, 0]
@@ -227,6 +238,36 @@ def test_pack_matches_params_and_the_source_layout(name):
     ids = re.search(r"enum WorldId \{([^}]*)\}", open(HEADER).read()).group(1)
     assert [int(v) for v in re.findall(r"= (\d+)", ids)] == sorted(w[0] for w in ws.WORLDS.values())
     assert wid == list(ws.WORLDS).index(kind)
+
+
+def _struct_body(struct: str) -> str:
+    """The source of one world struct of csrc/world_step.cuh."""
+    src = open(HEADER).read()
+    start = src.index(f"struct {struct} : Cadence")
+    return src[start:src.index("\n};", start)]
+
+
+@pytest.mark.parametrize("line", sorted(STRUCTS))
+def test_world_bodies_take_their_float_substitutions(line):
+    """Each world body of csrc/world_step.cuh reaches a sine and a cosine of
+    one argument through ``sin_cos`` (never sinf and cosf of it apart) and a
+    correctly rounded 1/x through ``rcp`` (never the division 1.0f / x):
+    the substitutions that chip_smoke.py's phase 21 holds over all 2³² float
+    inputs on the card (``world_step.identities``, in the order the probe
+    kernel counts them)."""
+    body = _struct_body(STRUCTS[line])
+    sines = set(re.findall(r"\bsinf\(([^()]*(?:\([^()]*\))?)\)", body))
+    cosines = set(re.findall(r"\bcosf\(([^()]*(?:\([^()]*\))?)\)", body))
+    assert not sines & cosines, f"{line}: sinf and cosf of {sines & cosines} apart"
+    assert not re.search(r"dvd\(1\.0f,", body)
+    if line in ("cartpole", "unicycle", "quadrotor", "arm"):
+        assert "sin_cos(" in body
+    assert ("rcp(" in body) == (line == "arm")
+    probe = open(SOURCE).read()
+    assert re.search(r"k: 0 rcp, 1 sine, 2 cosine", probe)
+    assert list(ws.IDENTITIES) == ["rcp", "sin", "cos"]
+    with pytest.raises(ValueError, match="CUDA device"):
+        ws.identities("cpu")
 
 
 # the packed fields at which the two candidate reciprocals of torch's CUDA
