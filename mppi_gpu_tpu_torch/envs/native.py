@@ -13,6 +13,8 @@ reference's MuJoCo env, each with the reference-env API ``reset()``,
   into ``csrc/``.
 * No fallback: when the build or the load fails, constructing a world
   raises with the compiler's output. :func:`native_available` only reports.
+* Traced as ``ops/_build``'s libraries are: the spans ``setup.library`` and
+  ``setup.library.build``, the counts ``library.load`` and ``library.build``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from mppi_gpu_tpu_torch.utils import timing
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "world.cpp"
 GXX_FLAGS = ("-O2", "-Wall", "-shared", "-fPIC")
@@ -66,9 +70,11 @@ def build() -> Path:
     lib.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=lib.parent, suffix=".so.tmp")
     os.close(fd)
+    timing.count("library.build")
     try:
         cmd = [gxx, *GXX_FLAGS, "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        with timing.span("setup.library.build"):
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
@@ -87,7 +93,9 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         lib = _LIBRARIES.get(path)
         if lib is None:
-            lib = ctypes.CDLL(str(build()))
+            with timing.span("setup.library"):
+                lib = ctypes.CDLL(str(build()))
+            timing.count("library.load")
             for prefix, create in _CREATE.items():
                 fn = getattr(lib, f"{prefix}_create")
                 fn.argtypes, fn.restype = create, ctypes.c_void_p

@@ -18,6 +18,13 @@ reads (the controller's pack, cost, model, σ, λ and clamp). A capture that
 fails raises: nothing goes back to launching op by op. Collectives of a
 process group (NCCL) are captured with the rest; every rank must capture the
 same sequence of them, so a key holds only what every rank shares.
+
+The host loop's solve is traced here (``utils/timing``): a span ``solve`` (its
+request the step, where it is an int) whose parts are ``solve.key`` (the key
+and the cache lookup, a capture on a miss), ``solve.load`` (the copies in),
+``solve.replay`` and ``solve.read_out`` (the copy out, split and viewed);
+``graph.capture`` around every capture. The registry counts
+``graph.capture.solve`` and ``graph.replay.solve``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from mppi_gpu_tpu_torch.controller import SolveInfo, SolveResult
 from mppi_gpu_tpu_torch.ops.cost import goal_of, goal_free_key, with_goal
+from mppi_gpu_tpu_torch.utils import timing
 
 
 def capture(fn, device: torch.device):
@@ -46,8 +54,9 @@ def capture(fn, device: torch.device):
     and its cached graph form a reference cycle that only the collector
     frees, and freeing a graph while another is being captured makes the
     capture fail. Other threads' CUDA calls (NCCL's watchdog queries its
-    events) are left alone (``capture_error_mode="thread_local"``)."""
-    with torch.cuda.device(device):
+    events) are left alone (``capture_error_mode="thread_local"``). The
+    whole of it is the span ``graph.capture``."""
+    with timing.span("graph.capture"), torch.cuda.device(device):
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
@@ -123,6 +132,7 @@ class SolveGraph:
         self.held = (ctrl._family, ctrl.cost, ctrl.dynamics, ctrl.sigma, ctrl.lambda_, ctrl.max_a)
         self.shapes: list[torch.Size] = []
         self._load(x, U, seed, step, goal)
+        timing.count("graph.capture.solve")
         self.graph, self.first, self.out = capture(self._run, dev)
 
     @contextlib.contextmanager
@@ -160,9 +170,13 @@ class SolveGraph:
         if self.first is not None:  # the first call: the warm-up ran its inputs
             flat, self.first = self.first, None
         else:
+            timing.part("solve.load")
             self._load(x, U, seed, step, goal_of(self.ctrl.cost))
+            timing.part("solve.replay")
             self.graph.replay()
+            timing.count("graph.replay.solve")
             flat = self.out
+        timing.part("solve.read_out")
         parts = flat.clone().split([s.numel() for s in self.shapes])
         leaves = [p.view(s) for p, s in zip(parts, self.shapes)]
         return SolveResult(leaves[0], leaves[1], SolveInfo(*leaves[2:]))
@@ -170,7 +184,11 @@ class SolveGraph:
 
 def graphed_solve(ctrl, x, U, seed, step):
     """``ctrl.solve(x, U, seed, step)`` through the controller's solve graph
-    (one per controller, rebuilt when :func:`solve_key` changes)."""
-    key = solve_key(ctrl, x, U, seed)
-    cache = ctrl.__dict__.setdefault("_solve_graphs", {})
-    return cached(cache, "solve", key, lambda: SolveGraph(ctrl, x, U, seed, step))(x, U, seed, step)
+    (one per controller, rebuilt when :func:`solve_key` changes); the span
+    ``solve``, for the step where it is an int."""
+    with timing.span("solve", step if isinstance(step, int) else None):
+        timing.part("solve.key")
+        key = solve_key(ctrl, x, U, seed)
+        cache = ctrl.__dict__.setdefault("_solve_graphs", {})
+        graph = cached(cache, "solve", key, lambda: SolveGraph(ctrl, x, U, seed, step))
+        return graph(x, U, seed, step)

@@ -29,6 +29,10 @@ that struct, with ``mppi_solve_partials``'s arguments less the family id.
 * ``nvcc`` is looked up on ``PATH``, then under ``$CUDA_HOME/bin`` and
   ``/usr/local/cuda/bin``; without it, or when it fails, the build raises
   with the compiler's output. Nothing falls back to the plain versions.
+* Traced (``utils/timing``): a load is the span ``setup.library``, a build
+  within it the child ``setup.library.build``; the registry counts
+  ``library.load`` (libraries loaded) and ``library.build`` (of them, those
+  built first).
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from mppi_gpu_tpu_torch.utils import timing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mppi_gpu_tpu_torch"
@@ -129,13 +135,14 @@ def _compile(lib: Path, sources: list[str], extra: tuple[str, ...] = ()) -> None
     compiler's output if a step fails."""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    timing.count("library.build")
 
     def check(cmd, proc, log) -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
         return log
 
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with timing.span("setup.library.build"), tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, f"{i}.o") for i in range(len(sources))]
         cmds = [[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj, src] for obj, src in zip(objs, sources)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -162,10 +169,12 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare every entry."""
-    lib = ctypes.CDLL(str(build()))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
+    with timing.span("setup.library"):
+        lib = ctypes.CDLL(str(build()))
+        timing.count("library.load")
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -260,12 +269,14 @@ def load_family_library(source: str, struct: str, A: int) -> ctypes.CDLL:
     path = family_library_path(source, struct, A)
     lib = _FAMILY_LIBRARIES.get(path)
     if lib is None:
-        lib = ctypes.CDLL(str(build_family(source, struct, A)))
-        entry = getattr(lib, FAMILY_ENTRY)
-        entry.argtypes, entry.restype = _FAMILY_SIGNATURE
-        for name in ("mppi_family_state_dim", "mppi_family_has_goal"):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = [], _i
-        lib.family_struct = (lib.mppi_family_state_dim(), bool(lib.mppi_family_has_goal()))
+        with timing.span("setup.library"):
+            lib = ctypes.CDLL(str(build_family(source, struct, A)))
+            timing.count("library.load")
+            entry = getattr(lib, FAMILY_ENTRY)
+            entry.argtypes, entry.restype = _FAMILY_SIGNATURE
+            for name in ("mppi_family_state_dim", "mppi_family_has_goal"):
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = [], _i
+            lib.family_struct = (lib.mppi_family_state_dim(), bool(lib.mppi_family_has_goal()))
         _FAMILY_LIBRARIES[path] = lib
     return lib

@@ -31,12 +31,13 @@ import torch
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops import solve_tail as st
 from mppi_gpu_tpu_torch.ops import world_step as ws
+from mppi_gpu_tpu_torch.utils import timing
 
 # the tails K2' computes: an inner iteration's and the device episode's cycle
 FORMS = (st.ITERATE, st.CYCLE)
 
-# launches of K2' that ran
-_LAUNCHES = {"combine_tail": 0}
+# launches of K2' that ran (``utils/timing``'s ``launch.combine_tail``)
+_LAUNCHES = timing.Counters("launch", ("combine_tail",))
 
 
 def combine_tail_reference(partials, lam_softmin: float, U, max_a, clamp: bool, outputs,

@@ -88,6 +88,7 @@ from mppi_gpu_tpu_torch.ops import _rounding, philox
 from mppi_gpu_tpu_torch.ops.cost import QuadraticCost
 from mppi_gpu_tpu_torch.ops.families import FAMILY_ID, FAMILY_NAMES, MAX_A, FusedFamily
 from mppi_gpu_tpu_torch.ops.rollout import rollout_costs
+from mppi_gpu_tpu_torch.utils import timing
 
 BLOCK = 128          # rollouts per block of K1's per-rollout body (kBlock)
 DELTA_CELLS = 8 * (BLOCK + 8)  # floats per action of its second pass's slab (kDeltaCells)
@@ -131,11 +132,13 @@ COMBINE_ONE_BLOCK_COLUMNS = 256  # one column per thread of the block
 
 # launches of each CUDA kernel of csrc/mppi_solve.cu, counted by the function
 # that launches it, where it launches; K1's and K4's also by family and by
-# body (block width)
-_LAUNCHES = dict.fromkeys(
-    ("solve_partials", "softmin_combine", "noise_dump", "rollout_costs", "weighted_update"), 0)
-_FAMILY_LAUNCHES = {k: dict.fromkeys(FAMILY_NAMES, 0) for k in ("solve_partials", "rollout_costs")}
-_WIDTH_LAUNCHES = {k: dict.fromkeys((SLAB_WIDTH, BLOCK), 0)
+# body (block width): views of ``utils/timing``'s registry, ``launch.<kernel>``,
+# ``launch.<kernel>.family.<name>``, ``launch.<kernel>.width.<width>``
+_LAUNCHES = timing.Counters("launch", ("solve_partials", "softmin_combine", "noise_dump",
+                                       "rollout_costs", "weighted_update"))
+_FAMILY_LAUNCHES = {k: timing.Counters(f"launch.{k}.family", FAMILY_NAMES)
+                    for k in ("solve_partials", "rollout_costs")}
+_WIDTH_LAUNCHES = {k: timing.Counters(f"launch.{k}.width", (SLAB_WIDTH, BLOCK))
                    for k in ("solve_partials", "rollout_costs")}
 
 

@@ -45,6 +45,7 @@ from mppi_gpu_tpu_torch.ops import _rounding
 from mppi_gpu_tpu_torch.ops import fused_solve as fs
 from mppi_gpu_tpu_torch.ops import solve_tail as st
 from mppi_gpu_tpu_torch.ops import world_step as ws
+from mppi_gpu_tpu_torch.utils import timing
 
 MAX_RANKS = 65535  # K8's, K10's and K11's grid axis y is the local rank (kMaxRanks)
 # K11's fixed order: each ROW_CHUNK-entry chunk of a row is summed by
@@ -58,8 +59,9 @@ ROW_CHUNK, ROW_LANES = 4096, 1024
 # scratch and a ticket
 MAX_CLUSTER = 8
 
-# launches of K8-K11 that ran
-_LAUNCHES = {"sharded_scale": 0, "sharded_tail": 0, "softmin_min": 0, "softmin_eta": 0}
+# launches of K8-K11 that ran (``utils/timing``'s ``launch.<kernel>``)
+_LAUNCHES = timing.Counters("launch",
+                            ("sharded_scale", "sharded_tail", "softmin_min", "softmin_eta"))
 
 
 def row_chunks(k_loc: int) -> int:

@@ -27,6 +27,7 @@ import torch
 
 from mppi_gpu_tpu_torch.ops import _rounding
 from mppi_gpu_tpu_torch.ops.fused_solve import _launch
+from mppi_gpu_tpu_torch.utils import timing
 
 MAX_ROW = 232448 // 4  # floats of one robot's sequence K7 stages in shared memory (kMaxRowBytes)
 MAX_ROBOTS = 65535     # the C entry's bound on R
@@ -37,8 +38,8 @@ OUTPUTS = ("u_seq", "u_next", "action", "weights")
 ITERATE = ("u_seq",)
 CYCLE = ("u_next", "action")
 
-# launches of K7 that ran
-_LAUNCHES = {"solve_tail": 0}
+# launches of K7 that ran (``utils/timing``'s ``launch.solve_tail``)
+_LAUNCHES = timing.Counters("launch", ("solve_tail",))
 
 
 class Tail(NamedTuple):

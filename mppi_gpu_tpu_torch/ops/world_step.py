@@ -50,6 +50,7 @@ import torch
 
 from mppi_gpu_tpu_torch.ops import _rounding
 from mppi_gpu_tpu_torch.ops.fused_solve import _launch
+from mppi_gpu_tpu_torch.utils import timing
 
 # the world bodies of csrc/world_step.cu: kind → (C id (WorldId), the shape of
 # each state leaf after the robot axis, action dim, the pack's line there)
@@ -70,8 +71,8 @@ MAX_ROBOTS = 65535  # the C entry's bound on R
 NO_WORLD_ARGS = (-1, None, None, 0, None, None, 0, None, 0, 0, None, None, None, 0, None, None)
 
 _KERNEL_WORLDS: set[type] = set()
-# launches of K6 that ran, by world kind
-_LAUNCHES = dict.fromkeys(WORLDS, 0)
+# launches of K6 that ran, by world kind (``utils/timing``'s ``launch.world_advance.<kind>``)
+_LAUNCHES = timing.Counters("launch.world_advance", WORLDS)
 _CHECKED: set[str] = set()
 
 

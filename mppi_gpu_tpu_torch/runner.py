@@ -30,7 +30,14 @@ Three entry points:
   sharded or not.
 
 The two device episodes step the torch world on the device and refuse a
-host plant by name.
+host plant by name. Each is traced (``utils/timing``) as a span ``episode``
+(its request the episode's ordinal within its cycle) whose parts are
+``episode.prepare`` (the world, its reset, the start, U₀, the cycle's key
+and lookup, and its ``graph.capture`` where the cycle is captured),
+``episode.load`` (the copies into the cycle's buffers), ``episode.replay``
+(the n cycles: replays, or the eager loop) and ``episode.read_back`` (the
+histories to the host); the registry counts ``graph.capture.episode`` and
+``graph.replay.episode`` (n a graphed episode).
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from mppi_gpu_tpu_torch.envs import WorldParams, make_host_world, make_world, pa
 from mppi_gpu_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from mppi_gpu_tpu_torch.io.csvio import write_step_dump_csv, write_traj_csv
 from mppi_gpu_tpu_torch.ops import world_step
+from mppi_gpu_tpu_torch.utils import timing
 from mppi_gpu_tpu_torch.utils.guard import check_solve
 from mppi_gpu_tpu_torch.utils.timing import SolveTimer
 
@@ -277,6 +285,7 @@ class EpisodeCycle:
         self.ts = torch.empty((n, *state0.time.shape), **f32)
         self.n = n
         self.graph = None
+        self.runs = 0  # episodes run, the ordinal of the next
         self.advance = world_step.Advance(world, self.state, self.xs, self.us, self.ts, self.x)
 
     def cycle(self) -> None:
@@ -288,26 +297,35 @@ class EpisodeCycle:
         nothing falls back to the eager loop. The capture runs no kernel,
         and its wrappers count none (``ops.fused_solve``): a replay's
         launches are seen only in a trace."""
+        timing.count("graph.capture.episode")
         self.graph = graphs.capture(self.cycle, self.U.device)[0]
 
     def run(self, state0, U0: torch.Tensor, capture: bool = True) -> EpisodeResult:
         """The episode of `n` cycles from (state0, U0); histories read once,
         at the end, into arrays of its own (the next episode reuses the
-        buffers)."""
+        buffers). Its ordinal is the request of the span open around it
+        (``episode``), its steps are parts of that span."""
+        timing.tag(self.runs)
+        self.runs += 1
         graphed = capture and self.U.device.type == "cuda" and self.n > 0
         if graphed and self.graph is None:
             self._capture()
+        timing.part("episode.load")
         for buf, v in zip(self.state, state0):
             buf.copy_(v)
         self.x.copy_(state0.x)
         self.U.copy_(U0)
         self.step.zero_()
         self.xs[0].copy_(state0.x)
+        timing.part("episode.replay")
         for _ in range(self.n):
             if graphed:
                 self.graph.replay()
             else:
                 self.cycle()
+        if graphed:
+            timing.count("graph.replay.episode", self.n)
+        timing.part("episode.read_back")
         host = dict(device="cpu", copy=True)
         return EpisodeResult(times=self.ts.to(**host).numpy(), xs=self.xs.to(**host).numpy(),
                              us=self.us.to(**host).numpy())
@@ -367,24 +385,27 @@ def run_episode_jit(
     collectives in it (NCCL's; a virtual mesh's are plain reductions) and
     replays it; over gloo, on the CPU, the cycle is a loop."""
     _device_world("run_episode_jit", world_backend)
-    params = world_params or params_for_config(ctrl.cfg)
-    world = make_world(ctrl.cfg, params, device=ctrl.device)
-    n = num_steps if num_steps is not None else params.num_control_steps()
-    seed = ctrl.cfg.seed if seed is None else int(seed)
-    state0 = world.reset()
-    if x0 is not None:
-        x0 = torch.as_tensor(x0, dtype=torch.float32, device=ctrl.device)
-        if tuple(x0.shape) != (ctrl.cfg.state_dim,):
-            raise ValueError(f"x0 must be ({ctrl.cfg.state_dim},), got {tuple(x0.shape)}")
-        state0 = world.from_x(x0, state0.time)
-    U0 = ctrl.init_action_seq()
+    with timing.span("episode"):
+        timing.part("episode.prepare")
+        params = world_params or params_for_config(ctrl.cfg)
+        world = make_world(ctrl.cfg, params, device=ctrl.device)
+        n = num_steps if num_steps is not None else params.num_control_steps()
+        seed = ctrl.cfg.seed if seed is None else int(seed)
+        state0 = world.reset()
+        if x0 is not None:
+            x0 = torch.as_tensor(x0, dtype=torch.float32, device=ctrl.device)
+            if tuple(x0.shape) != (ctrl.cfg.state_dim,):
+                raise ValueError(f"x0 must be ({ctrl.cfg.state_dim},), got {tuple(x0.shape)}")
+            state0 = world.from_x(x0, state0.time)
+        U0 = ctrl.init_action_seq()
 
-    def solve(x, U, step, advance):
-        return ctrl.solve_in_place(x, U, seed, step, advance)
+        def solve(x, U, step, advance):
+            return ctrl.solve_in_place(x, U, seed, step, advance)
 
-    key = cycle_key(ctrl, "single", params, None, state0.x.shape, n, seed)
-    cyc = _episode_cycle(ctrl, "single", key, lambda: EpisodeCycle(ctrl, world, state0, U0, n, solve))
-    return cyc.run(state0, U0, capture)
+        key = cycle_key(ctrl, "single", params, None, state0.x.shape, n, seed)
+        cyc = _episode_cycle(ctrl, "single", key,
+                             lambda: EpisodeCycle(ctrl, world, state0, U0, n, solve))
+        return cyc.run(state0, U0, capture)
 
 
 def run_fleet_episode(
@@ -408,27 +429,29 @@ def run_fleet_episode(
     (N, R, a) and the robots' shared clock. Any `world_backend` but "torch"
     (a host plant) raises ValueError."""
     _device_world("run_fleet_episode", world_backend)
-    params = world_params or params_for_config(ctrl.cfg)
-    world = make_world(ctrl.cfg, params, device=ctrl.device)
-    n = num_steps if num_steps is not None else params.num_control_steps()
-    R = ctrl.n_robots
-    state0 = world.reset(R)
-    if xs0 is not None:
-        xs0 = torch.as_tensor(xs0, dtype=torch.float32, device=ctrl.device)
-        if tuple(xs0.shape) != (R, ctrl.cfg.state_dim):
-            raise ValueError(
-                f"xs0 must be ({R}, {ctrl.cfg.state_dim}), got {tuple(xs0.shape)}"
-            )
-        state0 = world.from_x(xs0, state0.time)
-    Us0 = ctrl.init_action_seqs()
+    with timing.span("episode"):
+        timing.part("episode.prepare")
+        params = world_params or params_for_config(ctrl.cfg)
+        world = make_world(ctrl.cfg, params, device=ctrl.device)
+        n = num_steps if num_steps is not None else params.num_control_steps()
+        R = ctrl.n_robots
+        state0 = world.reset(R)
+        if xs0 is not None:
+            xs0 = torch.as_tensor(xs0, dtype=torch.float32, device=ctrl.device)
+            if tuple(xs0.shape) != (R, ctrl.cfg.state_dim):
+                raise ValueError(
+                    f"xs0 must be ({R}, {ctrl.cfg.state_dim}), got {tuple(xs0.shape)}"
+                )
+            state0 = world.from_x(xs0, state0.time)
+        Us0 = ctrl.init_action_seqs()
 
-    def build() -> EpisodeCycle:
-        seeds = ctrl.init_seeds()
+        def build() -> EpisodeCycle:
+            seeds = ctrl.init_seeds()
 
-        def solve(xs, Us, step, advance):
-            return ctrl.solve_in_place(xs, Us, seeds, step, advance)
+            def solve(xs, Us, step, advance):
+                return ctrl.solve_in_place(xs, Us, seeds, step, advance)
 
-        return EpisodeCycle(ctrl, world, state0, Us0, n, solve)
+            return EpisodeCycle(ctrl, world, state0, Us0, n, solve)
 
-    key = cycle_key(ctrl, "fleet", params, R, state0.x.shape, n, None)
-    return _episode_cycle(ctrl, "fleet", key, build).run(state0, Us0, capture)
+        key = cycle_key(ctrl, "fleet", params, R, state0.x.shape, n, None)
+        return _episode_cycle(ctrl, "fleet", key, build).run(state0, Us0, capture)

@@ -3,8 +3,8 @@
 JAX world's ``simulate`` under ``jax.jit``, the packed parameters against
 each params dataclass and against the field order the CUDA source declares,
 the dispatch between the kernel and the plain loop (the C entries stubbed, so
-no card is needed), the episode cycle's history writes, and the two timing
-names of ``utils/timing.py`` against the JAX package's.
+no card is needed), the episode cycle's history writes, and ``utils/timing.py``'s
+SolveTimer against the JAX package's.
 
 Inputs come from numpy seeds; sizes are small (R ≤ 8, 2 cycles). The kernel
 itself runs only on the card, where ``chip_smoke.py --episode`` holds it
@@ -37,7 +37,7 @@ from mppi_gpu_tpu_torch.ops import _build, _rounding  # noqa: E402
 from mppi_gpu_tpu_torch.ops import fused_solve as fs  # noqa: E402
 from mppi_gpu_tpu_torch.ops import solve_tail as st  # noqa: E402
 from mppi_gpu_tpu_torch.ops import world_step as ws  # noqa: E402
-from mppi_gpu_tpu_torch.utils.timing import SolveTimer, time_fn  # noqa: E402
+from mppi_gpu_tpu_torch.utils.timing import SolveTimer  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "mppi_gpu_tpu_torch", "csrc", "world_step.cu")
@@ -531,19 +531,6 @@ def test_solve_timer_matches_jax(split_first):
     assert mine.mean_ms == pytest.approx(ref.mean_ms)
     empty = SolveTimer()
     assert np.isnan(empty.percentile_ms(50)) and np.isnan(empty.mean_ms)
-
-
-def test_time_fn_warms_up_and_times_each_call():
-    """``time_fn`` on the CPU: `warmup` untimed calls, then `iters` timed,
-    each with its keyword arguments; the summary has `iters` samples."""
-    calls = []
-
-    def fn(x, *, scale):
-        calls.append(scale)
-        return torch.as_tensor(x) * scale
-
-    out = time_fn(fn, torch.ones(3), iters=5, warmup=2, scale=2.0)
-    assert len(calls) == 7 and out["n"] == 5 and out["min_ms"] <= out["p50_ms"] <= out["p95_ms"]
 
 
 @pytest.mark.parametrize("name", ["point_mass_xml", "cartpole", "quadrotor3d"])
