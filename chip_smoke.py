@@ -4456,9 +4456,11 @@ WEIGHING_LOOPS = tuple((n, 8, None) for n in FLEET_EPISODE_CONFIGS + ("obstacle2
     ("flagship", 1, 100_000),)
 
 
-def closed_loop_shares(name: str, R: int, K: int | None = None, device: str = "cuda") -> dict:
-    """:func:`weighing_share` at width BLOCK (the per-rollout body's blocks)
-    of the last update's S in the first, middle and last cycle of a closed
+def closed_loop_shares(name: str, R: int, K: int | None = None, device: str = "cuda",
+                       width: int | None = None) -> dict:
+    """:func:`weighing_share` at `width` (BLOCK, the per-rollout body's
+    blocks, if None) of the last update's S in the first, middle and last
+    cycle of a closed
     loop of config `name`: R robots under the fleet's seeds from the world's
     start, K rollouts (the config's if None), each cycle the fleet's solve
     and the batched world step, run_fleet_episode's cycle
@@ -4490,7 +4492,7 @@ def closed_loop_shares(name: str, R: int, K: int | None = None, device: str = "c
     EpisodeCycle(fleet, world, state0, Us0, n, solve).run(state0, Us0)
     marks = {"first": 0, "middle": n // 2, "last": n - 1}
     return dict(R=R, K=cfg.samples, T=cfg.horizon, A=cfg.action_dim, family=fleet._family.name,
-                cycles=n, **{k: weighing_share(costs[i], cfg.lambda_, fs.BLOCK)
+                cycles=n, **{k: weighing_share(costs[i], cfg.lambda_, width or fs.BLOCK)
                              for k, i in marks.items()})
 
 
@@ -6472,6 +6474,185 @@ def bodies_only() -> int:
     return 0
 
 
+# K1's and K4's slab body alone (``--slab``, ``--slab-digests``): its shapes
+# (family, A, K, T; None: the config's): the flagship (point_mass3d K=10⁴
+# T=200, 313 blocks), the point_mass2d config and the 3-D quadrotor's (K=2048
+# T=60, 64 blocks), and its noise modes (antithetic, OU β, injected ε)
+SLAB_CASES = (("lti", 3, 10_000, 200), ("lti", 2, 3000, 50), ("quadrotor3d", None, None, None))
+SLAB_MODES = ((False, 0.0, False), (True, 0.0, False), (False, 0.5, False), (False, 0.0, True))
+
+
+def slab_problem(name: str, A: int | None, K: int | None, T: int | None) -> tuple:
+    """(fam, x0, U, goal, λ, K) of a SLAB_CASES shape: :func:`make_problem`
+    for "lti", else :func:`make_family_problem` at the config's K and T."""
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    if name == "lti":
+        q = make_problem(A, K, T)
+        fam = fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"])
+        return fam, q["x0"], q["U"], q["goal"], q["lam"], K
+    cfg = _config(name)
+    q = make_family_problem(name, cfg.samples, cfg.horizon)
+    return q["fam"], q["x0"], q["U"], q["goal"], q["lam"], cfg.samples
+
+
+def slab_digests(root: str) -> int:
+    """``python3 chip_smoke.py --slab-digests ROOT``: through the package in
+    the checkout at ROOT (its kernels built there), the digests of K4's S and
+    of K1's S, β_b and η_b (the partials' first two columns) from the slab
+    body, and of K1's S and whole partials from the per-rollout body, at
+    every SLAB_CASES shape in every SLAB_MODES mode (injected: K3's dump of
+    the iid stream), K1 at the problem's λ and at each of WEIGH_LAMS; one
+    JSON line. Run on two checkouts in one call and compared with
+    ``--same-digests``: a change to the slab body's ΔŨ_b alone leaves every
+    digest equal."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    out = {}
+    for case in SLAB_CASES:
+        fam, x0, U, goal, lam, K = slab_problem(*case)
+        T, A = U.shape
+        for anti, ou, inj in SLAB_MODES:
+            e_in = fs.noise_dump(fam.sigma, T, K, 7, 3, 1, False, 0.0) if inj else None
+
+            def run(lam_softmin):
+                return fs._launch_solve_partials(fam, x0, U, goal, lam_softmin, K, 7, 3, 1, anti,
+                                                 ou, e_in, 1, (), width=fs.SLAB_WIDTH)
+
+            S4 = run(None)
+            key = f"{fam.name} A={A} K={K} T={T} anti={anti} ou={ou} injected={inj}"
+            out[f"K4 S {key}"] = digest(S4)
+            for lam_k in (lam,) + WEIGH_LAMS:
+                lam_k = middle_lam(S4, fs.BLOCK) if lam_k == "mid" else lam_k
+                S1, part = run(lam_k)
+                out[f"K1 S beta_b eta_b {key} lambda={lam_k:.6g}"] = digest(S1, part[:, :2])
+                out[f"K1 per-rollout S partials {key} lambda={lam_k:.6g}"] = digest(
+                    *fs._launch_solve_partials(fam, x0, U, goal, lam_k, K, 7, 3, 1, anti, ou, e_in,
+                                               1, (), width=fs.BLOCK))
+    print(json.dumps({"root": root, "kind": torch.cuda.get_device_name(0), "digest": out}))
+    return 0
+
+
+def slab_phase(smi: str, log: str) -> dict:
+    """K1's and K4's slab body on the card: ptxas's registers and spills of
+    every slab instance (from the build's `log`); at each SLAB_CASES shape
+    the waves of K1's and K4's grids (``fused_solve.wave_launch_counts``,
+    from the runtime's residency of the instance) beside the residency model
+    (``fused_solve.resident_blocks`` at the instance's ptxas registers);
+    :func:`check_bodies` at the flagship and at phase 20's body cases (S of
+    both bodies and of K4 bit-equal; partials against ``block_partials``,
+    which sums ΔŨ_b in the slab body's order, at the problem's λ, a middle
+    one and 1e9); phase 4's replay of K3's dump at WEIGH_DRAW_CASES and
+    WEIGH_LAMS, now with the slab body at T=1000 too; the share of rollouts
+    weighing in 32-wide blocks at the flagship, alone and in its closed
+    loop; both bodies' device times at every SLAB_CASES shape (K1 at the
+    problem's λ and at 1e9, K4). Returns the rows."""
+    import torch
+
+    from mppi_gpu_tpu_torch.ops import _build
+    from mppi_gpu_tpu_torch.ops import fused_solve as fs
+
+    regs = {}
+    for line in ptxas_summary(log):
+        if ",slab>" in line:
+            print(f"[slab] ptxas {line}")
+            name, rest = line.split(": ", 1)
+            regs[name] = int(rest.split()[0])
+    rows = {}
+    for case in SLAB_CASES:
+        fam, x0, U, goal, lam, K = slab_problem(*case)
+        T, A = U.shape
+        label = f"{fam.name} A={A} K={K} T={T}"
+        row = rows[label] = {}
+        for kernel, lam_k in (("solve_partials", lam), ("rollout_costs", None)):
+            fs.reset_launch_counts()
+            fs._launch_solve_partials(fam, x0, U, goal, lam_k, K, 7, 3, 0, False, 0.0, None, 1, (),
+                                      width=fs.SLAB_WIDTH)
+            key = f"{kernel}<{fam.name},A={A},inj=0,slab>"
+            model = fs.resident_blocks(fs.SLAB_THREADS, regs.get(key, 255), fs.slab_bytes(T, A))
+            row[f"{kernel} waves"] = fs.wave_launch_counts(kernel)
+            row[f"{kernel} model blocks per SM"] = model
+            print(f"[slab] {label} {kernel}: {-(-K // fs.SLAB_WIDTH)} blocks, waves "
+                  f"{fs.wave_launch_counts(kernel)} (runtime residency); model at "
+                  f"{regs.get(key)} registers, {fs.slab_bytes(T, A)} B: {model} blocks per SM, "
+                  f"{fs.waves(-(-K // fs.SLAB_WIDTH), model)} wave(s)")
+        lib = _build.load_library()
+        print(f"[slab] residency read (instance → blocks per SM, SMs): "
+              f"{ {k[:7]: v for k, v in lib.__dict__.get('k1_residency', {}).items()} }")
+    body_cases = [("lti", 3, 10_000, 200)] + [("lti", A, 3000, 50) for A in range(1, 5)] + [
+        (n, None, _config(n).samples, _config(n).horizon) for n in FAMILIES + COUPLED + LAST]
+    for name, A, K, T in body_cases:
+        if name == "lti":
+            q = make_problem(A, K, T)
+            fam = fs.lti_family(q["sigma"], q["inv_s"], q["w"], q["dt"], q["lam_cost"])
+        else:
+            q = make_family_problem(name, K, T)
+            fam = q["fam"]
+        e, shares = check_bodies(f"slab {fam.name} A={fam.action_dim}", fam, q["x0"], q["U"],
+                                 q["goal"], q["lam"], K, ((False, 0.0), (True, 0.0), (False, 0.5)),
+                                 q["eps"])
+        print(f"[slab] bodies {fam.name} A={fam.action_dim} K={K} T={T}: S of both bodies of K1 "
+              f"and K4 bit-equal (iid, antithetic, OU 0.5, injected); partials of both widths as "
+              f"plain at lambda {q['lam']}, a middle one and 1e9 ({_shares_line(shares)} at width "
+              f"{fs.BLOCK}); S max abs err vs plain {e:.3g}")
+        del q
+    for case in WEIGH_DRAW_CASES:
+        A, K, T, anti, ou, k0 = case
+        d = check_dump_replay(A, K, T, antithetic=anti, ou_beta=ou, k0=k0,
+                              lams=(None,) + WEIGH_LAMS)
+        print(f"[slab] dump A={A} K={K} T={T} anti={anti} ou={ou} k0={k0}: replay through K1 "
+              f"exact at widths {d['widths']}, lambda "
+              + ", ".join(f"{lam:.4g}" for lam, _ in d["replays"]))
+    fam, x0, U, goal, lam, K = slab_problem(*SLAB_CASES[0])
+    S = fs._launch_solve_partials(fam, x0, U, goal, None, K, 7, 3, 0, False, 0.0, None, 1, (),
+                                  width=fs.SLAB_WIDTH)
+    loop = closed_loop_shares("flagship", 1, width=fs.SLAB_WIDTH)
+    rows["weighing"] = dict(problem=weighing_share(S, lam, fs.SLAB_WIDTH), closed_loop=loop)
+    print(f"[slab] flagship: share of rollouts weighing in 32-wide blocks at lambda {lam}: "
+          f"{rows['weighing']['problem']:.4g} (the check's problem); its closed loop's first, "
+          f"middle and last cycle {loop['first']:.4g}, {loop['middle']:.4g}, {loop['last']:.4g}")
+    for case in SLAB_CASES:
+        fam, x0, U, goal, lam, K = slab_problem(*case)
+        T, A = U.shape
+        label = f"{fam.name} A={A} K={K} T={T}"
+        for kernel, lam_k in (("K1", lam), ("K1 lambda=1e9", 1e9), ("K4", None)):
+            for width in (fs.SLAB_WIDTH, fs.BLOCK):
+                ms = device_ms(lambda: fs._launch_solve_partials(
+                    fam, x0, U, goal, lam_k, K, 7, 3, 0, False, 0.0, None, 1, (), width=width))
+                rows[label][f"{kernel} width {width} device_ms"] = ms
+        row = rows[label]
+        print(f"[slab] {label} device ms (slab / per-rollout): " + "; ".join(
+            f"{k} {row[f'{k} width 32 device_ms']} / {row[f'{k} width 128 device_ms']}"
+            for k in ("K1", "K1 lambda=1e9", "K4")) + f" ({smi})")
+    return rows
+
+
+def slab_only() -> int:
+    """``python3 chip_smoke.py --slab``: the build (phase 2), then
+    :func:`slab_phase` alone, and one JSON line of its rows."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    from mppi_gpu_tpu_torch.ops import _build
+
+    smi = _smi()
+    print(smi)
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load_library()
+    print(f"[2] build: {time.perf_counter() - t0:.2f} s")
+    rows = slab_phase(smi, lib_path.with_suffix(".log").read_text())
+    print(json.dumps({"slab": rows, "kind": torch.cuda.get_device_name(0), "smi": smi},
+                     default=str))
+    print(f"[slab] done {time.perf_counter() - t0:.1f} s into the run")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7844,4 +8025,8 @@ if __name__ == "__main__":
         sys.exit(same_digests(sys.argv[2:]))
     if sys.argv[1:2] == ["--sass-diff"]:
         sys.exit(sass_diff(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--slab"]:
+        sys.exit(slab_only())
+    if sys.argv[1:2] == ["--slab-digests"]:
+        sys.exit(slab_digests(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

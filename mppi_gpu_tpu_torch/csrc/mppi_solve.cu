@@ -896,9 +896,23 @@ int mppi_solve_partials(int family, const float* x0, const float* U, const float
                         float ou_beta, float ou_c, int width, void* stream) {
   const NoiseParams np = make_noise(key0, key1, step, it, k0, K, antithetic, ou_beta, ou_c);
   const SolveArgs a{x0, U, params, goal, keys, step_ptr, eps_in, S, partials, R, T, A, dt,
-                    lam_cost, lam_softmin, width};
+                    lam_cost, lam_softmin, width, nullptr};
   return partials != nullptr ? launch_family<true>(family, a, np, (cudaStream_t)stream)
                              : launch_family<false>(family, a, np, (cudaStream_t)stream);
+}
+
+// The residency of the K1 (`pass2`) or K4 instance that mppi_solve_partials
+// would launch for `family`, `goal` and `eps_in` (null or not), T, A and
+// `width`: out (2,) receives its blocks per SM and the current device's
+// SMs. Launches nothing; `stream` is unused.
+int mppi_solve_residency(int family, const float* goal, const float* eps_in, int T, int A,
+                         int pass2, int width, int* out, void* stream) {
+  (void)stream;
+  const NoiseParams np = make_noise(0, 0, 0, 0, 0, 1, 0, 0.0f, 0.0f);
+  const SolveArgs a{nullptr, nullptr, nullptr, goal, nullptr, nullptr, eps_in, nullptr, nullptr,
+                    1, T, A, 0.0f, 0.0f, 0.0f, width, out};
+  return pass2 ? launch_family<true>(family, a, np, nullptr)
+               : launch_family<false>(family, a, np, nullptr);
 }
 
 // partials (R, nb, 2 + TA) → beta_eta (R, 2), dU (R, TA); divided by η

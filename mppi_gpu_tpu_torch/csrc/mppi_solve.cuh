@@ -49,9 +49,22 @@ constexpr int kWarps = kBlock / 32;
 constexpr int kDeltaCells = 8 * (kBlock + 8);
 constexpr int kSlabRollouts = 32;  // rollouts per block of K1's slab body; ops/fused_solve.SLAB_WIDTH
 constexpr int kSlabWarps = 8;      // warp 0 rolls out, warps 1-7 draw
-constexpr int kSlabThreads = 32 * kSlabWarps;
+constexpr int kSlabThreads = 32 * kSlabWarps;  // ops/fused_solve.SLAB_THREADS
 constexpr int kDrawWarps = kSlabWarps - 1;
-constexpr int kChunk = kDrawWarps;  // horizon steps per pipeline stage: one per draw warp
+constexpr int kChunk = kDrawWarps;  // horizon steps per ring slot: one per draw warp
+constexpr int kRing = 4;  // least slots of the slab body's ring; ops/fused_solve.SLAB_RING
+// floats per action of kRing slots, the slab of the slab body's second pass
+constexpr int kRingCells = kRing * kChunk * kSlabRollouts;
+// blocks per SM that the slab body's launch bounds hold registers for and
+// its ring leaves shared memory for, so that the flagship's 313 blocks
+// (K = 10⁴) fit in one wave on 132 SMs; ops/fused_solve.SLAB_MIN_BLOCKS
+constexpr int kSlabMinBlocks = 3;
+// states up to which a family's slab body takes kSlabMinBlocks' registers
+// (up to 80 a thread); a larger state (the 3-D quadrotor's 13, whose step
+// spills at 80) keeps 2 blocks' (up to 128); ops/fused_solve.SLAB_LEAN_STATE
+constexpr int kSlabLeanState = 8;
+constexpr int kSmSmem = 233472;    // shared memory of one Hopper SM
+constexpr int kSmBlockSmem = 1024;  // of it, the runtime's own per block
 constexpr int kCombineThreads = 256;
 constexpr int kMaxRobots = 65535;  // gridDim.y of K1 and K2; ops/fused_solve.MAX_ROBOTS
 constexpr int kCombineWarps = kCombineThreads / 32;
@@ -265,12 +278,14 @@ __device__ __forceinline__ void rollout_step(const F& fam, float* x, const float
 // flops on its 13 states. K4 does the rollout alone. The only traffic is U
 // and the parameters (read once into shared memory/registers), S (4 B per
 // rollout) and one (2 + T·A)-float partial per block. In the injected-ε mode
-// it instead streams T·A·4 B per rollout (again for each rollout that weighs,
-// in the per-rollout body). That body draws the noise of every rollout that
-// weighs twice: its second draw costs what pass 1's draw costs (~250
-// instructions per step at A = 3, Philox and two Box-Muller pairs), more than
-// the step, cost and reduction of the LTI family together; a rollout whose
-// weight e_k is 0 is not drawn again.
+// it instead streams T·A·4 B per rollout (again for each rollout that
+// weighs). Both bodies draw the noise of every rollout that weighs twice: its
+// second draw costs what pass 1's draw costs (~250 instructions per step at
+// A = 3, Philox and two Box-Muller pairs), more than the step, cost and
+// reduction of the LTI family together; a rollout whose weight e_k is 0 is
+// not drawn again. Tensor cores serve neither body's reduction: it is a
+// matrix-vector product (no reuse to feed them), and the replay checks need
+// exact float32 products.
 //
 // Design: the TPU kernels stage the tile's ε in VMEM for the ΔU pass. The
 // cross-tile online softmin of the TPU kernel, which relies on the grid
@@ -314,25 +329,32 @@ __device__ __forceinline__ void rollout_step(const F& fam, float* x, const float
 //   main path's K, where 128-rollout blocks leave most SMs empty and one
 //   warp per SM sub-partition runs the serial chain of Philox, Box-Muller,
 //   step, cost and Kahan sum with nothing to hide its latency. The draw of
-//   (k, t) depends on nothing before it, so seven draw warps fill a
-//   shared-memory slab with the block's normals for every step, in parallel
-//   over t, and only what is sequential in t stays in the rollout warp: the
-//   OU recursion, σ and the mirror (shape_eps, in next_eps's order of
-//   rounded operations, so S is the per-rollout body's bit for bit), the
-//   step, the cost and the Kahan sum. The rollout warp writes the final ε
-//   back into the slab. The two phases are pipelined over chunks of seven
-//   steps, one mbarrier per chunk: the draw warps never wait (the slab holds
-//   the whole horizon, no slot is reused), the rollout warp waits for each
-//   chunk's seven arrivals. ΔŨ_b[t, a] = Σ_j e_j ε_j[t, a] is then a
-//   32-long dot product per (t, a) read from the slab, one warp per row, in a
-//   fixed order: no second draw. Tensor cores serve neither body's reduction:
-//   it is a matrix-vector product (no reuse to feed them), and the replay
-//   checks need exact float32 products. The slab is 32·T·A floats (76.8 KB
-//   at T = 200, A = 3), so an SM holds two such blocks: past about a full
-//   card of per-rollout blocks, 64 rollout threads per SM cannot hide the
-//   family's step latency and the per-rollout body is faster. In the
-//   injected-ε mode the draw warps fill the slab with coalesced 4-byte
-//   cp.async copies of each step's contiguous 32·A floats.
+//   (k, t) depends on nothing before it, so seven draw warps fill a ring of
+//   shared-memory chunks with the block's normals ahead of the rollout warp,
+//   in parallel over t, and only what is sequential in t stays in the
+//   rollout warp: the OU recursion, σ and the mirror (shape_eps, in
+//   next_eps's order of rounded operations, so S is the per-rollout body's
+//   bit for bit), the step, the cost and the Kahan sum. Each slot of the
+//   ring (a chunk of seven steps) has a full mbarrier, on which the seven
+//   draw warps arrive, and an empty one, on which the rollout warp arrives
+//   once it has read the chunk (and, in K1, written its ε back); a draw
+//   warp waits for its slot to be empty. The ring holds as many chunks as a
+//   third of an SM's shared memory allows (slab_ring: 27 of the flagship's
+//   29, every chunk of the configs' shorter horizons), so the draw warps
+//   run far ahead, their work done early and the rollout warp's chain left
+//   alone after it, while three blocks fit an SM: the flagship's 313 blocks
+//   (K = 10⁴) run in one wave on 132 SMs. ΔŨ_b is the per-rollout body's
+//   second pass at 32 slots over all eight warps, in its order: the rows of
+//   the chunks still in the ring summed from their ε there, those before
+//   them with ε drawn again for the rollouts that weigh (weigh_chunks, the
+//   ring its slab); at least one rollout of a block weighs, its least-cost
+//   one (e = 1). The whole horizon's ε, 76.8 KB at T = 200, A = 3, would
+//   leave room for two blocks per SM: the flagship in two waves of the
+//   200-step chain. Past about a full card of per-rollout blocks, 96
+//   rollout threads per SM cannot hide the family's step latency and the
+//   per-rollout body is faster. In the injected-ε mode
+//   the draw warps fill the ring with coalesced 4-byte cp.async copies of
+//   each step's contiguous 32·A floats.
 //
 // Fleet: block (b, r) is block b of robot r; robots run side by side on the
 // SMs, not in turn as on the TPU. All robot offsets are size_t: at R = 64,
@@ -429,173 +451,15 @@ __global__ void __launch_bounds__(kBlock) solve_partials_kernel(
   }
 
   // ---- pass 2: ΔŨ_b[t, a] = Σ_k e_k ε_k[t, a] over the rollouts that weigh --
-  // A rollout weighs when e_k ≠ 0 (a NaN e_k too: it reaches ΔŨ_b, as in
-  // block_partials). Slot i of the block's n such rollouts, in rollout
-  // order, holds its weight and its draw: Philox mode kd, or ~kd for an
-  // antithetic mirror; injected ε the rollout k.
+  // (weigh_slots.cuh, weigh_chunks.cuh: the slab body runs the same text)
   float* e_s = u_s + TA;                                     // (kBlock,) slot weights
   int* slot = reinterpret_cast<int*>(e_s + kBlock);          // (kBlock,) slot draws
   int* counts = slot + kBlock;                               // (kWarps,) per warp
   float* cells = reinterpret_cast<float*>(counts + kWarps);  // (steps, A, ld)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool weighs = ek != 0.0f;
-  const unsigned ballot = __ballot_sync(0xffffffffu, weighs);
-  if (lane == 0) counts[warp] = __popc(ballot);
-  __syncthreads();
-  int n = 0, before = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    before += w < warp ? counts[w] : 0;
-    n += counts[w];
-  }
-  if (n == 0) {  // block-uniform: no rollout weighs, ΔŨ_b = 0
-    for (int i = threadIdx.x; i < TA; i += kBlock) part[2 + i] = 0.0f;
-    return;
-  }
-  if (weighs) {
-    const int i = before + __popc(ballot & ((1u << lane) - 1u));
-    e_s[i] = ek;
-    slot[i] = INJ ? k : mirror ? ~kd : kd;
-  }
-  __syncthreads();
-
-  // Where ε is shaped: by the thread that draws it when shaping needs no
-  // order (iid, injected ε) or when every rollout weighs, whose thread j then
-  // draws slot j's steps in order; else (OU, some rollouts weigh 0) by the
-  // thread of each slot after the chunk's draws, in t order.
-  const bool own = INJ || np.ou_beta == 0.0f || n == kBlock;
-  const bool shaper = threadIdx.x < n;
-  const float se = shaper ? e_s[threadIdx.x] : 0.0f;
-  const bool smirror = shaper && slot[threadIdx.x] < 0;
-#pragma unroll
-  for (int a = 0; a < A; ++a) e[a] = 0.0f;  // the OU state of the slot this thread shapes
-  const float inv_n = 1.0f / (float)n;
-  // (iii)'s lanes per row, G = 2^lg: 8 when every rollout weighs, fewer for
-  // fewer slots, each lane summing up to 16 of a row's n slots
-  int lg = 0;
-  while ((16 << lg) < n) ++lg;
-  const int G = 1 << lg;
-  // row stride of the slab: the 32 / G rows that one warp sums at once start
-  // on banks G apart
-  const int ld = n > 32 ? ((n + 31) & ~31) + G : n;
-  const int span = kDeltaCells / ld;  // steps per chunk: 8 when every rollout weighs
-  for (int t0 = 0; t0 < T; t0 += span) {
-    const int steps = min(span, T - t0), m = steps * n;
-    // (i) the chunk's cells (step s, slot i), two draws in flight per lane
-    // (injected ε: two copies); a second cell past the chunk repeats the
-    // first and is neither shaped nor stored
-    if (n == kBlock) {
-      // every rollout weighs: thread j draws slot j, its own rollout, at the
-      // chunk's steps in order, and shapes them as it goes
-      for (int s = 0; s < steps; s += 2) {
-        const bool second = s + 1 < steps;
-        float v[2][A];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int t = t0 + s + (second ? h : 0);
-          if (INJ) {
-            const float* src = eps_in + ((size_t)t * np.K + k) * A;
-#pragma unroll
-            for (int a = 0; a < A; ++a) v[h][a] = src[a];
-          } else {
-            unsigned w[4];
-            draw_normals<A>(np, kd, t, v[h], w);
-          }
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (h == 0 || second) {
-            float eps[A];
-            if (INJ) {
-#pragma unroll
-              for (int a = 0; a < A; ++a) eps[a] = v[h][a];
-            } else {
-              shape_eps<A>(np, sig, mirror, t0 + s + h, v[h], e, eps);
-            }
-#pragma unroll
-            for (int a = 0; a < A; ++a)
-              cells[((s + h) * A + a) * ld + threadIdx.x] = __fmul_rn(ek, eps[a]);
-          }
-        }
-      }
-    } else {
-      // cell q = s·n + i, over all threads
-      for (int q = threadIdx.x; q < m; q += 2 * kBlock) {
-        const bool second = q + kBlock < m;
-        int cs[2], ci[2], d[2];
-        float v[2][A];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int qh = second ? q + h * kBlock : q;
-          cs[h] = (int)(((float)qh + 0.5f) * inv_n);  // exact: qh < 2^11, n <= 128
-          ci[h] = qh - cs[h] * n;
-          d[h] = slot[ci[h]];
-          if (INJ) {
-            const float* src = eps_in + ((size_t)(t0 + cs[h]) * np.K + d[h]) * A;
-#pragma unroll
-            for (int a = 0; a < A; ++a) v[h][a] = src[a];
-          } else {
-            unsigned w[4];
-            draw_normals<A>(np, d[h] < 0 ? ~d[h] : d[h], t0 + cs[h], v[h], w);
-          }
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (h == 0 || second) {
-            float eps[A];
-            if (INJ) {
-#pragma unroll
-              for (int a = 0; a < A; ++a) eps[a] = v[h][a];
-            } else if (own) {
-              shape_eps<A>(np, sig, d[h] < 0, t0 + cs[h], v[h], e, eps);
-            }
-            const float w = e_s[ci[h]];
-#pragma unroll
-            for (int a = 0; a < A; ++a)
-              cells[(cs[h] * A + a) * ld + ci[h]] = own ? __fmul_rn(w, eps[a]) : v[h][a];
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (!own) {
-      // (ii) shape slot threadIdx.x's normals in t order and weigh them
-      if (shaper) {
-        for (int s = 0; s < steps; ++s) {
-          float* c = cells + s * A * ld + threadIdx.x;
-          float v[A], eps[A];
-#pragma unroll
-          for (int a = 0; a < A; ++a) v[a] = c[a * ld];
-          shape_eps<A>(np, sig, smirror, t0 + s, v, e, eps);
-#pragma unroll
-          for (int a = 0; a < A; ++a) c[a * ld] = __fmul_rn(se, eps[a]);
-        }
-      }
-      __syncthreads();
-    }
-    // (iii) row (s, a) = Σ over its n slots: lane l of a row's G adds slots
-    // l, l + 2G, … and l + G, l + 3G, … in two sums, then the G lanes' sums
-    // by a shuffle tree
-    const int rows = steps * A;
-    for (int r0 = warp << (5 - lg); r0 < rows; r0 += kWarps << (5 - lg)) {
-      const int row = r0 + (lane >> lg);
-      float sum = 0.0f;
-      if (row < rows) {
-        const float* c = cells + row * ld;
-        float odd = 0.0f;
-        int i = lane & (G - 1);
-        for (; i + G < n; i += 2 * G) {
-          sum += c[i];
-          odd += c[i + G];
-        }
-        if (i < n) sum += c[i];
-        sum += odd;
-      }
-      for (int o = G >> 1; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if ((lane & (G - 1)) == 0 && row < rows) part[2 + t0 * A + row] = sum;
-    }
-    __syncthreads();  // the slab is free for the next chunk
-  }
+  constexpr int kWeighThreads = kBlock, kWeighAll = kBlock, kWeighCells = kDeltaCells;
+  const int t_end = T;
+#include "weigh_slots.cuh"
+#include "weigh_chunks.cuh"
 }
 
 // Dynamic shared memory of the per-rollout body (ops/fused_solve.rollout_bytes):
@@ -605,39 +469,69 @@ size_t rollout_smem(int T, int A, bool pass2) {
   return sizeof(float) * ((size_t)T * A + (pass2 ? 2 * kBlock + kWarps + kDeltaCells * A : 0));
 }
 
-// Dynamic shared memory of the slab body: one mbarrier per chunk, U, the
-// block's softmin weights e_j and the slab (ops/fused_solve.slab_bytes).
+// Slots of the slab body's ring at T, A (ops/fused_solve.slab_ring): every
+// chunk of the horizon where the shared memory of kSlabMinBlocks blocks per
+// SM holds them all, else as many as it holds; at least kRing.
+__host__ __device__ inline int slab_ring(int T, int A) {
+  const int chunks = (T + kChunk - 1) / kChunk;
+  const int room = kSmSmem / kSlabMinBlocks - kSmBlockSmem -
+                   4 * (T * A + 3 * kSlabRollouts + kSlabWarps);
+  const int fit = room > 0 ? room / (16 + 4 * kChunk * A * kSlabRollouts) : 0;
+  const int slots = chunks < fit ? chunks : fit;
+  return slots > kRing ? slots : kRing;
+}
+
+// Dynamic shared memory of the slab body (ops/fused_solve.slab_bytes): a full
+// and an empty mbarrier per slot of the ring, U, the second pass's slot
+// weights, draws and places and its count per warp, and the ring of chunks
+// of normals.
 size_t slab_smem(int T, int A) {
-  const size_t chunks = (T + kChunk - 1) / kChunk;
-  return 8 * chunks + sizeof(float) * ((size_t)(kSlabRollouts + 1) * T * A + kSlabRollouts);
+  const size_t ring = slab_ring(T, A);
+  return 16 * ring + sizeof(float) * ((size_t)T * A + 3 * kSlabRollouts + kSlabWarps +
+                                      ring * kChunk * A * kSlabRollouts);
+}
+
+// Blocks per SM that the slab body's launch bounds hold registers for, by
+// the family's state (kSlabLeanState).
+template <class F>
+constexpr int slab_min_blocks() {
+  return F::kS <= kSlabLeanState ? kSlabMinBlocks : 2;
 }
 
 // K1's and K4's slab body (see K1's note above): block (b, r) rolls out
 // robot r's rollouts 32·b .. 32·b + 31, lane j of every warp standing for
-// rollout 32·b + j. Warps 1-7 draw (or, injected, copy) step c·7 + w − 1 of
-// every chunk c into the slab, (T, A, 32) floats at (t·A + a)·32 + j, and
-// arrive on chunk c's mbarrier; warp 0 waits for each chunk, shapes and
-// writes back ε, and steps the family. Lanes past K draw nothing, hold ε = 0
-// and never enter β, η or ΔŨ.
-// Two blocks per SM (the shared memory holds two slabs at T = 200): up to
-// 128 registers a thread, room for the 3-D quadrotor's state and its
-// midpoint without spilling.
+// rollout 32·b + j. Warp 0 rolls out, warps 1-7 draw. The horizon runs
+// through a ring of `ring` slots (slab_ring), a chunk of kChunk = 7 steps
+// each: for chunk c, the draw warps wait until slot c mod ring is empty
+// (its chunk c − ring consumed), draw (or, injected, copy) step c·7 + w − 1
+// into it, (kChunk, A, 32) floats at (s·A + a)·32 + j, and arrive on the
+// slot's full mbarrier; warp 0 waits for it, shapes ε (K1: and writes it
+// back), steps the family, and arrives on the slot's empty mbarrier. Lanes
+// past K draw nothing, hold ε = 0 and never enter β, η or ΔŨ. K1's second
+// pass then sums the rows of the last `ring` chunks, still in the ring,
+// from their ε there, and draws ε again for the steps before them
+// (weigh_chunks, the ring its slab), in one order.
 template <class F, int A, bool INJ, bool PASS2>
-__global__ void __launch_bounds__(kSlabThreads, 2) slab_partials_kernel(
+__global__ void __launch_bounds__(kSlabThreads, slab_min_blocks<F>()) slab_partials_kernel(
     const float* __restrict__ x0, const float* __restrict__ U,
     const float* __restrict__ params, const float* __restrict__ goal,
     const long long* __restrict__ keys, const long long* __restrict__ step_ptr,
     const float* __restrict__ eps_in, float* __restrict__ S_out, float* __restrict__ partials,
     int T, float dt, float lam_cost, float lam_softmin, NoiseParams np) {
   constexpr int S_DIM = F::kS;
-  constexpr int G = kSlabRollouts;
+  constexpr int W = kSlabRollouts;
   extern __shared__ __align__(16) unsigned long long slab_raw[];
   const int TA = T * A;
   const int chunks = (T + kChunk - 1) / kChunk;
-  unsigned long long* bars = slab_raw;                      // (chunks,)
-  float* u_s = reinterpret_cast<float*>(slab_raw + chunks);  // (T, A) nominal sequence
-  float* e_s = u_s + TA;                                     // (G,) softmin weights e_j
-  float* slab = e_s + G;                                     // (T, A, G) normals, then ε
+  const int ring_slots = slab_ring(T, A);
+  unsigned long long* full = slab_raw;                   // (ring_slots,) slot drawn
+  unsigned long long* empty = full + ring_slots;         // (ring_slots,) slot consumed
+  float* u_s = reinterpret_cast<float*>(empty + ring_slots);  // (T, A) nominal sequence
+  float* e_s = u_s + TA;                                 // (W,) second pass: slot weights
+  int* slot = reinterpret_cast<int*>(e_s + W);           // (W,) slot draws
+  int* pos = slot + W;                                   // (W,) slot places j
+  int* counts = pos + W;                                 // (kSlabWarps,) per warp
+  float* ring = reinterpret_cast<float*>(counts + kSlabWarps);  // (ring_slots, kChunk, A, W)
   const size_t r = blockIdx.y;
   x0 += r * S_DIM;
   U += r * TA;
@@ -651,33 +545,44 @@ __global__ void __launch_bounds__(kSlabThreads, 2) slab_partials_kernel(
   }
   if (step_ptr != nullptr) np.step = (unsigned)(unsigned long long)*step_ptr;
   for (int i = threadIdx.x; i < TA; i += kSlabThreads) u_s[i] = U[i];
-  for (int c = threadIdx.x; c < chunks; c += kSlabThreads) mbar_init(bars + c, kDrawWarps);
+  for (int i = threadIdx.x; i < ring_slots; i += kSlabThreads) {
+    mbar_init(full + i, kDrawWarps);
+    mbar_init(empty + i, 1);
+  }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kb = blockIdx.x * G;
+  const int kb = blockIdx.x * W;
   const int k = kb + lane;
   const bool valid = k < np.K;
   const bool mirror = np.antithetic && k >= np.K_draw;
   const int kd = mirror ? k - np.K_draw : k;
   float* part = PASS2 ? partials + (r * gridDim.x + blockIdx.x) * (2 + (size_t)TA) : nullptr;
+  float sig[A], e[A];  // σ; the OU state (warp 0's rollout, then the second pass's slot)
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    sig[a] = params[a];
+    e[a] = 0.0f;
+  }
+  float ek = 0.0f;  // warp 0: the rollout's softmin weight
 
   if (warp > 0) {
-    // ---- draw warps: step t = c·7 + warp − 1 of chunk c, in parallel over t --
-    for (int c = 0; c < chunks; ++c) {
+    // ---- draw warps: step c·7 + warp − 1 of chunk c into slot c mod ring ----
+    for (int c = 0, s = 0, lap = 0; c < chunks; ++c) {
+      mbar_wait(empty + s, (lap & 1) ^ 1);  // free: never filled, or consumed
       const int t = c * kChunk + warp - 1;
       if (t < T) {
-        float* row = slab + (size_t)t * A * G;
+        float* row = ring + (size_t)(s * kChunk + warp - 1) * A * W;
         if (INJ) {
-          // step t's G·A floats are contiguous in eps_in (rollout-major); the
-          // slab holds them action-major
+          // step t's W·A floats are contiguous in eps_in (rollout-major); the
+          // ring holds them action-major
           const float* src = eps_in + ((size_t)t * np.K + kb) * A;
-          for (int i = lane; i < G * A; i += 32) {
+          for (int i = lane; i < W * A; i += 32) {
             const int j = i / A, a = i - j * A;
             if (kb + j < np.K) {
-              cp_async4(row + a * G + j, src + i);
+              cp_async4(row + a * W + j, src + i);
             } else {
-              row[a * G + j] = 0.0f;
+              row[a * W + j] = 0.0f;
             }
           }
           cp_async_wait_all();
@@ -686,57 +591,58 @@ __global__ void __launch_bounds__(kSlabThreads, 2) slab_partials_kernel(
           unsigned w[4];
           if (valid) draw_normals<A>(np, kd, t, n, w);
 #pragma unroll
-          for (int a = 0; a < A; ++a) row[a * G + lane] = valid ? n[a] : 0.0f;
+          for (int a = 0; a < A; ++a) row[a * W + lane] = valid ? n[a] : 0.0f;
         }
       }
       __syncwarp();
-      if (lane == 0) mbar_arrive(bars + c);
+      if (lane == 0) mbar_arrive(full + s);
+      if (++s == ring_slots) s = 0, ++lap;
     }
   } else {
     // ---- rollout warp: shape ε, step, cost, chunk by chunk ---------------------
-    float sig[A], lis[A], x[S_DIM], e[A];
+    float lis[A], x[S_DIM];
 #pragma unroll
-    for (int a = 0; a < A; ++a) {
-      sig[a] = params[a];
-      lis[a] = params[A + a];
-      e[a] = 0.0f;
-    }
+    for (int a = 0; a < A; ++a) lis[a] = params[A + a];
     F fam;
     fam.load(params + 2 * A, goal, dt);
 #pragma unroll
     for (int i = 0; i < S_DIM; ++i) x[i] = x0[i];
     float acc = 0.0f, comp = 0.0f;  // Kahan-compensated Σ_t step cost
-    for (int c = 0; c < chunks; ++c) {
-      mbar_wait(bars + c, 0);
-      if (!valid) continue;
-      const int t_end = min(T, (c + 1) * kChunk);
-      float* cell = slab + (size_t)c * kChunk * A * G + lane;
-      float next[A];  // the next step's normals (or injected ε), loaded a step
-                      // ahead: no shared-memory load sits on the step's chain
+    for (int c = 0, s = 0, lap = 0; c < chunks; ++c) {
+      mbar_wait(full + s, lap & 1);
+      if (valid) {
+        const int t_end = min(T, (c + 1) * kChunk);
+        float* cell = ring + (size_t)s * kChunk * A * W + lane;
+        float next[A];  // the next step's normals (or injected ε), loaded a step
+                        // ahead: no shared-memory load sits on the step's chain
 #pragma unroll
-      for (int a = 0; a < A; ++a) next[a] = cell[a * G];
-      // not unrolled: a family's step inlined seven times would overflow the
-      // instruction cache (the arm's twelve sinf/cosf calls per step)
+        for (int a = 0; a < A; ++a) next[a] = cell[a * W];
+        // not unrolled: a family's step inlined seven times would overflow the
+        // instruction cache (the arm's twelve sinf/cosf calls per step)
 #pragma unroll 1
-      for (int t = c * kChunk; t < t_end; ++t, cell += A * G) {
-        float n[A], eps[A];
+        for (int t = c * kChunk; t < t_end; ++t, cell += A * W) {
+          float n[A], eps[A];
 #pragma unroll
-        for (int a = 0; a < A; ++a) {
-          n[a] = next[a];
-          if (t + 1 < t_end) next[a] = cell[(A + a) * G];
-        }
-        if (INJ) {
-#pragma unroll
-          for (int a = 0; a < A; ++a) eps[a] = n[a];
-        } else {
-          shape_eps<A>(np, sig, mirror, t, n, e, eps);
-          if (PASS2) {
-#pragma unroll
-            for (int a = 0; a < A; ++a) cell[a * G] = eps[a];
+          for (int a = 0; a < A; ++a) {
+            n[a] = next[a];
+            if (t + 1 < t_end) next[a] = cell[(A + a) * W];
           }
+          if (INJ) {
+#pragma unroll
+            for (int a = 0; a < A; ++a) eps[a] = n[a];
+          } else {
+            shape_eps<A>(np, sig, mirror, t, n, e, eps);
+            if (PASS2) {
+#pragma unroll
+              for (int a = 0; a < A; ++a) cell[a * W] = eps[a];
+            }
+          }
+          rollout_step<F, A>(fam, x, u_s + t * A, lis, eps, lam_cost, acc, comp);
         }
-        rollout_step<F, A>(fam, x, u_s + t * A, lis, eps, lam_cost, acc, comp);
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);  // read, and (K1) ε written back
+      if (++s == ring_slots) s = 0, ++lap;
     }
     float S = INFINITY;
     if (valid) {
@@ -748,9 +654,8 @@ __global__ void __launch_bounds__(kSlabThreads, 2) slab_partials_kernel(
       // ---- block softmin partial: the warp's 32 rollouts ---------------------
       const float beta_b = warp_nan_min(valid ? S : INFINITY);
       const bool all_inf = beta_b == INFINITY;
-      const float ek = (valid && !all_inf) ? expf(-(S - beta_b) / lam_softmin) : 0.0f;
+      ek = (valid && !all_inf) ? expf(-(S - beta_b) / lam_softmin) : 0.0f;
       const float eta_b = warp_sum(ek);
-      e_s[lane] = ek;
       if (lane == 0) {
         part[0] = beta_b;
         part[1] = eta_b;
@@ -758,15 +663,52 @@ __global__ void __launch_bounds__(kSlabThreads, 2) slab_partials_kernel(
     }
   }
   if (!PASS2) return;
-  __syncthreads();
-  // ---- ΔŨ_b[t, a] = Σ_j e_j ε_j[t, a]: slab row t·A + a, one warp per row -----
-  const float ej = e_s[lane];
-  for (int i = warp; i < TA; i += kSlabWarps) {
-    const float v = warp_sum(ej * slab[(size_t)i * G + lane]);
-    if (lane == 0) u_s[i] = v;  // U is spent: its buffer gathers the row sums
+  {
+    // ---- ΔŨ_b over the rollouts that weigh: the per-rollout body's second
+    // pass at 32 slots, every warp (warp 0's lanes hold the rollouts; its
+    // first barrier passes once every warp is done with the ring)
+    constexpr int kWeighThreads = kSlabThreads, kWeighAll = 0, kWeighCells = kRingCells;
+    float* cells = ring;
+#include "weigh_slots.cuh"
+    if (threadIdx.x < n) {  // slot i's place j in the block, from its draw
+      const int d = slot[threadIdx.x];
+      pos[threadIdx.x] = (INJ ? d : d < 0 ? ~d + np.K_draw : d) - kb;
+    }
+    __syncthreads();
+    // the steps from t_ring on are still in the ring, chunk c in slot c mod
+    // ring: each row (t, a) of them summed as weigh_chunks.cuh's (iii) sums
+    // a row of its slab, the products e·ε formed as it forms them
+    const int t_ring = max(0, chunks - ring_slots) * kChunk;
+    int lg = 0;
+    while ((16 << lg) < n) ++lg;
+    const int G = 1 << lg;  // a row's lanes
+    const int rows = (T - t_ring) * A;
+    for (int r0 = warp << (5 - lg); r0 < rows; r0 += kSlabWarps << (5 - lg)) {
+      const int row = r0 + (lane >> lg);
+      float sum = 0.0f;
+      if (row < rows) {
+        const int t = t_ring + row / A, a = row - (row / A) * A;
+        const int at = (t / kChunk) % ring_slots * kChunk + t % kChunk;  // its row in the ring
+        const float* c = ring + ((size_t)at * A + a) * W;
+        float odd = 0.0f;
+        int i = lane & (G - 1);
+        for (; i + G < n; i += 2 * G) {
+          sum += __fmul_rn(e_s[i], c[pos[i]]);
+          odd += __fmul_rn(e_s[i + G], c[pos[i + G]]);
+        }
+        if (i < n) sum += __fmul_rn(e_s[i], c[pos[i]]);
+        sum += odd;
+      }
+      for (int o = G >> 1; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if ((lane & (G - 1)) == 0 && row < rows) part[2 + t_ring * A + row] = sum;
+    }
+    if (t_ring == 0) return;
+    __syncthreads();  // the ring is free: the steps before t_ring are drawn again into it
+    const int t_end = t_ring;
+    {
+#include "weigh_chunks.cuh"
+    }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TA; i += kSlabThreads) part[2 + i] = u_s[i];
 }
 
 NoiseParams make_noise(unsigned key0, unsigned key1, unsigned step, unsigned it, unsigned k0,
@@ -800,30 +742,50 @@ struct SolveArgs {
   int R, T, A;
   float dt, lam_cost, lam_softmin;
   int width;  // rollouts per block: kBlock (per-rollout body) or kSlabRollouts (slab body)
+  // null: launch. Else nothing is launched, and (2,) ints receive the blocks
+  // of the instance a launch would run that an SM holds, and the SMs of the
+  // current device
+  int* resident;
 };
+
+// `kernel`'s blocks per SM at `threads` threads and `smem` bytes of dynamic
+// shared memory, and the current device's SMs, into out[0], out[1].
+template <typename Kernel>
+cudaError_t residency(Kernel kernel, int threads, size_t smem, int* out) {
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
+}
 
 template <class F, int A, bool INJ, bool PASS2>
 cudaError_t launch_partials(const SolveArgs& a, const NoiseParams& np, cudaStream_t stream) {
   if (a.width == kSlabRollouts) {
     const dim3 grid((np.K + kSlabRollouts - 1) / kSlabRollouts, a.R);
     const size_t smem = slab_smem(a.T, A);
+    if (a.resident != nullptr)
+      return residency(slab_partials_kernel<F, A, INJ, PASS2>, kSlabThreads, smem, a.resident);
     cudaError_t err = set_smem(slab_partials_kernel<F, A, INJ, PASS2>, smem);
     if (err != cudaSuccess) return err;
     slab_partials_kernel<F, A, INJ, PASS2><<<grid, kSlabThreads, smem, stream>>>(
         a.x0, a.U, a.params, a.goal, a.keys, a.step_ptr, a.eps_in, a.S, a.partials, a.T, a.dt,
-        a.lam_cost,
-        a.lam_softmin, np);
+        a.lam_cost, a.lam_softmin, np);
     return cudaGetLastError();
   }
   if (a.width != kBlock) return cudaErrorInvalidValue;
   const dim3 grid((np.K + kBlock - 1) / kBlock, a.R);
   const size_t smem = rollout_smem(a.T, A, PASS2);
+  if (a.resident != nullptr)
+    return residency(solve_partials_kernel<F, A, INJ, PASS2>, kBlock, smem, a.resident);
   cudaError_t err = set_smem(solve_partials_kernel<F, A, INJ, PASS2>, smem);
   if (err != cudaSuccess) return err;
   solve_partials_kernel<F, A, INJ, PASS2><<<grid, kBlock, smem, stream>>>(
       a.x0, a.U, a.params, a.goal, a.keys, a.step_ptr, a.eps_in, a.S, a.partials, a.T, a.dt,
-        a.lam_cost,
-      a.lam_softmin, np);
+      a.lam_cost, a.lam_softmin, np);
   return cudaGetLastError();
 }
 

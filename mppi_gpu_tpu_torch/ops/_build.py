@@ -20,7 +20,7 @@ that struct, with ``mppi_solve_partials``'s arguments less the family id.
 * Output: ``build/mppi_gpu_tpu_torch/libmppi_<hash>.so`` under the checkout,
   named by a hash of the sources (``*.cu`` and ``*.cuh``) and the flags, so an
   edited source, header or flag builds anew and an unchanged one is reused;
-  a family's ``libfamily_<hash>.so``, the hash over the header, the user's
+  a family's ``libfamily_<hash>.so``, the hash over the headers, the user's
   source, the struct's name, A and the flags.
 * Each source compiles in its own ``nvcc`` process, all started together,
   into an object in a temporary directory beside the library; the objects
@@ -62,6 +62,7 @@ _SIGNATURES = {
     "mppi_solve_partials": (
         [_i] + [_p] * 9 + [_i, _i, _i, _i, _f, _f, _f, _u, _u, _u, _u, _u, _i, _f, _f, _i, _p], _i,
     ),
+    "mppi_solve_residency": ([_i, _p, _p, _i, _i, _i, _i, _p, _p], _i),
     "mppi_softmin_combine": ([_p, _i, _i, _i, _f, _i, _p, _p, _p], _i),
     "mppi_noise_dump": ([_p, _p, _p, _i, _i, _i, _u, _u, _u, _u, _u, _i, _f, _f, _p], _i),
     "mppi_weighted_update": ([_p] * 4 + [_i, _i, _i, _u, _u, _u, _u, _u, _i, _f, _f, _p]
@@ -182,8 +183,11 @@ def load_library() -> ctypes.CDLL:
 # a fused family registered from user code
 
 FAMILY_ENTRY = "mppi_family_solve_partials"
-# mppi_solve_partials's arguments without the leading family id
+FAMILY_RESIDENCY = "mppi_family_solve_residency"
+# mppi_solve_partials's and mppi_solve_residency's arguments without the
+# leading family id
 _FAMILY_SIGNATURE = (_SIGNATURES["mppi_solve_partials"][0][1:], _i)
+_FAMILY_RESIDENCY_SIGNATURE = (_SIGNATURES["mppi_solve_residency"][0][1:], _i)
 
 
 def family_source(source: str, struct: str, A: int) -> str:
@@ -192,7 +196,9 @@ def family_source(source: str, struct: str, A: int) -> str:
     describes it), and the C entries: ``mppi_family_solve_partials`` (K1 on
     `struct` at A actions when `partials` is given, else K4; a robot count
     outside 1..65535, another A, or a goal pointer given exactly when the
-    struct reads none is refused with cudaErrorInvalidValue), and
+    struct reads none is refused with cudaErrorInvalidValue),
+    ``mppi_family_solve_residency`` (``mppi_solve_residency`` less the
+    family id: the residency of the instance it would launch), and
     ``mppi_family_state_dim`` / ``mppi_family_has_goal`` (its kS and kGoal,
     which the wrapper holds against the Python side's)."""
     if not struct.isidentifier():
@@ -221,10 +227,21 @@ int {FAMILY_ENTRY}(const float* x0, const float* U, const float* params, const f
     return (int)cudaErrorInvalidValue;
   const NoiseParams np = make_noise(key0, key1, step, it, k0, K, antithetic, ou_beta, ou_c);
   const SolveArgs a{{x0, U, params, goal, keys, step_ptr, eps_in, S, partials, R, T, A, dt,
-                    lam_cost, lam_softmin, width}};
+                    lam_cost, lam_softmin, width, nullptr}};
   cudaStream_t s = (cudaStream_t)stream;
   return partials != nullptr ? (int)launch_mode<{struct}, {A}, true>(a, np, s)
                              : (int)launch_mode<{struct}, {A}, false>(a, np, s);
+}}
+
+int {FAMILY_RESIDENCY}(const float* goal, const float* eps_in, int T, int A, int pass2,
+                       int width, int* out, void* stream) {{
+  (void)stream;
+  if (A != {A} || (goal != nullptr) != {struct}::kGoal) return (int)cudaErrorInvalidValue;
+  const NoiseParams np = make_noise(0, 0, 0, 0, 0, 1, 0, 0.0f, 0.0f);
+  const SolveArgs a{{nullptr, nullptr, nullptr, goal, nullptr, nullptr, eps_in, nullptr, nullptr,
+                    1, T, A, 0.0f, 0.0f, 0.0f, width, out}};
+  return pass2 ? (int)launch_mode<{struct}, {A}, true>(a, np, nullptr)
+               : (int)launch_mode<{struct}, {A}, false>(a, np, nullptr);
 }}
 
 }}  // extern "C"
@@ -233,10 +250,11 @@ int {FAMILY_ENTRY}(const float* x0, const float* U, const float* params, const f
 
 def family_library_path(source: str, struct: str, A: int) -> Path:
     """Where the library of a user family lives: named by a hash of the
-    header, the generated unit (the user's source, the struct's name, A) and
-    the flags."""
+    headers, the generated unit (the user's source, the struct's name, A)
+    and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / "mppi_solve.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(family_source(source, struct, A).encode())
     return BUILD_DIR / f"libfamily_{h.hexdigest()[:16]}.so"
 
@@ -272,8 +290,10 @@ def load_family_library(source: str, struct: str, A: int) -> ctypes.CDLL:
         with timing.span("setup.library"):
             lib = ctypes.CDLL(str(build_family(source, struct, A)))
             timing.count("library.load")
-            entry = getattr(lib, FAMILY_ENTRY)
-            entry.argtypes, entry.restype = _FAMILY_SIGNATURE
+            for name, signature in ((FAMILY_ENTRY, _FAMILY_SIGNATURE),
+                                    (FAMILY_RESIDENCY, _FAMILY_RESIDENCY_SIGNATURE)):
+                entry = getattr(lib, name)
+                entry.argtypes, entry.restype = signature
             for name in ("mppi_family_state_dim", "mppi_family_has_goal"):
                 fn = getattr(lib, name)
                 fn.argtypes, fn.restype = [], _i

@@ -58,11 +58,14 @@ K1 and K4 have two bodies with the same S bit for bit: the per-rollout body
 draws the noise of the rollouts that weigh again, over (step, rollout), and
 sums e·ε from shared memory), which fills the card at large R·K, and the
 slab body (:data:`SLAB_WIDTH` rollouts per block, the noise drawn in
-parallel over the horizon into shared memory), for the main path's K.
+parallel over the horizon, a ring of chunks ahead of the rollout warp; its
+second pass is the per-rollout body's at 32 slots), for the main path's K.
 :func:`block_width` picks one from the shapes alone; the partials have
 ceil(K / width) rows, and the plain :func:`block_partials` takes the same
-width. ΔU at two widths differs by rounding only. A body that fails to
-build or launch raises: nothing falls back to the other body.
+width (at the slab width, the slab body's order of ΔŨ's sums). ΔU at two
+widths differs by rounding only. A body that fails to build or launch
+raises: nothing falls back to the other body. Each launch call is counted
+by the waves its grid takes (:func:`wave_launch_counts`).
 
 Noise: ``eps=None`` is the Philox mode (production): ε is generated in the
 kernel from (seed, step, it), robot r under its own seed. K1's, K4's and
@@ -79,6 +82,7 @@ tensor, (R, T, K, A) for the fleet, is read instead.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -93,12 +97,17 @@ from mppi_gpu_tpu_torch.utils import timing
 BLOCK = 128          # rollouts per block of K1's per-rollout body (kBlock)
 DELTA_CELLS = 8 * (BLOCK + 8)  # floats per action of its second pass's slab (kDeltaCells)
 SLAB_WIDTH = 32      # rollouts per block of K1's slab body (kSlabRollouts)
+SLAB_THREADS = 256   # threads per block of the slab body: 1 rollout, 7 draw warps (kSlabThreads)
+SLAB_RING = 4        # least slots of the slab body's ring (kRing)
+SLAB_MIN_BLOCKS = 3  # blocks per SM its registers and ring leave room for (kSlabMinBlocks)
+SLAB_LEAN_STATE = 8  # states up to which a family keeps SLAB_MIN_BLOCKS, else 2 (kSlabLeanState)
 DRAW_GROUP = 64      # draws per block of K3 and K5, one partial row of K5 (kGroup)
-_SLAB_CHUNK = 7      # horizon steps per stage of the slab body's pipeline (kChunk)
+_SLAB_CHUNK = 7      # horizon steps per slot of the slab body's ring (kChunk)
 # R·K up to which K1 and K4 take the slab body, by family: beyond it the
-# per-rollout body's blocks fill the card, and the slab body, two blocks per
-# SM at T=200, cannot hide its rollout warp's latency; the longer the
-# family's step, the sooner. Each is the largest R·K of the sweep {1024,
+# per-rollout body's blocks fill the card, and the slab body (two blocks per
+# SM at T=200 when these were measured) cannot hide its rollout warp's
+# latency; the longer the family's step, the sooner. Each is the largest R·K
+# of the sweep {1024,
 # 3000, 10⁴, 2·10⁴, 3·10⁴, 5·10⁴, 10⁵} at T=200 up to which the slab body's
 # device time was at most the per-rollout body's for K1 with every rollout
 # weighing (λ = 1e9: the per-rollout body's second pass draws and sums only
@@ -112,6 +121,10 @@ SLAB_MAX_ROLLOUTS = {
 }
 MAX_ROBOTS = 65535   # K1's grid axis y is the robot (kMaxRobots)
 _SMEM_BYTES = 232448 - 1024  # per-block shared memory on Hopper, less static use
+# one Hopper SM (NVIDIA H100): its shared memory, the 1 KB the runtime keeps
+# per block, its 32-bit registers, threads and blocks
+_SM_SMEM, _SM_BLOCK_SMEM, _SM_REGISTERS, _SM_THREADS, _SM_BLOCKS = 233472, 1024, 65536, 2048, 32
+H100_SMS = 132
 _COMBINE_SMEM_FLOATS = 8 * 32  # K2's per-warp column sums (kCombineWarps · kCombineCols)
 _COMBINE_THREADS, _COMBINE_WARPS = 256, 8  # the fold's block (kCombineThreads, kCombineWarps)
 # K2' folds a robot's partials in one block (grid (1, R)) where they are at
@@ -140,6 +153,11 @@ _FAMILY_LAUNCHES = {k: timing.Counters(f"launch.{k}.family", FAMILY_NAMES)
                     for k in ("solve_partials", "rollout_costs")}
 _WIDTH_LAUNCHES = {k: timing.Counters(f"launch.{k}.width", (SLAB_WIDTH, BLOCK))
                    for k in ("solve_partials", "rollout_costs")}
+# K1's and K4's launches by the waves their grid takes (:func:`waves`),
+# ``launch.<kernel>.waves.<n>``, counted at each launch call: a launch that a
+# graph captures counts once, its replays not at all
+_WAVE_LAUNCHES = {k: timing.Counters(f"launch.{k}.waves", ())
+                  for k in ("solve_partials", "rollout_costs")}
 
 
 def _noise_words(seed: int, step: int, it: int) -> tuple[int, int, int, int]:
@@ -312,11 +330,38 @@ def rollout_bytes(T: int, A: int, pass2: bool = True) -> int:
     return 4 * (T * A + (2 * BLOCK + BLOCK // 32 + DELTA_CELLS * A if pass2 else 0))
 
 
+def slab_ring(T: int, A: int) -> int:
+    """Slots of the slab body's ring (``slab_ring`` in csrc/mppi_solve.cuh):
+    every 7-step chunk of the horizon where the shared memory of
+    :data:`SLAB_MIN_BLOCKS` blocks per SM holds them all, else as many as it
+    holds, and at least :data:`SLAB_RING`."""
+    chunks = -(-T // _SLAB_CHUNK)
+    room = (_SM_SMEM // SLAB_MIN_BLOCKS - _SM_BLOCK_SMEM
+            - 4 * (T * A + 3 * SLAB_WIDTH + SLAB_THREADS // 32))
+    fit = room // (16 + 4 * _SLAB_CHUNK * A * SLAB_WIDTH) if room > 0 else 0
+    return max(SLAB_RING, min(chunks, fit))
+
+
 def slab_bytes(T: int, A: int) -> int:
     """Shared memory of one block of K1's slab body (``slab_smem`` in
-    csrc/mppi_solve.cu): an 8-byte mbarrier per chunk of the horizon, U, the
-    block's softmin weights and the (T, A, 32) slab of ε."""
-    return 8 * -(-T // _SLAB_CHUNK) + 4 * ((SLAB_WIDTH + 1) * T * A + SLAB_WIDTH)
+    csrc/mppi_solve.cuh): a full and an empty 8-byte mbarrier per slot of
+    the ring (:func:`slab_ring`), U, the second pass's 32 slot weights, 32
+    slot draws, 32 places and its count per warp, and the ring of 7 steps ×
+    A × 32 floats a slot. Within 1/3 of an SM's shared memory wherever U leaves room
+    for four slots."""
+    ring = slab_ring(T, A)
+    return 16 * ring + 4 * (T * A + 3 * SLAB_WIDTH + SLAB_THREADS // 32
+                            + ring * _SLAB_CHUNK * SLAB_WIDTH * A)
+
+
+def slab_horizon_fits(T: int, A: int) -> bool:
+    """The horizon limit of the rule (:func:`block_width`): whether the slab
+    body's former whole-horizon layout, an mbarrier per 7-step chunk, U, 32
+    weights and a (T, A, 32) slab, fits a block's shared memory. The ring
+    runs any T, but the crossovers of :data:`SLAB_MAX_ROLLOUTS` were measured
+    with that layout, so the rule keeps its limit: up to T = 582 at A = 3,
+    437 at A = 4."""
+    return 8 * -(-T // _SLAB_CHUNK) + 4 * ((SLAB_WIDTH + 1) * T * A + SLAB_WIDTH) <= _SMEM_BYTES
 
 
 def block_width(R: int, K: int, T: int, A: int, family: str | None = None) -> int:
@@ -325,14 +370,32 @@ def block_width(R: int, K: int, T: int, A: int, family: str | None = None) -> in
     :data:`SLAB_WIDTH` (the slab body) while R·K is at most the family's
     :data:`SLAB_MAX_ROLLOUTS` (the least of them for None or a family
     registered from user code, whose crossover nobody measured) and the
-    slab fits in a block's shared memory, else :data:`BLOCK` (the
+    horizon is within :func:`slab_horizon_fits`, else :data:`BLOCK` (the
     per-rollout body). A pure function of its arguments. The crossovers were
     measured at T=200; a shorter horizon puts more slab blocks on an SM, so
     they hold there conservatively."""
     limit = SLAB_MAX_ROLLOUTS.get(family, min(SLAB_MAX_ROLLOUTS.values()))
-    if R * K <= limit and slab_bytes(T, A) <= _SMEM_BYTES:
+    if R * K <= limit and slab_horizon_fits(T, A):
         return SLAB_WIDTH
     return BLOCK
+
+
+def resident_blocks(threads: int, registers: int, smem: int) -> int:
+    """Blocks of `threads` threads of `registers` registers each (the
+    allocation rounds them up to a multiple of 8) and `smem` bytes of
+    dynamic shared memory that one Hopper SM holds: the least of what its
+    registers, shared memory, threads and block slots allow. The model of
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` that the tests pin the
+    slab body's constants to; the launches read the runtime's."""
+    per_thread = -(-registers // 8) * 8
+    return min(_SM_REGISTERS // (per_thread * threads), _SM_SMEM // (smem + _SM_BLOCK_SMEM),
+               _SM_THREADS // threads, _SM_BLOCKS)
+
+
+def waves(blocks: int, per_sm: int, sms: int = H100_SMS) -> int:
+    """The waves a grid of `blocks` blocks takes on `sms` SMs that hold
+    `per_sm` of them each: ⌈blocks / (sms · per_sm)⌉."""
+    return -(-blocks // (sms * per_sm))
 
 
 def block_partials(S: torch.Tensor, eps: torch.Tensor, lam_softmin: float,
@@ -341,9 +404,10 @@ def block_partials(S: torch.Tensor, eps: torch.Tensor, lam_softmin: float,
     (T, K, A) over blocks of `width` rollouts (:func:`block_width` for one
     robot if None): (nb, 2 + T·A), row b holding β_b = min S over block b's
     real rollouts, η_b = Σ e_k with e_k = exp(−(S_k − β_b)/λ), and
-    ΔŨ_b[t, a] = Σ e_k ε_k[t, a]. Rollouts past K take no part; a block whose
-    real rollouts all cost +inf gives η_b = 0, ΔŨ_b = 0; a NaN S gives a NaN
-    β_b. In S's dtype."""
+    ΔŨ_b[t, a] = Σ e_k ε_k[t, a], at :data:`SLAB_WIDTH` summed in the slab
+    body's order (:func:`_slab_row_sums`). Rollouts past K take no part; a
+    block whose real rollouts all cost +inf gives η_b = 0, ΔŨ_b = 0; a NaN S
+    gives a NaN β_b. In S's dtype."""
     T, K, A = eps.shape
     W = block_width(1, K, T, A) if width is None else width
     nb = -(-K // W)
@@ -357,8 +421,42 @@ def block_partials(S: torch.Tensor, eps: torch.Tensor, lam_softmin: float,
     e = torch.where(live, torch.exp(-(S_b - beta_b[:, None]) / lam_softmin), 0.0)
     eps_b = torch.zeros(T, nb * W, A, **like)
     eps_b[:, :K] = eps
-    dUt = torch.einsum("tnka,nk->nta", eps_b.view(T, nb, W, A), e)
-    return torch.cat([beta_b[:, None], e.sum(1)[:, None], dUt.reshape(nb, T * A)], 1)
+    eps_b = eps_b.view(T, nb, W, A)
+    if W == SLAB_WIDTH:
+        dU = _slab_row_sums(e, eps_b)
+    else:
+        dU = torch.einsum("tnka,nk->nta", eps_b, e).reshape(nb, T * A)
+    return torch.cat([beta_b[:, None], e.sum(1)[:, None], dU], 1)
+
+
+def _slab_row_sums(e: torch.Tensor, eps_b: torch.Tensor) -> torch.Tensor:
+    """ΔŨ_b (nb, T·A) of blocks of 32 rollouts with weights e (nb, 32) and
+    noise ε (T, nb, 32, A), in the order of the slab body's second pass
+    (``weigh_rows`` in csrc/mppi_solve.cuh, at 32 slots): the n rollouts of
+    a block whose e_k ≠ 0 (NaN too) take slots 0..n−1 in rollout order, each
+    cell the rounded product e_k·ε_k; a row's sum over them is, for
+    n ≤ 16, the slots 0, 2, 4, … added in turn from +0 plus the slots 1, 3,
+    5, … so added; for n > 16, each of two lanes l adds slots l, l + 4, … and
+    l + 2, l + 6, … so, and the lanes' sums are added. A block where none
+    weighs gives +0. The empty slots past n, +0 here, add nothing: a sum
+    from +0 is never −0."""
+    nb, W = e.shape
+    T, A = eps_b.shape[0], eps_b.shape[-1]
+    weighs = e != 0
+    cells = torch.where(weighs[None, :, :, None], e[None, :, :, None] * eps_b, 0.0)
+    order = torch.argsort((~weighs).to(torch.int8), dim=1, stable=True)  # weighing first
+    c = cells.permute(1, 2, 0, 3).reshape(nb, W, T * A)
+    c = torch.gather(c, 1, order[:, :, None].expand(nb, W, T * A))
+
+    def run(first: int, step: int) -> torch.Tensor:  # slots first, first + step, … in turn
+        acc = torch.zeros_like(c[:, 0])
+        for i in range(first, W, step):
+            acc = acc + c[:, i]
+        return acc
+
+    one_lane = run(0, 2) + run(1, 2)
+    two_lanes = (run(0, 4) + run(2, 4)) + (run(1, 4) + run(3, 4))
+    return torch.where((weighs.sum(1) <= 16)[:, None], one_lane, two_lanes)
 
 
 def _plain_costs(fam: FusedFamily, x0, U, goal, K, seed, step, it, antithetic, ou_beta, eps,
@@ -465,18 +563,44 @@ def _launch_solve_partials(
         int(antithetic), float(ou_beta), _ou_c(ou_beta), width,
     )
     label = f"{kernel}<{fam.name}>"
+    # the instance: what the residency entry takes, less the family's own id
+    instance = (goals.data_ptr() if goals is not None else None,
+                eps.data_ptr() if eps is not None else None, T, A, int(pass2), width)
+    key = (fam.name, goals is not None, eps is not None, T, A, pass2, width, Us.device)
     if fam.user is None:
         lib = load_library()
+        n = _waves(lib, key, nb * R, lambda out: _launch(
+            label, lib.mppi_solve_residency, Us.device, fam.fid, *instance, out))
         ran = _launch(label, lib.mppi_solve_partials, Us.device, fam.fid, *args)
     else:
         lib = _family_library(fam)
+        n = _waves(lib, key, nb * R, lambda out: _launch(
+            label, lib.mppi_family_solve_residency, Us.device, *instance, out))
         ran = _launch(label, lib.mppi_family_solve_partials, Us.device, *args)
+    if n is not None:  # launched, or captured
+        by_waves = _WAVE_LAUNCHES[kernel]
+        by_waves[n] = by_waves.get(n, 0) + 1
     if ran:
         _LAUNCHES[kernel] += 1
         by_family = _FAMILY_LAUNCHES[kernel]
         by_family[fam.name] = by_family.get(fam.name, 0) + 1
         _WIDTH_LAUNCHES[kernel][width] += 1
     return (S, partials) if pass2 else S
+
+
+def _waves(lib, key: tuple, blocks: int, query) -> int | None:
+    """:func:`waves` of a grid of `blocks` blocks of the K1 or K4 instance
+    `key` of library `lib`, whose residency and SMs `query(out)` writes into
+    two ints at address `out` (its C entry), read once per instance and
+    kept on the library; None where the entry reports no block per SM (the
+    launch that follows then fails and raises)."""
+    cache = lib.__dict__.setdefault("k1_residency", {})
+    if key not in cache:
+        out = (ctypes.c_int * 2)()
+        query(ctypes.addressof(out))
+        cache[key] = tuple(out)
+    per_sm, sms = cache[key]
+    return waves(blocks, per_sm, sms) if per_sm > 0 and sms > 0 else None
 
 
 def _family_library(fam: FusedFamily):
@@ -1010,7 +1134,8 @@ def weighted_update(
 def reset_launch_counts() -> None:
     for kernel in _LAUNCHES:
         _LAUNCHES[kernel] = 0
-    for counts in (*_FAMILY_LAUNCHES.values(), *_WIDTH_LAUNCHES.values()):
+    for counts in (*_FAMILY_LAUNCHES.values(), *_WIDTH_LAUNCHES.values(),
+                   *_WAVE_LAUNCHES.values()):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -1029,3 +1154,10 @@ def width_launch_counts(kernel: str = "solve_partials") -> dict[int, int]:
     """K1's (or K4's) launches by block width, that is by body:
     :data:`SLAB_WIDTH` the slab body, :data:`BLOCK` the per-rollout body."""
     return dict(_WIDTH_LAUNCHES[kernel])
+
+
+def wave_launch_counts(kernel: str = "solve_partials") -> dict[int, int]:
+    """K1's (or K4's) launch calls by the waves their grid takes on the
+    card (:func:`waves` with the runtime's residency of the instance), a
+    captured launch once; where nothing was counted, {}."""
+    return {n: c for n, c in _WAVE_LAUNCHES[kernel].items() if c}

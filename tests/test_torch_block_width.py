@@ -13,8 +13,11 @@ themselves run on the card in chip_smoke.py (both bodies at one shape, S
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
+import re
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +38,7 @@ from mppi_gpu_tpu_torch.ops.families import FAMILY_NAMES  # noqa: E402
 S_TOL = dict(rtol=3e-5)
 DU_TOL = dict(rtol=2e-4, atol=1e-6)
 WIDTHS = (fs.SLAB_WIDTH, fs.BLOCK)
+HEADER = Path(fs.__file__).resolve().parents[1] / "csrc" / "mppi_solve.cuh"
 
 
 @pytest.fixture(autouse=True)
@@ -76,19 +80,23 @@ def _force_width(monkeypatch, width):
 # (a) the rule
 
 
-@pytest.mark.parametrize("R,K,T,A", [
+RULE_CASES = [
     (1, 1024, 60, 1), (1, 2048, 60, 4), (1, 3000, 50, 2), (1, 10_000, 200, 3),
     (8, 3000, 50, 2), (1, 100_000, 200, 3), (64, 10_000, 200, 3), (1, 100_000, 1000, 3),
     (1, 10_000, 1800, 4), (1, 3001, 50, 2), (1, 20_000, 200, 3), (1, 20_001, 200, 3),
     (8, 1024, 40, 1), (8, 2048, 60, 4),
-])
+]
+
+
+@pytest.mark.parametrize("R,K,T,A", RULE_CASES)
 def test_block_width_is_a_pure_function_within_the_slab(R, K, T, A):
     """For every family (and None, the least crossover) the rule returns one
     of the two widths, the same for the same arguments, and the slab width
-    only where R·K is at most the family's crossover and the slab fits in a
-    block's shared memory; the same R·K gives the same width."""
+    only where R·K is at most the family's crossover and the horizon is
+    within the rule's limit (``slab_horizon_fits``); the same R·K gives the
+    same width."""
     assert set(fs.SLAB_MAX_ROLLOUTS) == set(FAMILY_NAMES)
-    slab_fits = fs.slab_bytes(T, A) <= fs._SMEM_BYTES
+    slab_fits = fs.slab_horizon_fits(T, A)
     for name in FAMILY_NAMES + (None,):
         w = fs.block_width(R, K, T, A, name)
         assert w in WIDTHS and w == fs.block_width(R, K, T, A, name)
@@ -97,13 +105,80 @@ def test_block_width_is_a_pure_function_within_the_slab(R, K, T, A):
         assert (w == fs.SLAB_WIDTH) == (R * K <= limit and slab_fits)
 
 
+@pytest.mark.parametrize("R,K,T,A", RULE_CASES)
+def test_block_width_keeps_the_former_slab_limit(R, K, T, A):
+    """The ring took the slab body's shared memory off the horizon, but the
+    rule still picks what it picked when the slab held the whole horizon:
+    the horizon limit is that layout's shared memory, one 8-byte mbarrier
+    per 7-step chunk, U, 32 weights and the (T, A, 32) slab, within 227 KB
+    less 1 KB."""
+    former = 8 * -(-T // 7) + 4 * ((32 + 1) * T * A + 32) <= 232448 - 1024
+    assert fs.slab_horizon_fits(T, A) == former
+    for name in FAMILY_NAMES + (None,):
+        limit = fs.SLAB_MAX_ROLLOUTS[name] if name else min(fs.SLAB_MAX_ROLLOUTS.values())
+        assert fs.block_width(R, K, T, A, name) == (32 if R * K <= limit and former else 128)
+
+
+def _constexpr(name: str) -> int:
+    """The value of ``constexpr int name = ...;`` in csrc/mppi_solve.cuh,
+    its expression evaluated over the header's earlier integer constants."""
+    env: dict[str, int] = {}
+    for n, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", HEADER.read_text()):
+        env[n] = eval(expr.replace("/", "//"), {}, dict(env))
+        if n == name:
+            return env[n]
+    raise KeyError(name)
+
+
 def test_slab_bytes_is_the_kernels_layout():
-    """One 8-byte mbarrier per 7-step chunk, then U (T·A), the 32 softmin
-    weights and the (T, A, 32) slab, in floats: 76.8 KB of slab at T=200,
-    A=3, 102.4 KB at A=4; T=1000, A=3 does not fit in 227 KB."""
-    assert fs.slab_bytes(200, 3) == 8 * 29 + 4 * (600 + 32 + 32 * 600)
-    assert 32 * 200 * 3 * 4 == 76_800 and 32 * 200 * 4 * 4 == 102_400
-    assert fs.slab_bytes(200, 4) <= fs._SMEM_BYTES < fs.slab_bytes(1000, 3)
+    """A full and an empty 8-byte mbarrier per slot of the ring, then U
+    (T·A), the second pass's 32 slot weights, 32 slot draws, 32 places and
+    a count per warp (8), and the ring of 7-step chunks of A × 32 floats, in
+    floats.
+    The ring holds every chunk of the horizon where a third of an SM's 228 KB
+    (less the runtime's 1 KB a block) holds them, else as many as it holds,
+    at least four: 27 of the flagship's 29 (74 KB of 76.8), all 8 of
+    point_mass2d's and all 9 of the 3-D quadrotor's, 23 at T=1000. The
+    host's constants are the header's."""
+    for host, header in ((fs.SLAB_WIDTH, "kSlabRollouts"), (fs.SLAB_THREADS, "kSlabThreads"),
+                         (fs.SLAB_RING, "kRing"), (fs._SLAB_CHUNK, "kChunk"),
+                         (fs.SLAB_MIN_BLOCKS, "kSlabMinBlocks"),
+                         (fs.SLAB_LEAN_STATE, "kSlabLeanState"), (fs._SM_SMEM, "kSmSmem"),
+                         (fs._SM_BLOCK_SMEM, "kSmBlockSmem")):
+        assert host == _constexpr(header), header
+    assert _constexpr("kRingCells") == 4 * 7 * 32
+    assert [fs.slab_ring(T, A) for T, A in ((200, 3), (50, 2), (60, 4), (1000, 3), (7, 1))] == [
+        27, 8, 9, 23, 4]
+    assert fs.slab_bytes(200, 3) == 16 * 27 + 4 * (600 + 3 * 32 + 8 + 27 * 7 * 32 * 3) == 75_824
+    for A in range(1, 5):
+        for T in (1, 7, 50, 200, 1000, 5000):
+            ring = fs.slab_ring(T, A)
+            assert ring == max(4, min(-(-T // 7), ring)) and ring >= 4
+            assert fs.slab_bytes(T, A) - 16 * ring - 4 * ring * 7 * 32 * A == 4 * (T * A + 104)
+            if ring < -(-T // 7) and ring > 4:  # one more slot would pass a third of the SM
+                assert fs.slab_bytes(T, A) + 16 + 4 * 7 * 32 * A > 233472 // 3 - 1024
+            assert fs.slab_bytes(T, A) <= 233472 // 3 - 1024 or ring == 4
+
+
+@pytest.mark.parametrize("A", [1, 2, 3, 4])
+def test_slab_body_runs_the_flagship_in_one_wave(A):
+    """The residency model at the header's constants: the launch bounds
+    leave each of the slab body's 256 threads 65536 / (256 · 3) → 80
+    registers (a family of at most 8 states), at which an SM holds 3 blocks,
+    and the ring leaves shared memory for 3 at every horizon the rule gives
+    the slab body, so the flagship's ⌈10⁴ / 32⌉ = 313 blocks take one wave
+    on 132 SMs. The former layout's 79 560 B at T=200, A=3 held 2 blocks at
+    128 registers: two waves."""
+    threads, per_sm = _constexpr("kSlabThreads"), _constexpr("kSlabMinBlocks")
+    registers = 65536 // (threads * per_sm) // 8 * 8
+    assert registers == 80
+    T = max(t for t in range(1, 2000) if fs.slab_horizon_fits(t, A))
+    for t in (1, 200, T):
+        assert fs.resident_blocks(threads, registers, fs.slab_bytes(t, A)) == per_sm
+    nb = -(-10_000 // fs.SLAB_WIDTH)
+    assert nb == 313 and fs.waves(nb, per_sm) == 1
+    assert fs.resident_blocks(256, 128, 8 * 29 + 4 * (33 * 600 + 32)) == 2
+    assert fs.waves(nb, 2) == 2 and fs.waves(264, 2) == 1 and fs.waves(265, 2) == 2
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +228,69 @@ def test_block_partials_at_each_width_match_pallas_onepass_kernel(A, K, T, antit
     np.testing.assert_allclose(S.numpy(), S_j, **S_TOL)
     np.testing.assert_allclose(dU.numpy(), dU_j, **DU_TOL)
     np.testing.assert_allclose(float(beta), float(S_j.min()), rtol=3e-5)
+
+
+def _slab_rows_as_the_kernel_sums(S, eps, lam):
+    """ΔŨ_b of blocks of 32 rollouts as csrc/mppi_solve.cuh's ``weigh_rows``
+    sums them at 32 slots, one float32 operation at a time: the rollouts
+    whose weight is not 0 packed into slots in rollout order, each cell
+    e·ε, and each row summed by G = 1 (n ≤ 16) or 2 lanes, lane l adding
+    slots l, l + 2G, … and l + G, l + 3G, … in two running sums from 0, the
+    second added to the first, then the lanes' sums added. Returns the rows
+    and each block's n."""
+    f32 = np.float32
+    T, K, A = eps.shape
+    rows, counts = [], []
+    for b in range(-(-K // 32)):
+        Sb = torch.as_tensor(S[32 * b:32 * b + 32])
+        beta = Sb.min()  # e_k as block_partials forms it: the order is what is held here
+        e = torch.zeros(32) if beta == np.inf else torch.exp(-(Sb - beta) / lam)
+        e = [f32(w) for w in e.numpy()]
+        slots = [j for j, w in enumerate(e) if w != 0]
+        n, G = len(slots), 1 if len(slots) <= 16 else 2
+        row = np.zeros(T * A, np.float32)
+        for r in range(T * A if n else 0):
+            t, a = divmod(r, A)
+            c = [f32(e[j] * eps[t, 32 * b + j, a]) for j in slots]
+            lanes = []
+            for lane in range(G):
+                total, odd, i = f32(0.0), f32(0.0), lane
+                while i + G < n:
+                    total, odd, i = f32(total + c[i]), f32(odd + c[i + G]), i + 2 * G
+                if i < n:
+                    total = f32(total + c[i])
+                lanes.append(f32(total + odd))
+            row[r] = lanes[0] if G == 1 else f32(lanes[0] + lanes[1])
+        rows.append(row)
+        counts.append(n)
+    return np.stack(rows), counts
+
+
+@pytest.mark.parametrize("A,K,T,antithetic,ou_beta", [
+    (2, 300, 12, False, 0.0), (3, 530, 11, False, 0.0),
+    (3, 300, 7, False, 0.0), (3, 266, 8, True, 0.0), (3, 300, 9, False, 0.5),
+    (3, 300, 17, False, 0.0), (3, 266, 17, True, 0.0), (3, 300, 17, False, 0.5),
+], ids=["rowpacked", "planar", "T7", "T8-antithetic-odd-draws", "T9-ou", "T17", "T17-antithetic",
+        "T17-ou"])
+def test_slab_partials_sum_in_the_kernels_order(A, K, T, antithetic, ou_beta):
+    """At the slab width, block_partials' ΔŨ_b are the slab body's sums bit
+    for bit: the weighing rollouts' products e·ε added in ``weigh_rows``'
+    order (:func:`_slab_rows_as_the_kernel_sums`) on the JAX one-pass
+    kernel's cases, at its λ, where most of a block weighs (two lanes a
+    row), and at a λ where few do (one lane); S and β_b as at width 128."""
+    p, eps, _, _ = _jax_onepass(A, K, T, antithetic, ou_beta)
+    args = _port_args(p, K, 0.9, eps)
+    fam = fs.lti_family(*args[2:5], 0.1, float(p["lambda_"]))
+    S, _ = fs.family_solve_partials_reference(fam, args[0], args[1], args[5], 0.9, K, 0, 0, 0,
+                                              False, 0.0, args[-1], width=fs.SLAB_WIDTH)
+    lanes = set()
+    for lam in (0.9, 0.002):
+        part = fs.block_partials(S, args[-1], lam, fs.SLAB_WIDTH)
+        want, n = _slab_rows_as_the_kernel_sums(S.numpy(), np.asarray(eps), lam)
+        assert np.array_equal(part[:, 2:].numpy(), want)
+        assert torch.equal(part[:, 0], torch.stack([b.min() for b in S.split(32)]))
+        lanes |= {1 if m <= 16 else 2 for m in n}
+    assert lanes == {1, 2}
 
 
 @pytest.mark.parametrize("width", WIDTHS)
@@ -265,13 +403,23 @@ def test_fleet_past_the_crossover_and_its_slices(monkeypatch):
 
 
 def test_launcher_passes_the_width_and_never_falls_back(monkeypatch):
-    """Device-free, with the C entry stubbed: the launcher passes the rule's
+    """Device-free, with the C entries stubbed: the launcher passes the rule's
     width (or the forced one) to ``mppi_solve_partials`` as its last argument
     before the stream and sizes the partials by it, counts the launch under
-    its width; a width neither body has is refused before any launch, and a
-    launch the entry refuses raises, with nothing run in its place."""
-    calls, status = [], [0]
-    lib = types.SimpleNamespace(mppi_solve_partials=lambda *a: calls.append(a) or status[0])
+    its width and under the waves of its grid, from the residency that
+    ``mppi_solve_residency`` reports once per instance (3 blocks per SM on
+    132 SMs here); a width neither body has is refused before any launch,
+    and a launch the entry refuses raises, with nothing run in its place
+    and nothing counted."""
+    calls, status, queries = [], [0], []
+
+    def residency(fid, goal, eps, T, A, pass2, width, out, stream):
+        queries.append((fid, T, A, pass2, width))
+        (ctypes.c_int * 2).from_address(out)[:] = [3, 132]
+        return 0
+
+    lib = types.SimpleNamespace(mppi_solve_partials=lambda *a: calls.append(a) or status[0],
+                                mppi_solve_residency=residency)
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -289,9 +437,18 @@ def test_launcher_passes_the_width_and_never_falls_back(monkeypatch):
     S, part = run(width=fs.BLOCK)
     assert calls[-1][-2] == fs.BLOCK and part.shape[0] == -(-K // fs.BLOCK)
     assert fs.width_launch_counts() == {fs.SLAB_WIDTH: 1, fs.BLOCK: 1}
+    run()
+    fid = FAMILY_NAMES.index("lti")
+    assert queries == [(fid, T, A, 1, fs.SLAB_WIDTH), (fid, T, A, 1, fs.BLOCK)]
+    assert fs.wave_launch_counts() == {1: 3} and fs.wave_launch_counts("rollout_costs") == {}
+    Kw = 132 * 3 * fs.SLAB_WIDTH + 1  # one block past a wave
+    fs._launch_solve_partials(fam, args[0], args[1], args[5], 1.0, Kw, 7, 3, 0, False, 0.0, None,
+                              1, (), width=fs.SLAB_WIDTH)
+    assert fs.wave_launch_counts() == {1: 3, 2: 1} and len(queries) == 2
     with pytest.raises(ValueError, match="blocks of 32 or 128"):
         run(width=64)
     status[0] = 98
     with pytest.raises(RuntimeError, match="solve_partials<lti> failed to launch: cudaError_t 98"):
         run()
-    assert len(calls) == 3 and fs.launch_counts()["solve_partials"] == 2
+    assert len(calls) == 5 and fs.launch_counts()["solve_partials"] == 4
+    assert fs.wave_launch_counts() == {1: 3, 2: 1}

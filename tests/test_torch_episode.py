@@ -115,7 +115,7 @@ def _stub_k1(monkeypatch):
     monkeypatch.setattr(fs, "_FAMILY_LAUNCHES", {k: dict(v) for k, v in fs._FAMILY_LAUNCHES.items()})
     monkeypatch.setattr(fs, "_WIDTH_LAUNCHES", {k: dict(v) for k, v in fs._WIDTH_LAUNCHES.items()})
     calls = {"solve_partials": [], "softmin_combine": []}
-    lib = types.SimpleNamespace(**{
+    lib = types.SimpleNamespace(mppi_solve_residency=lambda *a: 0, **{
         f"mppi_{k}": (lambda k: lambda *a: calls[k].append(a) or 0)(k) for k in calls})
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(fs, "_on_cuda", lambda *t: True)

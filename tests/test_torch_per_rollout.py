@@ -81,7 +81,8 @@ def test_rollout_bytes_is_the_kernels_layout(T, A):
 def _stub_library(monkeypatch):
     """A C entry that records its calls and launches nothing."""
     calls = []
-    lib = types.SimpleNamespace(mppi_solve_partials=lambda *a: calls.append(a) or 0)
+    lib = types.SimpleNamespace(mppi_solve_partials=lambda *a: calls.append(a) or 0,
+                                mppi_solve_residency=lambda *a: 0)
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",

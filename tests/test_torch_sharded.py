@@ -510,9 +510,9 @@ def test_kernels_launch_on_the_device_of_their_tensors(monkeypatch):
     src = inspect.getsource(fs)
     assert not re.search(r"lib\.mppi_\w+\(", src)  # no entry called around _launch
     entries = re.findall(r"_launch\(\s*[^,]+,\s*lib\.(mppi_\w+),\s*\w+\.device,", src)
-    assert sorted(entries) == ["mppi_family_solve_partials", "mppi_noise_dump",
-                               "mppi_softmin_combine", "mppi_solve_partials",
-                               "mppi_weighted_update"]
+    assert sorted(entries) == ["mppi_family_solve_partials", "mppi_family_solve_residency",
+                               "mppi_noise_dump", "mppi_softmin_combine", "mppi_solve_partials",
+                               "mppi_solve_residency", "mppi_weighted_update"]
 
 
 def test_make_mesh_binds_the_process_to_its_gpu(monkeypatch):

@@ -374,7 +374,8 @@ def _stub(monkeypatch, rc: int = 0, failing: str = "sharded_scale"):
     def combine(*args, **kwargs):
         raise AssertionError("the fused sharded path ran onepass_combine")
 
-    lib = types.SimpleNamespace(mppi_world_layout=layout, **{f"mppi_{k}": entry(k) for k in calls})
+    lib = types.SimpleNamespace(mppi_world_layout=layout, mppi_solve_residency=lambda *a: 0,
+                                **{f"mppi_{k}": entry(k) for k in calls})
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(st, "_on_cuda", lambda tensors: True)
     monkeypatch.setattr(fs, "_on_cuda", lambda *t: True)

@@ -284,7 +284,7 @@ def _stub(monkeypatch, rc: int = 0, failing: str = "solve_tail"):
         a._obj.value = A
         return len(shapes)
 
-    lib = types.SimpleNamespace(mppi_world_layout=layout,
+    lib = types.SimpleNamespace(mppi_world_layout=layout, mppi_solve_residency=lambda *a: 0,
                                 **{f"mppi_{k}": entry(k) for k in calls})
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(st, "_on_cuda", lambda tensors: True)
