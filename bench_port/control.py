@@ -69,7 +69,7 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     args = p.parse_args(argv)
     cell = run.load_cell(args.workload)
-    device = run.require_chips(cell.chips)
+    device = run.require_chips(1)  # the reference runs on one chip, whatever the cell's
     limits = cell.check["limits"]
     for seed in args.seeds:
         got = readings(cell, seed, device)

@@ -11,6 +11,12 @@ that drive the port through its public entries with them. A traffic file
   unpaced: the plant's state → ``MPPIController.solve_auto`` → the action in
   a host array → the plant's cycle. A new episode starts from its own start
   state where one ends, until the window closes.
+* ``sharded_episode``: the ``episode`` kind's parameters for one robot, and
+  ``ranks`` n (the cell's ``chips``) and ``onepass`` (the one-pass branch, or
+  the two-kernel one): ``samples`` K sharded over n ranks of a process
+  group, one process and one GPU each (``bench_port.ranks``), each rank's
+  ``ShardedMPPIController`` running ``runner.run_episode_jit``; this
+  process is rank 0, which alone times the window and keeps the episodes.
 
 The start states are a pool of ``pool`` draws (``start`` + a uniform draw
 in ±``spread`` per state entry, a fleet's robots each their own) from the
@@ -23,11 +29,14 @@ fixes every input.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from bench_port import ranks
 
 MAX_EPISODES = 4096  # start states drawn per run; a window ends long before
 
@@ -76,7 +85,21 @@ def span(on: bool):
     return torch.profiler.record_function
 
 
-class Episodes:
+class Driver:
+    """What a kind's driver does besides ``warm``, ``window`` and ``close``,
+    where it runs processes of its own: their reports once closed, a
+    context around the traced window, and ``abort`` after a failure."""
+
+    reports: tuple = ()
+
+    def traced(self):
+        return contextlib.nullcontext()
+
+    def abort(self) -> None:
+        pass
+
+
+class Episodes(Driver):
     """Device episodes of one robot or a fleet."""
 
     def __init__(self, cfg_map: dict, traffic: dict, seed: int, device) -> None:
@@ -126,7 +149,7 @@ class Episodes:
         del self.ctrl
 
 
-class HostLoop:
+class HostLoop(Driver):
     """The host loop against the native plant."""
 
     def __init__(self, cfg_map: dict, traffic: dict, seed: int, device) -> None:
@@ -195,4 +218,67 @@ class HostLoop:
         del self.ctrl
 
 
-KINDS = {"episode": Episodes, "hostloop": HostLoop}
+def sharded_controller(cfg_map: dict, traffic: dict, noise_seed: int, device, onepass: bool):
+    """One rank's ``ShardedMPPIController`` of the cell, on this process's
+    rank of the default process group (``make_mesh``)."""
+    from mppi_gpu_tpu_torch.parallel import ShardedMPPIController, make_mesh
+
+    cfg = program_config(cfg_map, traffic, noise_seed)
+    return ShardedMPPIController(cfg, mesh=make_mesh(device), onepass=onepass)
+
+
+class ShardedEpisodes(Episodes):
+    """Device episodes of one robot whose rollouts are sharded over the
+    ranks of a process group (``bench_port.ranks``): before each of its
+    episodes rank 0 sends the others the episode's index, and with a trace
+    the markers and the trace's start and end."""
+
+    entry = staticmethod(ranks.rank_main)  # what each spawned rank runs
+
+    def __init__(self, cfg_map: dict, traffic: dict, seed: int, device) -> None:
+        from mppi_gpu_tpu_torch.envs import params_for_config
+
+        if int(traffic.get("robots", 1)) != 1:
+            raise ValueError("a sharded episode runs one robot")
+        s = int(cfg_map["state-dim"])
+        self.noise_seed, self.starts, _ = draw(traffic, seed, s)
+        self.R, self.n, self.fleet = 1, int(traffic["cycles"]), False
+        onepass = bool(traffic["onepass"])
+        self.group = ranks.Group(int(traffic["ranks"]), device, self.entry,
+                                 (cfg_map, traffic, self.noise_seed, self.starts, onepass))
+        try:
+            self.ctrl = sharded_controller(cfg_map, traffic, self.noise_seed, device, onepass)
+        except BaseException:
+            self.group.abort()
+            raise
+        self.t0 = float(np.float32(params_for_config(self.ctrl.cfg).timestep))
+
+    def run(self, i: int):
+        self.group.send(i)
+        return super().run(i)
+
+    @contextlib.contextmanager
+    def traced(self):
+        self.group.send("trace")
+        yield
+        self.group.send("untrace")
+
+    def window(self, seconds: float, mark, tracing: bool) -> Window:
+        def marks():
+            if tracing:
+                self.group.send("mark")
+            mark()
+
+        return super().window(seconds, marks, tracing)
+
+    def close(self) -> None:
+        self.group.stop()
+        del self.ctrl
+        gc.collect()
+        self.reports = self.group.close()
+
+    def abort(self) -> None:
+        self.group.abort()
+
+
+KINDS = {"episode": Episodes, "hostloop": HostLoop, "sharded_episode": ShardedEpisodes}

@@ -16,10 +16,15 @@ it up (set-up, ``setup_s``), drives the port for ``--seconds`` (with
 the device's peak memory, frees the port's state, has the reference judge
 what the window produced (``bench_port.check``), and prints one JSON line
 last on stdout; each number compared, beside its limit, goes last on stderr
-and last in the line. Without CUDA, or with fewer GPUs than the cell asks
-for, or where the port is not this checkout's, it exits non-zero and prints
-no result; so it does if ``jax``, ``jaxlib``, ``flax`` or the JAX package
-was loaded.
+and last in the line. A cell across chips (traffic ``sharded_episode``)
+runs its ranks as processes of their own, one GPU each
+(``bench_port.ranks``): this process is rank 0 on ``cuda:0``, which times
+the window, has its trace read and keeps what the check judges; the peak
+memory is the fullest chip's, and the device's busy and traced seconds are
+averaged over the chips, each rank tracing the same window. Without CUDA,
+or with fewer GPUs than the cell asks for, or where the port is not this
+checkout's, it exits non-zero and prints no result; so it does if ``jax``,
+``jaxlib``, ``flax`` or the JAX package was loaded, in any rank.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import json
 import os
 import sys
 import time
+import traceback
 from collections import Counter
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -130,10 +136,12 @@ class Run:
 
 
 def counted_work(cell: Cell):
+    """(one K1 launch, one control cycle) of counted work on one chip: a
+    sharded cell's rank rolls out ``samples`` / ``ranks``."""
     from bench_port import work
 
     c, t = cell.config, cell.traffic
-    R, K = int(t.get("robots", 1)), int(t["samples"])
+    R, K = int(t.get("robots", 1)), int(t["samples"]) // int(t.get("ranks", 1))
     T, A, s = int(c["horizon"]), int(c["action-dim"]), int(c["state-dim"])
     k1 = work.k1_launch(c["family"], R, K, T, A, s)
     return k1, Counter({k: v * int(c.get("opt-iters", 1)) for k, v in k1.items()})
@@ -204,29 +212,38 @@ def execute(cell: Cell, seed: int, seconds: float, traced: bool, device, started
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     driver = drive.KINDS[cell.traffic["kind"]](cell.config, cell.traffic, seed, device)
-    driver.warm()
-    sync()
-    setup_s = time.perf_counter() - started
-    tr, prof, plain = None, None, None
-    if traced:
-        from torch.profiler import ProfilerActivity, profile
+    try:
+        driver.warm()
+        sync()
+        setup_s = time.perf_counter() - started
+        tr, prof, plain = None, None, None
+        if traced:
+            from torch.profiler import ProfilerActivity, profile
 
-        plain = driver.window(min(seconds, TRACE_SECONDS), lambda: None, False)
-        mark = (lambda: torch.cuda._sleep(1000)) if cuda else (lambda: None)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            driver.warm()
-            sync()
-            window = driver.window(min(seconds, TRACE_SECONDS), mark, True)
-            driver.warm()
-            sync()
-    else:
-        window = driver.window(seconds, lambda: None, False)
-    sync()
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    if prof is not None and cuda:
-        tr = trace.read(prof)
-    del prof
-    driver.close()
+            plain = driver.window(min(seconds, TRACE_SECONDS), lambda: None, False)
+            mark = (lambda: torch.cuda._sleep(1000)) if cuda else (lambda: None)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                    driver.traced():
+                driver.warm()
+                sync()
+                window = driver.window(min(seconds, TRACE_SECONDS), mark, True)
+                driver.warm()
+                sync()
+        else:
+            window = driver.window(seconds, lambda: None, False)
+        sync()
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        if prof is not None and cuda:
+            tr = trace.read(prof)
+        del prof
+        driver.close()
+    except BaseException:
+        driver.abort()
+        raise
+    # the fullest chip's peak; the device's busy and traced seconds averaged over the chips
+    peak = max([peak] + [r["peak"] for r in driver.reports])
+    spans = [] if tr is None else [(tr.busy_s, tr.span_s)]
+    spans += [s for r in driver.reports for s in r["traces"]]
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -244,7 +261,8 @@ def execute(cell: Cell, seed: int, seconds: float, traced: bool, device, started
     out = {"correct": bool(correct), "attempted": window.cycles, "failed": window.failed,
            "metrics": metrics, "device": dev}
     if tr is not None:
-        dev["busy_s"], dev["window_s"] = tr.busy_s, tr.span_s
+        dev["busy_s"] = sum(b for b, _ in spans) / len(spans)
+        dev["window_s"] = sum(w for _, w in spans) / len(spans)
         out["breakdown"] = {"device_ops": [list(x) for x in trace.device_ops(tr)],
                             "idle_gaps": [list(x) for x in tr.idle_gaps]}
         least, cls = work.bound(k1)
@@ -277,4 +295,16 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except SystemExit as e:
+        if e.code is not None and not isinstance(e.code, int):
+            print(e.code, file=sys.stderr)
+        rc = e.code if isinstance(e.code, int) else int(e.code is not None)
+    except BaseException:
+        traceback.print_exc()
+        rc = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # no teardown: a cell's NCCL group is left to the process's end (bench_port.ranks)
+    os._exit(rc)

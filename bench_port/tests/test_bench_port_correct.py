@@ -4,9 +4,10 @@ each fault the cells can have; the control (the reference in bfloat16 in
 the program's place) reads above every cell's limits. Besides the faults
 of the whole timed path, a fault in every other episode and one in a
 quarter of a fleet's robots read not correct, since every robot of the
-judged episodes is judged. One chip runs each
-cell, so no cell has an exchange between chips to leave out. Without a GPU,
-or without the port beside it, the command prints no result."""
+judged episodes is judged. A cell across chips has
+an exchange between its ranks to leave out: that fault, and the others in
+every rank, are test_bench_port_sharded.py's. Without a GPU, or without the
+port beside it, the command prints no result."""
 
 from __future__ import annotations
 

@@ -4,6 +4,7 @@ added by adding files and entries alone."""
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import re
@@ -16,12 +17,14 @@ import pytest
 
 from bench_port import run, work
 from bench_port.reference import models, worlds
+from bench_port.tests import small
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
+TWO_KERNEL = "pm3d.sharded1_twokernel"
 METRICS = BENCH["end_to_end"] + BENCH["per_layer"]
 
 
@@ -58,18 +61,41 @@ def test_cell_names_known_files(name):
     cell = run.load_cell(name)
     names = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and cell.per_layer
-    assert cell.traffic["kind"] in ("episode", "hostloop")
+    assert cell.traffic["kind"] in ("episode", "hostloop", "sharded_episode")
     assert set(cell.check["limits"]) <= {"action_gap", "sequence_gap", "world_gap"}
     c = cell.config
     assert models.family(c["family"]).Model and worlds.kind(c["world"]).cycle
     assert importlib.import_module(f"bench_port.work.{c['family']}")
-    if cell.traffic["kind"] == "episode":  # judged episodes start from distinct states
+    if cell.traffic["kind"] != "hostloop":  # judged episodes start from distinct states
         assert 0 < cell.check["episodes"] <= cell.traffic["pool"]
         assert 0 < cell.check["quantile"] <= 1 and cell.check["cycles"] > 0
     else:
         assert cell.check["steps"] > 0
     assert len(cell.traffic["start"]) == len(cell.traffic["spread"]) == c["state-dim"]
     assert work.bound(run.counted_work(cell)[1])[0] > 0
+
+
+SHARDED = [n for n in CELLS if run.load_cell(n).traffic["kind"] == "sharded_episode"]
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_a_sharded_cell_has_a_rank_per_chip(name):
+    cell = run.load_cell(name)
+    t = cell.traffic
+    assert t["ranks"] == cell.chips and t["samples"] % t["ranks"] == 0
+    assert t.get("robots", 1) == 1 and isinstance(t["onepass"], bool)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_counted_work_is_one_chip_s(name):
+    """A cell's counted K1 launch is its traffic's rollouts, a sharded cell's
+    its rank's share; the cycle's, that times the updates a cycle."""
+    cell = run.load_cell(name)
+    c, t = cell.config, cell.traffic
+    K = t["samples"] // t.get("ranks", 1)
+    k1 = work.k1_launch(c["family"], t.get("robots", 1), K, c["horizon"], c["action-dim"],
+                        c["state-dim"])
+    assert run.counted_work(cell) == (k1, {k: v * c.get("opt-iters", 1) for k, v in k1.items()})
 
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
@@ -85,8 +111,8 @@ def test_config_file_is_the_yaml_as_run(config):
 
 
 def _add_cell(root: Path, bench: dict, name: str, config: str, traffic: dict, like: str):
-    """Cell `name` of `config` under `traffic`, its check as cell `like`'s,
-    reported by every metric that `like` reports."""
+    """Cell `name` of `config` under `traffic` on one chip, its check as cell
+    `like`'s, reported by every metric that `like` reports."""
     bench["workloads"].append({"name": name, "config": config, "traffic": name.replace(".", "_"),
                                "chips": 1, "why": "a new cell"})
     for m in bench["end_to_end"] + bench["per_layer"]:
@@ -105,12 +131,38 @@ def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
     traffic = json.loads((here / "traffic" / "pm3d_episode_k1e4.json").read_text())
     _add_cell(tmp_path, bench, "pm3d.episode_k2e4", "point_mass3d_t200",
               {**traffic, "samples": 20000}, "pm3d.episode_k1e4")
+    sharded = json.loads((here / "traffic" / "pm3d_sharded4_k4e5.json").read_text())
+    _add_cell(tmp_path, bench, TWO_KERNEL, "point_mass3d_t200",
+              {**sharded, "ranks": 1, "onepass": False, "samples": 100000}, "pm3d.sharded4_k4e5")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     cell = run.load_cell("pm3d.episode_k2e4", tmp_path)
     assert cell.traffic["samples"] == 20000
     assert {m["name"] for m in cell.end_to_end} == {"cycle_ms", "setup_s"}
     assert {m["name"] for m in cell.per_layer} == {"k1_roofline", "k2e_us", "idle_pct", "cycle_mfu"}
+    cell = run.load_cell(TWO_KERNEL, tmp_path)
+    assert (cell.chips, cell.traffic["ranks"], cell.traffic["onepass"]) == (1, 1, False)
+    assert {m["name"] for m in cell.end_to_end} == {"cycle_ms", "setup_s"}
+    assert {m["name"] for m in cell.per_layer} == {"k1_roofline", "idle_pct", "cycle_mfu",
+                                                   "nccl_us", "sharded_combine_us"}
+    assert run.counted_work(cell)[0] == work.k1_launch("lti", 1, 100000, 200, 3, 6)
     assert all(p.read_bytes() == b for p, b in before.items())
+
+
+def test_a_two_kernel_cell_added_by_files_runs_correct(tmp_path):
+    """The sharded kind's two-kernel branch on a world of one rank, a cell
+    added as the test above adds it, at a size a CPU test holds."""
+    shutil.copytree(ROOT / "bench_port", tmp_path / "bench_port", ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads(json.dumps(BENCH))
+    here = tmp_path / "bench_port"
+    sharded = json.loads((here / "traffic" / "pm3d_sharded4_k4e5.json").read_text())
+    _add_cell(tmp_path, bench, TWO_KERNEL, "point_mass3d_t200",
+              {**sharded, "ranks": 1, "onepass": False}, "pm3d.sharded4_k4e5")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = run.load_cell(TWO_KERNEL, tmp_path)
+    small_cell = dataclasses.replace(cell, config={**cell.config, "horizon": 12},
+                                     traffic={**cell.traffic, "samples": 64, "cycles": 8})
+    out = small.execute(small_cell, seconds=0.5)
+    assert out["correct"] and out["device"]["count"] == 1, out["check"]
 
 
 NEW_FAMILY = """

@@ -7,7 +7,15 @@ import numpy as np
 import pytest
 
 from bench_port import drive, run, trace, work
-from bench_port.metrics import cycle_mfu, host_us_per_step, idle_pct, k1_roofline, step_ms_p95
+from bench_port.metrics import (
+    cycle_mfu,
+    host_us_per_step,
+    idle_pct,
+    k1_roofline,
+    nccl_us,
+    sharded_combine_us,
+    step_ms_p95,
+)
 
 PEAK = work.PEAKS["sms"] * work.PEAKS["boost_hz"]
 
@@ -87,3 +95,19 @@ def test_idle_gaps_go_to_what_the_host_was_doing():
     assert trace.host_activity(*args, 60.8) == "bench.solve/aten::copy_"
     assert trace.host_activity(*args, 120.0) == "bench.plant"
     assert trace.host_activity(*args, 200.0) == "host outside any traced call"
+
+
+def test_the_exchange_and_the_sharded_combine_read_their_records():
+    recs = [("ncclDevKernel_AllReduce_Min_f32_RING_LL", 0.0, 3.0),
+            ("ncclKernel_AllReduce_RING_LL_Sum_float", 4.0, 5.0),
+            ("softmin_combine_kernel", 10.0, 1.5), ("sharded_scale_kernel", 12.0, 1.0),
+            ("sharded_tail_kernel<world::PointMass<3>, true>", 14.0, 2.5),
+            ("solve_partials_kernel<Lti<3>, 3, false, true>", 20.0, 100.0),
+            ("softmin_min_kernel<false>", 130.0, 1.0)]
+    t = trace.Trace(span_s=1e-3, busy_s=1e-4, records=recs, idle_gaps=[])
+    r = run.Run(setup_s=1.0, window=drive.Window(cycles=2), trace=t, untraced=None,
+                k1_launch=None, cycle_work=None)
+    assert nccl_us.read(r) == pytest.approx(4.0)
+    assert sharded_combine_us.read(r) == pytest.approx(2.5)
+    r.trace = trace.Trace(span_s=1e-3, busy_s=1e-4, records=recs[5:], idle_gaps=[])
+    assert nccl_us.read(r) is None and sharded_combine_us.read(r) is None
